@@ -1,0 +1,99 @@
+"""Kernel 1's plain version (tpu_dist_torch.ops.flash_attention) against the
+reference's Pallas FA-2 forward (tpu_dist.ops.flash_attention._fa_forward,
+interpret mode off-TPU): out and the per-row logsumexp in fp32 within
+2e-5, causal and not, with q/kv offsets -- including rows whose every key
+is masked, which must come out exactly zero on both sides."""
+
+import numpy as np
+import pytest
+import torch
+
+jax = pytest.importorskip("jax")
+pytest.importorskip("flax")   # the reference package needs both
+import jax.numpy as jnp  # noqa: E402
+
+from tpu_dist.ops import flash_attention as jfa  # noqa: E402
+from tpu_dist_torch.ops import flash_attention as tfa  # noqa: E402
+
+torch.set_num_threads(1)
+
+TOL = dict(rtol=2e-5, atol=2e-5)
+
+
+def _qkv(seed, b, lq, lk, h, d):
+    rng = np.random.default_rng(seed)
+    mk = lambda l: rng.standard_normal((b, l, h, d)).astype(np.float32)
+    return mk(lq), mk(lk), mk(lk)
+
+
+CASES = [
+    # (b, lq, lk, h, d, causal, q_offset, kv_offset)
+    (2, 32, 32, 2, 16, True, 0, 0),
+    (1, 24, 40, 3, 8, False, 0, 0),
+    (1, 32, 32, 2, 16, True, 0, 16),     # rows 0..15 see no key at all
+    (2, 16, 48, 2, 16, True, 32, 0),     # q block after the kv prefix
+    (1, 16, 32, 1, 8, True, 8, 24),      # partly masked rows
+]
+
+
+@pytest.mark.parametrize("case", CASES, ids=str)
+def test_plain_flash_matches_pallas_forward(case):
+    b, lq, lk, h, d, causal, qo, ko = case
+    q, k, v = _qkv(sum(case[:5]), b, lq, lk, h, d)
+    jout, jlse = jfa._fa_forward(jnp.asarray(q), jnp.asarray(k),
+                                 jnp.asarray(v), causal, qo, ko, 16, 16,
+                                 True)
+    tout, tlse = tfa.flash_forward(torch.from_numpy(q), torch.from_numpy(k),
+                                   torch.from_numpy(v), causal=causal,
+                                   q_offset=qo, kv_offset=ko)
+    jout = np.asarray(jout)
+    np.testing.assert_allclose(jout, tout.numpy(), **TOL)
+    np.testing.assert_allclose(np.asarray(jlse)[..., 0], tlse.numpy(), **TOL)
+    dead = np.all(jout == 0, axis=-1)
+    np.testing.assert_array_equal(dead, np.all(tout.numpy() == 0, axis=-1))
+    if ko > qo:
+        assert dead.any()                     # the fully-masked rows exist
+
+
+def test_attn_fn_matches_reference_flash_fn():
+    q, k, v = _qkv(7, 2, 24, 24, 2, 16)
+    jo = jfa.flash_attention_fn(block_q=8, block_k=8)(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    to = tfa.flash_attention_fn(block_q=8, block_k=8)(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v))
+    np.testing.assert_allclose(np.asarray(jo), to.numpy(), **TOL)
+    # memoized per config (the model's attn_fn compares equal)
+    assert tfa.flash_attention_fn(8, 8) is tfa.flash_attention_fn(8, 8)
+
+
+def test_ragged_lengths_need_no_divisible_blocks():
+    """The TPU path shrinks blocks to divisors of the length; the port
+    masks ragged edges, so any length works."""
+    q, k, v = _qkv(3, 1, 13, 13, 2, 16)
+    out, lse = tfa.flash_forward(torch.from_numpy(q), torch.from_numpy(k),
+                                 torch.from_numpy(v))
+    ref = jfa.blockwise_attention_fn(13)(jnp.asarray(q), jnp.asarray(k),
+                                         jnp.asarray(v))
+    np.testing.assert_allclose(np.asarray(ref), out.numpy(), **TOL)
+    assert lse.shape == (2, 13)
+
+
+def test_quantize_kv_matches_reference():
+    q, k, v = _qkv(5, 1, 8, 8, 2, 16)
+    jk = jfa.quantize_kv(jnp.asarray(k), jnp.asarray(v))
+    tk = tfa.quantize_kv(torch.from_numpy(k), torch.from_numpy(v))
+    for a, b in zip(jk, tk):
+        if b.dtype == torch.int8:
+            np.testing.assert_array_equal(np.asarray(a), b.numpy())
+        else:
+            np.testing.assert_allclose(np.asarray(a), b.numpy(), rtol=1e-7)
+
+
+def test_backward_is_refused_and_names_the_tpu_kernels():
+    q, k, v = (torch.from_numpy(a).requires_grad_()
+               for a in _qkv(1, 1, 8, 8, 1, 8))
+    with pytest.raises(NotImplementedError, match="_fa_bwd_dq_kernel"):
+        tfa.flash_attention_fn()(q, k, v)
+    with torch.inference_mode():
+        out = tfa.flash_attention_fn()(q.detach(), k.detach(), v.detach())
+    assert out.shape == (1, 8, 1, 8)

@@ -1,0 +1,72 @@
+"""The CUDA kernel sources themselves, on the CPU: each ``csrc/*.cu`` is
+compiled by the host C++ compiler against the emulation of
+``tpu_dist_torch/tools/cuda_emu.py`` (a thread per CUDA thread) and driven
+through the wrappers' own launch code with CPU tensors, against the plain
+versions. fp32 within 1e-5 (summation order only); bf16 within
+2e-2 * (1 + |plain|) (the kernels round p and the output to bf16).
+The hardware itself is checked by tests/test_torch_cuda.py on the card."""
+
+import shutil
+
+import pytest
+import torch
+
+from tpu_dist_torch.ops import flash_attention as fa
+from tpu_dist_torch.ops import paged_attention as pa
+from tpu_dist_torch.tools import cuda_emu
+
+torch.set_num_threads(1)
+
+TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.fixture(scope="module")
+def emu():
+    if not (shutil.which("g++") or shutil.which("clang++")):
+        pytest.skip("no host C++ compiler for the CUDA emulation")
+    return {"flash": cuda_emu.function("flash_fwd", "tdt_flash_fwd",
+                                       fa._FLASH_ARGS),
+            "paged": cuda_emu.function("paged_decode", "tdt_paged_decode",
+                                       pa._PAGED_ARGS)}
+
+
+def _close(out, ref, dtype):
+    diff = (out.float() - ref.float()).abs()
+    assert bool((diff <= TOL[dtype] * (1 + ref.float().abs())).all()), \
+        diff.max().item()
+
+
+@pytest.mark.parametrize("dtype,case", [
+    # (b, lq, lk, h, d, causal, q_offset, kv_offset)
+    (torch.float32, (1, 100, 100, 2, 64, True, 0, 0)),
+    (torch.float32, (1, 70, 130, 1, 64, False, 0, 0)),
+    (torch.float32, (1, 64, 64, 1, 128, True, 0, 40)),   # masked rows
+    (torch.float32, (1, 40, 96, 1, 64, True, 56, 0)),
+    (torch.bfloat16, (1, 80, 80, 1, 128, True, 0, 0)),
+], ids=str)
+def test_flash_kernel_source_matches_plain(emu, dtype, case):
+    b, lq, lk, h, d, causal, qo, ko = case
+    gen = torch.Generator().manual_seed(lq + lk)
+    q, k, v = (torch.randn((b, n, h, d), generator=gen).to(dtype)
+               for n in (lq, lk, lk))
+    out, lse = fa._launch(emu["flash"], q, k, v, causal, qo, ko, None)
+    ref, ref_lse = fa.flash_forward_plain(q, k, v, causal, qo, ko)
+    _close(out, ref, dtype)
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-5)
+    assert torch.equal((ref == 0).all(-1), (out == 0).all(-1))
+
+
+@pytest.mark.parametrize("dtype,d,lengths", [
+    (torch.float32, 128, [1, 200]),
+    (torch.bfloat16, 64, [0, 37, 96]),
+], ids=str)
+def test_paged_kernel_source_matches_plain(emu, dtype, d, lengths):
+    b, lk, h = len(lengths), max(lengths) + 4, 2
+    gen = torch.Generator().manual_seed(d)
+    q = torch.randn((b, 1, h, d), generator=gen).to(dtype)
+    k, v = (torch.randn((b, lk, h, d), generator=gen) for _ in range(2))
+    kq, ks, vq, vs = fa.quantize_kv(k, v)
+    lens = torch.tensor(lengths, dtype=torch.int32)
+    out = pa._launch(emu["paged"], q, kq, ks, vq, vs, lens, None)
+    _close(out, pa.paged_decode_plain(q, kq, ks, vq, vs, lens), dtype)
+    assert bool((out[lens == 0] == 0).all())

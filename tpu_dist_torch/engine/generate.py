@@ -1,0 +1,177 @@
+"""Autoregressive decoding for the port's LM (``tpu_dist/engine/generate.py``).
+
+:func:`generate` is the one-shot batch call: ``use_cache=True`` decodes
+through a contiguous per-block KV cache (one prefill forward, then one
+token per tick); ``use_cache=False`` re-runs the whole buffer every tick.
+It is the single-request reference the serving engine is held to: greedy
+tokens through the paged pool equal the contiguous cache's
+(tests/test_torch_serve.py). :func:`_sample` and
+:func:`_quantize_for_decode` are shared with ``engine.serve``.
+
+Sampling draws from an explicit ``torch.Generator``; it cannot reproduce
+``jax.random``'s stream, so only greedy decoding compares across the two
+packages. Sharded decode (the reference's ``mesh=``) is not ported.
+"""
+
+from __future__ import annotations
+
+import copy
+import threading
+import time
+import weakref
+from collections import OrderedDict
+from typing import Optional
+
+import torch
+
+from tpu_dist_torch.ops.quant import (params_are_wo_quantized, quantize_int8,
+                                      refuse_int8, validate_quant)
+
+
+def _sample(nxt_logits, temperature: float,
+            generator: Optional[torch.Generator] = None, top_k: int = 0,
+            top_p: float = 0.0):
+    """Next tokens (B,) from logits (B, V): greedy argmax at temperature
+    0, else categorical over logits/temperature truncated to the ``top_k``
+    best and/or the ``top_p`` nucleus (the first token always kept)."""
+    if temperature <= 0.0:
+        return torch.argmax(nxt_logits, dim=-1)
+    logits = nxt_logits.float() / temperature
+    neg_inf = torch.tensor(float("-inf"), device=logits.device)
+    if top_k:
+        kth = torch.sort(logits, dim=-1).values[:, -top_k][:, None]
+        logits = torch.where(logits >= kth, logits, neg_inf)
+    if top_p > 0.0:
+        sorted_logits = torch.sort(logits, dim=-1, descending=True).values
+        probs = torch.softmax(sorted_logits, dim=-1)
+        keep_sorted = torch.cumsum(probs, dim=-1) - probs < top_p
+        cutoff = torch.where(keep_sorted, sorted_logits,
+                             torch.tensor(float("inf"),
+                                          device=logits.device)
+                             ).amin(dim=-1, keepdim=True)
+        logits = torch.where(logits >= cutoff, logits, neg_inf)
+    probs = torch.softmax(logits, dim=-1)
+    return torch.multinomial(probs, 1, generator=generator)[:, 0]
+
+
+def _refuse_wo_tree(effective_mode: str, model) -> None:
+    """Raise when a wo-quantized model meets any decode mode but
+    'int8_wo' (the dynamic-int8 program cannot be built without the fp
+    weights, and a plain read of the int8 kernels would be garbage)."""
+    if effective_mode != "int8_wo" and params_are_wo_quantized(model):
+        raise ValueError(
+            "model holds wo-quantized (int8 kernel + kernel_scale) dense "
+            f"layers but the decode mode is {effective_mode!r}; pass "
+            "quant='int8_wo' for a pre-quantized model, or keep the fp one.")
+
+
+def _quantize_for_decode(model, quant: str):
+    """The model to decode ``quant`` with. ``int8_wo`` returns a copy whose
+    dense kernels are int8 with fp32 per-channel scales (weight bytes
+    halve against bf16); the copy is memoized in a small LRU keyed on the
+    model's identity and its parameters' in-place versions, holding only a
+    weakref to the model, so a serving process never re-quantizes a live
+    model and never pins a dead one. ``int8`` raises (its kernel is not
+    ported)."""
+    validate_quant(quant)
+    if quant == "none":
+        # the model's own mode decides what its layers may hold
+        _refuse_wo_tree(getattr(model, "quant", "none"), model)
+        return model
+    if quant == "int8":
+        refuse_int8("decode")
+    if params_are_wo_quantized(model):
+        return model
+    key = (id(model), quant,
+           tuple(p._version for p in model.parameters()))
+    with _wo_memo_lock:
+        hit = _wo_memo.get(key)
+        if hit is not None and hit[0]() is model:
+            _wo_memo.move_to_end(key)
+            return hit[1]
+    qmodel = copy.deepcopy(model)
+    with torch.no_grad():
+        for m in qmodel.modules():
+            if hasattr(m, "load_quantized"):
+                q, s = quantize_int8(m.kernel, (0,))
+                m.load_quantized(q, s)
+    qmodel.quant = quant
+
+    def _evict(_ref, _key=key):
+        with _wo_memo_lock:
+            _wo_memo.pop(_key, None)
+
+    evicted = []
+    with _wo_memo_lock:
+        _wo_memo[key] = (weakref.ref(model, _evict), qmodel)
+        _wo_memo.move_to_end(key)
+        while len(_wo_memo) > _WO_MEMO_MAX:
+            evicted.append(_wo_memo.popitem(last=False))
+    del evicted  # destroyed outside the lock (see the reference's note)
+    return qmodel
+
+
+_WO_MEMO_MAX = 4
+_wo_memo: "OrderedDict" = OrderedDict()
+# RLock: gc may run a weakref _evict on the thread already holding it
+_wo_memo_lock = threading.RLock()
+
+
+def _new_caches(model, b: int, total: int):
+    head_dim = model.d_model // model.num_heads
+    shape = (b, total, model.num_heads, head_dim)
+    return [{"k": torch.zeros(shape, dtype=model.dtype, device=model.device),
+             "v": torch.zeros(shape, dtype=model.dtype, device=model.device),
+             "index": 0} for _ in range(model.num_layers)]
+
+
+def generate(model, prompt, steps: int, temperature: float = 0.0,
+             generator: Optional[torch.Generator] = None,
+             use_cache: bool = False, top_k: int = 0, top_p: float = 0.0,
+             quant: str = "none", ledger=None) -> torch.Tensor:
+    """Continue ``prompt`` (B, P) by ``steps`` tokens on the model's
+    device; returns the (B, P + steps) int32 buffer. Temperature 0 is
+    greedy; above 0, draws come from ``generator`` (on the model's
+    device). ``quant`` decodes through quantized matmuls (``int8_wo``).
+    ``ledger`` records the call as one ``decode`` event."""
+    prompt = torch.as_tensor(prompt, dtype=torch.int32).to(model.device)
+    b, p = prompt.shape
+    if steps <= 0:
+        return prompt
+    model = _quantize_for_decode(model, quant)
+    total = p + steps
+    buf = torch.zeros((b, total), dtype=torch.int32, device=model.device)
+    buf[:, :p] = prompt
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        if use_cache:
+            caches = _new_caches(model, b, total)
+            logits = model(buf[:, :p], pos_offset=0, caches=caches)
+            buf[:, p] = _sample(logits[:, -1], temperature, generator,
+                                top_k, top_p).to(torch.int32)
+            for pos in range(p, total - 1):
+                logits = model(buf[:, pos:pos + 1], pos_offset=pos,
+                               caches=caches)
+                buf[:, pos + 1] = _sample(logits[:, 0], temperature,
+                                          generator, top_k, top_p
+                                          ).to(torch.int32)
+        else:
+            for pos in range(p - 1, total - 1):
+                logits = model(buf)
+                buf[:, pos + 1] = _sample(logits[:, pos], temperature,
+                                          generator, top_k, top_p
+                                          ).to(torch.int32)
+    if ledger is None:
+        return buf
+    dispatch_s = time.perf_counter() - t0
+    if buf.is_cuda:
+        torch.cuda.synchronize(buf.device)
+    total_s = time.perf_counter() - t0
+    tokens = b * steps
+    ledger.emit("decode", tokens=tokens, seconds=round(total_s, 6),
+                throughput=round(tokens / max(total_s, 1e-9), 1),
+                dispatch_s=round(dispatch_s, 6),
+                device_s=round(total_s - dispatch_s, 6),
+                cached=use_cache, batch=b, prompt_len=p, steps=steps,
+                quant=quant)
+    return buf

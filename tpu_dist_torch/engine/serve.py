@@ -1,0 +1,815 @@
+"""Continuous-batching decode engine over the paged KV cache, for the port
+(``tpu_dist/engine/serve.py``).
+
+Iteration-level scheduling (Orca, OSDI '22): admission decisions happen
+at every decode tick, a finished sequence's slot and pages are reclaimed
+and refilled the same tick. The pieces, as in the reference:
+
+* :class:`~tpu_dist_torch.engine.kv_cache.PagedKVPool` backs every
+  sequence with block-table pages (model dtype, or int8 + scales);
+* two page programs serve all traffic: ``prefill`` (one admit's prompt,
+  padded to a length bucket, writing its pages and sampling the first
+  token; attention through the model's ``attn_fn`` -- the flash kernel
+  under ``attn_fn=flash_attention_fn()``) and the decode ``tick`` (the
+  packed slot set, one token per active sequence at its own position;
+  inactive slots ride along on all-trash block tables). With
+  ``kv_quant="int8", attn_read="flash"`` every tick reads its pages
+  through the paged decode kernel;
+* chunked prefill (``prefill_chunk``): long prompts run one fixed-size
+  chunk per scheduler iteration, interleaved with the decode tick;
+* copy-on-write prefix caching (``prefix_cache``);
+* SLO-aware admission: queue-depth and free-page watermarks at submit,
+  and an EMA of queue wait that sheds new work while it breaches the
+  floor (the ``slo`` ledger event);
+* graceful drain (:meth:`ServeEngine.drain`, SIGTERM);
+* ledger events ``admit`` / ``request`` / ``kv_cache`` / ``slo`` and the
+  request-trace ``span`` s of ``obs.reqtrace``, with the reference's
+  names and fields.
+
+Not ported, and refused with ``NotImplementedError`` naming the knob:
+speculative decoding (``spec_k > 0``, ``draft_model``), sp-sharded
+serving (``mesh=``, ``sp_prefill_threshold > 0``), dynamic int8 weights
+(``quant="int8"``, whose TPU kernel is ``_fused_quant_kernel``) and MoE
+models (refused by the reference too). The reference's compile-audit
+hooks (``plan/compile.py``) audit JAX programs and have no counterpart.
+
+The scheduler is host-side and clock-agnostic (``now_fn``; tests and
+trace replay pass a virtual clock). Page programs run under
+``torch.inference_mode()`` on the engine's device.
+"""
+
+from __future__ import annotations
+
+import signal
+import threading
+import time
+from collections import deque
+from dataclasses import dataclass
+from typing import Callable, Deque, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from tpu_dist_torch.device import resolve_device
+from tpu_dist_torch.engine.generate import _quantize_for_decode, _sample
+from tpu_dist_torch.engine.kv_cache import PagedKVPool, PrefixMatch
+from tpu_dist_torch.obs.reqtrace import RequestTracer
+from tpu_dist_torch.ops.quant import refuse_int8
+
+
+@dataclass
+class DecodeRequest:
+    """One generation request: continue ``prompt`` by ``max_new_tokens``
+    (or until ``ServeConfig.eos_id``). ``rid`` rides every ledger event of
+    the request; ``tenant`` names its traffic class."""
+
+    rid: int
+    prompt: np.ndarray
+    max_new_tokens: int
+    tenant: Optional[str] = None
+
+
+@dataclass
+class Completion:
+    """A finished request with its serving timeline (engine clock)."""
+
+    rid: int
+    tokens: np.ndarray           # (prompt + generated,) int32
+    prompt_len: int
+    n_generated: int
+    admit_ts: float              # entered the queue (submit time)
+    start_ts: float              # left the queue (prefill start)
+    first_token_ts: float
+    finish_ts: float
+
+    @property
+    def queue_wait_s(self) -> float:
+        return self.start_ts - self.admit_ts
+
+    @property
+    def ttft_s(self) -> float:
+        return self.first_token_ts - self.admit_ts
+
+
+@dataclass
+class ServeConfig:
+    """Scheduler + paged-cache knobs (the reference's, same defaults)."""
+
+    max_slots: int = 4           # concurrent sequences (the packed batch)
+    page_size: int = 16          # tokens per KV page
+    num_pages: int = 256         # pool capacity (per layer, +1 trash page)
+    max_len: Optional[int] = None   # per-sequence cap (default model.max_len)
+    quant: str = "none"          # weight quant (int8_wo pre-quantizes once)
+    kv_quant: str = "none"       # page dtype: none (model dtype) | int8
+    attn_read: str = "exact"     # exact | flash (int8-KV decode kernel)
+    temperature: float = 0.0
+    top_k: int = 0
+    top_p: float = 0.0
+    eos_id: Optional[int] = None
+    prefill_buckets: Tuple[int, ...] = ()   # () = powers of 2 up to max_len
+    refill: str = "continuous"   # continuous | drain (static-batch baseline)
+    queue_depth_max: int = 64    # hard admission cap
+    free_page_watermark: float = 0.0   # reject below this free fraction
+    slo_queue_wait_s: float = 0.0      # EMA floor; 0 disables shedding
+    slo_alpha: float = 0.5
+    slo_min_samples: int = 2
+    kv_event_every: int = 0      # ticks between kv_cache events (0 = final)
+    spec_k: int = 0              # speculative decoding: not ported (raises)
+    prefix_cache: bool = False   # CoW prefix sharing across requests
+    prefill_chunk: int = 0       # chunked prefill size (0 = monolithic)
+    sp_prefill_threshold: int = 0   # sp prefill: not ported (raises)
+    trace_window_ticks: int = 8  # decode ticks per request-trace span
+
+
+@dataclass
+class _Slot:
+    req: DecodeRequest
+    pages: List[int]
+    block_table: np.ndarray      # (max_pages_per_seq,) int32
+    buf: np.ndarray              # (prompt + max_new,) int32
+    prompt_len: int
+    admit_ts: float
+    start_ts: float
+    position: int = 0            # next KV write position
+    generated: int = 0
+    first_token_ts: float = 0.0
+    finish_ts: float = 0.0
+    done: bool = False
+    # copy-on-write: (bt_slot, src_page, dst_page) of a shared frontier
+    # page, forked right before the first decode write; None once private
+    cow_pending: Optional[Tuple[int, int, int]] = None
+    # chunked prefill: next prompt offset to prefill (-1 once resident)
+    chunk_next: int = -1
+    shared_len: int = 0          # prefix-cache-resident prompt rows
+    n_fresh: int = 0
+    n_shared: int = 0
+    # the open decode-window span (obs.reqtrace)
+    win_start_ts: float = 0.0
+    win_ticks: int = 0
+    win_tokens: int = 0
+
+
+def _default_buckets(max_len: int) -> Tuple[int, ...]:
+    """Powers of two from 8 up to max_len, plus max_len itself."""
+    out = []
+    b = 8
+    while b < max_len:
+        out.append(b)
+        b *= 2
+    out.append(max_len)
+    return tuple(out)
+
+
+class ServeEngine:
+    """The continuous-batching scheduler (module docstring has the tour).
+
+    ``model`` is a port ``TransformerLM`` on ``device`` (default CUDA;
+    without CUDA the default raises, ``device="cpu"`` runs the plain
+    path). Drive it with :meth:`run` (submit everything, drain) or with
+    ``submit()`` as requests arrive and ``step()`` once per iteration."""
+
+    def __init__(self, model, config: Optional[ServeConfig] = None, *,
+                 draft_model=None, ledger=None,
+                 tracer: Optional[RequestTracer] = None,
+                 now_fn: Callable[[], float] = time.monotonic,
+                 generator: Optional[torch.Generator] = None, mesh=None,
+                 device=None):
+        cfg = config if config is not None else ServeConfig()
+        self.device = resolve_device(device)
+        if getattr(model, "num_experts", 0):
+            raise NotImplementedError(
+                "paged serving covers the dense TransformerLM family; the "
+                "MoE capacity-factor dispatch needs its own scheduling story")
+        if cfg.spec_k > 0 or draft_model is not None:
+            raise NotImplementedError(
+                "speculative decoding (ServeConfig.spec_k / draft_model) is "
+                "not ported yet")
+        if mesh is not None or cfg.sp_prefill_threshold > 0:
+            raise NotImplementedError(
+                "sp-sharded serving (ServeEngine(mesh=...) / "
+                "ServeConfig.sp_prefill_threshold) is not ported yet")
+        if cfg.quant == "int8":
+            refuse_int8("ServeConfig.quant")
+        if model.device != self.device:
+            raise ValueError(f"model lives on {model.device}, engine device "
+                             f"is {self.device}: build the model there")
+        self.model = _quantize_for_decode(model, cfg.quant)
+        self.cfg = cfg
+        self.max_len = min(cfg.max_len or model.max_len, model.max_len)
+        head_dim = model.d_model // model.num_heads
+        self.pool = PagedKVPool(
+            model.num_layers, cfg.num_pages, cfg.page_size,
+            model.num_heads, head_dim, dtype=model.dtype,
+            kv_quant=cfg.kv_quant, read=cfg.attn_read, device=self.device)
+        self.max_pages_per_seq = self.pool.pages_needed(self.max_len)
+        # max_len always terminates the bucket ladder
+        self.buckets = tuple(sorted({self.max_len, *(
+            b for b in (cfg.prefill_buckets or _default_buckets(self.max_len))
+            if b <= self.max_len)}))
+        self.slots: List[Optional[_Slot]] = [None] * cfg.max_slots
+        self.queue: Deque[Tuple[DecodeRequest, float]] = deque()
+        self._now = now_fn
+        self._gen = generator if generator is not None else \
+            torch.Generator(device=self.device).manual_seed(0)
+        self.ledger = ledger
+        self.tracer = tracer
+        if self.tracer is None and ledger is not None:
+            self.tracer = RequestTracer(ledger, job_id="serve", attempt=0)
+        self.pool.bind_trace(self.tracer, self._now)
+        self.ticks = 0
+        self.completed = 0
+        self.rejected = 0
+        self.prefills = 0
+        self.chunk_ticks = 0
+        self.prefill_token_work = 0
+        # host wall seconds in page programs, each up to its result's sync
+        # (prefill and chunks incl. the first-token read; ticks incl. the
+        # per-tick token read): the split of where a run's time went
+        self.prefill_s = 0.0
+        self.tick_s = 0.0
+        self.prompt_pages = 0
+        self.shared_prompt_pages = 0
+        self._occupancy_sum = 0.0
+        self._wait_ema: Optional[float] = None
+        self._wait_samples = 0
+        self._in_breach = False
+        self.shedding = False
+        self._last_kv_tick = 0
+        self._t_start = self._now()
+        self.draining = False
+        self._drained = False
+        self._preempt_event = threading.Event()
+        self._prev_sigterm = None
+
+    # -- admission --------------------------------------------------------
+    def submit(self, req: DecodeRequest) -> bool:
+        """Queue one request; False = rejected by admission control."""
+        now = self._now()
+        prompt_len = int(np.asarray(req.prompt).size)
+        total = prompt_len + req.max_new_tokens
+        if prompt_len < 1 or req.max_new_tokens < 1 or total > self.max_len:
+            self._emit_admit(req, now, False, "too_long")
+            return False
+        if self.pool.pages_needed(total) > self.pool.num_pages:
+            self._emit_admit(req, now, False, "exceeds_pool")
+            return False
+        if self.draining:
+            self._emit_admit(req, now, False, "shed")
+            return False
+        if self.shedding:
+            self._emit_admit(req, now, False, "slo_shedding")
+            return False
+        if len(self.queue) >= self.cfg.queue_depth_max:
+            self._emit_admit(req, now, False, "queue_full")
+            return False
+        free_frac = self.pool.pages_free / max(self.pool.num_pages, 1)
+        if free_frac < self.cfg.free_page_watermark:
+            self._emit_admit(req, now, False, "page_watermark")
+            return False
+        self.queue.append((req, now))
+        self._emit_admit(req, now, True, None)
+        return True
+
+    def _emit_admit(self, req, now, accepted, reason, enq_ts=None):
+        if not accepted:
+            self.rejected += 1
+        if self.ledger is None:
+            return
+        self.ledger.emit("admit", rid=req.rid, accepted=accepted,
+                         queue_depth=len(self.queue),
+                         pages_free=self.pool.pages_free,
+                         reason=reason, tenant=req.tenant,
+                         ts_engine=round(now, 6))
+        if accepted or self.tracer is None:
+            return
+        # every rejection is a 'shed' span: zero-length at the door,
+        # enqueue->now for a queued request shed by drain
+        tr = self.tracer
+        tid, sid, par = tr.ids(req.rid, "shed")
+        tr.ledger.emit("span", trace_id=tid, span_id=sid, parent_id=par,
+                       name="shed", rid=req.rid,
+                       start=round(now if enq_ts is None else enq_ts, 6),
+                       end=round(now, 6), reason=reason,
+                       tenant=req.tenant, **tr.attrs())
+
+    def _observe_wait(self, wait: float) -> None:
+        a = self.cfg.slo_alpha
+        self._wait_ema = (wait if self._wait_ema is None
+                          else a * wait + (1 - a) * self._wait_ema)
+        self._wait_samples += 1
+        floor = self.cfg.slo_queue_wait_s
+        if floor <= 0 or self._wait_samples < self.cfg.slo_min_samples:
+            return
+        if self._wait_ema > floor and not self._in_breach:
+            self._in_breach = True
+            self.shedding = True
+            if self.ledger is not None:
+                self.ledger.emit("slo", step=self.ticks, kind="queue_wait",
+                                 value=round(self._wait_ema, 6), floor=floor,
+                                 unit="s")
+        elif self._wait_ema <= floor and self._in_breach:
+            self._in_breach = False   # re-arm; resume admitting
+            self.shedding = False
+
+    def _decay_wait_if_idle(self) -> None:
+        """While shedding with an empty queue the wait evidence is stale:
+        one alpha-decay toward zero per iteration re-arms the hysteresis
+        (otherwise a transient overload would shed forever)."""
+        if not self.shedding or self.queue or self._wait_ema is None:
+            return
+        self._wait_ema *= (1 - self.cfg.slo_alpha)
+        if self._wait_ema <= self.cfg.slo_queue_wait_s:
+            self._in_breach = False
+            self.shedding = False
+
+    # -- the scheduler iteration -----------------------------------------
+    def step(self) -> List[Completion]:
+        """One iteration: evict finished sequences, admit + prefill from
+        the queue, run at most one prefill chunk, then one decode tick.
+        Returns the completions evicted this iteration."""
+        completions = self._evict()
+        with torch.inference_mode():
+            self._admit()
+            self._chunk_tick()
+            self._tick()
+        self._decay_wait_if_idle()
+        every = self.cfg.kv_event_every
+        if (every > 0 and self.ticks % every == 0
+                and self.ticks != self._last_kv_tick):
+            self._last_kv_tick = self.ticks
+            self._emit_kv_cache()
+        return completions
+
+    def run(self, requests=(), max_ticks: int = 100_000) -> List[Completion]:
+        """Submit everything, then step until drained. A SIGTERM
+        (:meth:`install_sigterm_drain`) switches to :meth:`drain`."""
+        for req in requests:
+            self.submit(req)
+        out: List[Completion] = []
+        while self.queue or any(s is not None for s in self.slots):
+            if self._preempt_event.is_set() and not self.draining:
+                out.extend(self.drain(reason="sigterm"))
+                return out
+            out.extend(self.step())
+            if self.ticks > max_ticks:
+                raise RuntimeError(
+                    f"serve drain exceeded {max_ticks} ticks "
+                    f"({len(self.queue)} queued, "
+                    f"{sum(s is not None for s in self.slots)} active)")
+        self._emit_kv_cache()
+        return out
+
+    # -- graceful shutdown ------------------------------------------------
+    def install_sigterm_drain(self):
+        """Route SIGTERM into a graceful drain at the next tick boundary
+        (the handler only sets a flag). Main thread only; returns an
+        uninstall callable."""
+        prev = signal.signal(signal.SIGTERM,
+                             lambda signum, frame: self._preempt_event.set())
+        self._prev_sigterm = prev
+
+        def uninstall():
+            signal.signal(signal.SIGTERM, prev)
+            self._prev_sigterm = None
+
+        return uninstall
+
+    def drain(self, reason: str = "sigterm", max_ticks: int = 100_000,
+              emit_run_end: bool = True) -> List[Completion]:
+        """Finish every in-flight sequence, shed the whole queue (``shed``
+        admission records), free all pages, emit ``scale``/``run_end``.
+        Idempotent; returns the in-flight sequences' completions."""
+        if self._drained:
+            return []
+        self.draining = True
+        shed = list(self.queue)
+        self.queue.clear()
+        now = self._now()
+        for req, enq_ts in shed:
+            self._emit_admit(req, now, False, "shed", enq_ts=enq_ts)
+        out: List[Completion] = []
+        t0_ticks = self.ticks
+        while any(s is not None for s in self.slots):
+            out.extend(self.step())
+            if self.ticks - t0_ticks > max_ticks:
+                raise RuntimeError(
+                    f"graceful drain exceeded {max_ticks} ticks with "
+                    f"{sum(s is not None for s in self.slots)} still active")
+        self._drained = True
+        self._emit_kv_cache()
+        if self.ledger is not None:
+            self.ledger.emit(
+                "scale", action="drain", processes=1, epoch=None,
+                reason=reason, shed=len(shed), finished=len(out))
+            if emit_run_end:
+                self.ledger.emit(
+                    "run_end", steps=self.ticks,
+                    seconds=round(self._now() - self._t_start, 6),
+                    status="preempted", reason=reason,
+                    completed=self.completed, rejected=self.rejected,
+                    shed=len(shed))
+        return out
+
+    # -- page programs ----------------------------------------------------
+    def _tensor(self, x, dtype=torch.int32):
+        return torch.as_tensor(np.asarray(x), dtype=dtype).to(self.device)
+
+    def _prefill_program(self, bt, length, shared_len, padded):
+        """One admit's padded prompt: pages written for the live rows at
+        or past ``shared_len``, first token sampled from the last live
+        row's logits."""
+        bucket = padded.shape[1]
+        valid = (torch.arange(bucket, device=self.device)[None, :]
+                 >= shared_len)
+        paged = {"layers": self.pool.layers(),
+                 "block_tables": self._tensor(bt[None]),
+                 "positions": self._tensor([0]),
+                 "lengths": self._tensor([length]), "valid": valid}
+        logits, _ = self.model(self._tensor(padded), paged=paged,
+                               paged_prefill=True)
+        return self._sample(logits[:, length - 1])[0]
+
+    def _tick_program(self, bts, tokens, positions):
+        """One token per slot at its own position."""
+        pos = self._tensor(positions)
+        paged = {"layers": self.pool.layers(),
+                 "block_tables": self._tensor(bts),
+                 "positions": pos, "lengths": pos + 1}
+        logits, _ = self.model(self._tensor(tokens)[:, None],
+                               pos_offset=pos, paged=paged)
+        return self._sample(logits[:, 0])
+
+    def _chunk_program(self, bt, start, length, shared_len, tokens):
+        """Rows [start, start + chunk) of a prompt, written and attended
+        through the tick's per-row-position path; returns the last live
+        row's logits (meaningful on the final chunk)."""
+        chunk = tokens.shape[1]
+        pos = self._tensor([start])
+        rows = pos[:, None] + torch.arange(chunk, device=self.device)[None]
+        valid = (rows < length) & (rows >= shared_len)
+        paged = {"layers": self.pool.layers(),
+                 "block_tables": self._tensor(bt[None]),
+                 "positions": pos, "lengths": pos + chunk, "valid": valid}
+        logits, _ = self.model(self._tensor(tokens), pos_offset=pos,
+                               paged=paged)
+        return logits[:, min(max(length - 1 - start, 0), chunk - 1)]
+
+    def _sample(self, logits):
+        c = self.cfg
+        return _sample(logits, c.temperature, self._gen, c.top_k, c.top_p)
+
+    # -- internals --------------------------------------------------------
+    def _evict(self) -> List[Completion]:
+        out = []
+        for i, slot in enumerate(self.slots):
+            if slot is None or not slot.done:
+                continue
+            self.pool.free(slot.pages)
+            self.slots[i] = None
+            n = slot.prompt_len + slot.generated
+            comp = Completion(
+                rid=slot.req.rid, tokens=slot.buf[:n].copy(),
+                prompt_len=slot.prompt_len, n_generated=slot.generated,
+                admit_ts=slot.admit_ts, start_ts=slot.start_ts,
+                first_token_ts=slot.first_token_ts,
+                finish_ts=slot.finish_ts)
+            self.completed += 1
+            out.append(comp)
+            if self.ledger is not None:
+                self.ledger.emit(
+                    "request", rid=comp.rid, tokens=comp.n_generated,
+                    queue_wait_s=round(comp.queue_wait_s, 6),
+                    admit_ts=round(comp.admit_ts, 6),
+                    first_token_ts=round(comp.first_token_ts, 6),
+                    finish_ts=round(comp.finish_ts, 6),
+                    prompt_len=comp.prompt_len,
+                    tenant=slot.req.tenant,
+                    ttft_s=round(comp.ttft_s, 6))
+            if self.tracer is not None:
+                # the root span, admit -> finish, emitted after its children
+                tr = self.tracer
+                tid, sid, par = tr.root_ids(comp.rid)
+                tr.ledger.emit("span", trace_id=tid, span_id=sid,
+                               parent_id=par, name="request", rid=comp.rid,
+                               start=round(comp.admit_ts, 6),
+                               end=round(comp.finish_ts, 6),
+                               ttft_s=round(comp.ttft_s, 6),
+                               queue_wait_s=round(comp.queue_wait_s, 6),
+                               tokens=comp.n_generated,
+                               prompt_len=comp.prompt_len,
+                               tenant=slot.req.tenant, **tr.attrs())
+        return out
+
+    def _admit(self) -> None:
+        if self.cfg.refill == "drain" and any(
+                s is not None for s in self.slots):
+            return  # static batching: refill only once the batch drained
+        for i in range(len(self.slots)):
+            if not self.queue:
+                break
+            if self.slots[i] is not None:
+                continue
+            req, enq_ts = self.queue[0]
+            prompt = np.asarray(req.prompt, np.int32).reshape(-1)
+            p = prompt.size
+            total_slots = self.pool.pages_needed(p + req.max_new_tokens)
+            use_chunk = (self.cfg.prefill_chunk > 0
+                         and p > self.cfg.prefill_chunk)
+            match = (self.pool.share_prefix(prompt, rid=req.rid)
+                     if self.cfg.prefix_cache else None)
+            # fresh pages: everything past the full-page hits (a frontier
+            # hit reserves one fresh page as its copy-on-write target)
+            n_fresh = total_slots - (match.full if match is not None else 0)
+            fresh = self.pool.alloc(n_fresh)
+            if fresh is None:
+                if match is not None:
+                    self.pool.unshare(match)
+                break  # pool pressure: leave it queued, decode on
+            self.queue.popleft()
+            now = self._now()
+            self._observe_wait(now - enq_ts)
+            if self.tracer is not None:
+                tr = self.tracer
+                tid, sid, par = tr.ids(req.rid, "queue")
+                tr.ledger.emit("span", trace_id=tid, span_id=sid,
+                               parent_id=par, name="queue", rid=req.rid,
+                               start=round(enq_ts, 6), end=round(now, 6),
+                               queue_depth=len(self.queue),
+                               tenant=req.tenant, **tr.attrs())
+            if use_chunk:
+                self._begin_chunked(i, req, prompt, fresh, enq_ts, now,
+                                    match)
+            else:
+                self._prefill(i, req, prompt, fresh, enq_ts, now, match)
+
+    def _block_table(self, fresh, match):
+        """(block table, bt pages, shared pages, shared_len, cow) of an
+        admission: shared pages first; with a frontier hit the last fresh
+        page is its reserved CoW destination."""
+        shared = list(match.pages) if match is not None else []
+        shared_len = match.cov if match is not None else 0
+        cow = None
+        if match is not None and match.partial:
+            cow = (match.full, shared[-1], fresh[-1])
+            bt_pages = shared + fresh[:-1]
+        else:
+            bt_pages = shared + fresh
+        bt = np.full((self.max_pages_per_seq,), self.pool.num_pages,
+                     np.int32)                       # unassigned -> trash
+        bt[:len(bt_pages)] = bt_pages
+        return bt, bt_pages, shared, shared_len, cow
+
+    def _prefill(self, slot_idx, req, prompt, fresh, enq_ts, start_ts,
+                 match: Optional[PrefixMatch] = None):
+        p = prompt.size
+        bucket = next(b for b in self.buckets if b >= p)
+        bt, bt_pages, shared, shared_len, cow = self._block_table(fresh,
+                                                                  match)
+        padded = np.zeros((1, bucket), np.int32)
+        padded[0, :p] = prompt
+        t0 = time.perf_counter()
+        tok = int(self._prefill_program(bt, p, shared_len, padded).item())
+        self.prefill_s += time.perf_counter() - t0
+        self.prefill_token_work += bucket
+        if self.cfg.prefix_cache:
+            self.pool.register_prefix(prompt, bt_pages,
+                                      skip_slots=len(shared))
+            self.prompt_pages += self.pool.pages_needed(p)
+            self.shared_prompt_pages += len(shared)
+        self.prefills += 1
+        now = self._now()
+        slot = _Slot(req=req, pages=shared + fresh, block_table=bt,
+                     buf=np.zeros((p + req.max_new_tokens,), np.int32),
+                     prompt_len=p, admit_ts=enq_ts, start_ts=start_ts,
+                     position=p, generated=1, first_token_ts=now,
+                     cow_pending=cow, win_start_ts=now)
+        slot.buf[:p] = prompt
+        slot.buf[p] = tok
+        if (slot.generated >= req.max_new_tokens
+                or tok == self.cfg.eos_id):
+            slot.done = True
+            slot.finish_ts = now
+        self.slots[slot_idx] = slot
+        if self.tracer is not None:
+            tr = self.tracer
+            tid, sid, par = tr.ids(req.rid, "prefill")
+            tr.ledger.emit("span", trace_id=tid, span_id=sid,
+                           parent_id=par, name="prefill", rid=req.rid,
+                           start=round(start_ts, 6), end=round(now, 6),
+                           bucket=bucket, prompt_len=p,
+                           pages_fresh=len(fresh),
+                           pages_shared=len(shared),
+                           shared_len=shared_len, cow=cow is not None,
+                           tenant=req.tenant, **tr.attrs())
+
+    # -- chunked prefill ---------------------------------------------------
+    def _begin_chunked(self, slot_idx, req, prompt, fresh, enq_ts, start_ts,
+                       match: Optional[PrefixMatch] = None):
+        """Admit a long prompt without running its prefill: the slot parks
+        with ``chunk_next >= 0`` (outside the tick's active set) and
+        :meth:`_chunk_tick` feeds it one chunk per iteration; the first
+        token, prefix registration and the prefill span land on the final
+        chunk."""
+        p = prompt.size
+        chunk = self.cfg.prefill_chunk
+        bt, _, shared, shared_len, cow = self._block_table(fresh, match)
+        slot = _Slot(req=req, pages=shared + fresh, block_table=bt,
+                     buf=np.zeros((p + req.max_new_tokens,), np.int32),
+                     prompt_len=p, admit_ts=enq_ts, start_ts=start_ts,
+                     position=p, generated=0, cow_pending=cow,
+                     # start at the chunk holding the first non-shared row
+                     chunk_next=min(shared_len, p - 1) // chunk * chunk,
+                     shared_len=shared_len,
+                     n_fresh=len(fresh), n_shared=len(shared))
+        slot.buf[:p] = prompt
+        self.slots[slot_idx] = slot
+
+    def _chunk_tick(self) -> None:
+        """At most one prefill chunk per iteration, lowest slot first."""
+        for s in self.slots:
+            if s is not None and not s.done and s.chunk_next >= 0:
+                self._run_chunk(s)
+                return
+
+    def _run_chunk(self, s: _Slot) -> None:
+        cfg = self.cfg
+        chunk = cfg.prefill_chunk
+        p = s.prompt_len
+        start = s.chunk_next
+        tokens = np.zeros((1, chunk), np.int32)
+        seg = s.buf[start:min(start + chunk, p)]
+        tokens[0, :seg.size] = seg
+        t0 = time.perf_counter()
+        last = self._chunk_program(s.block_table, start, p, s.shared_len,
+                                   tokens)
+        self.chunk_ticks += 1
+        self.prefill_token_work += chunk
+        if start + chunk < p:
+            self.prefill_s += time.perf_counter() - t0
+            s.chunk_next = start + chunk
+            return
+        # final chunk: the prompt is resident -- sample the first token
+        s.chunk_next = -1
+        tok = int(self._sample(last)[0].item())
+        self.prefill_s += time.perf_counter() - t0
+        if cfg.prefix_cache:
+            bt_pages = [int(x) for x in s.block_table
+                        if int(x) < self.pool.num_pages]
+            self.pool.register_prefix(s.buf[:p], bt_pages,
+                                      skip_slots=s.n_shared)
+            self.prompt_pages += self.pool.pages_needed(p)
+            self.shared_prompt_pages += s.n_shared
+        self.prefills += 1
+        now = self._now()
+        s.buf[p] = tok
+        s.generated = 1
+        s.first_token_ts = now
+        s.win_start_ts = now
+        if s.generated >= s.req.max_new_tokens or tok == cfg.eos_id:
+            s.done = True
+            s.finish_ts = now
+        if self.tracer is not None:
+            tr = self.tracer
+            tid, sid, par = tr.ids(s.req.rid, "prefill")
+            first = min(s.shared_len, p - 1) // chunk * chunk
+            tr.ledger.emit("span", trace_id=tid, span_id=sid,
+                           parent_id=par, name="prefill", rid=s.req.rid,
+                           start=round(s.start_ts, 6), end=round(now, 6),
+                           mode="chunked", chunk=chunk,
+                           chunks=-(-(p - first) // chunk),
+                           prompt_len=p, pages_fresh=s.n_fresh,
+                           pages_shared=s.n_shared,
+                           shared_len=s.shared_len,
+                           cow=s.cow_pending is not None,
+                           tenant=s.req.tenant, **tr.attrs())
+
+    def _resolve_cow(self, active) -> None:
+        """Fork every pending shared frontier page before this tick's
+        writes; the forking sequence swaps its block-table entry."""
+        for _i, s in active:
+            if s.cow_pending is None:
+                continue
+            bt_slot, src, dst = s.cow_pending
+            self.pool.fork_page(src, dst, rid=s.req.rid)
+            s.block_table[bt_slot] = dst
+            s.pages.remove(src)
+            s.cow_pending = None
+
+    def _tick(self) -> None:
+        # a slot mid-chunked-prefill has no token to decode yet
+        active = [(i, s) for i, s in enumerate(self.slots)
+                  if s is not None and not s.done and s.chunk_next < 0]
+        if not active:
+            return
+        self._resolve_cow(active)
+        n = len(self.slots)
+        tokens = np.zeros((n,), np.int32)
+        positions = np.zeros((n,), np.int32)
+        bts = np.full((n, self.max_pages_per_seq), self.pool.num_pages,
+                      np.int32)
+        for i, s in active:
+            tokens[i] = s.buf[s.prompt_len + s.generated - 1]
+            positions[i] = s.position
+            bts[i] = s.block_table
+        # one sync per tick: the scheduler's eviction/refill decision point
+        t0 = time.perf_counter()
+        nxt = self._tick_program(bts, tokens, positions).cpu().numpy()
+        self.tick_s += time.perf_counter() - t0
+        now = self._now()
+        for i, s in active:
+            tok = int(nxt[i])
+            s.buf[s.prompt_len + s.generated] = tok
+            s.generated += 1
+            s.position += 1
+            if (s.generated >= s.req.max_new_tokens
+                    or tok == self.cfg.eos_id):
+                s.done = True
+                s.finish_ts = now
+            self._note_decode(s, now)
+        self.ticks += 1
+        self._occupancy_sum += len(active) / max(len(self.slots), 1)
+
+    def _note_decode(self, s: _Slot, now: float) -> None:
+        """Advance the slot's decode window; close it into a ``decode``
+        span every ``trace_window_ticks`` ticks and at finish (windows
+        share boundaries, so they tile first token -> finish)."""
+        if self.tracer is None:
+            return
+        s.win_ticks += 1
+        s.win_tokens += 1
+        if not s.done and s.win_ticks < max(self.cfg.trace_window_ticks, 1):
+            return
+        tr = self.tracer
+        tid, sid, par = tr.ids(s.req.rid, "decode")
+        tr.ledger.emit("span", trace_id=tid, span_id=sid, parent_id=par,
+                       name="decode", rid=s.req.rid,
+                       start=round(s.win_start_ts, 6), end=round(now, 6),
+                       ticks=s.win_ticks, tokens=s.win_tokens,
+                       spec_drafted=0, **tr.attrs())
+        s.win_start_ts = now
+        s.win_ticks = s.win_tokens = 0
+
+    def _emit_kv_cache(self) -> None:
+        if self.ledger is None:
+            return
+        st = self.pool.stats()
+        self.ledger.emit("kv_cache", pages_free=st["pages_free"],
+                         pages_used=st["pages_used"],
+                         active_seqs=sum(s is not None for s in self.slots),
+                         pages_total=st["pages_total"],
+                         high_water_used=st["high_water_used"],
+                         shared_pages=st["shared_pages"],
+                         cow_copies=st["cow_copies"],
+                         prefix_hits=st["prefix_hits"],
+                         sharded_devices=st["sharded_devices"],
+                         chunks_pending=self.chunks_pending,
+                         chunk_ticks=self.chunk_ticks,
+                         slots=len(self.slots), tick=self.ticks)
+
+    # -- introspection ----------------------------------------------------
+    @property
+    def occupancy(self) -> float:
+        """Mean active-slot share across decode ticks."""
+        return self._occupancy_sum / self.ticks if self.ticks else 0.0
+
+    @property
+    def chunks_pending(self) -> int:
+        """Prefill chunks still owed to parked slots."""
+        c = self.cfg.prefill_chunk
+        if c <= 0:
+            return 0
+        return sum(-(-(s.prompt_len - s.chunk_next) // c)
+                   for s in self.slots
+                   if s is not None and s.chunk_next >= 0)
+
+    @property
+    def prefix_hit_rate(self) -> Optional[float]:
+        """Share of prompt pages served from the prefix cache (None until
+        a prefix-cached prompt is admitted)."""
+        if not self.prompt_pages:
+            return None
+        return self.shared_prompt_pages / self.prompt_pages
+
+    def stats(self) -> dict:
+        phr = self.prefix_hit_rate
+        return {"ticks": self.ticks, "completed": self.completed,
+                "rejected": self.rejected, "prefills": self.prefills,
+                "chunk_ticks": self.chunk_ticks,
+                "chunks_pending": self.chunks_pending,
+                "prefill_token_work": self.prefill_token_work,
+                "prefill_s": round(self.prefill_s, 6),
+                "tick_s": round(self.tick_s, 6),
+                "occupancy": round(self.occupancy, 6),
+                "prompt_pages": self.prompt_pages,
+                "shared_prompt_pages": self.shared_prompt_pages,
+                "prefix_hit_rate": (None if phr is None
+                                    else round(phr, 6)),
+                "pages_per_request": (
+                    round(self.pool.alloc_total / self.completed, 6)
+                    if self.completed else None),
+                "queue_depth": len(self.queue),
+                "active_seqs": sum(s is not None for s in self.slots),
+                "wait_ema_s": self._wait_ema,
+                "shedding": self.shedding,
+                "draining": self.draining,
+                **self.pool.stats()}

@@ -1,0 +1,93 @@
+"""Load a flax ``TransformerLM`` param tree into the port's model.
+
+The tree is the reference's nested dict (``model.init(...)["params"]``),
+with leaves anything ``numpy.asarray`` takes -- so this module needs no
+JAX. Both fp trees and ``wo_quantize_params`` trees load:
+
+=====================================  ===================================
+flax path                              port
+=====================================  ===================================
+``tok_emb.embedding``                  ``tok_emb.weight``
+``pos_emb.embedding``                  ``pos_emb.weight``
+``block{i}.{ln1,ln2}.{scale,bias}``    ``blocks.{i}.{ln1,ln2}.{scale,bias}``
+``block{i}.{qkv,proj}.kernel``         ``blocks.{i}.{qkv,proj}.kernel``
+``block{i}.{mlp_in,mlp_out}.*``        ``blocks.{i}.{mlp_in,mlp_out}.*``
+``ln_f.{scale,bias}``                  ``ln_f.{scale,bias}``
+``lm_head.kernel``                     ``lm_head.kernel``
+``*.kernel`` + ``*.kernel_scale``      int8 kernel + fp32 scale buffers
+=====================================  ===================================
+
+Dense kernels keep flax's (in, out) layout: no transposes anywhere. fp
+leaves are cast to the model's dtype (what flax does at every call).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from tpu_dist_torch.ops.quant import QuantDense
+
+_DENSE = ("qkv", "proj", "mlp_in", "mlp_out")
+
+
+def _copy(dst: torch.Tensor, src, path: str) -> None:
+    arr = torch.from_numpy(np.array(src, copy=True))
+    if tuple(arr.shape) != tuple(dst.shape):
+        raise ValueError(f"{path}: shape {tuple(arr.shape)} does not fit "
+                         f"{tuple(dst.shape)}")
+    dst.copy_(arr.to(device=dst.device, dtype=dst.dtype))
+
+
+def _load_dense(dense: QuantDense, node: dict, path: str) -> None:
+    expect = {"kernel"} | ({"bias"} if dense.bias is not None else set())
+    if "kernel_scale" in node:
+        expect.add("kernel_scale")
+    if set(node) != expect:
+        raise ValueError(f"{path}: leaves {sorted(node)}, expected "
+                         f"{sorted(expect)}")
+    if "kernel_scale" in node:
+        dense.load_quantized(
+            torch.from_numpy(np.array(node["kernel"], np.int8, copy=True)),
+            torch.from_numpy(np.array(node["kernel_scale"], np.float32,
+                                      copy=True)))
+    else:
+        _copy(dense.kernel, node["kernel"], path + ".kernel")
+    if dense.bias is not None:
+        _copy(dense.bias, node["bias"], path + ".bias")
+
+
+def _load_norm(norm, node: dict, path: str) -> None:
+    if set(node) != {"scale", "bias"}:
+        raise ValueError(f"{path}: leaves {sorted(node)}")
+    _copy(norm.scale, node["scale"], path + ".scale")
+    _copy(norm.bias, node["bias"], path + ".bias")
+
+
+def load_flax_params(model, params: dict):
+    """Copy a flax TransformerLM tree into ``model`` (a port
+    ``TransformerLM`` of the same geometry); returns ``model``. Missing or
+    extra leaves raise."""
+    blocks = {f"block{i}" for i in range(len(model.blocks))}
+    expect = {"tok_emb", "pos_emb", "ln_f", "lm_head"} | blocks
+    if set(params) != expect:
+        raise ValueError(f"param tree keys {sorted(params)}, expected "
+                         f"{sorted(expect)}")
+    with torch.no_grad():
+        for name in ("tok_emb", "pos_emb"):
+            if set(params[name]) != {"embedding"}:
+                raise ValueError(f"{name}: leaves {sorted(params[name])}")
+            _copy(getattr(model, name).weight, params[name]["embedding"],
+                  name + ".embedding")
+        for i, blk in enumerate(model.blocks):
+            node = params[f"block{i}"]
+            if set(node) != {"ln1", "ln2", *_DENSE}:
+                raise ValueError(f"block{i}: children {sorted(node)}")
+            _load_norm(blk.ln1, node["ln1"], f"block{i}.ln1")
+            _load_norm(blk.ln2, node["ln2"], f"block{i}.ln2")
+            for name in _DENSE:
+                _load_dense(getattr(blk, name), node[name],
+                            f"block{i}.{name}")
+        _load_norm(model.ln_f, params["ln_f"], "ln_f")
+        _load_dense(model.lm_head, params["lm_head"], "lm_head")
+    return model

@@ -1,0 +1,118 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Route: each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into
+its own shared library with a plain C interface, loaded with ``ctypes``
+(no PyTorch headers, so a build takes seconds). Libraries go to
+``build/tpu_dist_torch/`` beside the package (``TPU_DIST_TORCH_BUILD``
+overrides), named by a hash of their source and flags, so an edited source
+is rebuilt and a stale library is never loaded. Nothing is built at import
+time: :func:`function` builds on first use, :func:`build` builds a set of
+sources in parallel (one ``nvcc`` each, all started together).
+
+Launch counts live in :data:`LAUNCHES`: each kernel's wrapper adds one
+right after a launch returns success, and nowhere else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from typing import Dict, Iterable, Optional
+
+import torch
+
+PKG_DIR = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(PKG_DIR, "csrc")
+SOURCES = {"flash_fwd": "flash_fwd.cu", "paged_decode": "paged_decode.cu"}
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# what the C entries take: the dtype code of their float inputs/outputs and
+# the head dims the sources instantiate (anything else returns -1)
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (64, 128)
+
+LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
+
+_libs: Dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def build_dir() -> str:
+    return os.environ.get("TPU_DIST_TORCH_BUILD") or os.path.join(
+        os.path.dirname(PKG_DIR), "build", "tpu_dist_torch")
+
+
+def nvcc() -> str:
+    for cand in (os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
+                 "/usr/local/cuda/bin/nvcc", shutil.which("nvcc") or ""):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME): the port's CUDA "
+                       "kernels are built from source on first use")
+
+
+def _lib_path(name: str) -> str:
+    with open(os.path.join(CSRC, SOURCES[name]), "rb") as f:
+        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode())
+    return os.path.join(build_dir(), f"{name}.{digest.hexdigest()[:12]}.so")
+
+
+def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
+    """Compile every named source whose library is missing, all ``nvcc``
+    processes started together. Returns {name: seconds} for the sources
+    compiled (ptxas's register/shared-memory report lands in
+    ``<build_dir>/<name>.log``); raises with the compiler's output when
+    any build fails."""
+    names = list(SOURCES if names is None else names)
+    os.makedirs(build_dir(), exist_ok=True)
+    procs = {}
+    for name in names:
+        out = _lib_path(name)
+        if os.path.isfile(out):
+            continue
+        tmp = f"{out}.{os.getpid()}.tmp"
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp,
+               os.path.join(CSRC, SOURCES[name])]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out, time.perf_counter())
+    took, failed = {}, []
+    for name, (proc, tmp, out, t0) in procs.items():
+        log, _ = proc.communicate()
+        took[name] = time.perf_counter() - t0
+        with open(os.path.join(build_dir(), f"{name}.log"), "w") as f:
+            f.write(log)
+        if proc.returncode != 0:
+            failed.append(f"{SOURCES[name]} (nvcc exit {proc.returncode}):"
+                          f"\n{log}")
+            continue
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+    return took
+
+
+def function(name: str, symbol: str, argtypes):
+    """The C entry ``symbol`` of kernel ``name`` (library built first if
+    needed), with its argument types set and an int (cudaError_t) result."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            build([name])
+            lib = ctypes.CDLL(_lib_path(name))
+            _libs[name] = lib
+        fn = getattr(lib, symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        return fn

@@ -1,0 +1,313 @@
+"""Block-table (paged) KV attention for the port
+(``tpu_dist/ops/paged_attention.py``, the unsharded part).
+
+Arenas are ``[num_pages + 1, page_size, heads, head_dim]`` per layer (the
+extra page is the trash page masked writes land on); a sequence owns a
+block table of page indices. Unlike the reference's functional scatter,
+:func:`paged_write` and :func:`cow_fork_pages` update the arenas IN PLACE
+(``index_copy_``): the pool holds one tensor per arena and a write never
+copies it.
+
+The decode tick with int8 pages and ``read="flash"`` goes through
+:func:`int8kv_paged_flash_attention_fn`: for CUDA tensors the Hopper
+kernel ``csrc/paged_decode.cu`` (the port of the Pallas
+``_paged_int8kv_kernel``), for CPU tensors :func:`paged_decode_plain`.
+The sequence-parallel (sp-sharded) arenas of the reference are not
+ported: an ``sp_mesh`` in the pack raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+import math
+from typing import Optional
+
+import torch
+
+from tpu_dist_torch import kernels
+from tpu_dist_torch.ops.flash_attention import NEG_INF, masked_softmax_pv
+from tpu_dist_torch.ops.quant import quantize_int8
+
+
+def pages_for(length: int, page_size: int) -> int:
+    """Pages a sequence of ``length`` tokens occupies."""
+    return -(-int(length) // int(page_size))
+
+
+@dataclasses.dataclass
+class PagedLayer:
+    """One layer's KV page arenas: ``k``/``v`` (N+1, page_size, H, D);
+    int8 arenas add fp32 ``k_scale``/``v_scale`` (N+1, page_size, H).
+    ``quant`` is "none" | "int8", ``read`` is "exact" | "flash"."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
+    quant: str = "none"
+    read: str = "exact"
+
+    @property
+    def num_pages(self) -> int:
+        return self.k.shape[0] - 1               # minus the trash page
+
+    @property
+    def page_size(self) -> int:
+        return self.k.shape[1]
+
+    def arenas(self):
+        return [a for a in (self.k, self.v, self.k_scale, self.v_scale)
+                if a is not None]
+
+
+# ---------------------------------------------------------------------------
+# arena scatter / gather
+# ---------------------------------------------------------------------------
+
+def flat_slot_index(block_table, positions, page_size: int):
+    """(B, L) global arena slot indices for per-row token positions.
+    Positions past the table's reach (padding rows of a last prefill
+    chunk) are clamped to its last entry; callers route such rows to the
+    trash page through the write mask."""
+    slot = torch.clamp(positions.long() // page_size,
+                       max=block_table.shape[1] - 1)
+    page = torch.gather(block_table.long(), 1, slot)
+    return page * page_size + positions.long() % page_size
+
+
+def paged_write(arena, block_table, positions, values, valid,
+                trash_page: int):
+    """Write ``values`` (B, L, ...) into ``arena`` (N+1, page_size, ...) at
+    per-row ``positions`` (B, L); rows where ``valid`` is False land on the
+    trash page. Updates ``arena`` in place and returns it (live sequences
+    own disjoint pages, so live rows never collide; trash collisions are
+    harmless)."""
+    n1, page_size = arena.shape[0], arena.shape[1]
+    flat = flat_slot_index(block_table, positions, page_size)
+    flat = torch.where(valid, flat, trash_page * page_size)
+    flat_arena = arena.view((n1 * page_size,) + tuple(arena.shape[2:]))
+    flat_arena.index_copy_(
+        0, flat.reshape(-1),
+        values.reshape((-1,) + tuple(values.shape[2:])).to(arena.dtype))
+    return arena
+
+
+def gather_pages(arena, block_table):
+    """Block table (B, P) -> (B, P * page_size, ...): each sequence's cache
+    as one contiguous tensor."""
+    g = arena[block_table.long()]                # (B, P, page_size, ...)
+    b, p, s = g.shape[:3]
+    return g.reshape((b, p * s) + tuple(g.shape[3:]))
+
+
+def cow_fork_pages(layers, src_pages, dst_pages):
+    """Copy-on-write fork: ``arena[dst] <- arena[src]`` for every arena of
+    every layer (K, V and int8 scales), in place. ``index_select`` copies
+    the sources first, so overlapping lists are safe."""
+    src = torch.as_tensor(src_pages, dtype=torch.long)
+    dst = torch.as_tensor(dst_pages, dtype=torch.long)
+    for layer in layers:
+        for arena in layer.arenas():
+            s, d = src.to(arena.device), dst.to(arena.device)
+            arena.index_copy_(0, d, arena.index_select(0, s))
+    return tuple(layers)
+
+
+# ---------------------------------------------------------------------------
+# exact read path (per-row positions)
+# ---------------------------------------------------------------------------
+
+def masked_attention(q, k, v, q_positions):
+    """``full_attention`` with a per-row causal horizon: row ``b`` of ``q``
+    (B, Lq, H, D) sits at position ``q_positions[b]`` (+ the local offset)
+    and attends to keys ``kpos <= qpos``; fp32 scores and softmax."""
+    d = q.shape[-1]
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(),
+                          k.float()) / math.sqrt(d)
+    qpos = (q_positions.long()[:, None]
+            + torch.arange(q.shape[1], device=q.device)[None, :])  # (B, Lq)
+    kpos = torch.arange(k.shape[1], device=q.device)                # (Lk,)
+    mask = kpos[None, None, :] <= qpos[:, :, None]           # (B, Lq, Lk)
+    scores = scores.masked_fill(~mask[:, None, :, :], float("-inf"))
+    weights = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", weights.to(v.dtype), v)
+
+
+# ---------------------------------------------------------------------------
+# int8-KV paged decode (per-row length mask): kernel 2
+# ---------------------------------------------------------------------------
+
+def paged_decode_plain(q, kq, ks, vq, vs, lengths):
+    """The kernel's function in plain PyTorch: dequantize the gathered
+    int8 K/V to fp32, mask keys at ``kpos >= lengths[b]``, fp32 softmax
+    with the ``NEG_INF`` / ``p = 0`` rules; output in q's dtype."""
+    d = q.shape[-1]
+    kf = kq.float() * ks[..., None]
+    vf = vq.float() * vs[..., None]
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) * (1.0 / math.sqrt(d))
+    kpos = torch.arange(kq.shape[1], device=q.device)
+    live = kpos[None, None, None, :] < lengths.long()[:, None, None, None]
+    o, _, _ = masked_softmax_pv(torch.where(live, s, NEG_INF),
+                                vf.transpose(1, 2))          # (B, H, 1, D)
+    return o.transpose(1, 2).to(q.dtype).contiguous()
+
+
+def _check_paged(q, kq, ks, vq, vs, lengths):
+    dev = q.device
+    if not (q.is_cuda and all(t.device == dev
+                              for t in (kq, ks, vq, vs, lengths))):
+        raise ValueError("paged decode kernel: all inputs on one CUDA device")
+    if q.dtype not in kernels.DTYPE_CODE:
+        raise TypeError(f"paged decode kernel: q float32 or bfloat16, got "
+                        f"{q.dtype}")
+    if kq.dtype != torch.int8 or vq.dtype != torch.int8 \
+            or ks.dtype != torch.float32 or vs.dtype != torch.float32 \
+            or lengths.dtype != torch.int32:
+        raise TypeError("paged decode kernel: int8 K/V, float32 scales, "
+                        "int32 lengths")
+    b, lq, h, d = q.shape
+    lk = kq.shape[1]
+    if lq != 1:
+        raise ValueError(f"paged decode kernel is one query per row "
+                         f"(got Lq={lq})")
+    if kq.shape != (b, lk, h, d) or vq.shape != kq.shape \
+            or ks.shape != (b, lk, h) or vs.shape != ks.shape \
+            or lengths.shape != (b,):
+        raise ValueError(f"paged decode kernel: shapes q {tuple(q.shape)}, "
+                         f"k {tuple(kq.shape)}, scale {tuple(ks.shape)}, "
+                         f"lengths {tuple(lengths.shape)} do not agree")
+    if d not in kernels.HEAD_DIMS:
+        raise ValueError(f"paged decode kernel: head_dim {d} not in "
+                         f"{kernels.HEAD_DIMS}")
+    if min(b, h, lk) < 1:
+        raise ValueError("paged decode kernel: empty input")
+    if not all(t.is_contiguous() for t in (q, kq, ks, vq, vs, lengths)):
+        raise ValueError("paged decode kernel: inputs must be contiguous")
+
+
+_PAGED_ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
+               + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+
+
+def _launch(fn, q, kq, ks, vq, vs, lengths, stream):
+    """Call the C entry ``fn`` (``tdt_paged_decode``) on checked tensors:
+    allocate the output, launch on ``stream``, raise on a launch error."""
+    b, _, h, d = q.shape
+    out = torch.empty_like(q)
+    err = fn(q.data_ptr(), kq.data_ptr(), ks.data_ptr(), vq.data_ptr(),
+             vs.data_ptr(), lengths.data_ptr(), out.data_ptr(), b, h,
+             kq.shape[1], d, 1.0 / math.sqrt(d), kernels.DTYPE_CODE[q.dtype],
+             stream)
+    if err != 0:
+        raise RuntimeError(f"paged_decode kernel launch failed "
+                           f"(cudaError {err})")
+    return out
+
+
+def paged_decode_cuda(q, kq, ks, vq, vs, lengths):
+    """Launch ``csrc/paged_decode.cu`` on the current stream."""
+    _check_paged(q, kq, ks, vq, vs, lengths)
+    fn = kernels.function("paged_decode", "tdt_paged_decode", _PAGED_ARGS)
+    with torch.cuda.device(q.device):
+        out = _launch(fn, q, kq, ks, vq, vs, lengths,
+                      torch.cuda.current_stream(q.device).cuda_stream)
+    kernels.LAUNCHES["paged_decode"] += 1
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def int8kv_paged_flash_attention_fn(block_k: int = 512):
+    """Returns ``attn(q, kq, ks, vq, vs, lengths)`` over gathered int8 KV
+    pages: ``q`` (B, 1, H, D), ``kq``/``vq`` (B, L, H, D) int8 with
+    per-(b, l, h) fp32 scales, ``lengths`` (B,) live tokens per row (keys
+    at ``kpos >= length`` are masked -- the causal mask when ``length =
+    position + 1``). The kernel for CUDA tensors, the plain version for CPU
+    tensors. ``block_k`` is the TPU tile knob; the Hopper kernel does not
+    read it."""
+
+    def attn(q, kq, ks, vq, vs, lengths):
+        if q.device.type == "cpu":
+            if q.shape[1] != 1:
+                raise ValueError(f"paged decode kernel is one query per row "
+                                 f"(got Lq={q.shape[1]})")
+            return paged_decode_plain(q, kq, ks, vq, vs, lengths)
+        return paged_decode_cuda(q, kq, ks, vq, vs,
+                                 lengths.to(torch.int32).contiguous())
+
+    return attn
+
+
+# ---------------------------------------------------------------------------
+# the attend_maybe_cached delegate
+# ---------------------------------------------------------------------------
+
+def _quantize_rows(x):
+    """(B, L, H, D) -> int8 values + per-(b, l, h) fp32 scales."""
+    q, scale = quantize_int8(x, (-1,))
+    return q, scale[..., 0]
+
+
+def paged_attend(q, k, v, paged: dict, *, prefill: bool, attn_fn, dtype):
+    """One layer's paged-cache attention step (the reference's contract):
+    ``paged`` carries ``{"layer": PagedLayer, "block_tables": (B, P),
+    "positions": (B,), "lengths": (B,)}`` and an optional ``"valid"``
+    (B, Lq) write mask. Prefill attends within the prompt through the
+    model's ``attn_fn`` and writes the live rows; a tick writes Lq rows at
+    ``positions[b]..`` and attends each query at its own position (Lq = 1
+    with int8 pages and ``read="flash"`` goes through the paged decode
+    kernel). Returns ``(out, layer)``; the arenas were updated in place."""
+    if paged.get("sp_mesh") is not None:
+        raise NotImplementedError(
+            "sp-sharded paged arenas (sp_mesh) are not ported: the port "
+            "serves an unsharded pool")
+    layer = paged["layer"]
+    bt = paged["block_tables"]
+    positions = paged["positions"]
+    lengths = paged["lengths"]
+    trash = layer.num_pages
+
+    b, lq = q.shape[0], q.shape[1]
+    write_pos = (positions[:, None].long()
+                 + torch.arange(lq, device=q.device)[None, :])   # (B, Lq)
+    if prefill:
+        valid = write_pos < lengths.long()[:, None]
+    else:
+        valid = torch.ones((b, lq), dtype=torch.bool, device=q.device)
+    if paged.get("valid") is not None:
+        valid = valid & paged["valid"]
+
+    def write(arena, vals):
+        return paged_write(arena, bt, write_pos, vals, valid, trash)
+
+    def read(arena):
+        return gather_pages(arena, bt)
+
+    if layer.quant == "int8":
+        kq, ks = _quantize_rows(k)
+        vq, vs = _quantize_rows(v)
+        write(layer.k, kq)
+        write(layer.v, vq)
+        write(layer.k_scale, ks)
+        write(layer.v_scale, vs)
+    else:
+        write(layer.k, k)
+        write(layer.v, v)
+
+    if prefill:
+        # causal self-attention over the prompt itself: the model's attn_fn
+        return attn_fn(q, k, v), layer
+
+    if layer.quant == "int8" and layer.read == "flash" and lq == 1:
+        out = int8kv_paged_flash_attention_fn()(
+            q.contiguous(), read(layer.k), read(layer.k_scale),
+            read(layer.v), read(layer.v_scale), positions + 1)
+        return out.to(q.dtype), layer
+
+    gk = read(layer.k)
+    gv = read(layer.v)
+    if layer.quant == "int8":
+        gk = (gk.float() * read(layer.k_scale)[..., None]).to(dtype)
+        gv = (gv.float() * read(layer.v_scale)[..., None]).to(dtype)
+    return masked_attention(q, gk, gv, positions), layer

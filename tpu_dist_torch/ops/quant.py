@@ -1,0 +1,202 @@
+"""Int8 weight quantization for the port (``tpu_dist/ops/quant.py``).
+
+Same conventions as the reference, so int8 values are bit-equal: one
+symmetric scale per slice along the non-reduced dims,
+``scale = max(amax, 1e-8) / 127``, ``q = clip(round(x / scale), -127,
+127)`` with round-half-to-even (``torch.round``, like ``jnp.round``).
+
+Modes of the ``quant`` knob:
+
+* ``none``    -- exact matmul in the compute dtype;
+* ``int8_wo`` -- weight-only: weights fake-quantize, or live as int8 with
+  fp32 per-output-channel scales (:func:`wo_quantize_params` trees and
+  :meth:`QuantDense.load_quantized`) and dequantize at each call;
+* ``int8``    -- dynamic activation+weight int8. On the TPU it rides the
+  fused Pallas kernel ``ops/pallas_quant.py:_fused_quant_kernel``; its
+  Hopper kernel is not ported yet, so this mode raises.
+
+Dense kernels keep flax's ``(in, out)`` layout (``y = x @ kernel``), so a
+flax param tree loads without transposes and per-channel scales keep the
+reference's ``(1, out)`` shape.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+QUANT_MODES = ("none", "int8", "int8_wo")
+
+_INT8_MAX = 127.0
+_EPS = 1e-8  # floor for all-zero channels: keeps scale finite, q = 0
+
+FUSED_QUANT_KERNEL = "ops/pallas_quant.py:_fused_quant_kernel"
+
+
+def validate_quant(mode: str) -> str:
+    if mode not in QUANT_MODES:
+        raise ValueError(f"unknown quant mode {mode!r} "
+                         f"({'|'.join(QUANT_MODES)})")
+    return mode
+
+
+def refuse_int8(where: str) -> None:
+    raise NotImplementedError(
+        f"{where}: quant='int8' (dynamic activation int8) runs on the TPU "
+        f"through the Pallas kernel {FUSED_QUANT_KERNEL}, whose Hopper "
+        "kernel is not ported yet; use quant='none' or 'int8_wo'")
+
+
+def quantize_int8(x: torch.Tensor, reduce_dims) -> tuple:
+    """Symmetric int8 quantization of ``x`` with one scale per slice along
+    the non-reduced dims (``reduce_dims``: amax over them, kept). Returns
+    (q int8, scale fp32); ``q * scale`` dequantizes."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=tuple(reduce_dims), keepdim=True)
+    scale = torch.clamp(amax, min=_EPS) / _INT8_MAX
+    q = torch.clamp(torch.round(xf / scale), -_INT8_MAX, _INT8_MAX)
+    return q.to(torch.int8), scale
+
+
+def dequantize(q: torch.Tensor, scale: torch.Tensor,
+               dtype=torch.float32) -> torch.Tensor:
+    return (q.float() * scale).to(dtype)
+
+
+def wo_fake_quant(w: torch.Tensor, reduce_dims=(0,)) -> torch.Tensor:
+    """Forward sees the int8 round trip of ``w`` (per-channel scales over
+    ``reduce_dims``); a gradient would pass straight through."""
+    q, scale = quantize_int8(w, reduce_dims)
+    wq = dequantize(q, scale, w.dtype)
+    return w + (wq - w).detach()
+
+
+def quant_matmul(x: torch.Tensor, w: torch.Tensor, mode: str) -> torch.Tensor:
+    """The mode dispatch of a (..., D) x (D, F) matmul; both operands are
+    already in the compute dtype."""
+    if mode == "int8":
+        refuse_int8("quant_matmul")
+    if mode == "int8_wo":
+        return x @ wo_fake_quant(w)
+    validate_quant(mode)
+    return x @ w
+
+
+class QuantDense(nn.Module):
+    """Dense layer with flax's parameter names and layout: ``kernel``
+    (in, out), optional ``bias`` (out,). ``mode`` is the quant knob.
+
+    Parameters are stored in the compute dtype: flax keeps fp32 masters
+    and casts them at every call, which for inference is the same values
+    once. (A bf16 model wo-quantized here therefore quantizes the
+    bf16-rounded weights; the reference quantizes its fp32 masters. Load
+    a tree quantized by :func:`wo_quantize_params` to match it exactly.)
+
+    After :meth:`load_quantized` the kernel is an int8 buffer with an fp32
+    ``kernel_scale`` (1, out) and is dequantized on each call -- the
+    weight-only decode path of the reference's pre-quantized trees.
+    """
+
+    def __init__(self, in_features: int, features: int, mode: str = "none",
+                 use_bias: bool = True, dtype=torch.float32, device=None):
+        super().__init__()
+        validate_quant(mode)
+        if mode == "int8":
+            refuse_int8("QuantDense")
+        self.in_features, self.features = in_features, features
+        self.mode = mode
+        self.dtype = dtype
+        self.kernel = nn.Parameter(torch.empty(in_features, features,
+                                               dtype=dtype, device=device),
+                                   requires_grad=False)
+        self.bias = (nn.Parameter(torch.zeros(features, dtype=dtype,
+                                              device=device),
+                                  requires_grad=False)
+                     if use_bias else None)
+        self.register_buffer("kernel_scale", None)
+
+    @property
+    def prequantized(self) -> bool:
+        return self.kernel_scale is not None
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """flax's ``lecun_normal``: truncated normal (2 std) with variance
+        1/fan_in; bias zeros."""
+        std = math.sqrt(1.0 / self.in_features) / .87962566103423978
+        with torch.no_grad():
+            w = torch.empty(self.kernel.shape, dtype=torch.float32,
+                            device=self.kernel.device)
+            nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
+                                  generator=generator)
+            self.kernel.copy_(w)
+            if self.bias is not None:
+                self.bias.zero_()
+
+    def load_quantized(self, q: torch.Tensor, scale: torch.Tensor) -> None:
+        """Hold the kernel as int8 ``q`` (in, out) with fp32 ``scale``
+        (1, out) -- the reference's ``wo_quantize_params`` leaves."""
+        if q.dtype != torch.int8 or tuple(q.shape) != (self.in_features,
+                                                       self.features):
+            raise ValueError(f"expected an int8 kernel of shape "
+                             f"{(self.in_features, self.features)}, got "
+                             f"{q.dtype} {tuple(q.shape)}")
+        dev = self.kernel.device
+        del self.kernel
+        self.register_buffer("kernel", q.to(dev))
+        self.register_buffer("kernel_scale",
+                             scale.to(device=dev, dtype=torch.float32))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.dtype)
+        if self.prequantized:
+            y = x @ dequantize(self.kernel, self.kernel_scale, self.dtype)
+        else:
+            y = quant_matmul(x, self.kernel.to(self.dtype), self.mode)
+        if self.bias is not None:
+            y = y + self.bias.to(self.dtype)
+        return y
+
+
+def make_dense(in_features: int, features: int, *, use_bias: bool = True,
+               dtype=torch.float32, quant: str = "none",
+               device=None) -> QuantDense:
+    """The dense-layer factory of the transformer family (one module type
+    for every quant mode, so the knob never forks the param layout)."""
+    return QuantDense(in_features, features, mode=validate_quant(quant),
+                      use_bias=use_bias, dtype=dtype, device=device)
+
+
+# ---- weight-only decode: pre-quantized param trees ------------------------
+
+def wo_quantize_params(params: dict) -> dict:
+    """Pre-quantize a flax-layout param tree (nested dicts of tensors):
+    every 2-D ``kernel`` becomes int8 with a sibling fp32
+    ``kernel_scale`` (1, out); embeddings, norms and biases are untouched.
+    The dense TransformerLM tree only -- the reference's MoE expert rule
+    has no ported model yet."""
+    out = {}
+    for k, v in params.items():
+        if isinstance(v, dict):
+            out[k] = wo_quantize_params(v)
+        elif k == "kernel" and getattr(v, "ndim", 0) == 2:
+            q, s = quantize_int8(torch.as_tensor(v), (0,))
+            out[k], out[k + "_scale"] = q, s
+        else:
+            out[k] = v
+    return out
+
+
+def params_are_wo_quantized(params) -> bool:
+    """True if ``params`` (a flax-layout tree, or a module) carries
+    pre-quantized ``*_scale`` leaves."""
+    if isinstance(params, nn.Module):
+        return any(isinstance(m, QuantDense) and m.prequantized
+                   for m in params.modules())
+
+    def walk(tree):
+        return any(str(k).endswith("_scale")
+                   or (isinstance(v, dict) and walk(v))
+                   for k, v in tree.items())
+    return walk(params)

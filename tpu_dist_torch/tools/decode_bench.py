@@ -1,0 +1,248 @@
+"""Serving throughput under load for the port: request-trace replay.
+
+The port of ``tools/decode_bench.py --trace`` (the throughput-under-load
+benchmark): N requests with seeded Poisson arrivals (in scheduler-tick
+units) and mixed prompt/output lengths stream through the port's
+continuous-batching ``ServeEngine``, and the same trace replays through
+static batching (drain refill) at equal slot capacity. The last stdout
+line is one JSON object whose ``serving`` block has the reference's keys
+(requests/s and tokens/s on the wall clock, requests per tick, TTFT and
+per-output-token latency p50/p99, occupancy, the static baseline, and
+with ``--prefix-tenants`` the cache-off baseline), plus the device it ran
+on. ``tail_attribution`` and ``--waterfalls`` are not ported yet.
+
+``--attn flash`` serves with the flash prefill kernel, ``--kv-quant int8
+--attn-read flash`` decodes through the int8-KV paged decode kernel.
+A warm replay (discarded) runs first. Usage::
+
+    python -m tpu_dist_torch.tools.decode_bench --trace 64 \\
+        --kv-quant int8 --attn-read flash --attn flash
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+
+
+def _pctl(xs, q):
+    """Nearest-rank percentile of a sorted list (``tools/ledger_report``'s
+    convention, kept here so the port needs nothing of the reference)."""
+    if not xs:
+        return None
+    return xs[min(int(round(q / 100.0 * (len(xs) - 1))), len(xs) - 1)]
+
+
+def _pctl_ms(xs, q):
+    v = _pctl(sorted(xs), q)
+    return None if v is None else round(v * 1e3, 3)
+
+
+def _drive_trace(eng, arrivals, prompts, outs):
+    """Replay one arrival schedule: requests are submitted when the loop
+    iteration reaches their arrival tick. Returns (completions, wall s)."""
+    from tpu_dist_torch.engine.serve import DecodeRequest
+
+    n = len(prompts)
+    i = 0
+    wall_tick = 0
+    comps = []
+    t0 = time.perf_counter()
+    while i < n or eng.queue or any(s is not None for s in eng.slots):
+        while i < n and arrivals[i] <= wall_tick:
+            eng.submit(DecodeRequest(i, prompts[i], int(outs[i])))
+            i += 1
+        comps.extend(eng.step())
+        wall_tick += 1
+        if wall_tick > 1_000_000:
+            raise RuntimeError("trace replay did not drain")
+    return comps, time.perf_counter() - t0
+
+
+def replay_serving_trace(args, model, ledger=None):
+    """The ``serving`` block: continuous vs static (and, with prefix
+    tenants, cache-off) replays of one seeded trace."""
+    import numpy as np
+
+    from tpu_dist_torch.engine.serve import ServeConfig, ServeEngine
+
+    rng = np.random.default_rng(args.trace_seed)
+    gaps = rng.exponential(1.0 / max(args.arrival_rate, 1e-9), args.trace)
+    arrivals = np.floor(np.cumsum(gaps)).astype(int)
+    prompts = [rng.integers(0, args.vocab_size,
+                            (int(rng.integers(args.min_prompt,
+                                              args.max_prompt + 1)),)
+                            ).astype(np.int32)
+               for _ in range(args.trace)]
+    outs = rng.integers(args.min_out, args.max_out + 1, args.trace)
+    prefix_on = args.prefix_tenants > 0
+    prefix_len = args.prefix_len if prefix_on else 0
+    if prefix_on:
+        tenants = [rng.integers(0, args.vocab_size,
+                                (args.prefix_len,)).astype(np.int32)
+                   for _ in range(args.prefix_tenants)]
+        tenant_of = rng.integers(0, args.prefix_tenants, args.trace)
+        prompts = [np.concatenate([tenants[tenant_of[j]], prompts[j]])
+                   for j in range(args.trace)]
+    max_total = prefix_len + args.max_prompt + args.max_out
+    pages_per_seq = -(-max_total // args.page_size)
+    num_pages = args.num_pages or args.serve_slots * pages_per_seq
+
+    def make(refill, led=None, prefix_cache=prefix_on):
+        return ServeEngine(model, ServeConfig(
+            max_slots=args.serve_slots, page_size=args.page_size,
+            num_pages=num_pages, max_len=max_total,
+            quant=args.serve_quant, kv_quant=args.kv_quant,
+            attn_read=args.attn_read, temperature=args.temperature,
+            top_k=args.top_k, top_p=args.top_p, refill=refill,
+            spec_k=args.spec_k, prefix_cache=prefix_cache,
+            kv_event_every=32), ledger=led, device=model.device)
+
+    _drive_trace(make("continuous"), arrivals, prompts, outs)  # warm
+    results = {}
+    modes = [("continuous", True), ("drain", True)]
+    if prefix_on:
+        modes.append(("no_prefix_cache", False))
+    for refill, prefix_cache in modes:
+        eng = make("continuous" if refill == "no_prefix_cache" else refill,
+                   led=ledger if refill == "continuous" else None,
+                   prefix_cache=prefix_cache)
+        comps, elapsed = _drive_trace(eng, arrivals, prompts, outs)
+        ttft = [c.ttft_s for c in comps]
+        tpot = [(c.finish_ts - c.first_token_ts) / (c.n_generated - 1)
+                for c in comps if c.n_generated > 1]
+        waits = [c.queue_wait_s for c in comps]
+        toks = sum(c.n_generated for c in comps)
+        results[refill] = {
+            "completed": len(comps), "rejected": eng.rejected,
+            "ticks": eng.ticks,
+            "requests_per_tick": (round(len(comps) / eng.ticks, 4)
+                                  if eng.ticks else None),
+            "requests_per_sec": (round(len(comps) / elapsed, 2)
+                                 if elapsed else None),
+            "tokens_per_sec": (round(toks / elapsed, 1)
+                               if elapsed else None),
+            "occupancy": round(eng.occupancy, 4),
+            "accepted_per_tick": 1.0 if eng.ticks else None,
+            "pages_per_request": (round(eng.pool.alloc_total / len(comps),
+                                        4) if comps else None),
+            "prefix_hit_rate": (round(eng.prefix_hit_rate, 4)
+                                if eng.prefix_hit_rate is not None
+                                else None),
+            "cow_copies": eng.pool.cow_copies,
+            "ttft_ms": {"p50": _pctl_ms(ttft, 50),
+                        "p99": _pctl_ms(ttft, 99)},
+            "tpot_ms": {"p50": _pctl_ms(tpot, 50),
+                        "p99": _pctl_ms(tpot, 99)},
+            "queue_wait_ms": {"p50": _pctl_ms(waits, 50),
+                              "p99": _pctl_ms(waits, 99)},
+        }
+        print(f"serve[{refill}]: {len(comps)}/{args.trace} completed in "
+              f"{eng.ticks} ticks ({results[refill]['requests_per_tick']} "
+              f"req/tick, {results[refill]['requests_per_sec']} req/s, "
+              f"{results[refill]['pages_per_request']} pages/req), "
+              f"occupancy {eng.occupancy * 100:.0f}%, TTFT p50 "
+              f"{results[refill]['ttft_ms']['p50']}ms", file=sys.stderr)
+    serving = dict(results["continuous"])
+    serving.update(requests=args.trace, slots=args.serve_slots,
+                   page_size=args.page_size, num_pages=num_pages,
+                   kv_quant=args.kv_quant, attn=args.attn,
+                   attn_read=args.attn_read, arrival_rate=args.arrival_rate,
+                   trace_seed=args.trace_seed, spec_k=args.spec_k,
+                   prefix_tenants=args.prefix_tenants, prefix_len=prefix_len,
+                   static=results["drain"])
+    if prefix_on:
+        serving["no_prefix_cache"] = results["no_prefix_cache"]
+    return serving
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--device", default="cuda",
+                    help="torch device (cpu runs the plain kernel versions)")
+    ap.add_argument("--vocab-size", type=int, default=32000)
+    ap.add_argument("--d-model", type=int, default=1024)
+    ap.add_argument("--num-layers", type=int, default=8)
+    ap.add_argument("--num-heads", type=int, default=8)
+    ap.add_argument("--precision", default="bf16", choices=["fp32", "bf16"])
+    ap.add_argument("--seed", type=int, default=0,
+                    help="random-weight seed")
+    ap.add_argument("--attn", default="full", choices=["full", "flash"],
+                    help="prefill attention: plain full attention or the "
+                         "flash kernel (LMConfig.attn)")
+    ap.add_argument("--attn-read", default="exact",
+                    choices=["exact", "flash"],
+                    help="decode read of int8 pages: exact dequant or the "
+                         "paged decode kernel (ServeConfig.attn_read)")
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--top-k", type=int, default=0)
+    ap.add_argument("--top-p", type=float, default=0.0)
+    ap.add_argument("--trace", type=int, default=64,
+                    help="requests in the replayed trace")
+    ap.add_argument("--trace-seed", type=int, default=0)
+    ap.add_argument("--arrival-rate", type=float, default=1.0,
+                    help="mean request arrivals per decode tick (Poisson)")
+    ap.add_argument("--min-prompt", type=int, default=4)
+    ap.add_argument("--max-prompt", type=int, default=32)
+    ap.add_argument("--min-out", type=int, default=4)
+    ap.add_argument("--max-out", type=int, default=64)
+    ap.add_argument("--spec-k", type=int, default=0,
+                    help="speculative decoding: not ported (> 0 raises)")
+    ap.add_argument("--prefix-tenants", type=int, default=0,
+                    help="per-tenant shared system prompts + CoW prefix "
+                         "caching, plus a cache-off baseline (0 = off)")
+    ap.add_argument("--prefix-len", type=int, default=32)
+    ap.add_argument("--serve-slots", type=int, default=4)
+    ap.add_argument("--page-size", type=int, default=16)
+    ap.add_argument("--num-pages", type=int, default=0,
+                    help="pool size (0 = slots x worst-case pages)")
+    ap.add_argument("--kv-quant", default="none", choices=["none", "int8"])
+    ap.add_argument("--serve-quant", default="none",
+                    choices=["none", "int8", "int8_wo"])
+    ap.add_argument("--ledger", default="",
+                    help="JSONL ledger of the continuous replay")
+    return ap
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+
+    import torch
+
+    from tpu_dist_torch.device import resolve_device
+    from tpu_dist_torch.models.transformer import TransformerLM, \
+        full_attention
+    from tpu_dist_torch.ops.flash_attention import flash_attention_fn
+
+    device = resolve_device(args.device)
+    max_len = (args.max_prompt + args.max_out
+               + (args.prefix_len if args.prefix_tenants else 0))
+    model = TransformerLM(
+        vocab_size=args.vocab_size, num_layers=args.num_layers,
+        d_model=args.d_model, num_heads=args.num_heads, max_len=max_len,
+        dtype=torch.bfloat16 if args.precision == "bf16" else torch.float32,
+        attn_fn=flash_attention_fn() if args.attn == "flash"
+        else full_attention, device=device, seed=args.seed)
+    ledger = None
+    if args.ledger:
+        from tpu_dist_torch.obs.ledger import Ledger
+        ledger = Ledger(args.ledger)
+    serving = replay_serving_trace(args, model, ledger=ledger)
+    if ledger is not None:
+        ledger.close()
+    dev = ({"platform": "gpu", "kind": torch.cuda.get_device_name(device),
+            "count": torch.cuda.device_count()} if device.type == "cuda"
+           else {"platform": "cpu", "kind": "cpu", "count": 1})
+    print(json.dumps({
+        "metric": "torch_lm_serving", "device": dev,
+        "layers": args.num_layers, "d_model": args.d_model,
+        "vocab": args.vocab_size, "heads": args.num_heads,
+        "precision": args.precision, "temperature": args.temperature,
+        "top_k": args.top_k, "top_p": args.top_p, "serving": serving,
+        "ledger": args.ledger or None}))
+
+
+if __name__ == "__main__":
+    main()
