@@ -9,29 +9,40 @@ raises on failure; the script prints no result and exits non-zero without
 CUDA or without the repository beside it. Phases:
 
 1. device: name and power limit (nvidia-smi), TF32 off for matmul/cuDNN;
-2. build every CUDA kernel of the serving path from ``tpu_dist_torch/csrc``;
+2. build every CUDA kernel of the port from ``tpu_dist_torch/csrc``, all
+   nvcc processes started together;
 3. each kernel against its plain PyTorch version on the card, at the
-   shapes the serving path gives it, with the error, the kernel's time
-   (CUDA events, median of 20), the plain version's time, a one-call
-   PyTorch yardstick (``scaled_dot_product_attention``, timed here and
-   used nowhere in the port) and the least time the card could take;
-4. a small-input check: a tiny fp32 model served on the card (kernels)
-   and on the CPU (plain versions) gives the same greedy tokens;
-5. the main path: ``ServeEngine`` at the full width of the LM the repo
+   shapes its main path gives it, with the error, the kernel's time (CUDA
+   events, median of 20), the plain version's time, a one-call PyTorch
+   yardstick (``scaled_dot_product_attention`` and its backward,
+   ``torch._fused_adamw_``; timed here and used nowhere in the port) and
+   the least time the card could take;
+4. small-input checks: a tiny fp32 model served on the card (kernels) and
+   on the CPU (plain versions) gives the same greedy tokens, and a tiny
+   fp32 trainer takes 5 steps on both with the same losses;
+5. serving main path: ``ServeEngine`` at the full width of the LM the repo
    benches (V=32000, 8 layers, d_model 1024, 8 heads, bf16, random
    weights from a seed), flash prefill and int8 paged decode, serving 16
-   requests; the kernel launch counts show both kernels ran.
+   requests; the launch counts show both forward kernels ran;
+6. training main path: ``LMTrainer`` at the same full width (L=2048, batch
+   8, bf16 compute over fp32 masters, flash attention, ``fused_adamw``
+   with grad_clip 1.0) for 20 steps: finite, falling losses, and per step
+   one ``flash_bwd_dq`` and one ``flash_bwd_dkv`` launch per layer and one
+   ``adamw`` launch per parameter leaf.
 
 The line before the last is the card's name and power limit; the one
 before it the ``{"kernels": [...]}`` record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
+import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 SEED = 0
@@ -41,9 +52,23 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 # kernel vs plain version, bf16 outputs: |err| <= BF16_TOL * (1 + |plain|)
-# elementwise -- the kernels round p (flash) and the output to bf16 where
-# the plain versions keep fp32: a few bf16 ulps (2^-8 relative each)
+# elementwise -- the forward kernels round p and the output to bf16 where
+# the plain versions keep fp32: a few bf16 ulps (2^-8 relative each). The
+# backward kernels round p and ds at the same points as their plain
+# version, so what is left is fp32 summation order before the bf16 outputs
+# round: one ulp where a sum sits on a rounding boundary, within the same
+# bound
 BF16_TOL = 2e-2
+# AdamW kernel vs plain, fp32 throughout: the kernel contracts mul+add into
+# fma where PyTorch rounds each, a few fp32 ulps (2^-23 relative each)
+FP32_TOL = 1e-6
+# tiny fp32 trainer, card vs CPU: per-step losses within LOSS_TOL * (1 +
+# |loss|) -- matmul summation order differs (cuBLAS vs CPU), and Adam's
+# normalized update turns small gradient differences into parameter
+# differences over 5 steps
+LOSS_TOL = 1e-4
+# the training main path (V=32000, 8 layers, d_model 1024, L=2048)
+TRAIN_STEPS = 20
 
 
 def log(msg):
@@ -163,6 +188,220 @@ def check_paged(torch, F, gen):
             "library_ms": lib_ms,
             "library": "scaled_dot_product_attention on dequantized bf16 "
                        "K/V with the length mask"}
+
+
+def live_causal_pairs(lq, lk):
+    """(q, k) pairs a causal mask leaves live, row i seeing keys 0..i."""
+    return sum(min(i + 1, lk) for i in range(lq))
+
+
+def check_flash_bwd(torch, F, gen):
+    """dq and dk/dv kernels against flash_backward_plain, B=8 H=8 L=2048
+    D=128 bf16 causal: the training main path's shape."""
+    from tpu_dist_torch import kernels
+    from tpu_dist_torch.ops import flash_attention as fa
+
+    b, L, h, d = 8, 2048, 8, 128
+    q, k, v, g = (torch.randn((b, L, h, d), generator=gen, device="cuda")
+                  .to(torch.bfloat16) for _ in range(4))
+    out, lse = fa.flash_forward_cuda(q, k, v, causal=True)
+    dq, dk, dv = fa.flash_backward_cuda(q, k, v, out, lse, g, causal=True)
+    rq, rk, rv = fa.flash_backward_plain(q, k, v, out, lse, g, True)
+    torch.cuda.synchronize()
+    errs = {}
+    for name, got, ref in (("dq", dq, rq), ("dk", dk, rk), ("dv", dv, rv)):
+        errs[name], ok = bf16_err(torch, got, ref)
+        if not ok:
+            raise AssertionError(f"flash backward {name}: max|err| "
+                                 f"{errs[name]} (tol {BF16_TOL} (1 + |ref|))")
+    del rq, rk, rv
+    stream = torch.cuda.current_stream().cuda_stream
+    fn_dq = kernels.function("flash_bwd_dq", "tdt_flash_bwd_dq",
+                             fa._BWD_DQ_ARGS)
+    fn_dkv = kernels.function("flash_bwd_dkv", "tdt_flash_bwd_dkv",
+                              fa._BWD_DKV_ARGS)
+    delta = fa.bwd_delta(out, g)
+    args = (q, k, v, g, lse, delta, True, 0, 0, stream)
+    dq_ms = time_ms(torch, lambda: fa._launch_bwd_dq(fn_dq, *args))
+    dkv_ms = time_ms(torch, lambda: fa._launch_bwd_dkv(fn_dkv, *args))
+    plain_ms = time_ms(torch, lambda: fa.flash_backward_plain(
+        q, k, v, out, lse, g, True), iters=5)
+    qh, kh, vh = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    gh = g.transpose(1, 2).contiguous()
+    oh = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
+    lib_ms = time_ms(torch, lambda: torch.autograd.grad(
+        oh, (qh, kh, vh), gh, retain_graph=True))
+    live = live_causal_pairs(L, L) * b * h
+    elt = b * L * h * d * 2                        # one bf16 (B, L, H, D)
+    recs = {}
+    for name, ms, products, tensors, errk in (
+            ("flash_bwd_dq", dq_ms, 3, 5, ("dq",)),
+            ("flash_bwd_dkv", dkv_ms, 4, 6, ("dk", "dv"))):
+        flops = 2.0 * d * live * products
+        nbytes = tensors * elt + 2 * b * h * L * 4   # + lse, delta
+        t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+        recs[name] = {
+            "shape": f"B{b} L{L} H{h} D{d} bf16 causal",
+            "max_abs_err": max(errs[e] for e in errk),
+            "tolerance": f"{BF16_TOL} * (1 + |plain|)", "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": lib_ms,
+            "note": "plain_ms and library_ms cover dq, dk and dv together",
+            "library": "scaled_dot_product_attention(is_causal=True) "
+                       "backward (autograd.grad)"}
+    return recs
+
+
+def check_adamw(torch, gen):
+    """The AdamW kernel against fused_adamw_plain on the lm_head leaf
+    (1024 x 32000 fp32), with the clip slot and weight decay live."""
+    from tpu_dist_torch.ops import pallas_adamw as pa
+
+    shape = (1024, 32000)
+    p, g, m = (torch.randn(shape, generator=gen, device="cuda")
+               for _ in range(3))
+    v = torch.rand(shape, generator=gen, device="cuda")
+    m, v = m * 1e-3, v * 1e-6
+    row = pa.scalar_row(1e-3, 0.9, 0.95, 1e-8, 0.1, 3,
+                        torch.tensor(0.5, device="cuda"))
+    got = [t.clone() for t in (p, m, v)]
+    ref = [t.clone() for t in (p, m, v)]
+    pa.fused_adamw_cuda(got[0], g, got[1], got[2], row)
+    pa.fused_adamw_plain(ref[0], g, ref[1], ref[2], row)
+    torch.cuda.synchronize()
+    err = 0.0
+    for a, r in zip(got, ref):
+        diff = (a - r).abs()
+        err = max(err, diff.max().item())
+        if not bool((diff <= FP32_TOL * (1 + r.abs())).all()):
+            raise AssertionError(f"adamw: max|err| {diff.max().item()} (tol "
+                                 f"{FP32_TOL} (1 + |ref|))")
+    ms = time_ms(torch, lambda: pa.fused_adamw_cuda(*got[:1], g, *got[1:],
+                                                    row))
+    plain_ms = time_ms(torch, lambda: pa.fused_adamw_plain(*ref[:1], g,
+                                                           *ref[1:], row))
+    lib_ms = None
+    if hasattr(torch, "_fused_adamw_"):
+        lp, lg, lm, lv = (t.clone() for t in (p, g, m, v))
+        steps = [torch.tensor(3.0, device="cuda")]
+        lib_ms = time_ms(torch, lambda: torch._fused_adamw_(
+            [lp], [lg], [lm], [lv], [], steps, lr=1e-3, beta1=0.9,
+            beta2=0.95, weight_decay=0.1, eps=1e-8, amsgrad=False,
+            maximize=False))
+    n = p.numel()
+    nbytes = 7 * 4 * n               # read p, g, m, v; write p, m, v
+    flops = 16.0 * n
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
+    return {"shape": f"{shape[0]}x{shape[1]} fp32 (lm_head)",
+            "max_abs_err": err, "tolerance": f"{FP32_TOL} * (1 + |plain|)",
+            "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": lib_ms,
+            "library": "torch._fused_adamw_ (decoupled wd, no clip)"}
+
+
+def run_trainer(cfg, device, init_params=None):
+    """Fit ``cfg`` on ``device``; (trainer, per-step losses from its
+    ledger)."""
+    from tpu_dist_torch.engine.lm_loop import LMTrainer
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "run.jsonl")
+        cfg = dataclasses.replace(cfg, ledger_path=path)
+        tr = LMTrainer(cfg, device=device, init_params=init_params)
+        tr.fit()
+        with open(path) as f:
+            recs = [json.loads(line) for line in f]
+    return tr, [r["loss"] for r in recs if r["event"] == "step"]
+
+
+def small_trainer_agreement(torch):
+    """Tiny fp32 trainer, flash + fused_adamw with the clip slot: 5 steps
+    on the card (kernels) and on the CPU (plain) from the same weights."""
+    from tpu_dist_torch.configs import LMConfig
+    from tpu_dist_torch.interop import export_flax_params
+    from tpu_dist_torch.models.transformer import TransformerLM
+
+    cfg = LMConfig(batch_size=4, seq_len=96, d_model=128, num_layers=2,
+                   num_heads=1, vocab_size=64, synth_tokens=4000, seed=SEED,
+                   attn="flash", optimizer="fused_adamw", lr=3e-3,
+                   grad_clip=0.5, weight_decay=0.1, max_steps=5,
+                   print_freq=100)
+    # one set of initial weights for both (the CPU and CUDA generators of
+    # one seed give different numbers)
+    init = export_flax_params(TransformerLM(
+        vocab_size=64, num_layers=2, d_model=128, num_heads=1, max_len=96,
+        device="cpu", seed=SEED))
+    _, cpu_losses = run_trainer(cfg, "cpu", init)
+    _, gpu_losses = run_trainer(cfg, "cuda", init)
+    if len(gpu_losses) != 5 or len(cpu_losses) != 5:
+        raise AssertionError(f"steps: card {len(gpu_losses)}, cpu "
+                             f"{len(cpu_losses)}")
+    for i, (a, r) in enumerate(zip(gpu_losses, cpu_losses)):
+        if abs(a - r) > LOSS_TOL * (1 + abs(r)):
+            raise AssertionError(f"step {i}: card loss {a} != plain {r} "
+                                 f"(tol {LOSS_TOL} (1 + |loss|))")
+    return {"card": gpu_losses, "cpu": cpu_losses,
+            "max_abs_diff": max(abs(a - r) for a, r in
+                                zip(gpu_losses, cpu_losses))}
+
+
+def training_path(torch, kernels):
+    """The training main path at full width (module docstring, phase 6)."""
+    from tpu_dist_torch.configs import LMConfig
+
+    layers = 8
+    cfg = LMConfig(vocab_size=32000, num_layers=layers, d_model=1024,
+                   num_heads=8, seq_len=2048, batch_size=8,
+                   precision="bf16", attn="flash", optimizer="fused_adamw",
+                   lr=1e-3, weight_decay=0.1, grad_clip=1.0,
+                   synth_tokens=400_000, seed=SEED, max_steps=TRAIN_STEPS,
+                   print_freq=5)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    tr, losses = run_trainer(cfg, "cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    leaves = len(tr.state.params)
+    n_eval = len(tr._epoch_indices(tr.val_ds, False, 0)[0])
+    if len(losses) != TRAIN_STEPS or tr.state.step != TRAIN_STEPS:
+        raise AssertionError(f"trained {tr.state.step} steps, "
+                             f"{len(losses)} losses")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite losses {losses}")
+    first, last = (statistics.mean(losses[:5]), statistics.mean(losses[-5:]))
+    if not last < first:
+        raise AssertionError(f"losses not falling: first 5 mean {first}, "
+                             f"last 5 mean {last}: {losses}")
+    want = {"flash_bwd_dq": layers * TRAIN_STEPS,
+            "flash_bwd_dkv": layers * TRAIN_STEPS,
+            "adamw": leaves * TRAIN_STEPS,
+            "flash_fwd": layers * (TRAIN_STEPS + n_eval)}
+    for name, n in want.items():
+        if launches[name] != n:
+            raise AssertionError(f"{name} launched {launches[name]} times, "
+                                 f"expected {n}")
+    params = sum(p.numel() for p in tr.state.params)
+    # the epoch rate leaves out the first step (kernel builds and the
+    # allocator's warm-up ride on it)
+    tokens = cfg.batch_size * cfg.seq_len
+    training = {
+        "params": params, "leaves": leaves, "steps": TRAIN_STEPS,
+        "losses": losses, "first5_mean": first, "last5_mean": last,
+        "tokens_per_s": tr.last_tok_s,
+        "step_ms": tokens / tr.last_tok_s * 1e3,
+        "wall_s_incl_build_and_eval": wall,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": launches,
+        "launches_per_step": {k: launches[k] / TRAIN_STEPS for k in (
+            "flash_bwd_dq", "flash_bwd_dkv", "adamw")},
+        "eval_batches": n_eval}
+    return training, launches
 
 
 def small_input_agreement(torch):
@@ -317,24 +556,43 @@ def main():
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     flash = {L: check_flash(torch, F, L, gen) for L in (1024, 2048)}
     paged = check_paged(torch, F, gen)
+    bwd = check_flash_bwd(torch, F, gen)
+    adamw = check_adamw(torch, gen)
     log(f"phase 3 kernels: flash_fwd {json.dumps(flash)}")
     log(f"phase 3 kernels: paged_decode {json.dumps(paged)}")
+    log(f"phase 3 kernels: flash_bwd {json.dumps(bwd)}")
+    log(f"phase 3 kernels: adamw {json.dumps(adamw)}")
 
     # 4. small input: card == CPU reference
     n = small_input_agreement(torch)
     log(f"phase 4 small-input agreement: {n}/{n} requests token-equal "
         "(card kernels vs CPU plain versions, fp32)")
+    agree = small_trainer_agreement(torch)
+    log(f"phase 4 small-input training: 5 steps, per-step losses agree "
+        f"within {LOSS_TOL} (1 + |loss|): {json.dumps(agree)}")
 
-    # 5. the main path at full width
-    serving, launches = main_path(torch, kernels)
+    # 5. the serving main path at full width
+    serving, serve_launches = main_path(torch, kernels)
     log(f"phase 5 serving: {json.dumps(serving)} on {card}")
 
+    # 6. the training main path at full width
+    training, train_launches = training_path(torch, kernels)
+    log(f"phase 6 training: {json.dumps(training)} on {card}")
+
     entries = []
-    for kname, rec, src, replaces in (
+    for kname, rec, src, replaces, launches in (
             ("flash_fwd", flash[1024], "tpu_dist_torch/csrc/flash_fwd.cu",
-             "tpu_dist/ops/flash_attention.py:138"),
+             "tpu_dist/ops/flash_attention.py:138", serve_launches),
             ("paged_decode", paged, "tpu_dist_torch/csrc/paged_decode.cu",
-             "tpu_dist/ops/paged_attention.py:294")):
+             "tpu_dist/ops/paged_attention.py:294", serve_launches),
+            ("flash_bwd_dq", bwd["flash_bwd_dq"],
+             "tpu_dist_torch/csrc/flash_bwd_dq.cu",
+             "tpu_dist/ops/flash_attention.py:201", train_launches),
+            ("flash_bwd_dkv", bwd["flash_bwd_dkv"],
+             "tpu_dist_torch/csrc/flash_bwd_dkv.cu",
+             "tpu_dist/ops/flash_attention.py:246", train_launches),
+            ("adamw", adamw, "tpu_dist_torch/csrc/adamw.cu",
+             "tpu_dist/ops/pallas_adamw.py:57", train_launches)):
         entry = {"name": kname, "route": "cuda", "source": src,
                  "replaces": replaces, "launches": launches[kname]}
         entry.update({k: rec[k] for k in (
@@ -342,6 +600,9 @@ def main():
             "library_ms", "shape", "tolerance")})
         if kname == "flash_fwd":
             entry["more_shapes"] = [flash[2048]]
+            entry["launches_by_path"] = {
+                "serving": serve_launches["flash_fwd"],
+                "training": train_launches["flash_fwd"]}
         entries.append(entry)
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": entries}))

@@ -15,13 +15,15 @@ import torch
 from tpu_dist_torch import kernels
 from tpu_dist_torch.ops import flash_attention as fa
 from tpu_dist_torch.ops import paged_attention as pa
+from tpu_dist_torch.ops import pallas_adamw as adamw
 
 torch.set_num_threads(1)
 
 pytestmark = pytest.mark.cuda
 
 # fp32: the kernels and the plain versions differ in summation order only;
-# bf16: the kernels round p (flash) and the output to bf16
+# bf16: the forward kernels round p and the output to bf16 (the backward
+# kernels round p and ds where their plain version does, then the outputs)
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 
 
@@ -129,3 +131,109 @@ def test_serving_on_the_card_equals_the_cpu_path(cuda, kw):
         assert kernels.LAUNCHES["paged_decode"] == 2 * eng.ticks
     for rid, toks in got["cpu"].items():
         np.testing.assert_array_equal(toks, got[cuda][rid])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=str)
+@pytest.mark.parametrize("case", [
+    # (b, lq, lk, h, d, causal, q_offset, kv_offset)
+    (2, 100, 100, 2, 64, True, 0, 0),
+    (1, 70, 130, 3, 128, False, 0, 0),
+    (1, 64, 64, 2, 128, True, 0, 40),     # dead rows and keys: exact zeros
+    (2, 40, 96, 1, 64, True, 56, 0),
+    (1, 1, 1, 1, 128, True, 0, 0),
+], ids=str)
+def test_flash_backward_kernels_match_plain(cuda, dtype, case):
+    b, lq, lk, h, d, causal, qo, ko = case
+    gen = torch.Generator(device=cuda).manual_seed(lq * 5 + lk)
+    q, k, v, g = (torch.randn((b, n, h, d), generator=gen, device=cuda)
+                  .to(dtype) for n in (lq, lk, lk, lq))
+    out, lse = fa.flash_forward_cuda(q, k, v, causal, qo, ko)
+    got = fa.flash_backward_cuda(q, k, v, out, lse, g, causal, qo, ko)
+    ref = fa.flash_backward_plain(q, k, v, out, lse, g, causal, qo, ko)
+    for a, r in zip(got, ref):
+        _close(a, r, dtype)
+    if ko > qo:
+        dead = (qo + torch.arange(lq, device=cuda)) < ko
+        assert bool((got[0][:, dead] == 0).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=str)
+def test_adamw_kernel_matches_plain(cuda, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    n = 100_003                                   # not a multiple of a block
+    p = torch.randn(n, generator=gen, device=cuda).to(dtype)
+    g, m = (torch.randn(n, generator=gen, device=cuda) for _ in range(2))
+    v = torch.rand(n, generator=gen, device=cuda)
+    row = adamw.scalar_row(1e-3, 0.9, 0.95, 1e-8, 0.1, 2,
+                           torch.tensor(0.7, device=cuda))
+    ref = [t.clone() for t in (p, m, v)]
+    adamw.fused_adamw_cuda(p, g, m, v, row)
+    adamw.fused_adamw_plain(ref[0], g, ref[1], ref[2], row)
+    assert p.dtype == dtype
+    # fp32 math: the kernel's fma contraction leaves a few ulps; a bf16 p
+    # can round one ulp apart from that
+    tol = 1e-6 if dtype == torch.float32 else 2e-2
+    for a, r in zip((p, m, v), ref):
+        diff = (a.float() - r.float()).abs()
+        assert bool((diff <= tol * (1 + r.float().abs())).all())
+
+
+def test_backward_wrappers_count_launches_and_refuse_bad_input(cuda):
+    x = torch.randn((1, 8, 1, 64), device=cuda, requires_grad=True)
+    kernels.reset_launches()
+    fa.flash_attention_fn()(x, x, x).sum().backward()
+    assert kernels.LAUNCHES["flash_fwd"] == 1
+    assert kernels.LAUNCHES["flash_bwd_dq"] == 1
+    assert kernels.LAUNCHES["flash_bwd_dkv"] == 1
+    y = x.detach()
+    out, lse = fa.flash_forward_cuda(y, y, y)
+    with pytest.raises(ValueError, match="lse"):
+        fa.flash_backward_cuda(y, y, y, out, lse[:, :4].contiguous(), out)
+    with pytest.raises(ValueError, match="dO"):
+        fa.flash_backward_cuda(y, y, y, out, lse, out.double())
+    p = torch.zeros(10, device=cuda)
+    with pytest.raises(TypeError, match="float32"):
+        adamw.fused_adamw_cuda(p, p.half(), p, p, torch.zeros(8, device=cuda))
+    with pytest.raises(ValueError, match="CUDA"):
+        adamw.fused_adamw_cuda(p, p, p.cpu(), p, torch.zeros(8, device=cuda))
+    assert kernels.LAUNCHES["flash_bwd_dq"] == 1
+    assert kernels.LAUNCHES["adamw"] == 0
+
+
+def test_training_on_the_card_equals_the_cpu_path(cuda, tmp_path):
+    """A tiny fp32 trainer (flash attention, fused AdamW with its clip
+    slot): 4 steps on the card (kernels) and on the CPU (plain versions)
+    from the same weights. Losses within 1e-4 * (1 + |loss|): cuBLAS and
+    the CPU sum matmuls in other orders, and Adam's normalized update
+    carries small gradient differences into the params."""
+    import json
+
+    from tpu_dist_torch.configs import LMConfig
+    from tpu_dist_torch.engine.lm_loop import LMTrainer
+    from tpu_dist_torch.interop import export_flax_params
+    from tpu_dist_torch.models.transformer import tiny_lm
+
+    init = export_flax_params(tiny_lm(vocab_size=64, num_layers=2,
+                                      d_model=64, num_heads=1, max_len=80,
+                                      device="cpu", seed=2))
+    losses = {}
+    for dev in ("cpu", cuda):
+        path = str(tmp_path / f"{dev}.jsonl")
+        cfg = LMConfig(batch_size=4, seq_len=80, d_model=64, num_layers=2,
+                       num_heads=1, vocab_size=64, synth_tokens=3000,
+                       attn="flash", optimizer="fused_adamw", lr=3e-3,
+                       grad_clip=0.5, max_steps=4, print_freq=2,
+                       ledger_path=path)
+        kernels.reset_launches()
+        tr = LMTrainer(cfg, device=dev, init_params=init)
+        tr.fit()
+        with open(path) as f:
+            losses[dev] = [r["loss"] for r in map(json.loads, f)
+                           if r["event"] == "step"]
+    assert kernels.LAUNCHES["flash_bwd_dq"] == 2 * 4
+    assert kernels.LAUNCHES["flash_bwd_dkv"] == 2 * 4
+    assert kernels.LAUNCHES["adamw"] == len(tr.state.params) * 4
+    for a, r in zip(losses[cuda], losses["cpu"]):
+        assert abs(a - r) <= 1e-4 * (1 + abs(r))

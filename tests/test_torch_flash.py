@@ -90,10 +90,20 @@ def test_quantize_kv_matches_reference():
 
 
 def test_backward_is_refused_and_names_the_tpu_kernels():
+    """The refusal ended when the backward kernels (the TPU's
+    ``_fa_bwd_dq_kernel`` and ``_fa_bwd_dkv_kernel``) were ported: a call
+    autograd records now goes through ``FlashAttention``, whose gradients
+    equal ``flash_backward_plain`` (tests/test_torch_flash_bwd.py holds
+    them against the reference), and an inference call records nothing."""
     q, k, v = (torch.from_numpy(a).requires_grad_()
                for a in _qkv(1, 1, 8, 8, 1, 8))
-    with pytest.raises(NotImplementedError, match="_fa_bwd_dq_kernel"):
-        tfa.flash_attention_fn()(q, k, v)
+    out = tfa.flash_attention_fn()(q, k, v)
+    g = torch.ones_like(out)
+    grads = torch.autograd.grad(out, (q, k, v), g)
+    o, lse = tfa.flash_forward_plain(q.detach(), k.detach(), v.detach())
+    for a, r in zip(grads, tfa.flash_backward_plain(
+            q.detach(), k.detach(), v.detach(), o, lse, g)):
+        assert torch.equal(a, r)
     with torch.inference_mode():
         out = tfa.flash_attention_fn()(q.detach(), k.detach(), v.detach())
-    assert out.shape == (1, 8, 1, 8)
+    assert out.shape == (1, 8, 1, 8) and out.grad_fn is None

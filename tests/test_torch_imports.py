@@ -49,7 +49,10 @@ def test_importing_every_module_pulls_in_no_jax():
     assert out["bad"] == []
     assert {"tpu_dist_torch.engine.serve", "tpu_dist_torch.interop",
             "tpu_dist_torch.tools.decode_bench",
-            "tpu_dist_torch.ops.paged_attention"} <= set(out["mods"])
+            "tpu_dist_torch.ops.paged_attention",
+            "tpu_dist_torch.engine.lm_loop", "tpu_dist_torch.ops.pallas_adamw",
+            "tpu_dist_torch.scripts.lm_longcontext",
+            "tpu_dist_torch.tools.profile_lm"} <= set(out["mods"])
 
 
 @pytest.mark.parametrize("path", _port_files(),

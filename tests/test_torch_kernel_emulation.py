@@ -3,7 +3,10 @@ compiled by the host C++ compiler against the emulation of
 ``tpu_dist_torch/tools/cuda_emu.py`` (a thread per CUDA thread) and driven
 through the wrappers' own launch code with CPU tensors, against the plain
 versions. fp32 within 1e-5 (summation order only); bf16 within
-2e-2 * (1 + |plain|) (the kernels round p and the output to bf16).
+2e-2 * (1 + |plain|) (the forward kernels round p and the output to bf16;
+the backward kernels round p and ds where their plain version does, so
+summation order is all that is left before the bf16 outputs round). The
+AdamW kernel within 1e-6 * (1 + |plain|) (fp32, the same operations).
 The hardware itself is checked by tests/test_torch_cuda.py on the card."""
 
 import shutil
@@ -13,6 +16,7 @@ import torch
 
 from tpu_dist_torch.ops import flash_attention as fa
 from tpu_dist_torch.ops import paged_attention as pa
+from tpu_dist_torch.ops import pallas_adamw as adamw
 from tpu_dist_torch.tools import cuda_emu
 
 torch.set_num_threads(1)
@@ -27,7 +31,13 @@ def emu():
     return {"flash": cuda_emu.function("flash_fwd", "tdt_flash_fwd",
                                        fa._FLASH_ARGS),
             "paged": cuda_emu.function("paged_decode", "tdt_paged_decode",
-                                       pa._PAGED_ARGS)}
+                                       pa._PAGED_ARGS),
+            "dq": cuda_emu.function("flash_bwd_dq", "tdt_flash_bwd_dq",
+                                    fa._BWD_DQ_ARGS),
+            "dkv": cuda_emu.function("flash_bwd_dkv", "tdt_flash_bwd_dkv",
+                                     fa._BWD_DKV_ARGS),
+            "adamw": cuda_emu.function("adamw", "tdt_adamw",
+                                       adamw._ADAMW_ARGS)}
 
 
 def _close(out, ref, dtype):
@@ -70,3 +80,46 @@ def test_paged_kernel_source_matches_plain(emu, dtype, d, lengths):
     out = pa._launch(emu["paged"], q, kq, ks, vq, vs, lens, None)
     _close(out, pa.paged_decode_plain(q, kq, ks, vq, vs, lens), dtype)
     assert bool((out[lens == 0] == 0).all())
+
+
+@pytest.mark.parametrize("dtype,case", [
+    # (b, lq, lk, h, d, causal, q_offset, kv_offset)
+    (torch.float32, (1, 100, 100, 2, 64, True, 0, 0)),
+    (torch.float32, (1, 70, 130, 1, 64, False, 0, 0)),
+    (torch.float32, (1, 64, 64, 1, 128, True, 0, 40)),   # dead rows, keys
+    (torch.float32, (1, 40, 96, 1, 64, True, 56, 0)),
+    (torch.bfloat16, (1, 80, 80, 1, 128, True, 0, 0)),
+], ids=str)
+def test_flash_backward_kernel_sources_match_plain(emu, dtype, case):
+    b, lq, lk, h, d, causal, qo, ko = case
+    gen = torch.Generator().manual_seed(lq * 3 + lk)
+    q, k, v, g = (torch.randn((b, n, h, d), generator=gen).to(dtype)
+                  for n in (lq, lk, lk, lq))
+    out, lse = fa.flash_forward_plain(q, k, v, causal, qo, ko)
+    got = fa._launch_backward(emu["dq"], emu["dkv"], q, k, v, out, lse, g,
+                              causal, qo, ko, None)
+    ref = fa.flash_backward_plain(q, k, v, out, lse, g, causal, qo, ko)
+    for a, r in zip(got, ref):
+        assert a.dtype == dtype
+        _close(a, r, dtype)
+    if ko > qo:   # rows that see no key: exact zero dq
+        dead = (qo + torch.arange(lq)) < ko
+        assert bool((got[0][:, dead] == 0).all())
+
+
+@pytest.mark.parametrize("dtype,n", [(torch.float32, 1000),
+                                     (torch.bfloat16, 777)], ids=str)
+def test_adamw_kernel_source_matches_plain(emu, dtype, n):
+    gen = torch.Generator().manual_seed(n)
+    p = torch.randn(n, generator=gen).to(dtype)
+    g = torch.randn(n, generator=gen)
+    m = torch.randn(n, generator=gen) * 0.1
+    v = torch.rand(n, generator=gen) * 0.1
+    row = adamw.scalar_row(1e-3, 0.9, 0.95, 1e-8, 0.1, 3, torch.tensor(0.5))
+    ref = [t.clone() for t in (p, m, v)]
+    adamw._launch(emu["adamw"], p, g, m, v, row, None)
+    adamw.fused_adamw_plain(ref[0], g, ref[1], ref[2], row)
+    assert p.dtype == dtype
+    for a, r in zip((p, m, v), ref):
+        diff = (a.float() - r.float()).abs()
+        assert bool((diff <= 1e-6 * (1 + r.float().abs())).all())

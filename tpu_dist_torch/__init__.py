@@ -3,7 +3,9 @@
 Module names mirror ``tpu_dist`` (``tpu_dist/engine/serve.py`` <->
 ``tpu_dist_torch/engine/serve.py``). The package imports ``torch`` and
 never ``jax``, and nothing of ``tpu_dist``: what it needs of the
-reference's jax-free modules it keeps as its own copies (``obs/``).
+reference's jax-free modules it keeps as its own copies (``obs/``,
+``configs.py``, ``data/``, ``utils/meters.py``). Ported so far: LM serving
+(``engine/serve.py``) and LM training (``engine/lm_loop.py``).
 
 Every TPU (Pallas) kernel on a ported path has a hand-written CUDA C++
 kernel under ``csrc/`` (built by :mod:`tpu_dist_torch.kernels`) and a plain

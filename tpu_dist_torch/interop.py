@@ -1,4 +1,7 @@
-"""Load a flax ``TransformerLM`` param tree into the port's model.
+"""Carry ``TransformerLM`` params between a flax tree and the port's model:
+:func:`load_flax_params` loads one, :func:`export_flax_params` writes the
+port's params back out as one (so trained params compare with the
+reference's leaf by leaf).
 
 The tree is the reference's nested dict (``model.init(...)["params"]``),
 with leaves anything ``numpy.asarray`` takes -- so this module needs no
@@ -91,3 +94,33 @@ def load_flax_params(model, params: dict):
         _load_norm(model.ln_f, params["ln_f"], "ln_f")
         _load_dense(model.lm_head, params["lm_head"], "lm_head")
     return model
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy().copy()
+
+
+def export_flax_params(model) -> dict:
+    """The port model's params as a flax-layout tree of numpy arrays (the
+    inverse of :func:`load_flax_params`; bf16 leaves come out as fp32,
+    which holds them exactly). Pre-quantized kernels export as their int8
+    values with the ``kernel_scale`` beside them."""
+    def dense(m: QuantDense) -> dict:
+        node = {"kernel": _np(m.kernel)}
+        if m.kernel_scale is not None:
+            node["kernel_scale"] = _np(m.kernel_scale)
+        if m.bias is not None:
+            node["bias"] = _np(m.bias)
+        return node
+
+    def norm(m) -> dict:
+        return {"scale": _np(m.scale), "bias": _np(m.bias)}
+
+    tree = {"tok_emb": {"embedding": _np(model.tok_emb.weight)},
+            "pos_emb": {"embedding": _np(model.pos_emb.weight)},
+            "ln_f": norm(model.ln_f), "lm_head": dense(model.lm_head)}
+    for i, blk in enumerate(model.blocks):
+        tree[f"block{i}"] = {"ln1": norm(blk.ln1), "ln2": norm(blk.ln2),
+                             **{n: dense(getattr(blk, n)) for n in _DENSE}}
+    return tree

@@ -11,10 +11,17 @@ Numerics follow the flax model the reference trains and serves:
 
 ``attn_fn`` is pluggable exactly as in the reference: :func:`full_attention`
 (plain PyTorch) or ``ops.flash_attention.flash_attention_fn()`` (the flash
-kernel). The model serves through three caches: none (``forward`` over
+kernels). The model serves through three caches: none (``forward`` over
 whole sequences), a contiguous per-block cache (``engine.generate``), and
 an external paged pool (``engine.serve``; ``paged=`` makes ``forward``
 return ``(logits, layers)``).
+
+Training mode (``engine.lm_loop.LMTrainer``): parameters are kept in
+``param_dtype`` (fp32 masters under ``precision="bf16"``) and cast to the
+compute ``dtype`` at each call, as flax does; the trainer turns
+``requires_grad`` on (a serving model keeps it off); ``remat=True`` runs
+each block under ``torch.utils.checkpoint`` when autograd records, the
+reference's ``nn.remat``.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ from typing import Callable, List, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from tpu_dist_torch.device import resolve_device
 from tpu_dist_torch.ops.quant import make_dense
@@ -93,12 +101,13 @@ class LayerNorm(nn.Module):
 class Block(nn.Module):
     def __init__(self, d_model: int, num_heads: int, dtype=torch.float32,
                  attn_fn: Callable = full_attention, quant: str = "none",
-                 device=None):
+                 device=None, param_dtype=None):
         super().__init__()
         self.num_heads = num_heads
         self.dtype = dtype
         self.attn_fn = attn_fn
-        dense = dict(dtype=dtype, quant=quant, device=device)
+        dense = dict(dtype=dtype, quant=quant, device=device,
+                     param_dtype=param_dtype)
         self.ln1 = LayerNorm(d_model, device=device)
         self.qkv = make_dense(d_model, 3 * d_model, use_bias=False, **dense)
         self.proj = make_dense(d_model, d_model, use_bias=False, **dense)
@@ -128,29 +137,34 @@ class TransformerLM(nn.Module):
     """Decoder-only LM: int tokens (B, L) -> fp32 logits (B, L, V).
 
     Parameters are made on ``device`` (default CUDA; ``device="cpu"`` for
-    the plain path) and filled by :meth:`init_weights` from a seed, or
-    loaded from a flax tree by :mod:`tpu_dist_torch.interop`."""
+    the plain path) in ``param_dtype`` (default: the compute ``dtype``) and
+    filled by :meth:`init_weights` from a seed, or loaded from a flax tree
+    by :mod:`tpu_dist_torch.interop`."""
 
     def __init__(self, vocab_size: int = 32000, num_layers: int = 4,
                  d_model: int = 256, num_heads: int = 8, max_len: int = 2048,
                  dtype=torch.float32, attn_fn: Callable = full_attention,
-                 quant: str = "none", device=None, seed: Optional[int] = 0):
+                 quant: str = "none", device=None, seed: Optional[int] = 0,
+                 param_dtype=None, remat: bool = False):
         super().__init__()
         device = resolve_device(device)
+        param_dtype = dtype if param_dtype is None else param_dtype
         self.vocab_size, self.num_layers = vocab_size, num_layers
         self.d_model, self.num_heads = d_model, num_heads
         self.max_len = max_len
         self.dtype, self.attn_fn, self.quant = dtype, attn_fn, quant
-        self.tok_emb = nn.Embedding(vocab_size, d_model, dtype=dtype,
+        self.remat = remat
+        self.tok_emb = nn.Embedding(vocab_size, d_model, dtype=param_dtype,
                                     device=device)
-        self.pos_emb = nn.Embedding(max_len, d_model, dtype=dtype,
+        self.pos_emb = nn.Embedding(max_len, d_model, dtype=param_dtype,
                                     device=device)
         self.blocks = nn.ModuleList(
-            Block(d_model, num_heads, dtype, attn_fn, quant, device)
-            for _ in range(num_layers))
+            Block(d_model, num_heads, dtype, attn_fn, quant, device,
+                  param_dtype) for _ in range(num_layers))
         self.ln_f = LayerNorm(d_model, device=device)
         self.lm_head = make_dense(d_model, vocab_size, use_bias=False,
-                                  dtype=dtype, quant=quant, device=device)
+                                  dtype=dtype, quant=quant, device=device,
+                                  param_dtype=param_dtype)
         self.requires_grad_(False)
         if seed is not None:
             self.init_weights(seed)
@@ -158,6 +172,11 @@ class TransformerLM(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.tok_emb.weight.device
+
+    def _embed(self, emb: nn.Embedding, idx):
+        """flax ``nn.Embed(dtype=...)``: the table is cast to the compute
+        dtype, then indexed (its gradient accumulates in that dtype)."""
+        return F.embedding(idx, emb.weight.to(self.dtype))
 
     def init_weights(self, seed: int) -> None:
         """Random weights from ``seed`` with flax's initializers: embeddings
@@ -182,7 +201,7 @@ class TransformerLM(nn.Module):
         the pool context ``{"layers", "block_tables", "positions",
         "lengths"[, "valid"]}``; then returns ``(logits, layers)``."""
         l = tokens.shape[1]
-        x = self.tok_emb(tokens.long())
+        x = self._embed(self.tok_emb, tokens.long())
         ar = torch.arange(l, device=tokens.device)
         if torch.is_tensor(pos_offset) and pos_offset.dim():
             # padding rows of a last prefill chunk may run past max_len;
@@ -190,14 +209,19 @@ class TransformerLM(nn.Module):
             # of the table (a device-side fault on CUDA)
             pos = torch.clamp(pos_offset.long()[:, None] + ar[None, :],
                               max=self.max_len - 1)
-            x = x + self.pos_emb(pos)
+            x = x + self._embed(self.pos_emb, pos)
         else:
-            x = x + self.pos_emb(int(pos_offset) + ar)[None]
+            x = x + self._embed(self.pos_emb, int(pos_offset) + ar)[None]
         ctx = None if paged is None else {
             k: paged.get(k) for k in ("block_tables", "positions", "lengths",
                                       "valid", "sp_mesh")}
         new_layers = []
+        remat = (self.remat and torch.is_grad_enabled() and caches is None
+                 and paged is None)
         for i, blk in enumerate(self.blocks):
+            if remat:
+                x, _ = checkpoint(blk, x, use_reentrant=False)
+                continue
             x, layer = blk(
                 x, cache=None if caches is None else caches[i],
                 paged=None if paged is None else {**ctx,
@@ -218,8 +242,10 @@ class TransformerLM(nn.Module):
 
 def tiny_lm(vocab_size=256, num_layers=2, d_model=64, num_heads=4,
             max_len=512, dtype=torch.float32, attn_fn=full_attention,
-            quant="none", device=None, seed=0, **_):
+            quant="none", device=None, seed=0, param_dtype=None,
+            remat=False, **_):
     return TransformerLM(vocab_size=vocab_size, num_layers=num_layers,
                          d_model=d_model, num_heads=num_heads,
                          max_len=max_len, dtype=dtype, attn_fn=attn_fn,
-                         quant=quant, device=device, seed=seed)
+                         quant=quant, device=device, seed=seed,
+                         param_dtype=param_dtype, remat=remat)

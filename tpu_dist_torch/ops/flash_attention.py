@@ -1,17 +1,24 @@
-"""Flash attention forward for the port (``tpu_dist/ops/flash_attention.py``).
+"""Flash attention for the port (``tpu_dist/ops/flash_attention.py``).
 
 :func:`flash_attention_fn` returns ``attn(q, k, v, *, causal, q_offset,
 kv_offset)`` over (B, L, H, D) tensors -- the model's pluggable
-``attn_fn``, which serving runs in every prefill. For CUDA tensors it
-launches the hand-written Hopper kernel ``csrc/flash_fwd.cu`` (the port of
-the Pallas ``_fa_fwd_kernel``); for CPU tensors it runs
-:func:`flash_forward_plain`, the same function in plain PyTorch. There is
-no other path: a CUDA tensor the kernel does not take raises.
+``attn_fn``, which serving runs in every prefill and LM training in every
+layer. For CUDA tensors it launches the hand-written Hopper kernels; for
+CPU tensors it runs their plain PyTorch versions. There is no other path:
+a CUDA tensor a kernel does not take raises.
 
-Forward only: the backward kernels (``_fa_bwd_dq_kernel``,
-``_fa_bwd_dkv_kernel``) belong to LM training and are not ported yet, so
-a call that autograd would differentiate raises. Serving calls run under
-``torch.inference_mode()``.
+* forward: ``csrc/flash_fwd.cu`` (the Pallas ``_fa_fwd_kernel``, lines
+  138-198) beside :func:`flash_forward_plain`;
+* backward (lines 201-412): :class:`FlashAttention`, a
+  ``torch.autograd.Function`` whose forward is the forward kernel and whose
+  backward computes ``delta = rowsum(out * dO)`` in plain PyTorch (the
+  reference also computes it outside Pallas, ``:367-373``) and launches
+  ``csrc/flash_bwd_dq.cu`` (``_fa_bwd_dq_kernel``) and
+  ``csrc/flash_bwd_dkv.cu`` (``_fa_bwd_dkv_kernel``), beside
+  :func:`flash_backward_plain`.
+
+A call that autograd would not differentiate (serving runs under
+``torch.inference_mode()``) skips the Function and saves nothing.
 """
 
 from __future__ import annotations
@@ -26,10 +33,6 @@ from tpu_dist_torch import kernels
 from tpu_dist_torch.ops.quant import quantize_int8
 
 NEG_INF = -1e30  # avoids -inf - -inf = nan in the online max updates
-
-BACKWARD_KERNELS = ("ops/flash_attention.py:_fa_bwd_dq_kernel and "
-                    "ops/flash_attention.py:_fa_bwd_dkv_kernel")
-
 
 def quantize_kv(k: torch.Tensor, v: torch.Tensor):
     """Per-row symmetric int8 quantization of a (B, L, H, D) KV pair:
@@ -125,28 +128,189 @@ def flash_forward_cuda(q, k, v, causal: bool = True, q_offset: int = 0,
 def flash_forward(q, k, v, *, causal: bool = True, q_offset: int = 0,
                   kv_offset: int = 0):
     """(out, lse): the kernel for CUDA tensors, the plain version for CPU
-    tensors."""
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
-        raise NotImplementedError(
-            "flash attention backward is not ported: the TPU kernels "
-            f"{BACKWARD_KERNELS} have no Hopper kernel yet (run under "
-            "torch.inference_mode() / no_grad)")
+    tensors. Not differentiable: :class:`FlashAttention` is."""
     if q.device.type == "cpu":
         return flash_forward_plain(q, k, v, causal, q_offset, kv_offset)
     return flash_forward_cuda(q, k, v, causal, q_offset, kv_offset)
 
 
+# ---- backward -------------------------------------------------------------
+
+def flash_backward_plain(q, k, v, out, lse, g, causal: bool = True,
+                         q_offset: int = 0, kv_offset: int = 0):
+    """The backward kernels' function in plain PyTorch: (dq, dk, dv) in
+    q's, k's and v's dtypes from the forward's (out, lse (B*H, Lq)) and the
+    output cotangent ``g`` (B, Lq, H, D). Scores and products in fp32, with
+    the TPU kernels' rounding points:
+
+    * ``p = exp(s - lse)``, and ``p = 0`` where ``s <= NEG_INF / 2``, so a
+      fully masked row or key gets exact zero gradients (``:227``, ``:273``);
+    * ``delta = rowsum(out * g)`` in fp32 (``:370``);
+    * ``ds = p * (g.v - delta) * scale``;
+    * ``dq = ds.astype(k) . k`` (``:232-234``), ``dv = p.astype(g)^T . g``
+      (``:274-276``), ``dk = ds.astype(q)^T . q`` (``:281-283``)."""
+    b, lq, h, d = q.shape
+    lk = k.shape[1]
+    scale = 1.0 / math.sqrt(d)
+    qf, kf, vf, gf = (t.float().transpose(1, 2) for t in (q, k, v, g))
+    s = (qf @ kf.transpose(-1, -2)) * scale                # (B, H, Lq, Lk)
+    if causal:
+        qpos = q_offset + torch.arange(lq, device=q.device)
+        kpos = kv_offset + torch.arange(lk, device=q.device)
+        s = torch.where(kpos[None, :] <= qpos[:, None], s, NEG_INF)
+    lse4 = lse.reshape(b, h, lq, 1)
+    p = torch.where(s <= NEG_INF / 2, 0.0, torch.exp(s - lse4))
+    delta = bwd_delta(out, g).reshape(b, h, lq, 1)
+    ds = p * (gf @ vf.transpose(-1, -2) - delta) * scale
+    rnd = lambda t, like: t.to(like.dtype).float()
+    dq = rnd(ds, k) @ kf
+    dv = rnd(p, g).transpose(-1, -2) @ gf
+    dk = rnd(ds, q).transpose(-1, -2) @ qf
+    back = lambda t, like: t.transpose(1, 2).to(like.dtype).contiguous()
+    return back(dq, q), back(dk, k), back(dv, v)
+
+
+_BWD_DQ_ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+                + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+_BWD_DKV_ARGS = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+                 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+
+
+def _check_backward(q, k, v, out, lse, g):
+    _check_flash(q, k, v)
+    b, lq, h, _ = q.shape
+    if out.shape != q.shape or g.shape != q.shape or out.dtype != q.dtype \
+            or g.dtype != q.dtype:
+        raise ValueError(f"flash backward: out and dO must match q "
+                         f"{tuple(q.shape)} {q.dtype}, got {tuple(out.shape)} "
+                         f"{out.dtype} / {tuple(g.shape)} {g.dtype}")
+    if lse.dtype != torch.float32 or tuple(lse.shape) != (b * h, lq):
+        raise ValueError(f"flash backward: lse must be float32 (B*H, Lq) = "
+                         f"{(b * h, lq)}, got {lse.dtype} {tuple(lse.shape)}")
+    for t in (out, lse, g):
+        if t.device != q.device or not t.is_contiguous():
+            raise ValueError("flash backward: out, lse, dO must be "
+                             "contiguous on q's device")
+
+
+def _bwd_common(q, k, causal, q_offset, kv_offset, stream):
+    b, lq, h, d = q.shape
+    return (b, h, lq, k.shape[1], d, int(bool(causal)), int(q_offset),
+            int(kv_offset), 1.0 / math.sqrt(d), kernels.DTYPE_CODE[q.dtype],
+            stream)
+
+
+def _launch_bwd_dq(fn, q, k, v, g, lse, delta, causal, q_offset, kv_offset,
+                   stream):
+    """Call the C entry ``tdt_flash_bwd_dq`` on checked tensors; returns
+    dq, raises on a launch error."""
+    dq = torch.empty_like(q)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+             *_bwd_common(q, k, causal, q_offset, kv_offset, stream))
+    if err != 0:
+        raise RuntimeError(f"flash_bwd_dq kernel launch failed "
+                           f"(cudaError {err})")
+    return dq
+
+
+def _launch_bwd_dkv(fn, q, k, v, g, lse, delta, causal, q_offset, kv_offset,
+                    stream):
+    """Call the C entry ``tdt_flash_bwd_dkv`` on checked tensors; returns
+    (dk, dv), raises on a launch error."""
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+             *_bwd_common(q, k, causal, q_offset, kv_offset, stream))
+    if err != 0:
+        raise RuntimeError(f"flash_bwd_dkv kernel launch failed "
+                           f"(cudaError {err})")
+    return dk, dv
+
+
+def bwd_delta(out, g):
+    """``delta = rowsum(out * dO)`` in fp32, in the kernels' (B*H, Lq)
+    layout (the reference's ``:370``)."""
+    b, lq, h, _ = out.shape
+    return (out.float() * g.float()).sum(-1).transpose(1, 2).reshape(
+        b * h, lq).contiguous()
+
+
+def _launch_backward(fn_dq, fn_dkv, q, k, v, out, lse, g, causal, q_offset,
+                     kv_offset, stream):
+    """delta in plain PyTorch, then both kernels on ``stream``: (dq, dk,
+    dv)."""
+    delta = bwd_delta(out, g)
+    args = (q, k, v, g, lse, delta, causal, q_offset, kv_offset, stream)
+    return (_launch_bwd_dq(fn_dq, *args), *_launch_bwd_dkv(fn_dkv, *args))
+
+
+def flash_backward_cuda(q, k, v, out, lse, g, causal: bool = True,
+                        q_offset: int = 0, kv_offset: int = 0):
+    """Launch ``csrc/flash_bwd_dq.cu`` then ``csrc/flash_bwd_dkv.cu`` on the
+    current stream: (dq, dk, dv)."""
+    _check_backward(q, k, v, out, lse, g)
+    fn_dq = kernels.function("flash_bwd_dq", "tdt_flash_bwd_dq", _BWD_DQ_ARGS)
+    fn_dkv = kernels.function("flash_bwd_dkv", "tdt_flash_bwd_dkv",
+                              _BWD_DKV_ARGS)
+    with torch.cuda.device(q.device):
+        grads = _launch_backward(
+            fn_dq, fn_dkv, q, k, v, out, lse, g, causal, q_offset, kv_offset,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    kernels.LAUNCHES["flash_bwd_dq"] += 1
+    kernels.LAUNCHES["flash_bwd_dkv"] += 1
+    return grads
+
+
+def flash_backward(q, k, v, out, lse, g, *, causal: bool = True,
+                   q_offset: int = 0, kv_offset: int = 0):
+    """(dq, dk, dv): the kernels for CUDA tensors, the plain version for CPU
+    tensors."""
+    if q.device.type == "cpu":
+        return flash_backward_plain(q, k, v, out, lse, g, causal, q_offset,
+                                    kv_offset)
+    return flash_backward_cuda(q, k, v, out, lse, g, causal, q_offset,
+                               kv_offset)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable flash attention (the reference's ``custom_vjp``):
+    the forward saves ``(q, k, v, out, lse)``, the backward recomputes the
+    scores from ``lse`` -- never a second full forward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, q_offset, kv_offset):
+        out, lse = flash_forward(q, k, v, causal=causal, q_offset=q_offset,
+                                 kv_offset=kv_offset)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.mask = (causal, q_offset, kv_offset)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, q_offset, kv_offset = ctx.mask
+        dq, dk, dv = flash_backward(q, k, v, out, lse, g.contiguous(),
+                                    causal=causal, q_offset=q_offset,
+                                    kv_offset=kv_offset)
+        return dq, dk, dv, None, None, None
+
+
 @functools.lru_cache(maxsize=None)
 def flash_attention_fn(block_q: int = 1024, block_k: int | None = None):
     """Returns ``attn(q, k, v, *, causal=True, q_offset=0, kv_offset=0)``
-    backed by the flash forward kernel. ``block_q``/``block_k`` are the TPU
-    kernel's tile knobs, kept so configurations carry over; the Hopper
-    kernel does not read them (fixed 64 x 64 tiles, ragged edges masked,
-    so no length divisibility rule). Memoized per config, like the
+    backed by the flash kernels, differentiable through
+    :class:`FlashAttention` when autograd records. ``block_q``/``block_k``
+    are the TPU kernels' tile knobs, kept so configurations carry over; the
+    Hopper kernels do not read them (fixed 64 x 64 tiles, ragged edges
+    masked, so no length divisibility rule). Memoized per config, like the
     reference, so equal configs give the same callable."""
 
     def attn(q, k, v, *, causal: bool = True, q_offset=0, kv_offset=0):
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad):
+            return FlashAttention.apply(q, k, v, causal, q_offset, kv_offset)
         return flash_forward(q, k, v, causal=causal, q_offset=q_offset,
                              kv_offset=kv_offset)[0]
 

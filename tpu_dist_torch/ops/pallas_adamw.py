@@ -1,0 +1,174 @@
+"""Fused AdamW for the port (``tpu_dist/ops/pallas_adamw.py``).
+
+:class:`FusedAdamW` keeps the reference's engine-facing protocol
+(``init(params)``, ``apply(params, grads, state, step)``) and its scalar
+row ``[lr, b1, b2, eps, wd, 1-b1^t, 1-b2^t, clip_scale]`` (``:143-151``),
+with ``t`` the 1-indexed step. Each parameter leaf is one launch of the
+hand-written Hopper kernel ``csrc/adamw.cu`` (the Pallas ``_adamw_kernel``,
+``:57-73``) for CUDA tensors, or of :func:`fused_adamw_plain` for CPU
+tensors. The update rule is optax.adamw with ``eps_root = 0`` and the
+global-norm clip fused in::
+
+    g  <- g * cs            (cs = clip / norm when norm > clip, else 1)
+    m' = b1 m + (1-b1) g;   v' = b2 v + (1-b2) g g
+    p' = p - lr ((m' / (1-b1^t)) / (sqrt(v' / (1-b2^t)) + eps) + wd p)
+
+in fp32 whatever p's dtype, p written back in its own dtype, m and v fp32.
+Unlike the reference, which donates p, m and v to a functional call, the
+port updates them in place: no second copy of the optimizer state exists.
+The scalar row is built on the device each step (:func:`scalar_row`), so a
+step syncs nothing with the host.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Callable, List, NamedTuple, Sequence
+
+import numpy as np
+import torch
+
+from tpu_dist_torch import kernels
+
+_ADAMW_ARGS = ([ctypes.c_void_p] * 5
+               + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
+
+
+def clip_scale(grads: Sequence[torch.Tensor], clip_norm: float):
+    """Global-norm clip factor for a list of grads, as a 0-d fp32 tensor on
+    their device: ``clip/norm`` when the fp32 global norm exceeds
+    ``clip_norm``, else 1 (``tpu_dist/ops/pallas_sgd.py:76 clip_scale``;
+    optax.clip_by_global_norm / ``clip_grad_norm_`` semantics). Clipping
+    off (``clip_norm <= 0``) gives a constant 1."""
+    dev = grads[0].device
+    if clip_norm <= 0:
+        return torch.ones((), dtype=torch.float32, device=dev)
+    sq = sum(g.float().square().sum() for g in grads)
+    norm = torch.sqrt(sq)
+    return torch.where(norm > clip_norm,
+                       clip_norm / torch.clamp(norm, min=1e-30),
+                       torch.ones((), dtype=torch.float32, device=dev))
+
+
+def scalar_row(lr: float, b1: float, b2: float, eps: float, wd: float,
+               t: int, cs: torch.Tensor) -> torch.Tensor:
+    """The kernel's (8,) fp32 scalar row on ``cs``'s device, the bias
+    corrections in fp32 as the reference computes them. The host values
+    travel in one pinned, non-blocking copy; ``cs`` stays on the device."""
+    f32 = np.float32
+    host = torch.tensor([lr, b1, b2, eps, wd,
+                         f32(1) - f32(b1) ** f32(t),
+                         f32(1) - f32(b2) ** f32(t), 1.0],
+                        dtype=torch.float32)
+    if cs.is_cuda:
+        host = host.pin_memory()
+    row = host.to(cs.device, non_blocking=True)
+    row[7:].copy_(cs.reshape(1))
+    return row
+
+
+def fused_adamw_plain(p, g, m, v, scalars) -> None:
+    """The kernel's function in plain PyTorch, in place on (p, m, v): fp32
+    math in the kernel's operation order, p stored back in its dtype."""
+    lr, b1, b2, eps, wd, c1, c2, cs = scalars.unbind()
+    pf = p.float()
+    gf = g.float() * cs
+    mf = b1 * m + (1.0 - b1) * gf
+    vf = b2 * v + (1.0 - b2) * gf * gf
+    update = (mf / c1) / (torch.sqrt(vf / c2) + eps) + wd * pf
+    p.copy_((pf - lr * update).to(p.dtype))
+    m.copy_(mf)
+    v.copy_(vf)
+
+
+def _check_adamw(p, g, m, v, scalars):
+    if p.dtype not in kernels.DTYPE_CODE:
+        raise TypeError(f"adamw kernel takes float32 or bfloat16 params, "
+                        f"got {p.dtype}")
+    for name, t in (("g", g), ("m", m), ("v", v), ("scalars", scalars)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"adamw kernel: {name} must be float32, got "
+                            f"{t.dtype}")
+    for name, t in (("p", p), ("g", g), ("m", m), ("v", v),
+                    ("scalars", scalars)):
+        if t.device != p.device or not t.is_cuda or not t.is_contiguous():
+            raise ValueError(f"adamw kernel: {name} must be contiguous on "
+                             f"p's CUDA device")
+    if not (g.shape == m.shape == v.shape == p.shape):
+        raise ValueError(f"adamw kernel: p, g, m, v shapes differ: "
+                         f"{tuple(p.shape)}, {tuple(g.shape)}, "
+                         f"{tuple(m.shape)}, {tuple(v.shape)}")
+    if scalars.numel() != 8:
+        raise ValueError("adamw kernel: the scalar row has 8 entries")
+
+
+def _launch(fn, p, g, m, v, scalars, stream) -> None:
+    """Call the C entry ``tdt_adamw`` on checked tensors; raise on a launch
+    error."""
+    err = fn(p.data_ptr(), g.data_ptr(), m.data_ptr(), v.data_ptr(),
+             scalars.data_ptr(), p.numel(), kernels.DTYPE_CODE[p.dtype],
+             stream)
+    if err != 0:
+        raise RuntimeError(f"adamw kernel launch failed (cudaError {err})")
+
+
+def fused_adamw_cuda(p, g, m, v, scalars) -> None:
+    """Launch ``csrc/adamw.cu`` on the current stream, in place on
+    (p, m, v)."""
+    _check_adamw(p, g, m, v, scalars)
+    if p.numel() == 0:
+        return
+    fn = kernels.function("adamw", "tdt_adamw", _ADAMW_ARGS)
+    with torch.cuda.device(p.device):
+        _launch(fn, p, g, m, v, scalars,
+                torch.cuda.current_stream(p.device).cuda_stream)
+    kernels.LAUNCHES["adamw"] += 1
+
+
+def fused_adamw_leaf(p, g, m, v, scalars) -> None:
+    """One leaf's update in place: the kernel for CUDA tensors, the plain
+    version for CPU tensors. ``g`` is cast to fp32 first, as the reference
+    casts it."""
+    g = g.float().contiguous()
+    if p.device.type == "cpu":
+        fused_adamw_plain(p, g, m, v, scalars)
+    else:
+        fused_adamw_cuda(p, g, m, v, scalars)
+
+
+class FusedAdamWState(NamedTuple):
+    mu: List[torch.Tensor]   # first moments, fp32
+    nu: List[torch.Tensor]   # second moments, fp32
+
+
+class FusedAdamW:
+    """Fused-kernel AdamW with the engine-facing ``apply()`` protocol
+    (``engine.steps.apply_update`` dispatches on it). ``params`` and
+    ``grads`` are equal-length lists of tensors."""
+
+    def __init__(self, schedule: Callable, b1: float = 0.9, b2: float = 0.95,
+                 eps: float = 1e-8, weight_decay: float = 0.1,
+                 clip_norm: float = 0.0):
+        self.schedule = schedule
+        self.b1, self.b2, self.eps = b1, b2, eps
+        self.weight_decay = weight_decay
+        self.clip_norm = clip_norm
+
+    def init(self, params) -> FusedAdamWState:
+        z = lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                  device=p.device)
+        return FusedAdamWState(mu=[z(p) for p in params],
+                               nu=[z(p) for p in params])
+
+    @torch.no_grad()
+    def apply(self, params, grads, state: FusedAdamWState,
+              step: int) -> FusedAdamWState:
+        """Update ``params`` and ``state`` in place for optimizer step
+        ``step`` (0-indexed: the kernel's t is step + 1); returns
+        ``state``."""
+        scalars = scalar_row(float(self.schedule(step)), self.b1, self.b2,
+                             self.eps, self.weight_decay, step + 1,
+                             clip_scale(grads, self.clip_norm))
+        for p, g, m, v in zip(params, grads, state.mu, state.nu):
+            fused_adamw_leaf(p.data, g, m, v, scalars)
+        return state

@@ -88,11 +88,14 @@ class QuantDense(nn.Module):
     """Dense layer with flax's parameter names and layout: ``kernel``
     (in, out), optional ``bias`` (out,). ``mode`` is the quant knob.
 
-    Parameters are stored in the compute dtype: flax keeps fp32 masters
-    and casts them at every call, which for inference is the same values
-    once. (A bf16 model wo-quantized here therefore quantizes the
-    bf16-rounded weights; the reference quantizes its fp32 masters. Load
-    a tree quantized by :func:`wo_quantize_params` to match it exactly.)
+    Parameters are stored in ``param_dtype`` (default: the compute dtype
+    ``dtype``) and cast to ``dtype`` at every call, as flax does. Serving
+    stores them in the compute dtype, which for inference gives the same
+    values once; training keeps fp32 masters (``param_dtype=float32``), so
+    optimizer updates smaller than a bf16 ulp are not rounded away. (A
+    bf16-stored model wo-quantized here quantizes the bf16-rounded weights;
+    the reference quantizes its fp32 masters. Load a tree quantized by
+    :func:`wo_quantize_params` to match it exactly.)
 
     After :meth:`load_quantized` the kernel is an int8 buffer with an fp32
     ``kernel_scale`` (1, out) and is dequantized on each call -- the
@@ -100,7 +103,8 @@ class QuantDense(nn.Module):
     """
 
     def __init__(self, in_features: int, features: int, mode: str = "none",
-                 use_bias: bool = True, dtype=torch.float32, device=None):
+                 use_bias: bool = True, dtype=torch.float32, device=None,
+                 param_dtype=None):
         super().__init__()
         validate_quant(mode)
         if mode == "int8":
@@ -108,10 +112,12 @@ class QuantDense(nn.Module):
         self.in_features, self.features = in_features, features
         self.mode = mode
         self.dtype = dtype
+        param_dtype = dtype if param_dtype is None else param_dtype
         self.kernel = nn.Parameter(torch.empty(in_features, features,
-                                               dtype=dtype, device=device),
+                                               dtype=param_dtype,
+                                               device=device),
                                    requires_grad=False)
-        self.bias = (nn.Parameter(torch.zeros(features, dtype=dtype,
+        self.bias = (nn.Parameter(torch.zeros(features, dtype=param_dtype,
                                               device=device),
                                   requires_grad=False)
                      if use_bias else None)
@@ -160,12 +166,13 @@ class QuantDense(nn.Module):
 
 
 def make_dense(in_features: int, features: int, *, use_bias: bool = True,
-               dtype=torch.float32, quant: str = "none",
-               device=None) -> QuantDense:
+               dtype=torch.float32, quant: str = "none", device=None,
+               param_dtype=None) -> QuantDense:
     """The dense-layer factory of the transformer family (one module type
     for every quant mode, so the knob never forks the param layout)."""
     return QuantDense(in_features, features, mode=validate_quant(quant),
-                      use_bias=use_bias, dtype=dtype, device=device)
+                      use_bias=use_bias, dtype=dtype, device=device,
+                      param_dtype=param_dtype)
 
 
 # ---- weight-only decode: pre-quantized param trees ------------------------

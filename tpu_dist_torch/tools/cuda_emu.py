@@ -58,6 +58,8 @@ struct dim3 {
 };
 inline thread_local dim3 threadIdx;
 inline dim3 blockIdx;
+inline dim3 blockDim;
+inline dim3 gridDim;
 inline std::barrier<>* g_block_bar = nullptr;
 inline std::vector<std::barrier<>*> g_warp_bar;
 inline float g_shfl[64][32];
@@ -91,6 +93,8 @@ inline void emu_launch(dim3 grid, dim3 block, size_t smem,
                        std::function<void()> fn) {
   g_dyn_smem.assign(smem / sizeof(float) + 1, std::nanf(""));
   const int nt = block.x;
+  blockDim = block;
+  gridDim = grid;
   for (unsigned by = 0; by < grid.y; ++by)
     for (unsigned bx = 0; bx < grid.x; ++bx) {
       blockIdx = dim3(bx, by, 1);
