@@ -13,13 +13,17 @@ CUDA or without the repository beside it. Phases:
    nvcc processes started together;
 3. each kernel against its plain PyTorch version on the card, at the
    shapes its main path gives it, with the error, the kernel's time (CUDA
-   events, median of 20), the plain version's time, a one-call PyTorch
-   yardstick (``scaled_dot_product_attention`` and its backward,
-   ``torch._fused_adamw_``; timed here and used nowhere in the port) and
-   the least time the card could take;
+   events, median of 20, each queued behind a device sleep so that the
+   host's dispatch stays out of it), the plain version's time, a one-call
+   PyTorch yardstick (``scaled_dot_product_attention`` and its backward,
+   ``torch._fused_adamw_``, ``torch._fused_sgd_``; timed here and used
+   nowhere in the port) and the least time the card could take. The sgd
+   kernel is held at ResNet-50's largest leaf and across its 161 leaves as
+   one step, with the clip slot at 1 and at 0.3, and with a bf16 p;
 4. small-input checks: a tiny fp32 model served on the card (kernels) and
    on the CPU (plain versions) gives the same greedy tokens, and a tiny
-   fp32 trainer takes 5 steps on both with the same losses;
+   fp32 LM trainer and a tiny fp32 image trainer (``fused_sgd``) each take
+   5 steps on both with the same losses;
 5. serving main path: ``ServeEngine`` at the full width of the LM the repo
    benches (V=32000, 8 layers, d_model 1024, 8 heads, bf16, random
    weights from a seed), flash prefill and int8 paged decode, serving 16
@@ -28,7 +32,15 @@ CUDA or without the repository beside it. Phases:
    8, bf16 compute over fp32 masters, flash attention, ``fused_adamw``
    with grad_clip 1.0) for 20 steps: finite, falling losses, and per step
    one ``flash_bwd_dq`` and one ``flash_bwd_dkv`` launch per layer and one
-   ``adamw`` launch per parameter leaf.
+   ``adamw`` launch per parameter leaf;
+7. image main path: ``python -m tpu_dist_torch.scripts.image_train`` at the
+   repo's headline image geometry (``BENCH_GEOMETRY``: ResNet-50 on
+   CIFAR-10, 23.5M params in 161 leaves, batch 1024, bf16 convs over fp32
+   masters, bf16 norm outputs, s2d stem, ``fused_sgd``, 16 steps a window
+   over the device-resident uint8 set), one epoch of 32 steps: train img/s
+   with window 1 left out, finite and falling window losses, validation
+   acc@1, an analytic MFU, one ``sgd`` launch per leaf per step, and a
+   checkpoint that reloads.
 
 The line before the last is the card's name and power limit; the one
 before it the ``{"kernels": [...]}`` record; the last line is
@@ -59,9 +71,14 @@ PEAK_BYTES = 3.35e12
 # round: one ulp where a sum sits on a rounding boundary, within the same
 # bound
 BF16_TOL = 2e-2
-# AdamW kernel vs plain, fp32 throughout: the kernel contracts mul+add into
-# fma where PyTorch rounds each, a few fp32 ulps (2^-23 relative each)
+# AdamW and SGD kernels vs plain, fp32 throughout: the kernels contract
+# mul+add into fma where PyTorch rounds each, a few fp32 ulps (2^-23
+# relative each)
 FP32_TOL = 1e-6
+# SGD kernel vs plain with a bf16 p: the fp32 results differ by a few ulps
+# as above, so the stored bf16 p may round one bf16 ulp apart (2^-7
+# relative at most)
+BF16_ULP = 2.0 ** -7
 # tiny fp32 trainer, card vs CPU: per-step losses within LOSS_TOL * (1 +
 # |loss|) -- matmul summation order differs (cuBLAS vs CPU), and Adam's
 # normalized update turns small gradient differences into parameter
@@ -69,6 +86,9 @@ FP32_TOL = 1e-6
 LOSS_TOL = 1e-4
 # the training main path (V=32000, 8 layers, d_model 1024, L=2048)
 TRAIN_STEPS = 20
+# ResNet-50 (10 classes, s2d stem): parameter leaves and elements
+RESNET50_LEAVES = 161
+RESNET50_PARAMS = 23_531_402
 
 
 def log(msg):
@@ -82,15 +102,26 @@ def card_line():
         text=True, timeout=60).stdout.strip().splitlines()[0]
 
 
-def time_ms(torch, fn, iters=20, warmup=3):
-    """Median of ``iters`` CUDA-event timings of ``fn`` (after warmup)."""
+def time_ms(torch, fn, iters=20, warmup=3, backlog=True):
+    """Median of ``iters`` CUDA-event timings of ``fn`` (after warmup).
+    With ``backlog`` each timing waits in the stream behind a device sleep
+    twice as long as the host takes to enqueue ``fn``, so the events
+    bracket device time alone; without it the host's dispatch gaps count
+    too."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    enqueue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    cycles = int(max(2 * enqueue_s, 1e-4) * 2e9)     # SM clock about 2 GHz
     times = []
     for _ in range(iters):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        if backlog:
+            torch.cuda._sleep(cycles)
         a.record()
         fn()
         b.record()
@@ -303,6 +334,111 @@ def check_adamw(torch, gen):
             "library": "torch._fused_adamw_ (decoupled wd, no clip)"}
 
 
+def sgd_case(torch, p, g, m, row, tol):
+    """One sgd launch per leaf against fused_sgd_plain on copies; returns
+    (max |err|, the kernel's and the plain results). ``tol``: fp32 values
+    within FP32_TOL (1 + |plain|); "ulp": a bf16 p within one bf16 ulp."""
+    from tpu_dist_torch.ops import pallas_sgd as ps
+
+    got = ([t.clone() for t in p], [t.clone() for t in m])
+    ref = ([t.clone() for t in p], [t.clone() for t in m])
+    for i in range(len(p)):
+        ps.fused_sgd_cuda(got[0][i], g[i], got[1][i], row)
+        ps.fused_sgd_plain(ref[0][i], g[i], ref[1][i], row)
+    torch.cuda.synchronize()
+    err = 0.0
+    for a, r in zip([*got[0], *got[1]], [*ref[0], *ref[1]]):
+        diff = (a.float() - r.float()).abs()
+        err = max(err, diff.max().item())
+        bound = (BF16_ULP * r.float().abs() if a.dtype == torch.bfloat16
+                 else FP32_TOL * (1 + r.abs()))
+        if not bool((diff <= bound).all()):
+            raise AssertionError(f"sgd {tuple(a.shape)} {a.dtype}: max|err| "
+                                 f"{diff.max().item()} (tol {tol})")
+    return err
+
+
+def check_sgd(torch, gen):
+    """The SGD kernel against fused_sgd_plain at ResNet-50's largest leaf
+    (3x3x512x512, 2,359,296 fp32) and across its 161 leaves as one step,
+    with the clip slot at 1 and 0.3, and with a bf16 p."""
+    from tpu_dist_torch.models.registry import create_model
+    from tpu_dist_torch.ops import pallas_sgd as ps
+
+    model = create_model("resnet50", num_classes=10, stem="s2d",
+                         device="cuda", seed=SEED)
+    shapes = [tuple(p.shape) for p in model.parameters()]
+    del model
+    n = sum(math.prod(s) for s in shapes)
+    if len(shapes) != RESNET50_LEAVES or n != RESNET50_PARAMS:
+        raise AssertionError(f"resnet50: {len(shapes)} leaves, {n} params")
+    rand = lambda s: torch.randn(s, generator=gen, device="cuda")
+    p = [rand(s) for s in shapes]
+    g = [rand(s) for s in shapes]
+    m = [rand(s) * 0.1 for s in shapes]
+    big = max(range(len(shapes)), key=lambda i: math.prod(shapes[i]))
+    one = torch.ones((), device="cuda")
+    row = ps.scalar_row(0.1, 0.9, 1e-4, one)
+    row_cs = ps.scalar_row(0.1, 0.9, 1e-4, torch.tensor(0.3, device="cuda"))
+    fp32 = f"{FP32_TOL} * (1 + |plain|)"
+    errs = {"step_cs1": sgd_case(torch, p, g, m, row, fp32),
+            "step_cs0.3": sgd_case(torch, p, g, m, row_cs, fp32),
+            "step_bf16_p_cs0.3": sgd_case(
+                torch, [t.to(torch.bfloat16) for t in p], g, m, row_cs,
+                "one bf16 ulp of plain")}
+
+    def step_kernel():
+        for i in range(len(p)):
+            ps.fused_sgd_cuda(p[i], g[i], m[i], row)
+
+    def step_plain():
+        for i in range(len(p)):
+            ps.fused_sgd_plain(p[i], g[i], m[i], row)
+
+    # the step's 161 launches replayed from a CUDA graph: their device time
+    # without the host's per-launch cost, which eager_ms keeps
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step_kernel()
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        step_kernel()
+    step_ms = time_ms(torch, graph.replay)
+    eager_ms = time_ms(torch, step_kernel, backlog=False)
+    step_plain_ms = time_ms(torch, step_plain, iters=5)
+    pb, gb, mb = p[big], g[big], m[big]
+    leaf_ms = time_ms(torch, lambda: ps.fused_sgd_cuda(pb, gb, mb, row))
+    leaf_plain_ms = time_ms(torch, lambda: ps.fused_sgd_plain(pb, gb, mb,
+                                                              row))
+    step_lib_ms = leaf_lib_ms = None
+    if hasattr(torch, "_fused_sgd_"):
+        kw = dict(weight_decay=1e-4, momentum=0.9, lr=0.1, dampening=0.0,
+                  nesterov=False, maximize=False, is_first_step=False)
+        step_lib_ms = time_ms(torch, lambda: torch._fused_sgd_(p, g, m, **kw))
+        leaf_lib_ms = time_ms(torch, lambda: torch._fused_sgd_(
+            [pb], [gb], [mb], **kw))
+    # read p, g, m and write p, m, fp32; 5 FLOP per element
+    bound = lambda k: max(20.0 * k / PEAK_BYTES, 5.0 * k / PEAK_FP32_FLOPS)
+    leaf_n = math.prod(shapes[big])
+    lib = "torch._fused_sgd_ (weight decay, momentum; no clip slot)"
+    return {
+        "shape": f"one ResNet-50 step: {len(shapes)} fp32 leaves, {n} "
+                 "elements, one launch each",
+        "max_abs_err": max(errs["step_cs1"], errs["step_cs0.3"]),
+        "errors": errs, "tolerance": fp32, "ms": step_ms,
+        "ms_is": "CUDA-graph replay of the step's launches",
+        "eager_ms": eager_ms, "plain_ms": step_plain_ms,
+        "bound_ms": bound(n) * 1e3, "bound_by": "bytes",
+        "library_ms": step_lib_ms, "library": lib,
+        "more_shapes": [{
+            "shape": f"largest leaf {shapes[big]} fp32, {leaf_n} elements",
+            "ms": leaf_ms, "plain_ms": leaf_plain_ms,
+            "bound_ms": bound(leaf_n) * 1e3, "bound_by": "bytes",
+            "library_ms": leaf_lib_ms, "library": lib}]}
+
+
 def run_trainer(cfg, device, init_params=None):
     """Fit ``cfg`` on ``device``; (trainer, per-step losses from its
     ledger)."""
@@ -402,6 +538,126 @@ def training_path(torch, kernels):
             "flash_bwd_dq", "flash_bwd_dkv", "adamw")},
         "eval_batches": n_eval}
     return training, launches
+
+
+def run_image_trainer(cfg, device, init=(None, None)):
+    """Fit the image ``cfg`` on ``device`` (synthetic data, checkpoints in
+    a temp dir); returns (trainer, per-record losses from its ledger)."""
+    from tpu_dist_torch.engine.loop import Trainer
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "run.jsonl")
+        cfg = dataclasses.replace(
+            cfg, ledger_path=path, log_csv="",
+            checkpoint_dir=os.path.join(tmp, "ck"),
+            data=os.path.join(tmp, "no-data"))
+        tr = Trainer(cfg, device=device, init_params=init[0],
+                     init_batch_stats=init[1])
+        tr.fit()
+        with open(path) as f:
+            recs = [json.loads(line) for line in f]
+    return tr, [r["loss"] for r in recs if r["event"] == "step"]
+
+
+def small_image_trainer_agreement(torch):
+    """Tiny fp32 ResNet-18 with ``fused_sgd``: 5 steps on the card (the
+    sgd kernel) and on the CPU (its plain version) from the same weights."""
+    from tpu_dist_torch.configs import TrainConfig
+    from tpu_dist_torch.interop import export_flax_image_params
+    from tpu_dist_torch.models.resnet import ResNet18
+
+    cfg = TrainConfig(arch="resnet18", dataset="cifar10", batch_size=16,
+                      epochs=1, synth_train_size=80, synth_val_size=32,
+                      precision="fp32", optimizer="fused_sgd", seed=SEED,
+                      print_freq=1, workers=1)
+    init = export_flax_image_params(ResNet18(device="cpu", seed=SEED))
+    _, cpu_losses = run_image_trainer(cfg, "cpu", init)
+    _, gpu_losses = run_image_trainer(cfg, "cuda", init)
+    if len(gpu_losses) != 5 or len(cpu_losses) != 5:
+        raise AssertionError(f"image steps: card {len(gpu_losses)}, cpu "
+                             f"{len(cpu_losses)}")
+    for i, (a, r) in enumerate(zip(gpu_losses, cpu_losses)):
+        if abs(a - r) > LOSS_TOL * (1 + abs(r)):
+            raise AssertionError(f"image step {i}: card loss {a} != plain "
+                                 f"{r} (tol {LOSS_TOL} (1 + |loss|))")
+    return {"card": gpu_losses, "cpu": cpu_losses,
+            "max_abs_diff": max(abs(a - r) for a, r in
+                                zip(gpu_losses, cpu_losses))}
+
+
+def image_path(torch, kernels):
+    """The image main path at full width (module docstring, phase 7),
+    through the entry script's ``main``."""
+    from tpu_dist_torch.engine import checkpoint as ckpt
+    from tpu_dist_torch.scripts import image_train
+
+    geom = image_train.BENCH_GEOMETRY
+    with tempfile.TemporaryDirectory() as tmp:
+        ledger = os.path.join(tmp, "run.jsonl")
+        argv = [a for k, v in geom.items()
+                for a in (f"--{k.replace('_', '-')}", str(v))]
+        argv += ["--data", os.path.join(tmp, "no-data"), "--checkpoint-dir",
+                 os.path.join(tmp, "ck"), "--ledger-path", ledger,
+                 "--log-csv", "", "--print-freq", "16"]
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        tr = image_train.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        with open(ledger) as f:
+            recs = [json.loads(line) for line in f]
+        path = os.path.join(tmp, "ck", "resnet50-checkpoint.pt")
+        meta = ckpt.read_checkpoint_meta(path)
+        want = ckpt.host_state(tr.state)
+        with torch.no_grad():
+            for t in tr.state.params:
+                t.zero_()
+        ckpt.load_checkpoint(path, tr.state)
+        got = ckpt.host_state(tr.state)
+    steps = tr.cfg.synth_train_size // tr.cfg.batch_size
+    leaves = len(tr.state.params)
+    params = sum(p.numel() for p in tr.state.params)
+    if (leaves, params) != (RESNET50_LEAVES, RESNET50_PARAMS):
+        raise AssertionError(f"resnet50: {leaves} leaves, {params} params")
+    if tr.state.step != steps or not tr.device_data or tr.k != 16:
+        raise AssertionError(f"trained {tr.state.step} of {steps} steps, "
+                             f"device data {tr.device_data}, K {tr.k}")
+    windows = [r for r in recs if r["event"] == "step"]
+    losses = [r["loss"] for r in windows]
+    if len(losses) != steps // tr.k or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"window losses {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"losses not falling: {losses}")
+    if launches["sgd"] != leaves * steps:
+        raise AssertionError(f"sgd launched {launches['sgd']} times, "
+                             f"expected {leaves} x {steps}")
+    if meta.get("step") != steps or meta.get("arch") != "resnet50":
+        raise AssertionError(f"checkpoint meta {meta}")
+    for name in ("params", "batch_stats"):
+        for a, b in zip(want[name], got[name]):
+            if not torch.equal(a, b):
+                raise AssertionError(f"checkpoint reload: {name} differ")
+    for name, v in want["opt_state"].items():
+        for a, b in zip(v, got["opt_state"][name]):
+            if not torch.equal(a, b):
+                raise AssertionError(f"checkpoint reload: {name} differ")
+    epoch = next(r for r in recs if r["event"] == "epoch")
+    img_s = tr.last_img_s
+    image = {
+        "config": geom, "params": params, "leaves": leaves, "steps": steps,
+        "window_losses": losses, "train_img_per_s_window1_excluded": img_s,
+        "step_ms": tr.cfg.batch_size / img_s * 1e3,
+        "val_acc1": tr.best_acc1,
+        "analytic_mfu": epoch["mfu"], "analytic_tflops": epoch["tflops"],
+        "mfu_is": "3 x forward conv+dense FLOPs per image x img/s over "
+                  "989 TFLOP/s bf16",
+        "peak_mem_gb": peak_gb, "wall_s_incl_data_build_and_eval": wall,
+        "launches": launches, "sgd_launches_per_step": launches["sgd"] / steps,
+        "checkpoint": {"step": meta["step"], "reloaded_equal": True}}
+    return image, launches
 
 
 def small_input_agreement(torch):
@@ -558,10 +814,12 @@ def main():
     paged = check_paged(torch, F, gen)
     bwd = check_flash_bwd(torch, F, gen)
     adamw = check_adamw(torch, gen)
+    sgd = check_sgd(torch, gen)
     log(f"phase 3 kernels: flash_fwd {json.dumps(flash)}")
     log(f"phase 3 kernels: paged_decode {json.dumps(paged)}")
     log(f"phase 3 kernels: flash_bwd {json.dumps(bwd)}")
     log(f"phase 3 kernels: adamw {json.dumps(adamw)}")
+    log(f"phase 3 kernels: sgd {json.dumps(sgd)}")
 
     # 4. small input: card == CPU reference
     n = small_input_agreement(torch)
@@ -570,6 +828,9 @@ def main():
     agree = small_trainer_agreement(torch)
     log(f"phase 4 small-input training: 5 steps, per-step losses agree "
         f"within {LOSS_TOL} (1 + |loss|): {json.dumps(agree)}")
+    agree = small_image_trainer_agreement(torch)
+    log(f"phase 4 small-input image training: 5 steps, per-step losses "
+        f"agree within {LOSS_TOL} (1 + |loss|): {json.dumps(agree)}")
 
     # 5. the serving main path at full width
     serving, serve_launches = main_path(torch, kernels)
@@ -578,6 +839,10 @@ def main():
     # 6. the training main path at full width
     training, train_launches = training_path(torch, kernels)
     log(f"phase 6 training: {json.dumps(training)} on {card}")
+
+    # 7. the image main path at full width
+    image, image_launches = image_path(torch, kernels)
+    log(f"phase 7 image training: {json.dumps(image)} on {card}")
 
     entries = []
     for kname, rec, src, replaces, launches in (
@@ -592,12 +857,17 @@ def main():
              "tpu_dist_torch/csrc/flash_bwd_dkv.cu",
              "tpu_dist/ops/flash_attention.py:246", train_launches),
             ("adamw", adamw, "tpu_dist_torch/csrc/adamw.cu",
-             "tpu_dist/ops/pallas_adamw.py:57", train_launches)):
+             "tpu_dist/ops/pallas_adamw.py:57", train_launches),
+            ("sgd", sgd, "tpu_dist_torch/csrc/sgd.cu",
+             "tpu_dist/ops/pallas_sgd.py:93", image_launches)):
         entry = {"name": kname, "route": "cuda", "source": src,
                  "replaces": replaces, "launches": launches[kname]}
         entry.update({k: rec[k] for k in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "shape", "tolerance")})
+        if kname == "sgd":
+            entry.update({k: sgd[k] for k in (
+                "ms_is", "eager_ms", "errors", "more_shapes")})
         if kname == "flash_fwd":
             entry["more_shapes"] = [flash[2048]]
             entry["launches_by_path"] = {

@@ -237,3 +237,85 @@ def test_training_on_the_card_equals_the_cpu_path(cuda, tmp_path):
     assert kernels.LAUNCHES["adamw"] == len(tr.state.params) * 4
     for a, r in zip(losses[cuda], losses["cpu"]):
         assert abs(a - r) <= 1e-4 * (1 + abs(r))
+
+
+@pytest.mark.parametrize("dtype,n,offset", [
+    (torch.float32, 1, 0), (torch.float32, 4099, 0),
+    (torch.float32, 2_359_296, 0),        # ResNet-50's largest leaf
+    (torch.float32, 1000, 1),             # unaligned: element by element
+    (torch.bfloat16, 777, 0), (torch.bfloat16, 300, 3),
+], ids=str)
+def test_sgd_kernel_matches_plain(cuda, dtype, n, offset):
+    from tpu_dist_torch.ops import pallas_sgd as sgd
+
+    gen = torch.Generator(device=cuda).manual_seed(n + offset)
+    p = torch.randn(n + offset, generator=gen, device=cuda).to(dtype)[offset:]
+    g = torch.randn(n, generator=gen, device=cuda)
+    m = torch.randn(n, generator=gen, device=cuda) * 0.1
+    row = sgd.scalar_row(0.1, 0.9, 1e-4, torch.tensor(0.3, device=cuda))
+    ref = [p.clone(), m.clone()]
+    kernels.reset_launches()
+    sgd.fused_sgd_leaf(p, g, m, row)
+    sgd.fused_sgd_plain(ref[0], g, ref[1], row)
+    assert kernels.LAUNCHES["sgd"] == 1 and p.dtype == dtype
+    # fp32 math in the same order: fma contraction leaves a few ulps; a
+    # bf16 p can then round one ulp apart
+    tol = 1e-6 if dtype == torch.float32 else 2e-2
+    for a, r in zip((p, m), ref):
+        diff = (a.float() - r.float()).abs()
+        assert bool((diff <= tol * (1 + r.float().abs())).all())
+
+
+def test_sgd_wrapper_refuses_bad_input(cuda):
+    from tpu_dist_torch.ops import pallas_sgd as sgd
+
+    p = torch.zeros(10, device=cuda)
+    row = torch.zeros(4, device=cuda)
+    kernels.reset_launches()
+    with pytest.raises(TypeError, match="float32"):
+        sgd.fused_sgd_cuda(p, p.half(), p, row)
+    with pytest.raises(TypeError, match="bfloat16"):
+        sgd.fused_sgd_cuda(p.double(), p, p, row)
+    with pytest.raises(ValueError, match="CUDA"):
+        sgd.fused_sgd_cuda(p, p, p.cpu(), row)
+    with pytest.raises(ValueError, match="shapes"):
+        sgd.fused_sgd_cuda(p, p[:5], p, row)
+    with pytest.raises(ValueError, match="4 entries"):
+        sgd.fused_sgd_cuda(p, p, p.clone(), torch.zeros(8, device=cuda))
+    assert kernels.LAUNCHES["sgd"] == 0
+
+
+def test_image_training_on_the_card_equals_the_cpu_path(cuda, tmp_path):
+    """A tiny fp32 ResNet-18 with ``fused_sgd``: 4 steps on the card (the
+    sgd kernel) and on the CPU (its plain version) from the same weights.
+    Losses within 1e-4 * (1 + |loss|): cuDNN and the CPU sum convolutions
+    in other orders, and BatchNorm's backward carries that over steps."""
+    import json
+
+    from tpu_dist_torch.configs import TrainConfig
+    from tpu_dist_torch.engine.loop import Trainer
+    from tpu_dist_torch.interop import export_flax_image_params
+    from tpu_dist_torch.models.resnet import ResNet18
+
+    torch.backends.cudnn.allow_tf32 = False
+    init, stats = export_flax_image_params(ResNet18(device="cpu", seed=3))
+    losses = {}
+    for dev in ("cpu", cuda):
+        path = str(tmp_path / f"{dev}.jsonl")
+        cfg = TrainConfig(arch="resnet18", batch_size=16, epochs=1,
+                          synth_train_size=64, synth_val_size=32,
+                          precision="fp32", optimizer="fused_sgd", seed=0,
+                          print_freq=1, workers=1, log_csv="",
+                          data=str(tmp_path / "no-data"),
+                          checkpoint_dir="", ledger_path=path)
+        kernels.reset_launches()
+        tr = Trainer(cfg, device=dev, init_params=init,
+                     init_batch_stats=stats)
+        tr.fit()
+        with open(path) as f:
+            losses[dev] = [r["loss"] for r in map(json.loads, f)
+                           if r["event"] == "step"]
+    assert kernels.LAUNCHES["sgd"] == len(tr.state.params) * 4
+    assert len(losses[cuda]) == len(losses["cpu"]) == 4
+    for a, r in zip(losses[cuda], losses["cpu"]):
+        assert abs(a - r) <= 1e-4 * (1 + abs(r))

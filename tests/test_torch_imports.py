@@ -52,7 +52,14 @@ def test_importing_every_module_pulls_in_no_jax():
             "tpu_dist_torch.ops.paged_attention",
             "tpu_dist_torch.engine.lm_loop", "tpu_dist_torch.ops.pallas_adamw",
             "tpu_dist_torch.scripts.lm_longcontext",
-            "tpu_dist_torch.tools.profile_lm"} <= set(out["mods"])
+            "tpu_dist_torch.tools.profile_lm",
+            "tpu_dist_torch.engine.loop", "tpu_dist_torch.engine.checkpoint",
+            "tpu_dist_torch.models.resnet", "tpu_dist_torch.models.lenet",
+            "tpu_dist_torch.models.registry", "tpu_dist_torch.data.datasets",
+            "tpu_dist_torch.data.loader", "tpu_dist_torch.data.pipeline",
+            "tpu_dist_torch.ops.pallas_sgd",
+            "tpu_dist_torch.scripts.image_train",
+            "tpu_dist_torch.tools.profile_image"} <= set(out["mods"])
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -90,3 +97,9 @@ def test_default_device_raises_without_cuda():
     assert eng.pool.layers()[0].k.device.type == "cpu"
     out = generate(lm, np.array([[1, 2]], np.int32), 3, use_cache=True)
     assert out.shape == (1, 5)
+    from tpu_dist_torch.models.registry import create_model
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        create_model("resnet18")
+    assert create_model("lenet", device="cpu").fc2.kernel.device.type \
+        == "cpu"

@@ -6,7 +6,8 @@ versions. fp32 within 1e-5 (summation order only); bf16 within
 2e-2 * (1 + |plain|) (the forward kernels round p and the output to bf16;
 the backward kernels round p and ds where their plain version does, so
 summation order is all that is left before the bf16 outputs round). The
-AdamW kernel within 1e-6 * (1 + |plain|) (fp32, the same operations).
+AdamW and SGD kernels within 1e-6 * (1 + |plain|) (fp32, the same
+operations; a bf16 p rounds once, from the same fp32 value).
 The hardware itself is checked by tests/test_torch_cuda.py on the card."""
 
 import shutil
@@ -17,6 +18,7 @@ import torch
 from tpu_dist_torch.ops import flash_attention as fa
 from tpu_dist_torch.ops import paged_attention as pa
 from tpu_dist_torch.ops import pallas_adamw as adamw
+from tpu_dist_torch.ops import pallas_sgd as sgd
 from tpu_dist_torch.tools import cuda_emu
 
 torch.set_num_threads(1)
@@ -37,7 +39,8 @@ def emu():
             "dkv": cuda_emu.function("flash_bwd_dkv", "tdt_flash_bwd_dkv",
                                      fa._BWD_DKV_ARGS),
             "adamw": cuda_emu.function("adamw", "tdt_adamw",
-                                       adamw._ADAMW_ARGS)}
+                                       adamw._ADAMW_ARGS),
+            "sgd": cuda_emu.function("sgd", "tdt_sgd", sgd._SGD_ARGS)}
 
 
 def _close(out, ref, dtype):
@@ -121,5 +124,27 @@ def test_adamw_kernel_source_matches_plain(emu, dtype, n):
     adamw.fused_adamw_plain(ref[0], g, ref[1], ref[2], row)
     assert p.dtype == dtype
     for a, r in zip((p, m, v), ref):
+        diff = (a.float() - r.float()).abs()
+        assert bool((diff <= 1e-6 * (1 + r.float().abs())).all())
+
+
+@pytest.mark.parametrize("dtype,n,offset", [
+    (torch.float32, 1001, 0),     # 4-wide body and a ragged tail
+    (torch.bfloat16, 777, 0),
+    (torch.float32, 300, 1),      # unaligned: element by element
+    (torch.bfloat16, 45, 3),
+], ids=str)
+def test_sgd_kernel_source_matches_plain(emu, dtype, n, offset):
+    gen = torch.Generator().manual_seed(n + offset)
+    buf = torch.randn(n + offset, generator=gen).to(dtype)
+    p = buf[offset:]                       # contiguous, shifted start
+    g = torch.randn(n, generator=gen)
+    m = torch.randn(n, generator=gen) * 0.1
+    row = sgd.scalar_row(0.1, 0.9, 1e-4, torch.tensor(0.3))
+    ref = [p.clone(), m.clone()]
+    sgd._launch(emu["sgd"], p, g, m, row, None)
+    sgd.fused_sgd_plain(ref[0], g, ref[1], row)
+    assert p.dtype == dtype
+    for a, r in zip((p, m), ref):
         diff = (a.float() - r.float()).abs()
         assert bool((diff <= 1e-6 * (1 + r.float().abs())).all())

@@ -24,3 +24,18 @@ def resolve_device(device: Union[str, torch.device, None] = None
         if dev.index is None:   # "cuda" means the current device, by index
             dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+# dense peak FLOP/s of a card by compute dtype (NVIDIA H100 SXM data sheet),
+# for the trainers' MFU columns
+PEAK_FLOPS = {"H100": {torch.bfloat16: 989e12, torch.float32: 67e12}}
+
+
+def peak_flops(device: torch.device, dtype: torch.dtype):
+    """The card's dense peak for ``dtype``, or None off CUDA and for a card
+    the table does not hold."""
+    if device.type != "cuda":
+        return None
+    name = torch.cuda.get_device_name(device)
+    return next((p.get(dtype) for k, p in PEAK_FLOPS.items() if k in name),
+                None)

@@ -36,7 +36,7 @@ import torch
 from tpu_dist_torch.configs import LMConfig
 from tpu_dist_torch.data.sampler import DistributedSampler
 from tpu_dist_torch.data.tokens import load_token_dataset
-from tpu_dist_torch.device import resolve_device
+from tpu_dist_torch.device import peak_flops, resolve_device
 from tpu_dist_torch.engine.lm_steps import (LM_METRIC_KEYS, lm_eval_metrics,
                                             lm_train_step, make_lm_batches,
                                             zeros_lm_metrics)
@@ -66,11 +66,6 @@ UNPORTED = {
 }
 # observers the reference turns on by default; named once in the start log
 UNPORTED_OBSERVERS = ("watchdog_factor", "goodput_every_s")
-
-# dense peak FLOP/s of the card by compute dtype (NVIDIA H100 SXM data
-# sheet), for the MFU column; None elsewhere
-_PEAKS = {"H100": {torch.bfloat16: 989e12, torch.float32: 67e12}}
-
 
 def refuse_unported(cfg: LMConfig) -> None:
     for knob, off in UNPORTED.items():
@@ -215,11 +210,7 @@ class LMTrainer:
         the card's peak is not in the table (the CPU included)."""
         tokens = self.cfg.batch_size * self.cfg.seq_len
         tflops = tok_per_s * self._step_flops() / tokens / 1e12
-        if self.device.type != "cuda":
-            return tflops, None
-        name = torch.cuda.get_device_name(self.device)
-        peak = next((p.get(self.policy.compute_dtype)
-                     for k, p in _PEAKS.items() if k in name), None)
+        peak = peak_flops(self.device, self.policy.compute_dtype)
         return tflops, (tflops * 1e12 / peak if peak else None)
 
     def _memory(self) -> dict:

@@ -1,7 +1,11 @@
-"""Carry ``TransformerLM`` params between a flax tree and the port's model:
-:func:`load_flax_params` loads one, :func:`export_flax_params` writes the
-port's params back out as one (so trained params compare with the
-reference's leaf by leaf).
+"""Carry params between a flax tree and the port's models.
+
+* ``TransformerLM``: :func:`load_flax_params` loads a tree,
+  :func:`export_flax_params` writes the port's params back out as one (so
+  trained params compare with the reference's leaf by leaf);
+* the image models (``models/resnet.py``, ``models/lenet.py``):
+  :func:`load_flax_image_params` and :func:`export_flax_image_params` do
+  the same for a ``(params, batch_stats)`` pair (table at the bottom).
 
 The tree is the reference's nested dict (``model.init(...)["params"]``),
 with leaves anything ``numpy.asarray`` takes -- so this module needs no
@@ -124,3 +128,103 @@ def export_flax_params(model) -> dict:
         tree[f"block{i}"] = {"ln1": norm(blk.ln1), "ln2": norm(blk.ln2),
                              **{n: dense(getattr(blk, n)) for n in _DENSE}}
     return tree
+
+
+# ---- image models ----------------------------------------------------------
+#
+# The port's image modules carry flax's names, so the trees map name for
+# name: ``conv1``, ``bn1``, ``layer{i}_block{j}`` / ``Conv_k``,
+# ``BatchNorm_k`` or ``GroupNorm_k``, ``downsample_conv``, ``downsample_bn``,
+# ``fc``; LeNet's ``conv1``, ``conv2``, ``fc1``, ``fc2``. Per leaf:
+#
+# ===========================  =============================================
+# flax                          port
+# ===========================  =============================================
+# Conv ``kernel`` (kh,kw,i,o)   ``Conv.weight`` (o, i, kh, kw); ``bias``
+# Dense ``kernel`` (in, out)    ``QuantDense.kernel`` (in, out); ``bias``
+# BatchNorm ``scale``/``bias``  ``BatchNorm.scale``/``bias`` (params)
+# batch_stats ``mean``/``var``  ``BatchNorm.mean``/``var`` (buffers)
+# GroupNorm ``scale``/``bias``  ``GroupNorm.scale``/``bias``
+# ===========================  =============================================
+
+
+def _image_leaves(mod):
+    """(params leaves, batch_stats leaves) of one port leaf module as
+    {name: tensor} dicts, or None for a container."""
+    from tpu_dist_torch.models.resnet import BatchNorm, Conv, GroupNorm
+
+    if isinstance(mod, Conv):
+        p = {"kernel": mod.weight}
+        return ({**p, "bias": mod.bias} if mod.bias is not None else p), {}
+    if isinstance(mod, QuantDense):
+        p = {"kernel": mod.kernel}
+        return ({**p, "bias": mod.bias} if mod.bias is not None else p), {}
+    if isinstance(mod, BatchNorm):
+        return ({"scale": mod.scale, "bias": mod.bias},
+                {"mean": mod.mean, "var": mod.var})
+    if isinstance(mod, GroupNorm):
+        return {"scale": mod.scale, "bias": mod.bias}, {}
+    return None
+
+
+def _hwio_to_oihw(a: np.ndarray) -> np.ndarray:
+    return np.ascontiguousarray(np.transpose(a, (3, 2, 0, 1)))
+
+
+def load_flax_image_params(model, params: dict, batch_stats=None):
+    """Copy a flax image-model tree (``variables["params"]`` and
+    ``variables["batch_stats"]``) into a port ResNet or LeNet of the same
+    geometry; returns ``model``. Missing or extra leaves raise; fp leaves
+    are cast to the port's storage dtype."""
+    from tpu_dist_torch.models.resnet import Conv
+
+    def walk(mod, pnode, snode, path):
+        leaves = _image_leaves(mod)
+        if leaves is not None:
+            p, st = leaves
+            if set(pnode) != set(p) or set(snode or {}) != set(st):
+                raise ValueError(f"{path}: leaves {sorted(pnode)} / "
+                                 f"{sorted(snode or {})}, expected "
+                                 f"{sorted(p)} / {sorted(st)}")
+            for k, t in {**p, **st}.items():
+                src = pnode[k] if k in p else snode[k]
+                if isinstance(mod, Conv) and k == "kernel":
+                    src = _hwio_to_oihw(np.asarray(src))
+                _copy(t, src, f"{path}.{k}")
+            return
+        kids = dict(mod.named_children())
+        if set(pnode) != set(kids):
+            raise ValueError(f"{path or 'params'}: children {sorted(pnode)}, "
+                             f"expected {sorted(kids)}")
+        for name, kid in kids.items():
+            walk(kid, pnode[name], (snode or {}).get(name),
+                 f"{path}.{name}" if path else name)
+
+    with torch.no_grad():
+        walk(model, params, batch_stats or {}, "")
+    return model
+
+
+def export_flax_image_params(model):
+    """``(params, batch_stats)`` of a port image model as flax-layout trees
+    of numpy arrays (the inverse of :func:`load_flax_image_params`; bf16
+    leaves come out as fp32, which holds them exactly)."""
+    from tpu_dist_torch.models.resnet import Conv
+
+    def walk(mod):
+        leaves = _image_leaves(mod)
+        if leaves is not None:
+            p, st = leaves
+            out = {k: _np(t) for k, t in p.items()}
+            if isinstance(mod, Conv):
+                out["kernel"] = np.ascontiguousarray(
+                    np.transpose(out["kernel"], (2, 3, 1, 0)))
+            return out, {k: _np(t) for k, t in st.items()}
+        params, stats = {}, {}
+        for name, kid in mod.named_children():
+            params[name], s = walk(kid)
+            if s:
+                stats[name] = s
+        return params, stats
+
+    return walk(model)

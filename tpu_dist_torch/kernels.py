@@ -30,7 +30,8 @@ PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(PKG_DIR, "csrc")
 SOURCES = {"flash_fwd": "flash_fwd.cu", "paged_decode": "paged_decode.cu",
            "flash_bwd_dq": "flash_bwd_dq.cu",
-           "flash_bwd_dkv": "flash_bwd_dkv.cu", "adamw": "adamw.cu"}
+           "flash_bwd_dkv": "flash_bwd_dkv.cu", "adamw": "adamw.cu",
+           "sgd": "sgd.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -16,8 +16,11 @@ treats both the same way:
   decoupled weight decay, then ``-lr * update``.
 
 The schedule is evaluated at the optimizer's own 0-indexed step count, as
-optax's ``scale_by_learning_rate`` does; the step count lives in the state.
-All optimizer state is fp32 on the params' device.
+optax's ``scale_by_learning_rate`` does. The count lives in the state as a
+0-d int32 tensor on the params' device, so a skipped step
+(``engine.steps.apply_update`` under ``health="skip"``) reverts it with the
+rest of the state and no step syncs the host. All other optimizer state is
+fp32 on the params' device.
 """
 
 from __future__ import annotations
@@ -25,44 +28,54 @@ from __future__ import annotations
 import math
 from typing import Callable, List, NamedTuple, Optional
 
-import numpy as np
 import torch
+
+
+def _as_step(step) -> torch.Tensor:
+    """The step as a 0-d fp32 tensor on its own device (a host int goes to
+    a CPU tensor), so a schedule reads a device count without a sync."""
+    return torch.as_tensor(step).to(torch.float32)
+
+
+def _like_step(lr: torch.Tensor, step):
+    """A tensor step gets a 0-d fp32 tensor back, a host int a float."""
+    return lr if torch.is_tensor(step) else float(lr)
 
 
 def lm_lr_schedule(base_lr: float, kind: str = "constant",
                    warmup_steps: int = 0, total_steps: int = 0,
                    steps_per_epoch: int = 1, step_epochs: int = 30,
                    factor: float = 0.1, min_frac: float = 0.0) -> Callable:
-    """``step -> lr`` (a Python float computed in fp32, as the reference's
-    jnp schedule): linear warmup from base/warmup_steps into constant |
+    """``step -> lr``, computed in fp32 with torch ops as the reference's
+    jnp schedule is: linear warmup from base/warmup_steps into constant |
     cosine (half-cosine to ``min_frac * base`` over ``total_steps -
     warmup_steps``, flat after) | step (x ``factor`` every ``step_epochs``
-    epochs of ``steps_per_epoch``)."""
+    epochs of ``steps_per_epoch``). A 0-d tensor step (the optimizer's
+    device count) gives a 0-d tensor on its device; a host int, a float."""
     if kind not in ("constant", "cosine", "step"):
         raise ValueError(f"unknown lr schedule {kind!r} "
                          "(constant|cosine|step)")
     if kind == "cosine" and total_steps <= warmup_steps:
         raise ValueError(f"cosine needs total_steps ({total_steps}) > "
                          f"warmup_steps ({warmup_steps})")
-    f32 = np.float32
 
-    def schedule(step) -> float:
-        s = f32(step)
+    def schedule(step):
+        s = _as_step(step)
         if kind == "cosine":
-            horizon = f32(max(total_steps - warmup_steps, 1))
-            t = np.clip((s - f32(warmup_steps)) / horizon, f32(0), f32(1))
-            lr = f32(base_lr) * (f32(min_frac) + (f32(1) - f32(min_frac))
-                                 * f32(0.5) * (f32(1) + np.cos(f32(math.pi)
-                                                               * t)))
+            horizon = float(max(total_steps - warmup_steps, 1))
+            t = torch.clamp((s - warmup_steps) / horizon, 0.0, 1.0)
+            lr = base_lr * (min_frac + (1.0 - min_frac) * 0.5 * (
+                1.0 + torch.cos(math.pi * t)))
         elif kind == "step":
-            epoch = np.floor(s / f32(max(steps_per_epoch, 1)))
-            lr = f32(base_lr) * np.power(f32(factor),
-                                         np.floor(epoch / f32(step_epochs)))
+            epoch = torch.floor(s / max(steps_per_epoch, 1))
+            lr = base_lr * torch.pow(torch.full_like(s, factor),
+                                     torch.floor(epoch / step_epochs))
         else:
-            lr = f32(base_lr)
-        if warmup_steps and s < warmup_steps:
-            lr = f32(base_lr) * (s + f32(1)) / f32(warmup_steps)
-        return float(f32(lr))
+            lr = torch.full_like(s, base_lr)
+        if warmup_steps:
+            lr = torch.where(s < warmup_steps,
+                             base_lr * (s + 1.0) / warmup_steps, lr)
+        return _like_step(lr, step)
 
     return schedule
 
@@ -71,10 +84,14 @@ def step_decay_schedule(base_lr: float, steps_per_epoch: int,
                         step_epochs: int = 30, factor: float = 0.1
                         ) -> Callable:
     """lr = base * factor^(epoch // step_epochs): the reference's default
-    when ``make_optimizer`` gets no schedule."""
-    def schedule(step) -> float:
-        epoch = int(step) // max(steps_per_epoch, 1)
-        return base_lr * factor ** (epoch // step_epochs)
+    when ``make_optimizer`` gets no schedule (``:23``), in fp32 with torch
+    ops on the step (tensor in, tensor out; int in, float out)."""
+    def schedule(step):
+        s = _as_step(step)
+        epoch = torch.floor(s / max(steps_per_epoch, 1))
+        lr = base_lr * torch.pow(torch.full_like(s, factor),
+                                 torch.floor(epoch / step_epochs))
+        return _like_step(lr, step)
     return schedule
 
 
@@ -91,7 +108,7 @@ def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float):
 
 
 class OptState(NamedTuple):
-    count: int                   # optimizer steps taken (schedule index)
+    count: torch.Tensor          # 0-d int32: steps taken (schedule index)
     mu: List[torch.Tensor]       # sgd trace or adam first moments
     nu: List[torch.Tensor]       # adam second moments ([] for sgd)
 
@@ -112,7 +129,9 @@ class Optimizer:
     def init(self, params) -> OptState:
         z = lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                   device=p.device)
-        return OptState(0, [z(p) for p in params],
+        dev = params[0].device if len(params) else None
+        return OptState(torch.zeros((), dtype=torch.int32, device=dev),
+                        [z(p) for p in params],
                         [z(p) for p in params] if self.kind == "adamw"
                         else [])
 
@@ -128,9 +147,10 @@ class Optimizer:
             mu = [(1 - self.b1) * g + self.b1 * m for g, m in zip(u, state.mu)]
             nu = [(1 - self.b2) * (g * g) + self.b2 * n
                   for g, n in zip(u, state.nu)]
-            c1 = 1 - np.float32(self.b1) ** np.float32(t)
-            c2 = 1 - np.float32(self.b2) ** np.float32(t)
-            u = [(m / float(c1)) / (torch.sqrt(n / float(c2)) + self.eps)
+            tf = t.to(torch.float32)
+            c1 = 1 - torch.pow(torch.full_like(tf, self.b1), tf)
+            c2 = 1 - torch.pow(torch.full_like(tf, self.b2), tf)
+            u = [(m / c1) / (torch.sqrt(n / c2) + self.eps)
                  for m, n in zip(mu, nu)]
             if self.weight_decay:
                 u = [x + self.weight_decay * p.float()

@@ -17,37 +17,23 @@ in fp32 whatever p's dtype, p written back in its own dtype, m and v fp32.
 Unlike the reference, which donates p, m and v to a functional call, the
 port updates them in place: no second copy of the optimizer state exists.
 The scalar row is built on the device each step (:func:`scalar_row`), so a
-step syncs nothing with the host.
+step syncs nothing with the host. ``clip_scale`` comes from
+``ops.pallas_sgd``, as the reference's ``pallas_adamw.py:41`` imports it.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, List, NamedTuple, Sequence
+from typing import Callable, List, NamedTuple
 
 import numpy as np
 import torch
 
 from tpu_dist_torch import kernels
+from tpu_dist_torch.ops.pallas_sgd import clip_scale
 
 _ADAMW_ARGS = ([ctypes.c_void_p] * 5
                + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
-
-
-def clip_scale(grads: Sequence[torch.Tensor], clip_norm: float):
-    """Global-norm clip factor for a list of grads, as a 0-d fp32 tensor on
-    their device: ``clip/norm`` when the fp32 global norm exceeds
-    ``clip_norm``, else 1 (``tpu_dist/ops/pallas_sgd.py:76 clip_scale``;
-    optax.clip_by_global_norm / ``clip_grad_norm_`` semantics). Clipping
-    off (``clip_norm <= 0``) gives a constant 1."""
-    dev = grads[0].device
-    if clip_norm <= 0:
-        return torch.ones((), dtype=torch.float32, device=dev)
-    sq = sum(g.float().square().sum() for g in grads)
-    norm = torch.sqrt(sq)
-    return torch.where(norm > clip_norm,
-                       clip_norm / torch.clamp(norm, min=1e-30),
-                       torch.ones((), dtype=torch.float32, device=dev))
 
 
 def scalar_row(lr: float, b1: float, b2: float, eps: float, wd: float,

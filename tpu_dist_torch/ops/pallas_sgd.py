@@ -1,0 +1,161 @@
+"""Fused SGD-momentum for the port (``tpu_dist/ops/pallas_sgd.py``).
+
+:class:`FusedSGD` keeps the reference's engine-facing protocol
+(``init(params)``, ``apply(params, grads, state, step)``, ``:152-186``) and
+its scalar row ``[lr, momentum, weight_decay, clip_scale]`` (``:138-141``).
+Each parameter leaf is one launch of the hand-written Hopper kernel
+``csrc/sgd.cu`` (the Pallas ``_sgd_kernel``, ``:93-102``) for CUDA
+tensors, or of :func:`fused_sgd_plain` for CPU tensors. The update rule is
+torch.optim.SGD's, with the global-norm clip fused in::
+
+    g  <- g * cs + wd * p     (cs = clip / norm when norm > clip, else 1)
+    m' = mu * m + g
+    p' = p - lr * m'
+
+in fp32 whatever p's dtype, p written back in its own dtype, m fp32. The
+kernel works on the flat leaf: the reference's (rows, 128) padding is a
+VMEM tiling, not part of the function. Unlike the reference, which donates
+p and m to a functional call, the port updates them in place. The scalar
+row is built on the device each step (:func:`scalar_row`), so a step syncs
+nothing with the host. :func:`clip_scale` lives here, beside its reference
+(``:76``); ``ops.pallas_adamw`` imports it, as the reference's does.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Callable, List, NamedTuple, Sequence
+
+import torch
+
+from tpu_dist_torch import kernels
+
+_SGD_ARGS = ([ctypes.c_void_p] * 4
+             + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
+
+
+def clip_scale(grads: Sequence[torch.Tensor], clip_norm: float):
+    """Global-norm clip factor for a list of grads, as a 0-d fp32 tensor on
+    their device: ``clip/norm`` when the fp32 global norm exceeds
+    ``clip_norm``, else 1 (``tpu_dist/ops/pallas_sgd.py:76 clip_scale``;
+    optax.clip_by_global_norm / ``clip_grad_norm_`` semantics). Clipping
+    off (``clip_norm <= 0``) gives a constant 1."""
+    dev = grads[0].device
+    if clip_norm <= 0:
+        return torch.ones((), dtype=torch.float32, device=dev)
+    sq = sum(g.float().square().sum() for g in grads)
+    norm = torch.sqrt(sq)
+    return torch.where(norm > clip_norm,
+                       clip_norm / torch.clamp(norm, min=1e-30),
+                       torch.ones((), dtype=torch.float32, device=dev))
+
+
+def scalar_row(lr: float, momentum: float, weight_decay: float,
+               cs: torch.Tensor) -> torch.Tensor:
+    """The kernel's (4,) fp32 scalar row on ``cs``'s device. The host
+    values travel in one pinned, non-blocking copy; ``cs`` stays on the
+    device."""
+    host = torch.tensor([lr, momentum, weight_decay, 1.0],
+                        dtype=torch.float32)
+    if cs.is_cuda:
+        host = host.pin_memory()
+    row = host.to(cs.device, non_blocking=True)
+    row[3:].copy_(cs.reshape(1))
+    return row
+
+
+def fused_sgd_plain(p, g, m, scalars) -> None:
+    """The kernel's function in plain PyTorch, in place on (p, m): fp32
+    math in the kernel's operation order, p stored back in its dtype."""
+    lr, mu, wd, cs = scalars.unbind()
+    pf = p.float()
+    gf = g.float() * cs + wd * pf
+    mf = mu * m + gf
+    p.copy_((pf - lr * mf).to(p.dtype))
+    m.copy_(mf)
+
+
+def _check_sgd(p, g, m, scalars):
+    if p.dtype not in kernels.DTYPE_CODE:
+        raise TypeError(f"sgd kernel takes float32 or bfloat16 params, "
+                        f"got {p.dtype}")
+    for name, t in (("g", g), ("m", m), ("scalars", scalars)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"sgd kernel: {name} must be float32, got "
+                            f"{t.dtype}")
+    for name, t in (("p", p), ("g", g), ("m", m), ("scalars", scalars)):
+        if t.device != p.device or not t.is_cuda or not t.is_contiguous():
+            raise ValueError(f"sgd kernel: {name} must be contiguous on "
+                             f"p's CUDA device")
+    if not (g.shape == m.shape == p.shape):
+        raise ValueError(f"sgd kernel: p, g, m shapes differ: "
+                         f"{tuple(p.shape)}, {tuple(g.shape)}, "
+                         f"{tuple(m.shape)}")
+    if scalars.numel() != 4:
+        raise ValueError("sgd kernel: the scalar row has 4 entries")
+
+
+def _launch(fn, p, g, m, scalars, stream) -> None:
+    """Call the C entry ``tdt_sgd`` on checked tensors; raise on a launch
+    error."""
+    err = fn(p.data_ptr(), g.data_ptr(), m.data_ptr(), scalars.data_ptr(),
+             p.numel(), kernels.DTYPE_CODE[p.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"sgd kernel launch failed (cudaError {err})")
+
+
+def fused_sgd_cuda(p, g, m, scalars) -> None:
+    """Launch ``csrc/sgd.cu`` on the current stream, in place on (p, m)."""
+    _check_sgd(p, g, m, scalars)
+    if p.numel() == 0:
+        return
+    fn = kernels.function("sgd", "tdt_sgd", _SGD_ARGS)
+    with torch.cuda.device(p.device):
+        _launch(fn, p, g, m, scalars,
+                torch.cuda.current_stream(p.device).cuda_stream)
+    kernels.LAUNCHES["sgd"] += 1
+
+
+def fused_sgd_leaf(p, g, m, scalars) -> None:
+    """One leaf's update in place: the kernel for CUDA tensors, the plain
+    version for CPU tensors. ``g`` is cast to fp32 first, as the reference
+    casts it."""
+    g = g.float().contiguous()
+    if p.device.type == "cpu":
+        fused_sgd_plain(p, g, m, scalars)
+    else:
+        fused_sgd_cuda(p, g, m, scalars)
+
+
+class FusedSGDState(NamedTuple):
+    trace: List[torch.Tensor]   # momentum buffers, fp32
+
+
+class FusedSGD:
+    """Fused-kernel SGD with the engine-facing ``apply()`` protocol
+    (``engine.steps.apply_update`` dispatches on it). ``params`` and
+    ``grads`` are equal-length lists of tensors."""
+
+    def __init__(self, schedule: Callable, momentum: float = 0.9,
+                 weight_decay: float = 1e-4, clip_norm: float = 0.0):
+        self.schedule = schedule
+        self.momentum = momentum
+        self.weight_decay = weight_decay
+        self.clip_norm = clip_norm
+
+    def init(self, params) -> FusedSGDState:
+        return FusedSGDState(trace=[
+            torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+            for p in params])
+
+    @torch.no_grad()
+    def apply(self, params, grads, state: FusedSGDState,
+              step: int) -> FusedSGDState:
+        """Update ``params`` and ``state`` in place for optimizer step
+        ``step`` (0-indexed, the schedule's index); returns ``state``."""
+        scalars = scalar_row(float(self.schedule(step)), self.momentum,
+                             self.weight_decay,
+                             clip_scale(grads, self.clip_norm))
+        for p, g, m in zip(params, grads, state.trace):
+            fused_sgd_leaf(p.data, g, m, scalars)
+        return state

@@ -6,8 +6,10 @@
   as flax does); LayerNorm statistics, softmax and logits stay fp32;
 * ``bf16_params``: params stored in bf16 as well.
 
-The reference's dynamic loss scaling belongs to the image trainer's fp16
-path and is not ported yet (no LM configuration uses it).
+:meth:`Policy.cast_params_for_storage` stores a model's floating params in
+``param_dtype`` (``:48``). The reference's dynamic loss scaling
+(``LossScaleState``, ``:60-97``) emulates apex's fp16 path; no ported
+configuration uses it, and :func:`loss_scale` raises naming the knob.
 """
 
 from __future__ import annotations
@@ -34,8 +36,24 @@ class Policy:
     def param_dtype(self) -> torch.dtype:
         return torch.bfloat16 if self.name == "bf16_params" else torch.float32
 
+    def cast_params_for_storage(self, model):
+        """Store every floating parameter of ``model`` in ``param_dtype``
+        (in place, the same ``Parameter`` objects); returns ``model``."""
+        for p in model.parameters():
+            if p.is_floating_point():
+                p.data = p.data.to(self.param_dtype)
+        return model
+
 
 def make_policy(name: str) -> Policy:
     if name not in PRECISIONS:
         raise ValueError(f"unknown precision {name!r} (fp32|bf16|bf16_params)")
     return Policy(name)
+
+
+def loss_scale(initial=None):
+    """The reference's dynamic fp16 loss scale is not ported."""
+    raise NotImplementedError(
+        "loss_scale is not ported yet: the dynamic fp16 loss scale "
+        "(tpu_dist/ops/precision.py LossScaleState) has no port; bf16 needs "
+        "none")

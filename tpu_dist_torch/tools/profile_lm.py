@@ -34,15 +34,18 @@ BUCKETS = (("flash_fwd", ("flash_fwd_kernel",)),
                                 "sm90_", "cublas")))
 
 
-def bucket_of(name: str) -> str:
-    for bucket, keys in BUCKETS:
+def bucket_of(name: str, buckets=BUCKETS) -> str:
+    for bucket, keys in buckets:
         if any(k in name for k in keys):
             return bucket
     return "rest"
 
 
-def profile_steps(torch, step, n_steps: int, top: int) -> dict:
-    """Profile ``step()`` run ``n_steps`` times: wall and device split."""
+def profile_steps(torch, step, n_steps: int, top: int,
+                  buckets=BUCKETS) -> dict:
+    """Profile ``step()`` run ``n_steps`` times: wall and the device split
+    by ``buckets`` (``(name, kernel-name fragments)`` pairs, matched in
+    order; the rest go to ``rest``)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -63,10 +66,10 @@ def profile_steps(torch, step, n_steps: int, top: int) -> dict:
         kernels.append((us, evt.count, evt.key))
     kernels.sort(reverse=True)
     dev_s = sum(k[0] for k in kernels) / 1e6
-    split = {b: 0.0 for b, _ in BUCKETS}
+    split = {b: 0.0 for b, _ in buckets}
     split["rest"] = 0.0
     for us, _, name in kernels:
-        split[bucket_of(name)] += us / 1e3 / n_steps
+        split[bucket_of(name, buckets)] += us / 1e3 / n_steps
     return {"steps": n_steps, "wall_ms_per_step": wall / n_steps * 1e3,
             "device_ms_per_step": dev_s / n_steps * 1e3,
             "device_busy_share": dev_s / wall if wall else None,
