@@ -20,10 +20,17 @@ CUDA or without the repository beside it. Phases:
    nowhere in the port) and the least time the card could take. The sgd
    kernel is held at ResNet-50's largest leaf and across its 161 leaves as
    one step, with the clip slot at 1 and at 0.3, and with a bf16 p;
+   The fused int8 matmul is held bit-equal at the dense shapes of a decode
+   tick and a prefill (no one PyTorch call computes it: ``library_ms`` is
+   null, and ``yardstick_ms`` times the bf16 ``torch.matmul`` of the
+   unquantized operands), the int8-K/V flash forward at L=2048 (library:
+   SDPA on the dequantized K/V);
 4. small-input checks: a tiny fp32 model served on the card (kernels) and
-   on the CPU (plain versions) gives the same greedy tokens, and a tiny
-   fp32 LM trainer and a tiny fp32 image trainer (``fused_sgd``) each take
-   5 steps on both with the same losses;
+   on the CPU (plain versions) gives the same greedy tokens, also with
+   ``quant="int8"``, and with ``spec_k=3`` on the card against the same
+   engine without speculation on the CPU; a tiny fp32 LM trainer, a tiny
+   fp32 int8 LM trainer and a tiny fp32 image trainer (``fused_sgd``) each
+   take 5 steps on both with the same losses;
 5. serving main path: ``ServeEngine`` at the full width of the LM the repo
    benches (V=32000, 8 layers, d_model 1024, 8 heads, bf16, random
    weights from a seed), flash prefill and int8 paged decode, serving 16
@@ -40,7 +47,12 @@ CUDA or without the repository beside it. Phases:
    over the device-resident uint8 set), one epoch of 32 steps: train img/s
    with window 1 left out, finite and falling window losses, validation
    acc@1, an analytic MFU, one ``sgd`` launch per leaf per step, and a
-   checkpoint that reloads.
+   checkpoint that reloads;
+8. quantized and speculative serving at full width: phase 5's model and
+   requests, (a) with ``quant="int8"`` (every dense layer through the
+   fused int8 kernel: 33 launches per tick or prefill), (b) with
+   ``spec_k=4`` self-speculation; all requests complete, and (b) emits more
+   than one token per slot-tick.
 
 The line before the last is the card's name and power limit; the one
 before it the ``{"kernels": [...]}`` record; the last line is
@@ -62,6 +74,7 @@ SEED = 0
 # HBM3 bandwidth
 PEAK_BF16_FLOPS = 989e12
 PEAK_FP32_FLOPS = 67e12
+PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
 # kernel vs plain version, bf16 outputs: |err| <= BF16_TOL * (1 + |plain|)
 # elementwise -- the forward kernels round p and the output to bf16 where
@@ -84,6 +97,20 @@ BF16_ULP = 2.0 ** -7
 # normalized update turns small gradient differences into parameter
 # differences over 5 steps
 LOSS_TOL = 1e-4
+# tiny fp32 int8 trainer (sgd), card vs CPU: the fp32 activations entering
+# each quantized layer differ by summation order (cuBLAS and the card's
+# attention against the CPU's); a difference that crosses an int8 rounding
+# boundary flips that int8 value by one step (1/127 of its row's range),
+# from step 0 on, so per-step losses are held within INT8_LOSS_TOL * (1 +
+# |loss|) (on an H100: at most 2.0e-3 apart, against a bound near 5.5e-3)
+INT8_LOSS_TOL = 1e-3
+# the dense products of the serving LM at full width, (M, K, N): a decode
+# tick's qkv, mlp_out and lm_head at 8 slots, a 1024-token prefill's lm_head
+QUANT_SHAPES = {"decode lm_head": (8, 1024, 32000),
+                "decode qkv": (8, 1024, 3072),
+                "decode mlp_out": (8, 4096, 1024),
+                "prefill lm_head": (1024, 1024, 32000)}
+SPEC_K = 4
 # the training main path (V=32000, 8 layers, d_model 1024, L=2048)
 TRAIN_STEPS = 20
 # ResNet-50 (10 classes, s2d stem): parameter leaves and elements
@@ -439,6 +466,83 @@ def check_sgd(torch, gen):
             "library_ms": leaf_lib_ms, "library": lib}]}
 
 
+def check_fused_quant(torch, gen):
+    """The fused int8 matmul against fused_quant_matmul_plain at the dense
+    shapes of the serving path (QUANT_SHAPES), bf16: bit-equal."""
+    from tpu_dist_torch.ops import pallas_quant as pq
+
+    recs = {}
+    for label, (m, k, n) in QUANT_SHAPES.items():
+        x = torch.randn((m, k), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        w = (torch.randn((k, n), generator=gen, device="cuda")
+             / math.sqrt(k)).to(torch.bfloat16)
+        out = pq.fused_quant_cuda(x, w)
+        ref = pq.fused_quant_matmul_plain(x, w)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        if not torch.equal(out, ref):
+            raise AssertionError(f"fused_quant {label} ({m}, {k}, {n}): "
+                                 f"max|err| {err}, expected bit-equal")
+        del ref
+        ms = time_ms(torch, lambda: pq.fused_quant_cuda(x, w))
+        plain_ms = time_ms(torch, lambda: pq.fused_quant_matmul_plain(x, w),
+                           iters=5)
+        lib_ms = time_ms(torch, lambda: torch.matmul(x, w))
+        nbytes = 2 * (m * k + k * n + m * n)   # bf16 in once, out once
+        ops = 2.0 * m * n * k
+        t_ops, t_bytes = ops / PEAK_INT8_OPS, nbytes / PEAK_BYTES
+        recs[label] = {
+            "shape": f"{label}: M{m} K{k} N{n} bf16", "max_abs_err": err,
+            "tolerance": "bit-equal", "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": None, "yardstick_ms": lib_ms,
+            "library": "none: no one PyTorch call computes this function; "
+                       "yardstick_ms times the bf16 torch.matmul of the "
+                       "unquantized operands"}
+    return recs
+
+
+def check_flash_int8kv(torch, F, gen):
+    """The int8-K/V flash forward against int8kv_flash_plain at B=1 L=2048
+    H=8 D=128, bf16 q, causal."""
+    from tpu_dist_torch.ops import flash_attention as fa
+
+    b, L, h, d = 1, 2048, 8, 128
+    q = torch.randn((b, L, h, d), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    kv = fa.quantize_kv(*(torch.randn((b, L, h, d), generator=gen,
+                                      device="cuda") for _ in range(2)))
+    out = fa.int8kv_flash_cuda(q, kv, causal=True)
+    ref = fa.int8kv_flash_plain(q, kv, causal=True)
+    torch.cuda.synchronize()
+    err, ok = bf16_err(torch, out, ref)
+    if not ok:
+        raise AssertionError(f"flash_fwd_int8kv: max|err| {err} (tol "
+                             f"{BF16_TOL} (1 + |ref|))")
+    kq, ks, vq, vs = kv
+    kd, vd = ((t.float() * sc[..., None]).to(torch.bfloat16)
+              .transpose(1, 2).contiguous() for t, sc in ((kq, ks), (vq, vs)))
+    qh = q.transpose(1, 2).contiguous()
+    ms = time_ms(torch, lambda: fa.int8kv_flash_cuda(q, kv, causal=True))
+    plain_ms = time_ms(torch, lambda: fa.int8kv_flash_plain(q, kv, True))
+    lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qh, kd, vd, is_causal=True))
+    flops = 4.0 * b * h * d * L * (L + 1) / 2          # live causal pairs
+    # q and out bf16, int8 K/V, their fp32 row scales
+    nbytes = 2 * b * L * h * d * 2 + 2 * b * L * h * d + 2 * b * L * h * 4
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    return {"shape": f"B{b} L{L} H{h} D{d} bf16 q, int8 K/V, causal",
+            "max_abs_err": err, "tolerance": f"{BF16_TOL} * (1 + |plain|)",
+            "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": lib_ms,
+            "library": "scaled_dot_product_attention(is_causal=True) on "
+                       "the dequantized bf16 K/V"}
+
+
 def run_trainer(cfg, device, init_params=None):
     """Fit ``cfg`` on ``device``; (trainer, per-step losses from its
     ledger)."""
@@ -452,6 +556,35 @@ def run_trainer(cfg, device, init_params=None):
         with open(path) as f:
             recs = [json.loads(line) for line in f]
     return tr, [r["loss"] for r in recs if r["event"] == "step"]
+
+
+def small_int8_trainer_agreement(torch):
+    """Tiny fp32 LMTrainer(quant="int8") with sgd: 5 steps on the card (the
+    fused int8 kernel) and on the CPU (its plain version) from the same
+    weights."""
+    from tpu_dist_torch.configs import LMConfig
+    from tpu_dist_torch.interop import export_flax_params
+    from tpu_dist_torch.models.transformer import TransformerLM
+
+    cfg = LMConfig(batch_size=4, seq_len=96, d_model=128, num_layers=2,
+                   num_heads=1, vocab_size=64, synth_tokens=4000, seed=SEED,
+                   quant="int8", optimizer="sgd", lr=1e-2, max_steps=5,
+                   print_freq=100)
+    init = export_flax_params(TransformerLM(
+        vocab_size=64, num_layers=2, d_model=128, num_heads=1, max_len=96,
+        device="cpu", seed=SEED))
+    _, cpu_losses = run_trainer(cfg, "cpu", init)
+    _, gpu_losses = run_trainer(cfg, "cuda", init)
+    if len(gpu_losses) != 5 or len(cpu_losses) != 5:
+        raise AssertionError(f"int8 steps: card {len(gpu_losses)}, cpu "
+                             f"{len(cpu_losses)}")
+    for i, (a, r) in enumerate(zip(gpu_losses, cpu_losses)):
+        if abs(a - r) > INT8_LOSS_TOL * (1 + abs(r)):
+            raise AssertionError(f"int8 step {i}: card loss {a} != plain "
+                                 f"{r} (tol {INT8_LOSS_TOL} (1 + |loss|))")
+    return {"card": gpu_losses, "cpu": cpu_losses,
+            "max_abs_diff": max(abs(a - r) for a, r in
+                                zip(gpu_losses, cpu_losses))}
 
 
 def small_trainer_agreement(torch):
@@ -660,8 +793,9 @@ def image_path(torch, kernels):
     return image, launches
 
 
-def small_input_agreement(torch):
-    """Tiny fp32 model: kernels on the card == plain versions on the CPU."""
+def small_input_agreement(torch, card_kw=None, cpu_kw=None):
+    """Tiny fp32 model: kernels on the card == plain versions on the CPU,
+    with ``card_kw`` / ``cpu_kw`` added to each side's ServeConfig."""
     import numpy as np
 
     from tpu_dist_torch.engine.serve import (DecodeRequest, ServeConfig,
@@ -679,10 +813,11 @@ def small_input_agreement(torch):
     outs = (20, 12, 30)
     reqs = lambda: [DecodeRequest(i, p, n)
                     for i, (p, n) in enumerate(zip(prompts, outs))]
-    cfg = ServeConfig(max_slots=2, page_size=16, num_pages=32,
-                      kv_quant="int8", attn_read="flash")
+    base = dict(max_slots=2, page_size=16, num_pages=32, kv_quant="int8",
+                attn_read="flash")
     got = {}
-    for dev, lm in (("cpu", cpu_lm), ("cuda", gpu_lm)):
+    for dev, lm, kw in (("cpu", cpu_lm, cpu_kw), ("cuda", gpu_lm, card_kw)):
+        cfg = ServeConfig(**base, **(kw or {}))
         got[dev] = {c.rid: c.tokens for c in
                     ServeEngine(lm, cfg, device=dev).run(reqs())}
     for rid, toks in got["cpu"].items():
@@ -693,30 +828,18 @@ def small_input_agreement(torch):
     return len(got["cpu"])
 
 
-def main_path(torch, kernels):
+def serve_run(torch, kernels, model, cfg, prompts, outs):
+    """Serve the requests through ``ServeEngine(model, cfg)`` on the card,
+    after a warm-up engine on two of them (cuBLAS handles, allocator,
+    builds); launch counts from the measured run alone. Returns (record,
+    launches, engine)."""
     import numpy as np
 
-    from tpu_dist_torch.engine.serve import (DecodeRequest, ServeConfig,
-                                             ServeEngine)
-    from tpu_dist_torch.models.transformer import TransformerLM
-    from tpu_dist_torch.ops.flash_attention import flash_attention_fn
+    from tpu_dist_torch.engine.serve import DecodeRequest, ServeEngine
 
-    layers = 8
-    model = TransformerLM(vocab_size=32000, num_layers=layers, d_model=1024,
-                          num_heads=8, max_len=2048, dtype=torch.bfloat16,
-                          attn_fn=flash_attention_fn(), device="cuda",
-                          seed=SEED)
-    params = sum(p.numel() for p in model.parameters())
-    cfg = ServeConfig(max_slots=8, page_size=16, num_pages=1024,
-                      kv_quant="int8", attn_read="flash")
-    rng = np.random.default_rng(SEED)
-    n_req = 16
-    prompts = [rng.integers(0, 32000, (int(rng.integers(16, 1025)),))
-               .astype(np.int32) for _ in range(n_req)]
-    outs = rng.integers(32, 129, n_req)
+    n_req = len(prompts)
     reqs = lambda: [DecodeRequest(i, prompts[i], int(outs[i]))
                     for i in range(n_req)]
-    # warm-up on a separate engine: cuBLAS handles, allocator, build
     ServeEngine(model, cfg).run(reqs()[:2])
     torch.cuda.synchronize()
 
@@ -733,12 +856,55 @@ def main_path(torch, kernels):
         raise AssertionError(f"served {len(comps)}/{n_req}")
     for c in comps:
         if c.n_generated != int(outs[c.rid]) or c.tokens.min() < 0 \
-                or c.tokens.max() >= 32000:
+                or c.tokens.max() >= model.vocab_size:
             raise AssertionError(f"request {c.rid}: bad completion")
         np.testing.assert_array_equal(c.tokens[:c.prompt_len],
                                       prompts[c.rid])
     if eng.ticks <= 0:
         raise AssertionError("no decode tick ran")
+    toks = sum(c.n_generated for c in comps)
+    ttft = [c.ttft_s for c in comps]
+    tpot = [(c.finish_ts - c.first_token_ts) / (c.n_generated - 1)
+            for c in comps if c.n_generated > 1]
+    record = {
+        "requests": n_req, "completed": len(comps),
+        "prompt_tokens": int(sum(p.size for p in prompts)),
+        "generated_tokens": toks, "wall_s": wall,
+        "tokens_per_s": toks / wall, "prefills": eng.prefills,
+        "ticks": eng.ticks, "occupancy": eng.occupancy,
+        "ttft_ms": {"p50": pctl(ttft, 50) * 1e3, "p99": pctl(ttft, 99) * 1e3},
+        "tpot_ms": {"p50": pctl(tpot, 50) * 1e3, "p99": pctl(tpot, 99) * 1e3},
+        "prefill_s": eng.prefill_s, "tick_s": eng.tick_s,
+        "ms_per_tick": eng.tick_s / eng.ticks * 1e3,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": launches}
+    return record, launches, eng
+
+
+def main_path(torch, kernels):
+    """The serving main path at full width (module docstring, phase 5).
+    Returns (record, launches, model, prompts, outs): phase 8 serves the
+    same model and requests."""
+    import numpy as np
+
+    from tpu_dist_torch.engine.serve import ServeConfig
+    from tpu_dist_torch.models.transformer import TransformerLM
+    from tpu_dist_torch.ops.flash_attention import flash_attention_fn
+
+    layers = 8
+    model = TransformerLM(vocab_size=32000, num_layers=layers, d_model=1024,
+                          num_heads=8, max_len=2048, dtype=torch.bfloat16,
+                          attn_fn=flash_attention_fn(), device="cuda",
+                          seed=SEED)
+    cfg = ServeConfig(max_slots=8, page_size=16, num_pages=1024,
+                      kv_quant="int8", attn_read="flash")
+    rng = np.random.default_rng(SEED)
+    n_req = 16
+    prompts = [rng.integers(0, 32000, (int(rng.integers(16, 1025)),))
+               .astype(np.int32) for _ in range(n_req)]
+    outs = rng.integers(32, 129, n_req)
+    serving, launches, eng = serve_run(torch, kernels, model, cfg, prompts,
+                                       outs)
     if launches["flash_fwd"] < eng.prefills * layers:
         raise AssertionError(f"flash_fwd launched {launches['flash_fwd']} "
                              f"times for {eng.prefills} prefills x {layers}")
@@ -750,23 +916,55 @@ def main_path(torch, kernels):
         logits = model(torch.as_tensor(prompts[0][None], device="cuda"))
     if not bool(torch.isfinite(logits).all()):
         raise AssertionError("non-finite logits at full width")
-    toks = sum(c.n_generated for c in comps)
-    ttft = [c.ttft_s for c in comps]
-    tpot = [(c.finish_ts - c.first_token_ts) / (c.n_generated - 1)
-            for c in comps if c.n_generated > 1]
-    serving = {
-        "requests": n_req, "completed": len(comps), "params": params,
-        "prompt_tokens": int(sum(p.size for p in prompts)),
-        "generated_tokens": toks, "wall_s": wall,
-        "tokens_per_s": toks / wall, "prefills": eng.prefills,
-        "ticks": eng.ticks, "occupancy": eng.occupancy,
-        "ttft_ms": {"p50": pctl(ttft, 50) * 1e3, "p99": pctl(ttft, 99) * 1e3},
-        "tpot_ms": {"p50": pctl(tpot, 50) * 1e3, "p99": pctl(tpot, 99) * 1e3},
-        "prefill_s": eng.prefill_s, "tick_s": eng.tick_s,
-        "ms_per_tick": eng.tick_s / eng.ticks * 1e3,
-        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-        "launches": launches}
-    return serving, launches
+    serving["params"] = sum(p.numel() for p in model.parameters())
+    return serving, launches, model, prompts, outs
+
+
+def quant_spec_path(torch, kernels, model, prompts, outs):
+    """Phase 8: phase 5's model and requests served (a) with quant="int8"
+    and (b) with spec_k=SPEC_K self-speculation."""
+    from tpu_dist_torch.engine.serve import ServeConfig
+
+    layers = model.num_layers
+    dense = 4 * layers + 1                 # qkv, proj, mlp_in, mlp_out; head
+    base = dict(max_slots=8, page_size=16, num_pages=1024, kv_quant="int8",
+                attn_read="flash")
+    quant, q_launches, eng = serve_run(
+        torch, kernels, model, ServeConfig(**base, quant="int8"), prompts,
+        outs)
+    want = dense * (eng.ticks + eng.prefills)
+    if q_launches["fused_quant"] != want:
+        raise AssertionError(f"fused_quant launched "
+                             f"{q_launches['fused_quant']} times, expected "
+                             f"{dense} x ({eng.ticks} ticks + "
+                             f"{eng.prefills} prefills) = {want}")
+    if q_launches["paged_decode"] < layers * eng.ticks:
+        raise AssertionError(f"paged_decode launched "
+                             f"{q_launches['paged_decode']} times for "
+                             f"{eng.ticks} ticks x {layers}")
+    if q_launches["flash_fwd"] < layers * eng.prefills:
+        raise AssertionError(f"flash_fwd launched {q_launches['flash_fwd']} "
+                             f"times for {eng.prefills} prefills x {layers}")
+    quant["fused_quant_per_forward"] = dense
+    spec, s_launches, eng = serve_run(
+        torch, kernels, model, ServeConfig(**base, spec_k=SPEC_K), prompts,
+        outs)
+    apt = eng.accepted_per_tick
+    if apt is None or not apt > 1.0:
+        raise AssertionError(f"spec_k={SPEC_K}: accepted_per_tick {apt}")
+    # the (k+1)-row verify reads through the exact path: no int8-page
+    # flash decode under speculation, the prompt passes still on flash_fwd
+    if s_launches["paged_decode"] != 0:
+        raise AssertionError(f"spec_k={SPEC_K}: paged_decode launched "
+                             f"{s_launches['paged_decode']} times, expected 0")
+    if s_launches["flash_fwd"] < layers * eng.prefills:
+        raise AssertionError(f"spec_k={SPEC_K}: flash_fwd launched "
+                             f"{s_launches['flash_fwd']} times for "
+                             f"{eng.prefills} prefills x {layers}")
+    spec.update(spec_k=SPEC_K, accepted_per_tick=apt,
+                spec_emitted=eng.spec_emitted,
+                spec_slot_ticks=eng.spec_slot_ticks)
+    return {"int8": quant, "spec": spec}, q_launches, s_launches
 
 
 def main():
@@ -815,25 +1013,38 @@ def main():
     bwd = check_flash_bwd(torch, F, gen)
     adamw = check_adamw(torch, gen)
     sgd = check_sgd(torch, gen)
+    quant = check_fused_quant(torch, gen)
+    int8kv = check_flash_int8kv(torch, F, gen)
     log(f"phase 3 kernels: flash_fwd {json.dumps(flash)}")
     log(f"phase 3 kernels: paged_decode {json.dumps(paged)}")
     log(f"phase 3 kernels: flash_bwd {json.dumps(bwd)}")
     log(f"phase 3 kernels: adamw {json.dumps(adamw)}")
     log(f"phase 3 kernels: sgd {json.dumps(sgd)}")
+    log(f"phase 3 kernels: fused_quant {json.dumps(quant)}")
+    log(f"phase 3 kernels: flash_fwd_int8kv {json.dumps(int8kv)}")
 
     # 4. small input: card == CPU reference
     n = small_input_agreement(torch)
     log(f"phase 4 small-input agreement: {n}/{n} requests token-equal "
         "(card kernels vs CPU plain versions, fp32)")
+    n = small_input_agreement(torch, dict(quant="int8"), dict(quant="int8"))
+    log(f"phase 4 small-input agreement, quant=int8: {n}/{n} requests "
+        "token-equal (card fused_quant kernel vs CPU plain version, fp32)")
+    n = small_input_agreement(torch, dict(spec_k=3), {})
+    log(f"phase 4 small-input agreement, spec_k=3: {n}/{n} requests on the "
+        "card token-equal to the CPU engine without speculation (fp32)")
     agree = small_trainer_agreement(torch)
     log(f"phase 4 small-input training: 5 steps, per-step losses agree "
         f"within {LOSS_TOL} (1 + |loss|): {json.dumps(agree)}")
+    agree = small_int8_trainer_agreement(torch)
+    log(f"phase 4 small-input int8 training: 5 steps, per-step losses "
+        f"agree within {INT8_LOSS_TOL} (1 + |loss|): {json.dumps(agree)}")
     agree = small_image_trainer_agreement(torch)
     log(f"phase 4 small-input image training: 5 steps, per-step losses "
         f"agree within {LOSS_TOL} (1 + |loss|): {json.dumps(agree)}")
 
     # 5. the serving main path at full width
-    serving, serve_launches = main_path(torch, kernels)
+    serving, serve_launches, model, prompts, outs = main_path(torch, kernels)
     log(f"phase 5 serving: {json.dumps(serving)} on {card}")
 
     # 6. the training main path at full width
@@ -844,6 +1055,21 @@ def main():
     image, image_launches = image_path(torch, kernels)
     log(f"phase 7 image training: {json.dumps(image)} on {card}")
 
+    # 8. quantized and speculative serving at full width
+    t0 = time.perf_counter()
+    qspec, quant_launches, spec_launches = quant_spec_path(
+        torch, kernels, model, prompts, outs)
+    del model
+    log(f"phase 8 int8 serving: {json.dumps(qspec['int8'])} on {card}")
+    log(f"phase 8 speculative serving (spec_k={SPEC_K}): "
+        f"{json.dumps(qspec['spec'])} on {card}")
+    log(f"phase 8 took {time.perf_counter() - t0:.1f}s")
+
+    # every main-path run's own counts, for a kernel that no single path owns
+    by_path = {"serving": serve_launches, "training": train_launches,
+               "image_training": image_launches,
+               "int8_serving": quant_launches, "spec_serving": spec_launches}
+    int8kv_by_path = {p: n["flash_fwd_int8kv"] for p, n in by_path.items()}
     entries = []
     for kname, rec, src, replaces, launches in (
             ("flash_fwd", flash[1024], "tpu_dist_torch/csrc/flash_fwd.cu",
@@ -859,7 +1085,14 @@ def main():
             ("adamw", adamw, "tpu_dist_torch/csrc/adamw.cu",
              "tpu_dist/ops/pallas_adamw.py:57", train_launches),
             ("sgd", sgd, "tpu_dist_torch/csrc/sgd.cu",
-             "tpu_dist/ops/pallas_sgd.py:93", image_launches)):
+             "tpu_dist/ops/pallas_sgd.py:93", image_launches),
+            ("fused_quant", quant["decode lm_head"],
+             "tpu_dist_torch/csrc/fused_quant.cu",
+             "tpu_dist/ops/pallas_quant.py:104", quant_launches),
+            ("flash_fwd_int8kv", int8kv,
+             "tpu_dist_torch/csrc/flash_fwd_int8kv.cu",
+             "tpu_dist/ops/flash_attention.py:446",
+             {"flash_fwd_int8kv": sum(int8kv_by_path.values())})):
         entry = {"name": kname, "route": "cuda", "source": src,
                  "replaces": replaces, "launches": launches[kname]}
         entry.update({k: rec[k] for k in (
@@ -872,7 +1105,26 @@ def main():
             entry["more_shapes"] = [flash[2048]]
             entry["launches_by_path"] = {
                 "serving": serve_launches["flash_fwd"],
-                "training": train_launches["flash_fwd"]}
+                "training": train_launches["flash_fwd"],
+                "int8_serving": quant_launches["flash_fwd"],
+                "spec_serving": spec_launches["flash_fwd"]}
+        if kname == "paged_decode":
+            entry["launches_by_path"] = {
+                "serving": serve_launches["paged_decode"],
+                "int8_serving": quant_launches["paged_decode"],
+                "spec_serving": spec_launches["paged_decode"]}
+        if kname == "fused_quant":
+            entry["library"] = rec["library"]
+            entry["yardstick_ms"] = rec["yardstick_ms"]
+            entry["more_shapes"] = [r for k, r in quant.items()
+                                    if k != "decode lm_head"]
+            entry["launches_by_path"] = {
+                "int8_serving": quant_launches["fused_quant"]}
+        if kname == "flash_fwd_int8kv":
+            entry["launches_by_path"] = int8kv_by_path
+            entry["note"] = ("no path in the JAX package calls the TPU "
+                             "kernel (only tests/test_flash.py); held "
+                             "against its plain version in phase 3 alone")
         entries.append(entry)
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": entries}))

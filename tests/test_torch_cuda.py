@@ -16,6 +16,7 @@ from tpu_dist_torch import kernels
 from tpu_dist_torch.ops import flash_attention as fa
 from tpu_dist_torch.ops import paged_attention as pa
 from tpu_dist_torch.ops import pallas_adamw as adamw
+from tpu_dist_torch.ops import pallas_quant as pq
 
 torch.set_num_threads(1)
 
@@ -319,3 +320,149 @@ def test_image_training_on_the_card_equals_the_cpu_path(cuda, tmp_path):
     assert len(losses[cuda]) == len(losses["cpu"]) == 4
     for a, r in zip(losses[cuda], losses["cpu"]):
         assert abs(a - r) <= 1e-4 * (1 + abs(r))
+
+
+# ---- the fused int8 matmul and the int8-K/V flash forward ---------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=str)
+@pytest.mark.parametrize("m,k,n", [(8, 64, 72), (130, 70, 136),
+                                   (3, 4096, 40), (1, 1, 1)], ids=str)
+def test_fused_quant_kernel_matches_plain(cuda, dtype, m, k, n):
+    """Bit-equal: int32 sums are exact and the scales, the dequant and
+    the one rounding to the output type are the same fp32 operations."""
+    gen = torch.Generator(device=cuda).manual_seed(m + k + n)
+    x = (torch.randn((m, k), generator=gen, device=cuda) * 2).to(dtype)
+    w = torch.randn((k, n), generator=gen, device=cuda).to(dtype)
+    if m > 1:
+        x[1] = 0                               # all-zero row: exact zeros
+    out = pq.fused_quant_cuda(x, w)
+    ref = pq.fused_quant_matmul_plain(x, w)
+    assert out.dtype == dtype and torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=str)
+@pytest.mark.parametrize("case", [
+    # (b, lq, lk, h, d, causal, q_offset, kv_offset)
+    (2, 100, 100, 2, 64, True, 0, 0),
+    (1, 70, 130, 3, 128, False, 0, 0),
+    (1, 64, 64, 2, 128, True, 0, 40),     # fully masked rows: exact zeros
+    (2, 40, 96, 1, 64, True, 56, 0),
+], ids=str)
+def test_int8kv_flash_kernel_matches_plain(cuda, dtype, case):
+    b, lq, lk, h, d, causal, qo, ko = case
+    gen = torch.Generator(device=cuda).manual_seed(lq * 3 + lk)
+    q = torch.randn((b, lq, h, d), generator=gen, device=cuda).to(dtype)
+    kv = fa.quantize_kv(*(torch.randn((b, lk, h, d), generator=gen,
+                                      device=cuda) for _ in range(2)))
+    out = fa.int8kv_flash_cuda(q, kv, causal, qo, ko)
+    ref = fa.int8kv_flash_plain(q, kv, causal, qo, ko)
+    assert out.dtype == dtype
+    _close(out, ref, dtype)
+    assert torch.equal((ref == 0).all(-1), (out == 0).all(-1))
+
+
+def test_quant_wrappers_count_launches_and_refuse_bad_input(cuda):
+    kernels.reset_launches()
+    x = torch.randn((2, 3, 16), device=cuda, requires_grad=True)
+    w = torch.randn((16, 8), device=cuda, requires_grad=True)
+    y = pq.fused_quant_matmul(x, w)              # leading dims fold: 1 launch
+    assert y.shape == (2, 3, 8) and kernels.LAUNCHES["fused_quant"] == 1
+    y.sum().backward()                           # STE: no kernel launch
+    torch.testing.assert_close(w.grad, x.detach().reshape(6, 16).t()
+                               @ torch.ones(6, 8, device=cuda))
+    with pytest.raises(ValueError, match="K"):
+        pq.fused_quant_cuda(torch.zeros(2, 8, device=cuda),
+                            torch.zeros(4, 8, device=cuda))
+    with pytest.raises(TypeError):
+        pq.fused_quant_cuda(torch.zeros(2, 8, device=cuda).half(),
+                            torch.zeros(8, 4, device=cuda).half())
+    q = torch.randn((1, 8, 1, 64), device=cuda)
+    kv = fa.quantize_kv(q, q)
+    fa.int8kv_flash_attention_fn()(q, kv)
+    assert kernels.LAUNCHES["flash_fwd_int8kv"] == 1
+    with pytest.raises(TypeError, match="int8"):
+        fa.int8kv_flash_cuda(q, (q, kv[1], q, kv[3]))
+    assert kernels.LAUNCHES["fused_quant"] == 1
+    assert kernels.LAUNCHES["flash_fwd_int8kv"] == 1
+
+
+@pytest.mark.parametrize("kw", [
+    dict(quant="int8"),
+    dict(quant="int8", kv_quant="int8", attn_read="flash"),
+    dict(spec_k=3, kv_quant="int8", attn_read="flash"),
+    dict(spec_k=2, quant="int8", prefix_cache=True),
+], ids=str)
+def test_int8_and_spec_serving_on_the_card_equal_the_cpu_path(cuda, kw):
+    """The same greedy tokens on the card (kernels) and the CPU (plain
+    versions), with the fused int8 kernel launched once per dense layer
+    per forward: 2 layers x 4 + lm_head = 9, and a speculative tick runs
+    k draft forwards and one verify (self-speculation: a prefill runs the
+    base and the draft)."""
+    from tpu_dist_torch.engine.serve import (DecodeRequest, ServeConfig,
+                                             ServeEngine)
+    from tpu_dist_torch.models.transformer import tiny_lm
+
+    geom = dict(vocab_size=64, num_layers=2, d_model=128, num_heads=2,
+                max_len=48, attn_fn=fa.flash_attention_fn())
+    cpu_lm = tiny_lm(device="cpu", seed=6, **geom)
+    gpu_lm = tiny_lm(device=cuda, seed=None, **geom)
+    gpu_lm.load_state_dict(cpu_lm.state_dict())
+    cfg = ServeConfig(max_slots=2, page_size=8, num_pages=24, **kw)
+    prompts = [np.arange(n, dtype=np.int32) * 5 % 64 for n in (3, 17, 9, 3)]
+    reqs = lambda: [DecodeRequest(i, p, 12) for i, p in enumerate(prompts)]
+    got = {}
+    for dev, lm in (("cpu", cpu_lm), (cuda, gpu_lm)):
+        kernels.reset_launches()
+        eng = ServeEngine(lm, cfg, device=dev)
+        got[dev] = {c.rid: c.tokens for c in eng.run(reqs())}
+    k = kw.get("spec_k", 0)
+    forwards = (eng.prefills * 2 + eng.ticks * (k + 1) if k
+                else eng.prefills + eng.ticks)
+    if kw.get("quant") == "int8":
+        assert kernels.LAUNCHES["fused_quant"] == 9 * forwards
+    if k:
+        assert eng.accepted_per_tick > 1.0
+        assert kernels.LAUNCHES["paged_decode"] == 0   # verify: Lq = k + 1
+    elif kw.get("attn_read") == "flash":
+        assert kernels.LAUNCHES["paged_decode"] == 2 * eng.ticks
+    for rid, toks in got["cpu"].items():
+        np.testing.assert_array_equal(toks, got[cuda][rid])
+
+
+def test_int8_training_on_the_card_equals_the_cpu_path(cuda, tmp_path):
+    """A tiny fp32 LMTrainer(quant="int8") with sgd, 4 steps on the card
+    (the fused kernel forward, STE backward) and on the CPU (its plain
+    version) from the same weights. The fp32 activations entering each
+    quantized layer differ by summation order (cuBLAS and the card's
+    attention against the CPU's), and a difference across an int8 rounding
+    boundary flips that int8 value by one step, from step 0 on: losses
+    are held within 1e-3 * (1 + |loss|)."""
+    import json
+
+    from tpu_dist_torch.configs import LMConfig
+    from tpu_dist_torch.engine.lm_loop import LMTrainer
+    from tpu_dist_torch.interop import export_flax_params
+    from tpu_dist_torch.models.transformer import tiny_lm
+
+    init = export_flax_params(tiny_lm(vocab_size=64, num_layers=2,
+                                      d_model=64, num_heads=1, max_len=80,
+                                      device="cpu", seed=2))
+    losses, fused = {}, {}
+    for dev in ("cpu", cuda):
+        path = str(tmp_path / f"{dev}.jsonl")
+        cfg = LMConfig(batch_size=4, seq_len=80, d_model=64, num_layers=2,
+                       num_heads=1, vocab_size=64, synth_tokens=3000,
+                       quant="int8", optimizer="sgd", lr=1e-2, max_steps=4,
+                       print_freq=2, ledger_path=path)
+        kernels.reset_launches()
+        LMTrainer(cfg, device=dev, init_params=init).fit()
+        with open(path) as f:
+            steps = [r for r in map(json.loads, f) if r["event"] == "step"]
+        losses[dev] = [r["loss"] for r in steps]
+        fused[dev] = {r["fused"] for r in steps}
+    assert fused == {"cpu": {False}, cuda: {True}}
+    assert kernels.LAUNCHES["fused_quant"] >= 9 * 4
+    for a, r in zip(losses[cuda], losses["cpu"]):
+        assert abs(a - r) <= 1e-3 * (1 + abs(r))

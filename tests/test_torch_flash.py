@@ -2,7 +2,10 @@
 reference's Pallas FA-2 forward (tpu_dist.ops.flash_attention._fa_forward,
 interpret mode off-TPU): out and the per-row logsumexp in fp32 within
 2e-5, causal and not, with q/kv offsets -- including rows whose every key
-is masked, which must come out exactly zero on both sides."""
+is masked, which must come out exactly zero on both sides. Kernel 5's
+plain version (``int8kv_flash_attention_fn``) against the reference's
+int8-KV Pallas forward on the cases of ``tests/test_flash.py``, within
+2e-5 (fp32 summation order)."""
 
 import numpy as np
 import pytest
@@ -107,3 +110,32 @@ def test_backward_is_refused_and_names_the_tpu_kernels():
     with torch.inference_mode():
         out = tfa.flash_attention_fn()(q.detach(), k.detach(), v.detach())
     assert out.shape == (1, 8, 1, 8) and out.grad_fn is None
+
+
+# ---- the int8-K/V forward (kernel 5) --------------------------------------
+
+INT8KV_CASES = [
+    # (seed, b, lq, lk, h, d, causal, q_offset, kv_offset, q rows kept)
+    (7, 2, 128, 128, 2, 64, True, 0, 0, 0),     # test_flash.py:146-171
+    (8, 2, 128, 128, 2, 64, True, 64, 0, 64),   # :174-190, decode offsets
+    (9, 1, 40, 72, 2, 16, False, 0, 0, 0),
+    (10, 1, 32, 32, 1, 16, True, 0, 16, 0),     # rows that see no key
+]
+
+
+@pytest.mark.parametrize("case", INT8KV_CASES, ids=str)
+def test_int8kv_plain_matches_pallas_forward(case):
+    seed, b, lq, lk, h, d, causal, qo, ko, keep = case
+    q, k, v = _qkv(seed, b, lq, lk, h, d)
+    q = q[:, keep:]
+    jkv = jfa.quantize_kv(jnp.asarray(k), jnp.asarray(v))
+    jout = np.asarray(jfa.int8kv_flash_attention_fn(block_q=64, block_k=64)(
+        jnp.asarray(q), jkv, causal=causal, q_offset=qo, kv_offset=ko))
+    tkv = tfa.quantize_kv(torch.from_numpy(k), torch.from_numpy(v))
+    tout = tfa.int8kv_flash_attention_fn(block_q=64, block_k=64)(
+        torch.from_numpy(np.ascontiguousarray(q)), tkv, causal=causal,
+        q_offset=qo, kv_offset=ko)
+    assert tout.dtype == torch.float32 and tout.shape == q.shape
+    np.testing.assert_allclose(jout, tout.numpy(), **TOL)
+    np.testing.assert_array_equal(np.all(jout == 0, axis=-1),
+                                  np.all(tout.numpy() == 0, axis=-1))

@@ -59,7 +59,10 @@ def test_importing_every_module_pulls_in_no_jax():
             "tpu_dist_torch.data.loader", "tpu_dist_torch.data.pipeline",
             "tpu_dist_torch.ops.pallas_sgd",
             "tpu_dist_torch.scripts.image_train",
-            "tpu_dist_torch.tools.profile_image"} <= set(out["mods"])
+            "tpu_dist_torch.tools.profile_image",
+            "tpu_dist_torch.ops.pallas_quant",
+            "tpu_dist_torch.tools.request_report",
+            "tpu_dist_torch.tools.profile_serve"} <= set(out["mods"])
 
 
 @pytest.mark.parametrize("path", _port_files(),

@@ -7,7 +7,10 @@ versions. fp32 within 1e-5 (summation order only); bf16 within
 the backward kernels round p and ds where their plain version does, so
 summation order is all that is left before the bf16 outputs round). The
 AdamW and SGD kernels within 1e-6 * (1 + |plain|) (fp32, the same
-operations; a bf16 p rounds once, from the same fp32 value).
+operations; a bf16 p rounds once, from the same fp32 value). The fused
+int8 matmul bit-equal (int32 sums are exact, the scales and the dequant
+the same fp32 operations); the int8-K/V flash forward as the flash
+forward (it keeps p in fp32, so bf16 rounds only the output).
 The hardware itself is checked by tests/test_torch_cuda.py on the card."""
 
 import shutil
@@ -18,6 +21,7 @@ import torch
 from tpu_dist_torch.ops import flash_attention as fa
 from tpu_dist_torch.ops import paged_attention as pa
 from tpu_dist_torch.ops import pallas_adamw as adamw
+from tpu_dist_torch.ops import pallas_quant as pq
 from tpu_dist_torch.ops import pallas_sgd as sgd
 from tpu_dist_torch.tools import cuda_emu
 
@@ -40,7 +44,12 @@ def emu():
                                      fa._BWD_DKV_ARGS),
             "adamw": cuda_emu.function("adamw", "tdt_adamw",
                                        adamw._ADAMW_ARGS),
-            "sgd": cuda_emu.function("sgd", "tdt_sgd", sgd._SGD_ARGS)}
+            "sgd": cuda_emu.function("sgd", "tdt_sgd", sgd._SGD_ARGS),
+            "quant": cuda_emu.function("fused_quant", "tdt_fused_quant",
+                                       pq._FUSED_QUANT_ARGS),
+            "int8kv": cuda_emu.function("flash_fwd_int8kv",
+                                        "tdt_flash_fwd_int8kv",
+                                        fa._INT8KV_ARGS)}
 
 
 def _close(out, ref, dtype):
@@ -148,3 +157,40 @@ def test_sgd_kernel_source_matches_plain(emu, dtype, n, offset):
     for a, r in zip((p, m), ref):
         diff = (a.float() - r.float()).abs()
         assert bool((diff <= 1e-6 * (1 + r.float().abs())).all())
+
+
+@pytest.mark.parametrize("dtype,m,k,n", [
+    (torch.float32, 8, 16, 8),        # a decode tick's M, one tile
+    (torch.float32, 130, 70, 136),    # ragged M, N and K (K % 4 != 0)
+    (torch.bfloat16, 24, 128, 72),    # two K chunks
+], ids=str)
+def test_fused_quant_kernel_source_matches_plain(emu, dtype, m, k, n):
+    gen = torch.Generator().manual_seed(m + k + n)
+    x = (torch.randn((m, k), generator=gen) * 2).to(dtype)
+    w = torch.randn((k, n), generator=gen).to(dtype)
+    x[1] = 0                                   # an all-zero row: exact zeros
+    out = pq._launch(emu["quant"], x, w, None)
+    ref = pq.fused_quant_matmul_plain(x, w)
+    assert out.dtype == dtype and torch.equal(out, ref)
+    assert bool((out[1] == 0).all())
+
+
+@pytest.mark.parametrize("dtype,case", [
+    # (b, lq, lk, h, d, causal, q_offset, kv_offset)
+    (torch.float32, (1, 100, 100, 2, 64, True, 0, 0)),
+    (torch.float32, (1, 70, 130, 1, 64, False, 0, 0)),
+    (torch.float32, (1, 64, 64, 1, 128, True, 0, 40)),   # masked rows
+    (torch.float32, (1, 40, 96, 1, 64, True, 56, 0)),
+    (torch.bfloat16, (1, 80, 80, 1, 128, True, 0, 0)),
+], ids=str)
+def test_int8kv_flash_kernel_source_matches_plain(emu, dtype, case):
+    b, lq, lk, h, d, causal, qo, ko = case
+    gen = torch.Generator().manual_seed(lq + 2 * lk)
+    q = torch.randn((b, lq, h, d), generator=gen).to(dtype)
+    kv = fa.quantize_kv(*(torch.randn((b, lk, h, d), generator=gen)
+                          for _ in range(2)))
+    out = fa._launch_int8kv(emu["int8kv"], q, kv, causal, qo, ko, None)
+    ref = fa.int8kv_flash_plain(q, kv, causal, qo, ko)
+    assert out.dtype == dtype
+    _close(out, ref, dtype)
+    assert torch.equal((ref == 0).all(-1), (out == 0).all(-1))

@@ -122,6 +122,36 @@ def test_trainer_matches_reference_trainer(tmp_path, attn, optimizer):
     assert port.best_ppl == pytest.approx(ref.best_ppl, rel=1e-5)
 
 
+def test_int8_trainer_matches_reference_trainer(tmp_path):
+    """``quant="int8"``: every dense layer through the fused int8 matmul
+    (the plain version on the CPU; the JAX trainer's CPU path is
+    ``quant_einsum``, the same numerics), STE backward. Step 0's loss agrees
+    to fp32 rounding. After it, int8 rounding is discontinuous: an fp32
+    rounding difference that moves an activation or weight across a
+    rounding boundary flips one int8 value by one step (1/127 of its row's
+    or column's range), so losses drift apart by up to about 1e-4 relative
+    over 3 sgd steps; 2e-4 bounds it."""
+    kw = dict(TINY, quant="int8", optimizer="sgd", max_steps=3,
+              print_freq=1)
+    ref = JaxLMTrainer(JaxLMConfig(ledger_path=str(tmp_path / "j.jsonl"),
+                                   **kw))
+    init = jax.tree_util.tree_map(np.asarray,
+                                  jax.device_get(ref.state.params))
+    ref.fit()
+    port = LMTrainer(LMConfig(ledger_path=str(tmp_path / "t.jsonl"), **kw),
+                     device="cpu", init_params=init)
+    assert port.model.blocks[0].qkv.mode == "int8"
+    port.fit()
+    got, want = _losses(tmp_path / "t.jsonl"), _losses(tmp_path / "j.jsonl")
+    assert len(got) == len(want) == 3
+    assert got[0] == pytest.approx(want[0], rel=1e-5)
+    np.testing.assert_allclose(got, want, rtol=2e-4)
+    with open(tmp_path / "t.jsonl") as f:
+        steps = [json.loads(line) for line in f]
+    # the fused flag marks the kernel, which only a CUDA run launches
+    assert [r["fused"] for r in steps if r["event"] == "step"] == [False] * 3
+
+
 def test_eval_exact_under_padding():
     """Held-out loss masks sampler wrap-padding: validate() equals a
     forward over exactly the real val rows."""
@@ -159,7 +189,7 @@ def test_max_steps_caps_run(tmp_path):
 
 
 SET = {"mesh_shape": (2,), "mesh_axes": ("data", "seq"),
-       "data_placement": "device", "attn": "blockwise", "quant": "int8",
+       "data_placement": "device", "attn": "blockwise",
        "plan": "auto", "audit": "record"}
 
 

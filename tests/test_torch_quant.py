@@ -105,9 +105,17 @@ def test_quant_dense_modes_match_reference():
 
 
 def test_int8_mode_names_the_unported_kernel():
-    with pytest.raises(NotImplementedError, match="_fused_quant_kernel"):
-        tq.make_dense(8, 8, quant="int8", device="cpu")
-    with pytest.raises(NotImplementedError, match="_fused_quant_kernel"):
-        tq.quant_matmul(torch.ones(2, 8), torch.ones(8, 4), "int8")
+    """The int8 mode's kernel is ported (tests/test_torch_pallas_quant.py):
+    the mode builds and runs; what it still refuses is a pre-quantized
+    kernel (the reference's ValueError: its fp weights are gone), and an
+    unknown mode."""
+    dense = tq.make_dense(8, 4, quant="int8", device="cpu")
+    assert dense.mode == "int8"
+    y = tq.quant_matmul(torch.ones(2, 8), torch.ones(8, 4), "int8")
+    assert torch.equal(y, torch.full((2, 4), 8.0))
+    q, s = tq.quantize_int8(torch.ones(8, 4), (0,))
+    dense.load_quantized(q, s)
+    with pytest.raises(ValueError, match="pre-quantized"):
+        dense(torch.ones(2, 8))
     with pytest.raises(ValueError, match="unknown quant"):
         tq.validate_quant("int4")

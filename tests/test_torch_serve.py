@@ -5,10 +5,13 @@ contracts re-proved inside the port.
 Across packages: the same mixed-length greedy requests through the JAX
 ``ServeEngine`` and the port's ``ServeEngine(device="cpu")`` give equal
 tokens for the slice's configuration (int8 pages, flash read, flash
-prefill), for the fp pool and for chunked prefill. Inside the port:
-paged greedy equals its contiguous ``generate``; pool accounting; the
-fragmentation pin; SLO shedding emits ``slo``; prefix caching is
-token-identical; the unported knobs raise and say so."""
+prefill), for the fp pool, for chunked prefill, for dynamic int8 weights
+(``quant="int8"``) and for speculative decoding. Inside the port: paged
+greedy equals its contiguous ``generate``, speculative or not; pool
+accounting; the fragmentation pin; SLO shedding emits ``slo``; prefix
+caching is token-identical; the request observatory's summary equals the
+reference tool's on the same records; the unported knobs raise and say
+so."""
 
 import itertools
 
@@ -65,6 +68,10 @@ CONFIGS = {
     "chunked_prefill": (False, dict(prefill_chunk=4)),
     "slice_chunked": (True, dict(kv_quant="int8", attn_read="flash",
                                  prefill_chunk=4)),
+    "int8_weights": (True, dict(quant="int8")),
+    "spec_k3": (False, dict(spec_k=3)),
+    "spec_k3_slice_int8": (True, dict(spec_k=3, kv_quant="int8",
+                                      attn_read="flash", quant="int8")),
 }
 
 
@@ -85,6 +92,8 @@ def test_greedy_tokens_equal_reference_engine(name):
         np.testing.assert_array_equal(ref[c.rid], c.tokens)
     if "chunked" in name:
         assert eng.chunk_ticks > 0
+    if "spec" in name:
+        assert eng.accepted_per_tick > 1.0
 
 
 def test_contiguous_generate_equals_reference():
@@ -314,17 +323,201 @@ def test_decode_bench_replays_a_trace_on_cpu(capsys):
     assert sv["no_prefix_cache"]["completed"] == 6
     assert sv["requests_per_tick"] >= sv["static"]["requests_per_tick"]
     assert sv["prefix_hit_rate"] > 0
-    assert "tail_attribution" not in sv
+    ta = sv["tail_attribution"]
+    assert ta["requests"] == 6 and ta["sum_check"]["ok"]
+    assert ta["coverage"] == pytest.approx(1.0, abs=1e-3)
+    assert set(ta["shares"]) == {"queue", "prefill", "decode", "residue"}
+
+
+def test_decode_bench_int8_spec_and_waterfalls_on_cpu(capsys):
+    import json
+
+    from tpu_dist_torch.tools import decode_bench
+
+    decode_bench.main(["--device", "cpu", "--vocab-size", "64", "--d-model",
+                       "64", "--num-layers", "2", "--num-heads", "4",
+                       "--precision", "fp32", "--trace", "5", "--max-out",
+                       "12", "--serve-quant", "int8", "--spec-k", "3",
+                       "--waterfalls", "2"])
+    out = capsys.readouterr()
+    sv = json.loads(out.out.strip().splitlines()[-1])["serving"]
+    assert sv["completed"] == 5 and sv["quant"] == "int8"
+    assert sv["spec_k"] == 3 and sv["accepted_per_tick"] > 1.0
+    assert sv["tail_attribution"]["sum_check"]["ok"]
+    assert "2 slowest request waterfall(s)" in out.err
+    assert out.err.count("    decode     |") >= 2
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(spec_k=2), "spec_k"),
     (dict(sp_prefill_threshold=8), "sp_prefill_threshold"),
-    (dict(quant="int8"), "_fused_quant_kernel"),
 ])
 def test_unported_knobs_raise_and_name_themselves(kw, match):
     with pytest.raises(NotImplementedError, match=match):
         ServeEngine(_lm(), ServeConfig(**kw), device="cpu")
+    with pytest.raises(NotImplementedError, match="mesh"):
+        ServeEngine(_lm(), ServeConfig(), mesh=object(), device="cpu")
+
+
+# ------------------------------------------- speculative decoding
+def _spec_refs(lm, prompts, steps, quant="none"):
+    return [generate(lm, p[None], s, use_cache=True, quant=quant)[0].numpy()
+            for p, s in zip(prompts, steps)]
+
+
+def test_spec_decode_greedy_equals_generate():
+    """Self-speculation with k=3 over mixed-length requests: every stream
+    is the non-speculative greedy decode, more than one token per
+    slot-tick, in fewer ticks than one token per tick would take."""
+    lm = _lm(seed=16)
+    prompts = [np.array([1, 9, 17], np.int32), np.array([5], np.int32)]
+    steps = [10, 12]
+    refs = _spec_refs(lm, prompts, steps)
+    eng = ServeEngine(lm, ServeConfig(max_slots=2, page_size=8,
+                                      num_pages=16, spec_k=3), device="cpu")
+    comps = eng.run([DecodeRequest(i, p, s)
+                     for i, (p, s) in enumerate(zip(prompts, steps))])
+    assert len(comps) == 2
+    for c in comps:
+        np.testing.assert_array_equal(refs[c.rid], c.tokens)
+    assert eng.accepted_per_tick > 1.0
+    assert eng.ticks < max(steps)
+    st = eng.stats()
+    assert st["spec_k"] == 3 and st["spec_emitted"] == sum(steps) - 2
+
+
+@pytest.mark.parametrize("quant", ["int8_wo", "int8"])
+def test_spec_decode_equals_quantized_generate(quant):
+    """The draft rides the base's quant mode; the verified stream equals
+    the quantized ``generate``."""
+    lm = _lm(seed=17)
+    prompt = np.array([2, 11, 23], np.int32)
+    ref = _spec_refs(lm, [prompt], [10], quant=quant)[0]
+    eng = ServeEngine(lm, ServeConfig(max_slots=1, page_size=8,
+                                      num_pages=16, quant=quant, spec_k=2),
+                      device="cpu")
+    comps = eng.run([DecodeRequest(0, prompt, 10)])
+    np.testing.assert_array_equal(ref, comps[0].tokens)
+    assert eng.accepted_per_tick > 1.0
+
+
+def test_spec_reject_storm_still_progresses():
+    """A wrong draft (same shape, other weights) rejects nearly every
+    proposal; the base's correction still lands every tick, so the output
+    is the non-speculative stream at >= 1 token per slot-tick."""
+    lm = _lm(seed=18)
+    prompt = np.array([1, 2, 3], np.int32)
+    ref = _spec_refs(lm, [prompt], [10])[0]
+    eng = ServeEngine(lm, ServeConfig(max_slots=1, page_size=8,
+                                      num_pages=16, spec_k=3),
+                      draft_model=_lm(seed=99), device="cpu")
+    comps = eng.run([DecodeRequest(0, prompt, 10)])
+    np.testing.assert_array_equal(ref, comps[0].tokens)
+    assert 1.0 <= eng.accepted_per_tick < 3.0
+
+
+def test_spec_with_a_smaller_draft_equals_generate():
+    """A separate, shallower draft with its own page arenas."""
+    lm = _lm(seed=22)
+    draft = tiny_lm(device="cpu", seed=23, vocab_size=V, num_layers=1,
+                    d_model=32, num_heads=2, max_len=L)
+    prompts = [np.array([4, 8], np.int32), np.arange(9, dtype=np.int32)]
+    refs = _spec_refs(lm, prompts, [9, 7])
+    eng = ServeEngine(lm, ServeConfig(max_slots=2, page_size=4,
+                                      num_pages=32, spec_k=2),
+                      draft_model=draft, device="cpu")
+    comps = eng.run([DecodeRequest(i, p, s) for i, (p, s)
+                     in enumerate(zip(prompts, [9, 7]))])
+    for c in comps:
+        np.testing.assert_array_equal(refs[c.rid], c.tokens)
+    assert eng.draft_pool.layers()[0].k.shape[-2:] == (2, 16)
+
+
+def test_spec_guards_reject_bad_configs():
+    lm = _lm(seed=19)
+    small = tiny_lm(device="cpu", vocab_size=32, num_layers=1, d_model=32,
+                    num_heads=2, max_len=L)
+    short = tiny_lm(device="cpu", vocab_size=V, num_layers=1, d_model=32,
+                    num_heads=2, max_len=L // 2)
+    with pytest.raises(ValueError, match="vocab"):
+        ServeEngine(lm, ServeConfig(spec_k=2), draft_model=small,
+                    device="cpu")
+    with pytest.raises(ValueError, match="max_len"):
+        ServeEngine(lm, ServeConfig(spec_k=2), draft_model=short,
+                    device="cpu")
+    with pytest.raises(ValueError, match="spec_k"):
+        ServeEngine(lm, ServeConfig(), draft_model=lm, device="cpu")
+    with pytest.raises(ValueError, match="temperature"):
+        ServeEngine(lm, ServeConfig(spec_k=2, temperature=0.5),
+                    device="cpu")
+
+
+def test_spec_and_prefix_cache_compose():
+    """Shared-prefix admissions (with a CoW fork in both pools) under
+    speculative ticks, monolithic and chunked: the streams are the
+    uncached, non-speculative ones."""
+    lm = _lm(seed=21)
+    prompt = ((np.arange(9, dtype=np.int32) * 7 + 1) % V).astype(np.int32)
+    ref = _spec_refs(lm, [prompt], [8])[0]
+    # chunked, one slot: the first prompt registers its pages on its final
+    # chunk, so the second admission can only hit once the first is in
+    for chunk, slots in ((0, 2), (4, 1)):
+        eng = ServeEngine(lm, ServeConfig(
+            max_slots=slots, page_size=4, num_pages=32, spec_k=2,
+            prefix_cache=True, prefill_chunk=chunk), device="cpu")
+        comps = eng.run([DecodeRequest(i, prompt, 8) for i in range(2)])
+        assert len(comps) == 2
+        for c in comps:
+            np.testing.assert_array_equal(ref, c.tokens)
+        assert eng.accepted_per_tick > 1.0
+        assert eng.pool.prefix_hits > 0 and eng.pool.cow_copies > 0
+
+
+def test_spec_spans_carry_drafted_counts():
+    recs = []
+    eng = ServeEngine(_lm(seed=24), ServeConfig(
+        max_slots=1, page_size=8, num_pages=16, spec_k=3,
+        trace_window_ticks=2), ledger=Ledger(None, sinks=(recs.append,)),
+        device="cpu")
+    eng.run([DecodeRequest(0, np.array([3, 4], np.int32), 9)])
+    dec = [r for r in recs if r["event"] == "span"
+           and r["name"] == "decode"]
+    assert sum(r["tokens"] for r in dec) == 8
+    assert sum(r["spec_drafted"] for r in dec) == 3 * eng.ticks
+    kv = [r for r in recs if r["event"] == "kv_cache"][-1]
+    assert kv["spec_emitted"] == 8 and kv["spec_slot_ticks"] == eng.ticks
+
+
+# ------------------------------------------- the request observatory
+def test_request_report_copy_equals_reference_tool():
+    """The same span records through ``tools/request_report.py`` and the
+    port's copy give equal summaries (with an SLO breach and a shed)."""
+    from tools import request_report as ref_report
+    from tpu_dist_torch.tools import request_report as port_report
+
+    recs = []
+    clock = itertools.count()
+    eng = ServeEngine(_lm(seed=12), ServeConfig(
+        max_slots=1, page_size=4, num_pages=8, queue_depth_max=3,
+        slo_queue_wait_s=0.5, slo_min_samples=1, spec_k=2,
+        trace_window_ticks=2),
+        ledger=Ledger(None, sinks=(recs.append,)),
+        now_fn=lambda: float(next(clock)), device="cpu")
+    for i in range(6):
+        eng.submit(DecodeRequest(i, np.array([1, 2, 3], np.int32), 5))
+    eng.run()
+    assert any(r["event"] == "slo" for r in recs)
+    port = port_report.requests_summary(recs)
+    assert port == ref_report.requests_summary(recs)
+    assert port["tail_attribution"]["sum_check"]["ok"]
+    assert port["sheds"] > 0 and port["slo_exemplars"]
+    traces = port_report.reqtrace.traces(recs)
+    slow = port_report.slowest_traces(traces, 2)
+    assert [t["trace_id"] for t in slow] == [
+        t["trace_id"] for t in ref_report.slowest_traces(
+            ref_report.reqtrace.traces(recs), 2)]
+    for t in slow:
+        assert port_report.waterfall_lines(t) == \
+            ref_report.waterfall_lines(t)
 
 
 def test_int8_wo_weights_serve_like_generate():

@@ -5,8 +5,8 @@ through a contiguous per-block KV cache (one prefill forward, then one
 token per tick); ``use_cache=False`` re-runs the whole buffer every tick.
 It is the single-request reference the serving engine is held to: greedy
 tokens through the paged pool equal the contiguous cache's
-(tests/test_torch_serve.py). :func:`_sample` and
-:func:`_quantize_for_decode` are shared with ``engine.serve``.
+(tests/test_torch_serve.py). :func:`_sample`, :func:`_quantize_for_decode`
+and :func:`prepare_draft` are shared with ``engine.serve``.
 
 Sampling draws from an explicit ``torch.Generator``; it cannot reproduce
 ``jax.random``'s stream, so only greedy decoding compares across the two
@@ -16,6 +16,7 @@ packages. Sharded decode (the reference's ``mesh=``) is not ported.
 from __future__ import annotations
 
 import copy
+import itertools
 import threading
 import time
 import weakref
@@ -24,8 +25,8 @@ from typing import Optional
 
 import torch
 
-from tpu_dist_torch.ops.quant import (params_are_wo_quantized, quantize_int8,
-                                      refuse_int8, validate_quant)
+from tpu_dist_torch.ops.quant import (QuantDense, params_are_wo_quantized,
+                                      quantize_int8, validate_quant)
 
 
 def _sample(nxt_logits, temperature: float,
@@ -65,21 +66,40 @@ def _refuse_wo_tree(effective_mode: str, model) -> None:
             "quant='int8_wo' for a pre-quantized model, or keep the fp one.")
 
 
+def _with_dense_mode(model, quant: str):
+    """A copy of ``model``'s module tree whose dense layers run ``quant``,
+    sharing every parameter and buffer with ``model`` (the reference's
+    ``model.clone(quant=...)`` over the same param tree): neither the
+    caller's model is changed nor a weight copied."""
+    shared = {id(t): t for t in itertools.chain(model.parameters(),
+                                                model.buffers())}
+    clone = copy.deepcopy(model, memo=shared)
+    for m in clone.modules():
+        if isinstance(m, QuantDense):
+            m.mode = quant
+    clone.quant = quant
+    return clone
+
+
 def _quantize_for_decode(model, quant: str):
-    """The model to decode ``quant`` with. ``int8_wo`` returns a copy whose
-    dense kernels are int8 with fp32 per-channel scales (weight bytes
-    halve against bf16); the copy is memoized in a small LRU keyed on the
-    model's identity and its parameters' in-place versions, holding only a
-    weakref to the model, so a serving process never re-quantizes a live
-    model and never pins a dead one. ``int8`` raises (its kernel is not
-    ported)."""
+    """The model to decode ``quant`` with. ``int8`` returns a view of the
+    model (shared parameters) whose dense layers run the fused int8 kernel.
+    ``int8_wo`` returns a copy whose dense kernels are int8 with fp32
+    per-channel scales (weight bytes halve against bf16); the copy is
+    memoized in a small LRU keyed on the model's identity and its
+    parameters' in-place versions, holding only a weakref to the model, so
+    a serving process never re-quantizes a live model and never pins a
+    dead one."""
     validate_quant(quant)
     if quant == "none":
         # the model's own mode decides what its layers may hold
         _refuse_wo_tree(getattr(model, "quant", "none"), model)
         return model
+    _refuse_wo_tree(quant, model)
     if quant == "int8":
-        refuse_int8("decode")
+        if getattr(model, "quant", "none") == "int8":
+            return model
+        return _with_dense_mode(model, quant)
     if params_are_wo_quantized(model):
         return model
     key = (id(model), quant,
@@ -117,6 +137,26 @@ _wo_memo: "OrderedDict" = OrderedDict()
 _wo_memo_lock = threading.RLock()
 
 
+def prepare_draft(base_model, draft_model, quant: str):
+    """Validate a speculative-decoding draft against its base and give it
+    the base's quant mode (``engine.serve`` calls this once at engine
+    construction). The draft proposes token ids the base verifies, so the
+    vocabularies must be one space; it must sit at every position the base
+    serves. Depth, width and heads are free to differ."""
+    if getattr(draft_model, "vocab_size", None) != base_model.vocab_size:
+        raise ValueError(
+            f"draft vocab_size={getattr(draft_model, 'vocab_size', None)} "
+            f"!= base vocab_size={base_model.vocab_size}: speculative "
+            "verification compares token ids, so the vocabularies must "
+            "be the same space")
+    if draft_model.max_len < base_model.max_len:
+        raise ValueError(
+            f"draft max_len={draft_model.max_len} < base "
+            f"max_len={base_model.max_len}: the draft must be able to "
+            "sit at every position the base serves")
+    return _quantize_for_decode(draft_model, quant)
+
+
 def _new_caches(model, b: int, total: int):
     head_dim = model.d_model // model.num_heads
     shape = (b, total, model.num_heads, head_dim)
@@ -132,7 +172,8 @@ def generate(model, prompt, steps: int, temperature: float = 0.0,
     """Continue ``prompt`` (B, P) by ``steps`` tokens on the model's
     device; returns the (B, P + steps) int32 buffer. Temperature 0 is
     greedy; above 0, draws come from ``generator`` (on the model's
-    device). ``quant`` decodes through quantized matmuls (``int8_wo``).
+    device). ``quant`` decodes through quantized matmuls (``int8`` or
+    ``int8_wo``).
     ``ledger`` records the call as one ``decode`` event."""
     prompt = torch.as_tensor(prompt, dtype=torch.int32).to(model.device)
     b, p = prompt.shape

@@ -58,7 +58,7 @@ UNPORTED = {
     "loss_chunk": (0,), "grad_accum_steps": (1,),
     "steps_per_dispatch": (1,), "data_placement": ("auto", "host"),
     "checkpoint_dir": ("",), "resume": ("",), "pretrained": ("",),
-    "attn": ("full", "flash"), "quant": ("none", "int8_wo"),
+    "attn": ("full", "flash"),
     "plan": ("", "none"), "audit": ("none",), "faults": ("",),
     "max_restarts": (0,), "metrics_port": (0,), "profile_dir": ("",),
     "telemetry_csv": ("",), "skew_every": (0,),
@@ -105,6 +105,10 @@ class LMTrainer:
         self.device = resolve_device(device)
         self.policy = make_policy(cfg.precision)
         self.mode = "dp"
+        # whether the int8 matmuls ride the fused kernel (csrc/fused_quant.cu;
+        # on the CPU its plain version runs): the step records' ``fused``
+        # flag, as in the reference
+        self._fused_quant = cfg.quant == "int8" and self.device.type == "cuda"
 
         # ---- corpus ----
         seed = cfg.seed if cfg.seed is not None else 0
@@ -247,6 +251,7 @@ class LMTrainer:
                 unit="tok/s", data_s=info["data_s"],
                 dispatch_s=info["dispatch_s"], device_s=share, comm_s=None,
                 mfu=mfu, steps_in_dispatch=1, warm=info["warm"],
+                fused=self._fused_quant,
                 grad_norm=m["grad_norm"],
                 nonfinite_count=m["nonfinite_count"],
                 update_norm=m["update_norm"], **mem)

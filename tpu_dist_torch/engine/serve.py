@@ -17,6 +17,16 @@ and refilled the same tick. The pieces, as in the reference:
   through the paged decode kernel;
 * chunked prefill (``prefill_chunk``): long prompts run one fixed-size
   chunk per scheduler iteration, interleaved with the decode tick;
+* speculative decoding (``spec_k > 0``): a draft model (the base itself by
+  default, or ``draft_model``) proposes ``spec_k`` greedy tokens per slot
+  over its own page arenas (a second pool with the same page geometry and
+  block tables, read exactly), then one (k+1)-wide base verify writes and
+  reads every position at its own causal horizon; the longest agreeing
+  prefix plus the base's correction is emitted, so the output equals
+  non-speculative greedy decoding for any draft. The verify reads pages
+  through the exact path (the paged decode kernel is one query per row);
+* ``quant="int8"``: every dense layer through the fused int8 kernel
+  (``ops.pallas_quant``);
 * copy-on-write prefix caching (``prefix_cache``);
 * SLO-aware admission: queue-depth and free-page watermarks at submit,
   and an EMA of queue wait that sheds new work while it breaches the
@@ -27,9 +37,7 @@ and refilled the same tick. The pieces, as in the reference:
   names and fields.
 
 Not ported, and refused with ``NotImplementedError`` naming the knob:
-speculative decoding (``spec_k > 0``, ``draft_model``), sp-sharded
-serving (``mesh=``, ``sp_prefill_threshold > 0``), dynamic int8 weights
-(``quant="int8"``, whose TPU kernel is ``_fused_quant_kernel``) and MoE
+sp-sharded serving (``mesh=``, ``sp_prefill_threshold > 0``) and MoE
 models (refused by the reference too). The reference's compile-audit
 hooks (``plan/compile.py``) audit JAX programs and have no counterpart.
 
@@ -51,10 +59,11 @@ import numpy as np
 import torch
 
 from tpu_dist_torch.device import resolve_device
-from tpu_dist_torch.engine.generate import _quantize_for_decode, _sample
+from tpu_dist_torch.engine.generate import (_quantize_for_decode, _sample,
+                                            prepare_draft)
 from tpu_dist_torch.engine.kv_cache import PagedKVPool, PrefixMatch
 from tpu_dist_torch.obs.reqtrace import RequestTracer
-from tpu_dist_torch.ops.quant import refuse_int8
+from tpu_dist_torch.ops.paged_attention import cow_fork_pages
 
 
 @dataclass
@@ -114,7 +123,7 @@ class ServeConfig:
     slo_alpha: float = 0.5
     slo_min_samples: int = 2
     kv_event_every: int = 0      # ticks between kv_cache events (0 = final)
-    spec_k: int = 0              # speculative decoding: not ported (raises)
+    spec_k: int = 0              # draft tokens per tick (0 = plain decode)
     prefix_cache: bool = False   # CoW prefix sharing across requests
     prefill_chunk: int = 0       # chunked prefill size (0 = monolithic)
     sp_prefill_threshold: int = 0   # sp prefill: not ported (raises)
@@ -147,6 +156,7 @@ class _Slot:
     win_start_ts: float = 0.0
     win_ticks: int = 0
     win_tokens: int = 0
+    win_drafted: int = 0
 
 
 def _default_buckets(max_len: int) -> Tuple[int, ...]:
@@ -180,16 +190,10 @@ class ServeEngine:
             raise NotImplementedError(
                 "paged serving covers the dense TransformerLM family; the "
                 "MoE capacity-factor dispatch needs its own scheduling story")
-        if cfg.spec_k > 0 or draft_model is not None:
-            raise NotImplementedError(
-                "speculative decoding (ServeConfig.spec_k / draft_model) is "
-                "not ported yet")
         if mesh is not None or cfg.sp_prefill_threshold > 0:
             raise NotImplementedError(
                 "sp-sharded serving (ServeEngine(mesh=...) / "
                 "ServeConfig.sp_prefill_threshold) is not ported yet")
-        if cfg.quant == "int8":
-            refuse_int8("ServeConfig.quant")
         if model.device != self.device:
             raise ValueError(f"model lives on {model.device}, engine device "
                              f"is {self.device}: build the model there")
@@ -202,6 +206,35 @@ class ServeEngine:
             model.num_heads, head_dim, dtype=model.dtype,
             kv_quant=cfg.kv_quant, read=cfg.attn_read, device=self.device)
         self.max_pages_per_seq = self.pool.pages_needed(self.max_len)
+        # speculative decoding: the draft's own arenas, same page geometry
+        # and indices, so it rides the base's block tables and allocator
+        self.draft_model = self.draft_pool = None
+        if cfg.spec_k > 0:
+            if cfg.temperature > 0.0:
+                raise ValueError(
+                    "speculative decoding serves greedy verification only "
+                    "(spec_k > 0 needs temperature == 0): sampled "
+                    "acceptance is a different estimator with different "
+                    "output distribution guarantees")
+            if draft_model is None:
+                self.draft_model = self.model     # self-speculation
+            else:
+                if draft_model.device != self.device:
+                    raise ValueError(f"draft model lives on "
+                                     f"{draft_model.device}, engine device "
+                                     f"is {self.device}")
+                self.draft_model = prepare_draft(self.model, draft_model,
+                                                 cfg.quant)
+            dm = self.draft_model
+            # the draft reads exactly, as in the reference: the paged
+            # decode kernel serves the base's plain ticks
+            self.draft_pool = PagedKVPool(
+                dm.num_layers, cfg.num_pages, cfg.page_size, dm.num_heads,
+                dm.d_model // dm.num_heads, dtype=dm.dtype,
+                kv_quant=cfg.kv_quant, read="exact", device=self.device)
+        elif draft_model is not None:
+            raise ValueError("draft_model given but cfg.spec_k == 0: set "
+                             "spec_k to the draft window size")
         # max_len always terminates the bucket ladder
         self.buckets = tuple(sorted({self.max_len, *(
             b for b in (cfg.prefill_buckets or _default_buckets(self.max_len))
@@ -222,6 +255,10 @@ class ServeEngine:
         self.prefills = 0
         self.chunk_ticks = 0
         self.prefill_token_work = 0
+        # speculative accounting: tokens emitted per active-slot tick
+        # (accepted_per_tick = spec_emitted / spec_slot_ticks)
+        self.spec_emitted = 0
+        self.spec_slot_ticks = 0
         # host wall seconds in page programs, each up to its result's sync
         # (prefill and chunks incl. the first-token read; ticks incl. the
         # per-tick token read): the split of where a run's time went
@@ -454,6 +491,73 @@ class ServeEngine:
                                paged=paged)
         return logits[:, min(max(length - 1 - start, 0), chunk - 1)]
 
+    def _draft_prefill_program(self, bt, length, shared_len, padded):
+        """The draft's prompt pass: writes the draft arenas' prompt rows
+        through the same block table the base prefill used (the pools share
+        page indices) and drops the logits -- the first emitted token is
+        the base's."""
+        bucket = padded.shape[1]
+        valid = (torch.arange(bucket, device=self.device)[None, :]
+                 >= shared_len)
+        paged = {"layers": self.draft_pool.layers(),
+                 "block_tables": self._tensor(bt[None]),
+                 "positions": self._tensor([0]),
+                 "lengths": self._tensor([length]), "valid": valid}
+        self.draft_model(self._tensor(padded), paged=paged,
+                         paged_prefill=True)
+
+    def _spec_tick_program(self, bts, tokens, positions, caps):
+        """The speculative tick: ``k`` greedy draft steps over the draft
+        arenas, then one (k+1)-wide base verify over the main arenas, and
+        the accept/reject on the device. Returns (emitted (B, k), emit_n
+        (B,)).
+
+        Greedy emission rule (the reference's): with drafts d_1..d_k and
+        base argmaxes g_0..g_k, ``a`` is the longest prefix with d_i ==
+        g_{i-1}; emit d_1..d_a and the correction g_a when a < k (a + 1
+        tokens), exactly d_1..d_k when a == k (no bonus token: its KV row
+        is not in the draft arenas yet). Every emitted token is the base's
+        greedy continuation, for any draft. Rows written past the accepted
+        frontier stay invisible (per-row causal horizon) and the next tick
+        overwrites them before any read, so a rejection needs no rollback.
+        The ``caps`` write mask sends rows past a request's allocation to
+        the trash page (a draft window can overrun a nearly done request).
+        """
+        k = self.cfg.spec_k
+        bt = self._tensor(bts)
+        tok = self._tensor(tokens)
+        pos = self._tensor(positions)
+        cap = self._tensor(caps)
+        layers = self.draft_pool.layers()
+        drafts = []
+        t, p = tok, pos
+        for _ in range(k):
+            paged = {"layers": layers, "block_tables": bt, "positions": p,
+                     "lengths": p + 1, "valid": (p < cap)[:, None]}
+            logits, _ = self.draft_model(t[:, None], pos_offset=p,
+                                         paged=paged)
+            t = torch.argmax(logits[:, 0], dim=-1).to(torch.int32)
+            drafts.append(t)
+            p = p + 1
+        drafts = torch.stack(drafts, dim=1)                       # (B, k)
+        # one multi-position verify: row b carries [t0, d1..dk] at
+        # positions pos..pos+k, each read at its own causal horizon
+        ver = torch.cat([tok[:, None], drafts], dim=1)            # (B, k+1)
+        write_pos = pos[:, None] + torch.arange(k + 1, device=self.device,
+                                                dtype=torch.int32)[None, :]
+        paged = {"layers": self.pool.layers(), "block_tables": bt,
+                 "positions": pos, "lengths": pos + k + 1,
+                 "valid": write_pos < cap[:, None]}
+        logits, _ = self.model(ver, pos_offset=pos, paged=paged)
+        greedy = torch.argmax(logits, dim=-1).to(torch.int32)     # (B, k+1)
+        matches = (drafts == greedy[:, :k]).to(torch.int32)
+        a = torch.cumprod(matches, dim=1).sum(dim=1)              # (B,)
+        emit_n = torch.clamp(a + 1, max=k)
+        corr = torch.gather(greedy, 1, a[:, None])                # (B, 1)
+        idx = torch.arange(k, device=self.device)[None, :]
+        emitted = torch.where(idx < a[:, None], drafts, corr)     # (B, k)
+        return emitted, emit_n
+
     def _sample(self, logits):
         c = self.cfg
         return _sample(logits, c.temperature, self._gen, c.top_k, c.top_p)
@@ -568,7 +672,11 @@ class ServeEngine:
         padded = np.zeros((1, bucket), np.int32)
         padded[0, :p] = prompt
         t0 = time.perf_counter()
-        tok = int(self._prefill_program(bt, p, shared_len, padded).item())
+        tok = self._prefill_program(bt, p, shared_len, padded)
+        if self.draft_pool is not None:
+            # shared rows were written by the prefix owner's draft prefill
+            self._draft_prefill_program(bt, p, shared_len, padded)
+        tok = int(tok.item())
         self.prefill_s += time.perf_counter() - t0
         self.prefill_token_work += bucket
         if self.cfg.prefix_cache:
@@ -650,7 +758,15 @@ class ServeEngine:
             return
         # final chunk: the prompt is resident -- sample the first token
         s.chunk_next = -1
-        tok = int(self._sample(last)[0].item())
+        tok = self._sample(last)[0]
+        if self.draft_pool is not None:
+            # the draft's prompt pass stays monolithic, as in the reference
+            bucket = next(b for b in self.buckets if b >= p)
+            padded = np.zeros((1, bucket), np.int32)
+            padded[0, :p] = s.buf[:p]
+            self._draft_prefill_program(s.block_table, p, s.shared_len,
+                                        padded)
+        tok = int(tok.item())
         self.prefill_s += time.perf_counter() - t0
         if cfg.prefix_cache:
             bt_pages = [int(x) for x in s.block_table
@@ -685,12 +801,15 @@ class ServeEngine:
 
     def _resolve_cow(self, active) -> None:
         """Fork every pending shared frontier page before this tick's
-        writes; the forking sequence swaps its block-table entry."""
+        writes (in both pools when speculating: their arenas mirror page
+        indices); the forking sequence swaps its block-table entry."""
         for _i, s in active:
             if s.cow_pending is None:
                 continue
             bt_slot, src, dst = s.cow_pending
             self.pool.fork_page(src, dst, rid=s.req.rid)
+            if self.draft_pool is not None:
+                cow_fork_pages(self.draft_pool.layers(), [src], [dst])
             s.block_table[bt_slot] = dst
             s.pages.remove(src)
             s.cow_pending = None
@@ -702,6 +821,8 @@ class ServeEngine:
         if not active:
             return
         self._resolve_cow(active)
+        if self.cfg.spec_k > 0:
+            return self._tick_spec(active)
         n = len(self.slots)
         tokens = np.zeros((n,), np.int32)
         positions = np.zeros((n,), np.int32)
@@ -725,18 +846,63 @@ class ServeEngine:
                     or tok == self.cfg.eos_id):
                 s.done = True
                 s.finish_ts = now
-            self._note_decode(s, now)
+            self._note_decode(s, now, tokens=1)
         self.ticks += 1
         self._occupancy_sum += len(active) / max(len(self.slots), 1)
 
-    def _note_decode(self, s: _Slot, now: float) -> None:
+    def _tick_spec(self, active) -> None:
+        """One speculative iteration: k draft proposals and one base verify
+        per active slot (:meth:`_spec_tick_program`), then host-side
+        emission with each slot's budget and eos truncation -- the same one
+        sync per tick as the plain tick, now worth up to k tokens."""
+        n = len(self.slots)
+        k = self.cfg.spec_k
+        tokens = np.zeros((n,), np.int32)
+        positions = np.zeros((n,), np.int32)
+        caps = np.zeros((n,), np.int32)
+        bts = np.full((n, self.max_pages_per_seq), self.pool.num_pages,
+                      np.int32)
+        for i, s in active:
+            tokens[i] = s.buf[s.prompt_len + s.generated - 1]
+            positions[i] = s.position
+            caps[i] = s.prompt_len + s.req.max_new_tokens
+            bts[i] = s.block_table
+        t0 = time.perf_counter()
+        emitted, emit_n = self._spec_tick_program(bts, tokens, positions,
+                                                  caps)
+        emitted = emitted.cpu().numpy()
+        emit_n = emit_n.cpu().numpy()
+        self.tick_s += time.perf_counter() - t0
+        now = self._now()
+        for i, s in active:
+            took = 0
+            for j in range(int(emit_n[i])):
+                tok = int(emitted[i, j])
+                s.buf[s.prompt_len + s.generated] = tok
+                s.generated += 1
+                s.position += 1
+                self.spec_emitted += 1
+                took += 1
+                if (s.generated >= s.req.max_new_tokens
+                        or tok == self.cfg.eos_id):
+                    s.done = True
+                    s.finish_ts = now
+                    break
+            self.spec_slot_ticks += 1
+            self._note_decode(s, now, tokens=took, drafted=k)
+        self.ticks += 1
+        self._occupancy_sum += len(active) / max(len(self.slots), 1)
+
+    def _note_decode(self, s: _Slot, now: float, tokens: int,
+                     drafted: int = 0) -> None:
         """Advance the slot's decode window; close it into a ``decode``
         span every ``trace_window_ticks`` ticks and at finish (windows
         share boundaries, so they tile first token -> finish)."""
         if self.tracer is None:
             return
         s.win_ticks += 1
-        s.win_tokens += 1
+        s.win_tokens += tokens
+        s.win_drafted += drafted
         if not s.done and s.win_ticks < max(self.cfg.trace_window_ticks, 1):
             return
         tr = self.tracer
@@ -745,9 +911,9 @@ class ServeEngine:
                        name="decode", rid=s.req.rid,
                        start=round(s.win_start_ts, 6), end=round(now, 6),
                        ticks=s.win_ticks, tokens=s.win_tokens,
-                       spec_drafted=0, **tr.attrs())
+                       spec_drafted=s.win_drafted, **tr.attrs())
         s.win_start_ts = now
-        s.win_ticks = s.win_tokens = 0
+        s.win_ticks = s.win_tokens = s.win_drafted = 0
 
     def _emit_kv_cache(self) -> None:
         if self.ledger is None:
@@ -761,6 +927,8 @@ class ServeEngine:
                          shared_pages=st["shared_pages"],
                          cow_copies=st["cow_copies"],
                          prefix_hits=st["prefix_hits"],
+                         spec_emitted=self.spec_emitted,
+                         spec_slot_ticks=self.spec_slot_ticks,
                          sharded_devices=st["sharded_devices"],
                          chunks_pending=self.chunks_pending,
                          chunk_ticks=self.chunk_ticks,
@@ -771,6 +939,14 @@ class ServeEngine:
     def occupancy(self) -> float:
         """Mean active-slot share across decode ticks."""
         return self._occupancy_sum / self.ticks if self.ticks else 0.0
+
+    @property
+    def accepted_per_tick(self) -> Optional[float]:
+        """Mean tokens emitted per active-slot tick under speculation
+        (None for plain decode, where it is 1.0 by construction)."""
+        if not self.spec_slot_ticks:
+            return None
+        return self.spec_emitted / self.spec_slot_ticks
 
     @property
     def chunks_pending(self) -> int:
@@ -791,6 +967,7 @@ class ServeEngine:
         return self.shared_prompt_pages / self.prompt_pages
 
     def stats(self) -> dict:
+        apt = self.accepted_per_tick
         phr = self.prefix_hit_rate
         return {"ticks": self.ticks, "completed": self.completed,
                 "rejected": self.rejected, "prefills": self.prefills,
@@ -800,6 +977,11 @@ class ServeEngine:
                 "prefill_s": round(self.prefill_s, 6),
                 "tick_s": round(self.tick_s, 6),
                 "occupancy": round(self.occupancy, 6),
+                "spec_k": self.cfg.spec_k,
+                "spec_emitted": self.spec_emitted,
+                "spec_slot_ticks": self.spec_slot_ticks,
+                "accepted_per_tick": (None if apt is None
+                                      else round(apt, 6)),
                 "prompt_pages": self.prompt_pages,
                 "shared_prompt_pages": self.shared_prompt_pages,
                 "prefix_hit_rate": (None if phr is None

@@ -31,7 +31,8 @@ CSRC = os.path.join(PKG_DIR, "csrc")
 SOURCES = {"flash_fwd": "flash_fwd.cu", "paged_decode": "paged_decode.cu",
            "flash_bwd_dq": "flash_bwd_dq.cu",
            "flash_bwd_dkv": "flash_bwd_dkv.cu", "adamw": "adamw.cu",
-           "sgd": "sgd.cu"}
+           "sgd": "sgd.cu", "fused_quant": "fused_quant.cu",
+           "flash_fwd_int8kv": "flash_fwd_int8kv.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -315,3 +315,101 @@ def flash_attention_fn(block_q: int = 1024, block_k: int | None = None):
                              kv_offset=kv_offset)[0]
 
     return attn
+
+
+# ---- forward over pre-quantized int8 K/V ----------------------------------
+
+def int8kv_flash_plain(q, kv, causal: bool = True, q_offset: int = 0,
+                       kv_offset: int = 0):
+    """The int8-K/V kernel's function in plain PyTorch: K/V dequantized to
+    fp32 (``k * ks``, ``v * vs``), then :func:`flash_forward_plain`'s fp32
+    masked softmax with the offsets; output in q's dtype."""
+    kq, ks, vq, vs = kv
+    kf = kq.float() * ks[..., None]
+    vf = vq.float() * vs[..., None]
+    out, _ = flash_forward_plain(q.float(), kf, vf, causal, q_offset,
+                                 kv_offset)
+    return out.to(q.dtype)
+
+
+def _check_int8kv(q, kq, ks, vq, vs):
+    dev = q.device
+    if not (q.is_cuda and all(t.device == dev for t in (kq, ks, vq, vs))):
+        raise ValueError("flash int8-KV kernel: q and the K/V pack must be "
+                         "on one CUDA device")
+    if q.dtype not in kernels.DTYPE_CODE:
+        raise TypeError(f"flash int8-KV kernel: q float32 or bfloat16, got "
+                        f"{q.dtype}")
+    if kq.dtype != torch.int8 or vq.dtype != torch.int8 \
+            or ks.dtype != torch.float32 or vs.dtype != torch.float32:
+        raise TypeError("flash int8-KV kernel: int8 K/V with float32 scales")
+    if q.dim() != 4 or kq.dim() != 4:
+        raise ValueError(f"flash int8-KV kernel: q (B, Lq, H, D) and K/V "
+                         f"(B, Lk, H, D) expected, got {tuple(q.shape)}, "
+                         f"{tuple(kq.shape)}")
+    b, lq, h, d = q.shape
+    lk = kq.shape[1]
+    if kq.shape != (b, lk, h, d) or vq.shape != kq.shape \
+            or ks.shape != (b, lk, h) or vs.shape != ks.shape:
+        raise ValueError(f"flash int8-KV kernel: shapes q {tuple(q.shape)}, "
+                         f"k {tuple(kq.shape)}, scale {tuple(ks.shape)} do "
+                         "not agree")
+    if d not in kernels.HEAD_DIMS:
+        raise ValueError(f"flash int8-KV kernel: head_dim {d} not in "
+                         f"{kernels.HEAD_DIMS}")
+    if min(b, lq, lk, h) < 1:
+        raise ValueError("flash int8-KV kernel: empty q or K/V")
+    if not all(t.is_contiguous() for t in (q, kq, ks, vq, vs)):
+        raise ValueError("flash int8-KV kernel: inputs must be contiguous")
+
+
+_INT8KV_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+                + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+
+
+def _launch_int8kv(fn, q, kv, causal, q_offset, kv_offset, stream):
+    """Call the C entry ``fn`` (``tdt_flash_fwd_int8kv``) on checked
+    tensors: allocate the output, launch on ``stream``, raise on a launch
+    error."""
+    kq, ks, vq, vs = kv
+    b, lq, h, d = q.shape
+    out = torch.empty_like(q)
+    err = fn(q.data_ptr(), kq.data_ptr(), ks.data_ptr(), vq.data_ptr(),
+             vs.data_ptr(), out.data_ptr(), b, h, lq, kq.shape[1], d,
+             int(bool(causal)), int(q_offset), int(kv_offset),
+             1.0 / math.sqrt(d), kernels.DTYPE_CODE[q.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"flash_fwd_int8kv kernel launch failed "
+                           f"(cudaError {err})")
+    return out
+
+
+def int8kv_flash_cuda(q, kv, causal: bool = True, q_offset: int = 0,
+                      kv_offset: int = 0):
+    """Launch ``csrc/flash_fwd_int8kv.cu`` on the current stream."""
+    _check_int8kv(q, *kv)
+    fn = kernels.function("flash_fwd_int8kv", "tdt_flash_fwd_int8kv",
+                          _INT8KV_ARGS)
+    with torch.cuda.device(q.device):
+        out = _launch_int8kv(fn, q, kv, causal, q_offset, kv_offset,
+                             torch.cuda.current_stream(q.device).cuda_stream)
+    kernels.LAUNCHES["flash_fwd_int8kv"] += 1
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def int8kv_flash_attention_fn(block_q: int = 1024, block_k: int | None = None):
+    """Returns ``attn(q, kv, *, causal=True, q_offset=0, kv_offset=0)`` over
+    a pre-quantized K/V pack ``kv = quantize_kv(k, v)`` (int8 values and
+    per-(b, l, h) fp32 scales): the port of the reference's int8-KV flash
+    forward. Forward only. The kernel ``csrc/flash_fwd_int8kv.cu`` for CUDA
+    tensors, :func:`int8kv_flash_plain` for CPU tensors. ``block_q`` /
+    ``block_k`` are the TPU kernel's tile knobs; the Hopper kernel does not
+    read them (fixed 64 x 64 tiles, ragged edges masked)."""
+
+    def attn(q, kv, *, causal: bool = True, q_offset=0, kv_offset=0):
+        if q.device.type == "cpu":
+            return int8kv_flash_plain(q, kv, causal, q_offset, kv_offset)
+        return int8kv_flash_cuda(q, kv, causal, q_offset, kv_offset)
+
+    return attn

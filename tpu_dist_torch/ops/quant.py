@@ -11,9 +11,10 @@ Modes of the ``quant`` knob:
 * ``int8_wo`` -- weight-only: weights fake-quantize, or live as int8 with
   fp32 per-output-channel scales (:func:`wo_quantize_params` trees and
   :meth:`QuantDense.load_quantized`) and dequantize at each call;
-* ``int8``    -- dynamic activation+weight int8. On the TPU it rides the
-  fused Pallas kernel ``ops/pallas_quant.py:_fused_quant_kernel``; its
-  Hopper kernel is not ported yet, so this mode raises.
+* ``int8``    -- dynamic activation+weight int8 through
+  ``ops.pallas_quant.fused_quant_matmul``: the Hopper kernel
+  ``csrc/fused_quant.cu`` for CUDA tensors, its plain version for CPU
+  tensors, with a straight-through backward.
 
 Dense kernels keep flax's ``(in, out)`` layout (``y = x @ kernel``), so a
 flax param tree loads without transposes and per-channel scales keep the
@@ -32,8 +33,6 @@ QUANT_MODES = ("none", "int8", "int8_wo")
 _INT8_MAX = 127.0
 _EPS = 1e-8  # floor for all-zero channels: keeps scale finite, q = 0
 
-FUSED_QUANT_KERNEL = "ops/pallas_quant.py:_fused_quant_kernel"
-
 
 def validate_quant(mode: str) -> str:
     if mode not in QUANT_MODES:
@@ -42,11 +41,22 @@ def validate_quant(mode: str) -> str:
     return mode
 
 
-def refuse_int8(where: str) -> None:
-    raise NotImplementedError(
-        f"{where}: quant='int8' (dynamic activation int8) runs on the TPU "
-        f"through the Pallas kernel {FUSED_QUANT_KERNEL}, whose Hopper "
-        "kernel is not ported yet; use quant='none' or 'int8_wo'")
+_DIVISORS: dict = {}
+
+
+def _int8_max_on(device: torch.device) -> torch.Tensor:
+    """127 as a 0-d float32 tensor on ``device``, made once per device. On
+    CUDA, torch divides by a Python scalar (or a 0-d CPU tensor) as a
+    multiply by its reciprocal, one rounding away from the reference's (and
+    the kernels') IEEE division; a 0-d tensor on the same device is divided
+    by truly, with no fill per call."""
+    d = _DIVISORS.get(device)
+    if d is None:
+        # a normal tensor even when first asked for under inference_mode:
+        # autograd saves the divisor where the dividend needs a gradient
+        with torch.inference_mode(False):
+            d = _DIVISORS[device] = torch.tensor(_INT8_MAX, device=device)
+    return d
 
 
 def quantize_int8(x: torch.Tensor, reduce_dims) -> tuple:
@@ -55,7 +65,7 @@ def quantize_int8(x: torch.Tensor, reduce_dims) -> tuple:
     (q int8, scale fp32); ``q * scale`` dequantizes."""
     xf = x.float()
     amax = xf.abs().amax(dim=tuple(reduce_dims), keepdim=True)
-    scale = torch.clamp(amax, min=_EPS) / _INT8_MAX
+    scale = torch.clamp(amax, min=_EPS) / _int8_max_on(amax.device)
     q = torch.clamp(torch.round(xf / scale), -_INT8_MAX, _INT8_MAX)
     return q.to(torch.int8), scale
 
@@ -77,7 +87,9 @@ def quant_matmul(x: torch.Tensor, w: torch.Tensor, mode: str) -> torch.Tensor:
     """The mode dispatch of a (..., D) x (D, F) matmul; both operands are
     already in the compute dtype."""
     if mode == "int8":
-        refuse_int8("quant_matmul")
+        # local import: ops.pallas_quant imports quantize_int8 from here
+        from tpu_dist_torch.ops.pallas_quant import fused_quant_matmul
+        return fused_quant_matmul(x, w)
     if mode == "int8_wo":
         return x @ wo_fake_quant(w)
     validate_quant(mode)
@@ -107,8 +119,6 @@ class QuantDense(nn.Module):
                  param_dtype=None):
         super().__init__()
         validate_quant(mode)
-        if mode == "int8":
-            refuse_int8("QuantDense")
         self.in_features, self.features = in_features, features
         self.mode = mode
         self.dtype = dtype
@@ -157,6 +167,16 @@ class QuantDense(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.dtype)
         if self.prequantized:
+            if self.mode == "int8":
+                # a wo-quantized layer has lost its fp weights: the dynamic
+                # int8 product cannot be built from it (the reference's
+                # refusal, not a silent weight-only fallback)
+                raise ValueError(
+                    "layer holds a pre-quantized int8 kernel "
+                    "(kernel_scale, wo_quantize_params) but mode='int8' was "
+                    "requested; pre-quantized kernels only support the "
+                    "weight-only path -- use quant='int8_wo', or keep the "
+                    "fp weights for dynamic int8")
             y = x @ dequantize(self.kernel, self.kernel_scale, self.dtype)
         else:
             y = quant_matmul(x, self.kernel.to(self.dtype), self.mode)

@@ -87,6 +87,15 @@ inline __nv_bfloat16 __float2bfloat16(float f) {
   u += 0x7fff + ((u >> 16) & 1);  // round to nearest even
   return {(uint16_t)(u >> 16)};
 }
+inline __nv_bfloat16 __float2bfloat16_rn(float f) {
+  return __float2bfloat16(f);
+}
+inline float __int2float_rn(int x) { return (float)x; }
+inline int __dp4a(int a, int b, int c) {  // four signed int8 products
+  for (int i = 0; i < 4; ++i)
+    c += (int)(int8_t)(a >> (8 * i)) * (int)(int8_t)(b >> (8 * i));
+  return c;
+}
 struct char4 { int8_t x, y, z, w; };
 struct char2 { int8_t x, y; };
 inline void emu_launch(dim3 grid, dim3 block, size_t smem,

@@ -7,16 +7,21 @@ continuous-batching ``ServeEngine``, and the same trace replays through
 static batching (drain refill) at equal slot capacity. The last stdout
 line is one JSON object whose ``serving`` block has the reference's keys
 (requests/s and tokens/s on the wall clock, requests per tick, TTFT and
-per-output-token latency p50/p99, occupancy, the static baseline, and
-with ``--prefix-tenants`` the cache-off baseline), plus the device it ran
-on. ``tail_attribution`` and ``--waterfalls`` are not ported yet.
+per-output-token latency p50/p99, occupancy, ``accepted_per_tick``, the
+static baseline, with ``--prefix-tenants`` the cache-off baseline, and the
+``tail_attribution`` block of the request observatory over the continuous
+replay's spans), plus the device it ran on. ``--waterfalls N`` prints the
+N slowest requests' span trees to stderr.
 
 ``--attn flash`` serves with the flash prefill kernel, ``--kv-quant int8
---attn-read flash`` decodes through the int8-KV paged decode kernel.
-A warm replay (discarded) runs first. Usage::
+--attn-read flash`` decodes through the int8-KV paged decode kernel,
+``--serve-quant int8`` runs every dense layer through the fused int8
+kernel, ``--spec-k K`` decodes speculatively (self-speculation: the base
+drafts for itself). A warm replay (discarded) runs first. Usage::
 
     python -m tpu_dist_torch.tools.decode_bench --trace 64 \\
-        --kv-quant int8 --attn-read flash --attn flash
+        --kv-quant int8 --attn-read flash --attn flash \\
+        --serve-quant int8 --spec-k 4 --waterfalls 2
 """
 
 from __future__ import annotations
@@ -67,6 +72,11 @@ def replay_serving_trace(args, model, ledger=None):
     import numpy as np
 
     from tpu_dist_torch.engine.serve import ServeConfig, ServeEngine
+    from tpu_dist_torch.obs import reqtrace
+    from tpu_dist_torch.obs.ledger import Ledger
+    from tpu_dist_torch.tools.request_report import (requests_summary,
+                                                     slowest_traces,
+                                                     waterfall_lines)
 
     rng = np.random.default_rng(args.trace_seed)
     gaps = rng.exponential(1.0 / max(args.arrival_rate, 1e-9), args.trace)
@@ -101,13 +111,18 @@ def replay_serving_trace(args, model, ledger=None):
             kv_event_every=32), ledger=led, device=model.device)
 
     _drive_trace(make("continuous"), arrivals, prompts, outs)  # warm
+    # the continuous replay always captures its spans: they feed the
+    # tail_attribution block and --waterfalls without needing --ledger
+    span_cap = []
+    cont_led = ledger if ledger is not None else Ledger(None)
+    cont_led.add_sink(span_cap.append)
     results = {}
     modes = [("continuous", True), ("drain", True)]
     if prefix_on:
         modes.append(("no_prefix_cache", False))
     for refill, prefix_cache in modes:
         eng = make("continuous" if refill == "no_prefix_cache" else refill,
-                   led=ledger if refill == "continuous" else None,
+                   led=cont_led if refill == "continuous" else None,
                    prefix_cache=prefix_cache)
         comps, elapsed = _drive_trace(eng, arrivals, prompts, outs)
         ttft = [c.ttft_s for c in comps]
@@ -115,6 +130,7 @@ def replay_serving_trace(args, model, ledger=None):
                 for c in comps if c.n_generated > 1]
         waits = [c.queue_wait_s for c in comps]
         toks = sum(c.n_generated for c in comps)
+        apt = eng.accepted_per_tick
         results[refill] = {
             "completed": len(comps), "rejected": eng.rejected,
             "ticks": eng.ticks,
@@ -125,7 +141,9 @@ def replay_serving_trace(args, model, ledger=None):
             "tokens_per_sec": (round(toks / elapsed, 1)
                                if elapsed else None),
             "occupancy": round(eng.occupancy, 4),
-            "accepted_per_tick": 1.0 if eng.ticks else None,
+            # tokens per active-slot tick: 1.0 for the plain tick
+            "accepted_per_tick": (round(apt, 4) if apt is not None
+                                  else (1.0 if eng.ticks else None)),
             "pages_per_request": (round(eng.pool.alloc_total / len(comps),
                                         4) if comps else None),
             "prefix_hit_rate": (round(eng.prefix_hit_rate, 4)
@@ -142,19 +160,37 @@ def replay_serving_trace(args, model, ledger=None):
         print(f"serve[{refill}]: {len(comps)}/{args.trace} completed in "
               f"{eng.ticks} ticks ({results[refill]['requests_per_tick']} "
               f"req/tick, {results[refill]['requests_per_sec']} req/s, "
+              f"{results[refill]['accepted_per_tick']} accepted/tick, "
               f"{results[refill]['pages_per_request']} pages/req), "
               f"occupancy {eng.occupancy * 100:.0f}%, TTFT p50 "
               f"{results[refill]['ttft_ms']['p50']}ms", file=sys.stderr)
     serving = dict(results["continuous"])
     serving.update(requests=args.trace, slots=args.serve_slots,
                    page_size=args.page_size, num_pages=num_pages,
-                   kv_quant=args.kv_quant, attn=args.attn,
+                   quant=args.serve_quant, kv_quant=args.kv_quant,
+                   attn=args.attn,
                    attn_read=args.attn_read, arrival_rate=args.arrival_rate,
                    trace_seed=args.trace_seed, spec_k=args.spec_k,
                    prefix_tenants=args.prefix_tenants, prefix_len=prefix_len,
                    static=results["drain"])
     if prefix_on:
         serving["no_prefix_cache"] = results["no_prefix_cache"]
+    summary = requests_summary(span_cap)
+    ta = summary.get("tail_attribution")
+    serving["tail_attribution"] = ta
+    if ta:
+        print(f"serve[traces]: {summary['completed_requests']} request "
+              f"trace(s), coverage {ta['coverage']}, sum-check "
+              f"{'OK' if ta['sum_check']['ok'] else 'FAILED'} "
+              f"(max residue {ta['sum_check']['max_residue_s']:.6g}s)",
+              file=sys.stderr)
+    if args.waterfalls > 0:
+        slow = slowest_traces(reqtrace.traces(span_cap), args.waterfalls)
+        print(f"serve[traces]: {len(slow)} slowest request waterfall(s):",
+              file=sys.stderr)
+        for tr in slow:
+            for line in waterfall_lines(tr):
+                print("  " + line, file=sys.stderr)
     return serving
 
 
@@ -189,7 +225,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--min-out", type=int, default=4)
     ap.add_argument("--max-out", type=int, default=64)
     ap.add_argument("--spec-k", type=int, default=0,
-                    help="speculative decoding: not ported (> 0 raises)")
+                    help="speculative decoding: draft tokens per tick "
+                         "(self-speculation; 0 = plain decode)")
     ap.add_argument("--prefix-tenants", type=int, default=0,
                     help="per-tenant shared system prompts + CoW prefix "
                          "caching, plus a cache-off baseline (0 = off)")
@@ -203,6 +240,8 @@ def build_parser() -> argparse.ArgumentParser:
                     choices=["none", "int8", "int8_wo"])
     ap.add_argument("--ledger", default="",
                     help="JSONL ledger of the continuous replay")
+    ap.add_argument("--waterfalls", type=int, default=0,
+                    help="print the N slowest request span trees (stderr)")
     return ap
 
 

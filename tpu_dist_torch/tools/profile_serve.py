@@ -5,12 +5,18 @@ Builds the LM the repo benches (V=32000, 8 layers, d_model 1024, 8 heads,
 bf16, random weights from ``--seed``) with flash prefill and int8 paged
 decode, fills ``--slots`` slots with prompts of ``--prompt-len`` tokens,
 then profiles ``--ticks`` decode iterations and, separately, one prefill.
+``--quant int8`` runs every dense layer through the fused int8 kernel
+(``csrc/fused_quant.cu``); ``--spec-k K`` makes each profiled iteration
+one speculative tick (K draft steps of self-speculation and one
+(K+1)-wide verify).
 Prints one JSON object: for each window the wall time, the device kernel
 time (sum of the CUDA kernels' self time; one stream, so no overlap), the
 device busy share (kernel time / wall), kernels launched, and the top
 kernels by device time. Needs a CUDA device::
 
     python -m tpu_dist_torch.tools.profile_serve --ticks 32
+    python -m tpu_dist_torch.tools.profile_serve --ticks 32 --quant int8
+    python -m tpu_dist_torch.tools.profile_serve --ticks 16 --spec-k 4
 """
 
 from __future__ import annotations
@@ -59,6 +65,11 @@ def main(argv=None):
     ap.add_argument("--prefill-len", type=int, default=1024)
     ap.add_argument("--top", type=int, default=12)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--quant", default="none",
+                    choices=["none", "int8", "int8_wo"],
+                    help="dense-layer quant mode (ServeConfig.quant)")
+    ap.add_argument("--spec-k", type=int, default=0,
+                    help="speculative decoding: draft tokens per tick")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -76,9 +87,15 @@ def main(argv=None):
                           attn_fn=flash_attention_fn(), device=device,
                           seed=args.seed)
     cfg = ServeConfig(max_slots=args.slots, page_size=16, num_pages=1024,
-                      kv_quant="int8", attn_read="flash")
+                      kv_quant="int8", attn_read="flash", quant=args.quant,
+                      spec_k=args.spec_k)
     rng = np.random.default_rng(args.seed)
-    big = 10 * args.ticks + 16           # nobody finishes inside the window
+    # nobody finishes inside the window (a spec tick emits up to k tokens)
+    big = max(args.spec_k, 1) * (10 * args.ticks + 16)
+    if args.prompt_len + big > 2048:
+        raise SystemExit(f"--prompt-len {args.prompt_len} + {big} decoded "
+                         "tokens exceed the model's 2048 positions: fewer "
+                         "--ticks")
 
     def fill(eng, n, plen):
         for i in range(n):
@@ -99,7 +116,8 @@ def main(argv=None):
 
     pre = ServeEngine(model, ServeConfig(max_slots=1, page_size=16,
                                          num_pages=256, kv_quant="int8",
-                                         attn_read="flash"))
+                                         attn_read="flash", quant=args.quant,
+                                         spec_k=args.spec_k))
     prompt = rng.integers(0, 32000, (args.prefill_len,)).astype(np.int32)
 
     def one_prefill():
@@ -113,8 +131,10 @@ def main(argv=None):
         "config": {"slots": args.slots, "prompt_len": args.prompt_len,
                    "prefill_len": args.prefill_len, "layers": 8,
                    "d_model": 1024, "vocab": 32000, "kv_quant": "int8",
-                   "attn_read": "flash", "attn": "flash"},
-        "decode_tick": decode, "prefill": prefill}))
+                   "attn_read": "flash", "attn": "flash",
+                   "quant": args.quant, "spec_k": args.spec_k},
+        "decode_tick": decode,
+        "accepted_per_tick": eng.accepted_per_tick, "prefill": prefill}))
 
 
 if __name__ == "__main__":
