@@ -19,8 +19,11 @@ CUDA or without the repository beside it. Phases:
    ``torch._fused_adamw_``, ``torch._fused_sgd_``; timed here and used
    nowhere in the port) and the least time the card could take. The sgd
    kernel is held at ResNet-50's largest leaf and across its 161 leaves as
-   one step, with the clip slot at 1 and at 0.3, and with a bf16 p;
-   The fused int8 matmul is held bit-equal at the dense shapes of a decode
+   one step, with the clip slot at 1 and at 0.3, and with a bf16 p. The
+   flash backward pair is also held at a ragged shape (B1 L1000 H8 D64,
+   q_offset 24) and at one with dead rows and keys (exact zeros), and its
+   records carry ptxas's spill stores per kernel instance. The fused int8
+   matmul is held bit-equal at the dense shapes of a decode
    tick and a prefill (no one PyTorch call computes it: ``library_ms`` is
    null, and ``yardstick_ms`` times the bf16 ``torch.matmul`` of the
    unquantized operands), the int8-K/V flash forward at L=2048 (library:
@@ -63,6 +66,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -253,26 +257,87 @@ def live_causal_pairs(lq, lk):
     return sum(min(i + 1, lk) for i in range(lq))
 
 
+def check_flash_bwd_shape(torch, gen, b, lq, lk, h, d, q_offset=0,
+                          kv_offset=0):
+    """The backward kernels against flash_backward_plain at one bf16 causal
+    shape: {dq, dk, dv: max abs error} (each within BF16_TOL), and exact
+    zeros for the rows that see no key and the keys that no row sees.
+    Returns (errors, the tensors the timing reuses)."""
+    from tpu_dist_torch.ops import flash_attention as fa
+
+    q, k, v, g = (torch.randn((b, n, h, d), generator=gen, device="cuda")
+                  .to(torch.bfloat16) for n in (lq, lk, lk, lq))
+    mask = (True, q_offset, kv_offset)
+    out, lse = fa.flash_forward_cuda(q, k, v, *mask)
+    got = fa.flash_backward_cuda(q, k, v, out, lse, g, *mask)
+    ref = fa.flash_backward_plain(q, k, v, out, lse, g, *mask)
+    torch.cuda.synchronize()
+    shape = (f"B{b} Lq{lq} Lk{lk} H{h} D{d} bf16 causal q_offset "
+             f"{q_offset} kv_offset {kv_offset}")
+    errs = {}
+    for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+        errs[name], ok = bf16_err(torch, a, r)
+        if not ok:
+            raise AssertionError(f"flash backward {name} at {shape}: "
+                                 f"max|err| {errs[name]} (tol {BF16_TOL} "
+                                 f"(1 + |ref|))")
+    dead_rows = q_offset + torch.arange(lq, device="cuda") < kv_offset
+    dead_keys = kv_offset + torch.arange(lk, device="cuda") > q_offset + lq - 1
+    zeros = (bool((got[0][:, dead_rows] == 0).all())
+             and all(bool((t[:, dead_keys] == 0).all()) for t in got[1:]))
+    if not zeros:
+        raise AssertionError(f"flash backward at {shape}: a row that sees no "
+                             "key or a key that no row sees has a nonzero "
+                             "gradient")
+    rec = {"shape": shape, "max_abs_err": errs,
+           "dead_rows": int(dead_rows.sum()), "dead_keys": int(dead_keys.sum()),
+           "dead_exact_zero": zeros}
+    return rec, (q, k, v, g, out, lse)
+
+
+def ptxas_spills(kernels, name):
+    """{kernel instance: bytes of spill stores} from ptxas -v's report in
+    the build log of ``csrc/<name>.cu`` (None without a log)."""
+    path = os.path.join(kernels.build_dir(), f"{name}.log")
+    if not os.path.isfile(path):
+        return None
+    spills, fn = {}, None
+    with open(path) as f:
+        for line in f:
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                fn = m.group(1)
+                continue
+            m = re.search(r"(\d+) bytes spill stores", line)
+            if m and fn:
+                # the name follows its length in the mangled symbol
+                i = re.search(r"\d(flash_bwd_d\w*?_kernel(?:_mma)?)I(f?)"
+                              r"Li(\d+)E", fn)
+                label = (f"{i.group(1)}<{'float, ' if i.group(2) else ''}"
+                         f"{i.group(3)}>" if i else fn)
+                spills[label] = int(m.group(1))
+                fn = None
+    return spills
+
+
 def check_flash_bwd(torch, F, gen):
     """dq and dk/dv kernels against flash_backward_plain, B=8 H=8 L=2048
-    D=128 bf16 causal: the training main path's shape."""
+    D=128 bf16 causal: the training main path's shape; then a ragged shape
+    (B1 L1000 H8 D64, q_offset 24) and one with dead rows and keys (B1 Lq130
+    Lk200 H8 D128, kv_offset 40) in the same tolerance."""
     from tpu_dist_torch import kernels
     from tpu_dist_torch.ops import flash_attention as fa
 
     b, L, h, d = 8, 2048, 8, 128
-    q, k, v, g = (torch.randn((b, L, h, d), generator=gen, device="cuda")
-                  .to(torch.bfloat16) for _ in range(4))
-    out, lse = fa.flash_forward_cuda(q, k, v, causal=True)
-    dq, dk, dv = fa.flash_backward_cuda(q, k, v, out, lse, g, causal=True)
-    rq, rk, rv = fa.flash_backward_plain(q, k, v, out, lse, g, True)
-    torch.cuda.synchronize()
-    errs = {}
-    for name, got, ref in (("dq", dq, rq), ("dk", dk, rk), ("dv", dv, rv)):
-        errs[name], ok = bf16_err(torch, got, ref)
-        if not ok:
-            raise AssertionError(f"flash backward {name}: max|err| "
-                                 f"{errs[name]} (tol {BF16_TOL} (1 + |ref|))")
-    del rq, rk, rv
+    main, (q, k, v, g, out, lse) = check_flash_bwd_shape(torch, gen, b, L, L,
+                                                         h, d)
+    errs = main["max_abs_err"]
+    # their own generator: the later phases' inputs stay as they were
+    own = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    more = [check_flash_bwd_shape(torch, own, 1, 1000, 1000, 8, 64,
+                                  q_offset=24)[0],
+            check_flash_bwd_shape(torch, own, 1, 130, 200, 8, 128,
+                                  kv_offset=40)[0]]
     stream = torch.cuda.current_stream().cuda_stream
     fn_dq = kernels.function("flash_bwd_dq", "tdt_flash_bwd_dq",
                              fa._BWD_DQ_ARGS)
@@ -308,7 +373,9 @@ def check_flash_bwd(torch, F, gen):
             "library_ms": lib_ms,
             "note": "plain_ms and library_ms cover dq, dk and dv together",
             "library": "scaled_dot_product_attention(is_causal=True) "
-                       "backward (autograd.grad)"}
+                       "backward (autograd.grad)",
+            "more_shapes": more,
+            "spill_stores": ptxas_spills(kernels, name)}
     return recs
 
 
@@ -1101,6 +1168,8 @@ def main():
         if kname == "sgd":
             entry.update({k: sgd[k] for k in (
                 "ms_is", "eager_ms", "errors", "more_shapes")})
+        if kname in ("flash_bwd_dq", "flash_bwd_dkv"):
+            entry.update({k: rec[k] for k in ("more_shapes", "spill_stores")})
         if kname == "flash_fwd":
             entry["more_shapes"] = [flash[2048]]
             entry["launches_by_path"] = {

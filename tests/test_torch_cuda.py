@@ -143,6 +143,8 @@ def test_serving_on_the_card_equals_the_cpu_path(cuda, kw):
     (1, 64, 64, 2, 128, True, 0, 40),     # dead rows and keys: exact zeros
     (2, 40, 96, 1, 64, True, 56, 0),
     (1, 1, 1, 1, 128, True, 0, 0),
+    (1, 1000, 1000, 2, 64, True, 0, 0),   # many tiles, ragged last one
+    (1, 130, 200, 2, 128, True, 0, 40),   # ragged, dead rows and keys
 ], ids=str)
 def test_flash_backward_kernels_match_plain(cuda, dtype, case):
     b, lq, lk, h, d, causal, qo, ko = case
@@ -157,6 +159,10 @@ def test_flash_backward_kernels_match_plain(cuda, dtype, case):
     if ko > qo:
         dead = (qo + torch.arange(lq, device=cuda)) < ko
         assert bool((got[0][:, dead] == 0).all())
+    if causal:    # keys that no row sees: exact zero dk and dv
+        dead = (ko + torch.arange(lk, device=cuda)) > qo + lq - 1
+        for grad in got[1:]:
+            assert bool((grad[:, dead] == 0).all())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],

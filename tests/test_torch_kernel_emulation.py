@@ -6,6 +6,9 @@ versions. fp32 within 1e-5 (summation order only); bf16 within
 2e-2 * (1 + |plain|) (the forward kernels round p and the output to bf16;
 the backward kernels round p and ds where their plain version does, so
 summation order is all that is left before the bf16 outputs round). The
+bf16 backward kernels run on the tensor cores through ``csrc/warp_mma.cuh``,
+whose mma/ldmatrix/cp.async helpers the emulation supplies in software
+(held against ``torch.matmul`` here on one tile). The
 AdamW and SGD kernels within 1e-6 * (1 + |plain|) (fp32, the same
 operations; a bf16 p rounds once, from the same fp32 value). The fused
 int8 matmul bit-equal (int32 sums are exact, the scales and the dequant
@@ -13,11 +16,14 @@ the same fp32 operations); the int8-K/V flash forward as the flash
 forward (it keeps p in fp32, so bf16 rounds only the output).
 The hardware itself is checked by tests/test_torch_cuda.py on the card."""
 
+import ctypes
+import os
 import shutil
 
 import pytest
 import torch
 
+from tpu_dist_torch import kernels
 from tpu_dist_torch.ops import flash_attention as fa
 from tpu_dist_torch.ops import paged_attention as pa
 from tpu_dist_torch.ops import pallas_adamw as adamw
@@ -101,6 +107,12 @@ def test_paged_kernel_source_matches_plain(emu, dtype, d, lengths):
     (torch.float32, (1, 64, 64, 1, 128, True, 0, 40)),   # dead rows, keys
     (torch.float32, (1, 40, 96, 1, 64, True, 56, 0)),
     (torch.bfloat16, (1, 80, 80, 1, 128, True, 0, 0)),
+    # bf16 runs the tensor-core kernels through the emulated mma, ldmatrix
+    # and cp.async helpers
+    (torch.bfloat16, (1, 70, 130, 1, 64, False, 0, 0)),  # ragged
+    (torch.bfloat16, (1, 100, 100, 2, 64, True, 0, 0)),
+    (torch.bfloat16, (1, 64, 64, 1, 128, True, 0, 40)),  # dead rows, keys
+    (torch.bfloat16, (1, 40, 96, 1, 64, True, 56, 0)),   # q after kv prefix
 ], ids=str)
 def test_flash_backward_kernel_sources_match_plain(emu, dtype, case):
     b, lq, lk, h, d, causal, qo, ko = case
@@ -116,7 +128,79 @@ def test_flash_backward_kernel_sources_match_plain(emu, dtype, case):
         _close(a, r, dtype)
     if ko > qo:   # rows that see no key: exact zero dq
         dead = (qo + torch.arange(lq)) < ko
-        assert bool((got[0][:, dead] == 0).all())
+        assert dead.any() and bool((got[0][:, dead] == 0).all())
+    if causal:    # keys that no row sees: exact zero dk and dv
+        dead = (ko + torch.arange(lk)) > qo + lq - 1
+        for grad in got[1:]:
+            assert bool((grad[:, dead] == 0).all())
+
+
+# one warp: C (16 x 8, fp32) = A (16 x 16) . B through the emulated
+# warp_mma.cuh helpers. B is stored n-major (8 x 16, read by ldmatrix, as K
+# in S = Q K^T) or k-major (16 x 8, read by ldmatrix.trans, as K in ds . K)
+_MMA_TILE_SRC = r"""
+#include <cuda_bf16.h>
+#include <stdint.h>
+#include "warp_mma.cuh"
+
+__global__ void mma_tile_kernel(const __nv_bfloat16* a,
+                                const __nv_bfloat16* b, float* c,
+                                int k_major) {
+  extern __shared__ float smem[];
+  __nv_bfloat16* sa = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* sb = sa + 16 * 16;
+  const int lane = threadIdx.x;
+  for (int i = lane; i < 16 * 16; i += 32) sa[i] = a[i];
+  for (int i = lane; i < 16 * 8; i += 32) sb[i] = b[i];
+  __syncthreads();
+  uint32_t fa[4], fb[4];
+  ldsm_x4(fa, sa + (lane % 16) * 16 + (lane / 16) * 8);
+  if (k_major)   // matrices 0, 1: k rows 0-7, 8-15 (lanes 16-31 repeat)
+    ldsm_x4_trans(fb, sb + (lane % 16) * 8);
+  else           // matrices 0, 1: n rows 0-7 at k 0-7, then k 8-15
+    ldsm_x4(fb, sb + (lane % 8) * 16 + ((lane / 8) % 2) * 8);
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_bf16_16816(acc, fa, fb[0], fb[1]);
+  const int g = lane >> 2, t = lane & 3;
+  for (int i = 0; i < 4; ++i) c[(g + 8 * (i / 2)) * 8 + 2 * t + i % 2] = acc[i];
+}
+
+extern "C" int tdt_mma_tile(const void* a, const void* b, void* c,
+                            int k_major) {
+  mma_tile_kernel<<<1, 32, 1024, nullptr>>>(
+      static_cast<const __nv_bfloat16*>(a), static_cast<const __nv_bfloat16*>(b),
+      static_cast<float*>(c), k_major);
+  return 0;
+}
+"""
+
+
+@pytest.mark.parametrize("k_major", [False, True], ids=["ldmatrix",
+                                                         "ldmatrix.trans"])
+def test_emulated_mma_helpers_match_matmul(emu, k_major):
+    fn = cuda_emu.build_source("mma_tile", _MMA_TILE_SRC).tdt_mma_tile
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int]
+    gen = torch.Generator().manual_seed(16 + k_major)
+    a = torch.randn((16, 16), generator=gen).to(torch.bfloat16)
+    b = torch.randn((16, 8), generator=gen).to(torch.bfloat16)
+    stored = b.contiguous() if k_major else b.t().contiguous()
+    c = torch.full((16, 8), float("nan"))
+    assert fn(a.data_ptr(), stored.data_ptr(), c.data_ptr(), int(k_major)) == 0
+    # bf16 products are exact in fp32; only the summation order differs
+    torch.testing.assert_close(c, a.float() @ b.float(), rtol=1e-6,
+                               atol=1e-5)
+
+
+def test_kernel_library_name_covers_included_headers(tmp_path, monkeypatch):
+    for f in ("flash_bwd_dq.cu", "warp_mma.cuh"):
+        shutil.copy(os.path.join(kernels.CSRC, f), tmp_path / f)
+    monkeypatch.setattr(kernels, "CSRC", str(tmp_path))
+    assert kernels.source_files("flash_bwd_dq") == [
+        str(tmp_path / "flash_bwd_dq.cu"), str(tmp_path / "warp_mma.cuh")]
+    before = kernels._lib_path("flash_bwd_dq")
+    with open(tmp_path / "warp_mma.cuh", "a") as f:
+        f.write("// edited\n")
+    assert kernels._lib_path("flash_bwd_dq") != before
 
 
 @pytest.mark.parametrize("dtype,n", [(torch.float32, 1000),

@@ -16,23 +16,39 @@
 //
 // Bound on an H100 SXM: operations. Four products of 2*Lq*Lk*D FLOP per
 // (batch, head) (about half when causal) against 989 TFLOP/s of bf16 tensor
-// cores; q, k, v, dO, dk, dv are read or written once.
+// cores; q, k, v, dO, dk, dv are read or written once. At B8 L2048 H8 D128
+// causal: 137 GFLOP, 0.139 ms.
 //
-// Design (first version: right and simple, not fast): one block of 256
-// threads per (b*h, 64-row k/v tile), which keeps its K and V tiles and its
-// dk/dv accumulators for the whole loop over 64-row q tiles: each output
-// tile has one owner, no atomics (the reference's two-pass split). Per q
-// tile, Q and dO come into padded shared buffers (stride D+1); each thread
-// computes a 4x4 micro-tile of S and dP, writes the rounded p and ds tiles
-// to shared memory, and then accumulates a 4 x D/16 slice of dk and dv from
-// them. The finalize rule is the reference's: every causal kv tile's last
-// live q tile is the final one, so the accumulators are written once, after
-// the loop. q tiles wholly before the diagonal are skipped; ragged edges are
-// masked, so any length works. fp32 SIMT products: mma/wgmma is later work.
+// Both instances keep the reference's two-pass split: one block per (b*h,
+// 64-row k/v tile) keeps its K and V tiles and its dk/dv accumulators for
+// the whole loop over 64-row q tiles, so each output tile has one owner and
+// no atomics are needed. The finalize rule is the reference's: every causal
+// kv tile's last live q tile is the final one, so the accumulators are
+// written once, after the loop. q tiles wholly before the diagonal are
+// skipped; ragged edges are masked, so any length works.
+//
+// bf16 (flash_bwd_dkv_kernel_mma), on the tensor cores: 4 warps, each
+// owning 16 keys. K and V stay in shared memory as bf16; Q, dO, lse and
+// delta tiles stream through a 2-stage cp.async ring. Rows are padded to
+// D + 8 elements (conflict-free 16-byte copies and ldmatrix); about 103 KB
+// at D = 128, two blocks per SM. A warp computes S^T = K Q^T and
+// dP^T = V dO^T with mma.sync m16n8k16, so its rows are keys and p^T, ds^T
+// come out of the masks, lse and delta already in the A layout of
+// dv += p^T . dO and dk += ds^T . Q (dO, Q by ldmatrix.trans): rounded to
+// bf16 and repacked in registers. The dk and dv accumulators stay in
+// registers; at D = 128 a q tile is taken 32 rows at a step so that they
+// and the S^T, dP^T fragments fit without spills. Blocks run the low k
+// tiles, which see the most q tiles under causal, first.
+// fp32 (flash_bwd_dkv_kernel) keeps full-fp32 SIMT products: one block of
+// 256 threads, each computing a 4x4 micro-tile of S and dP, writing the
+// rounded p and ds tiles to shared memory and accumulating a 4 x D/16 slice
+// of dk and dv from them.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "warp_mma.cuh"
 
 namespace {
 
@@ -43,15 +59,9 @@ constexpr float NEG_INF = -1e30f;
 
 template <typename T> __device__ __forceinline__ float to_f(T x);
 template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as astype
-}
 
 template <int D>
 constexpr size_t smem_floats() {
@@ -231,11 +241,234 @@ int launch(const void* q, const void* k, const void* v, const void* g,
   return (int)cudaGetLastError();
 }
 
+// ---- bf16 on the tensor cores ---------------------------------------------
+
+constexpr int NTM = 128;  // threads per block: 4 warps x 16 keys
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int D>
+constexpr size_t smem_bytes_mma() {
+  // K, V resident; Q, dO in a 2-stage ring (bf16 rows padded to D + 8);
+  // lse, delta in a 2-stage ring (fp32)
+  return (size_t)(2 * BK + 4 * BQ) * (D + 8) * sizeof(__nv_bfloat16) +
+         4 * (size_t)BQ * sizeof(float);
+}
+
+template <int D>
+__global__ void __launch_bounds__(NTM, 2) flash_bwd_dkv_kernel_mma(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ g,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int H,
+    int Lq, int Lk, int causal, int q_offset, int kv_offset, float scale) {
+  constexpr int RS = D + 8;        // padded row stride (elements)
+  // q rows per inner step: the S^T, dP^T fragments beside the dk, dv
+  // accumulators (D/2 + D/2 fp32 registers) stay within the register budget
+  constexpr int QS = D >= 128 ? 32 : 64;
+  constexpr int NB = QS / 8;       // q n-tiles of S^T and dP^T
+  constexpr int ND = D / 8;        // d n-tiles of dk, dv
+  extern __shared__ float smem[];
+  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* sV = sK + BK * RS;
+  __nv_bfloat16* sQ = sV + BK * RS;      // [2][BQ * RS]
+  __nv_bfloat16* sG = sQ + 2 * BQ * RS;  // [2][BQ * RS]
+  float* sL = reinterpret_cast<float*>(sG + 2 * BQ * RS);  // [2][BQ]
+  float* sD = sL + 2 * BQ;                                 // [2][BQ]
+
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int k0 = blockIdx.y * BK;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const long rs = (long)H * D;  // stride between sequence positions
+  const __nv_bfloat16* qb = q + (long)b * Lq * rs + (long)h * D;
+  const __nv_bfloat16* gb = g + (long)b * Lq * rs + (long)h * D;
+  const __nv_bfloat16* kb = k + (long)b * Lk * rs + (long)h * D;
+  const __nv_bfloat16* vb = v + (long)b * Lk * rs + (long)h * D;
+
+  // 64 rows from r0 of src (length L) into dst; rows past L read as zeros
+  auto load_tile = [&](__nv_bfloat16* dst, const __nv_bfloat16* src, int r0,
+                       int L) {
+    cp_async_rows<64, D, RS, NTM>(dst, src, rs, r0, L, tid);
+  };
+  // q tile qt into ring stage st: Q, dO, and lse, delta (zeros past Lq)
+  auto load_q_tile = [&](int st, int qt) {
+    const int q0 = qt * BQ;
+    load_tile(sQ + st * BQ * RS, qb, q0, Lq);
+    load_tile(sG + st * BQ * RS, gb, q0, Lq);
+    for (int i = tid; i < BQ; i += NTM) {
+      const bool in = q0 + i < Lq;
+      const long off = (long)bh * Lq + (in ? q0 + i : 0);
+      cp_async_4(sL + st * BQ + i, lse + off, in ? 4 : 0);
+      cp_async_4(sD + st * BQ + i, delta + off, in ? 4 : 0);
+    }
+  };
+
+  // live q tiles: with a causal mask, none that ends before this tile's
+  // first key position (kv_offset + k0)
+  const int n_qt = (Lq + BQ - 1) / BQ;
+  int first_qt = 0;
+  if (causal) {
+    const long d0 = (long)kv_offset + k0 - q_offset;  // first row that sees key k0
+    first_qt = d0 <= 0 ? 0 : (int)min((long)n_qt, d0 / BQ);
+  }
+
+  load_tile(sK, kb, k0, Lk);
+  load_tile(sV, vb, k0, Lk);
+  if (first_qt < n_qt) load_q_tile(0, first_qt);
+  cp_async_commit();
+
+  // this lane's keys (rows of the C fragments): k0 + warp*16 + lane/4 (+ 8)
+  const int gq = lane >> 2, tq = lane & 3;
+  const int wr = warp * 16;
+  const float scale2 = scale * LOG2E;  // exp(x) = 2^(x log2 e)
+
+  float acc_k[ND][4], acc_v[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_k[j][e] = acc_v[j][e] = 0.f;
+
+  for (int qt = first_qt; qt < n_qt; ++qt) {
+    const int st = (qt - first_qt) & 1;
+    if (qt + 1 < n_qt) load_q_tile(st ^ 1, qt + 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // this tile's copies (and K, V) have landed
+    __syncthreads();
+    const __nv_bfloat16* cQ = sQ + st * BQ * RS;
+    const __nv_bfloat16* cG = sG + st * BQ * RS;
+    const float* cL = sL + st * BQ;
+    const float* cD = sD + st * BQ;
+    const int q0 = qt * BQ;
+
+#pragma unroll 1
+    for (int qs = 0; qs < BQ; qs += QS) {
+      // every row of this step is before this warp's first key: p = 0
+      if (causal && kv_offset + k0 + wr > q_offset + q0 + qs + QS - 1)
+        continue;
+      // S^T = K Q^T and dP^T = V dO^T for this warp's 16 keys
+      float s[NB][4], dp[NB][4];
+#pragma unroll
+      for (int j = 0; j < NB; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t ak[4], av[4];
+        const int a_off = (wr + lane % 16) * RS + kk * 16 + (lane / 16) * 8;
+        ldsm_x4(ak, sK + a_off);
+        ldsm_x4(av, sV + a_off);
+#pragma unroll
+        for (int j = 0; j < NB / 2; ++j) {  // q n-tiles 2j, 2j+1
+          uint32_t bq[4], bg[4];
+          const int b_off = (qs + 16 * j + lane % 8 + (lane / 16) * 8) * RS +
+                            kk * 16 + ((lane / 8) % 2) * 8;
+          ldsm_x4(bq, cQ + b_off);
+          ldsm_x4(bg, cG + b_off);
+          mma_bf16_16816(s[2 * j], ak, bq[0], bq[1]);
+          mma_bf16_16816(s[2 * j + 1], ak, bq[2], bq[3]);
+          mma_bf16_16816(dp[2 * j], av, bg[0], bg[1]);
+          mma_bf16_16816(dp[2 * j + 1], av, bg[2], bg[3]);
+        }
+      }
+
+      // p^T into s, ds^T into dp, in the accumulator layout
+      const bool edge =
+          q0 + qs + QS > Lq || k0 + BK > Lk ||
+          (causal && kv_offset + k0 + wr + 15 > q_offset + q0 + qs);
+#pragma unroll
+      for (int j = 0; j < NB; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = qs + 8 * j + 2 * tq + (e & 1);  // q row of the tile
+          bool live = true;
+          if (edge) {
+            const int key = k0 + wr + gq + 8 * (e / 2);
+            live = q0 + i < Lq && key < Lk;
+            if (causal) live = live && (kv_offset + key <= q_offset + q0 + i);
+          }
+          const float p =
+              live ? exp2_approx(s[j][e] * scale2 - cL[i] * LOG2E) : 0.f;
+          dp[j][e] = p * (dp[j][e] - cD[i]) * scale;
+          s[j][e] = p;
+        }
+
+      // dv += bf16(p^T) . dO and dk += bf16(ds^T) . Q, 16 q rows at a step
+#pragma unroll
+      for (int kk = 0; kk < QS / 16; ++kk) {
+        uint32_t ap[4], ad[4];
+        ap[0] = pack_bf16x2(s[2 * kk][0], s[2 * kk][1]);
+        ap[1] = pack_bf16x2(s[2 * kk][2], s[2 * kk][3]);
+        ap[2] = pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+        ap[3] = pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+        ad[0] = pack_bf16x2(dp[2 * kk][0], dp[2 * kk][1]);
+        ad[1] = pack_bf16x2(dp[2 * kk][2], dp[2 * kk][3]);
+        ad[2] = pack_bf16x2(dp[2 * kk + 1][0], dp[2 * kk + 1][1]);
+        ad[3] = pack_bf16x2(dp[2 * kk + 1][2], dp[2 * kk + 1][3]);
+#pragma unroll
+        for (int j = 0; j < ND / 2; ++j) {  // d n-tiles 2j, 2j+1
+          uint32_t bg[4], bq[4];
+          const int b_off =
+              (qs + kk * 16 + lane % 16) * RS + 16 * j + (lane / 16) * 8;
+          ldsm_x4_trans(bg, cG + b_off);
+          ldsm_x4_trans(bq, cQ + b_off);
+          mma_bf16_16816(acc_v[2 * j], ap, bg[0], bg[1]);
+          mma_bf16_16816(acc_v[2 * j + 1], ap, bg[2], bg[3]);
+          mma_bf16_16816(acc_k[2 * j], ad, bq[0], bq[1]);
+          mma_bf16_16816(acc_k[2 * j + 1], ad, bq[2], bq[3]);
+        }
+      }
+    }
+    __syncthreads();  // all warps are done with this stage before its refill
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = k0 + wr + gq + 8 * r;
+    if (key >= Lk) continue;
+    const long off = ((long)b * Lk + key) * rs + (long)h * D;
+#pragma unroll
+    for (int j = 0; j < ND; ++j) {
+      *reinterpret_cast<uint32_t*>(dk + off + 8 * j + 2 * tq) =
+          pack_bf16x2(acc_k[j][2 * r], acc_k[j][2 * r + 1]);
+      *reinterpret_cast<uint32_t*>(dv + off + 8 * j + 2 * tq) =
+          pack_bf16x2(acc_v[j][2 * r], acc_v[j][2 * r + 1]);
+    }
+  }
+}
+
+template <int D>
+int launch_mma(const void* q, const void* k, const void* v, const void* g,
+               const void* lse, const void* delta, void* dk, void* dv, int B,
+               int H, int Lq, int Lk, int causal, int q_offset, int kv_offset,
+               float scale, cudaStream_t stream) {
+  // 16-byte copies: every bf16 tensor must start on a 16-byte boundary
+  if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)g |
+       (uintptr_t)dk | (uintptr_t)dv) % 16)
+    return -2;
+  const size_t smem = smem_bytes_mma<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkv_kernel_mma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(B * H, (Lk + BK - 1) / BK);
+  flash_bwd_dkv_kernel_mma<D><<<grid, NTM, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(g),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), H, Lq,
+      Lk, causal, q_offset, kv_offset, scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, dO, dk and dv share it).
 // Returns the launch's cudaError_t (0 = launched); -1 for a (dtype, D) this
-// build has no instance for.
+// build has no instance for, -2 for a bf16 tensor not 16-byte aligned.
 extern "C" int tdt_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                  const void* g, const void* lse,
                                  const void* delta, void* dk, void* dv, int B,
@@ -248,8 +481,8 @@ extern "C" int tdt_flash_bwd_dkv(const void* q, const void* k, const void* v,
   if (dtype == 0 && D == 128)
     return launch<float, 128>(q, k, v, g, lse, delta, dk, dv, B, H, Lq, Lk, causal, q_offset, kv_offset, scale, s);
   if (dtype == 1 && D == 64)
-    return launch<__nv_bfloat16, 64>(q, k, v, g, lse, delta, dk, dv, B, H, Lq, Lk, causal, q_offset, kv_offset, scale, s);
+    return launch_mma<64>(q, k, v, g, lse, delta, dk, dv, B, H, Lq, Lk, causal, q_offset, kv_offset, scale, s);
   if (dtype == 1 && D == 128)
-    return launch<__nv_bfloat16, 128>(q, k, v, g, lse, delta, dk, dv, B, H, Lq, Lk, causal, q_offset, kv_offset, scale, s);
+    return launch_mma<128>(q, k, v, g, lse, delta, dk, dv, B, H, Lq, Lk, causal, q_offset, kv_offset, scale, s);
   return -1;
 }

@@ -18,22 +18,35 @@
 //
 // Bound on an H100 SXM: operations. Three products of 2*Lq*Lk*D FLOP per
 // (batch, head) (about half when causal) against 989 TFLOP/s of bf16 tensor
-// cores; q, k, v, dO, dq are read or written once.
+// cores; q, k, v, dO, dq are read or written once. At B8 L2048 H8 D128
+// causal: 103 GFLOP, 0.104 ms.
 //
-// Design (first version: right and simple, not fast): one block of 256
-// threads per (b*h, 64-row q tile); the loop over 64-row k/v tiles runs
-// inside the block, so every output tile has one owner and no atomics are
-// needed (the reference's two-pass split). Q and dO stay in shared memory
-// for the whole loop; V, then K, pass through one padded buffer (stride
-// D+1: the column reads of the 16x16 thread grid hit distinct banks). Each
-// thread owns a 4x4 micro-tile of S and dP and a 4 x D/16 slice of the dq
-// accumulator in registers. Tiles wholly above the causal diagonal are never
-// loaded; ragged edges are masked, so any length works. The products run on
-// the fp32 SIMT pipes: mma/wgmma is later work.
+// Both instances keep the reference's two-pass split: one block per (b*h,
+// 64-row q tile) loops over the live 64-row k/v tiles, so every dq tile has
+// one owner and no atomics are needed; tiles wholly above the causal
+// diagonal are never loaded, and ragged edges are masked, so any length
+// works.
+//
+// bf16 (flash_bwd_dq_kernel_mma), on the tensor cores: 4 warps, each owning
+// 16 q rows. Q and dO stay in shared memory as bf16 for the whole loop; K
+// and V tiles stream through a 2-stage cp.async ring (the next tile's
+// copies are in flight while this one's products run). Rows are padded to
+// D + 8 elements, so the 16-byte copies and ldmatrix reads hit distinct
+// banks; about 102 KB at D = 128, two blocks per SM. Per k/v tile a warp
+// computes S = Q K^T and dP = dO V^T with mma.sync m16n8k16 (operands by
+// ldmatrix), applies the masks, lse and delta to the fp32 fragments in
+// registers, rounds ds to bf16 and repacks it as the A operand of
+// dq += ds . K (K by ldmatrix.trans); the dq accumulator stays in
+// registers. Blocks run the longest causal q tiles (the last) first.
+// fp32 (flash_bwd_dq_kernel) keeps full-fp32 SIMT products: one block of
+// 256 threads, each owning a 4x4 micro-tile of S and dP and a 4 x D/16
+// slice of dq; Q, dO and one V-then-K tile in padded fp32 shared memory.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "warp_mma.cuh"
 
 namespace {
 
@@ -44,15 +57,9 @@ constexpr float NEG_INF = -1e30f;
 
 template <typename T> __device__ __forceinline__ float to_f(T x);
 template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as astype
-}
 
 template <int D>
 constexpr size_t smem_floats() {
@@ -229,11 +236,207 @@ int launch(const void* q, const void* k, const void* v, const void* g,
   return (int)cudaGetLastError();
 }
 
+// ---- bf16 on the tensor cores ---------------------------------------------
+
+constexpr int NTM = 128;  // threads per block: 4 warps x 16 q rows
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int D>
+constexpr size_t smem_bytes_mma() {
+  // Q, dO resident; K, V in a 2-stage ring; bf16 rows padded to D + 8
+  return (size_t)(2 * BQ + 4 * BK) * (D + 8) * sizeof(__nv_bfloat16);
+}
+
+template <int D>
+__global__ void __launch_bounds__(NTM, 2) flash_bwd_dq_kernel_mma(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ g,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    __nv_bfloat16* __restrict__ dq, int H, int Lq, int Lk, int causal,
+    int q_offset, int kv_offset, float scale) {
+  constexpr int RS = D + 8;  // padded row stride (elements)
+  constexpr int NB = BK / 8; // key n-tiles of S and dP
+  constexpr int ND = D / 8;  // d n-tiles of dq
+  extern __shared__ float smem[];
+  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* sG = sQ + BQ * RS;
+  __nv_bfloat16* sK = sG + BQ * RS;      // [2][BK * RS]
+  __nv_bfloat16* sV = sK + 2 * BK * RS;  // [2][BK * RS]
+
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // last (longest) first
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const long rs = (long)H * D;  // stride between sequence positions
+  const __nv_bfloat16* qb = q + (long)b * Lq * rs + (long)h * D;
+  const __nv_bfloat16* gb = g + (long)b * Lq * rs + (long)h * D;
+  const __nv_bfloat16* kb = k + (long)b * Lk * rs + (long)h * D;
+  const __nv_bfloat16* vb = v + (long)b * Lk * rs + (long)h * D;
+
+  // 64 rows from r0 of src (length L) into dst; rows past L read as zeros
+  auto load_tile = [&](__nv_bfloat16* dst, const __nv_bfloat16* src, int r0,
+                       int L) {
+    cp_async_rows<64, D, RS, NTM>(dst, src, rs, r0, L, tid);
+  };
+
+  // live k/v tiles: with a causal mask, none past the diagonal of this tile
+  int n_kt = (Lk + BK - 1) / BK;
+  if (causal) {
+    const long last_row = (long)q_offset + min(q0 + BQ, Lq) - 1;
+    const long lim = last_row - kv_offset;  // highest key index any row sees
+    n_kt = lim < 0 ? 0 : min(n_kt, (int)(lim / BK) + 1);
+  }
+
+  load_tile(sQ, qb, q0, Lq);
+  load_tile(sG, gb, q0, Lq);
+  if (n_kt > 0) {
+    load_tile(sK, kb, 0, Lk);
+    load_tile(sV, vb, 0, Lk);
+  }
+  cp_async_commit();
+
+  // this lane's rows of the C fragments: q0 + warp*16 + lane/4 (+ 8)
+  const int gq = lane >> 2, tq = lane & 3;
+  const int wr = warp * 16;
+  float lse2[2], del[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + wr + gq + 8 * r;
+    const bool in = row < Lq;  // rows past Lq: zero Q, dO give ds = 0
+    lse2[r] = in ? lse[(long)bh * Lq + row] * LOG2E : 0.f;
+    del[r] = in ? delta[(long)bh * Lq + row] : 0.f;
+  }
+  const float scale2 = scale * LOG2E;  // exp(x) = 2^(x log2 e)
+
+  float acc[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int st = kt & 1;
+    if (kt + 1 < n_kt) {
+      load_tile(sK + (st ^ 1) * BK * RS, kb, (kt + 1) * BK, Lk);
+      load_tile(sV + (st ^ 1) * BK * RS, vb, (kt + 1) * BK, Lk);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // this tile's copies (and Q, dO) have landed
+    __syncthreads();
+    const __nv_bfloat16* cK = sK + st * BK * RS;
+    const __nv_bfloat16* cV = sV + st * BK * RS;
+
+    // S = Q K^T and dP = dO V^T for this warp's 16 rows, 16 d at a step
+    float s[NB][4], dp[NB][4];
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t aq[4], ag[4];
+      const int a_off = (wr + lane % 16) * RS + kk * 16 + (lane / 16) * 8;
+      ldsm_x4(aq, sQ + a_off);
+      ldsm_x4(ag, sG + a_off);
+#pragma unroll
+      for (int j = 0; j < NB / 2; ++j) {  // key n-tiles 2j, 2j+1
+        uint32_t bk[4], bv[4];
+        const int b_off = (16 * j + lane % 8 + (lane / 16) * 8) * RS +
+                          kk * 16 + ((lane / 8) % 2) * 8;
+        ldsm_x4(bk, cK + b_off);
+        ldsm_x4(bv, cV + b_off);
+        mma_bf16_16816(s[2 * j], aq, bk[0], bk[1]);
+        mma_bf16_16816(s[2 * j + 1], aq, bk[2], bk[3]);
+        mma_bf16_16816(dp[2 * j], ag, bv[0], bv[1]);
+        mma_bf16_16816(dp[2 * j + 1], ag, bv[2], bv[3]);
+      }
+    }
+
+    // p and ds in the accumulator layout; ds overwrites dP
+    const int k0 = kt * BK;
+    const bool edge = k0 + BK > Lk ||
+                      (causal && kv_offset + k0 + BK - 1 > q_offset + q0 + wr);
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e / 2;
+        bool live = true;
+        if (edge) {
+          const int key = k0 + 8 * j + 2 * tq + (e & 1);
+          live = key < Lk;
+          if (causal)
+            live = live && (kv_offset + key <= q_offset + q0 + wr + gq + 8 * r);
+        }
+        const float p = live ? exp2_approx(s[j][e] * scale2 - lse2[r]) : 0.f;
+        dp[j][e] = p * (dp[j][e] - del[r]) * scale;
+      }
+
+    // dq += bf16(ds) . K, 16 keys at a step; ds repacked as the A operand
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      uint32_t a[4];
+      a[0] = pack_bf16x2(dp[2 * kk][0], dp[2 * kk][1]);
+      a[1] = pack_bf16x2(dp[2 * kk][2], dp[2 * kk][3]);
+      a[2] = pack_bf16x2(dp[2 * kk + 1][0], dp[2 * kk + 1][1]);
+      a[3] = pack_bf16x2(dp[2 * kk + 1][2], dp[2 * kk + 1][3]);
+#pragma unroll
+      for (int j = 0; j < ND / 2; ++j) {  // d n-tiles 2j, 2j+1
+        uint32_t bk[4];
+        ldsm_x4_trans(bk, cK + (kk * 16 + lane % 16) * RS + 16 * j +
+                              (lane / 16) * 8);
+        mma_bf16_16816(acc[2 * j], a, bk[0], bk[1]);
+        mma_bf16_16816(acc[2 * j + 1], a, bk[2], bk[3]);
+      }
+    }
+    __syncthreads();  // all warps are done with this stage before its refill
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + wr + gq + 8 * r;
+    if (row >= Lq) continue;
+    __nv_bfloat16* out = dq + ((long)b * Lq + row) * rs + (long)h * D;
+#pragma unroll
+    for (int j = 0; j < ND; ++j)
+      *reinterpret_cast<uint32_t*>(out + 8 * j + 2 * tq) =
+          pack_bf16x2(acc[j][2 * r], acc[j][2 * r + 1]);
+  }
+}
+
+template <int D>
+int launch_mma(const void* q, const void* k, const void* v, const void* g,
+               const void* lse, const void* delta, void* dq, int B, int H,
+               int Lq, int Lk, int causal, int q_offset, int kv_offset,
+               float scale, cudaStream_t stream) {
+  // 16-byte copies: every bf16 tensor must start on a 16-byte boundary
+  if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)g |
+       (uintptr_t)dq) % 16)
+    return -2;
+  const size_t smem = smem_bytes_mma<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_kernel_mma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(B * H, (Lq + BQ - 1) / BQ);
+  flash_bwd_dq_kernel_mma<D><<<grid, NTM, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(g),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<__nv_bfloat16*>(dq), H, Lq, Lk, causal, q_offset, kv_offset,
+      scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, dO and dq share it). Returns
 // the launch's cudaError_t (0 = launched); -1 for a (dtype, D) this build
-// has no instance for.
+// has no instance for, -2 for a bf16 tensor not 16-byte aligned.
 extern "C" int tdt_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 const void* g, const void* lse,
                                 const void* delta, void* dq, int B, int H,
@@ -246,8 +449,8 @@ extern "C" int tdt_flash_bwd_dq(const void* q, const void* k, const void* v,
   if (dtype == 0 && D == 128)
     return launch<float, 128>(q, k, v, g, lse, delta, dq, B, H, Lq, Lk, causal, q_offset, kv_offset, scale, s);
   if (dtype == 1 && D == 64)
-    return launch<__nv_bfloat16, 64>(q, k, v, g, lse, delta, dq, B, H, Lq, Lk, causal, q_offset, kv_offset, scale, s);
+    return launch_mma<64>(q, k, v, g, lse, delta, dq, B, H, Lq, Lk, causal, q_offset, kv_offset, scale, s);
   if (dtype == 1 && D == 128)
-    return launch<__nv_bfloat16, 128>(q, k, v, g, lse, delta, dq, B, H, Lq, Lk, causal, q_offset, kv_offset, scale, s);
+    return launch_mma<128>(q, k, v, g, lse, delta, dq, B, H, Lq, Lk, causal, q_offset, kv_offset, scale, s);
   return -1;
 }

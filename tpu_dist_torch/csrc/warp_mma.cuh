@@ -1,0 +1,117 @@
+// Warp-level tensor-core helpers for the bf16 kernels (sm_80 instructions,
+// built for sm_90a): mma.sync m16n8k16 bf16 -> fp32, ldmatrix x4 (plain and
+// .trans) and cp.async with zero fill. Include after <cuda_bf16.h> and
+// <stdint.h>.
+//
+// Fragment layouts (PTX ISA, mma.m16n8k16 with .bf16 operands), with
+// g = lane >> 2 and t = lane & 3; each 32-bit register holds two bf16, the
+// lower column (or k) in its low half:
+//   A (16 x 16, row-major): reg 0 = (g, 2t..2t+1), reg 1 = (g+8, 2t..2t+1),
+//                           reg 2 = (g, 2t+8..2t+9), reg 3 = (g+8, 2t+8..)
+//   B (16 x 8, k x n):      reg 0 = (k 2t..2t+1, n g), reg 1 = (k 2t+8.., n g)
+//   C (16 x 8, fp32):       c0, c1 = (g, 2t..2t+1), c2, c3 = (g+8, 2t..2t+1)
+// so a C fragment pair (n-tiles 2j, 2j+1) rounded to bf16 is the A fragment
+// of k-step j of a following product: the repack stays in registers.
+//
+// tools/cuda_emu.py defines TDT_CUDA_EMU and supplies software versions of
+// the helpers below (the warp-collective ones with these layouts), so the
+// kernels' indexing, masks and repacks run on the CPU.
+
+#ifndef TDT_WARP_MMA_CUH
+#define TDT_WARP_MMA_CUH
+
+#ifndef TDT_CUDA_EMU
+// two floats rounded to bf16 (nearest even, as astype) by one
+// cvt.rn.bf16x2.f32, lo in the low half
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// 2^x by the SFU (ex2.approx.ftz: about 2 ulp; results below 2^-126 flush
+// to zero, far under a bf16 p's resolution)
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Four 8x8 bf16 matrices from shared memory: lane l gives the 16-byte row
+// (l % 8) of matrix l / 8. r[i] gets matrix i's (row g, cols 2t, 2t+1);
+// with .trans, its (rows 2t, 2t+1, col g).
+__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t r[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// c (16 x 8) += a (16 x 16) . b (16 x 8) on the tensor cores, fp32 sums
+__device__ __forceinline__ void mma_bf16_16816(float c[4], const uint32_t a[4],
+                                               uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 16 (or 4) bytes global -> shared without passing through registers;
+// `bytes` below the size zero-fills the rest (0: zeros, src is not read)
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src,
+                                            int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+#endif  // TDT_CUDA_EMU
+
+// Rows r0 .. r0+ROWS-1 of a bf16 (L, D) matrix with row stride `stride`
+// into shared dst (row stride RS elements), as 16-byte cp.async copies
+// spread over NT threads; rows past L read as zeros.
+template <int ROWS, int D, int RS, int NT>
+__device__ __forceinline__ void cp_async_rows(__nv_bfloat16* dst,
+                                              const __nv_bfloat16* src,
+                                              long stride, int r0, int L,
+                                              int tid) {
+  constexpr int CH = D / 8;  // 16-byte chunks per row
+  for (int i = tid; i < ROWS * CH; i += NT) {
+    const int r = i / CH, c = (i % CH) * 8;
+    const bool in = r0 + r < L;
+    cp_async_16(dst + r * RS + c, src + (in ? r0 + r : 0) * stride + c,
+                in ? 16 : 0);
+  }
+}
+
+#endif  // TDT_WARP_MMA_CUH

@@ -18,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -35,6 +36,10 @@ SOURCES = {"flash_fwd": "flash_fwd.cu", "paged_decode": "paged_decode.cu",
            "flash_fwd_int8kv": "flash_fwd_int8kv.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# a source's own headers, inlined by tools/cuda_emu.py and hashed into the
+# library's name
+LOCAL_INCLUDE = re.compile(r'^#include "([\w.]+)"$', re.M)
 
 # what the C entries take: the dtype code of their float inputs/outputs and
 # the head dims the sources instantiate (anything else returns -1)
@@ -66,9 +71,20 @@ def nvcc() -> str:
                        "kernels are built from source on first use")
 
 
+def source_files(name: str) -> list:
+    """``csrc/<name>.cu`` and the local headers it includes
+    (``#include "x.cuh"``, resolved in ``csrc/``)."""
+    path = os.path.join(CSRC, SOURCES[name])
+    with open(path) as f:
+        headers = LOCAL_INCLUDE.findall(f.read())
+    return [path] + [os.path.join(CSRC, h) for h in headers]
+
+
 def _lib_path(name: str) -> str:
-    with open(os.path.join(CSRC, SOURCES[name]), "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for path in source_files(name):   # a header edit rebuilds its users
+        with open(path, "rb") as f:
+            digest.update(f.read())
     return os.path.join(build_dir(), f"{name}.{digest.hexdigest()[:12]}.so")
 
 

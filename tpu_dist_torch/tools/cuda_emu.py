@@ -7,14 +7,24 @@ per CUDA thread, ``std::barrier`` for ``__syncthreads`` and for warp
 shuffles, function-level statics for ``__shared__`` arrays (blocks run
 one after another), and a software bf16. The source is rewritten only
 mechanically (includes, ``extern __shared__``, ``__shared__``, and the
-``<<<...>>>`` launch). The library keeps the kernel's plain C entry
-point, so the same Python wrapper code drives it with CPU tensors and
-``stream=None``.
+``<<<...>>>`` launch); the local headers it includes (``csrc/*.cuh``) are
+inlined. The library keeps the kernel's plain C entry point, so the same
+Python wrapper code drives it with CPU tensors and ``stream=None``.
 
-What it proves: the kernel's indexing, masking, online softmax and
-reductions, against the plain versions, at small shapes. What it cannot:
-anything of the hardware (timing, shared-memory limits, bank conflicts,
-PTX such as mma/wgmma, which a kernel using them cannot emulate).
+The tensor-core helpers of ``csrc/warp_mma.cuh`` hold their PTX under
+``#ifndef TDT_CUDA_EMU``; this emulation defines that macro and gives
+software versions with the PTX ISA's fragment layouts, warp-collective
+through the per-warp barrier and scratch (as ``__shfl_xor_sync``):
+``mma_bf16_16816`` (m16n8k16, bf16 operands, fp32 sums), ``ldsm_x4`` and
+``ldsm_x4_trans`` (``ldmatrix`` x4), and ``cp_async_*`` as plain copies
+with the same zero fill (``commit``/``wait`` do nothing: the copy has
+landed when it returns).
+
+What it proves: the kernel's indexing, masking, online softmax,
+reductions and fragment repacks, against the plain versions, at small
+shapes. What it cannot: anything of the hardware (timing, shared-memory
+limits, bank conflicts, register spills, the tensor cores' own summation
+order).
 Usage::
 
     lib = build_emulated("flash_fwd")   # ctypes.CDLL, built on first use
@@ -46,7 +56,7 @@ using std::min;
 #define __device__
 #define __host__
 #define __forceinline__ inline
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 typedef int cudaError_t;
@@ -90,6 +100,72 @@ inline __nv_bfloat16 __float2bfloat16(float f) {
 inline __nv_bfloat16 __float2bfloat16_rn(float f) {
   return __float2bfloat16(f);
 }
+// warp_mma.cuh's PTX helpers, in software with the PTX ISA's layouts
+#define TDT_CUDA_EMU 1
+inline uint32_t pack_bf16x2(float lo, float hi) {
+  return (uint32_t)__float2bfloat16(lo).bits |
+         ((uint32_t)__float2bfloat16(hi).bits << 16);
+}
+inline float exp2_approx(float x) { return std::exp2(x); }
+inline const uint16_t* g_ldsm_row[64][32];
+inline uint32_t g_mma_a[64][32][4];
+inline uint32_t g_mma_b[64][32][2];
+inline float emu_bf16(uint32_t bits) {
+  return __bfloat162float(__nv_bfloat16{(uint16_t)(bits & 0xffff)});
+}
+inline void emu_ldsm(uint32_t r[4], const void* p, bool trans) {
+  const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
+  g_ldsm_row[w][lane] = static_cast<const uint16_t*>(p);
+  g_warp_bar[w]->arrive_and_wait();
+  const int g = lane >> 2, t = lane & 3;
+  for (int i = 0; i < 4; ++i) {  // matrix i: rows from lanes 8i .. 8i+7
+    const uint16_t* const* row = &g_ldsm_row[w][8 * i];
+    const uint16_t lo = trans ? row[2 * t][g] : row[g][2 * t];
+    const uint16_t hi = trans ? row[2 * t + 1][g] : row[g][2 * t + 1];
+    r[i] = (uint32_t)lo | ((uint32_t)hi << 16);
+  }
+  g_warp_bar[w]->arrive_and_wait();
+}
+inline void ldsm_x4(uint32_t r[4], const void* p) { emu_ldsm(r, p, false); }
+inline void ldsm_x4_trans(uint32_t r[4], const void* p) {
+  emu_ldsm(r, p, true);
+}
+inline void mma_bf16_16816(float c[4], const uint32_t a[4], uint32_t b0,
+                           uint32_t b1) {
+  const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int i = 0; i < 4; ++i) g_mma_a[w][lane][i] = a[i];
+  g_mma_b[w][lane][0] = b0;
+  g_mma_b[w][lane][1] = b1;
+  g_warp_bar[w]->arrive_and_wait();
+  auto A = [&](int m, int k) {  // A (16 x 16): held by lane (m%8)*4 + (k%8)/2
+    const uint32_t r = g_mma_a[w][(m % 8) * 4 + (k % 8) / 2][m / 8 + 2 * (k / 8)];
+    return emu_bf16(k & 1 ? r >> 16 : r);
+  };
+  auto B = [&](int k, int n) {  // B (16 x 8): held by lane n*4 + (k%8)/2
+    const uint32_t r = g_mma_b[w][n * 4 + (k % 8) / 2][k / 8];
+    return emu_bf16(k & 1 ? r >> 16 : r);
+  };
+  const int g = lane >> 2, t = lane & 3;
+  float out[4];
+  for (int i = 0; i < 4; ++i) {  // C: (g, 2t), (g, 2t+1), (g+8, 2t), (g+8, 2t+1)
+    const int m = g + 8 * (i / 2), n = 2 * t + i % 2;
+    float sum = 0.f;
+    for (int k = 0; k < 16; ++k) sum += A(m, k) * B(k, n);
+    out[i] = c[i] + sum;
+  }
+  g_warp_bar[w]->arrive_and_wait();
+  for (int i = 0; i < 4; ++i) c[i] = out[i];
+}
+inline void cp_async_16(void* dst, const void* src, int bytes) {
+  std::memset(dst, 0, 16);
+  if (bytes > 0) std::memcpy(dst, src, bytes);
+}
+inline void cp_async_4(void* dst, const void* src, int bytes) {
+  std::memset(dst, 0, 4);
+  if (bytes > 0) std::memcpy(dst, src, bytes);
+}
+inline void cp_async_commit() {}
+template <int N> inline void cp_async_wait() {}
 inline float __int2float_rn(int x) { return (float)x; }
 inline int __dp4a(int a, int b, int c) {  // four signed int8 products
   for (int i = 0; i < 4; ++i)
@@ -123,6 +199,8 @@ inline void emu_launch(dim3 grid, dim3 block, size_t smem,
 
 
 def _rewrite(src: str) -> str:
+    src = kernels.LOCAL_INCLUDE.sub(
+        lambda m: _read(os.path.join(kernels.CSRC, m.group(1))), src)
     src = src.replace("#include <cuda_bf16.h>", FAKE_CUDA_H)
     src = src.replace("#include <cuda_runtime.h>", "")
     src = src.replace("extern __shared__ float smem[];",
@@ -146,14 +224,26 @@ def cxx() -> str:
                        "emulation")
 
 
+def _read(path: str) -> str:
+    with open(path) as f:
+        return f.read()
+
+
 def build_emulated(name: str) -> ctypes.CDLL:
     """Compile ``csrc/<name>.cu`` against the emulation (cached by source
     hash under ``<build_dir>/emu``) and load it."""
-    with open(os.path.join(kernels.CSRC, kernels.SOURCES[name])) as f:
-        src = _rewrite(f.read())
+    return build_source(name, _read(os.path.join(kernels.CSRC,
+                                                 kernels.SOURCES[name])))
+
+
+def build_source(tag: str, source: str) -> ctypes.CDLL:
+    """Compile CUDA ``source`` (which may include ``csrc/*.cuh`` headers)
+    against the emulation, cached as ``<build_dir>/emu/<tag>.<hash>.so``,
+    and load it."""
+    src = _rewrite(source)
     digest = hashlib.sha1((src + FAKE_CUDA_H).encode()).hexdigest()[:12]
     out_dir = os.path.join(kernels.build_dir(), "emu")
-    lib = os.path.join(out_dir, f"{name}.{digest}.so")
+    lib = os.path.join(out_dir, f"{tag}.{digest}.so")
     if not os.path.isfile(lib):
         os.makedirs(out_dir, exist_ok=True)
         cpp = f"{lib}.{os.getpid()}.cpp"      # per process: parallel builds
@@ -165,7 +255,7 @@ def build_emulated(name: str) -> ctypes.CDLL:
                               "-lpthread"], capture_output=True, text=True)
         os.remove(cpp)
         if res.returncode != 0:
-            raise RuntimeError(f"emulated build of {name} failed:\n"
+            raise RuntimeError(f"emulated build of {tag} failed:\n"
                                f"{res.stderr}")
         os.replace(tmp, lib)
     return ctypes.CDLL(lib)
