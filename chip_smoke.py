@@ -19,10 +19,15 @@ CUDA or without the repository beside it. Phases:
    ``torch._fused_adamw_``, ``torch._fused_sgd_``; timed here and used
    nowhere in the port) and the least time the card could take. The sgd
    kernel is held at ResNet-50's largest leaf and across its 161 leaves as
-   one step, with the clip slot at 1 and at 0.3, and with a bf16 p. The
-   flash backward pair is also held at a ragged shape (B1 L1000 H8 D64,
-   q_offset 24) and at one with dead rows and keys (exact zeros), and its
-   records carry ptxas's spill stores per kernel instance. The fused int8
+   one step, with the clip slot at 1 and at 0.3, and with a bf16 p (within
+   one bf16 ulp of max(|plain|, |p|, lr |m'|): see BF16_ULP). The flash
+   forward is held at two serving prefills (B1 L1024 and L2048 H8 D128)
+   and at the training shape (B8 L2048, with its times), the flash
+   forward, the int8-K/V flash forward and the backward pair at a ragged
+   shape (B1 L1000 H8 D64, q_offset 24) and at one with dead rows (B1
+   Lq130 Lk200 H8 D128, kv_offset 40; exact zeros, and dead keys too for
+   the backward), and their records carry ptxas's spill stores and
+   registers per kernel instance. The fused int8
    matmul is held bit-equal at the dense shapes of a decode
    tick and a prefill (no one PyTorch call computes it: ``library_ms`` is
    null, and ``yardstick_ms`` times the bf16 ``torch.matmul`` of the
@@ -81,20 +86,35 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
 # kernel vs plain version, bf16 outputs: |err| <= BF16_TOL * (1 + |plain|)
-# elementwise -- the forward kernels round p and the output to bf16 where
-# the plain versions keep fp32: a few bf16 ulps (2^-8 relative each). The
-# backward kernels round p and ds at the same points as their plain
+# elementwise -- the flash forward kernel rounds p and the output to bf16
+# where the plain version keeps fp32: a few bf16 ulps (2^-8 relative each).
+# The backward kernels round p and ds at the same points as their plain
 # version, so what is left is fp32 summation order before the bf16 outputs
 # round: one ulp where a sum sits on a rounding boundary, within the same
 # bound
 BF16_TOL = 2e-2
+# int8-K/V flash forward with a bf16 q vs plain: the kernel keeps p' = p vs
+# at about 16 bits (a two-term bf16 split) where the plain version keeps
+# fp32, so its fp32 output is within about 2^-17 max|v| of the plain one
+# (at most 3e-5 for |v| <= 4) and the two bf16 roundings land at most one
+# bf16 ulp (2^-7 relative) apart: |err| <= INT8KV_ULP * |plain| +
+# INT8KV_ATOL elementwise
+INT8KV_ULP = 2.0 ** -7
+INT8KV_ATOL = 1e-4
 # AdamW and SGD kernels vs plain, fp32 throughout: the kernels contract
 # mul+add into fma where PyTorch rounds each, a few fp32 ulps (2^-23
 # relative each)
 FP32_TOL = 1e-6
-# SGD kernel vs plain with a bf16 p: the fp32 results differ by a few ulps
-# as above, so the stored bf16 p may round one bf16 ulp apart (2^-7
-# relative at most)
+# SGD kernel vs plain with a bf16 p: both form p' = p - lr m' in fp32 and
+# round it to bf16 once, but the kernel contracts the update into an fma
+# where PyTorch rounds lr m' first, so the two fp32 values of p' lie a few
+# fp32 ulps (2^-23 relative) of the larger term, max(|p|, lr |m'|), apart.
+# Where p' does not cancel, they round to the same or neighbouring bf16
+# values: one bf16 ulp of |p'| (2^-7 |p'| at most). Where it cancels
+# (|p'| far below |p|), those fp32 ulps can exceed a bf16 ulp of |p'|, and
+# the bf16 values differ by about the fp32 gap: a bound relative to |p'|
+# alone fails there, though the gap is far below 2^-7 max(|p|, lr |m'|).
+# One bound covers both: BF16_ULP * max(|plain|, |p|, lr |m'|)
 BF16_ULP = 2.0 ** -7
 # tiny fp32 trainer, card vs CPU: per-step losses within LOSS_TOL * (1 +
 # |loss|) -- matmul summation order differs (cuBLAS vs CPU), and Adam's
@@ -173,37 +193,91 @@ def pctl(xs, q):
     return xs[min(int(round(q / 100.0 * (len(xs) - 1))), len(xs) - 1)]
 
 
-def check_flash(torch, F, L, gen):
+def flash_bound(b, h, d, live, nbytes):
+    """(bound_ms, bound_by) of an attention forward over ``live`` (q, k)
+    pairs moving ``nbytes``: the larger of the bf16 tensor-core time and
+    the HBM time."""
+    flops = 4.0 * b * h * d * live
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def dead_rows_of(torch, lq, q_offset, kv_offset):
+    """The causal rows that see no key (exact zeros in every output)."""
+    return q_offset + torch.arange(lq, device="cuda") < kv_offset
+
+
+def check_flash_shape(torch, gen, b, lq, lk, h, d, q_offset=0, kv_offset=0):
+    """flash_fwd against flash_forward_plain at one bf16 causal shape: out
+    within BF16_TOL, lse within 1e-3, and the rows that see no key exact
+    zeros. Returns (record, (q, k, v))."""
     from tpu_dist_torch.ops import flash_attention as fa
 
-    b, h, d = 1, 8, 128
-    q, k, v = (torch.randn((b, L, h, d), generator=gen, device="cuda")
-               .to(torch.bfloat16) for _ in range(3))
-    out, lse = fa.flash_forward_cuda(q, k, v, causal=True)
-    ref, ref_lse = fa.flash_forward_plain(q, k, v, causal=True)
+    q, k, v = (torch.randn((b, n, h, d), generator=gen, device="cuda")
+               .to(torch.bfloat16) for n in (lq, lk, lk))
+    mask = (True, q_offset, kv_offset)
+    out, lse = fa.flash_forward_cuda(q, k, v, *mask)
+    ref, ref_lse = fa.flash_forward_plain(q, k, v, *mask)
     torch.cuda.synchronize()
+    shape = (f"B{b} Lq{lq} Lk{lk} H{h} D{d} bf16 causal q_offset "
+             f"{q_offset} kv_offset {kv_offset}")
     err, ok = bf16_err(torch, out, ref)
     lse_err = (lse - ref_lse).abs().max().item()
-    if not (ok and lse_err <= 1e-3):
-        raise AssertionError(f"flash_fwd L={L}: max|out err| {err} "
+    dead = dead_rows_of(torch, lq, q_offset, kv_offset)
+    zeros = bool((out[:, dead] == 0).all())
+    if not (ok and lse_err <= 1e-3 and zeros):
+        raise AssertionError(f"flash_fwd at {shape}: max|out err| {err} "
                              f"(tol {BF16_TOL} (1 + |ref|)), max|lse err| "
-                             f"{lse_err} (tol 1e-3)")
+                             f"{lse_err} (tol 1e-3), dead rows exact zeros: "
+                             f"{zeros}")
+    return {"shape": shape, "max_abs_err": err, "lse_max_abs_err": lse_err,
+            "tolerance": f"{BF16_TOL} * (1 + |plain|), lse 1e-3",
+            "dead_rows": int(dead.sum()), "dead_exact_zero": zeros}, (q, k, v)
+
+
+def time_flash(torch, F, rec, q, k, v, plain_iters=20):
+    """Adds the kernel's, the plain version's and SDPA's times at rec's
+    causal shape (q_offset = kv_offset = 0), and the bound, to ``rec``."""
+    from tpu_dist_torch.ops import flash_attention as fa
+
+    b, lq, h, d = q.shape
     qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    ms = time_ms(torch, lambda: fa.flash_forward_cuda(q, k, v, causal=True))
-    plain_ms = time_ms(torch, lambda: fa.flash_forward_plain(q, k, v, True))
-    lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+    rec["ms"] = time_ms(torch, lambda: fa.flash_forward_cuda(q, k, v, True))
+    rec["plain_ms"] = time_ms(torch, lambda: fa.flash_forward_plain(
+        q, k, v, True), iters=plain_iters)
+    rec["library_ms"] = time_ms(torch, lambda: F.scaled_dot_product_attention(
         qh, kh, vh, is_causal=True))
-    flops = 4.0 * b * h * d * L * (L + 1) / 2          # live causal pairs
-    nbytes = 4 * b * L * h * d * 2 + b * h * L * 4      # q, k, v, out + lse
-    bound_ms = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
-    return {"shape": f"B{b} L{L} H{h} D{d} bf16 causal",
-            "max_abs_err": err, "lse_max_abs_err": lse_err,
-            "tolerance": f"{BF16_TOL} * (1 + |plain|)", "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": ("operations" if flops / PEAK_BF16_FLOPS
-                         >= nbytes / PEAK_BYTES else "bytes"),
-            "library_ms": lib_ms,
-            "library": "scaled_dot_product_attention(is_causal=True)"}
+    rec["library"] = "scaled_dot_product_attention(is_causal=True)"
+    nbytes = 4 * b * lq * h * d * 2 + b * h * lq * 4    # q, k, v, out + lse
+    rec["bound_ms"], rec["bound_by"] = flash_bound(
+        b, h, d, live_causal_pairs(lq, lq), nbytes)
+    return rec
+
+
+def check_flash(torch, F, L, gen):
+    """flash_fwd at B1 L H8 D128 bf16 causal (a serving prefill), from the
+    shared generator, with its times."""
+    rec, qkv = check_flash_shape(torch, gen, 1, L, L, 8, 128)
+    rec["shape"] = f"B1 L{L} H8 D128 bf16 causal"
+    return time_flash(torch, F, rec, *qkv)
+
+
+def check_flash_more(torch, F):
+    """flash_fwd at the training shape (B8 L2048 H8 D128 bf16 causal) with
+    its times, at a ragged shape (B1 L1000 H8 D64, q_offset 24) and at one
+    with dead rows (B1 Lq130 Lk200 H8 D128, kv_offset 40), from a generator
+    of their own: the later phases' inputs stay as they were."""
+    own = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    train, qkv = check_flash_shape(torch, own, 8, 2048, 2048, 8, 128)
+    train["shape"] = "B8 L2048 H8 D128 bf16 causal (training)"
+    train = time_flash(torch, F, train, *qkv, plain_iters=5)
+    del qkv
+    return [train,
+            check_flash_shape(torch, own, 1, 1000, 1000, 8, 64,
+                              q_offset=24)[0],
+            check_flash_shape(torch, own, 1, 130, 200, 8, 128,
+                              kv_offset=40)[0]]
 
 
 def check_paged(torch, F, gen):
@@ -281,7 +355,7 @@ def check_flash_bwd_shape(torch, gen, b, lq, lk, h, d, q_offset=0,
             raise AssertionError(f"flash backward {name} at {shape}: "
                                  f"max|err| {errs[name]} (tol {BF16_TOL} "
                                  f"(1 + |ref|))")
-    dead_rows = q_offset + torch.arange(lq, device="cuda") < kv_offset
+    dead_rows = dead_rows_of(torch, lq, q_offset, kv_offset)
     dead_keys = kv_offset + torch.arange(lk, device="cuda") > q_offset + lq - 1
     zeros = (bool((got[0][:, dead_rows] == 0).all())
              and all(bool((t[:, dead_keys] == 0).all()) for t in got[1:]))
@@ -295,29 +369,32 @@ def check_flash_bwd_shape(torch, gen, b, lq, lk, h, d, q_offset=0,
     return rec, (q, k, v, g, out, lse)
 
 
-def ptxas_spills(kernels, name):
-    """{kernel instance: bytes of spill stores} from ptxas -v's report in
-    the build log of ``csrc/<name>.cu`` (None without a log)."""
+def ptxas_report(kernels, name):
+    """{"spill_stores": {kernel instance: bytes}, "registers": {kernel
+    instance: count}} from ptxas -v's report in the build log of
+    ``csrc/<name>.cu`` (None for each without a log)."""
     path = os.path.join(kernels.build_dir(), f"{name}.log")
     if not os.path.isfile(path):
-        return None
-    spills, fn = {}, None
+        return {"spill_stores": None, "registers": None}
+    spills, regs, label = {}, {}, None
     with open(path) as f:
         for line in f:
             m = re.search(r"Compiling entry function '(\w+)'", line)
             if m:
-                fn = m.group(1)
-                continue
-            m = re.search(r"(\d+) bytes spill stores", line)
-            if m and fn:
                 # the name follows its length in the mangled symbol
-                i = re.search(r"\d(flash_bwd_d\w*?_kernel(?:_mma)?)I(f?)"
+                fn = m.group(1)
+                i = re.search(r"\d(flash_\w*?_kernel(?:_mma)?)I(f?)"
                               r"Li(\d+)E", fn)
                 label = (f"{i.group(1)}<{'float, ' if i.group(2) else ''}"
                          f"{i.group(3)}>" if i else fn)
+                continue
+            m = re.search(r"(\d+) bytes spill stores", line)
+            if m and label:
                 spills[label] = int(m.group(1))
-                fn = None
-    return spills
+            m = re.search(r"Used (\d+) registers", line)
+            if m and label:
+                regs[label] = int(m.group(1))
+    return {"spill_stores": spills, "registers": regs}
 
 
 def check_flash_bwd(torch, F, gen):
@@ -374,8 +451,7 @@ def check_flash_bwd(torch, F, gen):
             "note": "plain_ms and library_ms cover dq, dk and dv together",
             "library": "scaled_dot_product_attention(is_causal=True) "
                        "backward (autograd.grad)",
-            "more_shapes": more,
-            "spill_stores": ptxas_spills(kernels, name)}
+            "more_shapes": more, **ptxas_report(kernels, name)}
     return recs
 
 
@@ -440,15 +516,23 @@ def sgd_case(torch, p, g, m, row, tol):
         ps.fused_sgd_cuda(got[0][i], g[i], got[1][i], row)
         ps.fused_sgd_plain(ref[0][i], g[i], ref[1][i], row)
     torch.cuda.synchronize()
+    lr = float(row[0])
     err = 0.0
-    for a, r in zip([*got[0], *got[1]], [*ref[0], *ref[1]]):
-        diff = (a.float() - r.float()).abs()
-        err = max(err, diff.max().item())
-        bound = (BF16_ULP * r.float().abs() if a.dtype == torch.bfloat16
-                 else FP32_TOL * (1 + r.abs()))
-        if not bool((diff <= bound).all()):
-            raise AssertionError(f"sgd {tuple(a.shape)} {a.dtype}: max|err| "
-                                 f"{diff.max().item()} (tol {tol})")
+    for i in range(len(p)):
+        for a, r in ((got[0][i], ref[0][i]), (got[1][i], ref[1][i])):
+            diff = (a.float() - r.float()).abs()
+            err = max(err, diff.max().item())
+            if a.dtype == torch.bfloat16:   # the terms of p' = p - lr m'
+                big = torch.maximum(torch.maximum(
+                    r.float().abs(), p[i].float().abs()),
+                    lr * ref[1][i].abs())
+                bound = BF16_ULP * big
+            else:
+                bound = FP32_TOL * (1 + r.abs())
+            if not bool((diff <= bound).all()):
+                raise AssertionError(f"sgd {tuple(a.shape)} {a.dtype}: "
+                                     f"max|err| {diff.max().item()} (tol "
+                                     f"{tol})")
     return err
 
 
@@ -479,7 +563,7 @@ def check_sgd(torch, gen):
             "step_cs0.3": sgd_case(torch, p, g, m, row_cs, fp32),
             "step_bf16_p_cs0.3": sgd_case(
                 torch, [t.to(torch.bfloat16) for t in p], g, m, row_cs,
-                "one bf16 ulp of plain")}
+                "one bf16 ulp of max(|plain|, |p|, lr |m'|)")}
 
     def step_kernel():
         for i in range(len(p)):
@@ -571,43 +655,71 @@ def check_fused_quant(torch, gen):
     return recs
 
 
+def check_int8kv_shape(torch, gen, b, lq, lk, h, d, q_offset=0,
+                       kv_offset=0):
+    """flash_fwd_int8kv against int8kv_flash_plain at one causal shape,
+    bf16 q: within INT8KV_ULP |plain| + INT8KV_ATOL, and the rows that see
+    no key exact zeros. Returns (record, (q, kv))."""
+    from tpu_dist_torch.ops import flash_attention as fa
+
+    q = torch.randn((b, lq, h, d), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    kv = fa.quantize_kv(*(torch.randn((b, lk, h, d), generator=gen,
+                                      device="cuda") for _ in range(2)))
+    mask = (True, q_offset, kv_offset)
+    out = fa.int8kv_flash_cuda(q, kv, *mask)
+    ref = fa.int8kv_flash_plain(q, kv, *mask)
+    torch.cuda.synchronize()
+    shape = (f"B{b} Lq{lq} Lk{lk} H{h} D{d} bf16 q, int8 K/V, causal "
+             f"q_offset {q_offset} kv_offset {kv_offset}")
+    diff = (out.float() - ref.float()).abs()
+    err = diff.max().item()
+    ok = bool((diff <= INT8KV_ULP * ref.float().abs() + INT8KV_ATOL).all())
+    dead = dead_rows_of(torch, lq, q_offset, kv_offset)
+    zeros = bool((out[:, dead] == 0).all())
+    if not (ok and zeros):
+        raise AssertionError(f"flash_fwd_int8kv at {shape}: max|err| {err} "
+                             f"(tol {INT8KV_ULP} |ref| + {INT8KV_ATOL}), "
+                             f"dead rows exact zeros: {zeros}")
+    return {"shape": shape, "max_abs_err": err,
+            "tolerance": f"{INT8KV_ULP} * |plain| + {INT8KV_ATOL}",
+            "dead_rows": int(dead.sum()), "dead_exact_zero": zeros}, (q, kv)
+
+
 def check_flash_int8kv(torch, F, gen):
     """The int8-K/V flash forward against int8kv_flash_plain at B=1 L=2048
-    H=8 D=128, bf16 q, causal."""
+    H=8 D=128, bf16 q, causal, from the shared generator, with its times;
+    then a ragged shape (B1 L1000 H8 D64, q_offset 24) and one with dead
+    rows (B1 Lq130 Lk200 H8 D128, kv_offset 40) from their own."""
+    from tpu_dist_torch import kernels
     from tpu_dist_torch.ops import flash_attention as fa
 
     b, L, h, d = 1, 2048, 8, 128
-    q = torch.randn((b, L, h, d), generator=gen, device="cuda").to(
-        torch.bfloat16)
-    kv = fa.quantize_kv(*(torch.randn((b, L, h, d), generator=gen,
-                                      device="cuda") for _ in range(2)))
-    out = fa.int8kv_flash_cuda(q, kv, causal=True)
-    ref = fa.int8kv_flash_plain(q, kv, causal=True)
-    torch.cuda.synchronize()
-    err, ok = bf16_err(torch, out, ref)
-    if not ok:
-        raise AssertionError(f"flash_fwd_int8kv: max|err| {err} (tol "
-                             f"{BF16_TOL} (1 + |ref|))")
+    rec, (q, kv) = check_int8kv_shape(torch, gen, b, L, L, h, d)
+    rec["shape"] = f"B{b} L{L} H{h} D{d} bf16 q, int8 K/V, causal"
     kq, ks, vq, vs = kv
     kd, vd = ((t.float() * sc[..., None]).to(torch.bfloat16)
               .transpose(1, 2).contiguous() for t, sc in ((kq, ks), (vq, vs)))
     qh = q.transpose(1, 2).contiguous()
-    ms = time_ms(torch, lambda: fa.int8kv_flash_cuda(q, kv, causal=True))
-    plain_ms = time_ms(torch, lambda: fa.int8kv_flash_plain(q, kv, True))
-    lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+    rec["ms"] = time_ms(torch, lambda: fa.int8kv_flash_cuda(q, kv,
+                                                            causal=True))
+    rec["plain_ms"] = time_ms(torch, lambda: fa.int8kv_flash_plain(q, kv,
+                                                                   True))
+    rec["library_ms"] = time_ms(torch, lambda: F.scaled_dot_product_attention(
         qh, kd, vd, is_causal=True))
-    flops = 4.0 * b * h * d * L * (L + 1) / 2          # live causal pairs
-    # q and out bf16, int8 K/V, their fp32 row scales
+    rec["library"] = ("scaled_dot_product_attention(is_causal=True) on the "
+                      "dequantized bf16 K/V")
+    # the reference's work (the kernel's hi/lo split does 1.5x of it); q
+    # and out bf16, int8 K/V, their fp32 row scales
     nbytes = 2 * b * L * h * d * 2 + 2 * b * L * h * d + 2 * b * L * h * 4
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
-    return {"shape": f"B{b} L{L} H{h} D{d} bf16 q, int8 K/V, causal",
-            "max_abs_err": err, "tolerance": f"{BF16_TOL} * (1 + |plain|)",
-            "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_ops, t_bytes) * 1e3,
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": lib_ms,
-            "library": "scaled_dot_product_attention(is_causal=True) on "
-                       "the dequantized bf16 K/V"}
+    rec["bound_ms"], rec["bound_by"] = flash_bound(
+        b, h, d, live_causal_pairs(L, L), nbytes)
+    own = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    rec["more_shapes"] = [
+        check_int8kv_shape(torch, own, 1, 1000, 1000, 8, 64, q_offset=24)[0],
+        check_int8kv_shape(torch, own, 1, 130, 200, 8, 128, kv_offset=40)[0]]
+    rec.update(ptxas_report(kernels, "flash_fwd_int8kv"))
+    return rec
 
 
 def run_trainer(cfg, device, init_params=None):
@@ -1076,6 +1188,7 @@ def main():
     # 3. kernels against their plain versions
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     flash = {L: check_flash(torch, F, L, gen) for L in (1024, 2048)}
+    flash_more = check_flash_more(torch, F)
     paged = check_paged(torch, F, gen)
     bwd = check_flash_bwd(torch, F, gen)
     adamw = check_adamw(torch, gen)
@@ -1083,6 +1196,7 @@ def main():
     quant = check_fused_quant(torch, gen)
     int8kv = check_flash_int8kv(torch, F, gen)
     log(f"phase 3 kernels: flash_fwd {json.dumps(flash)}")
+    log(f"phase 3 kernels: flash_fwd more shapes {json.dumps(flash_more)}")
     log(f"phase 3 kernels: paged_decode {json.dumps(paged)}")
     log(f"phase 3 kernels: flash_bwd {json.dumps(bwd)}")
     log(f"phase 3 kernels: adamw {json.dumps(adamw)}")
@@ -1168,10 +1282,12 @@ def main():
         if kname == "sgd":
             entry.update({k: sgd[k] for k in (
                 "ms_is", "eager_ms", "errors", "more_shapes")})
-        if kname in ("flash_bwd_dq", "flash_bwd_dkv"):
-            entry.update({k: rec[k] for k in ("more_shapes", "spill_stores")})
+        if kname in ("flash_bwd_dq", "flash_bwd_dkv", "flash_fwd_int8kv"):
+            entry.update({k: rec[k] for k in (
+                "more_shapes", "spill_stores", "registers")})
         if kname == "flash_fwd":
-            entry["more_shapes"] = [flash[2048]]
+            entry["more_shapes"] = [flash[2048], *flash_more]
+            entry.update(ptxas_report(kernels, "flash_fwd"))
             entry["launches_by_path"] = {
                 "serving": serve_launches["flash_fwd"],
                 "training": train_launches["flash_fwd"],

@@ -52,6 +52,8 @@ def _close(out, ref, dtype):
     (1, 64, 64, 2, 128, True, 0, 40),     # fully masked rows: exact zeros
     (2, 40, 96, 1, 64, True, 56, 0),
     (1, 1, 1, 1, 128, True, 0, 0),
+    (2, 130, 200, 2, 64, True, 0, 40),    # several q tiles, dead rows
+    (1, 1000, 1000, 2, 128, False, 24, 0),
 ], ids=str)
 def test_flash_kernel_matches_plain(cuda, dtype, case):
     b, lq, lk, h, d, causal, qo, ko = case
@@ -185,6 +187,32 @@ def test_adamw_kernel_matches_plain(cuda, dtype):
     for a, r in zip((p, m, v), ref):
         diff = (a.float() - r.float()).abs()
         assert bool((diff <= tol * (1 + r.float().abs())).all())
+
+
+def test_flash_entries_refuse_misaligned_bf16_views(cuda):
+    """A contiguous bf16 view at an odd element offset: the forward, the
+    backward and the int8-K/V forward raise ValueError naming the 16-byte
+    rule before any launch."""
+    n = 8 * 64
+    view = torch.randn(n + 1, device=cuda).to(torch.bfloat16)[1:]
+    bad = view.view(1, 8, 1, 64)
+    good = bad.clone()
+    kernels.reset_launches()
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        fa.flash_forward_cuda(bad, good, good)
+    out, lse = fa.flash_forward_cuda(good, good, good)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        fa.flash_backward_cuda(good, good, good, out, lse, bad)
+    kv = fa.quantize_kv(good, good)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        fa.int8kv_flash_cuda(bad, kv)
+    kq = torch.empty(n + 1, dtype=torch.int8, device=cuda)[1:]
+    kq.copy_(kv[0].reshape(-1))
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        fa.int8kv_flash_cuda(good, (kq.view(1, 8, 1, 64), *kv[1:]))
+    assert kernels.LAUNCHES["flash_fwd"] == 1
+    assert kernels.LAUNCHES["flash_bwd_dq"] == 0
+    assert kernels.LAUNCHES["flash_fwd_int8kv"] == 0
 
 
 def test_backward_wrappers_count_launches_and_refuse_bad_input(cuda):
@@ -355,6 +383,8 @@ def test_fused_quant_kernel_matches_plain(cuda, dtype, m, k, n):
     (1, 70, 130, 3, 128, False, 0, 0),
     (1, 64, 64, 2, 128, True, 0, 40),     # fully masked rows: exact zeros
     (2, 40, 96, 1, 64, True, 56, 0),
+    (2, 130, 200, 2, 64, True, 0, 40),    # several q tiles, dead rows
+    (1, 1000, 1000, 2, 128, False, 24, 0),
 ], ids=str)
 def test_int8kv_flash_kernel_matches_plain(cuda, dtype, case):
     b, lq, lk, h, d, causal, qo, ko = case

@@ -92,12 +92,12 @@ def test_quantize_kv_matches_reference():
             np.testing.assert_allclose(np.asarray(a), b.numpy(), rtol=1e-7)
 
 
-def test_backward_is_refused_and_names_the_tpu_kernels():
-    """The refusal ended when the backward kernels (the TPU's
-    ``_fa_bwd_dq_kernel`` and ``_fa_bwd_dkv_kernel``) were ported: a call
-    autograd records now goes through ``FlashAttention``, whose gradients
-    equal ``flash_backward_plain`` (tests/test_torch_flash_bwd.py holds
-    them against the reference), and an inference call records nothing."""
+def test_autograd_goes_through_flash_attention_backward():
+    """A call autograd records goes through ``FlashAttention``, whose
+    gradients equal ``flash_backward_plain`` (the port of the TPU's
+    ``_fa_bwd_dq_kernel`` and ``_fa_bwd_dkv_kernel``;
+    tests/test_torch_flash_bwd.py holds them against the reference), and an
+    inference call records nothing."""
     q, k, v = (torch.from_numpy(a).requires_grad_()
                for a in _qkv(1, 1, 8, 8, 1, 8))
     out = tfa.flash_attention_fn()(q, k, v)

@@ -3,17 +3,20 @@ compiled by the host C++ compiler against the emulation of
 ``tpu_dist_torch/tools/cuda_emu.py`` (a thread per CUDA thread) and driven
 through the wrappers' own launch code with CPU tensors, against the plain
 versions. fp32 within 1e-5 (summation order only); bf16 within
-2e-2 * (1 + |plain|) (the forward kernels round p and the output to bf16;
+2e-2 * (1 + |plain|) (the forward kernel rounds p and the output to bf16;
 the backward kernels round p and ds where their plain version does, so
 summation order is all that is left before the bf16 outputs round). The
-bf16 backward kernels run on the tensor cores through ``csrc/warp_mma.cuh``,
+bf16 flash kernels run on the tensor cores through ``csrc/warp_mma.cuh``,
 whose mma/ldmatrix/cp.async helpers the emulation supplies in software
-(held against ``torch.matmul`` here on one tile). The
+(held against ``torch.matmul`` here on one tile, with the header's quad
+reductions, bf16 split and int8 widening). The
 AdamW and SGD kernels within 1e-6 * (1 + |plain|) (fp32, the same
 operations; a bf16 p rounds once, from the same fp32 value). The fused
 int8 matmul bit-equal (int32 sums are exact, the scales and the dequant
 the same fp32 operations); the int8-K/V flash forward as the flash
-forward (it keeps p in fp32, so bf16 rounds only the output).
+forward, and its bf16 instance also within one bf16 ulp of the plain value
+plus 1e-4 (it keeps p at about 16 bits, so the bf16 output's rounding
+is nearly all that is left).
 The hardware itself is checked by tests/test_torch_cuda.py on the card."""
 
 import ctypes
@@ -71,6 +74,13 @@ def _close(out, ref, dtype):
     (torch.float32, (1, 64, 64, 1, 128, True, 0, 40)),   # masked rows
     (torch.float32, (1, 40, 96, 1, 64, True, 56, 0)),
     (torch.bfloat16, (1, 80, 80, 1, 128, True, 0, 0)),
+    # bf16 runs flash_fwd_kernel_mma through the emulated mma, ldmatrix and
+    # cp.async helpers; Lq >= 130 gives several q tiles, run longest first
+    (torch.bfloat16, (2, 130, 200, 2, 64, True, 0, 40)),  # dead rows
+    (torch.bfloat16, (1, 70, 130, 1, 64, False, 0, 0)),   # ragged, full
+    (torch.bfloat16, (1, 40, 96, 1, 128, True, 56, 0)),   # q after kv prefix
+    (torch.bfloat16, (1, 130, 130, 1, 128, False, 24, 0)),
+    (torch.bfloat16, (1, 192, 192, 1, 64, True, 0, 0)),
 ], ids=str)
 def test_flash_kernel_source_matches_plain(emu, dtype, case):
     b, lq, lk, h, d, causal, qo, ko = case
@@ -82,6 +92,54 @@ def test_flash_kernel_source_matches_plain(emu, dtype, case):
     _close(out, ref, dtype)
     torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-5)
     assert torch.equal((ref == 0).all(-1), (out == 0).all(-1))
+    if ko > qo:   # rows that see no key: exact zeros
+        dead = (qo + torch.arange(lq)) < ko
+        assert dead.any() and bool((out[:, dead] == 0).all())
+
+
+@pytest.mark.parametrize("d,causal", [(64, True), (128, False)], ids=str)
+def test_flash_mma_kernel_source_matches_pallas_forward(emu, d, causal):
+    """The same numpy inputs through the JAX package's Pallas forward
+    (interpret mode) and the emulated bf16 tensor-core kernel: out within
+    2e-2 * (1 + |ref|) (summation order, and p rounds to bf16 on both
+    sides), lse within 1e-4."""
+    pytest.importorskip("jax")
+    pytest.importorskip("flax")   # the reference package needs both
+    import jax.numpy as jnp
+    import numpy as np
+
+    from tpu_dist.ops import flash_attention as jfa
+
+    b, lq, lk, h, qo = 1, 128, 128, 2, 0
+    rng = np.random.default_rng(d + causal)
+    q, k, v = (rng.standard_normal((b, n, h, d)).astype(np.float32)
+               for n in (lq, lk, lk))
+    jq, jk, jv = (jnp.asarray(x, dtype=jnp.bfloat16) for x in (q, k, v))
+    jout, jlse = jfa._fa_forward(jq, jk, jv, causal, qo, 0, 64, 64, True)
+    tq, tk, tv = (torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v))
+    out, lse = fa._launch(emu["flash"], tq, tk, tv, causal, qo, 0, None)
+    ref = torch.from_numpy(np.array(jout.astype(jnp.float32)))
+    _close(out, ref, torch.bfloat16)
+    torch.testing.assert_close(
+        lse, torch.from_numpy(np.array(jlse)[..., 0]), rtol=0, atol=1e-4)
+
+
+def test_misaligned_bf16_views_are_named_before_and_at_the_launch(emu):
+    """A contiguous bf16 view at an odd element offset: ``_check_aligned``
+    names it and the 16-byte rule; past the checks, the C entry's last
+    guard returns -2 and the wrapper names alignment."""
+    view = torch.empty(64 + 1, dtype=torch.bfloat16)[1:]
+    with pytest.raises(ValueError, match=r"q .*16-byte boundary"):
+        fa._check_aligned("flash kernel", q=view)
+    fa._check_aligned("flash kernel", q=view.clone())   # a copy is aligned
+    fa._check_aligned("flash backward", 4,
+                      lse=torch.empty(3, dtype=torch.float32)[1:])
+    q = view.view(1, 1, 1, 64)
+    with pytest.raises(RuntimeError, match="16-byte aligned"):
+        fa._launch(emu["flash"], q, q.clone(), q.clone(), True, 0, 0, None)
+    kv = fa.quantize_kv(*(torch.zeros((1, 1, 1, 64)),) * 2)
+    with pytest.raises(RuntimeError, match="16-byte aligned"):
+        fa._launch_int8kv(emu["int8kv"], q, kv, True, 0, 0, None)
 
 
 @pytest.mark.parametrize("dtype,d,lengths", [
@@ -136,58 +194,103 @@ def test_flash_backward_kernel_sources_match_plain(emu, dtype, case):
 
 
 # one warp: C (16 x 8, fp32) = A (16 x 16) . B through the emulated
-# warp_mma.cuh helpers. B is stored n-major (8 x 16, read by ldmatrix, as K
-# in S = Q K^T) or k-major (16 x 8, read by ldmatrix.trans, as K in ds . K)
+# warp_mma.cuh helpers, then C's row max and sum by the quad reductions.
+# mode 0: B stored n-major (8 x 16, read by ldmatrix, as K in S = Q K^T);
+# 1: k-major (16 x 8, read by ldmatrix.trans, as V in p . V); 2: as 1 with
+# an fp32 A split by split_bf16x2 into two mma (the int8-K/V kernel's p');
+# 3: as 1 with B given as int8 and widened by widen_int8x4
 _MMA_TILE_SRC = r"""
 #include <cuda_bf16.h>
 #include <stdint.h>
 #include "warp_mma.cuh"
 
-__global__ void mma_tile_kernel(const __nv_bfloat16* a,
-                                const __nv_bfloat16* b, float* c,
-                                int k_major) {
+__global__ void mma_tile_kernel(const void* a, const void* b, float* c,
+                                float* stats, int mode) {
   extern __shared__ float smem[];
   __nv_bfloat16* sa = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* sb = sa + 16 * 16;
   const int lane = threadIdx.x;
-  for (int i = lane; i < 16 * 16; i += 32) sa[i] = a[i];
-  for (int i = lane; i < 16 * 8; i += 32) sb[i] = b[i];
+  const int g = lane >> 2, t = lane & 3;
+  if (mode != 2)
+    for (int i = lane; i < 16 * 16; i += 32)
+      sa[i] = static_cast<const __nv_bfloat16*>(a)[i];
+  if (mode == 3) {   // 4 int8 a lane -> 4 bf16
+    uint32_t* d = reinterpret_cast<uint32_t*>(sb + 4 * lane);
+    widen_int8x4(static_cast<const uint32_t*>(b)[lane], d[0], d[1]);
+  } else {
+    for (int i = lane; i < 16 * 8; i += 32)
+      sb[i] = static_cast<const __nv_bfloat16*>(b)[i];
+  }
   __syncthreads();
   uint32_t fa[4], fb[4];
-  ldsm_x4(fa, sa + (lane % 16) * 16 + (lane / 16) * 8);
-  if (k_major)   // matrices 0, 1: k rows 0-7, 8-15 (lanes 16-31 repeat)
-    ldsm_x4_trans(fb, sb + (lane % 16) * 8);
-  else           // matrices 0, 1: n rows 0-7 at k 0-7, then k 8-15
+  if (mode == 0)   // matrices 0, 1: n rows 0-7 at k 0-7, then k 8-15
     ldsm_x4(fb, sb + (lane % 8) * 16 + ((lane / 8) % 2) * 8);
+  else             // matrices 0, 1: k rows 0-7, 8-15 (lanes 16-31 repeat)
+    ldsm_x4_trans(fb, sb + (lane % 16) * 8);
   float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  mma_bf16_16816(acc, fa, fb[0], fb[1]);
-  const int g = lane >> 2, t = lane & 3;
+  if (mode == 2) {  // A register i: row g + 8 (i % 2), cols 2t + 8 (i / 2)
+    const float* a32 = static_cast<const float*>(a);
+    uint32_t hi[4], lo[4];
+    for (int i = 0; i < 4; ++i) {
+      const int r = g + 8 * (i % 2), k = 2 * t + 8 * (i / 2);
+      split_bf16x2(a32[r * 16 + k], a32[r * 16 + k + 1], hi[i], lo[i]);
+    }
+    mma_bf16_16816(acc, hi, fb[0], fb[1]);
+    mma_bf16_16816(acc, lo, fb[0], fb[1]);
+  } else {
+    ldsm_x4(fa, sa + (lane % 16) * 16 + (lane / 16) * 8);
+    mma_bf16_16816(acc, fa, fb[0], fb[1]);
+  }
   for (int i = 0; i < 4; ++i) c[(g + 8 * (i / 2)) * 8 + 2 * t + i % 2] = acc[i];
+  for (int r = 0; r < 2; ++r) {
+    const float mx = quad_max(fmaxf(acc[2 * r], acc[2 * r + 1]));
+    const float sm = quad_sum(acc[2 * r] + acc[2 * r + 1]);
+    if (t == 0) {
+      stats[g + 8 * r] = mx;
+      stats[16 + g + 8 * r] = sm;
+    }
+  }
 }
 
 extern "C" int tdt_mma_tile(const void* a, const void* b, void* c,
-                            int k_major) {
+                            void* stats, int mode) {
   mma_tile_kernel<<<1, 32, 1024, nullptr>>>(
-      static_cast<const __nv_bfloat16*>(a), static_cast<const __nv_bfloat16*>(b),
-      static_cast<float*>(c), k_major);
+      a, b, static_cast<float*>(c), static_cast<float*>(stats), mode);
   return 0;
 }
 """
 
 
-@pytest.mark.parametrize("k_major", [False, True], ids=["ldmatrix",
-                                                         "ldmatrix.trans"])
-def test_emulated_mma_helpers_match_matmul(emu, k_major):
+@pytest.mark.parametrize("mode", [0, 1, 2, 3], ids=[
+    "ldmatrix", "ldmatrix.trans", "split_bf16x2", "widen_int8x4"])
+def test_emulated_mma_helpers_match_matmul(emu, mode):
     fn = cuda_emu.build_source("mma_tile", _MMA_TILE_SRC).tdt_mma_tile
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int]
-    gen = torch.Generator().manual_seed(16 + k_major)
-    a = torch.randn((16, 16), generator=gen).to(torch.bfloat16)
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int]
+    gen = torch.Generator().manual_seed(16 + mode)
+    a = torch.randn((16, 16), generator=gen)
     b = torch.randn((16, 8), generator=gen).to(torch.bfloat16)
-    stored = b.contiguous() if k_major else b.t().contiguous()
+    if mode == 3:
+        b = torch.randint(-128, 128, (16, 8), generator=gen,
+                          dtype=torch.int8)
+    if mode != 2:
+        a = a.to(torch.bfloat16)
+    stored = b.t().contiguous() if mode == 0 else b.contiguous()
     c = torch.full((16, 8), float("nan"))
-    assert fn(a.data_ptr(), stored.data_ptr(), c.data_ptr(), int(k_major)) == 0
-    # bf16 products are exact in fp32; only the summation order differs
-    torch.testing.assert_close(c, a.float() @ b.float(), rtol=1e-6,
+    stats = torch.full((32,), float("nan"))
+    assert fn(a.data_ptr(), stored.data_ptr(), c.data_ptr(),
+              stats.data_ptr(), mode) == 0
+    ref = a.float() @ b.float()
+    if mode == 2:
+        # hi + lo carry about 16 bits of each fp32 element of A (one bf16
+        # alone would leave about 2^-9 of |a| |b|)
+        assert bool(((c - ref).abs() <= 2.0 ** -17 *
+                     (a.abs() @ b.float().abs())).all())
+    else:
+        # bf16 (and widened int8) products are exact in fp32; only the
+        # summation order differs
+        torch.testing.assert_close(c, ref, rtol=1e-6, atol=1e-5)
+    torch.testing.assert_close(stats[:16], c.amax(dim=1), rtol=0, atol=0)
+    torch.testing.assert_close(stats[16:], c.sum(dim=1), rtol=1e-6,
                                atol=1e-5)
 
 
@@ -266,6 +369,12 @@ def test_fused_quant_kernel_source_matches_plain(emu, dtype, m, k, n):
     (torch.float32, (1, 64, 64, 1, 128, True, 0, 40)),   # masked rows
     (torch.float32, (1, 40, 96, 1, 64, True, 56, 0)),
     (torch.bfloat16, (1, 80, 80, 1, 128, True, 0, 0)),
+    # bf16 q runs flash_fwd_int8kv_kernel_mma (emulated helpers)
+    (torch.bfloat16, (2, 130, 200, 2, 64, True, 0, 40)),  # dead rows
+    (torch.bfloat16, (1, 70, 130, 1, 64, False, 0, 0)),   # ragged, full
+    (torch.bfloat16, (1, 40, 96, 1, 128, True, 56, 0)),   # q after kv prefix
+    (torch.bfloat16, (1, 130, 130, 1, 128, False, 24, 0)),
+    (torch.bfloat16, (1, 192, 192, 1, 64, True, 0, 0)),
 ], ids=str)
 def test_int8kv_flash_kernel_source_matches_plain(emu, dtype, case):
     b, lq, lk, h, d, causal, qo, ko = case
@@ -278,3 +387,9 @@ def test_int8kv_flash_kernel_source_matches_plain(emu, dtype, case):
     assert out.dtype == dtype
     _close(out, ref, dtype)
     assert torch.equal((ref == 0).all(-1), (out == 0).all(-1))
+    if dtype == torch.bfloat16:   # one bf16 ulp of plain, plus the sums'
+        diff = (out.float() - ref.float()).abs()
+        assert bool((diff <= 2.0 ** -7 * ref.float().abs() + 1e-4).all())
+    if ko > qo:   # rows that see no key: exact zeros
+        dead = (qo + torch.arange(lq)) < ko
+        assert dead.any() and bool((out[:, dead] == 0).all())

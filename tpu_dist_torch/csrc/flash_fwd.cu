@@ -15,21 +15,37 @@
 //
 // Bound on an H100 SXM: operations. 4*B*H*Lq*Lk*D FLOP (about half of it
 // when causal) against 989 TFLOP/s of bf16 tensor cores; the bytes (q, k,
-// v, out once each) are far smaller at prefill lengths.
+// v, out once each) are far smaller at prefill lengths. At B1 L2048 H8 D128
+// causal: 8.6 GFLOP, 0.0087 ms; at the training shape B8: 0.0695 ms.
 //
-// Design (first version: right and simple, not fast): one block of 256
-// threads per (b*h, 64-row q tile). A loop over 64-row k/v tiles stages K,
-// then V, through one padded shared buffer (stride D+1: the column reads of
-// the 16x16 thread grid hit distinct banks). Each thread owns a 4x4
-// micro-tile of S = Q K^T and a 4 x D/16 slice of the output accumulator in
-// registers; four threads per row run the online-softmax row statistics
-// with warp shuffles. Tiles wholly above the causal diagonal are never
-// loaded. The products run on the fp32 SIMT pipes, not the tensor cores:
-// mma/wgmma with TMA-fed tiles is the later performance step.
+// Both instances: one block per (b*h, 64-row q tile) loops over the live
+// 64-row k/v tiles; tiles wholly above the causal diagonal are never
+// loaded, and ragged edges are masked, so any length works.
+//
+// bf16 (flash_fwd_kernel_mma), on the tensor cores: 4 warps, each owning
+// 16 q rows. Q is staged once by cp.async and its A fragments are read by
+// ldmatrix once and held in registers for the whole loop; K and V stream
+// through separate 2-stage cp.async rings (the next tile's copies are in
+// flight while this one's products run), rows padded to D + 8 elements so
+// the 16-byte copies and ldmatrix reads hit distinct banks: 87 KB at
+// D = 128, two blocks per SM. Per k/v tile a warp computes S = Q K^T with
+// mma.sync m16n8k16 (K by ldmatrix), masks only tiles that straddle the
+// diagonal or Lk, and runs the online softmax on the fp32 C fragments in
+// registers (row max and sum over each quad by shuffles, exp in base 2
+// with scale * log2 e folded into one multiply-add). p is rounded to bf16
+// and repacked in registers as the A operand of acc += p . V (V by
+// ldmatrix.trans), so S and p never touch shared memory; the row sum takes
+// the fp32 p. Blocks run the longest causal q tiles (the last) first.
+// fp32 (flash_fwd_kernel) keeps full-fp32 SIMT products, for exactness in
+// the small fp32 card-vs-CPU checks: one block of 256 threads, a 4x4
+// micro-tile of S and a 4 x D/16 slice of the output per thread, K then V
+// through one padded fp32 shared buffer, S and p through shared memory.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "warp_mma.cuh"
 
 namespace {
 
@@ -40,15 +56,9 @@ constexpr float NEG_INF = -1e30f;
 
 template <typename T> __device__ __forceinline__ float to_f(T x);
 template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as astype
-}
 
 template <int D>
 constexpr size_t smem_floats() {
@@ -232,10 +242,183 @@ int launch(const void* q, const void* k, const void* v, void* out, void* lse,
   return (int)cudaGetLastError();
 }
 
+// ---- bf16 on the tensor cores ---------------------------------------------
+
+constexpr int NTM = 128;  // threads per block: 4 warps x 16 q rows
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int D>
+constexpr size_t smem_bytes_mma() {
+  // Q resident; K, V in a 2-stage ring; bf16 rows padded to D + 8
+  return (size_t)(BQ + 4 * BK) * (D + 8) * sizeof(__nv_bfloat16);
+}
+
+template <int D>
+__global__ void __launch_bounds__(NTM, 2) flash_fwd_kernel_mma(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
+    float* __restrict__ lse, int H, int Lq, int Lk, int causal, int q_offset,
+    int kv_offset, float scale) {
+  constexpr int RS = D + 8;   // padded row stride (elements)
+  constexpr int NB = BK / 8;  // key n-tiles of S
+  constexpr int ND = D / 8;   // d n-tiles of the output
+  constexpr int KD = D / 16;  // k-steps of S = Q K^T
+  extern __shared__ float smem[];
+  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* sK = sQ + BQ * RS;      // [2][BK * RS]
+  __nv_bfloat16* sV = sK + 2 * BK * RS;  // [2][BK * RS]
+
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // last (longest) first
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const long rs = (long)H * D;  // stride between sequence positions
+  const __nv_bfloat16* qb = q + (long)b * Lq * rs + (long)h * D;
+  const __nv_bfloat16* kb = k + (long)b * Lk * rs + (long)h * D;
+  const __nv_bfloat16* vb = v + (long)b * Lk * rs + (long)h * D;
+
+  // 64 rows from r0 of src (length L) into dst; rows past L read as zeros
+  auto load_tile = [&](__nv_bfloat16* dst, const __nv_bfloat16* src, int r0,
+                       int L) {
+    cp_async_rows<64, D, RS, NTM>(dst, src, rs, r0, L, tid);
+  };
+
+  // live k/v tiles: with a causal mask, none past the diagonal of this tile
+  int n_kt = (Lk + BK - 1) / BK;
+  if (causal) {
+    const long last_row = (long)q_offset + min(q0 + BQ, Lq) - 1;
+    const long lim = last_row - kv_offset;  // highest key index any row sees
+    n_kt = lim < 0 ? 0 : min(n_kt, (int)(lim / BK) + 1);
+  }
+
+  load_tile(sQ, qb, q0, Lq);
+  cp_async_commit();
+  if (n_kt > 0) {
+    load_tile(sK, kb, 0, Lk);
+    load_tile(sV, vb, 0, Lk);
+  }
+  cp_async_commit();
+  cp_async_wait<1>();  // Q has landed
+  __syncthreads();
+
+  // this lane's rows of the C fragments: q0 + warp*16 + lane/4 (+ 8)
+  const int gq = lane >> 2, tq = lane & 3;
+  const int wr = warp * 16;
+  uint32_t qa[KD][4];  // Q's A fragments, held for the whole loop
+#pragma unroll
+  for (int kk = 0; kk < KD; ++kk)
+    ldsm_x4(qa[kk], sQ + (wr + lane % 16) * RS + kk * 16 + (lane / 16) * 8);
+
+  const float scale2 = scale * LOG2E;  // exp(x scale) = 2^(x scale log2 e)
+  float m[2] = {NEG_INF, NEG_INF};     // running max of the unscaled scores
+  float l[2] = {0.f, 0.f};             // this lane's part of the row sums
+  float acc[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int st = kt & 1;
+    if (kt + 1 < n_kt) {
+      load_tile(sK + (st ^ 1) * BK * RS, kb, (kt + 1) * BK, Lk);
+      load_tile(sV + (st ^ 1) * BK * RS, vb, (kt + 1) * BK, Lk);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // this tile's copies have landed
+    __syncthreads();
+    const __nv_bfloat16* cK = sK + st * BK * RS;
+    const __nv_bfloat16* cV = sV + st * BK * RS;
+
+    // S = Q K^T for this warp's 16 rows, 16 d at a step
+    float s[NB][4];
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk)
+#pragma unroll
+      for (int j = 0; j < NB / 2; ++j) {  // key n-tiles 2j, 2j+1
+        uint32_t bk[4];
+        ldsm_x4(bk, cK + (16 * j + lane % 8 + (lane / 16) * 8) * RS +
+                        kk * 16 + ((lane / 8) % 2) * 8);
+        mma_bf16_16816(s[2 * j], qa[kk], bk[0], bk[1]);
+        mma_bf16_16816(s[2 * j + 1], qa[kk], bk[2], bk[3]);
+      }
+
+    // masks only where the tile straddles the diagonal or Lk; then p in s
+    const int k0 = kt * BK;
+    const bool edge = k0 + BK > Lk ||
+                      (causal && kv_offset + k0 + BK - 1 > q_offset + q0 + wr);
+    online_softmax_tile(s, acc, m, l, scale2, edge, k0, Lk, causal, kv_offset,
+                        (long)q_offset + q0 + wr, NEG_INF);
+
+    // acc += bf16(p) . V, 16 keys at a step; p repacked as the A operand
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      uint32_t a[4];
+      a[0] = pack_bf16x2(s[2 * kk][0], s[2 * kk][1]);
+      a[1] = pack_bf16x2(s[2 * kk][2], s[2 * kk][3]);
+      a[2] = pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      a[3] = pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+#pragma unroll
+      for (int j = 0; j < ND / 2; ++j) {  // d n-tiles 2j, 2j+1
+        uint32_t bv[4];
+        ldsm_x4_trans(bv, cV + (kk * 16 + lane % 16) * RS + 16 * j +
+                              (lane / 16) * 8);
+        mma_bf16_16816(acc[2 * j], a, bv[0], bv[1]);
+        mma_bf16_16816(acc[2 * j + 1], a, bv[2], bv[3]);
+      }
+    }
+    __syncthreads();  // all warps are done with this stage before its refill
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float lr = fmaxf(quad_sum(l[r]), 1e-30f);
+    const int row = q0 + wr + gq + 8 * r;
+    if (row >= Lq) continue;
+    __nv_bfloat16* orow = out + ((long)b * Lq + row) * rs + (long)h * D;
+#pragma unroll
+    for (int j = 0; j < ND; ++j)
+      *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * tq) =
+          pack_bf16x2(acc[j][2 * r] / lr, acc[j][2 * r + 1] / lr);
+    if (tq == 0)  // a row with no live key: NEG_INF, as the plain version
+      lse[(long)bh * Lq + row] =
+          (m[r] <= 0.5f * NEG_INF ? NEG_INF : m[r] * scale) + logf(lr);
+  }
+}
+
+template <int D>
+int launch_mma(const void* q, const void* k, const void* v, void* out,
+               void* lse, int B, int H, int Lq, int Lk, int causal,
+               int q_offset, int kv_offset, float scale, cudaStream_t stream) {
+  // 16-byte copies: every bf16 tensor must start on a 16-byte boundary
+  if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out) % 16)
+    return -2;
+  const size_t smem = smem_bytes_mma<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_kernel_mma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(B * H, (Lq + BQ - 1) / BQ);
+  flash_fwd_kernel_mma<D><<<grid, NTM, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
+      static_cast<float*>(lse), H, Lq, Lk, causal, q_offset, kv_offset, scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. Returns the launch's cudaError_t
-// (0 = launched); -1 for a (dtype, D) this build has no instance for.
+// (0 = launched); -1 for a (dtype, D) this build has no instance for, -2
+// for a bf16 tensor not 16-byte aligned.
 extern "C" int tdt_flash_fwd(const void* q, const void* k, const void* v,
                              void* out, void* lse, int B, int H, int Lq,
                              int Lk, int D, int causal, int q_offset,
@@ -247,8 +430,8 @@ extern "C" int tdt_flash_fwd(const void* q, const void* k, const void* v,
   if (dtype == 0 && D == 128)
     return launch<float, 128>(q, k, v, out, lse, B, H, Lq, Lk, causal, q_offset, kv_offset, scale, s);
   if (dtype == 1 && D == 64)
-    return launch<__nv_bfloat16, 64>(q, k, v, out, lse, B, H, Lq, Lk, causal, q_offset, kv_offset, scale, s);
+    return launch_mma<64>(q, k, v, out, lse, B, H, Lq, Lk, causal, q_offset, kv_offset, scale, s);
   if (dtype == 1 && D == 128)
-    return launch<__nv_bfloat16, 128>(q, k, v, out, lse, B, H, Lq, Lk, causal, q_offset, kv_offset, scale, s);
+    return launch_mma<128>(q, k, v, out, lse, B, H, Lq, Lk, causal, q_offset, kv_offset, scale, s);
   return -1;
 }

@@ -17,19 +17,39 @@
 // exact zeros. Output in q's type; no logsumexp (forward only).
 //
 // Bound on an H100 SXM: operations at prefill lengths, as flash_fwd.cu
-// (4*B*H*Lq*Lk*D FLOP, about half when causal); the int8 K/V halve the
-// bytes, which are far smaller anyway.
+// (4*B*H*Lq*Lk*D FLOP, about half when causal, counted as the reference's
+// work); the int8 K/V halve the bytes, which are far smaller anyway.
 //
-// Design: flash_fwd.cu's (right and simple, not fast): one block of 256
-// threads per (b*h, 64-row q tile), a loop over 64-row k/v tiles staged
-// through one padded shared buffer, dequantized as they are staged; a 4x4
-// score micro-tile and a 4 x D/16 output slice per thread; four threads per
-// row for the online-softmax statistics; tiles wholly above the causal
-// diagonal never loaded; fp32 SIMT products.
+// Both instances: one block per (b*h, 64-row q tile) loops over the live
+// 64-row k/v tiles; tiles wholly above the causal diagonal are never
+// loaded, and ragged edges are masked.
+//
+// bf16 q (flash_fwd_int8kv_kernel_mma), on the tensor cores: flash_fwd.cu's
+// bf16 design (4 warps of 16 q rows, Q's A fragments held in registers,
+// mma.sync m16n8k16, the online softmax on the C fragments, longest causal
+// tiles first) with int8 K/V. The int8 tiles and their per-row scales
+// stream through a 2-stage cp.async ring (16-byte copies of the values,
+// 4-byte copies of the scales); each tile is widened in shared memory to
+// bf16 (exact: |x| <= 128 < 2^8) and its scales copied beside it, then read
+// by ldmatrix. Scores: S = q . kq^T on the tensor cores, then column j
+// times ks_j in registers (the scale is per key row, so it factors out of
+// the dot product): the reference's q . (kq ks) up to fp32 rounding, with
+// no bf16 rounding of a dequantized K. p . V keeps the reference's fp32 p:
+// p'_j = p_j vs_j is split into hi = bf16(p') and lo = bf16(p' - hi), and
+// acc += hi . vq + lo . vq takes two mma against the exact bf16 vq, so
+// about 16 significant bits of p' reach the fp32 sums (relative error
+// about 2^-17 per term, far below the bf16 output's 2^-9). The row sum
+// takes the fp32 p. 1.5x the tensor-core work of flash_fwd.cu's bf16 path.
+// fp32 q (flash_fwd_int8kv_kernel) keeps full-fp32 SIMT products: one block
+// of 256 threads, K then V dequantized as staged into one padded fp32
+// shared buffer, a 4x4 score micro-tile and a 4 x D/16 output slice per
+// thread, S and p through shared memory.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "warp_mma.cuh"
 
 namespace {
 
@@ -40,15 +60,9 @@ constexpr float NEG_INF = -1e30f;
 
 template <typename T> __device__ __forceinline__ float to_f(T x);
 template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 template <int D>
 constexpr size_t smem_floats() {
@@ -235,11 +249,221 @@ int launch(const void* q, const void* k, const void* ks, const void* v,
   return (int)cudaGetLastError();
 }
 
+// ---- bf16 q on the tensor cores -------------------------------------------
+
+constexpr int NTM = 128;  // threads per block: 4 warps x 16 q rows
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int D>
+constexpr size_t smem_bytes_mma() {
+  // bf16 Q, and bf16 K and V widened from the int8 tiles, rows padded to
+  // D + 8; the int8 K and V tiles (rows padded to D + 16 bytes) and their
+  // scales in a 2-stage ring; the widened tile's scales
+  return (size_t)(BQ + 2 * BK) * (D + 8) * sizeof(__nv_bfloat16) +
+         (size_t)4 * BK * (D + 16) + (size_t)6 * BK * sizeof(float);
+}
+
+template <int D>
+__global__ void __launch_bounds__(NTM, 2) flash_fwd_int8kv_kernel_mma(
+    const __nv_bfloat16* __restrict__ q, const int8_t* __restrict__ k,
+    const float* __restrict__ ks, const int8_t* __restrict__ v,
+    const float* __restrict__ vs, __nv_bfloat16* __restrict__ out, int H,
+    int Lq, int Lk, int causal, int q_offset, int kv_offset, float scale) {
+  constexpr int RS = D + 8;    // padded bf16 row stride (elements)
+  constexpr int RS8 = D + 16;  // padded int8 row stride (bytes)
+  constexpr int NB = BK / 8;   // key n-tiles of S
+  constexpr int ND = D / 8;    // d n-tiles of the output
+  constexpr int KD = D / 16;   // k-steps of S = q kq^T
+  extern __shared__ float smem[];
+  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* sKb = sQ + BQ * RS;   // this tile's K, widened
+  __nv_bfloat16* sVb = sKb + BK * RS;  // this tile's V, widened
+  int8_t* sK8 = reinterpret_cast<int8_t*>(sVb + BK * RS);  // [2][BK * RS8]
+  int8_t* sV8 = sK8 + 2 * BK * RS8;                         // [2][BK * RS8]
+  float* sKs8 = reinterpret_cast<float*>(sV8 + 2 * BK * RS8);  // [2][BK]
+  float* sVs8 = sKs8 + 2 * BK;                                  // [2][BK]
+  float* sKs = sVs8 + 2 * BK;  // this tile's scales
+  float* sVs = sKs + BK;
+
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // last (longest) first
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const long rs = (long)H * D;  // stride between sequence positions
+  const __nv_bfloat16* qb = q + (long)b * Lq * rs + (long)h * D;
+  const int8_t* kb = k + (long)b * Lk * rs + (long)h * D;
+  const int8_t* vb = v + (long)b * Lk * rs + (long)h * D;
+  const float* ksb = ks + (long)b * Lk * H + h;  // scale of row j: ksb[j * H]
+  const float* vsb = vs + (long)b * Lk * H + h;
+
+  // k/v tile kt into ring stage st: int8 rows and their scales, rows past
+  // Lk as zeros
+  auto load_kv = [&](int kt, int st) {
+    const int k0 = kt * BK;
+    cp_async_rows<64, D, RS8, NTM>(sK8 + st * BK * RS8, kb, rs, k0, Lk, tid);
+    cp_async_rows<64, D, RS8, NTM>(sV8 + st * BK * RS8, vb, rs, k0, Lk, tid);
+    const int j = tid % BK;  // threads 0-63: ks, 64-127: vs
+    const bool in = k0 + j < Lk;
+    cp_async_4((tid < BK ? sKs8 : sVs8) + st * BK + j,
+               (tid < BK ? ksb : vsb) + (in ? (long)(k0 + j) * H : 0),
+               in ? 4 : 0);
+  };
+  // ring stage st widened to bf16 (8 values a step) with its scales
+  auto widen = [&](int st) {
+    for (int i = tid; i < 2 * BK * (D / 8); i += NTM) {
+      const int t = i / (BK * (D / 8)), c = i % (BK * (D / 8));
+      const int r = c / (D / 8), d = (c % (D / 8)) * 8;
+      const uint32_t* src = reinterpret_cast<const uint32_t*>(
+          (t ? sV8 : sK8) + st * BK * RS8 + r * RS8 + d);
+      uint32_t* dst = reinterpret_cast<uint32_t*>((t ? sVb : sKb) + r * RS + d);
+      widen_int8x4(src[0], dst[0], dst[1]);
+      widen_int8x4(src[1], dst[2], dst[3]);
+    }
+    if (tid < BK) sKs[tid] = sKs8[st * BK + tid];
+    else sVs[tid - BK] = sVs8[st * BK + tid - BK];
+  };
+
+  // live k/v tiles: with a causal mask, none past the diagonal of this tile
+  int n_kt = (Lk + BK - 1) / BK;
+  if (causal) {
+    const long last_row = (long)q_offset + min(q0 + BQ, Lq) - 1;
+    const long lim = last_row - kv_offset;  // highest key index any row sees
+    n_kt = lim < 0 ? 0 : min(n_kt, (int)(lim / BK) + 1);
+  }
+
+  cp_async_rows<64, D, RS, NTM>(sQ, qb, rs, q0, Lq, tid);
+  cp_async_commit();
+  if (n_kt > 0) load_kv(0, 0);
+  cp_async_commit();
+  cp_async_wait<1>();  // Q has landed
+  __syncthreads();
+
+  // this lane's rows of the C fragments: q0 + warp*16 + lane/4 (+ 8)
+  const int gq = lane >> 2, tq = lane & 3;
+  const int wr = warp * 16;
+  uint32_t qa[KD][4];  // q's A fragments, held for the whole loop
+#pragma unroll
+  for (int kk = 0; kk < KD; ++kk)
+    ldsm_x4(qa[kk], sQ + (wr + lane % 16) * RS + kk * 16 + (lane / 16) * 8);
+
+  const float scale2 = scale * LOG2E;  // exp(x scale) = 2^(x scale log2 e)
+  float m[2] = {NEG_INF, NEG_INF};     // running max of the unscaled scores
+  float l[2] = {0.f, 0.f};             // this lane's part of the row sums
+  float acc[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int st = kt & 1;
+    if (kt + 1 < n_kt) load_kv(kt + 1, st ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // this tile's copies have landed
+    __syncthreads();     // and every warp is done with the widened tile
+    widen(st);
+    __syncthreads();
+
+    // S = q kq^T for this warp's 16 rows, 16 d at a step
+    float s[NB][4];
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk)
+#pragma unroll
+      for (int j = 0; j < NB / 2; ++j) {  // key n-tiles 2j, 2j+1
+        uint32_t bk[4];
+        ldsm_x4(bk, sKb + (16 * j + lane % 8 + (lane / 16) * 8) * RS +
+                        kk * 16 + ((lane / 8) % 2) * 8);
+        mma_bf16_16816(s[2 * j], qa[kk], bk[0], bk[1]);
+        mma_bf16_16816(s[2 * j + 1], qa[kk], bk[2], bk[3]);
+      }
+
+    // column j times its key's scale; masks only where the tile straddles
+    // the diagonal or Lk; then p in s, and p' = p vs (fp32) for p . V
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] *= sKs[8 * j + 2 * tq + (e & 1)];
+    const int k0 = kt * BK;
+    const bool edge = k0 + BK > Lk ||
+                      (causal && kv_offset + k0 + BK - 1 > q_offset + q0 + wr);
+    online_softmax_tile(s, acc, m, l, scale2, edge, k0, Lk, causal, kv_offset,
+                        (long)q_offset + q0 + wr, NEG_INF);
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] *= sVs[8 * j + 2 * tq + (e & 1)];
+
+    // acc += p' . vq as (hi + lo) . vq, 16 keys at a step
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      uint32_t hi[4], lo[4];
+      split_bf16x2(s[2 * kk][0], s[2 * kk][1], hi[0], lo[0]);
+      split_bf16x2(s[2 * kk][2], s[2 * kk][3], hi[1], lo[1]);
+      split_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1], hi[2], lo[2]);
+      split_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3], hi[3], lo[3]);
+#pragma unroll
+      for (int j = 0; j < ND / 2; ++j) {  // d n-tiles 2j, 2j+1
+        uint32_t bv[4];
+        ldsm_x4_trans(bv, sVb + (kk * 16 + lane % 16) * RS + 16 * j +
+                              (lane / 16) * 8);
+        mma_bf16_16816(acc[2 * j], hi, bv[0], bv[1]);
+        mma_bf16_16816(acc[2 * j], lo, bv[0], bv[1]);
+        mma_bf16_16816(acc[2 * j + 1], hi, bv[2], bv[3]);
+        mma_bf16_16816(acc[2 * j + 1], lo, bv[2], bv[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float lr = fmaxf(quad_sum(l[r]), 1e-30f);
+    const int row = q0 + wr + gq + 8 * r;
+    if (row >= Lq) continue;
+    __nv_bfloat16* orow = out + ((long)b * Lq + row) * rs + (long)h * D;
+#pragma unroll
+    for (int j = 0; j < ND; ++j)
+      *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * tq) =
+          pack_bf16x2(acc[j][2 * r] / lr, acc[j][2 * r + 1] / lr);
+  }
+}
+
+template <int D>
+int launch_mma(const void* q, const void* k, const void* ks, const void* v,
+               const void* vs, void* out, int B, int H, int Lq, int Lk,
+               int causal, int q_offset, int kv_offset, float scale,
+               cudaStream_t stream) {
+  // 16-byte copies of q and the int8 values, 4-byte copies of the scales
+  if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out) % 16 ||
+      ((uintptr_t)ks | (uintptr_t)vs) % 4)
+    return -2;
+  const size_t smem = smem_bytes_mma<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_int8kv_kernel_mma<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(B * H, (Lq + BQ - 1) / BQ);
+  flash_fwd_int8kv_kernel_mma<D><<<grid, NTM, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const int8_t*>(k),
+      static_cast<const float*>(ks), static_cast<const int8_t*>(v),
+      static_cast<const float*>(vs), static_cast<__nv_bfloat16*>(out), H, Lq,
+      Lk, causal, q_offset, kv_offset, scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype (q and out): 0 = float32, 1 = bfloat16. Returns the launch's
 // cudaError_t (0 = launched); -1 for a (dtype, D) this build has no
-// instance for.
+// instance for, -2 (bf16 q) for q, out or the int8 values not 16-byte
+// aligned or a scale tensor not 4-byte aligned.
 extern "C" int tdt_flash_fwd_int8kv(const void* q, const void* k,
                                     const void* ks, const void* v,
                                     const void* vs, void* out, int B, int H,
@@ -252,8 +476,8 @@ extern "C" int tdt_flash_fwd_int8kv(const void* q, const void* k,
   if (dtype == 0 && D == 128)
     return launch<float, 128>(q, k, ks, v, vs, out, B, H, Lq, Lk, causal, q_offset, kv_offset, scale, s);
   if (dtype == 1 && D == 64)
-    return launch<__nv_bfloat16, 64>(q, k, ks, v, vs, out, B, H, Lq, Lk, causal, q_offset, kv_offset, scale, s);
+    return launch_mma<64>(q, k, ks, v, vs, out, B, H, Lq, Lk, causal, q_offset, kv_offset, scale, s);
   if (dtype == 1 && D == 128)
-    return launch<__nv_bfloat16, 128>(q, k, ks, v, vs, out, B, H, Lq, Lk, causal, q_offset, kv_offset, scale, s);
+    return launch_mma<128>(q, k, ks, v, vs, out, B, H, Lq, Lk, causal, q_offset, kv_offset, scale, s);
   return -1;
 }

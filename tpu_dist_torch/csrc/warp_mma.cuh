@@ -1,7 +1,8 @@
 // Warp-level tensor-core helpers for the bf16 kernels (sm_80 instructions,
 // built for sm_90a): mma.sync m16n8k16 bf16 -> fp32, ldmatrix x4 (plain and
-// .trans) and cp.async with zero fill. Include after <cuda_bf16.h> and
-// <stdint.h>.
+// .trans), cp.async with zero fill, and the register-level pieces around
+// them (quad reductions over a C-fragment row, a two-term bf16 split, int8
+// widening). Include after <cuda_bf16.h> and <stdint.h>.
 //
 // Fragment layouts (PTX ISA, mma.m16n8k16 with .bf16 operands), with
 // g = lane >> 2 and t = lane & 3; each 32-bit register holds two bf16, the
@@ -97,21 +98,117 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 #endif  // TDT_CUDA_EMU
 
-// Rows r0 .. r0+ROWS-1 of a bf16 (L, D) matrix with row stride `stride`
-// into shared dst (row stride RS elements), as 16-byte cp.async copies
-// spread over NT threads; rows past L read as zeros.
-template <int ROWS, int D, int RS, int NT>
-__device__ __forceinline__ void cp_async_rows(__nv_bfloat16* dst,
-                                              const __nv_bfloat16* src,
+// The helpers below are built from the ones above and from CUDA
+// intrinsics that tools/cuda_emu.py also supplies, so they need no twin.
+
+// Rows r0 .. r0+ROWS-1 of an (L, D) matrix of T (bf16 or int8) with row
+// stride `stride` into shared dst (row stride RS elements), as 16-byte
+// cp.async copies spread over NT threads; rows past L read as zeros.
+template <int ROWS, int D, int RS, int NT, typename T>
+__device__ __forceinline__ void cp_async_rows(T* dst, const T* src,
                                               long stride, int r0, int L,
                                               int tid) {
-  constexpr int CH = D / 8;  // 16-byte chunks per row
+  constexpr int E = 16 / sizeof(T);  // elements per 16-byte chunk
+  constexpr int CH = D / E;          // chunks per row
   for (int i = tid; i < ROWS * CH; i += NT) {
-    const int r = i / CH, c = (i % CH) * 8;
+    const int r = i / CH, c = (i % CH) * E;
     const bool in = r0 + r < L;
     cp_async_16(dst + r * RS + c, src + (in ? r0 + r : 0) * stride + c,
                 in ? 16 : 0);
   }
+}
+
+// max and sum over the quad of lanes 4g .. 4g+3, which hold one row of a
+// C fragment between them
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// (a, b) = hi + lo to about 16 significant bits: hi = bf16(a), bf16(b) as
+// pack_bf16x2 packs them, lo = the bf16 of what hi leaves over. Two mma
+// against one bf16 B operand then take an fp32 A at that precision.
+__device__ __forceinline__ void split_bf16x2(float a, float b, uint32_t& hi,
+                                             uint32_t& lo) {
+  hi = pack_bf16x2(a, b);
+  lo = pack_bf16x2(a - __uint_as_float(hi << 16),
+                   b - __uint_as_float(hi & 0xffff0000u));
+}
+
+// four int8 (the bytes of x, lowest first) as two bf16 pairs, exactly
+// (|x| <= 128 < 2^8 fits bf16's 8-bit significand)
+__device__ __forceinline__ void widen_int8x4(uint32_t x, uint32_t& lo,
+                                             uint32_t& hi) {
+  lo = pack_bf16x2((float)(int8_t)(x & 0xffu),
+                   (float)(int8_t)((x >> 8) & 0xffu));
+  hi = pack_bf16x2((float)(int8_t)((x >> 16) & 0xffu),
+                   (float)(int8_t)(x >> 24));
+}
+
+// One k/v tile of the flash forward kernels' online softmax, on a warp's
+// 16 x 8*NB score tile s in the C-fragment layout (this lane: rows g and
+// g + 8 in e = 0, 1 and e = 2, 3; keys 8j + 2t + (e & 1) of the tile).
+// With `edge`, scores whose key is past Lk or, causal, past its row's
+// diagonal are masked first: key positions kv_offset + k0 + key, row
+// positions qpos + g (+ 8), where qpos is the global position of the
+// warp's first row. m: the rows' running max of the unscaled scores
+// (neg_inf before any live key), l: this lane's part of their sums, acc:
+// the output accumulator of the same rows. On return s holds
+// p = 2^(s scale2 - m scale2) in fp32, exactly 0 for a masked score
+// whatever m is, and acc and l are rescaled to the new max, l with p
+// added (a row with no live key yet keeps alpha = 1: neg_inf - neg_inf =
+// 0).
+template <int NB, int ND>
+__device__ __forceinline__ void online_softmax_tile(
+    float (&s)[NB][4], float (&acc)[ND][4], float (&m)[2], float (&l)[2],
+    float scale2, bool edge, int k0, int Lk, bool causal, int kv_offset,
+    long qpos, float neg_inf) {
+  const int g = (threadIdx.x % 32) >> 2, t = threadIdx.x & 3;
+  if (edge) {
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = k0 + 8 * j + 2 * t + (e & 1);
+        bool live = key < Lk;
+        if (causal)
+          live = live && (kv_offset + key <= qpos + g + 8 * (e / 2));
+        if (!live) s[j][e] = neg_inf;
+      }
+  }
+  float msc[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float mx = m[r];
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+      mx = fmaxf(mx, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
+    mx = quad_max(mx);
+    const float alpha = exp2_approx((m[r] - mx) * scale2);
+    m[r] = mx;
+    msc[r] = mx * scale2;
+    l[r] *= alpha;
+#pragma unroll
+    for (int j = 0; j < ND; ++j) {
+      acc[j][2 * r] *= alpha;
+      acc[j][2 * r + 1] *= alpha;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < NB; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = (edge && s[j][e] <= 0.5f * neg_inf)
+                          ? 0.f
+                          : exp2_approx(fmaf(s[j][e], scale2, -msc[e / 2]));
+      l[e / 2] += p;
+      s[j][e] = p;
+    }
 }
 
 #endif  // TDT_WARP_MMA_CUH

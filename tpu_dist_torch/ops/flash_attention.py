@@ -9,6 +9,9 @@ a CUDA tensor a kernel does not take raises.
 
 * forward: ``csrc/flash_fwd.cu`` (the Pallas ``_fa_fwd_kernel``, lines
   138-198) beside :func:`flash_forward_plain`;
+* the int8-K/V forward: ``csrc/flash_fwd_int8kv.cu``
+  (``_fa_fwd_int8kv_kernel``, lines 446-500) beside
+  :func:`int8kv_flash_plain`;
 * backward (lines 201-412): :class:`FlashAttention`, a
   ``torch.autograd.Function`` whose forward is the forward kernel and whose
   backward computes ``delta = rowsum(out * dO)`` in plain PyTorch (the
@@ -19,6 +22,11 @@ a CUDA tensor a kernel does not take raises.
 
 A call that autograd would not differentiate (serving runs under
 ``torch.inference_mode()``) skips the Function and saves nothing.
+
+The bf16 instances copy their tiles with 16-byte ``cp.async``, so every
+bf16 (and int8) tensor they read or write must start on a 16-byte
+boundary: the checks raise ``ValueError`` for one that does not (a view
+at an odd element offset), and the C entries return -2 as a last guard.
 """
 
 from __future__ import annotations
@@ -73,6 +81,35 @@ def flash_forward_plain(q, k, v, causal: bool = True, q_offset: int = 0,
     return out, lse
 
 
+ALIGN_BYTES = 16  # the bf16 instances' cp.async copies
+
+
+def _check_aligned(kernel: str, nbytes: int = ALIGN_BYTES, **tensors):
+    """Raise ``ValueError`` naming the first of the named ``tensors`` whose
+    data does not start on an ``nbytes`` boundary: the kernel copies it with
+    ``nbytes``-byte ``cp.async``."""
+    for name, t in tensors.items():
+        if t.data_ptr() % nbytes:
+            raise ValueError(f"{kernel}: {name} ({t.dtype}, "
+                             f"{tuple(t.shape)}) does not start on a "
+                             f"{nbytes}-byte boundary (its address % "
+                             f"{nbytes} = {t.data_ptr() % nbytes}); the "
+                             f"kernel copies it with {nbytes}-byte cp.async "
+                             "and takes a view at such an offset only as a "
+                             "copy (.clone())")
+
+
+def _launch_error(kernel: str, err: int) -> RuntimeError:
+    """The wrappers' error for a nonzero C entry code."""
+    if err == -2:
+        return RuntimeError(f"{kernel} kernel refused a tensor that is not "
+                            f"{ALIGN_BYTES}-byte aligned (code -2)")
+    if err == -1:
+        return RuntimeError(f"{kernel} kernel has no instance for this "
+                            "dtype and head_dim (code -1)")
+    return RuntimeError(f"{kernel} kernel launch failed (cudaError {err})")
+
+
 def _check_flash(q, k, v):
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("flash kernel: q, k, v must be on one CUDA device")
@@ -92,6 +129,8 @@ def _check_flash(q, k, v):
         raise ValueError("flash kernel: empty q or k/v")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash kernel: q, k, v must be contiguous")
+    if q.dtype == torch.bfloat16:
+        _check_aligned("flash kernel", q=q, k=k, v=v)
 
 
 _FLASH_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
@@ -109,7 +148,7 @@ def _launch(fn, q, k, v, causal, q_offset, kv_offset, stream):
              int(q_offset), int(kv_offset), 1.0 / math.sqrt(d),
              kernels.DTYPE_CODE[q.dtype], stream)
     if err != 0:
-        raise RuntimeError(f"flash_fwd kernel launch failed (cudaError {err})")
+        raise _launch_error("flash_fwd", err)
     return out, lse
 
 
@@ -191,6 +230,10 @@ def _check_backward(q, k, v, out, lse, g):
         if t.device != q.device or not t.is_contiguous():
             raise ValueError("flash backward: out, lse, dO must be "
                              "contiguous on q's device")
+    if q.dtype == torch.bfloat16:
+        _check_aligned("flash backward", out=out, dO=g)
+        # lse and delta go by 4-byte copies
+        _check_aligned("flash backward", 4, lse=lse)
 
 
 def _bwd_common(q, k, causal, q_offset, kv_offset, stream):
@@ -209,8 +252,7 @@ def _launch_bwd_dq(fn, q, k, v, g, lse, delta, causal, q_offset, kv_offset,
              lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
              *_bwd_common(q, k, causal, q_offset, kv_offset, stream))
     if err != 0:
-        raise RuntimeError(f"flash_bwd_dq kernel launch failed "
-                           f"(cudaError {err})")
+        raise _launch_error("flash_bwd_dq", err)
     return dq
 
 
@@ -224,8 +266,7 @@ def _launch_bwd_dkv(fn, q, k, v, g, lse, delta, causal, q_offset, kv_offset,
              lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
              *_bwd_common(q, k, causal, q_offset, kv_offset, stream))
     if err != 0:
-        raise RuntimeError(f"flash_bwd_dkv kernel launch failed "
-                           f"(cudaError {err})")
+        raise _launch_error("flash_bwd_dkv", err)
     return dk, dv
 
 
@@ -361,6 +402,10 @@ def _check_int8kv(q, kq, ks, vq, vs):
         raise ValueError("flash int8-KV kernel: empty q or K/V")
     if not all(t.is_contiguous() for t in (q, kq, ks, vq, vs)):
         raise ValueError("flash int8-KV kernel: inputs must be contiguous")
+    if q.dtype == torch.bfloat16:
+        _check_aligned("flash int8-KV kernel", q=q, k=kq, v=vq)
+        # the scales go by 4-byte copies
+        _check_aligned("flash int8-KV kernel", 4, k_scale=ks, v_scale=vs)
 
 
 _INT8KV_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
@@ -379,8 +424,7 @@ def _launch_int8kv(fn, q, kv, causal, q_offset, kv_offset, stream):
              int(bool(causal)), int(q_offset), int(kv_offset),
              1.0 / math.sqrt(d), kernels.DTYPE_CODE[q.dtype], stream)
     if err != 0:
-        raise RuntimeError(f"flash_fwd_int8kv kernel launch failed "
-                           f"(cudaError {err})")
+        raise _launch_error("flash_fwd_int8kv", err)
     return out
 
 

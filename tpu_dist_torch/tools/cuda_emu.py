@@ -16,9 +16,13 @@ The tensor-core helpers of ``csrc/warp_mma.cuh`` hold their PTX under
 software versions with the PTX ISA's fragment layouts, warp-collective
 through the per-warp barrier and scratch (as ``__shfl_xor_sync``):
 ``mma_bf16_16816`` (m16n8k16, bf16 operands, fp32 sums), ``ldsm_x4`` and
-``ldsm_x4_trans`` (``ldmatrix`` x4), and ``cp_async_*`` as plain copies
-with the same zero fill (``commit``/``wait`` do nothing: the copy has
-landed when it returns).
+``ldsm_x4_trans`` (``ldmatrix`` x4), ``exp2_approx`` and
+``pack_bf16x2`` (round to nearest even), and ``cp_async_*`` as plain
+copies with the same zero fill (``commit``/``wait`` do nothing: the copy
+has landed when it returns). The header's other helpers (``quad_max``,
+``quad_sum``, ``split_bf16x2``, ``widen_int8x4``, ``cp_async_rows``) are
+built from these and from intrinsics supplied here (``__shfl_xor_sync``,
+``__uint_as_float``), so they run as written.
 
 What it proves: the kernel's indexing, masking, online softmax,
 reductions and fragment repacks, against the plain versions, at small
@@ -99,6 +103,11 @@ inline __nv_bfloat16 __float2bfloat16(float f) {
 }
 inline __nv_bfloat16 __float2bfloat16_rn(float f) {
   return __float2bfloat16(f);
+}
+inline float __uint_as_float(uint32_t u) {
+  float f;
+  std::memcpy(&f, &u, 4);
+  return f;
 }
 // warp_mma.cuh's PTX helpers, in software with the PTX ISA's layouts
 #define TDT_CUDA_EMU 1
