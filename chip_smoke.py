@@ -18,9 +18,13 @@ CUDA or without the repository beside it. Phases:
    PyTorch yardstick (``scaled_dot_product_attention`` and its backward,
    ``torch._fused_adamw_``, ``torch._fused_sgd_``; timed here and used
    nowhere in the port) and the least time the card could take. The sgd
-   kernel is held at ResNet-50's largest leaf and across its 161 leaves as
-   one step, with the clip slot at 1 and at 0.3, and with a bf16 p (within
-   one bf16 ulp of max(|plain|, |p|, lr |m'|): see BF16_ULP). The flash
+   kernel is held across ResNet-50's 161 leaves as one multi-leaf call,
+   with the clip slot at 1 and at 0.3, and with a bf16 p (within one bf16
+   ulp of max(|plain|, |p|, lr |m'|): see BF16_ULP), and timed as that
+   step (graph replay and eager) and at the largest leaf. The paged
+   decode is held over gathered K/V and through a shuffled block table
+   (bit-equal), on arenas with NaN scales wherever no row may read, and
+   with a row of length 0 (exact zeros). The flash
    forward is held at two serving prefills (B1 L1024 and L2048 H8 D128)
    and at the training shape (B8 L2048, with its times), the flash
    forward, the int8-K/V flash forward and the backward pair at a ragged
@@ -54,7 +58,7 @@ CUDA or without the repository beside it. Phases:
    masters, bf16 norm outputs, s2d stem, ``fused_sgd``, 16 steps a window
    over the device-resident uint8 set), one epoch of 32 steps: train img/s
    with window 1 left out, finite and falling window losses, validation
-   acc@1, an analytic MFU, one ``sgd`` launch per leaf per step, and a
+   acc@1, an analytic MFU, one ``sgd`` launch per step, and a
    checkpoint that reloads;
 8. quantized and speculative serving at full width: phase 5's model and
    requests, (a) with ``quant="int8"`` (every dense layer through the
@@ -280,7 +284,29 @@ def check_flash_more(torch, F):
                               kv_offset=40)[0]]
 
 
+def paged_bound(b, h, d, lengths, page_size=None):
+    """(bound_ms, bound_by) of the int8 paged decode over ``lengths``: each
+    live key's K and V rows (D int8 a head) and two fp32 scales a head,
+    q read and the output written (bf16), the lengths, and with a block
+    table its live entries (int32), against 4 D FLOP a key and head."""
+    live = int(lengths.sum().item())
+    nbytes = live * h * (2 * d + 2 * 4) + 2 * b * h * d * 2 + b * 4
+    if page_size:
+        nbytes += 4 * int(((lengths + page_size - 1) // page_size).sum())
+    flops = 4.0 * live * h * d
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
 def check_paged(torch, F, gen):
+    """The paged decode kernel against its plain version at the serving
+    width: over gathered K/V (B8 Lk2048 H8 D128, the reference's layout),
+    and over the same keys scattered to 1,024 pages of 16 through a
+    shuffled (8, 128) block table (bit-equal to the gathered result: the
+    same keys in the same splits); on arenas whose scales are NaN wherever
+    no row may read (bit-equal again: never read); and with one row of
+    length 0 (exact zeros)."""
     from tpu_dist_torch.ops import flash_attention as fa
     from tpu_dist_torch.ops import paged_attention as pa
 
@@ -299,6 +325,58 @@ def check_paged(torch, F, gen):
     if not ok:
         raise AssertionError(f"paged_decode: max|err| {err} "
                              f"(tol {BF16_TOL} (1 + |ref|))")
+
+    # the same keys in 1,024 pages of 16, the table a permutation drawn
+    # from a generator of its own (the later phases' inputs stay as they
+    # were), the trash page last
+    ps, per_row = 16, lk // 16
+    n_pages = b * per_row
+    perm = torch.randperm(n_pages, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(SEED + 1))
+    bt = perm.view(b, per_row).to(torch.int32)
+
+    def arena(t):
+        a = t.new_zeros((n_pages + 1, ps) + tuple(t.shape[2:]))
+        a[perm] = t.reshape((n_pages, ps) + tuple(t.shape[2:]))
+        return a
+
+    layer = pa.PagedLayer(arena(kq), arena(vq), arena(ks), arena(vs),
+                          quant="int8", read="flash")
+    out_bt = pa.paged_decode_blocks_cuda(q, layer, bt, lengths)
+    ref_bt = pa.paged_decode_blocks_plain(q, layer, bt, lengths)
+    torch.cuda.synchronize()
+    err_bt, ok = bf16_err(torch, out_bt, ref_bt)
+    if not ok:
+        raise AssertionError(f"paged_decode (block table): max|err| "
+                             f"{err_bt} (tol {BF16_TOL} (1 + |ref|))")
+    if not torch.equal(out_bt, out):
+        raise AssertionError("paged_decode: the block-table read differs "
+                             "from the gathered read of the same keys")
+    # NaN scales on every key no row may read: the trash page and, in
+    # each row's pages, the positions at or past its length
+    pos = torch.arange(lk, device="cuda")
+    readable = arena((pos[None, :] < lengths[:, None].long())[..., None])
+    nan = torch.where(readable, 0.0, float("nan"))
+    poisoned = pa.PagedLayer(layer.k, layer.v, layer.k_scale + nan,
+                             layer.v_scale + nan, quant="int8", read="flash")
+    zeroed = pa.PagedLayer(layer.k, layer.v,
+                           poisoned.k_scale.nan_to_num(0.0),
+                           poisoned.v_scale.nan_to_num(0.0), quant="int8",
+                           read="flash")
+    out_nan = pa.paged_decode_blocks_cuda(q, poisoned, bt, lengths)
+    ref_nan = pa.paged_decode_blocks_plain(q, zeroed, bt, lengths)
+    len0 = lengths.clone()
+    len0[0] = 0
+    out0 = pa.paged_decode_blocks_cuda(q, poisoned, bt, len0)
+    torch.cuda.synchronize()
+    err_nan, ok = bf16_err(torch, out_nan, ref_nan)
+    if not ok or not torch.equal(out_nan, out_bt):
+        raise AssertionError(f"paged_decode read a NaN-scale key: max|err| "
+                             f"{err_nan}")
+    if not bool((out0[0] == 0).all()) or not torch.equal(out0[1:],
+                                                         out_nan[1:]):
+        raise AssertionError("paged_decode: length 0 is not exact zeros")
+
     kd = (kq.float() * ks[..., None]).to(torch.bfloat16).transpose(1, 2)
     vd = (vq.float() * vs[..., None]).to(torch.bfloat16).transpose(1, 2)
     kd, vd = kd.contiguous(), vd.contiguous()
@@ -307,23 +385,36 @@ def check_paged(torch, F, gen):
             < lengths[:, None])[:, None, None, :]
     ms = time_ms(torch, lambda: pa.paged_decode_cuda(q, kq, ks, vq, vs,
                                                      lengths))
+    bt_ms = time_ms(torch, lambda: pa.paged_decode_blocks_cuda(
+        q, layer, bt, lengths))
     plain_ms = time_ms(torch, lambda: pa.paged_decode_plain(q, kq, ks, vq,
                                                             vs, lengths))
+    bt_plain_ms = time_ms(torch, lambda: pa.paged_decode_blocks_plain(
+        q, layer, bt, lengths))
     lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
         qh, kd, vd, attn_mask=mask))
     live = int(lengths.sum().item())                   # keys this data needs
-    nbytes = live * h * (2 * d + 2 * 4) + 2 * b * h * d * 2 + b * 4
-    flops = 4.0 * live * h * d
-    bound_ms = max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES) * 1e3
+    bound_ms, bound_by = paged_bound(b, h, d, lengths)
+    bt_bound_ms, bt_bound_by = paged_bound(b, h, d, lengths, ps)
+    lib = ("scaled_dot_product_attention on dequantized bf16 K/V with the "
+           "length mask")
     return {"shape": f"B{b} Lk{lk} H{h} D{d} int8 K/V, bf16 q, "
-                     f"{live} live keys",
+                     f"{live} live keys (gathered)",
             "max_abs_err": err, "tolerance": f"{BF16_TOL} * (1 + |plain|)",
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": ("bytes" if nbytes / PEAK_BYTES
-                         >= flops / PEAK_FP32_FLOPS else "operations"),
-            "library_ms": lib_ms,
-            "library": "scaled_dot_product_attention on dequantized bf16 "
-                       "K/V with the length mask"}
+            "ms": ms, "ms_is": "one call: split and merge launches",
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": lib_ms, "library": lib,
+            "more_shapes": [{
+                "shape": f"the same keys in {n_pages} pages of {ps} through "
+                         f"a shuffled ({b}, {per_row}) block table",
+                "max_abs_err": err_bt, "bit_equal_to_gathered": True,
+                "ms": bt_ms, "plain_ms": bt_plain_ms,
+                "plain_is": "gather_pages then paged_decode_plain",
+                "bound_ms": bt_bound_ms, "bound_by": bt_bound_by,
+                "library_ms": lib_ms, "library": lib}],
+            "nan_scale_arenas": {"max_abs_err": err_nan,
+                                 "bit_equal_to_clean": True},
+            "length0_exact_zeros": True}
 
 
 def live_causal_pairs(lq, lk):
@@ -505,15 +596,16 @@ def check_adamw(torch, gen):
 
 
 def sgd_case(torch, p, g, m, row, tol):
-    """One sgd launch per leaf against fused_sgd_plain on copies; returns
-    (max |err|, the kernel's and the plain results). ``tol``: fp32 values
-    within FP32_TOL (1 + |plain|); "ulp": a bf16 p within one bf16 ulp."""
+    """One multi-leaf sgd call over every leaf against fused_sgd_plain on
+    copies; returns the max |err|. ``tol`` names the bound: fp32 values
+    within FP32_TOL (1 + |plain|), a bf16 p within one bf16 ulp of
+    max(|plain|, |p|, lr |m'|)."""
     from tpu_dist_torch.ops import pallas_sgd as ps
 
     got = ([t.clone() for t in p], [t.clone() for t in m])
     ref = ([t.clone() for t in p], [t.clone() for t in m])
+    ps.fused_sgd_multi_cuda(got[0], g, got[1], row)
     for i in range(len(p)):
-        ps.fused_sgd_cuda(got[0][i], g[i], got[1][i], row)
         ps.fused_sgd_plain(ref[0][i], g[i], ref[1][i], row)
     torch.cuda.synchronize()
     lr = float(row[0])
@@ -537,9 +629,10 @@ def sgd_case(torch, p, g, m, row, tol):
 
 
 def check_sgd(torch, gen):
-    """The SGD kernel against fused_sgd_plain at ResNet-50's largest leaf
-    (3x3x512x512, 2,359,296 fp32) and across its 161 leaves as one step,
-    with the clip slot at 1 and 0.3, and with a bf16 p."""
+    """The SGD kernel against fused_sgd_plain across ResNet-50's 161
+    leaves as one step (one multi-leaf call), with the clip slot at 1 and
+    0.3, and with a bf16 p; timed as that step and at the largest leaf
+    (3x3x512x512, 2,359,296 fp32) alone."""
     from tpu_dist_torch.models.registry import create_model
     from tpu_dist_torch.ops import pallas_sgd as ps
 
@@ -566,15 +659,15 @@ def check_sgd(torch, gen):
                 "one bf16 ulp of max(|plain|, |p|, lr |m'|)")}
 
     def step_kernel():
-        for i in range(len(p)):
-            ps.fused_sgd_cuda(p[i], g[i], m[i], row)
+        ps.fused_sgd_multi_cuda(p, g, m, row)
 
     def step_plain():
         for i in range(len(p)):
             ps.fused_sgd_plain(p[i], g[i], m[i], row)
 
-    # the step's 161 launches replayed from a CUDA graph: their device time
-    # without the host's per-launch cost, which eager_ms keeps
+    # the step's launch replayed from a CUDA graph: its device time without
+    # the host's cost (the check pass, the table, the ctypes call), which
+    # eager_ms keeps
     graph = torch.cuda.CUDAGraph()
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -603,7 +696,7 @@ def check_sgd(torch, gen):
     lib = "torch._fused_sgd_ (weight decay, momentum; no clip slot)"
     return {
         "shape": f"one ResNet-50 step: {len(shapes)} fp32 leaves, {n} "
-                 "elements, one launch each",
+                 "elements, one launch over all",
         "max_abs_err": max(errs["step_cs1"], errs["step_cs0.3"]),
         "errors": errs, "tolerance": fp32, "ms": step_ms,
         "ms_is": "CUDA-graph replay of the step's launches",
@@ -943,9 +1036,10 @@ def image_path(torch, kernels):
         raise AssertionError(f"window losses {losses}")
     if not losses[-1] < losses[0]:
         raise AssertionError(f"losses not falling: {losses}")
-    if launches["sgd"] != leaves * steps:
+    groups = len({p.dtype for p in tr.state.params})   # one call each
+    if launches["sgd"] != groups * steps:
         raise AssertionError(f"sgd launched {launches['sgd']} times, "
-                             f"expected {leaves} x {steps}")
+                             f"expected {groups} dtype group(s) x {steps}")
     if meta.get("step") != steps or meta.get("arch") != "resnet50":
         raise AssertionError(f"checkpoint meta {meta}")
     for name in ("params", "batch_stats"):
@@ -1294,6 +1388,9 @@ def main():
                 "int8_serving": quant_launches["flash_fwd"],
                 "spec_serving": spec_launches["flash_fwd"]}
         if kname == "paged_decode":
+            entry.update({k: paged[k] for k in (
+                "ms_is", "more_shapes", "nan_scale_arenas",
+                "length0_exact_zeros")})
             entry["launches_by_path"] = {
                 "serving": serve_launches["paged_decode"],
                 "int8_serving": quant_launches["paged_decode"],

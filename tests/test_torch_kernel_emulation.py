@@ -53,7 +53,8 @@ def emu():
                                      fa._BWD_DKV_ARGS),
             "adamw": cuda_emu.function("adamw", "tdt_adamw",
                                        adamw._ADAMW_ARGS),
-            "sgd": cuda_emu.function("sgd", "tdt_sgd", sgd._SGD_ARGS),
+            "sgd": cuda_emu.function("sgd", "tdt_sgd_multi",
+                                     sgd._SGD_ARGS),
             "quant": cuda_emu.function("fused_quant", "tdt_fused_quant",
                                        pq._FUSED_QUANT_ARGS),
             "int8kv": cuda_emu.function("flash_fwd_int8kv",
@@ -156,6 +157,65 @@ def test_paged_kernel_source_matches_plain(emu, dtype, d, lengths):
     out = pa._launch(emu["paged"], q, kq, ks, vq, vs, lens, None)
     _close(out, pa.paged_decode_plain(q, kq, ks, vq, vs, lens), dtype)
     assert bool((out[lens == 0] == 0).all())
+
+
+def shuffled_arenas(gen, lengths, h, d, page_size, pages_per_row, spare):
+    """An int8 PagedLayer whose live pages are a random permutation of the
+    pool, its (B, P) int32 block table (entries past a row's live pages on
+    the trash page), and a copy of the layer whose scales are NaN on every
+    key no row may read: the unowned pages, the trash page and the rows at
+    or past the length in each last page."""
+    b = len(lengths)
+    live_pages = [-(-n // page_size) for n in lengths]
+    n_pages = sum(live_pages) + spare
+    trash = n_pages
+    perm = torch.randperm(n_pages, generator=gen)
+    bt = torch.full((b, pages_per_row), trash, dtype=torch.int32)
+    readable = torch.zeros((n_pages + 1, page_size), dtype=torch.bool)
+    used = 0
+    for i, n in enumerate(lengths):
+        pages = perm[used:used + live_pages[i]]
+        used += live_pages[i]
+        bt[i, :len(pages)] = pages.to(torch.int32)
+        for j, page in enumerate(pages.tolist()):
+            readable[page, :min(page_size, n - j * page_size)] = True
+    k, v = (torch.randn((n_pages + 1, page_size, h, d), generator=gen)
+            for _ in range(2))
+    kq, ks, vq, vs = fa.quantize_kv(k, v)
+    layer = pa.PagedLayer(kq, vq, ks, vs, quant="int8", read="flash")
+    nan = torch.where(readable[..., None], 0.0, float("nan"))
+    poisoned = pa.PagedLayer(kq, vq, ks + nan, vs + nan, quant="int8",
+                             read="flash")
+    return layer, poisoned, bt
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 128),
+                                     (torch.bfloat16, 64)], ids=str)
+def test_paged_block_table_kernel_source_reads_only_live_keys(emu, dtype, d):
+    """The kernel through a shuffled block table (page_size 16, 20 pages a
+    row, three 128-key splits) at lengths 0, 1, a page, a page + 1, a
+    split boundary -1 / 0 / +1 and the full table, on arenas whose scales
+    are NaN wherever no row may read: equal to paged_decode_blocks_plain
+    on the same arenas with those scales zeroed, within 1e-5 (1 + |plain|)
+    in fp32 (summation order) and 2e-2 in bf16 (the output's rounding);
+    exact zeros at length 0."""
+    lengths = [0, 1, 16, 17, 127, 128, 129, 320]
+    gen = torch.Generator().manual_seed(d + 7)
+    layer, poisoned, bt = shuffled_arenas(gen, lengths, 2, d, 16, 20, 5)
+    q = torch.randn((len(lengths), 1, 2, d), generator=gen).to(dtype)
+    lens = torch.tensor(lengths, dtype=torch.int32)
+    out = pa._launch_blocks(emu["paged"], q, poisoned.k, poisoned.k_scale,
+                            poisoned.v, poisoned.v_scale, bt, lens, None)
+    assert bool(torch.isfinite(out.float()).all())
+    zeroed = pa.PagedLayer(
+        poisoned.k, poisoned.v, poisoned.k_scale.nan_to_num(0.0),
+        poisoned.v_scale.nan_to_num(0.0), quant="int8", read="flash")
+    ref = pa.paged_decode_blocks_plain(q, zeroed, bt, lens)
+    _close(out, ref, dtype)
+    assert bool((out[0] == 0).all())
+    clean = pa._launch_blocks(emu["paged"], q, layer.k, layer.k_scale,
+                              layer.v, layer.v_scale, bt, lens, None)
+    assert torch.equal(out, clean)   # the NaN scales were never read
 
 
 @pytest.mark.parametrize("dtype,case", [
@@ -338,12 +398,52 @@ def test_sgd_kernel_source_matches_plain(emu, dtype, n, offset):
     m = torch.randn(n, generator=gen) * 0.1
     row = sgd.scalar_row(0.1, 0.9, 1e-4, torch.tensor(0.3))
     ref = [p.clone(), m.clone()]
-    sgd._launch(emu["sgd"], p, g, m, row, None)
+    sgd._launch(emu["sgd"], [p], [g], [m], row, None)
     sgd.fused_sgd_plain(ref[0], g, ref[1], row)
     assert p.dtype == dtype
     for a, r in zip((p, m), ref):
         diff = (a.float() - r.float()).abs()
         assert bool((diff <= 1e-6 * (1 + r.float().abs())).all())
+
+
+# leaf sizes of the multi-leaf table, cycled: empty, ragged, a BatchNorm
+# vector, one element past a 4096-element chunk, several chunks
+SGD_SIZES = (0, 1, 3, 5, 64, 4097, 70_000)
+
+
+@pytest.mark.parametrize("dtypes", [
+    (torch.float32,), (torch.bfloat16,),
+    (torch.float32, torch.bfloat16),    # two groups: one call each
+], ids=str)
+def test_sgd_multi_leaf_kernel_source_matches_plain(emu, dtypes):
+    """About 200 leaves through the multi-leaf wrapper's grouping: one C
+    call per p dtype, each with more rows than the 4 KB parameter space
+    holds (the emulation builds the 96-leaf capacity of toolkits before
+    CUDA 12.1, so a table goes out in two or three launches), sizes
+    cycling through SGD_SIZES, every seventh leaf a view at an odd element
+    offset (the element-by-element path). Each leaf within 1e-6 (1 +
+    |plain|) of fused_sgd_plain, as the one-leaf case."""
+    gen = torch.Generator().manual_seed(200)
+    ps, gs, ms = [], [], []
+    for i in range(203 * len(dtypes)):
+        n = SGD_SIZES[i % len(SGD_SIZES)]
+        if n > 4097 and i > 7:      # keep the emulated grid small
+            n = 300
+        off = 1 + i % 3 if i % 7 == 3 else 0
+        dtype = dtypes[i % len(dtypes)]
+        ps.append(torch.randn(n + off, generator=gen).to(dtype)[off:])
+        gs.append(torch.randn(n, generator=gen))
+        ms.append(torch.randn(n, generator=gen) * 0.1)
+    row = sgd.scalar_row(0.1, 0.9, 1e-4, torch.tensor(0.3))
+    ref = [[p.clone() for p in ps], [m.clone() for m in ms]]
+    calls = sgd._launch_groups(emu["sgd"], ps, gs, ms, row, None)
+    assert calls == len(dtypes)
+    for i in range(len(ps)):
+        sgd.fused_sgd_plain(ref[0][i], gs[i], ref[1][i], row)
+        for a, r in ((ps[i], ref[0][i]), (ms[i], ref[1][i])):
+            assert a.dtype == r.dtype
+            diff = (a.float() - r.float()).abs()
+            assert bool((diff <= 1e-6 * (1 + r.float().abs())).all()), i
 
 
 @pytest.mark.parametrize("dtype,m,k,n", [

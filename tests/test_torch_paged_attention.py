@@ -2,7 +2,10 @@
 reference (tpu_dist.ops.paged_attention): the scatter/gather/fork array
 ops and the exact read path match exactly in fp32, and kernel 2's plain
 version matches the Pallas paged decode kernel (interpret mode off-TPU)
-at ragged lengths within 2e-5."""
+at ragged lengths within 2e-5: over gathered pages, through a shuffled
+block table, and inside ``paged_attend``'s int8 flash tick, where the
+emulated kernel source (``tools/cuda_emu.py``) runs too and the tick
+gathers no page."""
 
 import numpy as np
 import pytest
@@ -138,6 +141,110 @@ def test_paged_attend_matches_reference(quant, read, prefill):
         if ja is not None:
             np.testing.assert_array_equal(np.asarray(ja)[live],
                                           getattr(tl, name).numpy()[live])
+
+
+# the int8 flash tick through a shuffled table: page_size 4, 34 pages a row
+# (136 positions, two 128-key splits), lengths = positions + 1 at 1, a
+# page, a page + 1, a split boundary -1 / 0 / +1 and the full table
+TICK_LENGTHS = (1, 4, 5, 127, 128, 129, 136)
+TICK_PS, TICK_PAGES, TICK_H, TICK_D = 4, 34, 2, 64
+
+
+def _emulated_tick(monkeypatch):
+    """Route the CPU tick's attention through the kernel source built by
+    the CUDA emulation (g++), and make any gather_pages call raise."""
+    import shutil
+
+    if not (shutil.which("g++") or shutil.which("clang++")):
+        pytest.skip("no host C++ compiler for the CUDA emulation")
+    from tpu_dist_torch.tools import cuda_emu
+
+    fn = cuda_emu.function("paged_decode", "tdt_paged_decode",
+                           tpa._PAGED_ARGS)
+
+    def kernel(q, layer, bt, lengths):
+        return tpa._launch_blocks(fn, q, layer.k, layer.k_scale, layer.v,
+                                  layer.v_scale, bt, lengths, None)
+
+    def no_gather(*args):
+        raise AssertionError("the int8 flash tick gathered pages")
+
+    monkeypatch.setattr(tpa, "paged_decode_blocks_plain", kernel)
+    monkeypatch.setattr(tpa, "gather_pages", no_gather)
+
+
+@pytest.mark.parametrize("route", ["plain", "kernel"])
+def test_paged_attend_int8_flash_tick_matches_reference(route, monkeypatch):
+    """``paged_attend(int8, flash)``'s tick against the reference's (its
+    Pallas kernel in interpret mode over gathered pages) within 2e-5:
+    "plain" is the CPU dispatch (:func:`paged_decode_blocks_plain`),
+    "kernel" the emulated ``csrc/paged_decode.cu`` reading the arenas
+    through the table, with :func:`gather_pages` made to raise, which pins
+    that the tick copies no page."""
+    rng = np.random.default_rng(11)
+    b = len(TICK_LENGTHS)
+    n = b * TICK_PAGES + 3                     # 3 unowned pages
+    mk = lambda *s: rng.standard_normal(s).astype(np.float32)
+    q, k, v = (mk(b, 1, TICK_H, TICK_D) for _ in range(3))
+    arenas = [np.clip(mk(n + 1, TICK_PS, TICK_H, TICK_D) * 40, -127,
+                      127).astype(np.int8) for _ in range(2)]
+    arenas += [np.abs(mk(n + 1, TICK_PS, TICK_H)) * 0.05 for _ in range(2)]
+    bt = rng.permutation(n)[:b * TICK_PAGES].reshape(b, TICK_PAGES)
+    bt = bt.astype(np.int32)
+    pos = np.array(TICK_LENGTHS, np.int32) - 1
+    jl = jpa.PagedLayer(*map(jnp.asarray, arenas), quant="int8",
+                        read="flash")
+    jo, _ = jpa.paged_attend(
+        *map(jnp.asarray, (q, k, v)),
+        {"layer": jl, "block_tables": jnp.asarray(bt),
+         "positions": jnp.asarray(pos), "lengths": jnp.asarray(pos + 1)},
+        prefill=False, attn_fn=None, dtype=jnp.float32)
+    if route == "kernel":
+        _emulated_tick(monkeypatch)
+    tl = tpa.PagedLayer(*map(_t, arenas), quant="int8", read="flash")
+    to, _ = tpa.paged_attend(
+        *map(_t, (q, k, v)),
+        {"layer": tl, "block_tables": _t(bt), "positions": _t(pos),
+         "lengths": _t(pos + 1)},
+        prefill=False, attn_fn=None, dtype=torch.float32)
+    np.testing.assert_allclose(np.asarray(jo), to.numpy(), rtol=2e-5,
+                               atol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_block_table_decode_matches_pallas_kernel(dtype):
+    """``paged_decode_blocks`` (the tick's attention, CPU dispatch) over a
+    shuffled table against the reference's Pallas kernel over the same
+    pages gathered, with length 0 beside the tick's lengths: within 2e-5
+    (fp32 q); with a bf16 q both round the same fp32 sums to bf16, so
+    within one bf16 ulp (2^-7 relative at most) plus 2e-5. Length 0 gives
+    exact zeros on both sides."""
+    rng = np.random.default_rng(12)
+    lengths = np.array((0,) + TICK_LENGTHS, np.int32)
+    b = len(lengths)
+    n = b * TICK_PAGES + 2
+    q = rng.standard_normal((b, 1, TICK_H, TICK_D)).astype(np.float32)
+    kq, vq = (rng.integers(-127, 128, (n + 1, TICK_PS, TICK_H, TICK_D))
+              .astype(np.int8) for _ in range(2))
+    ks, vs = ((rng.random((n + 1, TICK_PS, TICK_H)) * 0.05)
+              .astype(np.float32) for _ in range(2))
+    bt = rng.permutation(n)[:b * TICK_PAGES].reshape(b, TICK_PAGES)
+    bt = bt.astype(np.int32)
+    jdt, tdt = {"fp32": (jnp.float32, torch.float32),
+                "bf16": (jnp.bfloat16, torch.bfloat16)}[dtype]
+    g = lambda a: jpa.gather_pages(jnp.asarray(a), jnp.asarray(bt))
+    jo = jpa.int8kv_paged_flash_attention_fn(block_k=8)(
+        jnp.asarray(q, jdt), g(kq), g(ks), g(vq), g(vs),
+        jnp.asarray(lengths))
+    layer = tpa.PagedLayer(*map(_t, (kq, vq, ks, vs)), quant="int8",
+                           read="flash")
+    to = tpa.paged_decode_blocks(_t(q).to(tdt), layer, _t(bt), _t(lengths))
+    assert to.dtype == tdt
+    want = np.asarray(jo, np.float32)
+    got = to.float().numpy()
+    rtol = 2e-5 if dtype == "fp32" else 2.0 ** -7
+    np.testing.assert_allclose(got, want, rtol=rtol, atol=2e-5)
+    assert np.all(got[0] == 0) and np.all(want[0] == 0)
 
 
 def test_sp_mesh_is_refused():

@@ -9,7 +9,10 @@ numpy inputs:
   bf16 ulp (the fp32 result may sit on a rounding boundary), the fp32
   momentum within 1e-6 * (1 + |ref|);
 * ``FusedSGD.apply`` over a tree, 3 steps with a step-decay schedule and
-  the clip slot, against the reference ``FusedSGD``, within 1e-6."""
+  the clip slot, against the reference ``FusedSGD``, within 1e-6; and one
+  step over a tree of fp32 and bf16 leaves with bf16 grads (the CPU side
+  of the multi-leaf kernel's dtype groups), within the tolerances
+  above."""
 
 import numpy as np
 import pytest
@@ -93,6 +96,48 @@ def test_fused_sgd_matches_reference_over_steps(clip):
         np.testing.assert_allclose(tstate.trace[i].numpy(),
                                    np.asarray(jstate.trace[k]), rtol=1e-6,
                                    atol=1e-6, err_msg=k)
+
+
+@pytest.mark.parametrize("clip", [0.0, 1.0])
+def test_fused_sgd_mixed_tree_matches_reference(clip):
+    """One ``FusedSGD.apply`` over a tree of fp32 and bf16 leaves of ragged
+    sizes, with bf16 grads (cast to fp32 first, as the reference casts
+    them), against the reference: fp32 leaves within 1e-6 (1 + |ref|), bf16
+    leaves within one bf16 ulp, the momentum within 1e-6 (1 + |ref|)."""
+    shapes = {"a": (1,), "b": (3,), "c": (64,), "d": (4097,), "e": (5, 7)}
+    dtypes = {"a": "fp32", "b": "bf16", "c": "fp32", "d": "bf16",
+              "e": "bf16"}
+    jdt = {"fp32": jnp.float32, "bf16": jnp.bfloat16}
+    tdt = {"fp32": torch.float32, "bf16": torch.bfloat16}
+    rng = np.random.default_rng(7)
+    init = {k: rng.standard_normal(s).astype(np.float32)
+            for k, s in shapes.items()}
+    grads = {k: rng.standard_normal(s).astype(np.float32) * 3
+             for k, s in shapes.items()}
+    names = list(shapes)
+    ref = jsgd.FusedSGD(lambda step: LR, MU, WD, clip_norm=clip,
+                        interpret=True)
+    jparams = {k: jnp.asarray(init[k], jdt[dtypes[k]]) for k in names}
+    jgrads = {k: jnp.asarray(grads[k], jnp.bfloat16) for k in names}
+    jparams, jstate = ref.apply(jparams, jgrads, ref.init(jparams),
+                                jnp.int32(0))
+    port = pallas_sgd.FusedSGD(lambda step: LR, MU, WD, clip_norm=clip)
+    tparams = [torch.from_numpy(init[k]).to(tdt[dtypes[k]]) for k in names]
+    tstate = port.init(tparams)
+    port.apply(tparams, [torch.from_numpy(grads[k]).to(torch.bfloat16)
+                         for k in names], tstate, 0)
+    for i, k in enumerate(names):
+        want_p = np.asarray(jparams[k], np.float32)
+        got_p = tparams[i].float().numpy()
+        assert tparams[i].dtype == tdt[dtypes[k]]
+        if dtypes[k] == "fp32":
+            assert np.all(np.abs(got_p - want_p)
+                          <= 1e-6 * (1 + np.abs(want_p))), k
+        else:
+            assert np.all(np.abs(got_p - want_p) <= _bf16_ulp(want_p)), k
+        want_m = np.asarray(jstate.trace[k])
+        assert np.all(np.abs(tstate.trace[i].numpy() - want_m)
+                      <= 1e-6 * (1 + np.abs(want_m))), k
 
 
 def test_clip_scale_lives_in_pallas_sgd():

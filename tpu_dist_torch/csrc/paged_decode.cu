@@ -5,25 +5,46 @@
 // TPU), reached through int8kv_paged_flash_attention_fn from paged_attend
 // on every decode tick when kv_quant="int8" and attn_read="flash".
 //
-// What it computes: one query per row (the decode tick) over that row's
-// gathered int8 K/V, q (B, 1, H, D), kq/vq (B, Lk, H, D) int8 with one
-// fp32 scale per (b, position, h) in ks/vs (B, Lk, H); keys at positions
-// >= lengths[b] are masked (length = position + 1 is the causal mask).
-// Dequantization happens in registers, softmax in fp32, and the output
-// (B, 1, H, D) is in q's type. A row with length 0 writes exact zeros.
+// What it computes: one query per row (the decode tick), q (B, 1, H, D),
+// over that row's int8 K/V with one fp32 scale per (position, head); keys
+// at positions >= lengths[b] are masked (length = position + 1 is the
+// causal mask). Dequantization happens in registers, softmax in fp32, and
+// the output (B, 1, H, D) is in q's type. A row with length 0 writes exact
+// zeros.
+//
+// Where the keys live: the page arenas k, v (N+1, page_size, H, D) int8
+// and k_scale, v_scale (N+1, page_size, H) fp32, read through the block
+// table bt (B, P) int32: key j of row b is arena row
+// bt[b, j / page_size] * page_size + j % page_size. Only keys below
+// lengths[b] are read: no page past the live length, no stale row of the
+// last page, never the trash page. The TPU kernel reads a gathered copy of
+// every row's whole table instead; here the gathered layout (B, Lk, H, D)
+// is the same arenas seen as B pages of page_size = Lk with bt = [[0],
+// [1], ...], so one kernel serves both entries.
 //
 // Bound on an H100 SXM: bytes. Every live key costs D int8 of K, D of V
 // and two fp32 scales per head, read once, against 3.35 TB/s; the FLOPs
 // (4*D per key and head) are two orders of magnitude below the fp32 rate.
+// At a decode tick's sizes the bytes take a few microseconds, so what
+// costs time is memory latency and idle SMs.
 //
-// Design (first version: right and simple): one block of 8 warps per
-// (b, h). Each warp walks its own stride of live keys, four keys at a time;
-// a lane holds D/32 dimensions, so one key's K row is one coalesced
-// 128-byte warp load at D=128, reduced with shuffles. Each warp keeps its
-// own online softmax (max, sum, D/32 accumulators per lane); a final merge
-// across warps in shared memory rescales the eight partial states. Only
-// keys below lengths[b] are read at all. Reading the pages through the
-// block table (no gathered copy) is a later performance step.
+// Design (split-key decode, "flash-decoding"), two launches per call:
+// 1. paged_split_kernel, grid (splits, B * H): each block owns SPLIT
+//    consecutive key positions of one (b, h), fixed from P * page_size so
+//    the host reads no length; a split past its row's length writes an
+//    empty partial (m = NEG_INF, l = 0) and exits. A warp reads 32 / (D/16)
+//    keys per 16-byte load instruction (D/16 lanes per K row, coalesced),
+//    and every thread issues all of its K and V rows and scales before
+//    their first use, so a block costs about two memory latencies (block
+//    table, then K/V) rather than one latency chain per key. Scores are
+//    reduced across a row's lanes by shuffles, the split's max and sum are
+//    taken over shared memory, and the p-weighted V sums of the key groups
+//    are added in shared memory in a fixed order. Out: (m, l) and acc[D]
+//    per (b, h, split).
+// 2. paged_merge_kernel, one block of D threads per (b, h): M = max m_s,
+//    L = sum l_s e^(m_s - M), out = sum acc_s e^(m_s - M) / max(L, 1e-30),
+//    over the row's live splits in order. No atomics anywhere, so the
+//    result is deterministic.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -31,10 +52,12 @@
 
 namespace {
 
-constexpr int NT = 256;      // threads per block
-constexpr int NW = NT / 32;  // warps per block
-constexpr int KU = 4;        // keys per warp per step
+constexpr int NT = 256;      // threads per split block
+constexpr int NW = NT / 32;  // warps per split block
+constexpr int SPLIT = 128;   // key positions per split block
 constexpr float NEG_INF = -1e30f;
+
+struct alignas(16) I8x16 { uint32_t w[4]; };   // 16 int8 values
 
 template <typename T> __device__ __forceinline__ float to_f(T x);
 template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
@@ -48,150 +71,226 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
   return __float2bfloat16(x);
 }
 
-// DPL consecutive int8 values as floats (one 4- or 2-byte load)
-template <int DPL> __device__ __forceinline__ void load_i8(const int8_t* p, float* o);
-template <> __device__ __forceinline__ void load_i8<4>(const int8_t* p, float* o) {
-  const char4 c = *reinterpret_cast<const char4*>(p);
-  o[0] = (float)c.x; o[1] = (float)c.y; o[2] = (float)c.z; o[3] = (float)c.w;
+__device__ __forceinline__ float i8(uint32_t w, int e) {
+  return (float)(int8_t)(w >> (8 * e));
 }
-template <> __device__ __forceinline__ void load_i8<2>(const int8_t* p, float* o) {
-  const char2 c = *reinterpret_cast<const char2*>(p);
-  o[0] = (float)c.x; o[1] = (float)c.y;
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
+  return x;
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(NT) paged_decode_kernel(
-    const T* __restrict__ q, const int8_t* __restrict__ kq,
-    const float* __restrict__ ks, const int8_t* __restrict__ vq,
-    const float* __restrict__ vs, const int* __restrict__ lengths,
-    T* __restrict__ out, int H, int Lk, float scale) {
-  constexpr int DPL = D / 32;  // dimensions per lane
-  __shared__ float s_m[NW], s_l[NW];
-  __shared__ float s_acc[NW][D];
+__global__ void __launch_bounds__(NT) paged_split_kernel(
+    const T* __restrict__ q, const int8_t* __restrict__ k,
+    const float* __restrict__ ks, const int8_t* __restrict__ v,
+    const float* __restrict__ vs, const int* __restrict__ bt,
+    const int* __restrict__ lengths, float* __restrict__ part_ml,
+    float* __restrict__ part_acc, int H, int P, int page_size,
+    float scale) {
+  constexpr int PIECES = D / 16;            // lanes per key row
+  constexpr int RPW = 32 / PIECES;          // keys per warp load
+  constexpr int GROUPS = NW * RPW;          // keys per block load
+  constexpr int KPT = SPLIT / GROUPS;       // keys per thread
+  __shared__ float s_score[SPLIT];
+  __shared__ float s_red[GROUPS][D];
 
-  const int bh = blockIdx.x;
+  const int split = blockIdx.x;
+  const int bh = blockIdx.y;
   const int b = bh / H;
   const int h = bh % H;
   const int lane = threadIdx.x & 31;
   const int w = threadIdx.x >> 5;
+  const int r = lane / PIECES;
+  const int c = lane % PIECES;
+  const long long part = (long long)bh * gridDim.x + split;
   int len = lengths[b];
-  len = len < 0 ? 0 : (len > Lk ? Lk : len);
+  const int cap = P * page_size;
+  len = len < 0 ? 0 : (len > cap ? cap : len);
+  const int j0 = split * SPLIT;
+  if (j0 >= len) {           // nothing live here: an empty partial
+    if (threadIdx.x == 0) {
+      part_ml[2 * part] = NEG_INF;
+      part_ml[2 * part + 1] = 0.f;
+    }
+    return;
+  }
 
-  float qv[DPL];
+  // issue every load of this thread before the first use: q's 16 dims,
+  // then the block-table entries, then K, V and their scales
+  float qv[16];
   {
-    const T* qr = q + (long)bh * D + lane * DPL;
+    const T* qr = q + (long long)bh * D + c * 16;
 #pragma unroll
-    for (int i = 0; i < DPL; ++i) qv[i] = to_f<T>(qr[i]);
+    for (int e = 0; e < 16; ++e) qv[e] = to_f<T>(qr[e]);
   }
-  const long rs = (long)H * D;                         // K/V position stride
-  const int8_t* kb = kq + (long)b * Lk * rs + (long)h * D + lane * DPL;
-  const int8_t* vb = vq + (long)b * Lk * rs + (long)h * D + lane * DPL;
-  const float* ksb = ks + (long)b * Lk * H + h;        // scale position stride H
-  const float* vsb = vs + (long)b * Lk * H + h;
-
-  float m = NEG_INF, l = 0.f;
-  float acc[DPL];
+  const long long rs = (long long)H * D;    // arena row stride (bytes)
+  long long row[KPT];
+  bool live[KPT];
 #pragma unroll
-  for (int i = 0; i < DPL; ++i) acc[i] = 0.f;
-
-  for (int j0 = w * KU; j0 < len; j0 += NW * KU) {
-    float s[KU];
+  for (int i = 0; i < KPT; ++i) {
+    const int j = j0 + (i * NW + w) * RPW + r;
+    live[i] = j < len;
+    row[i] = live[i] ? (long long)bt[(long long)b * P + j / page_size] *
+                               page_size + j % page_size
+                     : 0;
+  }
+  I8x16 kr[KPT], vr[KPT];
+  float ksc[KPT], vsc[KPT];
 #pragma unroll
-    for (int u = 0; u < KU; ++u) {
-      s[u] = 0.f;
-      const int j = j0 + u;
-      if (j < len) {
-        float kf[DPL];
-        load_i8<DPL>(kb + (long)j * rs, kf);
-#pragma unroll
-        for (int i = 0; i < DPL; ++i) s[u] = fmaf(qv[i], kf[i], s[u]);
-      }
+  for (int i = 0; i < KPT; ++i) {
+    if (live[i]) {
+      const long long off = row[i] * rs + (long long)h * D + c * 16;
+      kr[i] = *reinterpret_cast<const I8x16*>(k + off);
+      vr[i] = *reinterpret_cast<const I8x16*>(v + off);
+      ksc[i] = ks[row[i] * H + h];
+      vsc[i] = vs[row[i] * H + h];
     }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-#pragma unroll
-      for (int u = 0; u < KU; ++u) s[u] += __shfl_xor_sync(0xffffffffu, s[u], off);
-    float mx = NEG_INF;
-#pragma unroll
-    for (int u = 0; u < KU; ++u) {
-      const int j = j0 + u;
-      s[u] = (j < len) ? s[u] * ksb[(long)j * H] * scale : NEG_INF;
-      mx = fmaxf(mx, s[u]);
-    }
-    const float m_new = fmaxf(m, mx);
-    const float alpha = expf(m - m_new);
-    l *= alpha;
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) acc[i] *= alpha;
-#pragma unroll
-    for (int u = 0; u < KU; ++u) {
-      const int j = j0 + u;
-      const float p = (s[u] <= 0.5f * NEG_INF) ? 0.f : expf(s[u] - m_new);
-      l += p;
-      if (j < len) {
-        float vf[DPL];
-        load_i8<DPL>(vb + (long)j * rs, vf);
-        const float pv = p * vsb[(long)j * H];
-#pragma unroll
-        for (int i = 0; i < DPL; ++i) acc[i] = fmaf(pv, vf[i], acc[i]);
-      }
-    }
-    m = m_new;
   }
 
-  if (lane == 0) {
-    s_m[w] = m;
-    s_l[w] = l;
-  }
+  // scores: a row's PIECES lanes each dot 16 dims, then shuffle-reduce
+  float s[KPT];
 #pragma unroll
-  for (int i = 0; i < DPL; ++i) s_acc[w][lane * DPL + i] = acc[i];
+  for (int i = 0; i < KPT; ++i) {
+    float d = 0.f;
+    if (live[i]) {
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          d = fmaf(qv[4 * t + e], i8(kr[i].w[t], e), d);
+    }
+#pragma unroll
+    for (int off = PIECES / 2; off > 0; off >>= 1)
+      d += __shfl_xor_sync(0xffffffffu, d, off);
+    s[i] = live[i] ? d * ksc[i] * scale : NEG_INF;
+    if (c == 0) s_score[(i * NW + w) * RPW + r] = s[i];
+  }
   __syncthreads();
 
-  for (int d = threadIdx.x; d < D; d += NT) {
-    float M = NEG_INF;
+  // the split's max and sum, every warp on its own from shared memory
+  float m = NEG_INF;
+  for (int t = lane; t < SPLIT; t += 32) m = fmaxf(m, s_score[t]);
+  m = warp_max(m);                           // finite: key j0 is live
+  float l = 0.f;
+  for (int t = lane; t < SPLIT; t += 32) {
+    const float sc = s_score[t];
+    l += (sc <= 0.5f * NEG_INF) ? 0.f : expf(sc - m);
+  }
+  l = warp_sum(l);
+
+  // p-weighted V over this thread's keys, then over the key groups
+  float acc[16];
 #pragma unroll
-    for (int ww = 0; ww < NW; ++ww) M = fmaxf(M, s_m[ww]);
-    float L = 0.f, A = 0.f;
+  for (int e = 0; e < 16; ++e) acc[e] = 0.f;
 #pragma unroll
-    for (int ww = 0; ww < NW; ++ww) {
-      const float f = expf(s_m[ww] - M);  // a warp with no live key has l = acc = 0
-      L = fmaf(s_l[ww], f, L);
-      A = fmaf(s_acc[ww][d], f, A);
+  for (int i = 0; i < KPT; ++i) {
+    if (live[i]) {
+      const float pv = expf(s[i] - m) * vsc[i];
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[4 * t + e] = fmaf(pv, i8(vr[i].w[t], e), acc[4 * t + e]);
     }
-    out[(long)bh * D + d] = from_f<T>(A / fmaxf(L, 1e-30f));
+  }
+#pragma unroll
+  for (int e = 0; e < 16; ++e) s_red[w * RPW + r][c * 16 + e] = acc[e];
+  __syncthreads();
+  for (int d = threadIdx.x; d < D; d += NT) {
+    float a = 0.f;
+#pragma unroll 8
+    for (int g = 0; g < GROUPS; ++g) a += s_red[g][d];
+    part_acc[part * D + d] = a;
+  }
+  if (threadIdx.x == 0) {
+    part_ml[2 * part] = m;
+    part_ml[2 * part + 1] = l;
   }
 }
 
 template <typename T, int D>
-int launch(const void* q, const void* kq, const void* ks, const void* vq,
-           const void* vs, const void* lengths, void* out, int B, int H,
-           int Lk, float scale, cudaStream_t stream) {
-  paged_decode_kernel<T, D><<<B * H, NT, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const int8_t*>(kq),
-      static_cast<const float*>(ks), static_cast<const int8_t*>(vq),
-      static_cast<const float*>(vs), static_cast<const int*>(lengths),
-      static_cast<T*>(out), H, Lk, scale);
+__global__ void __launch_bounds__(D) paged_merge_kernel(
+    const float* __restrict__ part_ml, const float* __restrict__ part_acc,
+    const int* __restrict__ lengths, T* __restrict__ out, int H,
+    int n_splits, int cap) {
+  const int bh = blockIdx.x;
+  const int d = threadIdx.x;
+  int len = lengths[bh / H];
+  len = len < 0 ? 0 : (len > cap ? cap : len);
+  const int n = (len + SPLIT - 1) / SPLIT;   // live splits, in order
+  const float* ml = part_ml + 2LL * bh * n_splits;
+  const float* acc = part_acc + (long long)bh * n_splits * D;
+  float M = NEG_INF;
+  for (int s = 0; s < n; ++s) M = fmaxf(M, ml[2 * s]);
+  float L = 0.f, A = 0.f;
+  for (int s = 0; s < n; ++s) {
+    const float f = expf(ml[2 * s] - M);
+    L = fmaf(ml[2 * s + 1], f, L);
+    A = fmaf(acc[(long long)s * D + d], f, A);
+  }
+  out[(long long)bh * D + d] = from_f<T>(A / fmaxf(L, 1e-30f));
+}
+
+template <typename T, int D>
+int launch(const void* q, const void* k, const void* ks, const void* v,
+           const void* vs, const void* bt, const void* lengths,
+           void* part_ml, void* part_acc, void* out, int B, int H, int P,
+           int page_size, int n_splits, float scale, cudaStream_t stream) {
+  const dim3 grid(n_splits, B * H);
+  paged_split_kernel<T, D><<<grid, NT, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const int8_t*>(k),
+      static_cast<const float*>(ks), static_cast<const int8_t*>(v),
+      static_cast<const float*>(vs), static_cast<const int*>(bt),
+      static_cast<const int*>(lengths), static_cast<float*>(part_ml),
+      static_cast<float*>(part_acc), H, P, page_size, scale);
+  const int err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  paged_merge_kernel<T, D><<<B * H, D, 0, stream>>>(
+      static_cast<const float*>(part_ml), static_cast<const float*>(part_acc),
+      static_cast<const int*>(lengths), static_cast<T*>(out), H, n_splits,
+      P * page_size);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype (of q and out): 0 = float32, 1 = bfloat16. Returns the launch's
-// cudaError_t (0 = launched); -1 for a (dtype, D) this build has no
-// instance for.
-extern "C" int tdt_paged_decode(const void* q, const void* kq, const void* ks,
-                                const void* vq, const void* vs,
-                                const void* lengths, void* out, int B, int H,
-                                int Lk, int D, float scale, int dtype,
-                                void* stream) {
+// q and out (B, 1, H, D) of dtype 0 = float32, 1 = bfloat16; k, v int8
+// arenas (N+1, page_size, H, D) and k_scale, v_scale fp32 (N+1, page_size,
+// H), 16-byte aligned; block_tables (B, P) and lengths (B,) int32; fp32
+// scratch part_ml (B, H, n_splits, 2) and part_acc (B, H, n_splits, D),
+// n_splits = ceil(P * page_size / 128). Two launches (split, merge) on
+// `stream`. Returns the first failed launch's cudaError_t (0 = both
+// launched); -1 for a (dtype, D) this build has no instance for, -2 for a
+// wrong n_splits or more than 65,535 (b, h) rows.
+extern "C" int tdt_paged_decode(const void* q, const void* k, const void* ks,
+                                const void* v, const void* vs,
+                                const void* block_tables,
+                                const void* lengths, void* part_ml,
+                                void* part_acc, void* out, int B, int H,
+                                int D, int P, int page_size, int n_splits,
+                                float scale, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && D == 64)
-    return launch<float, 64>(q, kq, ks, vq, vs, lengths, out, B, H, Lk, scale, s);
-  if (dtype == 0 && D == 128)
-    return launch<float, 128>(q, kq, ks, vq, vs, lengths, out, B, H, Lk, scale, s);
-  if (dtype == 1 && D == 64)
-    return launch<__nv_bfloat16, 64>(q, kq, ks, vq, vs, lengths, out, B, H, Lk, scale, s);
-  if (dtype == 1 && D == 128)
-    return launch<__nv_bfloat16, 128>(q, kq, ks, vq, vs, lengths, out, B, H, Lk, scale, s);
+  const long long keys = (long long)P * page_size;
+  if (n_splits != (keys + SPLIT - 1) / SPLIT || n_splits < 1 ||
+      (long long)B * H > 65535 || keys > 0x7fffffffLL)
+    return -2;
+#define TDT_PAGED(T, DD)                                                    \
+  return launch<T, DD>(q, k, ks, v, vs, block_tables, lengths, part_ml,     \
+                       part_acc, out, B, H, P, page_size, n_splits, scale, s)
+  if (dtype == 0 && D == 64) TDT_PAGED(float, 64);
+  if (dtype == 0 && D == 128) TDT_PAGED(float, 128);
+  if (dtype == 1 && D == 64) TDT_PAGED(__nv_bfloat16, 64);
+  if (dtype == 1 && D == 128) TDT_PAGED(__nv_bfloat16, 128);
+#undef TDT_PAGED
   return -1;
 }

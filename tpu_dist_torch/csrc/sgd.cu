@@ -17,16 +17,25 @@
 //
 // Bound on an H100 SXM: bytes. It reads p, g, m and writes p, m: 20 bytes
 // per fp32 element against 3.35 TB/s; five FLOP per element are far below
-// the fp32 SIMT rate.
+// the fp32 SIMT rate. A ResNet-50 step is 161 leaves, about 100 of them
+// BatchNorm vectors of 64-2,048 elements, so one launch per leaf costs
+// more in launches than in bytes.
 //
-// Design: one grid-stride launch per flat leaf (the TPU kernel's
-// (rows, 128) blocking is a VMEM artifact, not part of the function), 256
-// threads a block and at most 8 blocks per SM, each thread loading the
-// scalar row once. When every pointer is 16-byte aligned (8 for a bf16 p)
-// the body moves four elements a thread with one 16-byte load of g and m
-// and one 16- or 8-byte access of p; the ragged tail (n mod 4) and
-// unaligned leaves go element by element. Neighbouring threads touch
-// neighbouring addresses either way, so every access is coalesced.
+// Design: one launch over every leaf of one p dtype (multi-tensor apply).
+// The host passes a table of {p, g, m, n} per leaf; the C entry adds each
+// leaf's first chunk index and hands the table to the kernel BY VALUE as
+// its parameter, so nothing is copied host to device and a CUDA-graph
+// capture records the launch as it is. Each block takes one chunk of
+// CHUNK elements of one leaf, found by a binary search over the chunk
+// starts (leaves with n = 0 own no chunk). A leaf whose pointers are all
+// 16-byte aligned (8 for a bf16 p) moves four elements per access, each
+// thread issuing all of its 16-byte loads before the first update; the
+// ragged tail (n mod 4) and unaligned leaves go element by element.
+// Neighbouring threads touch neighbouring addresses either way, so every
+// access is coalesced. A table longer than one launch's capacity (CAP
+// leaves: 512 where the toolkit allows 32,764 bytes of kernel parameters,
+// CUDA >= 12.1, else 96, inside the older 4 KB) is split into launches of
+// at most CAP leaves.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -34,8 +43,27 @@
 
 namespace {
 
-constexpr int NT = 256;
-constexpr int MAX_BLOCKS = 132 * 8;
+constexpr int NT = 256;                // threads per block
+constexpr int VPT = 4;                 // 4-element vectors per thread
+constexpr int CHUNK = NT * VPT * 4;    // elements per block: 4096
+#if defined(CUDART_VERSION) && CUDART_VERSION >= 12010
+constexpr int CAP = 512;               // leaves per launch: 18,440 bytes
+#else
+constexpr int CAP = 96;                // inside the older 4 KB
+#endif
+
+struct Leaf {                          // the host table's row: 32 bytes
+  void* p;
+  const float* g;
+  float* m;
+  long long n;
+};
+
+struct Table {                         // the kernel's parameter
+  Leaf leaf[CAP];
+  int start[CAP + 1];                  // first chunk of each leaf; last: total
+  int n_leaves;
+};
 
 struct alignas(16) F4 { float v[4]; };
 struct alignas(8) B4 { __nv_bfloat16 v[4]; };
@@ -67,68 +95,106 @@ __device__ __forceinline__ void step1(T& p, float g, float& m, float lr,
   m = mf;
 }
 
-template <typename T, bool VEC>
-__global__ void __launch_bounds__(NT) sgd_kernel(
-    T* __restrict__ p, const float* __restrict__ g, float* __restrict__ m,
-    const float* __restrict__ scal, long long n) {
+template <typename T>
+__global__ void __launch_bounds__(NT) sgd_kernel(const Table tab,
+                                                 const float* __restrict__ scal) {
+  typedef typename Vec<T>::type PV;
+  // the leaf owning this block's chunk: the last with start <= blockIdx.x
+  const int c = blockIdx.x;
+  int lo = 0, hi = tab.n_leaves - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) / 2;
+    if (tab.start[mid] <= c) lo = mid; else hi = mid - 1;
+  }
+  const Leaf leaf = tab.leaf[lo];
+  T* __restrict__ p = static_cast<T*>(leaf.p);
+  const float* __restrict__ g = leaf.g;
+  float* __restrict__ m = leaf.m;
+  const long long base = (long long)(c - tab.start[lo]) * CHUNK;
+  const long long rest = leaf.n - base;
+  const int len = (int)(rest < CHUNK ? rest : CHUNK);   // elements here
   const float lr = scal[0], mu = scal[1], wd = scal[2], cs = scal[3];
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  long long done = 0;
-  if (VEC) {
-    typedef typename Vec<T>::type PV;
-    const long long n4 = n / 4;
-    PV* p4 = reinterpret_cast<PV*>(p);
-    const F4* g4 = reinterpret_cast<const F4*>(g);
-    F4* m4 = reinterpret_cast<F4*>(m);
-    for (long long j = i; j < n4; j += stride) {
-      PV pv = p4[j];
-      const F4 gv = g4[j];
-      F4 mv = m4[j];
+  const bool vec = (((uintptr_t)g | (uintptr_t)m) % 16 == 0) &&
+                   ((uintptr_t)p % sizeof(PV) == 0);
+  int done = 0;
+  if (vec) {
+    const int n4 = len / 4;
+    PV* p4 = reinterpret_cast<PV*>(p + base);
+    const F4* g4 = reinterpret_cast<const F4*>(g + base);
+    F4* m4 = reinterpret_cast<F4*>(m + base);
+    PV pv[VPT];
+    F4 gv[VPT], mv[VPT];
+    for (int j0 = threadIdx.x; j0 < n4; j0 += NT * VPT) {
 #pragma unroll
-      for (int k = 0; k < 4; ++k)
-        step1<T>(pv.v[k], gv.v[k], mv.v[k], lr, mu, wd, cs);
-      p4[j] = pv;
-      m4[j] = mv;
+      for (int k = 0; k < VPT; ++k) {   // every load before the first use
+        const int j = j0 + k * NT;
+        if (j < n4) {
+          pv[k] = p4[j];
+          gv[k] = g4[j];
+          mv[k] = m4[j];
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < VPT; ++k) {
+        const int j = j0 + k * NT;
+        if (j < n4) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            step1<T>(pv[k].v[e], gv[k].v[e], mv[k].v[e], lr, mu, wd, cs);
+          p4[j] = pv[k];
+          m4[j] = mv[k];
+        }
+      }
     }
     done = n4 * 4;
   }
-  for (long long j = done + i; j < n; j += stride) {
-    float mf = m[j];
-    step1<T>(p[j], g[j], mf, lr, mu, wd, cs);
-    m[j] = mf;
+  for (int j = done + threadIdx.x; j < len; j += NT) {
+    float mf = m[base + j];
+    step1<T>(p[base + j], g[base + j], mf, lr, mu, wd, cs);
+    m[base + j] = mf;
   }
 }
 
 template <typename T>
-int launch(void* p, const void* g, void* m, const void* scal, long long n,
+int launch(const Leaf* rows, int n_leaves, const float* scal,
            cudaStream_t stream) {
-  const bool vec = ((uintptr_t)g % 16 == 0) && ((uintptr_t)m % 16 == 0) &&
-                   ((uintptr_t)p % sizeof(typename Vec<T>::type) == 0);
-  const long long work = vec ? (n + 3) / 4 : n;
-  const long long want = (work + NT - 1) / NT;
-  const int blocks = (int)(want < MAX_BLOCKS ? want : MAX_BLOCKS);
-  T* pt = static_cast<T*>(p);
-  const float* gt = static_cast<const float*>(g);
-  float* mt = static_cast<float*>(m);
-  const float* st = static_cast<const float*>(scal);
-  if (vec)
-    sgd_kernel<T, true><<<blocks, NT, 0, stream>>>(pt, gt, mt, st, n);
-  else
-    sgd_kernel<T, false><<<blocks, NT, 0, stream>>>(pt, gt, mt, st, n);
-  return (int)cudaGetLastError();
+  for (int first = 0; first < n_leaves; first += CAP) {
+    Table tab;
+    tab.n_leaves = 0;
+    long long chunks = 0;
+    for (int i = first; i < n_leaves && i < first + CAP; ++i) {
+      tab.start[tab.n_leaves] = (int)chunks;
+      tab.leaf[tab.n_leaves++] = rows[i];
+      chunks += (rows[i].n + CHUNK - 1) / CHUNK;
+    }
+    if (chunks > 0x7fffffffLL) return -1;
+    tab.start[tab.n_leaves] = (int)chunks;
+    if (chunks == 0) continue;
+    sgd_kernel<T><<<(unsigned)chunks, NT, 0, stream>>>(tab, scal);
+    const int err = (int)cudaGetLastError();
+    if (err != 0) return err;
+  }
+  return 0;
 }
 
 }  // namespace
 
-// p_dtype: 0 = float32, 1 = bfloat16; g, m and the 4-float scalar row
-// [lr, mu, wd, cs] are float32. Returns the launch's cudaError_t
-// (0 = launched); -1 for an unknown dtype; 0 without a launch for n = 0.
-extern "C" int tdt_sgd(void* p, const void* g, void* m, const void* scalars,
-                       long long n, int p_dtype, void* stream) {
+// One update of every leaf in the host table `table` (n_leaves rows of
+// {p, g, m, n}: pointers to p, fp32 g and fp32 m, and the element count;
+// rows with n = 0 are skipped) with the 4-float fp32 scalar row
+// [lr, mu, wd, cs] in device memory. p_dtype: 0 = float32, 1 = bfloat16,
+// for every row. Returns the first failed launch's cudaError_t (0 = every
+// launch went out, or nothing to do); -1 for an unknown dtype, a negative
+// count, or more than 2^31 - 1 chunks in one launch.
+extern "C" int tdt_sgd_multi(const void* table, int n_leaves,
+                             const void* scalars, int p_dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n <= 0) return 0;
-  if (p_dtype == 0) return launch<float>(p, g, m, scalars, n, s);
-  if (p_dtype == 1) return launch<__nv_bfloat16>(p, g, m, scalars, n, s);
+  const Leaf* rows = static_cast<const Leaf*>(table);
+  const float* scal = static_cast<const float*>(scalars);
+  if (n_leaves < 0) return -1;
+  for (int i = 0; i < n_leaves; ++i)
+    if (rows[i].n < 0) return -1;
+  if (p_dtype == 0) return launch<float>(rows, n_leaves, scal, s);
+  if (p_dtype == 1) return launch<__nv_bfloat16>(rows, n_leaves, scal, s);
   return -1;
 }

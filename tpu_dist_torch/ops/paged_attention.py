@@ -9,9 +9,11 @@ block table of page indices. Unlike the reference's functional scatter,
 copies it.
 
 The decode tick with int8 pages and ``read="flash"`` goes through
-:func:`int8kv_paged_flash_attention_fn`: for CUDA tensors the Hopper
-kernel ``csrc/paged_decode.cu`` (the port of the Pallas
-``_paged_int8kv_kernel``), for CPU tensors :func:`paged_decode_plain`.
+:func:`paged_decode_blocks`: for CUDA tensors the Hopper kernel
+``csrc/paged_decode.cu`` (the port of the Pallas ``_paged_int8kv_kernel``),
+which reads the arenas through the block table, for CPU tensors
+:func:`paged_decode_blocks_plain`. The reference's gathered entry,
+:func:`int8kv_paged_flash_attention_fn`, launches the same kernel.
 The sequence-parallel (sp-sharded) arenas of the reference are not
 ported: an ``sp_mesh`` in the pack raises.
 """
@@ -154,67 +156,144 @@ def paged_decode_plain(q, kq, ks, vq, vs, lengths):
     return o.transpose(1, 2).to(q.dtype).contiguous()
 
 
-def _check_paged(q, kq, ks, vq, vs, lengths):
+def paged_decode_blocks_plain(q, layer, block_tables, lengths):
+    """The block-table kernel's function in plain PyTorch: each row's
+    pages gathered (:func:`gather_pages`), then :func:`paged_decode_plain`.
+    For tests and CPU tensors."""
+    g = lambda arena: gather_pages(arena, block_tables)
+    return paged_decode_plain(q, g(layer.k), g(layer.k_scale), g(layer.v),
+                              g(layer.v_scale), lengths)
+
+
+# key positions per split block (csrc/paged_decode.cu SPLIT): the launch
+# has ceil(P * page_size / PAGED_SPLIT) x B x H split blocks
+PAGED_SPLIT = 128
+
+
+def _check_blocks(q, k, ks, v, vs, block_tables, lengths):
     dev = q.device
-    if not (q.is_cuda and all(t.device == dev
-                              for t in (kq, ks, vq, vs, lengths))):
+    ts = (q, k, ks, v, vs, block_tables, lengths)
+    if not (q.is_cuda and all(t.device == dev for t in ts)):
         raise ValueError("paged decode kernel: all inputs on one CUDA device")
     if q.dtype not in kernels.DTYPE_CODE:
         raise TypeError(f"paged decode kernel: q float32 or bfloat16, got "
                         f"{q.dtype}")
-    if kq.dtype != torch.int8 or vq.dtype != torch.int8 \
+    if k.dtype != torch.int8 or v.dtype != torch.int8 \
             or ks.dtype != torch.float32 or vs.dtype != torch.float32 \
+            or block_tables.dtype != torch.int32 \
             or lengths.dtype != torch.int32:
         raise TypeError("paged decode kernel: int8 K/V, float32 scales, "
-                        "int32 lengths")
+                        "int32 block tables and lengths")
     b, lq, h, d = q.shape
-    lk = kq.shape[1]
     if lq != 1:
         raise ValueError(f"paged decode kernel is one query per row "
                          f"(got Lq={lq})")
-    if kq.shape != (b, lk, h, d) or vq.shape != kq.shape \
-            or ks.shape != (b, lk, h) or vs.shape != ks.shape \
+    n1, page_size = k.shape[:2]
+    if k.shape != (n1, page_size, h, d) or v.shape != k.shape \
+            or ks.shape != (n1, page_size, h) or vs.shape != ks.shape \
+            or block_tables.dim() != 2 or block_tables.shape[0] != b \
             or lengths.shape != (b,):
         raise ValueError(f"paged decode kernel: shapes q {tuple(q.shape)}, "
-                         f"k {tuple(kq.shape)}, scale {tuple(ks.shape)}, "
+                         f"k {tuple(k.shape)}, scale {tuple(ks.shape)}, "
+                         f"block tables {tuple(block_tables.shape)}, "
                          f"lengths {tuple(lengths.shape)} do not agree")
     if d not in kernels.HEAD_DIMS:
         raise ValueError(f"paged decode kernel: head_dim {d} not in "
                          f"{kernels.HEAD_DIMS}")
-    if min(b, h, lk) < 1:
+    if min(b, h, n1, page_size, block_tables.shape[1]) < 1:
         raise ValueError("paged decode kernel: empty input")
-    if not all(t.is_contiguous() for t in (q, kq, ks, vq, vs, lengths)):
+    if not all(t.is_contiguous() for t in ts):
         raise ValueError("paged decode kernel: inputs must be contiguous")
+    for name, t in (("k", k), ("v", v)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"paged decode kernel: {name} must start on a "
+                             f"16-byte boundary (pass a .clone())")
 
 
-_PAGED_ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
+# tdt_paged_decode(q, k, ks, v, vs, block_tables, lengths, part_ml,
+#                  part_acc, out, B, H, D, P, page_size, n_splits, scale,
+#                  dtype, stream)
+_PAGED_ARGS = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
                + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 
-def _launch(fn, q, kq, ks, vq, vs, lengths, stream):
+def _launch_blocks(fn, q, k, ks, v, vs, block_tables, lengths, stream):
     """Call the C entry ``fn`` (``tdt_paged_decode``) on checked tensors:
-    allocate the output, launch on ``stream``, raise on a launch error."""
+    allocate the output and the split partials, launch the split and the
+    merge kernel on ``stream``, raise on a launch error."""
     b, _, h, d = q.shape
+    p, page_size = block_tables.shape[1], k.shape[1]
+    n_splits = -(-p * page_size // PAGED_SPLIT)
     out = torch.empty_like(q)
-    err = fn(q.data_ptr(), kq.data_ptr(), ks.data_ptr(), vq.data_ptr(),
-             vs.data_ptr(), lengths.data_ptr(), out.data_ptr(), b, h,
-             kq.shape[1], d, 1.0 / math.sqrt(d), kernels.DTYPE_CODE[q.dtype],
-             stream)
+    part_ml = torch.empty((b, h, n_splits, 2), dtype=torch.float32,
+                          device=q.device)
+    part_acc = torch.empty((b, h, n_splits, d), dtype=torch.float32,
+                           device=q.device)
+    err = fn(q.data_ptr(), k.data_ptr(), ks.data_ptr(), v.data_ptr(),
+             vs.data_ptr(), block_tables.data_ptr(), lengths.data_ptr(),
+             part_ml.data_ptr(), part_acc.data_ptr(), out.data_ptr(), b, h,
+             d, p, page_size, n_splits, 1.0 / math.sqrt(d),
+             kernels.DTYPE_CODE[q.dtype], stream)
+    if err == -2:
+        raise ValueError(f"paged decode kernel: {b} x {h} (b, h) rows or "
+                         f"{p} x {page_size} key positions out of range")
     if err != 0:
         raise RuntimeError(f"paged_decode kernel launch failed "
                            f"(cudaError {err})")
     return out
 
 
-def paged_decode_cuda(q, kq, ks, vq, vs, lengths):
-    """Launch ``csrc/paged_decode.cu`` on the current stream."""
-    _check_paged(q, kq, ks, vq, vs, lengths)
+def _row_pages(q):
+    """The block table of the gathered layout: (B, Lk, H, D) K/V seen as B
+    pages of ``page_size = Lk``, row b on page b."""
+    return torch.arange(q.shape[0], dtype=torch.int32,
+                        device=q.device).view(-1, 1)
+
+
+def _launch(fn, q, kq, ks, vq, vs, lengths, stream):
+    """The gathered layout through ``fn`` (:func:`_launch_blocks`)."""
+    return _launch_blocks(fn, q, kq, ks, vq, vs, _row_pages(q), lengths,
+                          stream)
+
+
+def _run(q, k, ks, v, vs, block_tables, lengths):
+    _check_blocks(q, k, ks, v, vs, block_tables, lengths)
     fn = kernels.function("paged_decode", "tdt_paged_decode", _PAGED_ARGS)
     with torch.cuda.device(q.device):
-        out = _launch(fn, q, kq, ks, vq, vs, lengths,
-                      torch.cuda.current_stream(q.device).cuda_stream)
+        out = _launch_blocks(fn, q, k, ks, v, vs, block_tables, lengths,
+                             torch.cuda.current_stream(q.device).cuda_stream)
     kernels.LAUNCHES["paged_decode"] += 1
     return out
+
+
+def paged_decode_blocks_cuda(q, layer, block_tables, lengths):
+    """Launch ``csrc/paged_decode.cu`` on the current stream over the
+    int8 arenas of ``layer`` read through ``block_tables`` (B, P) int32:
+    only the keys below ``lengths[b]`` are read. One call is two kernel
+    launches (split, merge) and one count in
+    ``kernels.LAUNCHES["paged_decode"]``."""
+    return _run(q, layer.k, layer.k_scale, layer.v, layer.v_scale,
+                block_tables, lengths)
+
+
+def paged_decode_blocks(q, layer, block_tables, lengths):
+    """The decode tick's attention over ``layer``'s int8 pages: the kernel
+    for CUDA tensors, :func:`paged_decode_blocks_plain` for CPU tensors."""
+    if q.device.type == "cpu":
+        return paged_decode_blocks_plain(q, layer, block_tables, lengths)
+    return paged_decode_blocks_cuda(
+        q, layer, block_tables.to(torch.int32).contiguous(),
+        lengths.to(torch.int32).contiguous())
+
+
+def paged_decode_cuda(q, kq, ks, vq, vs, lengths):
+    """Launch ``csrc/paged_decode.cu`` on the current stream over gathered
+    (B, Lk, H, D) int8 K/V, seen as B pages of ``page_size = Lk`` (two
+    kernel launches, one count)."""
+    if kq.dim() != 4 or kq.shape[0] != q.shape[0]:
+        raise ValueError(f"paged decode kernel: shapes q {tuple(q.shape)}, "
+                         f"k {tuple(kq.shape)} do not agree")
+    return _run(q, kq, ks, vq, vs, _row_pages(q), lengths)
 
 
 @functools.lru_cache(maxsize=None)
@@ -300,9 +379,8 @@ def paged_attend(q, k, v, paged: dict, *, prefill: bool, attn_fn, dtype):
         return attn_fn(q, k, v), layer
 
     if layer.quant == "int8" and layer.read == "flash" and lq == 1:
-        out = int8kv_paged_flash_attention_fn()(
-            q.contiguous(), read(layer.k), read(layer.k_scale),
-            read(layer.v), read(layer.v_scale), positions + 1)
+        # the pages are read through the block table: no gathered copy
+        out = paged_decode_blocks(q.contiguous(), layer, bt, positions + 1)
         return out.to(q.dtype), layer
 
     gk = read(layer.k)

@@ -3,9 +3,10 @@
 :class:`FusedSGD` keeps the reference's engine-facing protocol
 (``init(params)``, ``apply(params, grads, state, step)``, ``:152-186``) and
 its scalar row ``[lr, momentum, weight_decay, clip_scale]`` (``:138-141``).
-Each parameter leaf is one launch of the hand-written Hopper kernel
-``csrc/sgd.cu`` (the Pallas ``_sgd_kernel``, ``:93-102``) for CUDA
-tensors, or of :func:`fused_sgd_plain` for CPU tensors. The update rule is
+A step is one launch of the hand-written Hopper kernel ``csrc/sgd.cu``
+(the Pallas ``_sgd_kernel``, ``:93-102``) over every leaf of one p dtype
+for CUDA tensors (:func:`fused_sgd_multi_cuda`), or a loop of
+:func:`fused_sgd_plain` for CPU tensors. The update rule is
 torch.optim.SGD's, with the global-norm clip fused in::
 
     g  <- g * cs + wd * p     (cs = clip / norm when norm > clip, else 1)
@@ -30,8 +31,9 @@ import torch
 
 from tpu_dist_torch import kernels
 
-_SGD_ARGS = ([ctypes.c_void_p] * 4
-             + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
+# tdt_sgd_multi(table, n_leaves, scalars, p_dtype, stream)
+_SGD_ARGS = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+             ctypes.c_void_p]
 
 
 def clip_scale(grads: Sequence[torch.Tensor], clip_norm: float):
@@ -95,25 +97,65 @@ def _check_sgd(p, g, m, scalars):
         raise ValueError("sgd kernel: the scalar row has 4 entries")
 
 
-def _launch(fn, p, g, m, scalars, stream) -> None:
-    """Call the C entry ``tdt_sgd`` on checked tensors; raise on a launch
-    error."""
-    err = fn(p.data_ptr(), g.data_ptr(), m.data_ptr(), scalars.data_ptr(),
-             p.numel(), kernels.DTYPE_CODE[p.dtype], stream)
+def _launch(fn, ps, gs, ms, scalars, stream) -> None:
+    """Call the C entry ``tdt_sgd_multi`` on checked leaves that share one
+    p dtype: their host table of {p, g, m, n} rows (int64) goes in one
+    call, which the C side splits into launches of at most its capacity
+    (512 leaves on CUDA >= 12.1). Raise on a launch error."""
+    table = torch.tensor([(p.data_ptr(), g.data_ptr(), m.data_ptr(),
+                           p.numel()) for p, g, m in zip(ps, gs, ms)],
+                         dtype=torch.int64)
+    err = fn(table.data_ptr(), len(ps), scalars.data_ptr(),
+             kernels.DTYPE_CODE[ps[0].dtype], stream)
     if err != 0:
         raise RuntimeError(f"sgd kernel launch failed (cudaError {err})")
 
 
+def _launch_groups(fn, ps, gs, ms, scalars, stream) -> int:
+    """Group checked leaves by p dtype and make one :func:`_launch` per
+    group with any element (the kernel skips empty leaves); returns the
+    number of calls made."""
+    groups = {}
+    for p, g, m in zip(ps, gs, ms):
+        groups.setdefault(p.dtype, []).append((p, g, m))
+    calls = 0
+    for leaves in groups.values():
+        if any(p.numel() for p, _, _ in leaves):
+            _launch(fn, *zip(*leaves), scalars, stream)
+            calls += 1
+    return calls
+
+
+def _multi_cuda(ps, gs, ms, scalars) -> None:
+    """:func:`fused_sgd_multi_cuda` on fp32 grads as given (checked, not
+    cast)."""
+    if not len(ps) == len(gs) == len(ms):
+        raise ValueError(f"sgd kernel: {len(ps)} params, {len(gs)} grads, "
+                         f"{len(ms)} momentum buffers")
+    for p, g, m in zip(ps, gs, ms):
+        _check_sgd(p, g, m, scalars)
+    fn = kernels.function("sgd", "tdt_sgd_multi", _SGD_ARGS)
+    with torch.cuda.device(scalars.device):
+        calls = _launch_groups(
+            fn, ps, gs, ms, scalars,
+            torch.cuda.current_stream(scalars.device).cuda_stream)
+    kernels.LAUNCHES["sgd"] += calls
+
+
+def fused_sgd_multi_cuda(ps, gs, ms, scalars) -> None:
+    """One update of every leaf in place on (p, m): the leaves are grouped
+    by p dtype and each group is one call of ``csrc/sgd.cu`` on the
+    current stream (one launch over all its leaves, up to 512). ``g`` is
+    cast to fp32 where it is not, as the reference casts it. Each call
+    adds one to ``kernels.LAUNCHES["sgd"]``; a group of empty leaves makes
+    none."""
+    _multi_cuda(ps, [g.float().contiguous() for g in gs], ms, scalars)
+
+
 def fused_sgd_cuda(p, g, m, scalars) -> None:
-    """Launch ``csrc/sgd.cu`` on the current stream, in place on (p, m)."""
-    _check_sgd(p, g, m, scalars)
-    if p.numel() == 0:
-        return
-    fn = kernels.function("sgd", "tdt_sgd", _SGD_ARGS)
-    with torch.cuda.device(p.device):
-        _launch(fn, p, g, m, scalars,
-                torch.cuda.current_stream(p.device).cuda_stream)
-    kernels.LAUNCHES["sgd"] += 1
+    """One leaf through ``csrc/sgd.cu`` (a table of one row), in place on
+    (p, m); ``g`` must already be fp32."""
+    _multi_cuda([p], [g], [m], scalars)
 
 
 def fused_sgd_leaf(p, g, m, scalars) -> None:
@@ -156,6 +198,10 @@ class FusedSGD:
         scalars = scalar_row(float(self.schedule(step)), self.momentum,
                              self.weight_decay,
                              clip_scale(grads, self.clip_norm))
-        for p, g, m in zip(params, grads, state.trace):
-            fused_sgd_leaf(p.data, g, m, scalars)
+        ps = [p.data for p in params]
+        if scalars.is_cuda:
+            fused_sgd_multi_cuda(ps, grads, state.trace, scalars)
+        else:
+            for p, g, m in zip(ps, grads, state.trace):
+                fused_sgd_plain(p, g.float().contiguous(), m, scalars)
         return state
