@@ -21,7 +21,9 @@ CUDA or without the repository beside it. Phases:
    kernel is held across ResNet-50's 161 leaves as one multi-leaf call,
    with the clip slot at 1 and at 0.3, and with a bf16 p (within one bf16
    ulp of max(|plain|, |p|, lr |m'|): see BF16_ULP), and timed as that
-   step (graph replay and eager) and at the largest leaf. The paged
+   step (graph replay and eager) and at the largest leaf; the adamw
+   kernel likewise across the LM's 85 leaves (a bf16 p within one bf16
+   ulp of max(|plain|, |p|, lr |upd|)) and at the lm_head leaf. The paged
    decode is held over gathered K/V and through a shuffled block table
    (bit-equal), on arenas with NaN scales wherever no row may read, and
    with a row of length 0 (exact zeros). The flash
@@ -31,12 +33,12 @@ CUDA or without the repository beside it. Phases:
    shape (B1 L1000 H8 D64, q_offset 24) and at one with dead rows (B1
    Lq130 Lk200 H8 D128, kv_offset 40; exact zeros, and dead keys too for
    the backward), and their records carry ptxas's spill stores and
-   registers per kernel instance. The fused int8
-   matmul is held bit-equal at the dense shapes of a decode
-   tick and a prefill (no one PyTorch call computes it: ``library_ms`` is
-   null, and ``yardstick_ms`` times the bf16 ``torch.matmul`` of the
-   unquantized operands), the int8-K/V flash forward at L=2048 (library:
-   SDPA on the dequantized K/V);
+   registers per kernel instance (a line of its own gives them for adamw,
+   sgd and fused_quant). The fused int8 matmul is held bit-equal at every
+   dense shape of a decode tick and a prefill (no one PyTorch call
+   computes it: ``library_ms`` is null, and ``yardstick_ms`` times the
+   bf16 ``torch.matmul`` of the unquantized operands), the int8-K/V flash
+   forward at L=2048 (library: SDPA on the dequantized K/V);
 4. small-input checks: a tiny fp32 model served on the card (kernels) and
    on the CPU (plain versions) gives the same greedy tokens, also with
    ``quant="int8"``, and with ``spec_k=3`` on the card against the same
@@ -51,7 +53,7 @@ CUDA or without the repository beside it. Phases:
    8, bf16 compute over fp32 masters, flash attention, ``fused_adamw``
    with grad_clip 1.0) for 20 steps: finite, falling losses, and per step
    one ``flash_bwd_dq`` and one ``flash_bwd_dkv`` launch per layer and one
-   ``adamw`` launch per parameter leaf;
+   ``adamw`` call (one launch over all 85 leaves);
 7. image main path: ``python -m tpu_dist_torch.scripts.image_train`` at the
    repo's headline image geometry (``BENCH_GEOMETRY``: ResNet-50 on
    CIFAR-10, 23.5M params in 161 leaves, batch 1024, bf16 convs over fp32
@@ -62,7 +64,7 @@ CUDA or without the repository beside it. Phases:
    checkpoint that reloads;
 8. quantized and speculative serving at full width: phase 5's model and
    requests, (a) with ``quant="int8"`` (every dense layer through the
-   fused int8 kernel: 33 launches per tick or prefill), (b) with
+   fused int8 kernel: 33 wrapper calls per tick or prefill), (b) with
    ``spec_k=4`` self-speculation; all requests complete, and (b) emits more
    than one token per slot-tick.
 
@@ -133,14 +135,21 @@ LOSS_TOL = 1e-4
 # |loss|) (on an H100: at most 2.0e-3 apart, against a bound near 5.5e-3)
 INT8_LOSS_TOL = 1e-3
 # the dense products of the serving LM at full width, (M, K, N): a decode
-# tick's qkv, mlp_out and lm_head at 8 slots, a 1024-token prefill's lm_head
+# tick's at 8 slots and a 1024-token prefill's; QUANT_SHAPES draw from the
+# shared generator, QUANT_MORE_SHAPES from their own
 QUANT_SHAPES = {"decode lm_head": (8, 1024, 32000),
                 "decode qkv": (8, 1024, 3072),
                 "decode mlp_out": (8, 4096, 1024),
                 "prefill lm_head": (1024, 1024, 32000)}
+QUANT_MORE_SHAPES = {"decode proj": (8, 1024, 1024),
+                     "decode mlp_in": (8, 1024, 4096),
+                     "prefill mlp_out": (1024, 4096, 1024)}
 SPEC_K = 4
 # the training main path (V=32000, 8 layers, d_model 1024, L=2048)
 TRAIN_STEPS = 20
+# the LM of phases 5, 6 and 8: parameter leaves and elements
+LM_LEAVES = 85
+LM_PARAMS = 168_372_224
 # ResNet-50 (10 classes, s2d stem): parameter leaves and elements
 RESNET50_LEAVES = 161
 RESNET50_PARAMS = 23_531_402
@@ -460,6 +469,29 @@ def check_flash_bwd_shape(torch, gen, b, lq, lk, h, d, q_offset=0,
     return rec, (q, k, v, g, out, lse)
 
 
+def kernel_label(fn):
+    """``name<args>`` of a mangled kernel template instance, e.g.
+    ``fq_decode_kernel<bf16, 1>``; the symbol itself where no
+    ``<length><name>_kernel`` template is found."""
+    label = None
+    for m in re.finditer(r"(?=(\d+))", fn):     # every digit run's suffixes
+        n, at = int(m.group(1)), m.start() + len(m.group(1))
+        ident = fn[at:at + n]
+        if (len(ident) == n and fn[at + n:at + n + 1] == "I"
+                and re.fullmatch(r"[A-Za-z]\w*_kernel(?:_mma)?", ident)):
+            label, rest = ident, fn[at + n + 1:]
+    if label is None:
+        return fn
+    args = []
+    while rest and rest[0] != "E":
+        t = re.match(r"f|13__nv_bfloat16|Li(\d+)E", rest)
+        if not t:
+            return fn
+        args.append(t.group(1) or ("float" if t.group() == "f" else "bf16"))
+        rest = rest[t.end():]
+    return f"{label}<{', '.join(args)}>"
+
+
 def ptxas_report(kernels, name):
     """{"spill_stores": {kernel instance: bytes}, "registers": {kernel
     instance: count}} from ptxas -v's report in the build log of
@@ -472,12 +504,7 @@ def ptxas_report(kernels, name):
         for line in f:
             m = re.search(r"Compiling entry function '(\w+)'", line)
             if m:
-                # the name follows its length in the mangled symbol
-                fn = m.group(1)
-                i = re.search(r"\d(flash_\w*?_kernel(?:_mma)?)I(f?)"
-                              r"Li(\d+)E", fn)
-                label = (f"{i.group(1)}<{'float, ' if i.group(2) else ''}"
-                         f"{i.group(3)}>" if i else fn)
+                label = kernel_label(m.group(1))
                 continue
             m = re.search(r"(\d+) bytes spill stores", line)
             if m and label:
@@ -546,53 +573,135 @@ def check_flash_bwd(torch, F, gen):
     return recs
 
 
+def adamw_case(torch, p, g, m, v, row):
+    """One multi-leaf adamw call over every leaf against
+    fused_adamw_plain on copies; returns the max |err|. fp32 values within
+    FP32_TOL (1 + |plain|); a bf16 p within one bf16 ulp of the terms of
+    p' = p - lr upd, max(|plain|, |p|, lr |upd|) (as the sgd case, with
+    upd from the plain step's m' and v')."""
+    from tpu_dist_torch.ops import pallas_adamw as pa
+
+    got = [[t.clone() for t in ts] for ts in (p, m, v)]
+    ref = [[t.clone() for t in ts] for ts in (p, m, v)]
+    pa.fused_adamw_multi_cuda(*got[:1], g, *got[1:], row)
+    for i in range(len(p)):
+        pa.fused_adamw_plain(ref[0][i], g[i], ref[1][i], ref[2][i], row)
+    torch.cuda.synchronize()
+    lr, _, _, eps, wd, c1, c2, _ = row.tolist()
+    err = 0.0
+    for i in range(len(p)):
+        for a, r in zip((got[0][i], got[1][i], got[2][i]),
+                        (ref[0][i], ref[1][i], ref[2][i])):
+            diff = (a.float() - r.float()).abs()
+            err = max(err, diff.max().item())
+            if a.dtype == torch.bfloat16:   # the terms of p' = p - lr upd
+                pf = p[i].float()
+                upd = ((ref[1][i] / c1) / (torch.sqrt(ref[2][i] / c2) + eps)
+                       + wd * pf)
+                bound = BF16_ULP * torch.maximum(torch.maximum(
+                    r.float().abs(), pf.abs()), lr * upd.abs())
+                tol = "one bf16 ulp of max(|plain|, |p|, lr |upd|)"
+            else:
+                bound = FP32_TOL * (1 + r.abs())
+                tol = f"{FP32_TOL} * (1 + |plain|)"
+            if not bool((diff <= bound).all()):
+                raise AssertionError(f"adamw {tuple(a.shape)} {a.dtype}: "
+                                     f"max|err| {diff.max().item()} (tol "
+                                     f"{tol})")
+    return err
+
+
 def check_adamw(torch, gen):
-    """The AdamW kernel against fused_adamw_plain on the lm_head leaf
-    (1024 x 32000 fp32), with the clip slot and weight decay live."""
+    """The AdamW kernel against fused_adamw_plain across the 85 leaves of
+    phase 6's LM as one step (one multi-leaf call, drawn from a generator
+    of their own), with the clip slot and weight decay live, and with a
+    bf16 p; timed as that step (graph replay and eager) and at the lm_head
+    leaf (1024 x 32000 fp32) alone, whose draws come first from ``gen`` as
+    before, so the later phases' inputs stay as they were."""
+    from tpu_dist_torch.models.transformer import TransformerLM
     from tpu_dist_torch.ops import pallas_adamw as pa
 
     shape = (1024, 32000)
-    p, g, m = (torch.randn(shape, generator=gen, device="cuda")
-               for _ in range(3))
-    v = torch.rand(shape, generator=gen, device="cuda")
-    m, v = m * 1e-3, v * 1e-6
+    p1, g1, m1 = (torch.randn(shape, generator=gen, device="cuda")
+                  for _ in range(3))
+    v1 = torch.rand(shape, generator=gen, device="cuda")
+    m1, v1 = m1 * 1e-3, v1 * 1e-6
     row = pa.scalar_row(1e-3, 0.9, 0.95, 1e-8, 0.1, 3,
                         torch.tensor(0.5, device="cuda"))
-    got = [t.clone() for t in (p, m, v)]
-    ref = [t.clone() for t in (p, m, v)]
-    pa.fused_adamw_cuda(got[0], g, got[1], got[2], row)
-    pa.fused_adamw_plain(ref[0], g, ref[1], ref[2], row)
-    torch.cuda.synchronize()
-    err = 0.0
-    for a, r in zip(got, ref):
-        diff = (a - r).abs()
-        err = max(err, diff.max().item())
-        if not bool((diff <= FP32_TOL * (1 + r.abs())).all()):
-            raise AssertionError(f"adamw: max|err| {diff.max().item()} (tol "
-                                 f"{FP32_TOL} (1 + |ref|))")
-    ms = time_ms(torch, lambda: pa.fused_adamw_cuda(*got[:1], g, *got[1:],
-                                                    row))
-    plain_ms = time_ms(torch, lambda: pa.fused_adamw_plain(*ref[:1], g,
-                                                           *ref[1:], row))
-    lib_ms = None
+    leaf_err = adamw_case(torch, [p1], [g1], [m1], [v1], row)
+
+    model = TransformerLM(vocab_size=32000, num_layers=8, d_model=1024,
+                          num_heads=8, max_len=2048, device="cuda",
+                          seed=SEED)
+    shapes = [tuple(t.shape) for t in model.parameters()]
+    del model
+    n = sum(math.prod(s) for s in shapes)
+    if len(shapes) != LM_LEAVES or n != LM_PARAMS:
+        raise AssertionError(f"LM: {len(shapes)} leaves, {n} params")
+    own = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    rand = lambda s: torch.randn(s, generator=own, device="cuda")
+    p = [rand(s) for s in shapes]
+    g = [rand(s) for s in shapes]
+    m = [rand(s) * 1e-3 for s in shapes]
+    v = [torch.rand(s, generator=own, device="cuda") * 1e-6 for s in shapes]
+    errs = {"step": adamw_case(torch, p, g, m, v, row),
+            "step_bf16_p": adamw_case(
+                torch, [t.to(torch.bfloat16) for t in p], g, m, v, row),
+            "lm_head_leaf": leaf_err}
+
+    def step_kernel():
+        pa.fused_adamw_multi_cuda(p, g, m, v, row)
+
+    def step_plain():
+        for i in range(len(p)):
+            pa.fused_adamw_plain(p[i], g[i], m[i], v[i], row)
+
+    # the step's launch replayed from a CUDA graph: its device time without
+    # the host's cost (the check pass, the table, the ctypes call), which
+    # eager_ms keeps
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step_kernel()
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        step_kernel()
+    step_ms = time_ms(torch, graph.replay)
+    eager_ms = time_ms(torch, step_kernel, backlog=False)
+    step_plain_ms = time_ms(torch, step_plain, iters=5)
+    leaf_ms = time_ms(torch, lambda: pa.fused_adamw_cuda(p1, g1, m1, v1,
+                                                         row))
+    leaf_plain_ms = time_ms(torch, lambda: pa.fused_adamw_plain(
+        p1, g1, m1, v1, row))
+    step_lib_ms = leaf_lib_ms = None
     if hasattr(torch, "_fused_adamw_"):
-        lp, lg, lm, lv = (t.clone() for t in (p, g, m, v))
-        steps = [torch.tensor(3.0, device="cuda")]
-        lib_ms = time_ms(torch, lambda: torch._fused_adamw_(
-            [lp], [lg], [lm], [lv], [], steps, lr=1e-3, beta1=0.9,
-            beta2=0.95, weight_decay=0.1, eps=1e-8, amsgrad=False,
-            maximize=False))
-    n = p.numel()
-    nbytes = 7 * 4 * n               # read p, g, m, v; write p, m, v
-    flops = 16.0 * n
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
-    return {"shape": f"{shape[0]}x{shape[1]} fp32 (lm_head)",
-            "max_abs_err": err, "tolerance": f"{FP32_TOL} * (1 + |plain|)",
-            "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_ops, t_bytes) * 1e3,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": lib_ms,
-            "library": "torch._fused_adamw_ (decoupled wd, no clip)"}
+        kw = dict(lr=1e-3, beta1=0.9, beta2=0.95, weight_decay=0.1, eps=1e-8,
+                  amsgrad=False, maximize=False)
+        steps = [torch.tensor(3.0, device="cuda") for _ in p]
+        step_lib_ms = time_ms(torch, lambda: torch._fused_adamw_(
+            p, g, m, v, [], steps, **kw))
+        leaf_lib_ms = time_ms(torch, lambda: torch._fused_adamw_(
+            [p1], [g1], [m1], [v1], [], steps[:1], **kw))
+    # read p, g, m, v and write p, m, v, fp32; 16 FLOP per element
+    bound = lambda k: max(28.0 * k / PEAK_BYTES, 16.0 * k / PEAK_FP32_FLOPS)
+    lib = "torch._fused_adamw_ (decoupled wd, no clip slot)"
+    fp32 = f"{FP32_TOL} * (1 + |plain|)"
+    return {
+        "shape": f"one LM step: {len(shapes)} fp32 leaves, {n} elements, "
+                 "one launch over all",
+        "max_abs_err": max(errs["step"], errs["lm_head_leaf"]),
+        "errors": errs, "tolerance": fp32, "ms": step_ms,
+        "ms_is": "CUDA-graph replay of the step's launches",
+        "eager_ms": eager_ms, "plain_ms": step_plain_ms,
+        "bound_ms": bound(n) * 1e3, "bound_by": "bytes",
+        "library_ms": step_lib_ms, "library": lib,
+        "more_shapes": [{
+            "shape": f"{shape[0]}x{shape[1]} fp32 (lm_head leaf)",
+            "max_abs_err": leaf_err, "tolerance": fp32, "ms": leaf_ms,
+            "plain_ms": leaf_plain_ms,
+            "bound_ms": bound(math.prod(shape)) * 1e3, "bound_by": "bytes",
+            "library_ms": leaf_lib_ms, "library": lib}]}
 
 
 def sgd_case(torch, p, g, m, row, tol):
@@ -711,15 +820,20 @@ def check_sgd(torch, gen):
 
 
 def check_fused_quant(torch, gen):
-    """The fused int8 matmul against fused_quant_matmul_plain at the dense
-    shapes of the serving path (QUANT_SHAPES), bf16: bit-equal."""
+    """The fused int8 matmul against fused_quant_matmul_plain at every
+    dense shape of the serving path, bf16: bit-equal. QUANT_SHAPES are
+    drawn from ``gen`` as before, QUANT_MORE_SHAPES from a generator of
+    their own, so the later phases' inputs stay as they were."""
     from tpu_dist_torch.ops import pallas_quant as pq
 
+    own = torch.Generator(device="cuda").manual_seed(SEED + 4)
     recs = {}
-    for label, (m, k, n) in QUANT_SHAPES.items():
-        x = torch.randn((m, k), generator=gen, device="cuda").to(
+    for label, (m, k, n), draw in (
+            [(lb, s, gen) for lb, s in QUANT_SHAPES.items()]
+            + [(lb, s, own) for lb, s in QUANT_MORE_SHAPES.items()]):
+        x = torch.randn((m, k), generator=draw, device="cuda").to(
             torch.bfloat16)
-        w = (torch.randn((k, n), generator=gen, device="cuda")
+        w = (torch.randn((k, n), generator=draw, device="cuda")
              / math.sqrt(k)).to(torch.bfloat16)
         out = pq.fused_quant_cuda(x, w)
         ref = pq.fused_quant_matmul_plain(x, w)
@@ -921,7 +1035,7 @@ def training_path(torch, kernels):
                              f"last 5 mean {last}: {losses}")
     want = {"flash_bwd_dq": layers * TRAIN_STEPS,
             "flash_bwd_dkv": layers * TRAIN_STEPS,
-            "adamw": leaves * TRAIN_STEPS,
+            "adamw": TRAIN_STEPS,              # one call over all leaves
             "flash_fwd": layers * (TRAIN_STEPS + n_eval)}
     for name, n in want.items():
         if launches[name] != n:
@@ -1297,6 +1411,9 @@ def main():
     log(f"phase 3 kernels: sgd {json.dumps(sgd)}")
     log(f"phase 3 kernels: fused_quant {json.dumps(quant)}")
     log(f"phase 3 kernels: flash_fwd_int8kv {json.dumps(int8kv)}")
+    log(f"phase 3 ptxas: " + json.dumps(
+        {k: ptxas_report(kernels, k) for k in ("adamw", "sgd",
+                                               "fused_quant")}))
 
     # 4. small input: card == CPU reference
     n = small_input_agreement(torch)
@@ -1373,9 +1490,11 @@ def main():
         entry.update({k: rec[k] for k in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "shape", "tolerance")})
-        if kname == "sgd":
-            entry.update({k: sgd[k] for k in (
+        if kname in ("sgd", "adamw"):
+            entry.update({k: rec[k] for k in (
                 "ms_is", "eager_ms", "errors", "more_shapes")})
+        if kname in ("adamw", "fused_quant"):
+            entry.update(ptxas_report(kernels, kname))
         if kname in ("flash_bwd_dq", "flash_bwd_dkv", "flash_fwd_int8kv"):
             entry.update({k: rec[k] for k in (
                 "more_shapes", "spill_stores", "registers")})

@@ -5,6 +5,10 @@ reference, on CPU tensors fed the same numpy inputs:
   with and without the clip slot) against the reference ``FusedAdamW``
   in interpret mode, within 1e-6 (fp32: the same operations in the same
   order, so only the last bit of ``x ** t`` and XLA's fusion may differ);
+  also over the leaves of a tiny LM for 3 steps with the clip live, both
+  through ``FusedAdamW.apply`` and through ``csrc/adamw.cu``'s one
+  multi-leaf call a step, compiled against the CPU emulation of
+  ``tools/cuda_emu.py``;
 * ``make_optimizer`` sgd / adamw against the reference's optax chains over
   5 steps, within 1e-6;
 * ``lm_lr_schedule`` against the reference for each kind, and
@@ -23,6 +27,7 @@ from tpu_dist.ops import pallas_adamw as jadam  # noqa: E402
 from tpu_dist.ops.pallas_sgd import clip_scale as jax_clip_scale  # noqa: E402
 from tpu_dist_torch.ops import optim as topt  # noqa: E402
 from tpu_dist_torch.ops import pallas_adamw as tadam  # noqa: E402
+from tpu_dist_torch.ops import pallas_sgd as tsgd  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -83,6 +88,64 @@ def test_fused_adamw_matches_reference_over_steps(clip):
             jnp.int32(step))
         port.apply(tparams, [torch.from_numpy(g[k]) for k in names], tstate,
                    step)
+    for i, k in enumerate(names):
+        np.testing.assert_allclose(tparams[i].numpy(),
+                                   np.asarray(jparams[k]), err_msg=k, **TOL)
+        np.testing.assert_allclose(tstate.mu[i].numpy(),
+                                   np.asarray(jstate.mu[k]), **TOL)
+        np.testing.assert_allclose(tstate.nu[i].numpy(),
+                                   np.asarray(jstate.nu[k]), **TOL)
+
+
+@pytest.mark.parametrize("route", ["apply", "emulated_kernel"])
+def test_fused_adamw_matches_reference_on_tiny_lm_leaves(route):
+    """The leaves of a tiny LM (embeddings, attention and MLP kernels,
+    LayerNorm vectors, biases) over 3 steps with the clip live: the
+    reference ``FusedAdamW`` against the port's ``FusedAdamW.apply`` (CPU
+    tensors: the plain loop), or against the same scalar rows fed to the
+    emulated kernel, one multi-leaf call a step."""
+    import shutil
+
+    from tpu_dist_torch.models.transformer import tiny_lm
+    from tpu_dist_torch.tools import cuda_emu
+
+    if route == "emulated_kernel" and not (shutil.which("g++")
+                                           or shutil.which("clang++")):
+        pytest.skip("no host C++ compiler for the CUDA emulation")
+    shapes = [tuple(p.shape) for p in tiny_lm(
+        vocab_size=64, num_layers=1, d_model=32, num_heads=2, max_len=16,
+        device="cpu", seed=0).parameters()]
+    rng = np.random.default_rng(6)
+    names = [f"{i:03d}" for i in range(len(shapes))]
+    init = {k: rng.standard_normal(s).astype(np.float32)
+            for k, s in zip(names, shapes)}
+    grads = [{k: (rng.standard_normal(s) * 0.5).astype(np.float32)
+              for k, s in zip(names, shapes)} for _ in range(3)]
+    sched = lambda s: 1e-2 * (s + 1) / 4.0
+    clip = 1.0
+    ref = jadam.FusedAdamW(sched, weight_decay=0.1, clip_norm=clip,
+                           interpret=True)
+    jparams = {k: jnp.asarray(v) for k, v in init.items()}
+    jstate = ref.init(jparams)
+    port = tadam.FusedAdamW(sched, weight_decay=0.1, clip_norm=clip)
+    tparams = [torch.from_numpy(init[k].copy()) for k in names]
+    tstate = port.init(tparams)
+    fn = (cuda_emu.function("adamw", "tdt_adamw_multi", tsgd.MULTI_ARGS)
+          if route == "emulated_kernel" else None)
+    for step, g in enumerate(grads):
+        jparams, jstate = ref.apply(
+            jparams, {k: jnp.asarray(v) for k, v in g.items()}, jstate,
+            jnp.int32(step))
+        tg = [torch.from_numpy(g[k]) for k in names]
+        if fn is None:
+            port.apply(tparams, tg, tstate, step)
+        else:
+            row = tadam.scalar_row(sched(step), port.b1, port.b2, port.eps,
+                                   port.weight_decay, step + 1,
+                                   tadam.clip_scale(tg, clip))
+            assert tsgd.launch_groups(fn, "adamw", (tparams, tg, tstate.mu,
+                                                     tstate.nu), row,
+                                      None) == 1
     for i, k in enumerate(names):
         np.testing.assert_allclose(tparams[i].numpy(),
                                    np.asarray(jparams[k]), err_msg=k, **TOL)

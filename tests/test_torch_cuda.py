@@ -237,6 +237,38 @@ def test_adamw_kernel_matches_plain(cuda, dtype):
         assert bool((diff <= tol * (1 + r.float().abs())).all())
 
 
+def test_adamw_multi_leaf_kernel_matches_plain(cuda):
+    """1,100 leaves of two p dtypes in one ``fused_adamw_multi_cuda``: two
+    calls (one a dtype), each more rows than one launch's 512, sizes from
+    0 to 70,000 and some views at odd element offsets, each leaf held as
+    in the one-leaf test."""
+    gen = torch.Generator(device=cuda).manual_seed(1101)
+    sizes = (0, 1, 3, 5, 64, 4097, 70_000)
+    leaves = []
+    for i in range(1100):
+        n, off = sizes[i % len(sizes)], (1 + i % 3 if i % 7 == 3 else 0)
+        dtype = (torch.float32, torch.bfloat16)[i % 2]
+        leaves.append((torch.randn(n + off, generator=gen, device=cuda)
+                       .to(dtype)[off:],
+                       torch.randn(n, generator=gen, device=cuda),
+                       torch.randn(n, generator=gen, device=cuda) * 0.1,
+                       torch.rand(n, generator=gen, device=cuda) * 0.1))
+    ps, gs, ms, vs = (list(t) for t in zip(*leaves))
+    row = adamw.scalar_row(1e-3, 0.9, 0.95, 1e-8, 0.1, 2,
+                           torch.tensor(0.7, device=cuda))
+    ref = [[t.clone() for t in ts] for ts in (ps, ms, vs)]
+    kernels.reset_launches()
+    adamw.fused_adamw_multi_cuda(ps, gs, ms, vs, row)
+    assert kernels.LAUNCHES["adamw"] == 2
+    for i in range(len(ps)):
+        adamw.fused_adamw_plain(ref[0][i], gs[i], ref[1][i], ref[2][i], row)
+        tol = 1e-6 if ps[i].dtype == torch.float32 else 2e-2
+        for a, r in zip((ps[i], ms[i], vs[i]),
+                        (ref[0][i], ref[1][i], ref[2][i])):
+            diff = (a.float() - r.float()).abs()
+            assert bool((diff <= tol * (1 + r.float().abs())).all()), i
+
+
 def test_flash_entries_refuse_misaligned_bf16_views(cuda):
     """A contiguous bf16 view at an odd element offset: the forward, the
     backward and the int8-K/V forward raise ValueError naming the 16-byte
@@ -317,7 +349,7 @@ def test_training_on_the_card_equals_the_cpu_path(cuda, tmp_path):
                            if r["event"] == "step"]
     assert kernels.LAUNCHES["flash_bwd_dq"] == 2 * 4
     assert kernels.LAUNCHES["flash_bwd_dkv"] == 2 * 4
-    assert kernels.LAUNCHES["adamw"] == len(tr.state.params) * 4
+    assert kernels.LAUNCHES["adamw"] == 4        # one call a step
     for a, r in zip(losses[cuda], losses["cpu"]):
         assert abs(a - r) <= 1e-4 * (1 + abs(r))
 
@@ -436,16 +468,33 @@ def test_image_training_on_the_card_equals_the_cpu_path(cuda, tmp_path):
 
 # ---- the fused int8 matmul and the int8-K/V flash forward ---------------
 
+def plant_ties(x, w):
+    """Row 0 of x and column 0 of w get amax 0.84375 and an element of
+    half that: its quotient by the scale is exactly +-63.5 (rint: +-64),
+    where the product with the scale's reciprocal is 63.499996 (63)."""
+    x[0] = x[0].clamp(-0.8, 0.8)
+    x[0, 0], x[0, -1] = 0.84375, -0.421875
+    w[:, 0] = w[:, 0].clamp(-0.8, 0.8)
+    w[0, 0], w[-1, 0] = -0.84375, 0.421875
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=str)
 @pytest.mark.parametrize("m,k,n", [(8, 64, 72), (130, 70, 136),
-                                   (3, 4096, 40), (1, 1, 1)], ids=str)
+                                   (3, 4096, 40), (1, 1, 1),
+                                   (8, 4096, 1000),     # split-K decode
+                                   (200, 1000, 300)],   # ragged K, M > 16
+                         ids=str)
 def test_fused_quant_kernel_matches_plain(cuda, dtype, m, k, n):
     """Bit-equal: int32 sums are exact and the scales, the dequant and
-    the one rounding to the output type are the same fp32 operations."""
+    the one rounding to the output type are the same fp32 operations;
+    half-integer quotients that a reciprocal multiply rounds the other way
+    are planted in row 0 of x and column 0 of w where K > 1."""
     gen = torch.Generator(device=cuda).manual_seed(m + k + n)
     x = (torch.randn((m, k), generator=gen, device=cuda) * 2).to(dtype)
     w = torch.randn((k, n), generator=gen, device=cuda).to(dtype)
+    if k > 1:
+        plant_ties(x, w)
     if m > 1:
         x[1] = 0                               # all-zero row: exact zeros
     out = pq.fused_quant_cuda(x, w)
@@ -475,6 +524,19 @@ def test_int8kv_flash_kernel_matches_plain(cuda, dtype, case):
     assert out.dtype == dtype
     _close(out, ref, dtype)
     assert torch.equal((ref == 0).all(-1), (out == 0).all(-1))
+
+
+def test_fused_quant_refuses_k_past_the_int32_limit(cuda):
+    """K = 133,145 > (2^31 - 1) // 127^2: int32 sums could overflow where
+    the plain version (float64) would not, so the wrapper raises before
+    any launch."""
+    k = pq.MAX_K + 1
+    x = torch.ones((1, k), dtype=torch.bfloat16, device=cuda)
+    w = torch.ones((k, 1), dtype=torch.bfloat16, device=cuda)
+    kernels.reset_launches()
+    with pytest.raises(ValueError, match="133144"):
+        pq.fused_quant_cuda(x, w)
+    assert k == 133_145 and kernels.LAUNCHES["fused_quant"] == 0
 
 
 def test_quant_wrappers_count_launches_and_refuse_bad_input(cuda):

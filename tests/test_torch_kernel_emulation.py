@@ -51,12 +51,15 @@ def emu():
                                     fa._BWD_DQ_ARGS),
             "dkv": cuda_emu.function("flash_bwd_dkv", "tdt_flash_bwd_dkv",
                                      fa._BWD_DKV_ARGS),
-            "adamw": cuda_emu.function("adamw", "tdt_adamw",
-                                       adamw._ADAMW_ARGS),
+            "adamw": cuda_emu.function("adamw", "tdt_adamw_multi",
+                                       sgd.MULTI_ARGS),
             "sgd": cuda_emu.function("sgd", "tdt_sgd_multi",
-                                     sgd._SGD_ARGS),
+                                     sgd.MULTI_ARGS),
             "quant": cuda_emu.function("fused_quant", "tdt_fused_quant",
                                        pq._FUSED_QUANT_ARGS),
+            "quant_ws": cuda_emu.function("fused_quant",
+                                          "tdt_fused_quant_workspace",
+                                          pq._WORKSPACE_ARGS),
             "int8kv": cuda_emu.function("flash_fwd_int8kv",
                                         "tdt_flash_fwd_int8kv",
                                         fa._INT8KV_ARGS)}
@@ -258,7 +261,9 @@ def test_flash_backward_kernel_sources_match_plain(emu, dtype, case):
 # mode 0: B stored n-major (8 x 16, read by ldmatrix, as K in S = Q K^T);
 # 1: k-major (16 x 8, read by ldmatrix.trans, as V in p . V); 2: as 1 with
 # an fp32 A split by split_bf16x2 into two mma (the int8-K/V kernel's p');
-# 3: as 1 with B given as int8 and widened by widen_int8x4
+# 3: as 1 with B given as int8 and widened by widen_int8x4; 4: int8 A (16 x
+# 32) and B stored n-major (8 x 32), the same bytes read as mode 0 reads
+# them, through mma_s8_16832 (int32 sums, exact in fp32 at these sizes)
 _MMA_TILE_SRC = r"""
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -283,7 +288,8 @@ __global__ void mma_tile_kernel(const void* a, const void* b, float* c,
   }
   __syncthreads();
   uint32_t fa[4], fb[4];
-  if (mode == 0)   // matrices 0, 1: n rows 0-7 at k 0-7, then k 8-15
+  // matrices 0, 1: n rows 0-7 at k 0-7, then k 8-15 (int8: k 0-15, 16-31)
+  if (mode == 0 || mode == 4)
     ldsm_x4(fb, sb + (lane % 8) * 16 + ((lane / 8) % 2) * 8);
   else             // matrices 0, 1: k rows 0-7, 8-15 (lanes 16-31 repeat)
     ldsm_x4_trans(fb, sb + (lane % 16) * 8);
@@ -297,6 +303,11 @@ __global__ void mma_tile_kernel(const void* a, const void* b, float* c,
     }
     mma_bf16_16816(acc, hi, fb[0], fb[1]);
     mma_bf16_16816(acc, lo, fb[0], fb[1]);
+  } else if (mode == 4) {
+    ldsm_x4(fa, sa + (lane % 16) * 16 + (lane / 16) * 8);
+    int iacc[4] = {0, 0, 0, 0};
+    mma_s8_16832(iacc, fa, fb[0], fb[1]);
+    for (int i = 0; i < 4; ++i) acc[i] = (float)iacc[i];
   } else {
     ldsm_x4(fa, sa + (lane % 16) * 16 + (lane / 16) * 8);
     mma_bf16_16816(acc, fa, fb[0], fb[1]);
@@ -321,8 +332,8 @@ extern "C" int tdt_mma_tile(const void* a, const void* b, void* c,
 """
 
 
-@pytest.mark.parametrize("mode", [0, 1, 2, 3], ids=[
-    "ldmatrix", "ldmatrix.trans", "split_bf16x2", "widen_int8x4"])
+@pytest.mark.parametrize("mode", [0, 1, 2, 3, 4], ids=[
+    "ldmatrix", "ldmatrix.trans", "split_bf16x2", "widen_int8x4", "s8"])
 def test_emulated_mma_helpers_match_matmul(emu, mode):
     fn = cuda_emu.build_source("mma_tile", _MMA_TILE_SRC).tdt_mma_tile
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int]
@@ -332,14 +343,19 @@ def test_emulated_mma_helpers_match_matmul(emu, mode):
     if mode == 3:
         b = torch.randint(-128, 128, (16, 8), generator=gen,
                           dtype=torch.int8)
-    if mode != 2:
+    if mode == 4:   # the full int8 range, -128 included
+        a, b = (torch.randint(-128, 128, s, generator=gen, dtype=torch.int8)
+                for s in ((16, 32), (32, 8)))
+    elif mode != 2:
         a = a.to(torch.bfloat16)
-    stored = b.t().contiguous() if mode == 0 else b.contiguous()
+    stored = b.t().contiguous() if mode in (0, 4) else b.contiguous()
     c = torch.full((16, 8), float("nan"))
     stats = torch.full((32,), float("nan"))
     assert fn(a.data_ptr(), stored.data_ptr(), c.data_ptr(),
               stats.data_ptr(), mode) == 0
     ref = a.float() @ b.float()
+    if mode == 4:   # int32 sums, exact
+        assert torch.equal(c, (a.int() @ b.int()).float())
     if mode == 2:
         # hi + lo carry about 16 bits of each fp32 element of A (one bf16
         # alone would leave about 2^-9 of |a| |b|)
@@ -376,7 +392,7 @@ def test_adamw_kernel_source_matches_plain(emu, dtype, n):
     v = torch.rand(n, generator=gen) * 0.1
     row = adamw.scalar_row(1e-3, 0.9, 0.95, 1e-8, 0.1, 3, torch.tensor(0.5))
     ref = [t.clone() for t in (p, m, v)]
-    adamw._launch(emu["adamw"], p, g, m, v, row, None)
+    sgd.launch_groups(emu["adamw"], "adamw", ([p], [g], [m], [v]), row, None)
     adamw.fused_adamw_plain(ref[0], g, ref[1], ref[2], row)
     assert p.dtype == dtype
     for a, r in zip((p, m, v), ref):
@@ -398,7 +414,7 @@ def test_sgd_kernel_source_matches_plain(emu, dtype, n, offset):
     m = torch.randn(n, generator=gen) * 0.1
     row = sgd.scalar_row(0.1, 0.9, 1e-4, torch.tensor(0.3))
     ref = [p.clone(), m.clone()]
-    sgd._launch(emu["sgd"], [p], [g], [m], row, None)
+    sgd.launch_groups(emu["sgd"], "sgd", ([p], [g], [m]), row, None)
     sgd.fused_sgd_plain(ref[0], g, ref[1], row)
     assert p.dtype == dtype
     for a, r in zip((p, m), ref):
@@ -436,7 +452,7 @@ def test_sgd_multi_leaf_kernel_source_matches_plain(emu, dtypes):
         ms.append(torch.randn(n, generator=gen) * 0.1)
     row = sgd.scalar_row(0.1, 0.9, 1e-4, torch.tensor(0.3))
     ref = [[p.clone() for p in ps], [m.clone() for m in ms]]
-    calls = sgd._launch_groups(emu["sgd"], ps, gs, ms, row, None)
+    calls = sgd.launch_groups(emu["sgd"], "sgd", (ps, gs, ms), row, None)
     assert calls == len(dtypes)
     for i in range(len(ps)):
         sgd.fused_sgd_plain(ref[0][i], gs[i], ref[1][i], row)
@@ -446,20 +462,93 @@ def test_sgd_multi_leaf_kernel_source_matches_plain(emu, dtypes):
             assert bool((diff <= 1e-6 * (1 + r.float().abs())).all()), i
 
 
+@pytest.mark.parametrize("dtypes", [
+    (torch.float32,), (torch.bfloat16,),
+    (torch.float32, torch.bfloat16),    # two groups: one call each
+], ids=str)
+def test_adamw_multi_leaf_kernel_source_matches_plain(emu, dtypes):
+    """About 200 leaves through the multi-leaf wrapper's grouping: one C
+    call per p dtype, each with more rows than the 4 KB parameter space
+    holds (the emulation builds the 92-leaf capacity of toolkits before
+    CUDA 12.1, so a table goes out in two or three launches), sizes
+    cycling through SGD_SIZES, every seventh leaf a view at an odd element
+    offset (the element-by-element path). Each leaf within 1e-6 (1 +
+    |plain|) of fused_adamw_plain, as the one-leaf case."""
+    gen = torch.Generator().manual_seed(201)
+    leaves = []
+    for i in range(203 * len(dtypes)):
+        n = SGD_SIZES[i % len(SGD_SIZES)]
+        if n > 4097 and i > 7:      # keep the emulated grid small
+            n = 300
+        off = 1 + i % 3 if i % 7 == 3 else 0
+        dtype = dtypes[i % len(dtypes)]
+        leaves.append((torch.randn(n + off, generator=gen).to(dtype)[off:],
+                       torch.randn(n, generator=gen),
+                       torch.randn(n, generator=gen) * 0.1,
+                       torch.rand(n, generator=gen) * 0.1))
+    ps, gs, ms, vs = (list(t) for t in zip(*leaves))
+    row = adamw.scalar_row(1e-3, 0.9, 0.95, 1e-8, 0.1, 3, torch.tensor(0.5))
+    ref = [[t.clone() for t in ts] for ts in (ps, ms, vs)]
+    calls = sgd.launch_groups(emu["adamw"], "adamw", (ps, gs, ms, vs), row,
+                              None)
+    assert calls == len(dtypes)
+    for i in range(len(ps)):
+        adamw.fused_adamw_plain(ref[0][i], gs[i], ref[1][i], ref[2][i], row)
+        for a, r in zip((ps[i], ms[i], vs[i]), (ref[0][i], ref[1][i],
+                                                 ref[2][i])):
+            assert a.dtype == r.dtype
+            diff = (a.float() - r.float()).abs()
+            assert bool((diff <= 1e-6 * (1 + r.float().abs())).all()), i
+
+
+TIE_AMAX, TIE_HALF = 0.84375, 0.421875   # exact in bf16 too
+
+
+def plant_ties(x, w):
+    """Row 0 of x and column 0 of w get amax 0.84375 and an element of
+    half that: its quotient by the scale is exactly +-63.5 (rint: +-64),
+    where the product with the scale's reciprocal is 63.499996 (63).
+    The other elements of that row and column stay below the amax."""
+    s = torch.tensor(TIE_AMAX) / torch.tensor(127.0)
+    assert torch.round(TIE_HALF * (torch.tensor(1.0) / s)) == 63
+    assert torch.round(torch.tensor(TIE_HALF) / s) == 64
+    x[0] = x[0].clamp(-0.8, 0.8)
+    x[0, 0], x[0, -1] = TIE_AMAX, -TIE_HALF
+    w[:, 0] = w[:, 0].clamp(-0.8, 0.8)
+    w[0, 0], w[-1, 0] = -TIE_AMAX, TIE_HALF
+
+
 @pytest.mark.parametrize("dtype,m,k,n", [
     (torch.float32, 8, 16, 8),        # a decode tick's M, one tile
     (torch.float32, 130, 70, 136),    # ragged M, N and K (K % 4 != 0)
     (torch.bfloat16, 24, 128, 72),    # two K chunks
+    # M <= 16: the split-K decode kernel (w as the mma's A operand); K in
+    # 128-deep stages, split while the grid is small (the emulation plans
+    # for a card of one SM: 8 blocks)
+    (torch.bfloat16, 8, 300, 72),     # 3 splits, ragged K (not % 32)
+    (torch.float32, 8, 256, 64),      # 2 splits
+    (torch.bfloat16, 13, 260, 40),    # two 8-row n-tiles, ragged M and N
+    (torch.bfloat16, 8, 1100, 72),    # splits of 2, 2, 2, 2, 1 stages
+    (torch.bfloat16, 8, 520, 520),    # one split of 5 stages
+    # M > 16: x and w quantized once into the workspace, then the GEMM
+    (torch.bfloat16, 70, 200, 136),   # ragged M, N and K
+    (torch.float32, 64, 130, 72),
+    (torch.bfloat16, 40, 520, 72),    # 5 stages through the GEMM's ring
 ], ids=str)
 def test_fused_quant_kernel_source_matches_plain(emu, dtype, m, k, n):
+    """Bit-equal to the plain version, with an all-zero row of x and an
+    all-zero column of w giving exact zeros, and half-integer quotients
+    that a reciprocal multiply rounds the other way (plant_ties)."""
     gen = torch.Generator().manual_seed(m + k + n)
     x = (torch.randn((m, k), generator=gen) * 2).to(dtype)
     w = torch.randn((k, n), generator=gen).to(dtype)
+    plant_ties(x, w)
     x[1] = 0                                   # an all-zero row: exact zeros
-    out = pq._launch(emu["quant"], x, w, None)
+    w[:, n - 2] = 0                            # an all-zero column
+    out = pq._launch(emu["quant"], emu["quant_ws"], x, w, None)
     ref = pq.fused_quant_matmul_plain(x, w)
     assert out.dtype == dtype and torch.equal(out, ref)
-    assert bool((out[1] == 0).all())
+    assert bool((out[1] == 0).all()) and bool((out[:, n - 2] == 0).all())
 
 
 @pytest.mark.parametrize("dtype,case", [

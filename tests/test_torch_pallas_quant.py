@@ -146,4 +146,6 @@ def test_failed_build_and_failed_launch_raise(tmp_path, monkeypatch):
                 if f.endswith(".so")]
     x, w = torch.ones(2, 8), torch.ones(8, 4)
     with pytest.raises(RuntimeError, match="launch failed"):
-        pq._launch(lambda *a: 9, x, w, None)
+        pq._launch(lambda *a: 9, lambda *a: 0, x, w, None)
+    with pytest.raises(RuntimeError, match="workspace"):
+        pq._launch(lambda *a: 0, lambda *a: -1, x, w, None)

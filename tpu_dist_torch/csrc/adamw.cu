@@ -16,77 +16,151 @@
 //
 // Bound on an H100 SXM: bytes. It reads p, g, m, v and writes p, m, v: 28
 // bytes per fp32 element against 3.35 TB/s; a dozen FLOP per element is far
-// below the fp32 SIMT rate.
+// below the fp32 SIMT rate. The LM's step is 85 leaves, a dozen of them
+// LayerNorm vectors of 1,024 elements, so one launch per leaf pays in
+// launches and host calls what the bytes do not.
 //
-// Design: one grid-stride launch per leaf, 256 threads a block and at most
-// 8 blocks per SM, each thread loading the scalar row once; neighbouring
-// threads touch neighbouring elements, so every access is coalesced. No
-// vector loads yet (the leaves need no 16-byte alignment of their length).
+// Design: one launch over every leaf of one p dtype (multi-tensor apply,
+// csrc/multi_tensor.cuh, as sgd.cu): the host's table of {p, g, m, v, n}
+// rows goes to the kernel by value, each block takes one chunk of CHUNK
+// elements of one leaf, and leaves with n = 0 own no chunk. A leaf whose
+// pointers are all 16-byte aligned (8 for a bf16 p) moves four elements per
+// access, each thread issuing all of its 16-byte loads before the first
+// update; the ragged tail (n mod 4) and unaligned leaves go element by
+// element. Neighbouring threads touch neighbouring addresses either way, so
+// every access is coalesced. CAP leaves a launch: 512 (22,536 bytes of
+// table) where the toolkit allows 32,764 bytes of kernel parameters, CUDA
+// >= 12.1, else 92, inside the older 4 KB.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "multi_tensor.cuh"
+
 namespace {
 
-constexpr int NT = 256;
-constexpr int MAX_BLOCKS = 132 * 8;
+constexpr int NT = 256;                // threads per block
+constexpr int VPT = 4;                 // 4-element vectors per thread
+constexpr int CHUNK = NT * VPT * 4;    // elements per block: 4096
+constexpr int CAP = TDT_LARGE_PARAMS ? 512 : 92;
 
-template <typename T> __device__ __forceinline__ float to_f(T x);
-template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
+struct Leaf {                          // the host table's row: 40 bytes
+  void* p;
+  const float* g;
+  float* m;
+  float* v;
+  long long n;
+};
 
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as astype
+typedef LeafTable<Leaf, CAP> Table;
+
+struct Scalars {
+  float lr, b1, b2, eps, wd, c1, c2, cs;
+};
+
+// one element's update, in the reference kernel's operation order
+template <typename T>
+__device__ __forceinline__ void step1(T& p, float g, float& m, float& v,
+                                      const Scalars& s) {
+  const float pf = to_f<T>(p);
+  const float gf = g * s.cs;
+  const float mf = s.b1 * m + (1.f - s.b1) * gf;
+  const float vf = s.b2 * v + (1.f - s.b2) * gf * gf;
+  const float upd = (mf / s.c1) / (sqrtf(vf / s.c2) + s.eps) + s.wd * pf;
+  p = from_f<T>(pf - s.lr * upd);
+  m = mf;
+  v = vf;
 }
 
 template <typename T>
 __global__ void __launch_bounds__(NT) adamw_kernel(
-    T* __restrict__ p, const float* __restrict__ g, float* __restrict__ m,
-    float* __restrict__ v, const float* __restrict__ scal, long long n) {
-  const float lr = scal[0], b1 = scal[1], b2 = scal[2], eps = scal[3];
-  const float wd = scal[4], c1 = scal[5], c2 = scal[6], cs = scal[7];
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    const float pf = to_f<T>(p[i]);
-    const float gf = g[i] * cs;
-    const float mf = b1 * m[i] + (1.f - b1) * gf;
-    const float vf = b2 * v[i] + (1.f - b2) * gf * gf;
-    const float upd = (mf / c1) / (sqrtf(vf / c2) + eps) + wd * pf;
-    p[i] = from_f<T>(pf - lr * upd);
-    m[i] = mf;
-    v[i] = vf;
+    const Table tab, const float* __restrict__ scal) {
+  typedef typename Vec<T>::type PV;
+  const int c = blockIdx.x;
+  const int li = leaf_of_chunk(tab, c);
+  const Leaf leaf = tab.leaf[li];
+  T* __restrict__ p = static_cast<T*>(leaf.p);
+  const float* __restrict__ g = leaf.g;
+  float* __restrict__ m = leaf.m;
+  float* __restrict__ v = leaf.v;
+  const long long base = (long long)(c - tab.start[li]) * CHUNK;
+  const long long rest = leaf.n - base;
+  const int len = (int)(rest < CHUNK ? rest : CHUNK);   // elements here
+  const Scalars s = {scal[0], scal[1], scal[2], scal[3],
+                     scal[4], scal[5], scal[6], scal[7]};
+  const bool vec = (((uintptr_t)g | (uintptr_t)m | (uintptr_t)v) % 16 == 0) &&
+                   ((uintptr_t)p % sizeof(PV) == 0);
+  int done = 0;
+  if (vec) {
+    const int n4 = len / 4;
+    PV* p4 = reinterpret_cast<PV*>(p + base);
+    const F4* g4 = reinterpret_cast<const F4*>(g + base);
+    F4* m4 = reinterpret_cast<F4*>(m + base);
+    F4* v4 = reinterpret_cast<F4*>(v + base);
+    PV pv[VPT];
+    F4 gv[VPT], mv[VPT], vv[VPT];
+    for (int j0 = threadIdx.x; j0 < n4; j0 += NT * VPT) {
+#pragma unroll
+      for (int k = 0; k < VPT; ++k) {   // every load before the first use
+        const int j = j0 + k * NT;
+        if (j < n4) {
+          pv[k] = p4[j];
+          gv[k] = g4[j];
+          mv[k] = m4[j];
+          vv[k] = v4[j];
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < VPT; ++k) {
+        const int j = j0 + k * NT;
+        if (j < n4) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            step1<T>(pv[k].v[e], gv[k].v[e], mv[k].v[e], vv[k].v[e], s);
+          p4[j] = pv[k];
+          m4[j] = mv[k];
+          v4[j] = vv[k];
+        }
+      }
+    }
+    done = n4 * 4;
+  }
+  for (int j = done + threadIdx.x; j < len; j += NT) {
+    float mf = m[base + j], vf = v[base + j];
+    step1<T>(p[base + j], g[base + j], mf, vf, s);
+    m[base + j] = mf;
+    v[base + j] = vf;
   }
 }
 
 template <typename T>
-int launch(void* p, const void* g, void* m, void* v, const void* scal,
-           long long n, cudaStream_t stream) {
-  const long long want = (n + NT - 1) / NT;
-  const int blocks = (int)(want < MAX_BLOCKS ? want : MAX_BLOCKS);
-  adamw_kernel<T><<<blocks, NT, 0, stream>>>(
-      static_cast<T*>(p), static_cast<const float*>(g),
-      static_cast<float*>(m), static_cast<float*>(v),
-      static_cast<const float*>(scal), n);
-  return (int)cudaGetLastError();
+int launch(const Leaf* rows, int n_leaves, const float* scal,
+           cudaStream_t stream) {
+  return for_each_table<CAP, CHUNK>(
+      rows, n_leaves, [&](const Table& tab, unsigned chunks) {
+        adamw_kernel<T><<<chunks, NT, 0, stream>>>(tab, scal);
+        return (int)cudaGetLastError();
+      });
 }
 
 }  // namespace
 
-// p_dtype: 0 = float32, 1 = bfloat16; g, m, v and the 8-float scalar row are
-// float32. Returns the launch's cudaError_t (0 = launched); -1 for an unknown
-// dtype; 0 without a launch for n = 0.
-extern "C" int tdt_adamw(void* p, const void* g, void* m, void* v,
-                         const void* scalars, long long n, int p_dtype,
-                         void* stream) {
+// One update of every leaf in the host table `table` (n_leaves rows of
+// {p, g, m, v, n}: pointers to p, fp32 g, fp32 m and fp32 v, and the
+// element count; rows with n = 0 are skipped) with the 8-float fp32 scalar
+// row [lr, b1, b2, eps, wd, c1, c2, cs] in device memory. p_dtype: 0 =
+// float32, 1 = bfloat16, for every row. Returns the first failed launch's
+// cudaError_t (0 = every launch went out, or nothing to do); -1 for an
+// unknown dtype, a negative count, or more than 2^31 - 1 chunks in one
+// launch.
+extern "C" int tdt_adamw_multi(const void* table, int n_leaves,
+                               const void* scalars, int p_dtype,
+                               void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n <= 0) return 0;
-  if (p_dtype == 0) return launch<float>(p, g, m, v, scalars, n, s);
-  if (p_dtype == 1) return launch<__nv_bfloat16>(p, g, m, v, scalars, n, s);
+  const Leaf* rows = static_cast<const Leaf*>(table);
+  const float* scal = static_cast<const float*>(scalars);
+  if (p_dtype == 0) return launch<float>(rows, n_leaves, scal, s);
+  if (p_dtype == 1) return launch<__nv_bfloat16>(rows, n_leaves, scal, s);
   return -1;
 }

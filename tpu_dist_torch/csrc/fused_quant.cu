@@ -1,5 +1,5 @@
-// Fused int8 matmul for Hopper (sm_90a): quantize -> int8 dot -> dequant in
-// one launch. Kernel 6 of the port.
+// Fused int8 matmul for Hopper (sm_90a): quantize -> int8 dot -> dequant.
+// Kernel 6 of the port.
 //
 // Replaces: tpu_dist/ops/pallas_quant.py:_fused_quant_kernel (Pallas, TPU),
 // reached through fused_quant_matmul behind ops/quant.py:quant_matmul(mode=
@@ -12,41 +12,66 @@
 // 127 (amax over the whole of K); q = clamp(rint(v / scale), -127, 127) with
 // an IEEE division and rint's half-to-even; int32 accumulation; then
 // float(acc) * (sx * sw), rounded once to the output type. int32 sums are
-// exact, so the result is bit-equal to the plain version.
+// exact in any order (the caller keeps K <= (2^31 - 1) / 127^2), so the
+// result is bit-equal to the plain version.
 //
-// Bound on an H100 SXM: at the LM's shapes, bytes. x, w and out cross HBM
-// once each at best (a decode tick's M = 8 does 16 int8 operations per
-// weight byte, far below the 1979 TOP/s : 3.35 TB/s ridge); a prefill's
-// M = 1024 lm_head sits near the ridge.
+// Bound on an H100 SXM: bytes at a decode tick's M = 8 (16 int8 operations
+// per weight byte, far below the 1979 TOP/s : 3.35 TB/s ridge); a
+// prefill's M = 1024 sits near the ridge.
 //
-// Design (first version: right and simple, not fast). Like the TPU kernel
-// it keeps every int8 value and the int32 accumulator out of device memory:
-// one launch, one block of 256 threads per 64 x 64 output tile. The block
-// first reduces, over the whole of K, the amax of its 64 rows of x (a warp
-// per row) and of its 64 columns of w (four threads per column), exactly as
-// the TPU kernel recomputes them per tile. Then it walks K in chunks of 64:
-// it quantizes the x chunk and the w chunk into shared memory, w transposed
-// so that four consecutive k of one column pack into one int, and each
-// thread accumulates a 4 x 4 micro-tile with __dp4a (four int8 products
-// into an int32 per instruction). K = 4096 does not fit a whole (64, K)
-// tile in shared memory, so the amax pass and the quantize pass each stream
-// K: x and w are read twice per block, and w once more for every 64 rows of
-// M. That is this kernel's price; int8 tensor cores (mma/wgmma s8) with
-// TMA-fed tiles are the later performance step.
+// Design. The TPU kernel re-quantizes w per tile because K is whole in
+// VMEM; here each operand is quantized once, into a workspace the wrapper
+// allocates (tdt_fused_quant_workspace), and the product runs on the int8
+// tensor cores (mma.sync m16n8k32, csrc/warp_mma.cuh). One call is a memset
+// and two launches (M <= 16) or three (M > 16) on the caller's stream:
+//   1. fq_scales_kernel: one block per row of x takes its amax, writes sx and
+//      the row's int8 values (qx, K padded to KP, a multiple of 128, with
+//      zeros); the other blocks take a column strip of w over a slice of K
+//      (coalesced: a warp reads consecutive columns of one row, 16 bytes a
+//      lane) and combine their column maxima with atomicMax on the bits of
+//      a non-negative float, which is order-free. At least 4 blocks an SM.
+//   2a. M <= 16 (decode): fq_decode_kernel, split-K. w is the A operand (16
+//      columns a warp) and qx the B operand (8 rows an n-tile), so M <= 8
+//      pads nothing. Each block takes 64 columns and a range of 128-deep K
+//      stages through a ring of two raw w tiles filled by cp.async, so the
+//      next stage's loads are in flight while it quantizes one into the
+//      int8 tile (w crosses HBM twice in all: here and in stage 1); qx's
+//      fragments come from the workspace (L2). K is split until about two
+//      blocks an SM run, or every stage is a split of its own. With one
+//      split the block dequantizes; else each split writes its int32 sums
+//      and counts itself done (atomicAdd), and the last of a column tile
+//      adds the splits' sums in split order and dequantizes.
+//   2b. M > 16 (prefill, training): fq_quant_w_kernel quantizes w once into
+//      qw (N, KP), transposed so k is contiguous; fq_gemm_kernel is a plain
+//      int8 GEMM over qx and qw (128 x 128 tiles, a ring of two cp.async
+//      stages of 128 k, two blocks an SM) with the dequant in its epilogue.
+// Shared-memory int8 tiles are [rows][128] and swizzled (swz_off): the 8
+// rows that one ldmatrix phase reads, and the 8 rows that one packed store
+// of the w tile writes, fall in 8 distinct 16-byte chunks, all 32 banks.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "warp_mma.cuh"
+
 namespace {
 
-constexpr int BM = 64;       // output rows per block
-constexpr int BN = 64;       // output columns per block
-constexpr int BK = 64;       // k per chunk
-constexpr int KW = BK / 4;   // packed int8x4 words per row per chunk
-constexpr int NT = 256;      // threads per block: a 16 x 16 grid of 4 x 4 tiles
 constexpr float EPS = 1e-8f;
 constexpr float QMAX = 127.0f;
+constexpr int KT = 128;            // k per stage: one 128-byte row of int8
+constexpr int WN = 64;             // columns of a quantized w tile
+constexpr int SMALL_M = 16;        // at or below: the split-K decode kernel
+constexpr int SCALE_NT = 256;      // scales kernel: 8 warps
+constexpr int QW_NT = 256;         // w-quantize kernel
+constexpr int DEC_NT = 2 * WN;     // decode kernel: a warp per 16 columns
+constexpr int GM = 128, GN = 128;  // GEMM output tile
+constexpr int GEMM_NT = 256;       // 8 warps: 2 (m) x 4 (n) of 64 x 32
+constexpr int STAGES = 2;          // cp.async ring of the GEMM
+constexpr int GEMM_SMEM = STAGES * (GM + GN) * KT;   // 65,536 bytes
+
+struct alignas(16) Chunk { uint32_t v[4]; };   // 16 bytes
+template <typename T> struct alignas(2 * sizeof(T)) Two { T v[2]; };
 
 template <typename T> __device__ __forceinline__ float to_f(T x);
 template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
@@ -60,143 +85,623 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
   return __float2bfloat16_rn(x);
 }
 
-// clamp(rint(v / s), -127, 127): IEEE division, round half to even
-__device__ __forceinline__ int quant1(float v, float s) {
-  return (int)fminf(fmaxf(rintf(v / s), -QMAX), QMAX);
+// q = clamp(rint(v / s), -127, 127) with v / s the IEEE quotient and
+// rint's half-to-even, as the low byte of the word returned. The scales keep
+// |v / s| <= 127 (1 + 2^-24), so rint lies in [-127, 127] and the clamp
+// changes nothing. rint: adding 1.5 x 2^23 leaves no fraction bits, the
+// addition rounds half to even, and the low byte of the sum's bits is then
+// rint as an int8 (two's complement, 2^22 being a multiple of 256). The
+// quotient: y = v r with r = 1 / s lies within 2.3e-5 of it (two roundings
+// of 2^-24 relative and the quotient's own; 1.5e-5 if the compiler fuses
+// v r into the addition), so where y sits 1e-4 or more from a
+// half-integer both round to the same integer. Nearer (about 2 in 10^4
+// values) the division decides: the reciprocal alone is one step off for
+// about 2 in 10^6.
+constexpr float MAGIC = 12582912.0f;   // 1.5 x 2^23
+__device__ __forceinline__ uint32_t quant1(float v, float s, float r) {
+  const float y = v * r;
+  float t = y + MAGIC;
+  if (fabsf(y - (t - MAGIC)) > 0.5f - 1e-4f) t = v / s + MAGIC;
+  return __float_as_uint(t);
 }
 
-__device__ __forceinline__ int pack4(const int* q) {
-  return (int)(((uint32_t)q[0] & 0xffu) | (((uint32_t)q[1] & 0xffu) << 8) |
-               (((uint32_t)q[2] & 0xffu) << 16) |
-               (((uint32_t)q[3] & 0xffu) << 24));
+// the low bytes of four words, lowest first
+__device__ __forceinline__ uint32_t pack4(uint32_t q0, uint32_t q1,
+                                          uint32_t q2, uint32_t q3) {
+  return __byte_perm(__byte_perm(q0, q1, 0x0040), __byte_perm(q2, q3, 0x0040),
+                     0x5410);
+}
+
+// a column's scale from its amax's bits (stage 1's atomicMax)
+__device__ __forceinline__ float w_scale(uint32_t amax_bits) {
+  return fmaxf(__uint_as_float(amax_bits), EPS) / QMAX;
+}
+
+// byte offset of 16-byte chunk c of row r in a swizzled [rows][128] tile
+__device__ __forceinline__ int swz_off(int r, int c) {
+  return r * KT + ((c ^ ((r ^ (r >> 3)) & 7)) << 4);
+}
+
+// row[n .. n + 16 / sizeof(T)) as 16 bytes, zeros past N: one 16-byte load
+// when every row starts on a 16-byte boundary and the chunk is whole
+template <typename T>
+__device__ __forceinline__ Chunk load_chunk(const T* row, int n, int N,
+                                            bool aligned) {
+  constexpr int E = 16 / sizeof(T);
+  if (aligned && n + E <= N) return *reinterpret_cast<const Chunk*>(row + n);
+  Chunk u;
+  T* e = reinterpret_cast<T*>(&u);
+#pragma unroll
+  for (int j = 0; j < E; ++j) e[j] = n + j < N ? row[n + j] : from_f<T>(0.f);
+  return u;
+}
+
+// v[0 .. 16) = row[k .. k + 16) as floats, zeros past K
+template <typename T>
+__device__ __forceinline__ void load16(const T* row, int k, int K,
+                                       bool aligned, float v[16]) {
+  constexpr int E = 16 / sizeof(T);
+#pragma unroll
+  for (int c = 0; c < 16 / E; ++c) {
+    const Chunk u = load_chunk(row, k + c * E, K, aligned);
+    const T* e = reinterpret_cast<const T*>(&u);
+#pragma unroll
+    for (int j = 0; j < E; ++j) v[c * E + j] = to_f<T>(e[j]);
+  }
 }
 
 template <typename T>
-__global__ void __launch_bounds__(NT) fused_quant_kernel(
-    const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ out,
-    int M, int K, int N) {
-  __shared__ int sX[BM][KW + 1];   // quantized x chunk, 4 k per word
-  __shared__ int sW[BN][KW + 1];   // quantized w chunk, transposed
-  __shared__ float sSx[BM];        // per-row scales of x
-  __shared__ float sSw[BN];        // per-column scales of w
-  __shared__ float sRed[NT];       // partial column maxima
+__device__ __forceinline__ bool rows_aligned(const T* p, int row_len) {
+  return (uintptr_t)p % 16 == 0 && ((long)row_len * sizeof(T)) % 16 == 0;
+}
 
-  const int tid = threadIdx.x;
-  const int n0 = blockIdx.x * BN;
-  const int m0 = blockIdx.y * BM;
+// A KT x WN tile of w (rows k0 .., columns n0 ..) quantized by its column
+// scales into a swizzled [WN][KT] int8 tile (n rows, k contiguous). Unit u
+// of a thread: E columns at n0 + E (u % G) and four rows at k0 + 4 (u / G),
+// four 16-byte loads whose quantized values pack column by column into one
+// word of four k. A thread's columns are the same in every unit and stage,
+// so it keeps their scales in registers (sc).
+template <typename T, int NT>
+struct WTile {
+  static constexpr int E = 16 / sizeof(T);        // columns a load
+  static constexpr int G = WN / E;                // column groups
+  static constexpr int U = G * (KT / 4) / NT;     // units a thread
+  static_assert(NT % G == 0 && U >= 1, "tile and threads do not match");
+  Chunk r[U][4];
+  float sc[E], rc[E];                             // scales, reciprocals
 
-  // row amax of x over all of K: one warp per row
-  const int warp = tid / 32, lane = tid % 32;
-  for (int r = warp; r < BM; r += NT / 32) {
-    float mx = 0.f;
-    if (m0 + r < M) {
-      const T* row = x + (long)(m0 + r) * K;
-      for (int k = lane; k < K; k += 32) mx = fmaxf(mx, fabsf(to_f<T>(row[k])));
+  __device__ __forceinline__ void scales(const uint32_t* sw_amax, int n0,
+                                         int N) {
+#pragma unroll
+    for (int c = 0; c < E; ++c) {
+      const int n = n0 + E * (threadIdx.x % G) + c;
+      sc[c] = n < N ? w_scale(sw_amax[n]) : 1.f;   // padding: zeros / 1
+      rc[c] = 1.f / sc[c];
+    }
+  }
+
+  __device__ __forceinline__ void load(const T* w, int k0, int K, int n0,
+                                       int N, bool aligned) {
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = threadIdx.x + u * NT;
+      const int n = n0 + E * (i % G), k = k0 + 4 * (i / G);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        r[u][j] = k + j < K ? load_chunk(w + (long)(k + j) * N, n, N, aligned)
+                            : Chunk{};
+    }
+  }
+
+  // the same units from a raw [KT][WN] tile of T in shared memory
+  __device__ __forceinline__ void gather(const T* raw) {
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = threadIdx.x + u * NT;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        r[u][j] = *reinterpret_cast<const Chunk*>(
+            raw + (4 * (i / G) + j) * WN + E * (i % G));
+    }
+  }
+
+  // a warp's stores for one column c meet the 8 rows c + E g (g = 0..7)
+  // at one chunk: 8 distinct swizzled chunks (bf16)
+  __device__ __forceinline__ void store(int8_t* tile) const {
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = threadIdx.x + u * NT;
+      const int c0 = E * (i % G), kq = i / G;
+#pragma unroll
+      for (int c = 0; c < E; ++c) {
+        uint32_t q[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          q[j] = quant1(to_f<T>(reinterpret_cast<const T*>(&r[u][j])[c]),
+                        sc[c], rc[c]);
+        *reinterpret_cast<uint32_t*>(tile + swz_off(c0 + c, kq / 4) +
+                                     4 * (kq % 4)) =
+            pack4(q[0], q[1], q[2], q[3]);
+      }
+    }
+  }
+};
+
+// Stage 1 (header). Blocks [0, xb = M): a row of x each; the rest: column
+// strip b % ctiles of w over rows [(b / ctiles) rb, + rb).
+template <typename T>
+__global__ void __launch_bounds__(SCALE_NT) fq_scales_kernel(
+    const T* __restrict__ x, const T* __restrict__ w, int M, int K, int N,
+    int KP, int xb, int ctiles, int rb, float* __restrict__ sx,
+    int8_t* __restrict__ qx, uint32_t* __restrict__ sw_amax) {
+  constexpr int E = 16 / sizeof(T);
+  constexpr int CW = 32 * E;                 // columns a strip
+  constexpr int NW = SCALE_NT / 32;
+  __shared__ float red[NW][CW];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if ((int)blockIdx.x < xb) {               // row m = blockIdx.x of x
+    const int m = blockIdx.x;
+    const T* row = x + (long)m * K;
+    const bool al = rows_aligned(x, K);
+    float v[16], mx = 0.f;
+    for (int k = 16 * threadIdx.x; k < K; k += 16 * SCALE_NT) {
+      load16(row, k, K, al, v);
+#pragma unroll
+      for (int j = 0; j < 16; ++j) mx = fmaxf(mx, fabsf(v[j]));
     }
     for (int off = 16; off > 0; off >>= 1)
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-    if (lane == 0) sSx[r] = fmaxf(mx, EPS) / QMAX;
-  }
-  // column amax of w over all of K: four threads per column, rows strided
-  {
-    const int c = tid % BN, part = tid / BN;
-    float mx = 0.f;
-    if (n0 + c < N) {
-#pragma unroll 8
-      for (int k = part; k < K; k += NT / BN)
-        mx = fmaxf(mx, fabsf(to_f<T>(w[(long)k * N + n0 + c])));
-    }
-    sRed[tid] = mx;
-  }
-  __syncthreads();
-  if (tid < BN) {
-    const float mx = fmaxf(fmaxf(sRed[tid], sRed[tid + BN]),
-                           fmaxf(sRed[tid + 2 * BN], sRed[tid + 3 * BN]));
-    sSw[tid] = fmaxf(mx, EPS) / QMAX;
-  }
-  __syncthreads();
-
-  const int ty = tid / 16, tx = tid % 16;
-  int acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0;
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    // x chunk: rows of BM, 4 consecutive k per word; ragged M and K are zeros
-    for (int i = tid; i < BM * KW; i += NT) {
-      const int r = i / KW, kw = i % KW, k = k0 + 4 * kw;
-      int q[4] = {0, 0, 0, 0};
-      if (m0 + r < M) {
-        const T* row = x + (long)(m0 + r) * K;
-        const float s = sSx[r];
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          if (k + j < K) q[j] = quant1(to_f<T>(row[k + j]), s);
-      }
-      sX[r][kw] = pack4(q);
-    }
-    // w chunk, transposed: neighbouring threads read neighbouring columns
-    for (int i = tid; i < BN * KW; i += NT) {
-      const int c = i % BN, kw = i / BN, k = k0 + 4 * kw;
-      int q[4] = {0, 0, 0, 0};
-      if (n0 + c < N) {
-        const float s = sSw[c];
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          if (k + j < K) q[j] = quant1(to_f<T>(w[(long)(k + j) * N + n0 + c]), s);
-      }
-      sW[c][kw] = pack4(q);
-    }
+    if (lane == 0) red[0][warp] = mx;
     __syncthreads();
-#pragma unroll 4
-    for (int kw = 0; kw < KW; ++kw) {
-      int a[4], b[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = sX[ty + 16 * i][kw];
+    for (int i = 0; i < NW; ++i) mx = fmaxf(mx, red[0][i]);
+    const float s = fmaxf(mx, EPS) / QMAX, r = 1.f / s;
+    if (threadIdx.x == 0) sx[m] = s;
+    for (int k = 16 * threadIdx.x; k < KP; k += 16 * SCALE_NT) {  // 0 past K
+      load16(row, k, K, al, v);
+      Chunk q;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = sW[tx + 16 * j][kw];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = __dp4a(a[i], b[j], acc[i][j]);
+      for (int c = 0; c < 4; ++c)
+        q.v[c] = pack4(quant1(v[4 * c], s, r), quant1(v[4 * c + 1], s, r),
+                       quant1(v[4 * c + 2], s, r), quant1(v[4 * c + 3], s, r));
+      *reinterpret_cast<Chunk*>(qx + (long)m * KP + k) = q;
     }
-    __syncthreads();  // the chunk's readers are done before the next write
+    return;
   }
-
+  const int b = blockIdx.x - xb;
+  const int n0 = (b % ctiles) * CW;
+  const int k0 = (b / ctiles) * rb, k1 = min(K, k0 + rb);
+  const bool al = rows_aligned(w, N);
+  float mx[E];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
-    if (m0 + r >= M) continue;
-    T* orow = out + (long)(m0 + r) * N + n0;
+  for (int j = 0; j < E; ++j) mx[j] = 0.f;
+#pragma unroll 4
+  for (int k = k0 + warp; k < k1; k += NW) {
+    const Chunk u = load_chunk(w + (long)k * N, n0 + E * lane, N, al);
+    const T* e = reinterpret_cast<const T*>(&u);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = tx + 16 * j;
-      if (n0 + c < N)
-        orow[c] = from_f<T>(__int2float_rn(acc[i][j]) * (sSx[r] * sSw[c]));
-    }
+    for (int j = 0; j < E; ++j) mx[j] = fmaxf(mx[j], fabsf(to_f<T>(e[j])));
+  }
+#pragma unroll
+  for (int j = 0; j < E; ++j) red[warp][E * lane + j] = mx[j];
+  __syncthreads();
+  if ((int)threadIdx.x < CW && n0 + (int)threadIdx.x < N) {
+    float m = 0.f;
+#pragma unroll
+    for (int i = 0; i < NW; ++i) m = fmaxf(m, red[i][threadIdx.x]);
+    atomicMax(sw_amax + n0 + threadIdx.x, __float_as_uint(m));
   }
 }
 
+// Rows k0 .. k0 + KT (zeros past K) and columns n0 .. n0 + WN (zeros past
+// N) of w into a raw [KT][WN] tile of T: 16-byte cp.async copies where the
+// rows are aligned and the chunk is whole, plain loads and stores at a
+// ragged edge
+template <typename T, int NT>
+__device__ __forceinline__ void fill_raw(T* raw, const T* w, int k0, int K,
+                                         int n0, int N, bool aligned) {
+  constexpr int E = 16 / sizeof(T), CPR = WN / E;   // chunks a row
+  for (int i = threadIdx.x; i < KT * CPR; i += NT) {
+    const int k = k0 + i / CPR, n = n0 + E * (i % CPR);
+    T* dst = raw + (i / CPR) * WN + E * (i % CPR);
+    if (aligned && n + E <= N)
+      cp_async_16(dst, k < K ? w + (long)k * N + n : w, k < K ? 16 : 0);
+    else
+      *reinterpret_cast<Chunk*>(dst) =
+          k < K ? load_chunk(w + (long)k * N, n, N, aligned) : Chunk{};
+  }
+}
+
+constexpr int DEC_STAGES = 2;      // cp.async ring of raw w tiles
 template <typename T>
-int launch(const void* x, const void* w, void* out, int M, int K, int N,
+constexpr int dec_smem() {         // the ring, then the int8 tile
+  return DEC_STAGES * KT * WN * (int)sizeof(T) + WN * KT;
+}
+
+// Stage 2a (header): grid (column tiles of WN, K splits of sps stages).
+// part == nullptr: one split, write out. Else each split writes its int32
+// sums to part and counts itself in count[tile]; the last to arrive adds
+// the splits' sums in split order and writes out.
+template <typename T, int MT>
+__global__ void __launch_bounds__(DEC_NT) fq_decode_kernel(
+    const T* __restrict__ w, const int8_t* __restrict__ qx,
+    const float* __restrict__ sx, const uint32_t* __restrict__ sw_amax,
+    T* __restrict__ out, int* __restrict__ part, int* __restrict__ count,
+    int M, int K, int N, int KP, int sps) {
+  extern __shared__ float smem[];
+  T* raw = reinterpret_cast<T*>(smem);                      // [3][KT][WN]
+  int8_t* tile = reinterpret_cast<int8_t*>(raw + DEC_STAGES * KT * WN);
+  __shared__ int last;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int n0 = blockIdx.x * WN;
+  const int s0 = blockIdx.y * sps, s1 = min(KP / KT, s0 + sps);
+  const bool al = rows_aligned(w, N);
+  for (int i = 0; i < DEC_STAGES - 1; ++i) {
+    if (s0 + i < s1)
+      fill_raw<T, DEC_NT>(raw + i * KT * WN, w, (s0 + i) * KT, K, n0, N, al);
+    cp_async_commit();
+  }
+  WTile<T, DEC_NT> wt;
+  wt.scales(sw_amax, n0, N);
+  int acc[MT][4];
+#pragma unroll
+  for (int j = 0; j < MT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0;
+  // this lane's A rows (w columns) for ldmatrix: matrices 0..3 = rows
+  // 0-7 / 8-15 at k 0-15, then at k 16-31
+  const int ar = 16 * warp + (lane & 7) + 8 * ((lane >> 3) & 1);
+  const int ac = lane >> 4;
+  for (int s = s0; s < s1; ++s) {
+    uint32_t b[MT][4][2];          // qx: k 4t.. and 4t+16.., row 8j + g
+#pragma unroll
+    for (int j = 0; j < MT; ++j) {
+      const int m = 8 * j + g;
+      const int8_t* q = qx + (long)m * KP + s * KT + 4 * t;
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          b[j][ks][h] = m < M ? *reinterpret_cast<const uint32_t*>(
+                                    q + 32 * ks + 16 * h)
+                              : 0u;
+    }
+    cp_async_wait<DEC_STAGES - 2>();
+    __syncthreads();      // stage s landed; stage s - 1's reads all done
+    const int f = s + DEC_STAGES - 1;        // into stage s - 1's buffer
+    if (f < s1)
+      fill_raw<T, DEC_NT>(raw + ((f - s0) % DEC_STAGES) * KT * WN, w, f * KT,
+                          K, n0, N, al);
+    cp_async_commit();
+    wt.gather(raw + ((s - s0) % DEC_STAGES) * KT * WN);
+    wt.store(tile);
+    __syncthreads();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      uint32_t a[4];
+      ldsm_x4(a, tile + swz_off(ar, 2 * ks + ac));
+#pragma unroll
+      for (int j = 0; j < MT; ++j)
+        mma_s8_16832(acc[j], a, b[j][ks][0], b[j][ks][1]);
+    }
+  }
+  // C (16 columns x 8 rows an n-tile): (column g (+8), rows 2t, 2t+1)
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int n = n0 + 16 * warp + g + 8 * h;
+    if (n >= N) continue;
+    const float swn = part ? 0.f : w_scale(sw_amax[n]);
+#pragma unroll
+    for (int j = 0; j < MT; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int m = 8 * j + 2 * t + e;
+        if (m >= M) continue;
+        const int a = acc[j][2 * h + e];
+        if (part)
+          part[((long)blockIdx.y * M + m) * N + n] = a;
+        else
+          out[(long)m * N + n] = from_f<T>(__int2float_rn(a) * (sx[m] * swn));
+      }
+  }
+  if (!part) return;
+  __threadfence();                 // this split's sums, then its count
+  __syncthreads();
+  if (threadIdx.x == 0)
+    last = atomicAdd(count + blockIdx.x, 1) == (int)gridDim.y - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  for (int i = threadIdx.x; i < M * WN; i += DEC_NT) {
+    const int m = i / WN, n = n0 + i % WN;
+    if (n >= N) continue;
+    int sum = 0;
+#pragma unroll 8
+    for (int sp = 0; sp < (int)gridDim.y; ++sp)   // split order
+      sum += __ldcg(part + ((long)sp * M + m) * N + n);
+    out[(long)m * N + n] =
+        from_f<T>(__int2float_rn(sum) * (sx[m] * w_scale(sw_amax[n])));
+  }
+}
+
+// Stage 2b (header), first half: qw (N, KP) int8, zeros past K. Grid
+// (column tiles of WN, stages of KT).
+template <typename T>
+__global__ void __launch_bounds__(QW_NT) fq_quant_w_kernel(
+    const T* __restrict__ w, int K, int N, int KP,
+    const uint32_t* __restrict__ sw_amax, int8_t* __restrict__ qw) {
+  __shared__ Chunk tile_mem[WN * KT / 16];
+  int8_t* tile = reinterpret_cast<int8_t*>(tile_mem);
+  const int n0 = blockIdx.x * WN, k0 = blockIdx.y * KT;
+  WTile<T, QW_NT> wt;
+  wt.scales(sw_amax, n0, N);
+  wt.load(w, k0, K, n0, N, rows_aligned(w, N));
+  wt.store(tile);
+  __syncthreads();
+  for (int i = threadIdx.x; i < WN * KT / 16; i += QW_NT) {
+    const int r = i / (KT / 16), c = i % (KT / 16);
+    if (n0 + r < N)
+      *reinterpret_cast<Chunk*>(qw + (long)(n0 + r) * KP + k0 + 16 * c) =
+          *reinterpret_cast<const Chunk*>(tile + swz_off(r, c));
+  }
+}
+
+// ROWS rows (r0 .., zeros past L) of KT bytes at stage s of a (L, KP) int8
+// matrix into a swizzled tile, as 16-byte cp.async copies
+template <int ROWS, int NT>
+__device__ __forceinline__ void fill_tile(int8_t* tile, const int8_t* src,
+                                          int KP, int r0, int L, int s) {
+  for (int i = threadIdx.x; i < ROWS * KT / 16; i += NT) {
+    const int r = i / (KT / 16), c = i % (KT / 16);
+    const bool in = r0 + r < L;
+    cp_async_16(tile + swz_off(r, c),
+                src + (long)(in ? r0 + r : 0) * KP + s * KT + 16 * c,
+                in ? 16 : 0);
+  }
+}
+
+// Stage 2b, second half: out = dequant(qx . qw^T). Grid (row tiles of GM,
+// column tiles of GN): neighbouring blocks share one qw tile.
+template <typename T>
+__global__ void __launch_bounds__(GEMM_NT, 2) fq_gemm_kernel(
+    const int8_t* __restrict__ qx, const int8_t* __restrict__ qw,
+    const float* __restrict__ sx, const uint32_t* __restrict__ sw_amax,
+    T* __restrict__ out, int M, int N, int KP) {
+  extern __shared__ float smem[];
+  int8_t* sa = reinterpret_cast<int8_t*>(smem);   // [STAGES][GM][KT]
+  int8_t* sb = sa + STAGES * GM * KT;              // [STAGES][GN][KT]
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = warp % 2, wn = warp / 2;
+  const int m0 = blockIdx.x * GM, n0 = blockIdx.y * GN;
+  const int stages = KP / KT;
+  int acc[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
+  // ldmatrix rows: A matrices rows 0-7 / 8-15 at k 0-15, then k 16-31; B
+  // matrices n 0-7 at k 0-15 / 16-31, then n 8-15
+  const int ar = 64 * wm + (lane & 7) + 8 * ((lane >> 3) & 1), ac = lane >> 4;
+  const int br = 32 * wn + (lane & 7) + 8 * (lane >> 4), bc = (lane >> 3) & 1;
+  // ring of STAGES buffers, one commit group a stage (empty past the end),
+  // so waiting for all but the newest group lands stage s
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < stages) {
+      fill_tile<GM, GEMM_NT>(sa + s * GM * KT, qx, KP, m0, M, s);
+      fill_tile<GN, GEMM_NT>(sb + s * GN * KT, qw, KP, n0, N, s);
+    }
+    cp_async_commit();
+  }
+  for (int s = 0; s < stages; ++s) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();          // stage s landed; stage s - 1's reads done
+    const int f = s + STAGES - 1;              // into stage s - 1's buffer
+    if (f < stages) {
+      fill_tile<GM, GEMM_NT>(sa + (f % STAGES) * GM * KT, qx, KP, m0, M, f);
+      fill_tile<GN, GEMM_NT>(sb + (f % STAGES) * GN * KT, qw, KP, n0, N, f);
+    }
+    cp_async_commit();
+    const int8_t* at = sa + (s % STAGES) * GM * KT;
+    const int8_t* bt = sb + (s % STAGES) * GN * KT;
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      uint32_t a[4][4], b[4][2];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        ldsm_x4(a[i], at + swz_off(ar + 16 * i, 2 * ks + ac));
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        uint32_t r[4];
+        ldsm_x4(r, bt + swz_off(br + 16 * jj, 2 * ks + bc));
+        b[2 * jj][0] = r[0];
+        b[2 * jj][1] = r[1];
+        b[2 * jj + 1][0] = r[2];
+        b[2 * jj + 1][1] = r[3];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          mma_s8_16832(acc[i][j], a[i], b[j][0], b[j][1]);
+    }
+  }
+  // C (16 x 8 a tile): (row g (+8), columns 2t, 2t+1), stored as a pair
+  // where every row starts on the pair's boundary (N even)
+  const bool pairs = N % 2 == 0;
+  float swc[4][2];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int n = n0 + 32 * wn + 8 * j + 2 * t + e;
+      swc[j][e] = n < N ? w_scale(sw_amax[n]) : 0.f;
+    }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + 64 * wm + 16 * i + g + 8 * h;
+      if (m >= M) continue;
+      const float sxm = sx[m];
+      T* orow = out + (long)m * N;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int n = n0 + 32 * wn + 8 * j + 2 * t;   // even
+        Two<T> o;
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          o.v[e] = from_f<T>(__int2float_rn(acc[i][j][2 * h + e]) *
+                             (sxm * swc[j][e]));
+        if (pairs && n + 1 < N)
+          *reinterpret_cast<Two<T>*>(orow + n) = o;
+        else
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            if (n + e < N) orow[n + e] = o.v[e];
+      }
+    }
+}
+
+// ---- host ------------------------------------------------------------------
+
+struct Plan {
+  int KP, stages;
+  bool small;                 // M <= SMALL_M: stage 2a, else 2b
+  int splits, sps;            // K splits of sps stages (2a)
+  int xb, ctiles, rb, wb;     // stage 1: x blocks, w strips, rows, w blocks
+  long long off_sw, off_count, off_sx, off_qx, off_qw, off_part, bytes;
+};
+
+long long align256(long long b) { return (b + 255) / 256 * 256; }
+
+// the current device's SMs, which the launch plans fill
+int sm_count() {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != 0 ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != 0)
+    return 132;                    // an H100's
+  return sms;
+}
+
+Plan make_plan(int M, int K, int N, int elem) {
+  const int sms = sm_count();
+  Plan p;
+  p.KP = (K + KT - 1) / KT * KT;
+  p.stages = p.KP / KT;
+  p.small = M <= SMALL_M;
+  p.splits = 1;
+  p.sps = p.stages;
+  if (p.small) {             // about 2 blocks an SM, no split left empty
+    const int tiles = (N + WN - 1) / WN;
+    const int want = (2 * sms + tiles - 1) / tiles;
+    p.sps = p.stages / want > 1 ? p.stages / want : 1;
+    p.splits = (p.stages + p.sps - 1) / p.sps;
+  }
+  p.xb = M;
+  const int cw = 32 * (16 / elem);
+  p.ctiles = (N + cw - 1) / cw;
+  int ks = (4 * sms + p.ctiles - 1) / p.ctiles;   // at least 4 blocks an SM
+  ks = ks < (K + 7) / 8 ? ks : (K + 7) / 8;       // at least 8 rows a block
+  p.rb = ((K + ks - 1) / ks + 7) / 8 * 8;
+  p.wb = p.ctiles * ((K + p.rb - 1) / p.rb);
+  long long off = 0;
+  p.off_sw = off;                  // zeroed: column maxima, split counts
+  p.off_count = off + 4LL * N;
+  off = align256(p.off_count + 4LL * ((N + WN - 1) / WN));
+  p.off_sx = off;
+  off = align256(off + 4LL * M);
+  p.off_qx = off;
+  off = align256(off + (long long)M * p.KP);
+  p.off_qw = off;
+  if (!p.small) off = align256(off + (long long)N * p.KP);
+  p.off_part = off;
+  if (p.small && p.splits > 1) off = align256(off + 4LL * p.splits * M * N);
+  p.bytes = off;
+  return p;
+}
+
+template <typename T>
+int launch(const T* x, const T* w, T* out, char* ws, int M, int K, int N,
            cudaStream_t stream) {
-  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  fused_quant_kernel<T><<<grid, NT, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(out),
-      M, K, N);
+  const Plan p = make_plan(M, K, N, (int)sizeof(T));
+  uint32_t* sw_amax = reinterpret_cast<uint32_t*>(ws + p.off_sw);
+  float* sx = reinterpret_cast<float*>(ws + p.off_sx);
+  int8_t* qx = reinterpret_cast<int8_t*>(ws + p.off_qx);
+  int* count = reinterpret_cast<int*>(ws + p.off_count);
+  int err = (int)cudaMemsetAsync(ws, 0, (size_t)(p.off_sx - p.off_sw),
+                                 stream);
+  if (err != 0) return err;
+  fq_scales_kernel<T><<<p.xb + p.wb, SCALE_NT, 0, stream>>>(
+      x, w, M, K, N, p.KP, p.xb, p.ctiles, p.rb, sx, qx, sw_amax);
+  if ((err = (int)cudaGetLastError()) != 0) return err;
+  if (p.small) {
+    int* part = p.splits > 1 ? reinterpret_cast<int*>(ws + p.off_part)
+                             : nullptr;
+    const dim3 grid((N + WN - 1) / WN, p.splits);
+    const int smem = dec_smem<T>();
+    if (M <= 8) {
+      err = (int)cudaFuncSetAttribute(
+          fq_decode_kernel<T, 1>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          smem);
+      if (err != 0) return err;
+      fq_decode_kernel<T, 1><<<grid, DEC_NT, smem, stream>>>(
+          w, qx, sx, sw_amax, out, part, count, M, K, N, p.KP, p.sps);
+    } else {
+      err = (int)cudaFuncSetAttribute(
+          fq_decode_kernel<T, 2>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          smem);
+      if (err != 0) return err;
+      fq_decode_kernel<T, 2><<<grid, DEC_NT, smem, stream>>>(
+          w, qx, sx, sw_amax, out, part, count, M, K, N, p.KP, p.sps);
+    }
+    return (int)cudaGetLastError();
+  }
+  int8_t* qw = reinterpret_cast<int8_t*>(ws + p.off_qw);
+  const dim3 qgrid((N + WN - 1) / WN, p.stages);
+  fq_quant_w_kernel<T><<<qgrid, QW_NT, 0, stream>>>(w, K, N, p.KP, sw_amax, qw);
+  if ((err = (int)cudaGetLastError()) != 0) return err;
+  err = (int)cudaFuncSetAttribute(fq_gemm_kernel<T>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  GEMM_SMEM);
+  if (err != 0) return err;
+  const dim3 grid((M + GM - 1) / GM, (N + GN - 1) / GN);
+  fq_gemm_kernel<T><<<grid, GEMM_NT, GEMM_SMEM, stream>>>(qx, qw, sx, sw_amax,
+                                                       out, M, N, p.KP);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (x, w and out alike). Returns the
-// launch's cudaError_t (0 = launched); -1 for a dtype this build lacks.
-extern "C" int tdt_fused_quant(const void* x, const void* w, void* out, int M,
-                               int K, int N, int dtype, void* stream) {
+// Bytes of device workspace tdt_fused_quant needs for (M, K) x (K, N), in
+// *bytes. Returns 0, or -1 for an empty shape.
+extern "C" int tdt_fused_quant_workspace(int M, int K, int N,
+                                         long long* bytes) {
+  if (M < 1 || K < 1 || N < 1) return -1;
+  *bytes = make_plan(M, K, N, 4).bytes;
+  return 0;
+}
+
+// out (M, N) = dequant(q(x) . q(w)) for row-major x (M, K), w (K, N) and
+// out, all of one dtype: 0 = float32, 1 = bfloat16. ws: device workspace of
+// tdt_fused_quant_workspace bytes, 256-byte aligned. Returns the first
+// failed call's cudaError_t (0 = every launch went out); -1 for a dtype
+// this build lacks or an empty shape.
+extern "C" int tdt_fused_quant(const void* x, const void* w, void* out,
+                               void* ws, int M, int K, int N, int dtype,
+                               void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(x, w, out, M, K, N, s);
-  if (dtype == 1) return launch<__nv_bfloat16>(x, w, out, M, K, N, s);
+  char* wsp = static_cast<char*>(ws);
+  if (M < 1 || K < 1 || N < 1) return -1;
+  if (dtype == 0)
+    return launch(static_cast<const float*>(x), static_cast<const float*>(w),
+                  static_cast<float*>(out), wsp, M, K, N, s);
+  if (dtype == 1)
+    return launch(static_cast<const __nv_bfloat16*>(x),
+                  static_cast<const __nv_bfloat16*>(w),
+                  static_cast<__nv_bfloat16*>(out), wsp, M, K, N, s);
   return -1;
 }

@@ -21,36 +21,31 @@
 // BatchNorm vectors of 64-2,048 elements, so one launch per leaf costs
 // more in launches than in bytes.
 //
-// Design: one launch over every leaf of one p dtype (multi-tensor apply).
-// The host passes a table of {p, g, m, n} per leaf; the C entry adds each
-// leaf's first chunk index and hands the table to the kernel BY VALUE as
-// its parameter, so nothing is copied host to device and a CUDA-graph
-// capture records the launch as it is. Each block takes one chunk of
-// CHUNK elements of one leaf, found by a binary search over the chunk
-// starts (leaves with n = 0 own no chunk). A leaf whose pointers are all
+// Design: one launch over every leaf of one p dtype (multi-tensor apply,
+// csrc/multi_tensor.cuh: the host's table of {p, g, m, n} rows goes to the
+// kernel by value, each block takes one chunk of CHUNK elements of one
+// leaf, leaves with n = 0 own no chunk). A leaf whose pointers are all
 // 16-byte aligned (8 for a bf16 p) moves four elements per access, each
 // thread issuing all of its 16-byte loads before the first update; the
 // ragged tail (n mod 4) and unaligned leaves go element by element.
 // Neighbouring threads touch neighbouring addresses either way, so every
-// access is coalesced. A table longer than one launch's capacity (CAP
-// leaves: 512 where the toolkit allows 32,764 bytes of kernel parameters,
-// CUDA >= 12.1, else 96, inside the older 4 KB) is split into launches of
-// at most CAP leaves.
+// access is coalesced. CAP leaves a launch: 512 where the toolkit allows
+// 32,764 bytes of kernel parameters, CUDA >= 12.1, else 96, inside the
+// older 4 KB.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "multi_tensor.cuh"
 
 namespace {
 
 constexpr int NT = 256;                // threads per block
 constexpr int VPT = 4;                 // 4-element vectors per thread
 constexpr int CHUNK = NT * VPT * 4;    // elements per block: 4096
-#if defined(CUDART_VERSION) && CUDART_VERSION >= 12010
-constexpr int CAP = 512;               // leaves per launch: 18,440 bytes
-#else
-constexpr int CAP = 96;                // inside the older 4 KB
-#endif
+// leaves per launch: 18,440 bytes of table, or inside the older 4 KB
+constexpr int CAP = TDT_LARGE_PARAMS ? 512 : 96;
 
 struct Leaf {                          // the host table's row: 32 bytes
   void* p;
@@ -59,30 +54,7 @@ struct Leaf {                          // the host table's row: 32 bytes
   long long n;
 };
 
-struct Table {                         // the kernel's parameter
-  Leaf leaf[CAP];
-  int start[CAP + 1];                  // first chunk of each leaf; last: total
-  int n_leaves;
-};
-
-struct alignas(16) F4 { float v[4]; };
-struct alignas(8) B4 { __nv_bfloat16 v[4]; };
-
-template <typename T> struct Vec;
-template <> struct Vec<float> { typedef F4 type; };
-template <> struct Vec<__nv_bfloat16> { typedef B4 type; };
-
-template <typename T> __device__ __forceinline__ float to_f(T x);
-template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as astype
-}
+typedef LeafTable<Leaf, CAP> Table;
 
 // one element's update, in the reference kernel's operation order
 template <typename T>
@@ -99,18 +71,13 @@ template <typename T>
 __global__ void __launch_bounds__(NT) sgd_kernel(const Table tab,
                                                  const float* __restrict__ scal) {
   typedef typename Vec<T>::type PV;
-  // the leaf owning this block's chunk: the last with start <= blockIdx.x
   const int c = blockIdx.x;
-  int lo = 0, hi = tab.n_leaves - 1;
-  while (lo < hi) {
-    const int mid = (lo + hi + 1) / 2;
-    if (tab.start[mid] <= c) lo = mid; else hi = mid - 1;
-  }
-  const Leaf leaf = tab.leaf[lo];
+  const int li = leaf_of_chunk(tab, c);
+  const Leaf leaf = tab.leaf[li];
   T* __restrict__ p = static_cast<T*>(leaf.p);
   const float* __restrict__ g = leaf.g;
   float* __restrict__ m = leaf.m;
-  const long long base = (long long)(c - tab.start[lo]) * CHUNK;
+  const long long base = (long long)(c - tab.start[li]) * CHUNK;
   const long long rest = leaf.n - base;
   const int len = (int)(rest < CHUNK ? rest : CHUNK);   // elements here
   const float lr = scal[0], mu = scal[1], wd = scal[2], cs = scal[3];
@@ -158,23 +125,11 @@ __global__ void __launch_bounds__(NT) sgd_kernel(const Table tab,
 template <typename T>
 int launch(const Leaf* rows, int n_leaves, const float* scal,
            cudaStream_t stream) {
-  for (int first = 0; first < n_leaves; first += CAP) {
-    Table tab;
-    tab.n_leaves = 0;
-    long long chunks = 0;
-    for (int i = first; i < n_leaves && i < first + CAP; ++i) {
-      tab.start[tab.n_leaves] = (int)chunks;
-      tab.leaf[tab.n_leaves++] = rows[i];
-      chunks += (rows[i].n + CHUNK - 1) / CHUNK;
-    }
-    if (chunks > 0x7fffffffLL) return -1;
-    tab.start[tab.n_leaves] = (int)chunks;
-    if (chunks == 0) continue;
-    sgd_kernel<T><<<(unsigned)chunks, NT, 0, stream>>>(tab, scal);
-    const int err = (int)cudaGetLastError();
-    if (err != 0) return err;
-  }
-  return 0;
+  return for_each_table<CAP, CHUNK>(
+      rows, n_leaves, [&](const Table& tab, unsigned chunks) {
+        sgd_kernel<T><<<chunks, NT, 0, stream>>>(tab, scal);
+        return (int)cudaGetLastError();
+      });
 }
 
 }  // namespace
@@ -191,9 +146,6 @@ extern "C" int tdt_sgd_multi(const void* table, int n_leaves,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Leaf* rows = static_cast<const Leaf*>(table);
   const float* scal = static_cast<const float*>(scalars);
-  if (n_leaves < 0) return -1;
-  for (int i = 0; i < n_leaves; ++i)
-    if (rows[i].n < 0) return -1;
   if (p_dtype == 0) return launch<float>(rows, n_leaves, scal, s);
   if (p_dtype == 1) return launch<__nv_bfloat16>(rows, n_leaves, scal, s);
   return -1;

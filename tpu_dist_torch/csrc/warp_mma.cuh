@@ -1,8 +1,9 @@
-// Warp-level tensor-core helpers for the bf16 kernels (sm_80 instructions,
-// built for sm_90a): mma.sync m16n8k16 bf16 -> fp32, ldmatrix x4 (plain and
-// .trans), cp.async with zero fill, and the register-level pieces around
-// them (quad reductions over a C-fragment row, a two-term bf16 split, int8
-// widening). Include after <cuda_bf16.h> and <stdint.h>.
+// Warp-level tensor-core helpers for the bf16 and int8 kernels (sm_80
+// instructions, built for sm_90a): mma.sync m16n8k16 bf16 -> fp32 and
+// m16n8k32 s8 -> s32, ldmatrix x4 (plain and .trans), cp.async with zero
+// fill, and the register-level pieces around them (quad reductions over a
+// C-fragment row, a two-term bf16 split, int8 widening). Include after
+// <cuda_bf16.h> and <stdint.h>.
 //
 // Fragment layouts (PTX ISA, mma.m16n8k16 with .bf16 operands), with
 // g = lane >> 2 and t = lane & 3; each 32-bit register holds two bf16, the
@@ -13,6 +14,12 @@
 //   C (16 x 8, fp32):       c0, c1 = (g, 2t..2t+1), c2, c3 = (g+8, 2t..2t+1)
 // so a C fragment pair (n-tiles 2j, 2j+1) rounded to bf16 is the A fragment
 // of k-step j of a following product: the repack stays in registers.
+// With .s8 operands (mma.m16n8k32) each register holds four int8, the lowest
+// k in its low byte: A reg 0 = (g, 4t..4t+3), reg 1 = (g+8, 4t..), reg 2 =
+// (g, 4t+16..), reg 3 = (g+8, 4t+16..); B reg 0 = (k 4t..4t+3, n g), reg 1
+// = (k 4t+16.., n g); C as above in int32. Byte for byte that is the bf16
+// layout, so ldsm_x4 loads both operands from k-contiguous int8 rows (an
+// 8 x 8 b16 matrix is 8 rows of 16 int8).
 //
 // tools/cuda_emu.py defines TDT_CUDA_EMU and supplies software versions of
 // the helpers below (the warp-collective ones with these layouts), so the
@@ -66,6 +73,18 @@ __device__ __forceinline__ void mma_bf16_16816(float c[4], const uint32_t a[4],
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c (16 x 8) += a (16 x 32) . b (32 x 8) on the tensor cores, int8
+// operands, int32 sums (exact; they wrap past 2^31, which the callers'
+// bound on K rules out)
+__device__ __forceinline__ void mma_s8_16832(int c[4], const uint32_t a[4],
+                                             uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 

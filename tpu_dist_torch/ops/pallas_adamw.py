@@ -3,10 +3,11 @@
 :class:`FusedAdamW` keeps the reference's engine-facing protocol
 (``init(params)``, ``apply(params, grads, state, step)``) and its scalar
 row ``[lr, b1, b2, eps, wd, 1-b1^t, 1-b2^t, clip_scale]`` (``:143-151``),
-with ``t`` the 1-indexed step. Each parameter leaf is one launch of the
-hand-written Hopper kernel ``csrc/adamw.cu`` (the Pallas ``_adamw_kernel``,
-``:57-73``) for CUDA tensors, or of :func:`fused_adamw_plain` for CPU
-tensors. The update rule is optax.adamw with ``eps_root = 0`` and the
+with ``t`` the 1-indexed step. A step is one launch of the hand-written
+Hopper kernel ``csrc/adamw.cu`` (the Pallas ``_adamw_kernel``, ``:57-73``)
+over every leaf of one p dtype for CUDA tensors
+(:func:`fused_adamw_multi_cuda`), or a loop of :func:`fused_adamw_plain`
+for CPU tensors. The update rule is optax.adamw with ``eps_root = 0`` and the
 global-norm clip fused in::
 
     g  <- g * cs            (cs = clip / norm when norm > clip, else 1)
@@ -23,17 +24,13 @@ step syncs nothing with the host. ``clip_scale`` comes from
 
 from __future__ import annotations
 
-import ctypes
 from typing import Callable, List, NamedTuple
 
 import numpy as np
 import torch
 
 from tpu_dist_torch import kernels
-from tpu_dist_torch.ops.pallas_sgd import clip_scale
-
-_ADAMW_ARGS = ([ctypes.c_void_p] * 5
-               + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
+from tpu_dist_torch.ops.pallas_sgd import clip_scale, run_multi
 
 
 def scalar_row(lr: float, b1: float, b2: float, eps: float, wd: float,
@@ -88,27 +85,21 @@ def _check_adamw(p, g, m, v, scalars):
         raise ValueError("adamw kernel: the scalar row has 8 entries")
 
 
-def _launch(fn, p, g, m, v, scalars, stream) -> None:
-    """Call the C entry ``tdt_adamw`` on checked tensors; raise on a launch
-    error."""
-    err = fn(p.data_ptr(), g.data_ptr(), m.data_ptr(), v.data_ptr(),
-             scalars.data_ptr(), p.numel(), kernels.DTYPE_CODE[p.dtype],
-             stream)
-    if err != 0:
-        raise RuntimeError(f"adamw kernel launch failed (cudaError {err})")
+def fused_adamw_multi_cuda(ps, gs, ms, vs, scalars) -> None:
+    """One update of every leaf in place on (p, m, v): the leaves are
+    grouped by p dtype and each group is one call of ``csrc/adamw.cu`` on
+    the current stream (one launch over all its leaves, up to 512). ``g``
+    is cast to fp32 where it is not, as the reference casts it. Each call
+    adds one to ``kernels.LAUNCHES["adamw"]``; a group of empty leaves
+    makes none."""
+    run_multi("adamw", _check_adamw,
+              (ps, [g.float().contiguous() for g in gs], ms, vs), scalars)
 
 
 def fused_adamw_cuda(p, g, m, v, scalars) -> None:
-    """Launch ``csrc/adamw.cu`` on the current stream, in place on
-    (p, m, v)."""
-    _check_adamw(p, g, m, v, scalars)
-    if p.numel() == 0:
-        return
-    fn = kernels.function("adamw", "tdt_adamw", _ADAMW_ARGS)
-    with torch.cuda.device(p.device):
-        _launch(fn, p, g, m, v, scalars,
-                torch.cuda.current_stream(p.device).cuda_stream)
-    kernels.LAUNCHES["adamw"] += 1
+    """One leaf through ``csrc/adamw.cu`` (a table of one row), in place
+    on (p, m, v); ``g`` must already be fp32."""
+    run_multi("adamw", _check_adamw, ([p], [g], [m], [v]), scalars)
 
 
 def fused_adamw_leaf(p, g, m, v, scalars) -> None:
@@ -155,6 +146,10 @@ class FusedAdamW:
         scalars = scalar_row(float(self.schedule(step)), self.b1, self.b2,
                              self.eps, self.weight_decay, step + 1,
                              clip_scale(grads, self.clip_norm))
-        for p, g, m, v in zip(params, grads, state.mu, state.nu):
-            fused_adamw_leaf(p.data, g, m, v, scalars)
+        ps = [p.data for p in params]
+        if scalars.is_cuda:
+            fused_adamw_multi_cuda(ps, grads, state.mu, state.nu, scalars)
+        else:
+            for p, g, m, v in zip(ps, grads, state.mu, state.nu):
+                fused_adamw_plain(p, g.float().contiguous(), m, v, scalars)
         return state

@@ -3,10 +3,14 @@
 :func:`fused_quant_matmul` is ``quant_matmul(x, w, "int8")`` in one
 kernel: per-row int8 quantization of the activations, per-column int8
 quantization of the weights, an int8 x int8 -> int32 product and the
-dequant by ``sx * sw``, with nothing int8 or int32 in device memory. For
-CUDA tensors its forward launches the hand-written Hopper kernel
-``csrc/fused_quant.cu`` (the Pallas ``_fused_quant_kernel``, ``:104-130``);
-for CPU tensors it runs :func:`fused_quant_matmul_plain`. Its backward is
+dequant by ``sx * sw``. For CUDA tensors its forward runs the hand-written
+Hopper kernels of ``csrc/fused_quant.cu`` (the Pallas
+``_fused_quant_kernel``, ``:104-130``) on the int8 tensor cores, each
+operand quantized once into a workspace allocated here: one call is a
+memset and two kernel launches when M <= 16 (scales, then the split-K
+product, whose last split adds the sums) and three when M > 16 (scales,
+w quantized and transposed, the GEMM). For
+CPU tensors it runs :func:`fused_quant_matmul_plain`. Its backward is
 the straight-through estimator of the reference's ``_fused_bwd``
 (``:201-205``): the gradients of ``x @ w`` on the unquantized operands.
 
@@ -26,8 +30,13 @@ import torch
 from tpu_dist_torch import kernels
 from tpu_dist_torch.ops.quant import quantize_int8
 
-_FUSED_QUANT_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 \
+# tdt_fused_quant(x, w, out, ws, M, K, N, dtype, stream) and
+# tdt_fused_quant_workspace(M, K, N, &bytes)
+_FUSED_QUANT_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 \
     + [ctypes.c_void_p]
+_WORKSPACE_ARGS = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_longlong)]
+# int32 sums stay exact while K * 127^2 < 2^31
+MAX_K = (2 ** 31 - 1) // 127 ** 2
 
 
 def fused_quant_matmul_plain(x2, w):
@@ -55,18 +64,29 @@ def _check_fused_quant(x2, w):
                          f"{tuple(x2.shape)} x {tuple(w.shape)}")
     if min(*x2.shape, w.shape[1]) < 1:
         raise ValueError("fused_quant kernel: empty operand")
+    if x2.shape[1] > MAX_K:
+        raise ValueError(f"fused_quant kernel: K = {x2.shape[1]} exceeds "
+                         f"{MAX_K} = (2^31 - 1) // 127^2, past which int32 "
+                         f"sums can overflow")
     if not (x2.is_contiguous() and w.is_contiguous()):
         raise ValueError("fused_quant kernel: x and w must be contiguous")
 
 
-def _launch(fn, x2, w, stream):
+def _launch(fn, ws_fn, x2, w, stream):
     """Call the C entry ``fn`` (``tdt_fused_quant``) on checked tensors:
-    allocate the output, launch on ``stream``, raise on a launch error."""
+    allocate the output and the workspace ``ws_fn``
+    (``tdt_fused_quant_workspace``) asks for, launch on ``stream``, raise
+    on a launch error."""
     m, k = x2.shape
     n = w.shape[1]
+    size = ctypes.c_longlong()
+    if ws_fn(m, k, n, ctypes.byref(size)) != 0:
+        raise RuntimeError(f"fused_quant kernel: no workspace size for "
+                           f"({m}, {k}) x ({k}, {n})")
+    ws = torch.empty(size.value, dtype=torch.uint8, device=x2.device)
     out = torch.empty((m, n), dtype=x2.dtype, device=x2.device)
-    err = fn(x2.data_ptr(), w.data_ptr(), out.data_ptr(), m, k, n,
-             kernels.DTYPE_CODE[x2.dtype], stream)
+    err = fn(x2.data_ptr(), w.data_ptr(), out.data_ptr(), ws.data_ptr(), m,
+             k, n, kernels.DTYPE_CODE[x2.dtype], stream)
     if err != 0:
         raise RuntimeError(f"fused_quant kernel launch failed "
                            f"(cudaError {err})")
@@ -74,11 +94,15 @@ def _launch(fn, x2, w, stream):
 
 
 def fused_quant_cuda(x2, w):
-    """Launch ``csrc/fused_quant.cu`` on the current stream: (M, N)."""
+    """Run ``csrc/fused_quant.cu`` on the current stream: (M, N). One call
+    adds one to ``kernels.LAUNCHES["fused_quant"]``, whatever the number
+    of kernel launches it makes (module docstring)."""
     _check_fused_quant(x2, w)
     fn = kernels.function("fused_quant", "tdt_fused_quant", _FUSED_QUANT_ARGS)
+    ws_fn = kernels.function("fused_quant", "tdt_fused_quant_workspace",
+                             _WORKSPACE_ARGS)
     with torch.cuda.device(x2.device):
-        out = _launch(fn, x2, w,
+        out = _launch(fn, ws_fn, x2, w,
                       torch.cuda.current_stream(x2.device).cuda_stream)
     kernels.LAUNCHES["fused_quant"] += 1
     return out

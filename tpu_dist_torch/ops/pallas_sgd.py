@@ -31,9 +31,10 @@ import torch
 
 from tpu_dist_torch import kernels
 
-# tdt_sgd_multi(table, n_leaves, scalars, p_dtype, stream)
-_SGD_ARGS = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-             ctypes.c_void_p]
+# the multi-leaf C entries of csrc/sgd.cu and csrc/adamw.cu:
+# tdt_<name>_multi(table, n_leaves, scalars, p_dtype, stream)
+MULTI_ARGS = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+              ctypes.c_void_p]
 
 
 def clip_scale(grads: Sequence[torch.Tensor], clip_norm: float):
@@ -97,49 +98,47 @@ def _check_sgd(p, g, m, scalars):
         raise ValueError("sgd kernel: the scalar row has 4 entries")
 
 
-def _launch(fn, ps, gs, ms, scalars, stream) -> None:
-    """Call the C entry ``tdt_sgd_multi`` on checked leaves that share one
-    p dtype: their host table of {p, g, m, n} rows (int64) goes in one
-    call, which the C side splits into launches of at most its capacity
-    (512 leaves on CUDA >= 12.1). Raise on a launch error."""
-    table = torch.tensor([(p.data_ptr(), g.data_ptr(), m.data_ptr(),
-                           p.numel()) for p, g, m in zip(ps, gs, ms)],
-                         dtype=torch.int64)
-    err = fn(table.data_ptr(), len(ps), scalars.data_ptr(),
-             kernels.DTYPE_CODE[ps[0].dtype], stream)
-    if err != 0:
-        raise RuntimeError(f"sgd kernel launch failed (cudaError {err})")
-
-
-def _launch_groups(fn, ps, gs, ms, scalars, stream) -> int:
-    """Group checked leaves by p dtype and make one :func:`_launch` per
-    group with any element (the kernel skips empty leaves); returns the
-    number of calls made."""
+def launch_groups(fn, name, lists, scalars, stream) -> int:
+    """Call a multi-leaf C entry ``fn`` (``tdt_<name>_multi``) on checked
+    leaves: ``lists`` is (params, *fp32 buffers), one tensor per leaf in
+    each. The leaves are grouped by p dtype, and each group with any
+    element goes in one call as a host table of {pointers..., n} rows
+    (int64; the C side splits it into launches of at most its capacity,
+    512 leaves on CUDA >= 12.1, and skips empty leaves). Raise on a launch
+    error; returns the number of calls made."""
     groups = {}
-    for p, g, m in zip(ps, gs, ms):
-        groups.setdefault(p.dtype, []).append((p, g, m))
+    for leaf in zip(*lists):
+        groups.setdefault(leaf[0].dtype, []).append(leaf)
     calls = 0
     for leaves in groups.values():
-        if any(p.numel() for p, _, _ in leaves):
-            _launch(fn, *zip(*leaves), scalars, stream)
-            calls += 1
+        if not any(leaf[0].numel() for leaf in leaves):
+            continue
+        table = torch.tensor([[t.data_ptr() for t in leaf] + [leaf[0].numel()]
+                              for leaf in leaves], dtype=torch.int64)
+        err = fn(table.data_ptr(), len(leaves), scalars.data_ptr(),
+                 kernels.DTYPE_CODE[leaves[0][0].dtype], stream)
+        if err != 0:
+            raise RuntimeError(f"{name} kernel launch failed (cudaError "
+                               f"{err})")
+        calls += 1
     return calls
 
 
-def _multi_cuda(ps, gs, ms, scalars) -> None:
-    """:func:`fused_sgd_multi_cuda` on fp32 grads as given (checked, not
-    cast)."""
-    if not len(ps) == len(gs) == len(ms):
-        raise ValueError(f"sgd kernel: {len(ps)} params, {len(gs)} grads, "
-                         f"{len(ms)} momentum buffers")
-    for p, g, m in zip(ps, gs, ms):
-        _check_sgd(p, g, m, scalars)
-    fn = kernels.function("sgd", "tdt_sgd_multi", _SGD_ARGS)
+def run_multi(name, check, lists, scalars) -> None:
+    """``csrc/<name>.cu`` over every leaf of ``lists`` (params, then their
+    fp32 buffers, each checked by ``check(*leaf, scalars)``) on the current
+    stream; adds the calls made to ``kernels.LAUNCHES[name]``."""
+    if len({len(ts) for ts in lists}) != 1:
+        raise ValueError(f"{name} kernel: leaf lists of lengths "
+                         f"{[len(ts) for ts in lists]}")
+    for leaf in zip(*lists):
+        check(*leaf, scalars)
+    fn = kernels.function(name, f"tdt_{name}_multi", MULTI_ARGS)
     with torch.cuda.device(scalars.device):
-        calls = _launch_groups(
-            fn, ps, gs, ms, scalars,
+        calls = launch_groups(
+            fn, name, lists, scalars,
             torch.cuda.current_stream(scalars.device).cuda_stream)
-    kernels.LAUNCHES["sgd"] += calls
+    kernels.LAUNCHES[name] += calls
 
 
 def fused_sgd_multi_cuda(ps, gs, ms, scalars) -> None:
@@ -149,13 +148,14 @@ def fused_sgd_multi_cuda(ps, gs, ms, scalars) -> None:
     cast to fp32 where it is not, as the reference casts it. Each call
     adds one to ``kernels.LAUNCHES["sgd"]``; a group of empty leaves makes
     none."""
-    _multi_cuda(ps, [g.float().contiguous() for g in gs], ms, scalars)
+    run_multi("sgd", _check_sgd,
+              (ps, [g.float().contiguous() for g in gs], ms), scalars)
 
 
 def fused_sgd_cuda(p, g, m, scalars) -> None:
     """One leaf through ``csrc/sgd.cu`` (a table of one row), in place on
     (p, m); ``g`` must already be fp32."""
-    _multi_cuda([p], [g], [m], scalars)
+    run_multi("sgd", _check_sgd, ([p], [g], [m]), scalars)
 
 
 def fused_sgd_leaf(p, g, m, scalars) -> None:

@@ -15,14 +15,21 @@ The tensor-core helpers of ``csrc/warp_mma.cuh`` hold their PTX under
 ``#ifndef TDT_CUDA_EMU``; this emulation defines that macro and gives
 software versions with the PTX ISA's fragment layouts, warp-collective
 through the per-warp barrier and scratch (as ``__shfl_xor_sync``):
-``mma_bf16_16816`` (m16n8k16, bf16 operands, fp32 sums), ``ldsm_x4`` and
+``mma_bf16_16816`` (m16n8k16, bf16 operands, fp32 sums),
+``mma_s8_16832`` (m16n8k32, int8 operands, int32 sums), ``ldsm_x4`` and
 ``ldsm_x4_trans`` (``ldmatrix`` x4), ``exp2_approx`` and
 ``pack_bf16x2`` (round to nearest even), and ``cp_async_*`` as plain
 copies with the same zero fill (``commit``/``wait`` do nothing: the copy
-has landed when it returns). The header's other helpers (``quad_max``,
-``quad_sum``, ``split_bf16x2``, ``widen_int8x4``, ``cp_async_rows``) are
-built from these and from intrinsics supplied here (``__shfl_xor_sync``,
+has landed when it returns). ``atomicMax`` (unsigned) and ``atomicAdd``
+(int) are ``std::atomic_ref`` operations, ``__threadfence`` a fence,
+``__ldcg`` a load, ``__byte_perm`` a byte select and ``cudaMemsetAsync`` a
+memset. The header's other helpers (``quad_max``, ``quad_sum``,
+``split_bf16x2``, ``widen_int8x4``, ``cp_async_rows``) are built from
+these and from intrinsics supplied here (``__shfl_xor_sync``,
 ``__uint_as_float``), so they run as written.
+
+The emulated device reports one SM, so launch plans sized to the card
+(``fused_quant.cu``'s K splits) reach every plan at small shapes.
 
 What it proves: the kernel's indexing, masking, online softmax,
 reductions and fragment repacks, against the plain versions, at small
@@ -47,6 +54,7 @@ from tpu_dist_torch import kernels
 
 FAKE_CUDA_H = r"""
 #include <algorithm>
+#include <atomic>
 #include <barrier>
 #include <cmath>
 #include <cstdint>
@@ -65,6 +73,10 @@ typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 typedef int cudaError_t;
 template <class F> int cudaFuncSetAttribute(F, int, int) { return 0; }
+// a card of one SM, so that small shapes reach every launch plan
+enum { cudaDevAttrMultiProcessorCount = 16 };
+inline int cudaGetDevice(int* d) { *d = 0; return 0; }
+inline int cudaDeviceGetAttribute(int* v, int, int) { *v = 1; return 0; }
 inline int cudaGetLastError() { return 0; }
 struct dim3 {
   unsigned x, y, z;
@@ -165,6 +177,34 @@ inline void mma_bf16_16816(float c[4], const uint32_t a[4], uint32_t b0,
   g_warp_bar[w]->arrive_and_wait();
   for (int i = 0; i < 4; ++i) c[i] = out[i];
 }
+inline int g_mma_i[64][32][4];
+inline void mma_s8_16832(int c[4], const uint32_t a[4], uint32_t b0,
+                         uint32_t b1) {
+  const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int i = 0; i < 4; ++i) g_mma_a[w][lane][i] = a[i];
+  g_mma_b[w][lane][0] = b0;
+  g_mma_b[w][lane][1] = b1;
+  g_warp_bar[w]->arrive_and_wait();
+  auto byte = [](uint32_t r, int k) {
+    return (int)(int8_t)(r >> (8 * (k % 4)));
+  };
+  auto A = [&](int m, int k) {  // A (16 x 32): lane (m%8)*4 + (k%16)/4
+    return byte(g_mma_a[w][(m % 8) * 4 + (k % 16) / 4][m / 8 + 2 * (k / 16)],
+                k);
+  };
+  auto B = [&](int k, int n) {  // B (32 x 8): lane n*4 + (k%16)/4
+    return byte(g_mma_b[w][n * 4 + (k % 16) / 4][k / 16], k);
+  };
+  const int g = lane >> 2, t = lane & 3;
+  for (int i = 0; i < 4; ++i) {  // C: (g, 2t), (g, 2t+1), (g+8, 2t), (g+8, 2t+1)
+    const int m = g + 8 * (i / 2), n = 2 * t + i % 2;
+    int sum = 0;
+    for (int k = 0; k < 32; ++k) sum += A(m, k) * B(k, n);
+    g_mma_i[w][lane][i] = c[i] + sum;
+  }
+  g_warp_bar[w]->arrive_and_wait();
+  for (int i = 0; i < 4; ++i) c[i] = g_mma_i[w][lane][i];
+}
 inline void cp_async_16(void* dst, const void* src, int bytes) {
   std::memset(dst, 0, 16);
   if (bytes > 0) std::memcpy(dst, src, bytes);
@@ -176,6 +216,37 @@ inline void cp_async_4(void* dst, const void* src, int bytes) {
 inline void cp_async_commit() {}
 template <int N> inline void cp_async_wait() {}
 inline float __int2float_rn(int x) { return (float)x; }
+inline unsigned __byte_perm(unsigned x, unsigned y, unsigned s) {
+  const uint64_t v = ((uint64_t)y << 32) | x;   // selector nibbles 0..7
+  unsigned r = 0;
+  for (int i = 0; i < 4; ++i)
+    r |= (unsigned)((v >> (8 * ((s >> (4 * i)) & 7))) & 0xff) << (8 * i);
+  return r;
+}
+inline uint32_t __float_as_uint(float f) {
+  uint32_t u;
+  std::memcpy(&u, &f, 4);
+  return u;
+}
+// a block's threads are std::threads: atomics on device memory are real
+inline unsigned atomicMax(unsigned* p, unsigned v) {
+  std::atomic_ref<unsigned> a(*p);
+  unsigned old = a.load();
+  while (old < v && !a.compare_exchange_weak(old, v)) {
+  }
+  return old;
+}
+inline int atomicAdd(int* p, int v) {
+  return std::atomic_ref<int>(*p).fetch_add(v);
+}
+inline void __threadfence() {
+  std::atomic_thread_fence(std::memory_order_seq_cst);
+}
+template <class T> inline T __ldcg(const T* p) { return *p; }
+inline int cudaMemsetAsync(void* p, int v, size_t n, cudaStream_t) {
+  std::memset(p, v, n);
+  return 0;
+}
 inline int __dp4a(int a, int b, int c) {  // four signed int8 products
   for (int i = 0; i < 4; ++i)
     c += (int)(int8_t)(a >> (8 * i)) * (int)(int8_t)(b >> (8 * i));

@@ -11,8 +11,9 @@ one speculative tick (K draft steps of self-speculation and one
 (K+1)-wide verify).
 Prints one JSON object: for each window the wall time, the device kernel
 time (sum of the CUDA kernels' self time; one stream, so no overlap), the
-device busy share (kernel time / wall), kernels launched, and the top
-kernels by device time. Needs a CUDA device::
+device busy share (kernel time / wall), kernels launched, the device time
+and launches of the fused int8 matmul's kernels, and the top kernels by
+device time. Needs a CUDA device::
 
     python -m tpu_dist_torch.tools.profile_serve --ticks 32
     python -m tpu_dist_torch.tools.profile_serve --ticks 32 --quant int8
@@ -24,6 +25,11 @@ from __future__ import annotations
 import argparse
 import json
 import time
+
+
+# kernel-name fragments of csrc/fused_quant.cu's kernels (its memset shows
+# as "Memset (Device)" and is not counted)
+FUSED_QUANT = ("fq_", "fused_quant_kernel")
 
 
 def _window(torch, fn, n_iters, top):
@@ -48,8 +54,13 @@ def _window(torch, fn, n_iters, top):
         kernels.append((us, evt.count, evt.key))
     kernels.sort(reverse=True)
     dev_s = sum(k[0] for k in kernels) / 1e6
+    quant = [k for k in kernels if any(f in k[2] for f in FUSED_QUANT)]
     return {"iters": n_iters, "wall_ms_per_iter": wall / n_iters * 1e3,
             "device_ms_per_iter": dev_s / n_iters * 1e3,
+            "fused_quant_ms_per_iter": sum(k[0] for k in quant) / 1e3
+            / n_iters,
+            "fused_quant_kernels_per_iter": sum(k[1] for k in quant)
+            / n_iters,
             "device_busy_share": dev_s / wall if wall else None,
             "kernels_per_iter": sum(k[1] for k in kernels) / n_iters,
             "top": [{"kernel": name[:90], "ms_per_iter": us / 1e3 / n_iters,
