@@ -68,12 +68,33 @@ CUDA or without the repository beside it. Phases:
    ``spec_k=4`` self-speculation; all requests complete, and (b) emits more
    than one token per slot-tick.
 
+9. the one-device training knobs at full width: (a) phase 6's LM with
+   the chunked head (``loss_chunk=1024``), 4-step windows over
+   device-resident rows and a checkpoint directory: run A trains 12
+   steps, run B is interrupted after 2 windows and leaves a mid-epoch
+   checkpoint, run C resumes from it, skips 8 batches and must match A's
+   steps 9-12 (loss within LOSS_TOL; whether bit-equal is reported), with
+   one ``adamw`` launch per step, one flash backward pair per layer per
+   step and a peak memory below phase 6's; (b) ``grad_accum_steps=2``
+   for 4 steps: one ``adamw`` launch per step, 2 flash backward pairs per
+   layer per step, step 0 within BF16_TOL of phase 6's step 0; (c)
+   ``attn="blockwise"`` for 4 steps: no flash kernel launches, step 0
+   within BF16_TOL of phase 6's; the chunked head's time against the
+   unchunked head at the training shape; (d) ResNet-50 at
+   ``BENCH_GEOMETRY`` with ``grad_accum_steps=2`` and a 2^15 loss scale
+   for 8 steps (one ``sgd`` launch per step), then a ``Trainer`` warm
+   started from phase 7's ``model_best`` validates within one image of
+   phase 7's acc@1, and a 100-class model grafts every leaf but the
+   classifier's two; (e) the decode bench's one-shot mode at the
+   reference's defaults with the flash kernel in the full recompute.
+
 The line before the last is the card's name and power limit; the one
 before it the ``{"kernels": [...]}`` record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -1004,17 +1025,24 @@ def small_trainer_agreement(torch):
                                 zip(gpu_losses, cpu_losses))}
 
 
-def training_path(torch, kernels):
-    """The training main path at full width (module docstring, phase 6)."""
+def full_lm_config(**kw):
+    """The LM of phases 6 and 9 at full width: V=32000, 8 layers, d_model
+    1024, 8 heads, L=2048, batch 8, bf16 over fp32 masters, flash
+    attention, ``fused_adamw`` with grad_clip 1.0, the synthetic affine
+    corpus; ``kw`` sets the knobs of each run."""
     from tpu_dist_torch.configs import LMConfig
 
+    base = dict(vocab_size=32000, num_layers=8, d_model=1024, num_heads=8,
+                seq_len=2048, batch_size=8, precision="bf16", attn="flash",
+                optimizer="fused_adamw", lr=1e-3, weight_decay=0.1,
+                grad_clip=1.0, synth_tokens=400_000, seed=SEED)
+    return LMConfig(**{**base, **kw})
+
+
+def training_path(torch, kernels):
+    """The training main path at full width (module docstring, phase 6)."""
     layers = 8
-    cfg = LMConfig(vocab_size=32000, num_layers=layers, d_model=1024,
-                   num_heads=8, seq_len=2048, batch_size=8,
-                   precision="bf16", attn="flash", optimizer="fused_adamw",
-                   lr=1e-3, weight_decay=0.1, grad_clip=1.0,
-                   synth_tokens=400_000, seed=SEED, max_steps=TRAIN_STEPS,
-                   print_freq=5)
+    cfg = full_lm_config(max_steps=TRAIN_STEPS, print_freq=5)
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     t0 = time.perf_counter()
@@ -1104,9 +1132,10 @@ def small_image_trainer_agreement(torch):
                                 zip(gpu_losses, cpu_losses))}
 
 
-def image_path(torch, kernels):
+def image_path(torch, kernels, ck_dir):
     """The image main path at full width (module docstring, phase 7),
-    through the entry script's ``main``."""
+    through the entry script's ``main``; its checkpoints go to ``ck_dir``
+    (phase 9 warm-starts from its ``model_best``)."""
     from tpu_dist_torch.engine import checkpoint as ckpt
     from tpu_dist_torch.scripts import image_train
 
@@ -1116,7 +1145,7 @@ def image_path(torch, kernels):
         argv = [a for k, v in geom.items()
                 for a in (f"--{k.replace('_', '-')}", str(v))]
         argv += ["--data", os.path.join(tmp, "no-data"), "--checkpoint-dir",
-                 os.path.join(tmp, "ck"), "--ledger-path", ledger,
+                 ck_dir, "--ledger-path", ledger,
                  "--log-csv", "", "--print-freq", "16"]
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launches()
@@ -1128,7 +1157,7 @@ def image_path(torch, kernels):
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         with open(ledger) as f:
             recs = [json.loads(line) for line in f]
-        path = os.path.join(tmp, "ck", "resnet50-checkpoint.pt")
+        path = os.path.join(ck_dir, "resnet50-checkpoint.pt")
         meta = ckpt.read_checkpoint_meta(path)
         want = ckpt.host_state(tr.state)
         with torch.no_grad():
@@ -1354,6 +1383,294 @@ def quant_spec_path(torch, kernels, model, prompts, outs):
     return {"int8": quant, "spec": spec}, q_launches, s_launches
 
 
+# ---- phase 9: the one-device training knobs --------------------------------
+
+def ledger_steps(path):
+    with open(path) as f:
+        return [r for r in map(json.loads, f) if r["event"] == "step"]
+
+
+def flat_params(torch, tr):
+    return torch.cat([p.detach().float().flatten() for p in tr.state.params])
+
+
+def free_device(torch):
+    """Drop what earlier runs left (trainers hold reference cycles), so a
+    run's peak memory counts its own tensors."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def lm_windows_resume(torch, kernels, base):
+    """9a: 4-step windows over device-resident rows, the chunked head and a
+    step-exact mid-epoch resume. Run A trains 12 steps; run B is cut by a
+    KeyboardInterrupt after 2 windows and leaves a mid-epoch checkpoint;
+    run C resumes from it to step 12. ``base`` is phase 6's record."""
+    from tpu_dist_torch.engine import checkpoint as ckpt
+    from tpu_dist_torch.engine.lm_loop import LMTrainer
+
+    steps, k, layers = 12, 4, 8
+    free_device(torch)
+    with tempfile.TemporaryDirectory() as tmp:
+        def cfg(name, **kw):
+            return full_lm_config(
+                loss_chunk=1024, steps_per_dispatch=k,
+                data_placement="device", max_steps=steps, print_freq=k,
+                checkpoint_dir=os.path.join(tmp, name),
+                ledger_path=os.path.join(tmp, name + ".jsonl"), **kw)
+
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        a = LMTrainer(cfg("a"), device="cuda")
+        a.fit()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        n_eval = len(a._epoch_indices(a.val_ds, False, 0)[0])
+        a_params = flat_params(torch, a)
+        a_tok_s = a.last_tok_s
+        del a
+        free_device(torch)
+        b = LMTrainer(cfg("b"), device="cuda")
+        real, calls = b.window_step, [0]
+
+        def cut(idx_window):
+            if calls[0] == 2:
+                raise KeyboardInterrupt
+            calls[0] += 1
+            return real(idx_window)
+
+        b.window_step = cut
+        try:
+            b.fit()
+            raise AssertionError("run B was not interrupted")
+        except KeyboardInterrupt:
+            pass
+        del b
+        ck = os.path.join(tmp, "b", "lm-checkpoint.pt")
+        meta = ckpt.read_checkpoint_meta(ck)
+        c = LMTrainer(cfg("c", resume=ck), device="cuda")
+        skipped = c._skip_batches
+        c.fit()
+        c_params = flat_params(torch, c)
+        c_step = c.state.step
+        del c
+        rec_a = ledger_steps(os.path.join(tmp, "a.jsonl"))
+        rec_c = ledger_steps(os.path.join(tmp, "c.jsonl"))
+    if not (meta.get("mid_epoch") and meta.get("step") == 2 * k):
+        raise AssertionError(f"run B's checkpoint meta {meta}")
+    if skipped != 2 * k or c_step != steps:
+        raise AssertionError(f"run C skipped {skipped} batches, ended at "
+                             f"step {c_step}")
+    losses_a = [r["loss"] for r in rec_a]
+    if [r["steps_in_dispatch"] for r in rec_a] != [k] * (steps // k) or \
+            not all(map(math.isfinite, losses_a)):
+        raise AssertionError(f"run A windows {rec_a}")
+    if len(rec_c) != 1 or rec_c[0]["step"] != rec_a[-1]["step"]:
+        raise AssertionError(f"run C windows {rec_c}")
+    la, lc = losses_a[-1], rec_c[0]["loss"]
+    if abs(la - lc) > LOSS_TOL * (1 + abs(la)):
+        raise AssertionError(f"steps 9-12: resumed loss {lc} != "
+                             f"uninterrupted {la}")
+    want = {"adamw": steps, "flash_bwd_dq": layers * steps,
+            "flash_bwd_dkv": layers * steps,
+            "flash_fwd": layers * (steps + n_eval)}
+    for name, n in want.items():
+        if launches[name] != n:
+            raise AssertionError(f"9a: {name} launched {launches[name]} "
+                                 f"times, expected {n}")
+    if not peak_gb < base["peak_mem_gb"]:
+        raise AssertionError(f"chunked peak {peak_gb} GB not below phase "
+                             f"6's {base['peak_mem_gb']} GB")
+    return {
+        "steps": steps, "steps_per_dispatch": k, "loss_chunk": 1024,
+        "window_losses_a": losses_a, "resumed_window_loss_c": lc,
+        "loss_tol": f"{LOSS_TOL} (1 + |loss|)", "skipped_batches": skipped,
+        "resume_loss_bit_equal": la == lc,
+        "resume_params_bit_equal": bool(torch.equal(a_params, c_params)),
+        "resume_params_max_abs_diff": float(
+            (a_params - c_params).abs().max()),
+        "tokens_per_s": a_tok_s, "wall_s_run_a": wall,
+        "peak_mem_gb": peak_gb, "phase6_peak_mem_gb": base["peak_mem_gb"],
+        "launches": launches}, launches
+
+
+def lm_knob_run(torch, kernels, base, **kw):
+    """A 4-step full-width LM run with ``kw`` (9b, 9c): finite losses and
+    step 0 within BF16_TOL of phase 6's step 0 (same seed, same batch).
+    Returns (record, launches)."""
+    free_device(torch)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    tr, losses = run_trainer(full_lm_config(max_steps=4, print_freq=1, **kw),
+                             "cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    l0 = base["losses"][0]
+    if len(losses) != 4 or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"{kw}: losses {losses}")
+    if abs(losses[0] - l0) > BF16_TOL * (1 + abs(l0)):
+        raise AssertionError(f"{kw}: step 0 loss {losses[0]} != phase 6's "
+                             f"{l0} (tol {BF16_TOL} (1 + |loss|))")
+    return {"knobs": kw, "losses": losses, "phase6_step0_loss": l0,
+            "tokens_per_s": tr.last_tok_s, "wall_s": wall,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": launches}, launches
+
+
+def chunked_head_timing(torch):
+    """The chunked head (forward and backward, chunk 1024) against the
+    unchunked bf16 head and loss at the training shape, on the same
+    inputs: the product route, the times, the extra memory of each, and
+    the mean losses (the unchunked rounds its logits to bf16: within
+    BF16_TOL)."""
+    from tpu_dist_torch.engine.lm_steps import lm_loss_and_metrics
+    from tpu_dist_torch.ops.fused_xent import chunked_softmax_xent, mm_route
+
+    free_device(torch)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    b, l, d, v = 8, 2048, 1024, 32000
+    x = torch.randn(b, l, d, generator=gen, device="cuda").requires_grad_()
+    w = (torch.randn(d, v, generator=gen, device="cuda") * 0.02
+         ).requires_grad_()
+    t = torch.randint(0, v, (b, l), generator=gen, device="cuda")
+    m = torch.ones(b, l, device="cuda")
+    out = {}
+
+    def chunked():
+        loss, _ = chunked_softmax_xent(x, w, t, m, 1024, torch.bfloat16)
+        torch.autograd.grad(loss, (x, w))
+        return loss
+
+    def unchunked():
+        logits = (x.bfloat16() @ w.bfloat16()).float()
+        loss, _ = lm_loss_and_metrics(logits, t, m)
+        torch.autograd.grad(loss, (x, w))
+        return loss
+
+    for name, fn in (("chunked", chunked), ("unchunked", unchunked)):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        loss = fn()
+        torch.cuda.synchronize()
+        out[name] = {"mean_loss": loss.item() / (b * l),
+                     "extra_peak_gb": (torch.cuda.max_memory_allocated()
+                                       - base) / 1e9,
+                     "ms": time_ms(torch, fn, iters=5, warmup=1)}
+    a, r = out["chunked"]["mean_loss"], out["unchunked"]["mean_loss"]
+    if abs(a - r) > BF16_TOL * (1 + abs(r)):
+        raise AssertionError(f"chunked mean loss {a} != unchunked {r}")
+    return {"shape": {"B": b, "L": l, "D": d, "V": v, "chunk": 1024},
+            "route": mm_route("cuda", torch.bfloat16),
+            "ms_is": "forward + backward (dx, dw), CUDA events, median of 5",
+            **out}
+
+
+def image_knobs(torch, kernels, image, best):
+    """9d: ResNet-50 at BENCH_GEOMETRY with 2-way accumulation and a 2^15
+    loss scale for 8 steps, then warm starts from phase 7's model_best."""
+    from tpu_dist_torch.configs import TrainConfig
+    from tpu_dist_torch.engine import checkpoint as ckpt
+    from tpu_dist_torch.engine.loop import Trainer
+    from tpu_dist_torch.models.registry import create_model
+    from tpu_dist_torch.scripts import image_train
+
+    geom = image_train.BENCH_GEOMETRY
+    steps = 8
+    free_device(torch)
+    cfg = TrainConfig(**{**geom, "steps_per_dispatch": 1,
+                         "grad_accum_steps": 2, "loss_scale": 2.0 ** 15,
+                         "synth_train_size": steps * geom["batch_size"],
+                         "print_freq": 1})
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    tr, losses = run_image_trainer(cfg, "cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    scale = {"scale": float(tr.state.loss_scale.scale),
+             "good_steps": int(tr.state.loss_scale.good_steps)}
+    if tr.state.step != steps or len(losses) != steps or \
+            not all(map(math.isfinite, losses)):
+        raise AssertionError(f"9d: {tr.state.step} steps, losses {losses}")
+    if launches["sgd"] != steps:
+        raise AssertionError(f"9d: sgd launched {launches['sgd']} times, "
+                             f"expected {steps}")
+    accum = {"steps": steps, "grad_accum_steps": 2, "losses": losses,
+             "loss_scale": scale, "img_per_s": tr.last_img_s,
+             "wall_s": wall, "launches": launches}
+    del tr
+    with tempfile.TemporaryDirectory() as tmp:
+        warm = Trainer(TrainConfig(**{
+            **geom, "pretrained": best,
+            "synth_train_size": geom["batch_size"], "checkpoint_dir": "",
+            "log_csv": "", "data": os.path.join(tmp, "no-data")}),
+            device="cuda")
+        acc1 = warm.validate()
+    n_val = geom["synth_val_size"]
+    if abs(acc1 - image["val_acc1"]) * n_val > 0.5:
+        raise AssertionError(f"warm-started val acc@1 {acc1} != phase 7's "
+                             f"{image['val_acc1']} (one image: 1/{n_val})")
+    m100 = create_model("resnet50", num_classes=100, dtype=torch.bfloat16,
+                        device="cuda", seed=SEED, stem=geom["stem"],
+                        norm_dtype=torch.bfloat16)
+    params, _, _ = ckpt.load_warmstart(best)
+    n100, skipped = ckpt.graft_params(m100.named_parameters(), params)
+    if sorted(skipped) != ["fc.bias", "fc.kernel"] or \
+            n100 != RESNET50_LEAVES - 2:
+        raise AssertionError(f"100-class graft: {n100} leaves, skipped "
+                             f"{skipped}")
+    accum["warm_start"] = {"val_acc1": acc1,
+                           "phase7_val_acc1": image["val_acc1"],
+                           "images_apart": abs(acc1 - image["val_acc1"])
+                           * n_val,
+                           "classes100_grafted": n100,
+                           "classes100_skipped": skipped}
+    return accum, launches
+
+
+def decode_bench_one_shot(torch, kernels):
+    """9e: the decode bench's one-shot mode at the reference's defaults
+    (batch 8, prompt 128, 384 steps) on the LM's width with the flash
+    kernel in the full recompute."""
+    import contextlib
+    import io
+
+    from tpu_dist_torch.tools import decode_bench
+
+    argv = ["--batch", "8", "--prompt-len", "128", "--steps", "384",
+            "--num-layers", "8", "--d-model", "1024", "--vocab-size",
+            "32000", "--num-heads", "8", "--precision", "bf16", "--attn",
+            "flash", "--trials", "1", "--requests", "3"]
+    kernels.reset_launches()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        decode_bench.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    line = json.loads(buf.getvalue().strip().splitlines()[-1])
+    # the full recompute runs 384 forwards per call (a warm call and one
+    # trial); the cached decode attends exactly over its cache
+    want = 2 * 384 * 8
+    if launches["flash_fwd"] != want:
+        raise AssertionError(f"9e: flash_fwd launched "
+                             f"{launches['flash_fwd']} times, expected "
+                             f"{want}")
+    if line["metric"] != "torch_lm_decode_tokens_per_sec" or \
+            line["device"]["platform"] != "gpu" or \
+            not line["kv_cache"] > 0 or not line["full_recompute"] > 0:
+        raise AssertionError(f"9e: bench line {line}")
+    return {"argv": " ".join(argv), "line": line, "wall_s": wall,
+            "launches": launches}, launches
+
+
 def main():
     import torch
 
@@ -1443,8 +1760,9 @@ def main():
     training, train_launches = training_path(torch, kernels)
     log(f"phase 6 training: {json.dumps(training)} on {card}")
 
-    # 7. the image main path at full width
-    image, image_launches = image_path(torch, kernels)
+    # 7. the image main path at full width (its checkpoints kept for 9d)
+    ck7 = tempfile.TemporaryDirectory()
+    image, image_launches = image_path(torch, kernels, ck7.name)
     log(f"phase 7 image training: {json.dumps(image)} on {card}")
 
     # 8. quantized and speculative serving at full width
@@ -1457,10 +1775,48 @@ def main():
         f"{json.dumps(qspec['spec'])} on {card}")
     log(f"phase 8 took {time.perf_counter() - t0:.1f}s")
 
+    # 9. the one-device training knobs at full width
+    t0 = time.perf_counter()
+    windows, window_launches = lm_windows_resume(torch, kernels, training)
+    log(f"phase 9a LM windows, chunked loss, resume: {json.dumps(windows)} "
+        f"on {card}")
+    accum, accum_launches = lm_knob_run(torch, kernels, training,
+                                        grad_accum_steps=2)
+    if accum_launches["adamw"] != 4 or \
+            accum_launches["flash_bwd_dq"] != 8 * 2 * 4:
+        raise AssertionError(f"9b: launches {accum_launches}")
+    log(f"phase 9b LM accumulation: {json.dumps(accum)} on {card}")
+    blockwise, block_launches = lm_knob_run(torch, kernels, training,
+                                            attn="blockwise")
+    flash_names = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                   "flash_fwd_int8kv")
+    if any(block_launches[n] for n in flash_names):
+        raise AssertionError(f"9c: a flash kernel ran: {block_launches}")
+    log(f"phase 9c LM blockwise attention: {json.dumps(blockwise)} on "
+        f"{card}")
+    head = chunked_head_timing(torch)
+    log(f"phase 9 chunked head: {json.dumps(head)} on {card}")
+    img_knobs, img_knob_launches = image_knobs(
+        torch, kernels, image,
+        os.path.join(ck7.name, "resnet50-model_best.pt"))
+    ck7.cleanup()
+    log(f"phase 9d image accumulation, loss scale, warm start: "
+        f"{json.dumps(img_knobs)} on {card}")
+    bench, bench_launches = decode_bench_one_shot(torch, kernels)
+    log(f"phase 9e decode bench one-shot: {json.dumps(bench)} on {card}")
+    log(f"phase 9 took {time.perf_counter() - t0:.1f}s")
+
     # every main-path run's own counts, for a kernel that no single path owns
     by_path = {"serving": serve_launches, "training": train_launches,
                "image_training": image_launches,
-               "int8_serving": quant_launches, "spec_serving": spec_launches}
+               "int8_serving": quant_launches, "spec_serving": spec_launches,
+               "lm_windows_chunked": window_launches,
+               "lm_accumulation": accum_launches,
+               "lm_blockwise": block_launches,
+               "image_accum_loss_scale": img_knob_launches,
+               "decode_bench_one_shot": bench_launches}
+    knob_paths = ("lm_windows_chunked", "lm_accumulation", "lm_blockwise",
+                  "image_accum_loss_scale", "decode_bench_one_shot")
     int8kv_by_path = {p: n["flash_fwd_int8kv"] for p, n in by_path.items()}
     entries = []
     for kname, rec, src, replaces, launches in (
@@ -1498,6 +1854,10 @@ def main():
         if kname in ("flash_bwd_dq", "flash_bwd_dkv", "flash_fwd_int8kv"):
             entry.update({k: rec[k] for k in (
                 "more_shapes", "spill_stores", "registers")})
+        if kname in ("flash_bwd_dq", "flash_bwd_dkv", "adamw", "sgd"):
+            entry["launches_by_path"] = {
+                p: by_path[p][kname]
+                for p in ("training", "image_training", *knob_paths)}
         if kname == "flash_fwd":
             entry["more_shapes"] = [flash[2048], *flash_more]
             entry.update(ptxas_report(kernels, "flash_fwd"))
@@ -1505,7 +1865,8 @@ def main():
                 "serving": serve_launches["flash_fwd"],
                 "training": train_launches["flash_fwd"],
                 "int8_serving": quant_launches["flash_fwd"],
-                "spec_serving": spec_launches["flash_fwd"]}
+                "spec_serving": spec_launches["flash_fwd"],
+                **{p: by_path[p]["flash_fwd"] for p in knob_paths}}
         if kname == "paged_decode":
             entry.update({k: paged[k] for k in (
                 "ms_is", "more_shapes", "nan_scale_arenas",

@@ -642,3 +642,129 @@ def test_int8_training_on_the_card_equals_the_cpu_path(cuda, tmp_path):
     assert kernels.LAUNCHES["fused_quant"] >= 9 * 4
     for a, r in zip(losses[cuda], losses["cpu"]):
         assert abs(a - r) <= 1e-3 * (1 + abs(r))
+
+
+# ---- the one-device training knobs ----------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_chunked_xent_on_the_card_equals_the_cpu_path(cuda, dtype):
+    """The chunked head and its backward on the card against the same
+    function on the CPU. fp32 (TF32 off): summation order, 1e-4 relative.
+    bf16 operands: the card's product (``out_dtype`` or the upcast) and the
+    CPU's upcast differ by summation order before the backward rounds
+    softmax - onehot to bf16, so the gradients agree within 2^-8 of their
+    largest entry."""
+    from tpu_dist_torch.ops.fused_xent import chunked_softmax_xent, mm_route
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 100, 64, generator=gen)
+    w = torch.randn(64, 1000, generator=gen) * 0.1
+    t = torch.randint(0, 1000, (2, 100), generator=gen)
+    m = torch.ones(2, 100)
+    m[1, 90:] = 0
+    out = {}
+    for dev in ("cpu", cuda):
+        xs = x.to(dev).requires_grad_(True)
+        ws = w.to(dev).requires_grad_(True)
+        loss, hits = chunked_softmax_xent(xs, ws, t.to(dev), m.to(dev), 64,
+                                          dtype)
+        out[str(dev)] = (loss.item(), hits.item(),
+                         *(g.cpu() for g in torch.autograd.grad(loss,
+                                                                (xs, ws))))
+    got, want = out["cuda"], out["cpu"]
+    assert got[0] == pytest.approx(want[0], rel=1e-4)
+    assert abs(got[1] - want[1]) <= 1          # an argmax near-tie may flip
+    for g, r in zip(got[2:], want[2:]):
+        tol = 1e-4 * r.abs().max() if dtype == torch.float32 else \
+            2 ** -8 * r.abs().max()
+        assert (g - r).abs().max() <= tol
+    assert mm_route(cuda, dtype) in ("fp32", "out_dtype", "upcast")
+
+
+def test_blockwise_on_the_card_launches_no_kernel(cuda):
+    q, k, v = (torch.randn(1, 96, 2, 64, device=cuda) for _ in range(3))
+    kernels.reset_launches()
+    out = fa.blockwise_attention_fn(64)(q, k, v, q_offset=8)
+    ref = fa.blockwise_attention_fn(64)(q.cpu(), k.cpu(), v.cpu(),
+                                        q_offset=8)
+    assert sum(kernels.LAUNCHES.values()) == 0
+    _close(out.cpu(), ref, torch.float32)
+
+
+def test_lm_windows_chunk_accum_on_the_card_equal_the_cpu_path(cuda,
+                                                               tmp_path):
+    """A tiny fp32 LM trainer with 4-step windows over device rows and the
+    chunked head, then one with 2-way accumulation: the card (kernels) and
+    the CPU (plain versions) from the same weights, losses within 1e-4 *
+    (1 + |loss|) (see the test above); one adamw launch per optimizer
+    step and one flash backward pair per layer per microbatch."""
+    import json
+
+    from tpu_dist_torch.configs import LMConfig
+    from tpu_dist_torch.engine.lm_loop import LMTrainer
+    from tpu_dist_torch.interop import export_flax_params
+    from tpu_dist_torch.models.transformer import tiny_lm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    init = export_flax_params(tiny_lm(vocab_size=64, num_layers=2,
+                                      d_model=64, num_heads=1, max_len=80,
+                                      device="cpu", seed=2))
+    for knobs, micro in ((dict(steps_per_dispatch=4, data_placement="device",
+                               loss_chunk=100), 1),
+                         (dict(grad_accum_steps=2, loss_chunk=100), 2)):
+        losses = {}
+        for dev in ("cpu", cuda):
+            path = str(tmp_path / f"{dev}.jsonl")
+            cfg = LMConfig(batch_size=4, seq_len=80, d_model=64,
+                           num_layers=2, num_heads=1, vocab_size=64,
+                           synth_tokens=3000, attn="flash",
+                           optimizer="fused_adamw", lr=3e-3, grad_clip=0.5,
+                           max_steps=4, print_freq=1, ledger_path=path,
+                           **knobs)
+            kernels.reset_launches()
+            LMTrainer(cfg, device=dev, init_params=init).fit()
+            with open(path) as f:
+                losses[dev] = [r["loss"] for r in map(json.loads, f)
+                               if r["event"] == "step"]
+        assert kernels.LAUNCHES["adamw"] == 4
+        assert kernels.LAUNCHES["flash_bwd_dq"] == 2 * 4 * micro
+        assert len(losses[cuda]) == len(losses["cpu"])
+        for a, r in zip(losses[cuda], losses["cpu"]):
+            assert abs(a - r) <= 1e-4 * (1 + abs(r))
+
+
+def test_image_accum_and_loss_scale_on_the_card(cuda, tmp_path):
+    """ResNet-18 with 2-way accumulation and a 2^15 loss scale: 4 steps on
+    the card and the CPU from the same weights (losses within 1e-4 * (1 +
+    |loss|), as the plain image test), one sgd launch per step."""
+    import json
+
+    from tpu_dist_torch.configs import TrainConfig
+    from tpu_dist_torch.engine.loop import Trainer
+    from tpu_dist_torch.interop import export_flax_image_params
+    from tpu_dist_torch.models.resnet import ResNet18
+
+    torch.backends.cudnn.allow_tf32 = False
+    init, stats = export_flax_image_params(ResNet18(device="cpu", seed=3))
+    losses = {}
+    for dev in ("cpu", cuda):
+        path = str(tmp_path / f"{dev}.jsonl")
+        cfg = TrainConfig(arch="resnet18", batch_size=16, epochs=1,
+                          synth_train_size=64, synth_val_size=32,
+                          precision="fp32", optimizer="fused_sgd", seed=0,
+                          print_freq=1, workers=1, log_csv="",
+                          grad_accum_steps=2, loss_scale=2.0 ** 15,
+                          data=str(tmp_path / "no-data"),
+                          checkpoint_dir="", ledger_path=path)
+        kernels.reset_launches()
+        tr = Trainer(cfg, device=dev, init_params=init,
+                     init_batch_stats=stats)
+        tr.fit()
+        with open(path) as f:
+            losses[dev] = [r["loss"] for r in map(json.loads, f)
+                           if r["event"] == "step"]
+    assert kernels.LAUNCHES["sgd"] == 4
+    assert int(tr.state.loss_scale.good_steps) == 4
+    for a, r in zip(losses[cuda], losses["cpu"]):
+        assert abs(a - r) <= 1e-4 * (1 + abs(r))

@@ -57,7 +57,7 @@ def test_importing_every_module_pulls_in_no_jax():
             "tpu_dist_torch.models.resnet", "tpu_dist_torch.models.lenet",
             "tpu_dist_torch.models.registry", "tpu_dist_torch.data.datasets",
             "tpu_dist_torch.data.loader", "tpu_dist_torch.data.pipeline",
-            "tpu_dist_torch.ops.pallas_sgd",
+            "tpu_dist_torch.ops.pallas_sgd", "tpu_dist_torch.ops.fused_xent",
             "tpu_dist_torch.scripts.image_train",
             "tpu_dist_torch.tools.profile_image",
             "tpu_dist_torch.ops.pallas_quant",

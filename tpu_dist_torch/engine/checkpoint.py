@@ -18,11 +18,18 @@ What follows the reference:
   serialization and the write in a thread (one writer per directory;
   :func:`wait_for_async_save` joins it and re-raises its error).
 
+* the warm start (``:358-398``): :func:`load_warmstart` reads a
+  checkpoint's params and BN stats by leaf name without a template, and
+  :func:`graft_params` overlays the leaves whose name and shape match onto
+  a fresh model (cast to this run's storage dtype); the run starts a fresh
+  optimizer at step 0.
+
 What differs: the blob is ``torch.save`` of the host state (the card has
 no msgpack), so the port neither reads nor writes the reference's
-``.msgpack`` files; the state is restored in place into the live
+``.msgpack`` files, and a warm start's donor is one of the port's own
+``.pt`` checkpoints; the state is restored in place into the live
 ``TrainState``'s tensors. ``peer_restore_state`` (``TPU_DIST_PEER_RESUME``)
-and the warm start (``load_warmstart``) are not ported.
+is not ported.
 """
 
 from __future__ import annotations
@@ -57,9 +64,13 @@ def host_state(state) -> dict:
     opt = {}
     for name, v in zip(state.opt_state._fields, state.opt_state):
         opt[name] = cpu(v) if torch.is_tensor(v) else [cpu(t) for t in v]
+    ls = state.loss_scale
     return {"step": int(state.step),
             "params": [cpu(p) for p in state.params],
             "batch_stats": [cpu(b) for b in state.batch_stats],
+            "param_names": list(state.param_names),
+            "stat_names": list(state.stat_names),
+            "loss_scale": None if ls is None else [cpu(t) for t in ls],
             "opt_state": opt}
 
 
@@ -260,6 +271,14 @@ def _restore_into(state, host: dict) -> None:
                          "(a different --optimizer?)")
     groups = [("params", state.params, host["params"]),
               ("batch_stats", state.batch_stats, host["batch_stats"])]
+    ls = host.get("loss_scale")
+    if (ls is None) != (state.loss_scale is None):
+        raise ValueError(f"loss scale {'in' if ls is not None else 'not in'}"
+                         " the checkpoint, "
+                         f"{'on' if state.loss_scale is not None else 'off'}"
+                         " in the run")
+    if ls is not None:
+        groups.append(("loss_scale", list(state.loss_scale), ls))
     for name, v in zip(fields, state.opt_state):
         src = host["opt_state"][name]
         groups.append((f"opt_state.{name}", [v] if torch.is_tensor(v) else v,
@@ -277,6 +296,43 @@ def _restore_into(state, host: dict) -> None:
             for d, s in zip(dst, src):
                 d.copy_(s.to(device=d.device, dtype=d.dtype))
     state.step = int(host["step"])
+
+
+def load_warmstart(path: str) -> Tuple[Dict, Dict, Dict]:
+    """(params, batch_stats, meta) of a checkpoint, without a template:
+    ``{leaf name: CPU tensor}`` for each. It carries no optimizer state: a
+    warm start begins a fresh trajectory, unlike ``--resume``."""
+    with open(path, "rb") as f:
+        raw = f.read()
+    meta, blob = _split_container(raw)
+    bad = _integrity_error(meta, blob)
+    if bad:
+        raise CheckpointCorruptError(f"checkpoint {path!r} is corrupt: {bad}")
+    host = torch.load(io.BytesIO(bytes(blob)), map_location="cpu",
+                      weights_only=True)
+    if "param_names" not in host:
+        raise ValueError(f"checkpoint {path!r} carries no leaf names; a warm "
+                         "start needs a checkpoint of this version")
+    return (dict(zip(host["param_names"], host["params"])),
+            dict(zip(host["stat_names"], host["batch_stats"])), meta)
+
+
+@torch.no_grad()
+def graft_params(named: List[Tuple[str, torch.Tensor]],
+                 loaded: Dict[str, torch.Tensor]) -> Tuple[int, List[str]]:
+    """Copy each ``loaded`` leaf into the live tensor of the same name in
+    ``named`` (``model.named_parameters()`` or ``named_buffers()``) where
+    the shapes match, cast to the live tensor's dtype; the others keep
+    their fresh values. Returns (leaves copied, names skipped)."""
+    n, skipped = 0, []
+    for name, t in named:
+        src = loaded.get(name)
+        if src is not None and tuple(src.shape) == tuple(t.shape):
+            t.copy_(src.to(device=t.device, dtype=t.dtype))
+            n += 1
+        else:
+            skipped.append(name)
+    return n, skipped
 
 
 def _load_one(path: str, state) -> Dict:

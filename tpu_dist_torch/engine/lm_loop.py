@@ -3,30 +3,47 @@ training loop, data-parallel on one device.
 
 What follows the reference (line numbers are ``lm_loop.py``'s):
 
-* ``__init__`` (``:55-206``): the corpus (``data.tokens``), the model
-  (``_build_model :469-505``, ``attn`` full | flash), the LR schedule and
-  the optimizer (``sgd`` | ``adamw`` | ``fused_adamw``, the last through
-  the AdamW kernel with its clip slot), the dp step (``:581-588``);
+* ``__init__`` (``:55-400``): the corpus (``data.tokens``), the model
+  (``_build_model :469-505``, ``attn`` full | blockwise | flash), the
+  ``pretrained`` warm start (``:133-165``: the leaves of a port checkpoint
+  whose name and shape match, over a fresh optimizer at step 0), the LR
+  schedule and the optimizer (``sgd`` | ``adamw`` | ``fused_adamw``, the
+  last through the AdamW kernel with its clip slot), gradient accumulation
+  (``grad_accum_steps``, ``:216-234``, with the reference's exclusions),
+  the K-steps-per-dispatch window over device-resident rows
+  (``steps_per_dispatch``, ``data_placement``, ``:209-303``: ``auto``
+  puts the (N, L+1) row matrices on the device when they fit and K > 1),
+  the run geometry stamped into checkpoints and ``--resume`` with the
+  geometry checks and the step-exact mid-epoch skip (``:305-349``);
 * ``train_epoch`` (``:737``) on the host data path: ``DistributedSampler``
   rows (the reference's order, step for step), one step per batch, and
   one fetch of the metric sums per print window (``_drain``), which feeds
   the ``MeterBank`` line, the ledger's ``step`` events and the health
-  sentry;
+  sentry; ``_train_epoch_windowed`` (``:872``): per step a (B, L+1) row
+  gather by a device index window, shifted on the device, K steps
+  enqueued back to back (:meth:`LMTrainer.window_step`), one ``step``
+  record per window. The math is that of K single steps;
 * ``validate`` (``:1038``): exact under sampler padding; ``fit``
-  (``:1123``) with ``max_steps``; ledger ``run_start`` / ``step`` /
-  ``eval`` / ``epoch`` / ``run_end`` events through the port's
-  ``obs/ledger.py``.
+  (``:1123``) with ``max_steps``, a checkpoint at each epoch end
+  (``:1228-1238``; async, keep-K) and a mid-epoch checkpoint on
+  ``KeyboardInterrupt`` (``:1164-1182``); ledger ``run_start`` / ``step``
+  / ``eval`` / ``epoch`` / ``ckpt`` / ``run_end`` events through the
+  port's ``obs/ledger.py``.
 
-It runs on CUDA unless ``device="cpu"`` is asked for, and takes an
-optional flax-layout initial param tree (``init_params``) so a run can
-start from the reference trainer's initial weights. Knobs not ported yet
-raise ``NotImplementedError`` naming the knob (:data:`UNPORTED`).
+``loss_chunk > 0`` trains and evaluates through the chunked head
+(``ops.fused_xent``). It runs on CUDA unless ``device="cpu"`` is asked
+for, and takes an optional flax-layout initial param tree
+(``init_params``) so a run can start from the reference trainer's
+initial weights. Knobs not ported yet raise ``NotImplementedError``
+naming the knob (:data:`UNPORTED`); the preemption snapshot on SIGTERM is
+one of the observers left out.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 import time
 from typing import Dict, Optional
 
@@ -37,9 +54,10 @@ from tpu_dist_torch.configs import LMConfig
 from tpu_dist_torch.data.sampler import DistributedSampler
 from tpu_dist_torch.data.tokens import load_token_dataset
 from tpu_dist_torch.device import peak_flops, resolve_device
+from tpu_dist_torch.engine import checkpoint as ckpt
 from tpu_dist_torch.engine.lm_steps import (LM_METRIC_KEYS, lm_eval_metrics,
                                             lm_train_step, make_lm_batches,
-                                            zeros_lm_metrics)
+                                            shift_rows, zeros_lm_metrics)
 from tpu_dist_torch.engine.state import TrainState
 from tpu_dist_torch.obs.health import (PROBE_KEYS, HealthSentry,
                                        validate_health)
@@ -55,10 +73,6 @@ from tpu_dist_torch.utils.meters import MeterBank
 UNPORTED = {
     "mesh_shape": (None, (1,)), "mesh_axes": (("data",),),
     "fsdp": (False,), "num_experts": (0,), "grad_bucket_mb": (0.0,),
-    "loss_chunk": (0,), "grad_accum_steps": (1,),
-    "steps_per_dispatch": (1,), "data_placement": ("auto", "host"),
-    "checkpoint_dir": ("",), "resume": ("",), "pretrained": ("",),
-    "attn": ("full", "flash"),
     "plan": ("", "none"), "audit": ("none",), "faults": ("",),
     "max_restarts": (0,), "metrics_port": (0,), "profile_dir": ("",),
     "telemetry_csv": ("",), "skew_every": (0,),
@@ -66,6 +80,13 @@ UNPORTED = {
 }
 # observers the reference turns on by default; named once in the start log
 UNPORTED_OBSERVERS = ("watchdog_factor", "goodput_every_s")
+ATTNS = ("full", "blockwise", "flash")
+# run-meta keys a resume must match before any state loads, and those a
+# mid-epoch resume must match as well
+HARD_GEOMETRY = ("vocab_size", "num_layers", "d_model", "num_heads",
+                 "seq_len", "num_experts", "pp_stages")
+SOFT_GEOMETRY = ("steps_per_epoch", "batch_size", "dataset_len")
+
 
 def refuse_unported(cfg: LMConfig) -> None:
     for knob, off in UNPORTED.items():
@@ -96,11 +117,40 @@ class LMTrainer:
     def __init__(self, cfg: LMConfig, *, device=None,
                  init_params: Optional[dict] = None):
         refuse_unported(cfg)
+        if cfg.resume and not os.path.exists(cfg.resume):
+            raise FileNotFoundError(
+                f"--resume checkpoint not found: {cfg.resume}")
+        if cfg.pretrained and not os.path.exists(cfg.pretrained):
+            raise FileNotFoundError(
+                f"--pretrained checkpoint not found: {cfg.pretrained}")
         if cfg.optimizer not in ("sgd", "adamw", "fused_adamw"):
             raise ValueError(f"unknown optimizer {cfg.optimizer!r} "
                              "(sgd|adamw|fused_adamw)")
+        if cfg.attn not in ATTNS:
+            raise ValueError(f"unknown attn {cfg.attn!r} "
+                             f"({'|'.join(ATTNS)})")
         validate_health(cfg.health)
         validate_quant(cfg.quant)
+        self.k = cfg.steps_per_dispatch
+        if self.k < 1:
+            raise ValueError("steps_per_dispatch must be >= 1")
+        if cfg.data_placement not in ("auto", "host", "device"):
+            raise ValueError(f"unknown data_placement {cfg.data_placement!r}")
+        self.accum = cfg.grad_accum_steps
+        if self.accum < 1:
+            raise ValueError("grad_accum_steps must be >= 1")
+        if self.accum > 1:
+            if self.k > 1:
+                raise ValueError("grad_accum_steps and steps_per_dispatch "
+                                 "> 1 are mutually exclusive")
+            if cfg.data_placement == "device":
+                raise ValueError("grad_accum_steps > 1 requires "
+                                 "data_placement='host'/'auto' (the indexed "
+                                 "window step has no microbatch loop)")
+            if cfg.batch_size % self.accum:
+                raise ValueError(
+                    f"global batch {cfg.batch_size} not divisible by "
+                    f"grad_accum_steps x data axis ({self.accum} x 1)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.policy = make_policy(cfg.precision)
@@ -123,6 +173,8 @@ class LMTrainer:
         if init_params is not None:
             from tpu_dist_torch.interop import load_flax_params
             load_flax_params(self.model, init_params)
+        if cfg.pretrained:
+            self._warm_start(cfg.pretrained)
         self.model.requires_grad_(True)
         self.steps_per_epoch = max(
             1, -(-len(self.train_ds) // cfg.batch_size))
@@ -145,7 +197,40 @@ class LMTrainer:
                                      grad_clip=cfg.grad_clip)
         self.state = TrainState.create(self.model, self.tx)
 
+        # ---- windows over device-resident rows (:209-303) ----
+        rows_bytes = ((len(self.train_ds) + len(self.val_ds))
+                      * (cfg.seq_len + 1) * 4)
+        fits = rows_bytes <= int(os.environ.get("TPU_DIST_DEVICE_DATA_MAX",
+                                                str(1 << 30)))
+        self.device_data = (cfg.data_placement == "device"
+                            or (cfg.data_placement == "auto" and fits
+                                and self.k > 1))
+        self._train_rows_dev = self._val_rows_dev = None
+        if self.device_data:
+            self._train_rows_dev = torch.from_numpy(
+                self.train_ds.rows_array()).to(self.device)
+            self._val_rows_dev = torch.from_numpy(
+                self.val_ds.rows_array()).to(self.device)
+        elif self.k > 1:
+            raise ValueError(
+                "steps_per_dispatch > 1 needs the device-resident row path "
+                "(corpus too large for TPU_DIST_DEVICE_DATA_MAX, or "
+                "data_placement='host')")
+
+        # ---- geometry meta / resume (:305-349) ----
+        self._run_meta = {
+            "vocab_size": self.vocab_size, "num_layers": cfg.num_layers,
+            "d_model": cfg.d_model, "num_heads": cfg.num_heads,
+            "seq_len": cfg.seq_len, "num_experts": cfg.num_experts,
+            "pp_stages": 0, "steps_per_epoch": self.steps_per_epoch,
+            "batch_size": cfg.batch_size, "dataset_len": len(self.train_ds),
+            "mode": self.mode}
+        self.start_epoch = 0
+        self._skip_batches = 0
         self.best_ppl = float("inf")
+        if cfg.resume:
+            self._resume(cfg.resume)
+        self._epoch_in_progress = self.start_epoch
         self.last_tok_s = 0.0
         self._warmed = False
         self._flops_per_step = None
@@ -155,15 +240,65 @@ class LMTrainer:
         self.health = HealthSentry(cfg.health, cfg.health_spike_z,
                                    ledger=self.ledger)
 
+    def _warm_start(self, path: str) -> None:
+        """Graft a port checkpoint's params onto the fresh model where name
+        and shape match (``:133-165``)."""
+        params, _, meta = ckpt.load_warmstart(path)
+        n_p, skipped = ckpt.graft_params(self.model.named_parameters(),
+                                         params)
+        if n_p == 0:
+            raise ValueError(
+                f"--pretrained {path} (arch {meta.get('arch', '?')!r}) "
+                "shares no tensors with this model -- wrong checkpoint?")
+        self.log(f"=> warm-started {n_p} param tensors from {path}"
+                 + (f"; fresh init kept for {skipped}" if skipped else ""))
+
+    def _resume(self, path: str) -> None:
+        """``--resume``: the hard geometry keys are checked on the header
+        before any state loads; the soft ones only bind a mid-epoch
+        checkpoint, whose step count gives the epoch and the batches to
+        skip."""
+        def detail(bad):
+            return ", ".join(f"{k}: checkpoint {a} vs run {b}"
+                             for k, (a, b) in bad.items())
+
+        pre = ckpt.read_checkpoint_meta(path)
+        bad = {k: (pre[k], self._run_meta[k]) for k in HARD_GEOMETRY
+               if k in pre and pre[k] != self._run_meta[k]}
+        if bad:
+            raise ValueError("--resume checkpoint has different model "
+                             f"geometry: {detail(bad)}")
+        _, meta = ckpt.load_checkpoint(path, self.state)
+        self.start_epoch = meta.get("epoch", 0)
+        self.best_ppl = meta.get("best_ppl", float("inf"))
+        if meta.get("mid_epoch"):
+            soft = {k: (meta[k], self._run_meta[k]) for k in SOFT_GEOMETRY
+                    if k in meta and meta[k] != self._run_meta[k]}
+            if soft:
+                raise ValueError("mid-epoch resume requires the checkpoint's "
+                                 f"data/batch geometry ({detail(soft)})")
+            self.start_epoch = self.state.step // self.steps_per_epoch
+            self._skip_batches = self.state.step % self.steps_per_epoch
+            if self._skip_batches:
+                self.log(f"=> mid-epoch checkpoint: resuming epoch "
+                         f"{self.start_epoch}, skipping "
+                         f"{self._skip_batches} already-applied batches")
+        self.log(f"=> resumed from {path} (epoch {self.start_epoch})")
+
     # ------------------------------------------------------------------
     def _build_model(self, seed):
         from tpu_dist_torch.models.transformer import (TransformerLM,
                                                        full_attention)
-        from tpu_dist_torch.ops.flash_attention import flash_attention_fn
+        from tpu_dist_torch.ops.flash_attention import (
+            blockwise_attention_fn, flash_attention_fn)
 
         cfg = self.cfg
-        attn_fn = (flash_attention_fn(block_k=cfg.attn_block)
-                   if cfg.attn == "flash" else full_attention)
+        if cfg.attn == "flash":
+            attn_fn = flash_attention_fn(block_k=cfg.attn_block)
+        elif cfg.attn == "blockwise":
+            attn_fn = blockwise_attention_fn(cfg.attn_block)
+        else:
+            attn_fn = full_attention
         return TransformerLM(
             vocab_size=self.vocab_size, num_layers=cfg.num_layers,
             d_model=cfg.d_model, num_heads=cfg.num_heads,
@@ -201,6 +336,11 @@ class LMTrainer:
         inputs, targets = make_lm_batches(ds.get_rows(idx))
         return self._to_device(inputs).long(), self._to_device(targets).long()
 
+    def _step(self, inputs, targets) -> Dict[str, torch.Tensor]:
+        cfg = self.cfg
+        return lm_train_step(self.model, self.tx, self.state, inputs,
+                             targets, cfg.health, cfg.loss_chunk, self.accum)
+
     def _step_flops(self) -> float:
         if self._flops_per_step is None:
             cfg = self.cfg
@@ -234,6 +374,7 @@ class LMTrainer:
         rows = torch.stack([torch.stack([m[k] for k in keys])
                             for m, _ in pending]).tolist()
         device_s = time.time() - t0
+        total_steps = sum(info["n_steps"] for _, info in pending) or 1
         mem = self._memory()
         for row, (_, info) in zip(rows, pending):
             m = dict(zip(keys, row))
@@ -242,58 +383,74 @@ class LMTrainer:
             if math.isfinite(loss) or self.health.policy != "skip":
                 meters.update("Loss", loss, int(cnt))
                 meters.update("Acc", m["correct1"] / cnt, int(cnt))
-            share = device_s / len(pending)
+            n = info["n_steps"]
+            share = device_s * n / total_steps
             wall = info["data_s"] + info["dispatch_s"] + share
             tok_s = info["n_items"] / max(wall, 1e-9)
             _, mfu = self._mfu(tok_s)
+            gn, un = m["grad_norm"] / n, m["update_norm"] / n
             self.ledger.emit(
                 "step", step=info["step"], loss=loss, throughput=tok_s,
                 unit="tok/s", data_s=info["data_s"],
                 dispatch_s=info["dispatch_s"], device_s=share, comm_s=None,
-                mfu=mfu, steps_in_dispatch=1, warm=info["warm"],
-                fused=self._fused_quant,
-                grad_norm=m["grad_norm"],
-                nonfinite_count=m["nonfinite_count"],
-                update_norm=m["update_norm"], **mem)
+                mfu=mfu, steps_in_dispatch=n, warm=info["warm"],
+                fused=self._fused_quant, grad_norm=gn,
+                nonfinite_count=m["nonfinite_count"], update_norm=un, **mem)
             self.health.observe(info["step"], loss,
                                 nonfinite=m["nonfinite_count"],
-                                grad_norm=m["grad_norm"],
-                                update_norm=m["update_norm"])
+                                grad_norm=gn, update_norm=un, n_steps=n)
         pending.clear()
 
     # ------------------------------------------------------------------
+    def _meters(self, epoch: int) -> MeterBank:
+        return MeterBank(self.steps_per_epoch,
+                         [("Time", "6.3f"), ("Data", "6.3f"),
+                          ("Loss", ".4e"), ("Acc", "6.3f")],
+                         prefix=f"Epoch: [{epoch}]")
+
+    def _warm_up(self, metrics, t_epoch: float, n: int):
+        """The run's first step or window carries the kernel builds and the
+        allocator's warm-up: one deliberate sync, so they stay out of
+        tok/s; returns (warm seconds, warm batches) of this epoch."""
+        if self._warmed:
+            return 0.0, 0
+        metrics["count"].item()
+        self._warmed = True
+        return time.time() - t_epoch, n
+
+    def _epoch_result(self, meters, batches, warm) -> Dict[str, float]:
+        snap = meters.snapshot()
+        return {"loss": snap["Loss"]["avg"], "acc": snap["Acc"]["avg"],
+                "batches": batches, "warmup_secs": warm[0],
+                "warmup_batches": warm[1]}
+
     def train_epoch(self, epoch: int) -> Dict[str, float]:
+        if self.device_data:
+            return self._train_epoch_windowed(epoch)
         cfg = self.cfg
         idx, _ = self._epoch_indices(self.train_ds, True, epoch)
         nb = len(idx)
-        meters = MeterBank(nb, [("Time", "6.3f"), ("Data", "6.3f"),
-                                ("Loss", ".4e"), ("Acc", "6.3f")],
-                           prefix=f"Epoch: [{epoch}]")
+        meters = self._meters(epoch)
+        skip, self._skip_batches = self._skip_batches, 0
         self.model.train()
         pending = []
-        warm_secs, warm_batches = 0.0, 0
-        i = -1
+        warm = (0.0, 0)
+        i = skip - 1
         tokens_per_batch = cfg.batch_size * cfg.seq_len
-        end = time.time()
-        for i in range(nb):
+        t_epoch = end = time.time()
+        for i in range(skip, nb):
             inputs, targets = self._batch(self.train_ds, idx[i])
             data_s = time.time() - end
             meters.update("Data", data_s)
             gstep = epoch * self.steps_per_epoch + i
             was_cold = not self._warmed
             t0 = time.time()
-            metrics = lm_train_step(self.model, self.tx, self.state, inputs,
-                                    targets, cfg.health)
+            metrics = self._step(inputs, targets)
             dispatch_s = time.time() - t0
-            if not self._warmed:
-                # the first step carries the kernel builds and the
-                # allocator's warm-up: one deliberate sync so warm_secs
-                # keeps them out of tok/s
-                metrics["count"].item()
-                self._warmed = True
-                warm_secs, warm_batches = time.time() - end, 1
+            if was_cold:
+                warm = self._warm_up(metrics, t_epoch, 1)
             pending.append((metrics, {
-                "step": gstep, "n_items": tokens_per_batch,
+                "step": gstep, "n_steps": 1, "n_items": tokens_per_batch,
                 "data_s": data_s, "dispatch_s": dispatch_s,
                 "warm": was_cold}))
             boundary = i % cfg.print_freq == 0 or i == nb - 1
@@ -307,10 +464,77 @@ class LMTrainer:
                 break
         if pending:  # a max_steps break can land between print boundaries
             self._drain(pending, meters)
-        snap = meters.snapshot()
-        return {"loss": snap["Loss"]["avg"], "acc": snap["Acc"]["avg"],
-                "batches": i + 1, "warmup_secs": warm_secs,
-                "warmup_batches": warm_batches}
+        return self._epoch_result(meters, i + 1 - skip, warm)
+
+    def _device_windows(self, epoch: int, skip: int):
+        """(n, idx (n, B) on the device) windows over the epoch's batches
+        after ``skip``, clipped to what is left of ``max_steps`` (a window
+        never overshoots it): one upload of the epoch's index array."""
+        batches, _ = self._epoch_indices(self.train_ds, True, epoch)
+        batches = batches[skip:]
+        if self.cfg.max_steps:
+            remaining = self.cfg.max_steps - (
+                epoch * self.steps_per_epoch + skip)
+            batches = batches[:max(remaining, 0)]
+        idx = self._to_device(batches)
+        return [(min(self.k, len(idx) - i), idx[i:i + self.k])
+                for i in range(0, len(idx), self.k)]
+
+    def window_step(self, idx_window) -> Dict[str, torch.Tensor]:
+        """K optimizer steps back to back, no host sync: step j gathers its
+        (B, L+1) rows from the resident matrix by ``idx_window[j]`` and
+        shifts them on the device. Returns the metric sums over the K
+        steps."""
+        sums = None
+        for j in range(len(idx_window)):
+            inputs, targets = shift_rows(
+                self._train_rows_dev.index_select(0, idx_window[j]))
+            m = self._step(inputs, targets)
+            sums = m if sums is None else {k: sums[k] + m[k] for k in m}
+        return sums
+
+    def _train_epoch_windowed(self, epoch: int) -> Dict[str, float]:
+        """K-steps-per-dispatch epoch over device-resident rows (``:872``):
+        the same math as the per-batch loop, one host round trip per print
+        window."""
+        cfg = self.cfg
+        nb = self.steps_per_epoch
+        meters = self._meters(epoch)
+        skip, self._skip_batches = self._skip_batches, 0
+        self.model.train()
+        pending = []
+        done, last_print = skip, skip - 1
+        warm = (0.0, 0)
+        tokens_per_batch = cfg.batch_size * cfg.seq_len
+        t_epoch = end = time.time()
+        for n, idx_window in self._device_windows(epoch, skip):
+            data_s = time.time() - end
+            meters.update("Data", data_s / n, n)
+            was_cold = not self._warmed
+            t0 = time.time()
+            sums = self.window_step(idx_window)
+            dispatch_s = time.time() - t0
+            if was_cold:
+                warm = self._warm_up(sums, t_epoch, n)
+            done += n
+            pending.append((sums, {
+                "step": epoch * self.steps_per_epoch + done - 1,
+                "n_steps": n, "n_items": n * tokens_per_batch,
+                "data_s": data_s, "dispatch_s": dispatch_s,
+                "warm": was_cold}))
+            boundary = (done - 1) - last_print >= cfg.print_freq or done == nb
+            if boundary:
+                self._drain(pending, meters)
+                last_print = done - 1
+            meters.update("Time", (time.time() - end) / n, n)
+            if boundary:
+                meters.display(done - 1)
+            end = time.time()
+            if self._step_cap_hit(epoch, done):
+                break
+        if pending:  # a max_steps break can land between print boundaries
+            self._drain(pending, meters)
+        return self._epoch_result(meters, done - skip, warm)
 
     def _step_cap_hit(self, epoch: int, batches_done: int) -> bool:
         cap = self.cfg.max_steps
@@ -324,10 +548,16 @@ class LMTrainer:
         idx, valid = self._epoch_indices(self.val_ds, False, epoch)
         self.model.eval()
         sums = zeros_lm_metrics(self.device)
-        for i in range(len(idx)):
-            inputs, targets = self._batch(self.val_ds, idx[i])
-            m = lm_eval_metrics(self.model, inputs, targets,
-                                self._to_device(valid[i]))
+        if self._val_rows_dev is not None:
+            idx_d, valid_d = self._to_device(idx), self._to_device(valid)
+            batches = (shift_rows(self._val_rows_dev.index_select(0, idx_d[i]))
+                       + (valid_d[i],) for i in range(len(idx)))
+        else:
+            batches = (self._batch(self.val_ds, idx[i])
+                       + (self._to_device(valid[i]),) for i in range(len(idx)))
+        for inputs, targets, v in batches:
+            m = lm_eval_metrics(self.model, inputs, targets, v,
+                                self.cfg.loss_chunk)
             for k in sums:
                 sums[k] = sums[k] + m[k]
         sums = dict(zip(LM_METRIC_KEYS, torch.stack(
@@ -353,9 +583,20 @@ class LMTrainer:
                          device=str(self.device))
         off = [f"{k}={getattr(cfg, k)}" for k in UNPORTED_OBSERVERS
                if getattr(cfg, k)]
-        if off:
-            self.log("note: observers not ported yet, off in this run: "
-                     + ", ".join(off))
+        self.log("note: observers not ported yet, off in this run: "
+                 + ", ".join(off + ["preemption snapshot (SIGTERM)"]))
+
+    def _save(self, epoch: int, is_best: bool, mid_epoch: bool = False,
+              async_write: bool = False) -> str:
+        """An ``lm`` checkpoint with the run's geometry and ``best_ppl``
+        in its meta (keep-K retention)."""
+        meta = {"best_ppl": self.best_ppl, **self._run_meta}
+        if mid_epoch:
+            meta["mid_epoch"] = True
+        return ckpt.save_checkpoint(
+            self.cfg.checkpoint_dir, self.state, epoch, 0.0, "lm", is_best,
+            extra_meta=meta, async_write=async_write,
+            keep=self.cfg.keep_checkpoints)
 
     def fit(self) -> float:
         """Train ``epochs`` (or ``max_steps``), validating after each
@@ -371,8 +612,15 @@ class LMTrainer:
             status = "ok"
         except KeyboardInterrupt:
             status = "interrupted"
+            if self.cfg.checkpoint_dir:
+                self._save(self._epoch_in_progress, False, mid_epoch=True)
+                self.log(f"interrupted -- checkpoint saved at epoch "
+                         f"{self._epoch_in_progress}; resume with --resume")
+            else:
+                self.log("interrupted -- no checkpoint_dir, nothing saved")
             raise
         finally:
+            ckpt.wait_for_async_save()   # never exit with a write in flight
             self.ledger.emit("run_end", steps=self.state.step,
                              seconds=round(time.time() - t_run, 6),
                              status=status, best_ppl=self.best_ppl)
@@ -381,7 +629,8 @@ class LMTrainer:
 
     def _fit_epochs(self) -> None:
         cfg = self.cfg
-        for epoch in range(cfg.epochs):
+        for epoch in range(self.start_epoch, cfg.epochs):
+            self._epoch_in_progress = epoch
             t0 = time.time()
             train = self.train_epoch(epoch)
             train_secs = time.time() - t0
@@ -396,6 +645,7 @@ class LMTrainer:
                      train["batches"] * tokens / max(train_secs, 1e-9))
             self.last_tok_s = tok_s
             tflops, mfu = self._mfu(tok_s)
+            is_best = ppl < self.best_ppl
             self.best_ppl = min(ppl, self.best_ppl)
             self.ledger.emit(
                 "epoch", epoch=epoch, start_ts=t0, seconds=epoch_secs,
@@ -403,6 +653,12 @@ class LMTrainer:
                 mfu=mfu, tflops=tflops,
                 hbm_bytes=self._memory()["hbm_peak_bytes"],
                 batches=train["batches"])
+            if cfg.checkpoint_dir:
+                t_ck = time.time()
+                self._save(epoch + 1, is_best, async_write=True)
+                self.ledger.emit("ckpt", epoch=epoch + 1,
+                                 path=cfg.checkpoint_dir, is_best=is_best,
+                                 seconds=round(time.time() - t_ck, 6))
             lr_now = self.lr_schedule(max(self.state.step - 1, 0))
             self.log(
                 f"Epoch {epoch} [{self.mode}]: "

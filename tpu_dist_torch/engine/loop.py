@@ -6,9 +6,15 @@ What follows the reference (line numbers are ``loop.py``'s):
 * ``__init__`` (``:54-448``): config validation, the datasets
   (``data.datasets``; the synthetic fallback when the files are absent),
   the model (``models.registry``, with the ResNet knobs ``norm``,
-  ``norm_dtype`` and ``stem``), the step-decay schedule, the optimizer
-  (``sgd`` | ``adamw`` | ``fused_sgd``, the last through the hand-written
-  SGD kernel), the K-steps-per-dispatch window and the data placement
+  ``norm_dtype`` and ``stem``), the ``pretrained`` warm start
+  (``:174-190``: the leaves of a port checkpoint whose name and shape
+  match, params and BN stats, over a fresh optimizer at step 0), the
+  step-decay schedule, the optimizer (``sgd`` | ``adamw`` | ``fused_sgd``,
+  the last through the hand-written SGD kernel), the fp16 ``loss_scale``
+  (``:204-206``), gradient accumulation (``grad_accum_steps``,
+  ``:218-245``: one optimizer call per step over equal microbatches, with
+  the reference's exclusions), the K-steps-per-dispatch window and the
+  data placement
   (``:266-336``: ``auto`` puts the uint8 train and val sets on the device
   when they fit and K > 1), the run geometry stamped into checkpoints, and
   ``--resume`` with step-exact mid-epoch resume (``:356-409``);
@@ -68,7 +74,7 @@ from tpu_dist_torch.obs.health import (PROBE_KEYS, HealthSentry,
 from tpu_dist_torch.obs.ledger import EpochCsvSink, Ledger
 from tpu_dist_torch.ops.optim import make_optimizer, step_decay_schedule
 from tpu_dist_torch.ops.pallas_sgd import FusedSGD
-from tpu_dist_torch.ops.precision import make_policy
+from tpu_dist_torch.ops.precision import LossScaleState, make_policy
 from tpu_dist_torch.utils.meters import MeterBank
 
 # knob -> its accepted values. Anything else raises NotImplementedError
@@ -78,7 +84,6 @@ UNPORTED = {
     "mesh_axes": (("data",),), "grad_compression": ("none",),
     "adasum": (False,), "gradient_predivide_factor": (1.0,),
     "grad_bucket_mb": (0.0,), "tp_impl": ("gspmd",), "quant": ("none",),
-    "grad_accum_steps": (1,), "pretrained": ("",), "loss_scale": (None,),
     "plan": ("", "none"), "audit": ("none",), "faults": ("",),
     "max_restarts": (0,), "metrics_port": (0,), "profile_dir": ("",),
     "telemetry_csv": ("",), "skew_every": (0,),
@@ -144,6 +149,9 @@ class Trainer:
         refuse_unported(cfg)
         if cfg.resume and not os.path.exists(cfg.resume):
             raise FileNotFoundError(f"--resume checkpoint not found: {cfg.resume}")
+        if cfg.pretrained and not os.path.exists(cfg.pretrained):
+            raise FileNotFoundError(
+                f"--pretrained checkpoint not found: {cfg.pretrained}")
         if cfg.optimizer not in ("sgd", "fused_sgd", "adamw"):
             raise ValueError(f"unknown optimizer {cfg.optimizer!r} "
                              "(sgd|fused_sgd|adamw)")
@@ -157,6 +165,19 @@ class Trainer:
             raise ValueError("steps_per_dispatch must be >= 1")
         if cfg.data_placement not in ("auto", "host", "device"):
             raise ValueError(f"unknown data_placement {cfg.data_placement!r}")
+        self.accum = cfg.grad_accum_steps
+        if self.accum < 1:
+            raise ValueError("grad_accum_steps must be >= 1")
+        if self.accum > 1 and self.k > 1:
+            raise ValueError("grad_accum_steps and steps_per_dispatch > 1 "
+                             "are mutually exclusive")
+        if self.accum > 1 and cfg.batch_size % self.accum:
+            raise ValueError(
+                f"global batch {cfg.batch_size} not divisible by "
+                f"grad_accum_steps x device count ({self.accum} x 1)")
+        if self.accum > 1 and cfg.data_placement == "device":
+            raise ValueError("grad_accum_steps > 1 requires "
+                             "data_placement='host' or 'auto'")
         model_kw = {}
         if cfg.norm:
             model_kw["norm"] = cfg.norm
@@ -196,6 +217,8 @@ class Trainer:
             from tpu_dist_torch.interop import load_flax_image_params
             load_flax_image_params(self.model, init_params, init_batch_stats)
         self.policy.cast_params_for_storage(self.model)
+        if cfg.pretrained:
+            self._warm_start(cfg.pretrained)
         self.model.requires_grad_(True)
         # ceil: the sampler pads to full batches
         self.steps_per_epoch = max(1, -(-len(self.train_ds) // cfg.batch_size))
@@ -210,7 +233,10 @@ class Trainer:
                 cfg.lr_step_epochs, schedule=self.schedule,
                 kind=cfg.optimizer, b1=cfg.adam_b1, b2=cfg.adam_b2,
                 eps=cfg.adam_eps)
-        self.state = TrainState.create(self.model, self.tx)
+        self.state = TrainState.create(
+            self.model, self.tx,
+            LossScaleState.create(cfg.loss_scale, self.device)
+            if cfg.loss_scale else None)
         self.augment = self.train_ds.name.startswith(("imagenet",
                                                       "synth-imagenet"))
         cdt = self.policy.compute_dtype
@@ -262,6 +288,22 @@ class Trainer:
         """(uint8 images, int64 labels) of ``ds`` on the device."""
         return (torch.from_numpy(ds.images).to(self.device),
                 torch.from_numpy(ds.labels.astype(np.int64)).to(self.device))
+
+    def _warm_start(self, path: str) -> None:
+        """Graft a port checkpoint's params and BN stats onto the fresh
+        model where name and shape match (``:174-190``)."""
+        params, stats, meta = ckpt.load_warmstart(path)
+        n_p, skipped = ckpt.graft_params(self.model.named_parameters(),
+                                         params)
+        n_s, _ = ckpt.graft_params(self.model.named_buffers(), stats)
+        if n_p == 0:
+            raise ValueError(
+                f"--pretrained {path} (arch {meta.get('arch', '?')!r}) "
+                f"shares no tensors with {self.cfg.arch!r} -- wrong "
+                "checkpoint?")
+        self.log(f"=> warm-started {n_p} param tensors (+{n_s} BN stats) "
+                 f"from {path}"
+                 + (f"; fresh init kept for {skipped}" if skipped else ""))
 
     def _resume(self, path: str) -> None:
         """``--resume`` (``:356-409``): geometry checks on the header, the
@@ -347,7 +389,7 @@ class Trainer:
     def _step(self, images, labels, gstep: int) -> Dict[str, torch.Tensor]:
         return image_train_step(self.model, self.tx, self.state, images,
                                 labels, self.transform, self.cfg.health,
-                                self._gen(gstep))
+                                self._gen(gstep), self.accum)
 
     def _flops(self) -> float:
         if self._flops_per_image is None:

@@ -71,17 +71,22 @@ def create_model(arch: str, num_classes: int = 10, dtype=torch.float32,
                  pretrained=False, image_shape=(32, 32, 3), **kwargs):
     """Build ``arch``: image models on ``image_shape`` input with
     ``num_classes`` outputs; LM archs take ``TransformerLM``'s keyword
-    arguments. ``pretrained`` weights are not ported (the reference
-    warm-starts from a local checkpoint)."""
+    arguments. This factory builds architecture only: the trainers graft
+    a ``pretrained`` checkpoint onto the fresh model (``engine.checkpoint``
+    ``load_warmstart`` and ``graft_params``), so a caller passing one here
+    is refused rather than handed fresh weights."""
     kind = model_kind(arch)
     if arch in _UNPORTED:
         raise NotImplementedError(
             f"arch {arch!r} is not ported yet: its model is "
             f"{_UNPORTED[arch]} in the JAX package")
     if pretrained:
-        raise NotImplementedError(
-            "pretrained is not ported yet: the reference warm-starts from a "
-            "local checkpoint (engine.checkpoint.load_warmstart)")
+        raise ValueError(
+            f"create_model does not load weights (pretrained={pretrained!r}):"
+            " Trainer and LMTrainer graft a local checkpoint of the port "
+            "(--pretrained PATH, e.g. an {arch}-model_best.pt) onto the "
+            "init; elsewhere use engine.checkpoint.load_warmstart + "
+            "graft_params. Downloaded weights are not fetched.")
     if kind == "lm":
         from tpu_dist_torch.models.transformer import TransformerLM, tiny_lm
         ctor = tiny_lm if arch == "tiny_lm" else TransformerLM

@@ -10,8 +10,9 @@ Numerics follow the flax model the reference trains and serves:
   so :mod:`tpu_dist_torch.interop` loads a flax tree without transposes.
 
 ``attn_fn`` is pluggable exactly as in the reference: :func:`full_attention`
-(plain PyTorch) or ``ops.flash_attention.flash_attention_fn()`` (the flash
-kernels). The model serves through three caches: none (``forward`` over
+(plain PyTorch), ``ops.flash_attention.blockwise_attention_fn()`` (plain
+PyTorch over KV blocks) or ``ops.flash_attention.flash_attention_fn()``
+(the flash kernels). The model serves through three caches: none (``forward`` over
 whole sequences), a contiguous per-block cache (``engine.generate``), and
 an external paged pool (``engine.serve``; ``paged=`` makes ``forward``
 return ``(logits, layers)``).

@@ -20,6 +20,12 @@ a CUDA tensor a kernel does not take raises.
   ``csrc/flash_bwd_dkv.cu`` (``_fa_bwd_dkv_kernel``), beside
   :func:`flash_backward_plain`.
 
+:func:`blockwise_attention_fn` is the reference's plain blockwise
+attention (``:41-104``): a loop over KV blocks with an fp32 online softmax
+in plain PyTorch, differentiated by autograd through the loop. The
+reference's is ``lax.scan`` and ``jnp.einsum`` with no Pallas kernel
+behind it, so there is no kernel to port; it launches none.
+
 A call that autograd would not differentiate (serving runs under
 ``torch.inference_mode()``) skips the Function and saves nothing.
 
@@ -60,6 +66,55 @@ def masked_softmax_pv(s, v):
     p = torch.where(s <= NEG_INF / 2, 0.0, torch.exp(s - m))
     l = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
     return (p @ v) / l, m, l
+
+
+@functools.lru_cache(maxsize=None)
+def blockwise_attention_fn(block_size: int = 512):
+    """Returns ``attn(q, k, v, *, causal=True, q_offset=0, kv_offset=0)``
+    over (B, L, H, D) tensors: the KV axis in blocks of ``block_size``
+    with a running (max, sum, acc) online softmax in fp32, q scaled first.
+    The block fits as the flash kernels' does: clamped to the kv length,
+    then the gcd with it where it does not divide. Masked scores get
+    exactly zero probability, so a row that sees no key gives zeros (also
+    under q/kv offsets). Memoized per config, as the reference's is."""
+
+    def attn(q, k, v, *, causal: bool = True, q_offset=0, kv_offset=0):
+        b, lq, h, d = q.shape
+        lk = k.shape[1]
+        blk = min(block_size, lk)
+        if lk % blk:
+            blk = math.gcd(blk, lk)
+        if blk < 1:
+            raise ValueError(f"kv length {lk} has no usable block "
+                             f"<= {block_size}")
+        qh = q.transpose(1, 2).float() * (1.0 / math.sqrt(d))
+        kh = k.transpose(1, 2)
+        vh = v.transpose(1, 2)
+        q_pos = q_offset + torch.arange(lq, device=q.device)
+        acc = torch.zeros((b, h, lq, d), dtype=torch.float32,
+                          device=q.device)
+        m = torch.full((b, h, lq), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros((b, h, lq), dtype=torch.float32, device=q.device)
+        for i in range(lk // blk):
+            kb = kh[:, :, i * blk:(i + 1) * blk].float()
+            vb = vh[:, :, i * blk:(i + 1) * blk].float()
+            s = qh @ kb.transpose(-1, -2)
+            if causal:
+                k_pos = kv_offset + i * blk + torch.arange(blk,
+                                                           device=q.device)
+                s = torch.where(k_pos[None, :] <= q_pos[:, None], s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.where(s <= NEG_INF / 2, 0.0,
+                            torch.exp(s - m_new[..., None]))
+            l = l * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + p @ vb
+            m = m_new
+        out = acc / torch.clamp(l, min=1e-30)[..., None]
+        return out.transpose(1, 2).to(v.dtype)
+
+    return attn
 
 
 def flash_forward_plain(q, k, v, causal: bool = True, q_offset: int = 0,

@@ -4,8 +4,10 @@
     python -m tpu_dist_torch.scripts.lm_longcontext --attn flash \\
         --optimizer fused_adamw --precision bf16 --steps 20
 
-Every ``LMConfig`` field is a ``--flag``; ``--mesh`` (only ``data=1`` runs
-in the port yet), ``--steps`` (alias of ``--max-steps``), ``--generate N``
+Every ``LMConfig`` field is a ``--flag`` (``--checkpoint-dir``/``--resume``,
+``--pretrained``, ``--steps-per-dispatch``/``--data-placement``,
+``--grad-accum-steps``, ``--loss-chunk`` and ``--attn blockwise`` among
+them); ``--mesh`` (only ``data=1`` runs in the port yet), ``--steps`` (alias of ``--max-steps``), ``--generate N``
 (greedy-decode N tokens afterwards with ``engine.generate`` and report how
 many follow the synthetic affine rule) and ``--serve N`` (stand up the
 port's ``ServeEngine`` on the trained model, chunked prefill, and serve one

@@ -1,14 +1,31 @@
-"""Serving throughput under load for the port: request-trace replay.
+"""Decode throughput for the port: the one-shot ``generate`` bench and the
+request-trace replay (the port of ``tools/decode_bench.py``).
 
-The port of ``tools/decode_bench.py --trace`` (the throughput-under-load
-benchmark): N requests with seeded Poisson arrivals (in scheduler-tick
-units) and mixed prompt/output lengths stream through the port's
-continuous-batching ``ServeEngine``, and the same trace replays through
-static batching (drain refill) at equal slot capacity. The last stdout
-line is one JSON object whose ``serving`` block has the reference's keys
-(requests/s and tokens/s on the wall clock, requests per tick, TTFT and
-per-output-token latency p50/p99, occupancy, ``accepted_per_tick``, the
-static baseline, with ``--prefix-tenants`` the cache-off baseline, and the
+One-shot mode (the default, ``--trace 0``; reference ``:475-501,
+677-796``): a (``--batch``, ``--prompt-len``) random prompt is continued
+by ``--steps`` tokens through ``engine.generate`` twice, with the KV cache
+(one batched prefill, then one-token ticks that attend over the cache)
+and by full recompute (the whole prefix re-run every tick;
+``--skip-full`` leaves it out), each the best of ``--trials`` after a
+warm call; then ``--requests`` sequential warm cached calls are timed as
+requests, with nearest-rank p50/p99 latency. A line on stderr says
+whether the two greedy outputs are identical (informational: with random
+weights the 32k-way logits have near-ties). The last stdout line is one
+JSON object with the reference's keys under the port's metric name
+``torch_lm_decode_tokens_per_sec``, and the device it ran on. Completion
+is forced with ``torch.cuda.synchronize()``. ``--attn flash`` runs the
+full recompute's attention through the flash kernel; the cached decode
+attends exactly over its cache in both packages.
+
+Trace mode (``--trace N > 0``, the throughput-under-load benchmark): N
+requests with seeded Poisson arrivals (in scheduler-tick units) and mixed
+prompt/output lengths stream through the port's continuous-batching
+``ServeEngine``, and the same trace replays through static batching
+(drain refill) at equal slot capacity. The last stdout line is one JSON
+object whose ``serving`` block has the reference's keys (requests/s and
+tokens/s on the wall clock, requests per tick, TTFT and per-output-token
+latency p50/p99, occupancy, ``accepted_per_tick``, the static baseline,
+with ``--prefix-tenants`` the cache-off baseline, and the
 ``tail_attribution`` block of the request observatory over the continuous
 replay's spans), plus the device it ran on. ``--waterfalls N`` prints the
 N slowest requests' span trees to stderr.
@@ -17,8 +34,11 @@ N slowest requests' span trees to stderr.
 --attn-read flash`` decodes through the int8-KV paged decode kernel,
 ``--serve-quant int8`` runs every dense layer through the fused int8
 kernel, ``--spec-k K`` decodes speculatively (self-speculation: the base
-drafts for itself). A warm replay (discarded) runs first. Usage::
+drafts for itself). A warm replay (discarded) runs first. ``--tp``,
+``--dp``, ``--num-experts`` and ``--long-context`` are not ported yet and
+raise naming themselves. Usage::
 
+    python -m tpu_dist_torch.tools.decode_bench --attn flash   # one-shot
     python -m tpu_dist_torch.tools.decode_bench --trace 64 \\
         --kv-quant int8 --attn-read flash --attn flash \\
         --serve-quant int8 --spec-k 4 --waterfalls 2
@@ -194,6 +214,72 @@ def replay_serving_trace(args, model, ledger=None):
     return serving
 
 
+def one_shot(args, model, prompt, ledger=None) -> dict:
+    """The one-shot sections: cached decode against full recompute, and
+    the sequential requests. Returns the JSON fields they fill."""
+    import torch
+
+    from tpu_dist_torch.engine.generate import generate
+
+    def run(use_cache, led=None):
+        gen = (torch.Generator(device=model.device).manual_seed(args.seed)
+               if args.temperature > 0 else None)
+        t0 = time.perf_counter()
+        out = generate(model, prompt, args.steps,
+                       temperature=args.temperature, generator=gen,
+                       use_cache=use_cache, top_k=args.top_k,
+                       top_p=args.top_p, ledger=led)
+        if out.is_cuda:
+            torch.cuda.synchronize(out.device)
+        return out, time.perf_counter() - t0
+
+    def timed(use_cache):
+        # ticks: the cached path runs one batched prefill and steps - 1
+        # one-token ticks; the full path runs steps full forwards
+        run(use_cache)                                   # build + warm
+        best, out = float("inf"), None
+        for _ in range(args.trials):
+            out, secs = run(use_cache)
+            best = min(best, secs)
+        return args.batch * args.steps / best, best / args.steps * 1e3, out
+
+    total = args.prompt_len + args.steps
+    cache_rate, cache_ms, out_c = timed(True)
+    print(f"kv-cache decode: {cache_rate:,.0f} generated-tok/s incl. "
+          f"batched prefill ({cache_ms:.2f} ms/generated token, batch "
+          f"{args.batch}, {args.num_layers}L/d{args.d_model}, prompt "
+          f"{args.prompt_len}, total {total})", file=sys.stderr)
+    full_rate = None
+    if not args.skip_full:
+        full_rate, full_ms, out_f = timed(False)
+        print(f"full-recompute decode: {full_rate:,.0f} tok/s "
+              f"({full_ms:.2f} ms/token-tick)", file=sys.stderr)
+        if args.temperature == 0.0:
+            print(f"greedy outputs identical: "
+                  f"{bool(torch.equal(out_c, out_f))} (random-weight "
+                  "near-ties can break argmax differently between the two "
+                  "attention orders; informational)", file=sys.stderr)
+    latency = req_tok_s = None
+    lat = []
+    for _ in range(args.requests):
+        lat.append(run(True, ledger)[1])
+    if lat:
+        latency = {"p50_ms": _pctl_ms(lat, 50), "p99_ms": _pctl_ms(lat, 99)}
+        req_tok_s = round(args.batch * args.steps * len(lat) / sum(lat), 1)
+        print(f"requests: {len(lat)} sequential kv-cache calls, "
+              f"{req_tok_s:,.0f} tok/s; latency p50 {latency['p50_ms']:.1f}"
+              f"ms / p99 {latency['p99_ms']:.1f}ms", file=sys.stderr)
+    return {"kv_cache": round(cache_rate, 1),
+            "full_recompute": (round(full_rate, 1)
+                               if full_rate is not None else None),
+            "latency_ms": latency, "request_tokens_per_sec": req_tok_s,
+            "request_seconds": sum(lat)}
+
+
+# flags of the reference bench that wait for a later slice of the port
+UNPORTED_FLAGS = {"tp": 0, "dp": 0, "num_experts": 0, "long_context": ""}
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--device", default="cuda",
@@ -215,8 +301,25 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--top-k", type=int, default=0)
     ap.add_argument("--top-p", type=float, default=0.0)
-    ap.add_argument("--trace", type=int, default=64,
-                    help="requests in the replayed trace")
+    ap.add_argument("--batch", type=int, default=8,
+                    help="one-shot: prompts decoded together")
+    ap.add_argument("--prompt-len", type=int, default=128)
+    ap.add_argument("--steps", type=int, default=384,
+                    help="one-shot: tokens generated per prompt")
+    ap.add_argument("--trials", type=int, default=3,
+                    help="one-shot: timed calls per path (best kept)")
+    ap.add_argument("--skip-full", action="store_true",
+                    help="one-shot: skip the full-recompute reference")
+    ap.add_argument("--requests", type=int, default=8,
+                    help="one-shot: sequential warm kv-cache calls timed "
+                         "as requests for the latency percentiles (0 = "
+                         "skip)")
+    for flag, off in UNPORTED_FLAGS.items():
+        ap.add_argument("--" + flag.replace("_", "-"), type=type(off),
+                        default=off, help="not ported yet (raises)")
+    ap.add_argument("--trace", type=int, default=0,
+                    help="requests in the replayed trace (0 = the one-shot "
+                         "bench)")
     ap.add_argument("--trace-seed", type=int, default=0)
     ap.add_argument("--arrival-rate", type=float, default=1.0,
                     help="mean request arrivals per decode tick (Poisson)")
@@ -239,7 +342,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--serve-quant", default="none",
                     choices=["none", "int8", "int8_wo"])
     ap.add_argument("--ledger", default="",
-                    help="JSONL ledger of the continuous replay")
+                    help="JSONL ledger: run_start, one 'decode' event per "
+                         "one-shot request, run_end; or the continuous "
+                         "replay's events")
     ap.add_argument("--waterfalls", type=int, default=0,
                     help="print the N slowest request span trees (stderr)")
     return ap
@@ -247,7 +352,13 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    for flag, off in UNPORTED_FLAGS.items():
+        if getattr(args, flag) != off:
+            raise NotImplementedError(
+                f"decode_bench --{flag.replace('_', '-')} is not ported yet: "
+                "the port decodes on one device with the dense model")
 
+    import numpy as np
     import torch
 
     from tpu_dist_torch.device import resolve_device
@@ -256,31 +367,57 @@ def main(argv=None):
     from tpu_dist_torch.ops.flash_attention import flash_attention_fn
 
     device = resolve_device(args.device)
-    max_len = (args.max_prompt + args.max_out
-               + (args.prefix_len if args.prefix_tenants else 0))
+    if args.trace:
+        max_len = (args.max_prompt + args.max_out
+                   + (args.prefix_len if args.prefix_tenants else 0))
+    else:
+        max_len = args.prompt_len + args.steps
     model = TransformerLM(
         vocab_size=args.vocab_size, num_layers=args.num_layers,
         d_model=args.d_model, num_heads=args.num_heads, max_len=max_len,
         dtype=torch.bfloat16 if args.precision == "bf16" else torch.float32,
         attn_fn=flash_attention_fn() if args.attn == "flash"
         else full_attention, device=device, seed=args.seed)
+    dev = ({"platform": "gpu", "kind": torch.cuda.get_device_name(device),
+            "count": torch.cuda.device_count()} if device.type == "cuda"
+           else {"platform": "cpu", "kind": "cpu", "count": 1})
     ledger = None
     if args.ledger:
         from tpu_dist_torch.obs.ledger import Ledger
         ledger = Ledger(args.ledger)
-    serving = replay_serving_trace(args, model, ledger=ledger)
+    head = {"device": dev, "layers": args.num_layers,
+            "d_model": args.d_model, "vocab": args.vocab_size,
+            "heads": args.num_heads, "precision": args.precision,
+            "temperature": args.temperature, "top_k": args.top_k,
+            "top_p": args.top_p}
+    if args.trace:
+        serving = replay_serving_trace(args, model, ledger=ledger)
+        if ledger is not None:
+            ledger.close()
+        print(json.dumps({"metric": "torch_lm_serving", **head,
+                          "serving": serving,
+                          "ledger": args.ledger or None}))
+        return
     if ledger is not None:
+        ledger.emit("run_start", kind="decode_bench", config=vars(args),
+                    mesh=None, devices=[dev["kind"]], process_count=1)
+    rng = np.random.default_rng(0)
+    prompt = rng.integers(0, args.vocab_size,
+                          (args.batch, args.prompt_len)).astype(np.int32)
+    res = one_shot(args, model, prompt, ledger)
+    if ledger is not None:
+        ledger.emit("run_end", steps=args.requests,
+                    seconds=round(res["request_seconds"], 3))
         ledger.close()
-    dev = ({"platform": "gpu", "kind": torch.cuda.get_device_name(device),
-            "count": torch.cuda.device_count()} if device.type == "cuda"
-           else {"platform": "cpu", "kind": "cpu", "count": 1})
     print(json.dumps({
-        "metric": "torch_lm_serving", "device": dev,
-        "layers": args.num_layers, "d_model": args.d_model,
-        "vocab": args.vocab_size, "heads": args.num_heads,
-        "precision": args.precision, "temperature": args.temperature,
-        "top_k": args.top_k, "top_p": args.top_p, "serving": serving,
-        "ledger": args.ledger or None}))
+        "metric": "torch_lm_decode_tokens_per_sec",
+        "kv_cache": res["kv_cache"], "full_recompute": res["full_recompute"],
+        "batch": args.batch, "prompt_len": args.prompt_len,
+        "steps": args.steps, **head, "attn": args.attn, "tp": args.tp,
+        "dp": args.dp, "num_experts": args.num_experts,
+        "requests": args.requests or None, "latency_ms": res["latency_ms"],
+        "request_tokens_per_sec": res["request_tokens_per_sec"],
+        "serving": None, "ledger": args.ledger or None}))
 
 
 if __name__ == "__main__":
