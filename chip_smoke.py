@@ -87,6 +87,22 @@ CUDA or without the repository beside it. Phases:
    phase 7's acc@1, and a 100-class model grafts every leaf but the
    classifier's two; (e) the decode bench's one-shot mode at the
    reference's defaults with the flash kernel in the full recompute.
+10. multi-process data parallelism, each rank a subprocess of this script
+   (``--dp-worker SPEC``) joining through ``parallel.launch.initialize``:
+   (a) one rank over nccl: phase 7's run under ``variant="jit"`` (window
+   losses within BF16_TOL of phase 7's; whether bit-equal is reported;
+   one ``sgd`` launch a step), then script 5's settings (``shard_map``,
+   bf16 compression, 25 MB buckets) for 8 host-fed steps, with img/s
+   beside phase 7's; (b) two ranks sharing the card over gloo with CUDA
+   tensors: a probe of the collectives (point to point is refused by the
+   port there, as gloo aborts on it) and a 25 MB bucket's sync time,
+   ResNet-50 2 x 512 under script 5's settings for 4 steps and phase 6's
+   LM 2 x 4 with 25 MB buckets for 4 steps (step 0 within BF16_TOL of
+   phase 6's; per rank one flash backward pair per layer and one
+   ``adamw`` launch a step); (c) phase 4's tiny trainers on those two
+   ranks against two gloo ranks on the CPU (``jit``, ``shard_map`` with
+   bf16 and predivide 2, Adasum, the LM with buckets), and the 2-rank
+   ``jit`` run against the 1-rank one. One card: no scaling is measured.
 
 The line before the last is the card's name and power limit; the one
 before it the ``{"kernels": [...]}`` record; the last line is
@@ -1671,6 +1687,418 @@ def decode_bench_one_shot(torch, kernels):
             "launches": launches}, launches
 
 
+# ---- phase 10: multi-process data parallelism ------------------------------
+
+DP_WORKER = "--dp-worker"
+# bf16 gradient compression, card vs CPU: an fp32 summation-order
+# difference that moves a gradient entry across a bf16 rounding boundary
+# flips it by one bf16 ulp (2^-8 of its magnitude), and that update
+# difference grows with every later step, by an amount that changes from
+# run to run with cuDNN's algorithm choice (on an H100, step 4 was 2e-4
+# apart in one call and 4.6e-3 in the next). Steps 0 and 1 (which see
+# only step 0's update) are held within LOSS_TOL (1 + |loss|); the later
+# steps' difference is reported
+BF16_COMPRESS_HELD_STEPS = 2
+# the tiny runs of phase 10c: phase 4's image and LM trainers, 2 x 8 and
+# 2 x 2 rows
+DP_TINY_IMAGE = dict(arch="resnet18", dataset="cifar10", batch_size=16,
+                     epochs=1, synth_train_size=80, synth_val_size=32,
+                     precision="fp32", optimizer="fused_sgd", seed=SEED,
+                     print_freq=1, workers=1, log_csv="")
+DP_TINY_LM = dict(batch_size=4, seq_len=96, d_model=128, num_layers=2,
+                  num_heads=1, vocab_size=64, synth_tokens=4000, seed=SEED,
+                  attn="flash", optimizer="fused_adamw", lr=3e-3,
+                  grad_clip=0.5, weight_decay=0.1, max_steps=5,
+                  print_freq=1, grad_bucket_mb=0.05)
+DP_TINY_RUNS = {"jit": {},
+                "shard_map_bf16_pre2": dict(variant="shard_map",
+                                            grad_compression="bf16",
+                                            gradient_predivide_factor=2.0),
+                "adasum": dict(variant="shard_map", adasum=True)}
+
+
+def dp_image_geometry(**kw):
+    """Phase 7's BENCH_GEOMETRY with ``kw`` (a TrainConfig's kwargs)."""
+    from tpu_dist_torch.scripts import image_train
+
+    return {**image_train.BENCH_GEOMETRY, **kw}
+
+
+def dp_job(torch, kernels, job, out, rank):
+    """One job of a phase-10 rank (module docstring): a trainer fit with the
+    kernel counts reset just before it, or a collective probe."""
+    from tpu_dist_torch.parallel import collectives as C
+    from tpu_dist_torch.parallel.mesh import make_mesh
+    from tpu_dist_torch.parallel.overlap import (bucketed_grad_sync,
+                                                 grad_buckets)
+
+    kind, device = job["kind"], job["device"]
+    if kind == "probe":
+        mesh = make_mesh(device=device)
+        res = {"backend": C.backend_of(mesh.group), "world": mesh.size}
+        x = torch.arange(8, dtype=torch.float32, device=mesh.device) + rank
+        want = (torch.arange(8.0) * mesh.size
+                + sum(range(mesh.size))).tolist()
+        # (name, the collective, whether its result is the sum over ranks)
+        for name, fn, is_sum in (
+                ("all_reduce fp32", lambda: C.psum(x, mesh.group), True),
+                ("all_reduce bf16", lambda: C.psum(x.bfloat16(), mesh.group),
+                 True),
+                ("reduce_scatter_tensor + all_gather_into_tensor fp32",
+                 lambda: bucketed_grad_sync([x], mean=False,
+                                            group=mesh.group)[0], True),
+                ("reduce_scatter_tensor + all_gather_into_tensor bf16",
+                 lambda: bucketed_grad_sync([x.bfloat16()], mean=False,
+                                            group=mesh.group)[0], True),
+                ("batch_isend_irecv (ring_allreduce)",
+                 lambda: C.ring_allreduce(x, mesh.group), True),
+                ("batch_isend_irecv (adasum_reduce)",
+                 lambda: C.adasum_reduce([x], mesh.group)[0], False)):
+            try:
+                got = fn().float().tolist()
+            except NotImplementedError as e:
+                res[name] = f"refused: {e}"
+                continue
+            if is_sum and got != want:
+                raise AssertionError(f"{name}: {got} != {want}")
+            res[name] = "ok"
+        C.barrier(mesh.device, mesh.group)
+        # one 25 MB bucket (fp32), synced alone: the comm_s of one bucket
+        g = [torch.ones(6_250_000, device=mesh.device)]
+        bucketed_grad_sync(g, group=mesh.group)
+        C.barrier(mesh.device, mesh.group)
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            bucketed_grad_sync(g, group=mesh.group)[0].sum().item()
+            times.append((time.perf_counter() - t0) * 1e3)
+        res["bucket_25mb_sync_ms"] = statistics.median(times)
+        return res
+    if device != "cpu":
+        free_device(torch)
+        torch.cuda.reset_peak_memory_stats()
+    cfg = dict(job["cfg"], ledger_path=os.path.join(out, f"{job['name']}"
+                                                    f".r{rank}.jsonl"))
+    init = None
+    if job.get("init"):
+        with open(job["init"], "rb") as f:
+            init = torch.load(f, weights_only=False)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        if kind == "image":
+            from tpu_dist_torch.configs import TrainConfig
+            from tpu_dist_torch.engine.loop import Trainer
+
+            cfg.setdefault("data", os.path.join(out, "no-data"))
+            cfg.setdefault("log_csv", "")
+            cfg.setdefault("checkpoint_dir",
+                           os.path.join(out, f"ck-{job['name']}"))
+            tr = Trainer(TrainConfig(**cfg), device=device,
+                         init_params=init and init[0],
+                         init_batch_stats=init and init[1])
+        else:
+            from tpu_dist_torch.configs import LMConfig
+            from tpu_dist_torch.engine.lm_loop import LMTrainer
+
+            tr = LMTrainer(LMConfig(**cfg), device=device, init_params=init)
+        best = tr.fit()
+    except NotImplementedError as e:
+        if job.get("refusal") and job["refusal"] in str(e):
+            return {"refused": str(e)}
+        raise
+    if device != "cpu":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    res = {"best": best, "step": tr.state.step, "world": tr.world,
+           "rank": tr.rank, "local_batch": tr.local_batch,
+           "launches": launches, "wall_s": wall,
+           "peak_mem_gb": (torch.cuda.max_memory_allocated() / 1e9
+                           if device != "cpu" else None)}
+    if rank == 0:
+        steps = ledger_steps(cfg["ledger_path"])
+        res["losses"] = [r["loss"] for r in steps]
+        res["comm_s"] = [r["comm_s"] for r in steps]
+    if kind == "image":
+        res["img_per_s"] = tr.last_img_s
+        payload = tr.state.params
+        if tr.cfg.grad_compression == "bf16":
+            payload = [p.to(torch.bfloat16) for p in payload]
+        res["buckets_25mb"] = len(grad_buckets(payload, 25e6))
+    else:
+        res["tokens_per_s"] = tr.last_tok_s
+        res["buckets"] = len(grad_buckets(tr.state.params,
+                                          tr.cfg.grad_bucket_mb * 1e6))
+    return res
+
+
+def dp_worker(spec_path):
+    """A phase-10 rank: join the group through ``launch.initialize``, run
+    the spec's jobs in order, write ``rank<r>.json``."""
+    import torch
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, here)
+    from tpu_dist_torch import kernels
+    from tpu_dist_torch.parallel import launch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(2)
+    with open(spec_path) as f:
+        spec = json.load(f)
+    info = launch.initialize(device=spec["device"], backend=spec["backend"])
+    results = {}
+    for job in spec["jobs"]:
+        results[job["name"]] = dp_job(torch, kernels,
+                                      dict(job, device=spec["device"]),
+                                      spec["out"], info.process_id)
+    with open(os.path.join(spec["out"], f"rank{info.process_id}.json"),
+              "w") as f:
+        json.dump(results, f)
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+    return 0
+
+
+class DpGroup:
+    """``world`` phase-10 ranks of this script, started at once on one
+    loopback port; :meth:`wait` joins them and returns each rank's
+    results, and kills them all if one fails or the time runs out."""
+
+    def __init__(self, name, world, device, backend, jobs, tmp):
+        import socket
+
+        self.name, self.world = name, world
+        self.out = os.path.join(tmp, name)
+        os.makedirs(self.out, exist_ok=True)
+        spec = os.path.join(self.out, "spec.json")
+        with open(spec, "w") as f:
+            json.dump({"device": device, "backend": backend, "jobs": jobs,
+                       "out": self.out}, f)
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        self.procs = []
+        for r in range(world):
+            env = dict(os.environ, TPU_DIST_COORDINATOR=f"127.0.0.1:{port}",
+                       TPU_DIST_NUM_PROCESSES=str(world),
+                       TPU_DIST_PROCESS_ID=str(r))
+            log = open(os.path.join(self.out, f"rank{r}.log"), "w")
+            self.procs.append((log, subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), DP_WORKER, spec],
+                env=env, stdout=log, stderr=subprocess.STDOUT)))
+
+    def kill(self):
+        for log, p in self.procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+
+    def wait(self, timeout_s):
+        deadline = time.monotonic() + timeout_s
+        try:
+            while any(p.poll() is None for _, p in self.procs):
+                failed = [p for _, p in self.procs if p.poll() not in
+                          (None, 0)]
+                if failed or time.monotonic() > deadline:
+                    break
+                time.sleep(0.2)
+        finally:
+            self.kill()
+        bad = [(r, p.returncode) for r, (_, p) in enumerate(self.procs)
+               if p.returncode != 0]
+        if bad:
+            tails = []
+            for r, rc in bad:
+                with open(os.path.join(self.out, f"rank{r}.log")) as f:
+                    tails.append(f"rank {r} rc={rc}:\n{f.read()[-3000:]}")
+            raise AssertionError(f"phase 10 {self.name}: "
+                                 + "\n".join(tails))
+        res = []
+        for r in range(self.world):
+            with open(os.path.join(self.out, f"rank{r}.json")) as f:
+                res.append(json.load(f))
+        return res
+
+
+def dp_close(tag, got, want, tol, steps=None):
+    """Per-step losses of two runs within ``tol`` (1 + |loss|), the first
+    ``steps`` of them (all by default); returns the largest difference."""
+    if len(got) != len(want) or not got:
+        raise AssertionError(f"{tag}: {len(got)} vs {len(want)} losses")
+    for i, (a, r) in enumerate(zip(got, want)):
+        if (steps is None or i < steps) and abs(a - r) > tol * (1 + abs(r)):
+            raise AssertionError(f"{tag} step {i}: {a} vs {r} (tol {tol} "
+                                 f"(1 + |loss|)): {got} vs {want}")
+    return max(abs(a - r) for a, r in zip(got, want))
+
+
+def dp_path(torch, kernels, training, image, tmp):
+    """Phase 10 (module docstring). ``training`` and ``image`` are phases
+    6 and 7's records. Returns (record, launches by run)."""
+    from tpu_dist_torch.interop import (export_flax_image_params,
+                                        export_flax_params)
+    from tpu_dist_torch.models.resnet import ResNet18
+    from tpu_dist_torch.models.transformer import TransformerLM
+
+    free_device(torch)
+    t0 = time.perf_counter()
+    # one set of initial weights for the tiny runs on the card and the CPU
+    inits = {}
+    for name, tree in (
+            ("image", (export_flax_image_params(
+                ResNet18(device="cpu", seed=SEED)))),
+            ("lm", export_flax_params(TransformerLM(
+                vocab_size=64, num_layers=2, d_model=128, num_heads=1,
+                max_len=96, device="cpu", seed=SEED)))):
+        inits[name] = os.path.join(tmp, f"{name}_init.pt")
+        torch.save(tree, inits[name])
+
+    def tiny(name, kind, **kw):
+        base = DP_TINY_IMAGE if kind == "image" else DP_TINY_LM
+        return {"name": name, "kind": kind, "init": inits[kind],
+                "cfg": {**base, **kw}}
+
+    # adasum exchanges point to point, which gloo refuses on CUDA tensors
+    tiny_2rank = [dict(tiny(n, "image", mesh_shape=[2], **kw),
+                       refusal="gloo")
+                  for n, kw in DP_TINY_RUNS.items()]
+    tiny_2rank.append(tiny("lm_buckets", "lm", mesh_shape=[2]))
+    steps7 = image["steps"]
+    # (a) world 1 over nccl: phase 7's run with variant="jit", script 5's
+    # settings for 8 steps, and the tiny jit run (the 2-rank runs' twin)
+    a = DpGroup("a", 1, "cuda", "nccl", [
+        {"name": "probe", "kind": "probe"},
+        {"name": "image_jit", "kind": "image",
+         "cfg": dp_image_geometry(variant="jit", mesh_shape=[1],
+                                  print_freq=16)},
+        {"name": "image_shard_map_bf16_buckets", "kind": "image",
+         "cfg": dp_image_geometry(variant="shard_map",
+                                  grad_compression="bf16",
+                                  grad_bucket_mb=25.0, steps_per_dispatch=1,
+                                  synth_train_size=8 * 1024,
+                                  synth_val_size=2048, print_freq=4)},
+        tiny("tiny_jit_world1", "image")], tmp)
+    res_a = a.wait(300)[0]
+    # (b) 2 ranks on the card over gloo, and (c) their CPU twins
+    b = DpGroup("b", 2, "cuda", "gloo", [
+        {"name": "probe", "kind": "probe"},
+        {"name": "image", "kind": "image",
+         "cfg": dp_image_geometry(variant="shard_map",
+                                  grad_compression="bf16",
+                                  grad_bucket_mb=25.0, steps_per_dispatch=1,
+                                  mesh_shape=[2], synth_train_size=4 * 1024,
+                                  synth_val_size=2048, print_freq=1)},
+        {"name": "lm", "kind": "lm",
+         "cfg": dict(dataclasses.asdict(full_lm_config(
+             max_steps=4, print_freq=1, grad_bucket_mb=25.0)),
+             mesh_shape=[2], mesh_axes=["data"])},
+        *tiny_2rank], tmp)
+    c = DpGroup("c", 2, "cpu", "gloo", [dict(j) for j in tiny_2rank], tmp)
+    try:
+        res_b = b.wait(300)
+    finally:
+        res_c = c.wait(120)
+    wall = time.perf_counter() - t0
+
+    # (a) checks
+    jit = res_a["image_jit"]
+    w7 = image["window_losses"]
+    jit_diff = dp_close("10a jit windows vs phase 7", jit["losses"], w7,
+                        BF16_TOL)
+    if jit["launches"]["sgd"] != steps7 or jit["step"] != steps7:
+        raise AssertionError(f"10a jit: {jit['step']} steps, "
+                             f"{jit['launches']['sgd']} sgd launches")
+    sm = res_a["image_shard_map_bf16_buckets"]
+    if sm["launches"]["sgd"] != 8 or len(sm["losses"]) != 8 or \
+            not all(map(math.isfinite, sm["losses"])):
+        raise AssertionError(f"10a shard_map: {sm}")
+    # (b) checks
+    for r, res in enumerate(res_b):
+        img, lm = res["image"], res["lm"]
+        if img["launches"]["sgd"] != 4 or img["local_batch"] != 512:
+            raise AssertionError(f"10b rank {r} image: {img}")
+        want = {"flash_bwd_dq": 8 * 4, "flash_bwd_dkv": 8 * 4, "adamw": 4}
+        if any(lm["launches"][k] != n for k, n in want.items()) or \
+                lm["local_batch"] != 4:
+            raise AssertionError(f"10b rank {r} lm: {lm['launches']}")
+    img2, lm2 = res_b[0]["image"], res_b[0]["lm"]
+    if len(img2["losses"]) != 4 or not all(map(math.isfinite,
+                                               img2["losses"])):
+        raise AssertionError(f"10b image losses {img2['losses']}")
+    l0 = training["losses"][0]
+    if len(lm2["losses"]) != 4 or not all(map(math.isfinite, lm2["losses"])) \
+            or abs(lm2["losses"][0] - l0) > BF16_TOL * (1 + abs(l0)):
+        raise AssertionError(f"10b lm losses {lm2['losses']} vs phase 6's "
+                             f"step 0 {l0}")
+    # (c) card against CPU, and the 2-rank jit against the 1-rank jit
+    small = {}
+    for name in (*DP_TINY_RUNS, "lm_buckets"):
+        card, cpu = res_b[0][name], res_c[0][name]
+        if name == "adasum":
+            if "refused" not in card or "losses" not in cpu:
+                raise AssertionError(f"10c adasum: card {card}, cpu {cpu}")
+            small[name] = {"card": card["refused"], "cpu": cpu["losses"]}
+            continue
+        held = (BF16_COMPRESS_HELD_STEPS if name.startswith("shard_map_bf16")
+                else None)
+        diff = dp_close(f"10c {name}", card["losses"], cpu["losses"],
+                        LOSS_TOL, steps=held)
+        small[name] = {"card": card["losses"], "cpu": cpu["losses"],
+                       "max_abs_diff": diff, "steps_held": held or "all"}
+    one = res_a["tiny_jit_world1"]["losses"]
+    small["jit_2rank_vs_1rank_card_max_abs_diff"] = dp_close(
+        "10c jit 2 ranks vs 1", res_b[0]["jit"]["losses"], one, LOSS_TOL)
+    record = {
+        "a_world1_nccl": {
+            "probe": res_a["probe"],
+            "image_jit": {"window_losses": jit["losses"],
+                          "phase7_window_losses": w7,
+                          "bit_equal_phase7": jit["losses"] == w7,
+                          "max_abs_diff": jit_diff,
+                          "img_per_s": jit["img_per_s"],
+                          "phase7_img_per_s":
+                              image["train_img_per_s_window1_excluded"],
+                          "sgd_launches": jit["launches"]["sgd"],
+                          "buckets_25mb_fp32": jit["buckets_25mb"]},
+            "image_shard_map_bf16_buckets": {
+                "losses": sm["losses"], "img_per_s": sm["img_per_s"],
+                "sgd_launches": sm["launches"]["sgd"],
+                "buckets_25mb_bf16": sm["buckets_25mb"],
+                "peak_mem_gb": sm["peak_mem_gb"]}},
+        "b_2rank_gloo_cuda": {
+            "probe": res_b[0]["probe"],
+            "image": {"losses": img2["losses"], "img_per_s":
+                      img2["img_per_s"], "step_ms": 1024 / img2["img_per_s"]
+                      * 1e3, "sgd_launches_per_rank":
+                      [r["image"]["launches"]["sgd"] for r in res_b],
+                      "buckets_25mb_bf16": img2["buckets_25mb"],
+                      "peak_mem_gb_per_rank":
+                      [r["image"]["peak_mem_gb"] for r in res_b]},
+            "lm": {"losses": lm2["losses"], "phase6_step0_loss": l0,
+                   "tokens_per_s": lm2["tokens_per_s"],
+                   "step_ms": 8 * 2048 / lm2["tokens_per_s"] * 1e3,
+                   "comm_s_per_step": lm2["comm_s"],
+                   "buckets": lm2["buckets"],
+                   "launches_per_rank": [
+                       {k: r["lm"]["launches"][k] for k in (
+                           "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                           "adamw")} for r in res_b],
+                   "peak_mem_gb_per_rank":
+                       [r["lm"]["peak_mem_gb"] for r in res_b]}},
+        "c_small_card_vs_cpu": small,
+        "wall_s": wall}
+    by_path = {"dp_image_jit_world1": jit["launches"],
+               "dp_image_shard_map_world1": sm["launches"],
+               "dp_image_2rank_rank0": img2["launches"],
+               "dp_lm_2rank_rank0": lm2["launches"]}
+    return record, by_path
+
+
 def main():
     import torch
 
@@ -1806,8 +2234,14 @@ def main():
     log(f"phase 9e decode bench one-shot: {json.dumps(bench)} on {card}")
     log(f"phase 9 took {time.perf_counter() - t0:.1f}s")
 
+    # 10. multi-process data parallelism
+    with tempfile.TemporaryDirectory() as tmp:
+        dp, dp_launches = dp_path(torch, kernels, training, image, tmp)
+    log(f"phase 10 data parallelism: {json.dumps(dp)} on {card}")
+
     # every main-path run's own counts, for a kernel that no single path owns
-    by_path = {"serving": serve_launches, "training": train_launches,
+    by_path = {**dp_launches,
+               "serving": serve_launches, "training": train_launches,
                "image_training": image_launches,
                "int8_serving": quant_launches, "spec_serving": spec_launches,
                "lm_windows_chunked": window_launches,
@@ -1816,7 +2250,8 @@ def main():
                "image_accum_loss_scale": img_knob_launches,
                "decode_bench_one_shot": bench_launches}
     knob_paths = ("lm_windows_chunked", "lm_accumulation", "lm_blockwise",
-                  "image_accum_loss_scale", "decode_bench_one_shot")
+                  "image_accum_loss_scale", "decode_bench_one_shot",
+                  *dp_launches)
     int8kv_by_path = {p: n["flash_fwd_int8kv"] for p, n in by_path.items()}
     entries = []
     for kname, rec, src, replaces, launches in (
@@ -1898,4 +2333,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == DP_WORKER:
+        sys.exit(dp_worker(sys.argv[2]))
     sys.exit(main())

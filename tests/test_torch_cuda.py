@@ -768,3 +768,87 @@ def test_image_accum_and_loss_scale_on_the_card(cuda, tmp_path):
     assert int(tr.state.loss_scale.good_steps) == 4
     for a, r in zip(losses[cuda], losses["cpu"]):
         assert abs(a - r) <= 1e-4 * (1 + abs(r))
+
+
+# ---- multi-process data parallelism on the card ----------------------------
+
+DP_TINY = dict(arch="resnet18", dataset="cifar10", batch_size=16, epochs=1,
+               synth_train_size=64, synth_val_size=32, precision="fp32",
+               optimizer="fused_sgd", seed=0, print_freq=1, workers=1,
+               log_csv="")
+
+
+def test_nccl_world1_through_launch_initialize(cuda, tmp_path):
+    """One rank over nccl: every collective runs on the card (the sums of
+    one rank), and a tiny fp32 ``jit`` run through the group equals the
+    same run without one (one ``sgd`` launch a step)."""
+    from torch_dp_worker import run_group
+
+    from tpu_dist_torch.configs import TrainConfig
+    from tpu_dist_torch.engine.loop import Trainer
+
+    jobs = [{"name": "c", "kind": "collectives", "seed": 0,
+             "shapes": [[37], [3, 5]], "bucket_mb": 0.0001},
+            {"name": "jit", "kind": "image",
+             "cfg": dict(DP_TINY, data=str(tmp_path / "no-data"))}]
+    (res,) = run_group(1, {"device": "cuda", "backend": "nccl",
+                           "jobs": jobs}, str(tmp_path / "nccl"))
+    c = res["c"]
+    for key in ("reduce_mean", "ring", "psum", "bucketed_rs_ag",
+                "adasum_leaf"):
+        assert len(c[key]) == 2, key
+    assert c["bench"]["us"] > 0
+    assert res["jit"]["step"] == 4 and res["jit"]["world"] == 1
+    torch.backends.cudnn.allow_tf32 = False
+    path = str(tmp_path / "alone.jsonl")
+    Trainer(TrainConfig(**DP_TINY, data=str(tmp_path / "no-data"),
+                        checkpoint_dir="", ledger_path=path),
+            device=cuda).fit()
+    import json
+
+    with open(path) as f:
+        alone = [r["loss"] for r in map(json.loads, f)
+                 if r["event"] == "step"]
+    for a, r in zip(res["jit"]["losses"], alone):
+        assert abs(a - r) <= 1e-4 * (1 + abs(r))
+
+
+@pytest.mark.parametrize("variant", ["jit", "shard_map"])
+def test_two_gloo_ranks_on_the_card_equal_their_cpu_twin(cuda, tmp_path,
+                                                         variant):
+    """2 ranks on one card over gloo (CUDA tensors) against 2 gloo ranks on
+    the CPU, from the same initial weights: the sgd kernel on each rank's
+    synced grads, per-step losses within 1e-4 (1 + |loss|); point-to-point
+    collectives refuse CUDA tensors on gloo."""
+    from torch_dp_worker import run_group
+
+    from tpu_dist_torch.interop import export_flax_image_params
+    from tpu_dist_torch.models.resnet import ResNet18
+
+    init = str(tmp_path / "init.npz")
+    params, stats = export_flax_image_params(ResNet18(device="cpu", seed=3))
+    np.savez(init, tree=np.array({"params": params, "batch_stats": stats},
+                                 dtype=object))
+    cfg = dict(DP_TINY, mesh_shape=[2], data=str(tmp_path / "no-data"),
+               **({"variant": "shard_map", "gradient_predivide_factor": 2.0}
+                  if variant == "shard_map" else {}))
+    job = [{"name": "run", "kind": "image", "cfg": cfg, "init": init}]
+    card = run_group(2, {"device": "cuda", "backend": "gloo", "jobs": job},
+                     str(tmp_path / "card"))
+    cpu = run_group(2, {"jobs": job}, str(tmp_path / "cpu"))
+    assert card[0]["run"]["step"] == cpu[0]["run"]["step"] == 4
+    for a, r in zip(card[0]["run"]["losses"], cpu[0]["run"]["losses"]):
+        assert abs(a - r) <= 1e-4 * (1 + abs(r))
+    assert card[0]["run"]["best"] == card[1]["run"]["best"]
+    assert [r["run"]["launches"]["sgd"] for r in card] == [4, 4]
+
+
+def test_gloo_refuses_point_to_point_on_cuda_tensors(cuda):
+    from unittest import mock
+
+    from tpu_dist_torch.parallel import collectives as C
+
+    with mock.patch.object(C, "backend_of", return_value="gloo"):
+        with pytest.raises(NotImplementedError, match="gloo"):
+            C.refuse_p2p_on_gloo_cuda("ring_allreduce",
+                                      [torch.zeros(2, device=cuda)])

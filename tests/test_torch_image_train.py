@@ -12,7 +12,8 @@
   equals an uninterrupted one step for step; a corrupt newest checkpoint
   falls back to the retained one;
 * every knob not ported yet raises ``NotImplementedError`` naming itself,
-  the default device is CUDA, and the entry script runs on the CPU."""
+  a data axis wider than the process count raises ``ValueError``, the
+  default device is CUDA, and the entry script runs on the CPU."""
 
 import dataclasses
 import json
@@ -143,8 +144,7 @@ def test_corrupt_newest_checkpoint_falls_back(tmp_path):
         ckpt.load_checkpoint(path, fresh.state, fallback=False)
 
 
-SET = {"mesh_shape": (2,), "mesh_axes": ("data", "model"),
-       "variant": "shard_map", "grad_compression": "bf16",
+SET = {"mesh_axes": ("data", "model"),
        "tp_impl": "ring", "quant": "int8", "plan": "auto",
        "audit": "record", "loss_scale": 128.0, "pretrained": "ck.pt"}
 
@@ -162,6 +162,14 @@ def test_unported_knobs_raise_and_name_themselves(knob):
     cfg = TrainConfig(**{**TINY, knob: _off_value(knob, loop.UNPORTED[knob])})
     with pytest.raises(NotImplementedError, match=knob):
         Trainer(cfg, device="cpu")
+
+
+def test_mesh_wider_than_the_process_count_raises():
+    """``mesh_shape=(2,)`` is two processes of one device each: in one
+    process it is a geometry error, as a mesh wider than the device count
+    is in the reference."""
+    with pytest.raises(ValueError, match="one process per device"):
+        Trainer(TrainConfig(**{**TINY, "mesh_shape": (2,)}), device="cpu")
 
 
 def test_default_device_is_cuda_and_bad_archs_refuse():

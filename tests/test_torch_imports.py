@@ -62,7 +62,19 @@ def test_importing_every_module_pulls_in_no_jax():
             "tpu_dist_torch.tools.profile_image",
             "tpu_dist_torch.ops.pallas_quant",
             "tpu_dist_torch.tools.request_report",
-            "tpu_dist_torch.tools.profile_serve"} <= set(out["mods"])
+            "tpu_dist_torch.tools.profile_serve",
+            "tpu_dist_torch.parallel", "tpu_dist_torch.parallel.mesh",
+            "tpu_dist_torch.parallel.launch",
+            "tpu_dist_torch.parallel.collectives",
+            "tpu_dist_torch.parallel.overlap",
+            "tpu_dist_torch.tools.comm_bench",
+            "tpu_dist_torch.scripts.cookbook",
+            "tpu_dist_torch.scripts.dataparallel",
+            "tpu_dist_torch.scripts.distributed",
+            "tpu_dist_torch.scripts.multiprocessing_spawn",
+            "tpu_dist_torch.scripts.bf16_distributed",
+            "tpu_dist_torch.scripts.allreduce_distributed",
+            "tpu_dist_torch.scripts.mnist"} <= set(out["mods"])
 
 
 @pytest.mark.parametrize("path", _port_files(),

@@ -6,8 +6,9 @@
   started from the JAX trainer's initial params, for ``(attn, optimizer)``
   in ``{(full, sgd), (flash, fused_adamw)}``: per-step losses within 1e-5
   relative and final params leaf by leaf (tolerances at the test);
-* eval is exact under sampler padding, ``max_steps`` caps the run, and
-  every knob not ported yet raises ``NotImplementedError`` naming it;
+* eval is exact under sampler padding, ``max_steps`` caps the run,
+  every knob not ported yet raises ``NotImplementedError`` naming it,
+  and a data axis wider than the process count raises ``ValueError``;
 * training-mode details: fp32 masters under bf16, remat, ``health=skip``,
   and the entry script end to end."""
 
@@ -188,7 +189,7 @@ def test_max_steps_caps_run(tmp_path):
     assert {"eval", "epoch"} <= set(events)
 
 
-SET = {"mesh_shape": (2,), "mesh_axes": ("data", "seq"),
+SET = {"mesh_axes": ("data", "seq"),
        "data_placement": "device", "attn": "blockwise",
        "plan": "auto", "audit": "record"}
 
@@ -206,6 +207,11 @@ def test_unported_knobs_raise_and_name_themselves(knob):
     cfg = LMConfig(**{**TINY, knob: _off_value(knob, lm_loop.UNPORTED[knob])})
     with pytest.raises(NotImplementedError, match=knob):
         LMTrainer(cfg, device="cpu")
+
+
+def test_mesh_wider_than_the_process_count_raises():
+    with pytest.raises(ValueError, match="one process per device"):
+        LMTrainer(LMConfig(**{**TINY, "mesh_shape": (2,)}), device="cpu")
 
 
 def test_default_device_is_cuda():

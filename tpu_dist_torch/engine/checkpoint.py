@@ -28,8 +28,9 @@ What differs: the blob is ``torch.save`` of the host state (the card has
 no msgpack), so the port neither reads nor writes the reference's
 ``.msgpack`` files, and a warm start's donor is one of the port's own
 ``.pt`` checkpoints; the state is restored in place into the live
-``TrainState``'s tensors. ``peer_restore_state`` (``TPU_DIST_PEER_RESUME``)
-is not ported.
+``TrainState``'s tensors. Under data parallelism rank 0 writes and every
+rank resumes from the same file. ``peer_restore_state``
+(``TPU_DIST_PEER_RESUME``) is not ported.
 """
 
 from __future__ import annotations
@@ -47,6 +48,8 @@ import zlib
 from typing import Dict, List, Optional, Tuple
 
 import torch
+
+from tpu_dist_torch.parallel.collectives import barrier
 
 _MAGIC = b"TDTORCH1\n"
 SUFFIX = ".pt"
@@ -221,13 +224,26 @@ atexit.register(wait_for_async_save)
 def save_checkpoint(ckpt_dir: str, state, epoch: int, best_acc1: float,
                     arch: str, is_best: bool,
                     extra_meta: Optional[Dict] = None,
-                    async_write: bool = False, keep: int = 0) -> str:
+                    async_write: bool = False, keep: int = 0,
+                    mesh=None) -> str:
     """Save ``state`` (a ``TrainState``); returns the checkpoint path. The
     device-to-host copy runs here; with ``async_write`` the write runs in a
-    thread (not readable until :func:`wait_for_async_save`)."""
+    thread (not readable until :func:`wait_for_async_save`). Over a
+    data-parallel ``mesh`` (``parallel.mesh.Mesh``) the state is the same
+    on every rank: rank 0 writes, then every rank meets at a barrier."""
+    path = os.path.join(ckpt_dir, f"{arch}-checkpoint{SUFFIX}")
+    if mesh is None or mesh.is_main:
+        _save(ckpt_dir, path, state, epoch, best_acc1, arch, is_best,
+              extra_meta, async_write, keep)
+    if mesh is not None:
+        barrier(mesh.device, mesh.group)
+    return path
+
+
+def _save(ckpt_dir, path, state, epoch, best_acc1, arch, is_best,
+          extra_meta, async_write, keep) -> None:
     host = host_state(state)
     os.makedirs(ckpt_dir, exist_ok=True)
-    path = os.path.join(ckpt_dir, f"{arch}-checkpoint{SUFFIX}")
     meta = {"epoch": epoch, "arch": arch, "best_acc1": float(best_acc1),
             "step": host["step"], **(extra_meta or {})}
     writer = _writer_for(ckpt_dir)
@@ -242,13 +258,12 @@ def save_checkpoint(ckpt_dir: str, state, epoch: int, best_acc1: float,
         writer.thread.start()
     else:
         _write(ckpt_dir, path, host, meta, arch, is_best, keep)
-    return path
 
 
 def peer_restore_state(state, broadcast=None):
     raise NotImplementedError(
-        "peer_restore_state (TPU_DIST_PEER_RESUME=1) is not ported yet: the "
-        "port runs one process on one device")
+        "peer_restore_state (TPU_DIST_PEER_RESUME=1) is not ported yet: it "
+        "belongs to the restart and fault layer (ROADMAP Queue 1 item 4)")
 
 
 def read_checkpoint_meta(path: str) -> Dict:

@@ -1,5 +1,6 @@
 """LMTrainer for the port (``tpu_dist/engine/lm_loop.py``): the LM family's
-training loop, data-parallel on one device.
+training loop, data-parallel over the processes of a ``torch.distributed``
+group, one device each (a reference ``mesh_shape=(N,)`` is N processes).
 
 What follows the reference (line numbers are ``lm_loop.py``'s):
 
@@ -30,6 +31,14 @@ What follows the reference (line numbers are ``lm_loop.py``'s):
   / ``eval`` / ``epoch`` / ``ckpt`` / ``run_end`` events through the
   port's ``obs/ledger.py``.
 
+Over several processes each rank trains on ``batch_size // world`` rows
+(the sampler's batch-blocked layout: the rows the reference gives that
+rank), the gradients are averaged over the group before the update (one
+collective per dtype, or ``grad_bucket_mb`` buckets, whose sync is timed
+once alone for the step records' ``comm_s``), the metric sums are summed
+over it, and logs, the ledger, the CSV and checkpoint writes are rank
+0's.
+
 ``loss_chunk > 0`` trains and evaluates through the chunked head
 (``ops.fused_xent``). It runs on CUDA unless ``device="cpu"`` is asked
 for, and takes an optional flax-layout initial param tree
@@ -53,12 +62,13 @@ import torch
 from tpu_dist_torch.configs import LMConfig
 from tpu_dist_torch.data.sampler import DistributedSampler
 from tpu_dist_torch.data.tokens import load_token_dataset
-from tpu_dist_torch.device import peak_flops, resolve_device
+from tpu_dist_torch.device import peak_flops
 from tpu_dist_torch.engine import checkpoint as ckpt
 from tpu_dist_torch.engine.lm_steps import (LM_METRIC_KEYS, lm_eval_metrics,
                                             lm_train_step, make_lm_batches,
                                             shift_rows, zeros_lm_metrics)
 from tpu_dist_torch.engine.state import TrainState
+from tpu_dist_torch.engine.steps import DataParallel
 from tpu_dist_torch.obs.health import (PROBE_KEYS, HealthSentry,
                                        validate_health)
 from tpu_dist_torch.obs.ledger import EpochCsvSink, Ledger
@@ -66,13 +76,15 @@ from tpu_dist_torch.ops.optim import lm_lr_schedule, make_optimizer
 from tpu_dist_torch.ops.pallas_adamw import FusedAdamW
 from tpu_dist_torch.ops.precision import make_policy
 from tpu_dist_torch.ops.quant import validate_quant
+from tpu_dist_torch.parallel.collectives import all_reduce_
+from tpu_dist_torch.parallel.mesh import make_mesh
+from tpu_dist_torch.parallel.overlap import bucketed_grad_sync
 from tpu_dist_torch.utils.meters import MeterBank
 
 # knob -> its off value. Anything else raises NotImplementedError naming
 # the knob: each waits for a later slice of the port.
 UNPORTED = {
-    "mesh_shape": (None, (1,)), "mesh_axes": (("data",),),
-    "fsdp": (False,), "num_experts": (0,), "grad_bucket_mb": (0.0,),
+    "mesh_axes": (("data",),), "fsdp": (False,), "num_experts": (0,),
     "plan": ("", "none"), "audit": ("none",), "faults": ("",),
     "max_restarts": (0,), "metrics_port": (0,), "profile_dir": ("",),
     "telemetry_csv": ("",), "skew_every": (0,),
@@ -91,15 +103,16 @@ SOFT_GEOMETRY = ("steps_per_epoch", "batch_size", "dataset_len")
 def refuse_unported(cfg: LMConfig) -> None:
     for knob, off in UNPORTED.items():
         val = getattr(cfg, knob)
-        if knob == "mesh_shape" and val is not None:
-            val = tuple(val)
         if knob == "mesh_axes":
             val = tuple(val)
         if val not in off:
             raise NotImplementedError(
-                f"LMConfig.{knob}={val!r} is not ported yet: the port's "
-                f"LMTrainer runs data=1 dp on one device (supported: "
-                f"{' | '.join(repr(o) for o in off)})")
+                f"LMConfig.{knob}={val!r}"
+                + (f" (mesh_shape={cfg.mesh_shape!r})"
+                   if knob == "mesh_axes" else "")
+                + " is not ported yet: the port's "
+                f"LMTrainer runs data-parallel only, one device per process "
+                f"(supported: {' | '.join(repr(o) for o in off)})")
 
 
 def lm_flops_per_token(model, num_layers: int, seq_len: int,
@@ -112,7 +125,8 @@ def lm_flops_per_token(model, num_layers: int, seq_len: int,
 
 
 class LMTrainer:
-    """The dp LM trainer on one device (module docstring has the tour)."""
+    """The dp LM trainer, one device per process (module docstring has the
+    tour)."""
 
     def __init__(self, cfg: LMConfig, *, device=None,
                  init_params: Optional[dict] = None):
@@ -147,14 +161,27 @@ class LMTrainer:
                 raise ValueError("grad_accum_steps > 1 requires "
                                  "data_placement='host'/'auto' (the indexed "
                                  "window step has no microbatch loop)")
-            if cfg.batch_size % self.accum:
-                raise ValueError(
-                    f"global batch {cfg.batch_size} not divisible by "
-                    f"grad_accum_steps x data axis ({self.accum} x 1)")
+        self.mesh = make_mesh(cfg.mesh_shape, cfg.mesh_axes, device=device)
+        world = self.mesh.size
+        if cfg.batch_size % world:
+            raise ValueError(
+                f"global batch {cfg.batch_size} not divisible by the data "
+                f"axis ({world} processes)")
+        if self.accum > 1 and cfg.batch_size % (self.accum * world):
+            raise ValueError(
+                f"global batch {cfg.batch_size} not divisible by "
+                f"grad_accum_steps x data axis ({self.accum} x {world})")
+        if cfg.grad_bucket_mb > 0 and self.accum > 1:
+            raise ValueError("grad_bucket_mb does not compose with "
+                             "grad_accum_steps > 1 yet")
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.device = self.mesh.device
+        self.rank, self.world = self.mesh.rank, world
+        self.is_main = self.mesh.is_main
+        self.dp = DataParallel(self.mesh.group, world,
+                               bucket_mb=cfg.grad_bucket_mb)
         self.policy = make_policy(cfg.precision)
-        self.mode = "dp"
+        self.mode = "dp" + ("-bucketed" if cfg.grad_bucket_mb > 0 else "")
         # whether the int8 matmuls ride the fused kernel (csrc/fused_quant.cu;
         # on the CPU its plain version runs): the step records' ``fused``
         # flag, as in the reference
@@ -166,7 +193,7 @@ class LMTrainer:
             cfg.data, cfg.seq_len, cfg.vocab_size, val_frac=cfg.val_frac,
             synth_tokens=cfg.synth_tokens, seed=seed, val_data=cfg.val_data)
         self.vocab_size = self.train_ds.vocab_size
-        self.local_batch = cfg.batch_size
+        self.local_batch = cfg.batch_size // world
 
         # ---- model ----
         self.model = self._build_model(seed if init_params is None else None)
@@ -234,11 +261,32 @@ class LMTrainer:
         self.last_tok_s = 0.0
         self._warmed = False
         self._flops_per_step = None
-        self.ledger = Ledger(cfg.ledger_path or None)
-        if cfg.log_csv:
+        self.ledger = Ledger((cfg.ledger_path or None) if self.is_main
+                             else None)
+        if cfg.log_csv and self.is_main:
             self.ledger.add_sink(EpochCsvSink(cfg.log_csv))
         self.health = HealthSentry(cfg.health, cfg.health_spike_z,
                                    ledger=self.ledger)
+        self._comm_probe_s = (self._measure_comm_probe()
+                              if cfg.grad_bucket_mb > 0 else None)
+
+    def _measure_comm_probe(self) -> float:
+        """Seconds of one bucketed gradient sync alone at this run's bucket
+        geometry (zeros in the params' shapes), after one warm sync: the
+        unoverlapped comm time the step records carry as ``comm_s``
+        (``:620-641``)."""
+        zeros = [torch.zeros(p.shape, dtype=torch.float32, device=self.device)
+                 for p in self.state.params]
+
+        def sync():
+            out = bucketed_grad_sync(zeros, self.cfg.grad_bucket_mb,
+                                     group=self.mesh.group)
+            out[-1].sum().item()     # the device's work done, on every rank
+
+        sync()
+        t0 = time.time()
+        sync()
+        return time.time() - t0
 
     def _warm_start(self, path: str) -> None:
         """Graft a port checkpoint's params onto the fresh model where name
@@ -307,13 +355,14 @@ class LMTrainer:
             quant=cfg.quant, remat=cfg.remat, device=self.device, seed=seed)
 
     def log(self, *a, **kw):
-        print(*a, **kw, flush=True)
+        if self.is_main:
+            print(*a, **kw, flush=True)
 
     def _epoch_indices(self, ds, train: bool, epoch: int):
         """(idx (nb, B), valid (nb, B)): the reference's batch-blocked
-        sampler layout."""
+        sampler layout, this rank's rows."""
         sampler = DistributedSampler(
-            len(ds), num_replicas=1, rank=0, shuffle=train,
+            len(ds), num_replicas=self.world, rank=self.rank, shuffle=train,
             seed=(self.cfg.seed or 0) + (17 if not train else 0),
             batch_size=self.local_batch)
         sampler.set_epoch(epoch)
@@ -339,7 +388,8 @@ class LMTrainer:
     def _step(self, inputs, targets) -> Dict[str, torch.Tensor]:
         cfg = self.cfg
         return lm_train_step(self.model, self.tx, self.state, inputs,
-                             targets, cfg.health, cfg.loss_chunk, self.accum)
+                             targets, cfg.health, cfg.loss_chunk, self.accum,
+                             self.dp)
 
     def _step_flops(self) -> float:
         if self._flops_per_step is None:
@@ -355,7 +405,7 @@ class LMTrainer:
         tokens = self.cfg.batch_size * self.cfg.seq_len
         tflops = tok_per_s * self._step_flops() / tokens / 1e12
         peak = peak_flops(self.device, self.policy.compute_dtype)
-        return tflops, (tflops * 1e12 / peak if peak else None)
+        return tflops, (tflops * 1e12 / (peak * self.world) if peak else None)
 
     def _memory(self) -> dict:
         if self.device.type != "cuda":
@@ -392,7 +442,9 @@ class LMTrainer:
             self.ledger.emit(
                 "step", step=info["step"], loss=loss, throughput=tok_s,
                 unit="tok/s", data_s=info["data_s"],
-                dispatch_s=info["dispatch_s"], device_s=share, comm_s=None,
+                dispatch_s=info["dispatch_s"], device_s=share,
+                comm_s=(self._comm_probe_s * n if self._comm_probe_s
+                        else None),
                 mfu=mfu, steps_in_dispatch=n, warm=info["warm"],
                 fused=self._fused_quant, grad_norm=gn,
                 nonfinite_count=m["nonfinite_count"], update_norm=un, **mem)
@@ -457,7 +509,7 @@ class LMTrainer:
             if boundary:
                 self._drain(pending, meters)
             meters.update("Time", time.time() - end)
-            if boundary:
+            if boundary and self.is_main:
                 meters.display(i)
             end = time.time()
             if self._step_cap_hit(epoch, i + 1):
@@ -527,7 +579,7 @@ class LMTrainer:
                 self._drain(pending, meters)
                 last_print = done - 1
             meters.update("Time", (time.time() - end) / n, n)
-            if boundary:
+            if boundary and self.is_main:
                 meters.display(done - 1)
             end = time.time()
             if self._step_cap_hit(epoch, done):
@@ -560,8 +612,9 @@ class LMTrainer:
                                 self.cfg.loss_chunk)
             for k in sums:
                 sums[k] = sums[k] + m[k]
-        sums = dict(zip(LM_METRIC_KEYS, torch.stack(
-            [sums[k] for k in LM_METRIC_KEYS]).tolist()))
+        flat = torch.stack([sums[k] for k in LM_METRIC_KEYS])
+        all_reduce_(flat, self.mesh.group)
+        sums = dict(zip(LM_METRIC_KEYS, flat.tolist()))
         n = max(sums["count"], 1.0)
         loss = sums["loss_sum"] / n
         ppl = float(np.exp(min(loss, 30.0)))
@@ -578,8 +631,9 @@ class LMTrainer:
         dev = (torch.cuda.get_device_name(self.device)
                if self.device.type == "cuda" else "cpu")
         self.ledger.emit("run_start", kind="lm",
-                         config=dataclasses.asdict(cfg), mesh={"data": 1},
-                         devices=[dev], process_count=1, mode=self.mode,
+                         config=dataclasses.asdict(cfg),
+                         mesh={"data": self.world}, devices=[dev],
+                         process_count=self.world, mode=self.mode,
                          device=str(self.device))
         off = [f"{k}={getattr(cfg, k)}" for k in UNPORTED_OBSERVERS
                if getattr(cfg, k)]
@@ -596,7 +650,7 @@ class LMTrainer:
         return ckpt.save_checkpoint(
             self.cfg.checkpoint_dir, self.state, epoch, 0.0, "lm", is_best,
             extra_meta=meta, async_write=async_write,
-            keep=self.cfg.keep_checkpoints)
+            keep=self.cfg.keep_checkpoints, mesh=self.mesh)
 
     def fit(self) -> float:
         """Train ``epochs`` (or ``max_steps``), validating after each

@@ -11,14 +11,19 @@
   returns its post-LayerNorm features and the (B, L, V) logits never
   exist), as ``_lm_objective_metrics`` (``:137-148``) does;
 * :func:`lm_train_step` is the dp step (``:150-190``): forward, the mean
-  loss's gradient w.r.t. every parameter, then ``engine.steps.apply_update``;
-  with ``accum > 1`` the gradients of equal microbatches are averaged
-  before the one update (``make_lm_grad_accum_train_step``, ``:373-395``);
+  loss's gradient w.r.t. every parameter, its mean over the process group
+  (one collective per dtype, or ``grad_bucket_mb`` buckets as
+  ``_lm_explicit_dp_step_fn``, ``:195-217``), then
+  ``engine.steps.apply_update``, so the AdamW clip reads the global norm
+  of the synced gradients; with ``accum > 1`` the gradients of equal
+  microbatches are averaged before the one update
+  (``make_lm_grad_accum_train_step``, ``:373-395``);
 * :func:`lm_eval_metrics` is the forward-only eval (``:271-285``), exact
   under sampler padding through the per-row ``valid`` mask.
 
 Metric values stay 0-d tensors on the device; the loop fetches them once
-per print window. The sharded steps are not ported yet.
+per print window, summed over the group. The model-parallel steps are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -29,7 +34,8 @@ import numpy as np
 import torch
 
 from tpu_dist_torch.engine.state import TrainState
-from tpu_dist_torch.engine.steps import accumulate, apply_update
+from tpu_dist_torch.engine.steps import (ONE_PROCESS, DataParallel,
+                                         accumulate, apply_update)
 from tpu_dist_torch.ops.fused_xent import chunked_softmax_xent
 
 LM_METRIC_KEYS = ("loss_sum", "correct1", "count")
@@ -83,11 +89,12 @@ def lm_objective(model, inputs, targets, mask, loss_chunk: int = 0):
 
 def lm_train_step(model, tx, state: TrainState, inputs, targets,
                   health: str = "record", loss_chunk: int = 0,
-                  accum: int = 1) -> Dict[str, torch.Tensor]:
+                  accum: int = 1, dp: DataParallel = ONE_PROCESS
+                  ) -> Dict[str, torch.Tensor]:
     """One optimizer step on device-resident (B, L) ``inputs``/``targets``:
     the mean CE over the batch (over each of ``accum`` microbatches), its
-    gradient, the update. Returns the step's metric sums (with the health
-    probes)."""
+    gradient averaged over ``dp``'s group, the update. Returns the step's
+    metric sums over the group (with the health probes)."""
 
     def micro(inp, tgt):
         mask = torch.ones(tgt.shape, dtype=torch.float32, device=tgt.device)
@@ -99,7 +106,8 @@ def lm_train_step(model, tx, state: TrainState, inputs, targets,
         grads, metrics = accumulate(micro, accum, inputs, targets)
     else:
         grads, metrics = micro(inputs, targets)
-    return apply_update(tx, state, grads, metrics, health)
+    return apply_update(tx, state, dp.grads(grads), dp.metrics(metrics),
+                        health)
 
 
 @torch.inference_mode()

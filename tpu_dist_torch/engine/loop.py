@@ -1,5 +1,6 @@
 """The image ``Trainer`` for the port (``tpu_dist/engine/loop.py``):
-data-parallel on one device.
+data-parallel over the processes of a ``torch.distributed`` group, one
+device each (a reference ``data=N`` mesh is N processes here).
 
 What follows the reference (line numbers are ``loop.py``'s):
 
@@ -28,7 +29,8 @@ What follows the reference (line numbers are ``loop.py``'s):
   record per window and one ``_drain`` per print window. On the device
   path each step gathers its uint8 rows from the resident dataset by the
   sampler's index window. The math is that of K single steps;
-* ``validate`` (``:849``): exact under sampler padding, sums fetched once;
+* ``validate`` (``:849``): exact under sampler padding, each rank
+  evaluating its shard, the sums all-reduced and fetched once;
 * ``fit`` / ``_fit_epochs`` (``:892-1008``): an ``epoch`` ledger event with
   img/s, an async checkpoint per epoch, ``model_best`` on improvement, and
   a mid-epoch checkpoint on ``KeyboardInterrupt``.
@@ -38,6 +40,19 @@ The first step (or window) of a run carries cuDNN's autotuning
 syncs once after it and leaves it out of the epoch's img/s. MFU is
 analytic: 3 x the forward FLOPs of the convs and dense layers per image
 over the card's dense peak (``device.PEAK_FLOPS``).
+
+Over several processes (``parallel.launch.initialize`` first; the mesh is
+``parallel.mesh.make_mesh(mesh_shape, mesh_axes)``) each rank trains on
+``batch_size // world`` rows: the sampler's batch-blocked layout gives
+rank r the rows the reference gives it, the LR is ``scaled_lr(world)``
+under ``lr_scale_by_world``, the augmentation generator folds the rank
+into its seed, and the step syncs by ``variant`` (``engine.steps
+.DataParallel``: ``jit`` with BatchNorm statistics over the group's batch,
+or ``shard_map`` with ``grad_compression``, ``gradient_predivide_factor``,
+``adasum`` and ``grad_bucket_mb``). The windowed device-data path keeps
+the whole set resident on each rank's device and gathers the rank's rows.
+Logs, the ledger, the CSV and checkpoint writes are rank 0's; every rank
+resumes from the same checkpoint.
 
 It runs on CUDA unless ``device="cpu"`` is asked for, and takes an
 optional flax-layout ``init_params``/``init_batch_stats`` pair so a run can
@@ -61,29 +76,29 @@ from tpu_dist_torch.data.datasets import load_dataset
 from tpu_dist_torch.data.loader import DataLoader, prefetch_to_device
 from tpu_dist_torch.data.pipeline import make_transform
 from tpu_dist_torch.data.sampler import DistributedSampler
-from tpu_dist_torch.device import peak_flops, resolve_device
+from tpu_dist_torch.device import peak_flops
 from tpu_dist_torch.engine import checkpoint as ckpt
 from tpu_dist_torch.engine.state import TrainState
-from tpu_dist_torch.engine.steps import (IMAGE_METRIC_KEYS,
+from tpu_dist_torch.engine.steps import (IMAGE_METRIC_KEYS, DataParallel,
                                          image_eval_metrics,
                                          image_train_step,
                                          zeros_image_metrics)
 from tpu_dist_torch.models.registry import create_model, model_kind
+from tpu_dist_torch.models.resnet import set_batchnorm_group
 from tpu_dist_torch.obs.health import (PROBE_KEYS, HealthSentry,
                                        validate_health)
 from tpu_dist_torch.obs.ledger import EpochCsvSink, Ledger
 from tpu_dist_torch.ops.optim import make_optimizer, step_decay_schedule
 from tpu_dist_torch.ops.pallas_sgd import FusedSGD
 from tpu_dist_torch.ops.precision import LossScaleState, make_policy
+from tpu_dist_torch.parallel.collectives import all_reduce_
+from tpu_dist_torch.parallel.mesh import make_mesh
 from tpu_dist_torch.utils.meters import MeterBank
 
 # knob -> its accepted values. Anything else raises NotImplementedError
 # naming the knob: each waits for a later slice of the port.
 UNPORTED = {
-    "variant": ("jit",), "mesh_shape": (None, (1,)),
-    "mesh_axes": (("data",),), "grad_compression": ("none",),
-    "adasum": (False,), "gradient_predivide_factor": (1.0,),
-    "grad_bucket_mb": (0.0,), "tp_impl": ("gspmd",), "quant": ("none",),
+    "mesh_axes": (("data",),), "tp_impl": ("gspmd",), "quant": ("none",),
     "plan": ("", "none"), "audit": ("none",), "faults": ("",),
     "max_restarts": (0,), "metrics_port": (0,), "profile_dir": ("",),
     "telemetry_csv": ("",), "skew_every": (0,),
@@ -97,13 +112,16 @@ UNPORTED_OBSERVERS = ("watchdog_factor", "goodput_every_s")
 def refuse_unported(cfg: TrainConfig) -> None:
     for knob, accepted in UNPORTED.items():
         val = getattr(cfg, knob)
-        if knob in ("mesh_shape", "mesh_axes") and val is not None:
+        if knob == "mesh_axes":
             val = tuple(val)
         if val not in accepted:
             raise NotImplementedError(
-                f"TrainConfig.{knob}={val!r} is not ported yet: the port's "
-                f"Trainer runs data=1 dp on one device (supported: "
-                f"{' | '.join(repr(a) for a in accepted)})")
+                f"TrainConfig.{knob}={val!r}"
+                + (f" (mesh_shape={cfg.mesh_shape!r})"
+                   if knob == "mesh_axes" else "")
+                + " is not ported yet: the port's "
+                f"Trainer runs data-parallel only, one device per process "
+                f"(supported: {' | '.join(repr(a) for a in accepted)})")
 
 
 def image_forward_flops(model, image_shape) -> float:
@@ -140,8 +158,8 @@ def image_forward_flops(model, image_shape) -> float:
 
 
 class Trainer:
-    """The dp image trainer on one device (module docstring has the
-    tour)."""
+    """The dp image trainer, one device per process (module docstring has
+    the tour)."""
 
     def __init__(self, cfg: TrainConfig, *, device=None,
                  init_params: Optional[dict] = None,
@@ -159,25 +177,52 @@ class Trainer:
             raise ValueError(
                 f"--arch {cfg.arch} is a language model; this trainer drives "
                 "image classifiers -- use tpu_dist_torch.scripts.lm_longcontext")
+        if cfg.variant not in ("jit", "shard_map"):
+            raise ValueError(f"unknown variant {cfg.variant!r} (jit|shard_map)")
         validate_health(cfg.health)
-        self.k = cfg.steps_per_dispatch
-        if self.k < 1:
-            raise ValueError("steps_per_dispatch must be >= 1")
-        if cfg.data_placement not in ("auto", "host", "device"):
-            raise ValueError(f"unknown data_placement {cfg.data_placement!r}")
+        self.mesh = make_mesh(cfg.mesh_shape, cfg.mesh_axes, device=device)
+        world = self.mesh.size
+        if cfg.batch_size % world:
+            raise ValueError(
+                f"global batch {cfg.batch_size} not divisible by device count "
+                f"{world} ({world} processes x 1 local device)")
+        if cfg.grad_compression not in ("none", "bf16"):
+            raise ValueError(
+                f"unknown grad compression {cfg.grad_compression!r}")
+        if cfg.grad_bucket_mb > 0 and cfg.variant != "shard_map":
+            raise ValueError("--grad-bucket-mb decomposes the explicit "
+                             "gradient allreduce; it requires "
+                             "variant='shard_map' (the jit flavor's sync "
+                             "is one collective)")
         self.accum = cfg.grad_accum_steps
         if self.accum < 1:
             raise ValueError("grad_accum_steps must be >= 1")
+        if self.accum > 1 and cfg.variant != "jit":
+            raise ValueError("grad_accum_steps > 1 requires variant='jit'")
+        if cfg.adasum and cfg.variant != "shard_map":
+            raise ValueError("adasum requires variant='shard_map'")
+        if cfg.adasum and cfg.grad_compression != "none":
+            raise ValueError("adasum replaces the compressed-mean allreduce; "
+                             "use grad_compression='none' with it")
+        self.k = cfg.steps_per_dispatch
         if self.accum > 1 and self.k > 1:
             raise ValueError("grad_accum_steps and steps_per_dispatch > 1 "
                              "are mutually exclusive")
-        if self.accum > 1 and cfg.batch_size % self.accum:
+        if self.accum > 1 and cfg.batch_size % (self.accum * world):
             raise ValueError(
                 f"global batch {cfg.batch_size} not divisible by "
-                f"grad_accum_steps x device count ({self.accum} x 1)")
+                f"grad_accum_steps x device count ({self.accum} x {world})")
+        if self.k < 1:
+            raise ValueError("steps_per_dispatch must be >= 1")
+        if self.k > 1 and cfg.variant != "jit":
+            raise ValueError("steps_per_dispatch > 1 requires variant='jit'")
+        if cfg.data_placement not in ("auto", "host", "device"):
+            raise ValueError(f"unknown data_placement {cfg.data_placement!r}")
         if self.accum > 1 and cfg.data_placement == "device":
             raise ValueError("grad_accum_steps > 1 requires "
                              "data_placement='host' or 'auto'")
+        if cfg.data_placement == "device" and cfg.variant != "jit":
+            raise ValueError("data_placement='device' requires variant='jit'")
         model_kw = {}
         if cfg.norm:
             model_kw["norm"] = cfg.norm
@@ -194,7 +239,12 @@ class Trainer:
                 f"--norm/--norm-dtype/--stem are ResNet-family knobs; "
                 f"arch {cfg.arch!r} does not take them")
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.device = self.mesh.device
+        self.rank, self.world = self.mesh.rank, world
+        self.is_main = self.mesh.is_main
+        self.dp = DataParallel(
+            self.mesh.group, world, cfg.variant, cfg.grad_compression,
+            cfg.gradient_predivide_factor, cfg.adasum, cfg.grad_bucket_mb)
         if self.device.type == "cuda":
             torch.backends.cudnn.benchmark = True
         self.policy = make_policy(cfg.precision)
@@ -205,7 +255,7 @@ class Trainer:
             cfg.dataset, cfg.data, cfg.synth_train_size, cfg.synth_val_size,
             seed=cfg.seed if cfg.seed is not None else 1234)
         self.num_classes = self.train_ds.num_classes
-        self.local_batch = cfg.batch_size
+        self.local_batch = cfg.batch_size // world
 
         # ---- model, schedule, optimizer ----
         self.model = create_model(
@@ -220,9 +270,11 @@ class Trainer:
         if cfg.pretrained:
             self._warm_start(cfg.pretrained)
         self.model.requires_grad_(True)
+        if cfg.variant == "jit" and world > 1:   # one step over the group
+            set_batchnorm_group(self.model, self.mesh.group)
         # ceil: the sampler pads to full batches
         self.steps_per_epoch = max(1, -(-len(self.train_ds) // cfg.batch_size))
-        self.schedule = step_decay_schedule(cfg.scaled_lr(1),
+        self.schedule = step_decay_schedule(cfg.scaled_lr(world),
                                             self.steps_per_epoch,
                                             cfg.lr_step_epochs)
         if cfg.optimizer == "fused_sgd":
@@ -277,8 +329,9 @@ class Trainer:
         if cfg.resume:
             self._resume(cfg.resume)
         self._epoch_in_progress = self.start_epoch
-        self.ledger = Ledger(cfg.ledger_path or None)
-        if cfg.log_csv:
+        self.ledger = Ledger((cfg.ledger_path or None) if self.is_main
+                             else None)
+        if cfg.log_csv and self.is_main:
             self.ledger.add_sink(EpochCsvSink(cfg.log_csv))
         self.health = HealthSentry(cfg.health, cfg.health_spike_z,
                                    ledger=self.ledger)
@@ -344,11 +397,12 @@ class Trainer:
                          "already-applied batches")
 
     def log(self, *a, **kw):
-        print(*a, **kw, flush=True)
+        if self.is_main:
+            print(*a, **kw, flush=True)
 
     def _sampler(self, ds, train: bool, epoch: int) -> DistributedSampler:
         sampler = DistributedSampler(
-            len(ds), num_replicas=1, rank=0, shuffle=train,
+            len(ds), num_replicas=self.world, rank=self.rank, shuffle=train,
             seed=(self.cfg.seed or 0) + (17 if not train else 0),
             batch_size=self.local_batch)
         sampler.set_epoch(epoch)
@@ -379,17 +433,18 @@ class Trainer:
         return t.to(self.device, non_blocking=True)
 
     def _gen(self, gstep: int) -> Optional[torch.Generator]:
-        """The augmentation generator of global step ``gstep`` (None
-        without augmentation): a function of the seed and the step, so a
-        resumed run draws the same."""
+        """The augmentation generator of global step ``gstep`` on this
+        rank (None without augmentation): a function of the seed, the step
+        and the rank, so a resumed run draws the same and ranks differ."""
         if not self.augment:
             return None
-        return torch.Generator().manual_seed(self.seed * 1_000_003 + gstep)
+        return torch.Generator().manual_seed(
+            (self.seed * 1_000_003 + gstep) * self.world + self.rank)
 
     def _step(self, images, labels, gstep: int) -> Dict[str, torch.Tensor]:
         return image_train_step(self.model, self.tx, self.state, images,
                                 labels, self.transform, self.cfg.health,
-                                self._gen(gstep), self.accum)
+                                self._gen(gstep), self.accum, self.dp)
 
     def _flops(self) -> float:
         if self._flops_per_image is None:
@@ -402,7 +457,7 @@ class Trainer:
         holds (the CPU included)."""
         tflops = img_per_s * self._flops() / 1e12
         peak = peak_flops(self.device, self.policy.compute_dtype)
-        return tflops, (tflops * 1e12 / peak if peak else None)
+        return tflops, (tflops * 1e12 / (peak * self.world) if peak else None)
 
     def _memory(self) -> dict:
         if self.device.type != "cuda":
@@ -507,7 +562,7 @@ class Trainer:
             if boundary:
                 self._drain(pending, meters)
             meters.update("Time", time.time() - end)
-            if boundary:
+            if boundary and self.is_main:
                 meters.display(i)
             end = time.time()
         return self._epoch_result(meters, nb - skip, warm)
@@ -583,7 +638,7 @@ class Trainer:
                 self._drain(pending, meters)
                 last_print = done - 1
             meters.update("Time", (time.time() - end) / n, n)
-            if boundary:
+            if boundary and self.is_main:
                 meters.display(done - 1)
             end = time.time()
         return self._epoch_result(meters, nb - skip, warm)
@@ -610,8 +665,9 @@ class Trainer:
             m = image_eval_metrics(self.model, self.eval_transform, images,
                                    labels, v)
             sums = {k: sums[k] + m[k] for k in sums}
-        sums = dict(zip(IMAGE_METRIC_KEYS, torch.stack(
-            [sums[k] for k in IMAGE_METRIC_KEYS]).tolist()))
+        flat = torch.stack([sums[k] for k in IMAGE_METRIC_KEYS])
+        all_reduce_(flat, self.mesh.group)
+        sums = dict(zip(IMAGE_METRIC_KEYS, flat.tolist()))
         n = max(sums["count"], 1.0)
         acc1, acc5 = sums["correct1"] / n, sums["correct5"] / n
         self.ledger.emit("eval", epoch=epoch, loss=sums["loss_sum"] / n,
@@ -627,8 +683,9 @@ class Trainer:
         dev = (torch.cuda.get_device_name(self.device)
                if self.device.type == "cuda" else "cpu")
         self.ledger.emit("run_start", kind="image",
-                         config=dataclasses.asdict(cfg), mesh={"data": 1},
-                         devices=[dev], process_count=1, mode="dp",
+                         config=dataclasses.asdict(cfg),
+                         mesh={"data": self.world}, devices=[dev],
+                         process_count=self.world, mode="dp",
                          device=str(self.device))
         self._flops()   # its forward stays out of the first epoch's time
         off = [f"{k}={getattr(cfg, k)}" for k in UNPORTED_OBSERVERS
@@ -657,7 +714,7 @@ class Trainer:
                     cfg.checkpoint_dir, self.state, self._epoch_in_progress,
                     self.best_acc1, cfg.arch, is_best=False,
                     extra_meta={"mid_epoch": True, **self._run_meta},
-                    keep=cfg.keep_checkpoints)
+                    keep=cfg.keep_checkpoints, mesh=self.mesh)
                 self.log(f"interrupted -- checkpoint saved at epoch "
                          f"{self._epoch_in_progress}; resume with --resume")
             raise
@@ -699,7 +756,8 @@ class Trainer:
                                      epoch + 1, self.best_acc1, cfg.arch,
                                      is_best, extra_meta=self._run_meta,
                                      async_write=True,
-                                     keep=cfg.keep_checkpoints)
+                                     keep=cfg.keep_checkpoints,
+                                     mesh=self.mesh)
                 self.ledger.emit("ckpt", epoch=epoch + 1,
                                  path=cfg.checkpoint_dir, is_best=is_best,
                                  seconds=round(time.time() - t_ck, 6))

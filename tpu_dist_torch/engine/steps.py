@@ -31,19 +31,107 @@ divide exactly); the loop fetches them once per print window. The
 reference packs uint8 rows into int32 words for the TPU's 32-bit gathers
 (``pack_images_for_device``, ``:188-202``); the port gathers the uint8
 rows directly.
+
+Data parallelism (:class:`DataParallel`) runs one process per device; a
+step's gradients are synced before :func:`apply_update`, so the loss-scale
+flag, the ``health="skip"`` gate and the optimizers' clip slot read the
+same values on every rank and the ranks stay in lockstep. The ``jit``
+variant (the reference's GSPMD step over the global batch) averages the
+gradients over the group, and its BatchNorm layers take their statistics
+over the group's batch (``models.resnet.BatchNorm.process_group``). The
+``shard_map`` variant is the reference's explicit-collective step
+(``plan/compile.py:289-350 _image_explicit_train``), in its order:
+predivide, compress, the sum (monolithic or in buckets), decompress,
+postdivide, or the Adasum operator in place of all of that; then the
+per-rank BatchNorm running stats are averaged. Both sum the metric sums
+over the group.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+import math
+from dataclasses import dataclass
+from typing import Any, Dict, List, Optional
 
 import torch
 
 from tpu_dist_torch.engine.state import TrainState
 from tpu_dist_torch.obs.health import probe_update_metrics, probes_ok
 from tpu_dist_torch.ops.precision import scale_loss, unscale_and_update
+from tpu_dist_torch.parallel.collectives import (adasum_reduce, all_reduce_,
+                                                 compress_grads)
+from tpu_dist_torch.parallel.overlap import bucketed_grad_sync
 
 IMAGE_METRIC_KEYS = ("loss_sum", "correct1", "correct5", "count")
+
+
+@dataclass(frozen=True)
+class DataParallel:
+    """How a step syncs over the process group (``group`` None: one
+    process, and the collectives are no-ops while the arithmetic of the
+    variant still runs). ``bucket_mb`` 0 syncs in one collective per
+    dtype."""
+    group: Optional[Any] = None
+    size: int = 1
+    variant: str = "jit"
+    compression: str = "none"
+    predivide: float = 1.0
+    adasum: bool = False
+    bucket_mb: float = 0.0
+
+    def mean(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
+        """The gradients averaged over the group: ``rs_ag`` buckets of
+        ``bucket_mb`` or one ``all_reduce`` per dtype."""
+        if self.bucket_mb > 0:
+            return bucketed_grad_sync(grads, self.bucket_mb, mean=True,
+                                      group=self.group)
+        if self.group is None:
+            return grads
+        return bucketed_grad_sync(grads, math.inf, mean=True, impl="psum",
+                                  group=self.group)
+
+    def grads(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
+        """The step's gradients synced by the variant's rule."""
+        if self.variant == "jit":
+            return self.mean(grads)
+        if self.adasum:
+            return adasum_reduce(grads, self.group)
+        n = self.size
+        pre = self.predivide if self.predivide != 1.0 else n
+        down, up = compress_grads([g / pre for g in grads], self.compression)
+        if self.bucket_mb > 0:
+            down = bucketed_grad_sync(down, self.bucket_mb, mean=False,
+                                      group=self.group)
+        elif self.group is not None:
+            down = bucketed_grad_sync(down, math.inf, mean=False,
+                                      impl="psum", group=self.group)
+        grads = up(down)
+        if self.predivide != 1.0:
+            grads = [g * (self.predivide / n) for g in grads]
+        return grads
+
+    def stats(self, stats: List[torch.Tensor]) -> None:
+        """``shard_map``: the per-rank BatchNorm running stats averaged
+        over the group, in place (``jit`` took them over the group's batch
+        already)."""
+        if self.variant == "shard_map" and self.group is not None and stats:
+            for s, m in zip(stats, bucketed_grad_sync(
+                    stats, math.inf, mean=True, impl="psum",
+                    group=self.group)):
+                s.copy_(m)
+
+    def metrics(self, metrics: Dict[str, torch.Tensor]
+                ) -> Dict[str, torch.Tensor]:
+        """The metric sums summed over the group, in one all-reduce."""
+        if self.group is None:
+            return metrics
+        keys = list(metrics)
+        flat = torch.stack([metrics[k].float() for k in keys])
+        all_reduce_(flat, self.group)
+        return dict(zip(keys, flat.unbind()))
+
+
+ONE_PROCESS = DataParallel()
 
 
 def cross_entropy_sum(logits, labels, weights=None) -> torch.Tensor:
@@ -141,12 +229,14 @@ def accumulate(micro_fn, k: int, *batch):
 def image_train_step(model, tx, state: TrainState, images_u8, labels,
                      transform, health: str = "record",
                      gen: Optional[torch.Generator] = None,
-                     accum: int = 1) -> Dict[str, torch.Tensor]:
+                     accum: int = 1, dp: DataParallel = ONE_PROCESS
+                     ) -> Dict[str, torch.Tensor]:
     """One optimizer step on device-resident uint8 (B, H, W, C) images and
     int labels (``model`` in train mode): normalize (and augment with
     ``gen``), forward, the (scaled) mean cross entropy's gradient over
-    ``accum`` microbatches, the update. Returns the step's metric sums with
-    the health probes."""
+    ``accum`` microbatches, the sync over ``dp``'s group, the update.
+    Returns the step's metric sums (over the group) with the health
+    probes."""
     old_stats = ([b.clone() for b in state.batch_stats]
                  if health == "skip" else None)
 
@@ -161,7 +251,10 @@ def image_train_step(model, tx, state: TrainState, images_u8, labels,
         grads, metrics = accumulate(micro, accum, images_u8, labels)
     else:
         grads, metrics = micro(images_u8, labels)
-    return apply_update(tx, state, grads, metrics, health, old_stats)
+    grads = dp.grads(grads)
+    dp.stats(state.batch_stats)
+    return apply_update(tx, state, grads, dp.metrics(metrics), health,
+                        old_stats)
 
 
 @torch.inference_mode()

@@ -13,7 +13,10 @@ the model name for name. Numerics follow flax 0.12.3:
   running variance), eps 1e-5, running stats blended as ``0.9 old + 0.1
   batch`` (flax ``momentum=0.9``: torch's ``momentum=0.1`` with the roles
   inverted), output in ``norm_dtype``. The running buffers ``mean`` and
-  ``var`` are the reference's ``batch_stats``;
+  ``var`` are the reference's ``batch_stats``. With ``process_group`` set
+  (the data-parallel ``jit`` step over several ranks) the statistics are
+  those of the group's whole batch: the per-rank sums are all-reduced, and
+  so are their gradients in the backward;
 * **GroupNorm(32)** (:class:`GroupNorm`): the same statistics per (sample,
   group), no running state;
 * convs and the dense head compute in ``dtype`` (bf16 under
@@ -94,6 +97,45 @@ def _stats(xf, dims):
     return mean, var
 
 
+class _GroupSum(torch.autograd.Function):
+    """The sum of ``x`` over a process group, whose backward sums the
+    incoming gradient over the group in turn (every rank's loss depends on
+    every rank's contribution)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        import torch.distributed as dist
+
+        ctx.group = group
+        x = x.clone()
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+def _global_stats(xf, group):
+    """:func:`_stats` over the batch of every rank of ``group``: the
+    per-rank sums of x and x^2 and the count, summed over the group in one
+    all-reduce (the statistics of the reference's ``jit`` step, whose one
+    program spans the global batch)."""
+    count = xf.new_full((1,), xf.numel() / xf.shape[1])
+    sums = _GroupSum.apply(torch.cat([xf.sum(dim=(0, 2, 3)),
+                                      xf.square().sum(dim=(0, 2, 3)),
+                                      count]), group)
+    c = xf.shape[1]
+    n = sums[2 * c]
+    mean = sums[:c] / n
+    var = torch.clamp(sums[c:2 * c] / n - mean * mean, min=0.0)
+    return mean, var
+
+
 def _normalize(xf, mean, var, scale, bias, eps, dtype):
     """flax ``_normalize``: ``(x - mean) * (rsqrt(var + eps) * scale) +
     bias`` in fp32, stored in ``dtype``. ``mean``/``var`` broadcast over
@@ -121,6 +163,8 @@ class BatchNorm(nn.Module):
                                  requires_grad=False)
         self.register_buffer("mean", torch.zeros(features, device=device))
         self.register_buffer("var", torch.ones(features, device=device))
+        # set by a data-parallel trainer whose step spans the group's batch
+        self.process_group = None
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         with torch.no_grad():
@@ -131,8 +175,11 @@ class BatchNorm(nn.Module):
 
     def forward(self, x):
         xf = x.float()
-        if self.training:
+        if self.training and self.process_group is not None:
+            mean, var = _global_stats(xf, self.process_group)
+        elif self.training:
             mean, var = _stats(xf, (0, 2, 3))
+        if self.training:
             with torch.no_grad():
                 m = self.momentum
                 self.mean.copy_(m * self.mean + (1 - m) * mean)
@@ -141,6 +188,15 @@ class BatchNorm(nn.Module):
             mean, var = self.mean, self.var
         return _normalize(xf, mean[:, None, None], var[:, None, None],
                           self.scale, self.bias, self.eps, self.dtype)
+
+
+def set_batchnorm_group(model: nn.Module, group) -> int:
+    """Point every :class:`BatchNorm` of ``model`` at ``group`` (None: per
+    rank statistics); returns how many there are."""
+    norms = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    for m in norms:
+        m.process_group = group
+    return len(norms)
 
 
 class GroupNorm(nn.Module):

@@ -10,9 +10,9 @@ Every ``TrainConfig`` field is a ``--flag`` with the reference script's
 defaults (:data:`DEFAULTS`); ``--device`` picks the device (default
 ``cuda``; ``cpu`` runs the plain versions). Without ``cifar-10-batches-py``
 under ``--data`` the dataset is the reference's deterministic synthetic
-CIFAR-10. The multi-process launch (``parallel.launch.initialize``) and the
-supervised restarts (``max_restarts``) are not ported: this runs one
-process on one device.
+CIFAR-10. Under ``TPU_DIST_*`` or Slurm rendezvous variables the process
+joins its group first (``parallel.launch.initialize``), as the cookbook
+scripts do; the supervised restarts (``max_restarts``) are not ported.
 """
 
 from __future__ import annotations
@@ -42,6 +42,7 @@ BENCH_GEOMETRY = dict(arch="resnet50", dataset="cifar10", batch_size=1024,
 def main(argv=None):
     """Parse ``argv``, train, print ``best_acc1``; returns the Trainer."""
     from tpu_dist_torch.engine.loop import Trainer
+    from tpu_dist_torch.parallel import launch
 
     ap = argparse.ArgumentParser(description=__doc__)
     add_args(ap, DEFAULTS)
@@ -50,8 +51,10 @@ def main(argv=None):
     args = ap.parse_args(argv)
     cfg = TrainConfig(**{f.name: getattr(args, f.name)
                          for f in dataclasses.fields(TrainConfig)})
+    info = launch.initialize(device=args.device)
     trainer = Trainer(cfg, device=args.device)
-    print(f"[proc 0/1] via single-process device={trainer.device} "
+    print(f"[proc {info.process_id}/{info.num_processes}] via {info.method} "
+          f"device={trainer.device} "
           f"data={'device' if trainer.device_data else 'host'} "
           f"dataset={trainer.train_ds.name} steps/epoch="
           f"{trainer.steps_per_epoch}", flush=True)

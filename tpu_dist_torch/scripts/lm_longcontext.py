@@ -7,7 +7,9 @@
 Every ``LMConfig`` field is a ``--flag`` (``--checkpoint-dir``/``--resume``,
 ``--pretrained``, ``--steps-per-dispatch``/``--data-placement``,
 ``--grad-accum-steps``, ``--loss-chunk`` and ``--attn blockwise`` among
-them); ``--mesh`` (only ``data=1`` runs in the port yet), ``--steps`` (alias of ``--max-steps``), ``--generate N``
+them); ``--mesh`` (``data=N``: N processes, launched as the cookbook
+scripts launch theirs; no other axis is ported yet), ``--steps`` (alias
+of ``--max-steps``), ``--generate N``
 (greedy-decode N tokens afterwards with ``engine.generate`` and report how
 many follow the synthetic affine rule) and ``--serve N`` (stand up the
 port's ``ServeEngine`` on the trained model, chunked prefill, and serve one
@@ -98,6 +100,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     from tpu_dist_torch.engine.lm_loop import LMTrainer
+    from tpu_dist_torch.parallel import launch
 
     cfg = LMConfig(**{f.name: getattr(args, f.name)
                       for f in dataclasses.fields(LMConfig)})
@@ -107,8 +110,10 @@ def main(argv=None):
     if args.steps:
         cfg = dataclasses.replace(cfg, max_steps=args.steps)
 
+    info = launch.initialize(device=args.device)
     trainer = LMTrainer(cfg, device=args.device)
-    print(f"[proc 0/1] mesh={{'data': 1}} mode={trainer.mode} "
+    print(f"[proc {info.process_id}/{info.num_processes}] "
+          f"mesh={trainer.mesh.shape} mode={trainer.mode} "
           f"device={trainer.device} corpus={trainer.train_ds.name} "
           f"rows={len(trainer.train_ds)} "
           f"tokens/step={cfg.batch_size * cfg.seq_len}", flush=True)
