@@ -103,6 +103,27 @@ CUDA or without the repository beside it. Phases:
    ranks against two gloo ranks on the CPU (``jit``, ``shard_map`` with
    bf16 and predivide 2, Adasum, the LM with buckets), and the 2-rank
    ``jit`` run against the 1-rank one. One card: no scaling is measured.
+11. the image side on one card: (a) script 6
+   (``scripts.distributed_slurm``) at its defaults (ResNet-50, synthetic
+   ImageNet 224 x 224 x 3 with 1000 classes, fp32, plain sgd, ``jit``)
+   cut to batch 256 and 4096 + 1024 images (SCRIPT6_CUTS): img/s with
+   window 1 left out, step ms, peak memory, acc@1, no kernel launched;
+   (b) ViT-B/16 with ``quant="int8"`` and ``fused_sgd`` (VIT_INT8): 48
+   ``fused_quant`` calls a step (and a validation batch), one ``sgd``
+   launch a step, ``fused`` true in every step record; ``fused_quant``
+   bit-equal at its training shapes and an M tail (VIT_QUANT_SHAPES),
+   timed against bf16 ``torch.matmul`` and its bound; (c) the 29 archs of
+   the zoo at 1000 classes (the published parameter counts; one bf16
+   ``fused_sgd`` step at batch 8, 224 px, 299 for inception_v3, with a
+   finite loss and one ``sgd`` launch), then one arch per family on the
+   card against the CPU in fp32 (ZOO_FAMILIES: the eval loss, and the
+   train-mode loss where no dropout draws, within LOSS_TOL (1 + |loss|);
+   int8 within twice the CPU's own spread under one-ulp input moves plus
+   INT8_LOSS_TOL (1 + |loss|): ``zoo_agreement``); (d) where the port's native library found
+   libjpeg, ``tools/data_rate.py`` over an 8-class tree of 500 x 375
+   JPEGs (with 11a's img/s as the rate to keep up with) and script 6 for
+   4 steps of 64 over it, every JPEG through the native decoder; where it
+   did not, the PIL route, or with no PIL the refusal naming both.
 
 The line before the last is the card's name and power limit; the one
 before it the ``{"kernels": [...]}`` record; the last line is
@@ -1864,12 +1885,14 @@ def dp_worker(spec_path):
 
 
 class DpGroup:
-    """``world`` phase-10 ranks of this script, started at once on one
-    loopback port; :meth:`wait` joins them and returns each rank's
-    results, and kills them all if one fails or the time runs out."""
+    """``world`` phase-10 ranks of this script, started at once on a
+    loopback store this process binds and holds
+    (``parallel.launch.host_store``); :meth:`wait` joins them and returns
+    each rank's results, and kills them all if one fails or the time runs
+    out."""
 
     def __init__(self, name, world, device, backend, jobs, tmp):
-        import socket
+        from tpu_dist_torch.parallel.launch import host_store
 
         self.name, self.world = name, world
         self.out = os.path.join(tmp, name)
@@ -1878,14 +1901,12 @@ class DpGroup:
         with open(spec, "w") as f:
             json.dump({"device": device, "backend": backend, "jobs": jobs,
                        "out": self.out}, f)
-        with socket.socket() as s:
-            s.bind(("127.0.0.1", 0))
-            port = s.getsockname()[1]
+        self.store, coordinator = host_store("127.0.0.1:0", world)
         self.procs = []
         for r in range(world):
-            env = dict(os.environ, TPU_DIST_COORDINATOR=f"127.0.0.1:{port}",
+            env = dict(os.environ, TPU_DIST_COORDINATOR=coordinator,
                        TPU_DIST_NUM_PROCESSES=str(world),
-                       TPU_DIST_PROCESS_ID=str(r))
+                       TPU_DIST_PROCESS_ID=str(r), TPU_DIST_STORE_HELD="1")
             log = open(os.path.join(self.out, f"rank{r}.log"), "w")
             self.procs.append((log, subprocess.Popen(
                 [sys.executable, os.path.abspath(__file__), DP_WORKER, spec],
@@ -1897,6 +1918,7 @@ class DpGroup:
                 p.kill()
                 p.wait()
             log.close()
+        self.store = None
 
     def wait(self, timeout_s):
         deadline = time.monotonic() + timeout_s
@@ -2099,6 +2121,385 @@ def dp_path(torch, kernels, training, image, tmp):
     return record, by_path
 
 
+# ---- phase 11: the image side on one card ----------------------------------
+
+# script 6 (scripts/6.distributed_slurm.py) at its DEFAULTS, cut to one
+# card: batch 3200 is job-wide and one card holds about 256 at fp32; one
+# epoch of 16 steps; 1024 validation images
+SCRIPT6_CUTS = dict(batch_size=256, synth_train_size=4096,
+                    synth_val_size=1024, epochs=1)
+# ViT-B/16 in int8 at full width on the synthetic ImageNet
+VIT_INT8 = dict(arch="vit_base", dataset="imagenet", precision="bf16",
+                quant="int8", optimizer="fused_sgd", batch_size=128,
+                synth_train_size=2048, synth_val_size=256, epochs=1,
+                seed=SEED, print_freq=16, workers=2)
+# fused_quant at ViT-B/16 training shapes, (M, K, N): M = 128 images x 197
+# tokens; an M that is no multiple of a tile (3 images) for the tail
+VIT_QUANT_SHAPES = {"vit qkv (train)": (25216, 768, 2304),
+                    "vit mlp_out (train)": (25216, 3072, 768),
+                    "vit qkv (3 images)": (591, 768, 2304)}
+# the 29 archs phase 11c builds at 1000 classes; torchvision's published
+# counts where they exist (tests/test_models.py:112-135)
+ZOO_PUBLISHED = {
+    "densenet121": 7_978_856, "densenet161": 28_681_000,
+    "densenet169": 14_149_480, "densenet201": 20_013_928,
+    "squeezenet1_0": 1_248_424, "squeezenet1_1": 1_235_496,
+    "shufflenet_v2_x0_5": 1_366_792, "shufflenet_v2_x1_0": 2_278_604,
+    "shufflenet_v2_x1_5": 3_503_624, "shufflenet_v2_x2_0": 7_393_996,
+    "mobilenet_v2": 3_504_872, "efficientnet_b0": 5_288_548,
+    "googlenet": 6_624_904, "inception_v3": 23_834_568,
+    "mnasnet0_5": 2_218_512, "mnasnet0_75": 3_170_208,
+    "mnasnet1_0": 4_383_312, "mnasnet1_3": 6_282_256,
+    "mobilenet_v3_large": 5_483_032, "mobilenet_v3_small": 2_542_856}
+ZOO_ARCHS = sorted(ZOO_PUBLISHED) + [
+    "vgg11", "vgg13", "vgg16", "vgg19", "alexnet", "vit_tiny", "vit_small",
+    "vit_base", "vit_cifar"]
+# one arch per family for the card-against-CPU check (phase 11c): name,
+# input px, whether the train-mode forward has no dropout, extra kwargs
+ZOO_FAMILIES = (("vgg11", 64, False, {}), ("densenet121", 64, True, {}),
+                ("alexnet", 64, False, {}), ("squeezenet1_0", 64, False, {}),
+                ("mobilenet_v2", 64, False, {}),
+                ("shufflenet_v2_x0_5", 64, True, {}),
+                # stochastic depth draws inside the trunk, ahead of the
+                # running stats: off, as in the CPU tests
+                ("efficientnet_b0", 64, False, {"sd_max": 0.0}),
+                ("googlenet", 64, False, {}), ("inception_v3", 128, False, {}),
+                ("mnasnet0_5", 64, False, {}),
+                ("mobilenet_v3_small", 64, False, {}),
+                ("vit_cifar", 32, True, {}),
+                ("vit_cifar", 32, True, {"quant": "int8"}))
+# 11d: the ImageFolder tree (8 classes x 32 JPEGs at 500 x 375) and the
+# script-6 steps over it
+FOLDER_IMAGES, FOLDER_CLASSES, FOLDER_BATCH = 256, 8, 64
+
+
+def script6_path(torch, kernels, cuts=SCRIPT6_CUTS, device="cuda"):
+    """11a: ``tpu_dist_torch.scripts.distributed_slurm.main`` at the
+    reference script's DEFAULTS (resnet50, synthetic ImageNet, fp32,
+    plain sgd, jit) with the cuts of SCRIPT6_CUTS."""
+    from tpu_dist_torch.scripts import distributed_slurm
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ledger = os.path.join(tmp, "run.jsonl")
+        argv = [a for k, v in cuts.items()
+                for a in (f"--{k.replace('_', '-')}", str(v))]
+        argv += ["--device", device, "--data", os.path.join(tmp, "no-data"),
+                 "--checkpoint-dir", os.path.join(tmp, "ck"),
+                 "--ledger-path", ledger, "--log-csv", "",
+                 "--print-freq", "8", "--workers", "4"]
+        if device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        tr = distributed_slurm.main(argv)
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        recs = ledger_steps(ledger)
+    cfg = tr.cfg
+    steps = cfg.synth_train_size // cfg.batch_size
+    if (cfg.arch, cfg.dataset, cfg.variant, cfg.precision, cfg.optimizer) \
+            != ("resnet50", "imagenet", "jit", "fp32", "sgd"):
+        raise AssertionError(f"script 6 config {cfg}")
+    if tr.state.step != steps or tr.num_classes != 1000 or \
+            tuple(tr.train_ds.image_shape) != (224, 224, 3):
+        raise AssertionError(f"script 6: {tr.state.step} of {steps} steps, "
+                             f"{tr.num_classes} classes, "
+                             f"{tr.train_ds.image_shape}")
+    losses = [r["loss"] for r in recs]
+    if len(losses) != steps or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"script 6 losses {losses}")
+    if any(launches.values()):
+        raise AssertionError(f"script 6 (plain sgd) launched {launches}")
+    return {"config": {**cuts, "arch": cfg.arch, "dataset": cfg.dataset,
+                       "precision": cfg.precision,
+                       "optimizer": cfg.optimizer, "variant": cfg.variant},
+            "cuts": "batch 3200 -> 256 (one card), 4096 train / 1024 val "
+                    "synthetic images, 1 epoch (90)",
+            "steps": steps, "losses": losses,
+            "train_img_per_s_window1_excluded": tr.last_img_s,
+            "step_ms": cfg.batch_size / tr.last_img_s * 1e3,
+            "val_acc1": tr.best_acc1,
+            "peak_mem_gb": (torch.cuda.max_memory_allocated() / 1e9
+                            if device == "cuda" else None),
+            "wall_s_incl_data_build_and_eval": wall}, launches
+
+
+def vit_int8_path(torch, kernels, cfg_kw=VIT_INT8, device="cuda"):
+    """11b: ViT-B/16 trained in int8 on fused_quant.cu with fused_sgd:
+    48 fused_quant calls a training step and as many a validation batch,
+    one sgd launch a step, ``fused`` true in every step record."""
+    from tpu_dist_torch.configs import TrainConfig
+    from tpu_dist_torch.engine.loop import Trainer
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ledger = os.path.join(tmp, "run.jsonl")
+        cfg = TrainConfig(**cfg_kw, ledger_path=ledger, log_csv="",
+                          checkpoint_dir=os.path.join(tmp, "ck"),
+                          data=os.path.join(tmp, "no-data"))
+        if device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        tr = Trainer(cfg, device=device)
+        tr.fit()
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        recs = ledger_steps(ledger)
+    steps = cfg.synth_train_size // cfg.batch_size
+    evals = -(-cfg.synth_val_size // cfg.batch_size)
+    params = sum(p.numel() for p in tr.state.params)
+    blocks = len(tr.model.block_names)
+    per_step = 4 * blocks     # qkv, proj, mlp_in, mlp_out of every block
+    on_card = device == "cuda"
+    # every training step, every validation batch and the trainer's one
+    # one-image forward that counts FLOPs for its analytic MFU
+    want_fq = per_step * (steps + evals + 1) if on_card else 0
+    losses = [r["loss"] for r in recs]
+    if tr.state.step != steps or len(losses) != steps or \
+            not all(map(math.isfinite, losses)):
+        raise AssertionError(f"vit int8: {tr.state.step} of {steps} steps, "
+                             f"losses {losses}")
+    if launches["fused_quant"] != want_fq or \
+            launches["sgd"] != (steps if on_card else 0):
+        raise AssertionError(f"vit int8 launches {launches}, expected "
+                             f"fused_quant {want_fq}, sgd {steps}")
+    if any(r.get("fused") is not on_card for r in recs):
+        raise AssertionError("vit int8: a step record's fused flag is "
+                             f"not {on_card}")
+    return {"config": {k: v for k, v in cfg_kw.items()
+                       if k not in ("print_freq", "workers")},
+            "params": params, "blocks": blocks, "steps": steps,
+            "losses": losses,
+            "train_img_per_s_window1_excluded": tr.last_img_s,
+            "step_ms": cfg.batch_size / tr.last_img_s * 1e3,
+            "val_acc1": tr.best_acc1,
+            "fused_quant_per_train_step": per_step,
+            "fused_quant_is": "per step x (steps + eval batches + the "
+                              "one-image FLOP-count forward)",
+            "eval_batches": evals, "fused": on_card,
+            "peak_mem_gb": (torch.cuda.max_memory_allocated() / 1e9
+                            if on_card else None),
+            "wall_s_incl_data_build_and_eval": wall,
+            "launches": launches}, launches
+
+
+def check_fused_quant_training(torch):
+    """fused_quant at ViT-B/16's training shapes (and an M tail): bit-equal
+    to its plain version, timed against bf16 torch.matmul of the same
+    operands and its bound."""
+    from tpu_dist_torch.ops import pallas_quant as pq
+
+    own = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    recs = {}
+    for label, (m, k, n) in VIT_QUANT_SHAPES.items():
+        x = torch.randn((m, k), generator=own, device="cuda").to(
+            torch.bfloat16)
+        w = (torch.randn((k, n), generator=own, device="cuda")
+             / math.sqrt(k)).to(torch.bfloat16)
+        out = pq.fused_quant_cuda(x, w)
+        ref = pq.fused_quant_matmul_plain(x, w)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        if not torch.equal(out, ref):
+            raise AssertionError(f"fused_quant {label} ({m}, {k}, {n}): "
+                                 f"max|err| {err}, expected bit-equal")
+        del ref, out
+        ms = time_ms(torch, lambda: pq.fused_quant_cuda(x, w))
+        plain_ms = time_ms(torch, lambda: pq.fused_quant_matmul_plain(x, w),
+                           iters=5)
+        yard_ms = time_ms(torch, lambda: torch.matmul(x, w))
+        nbytes = 2 * (m * k + k * n + m * n)
+        ops = 2.0 * m * n * k
+        t_ops, t_bytes = ops / PEAK_INT8_OPS, nbytes / PEAK_BYTES
+        recs[label] = {
+            "shape": f"{label}: M{m} K{k} N{n} bf16", "max_abs_err": err,
+            "tolerance": "bit-equal", "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": None, "yardstick_ms": yard_ms}
+    return recs
+
+
+def zoo_sweep(torch, kernels, archs=ZOO_ARCHS, batch=8, device="cuda"):
+    """11c: every new arch at 1000 classes on ``device``: its parameter
+    count (the published one where there is one) and one bf16
+    ``fused_sgd`` step at ``batch`` x 224 px (inception_v3: 299) with a
+    finite loss and one sgd launch."""
+    import numpy as np
+
+    from tpu_dist_torch.data.datasets import IMAGENET_MEAN, IMAGENET_STD
+    from tpu_dist_torch.data.pipeline import make_transform
+    from tpu_dist_torch.engine.state import TrainState
+    from tpu_dist_torch.engine.steps import image_train_step
+    from tpu_dist_torch.models.registry import create_model
+    from tpu_dist_torch.ops.optim import step_decay_schedule
+    from tpu_dist_torch.ops.pallas_sgd import FusedSGD
+
+    transform = make_transform(IMAGENET_MEAN, IMAGENET_STD,
+                               dtype=torch.bfloat16, device=device)
+    rng = np.random.default_rng(SEED)
+    out, sgd_total = {}, 0
+    # one step of each arch: no cuDNN autotuning of its conv shapes
+    torch.backends.cudnn.benchmark = False
+    for arch in archs:
+        px = 299 if arch == "inception_v3" else 224
+        t0 = time.perf_counter()
+        model = create_model(arch, num_classes=1000, dtype=torch.bfloat16,
+                             image_shape=(px, px, 3), device=device,
+                             seed=SEED)
+        n = sum(p.numel() for p in model.parameters())
+        if arch in ZOO_PUBLISHED and n != ZOO_PUBLISHED[arch]:
+            raise AssertionError(f"{arch}: {n} params, published "
+                                 f"{ZOO_PUBLISHED[arch]}")
+        model.requires_grad_(True)
+        model.train()
+        tx = FusedSGD(step_decay_schedule(0.01, 1), 0.9, 1e-4)
+        state = TrainState.create(model, tx)
+        images = torch.from_numpy(rng.integers(
+            0, 255, (batch, px, px, 3), np.uint8)).to(device)
+        labels = torch.from_numpy(rng.integers(0, 1000, batch)).to(device)
+        kernels.reset_launches()
+        m = image_train_step(model, tx, state, images, labels, transform)
+        loss = (m["loss_sum"] / m["count"]).item()
+        sgd = kernels.LAUNCHES["sgd"]
+        if not math.isfinite(loss) or sgd != (1 if device == "cuda" else 0):
+            raise AssertionError(f"{arch}: loss {loss}, sgd launches {sgd}")
+        sgd_total += sgd
+        out[arch] = {"params": n, "published": ZOO_PUBLISHED.get(arch),
+                     "px": px, "loss": loss, "sgd": sgd,
+                     "s": time.perf_counter() - t0}
+        del model, state, tx
+    return out, sgd_total
+
+
+def zoo_agreement(torch, families=ZOO_FAMILIES, n=4):
+    """11c: one arch per family, fp32, the same params on the card and on
+    the CPU (plain versions): the mean cross entropy of a train-mode
+    forward (where it has no dropout) and of the eval forward over the
+    running stats that train forward left, within LOSS_TOL (1 + |loss|).
+    int8 (``vit_cifar``, 8 blocks): a value that the card's and the CPU's
+    fp32 sums put on two sides of an int8 rounding boundary moves by one
+    quant step, and over 32 quantized products that moves the loss by
+    more than INT8_LOSS_TOL (1 + |loss|) on the CPU alone (its loss with
+    the input moved by one fp32 ulp, four draws). So int8 is held within
+    twice that spread of the CPU's own plus INT8_LOSS_TOL (1 + |loss|)."""
+    import numpy as np
+
+    from tpu_dist_torch.engine.steps import cross_entropy_sum
+    from tpu_dist_torch.models.registry import create_model
+
+    def losses_of(model, x, y, dev):
+        xs, ys = torch.from_numpy(x).to(dev), y.to(dev)
+        with torch.no_grad():
+            model.train()
+            train = cross_entropy_sum(model(xs), ys).item() / n
+            model.eval()
+            ev = cross_entropy_sum(model(xs), ys).item() / n
+        return train, ev
+
+    out = {}
+    for arch, px, dropout_free, kw in families:
+        int8 = kw.get("quant") == "int8"
+        tol = INT8_LOSS_TOL if int8 else LOSS_TOL
+        rng = np.random.default_rng(SEED)
+        x = rng.standard_normal((n, px, px, 3)).astype(np.float32)
+        y = torch.from_numpy(rng.integers(0, 10, n))
+        cpu = create_model(arch, num_classes=10, image_shape=(px, px, 3),
+                           device="cpu", seed=SEED, **kw)
+        card = create_model(arch, num_classes=10, image_shape=(px, px, 3),
+                            device="cuda", seed=None, **kw)
+        card.load_state_dict(cpu.state_dict())
+        ct, ce = losses_of(cpu, x, y, "cpu")
+        gt, ge = losses_of(card, x, y, "cuda")
+        spread = 0.0
+        if int8:          # the CPU's own spread under one-ulp input moves
+            for k in range(4):
+                ulp = np.random.default_rng(SEED + 1 + k).choice(
+                    [-1.0, 1.0], x.shape).astype(np.float32) \
+                    * np.abs(x) * 2.0 ** -23
+                st, se = losses_of(cpu, x + ulp, y, "cpu")
+                spread = max(spread, abs(st - ct), abs(se - ce))
+        held = [("eval", ge, ce)] + ([("train", gt, ct)] if dropout_free
+                                     else [])
+        for what, got, want in held:
+            if not abs(got - want) <= 2 * spread + tol * (1 + abs(want)):
+                raise AssertionError(f"{arch} {kw} {what} loss: card {got} "
+                                     f"!= cpu {want} (tol {tol}, cpu "
+                                     f"spread {spread})")
+        out[arch + "".join(f"+{k}={v}" for k, v in kw.items())] = {
+            "px": px, "cpu": [ct, ce], "card": [gt, ge],
+            "held": [w for w, _, _ in held], "tol": tol,
+            **({"cpu_one_ulp_spread": spread} if int8 else {})}
+    return out
+
+
+def imagefolder_path(torch, kernels, device_rate, device="cuda"):
+    """11d: where the native library found libjpeg, the data-rate tool
+    over an 8-class tree of 500 x 375 JPEGs and 4 steps of script 6 over
+    the same tree, every JPEG through the native decoder; where it did
+    not, ``dataset="imagenet"`` over a JPEG tree takes the PIL route (PIL
+    present) or raises naming both libraries."""
+    from tpu_dist_torch import native
+    from tpu_dist_torch.scripts import distributed_slurm
+    from tpu_dist_torch.tools import data_rate
+
+    probe = {"decode_available": native.decode_available(),
+             "pil": importable("PIL")}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "tree")
+        if not probe["decode_available"] and not probe["pil"]:
+            for split in ("train", "val"):
+                os.makedirs(os.path.join(root, split, "c0"))
+                with open(os.path.join(root, split, "c0", "0.jpg"),
+                          "wb") as f:
+                    f.write(b"\xff\xd8 no decoder on this host")
+            try:
+                distributed_slurm.main(["--device", device, "--data", root,
+                                        "--arch", "resnet18",
+                                        "--batch-size", "1", "--log-csv", "",
+                                        "--checkpoint-dir",
+                                        os.path.join(tmp, "ck")])
+            except RuntimeError as e:
+                if "libjpeg" not in str(e) or "PIL" not in str(e):
+                    raise
+                return {**probe, "refused": str(e)[:200]}, {}
+            raise AssertionError("an ImageFolder of JPEGs trained with no "
+                                 "decoder on the host")
+        rate = data_rate.main([
+            "--device", device, "--root", root, "--classes",
+            str(FOLDER_CLASSES), "--images", str(FOLDER_IMAGES),
+            "--batch", str(FOLDER_BATCH), "--seconds", "2",
+            "--device-rate", str(device_rate)])
+        kernels.reset_launches()
+        tr = distributed_slurm.main([
+            "--device", device, "--data", f"{root}_500",
+            "--batch-size", str(FOLDER_BATCH), "--epochs", "1",
+            "--print-freq", "1", "--log-csv", "", "--workers", "4",
+            "--checkpoint-dir", os.path.join(tmp, "ck")])
+        launches = dict(kernels.LAUNCHES)
+    steps = FOLDER_IMAGES // FOLDER_BATCH
+    if tr.state.step != steps or tr.num_classes != FOLDER_CLASSES:
+        raise AssertionError(f"11d: {tr.state.step} of {steps} steps, "
+                             f"{tr.num_classes} classes")
+    served = {"train": dict(tr.train_ds.routes),
+              "val": dict(tr.val_ds.routes)}
+    if probe["decode_available"]:
+        if any(r["pil"] for r in served.values()) or \
+                rate["routes"]["folder"]["pil"]:
+            raise AssertionError(f"11d: a JPEG took the PIL route: {served}")
+    elif any(r["native"] for r in served.values()):
+        raise AssertionError(f"11d: native decode without libjpeg {served}")
+    return {**probe, "data_rate": rate, "steps": steps,
+            "routes": served, "val_acc1": tr.best_acc1,
+            "train_img_per_s": tr.last_img_s}, launches
+
+
+def importable(name):
+    import importlib.util
+
+    return importlib.util.find_spec(name) is not None
+
+
 def main():
     import torch
 
@@ -2239,6 +2640,34 @@ def main():
         dp, dp_launches = dp_path(torch, kernels, training, image, tmp)
     log(f"phase 10 data parallelism: {json.dumps(dp)} on {card}")
 
+    # 11. the image side on one card
+    t0 = time.perf_counter()
+    free_device(torch)
+    s6, s6_launches = script6_path(torch, kernels)
+    log(f"phase 11a script 6: {json.dumps(s6)} on {card}")
+    free_device(torch)
+    vit8, vit8_launches = vit_int8_path(torch, kernels)
+    vit_quant = check_fused_quant_training(torch)
+    log(f"phase 11b ViT-B/16 int8: {json.dumps(vit8)} on {card}")
+    log(f"phase 11b fused_quant at training shapes: "
+        f"{json.dumps(vit_quant)} on {card}")
+    free_device(torch)
+    sweep, sweep_sgd = zoo_sweep(torch, kernels)
+    log(f"phase 11c zoo sweep ({len(sweep)} archs, 1000 classes, bf16 "
+        f"fused_sgd step at batch 8): {json.dumps(sweep)} on {card}")
+    agree = zoo_agreement(torch)
+    torch.backends.cudnn.benchmark = True
+    log(f"phase 11c zoo card-vs-CPU (fp32): {json.dumps(agree)}")
+    folder, folder_launches = imagefolder_path(
+        torch, kernels, s6["train_img_per_s_window1_excluded"])
+    log(f"phase 11d ImageFolder: {json.dumps(folder)} on {card}")
+    log(f"phase 11 took {time.perf_counter() - t0:.1f}s")
+    dp_launches = {**dp_launches, "script6_imagenet": s6_launches,
+                   "vit_base_int8": vit8_launches,
+                   "zoo_sweep": {**{k: 0 for k in kernels.SOURCES},
+                                 "sgd": sweep_sgd},
+                   "imagefolder_script6": folder_launches}
+
     # every main-path run's own counts, for a kernel that no single path owns
     by_path = {**dp_launches,
                "serving": serve_launches, "training": train_launches,
@@ -2315,8 +2744,10 @@ def main():
             entry["yardstick_ms"] = rec["yardstick_ms"]
             entry["more_shapes"] = [r for k, r in quant.items()
                                     if k != "decode lm_head"]
+            entry["more_shapes"] += list(vit_quant.values())
             entry["launches_by_path"] = {
-                "int8_serving": quant_launches["fused_quant"]}
+                "int8_serving": quant_launches["fused_quant"],
+                "vit_base_int8": vit8_launches["fused_quant"]}
         if kname == "flash_fwd_int8kv":
             entry["launches_by_path"] = int8kv_by_path
             entry["note"] = ("no path in the JAX package calls the TPU "

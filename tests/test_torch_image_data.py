@@ -1,6 +1,7 @@
 """The port's image data layer against the reference, on CPU:
 
-* the synthetic CIFAR-10 and MNIST sets are bit-equal to the reference's;
+* the synthetic CIFAR-10, MNIST and ImageNet sets are bit-equal to the
+  reference's;
 * the CIFAR-10 pickle and MNIST idx loaders read tiny files written here in
   the torchvision on-disk formats, as the reference's do;
 * ``normalize`` matches the reference's in fp32 and bf16;
@@ -44,15 +45,17 @@ def _same(ref, port):
         np.testing.assert_array_equal(r, p)
 
 
-@pytest.mark.parametrize("name", ["cifar10", "synthetic-cifar10", "mnist"])
+@pytest.mark.parametrize("name", ["cifar10", "synthetic-cifar10", "mnist",
+                                  "imagenet"])
 def test_synthetic_sets_bit_equal(tmp_path, name):
+    """With no files under the root each name is its synthetic set
+    (``imagenet``: 224 x 224 x 3, 1000 classes, no ``train``/``val``
+    folders)."""
     kw = dict(synth_train=96, synth_val=40, seed=7)
     root = str(tmp_path / "absent")
     for ref, port in zip(jds.load_dataset(name, root, **kw),
                          tds.load_dataset(name, root, **kw)):
         _same(ref, port)
-    with pytest.raises(NotImplementedError, match="imagefolder"):
-        tds.load_dataset("imagenet", root)
 
 
 def _write_cifar(root, n_per_batch=12):

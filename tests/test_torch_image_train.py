@@ -13,7 +13,8 @@
   falls back to the retained one;
 * every knob not ported yet raises ``NotImplementedError`` naming itself,
   a data axis wider than the process count raises ``ValueError``, the
-  default device is CUDA, and the entry script runs on the CPU."""
+  default device is CUDA, an unported arch and ``quant`` on a conv arch
+  refuse, and the entry script runs on the CPU."""
 
 import dataclasses
 import json
@@ -176,12 +177,16 @@ def test_default_device_is_cuda_and_bad_archs_refuse():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             Trainer(TrainConfig(**TINY))
-    with pytest.raises(NotImplementedError, match="vgg16.*cnn_zoo"):
-        Trainer(TrainConfig(**{**TINY, "arch": "vgg16"}), device="cpu")
+    from tpu_dist_torch.models.registry import create_model
+
+    with pytest.raises(NotImplementedError, match="moe_lm.*moe.py"):
+        create_model("moe_lm", device="cpu")
     with pytest.raises(ValueError, match="language model"):
         Trainer(TrainConfig(**{**TINY, "arch": "tiny_lm"}), device="cpu")
-    with pytest.raises(NotImplementedError, match="imagefolder"):
-        Trainer(TrainConfig(**{**TINY, "dataset": "imagenet"}), device="cpu")
+    # the reference's config-time rule: quant only for the vit_* archs
+    with pytest.raises(ValueError, match=r"vit_\*.*'resnet18' does not "
+                                         "take it"):
+        Trainer(TrainConfig(**{**TINY, "quant": "int8"}), device="cpu")
 
 
 def test_entry_script_trains_on_the_cpu(tmp_path, capsys):

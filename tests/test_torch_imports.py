@@ -74,7 +74,13 @@ def test_importing_every_module_pulls_in_no_jax():
             "tpu_dist_torch.scripts.multiprocessing_spawn",
             "tpu_dist_torch.scripts.bf16_distributed",
             "tpu_dist_torch.scripts.allreduce_distributed",
-            "tpu_dist_torch.scripts.mnist"} <= set(out["mods"])
+            "tpu_dist_torch.scripts.mnist", "tpu_dist_torch.native",
+            "tpu_dist_torch.data.imagefolder",
+            "tpu_dist_torch.models.cnn_zoo",
+            "tpu_dist_torch.models.inception",
+            "tpu_dist_torch.models.mobile", "tpu_dist_torch.models.vit",
+            "tpu_dist_torch.scripts.distributed_slurm",
+            "tpu_dist_torch.tools.data_rate"} <= set(out["mods"])
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -118,3 +124,6 @@ def test_default_device_raises_without_cuda():
         create_model("resnet18")
     assert create_model("lenet", device="cpu").fc2.kernel.device.type \
         == "cpu"
+    for arch in ("mobilenet_v3_small", "vit_cifar"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            create_model(arch)

@@ -14,19 +14,12 @@ imports neither JAX nor the JAX package.
 
 import json
 import os
-import socket
 import subprocess
 import sys
 
 import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-
-def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
 
 
 def run_group(world: int, spec: dict, out: str, timeout: int = 300):
@@ -36,7 +29,11 @@ def run_group(world: int, spec: dict, out: str, timeout: int = 300):
     path = os.path.join(out, "spec.json")
     with open(path, "w") as f:
         json.dump(spec, f)
-    port = free_port()
+    # this process binds the store on a free port and holds it until the
+    # ranks are done, so nothing else can take the port first
+    from tpu_dist_torch.parallel.launch import host_store
+
+    store, coordinator = host_store("127.0.0.1:0", world)
     env = {k: v for k, v in os.environ.items()
            if not k.startswith(("TPU_DIST", "SLURM_"))}
     env.update(OMP_NUM_THREADS="1", PYTHONPATH=ROOT)
@@ -45,9 +42,9 @@ def run_group(world: int, spec: dict, out: str, timeout: int = 300):
         log = open(os.path.join(out, f"rank{r}.log"), "w")
         procs.append((log, subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), path],
-            env=dict(env, TPU_DIST_COORDINATOR=f"127.0.0.1:{port}",
+            env=dict(env, TPU_DIST_COORDINATOR=coordinator,
                      TPU_DIST_NUM_PROCESSES=str(world),
-                     TPU_DIST_PROCESS_ID=str(r)),
+                     TPU_DIST_PROCESS_ID=str(r), TPU_DIST_STORE_HELD="1"),
             cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)))
     failed = []
     for r, (log, p) in enumerate(procs):
@@ -60,6 +57,7 @@ def run_group(world: int, spec: dict, out: str, timeout: int = 300):
         if rc != 0:
             with open(os.path.join(out, f"rank{r}.log")) as f:
                 failed.append(f"rank {r} rc={rc}\n{f.read()[-3000:]}")
+    del store                 # every rank has exited
     if failed:
         raise AssertionError("\n".join(failed))
     results = []

@@ -1,9 +1,10 @@
 """Image datasets for the port: a numpy copy of ``tpu_dist/data/datasets.py``.
 
 * :class:`ArrayDataset` holds uint8 images (N, H, W, C) and int32 labels
-  on the host; :meth:`ArrayDataset.get_batch` gathers rows with numpy (the
-  reference uses its native gather library, ``tpu_dist/_native``, when it
-  is built, and numpy otherwise: the rows are the same);
+  on the host; :meth:`ArrayDataset.get_batch` gathers rows through the
+  port's native library (``native.gather_batch``: whole-row memcpy with
+  the GIL released, numpy for a non-contiguous array or an index out of
+  range), as the reference does through ``tpu_dist/_native``;
 * :func:`_synthetic` is the reference's deterministic, learnable synthetic
   set (``:75-96``): images and labels are bit-equal to the reference's for
   the same seeds, because both draw from numpy's ``default_rng`` in the same
@@ -11,10 +12,10 @@
 * the CIFAR-10 pickle (``cifar-10-batches-py``) and MNIST idx loaders read
   the torchvision on-disk formats when the files are under ``--data``;
   otherwise :func:`load_dataset` falls back to the synthetic set, as the
-  reference does (``:143-172``).
-
-``imagenet`` (``data/imagefolder.py``, JPEG decode) is not ported yet and
-raises ``NotImplementedError``.
+  reference does (``:143-172``);
+* ``imagenet`` reads ``<root>/{train,val}/<class>/<image>`` through
+  ``data.imagefolder`` when both folders exist, and is otherwise the
+  synthetic 224x224x3, 1000-class set (``:164-171``).
 """
 
 from __future__ import annotations
@@ -28,11 +29,15 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from tpu_dist_torch import native
+
 # CIFAR10 channel stats, as hard-coded by the reference cookbook
 CIFAR10_MEAN = np.array([0.4914, 0.4822, 0.4465], np.float32)
 CIFAR10_STD = np.array([0.2023, 0.1994, 0.2010], np.float32)
 MNIST_MEAN = np.array([0.1307], np.float32)
 MNIST_STD = np.array([0.3081], np.float32)
+IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
+IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
 
 
 @dataclass
@@ -54,11 +59,9 @@ class ArrayDataset:
         return self.images.shape[1:]
 
     def get_batch(self, indices: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
-        """The uint8 batch and its labels for the given sample indices (a
-        numpy row gather)."""
-        idx = np.asarray(indices, np.int64)
-        return (np.ascontiguousarray(self.images[idx]),
-                np.ascontiguousarray(self.labels[idx]))
+        """The uint8 batch and its int32 labels for the given sample
+        indices (``native.gather_batch``)."""
+        return native.gather_batch(self.images, self.labels, indices)
 
 
 def _synthetic(num: int, shape: Tuple[int, int, int], num_classes: int,
@@ -151,7 +154,11 @@ def load_dataset(name: str, root: str, synth_train: int = 50000,
         va = _synthetic(synth_val, (28, 28, 1), 10, seed, seed + 2, "synth-mnist-val")
         return tr, va
     if name == "imagenet":
-        raise NotImplementedError(
-            "dataset='imagenet' is not ported yet: it needs the ImageFolder "
-            "JPEG loader of tpu_dist/data/imagefolder.py")
+        from tpu_dist_torch.data.imagefolder import load_imagefolder
+        real = load_imagefolder(root)
+        if real is not None:
+            return real
+        tr = _synthetic(synth_train, (224, 224, 3), 1000, seed, seed + 1, "synth-imagenet-train")
+        va = _synthetic(synth_val, (224, 224, 3), 1000, seed, seed + 2, "synth-imagenet-val")
+        return tr, va
     raise ValueError(f"unknown dataset {name!r}")

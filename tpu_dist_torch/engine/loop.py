@@ -5,9 +5,11 @@ device each (a reference ``data=N`` mesh is N processes here).
 What follows the reference (line numbers are ``loop.py``'s):
 
 * ``__init__`` (``:54-448``): config validation, the datasets
-  (``data.datasets``; the synthetic fallback when the files are absent),
-  the model (``models.registry``, with the ResNet knobs ``norm``,
-  ``norm_dtype`` and ``stem``), the ``pretrained`` warm start
+  (``data.datasets``: arrays, or the ImageNet ``data.imagefolder`` tree;
+  the synthetic fallback when the files are absent), the model
+  (``models.registry``, every image arch, with the ResNet knobs ``norm``,
+  ``norm_dtype`` and ``stem``, and ``quant`` for the ``vit_*`` archs
+  alone, ``:109-124``), the ``pretrained`` warm start
   (``:174-190``: the leaves of a port checkpoint whose name and shape
   match, params and BN stats, over a fresh optimizer at step 0), the
   step-decay schedule, the optimizer (``sgd`` | ``adamw`` | ``fused_sgd``,
@@ -91,14 +93,16 @@ from tpu_dist_torch.obs.ledger import EpochCsvSink, Ledger
 from tpu_dist_torch.ops.optim import make_optimizer, step_decay_schedule
 from tpu_dist_torch.ops.pallas_sgd import FusedSGD
 from tpu_dist_torch.ops.precision import LossScaleState, make_policy
+from tpu_dist_torch.ops.quant import validate_quant
 from tpu_dist_torch.parallel.collectives import all_reduce_
+from tpu_dist_torch.parallel.launch import say
 from tpu_dist_torch.parallel.mesh import make_mesh
 from tpu_dist_torch.utils.meters import MeterBank
 
 # knob -> its accepted values. Anything else raises NotImplementedError
 # naming the knob: each waits for a later slice of the port.
 UNPORTED = {
-    "mesh_axes": (("data",),), "tp_impl": ("gspmd",), "quant": ("none",),
+    "mesh_axes": (("data",),), "tp_impl": ("gspmd",),
     "plan": ("", "none"), "audit": ("none",), "faults": ("",),
     "max_restarts": (0,), "metrics_port": (0,), "profile_dir": ("",),
     "telemetry_csv": ("",), "skew_every": (0,),
@@ -136,7 +140,7 @@ def image_forward_flops(model, image_shape) -> float:
         total[0] += 2.0 * out[0].numel() * mod.weight[0].numel()
 
     def dense_hook(mod, _inp, out):
-        total[0] += 2.0 * mod.in_features * mod.features
+        total[0] += 2.0 * out.numel() * mod.in_features   # every token
 
     hooks = [m.register_forward_hook(conv_hook if isinstance(m, Conv)
                                      else dense_hook)
@@ -238,6 +242,15 @@ class Trainer:
             raise ValueError(
                 f"--norm/--norm-dtype/--stem are ResNet-family knobs; "
                 f"arch {cfg.arch!r} does not take them")
+        if cfg.quant and cfg.quant != "none":
+            validate_quant(cfg.quant)
+            if not cfg.arch.startswith("vit"):
+                # the reference's rule (:114-124): int8 matmuls live in the
+                # transformer families; a conv stack has no quantized path
+                raise ValueError(
+                    f"--quant {cfg.quant} applies to the transformer-family "
+                    f"image archs (vit_*); arch {cfg.arch!r} does not take it")
+            model_kw["quant"] = cfg.quant
         self.cfg = cfg
         self.device = self.mesh.device
         self.rank, self.world = self.mesh.rank, world
@@ -300,11 +313,19 @@ class Trainer:
                                              device=self.device)
 
         # ---- data placement (:274-336) ----
-        val_rides = self.val_ds.image_shape == self.train_ds.image_shape
+        in_memory = isinstance(getattr(self.train_ds, "images", None),
+                               np.ndarray)
+        if cfg.data_placement == "device" and not in_memory:
+            raise ValueError("data_placement='device' needs an in-memory "
+                             "(ArrayDataset) training set")
+        val_rides = (in_memory and isinstance(
+            getattr(self.val_ds, "images", None), np.ndarray)
+            and self.val_ds.image_shape == self.train_ds.image_shape)
         data_bytes = (self.train_ds.images.nbytes
-                      + (self.val_ds.images.nbytes if val_rides else 0))
-        fits = data_bytes <= int(os.environ.get("TPU_DIST_DEVICE_DATA_MAX",
-                                                str(1 << 30)))
+                      + (self.val_ds.images.nbytes if val_rides else 0)
+                      ) if in_memory else 0
+        fits = in_memory and data_bytes <= int(os.environ.get(
+            "TPU_DIST_DEVICE_DATA_MAX", str(1 << 30)))
         self.device_data = (cfg.data_placement == "device"
                             or (cfg.data_placement == "auto" and fits
                                 and self.k > 1))
@@ -314,6 +335,10 @@ class Trainer:
             if val_rides:
                 self._val_data_dev = self._resident(self.val_ds)
 
+        # whether the int8 matmuls (vit_* under quant="int8") ride
+        # csrc/fused_quant.cu (on the CPU its plain version runs): the step
+        # records' ``fused`` flag (:444-448,511; the LMTrainer's twin)
+        self._fused_quant = cfg.quant == "int8" and self.device.type == "cuda"
         self.best_acc1 = 0.0
         self.last_img_s = 0.0
         self.start_epoch = cfg.start_epoch
@@ -396,9 +421,9 @@ class Trainer:
                          f"{self.start_epoch}, skipping {self._skip_batches} "
                          "already-applied batches")
 
-    def log(self, *a, **kw):
+    def log(self, line: str) -> None:
         if self.is_main:
-            print(*a, **kw, flush=True)
+            say(line)
 
     def _sampler(self, ds, train: bool, epoch: int) -> DistributedSampler:
         sampler = DistributedSampler(
@@ -498,7 +523,8 @@ class Trainer:
                 unit="img/s", data_s=info["data_s"],
                 dispatch_s=info["dispatch_s"], device_s=share, comm_s=None,
                 mfu=self._mfu(img_s)[1], steps_in_dispatch=n,
-                warm=info["warm"], acc1=acc1, grad_norm=gn,
+                warm=info["warm"], fused=self._fused_quant, acc1=acc1,
+                grad_norm=gn,
                 nonfinite_count=m["nonfinite_count"], update_norm=un, **mem)
             self.health.observe(info["step"], loss,
                                 nonfinite=m["nonfinite_count"],
@@ -563,7 +589,7 @@ class Trainer:
                 self._drain(pending, meters)
             meters.update("Time", time.time() - end)
             if boundary and self.is_main:
-                meters.display(i)
+                meters.display(i, printer=say)
             end = time.time()
         return self._epoch_result(meters, nb - skip, warm)
 
@@ -639,7 +665,7 @@ class Trainer:
                 last_print = done - 1
             meters.update("Time", (time.time() - end) / n, n)
             if boundary and self.is_main:
-                meters.display(done - 1)
+                meters.display(done - 1, printer=say)
             end = time.time()
         return self._epoch_result(meters, nb - skip, warm)
 

@@ -3,7 +3,8 @@
 * ``TransformerLM``: :func:`load_flax_params` loads a tree,
   :func:`export_flax_params` writes the port's params back out as one (so
   trained params compare with the reference's leaf by leaf);
-* the image models (``models/resnet.py``, ``models/lenet.py``):
+* the image models (``models/{resnet,lenet,cnn_zoo,inception,mobile,
+  vit}.py``):
   :func:`load_flax_image_params` and :func:`export_flax_image_params` do
   the same for a ``(params, batch_stats)`` pair (table at the bottom).
 
@@ -135,23 +136,32 @@ def export_flax_params(model) -> dict:
 # The port's image modules carry flax's names, so the trees map name for
 # name: ``conv1``, ``bn1``, ``layer{i}_block{j}`` / ``Conv_k``,
 # ``BatchNorm_k`` or ``GroupNorm_k``, ``downsample_conv``, ``downsample_bn``,
-# ``fc``; LeNet's ``conv1``, ``conv2``, ``fc1``, ``fc2``. Per leaf:
+# ``fc``; LeNet's ``conv1``, ``conv2``, ``fc1``, ``fc2``; the zoo's
+# (``models/{cnn_zoo,inception,mobile}.py``) names of each plan, SE blocks'
+# ``fc1``/``fc2`` included; the ViT's ``patch_embed``, ``block{i}`` (``ln1``,
+# ``qkv``, ``proj``, ``ln2``, ``mlp_in``, ``mlp_out``), ``ln_f``, ``head``
+# and its own ``cls`` and ``pos_embed`` params. Per leaf:
 #
 # ===========================  =============================================
 # flax                          port
 # ===========================  =============================================
-# Conv ``kernel`` (kh,kw,i,o)   ``Conv.weight`` (o, i, kh, kw); ``bias``
+# Conv ``kernel`` (kh,kw,i/g,o) ``Conv.weight`` (o, i/g, kh, kw); ``bias``
 # Dense ``kernel`` (in, out)    ``QuantDense.kernel`` (in, out); ``bias``
 # BatchNorm ``scale``/``bias``  ``BatchNorm.scale``/``bias`` (params)
 # batch_stats ``mean``/``var``  ``BatchNorm.mean``/``var`` (buffers)
-# GroupNorm ``scale``/``bias``  ``GroupNorm.scale``/``bias``
+# GroupNorm, LayerNorm          ``scale``/``bias``
+# a module's own param          the ``nn.Parameter`` of that name
 # ===========================  =============================================
+#
+# Grouped and depthwise convs need nothing more: flax's HWIO kernel holds
+# in/groups input channels, as torch's OIHW weight does.
 
 
 def _image_leaves(mod):
     """(params leaves, batch_stats leaves) of one port leaf module as
     {name: tensor} dicts, or None for a container."""
     from tpu_dist_torch.models.resnet import BatchNorm, Conv, GroupNorm
+    from tpu_dist_torch.models.transformer import LayerNorm
 
     if isinstance(mod, Conv):
         p = {"kernel": mod.weight}
@@ -162,7 +172,7 @@ def _image_leaves(mod):
     if isinstance(mod, BatchNorm):
         return ({"scale": mod.scale, "bias": mod.bias},
                 {"mean": mod.mean, "var": mod.var})
-    if isinstance(mod, GroupNorm):
+    if isinstance(mod, (GroupNorm, LayerNorm)):
         return {"scale": mod.scale, "bias": mod.bias}, {}
     return None
 
@@ -173,8 +183,8 @@ def _hwio_to_oihw(a: np.ndarray) -> np.ndarray:
 
 def load_flax_image_params(model, params: dict, batch_stats=None):
     """Copy a flax image-model tree (``variables["params"]`` and
-    ``variables["batch_stats"]``) into a port ResNet or LeNet of the same
-    geometry; returns ``model``. Missing or extra leaves raise; fp leaves
+    ``variables["batch_stats"]``) into a port image model (any arch of
+    ``models.registry``) of the same geometry; returns ``model``. Missing or extra leaves raise; fp leaves
     are cast to the port's storage dtype."""
     from tpu_dist_torch.models.resnet import Conv
 
@@ -193,9 +203,12 @@ def load_flax_image_params(model, params: dict, batch_stats=None):
                 _copy(t, src, f"{path}.{k}")
             return
         kids = dict(mod.named_children())
-        if set(pnode) != set(kids):
+        own = dict(mod.named_parameters(recurse=False))
+        if set(pnode) != set(kids) | set(own):
             raise ValueError(f"{path or 'params'}: children {sorted(pnode)}, "
-                             f"expected {sorted(kids)}")
+                             f"expected {sorted({**kids, **own})}")
+        for name, t in own.items():
+            _copy(t, pnode[name], f"{path}.{name}" if path else name)
         for name, kid in kids.items():
             walk(kid, pnode[name], (snode or {}).get(name),
                  f"{path}.{name}" if path else name)
@@ -220,7 +233,8 @@ def export_flax_image_params(model):
                 out["kernel"] = np.ascontiguousarray(
                     np.transpose(out["kernel"], (2, 3, 1, 0)))
             return out, {k: _np(t) for k, t in st.items()}
-        params, stats = {}, {}
+        params = {n: _np(t) for n, t in mod.named_parameters(recurse=False)}
+        stats = {}
         for name, kid in mod.named_children():
             params[name], s = walk(kid)
             if s:

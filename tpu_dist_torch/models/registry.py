@@ -1,14 +1,16 @@
 """Model factory for the port (``tpu_dist/models/registry.py``).
 
-The same names and kinds as the reference's ``_REGISTRY``. Ported: the
-ResNet family, LeNet (``lenet``, ``mnist_net``) and the LM
-(``transformer_lm``, ``tiny_lm`` build the port's ``TransformerLM``). Every
-other arch of the reference's registry is known by name and kind, and
-:func:`create_model` raises ``NotImplementedError`` naming it and its JAX
+The same names and kinds as the reference's ``_REGISTRY``: every image
+arch (the ResNet family, the CNN zoo of ``models/cnn_zoo.py``,
+``models/inception.py`` and ``models/mobile.py``, the ViTs of
+``models/vit.py``, LeNet) and the LM (``transformer_lm``, ``tiny_lm``
+build the port's ``TransformerLM``). ``moe_lm`` is known by name and kind,
+and :func:`create_model` raises ``NotImplementedError`` naming its JAX
 module.
 
-Image models take ``image_shape`` (H, W, C) at construction (flax infers
-the input channels at init; a torch module needs them up front), a
+Image models take their input geometry at construction (flax infers it at
+init; a torch module needs it up front): LeNet and the ViTs the whole
+``image_shape`` (H, W, C), the CNNs its channels. They also take a
 ``device`` and a ``seed`` for their random init.
 """
 
@@ -18,7 +20,8 @@ from typing import Callable, Dict, Tuple
 
 import torch
 
-from tpu_dist_torch.models import lenet, resnet
+from tpu_dist_torch.models import (cnn_zoo, inception, lenet, mobile,
+                                   resnet, vit)
 
 # name -> (port constructor, kind)
 _REGISTRY: Dict[str, Tuple[Callable, str]] = {
@@ -31,30 +34,44 @@ _REGISTRY: Dict[str, Tuple[Callable, str]] = {
     "resnext101_32x8d": (resnet.ResNeXt101_32x8d, "image"),
     "wide_resnet50_2": (resnet.WideResNet50_2, "image"),
     "wide_resnet101_2": (resnet.WideResNet101_2, "image"),
+    "vgg11": (cnn_zoo.VGG11, "image"),
+    "vgg13": (cnn_zoo.VGG13, "image"),
+    "vgg16": (cnn_zoo.VGG16, "image"),
+    "vgg19": (cnn_zoo.VGG19, "image"),
+    "densenet121": (cnn_zoo.DenseNet121, "image"),
+    "densenet161": (cnn_zoo.DenseNet161, "image"),
+    "densenet169": (cnn_zoo.DenseNet169, "image"),
+    "densenet201": (cnn_zoo.DenseNet201, "image"),
+    "alexnet": (cnn_zoo.AlexNet, "image"),
+    "googlenet": (inception.GoogLeNet, "image"),
+    "inception_v3": (inception.InceptionV3, "image"),
+    "mnasnet0_5": (mobile.MnasNet0_5, "image"),
+    "mnasnet0_75": (mobile.MnasNet0_75, "image"),
+    "mnasnet1_0": (mobile.MnasNet1_0, "image"),
+    "mnasnet1_3": (mobile.MnasNet1_3, "image"),
+    "mobilenet_v2": (cnn_zoo.MobileNetV2, "image"),
+    "mobilenet_v3_large": (mobile.MobileNetV3Large, "image"),
+    "mobilenet_v3_small": (mobile.MobileNetV3Small, "image"),
+    "squeezenet1_0": (cnn_zoo.SqueezeNet1_0, "image"),
+    "squeezenet1_1": (cnn_zoo.SqueezeNet1_1, "image"),
+    "shufflenet_v2_x0_5": (cnn_zoo.ShuffleNetV2_x0_5, "image"),
+    "shufflenet_v2_x1_0": (cnn_zoo.ShuffleNetV2_x1_0, "image"),
+    "shufflenet_v2_x1_5": (cnn_zoo.ShuffleNetV2_x1_5, "image"),
+    "shufflenet_v2_x2_0": (cnn_zoo.ShuffleNetV2_x2_0, "image"),
+    "efficientnet_b0": (cnn_zoo.EfficientNet, "image"),
     "lenet": (lenet.LeNet, "image"),
     "mnist_net": (lenet.LeNet, "image"),  # reference 5.2 'Net' alias
+    "vit_tiny": (vit.ViTTiny, "image"),
+    "vit_small": (vit.ViTSmall, "image"),
+    "vit_base": (vit.ViTBase, "image"),
+    "vit_cifar": (vit.ViTCifar, "image"),
     "transformer_lm": (None, "lm"),
     "tiny_lm": (None, "lm"),
 }
 
 # archs of the reference registry the port has not ported: name -> the JAX
 # module that holds it
-_UNPORTED = {
-    **{n: "tpu_dist/models/cnn_zoo.py" for n in (
-        "vgg11", "vgg13", "vgg16", "vgg19", "densenet121", "densenet161",
-        "densenet169", "densenet201", "alexnet", "mobilenet_v2",
-        "squeezenet1_0", "squeezenet1_1", "shufflenet_v2_x0_5",
-        "shufflenet_v2_x1_0", "shufflenet_v2_x1_5", "shufflenet_v2_x2_0",
-        "efficientnet_b0")},
-    "googlenet": "tpu_dist/models/inception.py",
-    "inception_v3": "tpu_dist/models/inception.py",
-    **{n: "tpu_dist/models/mobile.py" for n in (
-        "mnasnet0_5", "mnasnet0_75", "mnasnet1_0", "mnasnet1_3",
-        "mobilenet_v3_large", "mobilenet_v3_small")},
-    **{n: "tpu_dist/models/vit.py" for n in (
-        "vit_tiny", "vit_small", "vit_base", "vit_cifar")},
-    "moe_lm": "tpu_dist/models/moe.py",
-}
+_UNPORTED = {"moe_lm": "tpu_dist/models/moe.py"}
 
 model_names = sorted({**_REGISTRY, **_UNPORTED})
 
@@ -63,7 +80,7 @@ def model_kind(arch: str) -> str:
     if arch in _REGISTRY:
         return _REGISTRY[arch][1]
     if arch in _UNPORTED:
-        return "lm" if arch == "moe_lm" else "image"
+        return "lm"
     raise ValueError(f"unknown arch {arch!r}; choose from {model_names}")
 
 
@@ -92,7 +109,7 @@ def create_model(arch: str, num_classes: int = 10, dtype=torch.float32,
         ctor = tiny_lm if arch == "tiny_lm" else TransformerLM
         return ctor(dtype=dtype, **kwargs)
     ctor = _REGISTRY[arch][0]
-    if ctor is lenet.LeNet:
+    if ctor is lenet.LeNet or arch.startswith("vit"):
         return ctor(num_classes=num_classes, dtype=dtype,
                     image_shape=image_shape, **kwargs)
     return ctor(num_classes=num_classes, dtype=dtype,

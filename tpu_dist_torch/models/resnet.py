@@ -51,17 +51,19 @@ from tpu_dist_torch.ops.quant import make_dense
 class Conv(nn.Module):
     """flax ``nn.Conv`` over channels_last NCHW tensors. ``weight`` is
     (out, in/groups, kh, kw) in ``param_dtype`` (the flax HWIO kernel,
-    transposed); optional ``bias``. Computes in ``dtype``."""
+    transposed); optional ``bias``. Computes in ``dtype``. ``kernel`` and
+    ``padding`` (symmetric, per side) are an int or an (h, w) pair."""
 
-    def __init__(self, in_ch: int, out_ch: int, kernel: int, stride: int = 1,
-                 padding: int = 0, groups: int = 1, use_bias: bool = False,
+    def __init__(self, in_ch: int, out_ch: int, kernel, stride: int = 1,
+                 padding=0, groups: int = 1, use_bias: bool = False,
                  dtype=torch.float32, device=None,
                  param_dtype=torch.float32):
         super().__init__()
         self.stride, self.padding, self.groups = stride, padding, groups
         self.dtype = dtype
+        kh, kw = (kernel, kernel) if isinstance(kernel, int) else kernel
         self.weight = nn.Parameter(torch.empty(
-            out_ch, in_ch // groups, kernel, kernel, dtype=param_dtype,
+            out_ch, in_ch // groups, kh, kw, dtype=param_dtype,
             device=device), requires_grad=False)
         self.bias = (nn.Parameter(torch.zeros(out_ch, dtype=param_dtype,
                                               device=device),

@@ -12,7 +12,9 @@ priority order:
 4. nothing set: one local process, no process group.
 
 :func:`initialize` then calls ``torch.distributed.init_process_group`` on
-``tcp://<coordinator>`` inside :func:`rendezvous_with_retry` (the same
+``tcp://<coordinator>`` (or, where the launcher holds the store,
+:func:`host_store`, as a client of it) inside
+:func:`rendezvous_with_retry` (the same
 ``TPU_DIST_RENDEZVOUS_*`` knobs and backoff). ``backend=None`` picks
 ``nccl`` for a CUDA device and ``gloo`` for the CPU; a caller that wants
 gloo with CUDA tensors names it. A failed init raises: no code switches
@@ -176,12 +178,59 @@ def initialize(coordinator: Optional[str] = None,
         raise ValueError(f"unknown backend {backend!r} ({'|'.join(BACKENDS)})")
     dev = rank_device(device, info.process_id)
     backend = backend or ("nccl" if dev.type == "cuda" else "gloo")
-    rendezvous_with_retry(
-        lambda: dist.init_process_group(
-            backend, init_method=f"tcp://{info.coordinator}",
-            world_size=info.num_processes, rank=info.process_id),
-        info)
+
+    def join():
+        if os.environ.get("TPU_DIST_STORE_HELD") == "1":
+            # the launcher holds the store (host_store): join as a client
+            host, _, port = info.coordinator.rpartition(":")
+            store = dist.TCPStore(host, int(port), info.num_processes,
+                                  is_master=False)
+            dist.init_process_group(backend, store=store,
+                                    world_size=info.num_processes,
+                                    rank=info.process_id)
+        else:
+            dist.init_process_group(
+                backend, init_method=f"tcp://{info.coordinator}",
+                world_size=info.num_processes, rank=info.process_id)
+
+    rendezvous_with_retry(join, info)
     return info
+
+
+def shutdown() -> None:
+    """Leave the process group, if one was joined: a barrier, so that no
+    rank leaves while another still talks to it, then
+    ``destroy_process_group``. A process that exits with its group alive
+    can abort in gloo's threads at teardown (``terminate called without
+    an active exception``) after its work is done."""
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.barrier()
+        dist.destroy_process_group()
+
+
+def say(line: str) -> None:
+    """Print ``line`` with one write: ranks that share a pipe (an
+    unbuffered stdout writes ``print``'s text and its newline apart)
+    never split each other's lines."""
+    sys.stdout.write(f"{line}\n")
+    sys.stdout.flush()
+
+
+def host_store(coordinator: str, world: int):
+    """Bind the rendezvous store at ``coordinator`` (``host:port``; port 0
+    takes any free port) in this process and hold it for as long as the
+    returned store lives: returns ``(store, "host:port")``. Ranks started
+    with ``TPU_DIST_STORE_HELD=1`` and that address join it as clients, so
+    no other process can take the port between its choice and the ranks'
+    arrival (a port picked, released and bound later by rank 0 can be)."""
+    import torch.distributed as dist
+
+    host, _, port = coordinator.rpartition(":")
+    store = dist.TCPStore(host, int(port), world, is_master=True,
+                          wait_for_workers=False)
+    return store, f"{host}:{store.port}"
 
 
 def spawn(module: str, nprocs: int, argv, coordinator: str) -> None:
@@ -189,18 +238,22 @@ def spawn(module: str, nprocs: int, argv, coordinator: str) -> None:
     module argv`` on this host with the rendezvous variables set
     (``TPU_DIST_COORDINATOR`` / ``TPU_DIST_NUM_PROCESSES`` /
     ``TPU_DIST_PROCESS_ID``) and wait for all; a failed worker raises
-    ``SystemExit`` with every exit code."""
+    ``SystemExit`` with every exit code. This process binds the store at
+    ``coordinator`` first (port 0: any free port) and holds it until the
+    workers are done (:func:`host_store`)."""
     root = os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     path = os.environ.get("PYTHONPATH")
+    store, coordinator = host_store(coordinator, nprocs)
     procs = []
     for rank in range(nprocs):
         env = dict(os.environ, TPU_DIST_COORDINATOR=coordinator,
                    TPU_DIST_NUM_PROCESSES=str(nprocs),
-                   TPU_DIST_PROCESS_ID=str(rank),
+                   TPU_DIST_PROCESS_ID=str(rank), TPU_DIST_STORE_HELD="1",
                    PYTHONPATH=root + (os.pathsep + path if path else ""))
         procs.append(subprocess.Popen([sys.executable, "-m", module, *argv],
                                       env=env))
     rc = [p.wait() for p in procs]
+    del store
     if any(rc):
         raise SystemExit(f"worker exit codes {rc}")

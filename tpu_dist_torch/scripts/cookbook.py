@@ -41,8 +41,10 @@ def run(defaults: TrainConfig, doc: str, argv=None, *,
         info = launch.initialize(backend=getattr(args, "backend", None),
                                  device=args.device)
         if banner is not None:
-            print(banner(info, cfg), flush=True)
+            launch.say(banner(info, cfg))
     trainer = Trainer(cfg, device=args.device)
     best = trainer.fit()
-    print(f"best_acc1 {best * 100:.3f}", flush=True)
+    launch.say(f"best_acc1 {best * 100:.3f}")
+    if launch_group:
+        launch.shutdown()
     return trainer

@@ -1,6 +1,7 @@
 """Variant 3 of the cookbook (``scripts/3.multiprocessing_spawn.py``): the
 script forks its own worker pool (``mp.spawn``'s role), one process per
-device, rendezvousing over loopback TCP.
+device, rendezvousing over loopback TCP on a store the parent binds and
+holds (``parallel.launch.host_store``).
 
     TPU_DIST_NPROCS_SPAWN=2 python -m tpu_dist_torch.scripts.multiprocessing_spawn \\
         --device cpu --epochs 1
@@ -22,7 +23,7 @@ from tpu_dist_torch.scripts.cookbook import run
 
 DEFAULTS = TrainConfig(arch="resnet18", epochs=2, batch_size=3200,
                        dataset="cifar10", variant="jit")
-RDZV = "127.0.0.1:23456"
+RDZV = "127.0.0.1:0"     # any free port, bound and held by the parent
 
 
 def main(argv=None, coordinator: str = RDZV):

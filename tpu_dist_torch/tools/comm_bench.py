@@ -54,8 +54,9 @@ def _args(argv=None):
                     default=[0.25, 4.0, 32.0])
     ap.add_argument("--bucket-mb", type=float, default=25.0)
     ap.add_argument("--iters", type=int, default=10)
-    ap.add_argument("--port", type=int, default=29531,
-                    help="loopback rendezvous port for --nprocs > 1")
+    ap.add_argument("--port", type=int, default=0,
+                    help="loopback rendezvous port for --nprocs > 1 (0: "
+                         "any free port, bound and held by this process)")
     return ap.parse_args(argv)
 
 
@@ -130,7 +131,8 @@ def main(argv=None) -> int:
                 ["nvidia-smi", "--query-gpu=name,power.limit",
                  "--format=csv,noheader"], capture_output=True,
                 text=True).stdout.strip()
-        print(json.dumps(out), flush=True)
+        launch.say(json.dumps(out))
+    launch.shutdown()
     return 0
 
 
