@@ -124,6 +124,31 @@ CUDA or without the repository beside it. Phases:
    JPEGs (with 11a's img/s as the rate to keep up with) and script 6 for
    4 steps of 64 over it, every JPEG through the native decoder; where it
    did not, the PIL route, or with no PIL the refusal naming both.
+12. the LM's model-parallel axes, ranks as in phase 10: (a) phase 6's LM
+   at batch 4 on two ranks sharing the card over gloo with CUDA tensors,
+   for 3 steps in each of ``data=2`` + fsdp, ``data=1,model=2`` (gspmd and
+   ``tp_impl="ring"``) and ``data=1,seq=2``: the reference's mode strings,
+   step 0 within BF16_TOL of a one-rank dp run at the same batch over nccl,
+   falling finite losses, per rank one flash backward pair per layer a
+   step (H/2 heads a launch under tp; none under sp, whose ring attention
+   is plain torch) and one ``adamw`` launch a step, a peak below the dp
+   run's for fsdp and tp, the step ms with the share of it in the
+   collectives (gloo's, through the host), and the ring modes'
+   host-staged ``ppermute`` calls; (b) the reference's on-chip MoE (8
+   layers, d_model 512, 8 experts top-2, L1024, bf16, flash) as ``dp-moe``
+   on one rank over nccl and ``data=1,expert=2`` on two gloo ranks (step 0
+   within BF16_TOL), the router aux and the dropped share, ``quant="int8"``
+   with every expert matmul through ``fused_quant``, and the decode
+   bench's one-shot ``--num-experts 4``; (c) tiny fp32 trainers in each
+   mode, ep-moe included, on two card ranks against two CPU gloo ranks,
+   and ``ep-moe+tp`` on 2 x 2 (four card ranks against four CPU ranks),
+   losses within LOSS_TOL (1 + |loss|); (d) the reference's tiny msgpack
+   checkpoint (``tests/fixtures/torch_tiny_lm.msgpack``) warm-started on
+   the card and on the CPU, fp32 logits within LOSS_TOL (1 + |x|); (e)
+   each kernel of the path against its plain version at the shapes the
+   modes give it (flash at tp's 4 heads a rank and at the MoE LM's width,
+   ``adamw`` over a rank's fsdp and tp leaves, ``fused_quant`` bit-equal
+   at the expert products). One card: no scaling is measured.
 
 The line before the last is the card's name and power limit; the one
 before it the ``{"kernels": [...]}`` record; the last line is
@@ -1754,27 +1779,29 @@ def dp_job(torch, kernels, job, out, rank):
                                                  grad_buckets)
 
     kind, device = job["kind"], job["device"]
+    if kind == "lm12":
+        return mp_lm_job(torch, kernels, job, out, rank)
     if kind == "probe":
         mesh = make_mesh(device=device)
-        res = {"backend": C.backend_of(mesh.group), "world": mesh.size}
+        res = {"backend": C.backend_of(mesh.group()), "world": mesh.size}
         x = torch.arange(8, dtype=torch.float32, device=mesh.device) + rank
         want = (torch.arange(8.0) * mesh.size
                 + sum(range(mesh.size))).tolist()
         # (name, the collective, whether its result is the sum over ranks)
         for name, fn, is_sum in (
-                ("all_reduce fp32", lambda: C.psum(x, mesh.group), True),
-                ("all_reduce bf16", lambda: C.psum(x.bfloat16(), mesh.group),
+                ("all_reduce fp32", lambda: C.psum(x, mesh.group()), True),
+                ("all_reduce bf16", lambda: C.psum(x.bfloat16(), mesh.group()),
                  True),
                 ("reduce_scatter_tensor + all_gather_into_tensor fp32",
                  lambda: bucketed_grad_sync([x], mean=False,
-                                            group=mesh.group)[0], True),
+                                            group=mesh.group())[0], True),
                 ("reduce_scatter_tensor + all_gather_into_tensor bf16",
                  lambda: bucketed_grad_sync([x.bfloat16()], mean=False,
-                                            group=mesh.group)[0], True),
+                                            group=mesh.group())[0], True),
                 ("batch_isend_irecv (ring_allreduce)",
-                 lambda: C.ring_allreduce(x, mesh.group), True),
+                 lambda: C.ring_allreduce(x, mesh.group()), True),
                 ("batch_isend_irecv (adasum_reduce)",
-                 lambda: C.adasum_reduce([x], mesh.group)[0], False)):
+                 lambda: C.adasum_reduce([x], mesh.group())[0], False)):
             try:
                 got = fn().float().tolist()
             except NotImplementedError as e:
@@ -1783,15 +1810,15 @@ def dp_job(torch, kernels, job, out, rank):
             if is_sum and got != want:
                 raise AssertionError(f"{name}: {got} != {want}")
             res[name] = "ok"
-        C.barrier(mesh.device, mesh.group)
+        C.barrier(mesh.device, mesh.group())
         # one 25 MB bucket (fp32), synced alone: the comm_s of one bucket
         g = [torch.ones(6_250_000, device=mesh.device)]
-        bucketed_grad_sync(g, group=mesh.group)
-        C.barrier(mesh.device, mesh.group)
+        bucketed_grad_sync(g, group=mesh.group())
+        C.barrier(mesh.device, mesh.group())
         times = []
         for _ in range(5):
             t0 = time.perf_counter()
-            bucketed_grad_sync(g, group=mesh.group)[0].sum().item()
+            bucketed_grad_sync(g, group=mesh.group())[0].sum().item()
             times.append((time.perf_counter() - t0) * 1e3)
         res["bucket_25mb_sync_ms"] = statistics.median(times)
         return res
@@ -1878,9 +1905,9 @@ def dp_worker(spec_path):
     with open(os.path.join(spec["out"], f"rank{info.process_id}.json"),
               "w") as f:
         json.dump(results, f)
-    import torch.distributed as dist
-
-    dist.destroy_process_group()
+    # a barrier before leaving: a rank that destroys its gloo group while
+    # a peer is still finishing can abort that peer at teardown
+    launch.shutdown()
     return 0
 
 
@@ -2494,6 +2521,382 @@ def imagefolder_path(torch, kernels, device_rate, device="cuda"):
             "train_img_per_s": tr.last_img_s}, launches
 
 
+# ---- phase 12: the LM's model-parallel axes ---------------------------------
+
+P12_STEPS = 3
+# (a) phase 6's LM at batch 4 in each mode, two ranks sharing the card
+P12_MODES = {
+    "fsdp": dict(mesh_shape=[2], mesh_axes=["data"], fsdp=True),
+    "tp": dict(mesh_shape=[1, 2], mesh_axes=["data", "model"]),
+    "tp-ring": dict(mesh_shape=[1, 2], mesh_axes=["data", "model"],
+                    tp_impl="ring"),
+    "sp-ring": dict(mesh_shape=[1, 2], mesh_axes=["data", "seq"])}
+# (b) the reference's on-chip MoE geometry (BASELINE.md:296): 8 layers,
+# d_model 512, 8 experts, top-2, L1024, bf16, flash; V32000 as phase 6
+P12_MOE = dict(vocab_size=32000, num_layers=8, d_model=512, num_heads=8,
+               seq_len=1024, batch_size=8, num_experts=8, router_top_k=2,
+               precision="bf16", attn="flash", optimizer="fused_adamw",
+               lr=1e-3, weight_decay=0.1, grad_clip=1.0,
+               synth_tokens=200_000, seed=SEED)
+P12_EP = dict(mesh_shape=[1, 2], mesh_axes=["data", "expert"])
+# (c) tiny fp32 trainers, card ranks against CPU ranks (phase 10c's LM with
+# two heads, so the model axis splits them)
+P12_TINY = dict(batch_size=4, seq_len=96, d_model=128, num_layers=2,
+                num_heads=2, vocab_size=64, synth_tokens=4000, seed=SEED,
+                attn="flash", optimizer="fused_adamw", lr=3e-3,
+                grad_clip=0.5, weight_decay=0.1, max_steps=5, print_freq=1)
+P12_TINY_MODES = {**P12_MODES,
+                  "ep-moe": dict(P12_EP, num_experts=4, moe_group_size=96)}
+P12_TINY_EPTP = dict(mesh_shape=[1, 2, 2],
+                     mesh_axes=["data", "expert", "model"], num_experts=4,
+                     moe_group_size=96)
+FIXTURE = os.path.join("tests", "fixtures", "torch_tiny_lm.msgpack")
+
+
+def mp_lm_job(torch, kernels, job, out, rank):
+    """One phase-12 trainer fit on this rank (the kernel counts, the
+    host-staged transfers and the collective seconds reset just before
+    it): its losses, launches, peak memory, mode, step time and the share
+    of it spent in the model-parallel collectives."""
+    from tpu_dist_torch.configs import LMConfig
+    from tpu_dist_torch.engine.lm_loop import LMTrainer
+    from tpu_dist_torch.parallel import collectives as C
+
+    device = job["device"]
+    if device != "cpu":
+        free_device(torch)
+        torch.cuda.reset_peak_memory_stats()
+    ledger = os.path.join(out, f"{job['name']}.r{rank}.jsonl")
+    init = None
+    if job.get("init"):
+        with open(job["init"], "rb") as f:
+            init = torch.load(f, weights_only=False)
+    tr = LMTrainer(LMConfig(**{**job["cfg"], "ledger_path": ledger}),
+                   device=device, init_params=init)
+    kernels.reset_launches()
+    C.P2P_HOST_STAGED["calls"] = 0
+    C.COMM_SECONDS["s"] = 0.0
+    t0 = time.perf_counter()
+    tr.fit()
+    if device != "cpu":
+        torch.cuda.synchronize()
+    steps = ledger_steps(ledger) if tr.is_main else []   # rank 0 writes
+    losses = [r["loss"] for r in steps]
+    step_s = statistics.median([r["data_s"] + r["dispatch_s"]
+                                + r["device_s"] for r in steps[1:]]
+                               or [0.0])
+    res = {"mode": tr.mode, "step": tr.state.step, "losses": losses,
+           "launches": dict(kernels.LAUNCHES),
+           "p2p_host_staged": C.P2P_HOST_STAGED["calls"],
+           "p2p_route": (C.p2p_route(tr.mesh.group(
+               "seq" if tr.use_sp else "model"), tr.device)
+                         if tr.use_sp or tr.use_ring else None),
+           "comm_s": C.COMM_SECONDS["s"], "wall_s": time.perf_counter() - t0,
+           "step_ms": step_s * 1e3, "local_batch": tr.local_batch,
+           "eval_batches": len(tr._epoch_indices(tr.val_ds, False, 0)[0]),
+           "peak_mem_gb": (torch.cuda.max_memory_allocated() / 1e9
+                           if device != "cpu" else None)}
+    if tr.cfg.num_experts:
+        res["router_mass"] = [r.get("router_mass") for r in steps]
+        res["router_aux"] = [r.get("router_aux") for r in steps]
+    return res
+
+
+def check_parallel_shapes(torch):
+    """12e: each kernel of phase 12's path against its plain version at the
+    shapes the modes give it (a generator of its own): the flash forward
+    and backward at tp's heads a rank (B4 L2048 H4 D128) and at the MoE
+    LM's (B8 L1024 H8 D64); ``adamw`` over a rank's leaves under fsdp
+    (``data=2``) and under tp (``model=2``) of phase 6's LM, each as one
+    multi-leaf call with the clip slot live; ``fused_quant`` bit-equal at
+    12b's expert products (M = 16 groups x 160 slots, w_in and w_out)."""
+    from tpu_dist_torch.models.transformer import TransformerLM
+    from tpu_dist_torch.ops import pallas_adamw as pa
+    from tpu_dist_torch.ops import pallas_quant as pq
+    from tpu_dist_torch.parallel.fsdp import fsdp_specs
+    from tpu_dist_torch.parallel.tp import lm_param_specs
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    rec = {"flash": {}, "adamw": {}, "fused_quant": {}}
+    for label, (b, lq, h, d) in (("tp heads a rank", (4, 2048, 4, 128)),
+                                 ("moe lm", (8, 1024, 8, 64))):
+        fwd, _ = check_flash_shape(torch, gen, b, lq, lq, h, d)
+        bwd, _ = check_flash_bwd_shape(torch, gen, b, lq, lq, h, d)
+        rec["flash"][label] = {"forward": fwd, "backward": bwd}
+    model = TransformerLM(vocab_size=32000, num_layers=8, d_model=1024,
+                          num_heads=8, max_len=2048, device="cpu", seed=None)
+    shapes = [(n, tuple(p.shape)) for n, p in model.named_parameters()]
+    del model
+    row = pa.scalar_row(1e-3, 0.9, 0.95, 1e-8, 0.1, 3,
+                        torch.tensor(0.5, device="cuda"))
+    for label, specs in (("fsdp data=2", fsdp_specs(shapes, 2)),
+                         ("tp model=2", lm_param_specs(shapes))):
+        # a rank's shard of each leaf (each sharded dim halved)
+        local = [tuple(d // 2 if a else d for d, a in zip(shape, specs[n]))
+                 for n, shape in shapes]
+        p, g, m = ([torch.randn(s, generator=gen, device="cuda")
+                    for s in local] for _ in range(3))
+        v = [torch.rand(s, generator=gen, device="cuda") * 1e-6
+             for s in local]
+        m = [t * 1e-3 for t in m]
+        err = adamw_case(torch, p, g, m, v, row)
+        rec["adamw"][label] = {"leaves": len(local), "elements": sum(
+            math.prod(s) for s in local), "max_abs_err": err}
+        del p, g, m, v
+    cap = int(512 / P12_MOE["num_experts"] * P12_MOE.get(
+        "moe_capacity_factor", 1.25) * P12_MOE["router_top_k"])
+    rows = P12_MOE["batch_size"] * P12_MOE["seq_len"] // 512 * cap
+    for label, (k, n) in (("expert w_in", (512, 2048)),
+                          ("expert w_out", (2048, 512))):
+        x = torch.randn((rows, k), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        w = (torch.randn((k, n), generator=gen, device="cuda")
+             / math.sqrt(k)).to(torch.bfloat16)
+        out, ref = pq.fused_quant_cuda(x, w), pq.fused_quant_matmul_plain(x, w)
+        torch.cuda.synchronize()
+        if not torch.equal(out, ref):
+            raise AssertionError(f"12e fused_quant {label}: not bit-equal")
+        rec["fused_quant"][label] = {"shape": f"M{rows} K{k} N{n} bf16",
+                                     "bit_equal": True}
+    return rec
+
+
+def p12_close(tag, got, want, tol, steps=None):
+    return dp_close(f"12{tag}", got, want, tol, steps)
+
+
+def warm_start_fixture(torch):
+    """12d: the reference's tiny msgpack checkpoint (committed, rebuilt
+    and held leaf by leaf in tests/test_torch_msgpack.py) warm-started on
+    the card and on the CPU: fp32 logits within LOSS_TOL (1 + |x|)."""
+    from tpu_dist_torch.engine import checkpoint as ckpt
+    from tpu_dist_torch.models.transformer import tiny_lm
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    path = os.path.join(here, FIXTURE)
+    with open(path, "rb") as f:
+        raw = f.read()
+    meta, _ = ckpt._split_container(raw, ckpt._REF_MAGIC)
+    logits = {}
+    for dev in ("cuda", "cpu"):
+        m = tiny_lm(vocab_size=meta["vocab_size"],
+                    num_layers=meta["num_layers"], d_model=meta["d_model"],
+                    num_heads=meta["num_heads"], max_len=meta["seq_len"],
+                    device=dev, seed=None)
+        params, _, _ = ckpt.load_warmstart(path, m)
+        n, skipped = ckpt.graft_params(m.named_parameters(), params)
+        if skipped:
+            raise AssertionError(f"12d: leaves not grafted: {skipped}")
+        tokens = torch.arange(2 * meta["seq_len"]).reshape(2, -1) \
+            % meta["vocab_size"]
+        with torch.no_grad():
+            logits[dev] = m(tokens.to(dev)).float().cpu()
+    diff = (logits["cuda"] - logits["cpu"]).abs()
+    bound = LOSS_TOL * (1 + logits["cpu"].abs())
+    if not bool((diff <= bound).all()) or not torch.isfinite(
+            logits["cuda"]).all():
+        raise AssertionError(f"12d: card logits off the CPU's by "
+                             f"{float(diff.max())}")
+    return {"fixture": FIXTURE, "leaves": n, "max_abs_diff":
+            float(diff.max()), "tolerance": f"{LOSS_TOL} (1 + |x|)",
+            "meta": {k: meta[k] for k in ("vocab_size", "num_layers",
+                                           "d_model", "num_heads",
+                                           "seq_len")}}
+
+
+def moe_decode_bench(torch, kernels):
+    """12b: the decode bench's one-shot mode with ``--num-experts 4`` at
+    its geometry (8L/d1024/V32k, batch 8, prompt 128, 384 steps;
+    BASELINE.md:644-651), one trial."""
+    import contextlib
+    import io
+
+    from tpu_dist_torch.tools import decode_bench
+
+    argv = ["--num-experts", "4", "--trials", "1", "--requests", "2"]
+    kernels.reset_launches()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        decode_bench.main(argv)
+    torch.cuda.synchronize()
+    line = json.loads(buf.getvalue().strip().splitlines()[-1])
+    if line["num_experts"] != 4 or not line["kv_cache"] > 0 or \
+            line["device"]["platform"] != "gpu":
+        raise AssertionError(f"12b decode bench: {line}")
+    return {"argv": " ".join(argv), "line": line,
+            "wall_s": time.perf_counter() - t0}, dict(kernels.LAUNCHES)
+
+
+def model_parallel_path(torch, kernels, tmp):
+    """Phase 12 (module docstring). Returns (record, launches by run)."""
+    from tpu_dist_torch.interop import export_flax_params
+    from tpu_dist_torch.models.moe import MoETransformerLM
+    from tpu_dist_torch.models.transformer import TransformerLM
+
+    free_device(torch)
+    t0 = time.perf_counter()
+    layers = 8
+    full = dataclasses.asdict(full_lm_config(
+        batch_size=4, max_steps=P12_STEPS, print_freq=1))
+    # one set of initial weights for the tiny card and CPU runs
+    inits = {}
+    for name, model in (
+            ("dense", TransformerLM(vocab_size=64, num_layers=2, d_model=128,
+                                    num_heads=2, max_len=96, device="cpu",
+                                    seed=SEED)),
+            ("moe", MoETransformerLM(vocab_size=64, num_layers=2,
+                                     d_model=128, num_heads=2, num_experts=4,
+                                     max_len=96, group_size=96,
+                                     device="cpu", seed=SEED))):
+        inits[name] = os.path.join(tmp, f"p12_{name}_init.pt")
+        torch.save(export_flax_params(model), inits[name])
+
+    def tiny(mode, kw):
+        return {"name": f"tiny_{mode}", "kind": "lm12",
+                "init": inits["moe" if "num_experts" in kw else "dense"],
+                "cfg": {**P12_TINY, **kw}}
+
+    tiny2 = [tiny(m, kw) for m, kw in P12_TINY_MODES.items()]
+    tiny4 = [tiny("ep-moe+tp", P12_TINY_EPTP)]
+    # the CPU twins run beside the card groups
+    cpu2 = DpGroup("p12_cpu2", 2, "cpu", "gloo", tiny2, tmp)
+    cpu4 = DpGroup("p12_cpu4", 4, "cpu", "gloo", tiny4, tmp)
+    try:
+        # one rank over nccl: the dp twin of 12a, dp-moe with and without
+        # int8, and the tiny one-rank twins
+        one = DpGroup("p12_one", 1, "cuda", "nccl", [
+            {"name": "dp", "kind": "lm12", "cfg": full},
+            {"name": "dp-moe", "kind": "lm12",
+             "cfg": dict(P12_MOE, max_steps=P12_STEPS, print_freq=1)},
+            {"name": "dp-moe-int8", "kind": "lm12",
+             "cfg": dict(P12_MOE, quant="int8", max_steps=2,
+                         print_freq=1)}], tmp).wait(300)[0]
+        two = DpGroup("p12_two", 2, "cuda", "gloo", [
+            *({"name": m, "kind": "lm12", "cfg": {**full, **kw}}
+              for m, kw in P12_MODES.items()),
+            {"name": "ep-moe", "kind": "lm12",
+             "cfg": dict(P12_MOE, max_steps=P12_STEPS, print_freq=1,
+                         **P12_EP)},
+            *tiny2], tmp).wait(600)
+        four = DpGroup("p12_four", 4, "cuda", "gloo", tiny4, tmp).wait(240)
+    finally:
+        res_cpu2, res_cpu4 = cpu2.wait(300), cpu4.wait(120)
+    decode, decode_launches = moe_decode_bench(torch, kernels)
+    warm = warm_start_fixture(torch)
+    shapes = check_parallel_shapes(torch)
+
+    # (a) each mode against the one-rank dp run
+    dp = one["dp"]
+    l0 = dp["losses"][0]
+    n_eval = dp["eval_batches"]
+    a = {"dp_1rank_nccl": {k: dp[k] for k in (
+        "losses", "step_ms", "peak_mem_gb")}}
+    for mode in P12_MODES:
+        got = [r[mode] for r in two]
+        r0 = got[0]
+        if {g["mode"] for g in got} != {mode}:
+            raise AssertionError(f"12a {mode}: modes {[g['mode'] for g in got]}")
+        ls = r0["losses"]
+        if len(ls) != P12_STEPS or not all(map(math.isfinite, ls)) or \
+                not ls[-1] < ls[0] or abs(ls[0] - l0) > BF16_TOL * (1 + abs(l0)):
+            raise AssertionError(f"12a {mode}: losses {ls} vs dp step 0 {l0}")
+        flash = 0 if mode == "sp-ring" else layers
+        want = {"flash_bwd_dq": flash * P12_STEPS,
+                "flash_bwd_dkv": flash * P12_STEPS,
+                "flash_fwd": flash * (P12_STEPS + r0["eval_batches"]),
+                "adamw": P12_STEPS}
+        for r, g in enumerate(got):
+            bad = {k: (g["launches"][k], n) for k, n in want.items()
+                   if g["launches"][k] != n}
+            if bad:
+                raise AssertionError(f"12a {mode} rank {r}: launches {bad}")
+            if mode in ("fsdp", "tp") and not g["peak_mem_gb"] < \
+                    dp["peak_mem_gb"]:
+                raise AssertionError(f"12a {mode} rank {r}: peak "
+                                     f"{g['peak_mem_gb']} GB not below dp's "
+                                     f"{dp['peak_mem_gb']}")
+        # ppermute hops a forward: the ring tp's four products a layer,
+        # ring attention's one K/V hop a layer; as many again backward
+        hops = {"tp-ring": 4 * layers, "sp-ring": layers}.get(mode, 0)
+        staged = [g["p2p_host_staged"] for g in got]
+        want_staged = hops * (2 * P12_STEPS + r0["eval_batches"])
+        if staged != [want_staged] * 2:
+            raise AssertionError(f"12a {mode}: host-staged ppermute calls "
+                                 f"{staged}, expected {want_staged}")
+        a[mode] = {"losses": ls, "dp_step0_loss": l0,
+                   "step_ms_gloo": r0["step_ms"],
+                   "collective_share_of_wall": [
+                       g["comm_s"] / g["wall_s"] for g in got],
+                   "peak_mem_gb_per_rank": [g["peak_mem_gb"] for g in got],
+                   "launches_per_rank": [
+                       {k: g["launches"][k] for k in want} for g in got],
+                   "p2p_host_staged_per_rank": staged,
+                   "p2p_route": r0["p2p_route"],
+                   "local_batch": r0["local_batch"]}
+    # (b) MoE: ep against dp-moe, int8 through fused_quant
+    dm, q8 = one["dp-moe"], one["dp-moe-int8"]
+    ep = [r["ep-moe"] for r in two]
+    m0 = dm["losses"][0]
+    for tag, ls in (("dp-moe", dm["losses"]), ("ep-moe", ep[0]["losses"])):
+        if len(ls) != P12_STEPS or not all(map(math.isfinite, ls)) or \
+                abs(ls[0] - m0) > BF16_TOL * (1 + abs(m0)):
+            raise AssertionError(f"12b {tag}: losses {ls} vs dp-moe {m0}")
+    if {g["mode"] for g in ep} != {"ep-moe"} or dm["mode"] != "dp-moe":
+        raise AssertionError(f"12b modes {dm['mode']}, "
+                             f"{[g['mode'] for g in ep]}")
+    moe_layers, experts = P12_MOE["num_layers"], P12_MOE["num_experts"]
+    # a forward: qkv, proj and two matmuls per expert a layer, the head
+    per_fwd = moe_layers * (2 + 2 * experts) + 1
+    want_q = per_fwd * (2 + q8["eval_batches"])
+    if q8["launches"]["fused_quant"] != want_q or not all(
+            map(math.isfinite, q8["losses"])):
+        raise AssertionError(f"12b int8: fused_quant "
+                             f"{q8['launches']['fused_quant']} (want "
+                             f"{want_q}), losses {q8['losses']}")
+    b = {"dp_moe_1rank_nccl": {k: dm[k] for k in (
+            "losses", "router_aux", "router_mass", "step_ms",
+            "peak_mem_gb")},
+         "ep_moe_2rank_gloo": {
+             "losses": ep[0]["losses"], "router_aux": ep[0]["router_aux"],
+             "router_mass": ep[0]["router_mass"],
+             "dropped_share_top2": [1 - m for m in ep[0]["router_mass"]],
+             "step_ms_gloo": ep[0]["step_ms"],
+             "peak_mem_gb_per_rank": [g["peak_mem_gb"] for g in ep],
+             "launches_per_rank": [{k: g["launches"][k] for k in (
+                 "flash_fwd", "flash_bwd_dq", "adamw")} for g in ep]},
+         "dp_moe_int8": {"losses": q8["losses"],
+                         "fused_quant_calls": q8["launches"]["fused_quant"],
+                         "fused_quant_per_forward": per_fwd,
+                         "step_ms": q8["step_ms"]},
+         "decode_bench_num_experts_4": decode}
+    # (c) tiny fp32 trainers, card ranks against CPU ranks
+    c = {}
+    for name, card, cpu in (
+            *((t["name"], two[0][t["name"]], res_cpu2[0][t["name"]])
+              for t in tiny2),
+            ("tiny_ep-moe+tp", four[0]["tiny_ep-moe+tp"],
+             res_cpu4[0]["tiny_ep-moe+tp"])):
+        diff = p12_close(f"c {name}", card["losses"], cpu["losses"],
+                         LOSS_TOL)
+        c[name] = {"card": card["losses"], "cpu": cpu["losses"],
+                   "mode": card["mode"], "max_abs_diff": diff}
+    record = {"a_full_width_2rank_gloo": a, "b_moe": b,
+              "c_small_card_vs_cpu": c, "d_warm_start": warm,
+              "e_kernels_at_phase12_shapes": shapes,
+              "wall_s": time.perf_counter() - t0,
+              "note": "two ranks share one card over gloo with CUDA "
+                      "tensors: step times measure gloo's host staging, "
+                      "not the parallel mode; no scaling is measured"}
+    by_path = {f"p12_{m}_rank0": two[0][m]["launches"] for m in P12_MODES}
+    by_path.update({"p12_dp_1rank": dp["launches"],
+                    "p12_dp_moe_1rank": dm["launches"],
+                    "p12_dp_moe_int8_1rank": q8["launches"],
+                    "p12_ep_moe_rank0": ep[0]["launches"],
+                    "p12_decode_bench_moe": decode_launches})
+    return record, by_path
+
+
 def importable(name):
     import importlib.util
 
@@ -2662,7 +3065,17 @@ def main():
         torch, kernels, s6["train_img_per_s_window1_excluded"])
     log(f"phase 11d ImageFolder: {json.dumps(folder)} on {card}")
     log(f"phase 11 took {time.perf_counter() - t0:.1f}s")
-    dp_launches = {**dp_launches, "script6_imagenet": s6_launches,
+
+    # 12. the LM's model-parallel axes
+    with tempfile.TemporaryDirectory() as tmp:
+        mp, mp_launches = model_parallel_path(torch, kernels, tmp)
+    for part in ("a_full_width_2rank_gloo", "b_moe", "c_small_card_vs_cpu",
+                 "d_warm_start", "e_kernels_at_phase12_shapes"):
+        log(f"phase 12{part[0]} {part[2:]}: {json.dumps(mp[part])} on "
+            f"{card}")
+    log(f"phase 12 took {mp['wall_s']:.1f}s ({mp['note']})")
+    dp_launches = {**dp_launches, **mp_launches,
+                   "script6_imagenet": s6_launches,
                    "vit_base_int8": vit8_launches,
                    "zoo_sweep": {**{k: 0 for k in kernels.SOURCES},
                                  "sgd": sweep_sgd},
@@ -2747,7 +3160,9 @@ def main():
             entry["more_shapes"] += list(vit_quant.values())
             entry["launches_by_path"] = {
                 "int8_serving": quant_launches["fused_quant"],
-                "vit_base_int8": vit8_launches["fused_quant"]}
+                "vit_base_int8": vit8_launches["fused_quant"],
+                "p12_dp_moe_int8_1rank":
+                    mp_launches["p12_dp_moe_int8_1rank"]["fused_quant"]}
         if kname == "flash_fwd_int8kv":
             entry["launches_by_path"] = int8kv_by_path
             entry["note"] = ("no path in the JAX package calls the TPU "

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 jax = pytest.importorskip("jax")
+pytest.importorskip("flax")   # the reference package needs both
 import jax.numpy as jnp  # noqa: E402
 
 from tpu_dist.ops.flash_attention import \

@@ -852,3 +852,77 @@ def test_gloo_refuses_point_to_point_on_cuda_tensors(cuda):
         with pytest.raises(NotImplementedError, match="gloo"):
             C.refuse_p2p_on_gloo_cuda("ring_allreduce",
                                       [torch.zeros(2, device=cuda)])
+
+
+def test_ring_attention_stages_through_the_host_on_the_card(cuda, tmp_path):
+    """2 gloo ranks on one card: ring attention's ppermute takes the
+    host-staged route (gloo aborts on CUDA point to point) and gives the
+    CPU ranks' chunks and gradients within 1e-5 (1 + |x|)."""
+    from torch_dp_worker import run_group
+
+    job = [{"name": "ring", "kind": "ring_attention", "seed": 0,
+            "shape": [2, 64, 2, 64]}]
+    card = run_group(2, {"device": "cuda", "backend": "gloo", "jobs": job},
+                     str(tmp_path / "card"))
+    cpu = run_group(2, {"jobs": job}, str(tmp_path / "cpu"))
+    assert {r["ring"]["route"] for r in card} == {"host-staged"}
+    for c, p in zip(card, cpu):
+        for causal in ("causal=True", "causal=False"):
+            for key, got in c["ring"][causal].items():
+                want = np.asarray(p["ring"][causal][key])
+                assert np.all(np.abs(np.asarray(got) - want)
+                              <= 1e-5 * (1 + np.abs(want))), (causal, key)
+
+
+def test_model_parallel_modes_on_the_card_equal_their_cpu_twins(cuda,
+                                                                tmp_path):
+    """fsdp, tp, tp-ring, sp-ring and ep-moe on 2 gloo ranks sharing the
+    card against 2 gloo ranks on the CPU, from the same initial weights:
+    per-step losses within 1e-4 (1 + |loss|), the reference's mode
+    strings, one adamw launch a step on each card rank."""
+    from torch_dp_worker import run_group
+
+    from tpu_dist_torch.interop import export_flax_params
+    from tpu_dist_torch.models.moe import MoETransformerLM
+
+    base = dict(batch_size=4, seq_len=64, d_model=128, num_layers=2,
+                num_heads=2, vocab_size=64, synth_tokens=3000, seed=1,
+                attn="flash", optimizer="fused_adamw", lr=3e-3,
+                grad_clip=0.5, max_steps=3, print_freq=1)
+    # one set of initial weights for the card and the CPU (their
+    # generators of one seed give different numbers)
+    from tpu_dist_torch.models.transformer import TransformerLM
+
+    inits = {}
+    for name, model in (
+            ("dense", TransformerLM(vocab_size=64, num_layers=2, d_model=128,
+                                    num_heads=2, max_len=64, device="cpu",
+                                    seed=1)),
+            ("moe", MoETransformerLM(vocab_size=64, num_layers=2,
+                                     d_model=128, num_heads=2, num_experts=4,
+                                     max_len=64, device="cpu", seed=1))):
+        inits[name] = str(tmp_path / f"{name}.npz")
+        np.savez(inits[name], tree=np.array(export_flax_params(model),
+                                            dtype=object))
+    dense = {"fsdp": dict(mesh_shape=[2], mesh_axes=["data"], fsdp=True),
+             "tp": dict(mesh_shape=[1, 2], mesh_axes=["data", "model"]),
+             "tp-ring": dict(mesh_shape=[1, 2], mesh_axes=["data", "model"],
+                             tp_impl="ring"),
+             "sp-ring": dict(mesh_shape=[1, 2], mesh_axes=["data", "seq"])}
+    jobs = [{"name": m, "kind": "lm", "init": inits["dense"],
+             "cfg": dict(base, **kw)} for m, kw in dense.items()]
+    jobs.append({"name": "ep-moe", "kind": "lm", "init": inits["moe"],
+                 "cfg": dict(base, mesh_shape=[1, 2],
+                             mesh_axes=["data", "expert"], num_experts=4,
+                             moe_group_size=64)})
+    card = run_group(2, {"device": "cuda", "backend": "gloo",
+                         "jobs": jobs}, str(tmp_path / "card"))
+    cpu = run_group(2, {"jobs": jobs}, str(tmp_path / "cpu"))
+    for job in jobs:
+        m = job["name"]
+        assert {r[m]["mode"] for r in card} == {m}
+        assert [r[m]["launches"]["adamw"] for r in card] == [3, 3]
+        got, want = card[0][m]["losses"], cpu[0][m]["losses"]
+        assert len(got) == len(want) == 3
+        for a, r in zip(got, want):
+            assert abs(a - r) <= 1e-4 * (1 + abs(r)), (m, got, want)

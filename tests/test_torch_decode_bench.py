@@ -82,8 +82,21 @@ def test_greedy_cached_decode_equals_full_recompute():
 
 
 @pytest.mark.parametrize("flag,value", [("--tp", "2"), ("--dp", "2"),
-                                        ("--num-experts", "4"),
                                         ("--long-context", "t.json")])
 def test_unported_flags_raise_and_name_themselves(flag, value):
     with pytest.raises(NotImplementedError, match=flag):
         decode_bench.main(["--device", "cpu", flag, value] + TINY)
+
+
+def test_num_experts_one_shot_decodes_the_moe_lm(capsys):
+    """``--num-experts`` and ``--capacity-factor`` are ported: the one-shot
+    bench decodes the MoE LM (full attention, as the reference builds
+    it); ``--trace`` with experts exits naming the serving engine."""
+    decode_bench.main(["--device", "cpu", "--num-experts", "4",
+                       "--capacity-factor", "4.0", "--trials", "1",
+                       "--requests", "1"] + TINY)
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["num_experts"] == 4 and line["kv_cache"] > 0
+    with pytest.raises(SystemExit, match="dense TransformerLM"):
+        decode_bench.main(["--device", "cpu", "--num-experts", "4",
+                           "--trace", "2"] + TINY)

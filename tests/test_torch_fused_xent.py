@@ -20,6 +20,7 @@ import pytest
 import torch
 
 jax = pytest.importorskip("jax")
+pytest.importorskip("flax")   # the reference package needs both
 import jax.numpy as jnp  # noqa: E402
 
 from tpu_dist.ops import fused_xent as ref  # noqa: E402

@@ -179,8 +179,12 @@ def test_default_device_is_cuda_and_bad_archs_refuse():
             Trainer(TrainConfig(**TINY))
     from tpu_dist_torch.models.registry import create_model
 
-    with pytest.raises(NotImplementedError, match="moe_lm.*moe.py"):
-        create_model("moe_lm", device="cpu")
+    # moe_lm is ported (models/moe.py): it builds, on CUDA by default
+    assert type(create_model("moe_lm", device="cpu", vocab_size=64,
+                             max_len=16)).__name__ == "MoETransformerLM"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            create_model("moe_lm")
     with pytest.raises(ValueError, match="language model"):
         Trainer(TrainConfig(**{**TINY, "arch": "tiny_lm"}), device="cpu")
     # the reference's config-time rule: quant only for the vit_* archs

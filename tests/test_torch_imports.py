@@ -80,7 +80,11 @@ def test_importing_every_module_pulls_in_no_jax():
             "tpu_dist_torch.models.inception",
             "tpu_dist_torch.models.mobile", "tpu_dist_torch.models.vit",
             "tpu_dist_torch.scripts.distributed_slurm",
-            "tpu_dist_torch.tools.data_rate"} <= set(out["mods"])
+            "tpu_dist_torch.tools.data_rate",
+            "tpu_dist_torch.engine.flax_msgpack",
+            "tpu_dist_torch.models.moe", "tpu_dist_torch.parallel.fsdp",
+            "tpu_dist_torch.parallel.tp", "tpu_dist_torch.parallel.ep",
+            "tpu_dist_torch.parallel.ring_attention"} <= set(out["mods"])
 
 
 @pytest.mark.parametrize("path", _port_files(),

@@ -164,14 +164,18 @@ def test_initialize_local_and_refusals():
 
 def test_data_mesh_over_one_process():
     mesh = make_mesh(device="cpu")
-    assert (mesh.shape, mesh.rank, mesh.size, mesh.group) == \
+    assert (mesh.shape, mesh.rank, mesh.size, mesh.group()) == \
         ({"data": 1}, 0, 1, None)
     assert make_mesh((-1,), device="cpu").size == 1
     with pytest.raises(ValueError, match="one process per device"):
         make_mesh((2,), device="cpu")
     with pytest.raises(ValueError, match="rank"):
         make_mesh((1, 1), ("data",), device="cpu")
-    for axes in (("data", "model"), ("seq",)):
+    # the model-parallel axes are ported; pipeline stages and serving's sp
+    # axis still raise, naming themselves
+    assert make_mesh((1, 1), ("data", "model"), device="cpu").shape == \
+        {"data": 1, "model": 1}
+    for axes in (("data", "stage"), ("sp",)):
         with pytest.raises(NotImplementedError, match=axes[-1]):
             make_mesh((1,) * len(axes), axes, device="cpu")
 

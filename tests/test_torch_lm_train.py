@@ -291,5 +291,5 @@ def test_entry_script_trains_generates_and_serves(capsys):
     gen = [line for line in out.splitlines() if line.startswith("generated")]
     assert gen and int(gen[0].split(",")[1].split("/")[0]) >= 4
     assert "served 3/3 requests" in out and "chunk ticks" in out
-    with pytest.raises(NotImplementedError, match="mesh_shape"):
-        lm_longcontext.main(["--device", "cpu", "--mesh", "data=2,seq=4"])
+    with pytest.raises(NotImplementedError, match="stage"):
+        lm_longcontext.main(["--device", "cpu", "--mesh", "data=1,stage=2"])

@@ -1,6 +1,7 @@
 """One rank of a ``torch.distributed`` group for the port's multi-process
-tests (``tests/test_torch_{collectives,dp,dp_lm,cuda}.py``): gloo on the
-CPU unless the spec names another ``device`` and ``backend``.
+tests (``tests/test_torch_{collectives,dp,dp_lm,cuda,fsdp,tp,moe,
+ring_attention}.py``): gloo on the CPU unless the spec names another
+``device`` and ``backend``.
 
     python tests/torch_dp_worker.py SPEC.json
 
@@ -123,6 +124,7 @@ def _trainer_job(job, out, rank, torch, device):
         res["ckpt_meta"] = ckpt.read_checkpoint_meta(
             os.path.join(kw["checkpoint_dir"], f"{arch}-checkpoint.pt"))
     res["step"] = tr.state.step
+    res["mode"] = getattr(tr, "mode", None)     # the LMTrainer's
     res["launches"] = dict(kernels.LAUNCHES)
     res["world"], res["rank"] = tr.world, tr.rank
     res["local_batch"] = tr.local_batch
@@ -183,8 +185,113 @@ def _collectives_job(job, out, rank, torch, device):
     return res
 
 
+def _lm_batch(job, vocab, torch, device, data_rank=0, data_size=1):
+    """This data shard's (inputs, targets) of the job's numpy-seeded
+    (B, L+1) rows."""
+    b, l = job["batch"], job["seq_len"]
+    rows = np.random.default_rng(job["seed"]).integers(
+        0, vocab, (b, l + 1)).astype(np.int64)
+    mine = rows[data_rank * b // data_size:(data_rank + 1) * b // data_size]
+    t = torch.from_numpy(mine).to(device)
+    return t[:, :-1], t[:, 1:]
+
+
+def _lm_grads_job(job, out, rank, torch, device):
+    """One forward and backward of an ``LMTrainer``'s mode on the job's
+    batch: the loss (mean CE), the router aux and every leaf's synced
+    gradient, whole (gathered where the mode shards it), written by rank 0
+    as ``<name>.grads.npz`` under the port's leaf names."""
+    from tpu_dist_torch.configs import LMConfig
+    from tpu_dist_torch.engine.lm_loop import LMTrainer
+    from tpu_dist_torch.engine.lm_steps import lm_objective
+
+    init = None
+    if job.get("init"):
+        with np.load(job["init"], allow_pickle=True) as z:
+            init = z["tree"].item()
+    tr = LMTrainer(LMConfig(**job["cfg"]), device=device, init_params=init)
+    inputs, targets = _lm_batch(job, tr.vocab_size, torch, tr.device,
+                                tr.data_rank, tr.data_size)
+    mask = torch.ones(targets.shape, dtype=torch.float32, device=tr.device)
+    par = tr.par
+    with par.params_ctx(tr.model, tr.state):
+        loss_sum, metrics, aux = lm_objective(
+            tr.model, inputs, targets, mask, tr.cfg.loss_chunk, par)
+        mean = loss_sum / metrics["count"] + par.aux_weight * aux["aux"]
+        grads = torch.autograd.grad(mean, tr.state.params)
+    grads = par.sync_grads(list(grads))
+    sums = par.sync_metrics(metrics) if not par.mode.startswith("dp") \
+        else par.dp.metrics(metrics)
+    whole = [tr._gather_leaf(i, g) if tr._sharded() else g
+             for i, g in enumerate(grads)]
+    if rank == 0:
+        np.savez(os.path.join(out, f"{job['name']}.grads.npz"),
+                 **{n: g.detach().float().cpu().numpy()
+                    for (n, _), g in zip(tr._shapes, whole)})
+    return {"loss": float(sums["loss_sum"] / sums["count"]),
+            "correct1": float(sums["correct1"]),
+            "aux": float(aux["aux"]), "mode": tr.mode,
+            "local_shapes": [list(p.shape) for p in tr.state.params]}
+
+
+def _ring_attention_job(job, out, rank, torch, device):
+    """Ring attention over the whole group as the ``seq`` axis, on this
+    rank's chunk of numpy-seeded (B, L, H, D) q, k, v: the output chunk
+    and the gradients of sum(out^2) w.r.t. the chunk's q, k, v."""
+    from tpu_dist_torch.parallel.collectives import group_size, p2p_route
+    from tpu_dist_torch.parallel.mesh import make_mesh
+    from tpu_dist_torch.parallel.ring_attention import ring_attention
+
+    world = group_size()
+    mesh = make_mesh((world,), ("seq",), device=device)
+    axis = mesh.axis("seq")
+    rng = np.random.default_rng(job["seed"])
+    full = [rng.normal(size=job["shape"]).astype(np.float32)
+            for _ in range(3)]
+    lc = job["shape"][1] // world
+    q, k, v = (torch.from_numpy(a[:, rank * lc:(rank + 1) * lc].copy())
+               .to(device).requires_grad_() for a in full)
+    res = {"route": p2p_route(axis.group, q.device)}
+    for causal in (True, False):
+        o = ring_attention(q, k, v, axis, causal=causal)
+        gq, gk, gv = torch.autograd.grad((o * o).sum(), (q, k, v))
+        res[f"causal={causal}"] = {
+            name: t.detach().cpu().numpy().tolist()
+            for name, t in (("out", o), ("dq", gq), ("dk", gk), ("dv", gv))}
+    return res
+
+
+def _ring_matmul_job(job, out, rank, torch, device):
+    """The ring collective matmuls over the whole group as the ``model``
+    axis on numpy-seeded operands: the all-gather matmul of this rank's
+    sequence chunk by its column shard, the reduce-scatter matmul of the
+    whole sequence's feature shard by its row shard."""
+    from tpu_dist_torch.parallel.collectives import group_size
+    from tpu_dist_torch.parallel.mesh import make_mesh
+    from tpu_dist_torch.parallel.overlap import (ring_allgather_matmul,
+                                                 ring_matmul_reduce_scatter)
+
+    n = group_size()
+    ax = make_mesh((n,), ("model",), device=device).axis("model")
+    rng = np.random.default_rng(job["seed"])
+    b, l, d, f = job["dims"]
+    x = rng.normal(size=(b, l, d)).astype(np.float32)
+    w1 = rng.normal(size=(d, f)).astype(np.float32)
+    h = rng.normal(size=(b, l, f)).astype(np.float32)
+    w2 = rng.normal(size=(f, d)).astype(np.float32)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa
+    lc, fc = l // n, f // n
+    ag = ring_allgather_matmul(t(x[:, rank * lc:(rank + 1) * lc]),
+                               t(w1[:, rank * fc:(rank + 1) * fc]), ax)
+    rs = ring_matmul_reduce_scatter(t(h[:, :, rank * fc:(rank + 1) * fc]),
+                                    t(w2[rank * fc:(rank + 1) * fc]), ax)
+    return {"ag": ag.cpu().numpy().tolist(), "rs": rs.cpu().numpy().tolist()}
+
+
 JOBS = {"image": _trainer_job, "lm": _trainer_job,
-        "collectives": _collectives_job}
+        "collectives": _collectives_job, "lm_grads": _lm_grads_job,
+        "ring_attention": _ring_attention_job,
+        "ring_matmul": _ring_matmul_job}
 
 
 def main(spec_path):
@@ -208,9 +315,9 @@ def main(spec_path):
                                                  torch, device)
     with open(os.path.join(spec["out"], f"rank{rank}.json"), "w") as f:
         json.dump(results, f)
-    import torch.distributed as dist
-
-    dist.destroy_process_group()
+    # a barrier before leaving: a rank that destroys its gloo group while
+    # a peer is still finishing can abort that peer at teardown
+    launch.shutdown()
 
 
 if __name__ == "__main__":

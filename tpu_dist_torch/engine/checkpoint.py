@@ -25,11 +25,18 @@ What follows the reference:
   optimizer at step 0.
 
 What differs: the blob is ``torch.save`` of the host state (the card has
-no msgpack), so the port neither reads nor writes the reference's
-``.msgpack`` files, and a warm start's donor is one of the port's own
-``.pt`` checkpoints; the state is restored in place into the live
-``TrainState``'s tensors. Under data parallelism rank 0 writes and every
-rank resumes from the same file. ``peer_restore_state``
+no msgpack), and the state is restored in place into the live
+``TrainState``'s tensors. A warm start's donor is a port ``.pt`` or a
+reference ``.msgpack`` (``TPUDIST1`` container, with its CRC32 and length
+checked, or bare msgpack from before the container with its ``.json``
+sidecar), told apart by the file's first bytes, not its name; the
+reference's tree is read by ``engine.flax_msgpack`` and its leaf names
+mapped to the port's by ``interop.flax_named_leaves``. The port writes
+``.pt`` only. Under data parallelism rank 0 writes and every rank resumes
+from the same file; a sharded state (fsdp, tp, ep) is gathered leaf by
+leaf on every rank first (``gather``), so the file holds whole leaves,
+and a resume slices them again (``reslice``): the file does not depend on
+the layout (``gather_to_host``, ``:44-70``). ``peer_restore_state``
 (``TPU_DIST_PEER_RESUME``) is not ported.
 """
 
@@ -52,6 +59,8 @@ import torch
 from tpu_dist_torch.parallel.collectives import barrier
 
 _MAGIC = b"TDTORCH1\n"
+# the reference's container: the same header layout, a msgpack blob
+_REF_MAGIC = b"TPUDIST1\n"
 SUFFIX = ".pt"
 
 
@@ -60,16 +69,29 @@ class CheckpointCorruptError(ValueError):
     integrity checks (CRC32/length from the container header)."""
 
 
-def host_state(state) -> dict:
+def _per_leaf(v, n_params: int) -> bool:
+    """Whether an optimizer-state field is a list aligned with the params
+    (momenta), as opposed to a scalar or an empty list."""
+    return not torch.is_tensor(v) and len(v) == n_params > 0
+
+
+def host_state(state, gather=None) -> dict:
     """A CPU copy of everything a resume needs: the step, the params, the
-    BN running stats and every optimizer-state tensor, field by field."""
-    cpu = lambda t: t.detach().to("cpu", copy=True)
+    BN running stats and every optimizer-state tensor, field by field.
+    ``gather(i, t)`` turns leaf i's shard (or a per-leaf optimizer
+    tensor's) into the whole tensor (a collective: every rank calls)."""
+    cpu = lambda t: t.detach().to("cpu", copy=True)   # noqa: E731
+    whole = (lambda i, t: cpu(gather(i, t.detach()))) if gather \
+        else (lambda i, t: cpu(t))
     opt = {}
     for name, v in zip(state.opt_state._fields, state.opt_state):
-        opt[name] = cpu(v) if torch.is_tensor(v) else [cpu(t) for t in v]
+        opt[name] = (cpu(v) if torch.is_tensor(v) else
+                     [whole(i, t) for i, t in enumerate(v)]
+                     if _per_leaf(v, len(state.params))
+                     else [cpu(t) for t in v])
     ls = state.loss_scale
     return {"step": int(state.step),
-            "params": [cpu(p) for p in state.params],
+            "params": [whole(i, p) for i, p in enumerate(state.params)],
             "batch_stats": [cpu(b) for b in state.batch_stats],
             "param_names": list(state.param_names),
             "stat_names": list(state.stat_names),
@@ -77,11 +99,14 @@ def host_state(state) -> dict:
             "opt_state": opt}
 
 
-def _split_container(raw: bytes) -> Tuple[Dict, memoryview]:
-    if not raw.startswith(_MAGIC):
+def _split_container(raw: bytes, magic: bytes = _MAGIC
+                     ) -> Tuple[Dict, memoryview]:
+    """(meta, blob) of a container with ``magic`` (the port's or the
+    reference's header: ``magic | u64-le meta_len | meta json | blob``)."""
+    if not raw.startswith(magic):
         raise CheckpointCorruptError("not a tpu_dist_torch checkpoint "
                                      "(bad magic)")
-    off = len(_MAGIC)
+    off = len(magic)
     meta_len = int.from_bytes(raw[off:off + 8], "little")
     meta = json.loads(raw[off + 8:off + 8 + meta_len])
     return meta, memoryview(raw)[off + 8 + meta_len:]
@@ -225,24 +250,25 @@ def save_checkpoint(ckpt_dir: str, state, epoch: int, best_acc1: float,
                     arch: str, is_best: bool,
                     extra_meta: Optional[Dict] = None,
                     async_write: bool = False, keep: int = 0,
-                    mesh=None) -> str:
+                    mesh=None, gather=None) -> str:
     """Save ``state`` (a ``TrainState``); returns the checkpoint path. The
     device-to-host copy runs here; with ``async_write`` the write runs in a
     thread (not readable until :func:`wait_for_async_save`). Over a
-    data-parallel ``mesh`` (``parallel.mesh.Mesh``) the state is the same
-    on every rank: rank 0 writes, then every rank meets at a barrier."""
+    ``mesh`` (``parallel.mesh.Mesh``) rank 0 writes, then every rank meets
+    at a barrier; a sharded state passes ``gather`` (:func:`host_state`),
+    which every rank runs before the write."""
     path = os.path.join(ckpt_dir, f"{arch}-checkpoint{SUFFIX}")
+    host = host_state(state, gather) if gather is not None else None
     if mesh is None or mesh.is_main:
-        _save(ckpt_dir, path, state, epoch, best_acc1, arch, is_best,
-              extra_meta, async_write, keep)
+        _save(ckpt_dir, path, host or host_state(state), epoch, best_acc1,
+              arch, is_best, extra_meta, async_write, keep)
     if mesh is not None:
-        barrier(mesh.device, mesh.group)
+        barrier(mesh.device, mesh.group())
     return path
 
 
-def _save(ckpt_dir, path, state, epoch, best_acc1, arch, is_best,
+def _save(ckpt_dir, path, host, epoch, best_acc1, arch, is_best,
           extra_meta, async_write, keep) -> None:
-    host = host_state(state)
     os.makedirs(ckpt_dir, exist_ok=True)
     meta = {"epoch": epoch, "arch": arch, "best_acc1": float(best_acc1),
             "step": host["step"], **(extra_meta or {})}
@@ -313,12 +339,40 @@ def _restore_into(state, host: dict) -> None:
     state.step = int(host["step"])
 
 
-def load_warmstart(path: str) -> Tuple[Dict, Dict, Dict]:
+def _reference_warmstart(path: str, raw: bytes, model):
+    """(params, batch_stats, meta) of a reference ``.msgpack``, leaf names
+    mapped onto ``model``'s (``interop.flax_named_leaves``)."""
+    from tpu_dist_torch.engine.flax_msgpack import msgpack_restore, split_tree
+    from tpu_dist_torch.interop import flax_named_leaves
+
+    if raw.startswith(_REF_MAGIC):
+        meta, blob = _split_container(raw, _REF_MAGIC)
+    else:                        # bare msgpack from before the container
+        meta, blob = {}, memoryview(raw)
+        if os.path.exists(path + ".json"):
+            with open(path + ".json") as f:
+                meta = json.load(f)
+    bad = _integrity_error(meta, blob)
+    if bad:
+        raise CheckpointCorruptError(f"checkpoint {path!r} is corrupt: {bad}")
+    if model is None:
+        raise ValueError(f"{path!r} is a reference (msgpack) checkpoint: its "
+                         "leaves are named onto a model, so pass the model")
+    params, stats = split_tree(msgpack_restore(blob))
+    named_p, named_s = flax_named_leaves(model, params, stats)
+    return named_p, named_s, meta
+
+
+def load_warmstart(path: str, model=None) -> Tuple[Dict, Dict, Dict]:
     """(params, batch_stats, meta) of a checkpoint, without a template:
     ``{leaf name: CPU tensor}`` for each. It carries no optimizer state: a
-    warm start begins a fresh trajectory, unlike ``--resume``."""
+    warm start begins a fresh trajectory, unlike ``--resume``. A port
+    ``.pt`` names its own leaves; a reference ``.msgpack`` (routed by the
+    file's first bytes) is named onto ``model``."""
     with open(path, "rb") as f:
         raw = f.read()
+    if not raw.startswith(_MAGIC):
+        return _reference_warmstart(path, raw, model)
     meta, blob = _split_container(raw)
     bad = _integrity_error(meta, blob)
     if bad:
@@ -350,7 +404,19 @@ def graft_params(named: List[Tuple[str, torch.Tensor]],
     return n, skipped
 
 
-def _load_one(path: str, state) -> Dict:
+def _reslice(host: dict, reslice) -> dict:
+    """``host`` with each whole leaf (params, per-leaf optimizer tensors)
+    cut to this rank's shard by ``reslice(i, t)``."""
+    host = dict(host, params=[reslice(i, t)
+                              for i, t in enumerate(host["params"])])
+    host["opt_state"] = {
+        name: ([reslice(i, t) for i, t in enumerate(v)]
+               if _per_leaf(v, len(host["params"])) else v)
+        for name, v in host["opt_state"].items()}
+    return host
+
+
+def _load_one(path: str, state, reslice=None) -> Dict:
     with open(path, "rb") as f:
         raw = f.read()
     meta, blob = _split_container(raw)
@@ -360,6 +426,8 @@ def _load_one(path: str, state) -> Dict:
     host = torch.load(io.BytesIO(bytes(blob)), map_location="cpu",
                       weights_only=True)
     try:
+        if reslice is not None:
+            host = _reslice(host, reslice)
         _restore_into(state, host)
     except (ValueError, KeyError) as e:
         raise ValueError(f"checkpoint {path!r} does not match the current "
@@ -367,17 +435,18 @@ def _load_one(path: str, state) -> Dict:
     return meta
 
 
-def load_checkpoint(path: str, state, fallback: bool = True
+def load_checkpoint(path: str, state, fallback: bool = True, reslice=None
                     ) -> Tuple[object, Dict]:
     """Restore a checkpoint of :func:`save_checkpoint` into ``state`` in
     place; returns ``(state, meta)``. A file that fails its integrity check
     falls back (with ``fallback``) to the retained siblings newest first;
-    a structure mismatch raises at once."""
+    a structure mismatch raises at once. ``reslice(i, t)`` cuts whole
+    leaves to a sharded state's shards (:func:`_reslice`)."""
     candidates = [path] + (retained_checkpoints(path) if fallback else [])
     last_err: Optional[Exception] = None
     for i, p in enumerate(candidates):
         try:
-            meta = _load_one(p, state)
+            meta = _load_one(p, state, reslice)
         except (CheckpointCorruptError, FileNotFoundError) as e:
             print(f"warning: {e}"
                   + ("; falling back to the previous retained checkpoint"

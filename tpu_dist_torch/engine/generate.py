@@ -75,10 +75,16 @@ def _with_dense_mode(model, quant: str):
                                                 model.buffers())}
     clone = copy.deepcopy(model, memo=shared)
     for m in clone.modules():
-        if isinstance(m, QuantDense):
+        if isinstance(m, QuantDense) or _is_moe_mlp(m):
             m.mode = quant
     clone.quant = quant
     return clone
+
+
+def _is_moe_mlp(m) -> bool:
+    from tpu_dist_torch.models.moe import MoEMLP
+
+    return isinstance(m, MoEMLP)
 
 
 def _quantize_for_decode(model, quant: str):
@@ -115,6 +121,11 @@ def _quantize_for_decode(model, quant: str):
             if hasattr(m, "load_quantized"):
                 q, s = quantize_int8(m.kernel, (0,))
                 m.load_quantized(q, s)
+            elif _is_moe_mlp(m):
+                # experts read through their int8 round trip (amax over
+                # the contracted dim), the reference's pre-quantized
+                # experts' values; the router gate stays fp
+                m.mode = quant
     qmodel.quant = quant
 
     def _evict(_ref, _key=key):

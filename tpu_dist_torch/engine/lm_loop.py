@@ -1,13 +1,37 @@
 """LMTrainer for the port (``tpu_dist/engine/lm_loop.py``): the LM family's
-training loop, data-parallel over the processes of a ``torch.distributed``
-group, one device each (a reference ``mesh_shape=(N,)`` is N processes).
+training loop over the processes of a ``torch.distributed`` group, one
+device each (a reference mesh of N devices is N processes).
+
+Mode selection is by mesh axes, as in the reference (``:86-130``) and
+script 8, with the same ``mode`` strings:
+
+  data=N                      dp (``dp-moe`` with ``num_experts``)
+  data=N  + fsdp=True         fsdp: params and optimizer state sharded
+                              over data (``parallel.fsdp``)
+  data=N,model=M              tp: Megatron shards (``parallel.tp``), or
+                              tp-ring with ``tp_impl="ring"``
+                              (``parallel.overlap``)
+  data=N,seq=M                sp-ring: ring attention over sequence
+                              chunks (``parallel.ring_attention``)
+  data=N,expert=M             ep-moe (``parallel.ep``, ``models.moe``);
+                              ep-moe+tp with a model axis as well
+
+``_validate_mode`` is the reference's (``:406-470``) word for word; the
+``stage`` axis (pipeline parallelism) is not ported and raises
+``NotImplementedError`` naming itself (``parallel.mesh``). Every rank of
+one ``data`` coordinate reads the same rows (the sampler runs over the
+data axis), each mode's step is ``engine.lm_steps.lm_train_step`` under
+its ``ModelParallel``, and checkpoints are layout-free: a sharded mode
+gathers whole leaves for rank 0 to write and slices them again on resume,
+so a checkpoint of one mode resumes under another.
 
 What follows the reference (line numbers are ``lm_loop.py``'s):
 
 * ``__init__`` (``:55-400``): the corpus (``data.tokens``), the model
   (``_build_model :469-505``, ``attn`` full | blockwise | flash), the
-  ``pretrained`` warm start (``:133-165``: the leaves of a port checkpoint
-  whose name and shape match, over a fresh optimizer at step 0), the LR
+  ``pretrained`` warm start (``:133-165``: the leaves of a port ``.pt`` or
+  a reference ``.msgpack`` checkpoint whose name and shape match, over a
+  fresh optimizer at step 0; a pipeline-stacked donor is refused), the LR
   schedule and the optimizer (``sgd`` | ``adamw`` | ``fused_adamw``, the
   last through the AdamW kernel with its clip slot), gradient accumulation
   (``grad_accum_steps``, ``:216-234``, with the reference's exclusions),
@@ -31,9 +55,9 @@ What follows the reference (line numbers are ``lm_loop.py``'s):
   / ``eval`` / ``epoch`` / ``ckpt`` / ``run_end`` events through the
   port's ``obs/ledger.py``.
 
-Over several processes each rank trains on ``batch_size // world`` rows
+Over several data ranks each trains on ``batch_size // data`` rows
 (the sampler's batch-blocked layout: the rows the reference gives that
-rank), the gradients are averaged over the group before the update (one
+shard), the gradients are averaged over the group before the update (one
 collective per dtype, or ``grad_bucket_mb`` buckets, whose sync is timed
 once alone for the step records' ``comm_s``), the metric sums are summed
 over it, and logs, the ledger, the CSV and checkpoint writes are rank
@@ -64,7 +88,8 @@ from tpu_dist_torch.data.sampler import DistributedSampler
 from tpu_dist_torch.data.tokens import load_token_dataset
 from tpu_dist_torch.device import peak_flops
 from tpu_dist_torch.engine import checkpoint as ckpt
-from tpu_dist_torch.engine.lm_steps import (LM_METRIC_KEYS, lm_eval_metrics,
+from tpu_dist_torch.engine.lm_steps import (LM_METRIC_KEYS, ROUTER_KEYS,
+                                            ModelParallel, lm_eval_metrics,
                                             lm_train_step, make_lm_batches,
                                             shift_rows, zeros_lm_metrics)
 from tpu_dist_torch.engine.state import TrainState
@@ -76,15 +101,17 @@ from tpu_dist_torch.ops.optim import lm_lr_schedule, make_optimizer
 from tpu_dist_torch.ops.pallas_adamw import FusedAdamW
 from tpu_dist_torch.ops.precision import make_policy
 from tpu_dist_torch.ops.quant import validate_quant
-from tpu_dist_torch.parallel.collectives import all_reduce_
-from tpu_dist_torch.parallel.mesh import make_mesh
-from tpu_dist_torch.parallel.overlap import bucketed_grad_sync
+from tpu_dist_torch.parallel.collectives import P2P_HOST_STAGED
+from tpu_dist_torch.parallel.mesh import (DATA_AXIS, EXPERT_AXIS,
+                                          MODEL_AXIS, SEQ_AXIS, gather_leaf,
+                                          make_mesh, shard_leaf)
+from tpu_dist_torch.parallel.overlap import (bucketed_grad_sync,
+                                             validate_tp_impl)
 from tpu_dist_torch.utils.meters import MeterBank
 
 # knob -> its off value. Anything else raises NotImplementedError naming
 # the knob: each waits for a later slice of the port.
 UNPORTED = {
-    "mesh_axes": (("data",),), "fsdp": (False,), "num_experts": (0,),
     "plan": ("", "none"), "audit": ("none",), "faults": ("",),
     "max_restarts": (0,), "metrics_port": (0,), "profile_dir": ("",),
     "telemetry_csv": ("",), "skew_every": (0,),
@@ -103,30 +130,60 @@ SOFT_GEOMETRY = ("steps_per_epoch", "batch_size", "dataset_len")
 def refuse_unported(cfg: LMConfig) -> None:
     for knob, off in UNPORTED.items():
         val = getattr(cfg, knob)
-        if knob == "mesh_axes":
-            val = tuple(val)
         if val not in off:
             raise NotImplementedError(
-                f"LMConfig.{knob}={val!r}"
-                + (f" (mesh_shape={cfg.mesh_shape!r})"
-                   if knob == "mesh_axes" else "")
-                + " is not ported yet: the port's "
-                f"LMTrainer runs data-parallel only, one device per process "
+                f"LMConfig.{knob}={val!r} is not ported yet "
                 f"(supported: {' | '.join(repr(o) for o in off)})")
 
 
-def lm_flops_per_token(model, num_layers: int, seq_len: int,
+def _numel(shape) -> int:
+    n = 1
+    for d in shape:
+        n *= d
+    return n
+
+
+def lm_flops_per_token(named_shapes, num_layers: int, seq_len: int,
                        d_model: int) -> float:
     """Model FLOPs per trained token (the reference's ``utils/mfu.py``
-    accounting): 6 * non-embedding params + 6 * layers * L * d."""
-    n = sum(p.numel() for name, p in model.named_parameters()
+    accounting): 6 * non-embedding params + 6 * layers * L * d, over the
+    whole (unsharded) leaves' (name, shape) pairs."""
+    n = sum(_numel(s) for name, s in named_shapes
             if not name.startswith(("tok_emb", "pos_emb")))
     return 6.0 * n + 6.0 * num_layers * seq_len * d_model
 
 
+def moe_lm_flops_per_token(named_shapes, num_layers: int, seq_len: int,
+                           d_model: int, num_experts: int, router_top_k: int,
+                           total_tokens: int, group_size: int = 512,
+                           capacity_factor: float = 1.25) -> float:
+    """Model FLOPs per trained token of the MoE LM (``utils/mfu.py:54``):
+    6 x the dense part (attention, norms, gate, head) + 6 x layers x L x d,
+    6 x top_k x the expert params / E (the experts a token activates), and
+    the dispatch and combine einsums, 2 x 6 x E x C x d a layer, C from the
+    same ``moe_group_geometry`` the layer routes with."""
+    from tpu_dist_torch.models.moe import moe_group_geometry
+
+    n_params = n_embed = n_expert = 0
+    for name, shape in named_shapes:
+        size = _numel(shape)
+        n_params += size
+        if "tok_emb" in name or "pos_emb" in name:
+            n_embed += size
+        elif "w_in" in name or "w_out" in name:
+            n_expert += size
+    dense = 6.0 * (n_params - n_embed - n_expert) \
+        + 6.0 * num_layers * seq_len * d_model
+    experts = 6.0 * router_top_k * n_expert / num_experts
+    _, cap = moe_group_geometry(total_tokens, seq_len, num_experts,
+                                router_top_k, group_size, capacity_factor)
+    routing = 2 * 6.0 * num_experts * cap * d_model * num_layers
+    return dense + experts + routing
+
+
 class LMTrainer:
-    """The dp LM trainer, one device per process (module docstring has the
-    tour)."""
+    """The LM trainer, one device per process, every mode but pp (module
+    docstring has the tour)."""
 
     def __init__(self, cfg: LMConfig, *, device=None,
                  init_params: Optional[dict] = None):
@@ -162,26 +219,52 @@ class LMTrainer:
                                  "data_placement='host'/'auto' (the indexed "
                                  "window step has no microbatch loop)")
         self.mesh = make_mesh(cfg.mesh_shape, cfg.mesh_axes, device=device)
-        world = self.mesh.size
-        if cfg.batch_size % world:
-            raise ValueError(
-                f"global batch {cfg.batch_size} not divisible by the data "
-                f"axis ({world} processes)")
-        if self.accum > 1 and cfg.batch_size % (self.accum * world):
-            raise ValueError(
-                f"global batch {cfg.batch_size} not divisible by "
-                f"grad_accum_steps x data axis ({self.accum} x {world})")
-        if cfg.grad_bucket_mb > 0 and self.accum > 1:
-            raise ValueError("grad_bucket_mb does not compose with "
-                             "grad_accum_steps > 1 yet")
         self.cfg = cfg
         self.device = self.mesh.device
-        self.rank, self.world = self.mesh.rank, world
+        self.rank, self.world = self.mesh.rank, self.mesh.size
         self.is_main = self.mesh.is_main
-        self.dp = DataParallel(self.mesh.group, world,
+
+        # ---- mode (:86-130) ----
+        shape = self.mesh.shape
+        self.use_sp = shape.get(SEQ_AXIS, 1) > 1
+        self.use_tp = shape.get(MODEL_AXIS, 1) > 1
+        self.use_ep = shape.get(EXPERT_AXIS, 1) > 1
+        validate_tp_impl(cfg.tp_impl)
+        self.use_ring = self.use_tp and cfg.tp_impl == "ring"
+        self.use_bucket = cfg.grad_bucket_mb > 0
+        self._validate_mode()
+        self.use_fsdp = cfg.fsdp and not (self.use_sp or self.use_tp
+                                          or self.use_ep)
+        self.mode = ("sp-ring" if self.use_sp else
+                     ("ep-moe" + ("+tp" if self.use_tp else ""))
+                     if self.use_ep else
+                     ("tp-ring" if self.use_ring else "tp") if self.use_tp
+                     else "fsdp" if self.use_fsdp else
+                     ("dp-moe" if cfg.num_experts else "dp")
+                     + ("-bucketed" if self.use_bucket else ""))
+
+        # ---- batch geometry: the data axis splits the batch ----
+        d_size = shape.get(DATA_AXIS, 1)
+        self.data_size, self.data_rank = d_size, self.mesh.coord(DATA_AXIS)
+        if cfg.batch_size % d_size:
+            raise ValueError(
+                f"global batch {cfg.batch_size} (sequences) must divide by "
+                f"the data axis ({d_size})")
+        if self.use_sp and cfg.seq_len % shape[SEQ_AXIS]:
+            raise ValueError(f"seq_len {cfg.seq_len} not divisible by the "
+                             f"seq axis ({shape[SEQ_AXIS]})")
+        if self.accum > 1:
+            if self.use_sp:
+                raise ValueError("grad_accum_steps > 1 supports the jit "
+                                 "modes (dp/fsdp/tp/ep); pp already "
+                                 "microbatches via --pp-microbatches")
+            if cfg.batch_size % (self.accum * d_size):
+                raise ValueError(
+                    f"global batch {cfg.batch_size} not divisible by "
+                    f"grad_accum_steps x data axis ({self.accum} x {d_size})")
+        self.dp = DataParallel(self.mesh.group(DATA_AXIS), d_size,
                                bucket_mb=cfg.grad_bucket_mb)
         self.policy = make_policy(cfg.precision)
-        self.mode = "dp" + ("-bucketed" if cfg.grad_bucket_mb > 0 else "")
         # whether the int8 matmuls ride the fused kernel (csrc/fused_quant.cu;
         # on the CPU its plain version runs): the step records' ``fused``
         # flag, as in the reference
@@ -193,15 +276,20 @@ class LMTrainer:
             cfg.data, cfg.seq_len, cfg.vocab_size, val_frac=cfg.val_frac,
             synth_tokens=cfg.synth_tokens, seed=seed, val_data=cfg.val_data)
         self.vocab_size = self.train_ds.vocab_size
-        self.local_batch = cfg.batch_size // world
+        self.local_batch = cfg.batch_size // d_size
 
-        # ---- model ----
+        # ---- model: whole, then laid out for the mode ----
         self.model = self._build_model(seed if init_params is None else None)
         if init_params is not None:
             from tpu_dist_torch.interop import load_flax_params
             load_flax_params(self.model, init_params)
         if cfg.pretrained:
             self._warm_start(cfg.pretrained)
+        self._shapes = [(n, tuple(p.shape))
+                        for n, p in self.model.named_parameters()]
+        if cfg.num_experts and not self.use_sp:
+            self.model.set_data(self.mesh.axis(DATA_AXIS))
+        specs, leaves = self._lay_out()
         self.model.requires_grad_(True)
         self.steps_per_epoch = max(
             1, -(-len(self.train_ds) // cfg.batch_size))
@@ -222,7 +310,22 @@ class LMTrainer:
                                      kind=cfg.optimizer, b1=cfg.adam_b1,
                                      b2=cfg.adam_b2, eps=cfg.adam_eps,
                                      grad_clip=cfg.grad_clip)
-        self.state = TrainState.create(self.model, self.tx)
+        if leaves is None:
+            self.state = TrainState.create(self.model, self.tx)
+        else:
+            names, params = leaves
+            self.state = TrainState(step=0, params=params,
+                                    opt_state=self.tx.init(params),
+                                    param_names=names)
+        self.specs = None if specs is None else [
+            specs.get(n, (None,) * len(s)) for n, s in self._shapes]
+        self.par = self._parallel_plan(leaves)
+        # ranks whose router aux the metric sums add up
+        self._aux_ranks = 1
+        for a in self.par.metric_axes:
+            self._aux_ranks *= shape.get(a, 1)
+        if self._sharded():
+            self.tx.sq_norm = self.par.sq_norm
 
         # ---- windows over device-resident rows (:209-303) ----
         rows_bytes = ((len(self.train_ds) + len(self.val_ds))
@@ -270,6 +373,123 @@ class LMTrainer:
         self._comm_probe_s = (self._measure_comm_probe()
                               if cfg.grad_bucket_mb > 0 else None)
 
+    # ------------------------------------------------------------------
+    def _validate_mode(self):
+        """The reference's mode checks (``:406-470``), word for word."""
+        cfg = self.cfg
+        multi = [a for a in ("seq", "model", "expert", "stage")
+                 if a in self.mesh.axis_names and self.mesh.shape[a] > 1]
+        if len(multi) > 1 and set(multi) not in ({"stage", "model"},
+                                                 {"expert", "model"}):
+            raise ValueError(
+                f"unsupported model-parallel axis combination {multi} "
+                "(one axis at a time, stage+model for pp x tp, or "
+                "expert+model for MoE x tp)")
+        if self.use_ep and not cfg.num_experts:
+            raise ValueError("an 'expert' mesh axis requires num_experts > 0")
+        if self.use_tp and cfg.num_experts and not self.use_ep:
+            raise ValueError("MoE + pure tensor parallelism not supported: "
+                             "use data=N,expert=M[,model=K] or "
+                             "data=N,stage=S,model=K")
+        if cfg.fsdp and (self.use_sp or self.use_tp or self.use_ep):
+            self.log("warning: fsdp applies to the pure data-parallel "
+                     "layout; ignored with a seq/model/expert mesh axis")
+        if self.use_ring:
+            tp = self.mesh.shape["model"]
+            if self.use_ep:
+                raise ValueError("tp_impl='ring' drives the pure "
+                                 "data x model layout; pp/ep compositions "
+                                 "ride the GSPMD impl")
+            if cfg.seq_len % tp:
+                raise ValueError(f"tp_impl='ring' seq-shards the residual: "
+                                 f"seq_len {cfg.seq_len} must divide by the "
+                                 f"model axis ({tp})")
+            if cfg.num_heads % tp:
+                raise ValueError(f"tp_impl='ring' shards heads: num_heads "
+                                 f"{cfg.num_heads} must divide by the model "
+                                 f"axis ({tp})")
+            if cfg.grad_accum_steps > 1:
+                raise ValueError("tp_impl='ring' does not compose with "
+                                 "grad_accum_steps > 1 yet (the accum step "
+                                 "is GSPMD-partitioned)")
+        if self.use_bucket:
+            if self.use_tp or self.use_sp or self.use_ep or cfg.fsdp:
+                raise ValueError(
+                    "grad_bucket_mb > 0 decomposes the pure-dp gradient "
+                    "allreduce (replicated params); fsdp/tp/sp/pp/ep keep "
+                    "their GSPMD-scheduled sync")
+            if cfg.grad_accum_steps > 1:
+                raise ValueError("grad_bucket_mb does not compose with "
+                                 "grad_accum_steps > 1 yet")
+
+    def _lay_out(self):
+        """Lay the whole model out for the mode (``_place``, ``:590-616``):
+        (specs by param name or None, (names, shard leaves) under fsdp or
+        None)."""
+        if self.use_ep:
+            from tpu_dist_torch.parallel.ep import shard_moe_
+            return shard_moe_(self.model, self.mesh), None
+        if self.use_ring:
+            from tpu_dist_torch.parallel.overlap import ring_lm_
+            ring_lm_(self.model, self.mesh.axis(MODEL_AXIS))
+            return None, None
+        if self.use_tp:
+            from tpu_dist_torch.parallel.tp import shard_lm_
+            return shard_lm_(self.model, self.mesh), None
+        if self.use_fsdp:
+            from tpu_dist_torch.parallel.fsdp import fsdp_specs, shard_leaves
+            specs = fsdp_specs(self._shapes, self.data_size)
+            return specs, shard_leaves(self.model, specs, self.mesh)
+        return None, None
+
+    def _parallel_plan(self, leaves) -> ModelParallel:
+        """The mode's ``lm_steps.ModelParallel``."""
+        cfg = self.cfg
+        kw = dict(mode=self.mode, mesh=self.mesh, specs=self.specs,
+                  aux_weight=cfg.moe_aux_weight, moe=bool(cfg.num_experts),
+                  dp=self.dp)
+        if self.use_sp:
+            kw.update(seq=self.mesh.axis(SEQ_AXIS),
+                      grad_mean_axes=(SEQ_AXIS, DATA_AXIS),
+                      metric_axes=(SEQ_AXIS, DATA_AXIS))
+        elif self.use_ring:
+            kw.update(ring=self.mesh.axis(MODEL_AXIS),
+                      grad_mean_axes=(MODEL_AXIS, DATA_AXIS),
+                      metric_axes=(MODEL_AXIS, DATA_AXIS))
+        elif self.use_tp:
+            kw.update(vocab=self.mesh.axis(MODEL_AXIS))
+        if leaves is not None:
+            kw.update(fsdp_names=leaves[0])
+        return ModelParallel(**kw)
+
+    def _sharded(self) -> bool:
+        return self.specs is not None and any(any(s) for s in self.specs)
+
+    def _fused(self, i: int) -> int:
+        from tpu_dist_torch.parallel.tp import fused_of
+        return fused_of(self._shapes[i][0]) if not self.use_fsdp else 1
+
+    def _gather_leaf(self, i: int, t: torch.Tensor) -> torch.Tensor:
+        return gather_leaf(t, self.specs[i], self.mesh, self._fused(i))
+
+    def _slice_leaf(self, i: int, t: torch.Tensor) -> torch.Tensor:
+        return shard_leaf(t, self.specs[i], self.mesh, self._fused(i))
+
+    def whole_model(self):
+        """This rank's model with whole params on one device, for decode
+        after a sharded run (every rank must call it: the leaves are
+        gathered); the trained model itself in a replicated mode."""
+        if not self._sharded() and not (self.use_ring or self.use_sp):
+            return self.model
+        model = self._build_model(None, whole=True)
+        with torch.no_grad():
+            for i, ((name, _), p) in enumerate(zip(self._shapes,
+                                                   self.state.params)):
+                full = self._gather_leaf(i, p.detach()) if self.specs \
+                    else p.detach()
+                model.get_parameter(name).copy_(full)
+        return model
+
     def _measure_comm_probe(self) -> float:
         """Seconds of one bucketed gradient sync alone at this run's bucket
         geometry (zeros in the params' shapes), after one warm sync: the
@@ -280,7 +500,7 @@ class LMTrainer:
 
         def sync():
             out = bucketed_grad_sync(zeros, self.cfg.grad_bucket_mb,
-                                     group=self.mesh.group)
+                                     group=self.mesh.group(DATA_AXIS))
             out[-1].sum().item()     # the device's work done, on every rank
 
         sync()
@@ -289,9 +509,17 @@ class LMTrainer:
         return time.time() - t0
 
     def _warm_start(self, path: str) -> None:
-        """Graft a port checkpoint's params onto the fresh model where name
-        and shape match (``:133-165``)."""
-        params, _, meta = ckpt.load_warmstart(path)
+        """Graft a checkpoint's params (the port's ``.pt`` or the
+        reference's ``.msgpack``) onto the fresh whole model where name and
+        shape match (``:133-165``); a pipeline-stacked donor is refused."""
+        params, _, meta = ckpt.load_warmstart(path, self.model)
+        if meta.get("pp_stages"):
+            raise ValueError(
+                f"--pretrained {path} was saved by a pipeline-parallel run "
+                f"({meta['pp_stages']} stages): its blocks are stage-stacked "
+                "and would not graft onto a fresh model. Unstack it first "
+                "(parallel.pp.unstack_pipeline_params) and re-save, or "
+                "warm-start from a non-pp checkpoint.")
         n_p, skipped = ckpt.graft_params(self.model.named_parameters(),
                                          params)
         if n_p == 0:
@@ -316,7 +544,9 @@ class LMTrainer:
         if bad:
             raise ValueError("--resume checkpoint has different model "
                              f"geometry: {detail(bad)}")
-        _, meta = ckpt.load_checkpoint(path, self.state)
+        _, meta = ckpt.load_checkpoint(
+            path, self.state,
+            reslice=self._slice_leaf if self._sharded() else None)
         self.start_epoch = meta.get("epoch", 0)
         self.best_ppl = meta.get("best_ppl", float("inf"))
         if meta.get("mid_epoch"):
@@ -334,7 +564,9 @@ class LMTrainer:
         self.log(f"=> resumed from {path} (epoch {self.start_epoch})")
 
     # ------------------------------------------------------------------
-    def _build_model(self, seed):
+    def _build_model(self, seed, whole: bool = False):
+        """The whole model (``:469-505``); under sp its attention is the
+        ring over ``seq`` unless ``whole`` (a one-device copy)."""
         from tpu_dist_torch.models.transformer import (TransformerLM,
                                                        full_attention)
         from tpu_dist_torch.ops.flash_attention import (
@@ -347,12 +579,26 @@ class LMTrainer:
             attn_fn = blockwise_attention_fn(cfg.attn_block)
         else:
             attn_fn = full_attention
-        return TransformerLM(
-            vocab_size=self.vocab_size, num_layers=cfg.num_layers,
-            d_model=cfg.d_model, num_heads=cfg.num_heads,
-            max_len=cfg.seq_len, dtype=self.policy.compute_dtype,
-            param_dtype=self.policy.param_dtype, attn_fn=attn_fn,
-            quant=cfg.quant, remat=cfg.remat, device=self.device, seed=seed)
+        if self.use_sp and not whole:
+            from tpu_dist_torch.parallel.ring_attention import \
+                ring_attention_fn
+            if cfg.attn != "full":
+                self.log(f"warning: a 'seq' mesh axis uses ring attention; "
+                         f"attn={cfg.attn} ignored")
+            attn_fn = ring_attention_fn(self.mesh.axis(SEQ_AXIS))
+        kw = dict(vocab_size=self.vocab_size, num_layers=cfg.num_layers,
+                  d_model=cfg.d_model, num_heads=cfg.num_heads,
+                  max_len=cfg.seq_len, dtype=self.policy.compute_dtype,
+                  param_dtype=self.policy.param_dtype, attn_fn=attn_fn,
+                  quant=cfg.quant, remat=cfg.remat, device=self.device,
+                  seed=seed)
+        if cfg.num_experts:
+            from tpu_dist_torch.models.moe import MoETransformerLM
+            return MoETransformerLM(
+                num_experts=cfg.num_experts, router_top_k=cfg.router_top_k,
+                group_size=cfg.moe_group_size,
+                capacity_factor=cfg.moe_capacity_factor, **kw)
+        return TransformerLM(**kw)
 
     def log(self, *a, **kw):
         if self.is_main:
@@ -360,9 +606,10 @@ class LMTrainer:
 
     def _epoch_indices(self, ds, train: bool, epoch: int):
         """(idx (nb, B), valid (nb, B)): the reference's batch-blocked
-        sampler layout, this rank's rows."""
+        sampler layout, this rank's data shard's rows."""
         sampler = DistributedSampler(
-            len(ds), num_replicas=self.world, rank=self.rank, shuffle=train,
+            len(ds), num_replicas=self.data_size, rank=self.data_rank,
+            shuffle=train,
             seed=(self.cfg.seed or 0) + (17 if not train else 0),
             batch_size=self.local_batch)
         sampler.set_epoch(epoch)
@@ -389,14 +636,22 @@ class LMTrainer:
         cfg = self.cfg
         return lm_train_step(self.model, self.tx, self.state, inputs,
                              targets, cfg.health, cfg.loss_chunk, self.accum,
-                             self.dp)
+                             self.dp, self.par)
 
     def _step_flops(self) -> float:
         if self._flops_per_step is None:
             cfg = self.cfg
-            self._flops_per_step = lm_flops_per_token(
-                self.model, cfg.num_layers, cfg.seq_len, cfg.d_model) \
-                * cfg.batch_size * cfg.seq_len
+            if cfg.num_experts:
+                per_token = moe_lm_flops_per_token(
+                    self._shapes, cfg.num_layers, cfg.seq_len, cfg.d_model,
+                    cfg.num_experts, cfg.router_top_k,
+                    total_tokens=cfg.batch_size * cfg.seq_len,
+                    group_size=cfg.moe_group_size,
+                    capacity_factor=cfg.moe_capacity_factor)
+            else:
+                per_token = lm_flops_per_token(
+                    self._shapes, cfg.num_layers, cfg.seq_len, cfg.d_model)
+            self._flops_per_step = per_token * cfg.batch_size * cfg.seq_len
         return self._flops_per_step
 
     def _mfu(self, tok_per_s: float):
@@ -419,7 +674,8 @@ class LMTrainer:
         point), then one ledger ``step`` record per step, with the fetch's
         device-block time shared out across the window, and the health
         sentry's look at each."""
-        keys = LM_METRIC_KEYS + PROBE_KEYS
+        keys = LM_METRIC_KEYS + PROBE_KEYS \
+            + (ROUTER_KEYS if self.cfg.num_experts else ())
         t0 = time.time()
         rows = torch.stack([torch.stack([m[k] for k in keys])
                             for m, _ in pending]).tolist()
@@ -439,6 +695,17 @@ class LMTrainer:
             tok_s = info["n_items"] / max(wall, 1e-9)
             _, mfu = self._mfu(tok_s)
             gn, un = m["grad_norm"] / n, m["update_norm"] / n
+            extra = {}
+            if m.get("router_mass_n"):
+                # mean combine mass a token (1 = no capacity drop) and the
+                # router aux loss a step (summed over the metric axes)
+                extra["router_mass"] = m["router_mass_sum"] / \
+                    m["router_mass_n"]
+                extra["router_aux"] = m["router_aux"] / (n * self._aux_ranks)
+                meters.update("RMass", extra["router_mass"],
+                              int(m["router_mass_n"]))
+            if self.use_ring or self.use_sp:
+                extra["p2p_host_staged"] = P2P_HOST_STAGED["calls"]
             self.ledger.emit(
                 "step", step=info["step"], loss=loss, throughput=tok_s,
                 unit="tok/s", data_s=info["data_s"],
@@ -447,7 +714,8 @@ class LMTrainer:
                         else None),
                 mfu=mfu, steps_in_dispatch=n, warm=info["warm"],
                 fused=self._fused_quant, grad_norm=gn,
-                nonfinite_count=m["nonfinite_count"], update_norm=un, **mem)
+                nonfinite_count=m["nonfinite_count"], update_norm=un,
+                **extra, **mem)
             self.health.observe(info["step"], loss,
                                 nonfinite=m["nonfinite_count"],
                                 grad_norm=gn, update_norm=un, n_steps=n)
@@ -455,9 +723,11 @@ class LMTrainer:
 
     # ------------------------------------------------------------------
     def _meters(self, epoch: int) -> MeterBank:
-        return MeterBank(self.steps_per_epoch,
-                         [("Time", "6.3f"), ("Data", "6.3f"),
-                          ("Loss", ".4e"), ("Acc", "6.3f")],
+        cols = [("Time", "6.3f"), ("Data", "6.3f"), ("Loss", ".4e"),
+                ("Acc", "6.3f")]
+        if self.cfg.num_experts:
+            cols.append(("RMass", "6.3f"))
+        return MeterBank(self.steps_per_epoch, cols,
                          prefix=f"Epoch: [{epoch}]")
 
     def _warm_up(self, metrics, t_epoch: float, n: int):
@@ -609,12 +879,10 @@ class LMTrainer:
                        + (self._to_device(valid[i]),) for i in range(len(idx)))
         for inputs, targets, v in batches:
             m = lm_eval_metrics(self.model, inputs, targets, v,
-                                self.cfg.loss_chunk)
+                                self.cfg.loss_chunk, self.par, self.state)
             for k in sums:
                 sums[k] = sums[k] + m[k]
-        flat = torch.stack([sums[k] for k in LM_METRIC_KEYS])
-        all_reduce_(flat, self.mesh.group)
-        sums = dict(zip(LM_METRIC_KEYS, flat.tolist()))
+        sums = {k: float(v) for k, v in self.par.sync_metrics(sums).items()}
         n = max(sums["count"], 1.0)
         loss = sums["loss_sum"] / n
         ppl = float(np.exp(min(loss, 30.0)))
@@ -632,13 +900,19 @@ class LMTrainer:
                if self.device.type == "cuda" else "cpu")
         self.ledger.emit("run_start", kind="lm",
                          config=dataclasses.asdict(cfg),
-                         mesh={"data": self.world}, devices=[dev],
+                         mesh=dict(self.mesh.shape), devices=[dev],
                          process_count=self.world, mode=self.mode,
                          device=str(self.device))
         off = [f"{k}={getattr(cfg, k)}" for k in UNPORTED_OBSERVERS
                if getattr(cfg, k)]
         self.log("note: observers not ported yet, off in this run: "
                  + ", ".join(off + ["preemption snapshot (SIGTERM)"]))
+        if self.use_ring or self.use_sp:
+            from tpu_dist_torch.parallel.collectives import p2p_route
+
+            axis = SEQ_AXIS if self.use_sp else MODEL_AXIS
+            self.log(f"ppermute route over {axis!r}: "
+                     f"{p2p_route(self.mesh.group(axis), self.device)}")
 
     def _save(self, epoch: int, is_best: bool, mid_epoch: bool = False,
               async_write: bool = False) -> str:
@@ -650,7 +924,8 @@ class LMTrainer:
         return ckpt.save_checkpoint(
             self.cfg.checkpoint_dir, self.state, epoch, 0.0, "lm", is_best,
             extra_meta=meta, async_write=async_write,
-            keep=self.cfg.keep_checkpoints, mesh=self.mesh)
+            keep=self.cfg.keep_checkpoints, mesh=self.mesh,
+            gather=self._gather_leaf if self._sharded() else None)
 
     def fit(self) -> float:
         """Train ``epochs`` (or ``max_steps``), validating after each

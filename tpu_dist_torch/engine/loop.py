@@ -10,8 +10,9 @@ What follows the reference (line numbers are ``loop.py``'s):
   (``models.registry``, every image arch, with the ResNet knobs ``norm``,
   ``norm_dtype`` and ``stem``, and ``quant`` for the ``vit_*`` archs
   alone, ``:109-124``), the ``pretrained`` warm start
-  (``:174-190``: the leaves of a port checkpoint whose name and shape
-  match, params and BN stats, over a fresh optimizer at step 0), the
+  (``:174-190``: the leaves of a port ``.pt`` or a reference
+  ``.msgpack`` checkpoint whose name and shape match, params and BN
+  stats, over a fresh optimizer at step 0), the
   step-decay schedule, the optimizer (``sgd`` | ``adamw`` | ``fused_sgd``,
   the last through the hand-written SGD kernel), the fp16 ``loss_scale``
   (``:204-206``), gradient accumulation (``grad_accum_steps``,
@@ -256,7 +257,7 @@ class Trainer:
         self.rank, self.world = self.mesh.rank, world
         self.is_main = self.mesh.is_main
         self.dp = DataParallel(
-            self.mesh.group, world, cfg.variant, cfg.grad_compression,
+            self.mesh.group(), world, cfg.variant, cfg.grad_compression,
             cfg.gradient_predivide_factor, cfg.adasum, cfg.grad_bucket_mb)
         if self.device.type == "cuda":
             torch.backends.cudnn.benchmark = True
@@ -284,7 +285,7 @@ class Trainer:
             self._warm_start(cfg.pretrained)
         self.model.requires_grad_(True)
         if cfg.variant == "jit" and world > 1:   # one step over the group
-            set_batchnorm_group(self.model, self.mesh.group)
+            set_batchnorm_group(self.model, self.mesh.group())
         # ceil: the sampler pads to full batches
         self.steps_per_epoch = max(1, -(-len(self.train_ds) // cfg.batch_size))
         self.schedule = step_decay_schedule(cfg.scaled_lr(world),
@@ -368,9 +369,10 @@ class Trainer:
                 torch.from_numpy(ds.labels.astype(np.int64)).to(self.device))
 
     def _warm_start(self, path: str) -> None:
-        """Graft a port checkpoint's params and BN stats onto the fresh
-        model where name and shape match (``:174-190``)."""
-        params, stats, meta = ckpt.load_warmstart(path)
+        """Graft a checkpoint's params and BN stats (the port's ``.pt`` or
+        the reference's ``.msgpack``) onto the fresh model where name and
+        shape match (``:174-190``)."""
+        params, stats, meta = ckpt.load_warmstart(path, self.model)
         n_p, skipped = ckpt.graft_params(self.model.named_parameters(),
                                          params)
         n_s, _ = ckpt.graft_params(self.model.named_buffers(), stats)
@@ -692,7 +694,7 @@ class Trainer:
                                    labels, v)
             sums = {k: sums[k] + m[k] for k in sums}
         flat = torch.stack([sums[k] for k in IMAGE_METRIC_KEYS])
-        all_reduce_(flat, self.mesh.group)
+        all_reduce_(flat, self.mesh.group())
         sums = dict(zip(IMAGE_METRIC_KEYS, flat.tolist()))
         n = max(sums["count"], 1.0)
         acc1, acc5 = sums["correct1"] / n, sums["correct5"] / n

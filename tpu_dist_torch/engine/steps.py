@@ -168,15 +168,17 @@ def zeros_image_metrics(device) -> Dict[str, torch.Tensor]:
 @torch.no_grad()
 def apply_update(tx, state: TrainState, grads: List[torch.Tensor],
                  metrics: Dict[str, torch.Tensor], health: str = "record",
-                 old_stats: Optional[List[torch.Tensor]] = None
-                 ) -> Dict[str, torch.Tensor]:
+                 old_stats: Optional[List[torch.Tensor]] = None,
+                 sq_norm=None) -> Dict[str, torch.Tensor]:
     """Apply one optimizer step to ``state`` in place (``tx`` is a fused
     optimizer with ``apply`` -- ``FusedSGD``, ``FusedAdamW`` -- or an
     optax-protocol :class:`~tpu_dist_torch.ops.optim.Optimizer`); returns
     ``metrics`` with the probes added. ``grads`` are scaled by the state's
     loss scale where it has one. ``old_stats`` are the BN running stats
     from before this step's forward (the caller copies them under
-    ``health='skip'``). No host sync."""
+    ``health='skip'``). ``sq_norm`` (a list of leaves -> their global sum
+    of squares) gives the probes' norms over sharded leaves. No host
+    sync."""
     params = state.params
     old = [p.detach().clone() for p in params]
     scaled = state.loss_scale is not None
@@ -193,7 +195,7 @@ def apply_update(tx, state: TrainState, grads: List[torch.Tensor],
     if scaled:   # an overflow step keeps the old params and optimizer state
         for t, o in zip([*params, *state.opt_tensors()], [*old, *old_opt]):
             t.copy_(torch.where(finite, t, o))
-    probes = probe_update_metrics(grads, old, params)
+    probes = probe_update_metrics(grads, old, params, sq_norm)
     if scaled:   # a routine overflow reports clean zeros
         probes = {k: torch.where(finite, v, torch.zeros_like(v))
                   for k, v in probes.items()}

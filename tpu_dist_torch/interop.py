@@ -10,7 +10,11 @@
 
 The tree is the reference's nested dict (``model.init(...)["params"]``),
 with leaves anything ``numpy.asarray`` takes -- so this module needs no
-JAX. Both fp trees and ``wo_quantize_params`` trees load:
+JAX. Both fp trees and ``wo_quantize_params`` trees load, and the MoE LM's
+blocks carry ``moe.{gate.kernel, w_in, w_out}`` under the same names.
+:func:`flax_named_leaves` maps a tree's leaves to the port's param and
+buffer names without requiring every leaf (a warm start's graft matches
+them by name and shape):
 
 =====================================  ===================================
 flax path                              port
@@ -72,9 +76,21 @@ def _load_norm(norm, node: dict, path: str) -> None:
     _copy(norm.bias, node["bias"], path + ".bias")
 
 
+_MOE = {"gate", "w_in", "w_out"}
+
+
+def _load_moe(moe, node: dict, path: str) -> None:
+    if set(node) != _MOE or set(node["gate"]) != {"kernel"}:
+        raise ValueError(f"{path}: leaves {sorted(node)}, expected "
+                         f"{sorted(_MOE)} with gate.kernel")
+    _copy(moe.gate.kernel, node["gate"]["kernel"], path + ".gate.kernel")
+    _copy(moe.w_in, node["w_in"], path + ".w_in")
+    _copy(moe.w_out, node["w_out"], path + ".w_out")
+
+
 def load_flax_params(model, params: dict):
-    """Copy a flax TransformerLM tree into ``model`` (a port
-    ``TransformerLM`` of the same geometry); returns ``model``. Missing or
+    """Copy a flax TransformerLM (or MoETransformerLM) tree into ``model``
+    (a port model of the same geometry); returns ``model``. Missing or
     extra leaves raise."""
     blocks = {f"block{i}" for i in range(len(model.blocks))}
     expect = {"tok_emb", "pos_emb", "ln_f", "lm_head"} | blocks
@@ -89,13 +105,18 @@ def load_flax_params(model, params: dict):
                   name + ".embedding")
         for i, blk in enumerate(model.blocks):
             node = params[f"block{i}"]
-            if set(node) != {"ln1", "ln2", *_DENSE}:
+            moe = hasattr(blk, "moe")
+            dense = ("qkv", "proj") if moe else _DENSE
+            if set(node) != {"ln1", "ln2", *dense, *(("moe",) if moe
+                                                     else ())}:
                 raise ValueError(f"block{i}: children {sorted(node)}")
             _load_norm(blk.ln1, node["ln1"], f"block{i}.ln1")
             _load_norm(blk.ln2, node["ln2"], f"block{i}.ln2")
-            for name in _DENSE:
+            for name in dense:
                 _load_dense(getattr(blk, name), node[name],
                             f"block{i}.{name}")
+            if moe:
+                _load_moe(blk.moe, node["moe"], f"block{i}.moe")
         _load_norm(model.ln_f, params["ln_f"], "ln_f")
         _load_dense(model.lm_head, params["lm_head"], "lm_head")
     return model
@@ -126,9 +147,89 @@ def export_flax_params(model) -> dict:
             "pos_emb": {"embedding": _np(model.pos_emb.weight)},
             "ln_f": norm(model.ln_f), "lm_head": dense(model.lm_head)}
     for i, blk in enumerate(model.blocks):
+        if hasattr(blk, "moe"):
+            tree[f"block{i}"] = {
+                "ln1": norm(blk.ln1), "ln2": norm(blk.ln2),
+                "qkv": dense(blk.qkv), "proj": dense(blk.proj),
+                "moe": {"gate": {"kernel": _np(blk.moe.gate.kernel)},
+                        "w_in": _np(blk.moe.w_in),
+                        "w_out": _np(blk.moe.w_out)}}
+            continue
         tree[f"block{i}"] = {"ln1": norm(blk.ln1), "ln2": norm(blk.ln2),
                              **{n: dense(getattr(blk, n)) for n in _DENSE}}
     return tree
+
+
+# ---- leaf names for a warm start --------------------------------------------
+
+def _as_tensor(x) -> torch.Tensor:
+    return x if torch.is_tensor(x) else torch.from_numpy(
+        np.array(x, copy=True))
+
+
+def _flat(tree, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flat(v, prefix + (str(k),))
+        else:
+            yield prefix + (str(k),), v
+
+
+def _lm_name(path) -> str:
+    head, rest = path[0], path[1:]
+    if head in ("tok_emb", "pos_emb") and rest == ("embedding",):
+        return f"{head}.weight"
+    if head.startswith("block") and head[5:].isdigit():
+        return ".".join(("blocks", head[5:]) + rest)
+    return ".".join(path)
+
+
+def flax_named_leaves(model, params: dict, batch_stats=None):
+    """({port param name: tensor}, {port buffer name: tensor}) of a flax
+    tree for ``model`` (the LM families or any image model): the LM's
+    ``tok_emb.embedding`` -> ``tok_emb.weight`` and ``block{i}`` ->
+    ``blocks.{i}``; an image model's leaves by its module tree (the table
+    above, conv kernels HWIO -> OIHW). Leaves the model lacks are left out;
+    nothing is copied into the model."""
+    from tpu_dist_torch.models.transformer import TransformerLM
+
+    if isinstance(model, TransformerLM):
+        return {_lm_name(p): _as_tensor(v)
+                for p, v in _flat(params)}, {}
+    from tpu_dist_torch.models.resnet import Conv
+
+    out_p, out_s = {}, {}
+
+    def join(path, name):
+        return f"{path}.{name}" if path else name
+
+    def walk(mod, pnode, snode, path):
+        leaves = _image_leaves(mod)
+        if leaves is not None:
+            p, st = leaves
+            own = {id(t): n for n, t in mod.named_parameters(recurse=False)}
+            own.update({id(t): n for n, t in mod.named_buffers(
+                recurse=False)})
+            for k, t in p.items():
+                if k in pnode:
+                    src = _as_tensor(pnode[k])
+                    if isinstance(mod, Conv) and k == "kernel":
+                        src = src.permute(3, 2, 0, 1).contiguous()
+                    out_p[join(path, own[id(t)])] = src
+            for k, t in st.items():
+                if snode and k in snode:
+                    out_s[join(path, own[id(t)])] = _as_tensor(snode[k])
+            return
+        for name, _ in mod.named_parameters(recurse=False):
+            if name in pnode and not isinstance(pnode[name], dict):
+                out_p[join(path, name)] = _as_tensor(pnode[name])
+        for name, kid in mod.named_children():
+            if isinstance(pnode.get(name), dict):
+                walk(kid, pnode[name], (snode or {}).get(name),
+                     join(path, name))
+
+    walk(model, params, batch_stats or {}, "")
+    return out_p, out_s
 
 
 # ---- image models ----------------------------------------------------------

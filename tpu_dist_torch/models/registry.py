@@ -3,10 +3,10 @@
 The same names and kinds as the reference's ``_REGISTRY``: every image
 arch (the ResNet family, the CNN zoo of ``models/cnn_zoo.py``,
 ``models/inception.py`` and ``models/mobile.py``, the ViTs of
-``models/vit.py``, LeNet) and the LM (``transformer_lm``, ``tiny_lm``
-build the port's ``TransformerLM``). ``moe_lm`` is known by name and kind,
-and :func:`create_model` raises ``NotImplementedError`` naming its JAX
-module.
+``models/vit.py``, LeNet) and the LMs (``transformer_lm``, ``tiny_lm``
+build the port's ``TransformerLM``, ``moe_lm`` its ``MoETransformerLM``).
+Every arch of the reference's registry is ported (``_UNPORTED`` is
+empty).
 
 Image models take their input geometry at construction (flax infers it at
 init; a torch module needs it up front): LeNet and the ViTs the whole
@@ -67,11 +67,12 @@ _REGISTRY: Dict[str, Tuple[Callable, str]] = {
     "vit_cifar": (vit.ViTCifar, "image"),
     "transformer_lm": (None, "lm"),
     "tiny_lm": (None, "lm"),
+    "moe_lm": (None, "lm"),
 }
 
 # archs of the reference registry the port has not ported: name -> the JAX
 # module that holds it
-_UNPORTED = {"moe_lm": "tpu_dist/models/moe.py"}
+_UNPORTED: Dict[str, str] = {}
 
 model_names = sorted({**_REGISTRY, **_UNPORTED})
 
@@ -105,8 +106,10 @@ def create_model(arch: str, num_classes: int = 10, dtype=torch.float32,
             "init; elsewhere use engine.checkpoint.load_warmstart + "
             "graft_params. Downloaded weights are not fetched.")
     if kind == "lm":
+        from tpu_dist_torch.models.moe import MoETransformerLM
         from tpu_dist_torch.models.transformer import TransformerLM, tiny_lm
-        ctor = tiny_lm if arch == "tiny_lm" else TransformerLM
+        ctor = {"tiny_lm": tiny_lm, "moe_lm": MoETransformerLM}.get(
+            arch, TransformerLM)
         return ctor(dtype=dtype, **kwargs)
     ctor = _REGISTRY[arch][0]
     if ctor is lenet.LeNet or arch.startswith("vit"):

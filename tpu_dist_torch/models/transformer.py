@@ -17,6 +17,17 @@ whole sequences), a contiguous per-block cache (``engine.generate``), and
 an external paged pool (``engine.serve``; ``paged=`` makes ``forward``
 return ``(logits, layers)``).
 
+Tensor parallelism over a ``model`` mesh axis (``parallel.tp`` and
+``parallel.overlap``) sets ``tp`` on the model and its blocks: under
+``tp_impl="gspmd"`` the blocks hold their Megatron shards (``qkv`` and
+``mlp_in`` column-parallel, ``proj`` and ``mlp_out`` row-parallel, the
+``lm_head`` over a vocab shard) and run Megatron's collectives around
+them, so attention runs over this rank's H/M heads and the logits are its
+vocab shard; under ``tp_impl="ring"`` the params stay whole, the residual
+stream is this rank's sequence chunk, and each projection is a ring
+collective matmul (``parallel.overlap.RingDense``). Decode refuses the
+ring, as the reference does.
+
 Training mode (``engine.lm_loop.LMTrainer``): parameters are kept in
 ``param_dtype`` (fp32 masters under ``precision="bf16"``) and cast to the
 compute ``dtype`` at each call, as flax does; the trainer turns
@@ -99,38 +110,108 @@ class LayerNorm(nn.Module):
         return (xf - mean) * mul + self.bias
 
 
-class Block(nn.Module):
+def refuse_ring_decode(tp_impl: str, decoding: bool) -> None:
+    if tp_impl != "gspmd" and decoding:
+        raise ValueError("tp_impl='ring' is a training path; decode rides "
+                         "the GSPMD layers")
+
+
+class AttentionBlock(nn.Module):
+    """The attention half of a pre-LN block (``ln1``, ``qkv``, ``proj``)
+    and the ``ln2`` of its MLP half, shared by :class:`Block` and the MoE
+    block (``models.moe``). ``tp`` (a ``parallel.mesh.Axis``) is set by
+    ``parallel.tp`` / ``parallel.overlap`` for tensor parallelism."""
+
     def __init__(self, d_model: int, num_heads: int, dtype=torch.float32,
                  attn_fn: Callable = full_attention, quant: str = "none",
-                 device=None, param_dtype=None):
+                 device=None, param_dtype=None, tp_impl: str = "gspmd"):
         super().__init__()
         self.num_heads = num_heads
         self.dtype = dtype
         self.attn_fn = attn_fn
-        dense = dict(dtype=dtype, quant=quant, device=device,
-                     param_dtype=param_dtype)
+        self.tp_impl = tp_impl
+        self.tp = None
+        self._dense = dict(dtype=dtype, quant=quant, device=device,
+                           param_dtype=param_dtype)
         self.ln1 = LayerNorm(d_model, device=device)
-        self.qkv = make_dense(d_model, 3 * d_model, use_bias=False, **dense)
-        self.proj = make_dense(d_model, d_model, use_bias=False, **dense)
+        self.qkv = make_dense(d_model, 3 * d_model, use_bias=False,
+                              **self._dense)
+        self.proj = make_dense(d_model, d_model, use_bias=False,
+                               **self._dense)
         self.ln2 = LayerNorm(d_model, device=device)
-        self.mlp_in = make_dense(d_model, 4 * d_model, **dense)
-        self.mlp_out = make_dense(4 * d_model, d_model, **dense)
 
-    def forward(self, x, cache=None, paged=None, paged_prefill: bool = False):
-        b, l, d_model = x.shape
-        head_dim = d_model // self.num_heads
-        qkv = self.qkv(self.ln1(x))
-        q, k, v = (t.reshape(b, l, self.num_heads, head_dim).contiguous()
-                   for t in qkv.split(d_model, dim=-1))
+    @property
+    def tp_group(self):
+        """This rank's model-axis group when tensor parallelism is on."""
+        return None if self.tp is None or self.tp.size == 1 else self.tp.group
+
+    def column(self, dense, x, fused: int = 1):
+        """A column-parallel product: the whole input, this rank's output
+        features (gspmd: Megatron's ``f`` first, the bias sliced from its
+        replicated leaf; ring: the all-gather ring over sequence chunks)."""
+        g = self.tp_group
+        if g is None:
+            return dense(x)
+        if self.tp_impl == "ring":
+            from tpu_dist_torch.parallel.overlap import RingDense
+
+            return RingDense(dense, "column", self.tp, fused)(x)
+        from tpu_dist_torch.parallel.collectives import (copy_to_group,
+                                                         slice_shard)
+        y = dense.matmul(copy_to_group(x, g))
+        if dense.bias is not None:
+            y = y + slice_shard(dense.bias, 0, g).to(dense.dtype)
+        return y
+
+    def row(self, dense, x):
+        """A row-parallel product: this rank's input features, the whole
+        output (gspmd: the partial products summed by Megatron's ``g``,
+        then the replicated bias; ring: the reduce-scatter ring)."""
+        g = self.tp_group
+        if g is None:
+            return dense(x)
+        if self.tp_impl == "ring":
+            from tpu_dist_torch.parallel.overlap import RingDense
+
+            return RingDense(dense, "row", self.tp)(x)
+        from tpu_dist_torch.parallel.collectives import reduce_from_group
+        y = reduce_from_group(dense.matmul(x), g)
+        if dense.bias is not None:
+            y = y + dense.bias.to(dense.dtype)
+        return y
+
+    def attend(self, x, cache=None, paged=None, paged_prefill: bool = False):
+        """x + proj(attention(qkv(ln1(x)))): (x, paged layer or None).
+        Under tensor parallelism the heads are this rank's H/M."""
+        refuse_ring_decode(self.tp_impl, cache is not None or paged is not None)
+        b = x.shape[0]
+        head_dim = x.shape[-1] // self.num_heads
+        qkv = self.column(self.qkv, self.ln1(x), fused=3)
+        l = qkv.shape[1]          # the whole sequence under the ring
+        q, k, v = (t.reshape(b, l, -1, head_dim).contiguous()
+                   for t in qkv.split(qkv.shape[-1] // 3, dim=-1))
         out = attend_maybe_cached(q, k, v, attn_fn=self.attn_fn,
                                   dtype=self.dtype, cache=cache, paged=paged,
                                   paged_prefill=paged_prefill)
         layer = None
         if paged is not None:
             out, layer = out
-        x = x + self.proj(out.reshape(b, l, d_model))
-        h = F.gelu(self.mlp_in(self.ln2(x)), approximate="tanh")
-        x = x + self.mlp_out(h)
+        return x + self.row(self.proj, out.reshape(b, l, -1)), layer
+
+
+class Block(AttentionBlock):
+    def __init__(self, d_model: int, num_heads: int, dtype=torch.float32,
+                 attn_fn: Callable = full_attention, quant: str = "none",
+                 device=None, param_dtype=None, tp_impl: str = "gspmd"):
+        super().__init__(d_model, num_heads, dtype, attn_fn, quant, device,
+                         param_dtype, tp_impl)
+        self.mlp_in = make_dense(d_model, 4 * d_model, **self._dense)
+        self.mlp_out = make_dense(4 * d_model, d_model, **self._dense)
+
+    def forward(self, x, cache=None, paged=None, paged_prefill: bool = False):
+        x, layer = self.attend(x, cache, paged, paged_prefill)
+        h = F.gelu(self.column(self.mlp_in, self.ln2(x)), approximate="tanh")
+        x = x + self.row(self.mlp_out, h)
         return x, layer
 
 
@@ -146,7 +227,8 @@ class TransformerLM(nn.Module):
                  d_model: int = 256, num_heads: int = 8, max_len: int = 2048,
                  dtype=torch.float32, attn_fn: Callable = full_attention,
                  quant: str = "none", device=None, seed: Optional[int] = 0,
-                 param_dtype=None, remat: bool = False):
+                 param_dtype=None, remat: bool = False,
+                 tp_impl: str = "gspmd"):
         super().__init__()
         device = resolve_device(device)
         param_dtype = dtype if param_dtype is None else param_dtype
@@ -155,13 +237,15 @@ class TransformerLM(nn.Module):
         self.max_len = max_len
         self.dtype, self.attn_fn, self.quant = dtype, attn_fn, quant
         self.remat = remat
+        self.tp_impl = tp_impl
+        self.tp = None
         self.tok_emb = nn.Embedding(vocab_size, d_model, dtype=param_dtype,
                                     device=device)
         self.pos_emb = nn.Embedding(max_len, d_model, dtype=param_dtype,
                                     device=device)
         self.blocks = nn.ModuleList(
-            Block(d_model, num_heads, dtype, attn_fn, quant, device,
-                  param_dtype) for _ in range(num_layers))
+            self._block(d_model, num_heads, dtype, attn_fn, quant, device,
+                        param_dtype) for _ in range(num_layers))
         self.ln_f = LayerNorm(d_model, device=device)
         self.lm_head = make_dense(d_model, vocab_size, use_bias=False,
                                   dtype=dtype, quant=quant, device=device,
@@ -170,9 +254,26 @@ class TransformerLM(nn.Module):
         if seed is not None:
             self.init_weights(seed)
 
+    def _block(self, d_model, num_heads, dtype, attn_fn, quant, device,
+               param_dtype):
+        return Block(d_model, num_heads, dtype, attn_fn, quant, device,
+                     param_dtype, self.tp_impl)
+
     @property
     def device(self) -> torch.device:
         return self.tok_emb.weight.device
+
+    def set_tp(self, axis) -> None:
+        """Run tensor-parallel over ``axis`` (a ``parallel.mesh.Axis``):
+        ``parallel.tp.shard_lm_`` and ``parallel.overlap.ring_lm_`` call
+        this after laying the params out."""
+        self.tp = axis
+        for blk in self.blocks:
+            blk.tp = axis
+
+    @property
+    def tp_group(self):
+        return None if self.tp is None or self.tp.size == 1 else self.tp.group
 
     def _embed(self, emb: nn.Embedding, idx):
         """flax ``nn.Embed(dtype=...)``: the table is cast to the compute
@@ -195,12 +296,19 @@ class TransformerLM(nn.Module):
 
     def forward(self, tokens, pos_offset=0, caches: Optional[List] = None,
                 paged=None, paged_prefill: bool = False,
-                return_features: bool = False):
+                return_features: bool = False, return_aux: bool = False):
         """``pos_offset``: global position of the first token, an int or a
         (B,) tensor of per-row positions (the paged tick). ``caches``: one
         contiguous cache dict per block (``engine.generate``). ``paged``:
         the pool context ``{"layers", "block_tables", "positions",
-        "lengths"[, "valid"]}``; then returns ``(logits, layers)``."""
+        "lengths"[, "valid"]}``; then returns ``(logits, layers)``.
+        ``return_aux`` returns ``(out, aux)`` with the MoE blocks' router
+        sums (:meth:`collect_aux`; zeros for a dense model). Under
+        ``tp_impl="ring"`` the output holds this rank's sequence chunk,
+        and under gspmd tensor parallelism the logits are this rank's
+        vocab shard."""
+        refuse_ring_decode(self.tp_impl,
+                           caches is not None or paged is not None)
         l = tokens.shape[1]
         x = self._embed(self.tok_emb, tokens.long())
         ar = torch.arange(l, device=tokens.device)
@@ -216,37 +324,55 @@ class TransformerLM(nn.Module):
         ctx = None if paged is None else {
             k: paged.get(k) for k in ("block_tables", "positions", "lengths",
                                       "valid", "sp_mesh")}
-        new_layers = []
+        if self.tp_group is not None and self.tp_impl == "ring":
+            from tpu_dist_torch.parallel.overlap import seq_shard
+
+            x = seq_shard(x, self.tp)
+        new_layers, extras = [], []
         remat = (self.remat and torch.is_grad_enabled() and caches is None
                  and paged is None)
         for i, blk in enumerate(self.blocks):
             if remat:
-                x, _ = checkpoint(blk, x, use_reentrant=False)
-                continue
-            x, layer = blk(
-                x, cache=None if caches is None else caches[i],
-                paged=None if paged is None else {**ctx,
-                                                  "layer": paged["layers"][i]},
-                paged_prefill=paged_prefill)
-            new_layers.append(layer)
+                x, extra = checkpoint(blk, x, use_reentrant=False)
+            else:
+                x, extra = blk(
+                    x, cache=None if caches is None else caches[i],
+                    paged=None if paged is None else {
+                        **ctx, "layer": paged["layers"][i]},
+                    paged_prefill=paged_prefill)
+            new_layers.append(extra)
+            extras.append(extra)
         x = self.ln_f(x)
         if return_features:
             if paged is not None:
                 raise ValueError("return_features=True cannot ride the "
                                  "paged cache path")
-            return x
+            return (x, self.collect_aux(extras, x)) if return_aux else x
+        if self.tp_group is not None and self.tp_impl == "gspmd":
+            from tpu_dist_torch.parallel.collectives import copy_to_group
+
+            x = copy_to_group(x, self.tp_group)   # vocab-parallel head
         logits = self.lm_head(x).float()
         if paged is not None:
             return logits, tuple(new_layers)
-        return logits
+        return (logits, self.collect_aux(extras, x)) if return_aux \
+            else logits
+
+    def collect_aux(self, extras, like) -> dict:
+        """The router sums of one forward (``lm_steps._apply_collect_aux``):
+        ``aux`` the blocks' balance + z losses, ``mass_sum`` and ``mass_n``
+        the combine mass diagnostic. A dense model has none: zeros."""
+        zero = torch.zeros((), dtype=torch.float32, device=like.device)
+        return {"aux": zero, "mass_sum": zero, "mass_n": zero}
 
 
 def tiny_lm(vocab_size=256, num_layers=2, d_model=64, num_heads=4,
             max_len=512, dtype=torch.float32, attn_fn=full_attention,
             quant="none", device=None, seed=0, param_dtype=None,
-            remat=False, **_):
+            remat=False, tp_impl="gspmd", **_):
     return TransformerLM(vocab_size=vocab_size, num_layers=num_layers,
                          d_model=d_model, num_heads=num_heads,
                          max_len=max_len, dtype=dtype, attn_fn=attn_fn,
                          quant=quant, device=device, seed=seed,
-                         param_dtype=param_dtype, remat=remat)
+                         param_dtype=param_dtype, remat=remat,
+                         tp_impl=tp_impl)

@@ -45,21 +45,31 @@ def _float_leaves(tensors):
     return [t for t in tensors if t.is_floating_point()]
 
 
-def probe_update_metrics(grads, old_params, new_params) -> dict:
+def probe_update_metrics(grads, old_params, new_params,
+                         sq_norm=None) -> dict:
     """The probes as 0-d fp32 tensors: global grad L2 norm, count of grad
     leaves whose squared sum is non-finite (any Inf/NaN value, or a norm
     overflow), and the L2 norm of ``new - old`` params (fp32). One
-    sum-of-squares pass over the grads and one over the update."""
+    sum-of-squares pass over the grads and one over the update.
+    ``sq_norm`` (leaves -> global sum of squares) takes the norms over
+    sharded leaves, every leaf a float one."""
     g_sq = [t.float().square().sum() for t in _float_leaves(grads)]
+    dev = grads[0].device if len(grads) else torch.device("cpu")
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    nonfinite = (sum((~torch.isfinite(s)).float() for s in g_sq)
+                 if g_sq else zero)
+    if sq_norm is not None:
+        diff = [n.float() - o.float() for n, o in zip(new_params,
+                                                      old_params)]
+        return {"grad_norm": torch.sqrt(sq_norm(list(grads))),
+                "nonfinite_count": nonfinite,
+                "update_norm": torch.sqrt(sq_norm(diff))}
     u_sq = [(n.float() - o.float()).square().sum()
             for n, o in zip(_float_leaves(new_params),
                             _float_leaves(old_params))]
-    dev = grads[0].device if len(grads) else torch.device("cpu")
-    zero = torch.zeros((), dtype=torch.float32, device=dev)
     return {
         "grad_norm": torch.sqrt(sum(g_sq)) if g_sq else zero,
-        "nonfinite_count": (sum((~torch.isfinite(s)).float() for s in g_sq)
-                            if g_sq else zero),
+        "nonfinite_count": nonfinite,
         "update_norm": torch.sqrt(sum(u_sq)) if u_sq else zero,
     }
 

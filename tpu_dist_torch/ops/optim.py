@@ -99,10 +99,14 @@ def _global_norm(tensors) -> torch.Tensor:
     return torch.sqrt(sum(t.float().square().sum() for t in tensors))
 
 
-def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float):
+def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float,
+                        sq_norm=None):
     """optax.clip_by_global_norm: ``g / norm * max_norm`` when the global
-    norm exceeds ``max_norm``, else g unchanged (on the device, no sync)."""
-    norm = _global_norm(grads)
+    norm exceeds ``max_norm``, else g unchanged (on the device, no sync).
+    ``sq_norm`` (leaves -> global sum of squares) takes the norm over
+    sharded leaves."""
+    norm = (_global_norm(grads) if sq_norm is None
+            else torch.sqrt(sq_norm(grads)))
     clip = norm >= max_norm
     return [torch.where(clip, g / norm * max_norm, g) for g in grads]
 
@@ -125,6 +129,7 @@ class Optimizer:
         self.momentum, self.weight_decay = momentum, weight_decay
         self.b1, self.b2, self.eps = b1, b2, eps
         self.grad_clip = grad_clip
+        self.sq_norm = None   # as FusedAdamW.sq_norm
 
     def init(self, params) -> OptState:
         z = lambda p: torch.zeros(p.shape, dtype=torch.float32,
@@ -140,7 +145,7 @@ class Optimizer:
         """(updates, new_state): updates to add to ``params``."""
         u = [g.float() for g in grads]
         if self.grad_clip > 0:
-            u = clip_by_global_norm(u, self.grad_clip)
+            u = clip_by_global_norm(u, self.grad_clip, self.sq_norm)
         lr = self.schedule(state.count)
         if self.kind == "adamw":
             t = state.count + 1

@@ -130,6 +130,9 @@ class FusedAdamW:
         self.b1, self.b2, self.eps = b1, b2, eps
         self.weight_decay = weight_decay
         self.clip_norm = clip_norm
+        # leaves -> global sum of squares, for a clip over sharded leaves
+        # (set by the LM trainer's model-parallel modes)
+        self.sq_norm = None
 
     def init(self, params) -> FusedAdamWState:
         z = lambda p: torch.zeros(p.shape, dtype=torch.float32,
@@ -145,7 +148,8 @@ class FusedAdamW:
         ``state``."""
         scalars = scalar_row(float(self.schedule(step)), self.b1, self.b2,
                              self.eps, self.weight_decay, step + 1,
-                             clip_scale(grads, self.clip_norm))
+                             clip_scale(grads, self.clip_norm,
+                                        self.sq_norm))
         ps = [p.data for p in params]
         if scalars.is_cuda:
             fused_adamw_multi_cuda(ps, grads, state.mu, state.nu, scalars)

@@ -37,16 +37,19 @@ MULTI_ARGS = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
               ctypes.c_void_p]
 
 
-def clip_scale(grads: Sequence[torch.Tensor], clip_norm: float):
+def clip_scale(grads: Sequence[torch.Tensor], clip_norm: float,
+               sq_norm=None):
     """Global-norm clip factor for a list of grads, as a 0-d fp32 tensor on
     their device: ``clip/norm`` when the fp32 global norm exceeds
     ``clip_norm``, else 1 (``tpu_dist/ops/pallas_sgd.py:76 clip_scale``;
     optax.clip_by_global_norm / ``clip_grad_norm_`` semantics). Clipping
-    off (``clip_norm <= 0``) gives a constant 1."""
+    off (``clip_norm <= 0``) gives a constant 1. ``sq_norm`` (leaves ->
+    global sum of squares) takes the norm over sharded leaves."""
     dev = grads[0].device
     if clip_norm <= 0:
         return torch.ones((), dtype=torch.float32, device=dev)
-    sq = sum(g.float().square().sum() for g in grads)
+    sq = (sq_norm(list(grads)) if sq_norm is not None
+          else sum(g.float().square().sum() for g in grads))
     norm = torch.sqrt(sq)
     return torch.where(norm > clip_norm,
                        clip_norm / torch.clamp(norm, min=1e-30),

@@ -164,7 +164,9 @@ class QuantDense(nn.Module):
         self.register_buffer("kernel_scale",
                              scale.to(device=dev, dtype=torch.float32))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def matmul(self, x: torch.Tensor) -> torch.Tensor:
+        """The product without the bias (the tensor-parallel layers add a
+        sliced or a post-reduction bias themselves)."""
         x = x.to(self.dtype)
         if self.prequantized:
             if self.mode == "int8":
@@ -177,9 +179,11 @@ class QuantDense(nn.Module):
                     "requested; pre-quantized kernels only support the "
                     "weight-only path -- use quant='int8_wo', or keep the "
                     "fp weights for dynamic int8")
-            y = x @ dequantize(self.kernel, self.kernel_scale, self.dtype)
-        else:
-            y = quant_matmul(x, self.kernel.to(self.dtype), self.mode)
+            return x @ dequantize(self.kernel, self.kernel_scale, self.dtype)
+        return quant_matmul(x, self.kernel.to(self.dtype), self.mode)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.matmul(x)
         if self.bias is not None:
             y = y + self.bias.to(self.dtype)
         return y
@@ -193,6 +197,75 @@ def make_dense(in_features: int, features: int, *, use_bias: bool = True,
     return QuantDense(in_features, features, mode=validate_quant(quant),
                       use_bias=use_bias, dtype=dtype, device=device,
                       param_dtype=param_dtype)
+
+
+# ---- MoE expert matmuls (``:109-160, 266-277``) ----------------------------
+
+def _contracted_dims(spec: str, operand: str) -> tuple:
+    """Dims of ``operand`` (one side of an 'ab,bc->ac' einsum) that do not
+    survive to the output: the dims its int8 scale reduces over."""
+    out = spec.split("->")[1]
+    return tuple(i for i, ch in enumerate(operand) if ch not in out)
+
+
+class _QuantEinsum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, spec, lhs, rhs):
+        ctx.spec = spec
+        ctx.save_for_backward(lhs, rhs)
+        l_sub, r_sub = spec.split("->")[0].split(",")
+        ql, sl = quantize_int8(lhs, _contracted_dims(spec, l_sub))
+        qr, sr = quantize_int8(rhs, _contracted_dims(spec, r_sub))
+        # int32 sums, exact in float64 while |acc| < 2^53
+        acc = torch.einsum(spec, ql.double(), qr.double())
+        scale = torch.einsum(spec, sl, sr)   # contracted dims are size 1
+        return (acc.float() * scale).to(lhs.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        lhs, rhs = ctx.saved_tensors
+        with torch.enable_grad():
+            a, b = lhs.detach().requires_grad_(), rhs.detach().requires_grad_()
+            out = torch.einsum(ctx.spec, a, b)
+            ga, gb = torch.autograd.grad(out, (a, b), g)
+        return None, ga, gb
+
+
+def quant_einsum(spec: str, lhs: torch.Tensor, rhs: torch.Tensor
+                 ) -> torch.Tensor:
+    """``einsum(spec, lhs, rhs)`` with both operands int8-quantized (one
+    scale per slice over each operand's contracted dims) and exact integer
+    sums; the backward is the straight-through estimator, the vjp of the
+    fp einsum. The plain version the MoE expert path is held to."""
+    return _QuantEinsum.apply(spec, lhs, rhs)
+
+
+EXPERT_SPECS = ("gecd,edf->gecf", "gecf,efd->gecd")
+
+
+def moe_expert_matmul(spec: str, acts: torch.Tensor, w: torch.Tensor,
+                      quant: str = "none") -> torch.Tensor:
+    """One expert contraction (``EXPERT_SPECS``: acts (G, E, C, K) x w
+    (E, K, N) -> (G, E, C, N)) under the quant mode: the fp einsum
+    (``none``), the weight fake-quantized over its contracted dim
+    (``int8_wo``), or ``int8``: each expert's (G*C, K) x (K, N) product
+    through ``ops.pallas_quant.fused_quant_matmul`` (``csrc/fused_quant.cu``
+    for CUDA tensors, one call per expert; its plain version on the CPU),
+    whose per-row and per-column scales over K are exactly
+    :func:`quant_einsum`'s, with the same STE backward."""
+    if validate_quant(quant) == "none":
+        return torch.einsum(spec, acts, w)
+    if spec not in EXPERT_SPECS:
+        raise ValueError(f"moe_expert_matmul takes {EXPERT_SPECS}, got "
+                         f"{spec!r}")
+    if quant == "int8_wo":
+        return torch.einsum(spec, acts, wo_fake_quant(w, (1,)))
+    from tpu_dist_torch.ops.pallas_quant import fused_quant_matmul
+
+    g, e, c, k = acts.shape
+    outs = [fused_quant_matmul(acts[:, i].reshape(g * c, k), w[i])
+            .reshape(g, c, w.shape[-1]) for i in range(e)]
+    return torch.stack(outs, 1)
 
 
 # ---- weight-only decode: pre-quantized param trees ------------------------

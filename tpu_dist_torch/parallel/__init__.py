@@ -1,6 +1,7 @@
-"""tpu_dist_torch.parallel: the process group as a data mesh, launch and
-rendezvous, collectives and bucketed gradient sync
-(``tpu_dist/parallel/__init__.py``, limited to what the port carries).
+"""tpu_dist_torch.parallel: the process group as a mesh, launch and
+rendezvous, collectives and bucketed gradient sync, and the model-parallel
+axes (fsdp, tp, ring tp, ring attention, ep)
+(``tpu_dist/parallel/__init__.py``; pipeline parallelism is not ported).
 
 Attribute access is lazy (PEP 562), as in the reference: ``from
 tpu_dist_torch.parallel import launch`` and ``from tpu_dist_torch.parallel
@@ -15,19 +16,29 @@ _LAZY = {
     "mesh": None,
     "collectives": None,
     "overlap": None,
+    "fsdp": None,
+    "tp": None,
+    "ep": None,
+    "ring_attention": None,
     # parallel.launch
     "LaunchInfo": "launch", "detect_launch": "launch",
     "initialize": "launch",
     # parallel.mesh
     "DATA_AXIS": "mesh", "FSDP_AXIS": "mesh", "MODEL_AXIS": "mesh",
-    "SEQ_AXIS": "mesh", "make_mesh": "mesh", "world_info": "mesh",
+    "SEQ_AXIS": "mesh", "EXPERT_AXIS": "mesh", "make_mesh": "mesh",
+    "world_info": "mesh",
     # parallel.collectives
     "adasum_reduce": "collectives", "allreduce_bench": "collectives",
     "barrier": "collectives", "compress_grads": "collectives",
     "pmean": "collectives", "psum": "collectives",
     "reduce_mean": "collectives", "ring_allreduce": "collectives",
+    "ppermute": "collectives",
     # parallel.overlap
     "bucketed_grad_sync": "overlap", "grad_buckets": "overlap",
+    "RingDense": "overlap",
+    # the model-parallel axes
+    "fsdp_specs": "fsdp", "lm_param_specs": "tp", "ep_param_specs": "ep",
+    "ring_attention_fn": "ring_attention",
 }
 
 __all__ = sorted(_LAZY)

@@ -1,22 +1,39 @@
 """Collectives for the port (``tpu_dist/parallel/collectives.py``): the
 metric reductions, the bf16 gradient compression, Adasum, an explicit ring
 all-reduce, a barrier and the all-reduce microbenchmark, on the
-``torch.distributed`` process group.
+``torch.distributed`` process group; and the collectives of the
+model-parallel axes, each differentiable.
 
 The reference's versions run inside ``shard_map`` with an axis name; here
 each process is one member of the group (``group=None`` is the whole
-world). Every function is a no-op over a world of one process without a
-process group, so a single-process run does the same arithmetic (the
-compression's casts included) and no communication.
+world, or no group at all over one process). Every function is a no-op
+over a world of one process without a process group, so a single-process
+run does the same arithmetic (the compression's casts included) and no
+communication.
 
 A tree is a tensor, or a list, tuple or dict of them. The functions return
 new tensors and leave their inputs as they were.
 
-A collective that a backend does not run raises, naming the collective and
-the backend; nothing is staged through the host in its place. gloo aborts
-the process on point-to-point transfers of CUDA tensors, so
-:func:`adasum_reduce` and :func:`ring_allreduce` refuse CUDA tensors on a
-gloo group before any transfer starts.
+The model-parallel axes need gradients through their collectives, which
+JAX derives by transposition and torch does not, so each is an
+``autograd.Function`` (:func:`gather_along` / :func:`scatter_along`, an
+all-gather and a reduce-scatter along a dim; :func:`copy_to_group` and
+:func:`reduce_from_group`, Megatron's identity-forward/all-reduce-backward
+and all-reduce-forward/identity-backward pair; :func:`slice_shard`, this
+rank's slice of a replicated tensor whose backward gathers the slices;
+:func:`ppermute`, whose backward is the reverse shift).
+
+Point to point: gloo aborts the process on point-to-point transfers of
+CUDA tensors, so :func:`adasum_reduce` and :func:`ring_allreduce` refuse
+CUDA tensors on a gloo group before any transfer starts.
+:func:`ppermute` has a route of its own there instead (two ranks can share
+one card only over gloo, and the rings of ring attention and ring tensor
+parallelism ride it): over nccl it is ``batch_isend_irecv`` on the device;
+over gloo with CUDA tensors it copies them to pinned host buffers,
+exchanges those, and copies the result back, and each such call adds one
+to :data:`P2P_HOST_STAGED`. That is a transport over the host, not a CPU
+compute path, and it is never taken under nccl (:func:`p2p_route` names
+the route a group gets).
 """
 
 from __future__ import annotations
@@ -308,3 +325,264 @@ def allreduce_bench(sizes_mb: Sequence[float] = (0.004, 1.0, 16.0, 64.0),
         results[mb] = {"us": dt * 1e6,
                        "gbps": (2 * (n - 1) / max(n, 1)) * nbytes / dt / 1e9}
     return results
+
+
+# ---- collectives of the model-parallel axes --------------------------------
+
+# calls of ppermute that went through pinned host buffers (gloo + CUDA)
+P2P_HOST_STAGED = {"calls": 0}
+# host seconds spent in the model-parallel collectives below (each waits
+# for its transfer; over gloo with CUDA tensors that includes waiting for
+# the card's queued work to reach the tensor): the trainers' sync share
+COMM_SECONDS = {"s": 0.0}
+
+
+def _timed(fn):
+    def run(*a, **k):
+        t0 = time.perf_counter()
+        try:
+            return fn(*a, **k)
+        finally:
+            COMM_SECONDS["s"] += time.perf_counter() - t0
+    run.__name__, run.__doc__ = fn.__name__, fn.__doc__
+    return run
+
+
+
+@_timed
+def all_gather(x: torch.Tensor, group=None) -> torch.Tensor:
+    """(n, *x.shape): every rank's ``x`` stacked in group-rank order."""
+    n = group_size(group)
+    if n == 1 or _dist() is None:
+        return x[None].clone()
+    from tpu_dist_torch.parallel.overlap import _all_gather
+
+    out = x.new_empty(n * x.numel())
+    _all_gather(out, x.reshape(-1).contiguous(), group).wait()
+    return out.reshape((n,) + tuple(x.shape))
+
+
+@_timed
+def reduce_scatter(stacked: torch.Tensor, group=None) -> torch.Tensor:
+    """``stacked`` (n, ...) summed over the group, this rank keeping row
+    ``group_rank``."""
+    n = group_size(group)
+    if n == 1 or _dist() is None:
+        return stacked[0].clone()
+    from tpu_dist_torch.parallel.overlap import _reduce_scatter
+
+    out = stacked.new_empty(stacked[0].numel())
+    _reduce_scatter(out, stacked.reshape(-1).contiguous(), group).wait()
+    return out.reshape(stacked.shape[1:])
+
+
+@_timed
+def all_reduce(x: torch.Tensor, group=None) -> torch.Tensor:
+    """A new tensor: ``x`` summed over the group."""
+    dist = _dist()
+    y = x.clone()
+    if dist is None or group_size(group) == 1:
+        return y
+    run_collective("all_reduce", lambda: dist.all_reduce(y, group=group), y,
+                   group)
+    return y
+
+
+def _gather_dim(x, dim, group):
+    return torch.cat(all_gather(x, group).unbind(0), dim)
+
+
+def _scatter_dim(x, dim, group):
+    n = group_size(group)
+    return reduce_scatter(torch.stack(x.chunk(n, dim)), group)
+
+
+class _GatherAlong(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _gather_dim(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _scatter_dim(g, ctx.dim, ctx.group), None, None
+
+
+class _ScatterAlong(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _scatter_dim(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_dim(g, ctx.dim, ctx.group), None, None
+
+
+def gather_along(x: torch.Tensor, dim: int, group=None) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``dim`` in rank order;
+    backward: the gradient's chunk of this rank, summed over the group (a
+    reduce-scatter)."""
+    if group_size(group) == 1:
+        return x
+    return _GatherAlong.apply(x, dim, group)
+
+
+def scatter_along(x: torch.Tensor, dim: int, group=None) -> torch.Tensor:
+    """``x`` summed over the group, this rank keeping its chunk along
+    ``dim`` (a reduce-scatter); backward: an all-gather."""
+    if group_size(group) == 1:
+        return x
+    return _ScatterAlong.apply(x, dim, group)
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.group), None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_group(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Megatron's ``f``: identity forward, the gradient summed over the
+    group backward (the input of a column-parallel product, whose
+    gradient each rank knows only in part)."""
+    if group_size(group) == 1:
+        return x
+    return _CopyTo.apply(x, group)
+
+
+def reduce_from_group(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Megatron's ``g``: ``x`` summed over the group forward, identity
+    backward (the output of a row-parallel product)."""
+    if group_size(group) == 1:
+        return x
+    return _ReduceFrom.apply(x, group)
+
+
+class _SumBoth(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.group), None
+
+
+def sum_over_group(x: torch.Tensor, group=None) -> torch.Tensor:
+    """``x`` summed over the group forward, and the gradient summed over
+    it backward: a statistic of the whole batch that every data rank holds
+    whole (the MoE balance loss's token means), whose gradients the step
+    then averages over the group."""
+    if group_size(group) == 1:
+        return x
+    return _SumBoth.apply(x, group)
+
+
+class _SliceShard(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        n, r = group_size(group), group_rank(group)
+        return x.chunk(n, dim)[r].contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_dim(g.contiguous(), ctx.dim, ctx.group), None, None
+
+
+def slice_shard(x: torch.Tensor, dim: int, group=None) -> torch.Tensor:
+    """This rank's chunk along ``dim`` of ``x``, which every rank holds
+    whole; backward: the chunks' gradients gathered, so every rank gets
+    the whole gradient of ``x``."""
+    if group_size(group) == 1:
+        return x
+    return _SliceShard.apply(x, dim, group)
+
+
+def p2p_route(group=None, device=None) -> str:
+    """How :func:`ppermute` moves tensors of ``device`` over ``group``:
+    ``device`` (nccl), ``host-staged`` (gloo with CUDA tensors), ``host``
+    (gloo with CPU tensors) or ``none`` (one process)."""
+    if group_size(group) == 1:
+        return "none"
+    backend = backend_of(group)
+    cuda = device is not None and torch.device(device).type == "cuda"
+    if backend == "nccl":
+        return "device"
+    return "host-staged" if cuda else "host"
+
+
+def _send_recv(xs, dst: int, src: int, group):
+    import torch.distributed as dist
+
+    to, frm = dst, src
+    if group is not None:
+        to = dist.get_global_rank(group, dst)
+        frm = dist.get_global_rank(group, src)
+    got = [torch.empty_like(x) for x in xs]
+    ops = ([dist.P2POp(dist.isend, x, to, group) for x in xs]
+           + [dist.P2POp(dist.irecv, g, frm, group) for g in got])
+    for w in run_collective("batch_isend_irecv",
+                            lambda: dist.batch_isend_irecv(ops), xs[0],
+                            group):
+        w.wait()
+    return got
+
+
+@_timed
+def _shift(xs, shift: int, group):
+    n, r = group_size(group), group_rank(group)
+    xs = [x.contiguous() for x in xs]
+    dst, src = (r + shift) % n, (r - shift) % n
+    route = p2p_route(group, xs[0].device)
+    if route != "host-staged":
+        return _send_recv(xs, dst, src, group)
+    host = [torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+            for x in xs]
+    for h, x in zip(host, xs):
+        h.copy_(x)               # synchronous: the bytes are on the host
+    got = _send_recv(host, dst, src, group)
+    P2P_HOST_STAGED["calls"] += 1
+    return [g.to(x.device) for g, x in zip(got, xs)]
+
+
+class _PPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, shift, group, *xs):
+        ctx.shift, ctx.group = shift, group
+        return tuple(_shift(xs, shift, group))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        return (None, None) + tuple(_shift(gs, -ctx.shift, ctx.group))
+
+
+def ppermute(xs, shift: int, group=None):
+    """Rank r's tensors go to rank (r + shift) mod n of the group and it
+    gets rank (r - shift) mod n's (``lax.ppermute`` over a ring); a list or
+    tuple of tensors travels in one batch. Backward: the reverse shift.
+    The route follows the backend (module docstring)."""
+    single = torch.is_tensor(xs)
+    xs = [xs] if single else list(xs)
+    if group_size(group) == 1:
+        out = xs
+    else:
+        out = list(_PPermute.apply(shift, group, *xs))
+    return out[0] if single else out

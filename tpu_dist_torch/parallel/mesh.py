@@ -1,22 +1,41 @@
 """The process group as a mesh, for the port (``tpu_dist/parallel/mesh.py``).
 
 The reference's mesh is a grid of devices that one program spans. The
-port runs one process per device instead, so a JAX ``data=N`` mesh is N
-processes of a ``torch.distributed`` group with one device each, and the
-mesh here describes that group: this process's rank, the world size, and
-the device this rank drives (``cuda:(local_rank % device_count)``).
+port runs one process per device instead, so a JAX mesh of shape
+``(N, M)`` over ``("data", "model")`` is N x M processes of a
+``torch.distributed`` group with one device each, and the mesh here
+describes that group: this process's rank and coordinates, the device it
+drives (``cuda:(local_rank % device_count)``), and one process group per
+axis.
 
-Only the ``data`` axis is ported. Its size must be the world size (``-1``
-is inferred from it, as a reshape would); every other axis raises
-``NotImplementedError`` naming itself. The axis names are copied from the
-reference, which declares every axis the framework can carry.
+Ranks take their mesh coordinates in the reference's row-major order
+(``np.asarray(devices).reshape(shape)``, ``:63``): the last axis varies
+fastest. A ``-1`` in the shape is inferred from the world size
+(``:55-58``). The axes ``data``, ``model``, ``seq`` and ``expert`` are
+ported; ``stage`` (pipeline parallelism) and ``sp`` (sp-sharded serving)
+raise ``NotImplementedError`` naming themselves (ROADMAP Queue 1).
+
+:func:`make_mesh` makes the groups of every axis: for each axis of size
+above 1, one ``dist.new_group`` per slice of ranks that differ only along
+it. Every rank makes every group, in the same order (a rank that skipped
+one would hang the others in ``new_group``); an axis that spans the whole
+world uses the world group. :meth:`Mesh.group` and :meth:`Mesh.axis` give
+this rank's group of an axis; an axis of size 1 has none, and collectives
+over it are no-ops.
+
+:func:`shard_leaf` and :func:`gather_leaf` cut a full tensor to this
+rank's shard under a spec (a tuple with one axis name or None per dim,
+the reference's ``PartitionSpec``) and put the shards back together. A
+dim sharded with ``fused > 1`` (the fused ``[q | k | v]`` projection)
+takes its rank's slice of each of the ``fused`` equal segments instead of
+one contiguous slice, so each rank holds whole heads of q, k and v.
 """
 
 from __future__ import annotations
 
 import os
-from dataclasses import dataclass
-from typing import Any, Optional, Sequence, Tuple
+from dataclasses import dataclass, field
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -29,6 +48,13 @@ SEQ_AXIS = "seq"
 STAGE_AXIS = "stage"    # pipeline parallel
 EXPERT_AXIS = "expert"  # MoE expert parallel
 SP_AXIS = "sp"          # serving sequence parallel
+
+PORTED_AXES = (DATA_AXIS, MODEL_AXIS, SEQ_AXIS, EXPERT_AXIS)
+_UNPORTED_AXES = {
+    STAGE_AXIS: "pipeline parallelism (parallel/pp.py) is ROADMAP Queue 1 "
+                "item 2, the next slice",
+    SP_AXIS: "sp-sharded serving is ROADMAP Queue 1 item 4",
+}
 
 
 def _dist():
@@ -71,43 +97,170 @@ def rank_device(device=None, global_rank: Optional[int] = None
 
 
 @dataclass(frozen=True)
+class Axis:
+    """One mesh axis as this rank sees it: its size, this rank's index
+    along it, and the process group of the ranks that share every other
+    coordinate (None when the size is 1)."""
+    name: str
+    size: int = 1
+    index: int = 0
+    group: Optional[Any] = None
+
+
+@dataclass(frozen=True)
 class Mesh:
-    """The data axis over the process group: ``group`` is None when no
-    process group is up (one process, no collectives)."""
+    """The mesh over the process group: ``shape`` maps each axis to its
+    size, ``rank`` and ``size`` are this process's rank and the world
+    size, ``axes`` this rank's :class:`Axis` of each axis."""
     shape: dict
     rank: int
     size: int
     device: torch.device
-    group: Optional[Any] = None
+    axes: Dict[str, Axis] = field(default_factory=dict)
 
     @property
     def is_main(self) -> bool:
         return self.rank == 0
 
+    @property
+    def axis_names(self) -> Tuple[str, ...]:
+        return tuple(self.shape)
+
+    def axis(self, name: str) -> Axis:
+        """This rank's view of axis ``name`` (size 1 if the mesh lacks
+        it)."""
+        return self.axes.get(name) or Axis(name)
+
+    def group(self, name: str = DATA_AXIS):
+        """The process group of axis ``name`` (default: data), None when
+        the axis has one process."""
+        return self.axis(name).group
+
+    def coord(self, name: str) -> int:
+        return self.axis(name).index
+
+
+def _coords(rank: int, sizes: Sequence[int]) -> Tuple[int, ...]:
+    """Row-major coordinates of ``rank`` in a grid of ``sizes``."""
+    out = []
+    for s in reversed(sizes):
+        out.append(rank % s)
+        rank //= s
+    return tuple(reversed(out))
+
+
+def _rank_of(coords: Sequence[int], sizes: Sequence[int]) -> int:
+    r = 0
+    for c, s in zip(coords, sizes):
+        r = r * s + c
+    return r
+
 
 def make_mesh(shape: Optional[Sequence[int]] = None,
               axes: Sequence[str] = (DATA_AXIS,), device=None) -> Mesh:
-    """The data mesh over every process of the group (default: the whole
-    world on the data axis); ``device`` as in :func:`rank_device`."""
+    """The mesh over every process of the group (default: the whole world
+    on the data axis); ``device`` as in :func:`rank_device`. Every rank
+    must call it, with the same arguments (module docstring)."""
     axes = tuple(axes)
-    other = [a for a in axes if a != DATA_AXIS]
-    if other:
-        raise NotImplementedError(
-            f"mesh axis {other[0]!r} is not ported yet: the port's mesh has "
-            "the data axis only (the model-parallel axes are ROADMAP Queue 1 "
-            "item 3)")
+    for a in axes:
+        if a in _UNPORTED_AXES:
+            raise NotImplementedError(
+                f"mesh axis {a!r} is not ported yet: {_UNPORTED_AXES[a]}")
+        if a not in PORTED_AXES:
+            raise ValueError(f"unknown mesh axis {a!r} "
+                             f"({'|'.join(PORTED_AXES)})")
+    if len(set(axes)) != len(axes):
+        raise ValueError(f"mesh axes {axes} repeat a name")
     rank, world, _, _ = world_info()
     shape = [world] if shape is None else list(shape)
     if len(shape) != len(axes):
         raise ValueError(f"shape {tuple(shape)} rank != axes {axes}")
-    if shape[0] == -1:
-        shape[0] = world
-    if shape[0] != world:
+    if -1 in shape:
+        known = 1
+        for s in shape:
+            known *= s if s != -1 else 1
+        shape[shape.index(-1)] = world // max(known, 1)
+    total = 1
+    for s in shape:
+        total *= s
+    if total != world:
         raise ValueError(
             f"mesh shape {tuple(shape)} != {world} process(es): the port runs "
-            "one process per device, so a data axis of N needs N processes "
+            "one process per device, so a mesh of N devices needs N processes "
             "(launch them with tpu_dist_torch.scripts.distributed or "
             "multiprocessing_spawn)")
     dist = _dist()
-    return Mesh({DATA_AXIS: world}, rank, world, rank_device(device),
-                dist.group.WORLD if dist else None)
+    mine = _coords(rank, shape)
+    views = {}
+    for i, name in enumerate(axes):
+        group = None
+        if shape[i] > 1 and dist is not None:
+            if shape[i] == world:
+                group = dist.group.WORLD
+            else:
+                # every slice along this axis, in one order on every rank
+                others = [s for j, s in enumerate(shape) if j != i]
+                for fixed in range(world // shape[i]):
+                    rest = list(_coords(fixed, others))
+                    ranks = [_rank_of(rest[:i] + [c] + rest[i:], shape)
+                             for c in range(shape[i])]
+                    g = dist.new_group(ranks)
+                    if rank in ranks:
+                        group = g
+        views[name] = Axis(name, shape[i], mine[i], group)
+    return Mesh(dict(zip(axes, shape)), rank, world, rank_device(device),
+                views)
+
+
+# ---- shards of one leaf ---------------------------------------------------
+
+Spec = Tuple[Optional[str], ...]
+
+
+def _slice_dim(t: torch.Tensor, dim: int, index: int, size: int,
+               fused: int) -> torch.Tensor:
+    seg = t.shape[dim] // fused
+    if seg % size:
+        raise ValueError(f"dim {dim} of shape {tuple(t.shape)} (in {fused} "
+                         f"segment(s)) does not divide by {size}")
+    n = seg // size
+    parts = [t.narrow(dim, s * seg + index * n, n) for s in range(fused)]
+    return parts[0] if fused == 1 else torch.cat(parts, dim)
+
+
+def shard_leaf(full: torch.Tensor, spec: Spec, mesh: Mesh,
+               fused: int = 1) -> torch.Tensor:
+    """This rank's shard of ``full`` under ``spec`` (a contiguous copy;
+    ``full`` itself when the spec shards nothing)."""
+    out = full
+    for dim, name in enumerate(spec):
+        ax = mesh.axis(name) if name else None
+        if ax is not None and ax.size > 1:
+            out = _slice_dim(out, dim, ax.index, ax.size,
+                             fused if name == MODEL_AXIS else 1)
+    return out if out is full else out.contiguous()
+
+
+def _gather_dim(t: torch.Tensor, dim: int, ax: Axis, fused: int):
+    from tpu_dist_torch.parallel.collectives import all_gather
+
+    parts = all_gather(t, ax.group).unbind(0)      # one per rank
+    if fused == 1:
+        return torch.cat(parts, dim)
+    seg = t.shape[dim] // fused
+    return torch.cat([p.narrow(dim, s * seg, seg) for s in range(fused)
+                      for p in parts], dim)
+
+
+def gather_leaf(local: torch.Tensor, spec: Spec, mesh: Mesh,
+                fused: int = 1) -> torch.Tensor:
+    """The full tensor from every rank's shard under ``spec``: one
+    all-gather per sharded axis, the inverse of :func:`shard_leaf`. Every
+    rank of each axis group must call it."""
+    out = local
+    for dim, name in enumerate(spec):
+        ax = mesh.axis(name) if name else None
+        if ax is not None and ax.size > 1:
+            out = _gather_dim(out, dim, ax,
+                              fused if name == MODEL_AXIS else 1)
+    return out

@@ -1,13 +1,28 @@
-"""Bucketed gradient sync for the port (``tpu_dist/parallel/overlap.py``,
-``grad_buckets`` and ``bucketed_grad_sync``).
+"""Ring collective matmuls and bucketed gradient sync for the port
+(``tpu_dist/parallel/overlap.py``).
 
-The gradients are reduced as independent size-targeted bucket
-collectives instead of one per tensor: DDP's decomposition (Li et al.,
-PyTorch Distributed, section 3.2). Each bucket's collective is issued
-with ``async_op=True`` and every bucket is waited for at the end, so the
-transfers of successive buckets overlap one another. The ring
-collective matmuls of that module (``RingDense``) belong to tensor
-parallelism, which is not ported yet (ROADMAP Queue 1 item 3).
+**Ring tensor parallelism** (``tp_impl="ring"``, ``:64-255``): the
+Megatron column/row-parallel pair rebuilt as per-chunk products whose
+chunks travel around the ``model`` axis by
+:func:`~tpu_dist_torch.parallel.collectives.ppermute`. The residual
+stream is sequence-sharded over the axis (:func:`seq_shard`);
+:func:`ring_allgather_matmul` multiplies the sequence chunk it holds by
+its column shard while passing the chunk on, and
+:func:`ring_matmul_reduce_scatter` carries an accumulator one hop a round,
+adding its partial product for the chunk the accumulator belongs to.
+:class:`RingDense` applies them to a dense layer whose params stay whole
+and replicated: each rank slices its shard at use (its column shard cut
+per fused segment, so ``qkv`` stays q/k/v-aligned). Every rank holds the
+whole params, so the gradient of a sliced leaf is summed over ``model``
+by the step (``engine.lm_steps``). The per-chunk product routes through
+``ops.quant.quant_matmul``, so ``quant`` rides the ring too.
+
+**Bucketed gradient sync**: the gradients are reduced as independent
+size-targeted bucket collectives instead of one per tensor: DDP's
+decomposition (Li et al., PyTorch Distributed, section 3.2). Each
+bucket's collective is issued with ``async_op=True`` and every bucket is
+waited for at the end, so the transfers of successive buckets overlap one
+another.
 """
 
 from __future__ import annotations
@@ -17,12 +32,152 @@ from typing import List, Sequence
 import torch
 
 from tpu_dist_torch.parallel.collectives import (_dist, group_size,
-                                                 ring_allreduce,
+                                                 ppermute, ring_allreduce,
                                                  run_collective, tree_leaves,
                                                  tree_map)
 
 GRAD_BUCKET_MB_DEFAULT = 25.0  # DDP's fusion-buffer default
 IMPLS = ("rs_ag", "ring", "psum")
+TP_IMPLS = ("gspmd", "ring")
+
+
+def validate_tp_impl(mode: str) -> str:
+    if mode not in TP_IMPLS:
+        raise ValueError(f"unknown tp_impl {mode!r} ({'|'.join(TP_IMPLS)})")
+    return mode
+
+
+# ---- ring collective matmul ------------------------------------------------
+
+def ring_allgather_matmul(x: torch.Tensor, w: torch.Tensor, axis,
+                          matmul=None) -> torch.Tensor:
+    """All-gather then matmul, decomposed (``:78``): (B, L/n, D) sequence
+    chunk x (D, F/n) column shard -> (B, L, F/n). Round k multiplies the
+    chunk held (first device idx+k's) and passes it to the left
+    neighbour."""
+    mm = matmul or torch.matmul
+    n = axis.size
+    if n == 1:
+        return mm(x, w)
+    chunks = [None] * n
+    cur = x
+    for k in range(n):
+        nxt = ppermute(cur, -1, axis.group) if k < n - 1 else None
+        chunks[(axis.index + k) % n] = mm(cur, w)
+        cur = nxt
+    return torch.cat(chunks, dim=1)
+
+
+def ring_matmul_reduce_scatter(y: torch.Tensor, w: torch.Tensor, axis,
+                               matmul=None) -> torch.Tensor:
+    """Matmul then reduce-scatter, decomposed (``:111``): (B, L, F/n) x
+    (F/n, D) row shard -> (B, L/n, D) summed over the axis, this rank
+    keeping sequence chunk ``index``. The accumulator seeded for chunk
+    idx-1 lands home after n-1 hops."""
+    mm = matmul or torch.matmul
+    n = axis.size
+    if n == 1:
+        return mm(y, w)
+    if y.shape[1] % n:
+        raise ValueError(f"sequence length {y.shape[1]} not divisible by "
+                         f"the {axis.name} axis ({n})")
+    lm = y.shape[1] // n
+
+    def part(c):
+        return mm(y.narrow(1, (c % n) * lm, lm), w)
+
+    acc = part(axis.index - 1)
+    for k in range(1, n):
+        acc = ppermute(acc, 1, axis.group) + part(axis.index - k - 1)
+    return acc
+
+
+def seq_shard(x: torch.Tensor, axis) -> torch.Tensor:
+    """This rank's sequence chunk of a (B, L, ...) activation that every
+    rank of ``axis`` holds whole (``:145``): the entry into the ring's
+    sequence-sharded residual stream."""
+    n = axis.size
+    if n == 1:
+        return x
+    if x.shape[1] % n:
+        raise ValueError(
+            f"tp_impl='ring' shards the sequence over the {axis.name} axis: "
+            f"length {x.shape[1]} is not divisible by {n}")
+    lm = x.shape[1] // n
+    return x.narrow(1, axis.index * lm, lm)
+
+
+def column_shard(t: torch.Tensor, index: int, n: int, fused: int = 1):
+    """The ``index``-th output-feature shard of ``t`` (a kernel's last dim,
+    a bias's only one), sliced per fused segment (``RingDense
+    ._column_shard``)."""
+    seg = t.shape[-1] // fused
+    fs = seg // n
+    parts = [t.narrow(-1, s * seg + index * fs, fs) for s in range(fused)]
+    return parts[0] if fused == 1 else torch.cat(parts, -1)
+
+
+class RingDense:
+    """A dense layer's ring-parallel product (``:161``), on the params of
+    ``dense`` (a ``QuantDense`` with whole, replicated params; the flax
+    module owned them, here the dense layer does). ``kind`` ``column``
+    takes the whole contraction dim and gives this rank's feature shard
+    over the whole sequence; ``row`` takes a feature shard and gives this
+    rank's sequence chunk, summed over the axis. ``n_fused`` equal
+    projections share the kernel's output dim (``qkv``: 3)."""
+
+    def __init__(self, dense, kind: str, axis, n_fused: int = 1):
+        if kind not in ("column", "row"):
+            raise ValueError(f"RingDense kind {kind!r} (column|row)")
+        if dense.prequantized:
+            raise ValueError(
+                "RingDense got a pre-quantized (wo_quantize_params) kernel; "
+                "the ring path is a training path -- decode rides the GSPMD "
+                "layers (quant='int8_wo' with tp_impl='gspmd')")
+        self.dense, self.kind, self.axis, self.n_fused = (dense, kind, axis,
+                                                          n_fused)
+
+    def __call__(self, x):
+        d, n, idx = self.dense, self.axis.size, self.axis.index
+        x = x.to(d.dtype)
+        w = d.kernel.to(d.dtype)
+
+        def mm(a, b):
+            from tpu_dist_torch.ops.quant import quant_matmul
+
+            return quant_matmul(a, b, d.mode)
+
+        if self.kind == "column":
+            if d.features % (self.n_fused * n):
+                raise ValueError(f"features {d.features} not divisible by "
+                                 f"n_fused x the {self.axis.name} axis "
+                                 f"({self.n_fused} x {n})")
+            y = ring_allgather_matmul(
+                x, column_shard(w, idx, n, self.n_fused), self.axis, mm)
+            if d.bias is not None:
+                y = y + column_shard(d.bias.to(d.dtype), idx, n,
+                                     self.n_fused)
+            return y
+        ls = x.shape[-1]
+        y = ring_matmul_reduce_scatter(x, w.narrow(0, idx * ls, ls),
+                                       self.axis, mm)
+        if d.bias is not None:
+            y = y + d.bias.to(d.dtype)
+        return y
+
+
+def ring_lm_(model, axis):
+    """Run ``model`` (an LM) under ring tensor parallelism over ``axis``:
+    its params stay whole and replicated (each rank slices at use)."""
+    if model.num_heads % axis.size:
+        raise ValueError(f"tp_impl='ring' shards heads: num_heads "
+                         f"{model.num_heads} must divide by the model axis "
+                         f"({axis.size})")
+    model.tp_impl = "ring"
+    for blk in model.blocks:
+        blk.tp_impl = "ring"
+    model.set_tp(axis)
+    return model
 
 
 def grad_buckets(leaves: Sequence[torch.Tensor],

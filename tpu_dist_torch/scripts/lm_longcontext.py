@@ -7,8 +7,15 @@
 Every ``LMConfig`` field is a ``--flag`` (``--checkpoint-dir``/``--resume``,
 ``--pretrained``, ``--steps-per-dispatch``/``--data-placement``,
 ``--grad-accum-steps``, ``--loss-chunk`` and ``--attn blockwise`` among
-them); ``--mesh`` (``data=N``: N processes, launched as the cookbook
-scripts launch theirs; no other axis is ported yet), ``--steps`` (alias
+them); ``--mesh`` picks the parallelism as script 8's does (``data=N``,
+``data=N`` with ``--fsdp``, ``data=N,model=M`` with ``--tp-impl gspmd``
+or ``ring``, ``data=N,seq=M``, ``data=N,expert=M`` with
+``--num-experts``, and ``data=N,expert=M,model=K``; ``stage`` is not
+ported and raises), one process per device of the mesh, launched as the
+cookbook scripts launch theirs: ``TPU_DIST_NPROCS_SPAWN=N`` starts N
+copies of the script (as ``multiprocessing_spawn`` does), or set the
+``TPU_DIST_*`` / Slurm variables per process. ``--backend gloo`` puts CUDA
+tensors on gloo (two ranks sharing one card). ``--steps`` (alias
 of ``--max-steps``), ``--generate N``
 (greedy-decode N tokens afterwards with ``engine.generate`` and report how
 many follow the synthetic affine rule) and ``--serve N`` (stand up the
@@ -23,6 +30,8 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
+import sys
 
 import numpy as np
 
@@ -51,7 +60,7 @@ def follows(toks, start: int, vocab: int):
     return hits, len(toks) - start
 
 
-def serve(trainer, n_short: int) -> str:
+def serve(trainer, model, n_short: int) -> str:
     from tpu_dist_torch.engine.serve import (DecodeRequest, ServeConfig,
                                              ServeEngine)
 
@@ -60,7 +69,7 @@ def serve(trainer, n_short: int) -> str:
     scfg = ServeConfig(max_slots=4, page_size=page_size,
                        num_pages=4 * (serve_len // page_size),
                        max_len=serve_len, prefill_chunk=2 * page_size)
-    eng = ServeEngine(trainer.model, scfg, device=trainer.device)
+    eng = ServeEngine(model, scfg, device=trainer.device)
     v = trainer.vocab_size
     long_len = serve_len // 2
     reqs = [DecodeRequest(0, affine(3, long_len, v), 8)]
@@ -85,8 +94,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
     add_args(ap, LMConfig())
     ap.add_argument("--mesh", type=parse_mesh, default=None,
-                    help="e.g. data=1 (overrides --mesh-shape/--mesh-axes; "
-                         "other meshes are not ported yet)")
+                    help="e.g. data=2 | data=1,model=2 | data=1,seq=2 | "
+                         "data=1,expert=2 (overrides --mesh-shape/"
+                         "--mesh-axes)")
     ap.add_argument("--steps", type=int, default=0,
                     help="alias for --max-steps (cookbook compat)")
     ap.add_argument("--generate", type=int, default=0,
@@ -97,9 +107,19 @@ def main(argv=None):
                          "prefill) plus N short requests with ServeEngine")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (the plain versions)")
+    ap.add_argument("--backend", default=None, choices=["nccl", "gloo"],
+                    help="process-group backend (default: nccl on cuda, "
+                         "gloo on cpu)")
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = ap.parse_args(argv)
+    nprocs = int(os.environ.get("TPU_DIST_NPROCS_SPAWN", "0") or 0)
+    if nprocs > 1 and "TPU_DIST_PROCESS_ID" not in os.environ:
+        from tpu_dist_torch.parallel.launch import spawn
 
-    from tpu_dist_torch.engine.lm_loop import LMTrainer
+        spawn("tpu_dist_torch.scripts.lm_longcontext", nprocs, argv,
+              "127.0.0.1:0")
+        return
+
     from tpu_dist_torch.parallel import launch
 
     cfg = LMConfig(**{f.name: getattr(args, f.name)
@@ -110,18 +130,32 @@ def main(argv=None):
     if args.steps:
         cfg = dataclasses.replace(cfg, max_steps=args.steps)
 
-    info = launch.initialize(device=args.device)
+    info = launch.initialize(device=args.device, backend=args.backend)
+    try:
+        run(args, cfg, info)
+    finally:
+        launch.shutdown()
+
+
+def run(args, cfg, info):
+    from tpu_dist_torch.engine.lm_loop import LMTrainer
+    from tpu_dist_torch.parallel import launch
+
     trainer = LMTrainer(cfg, device=args.device)
-    print(f"[proc {info.process_id}/{info.num_processes}] "
-          f"mesh={trainer.mesh.shape} mode={trainer.mode} "
-          f"device={trainer.device} corpus={trainer.train_ds.name} "
-          f"rows={len(trainer.train_ds)} "
-          f"tokens/step={cfg.batch_size * cfg.seq_len}", flush=True)
+    launch.say(f"[proc {info.process_id}/{info.num_processes}] "
+               f"mesh={trainer.mesh.shape} mode={trainer.mode} "
+               f"device={trainer.device} corpus={trainer.train_ds.name} "
+               f"rows={len(trainer.train_ds)} "
+               f"tokens/step={cfg.batch_size * cfg.seq_len}")
     best_ppl = trainer.fit()
     if not cfg.evaluate:
-        print(f"throughput {trainer.last_tok_s:,.0f} tokens/sec "
-              f"({trainer.mode}) best_ppl {best_ppl:.2f}", flush=True)
-
+        trainer.log(f"throughput {trainer.last_tok_s:,.0f} tokens/sec "
+                    f"({trainer.mode}) best_ppl {best_ppl:.2f}")
+    if not (args.generate or args.serve):
+        return
+    model = trainer.whole_model()     # every rank: a gather when sharded
+    if not trainer.is_main:
+        return
     if args.generate:
         from tpu_dist_torch.engine.generate import generate
 
@@ -129,13 +163,13 @@ def main(argv=None):
         seed = 3
         prompt = np.asarray([[seed, (seed * 5 + 7) % trainer.vocab_size]],
                             np.int32)
-        out = generate(trainer.model, prompt, steps=n, use_cache=True)
+        out = generate(model, prompt, steps=n, use_cache=True)
         row = out[0].cpu().numpy()
         hits, _ = follows(row, 2, trainer.vocab_size)
         print(f"generated {n} tokens, {hits}/{n} follow the affine rule: "
               f"{row.tolist()}", flush=True)
     if args.serve:
-        print(serve(trainer, args.serve), flush=True)
+        print(serve(trainer, model, args.serve), flush=True)
 
 
 if __name__ == "__main__":

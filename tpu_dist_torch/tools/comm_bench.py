@@ -81,7 +81,7 @@ def _attempt(fn, device, iters, group):
 
 def bench(args) -> dict:
     mesh = make_mesh(device=args.device)
-    dev, group = mesh.device, mesh.group
+    dev, group = mesh.device, mesh.group()
     out = {"metric": "torch_comm_bench", "world": mesh.size,
            "backend": C.backend_of(group), "device": str(dev),
            "card": (torch.cuda.get_device_name(dev) if dev.type == "cuda"

@@ -277,7 +277,7 @@ def one_shot(args, model, prompt, ledger=None) -> dict:
 
 
 # flags of the reference bench that wait for a later slice of the port
-UNPORTED_FLAGS = {"tp": 0, "dp": 0, "num_experts": 0, "long_context": ""}
+UNPORTED_FLAGS = {"tp": 0, "dp": 0, "long_context": ""}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -314,6 +314,10 @@ def build_parser() -> argparse.ArgumentParser:
                     help="one-shot: sequential warm kv-cache calls timed "
                          "as requests for the latency percentiles (0 = "
                          "skip)")
+    ap.add_argument("--num-experts", type=int, default=0,
+                    help="MoE feed-forward with N experts (0 = dense; the "
+                         "one-shot mode only)")
+    ap.add_argument("--capacity-factor", type=float, default=1.25)
     for flag, off in UNPORTED_FLAGS.items():
         ap.add_argument("--" + flag.replace("_", "-"), type=type(off),
                         default=off, help="not ported yet (raises)")
@@ -356,7 +360,7 @@ def main(argv=None):
         if getattr(args, flag) != off:
             raise NotImplementedError(
                 f"decode_bench --{flag.replace('_', '-')} is not ported yet: "
-                "the port decodes on one device with the dense model")
+                "the port decodes on one device")
 
     import numpy as np
     import torch
@@ -372,12 +376,26 @@ def main(argv=None):
                    + (args.prefix_len if args.prefix_tenants else 0))
     else:
         max_len = args.prompt_len + args.steps
-    model = TransformerLM(
-        vocab_size=args.vocab_size, num_layers=args.num_layers,
-        d_model=args.d_model, num_heads=args.num_heads, max_len=max_len,
-        dtype=torch.bfloat16 if args.precision == "bf16" else torch.float32,
-        attn_fn=flash_attention_fn() if args.attn == "flash"
-        else full_attention, device=device, seed=args.seed)
+    dtype = torch.bfloat16 if args.precision == "bf16" else torch.float32
+    if args.num_experts:
+        from tpu_dist_torch.models.moe import MoETransformerLM
+        if args.trace:
+            raise SystemExit("--trace serves the dense TransformerLM "
+                             "(engine.serve has no MoE scheduling story "
+                             "yet, ROADMAP item 4)")
+        # as the reference's bench builds it: full attention
+        model = MoETransformerLM(
+            vocab_size=args.vocab_size, num_layers=args.num_layers,
+            d_model=args.d_model, num_heads=args.num_heads, max_len=max_len,
+            num_experts=args.num_experts,
+            capacity_factor=args.capacity_factor, dtype=dtype,
+            device=device, seed=args.seed)
+    else:
+        model = TransformerLM(
+            vocab_size=args.vocab_size, num_layers=args.num_layers,
+            d_model=args.d_model, num_heads=args.num_heads, max_len=max_len,
+            dtype=dtype, attn_fn=flash_attention_fn() if args.attn == "flash"
+            else full_attention, device=device, seed=args.seed)
     dev = ({"platform": "gpu", "kind": torch.cuda.get_device_name(device),
             "count": torch.cuda.device_count()} if device.type == "cuda"
            else {"platform": "cpu", "kind": "cpu", "count": 1})
