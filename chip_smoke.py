@@ -149,6 +149,29 @@ CUDA or without the repository beside it. Phases:
    modes give it (flash at tp's 4 heads a rank and at the MoE LM's width,
    ``adamw`` over a rank's fsdp and tp leaves, ``fused_quant`` bit-equal
    at the expert products). One card: no scaling is measured.
+13. pipeline parallelism, sharded decode and ViT ring, ranks as in phase
+   10 (gloo on the card; step 0 of each mode within BF16_TOL of a one-rank
+   twin over nccl): (a) phase 6's LM on ``data=1,stage=2`` with 4
+   microbatches of 2 under ``gpipe`` and ``1f1b``, 3 steps: per rank and
+   train step 16 flash forwards (32 under 1F1B: the recompute), 16 dq, 16
+   dkv and one ``adamw``, every tick's hop host-staged, and the peak per
+   rank at M=4 and M=8 (batch 2M): 1F1B within 1.25x, GPipe rising; (b)
+   ``data=1,stage=2,model=2`` on four ranks at batch 4, both schedules;
+   (c) phase 12b's MoE LM under both schedules; (d) gspmd tp with
+   ``quant="int8"`` at batch 4: the row products through fused_quant's
+   scaled pair (``fused_quant_amax`` then ``fused_quant_scaled``, the
+   maxima max-reduced between), the pair bit-equal to its plain version at
+   the tp ranks' proj and mlp_out shapes and timed beside the one-call
+   kernel; (e) tiny fp32 runs of every new mode, card ranks against CPU
+   ranks, within LOSS_TOL (int8: INT8_LOSS_TOL) (1 + |loss|); (f) the
+   decode bench's one-shot mode with ``--tp 2`` and ``--dp 2`` at phase
+   5's model (64 tokens, one trial), and tiny fp32 greedy tokens over
+   tp=2 and dp=2 equal card vs CPU and to one device; (g) ViT-B/16 under
+   ``tp_impl="ring"`` at batch 128 with and without int8; and the flash
+   triple at a stage's microbatch and at 4 heads, ``adamw`` over a stage's
+   leaves, against their plain versions, and the one-call ``fused_quant``
+   bit-equal at (d)'s column and head products and (g)'s ring products
+   (P13_FQ_SHAPES).
 
 The line before the last is the card's name and power limit; the one
 before it the ``{"kernels": [...]}`` record; the last line is
@@ -1781,6 +1804,10 @@ def dp_job(torch, kernels, job, out, rank):
     kind, device = job["kind"], job["device"]
     if kind == "lm12":
         return mp_lm_job(torch, kernels, job, out, rank)
+    if kind == "image13":
+        return p13_image_job(torch, kernels, job, out, rank)
+    if kind == "decode13":
+        return p13_decode_job(torch, kernels, job, out, rank)
     if kind == "probe":
         mesh = make_mesh(device=device)
         res = {"backend": C.backend_of(mesh.group()), "world": mesh.size}
@@ -2310,15 +2337,16 @@ def vit_int8_path(torch, kernels, cfg_kw=VIT_INT8, device="cuda"):
             "launches": launches}, launches
 
 
-def check_fused_quant_training(torch):
-    """fused_quant at ViT-B/16's training shapes (and an M tail): bit-equal
-    to its plain version, timed against bf16 torch.matmul of the same
-    operands and its bound."""
+def check_fused_quant_training(torch, shapes=VIT_QUANT_SHAPES,
+                               seed=SEED + 11):
+    """fused_quant at ``shapes`` (ViT-B/16's training shapes and an M tail
+    by default): bit-equal to its plain version, timed against bf16
+    torch.matmul of the same operands and its bound."""
     from tpu_dist_torch.ops import pallas_quant as pq
 
-    own = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    own = torch.Generator(device="cuda").manual_seed(seed)
     recs = {}
-    for label, (m, k, n) in VIT_QUANT_SHAPES.items():
+    for label, (m, k, n) in shapes.items():
         x = torch.randn((m, k), generator=own, device="cuda").to(
             torch.bfloat16)
         w = (torch.randn((k, n), generator=own, device="cuda")
@@ -2589,8 +2617,9 @@ def mp_lm_job(torch, kernels, job, out, rank):
            "launches": dict(kernels.LAUNCHES),
            "p2p_host_staged": C.P2P_HOST_STAGED["calls"],
            "p2p_route": (C.p2p_route(tr.mesh.group(
-               "seq" if tr.use_sp else "model"), tr.device)
-                         if tr.use_sp or tr.use_ring else None),
+               "stage" if tr.use_pp else "seq" if tr.use_sp else "model"),
+               tr.device) if tr.use_sp or tr.use_ring or tr.use_pp
+                         else None),
            "comm_s": C.COMM_SECONDS["s"], "wall_s": time.perf_counter() - t0,
            "step_ms": step_s * 1e3, "local_batch": tr.local_batch,
            "eval_batches": len(tr._epoch_indices(tr.val_ds, False, 0)[0]),
@@ -2599,6 +2628,9 @@ def mp_lm_job(torch, kernels, job, out, rank):
     if tr.cfg.num_experts:
         res["router_mass"] = [r.get("router_mass") for r in steps]
         res["router_aux"] = [r.get("router_aux") for r in steps]
+    if tr.pipe is not None:
+        res["pp"] = {"work": dict(tr.pipe.work),
+                     "stash_peak": tr.pipe.stash_peak}
     return res
 
 
@@ -2897,6 +2929,528 @@ def model_parallel_path(torch, kernels, tmp):
     return record, by_path
 
 
+# ---- phase 13: pipeline parallelism, sharded decode, ViT ring ---------------
+
+P13_STEPS = 3
+# (a) phase 6's LM at full width on data=1,stage=2: M microbatches of 2
+# sequences (batch 2M), so the stash 1F1B bounds and the graphs GPipe keeps
+# both scale with M
+P13_PP = dict(mesh_shape=[1, 2], mesh_axes=["data", "stage"])
+P13_PPTP = dict(mesh_shape=[1, 2, 2], mesh_axes=["data", "stage", "model"])
+P13_TP = dict(mesh_shape=[1, 2], mesh_axes=["data", "model"])
+# (g) ViT-B/16 on the synthetic 224 px, 1000-class set: one step of 128
+P13_VIT = dict(VIT_INT8, quant="none", synth_train_size=128,
+               synth_val_size=128, print_freq=1, workers=1)
+# (e) tiny fp32 runs, card ranks against CPU ranks
+P13_TINY_VIT = dict(arch="vit_cifar", dataset="cifar10", precision="fp32",
+                    optimizer="sgd", batch_size=8, synth_train_size=16,
+                    synth_val_size=8, epochs=1, seed=SEED, print_freq=1,
+                    workers=1, lr=0.01)
+# (f) the decode bench's one-shot mode at phase 5's model, its depth of
+# decode cut to 64 tokens of one trial (the full recompute skipped)
+P13_DECODE_ARGV = ["--batch", "8", "--prompt-len", "128", "--steps", "64",
+                   "--trials", "1", "--requests", "1", "--skip-full",
+                   "--backend", "gloo"]
+P13_TINY_DECODE = dict(vocab_size=64, num_layers=2, d_model=64, num_heads=4,
+                       max_len=32)
+# (d) fused_quant's scaled pair at the tp row products of 12a's LM at batch
+# 4 (M = 4 x 2048 tokens; K = this rank's half of the contracted dim)
+P13_SCALED_SHAPES = {"proj (tp rank)": (8192, 512, 1024),
+                     "mlp_out (tp rank)": (8192, 2048, 1024)}
+# the one-call fused_quant on this phase's paths at shapes no earlier phase
+# holds: 13d's column products and vocab-sharded head (a rank's half of N),
+# and 13g's ViT-B/16 ring_ar at batch 128 (M = 128 x 197 tokens; columns a
+# rank's half of N, rows a rank's half of K, each quantized by its own
+# scales as the reference's ring does)
+P13_FQ_SHAPES = {"tp qkv (tp rank)": (8192, 1024, 1536),
+                 "tp mlp_in (tp rank)": (8192, 1024, 2048),
+                 "tp head (vocab shard)": (8192, 1024, 16000),
+                 "vit ring qkv (rank)": (25216, 768, 1152),
+                 "vit ring proj (rank)": (25216, 384, 768),
+                 "vit ring mlp_in (rank)": (25216, 768, 1536),
+                 "vit ring mlp_out (rank)": (25216, 1536, 768)}
+
+
+def p13_image_job(torch, kernels, job, out, rank):
+    """One phase-13 image ``Trainer`` fit on this rank (the kernel counts
+    reset just before it): its losses, launches, peak memory, mode."""
+    from tpu_dist_torch.configs import TrainConfig
+    from tpu_dist_torch.engine.loop import Trainer
+    from tpu_dist_torch.parallel import collectives as C
+
+    device = job["device"]
+    if device != "cpu":
+        free_device(torch)
+        torch.cuda.reset_peak_memory_stats()
+    ledger = os.path.join(out, f"{job['name']}.r{rank}.jsonl")
+    cfg = TrainConfig(**{**job["cfg"], "ledger_path": ledger, "log_csv": "",
+                         "checkpoint_dir": os.path.join(
+                             out, f"ck-{job['name']}-{rank}"),
+                         "data": os.path.join(out, "no-data")})
+    init = (None, None)
+    if job.get("init"):     # one set of weights for the card and the CPU
+        with open(job["init"], "rb") as f:
+            init = torch.load(f, weights_only=False)
+    tr = Trainer(cfg, device=device, init_params=init[0],
+                 init_batch_stats=init[1])
+    kernels.reset_launches()
+    C.P2P_HOST_STAGED["calls"] = 0
+    t0 = time.perf_counter()
+    tr.fit()
+    if device != "cpu":
+        torch.cuda.synchronize()
+    steps = ledger_steps(ledger) if tr.is_main else []
+    return {"losses": [r["loss"] for r in steps],
+            "launches": dict(kernels.LAUNCHES), "step": tr.state.step,
+            "p2p_host_staged": C.P2P_HOST_STAGED["calls"],
+            "wall_s": time.perf_counter() - t0,
+            "step_ms": statistics.median([
+                r["data_s"] + r["dispatch_s"] + r["device_s"]
+                for r in steps] or [0.0]) * 1e3,
+            "peak_mem_gb": (torch.cuda.max_memory_allocated() / 1e9
+                            if device != "cpu" else None)}
+
+
+def p13_decode_job(torch, kernels, job, out, rank):
+    """Tiny fp32 sharded greedy decode (``generate(mesh=)``) of a seeded
+    LM over the whole group: the buffer."""
+    from tpu_dist_torch.engine.generate import generate
+    from tpu_dist_torch.models.transformer import TransformerLM
+    from tpu_dist_torch.parallel.mesh import make_mesh
+
+    device = job["device"]
+    mesh = make_mesh(job["shape"], job["axes"], device=device)
+    model = p13_tiny_decoder(mesh.device)
+    buf = generate(model, p13_prompt(), 12, use_cache=True, mesh=mesh)
+    return {"tokens": buf.cpu().tolist()}
+
+
+def p13_tiny_decoder(device):
+    """The tiny decode LM, its weights drawn on the CPU (a CUDA generator
+    draws other numbers from the same seed) and moved to ``device``."""
+    from tpu_dist_torch.models.transformer import TransformerLM
+
+    return TransformerLM(device="cpu", seed=SEED,
+                         **P13_TINY_DECODE).to(device)
+
+
+def p13_prompt():
+    import numpy as np
+
+    return np.random.default_rng(SEED + 13).integers(
+        0, P13_TINY_DECODE["vocab_size"], (4, 8)).astype(np.int32)
+
+
+def p13_decode_bench(flags, device="cuda"):
+    """13f: the decode bench's one-shot mode at phase 5's model over two
+    ranks sharing the card (the bench starts them itself): its JSON."""
+    t0 = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    run = subprocess.run(
+        [sys.executable, "-m", "tpu_dist_torch.tools.decode_bench", *flags,
+         *P13_DECODE_ARGV, "--device", device], cwd=here,
+        capture_output=True, text=True,
+        timeout=300, env=dict(os.environ, PYTHONPATH=here))
+    lines = [ln for ln in run.stdout.splitlines() if ln.startswith("{")]
+    if run.returncode != 0 or len(lines) != 1:
+        raise AssertionError(f"13f decode bench {flags}: rc "
+                             f"{run.returncode}, {len(lines)} JSON lines; "
+                             f"{run.stderr[-2000:]}")
+    line = json.loads(lines[0])
+    want = {"tp": 0, "dp": 0, **{f[2:]: int(v) for f, v in
+                                 zip(flags[::2], flags[1::2])}}
+    platform = "gpu" if device == "cuda" else "cpu"
+    if line["tp"] != want["tp"] or line["dp"] != want["dp"] or \
+            not line["kv_cache"] > 0 or line["device"]["platform"] != platform:
+        raise AssertionError(f"13f decode bench {flags}: {line}")
+    return {"argv": " ".join(flags + P13_DECODE_ARGV),
+            "kv_cache_tokens_per_s": line["kv_cache"],
+            "latency_ms": line["latency_ms"], "batch": line["batch"],
+            "steps": line["steps"], "layers": line["layers"],
+            "d_model": line["d_model"], "wall_s": time.perf_counter() - t0}
+
+
+def check_pp_shapes(torch):
+    """13 kernel check: the flash triple at a stage's microbatch (B2 L2048
+    H8 D128) and at pp x tp's (B1 L2048, 4 heads a rank), ``adamw`` over a
+    stage's leaves (4 blocks, the embeddings, ``ln_f`` and the head of
+    phase 6's LM) with its clip slot off, as the pp step runs it, and the
+    one-call ``fused_quant`` bit-equal at ``P13_FQ_SHAPES``."""
+    from tpu_dist_torch.models.transformer import TransformerLM
+    from tpu_dist_torch.ops import pallas_adamw as pa
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    rec = {"flash": {}, "adamw": {}}
+    for label, (b, lq, h, d) in (("pp stage microbatch", (2, 2048, 8, 128)),
+                                 ("pp x tp microbatch", (1, 2048, 4, 128))):
+        fwd, _ = check_flash_shape(torch, gen, b, lq, lq, h, d)
+        bwd, _ = check_flash_bwd_shape(torch, gen, b, lq, lq, h, d)
+        rec["flash"][label] = {"forward": fwd, "backward": bwd}
+    model = TransformerLM(vocab_size=32000, num_layers=8, d_model=1024,
+                          num_heads=8, max_len=2048, device="cpu", seed=None)
+    shapes = [tuple(p.shape) for n, p in model.named_parameters()
+              if not n.startswith("blocks.") or int(n.split(".")[1]) < 4]
+    del model
+    row = pa.scalar_row(1e-3, 0.9, 0.95, 1e-8, 0.1, 3,
+                        torch.tensor(1.0, device="cuda"))
+    p, g, m = ([torch.randn(s, generator=gen, device="cuda") for s in shapes]
+               for _ in range(3))
+    v = [torch.rand(s, generator=gen, device="cuda") * 1e-6 for s in shapes]
+    m = [t * 1e-3 for t in m]
+    rec["adamw"]["a stage's leaves"] = {
+        "leaves": len(shapes), "elements": sum(math.prod(s) for s in shapes),
+        "max_abs_err": adamw_case(torch, p, g, m, v, row)}
+    del p, g, m, v
+    rec["fused_quant"] = check_fused_quant_training(torch, P13_FQ_SHAPES,
+                                                    SEED + 131)
+    return rec
+
+
+def check_scaled_pair(torch):
+    """13d: ``fused_quant``'s two phases apart at the tp row products: the
+    maxima bit-equal to the plain version's; scaled by them, the product
+    bit-equal to the one-call kernel; scaled by a group's larger maxima,
+    bit-equal to the plain pair. Timed beside the one-call kernel."""
+    from tpu_dist_torch.ops import pallas_quant as pq
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 130)
+    recs = {}
+    for label, (m, k, n) in P13_SCALED_SHAPES.items():
+        x = torch.randn((m, k), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        w = (torch.randn((k, n), generator=gen, device="cuda")
+             / math.sqrt(k)).to(torch.bfloat16)
+        xa, wa = pq.fused_quant_amax_cuda(x, w)
+        pxa, pwa = pq.fused_quant_amax_plain(x, w)
+        local = pq.fused_quant_scaled_cuda(x, w, xa, wa)
+        one = pq.fused_quant_cuda(x, w)
+        gxa = xa * (1 + torch.rand(m, generator=gen, device="cuda"))
+        gwa = wa * (1 + torch.rand(n, generator=gen, device="cuda"))
+        out = pq.fused_quant_scaled_cuda(x, w, gxa, gwa)
+        ref = pq.fused_quant_scaled_plain(x, w, gxa, gwa)
+        torch.cuda.synchronize()
+        if not (torch.equal(xa, pxa) and torch.equal(wa, pwa)):
+            raise AssertionError(f"13d amax {label}: not bit-equal")
+        if not torch.equal(local, one):
+            raise AssertionError(f"13d scaled {label}: local maxima not "
+                                 "bit-equal to the one-call kernel")
+        err = (out.float() - ref.float()).abs().max().item()
+        if not torch.equal(out, ref):
+            raise AssertionError(f"13d scaled {label}: max|err| {err}, "
+                                 "expected bit-equal")
+        amax_ms = time_ms(torch, lambda: pq.fused_quant_amax_cuda(x, w))
+        scaled_ms = time_ms(torch, lambda: pq.fused_quant_scaled_cuda(
+            x, w, gxa, gwa))
+        one_ms = time_ms(torch, lambda: pq.fused_quant_cuda(x, w))
+        amax_plain = time_ms(torch, lambda: pq.fused_quant_amax_plain(x, w),
+                             iters=5)
+        scaled_plain = time_ms(torch, lambda: pq.fused_quant_scaled_plain(
+            x, w, gxa, gwa), iters=5)
+        lib_ms = time_ms(torch, lambda: torch.matmul(x, w))
+        # amax reads x and w once and writes the maxima; the scaled product
+        # reads x, w and the maxima and writes out, and does the int8 dot
+        a_bytes = 2 * (m * k + k * n) + 4 * (m + n)
+        s_bytes = 2 * (m * k + k * n + m * n) + 4 * (m + n)
+        s_ops = 2.0 * m * n * k
+        t_ops, t_bytes = s_ops / PEAK_INT8_OPS, s_bytes / PEAK_BYTES
+        lib = ("none: no one PyTorch call computes this function; "
+               "yardstick_ms times the bf16 torch.matmul of the unquantized "
+               "operands")
+        recs[label] = {
+            "amax": {"shape": f"{label}: M{m} K{k} N{n} bf16",
+                     "max_abs_err": 0.0, "tolerance": "bit-equal",
+                     "ms": amax_ms, "plain_ms": amax_plain,
+                     "bound_ms": a_bytes / PEAK_BYTES * 1e3,
+                     "bound_by": "bytes", "library_ms": None},
+            "scaled": {"shape": f"{label}: M{m} K{k} N{n} bf16",
+                       "max_abs_err": err, "tolerance": "bit-equal",
+                       "ms": scaled_ms, "plain_ms": scaled_plain,
+                       "bound_ms": max(t_ops, t_bytes) * 1e3,
+                       "bound_by": ("operations" if t_ops >= t_bytes
+                                    else "bytes"), "library_ms": None},
+            "one_call_ms": one_ms, "pair_ms": amax_ms + scaled_ms,
+            "yardstick_ms": lib_ms, "library": lib}
+        del x, w, out, ref, one, local
+    return recs
+
+
+def p13_close(tag, got, want, tol):
+    return dp_close(f"13{tag}", got, want, tol)
+
+
+def pipeline_path(torch, kernels, tmp, device="cuda"):
+    """Phase 13 (module docstring). Returns (record, launches by run).
+    ``device="cpu"`` rehearses its control flow on the CPU (the memory
+    and host-staging checks, and the kernel checks, are the card's)."""
+    from tpu_dist_torch.interop import (export_flax_image_params,
+                                        export_flax_params)
+    from tpu_dist_torch.models.moe import MoETransformerLM
+    from tpu_dist_torch.models.transformer import TransformerLM
+    from tpu_dist_torch.models.vit import ViTCifar
+
+    card_run = device == "cuda"
+    if card_run:
+        free_device(torch)
+    t0 = time.perf_counter()
+    stage_layers = 4          # 8 layers over 2 stages
+    # one set of initial weights for each tiny card and CPU run, drawn on
+    # the CPU
+    inits = {}
+    for name, tree in (
+            ("dense", export_flax_params(TransformerLM(
+                vocab_size=64, num_layers=2, d_model=128, num_heads=2,
+                max_len=96, device="cpu", seed=SEED))),
+            ("moe", export_flax_params(MoETransformerLM(
+                vocab_size=64, num_layers=2, d_model=128, num_heads=2,
+                num_experts=4, max_len=96, group_size=96, device="cpu",
+                seed=SEED))),
+            ("vit", export_flax_image_params(ViTCifar(
+                num_classes=10, image_shape=(32, 32, 3), device="cpu",
+                seed=SEED)))):
+        inits[name] = os.path.join(tmp, f"p13_{name}_init.pt")
+        torch.save(tree, inits[name])
+
+    def lm(name, steps=P13_STEPS, **kw):
+        cfg = dataclasses.asdict(full_lm_config(max_steps=steps,
+                                                print_freq=1))
+        return {"name": name, "kind": "lm12", "cfg": {**cfg, **kw}}
+
+    def moe(name, **kw):
+        return {"name": name, "kind": "lm12",
+                "cfg": {**P12_MOE, "max_steps": P13_STEPS, "print_freq": 1,
+                        **kw}}
+
+    def vit(name, **kw):
+        return {"name": name, "kind": "image13", "cfg": {**P13_VIT, **kw}}
+
+    ring = dict(tp_impl="ring", mesh_shape=[1, 2],
+                mesh_axes=["data", "model"])
+    tiny_lm_kw = dict(P12_TINY, max_steps=4)
+    tiny = [
+        {"name": "tiny_pp-gpipe", "kind": "lm12", "init": inits["dense"],
+         "cfg": dict(tiny_lm_kw, pp_microbatches=2, **P13_PP)},
+        {"name": "tiny_pp-1f1b", "kind": "lm12", "init": inits["dense"],
+         "cfg": dict(tiny_lm_kw, pp_microbatches=2, pp_schedule="1f1b",
+                     **P13_PP)},
+        {"name": "tiny_moe_pp-1f1b", "kind": "lm12", "init": inits["moe"],
+         "cfg": dict(tiny_lm_kw, pp_microbatches=2, pp_schedule="1f1b",
+                     num_experts=4, moe_group_size=96, **P13_PP)},
+        {"name": "tiny_tp_int8", "kind": "lm12", "init": inits["dense"],
+         "cfg": dict(tiny_lm_kw, quant="int8", optimizer="sgd", lr=0.05,
+                     **P13_TP)},
+        {"name": "tiny_vit_ring", "kind": "image13", "init": inits["vit"],
+         "cfg": dict(P13_TINY_VIT, **ring)},
+        *({"name": f"tiny_decode_{k}", "kind": "decode13", "shape": [2],
+           "axes": [a]} for k, a in (("tp", "model"), ("dp", "data")))]
+    tiny4 = [{"name": "tiny_pp-gpipe+tp", "kind": "lm12",
+              "init": inits["dense"],
+              "cfg": dict(tiny_lm_kw, pp_microbatches=2, **P13_PPTP)}]
+    cpu2 = DpGroup("p13_cpu2", 2, "cpu", "gloo", tiny, tmp)
+    cpu4 = DpGroup("p13_cpu4", 4, "cpu", "gloo", tiny4, tmp)
+    try:
+        # one rank over nccl: each mode's one-rank twin
+        one = DpGroup("p13_one", 1, device, "nccl" if card_run else "gloo",
+                      [
+            lm("dp8", steps=1, batch_size=8),
+            lm("dp4", steps=1, batch_size=4),
+            lm("dp4_int8", steps=1, batch_size=4, quant="int8"),
+            moe("dp-moe", max_steps=1),
+            vit("vit"), vit("vit_int8", quant="int8")], tmp).wait(400)[0]
+        two = DpGroup("p13_two", 2, device, "gloo", [
+            lm("pp-gpipe", batch_size=8, pp_microbatches=4, **P13_PP),
+            lm("pp-1f1b", batch_size=8, pp_microbatches=4,
+               pp_schedule="1f1b", **P13_PP),
+            lm("pp-gpipe_m8", steps=1, batch_size=16, pp_microbatches=8,
+               **P13_PP),
+            lm("pp-1f1b_m8", steps=1, batch_size=16, pp_microbatches=8,
+               pp_schedule="1f1b", **P13_PP),
+            moe("moe_pp-gpipe", pp_microbatches=4, **P13_PP),
+            moe("moe_pp-1f1b", pp_microbatches=4, pp_schedule="1f1b",
+                **P13_PP),
+            lm("tp_int8", batch_size=4, quant="int8", **P13_TP),
+            vit("vit_ring", **ring), vit("vit_ring_int8", quant="int8",
+                                         **ring),
+            *tiny], tmp).wait(900)
+        four = DpGroup("p13_four", 4, device, "gloo", [
+            lm(f"pp-{s}+tp", batch_size=4, pp_microbatches=4,
+               pp_schedule=s, **P13_PPTP) for s in ("gpipe", "1f1b")
+        ] + tiny4, tmp).wait(600)
+    finally:
+        res_cpu2, res_cpu4 = cpu2.wait(600), cpu4.wait(300)
+    decode = {k: p13_decode_bench(f, device) for k, f in (
+        ("tp2", ["--tp", "2"]), ("dp2", ["--dp", "2"]))}
+    shapes = check_pp_shapes(torch) if card_run else {}
+    scaled = check_scaled_pair(torch) if card_run else {}
+
+    def gate(tag, ls, want0, n=P13_STEPS):
+        if len(ls) != n or not all(map(math.isfinite, ls)) or \
+                abs(ls[0] - want0) > BF16_TOL * (1 + abs(want0)):
+            raise AssertionError(f"13{tag}: losses {ls} vs one rank's step "
+                                 f"0 {want0}")
+
+    def pp_launches(tag, got, m, sched, steps, layers=stage_layers):
+        fwd = 2 if sched == "1f1b" else 1
+        for r, g in enumerate(got):
+            want = {"flash_fwd": layers * m * (fwd * steps
+                                               + g["eval_batches"]),
+                    "flash_bwd_dq": layers * m * steps,
+                    "flash_bwd_dkv": layers * m * steps, "adamw": steps}
+            bad = {k: (g["launches"][k], n) for k, n in want.items()
+                   if g["launches"][k] != n}
+            if bad and card_run:
+                raise AssertionError(f"13{tag} rank {r}: launches {bad}")
+            # every rank joins every hop: 2 a tick training, 1 evaluating
+            ticks = m + 2 * (2 - 1) if sched == "1f1b" else 2 * (m + 1)
+            hops = (ticks * 2 if sched == "1f1b" else ticks) * steps \
+                + (m + 1) * g["eval_batches"]
+            if card_run and g["p2p_host_staged"] != hops:
+                raise AssertionError(f"13{tag} rank {r}: host-staged hops "
+                                     f"{g['p2p_host_staged']}, want {hops}")
+        return {k: [g["launches"][k] for g in got] for k in (
+            "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "adamw")}
+
+    # (a) pp at full width against the one-rank dp run at batch 8
+    a = {"dp_1rank_nccl_batch8": one["dp8"]["losses"]}
+    for sched in ("gpipe", "1f1b"):
+        got = [r[f"pp-{sched}"] for r in two]
+        if {g["mode"] for g in got} != {f"pp-{sched}"}:
+            raise AssertionError(f"13a modes {[g['mode'] for g in got]}")
+        gate(f"a pp-{sched}", got[0]["losses"], one["dp8"]["losses"][0])
+        launches = pp_launches(f"a pp-{sched}", got, 4, sched, P13_STEPS)
+        m8 = [r[f"pp-{sched}_m8"] for r in two]
+        pp_launches(f"a pp-{sched} M8", m8, 8, sched, 1)
+        peak = {"M4": [g["peak_mem_gb"] for g in got],
+                "M8": [g["peak_mem_gb"] for g in m8]}
+        ratio = [b / a_ for a_, b in zip(peak["M4"], peak["M8"])] \
+            if card_run else [1.0]
+        if sched == "1f1b" and max(ratio) > 1.25:
+            raise AssertionError(f"13a 1f1b peak memory grows with M: "
+                                 f"{peak}")
+        if sched == "gpipe" and card_run and not min(ratio) > 1.0:
+            raise AssertionError(f"13a gpipe peak memory does not grow "
+                                 f"with M: {peak}")
+        a[f"pp-{sched}"] = {
+            "losses": got[0]["losses"], "step_ms_gloo": got[0]["step_ms"],
+            "launches_per_rank": launches,
+            "launches_per_rank_per_train_step": {
+                "flash_fwd": stage_layers * 4 * (2 if sched == "1f1b"
+                                                 else 1),
+                "flash_bwd_dq": stage_layers * 4,
+                "flash_bwd_dkv": stage_layers * 4, "adamw": 1},
+            "p2p_host_staged_per_rank": [g["p2p_host_staged"] for g in got],
+            "peak_mem_gb_per_rank": peak, "peak_ratio_m8_over_m4": ratio,
+            "microbatch": 2, "eval_batches": got[0]["eval_batches"]}
+    # (b) pp x tp on four ranks against the one-rank dp run at batch 4
+    b = {"dp_1rank_nccl_batch4": one["dp4"]["losses"]}
+    for sched in ("gpipe", "1f1b"):
+        got = [r[f"pp-{sched}+tp"] for r in four[:4]]
+        if {g["mode"] for g in got} != {f"pp-{sched}+tp"}:
+            raise AssertionError(f"13b modes {[g['mode'] for g in got]}")
+        gate(f"b pp-{sched}+tp", got[0]["losses"], one["dp4"]["losses"][0])
+        b[f"pp-{sched}+tp"] = {
+            "losses": got[0]["losses"], "step_ms_gloo": got[0]["step_ms"],
+            "launches_per_rank": pp_launches(f"b pp-{sched}+tp", got, 4,
+                                             sched, P13_STEPS),
+            "peak_mem_gb_per_rank": [g["peak_mem_gb"] for g in got]}
+    # (c) the MoE LM under pp against dp-moe's step 0
+    c = {"dp_moe_1rank_nccl": one["dp-moe"]["losses"]}
+    for sched in ("gpipe", "1f1b"):
+        got = [r[f"moe_pp-{sched}"] for r in two]
+        gate(f"c moe pp-{sched}", got[0]["losses"],
+             one["dp-moe"]["losses"][0])
+        c[f"moe_pp-{sched}"] = {
+            "losses": got[0]["losses"], "router_aux": got[0]["router_aux"],
+            "router_mass": got[0]["router_mass"],
+            "step_ms_gloo": got[0]["step_ms"],
+            "launches_per_rank": pp_launches(f"c moe pp-{sched}", got, 4,
+                                             sched, P13_STEPS)}
+    # (d) gspmd tp under int8: the scaled pair at the row products
+    got = [r["tp_int8"] for r in two]
+    gate("d tp int8", got[0]["losses"], one["dp4_int8"]["losses"][0])
+    layers = 8
+    per_fwd = {"fused_quant": 2 * layers + 1,      # qkv, mlp_in, the head
+               "fused_quant_amax": 2 * layers,     # proj, mlp_out
+               "fused_quant_scaled": 2 * layers}
+    for r, g in enumerate(got):
+        want = {k: n * (P13_STEPS + g["eval_batches"])
+                for k, n in per_fwd.items()}
+        bad = {k: (g["launches"][k], n) for k, n in want.items()
+               if g["launches"][k] != n and card_run}
+        if g["mode"] != "tp" or bad:
+            raise AssertionError(f"13d rank {r}: mode {g['mode']}, "
+                                 f"launches {bad}")
+    d = {"dp4_int8_1rank_nccl": one["dp4_int8"]["losses"],
+         "tp_int8_2rank_gloo": {
+             "losses": got[0]["losses"], "step_ms_gloo": got[0]["step_ms"],
+             "launches_per_forward": per_fwd,
+             "launches_rank0": {k: got[0]["launches"][k] for k in per_fwd}},
+         "scaled_pair": scaled}
+    # (e) tiny fp32 runs, card against CPU
+    e = {}
+    for name, card, cpu in (
+            *((t["name"], two[0][t["name"]], res_cpu2[0][t["name"]])
+              for t in tiny if t["kind"] != "decode13"),
+            ("tiny_pp-gpipe+tp", four[0]["tiny_pp-gpipe+tp"],
+             res_cpu4[0]["tiny_pp-gpipe+tp"])):
+        tol = INT8_LOSS_TOL if "int8" in name else LOSS_TOL
+        diff = p13_close(f"e {name}", card["losses"], cpu["losses"], tol)
+        e[name] = {"card": card["losses"], "cpu": cpu["losses"],
+                   "mode": card.get("mode"), "max_abs_diff": diff,
+                   "tolerance": f"{tol} (1 + |loss|)"}
+    # (f) sharded decode: the bench, and tiny greedy tokens card vs CPU vs
+    # one device
+    from tpu_dist_torch.engine.generate import generate
+
+    whole = generate(p13_tiny_decoder(device), p13_prompt(), 12,
+                     use_cache=True).cpu().tolist()
+    f = {"bench": decode}
+    for k in ("tp", "dp"):
+        card = [r[f"tiny_decode_{k}"]["tokens"] for r in two]
+        cpu = [r[f"tiny_decode_{k}"]["tokens"] for r in res_cpu2]
+        if any(t != whole for t in card + cpu):
+            raise AssertionError(f"13f tiny decode {k}=2: tokens differ "
+                                 "from the one-device decode")
+        f[f"tiny_{k}2_tokens_equal"] = True
+    # (g) ViT-B/16 ring against one rank
+    g = {}
+    for tag, one_name in (("vit_ring", "vit"), ("vit_ring_int8",
+                                                "vit_int8")):
+        got = [r[tag] for r in two]
+        gate(f"g {tag}", got[0]["losses"], one[one_name]["losses"][0], n=1)
+        fq = got[0]["launches"]["fused_quant"]
+        want_fq = 48 * 3 if "int8" in tag else 0   # step, eval, FLOP count
+        if card_run and any(x["launches"]["sgd"] != 1 or
+                            x["launches"]["fused_quant"] != want_fq
+                            for x in got):
+            raise AssertionError(f"13g {tag}: launches "
+                                 f"{[x['launches'] for x in got]}")
+        g[tag] = {"losses": got[0]["losses"],
+                  "one_rank_losses": one[one_name]["losses"],
+                  "step_ms_gloo": got[0]["step_ms"],
+                  "one_rank_step_ms": one[one_name]["step_ms"],
+                  "peak_mem_gb_per_rank": [x["peak_mem_gb"] for x in got],
+                  "fused_quant_calls_rank0": fq,
+                  "p2p_host_staged_rank0": got[0]["p2p_host_staged"]}
+    record = {"a_pp_full_width_2rank_gloo": a, "b_pp_x_tp_4rank_gloo": b,
+              "c_moe_pp": c, "d_int8_tp_scaled_pair": d,
+              "e_small_card_vs_cpu": e, "f_sharded_decode": f,
+              "g_vit_ring": g, "kernels_at_phase13_shapes": shapes,
+              "wall_s": time.perf_counter() - t0,
+              "note": "ranks share one card over gloo with CUDA tensors: "
+                      "the stage hops and ring all-reduces stage through "
+                      "the host, so step times measure gloo, not the "
+                      "schedule; no scaling is measured"}
+    by_path = {"p13_pp-gpipe_rank0": two[0]["pp-gpipe"]["launches"],
+               "p13_pp-1f1b_rank0": two[0]["pp-1f1b"]["launches"],
+               "p13_pp-gpipe+tp_rank0": four[0]["pp-gpipe+tp"]["launches"],
+               "p13_moe_pp-1f1b_rank0": two[0]["moe_pp-1f1b"]["launches"],
+               "p13_tp_int8_rank0": two[0]["tp_int8"]["launches"],
+               "p13_vit_ring_rank0": two[0]["vit_ring"]["launches"],
+               "p13_vit_ring_int8_rank0":
+                   two[0]["vit_ring_int8"]["launches"]}
+    return record, by_path
+
+
 def importable(name):
     import importlib.util
 
@@ -3074,7 +3628,18 @@ def main():
         log(f"phase 12{part[0]} {part[2:]}: {json.dumps(mp[part])} on "
             f"{card}")
     log(f"phase 12 took {mp['wall_s']:.1f}s ({mp['note']})")
-    dp_launches = {**dp_launches, **mp_launches,
+
+    # 13. pipeline parallelism, sharded decode, ViT ring
+    with tempfile.TemporaryDirectory() as tmp:
+        pp, pp_launches = pipeline_path(torch, kernels, tmp)
+    for part in ("a_pp_full_width_2rank_gloo", "b_pp_x_tp_4rank_gloo",
+                 "c_moe_pp", "d_int8_tp_scaled_pair", "e_small_card_vs_cpu",
+                 "f_sharded_decode", "g_vit_ring",
+                 "kernels_at_phase13_shapes"):
+        log(f"phase 13{part[0] if part[1] == '_' else ''} {part}: "
+            f"{json.dumps(pp[part])} on {card}")
+    log(f"phase 13 took {pp['wall_s']:.1f}s ({pp['note']})")
+    dp_launches = {**dp_launches, **mp_launches, **pp_launches,
                    "script6_imagenet": s6_launches,
                    "vit_base_int8": vit8_launches,
                    "zoo_sweep": {**{k: 0 for k in kernels.SOURCES},
@@ -3158,6 +3723,8 @@ def main():
             entry["more_shapes"] = [r for k, r in quant.items()
                                     if k != "decode lm_head"]
             entry["more_shapes"] += list(vit_quant.values())
+            entry["more_shapes"] += list(
+                pp["kernels_at_phase13_shapes"]["fused_quant"].values())
             entry["launches_by_path"] = {
                 "int8_serving": quant_launches["fused_quant"],
                 "vit_base_int8": vit8_launches["fused_quant"],
@@ -3168,6 +3735,33 @@ def main():
             entry["note"] = ("no path in the JAX package calls the TPU "
                              "kernel (only tests/test_flash.py); held "
                              "against its plain version in phase 3 alone")
+        if kname in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "adamw",
+                     "sgd", "fused_quant"):
+            entry.setdefault("launches_by_path", {}).update(
+                {p: n[kname] for p, n in pp_launches.items()})
+        entries.append(entry)
+    # fused_quant's two phases apart: gspmd tp's int8 row products (13d)
+    scaled = pp["d_int8_tp_scaled_pair"]["scaled_pair"]
+    for kname, part in (("fused_quant_amax", "amax"),
+                        ("fused_quant_scaled", "scaled")):
+        first = scaled["proj (tp rank)"]
+        entry = {"name": kname, "route": "cuda",
+                 "source": "tpu_dist_torch/csrc/fused_quant.cu",
+                 "replaces": "tpu_dist/ops/pallas_quant.py:104",
+                 "launches": pp_launches["p13_tp_int8_rank0"][kname]}
+        entry.update({k: first[part][k] for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "shape", "tolerance")})
+        entry["more_shapes"] = [r[part] for k, r in scaled.items()
+                                if k != "proj (tp rank)"]
+        entry["one_call_ms"] = {k: r["one_call_ms"]
+                                for k, r in scaled.items()}
+        entry["pair_ms"] = {k: r["pair_ms"] for k, r in scaled.items()}
+        entry["yardstick_ms"] = {k: r["yardstick_ms"]
+                                 for k, r in scaled.items()}
+        entry["library"] = first["library"]
+        entry["launches_by_path"] = {p: n[kname]
+                                     for p, n in pp_launches.items()}
         entries.append(entry)
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": entries}))

@@ -504,6 +504,34 @@ def test_fused_quant_kernel_matches_plain(cuda, dtype, m, k, n):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=str)
+@pytest.mark.parametrize("m,k,n", [(8, 4096, 1000), (200, 1000, 300)],
+                         ids=str)
+def test_fused_quant_scaled_pair_matches_plain(cuda, dtype, m, k, n):
+    """The scales and product phases apart (gspmd tp's row products):
+    the maxima bit-equal to the plain version's; scaled by them, bit-equal
+    to the one-call kernel; scaled by a group's larger maxima, bit-equal to
+    the plain pair; one count each."""
+    gen = torch.Generator(device=cuda).manual_seed(m * k + n)
+    x = (torch.randn((m, k), generator=gen, device=cuda) * 2).to(dtype)
+    w = torch.randn((k, n), generator=gen, device=cuda).to(dtype)
+    plant_ties(x, w)
+    kernels.reset_launches()
+    xa, wa = pq.fused_quant_amax_cuda(x, w)
+    pxa, pwa = pq.fused_quant_amax_plain(x, w)
+    assert torch.equal(xa, pxa) and torch.equal(wa, pwa)
+    assert torch.equal(pq.fused_quant_scaled_cuda(x, w, xa, wa),
+                       pq.fused_quant_cuda(x, w))
+    gxa = xa * (1 + torch.rand(m, generator=gen, device=cuda))
+    gwa = wa * (1 + torch.rand(n, generator=gen, device=cuda))
+    out = pq.fused_quant_scaled_cuda(x, w, gxa, gwa)
+    assert out.dtype == dtype and torch.equal(
+        out, pq.fused_quant_scaled_plain(x, w, gxa, gwa))
+    assert kernels.LAUNCHES["fused_quant_amax"] == 1
+    assert kernels.LAUNCHES["fused_quant_scaled"] == 2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=str)
 @pytest.mark.parametrize("case", [
     # (b, lq, lk, h, d, causal, q_offset, kv_offset)
     (2, 100, 100, 2, 64, True, 0, 0),

@@ -81,11 +81,16 @@ def test_greedy_cached_decode_equals_full_recompute():
     assert torch.equal(cached, full)
 
 
-@pytest.mark.parametrize("flag,value", [("--tp", "2"), ("--dp", "2"),
-                                        ("--long-context", "t.json")])
-def test_unported_flags_raise_and_name_themselves(flag, value):
-    with pytest.raises(NotImplementedError, match=flag):
-        decode_bench.main(["--device", "cpu", flag, value] + TINY)
+@pytest.mark.parametrize("flags,exc,match", [
+    # --tp/--dp are ported (tests/test_torch_generate_mesh.py); what stays
+    # is the reference's refusal of a --dp that does not divide the batch,
+    # and --tp/--dp ride the one-shot mode only
+    (["--tp", "2", "--trace", "4"], SystemExit, "one-shot mode"),
+    (["--dp", "3"], SystemExit, "--dp 3 needs --batch divisible"),
+    (["--long-context", "t.json"], NotImplementedError, "--long-context")])
+def test_unported_flags_raise_and_name_themselves(flags, exc, match):
+    with pytest.raises(exc, match=match):
+        decode_bench.main(["--device", "cpu", *flags] + TINY)
 
 
 def test_num_experts_one_shot_decodes_the_moe_lm(capsys):

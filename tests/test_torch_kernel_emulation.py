@@ -60,6 +60,12 @@ def emu():
             "quant_ws": cuda_emu.function("fused_quant",
                                           "tdt_fused_quant_workspace",
                                           pq._WORKSPACE_ARGS),
+            "quant_amax": cuda_emu.function("fused_quant",
+                                            "tdt_fused_quant_amax",
+                                            pq._AMAX_ARGS),
+            "quant_scaled": cuda_emu.function("fused_quant",
+                                              "tdt_fused_quant_scaled",
+                                              pq._SCALED_ARGS),
             "int8kv": cuda_emu.function("flash_fwd_int8kv",
                                         "tdt_flash_fwd_int8kv",
                                         fa._INT8KV_ARGS)}
@@ -549,6 +555,35 @@ def test_fused_quant_kernel_source_matches_plain(emu, dtype, m, k, n):
     ref = pq.fused_quant_matmul_plain(x, w)
     assert out.dtype == dtype and torch.equal(out, ref)
     assert bool((out[1] == 0).all()) and bool((out[:, n - 2] == 0).all())
+
+
+@pytest.mark.parametrize("dtype,m,k,n", [
+    (torch.bfloat16, 8, 300, 72),     # the split-K decode path
+    (torch.float32, 70, 130, 136),    # the GEMM path, ragged
+], ids=str)
+def test_fused_quant_scaled_pair_matches_plain(emu, dtype, m, k, n):
+    """The scales and product phases apart (the row-parallel product under
+    tensor parallelism): the maxima bit-equal to the plain version's;
+    scaled by them, the product bit-equal to the one-call kernel; scaled by
+    larger (a group's) maxima, bit-equal to its plain version."""
+    gen = torch.Generator().manual_seed(m * k + n)
+    x = (torch.randn((m, k), generator=gen) * 2).to(dtype)
+    w = torch.randn((k, n), generator=gen).to(dtype)
+    plant_ties(x, w)
+    x[1] = 0
+    xa, wa = pq._launch_amax(emu["quant_amax"], x, w, None)
+    pxa, pwa = pq.fused_quant_amax_plain(x, w)
+    assert torch.equal(xa, pxa) and torch.equal(wa, pwa)
+    out = pq._launch(emu["quant_scaled"], emu["quant_ws"], x, w, None,
+                     (xa, wa))
+    assert torch.equal(out, pq.fused_quant_matmul_plain(x, w))
+    gxa = xa * torch.linspace(1.0, 3.0, m)
+    gwa = wa * torch.linspace(2.0, 1.0, n)
+    out = pq._launch(emu["quant_scaled"], emu["quant_ws"], x, w, None,
+                     (gxa, gwa))
+    ref = pq.fused_quant_scaled_plain(x, w, gxa, gwa)
+    assert out.dtype == dtype and torch.equal(out, ref)
+    assert bool((out[1] == 0).all())
 
 
 @pytest.mark.parametrize("dtype,case", [

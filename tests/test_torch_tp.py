@@ -185,7 +185,10 @@ def test_ring_decode_and_the_stage_axis_refuse():
     lm = tiny_lm(vocab_size=64, max_len=16, device="cpu", tp_impl="ring")
     with pytest.raises(ValueError, match="tp_impl='ring' is a training"):
         generate(lm, np.zeros((1, 2), np.int32), 2, use_cache=True)
-    with pytest.raises(NotImplementedError, match="stage"):
-        LMTrainer(LMConfig(**{**LM, "mesh_shape": [1, 1],
+    # the stage axis is ported (tests/test_torch_pp.py); the reference's
+    # refusal of it with fsdp (lm_loop.py:416) stands
+    with pytest.raises(ValueError, match="'stage' mesh axis does not "
+                                         "compose with fsdp"):
+        LMTrainer(LMConfig(**{**LM, "mesh_shape": [1, 2], "fsdp": True,
                               "mesh_axes": ["data", "stage"]}),
                   device="cpu")

@@ -18,8 +18,18 @@ reference on the CPU, from the same params:
   and not the other, each moving by one quant step (1/127 of its row's
   amax), and the straight-through gradients move with them (1.5e-2 seen
   here). The step record's ``fused`` flag is false on the CPU;
-* ``quant`` on a conv arch raises the reference's ``ValueError``, and
-  ``tp_impl="ring"`` raises ``NotImplementedError`` naming itself.
+* ``quant`` on a conv arch raises the reference's ``ValueError``; ring
+  tensor parallelism on a conv arch, or with no ``model`` axis, raises the
+  reference's ``ValueError`` (``tpu_dist/engine/loop.py:125-170``), and a
+  ``model`` axis under ``tp_impl="gspmd"`` raises ``NotImplementedError``;
+* ``tp_impl="ring"`` (the ``ring_ar`` flavour) on a gloo group of 2 ranks
+  (``tests/torch_dp_worker.py``, spawned once for the module): the logits
+  against the reference's ring ViT under ``shard_map`` on 2 virtual
+  devices (``tests/test_overlap.py:176``) and the summed cross entropy's
+  gradient against the plain reference, within 1e-5 (int8: the logits
+  within 1e-3 of the reference's ring, which quantizes each row shard by
+  its own scales too); the ring ``Trainer`` at ``data=1,model=2`` against
+  its ``data=2`` twin, step for step (``tests/test_overlap.py:353``).
 """
 
 import json
@@ -148,5 +158,100 @@ def test_quant_is_refused_for_conv_archs_and_ring_tp_for_vit():
     with pytest.raises(ValueError, match="unknown quant mode"):
         Trainer(TrainConfig(arch="vit_cifar", **{**cfg, "quant": "int4"}),
                 device="cpu")
-    with pytest.raises(NotImplementedError, match="tp_impl='ring'"):
-        vit.ViT(tp_impl="ring", device="cpu", **SMALL)
+    # the reference's ring checks (loop.py:125-170): vit archs only, and a
+    # model axis of 2 or more; gspmd image tp is not ported
+    with pytest.raises(ValueError, match="--tp-impl ring applies to the "
+                                         "transformer-family"):
+        Trainer(TrainConfig(arch="resnet18", tp_impl="ring",
+                            **{**cfg, "quant": "none"}), device="cpu")
+    with pytest.raises(ValueError, match="'model' mesh axis of size >= 2"):
+        Trainer(TrainConfig(arch="vit_cifar", tp_impl="ring",
+                            mesh_shape=(1, 1), mesh_axes=("data", "model"),
+                            **cfg), device="cpu")
+    with pytest.raises(NotImplementedError, match="mesh_axes"):
+        Trainer(TrainConfig(arch="vit_cifar", mesh_shape=(1, 1),
+                            mesh_axes=("data", "model"), **cfg),
+                device="cpu")
+    with pytest.raises(ValueError, match="tp_impl='ring'"):
+        vit.ViT(device="cpu", **SMALL).set_tp(None)
+
+
+RING = dict(num_classes=5, patch_size=4, num_layers=2, d_model=32,
+            num_heads=4)
+RING_JOB = dict(seed=3, batch=2, image_shape=[8, 8, 3])
+
+
+@pytest.fixture(scope="module")
+def ring_runs(tmp_path_factory):
+    from torch_dp_worker import run_group
+    from torch_lm_ref import save_init
+
+    tmp = tmp_path_factory.mktemp("vitring")
+    x0 = np.zeros([1] + RING_JOB["image_shape"], np.float32)
+    inits = {q: jax.tree_util.tree_map(np.asarray, jvit.ViT(
+        quant=q, **RING).init({"params": jax.random.PRNGKey(0)}, x0,
+                              train=False)["params"])
+             for q in ("none", "int8")}
+    jobs = [{"name": f"ring_{q}", "kind": "vit_ring", "quant": q,
+             "init": save_init(tmp, q, inits[q]), "model": RING, **RING_JOB}
+            for q in ("none", "int8")]
+    tr = dict(arch="vit_cifar", dataset="cifar10", batch_size=8, epochs=1,
+              synth_train_size=16, synth_val_size=8, precision="fp32",
+              seed=0, print_freq=1, workers=1, log_csv="", optimizer="sgd",
+              data=str(tmp / "no-data"))
+    jobs += [{"name": "tr_ring", "kind": "image",
+              "cfg": dict(tr, tp_impl="ring", mesh_shape=[1, 2],
+                          mesh_axes=["data", "model"])},
+             {"name": "tr_dp", "kind": "image",
+              "cfg": dict(tr, mesh_shape=[2], mesh_axes=["data"])}]
+    out = str(tmp / "port")
+    return {"inits": inits, "out": out,
+            "port": run_group(2, {"jobs": jobs}, out)}
+
+
+def _ring_inputs():
+    rng = np.random.default_rng(RING_JOB["seed"])
+    x = rng.standard_normal([RING_JOB["batch"]] + RING_JOB["image_shape"])
+    y = rng.integers(0, RING["num_classes"], RING_JOB["batch"])
+    return x.astype(np.float32), y
+
+
+@pytest.mark.parametrize("quant", ["none", "int8"])
+def test_ring_vit_step_matches_reference_ring(ring_runs, quant):
+    from tpu_dist._compat import shard_map
+    from jax.sharding import PartitionSpec as P
+
+    params = ring_runs["inits"][quant]
+    x, y = _ring_inputs()
+    mesh = jax.sharding.Mesh(np.asarray(jax.devices()[:2]), ("model",))
+    ring = jvit.ViT(quant=quant, tp_impl="ring", **RING)
+    f = jax.jit(shard_map(
+        lambda p, t: ring.apply({"params": p}, t, train=False),
+        mesh=mesh, in_specs=(P(), P()), out_specs=P(), check_vma=False))
+    want = np.asarray(f(params, x))
+    tol = 1e-5 if quant == "none" else TOL["int8"]
+    for r in ring_runs["port"]:
+        _close(r[f"ring_{quant}"]["logits"], want, tol, "ring logits")
+    if quant != "none":
+        return
+    plain = jvit.ViT(**RING)
+
+    def loss(p):
+        return jax_ce(plain.apply({"params": p}, jnp.asarray(x),
+                                  train=True), jnp.asarray(y))
+
+    grads = _flat(jax.jit(jax.grad(loss))(params))
+    with np.load(f"{ring_runs['out']}/ring_none.grads.npz") as z:
+        assert set(z.files) == set(grads)
+        for k in grads:
+            _close(z[k], grads[k], 1e-5, f"grad {k}")
+
+
+def test_ring_vit_trainer_matches_its_dp_twin(ring_runs):
+    ring, dp = (_losses(f"{ring_runs['out']}/{n}.jsonl")
+                for n in ("tr_ring", "tr_dp"))
+    assert len(ring) == len(dp) == 2
+    for a, b in zip(ring, dp):
+        assert a["loss"] == pytest.approx(b["loss"], rel=1e-5)
+    r0, r1 = (r["tr_ring"] for r in ring_runs["port"])
+    assert r0["best"] == pytest.approx(r1["best"], abs=1e-9)

@@ -1,7 +1,7 @@
 """One rank of a ``torch.distributed`` group for the port's multi-process
 tests (``tests/test_torch_{collectives,dp,dp_lm,cuda,fsdp,tp,moe,
-ring_attention}.py``): gloo on the CPU unless the spec names another
-``device`` and ``backend``.
+ring_attention,int8_tp,pp,pp_modes,generate_mesh,vit}.py``): gloo on the
+CPU unless the spec names another ``device`` and ``backend``.
 
     python tests/torch_dp_worker.py SPEC.json
 
@@ -132,6 +132,15 @@ def _trainer_job(job, out, rank, torch, device):
         res["losses"] = _ledger_losses(kw["ledger_path"])
     np.savez(os.path.join(out, f"{name}.rank{rank}.npz"),
              *[p.detach().float().cpu().numpy() for p in tr.state.params])
+    pipe = getattr(tr, "pipe", None)
+    if pipe is not None:      # a pipeline run: its work, its whole params
+        res["pp"] = {"work": dict(pipe.work), "stash_peak": pipe.stash_peak,
+                     "stage": pipe.s}
+        whole = tr.whole_model()          # every rank: a gather
+        if rank == 0:
+            np.savez(os.path.join(out, f"{name}.whole.npz"),
+                     **{n: p.detach().float().cpu().numpy()
+                        for n, p in whole.named_parameters()})
     return res
 
 
@@ -288,7 +297,83 @@ def _ring_matmul_job(job, out, rank, torch, device):
     return {"ag": ag.cpu().numpy().tolist(), "rs": rs.cpu().numpy().tolist()}
 
 
+def _generate_mesh_job(job, out, rank, torch, device):
+    """Sharded greedy decode (``engine.generate(mesh=)``) of the job's
+    numpy-seeded prompt by an LM loaded from its flax tree, over a mesh of
+    the whole group: the buffer from each of the job's ``cases``
+    (``[use_cache, quant]``)."""
+    from tpu_dist_torch.engine.generate import generate
+    from tpu_dist_torch.interop import load_flax_params
+    from tpu_dist_torch.parallel.mesh import make_mesh
+
+    with np.load(job["init"], allow_pickle=True) as z:
+        tree = z["tree"].item()
+    kw = dict(job["model"])
+    if kw.get("num_experts"):
+        from tpu_dist_torch.models.moe import MoETransformerLM as cls
+    else:
+        from tpu_dist_torch.models.transformer import TransformerLM as cls
+    model = load_flax_params(cls(device=device, seed=None, **kw), tree)
+    mesh = make_mesh(job["shape"], job["axes"], device=device)
+    prompt = np.random.default_rng(job["seed"]).integers(
+        0, kw["vocab_size"], (job["batch"], job["prompt_len"])).astype(
+        np.int32)
+    res = {}
+    for use_cache, quant in job["cases"]:
+        buf = generate(model, prompt, job["steps"], use_cache=use_cache,
+                       quant=quant, mesh=mesh)
+        res[f"{use_cache}-{quant}"] = buf.cpu().numpy().tolist()
+    return res
+
+
+def _vit_ring_job(job, out, rank, torch, device):
+    """A ViT under ``tp_impl="ring"`` over the whole group as the
+    ``model`` axis, from the job's flax tree, on numpy-seeded images: the
+    logits and (rank 0, ``<name>.grads.npz``) the gradient of the summed
+    cross entropy under the flax leaf paths."""
+    from tpu_dist_torch.engine.steps import cross_entropy_sum
+    from tpu_dist_torch.interop import (export_flax_image_params,
+                                        load_flax_image_params)
+    from tpu_dist_torch.models import vit
+    from tpu_dist_torch.parallel.collectives import group_size
+    from tpu_dist_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh((group_size(),), ("model",), device=device)
+    with np.load(job["init"], allow_pickle=True) as z:
+        tree = z["tree"].item()
+    model = vit.ViT(image_shape=tuple(job["image_shape"]), tp_impl="ring",
+                    quant=job["quant"], device=device, seed=None,
+                    **job["model"])
+    load_flax_image_params(model, tree)
+    model.set_tp(mesh.axis("model"))
+    model.requires_grad_(True)
+    rng = np.random.default_rng(job["seed"])
+    x = rng.standard_normal([job["batch"]] + list(job["image_shape"]))
+    y = rng.integers(0, job["model"]["num_classes"], job["batch"])
+    logits = model(torch.from_numpy(x.astype(np.float32)).to(device))
+    grads = torch.autograd.grad(
+        cross_entropy_sum(logits, torch.from_numpy(y).long().to(device)),
+        list(model.parameters()))
+    with torch.no_grad():
+        for p, g in zip(model.parameters(), grads):
+            p.copy_(g)
+    if rank == 0:
+        flat = {}
+
+        def walk(tree, prefix=""):
+            for k, v in tree.items():
+                if isinstance(v, dict):
+                    walk(v, f"{prefix}{k}/")
+                else:
+                    flat[prefix + k] = np.asarray(v, np.float32)
+        walk(export_flax_image_params(model)[0])
+        np.savez(os.path.join(out, f"{job['name']}.grads.npz"), **flat)
+    return {"logits": logits.detach().cpu().numpy().tolist()}
+
+
 JOBS = {"image": _trainer_job, "lm": _trainer_job,
+        "vit_ring": _vit_ring_job,
+        "generate_mesh": _generate_mesh_job,
         "collectives": _collectives_job, "lm_grads": _lm_grads_job,
         "ring_attention": _ring_attention_job,
         "ring_matmul": _ring_matmul_job}

@@ -27,9 +27,11 @@ def step_losses(path):
         return [r["loss"] for r in map(json.loads, f) if r["event"] == "step"]
 
 
-def jax_trainer(tmp, name, cfg, shape, axes):
+def jax_trainer(tmp, name, cfg, shape, axes, final=False):
     """The reference ``LMTrainer`` on a ``shape`` mesh over ``axes``:
-    (its initial params as numpy, its per-step losses, its mode)."""
+    (its initial params as numpy, its per-step losses, its mode), and with
+    ``final`` its trained params under the port's leaf names (a pipeline
+    state unstacked) as a fourth item."""
     n = int(np.prod(shape))
     mesh = jax.sharding.Mesh(np.asarray(jax.devices()[:n]).reshape(shape),
                              axes)
@@ -39,7 +41,16 @@ def jax_trainer(tmp, name, cfg, shape, axes):
                                   ledger_path=path), mesh=mesh)
     init = jax.tree_util.tree_map(np.asarray, jax.device_get(tr.state.params))
     tr.fit()
-    return init, step_losses(path), tr.mode
+    out = (init, step_losses(path), tr.mode)
+    if not final:
+        return out
+    params = jax.tree_util.tree_map(np.asarray,
+                                    jax.device_get(tr.state.params))
+    if "embed_head" in params:
+        from tpu_dist.parallel.pp import unstack_pipeline_params
+
+        params = unstack_pipeline_params(params)
+    return out + (named(params),)
 
 
 def save_init(tmp, name, tree) -> str:

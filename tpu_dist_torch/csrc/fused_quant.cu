@@ -45,6 +45,13 @@
 //      qw (N, KP), transposed so k is contiguous; fq_gemm_kernel is a plain
 //      int8 GEMM over qx and qw (128 x 128 tiles, a ring of two cp.async
 //      stages of 128 k, two blocks an SM) with the dequant in its epilogue.
+// The same two phases are also exposed apart, for a product whose K is
+// sharded over a tensor-parallel group and whose scales must be the whole
+// K's: tdt_fused_quant_amax runs stage 1's maxima only (each row's amax of
+// x, each column's of w), the caller takes their max over the group, and
+// tdt_fused_quant_scaled runs stage 1 (x quantized by the given row maxima,
+// no w strips) and stage 2 with the given column maxima. With the local
+// maxima the pair computes exactly what tdt_fused_quant does.
 // Shared-memory int8 tiles are [rows][128] and swizzled (swz_off): the 8
 // rows that one ldmatrix phase reads, and the 8 rows that one packed store
 // of the w tile writes, fall in 8 distinct 16-byte chunks, all 32 banks.
@@ -228,12 +235,15 @@ struct WTile {
 };
 
 // Stage 1 (header). Blocks [0, xb = M): a row of x each; the rest: column
-// strip b % ctiles of w over rows [(b / ctiles) rb, + rb).
+// strip b % ctiles of w over rows [(b / ctiles) rb, + rb). A row block takes
+// its amax from x_amax_in where given; with x_amax_out it writes the amax
+// there and stops (tdt_fused_quant_amax).
 template <typename T>
 __global__ void __launch_bounds__(SCALE_NT) fq_scales_kernel(
     const T* __restrict__ x, const T* __restrict__ w, int M, int K, int N,
     int KP, int xb, int ctiles, int rb, float* __restrict__ sx,
-    int8_t* __restrict__ qx, uint32_t* __restrict__ sw_amax) {
+    int8_t* __restrict__ qx, uint32_t* __restrict__ sw_amax,
+    const float* __restrict__ x_amax_in, float* __restrict__ x_amax_out) {
   constexpr int E = 16 / sizeof(T);
   constexpr int CW = 32 * E;                 // columns a strip
   constexpr int NW = SCALE_NT / 32;
@@ -244,17 +254,25 @@ __global__ void __launch_bounds__(SCALE_NT) fq_scales_kernel(
     const T* row = x + (long)m * K;
     const bool al = rows_aligned(x, K);
     float v[16], mx = 0.f;
-    for (int k = 16 * threadIdx.x; k < K; k += 16 * SCALE_NT) {
-      load16(row, k, K, al, v);
+    if (x_amax_in) {
+      mx = x_amax_in[m];
+    } else {
+      for (int k = 16 * threadIdx.x; k < K; k += 16 * SCALE_NT) {
+        load16(row, k, K, al, v);
 #pragma unroll
-      for (int j = 0; j < 16; ++j) mx = fmaxf(mx, fabsf(v[j]));
+        for (int j = 0; j < 16; ++j) mx = fmaxf(mx, fabsf(v[j]));
+      }
+      for (int off = 16; off > 0; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      if (lane == 0) red[0][warp] = mx;
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < NW; ++i) mx = fmaxf(mx, red[0][i]);
     }
-    for (int off = 16; off > 0; off >>= 1)
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-    if (lane == 0) red[0][warp] = mx;
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < NW; ++i) mx = fmaxf(mx, red[0][i]);
+    if (x_amax_out) {
+      if (threadIdx.x == 0) x_amax_out[m] = mx;
+      return;
+    }
     const float s = fmaxf(mx, EPS) / QMAX, r = 1.f / s;
     if (threadIdx.x == 0) sx[m] = s;
     for (int k = 16 * threadIdx.x; k < KP; k += 16 * SCALE_NT) {  // 0 past K
@@ -624,19 +642,38 @@ Plan make_plan(int M, int K, int N, int elem) {
   return p;
 }
 
+// tdt_fused_quant_amax: x's row maxima into x_amax (M floats) and w's
+// column maxima into w_amax (N floats, as the bits atomicMax combines)
+template <typename T>
+int launch_amax(const T* x, const T* w, float* x_amax, uint32_t* w_amax,
+                int M, int K, int N, cudaStream_t stream) {
+  const Plan p = make_plan(M, K, N, (int)sizeof(T));
+  int err = (int)cudaMemsetAsync(w_amax, 0, 4 * (size_t)N, stream);
+  if (err != 0) return err;
+  fq_scales_kernel<T><<<p.xb + p.wb, SCALE_NT, 0, stream>>>(
+      x, w, M, K, N, p.KP, p.xb, p.ctiles, p.rb, nullptr, nullptr, w_amax,
+      nullptr, x_amax);
+  return (int)cudaGetLastError();
+}
+
+// The product; x_amax_in / w_amax_in: the row and column maxima to scale
+// by (tdt_fused_quant_scaled), or null to take them from x and w here
 template <typename T>
 int launch(const T* x, const T* w, T* out, char* ws, int M, int K, int N,
-           cudaStream_t stream) {
+           cudaStream_t stream, const float* x_amax_in = nullptr,
+           const uint32_t* w_amax_in = nullptr) {
   const Plan p = make_plan(M, K, N, (int)sizeof(T));
-  uint32_t* sw_amax = reinterpret_cast<uint32_t*>(ws + p.off_sw);
+  uint32_t* sw_amax = w_amax_in ? const_cast<uint32_t*>(w_amax_in)
+                                : reinterpret_cast<uint32_t*>(ws + p.off_sw);
   float* sx = reinterpret_cast<float*>(ws + p.off_sx);
   int8_t* qx = reinterpret_cast<int8_t*>(ws + p.off_qx);
   int* count = reinterpret_cast<int*>(ws + p.off_count);
   int err = (int)cudaMemsetAsync(ws, 0, (size_t)(p.off_sx - p.off_sw),
                                  stream);
   if (err != 0) return err;
-  fq_scales_kernel<T><<<p.xb + p.wb, SCALE_NT, 0, stream>>>(
-      x, w, M, K, N, p.KP, p.xb, p.ctiles, p.rb, sx, qx, sw_amax);
+  fq_scales_kernel<T><<<p.xb + (w_amax_in ? 0 : p.wb), SCALE_NT, 0,
+                        stream>>>(x, w, M, K, N, p.KP, p.xb, p.ctiles, p.rb,
+                                  sx, qx, sw_amax, x_amax_in, nullptr);
   if ((err = (int)cudaGetLastError()) != 0) return err;
   if (p.small) {
     int* part = p.splits > 1 ? reinterpret_cast<int*>(ws + p.off_part)
@@ -703,5 +740,47 @@ extern "C" int tdt_fused_quant(const void* x, const void* w, void* out,
     return launch(static_cast<const __nv_bfloat16*>(x),
                   static_cast<const __nv_bfloat16*>(w),
                   static_cast<__nv_bfloat16*>(out), wsp, M, K, N, s);
+  return -1;
+}
+
+// The scales phase of tdt_fused_quant alone: x_amax (M floats) gets each
+// row's max |x| over K, w_amax (N floats) each column's max |w| over K.
+// Returns as tdt_fused_quant does.
+extern "C" int tdt_fused_quant_amax(const void* x, const void* w,
+                                    void* x_amax, void* w_amax, int M, int K,
+                                    int N, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* xa = static_cast<float*>(x_amax);
+  uint32_t* wa = static_cast<uint32_t*>(w_amax);
+  if (M < 1 || K < 1 || N < 1) return -1;
+  if (dtype == 0)
+    return launch_amax(static_cast<const float*>(x),
+                       static_cast<const float*>(w), xa, wa, M, K, N, s);
+  if (dtype == 1)
+    return launch_amax(static_cast<const __nv_bfloat16*>(x),
+                       static_cast<const __nv_bfloat16*>(w), xa, wa, M, K, N,
+                       s);
+  return -1;
+}
+
+// tdt_fused_quant with the scales taken from the given maxima: x_amax (M
+// floats) and w_amax (N non-negative floats), e.g. tdt_fused_quant_amax's
+// maxed over a group that shares the product's K. ws: as tdt_fused_quant.
+extern "C" int tdt_fused_quant_scaled(const void* x, const void* w,
+                                      const void* x_amax, const void* w_amax,
+                                      void* out, void* ws, int M, int K,
+                                      int N, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  char* wsp = static_cast<char*>(ws);
+  const float* xa = static_cast<const float*>(x_amax);
+  const uint32_t* wa = static_cast<const uint32_t*>(w_amax);
+  if (M < 1 || K < 1 || N < 1) return -1;
+  if (dtype == 0)
+    return launch(static_cast<const float*>(x), static_cast<const float*>(w),
+                  static_cast<float*>(out), wsp, M, K, N, s, xa, wa);
+  if (dtype == 1)
+    return launch(static_cast<const __nv_bfloat16*>(x),
+                  static_cast<const __nv_bfloat16*>(w),
+                  static_cast<__nv_bfloat16*>(out), wsp, M, K, N, s, xa, wa);
   return -1;
 }

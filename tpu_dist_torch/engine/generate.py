@@ -10,7 +10,22 @@ and :func:`prepare_draft` are shared with ``engine.serve``.
 
 Sampling draws from an explicit ``torch.Generator``; it cannot reproduce
 ``jax.random``'s stream, so only greedy decoding compares across the two
-packages. Sharded decode (the reference's ``mesh=``) is not ported.
+packages.
+
+Sharded decode (``mesh=``, the reference's ``:62`` and
+``_shard_decode_inputs``, ``:294-335``): every rank of the mesh calls
+:func:`generate` with the whole model and the whole prompt. The batch
+shards over ``data`` when that divides B (each data rank decodes its
+rows; the buffers are gathered at the end, so every rank returns the
+whole (B, P + steps) buffer); the weights take the training tensor
+parallel layout over ``model`` (``parallel.tp``: heads split
+column/row, a vocab-sharded ``lm_head``; ``int8_wo`` kernels shard with
+their scales), the KV cache holds this rank's H/M heads, and a greedy
+token is the argmax across the vocab shards (each shard's max and first
+index gathered, ``jnp.argmax``'s first-maximum rule); a sampled one draws
+from the gathered logits with the same generator on every tp rank. The
+MoE LM's experts shard over ``expert`` where the mesh carries that axis
+(``parallel.ep``, with the Megatron split when ``model`` rides along).
 """
 
 from __future__ import annotations
@@ -170,27 +185,130 @@ def prepare_draft(base_model, draft_model, quant: str):
 
 def _new_caches(model, b: int, total: int):
     head_dim = model.d_model // model.num_heads
-    shape = (b, total, model.num_heads, head_dim)
+    tp = model.tp.size if getattr(model, "tp", None) is not None else 1
+    shape = (b, total, model.num_heads // tp, head_dim)
     return [{"k": torch.zeros(shape, dtype=model.dtype, device=model.device),
              "v": torch.zeros(shape, dtype=model.dtype, device=model.device),
              "index": 0} for _ in range(model.num_layers)]
 
 
+def _shard_decode_model(model, mesh, b: int):
+    """(the decode model laid out over ``mesh``, the data axis the batch
+    shards over or None): a copy of ``model`` whose weights take the
+    training layout (module docstring), the caller's model untouched."""
+    from tpu_dist_torch.parallel.mesh import (DATA_AXIS, EXPERT_AXIS,
+                                              MODEL_AXIS, shard_leaf)
+    from tpu_dist_torch.parallel.tp import _spec_for, fused_of, shard_params_
+
+    data, tp, ep = (mesh.axis(a) for a in (DATA_AXIS, MODEL_AXIS,
+                                           EXPERT_AXIS))
+    data = data if data.size > 1 and b % data.size == 0 else None
+    experts = getattr(model, "num_experts", 0)
+    ep = ep if experts and ep.size > 1 else None
+    tp = tp if tp.size > 1 else None
+    if tp is not None and model.num_heads % tp.size:
+        raise ValueError(f"TP decode shards attention heads: num_heads="
+                         f"{model.num_heads} must divide by mesh 'model' "
+                         f"size {tp.size}")
+    if tp is not None and model.vocab_size % tp.size:
+        raise ValueError(f"TP decode shards the vocab: vocab_size="
+                         f"{model.vocab_size} must divide by mesh 'model' "
+                         f"size {tp.size}")
+    if ep is not None and experts % ep.size:
+        raise ValueError(f"EP decode shards experts: num_experts={experts} "
+                         f"must divide by mesh 'expert' size {ep.size}")
+    if tp is None and ep is None:
+        return model, data
+    # the copy shares every tensor: the layout replaces what it shards
+    shared = {id(t): t for t in itertools.chain(model.parameters(),
+                                                model.buffers())}
+    model = copy.deepcopy(model, memo=shared)
+    if ep is not None:
+        from tpu_dist_torch.parallel.ep import ep_param_specs
+
+        specs = ep_param_specs(
+            ((n, t.shape) for n, t in model.named_parameters()),
+            EXPERT_AXIS, MODEL_AXIS if tp is not None else None)
+    else:
+        from tpu_dist_torch.parallel.tp import lm_param_specs
+
+        specs = lm_param_specs((n, t.shape)
+                               for n, t in model.named_parameters())
+    shard_params_(model, specs, mesh)
+    with torch.no_grad():
+        for name, mod in model.named_modules():
+            if not (isinstance(mod, QuantDense) and mod.prequantized):
+                continue
+            # a wo-quantized layer: its int8 kernel and (1, out) scales
+            spec = _spec_for(f"{name}.kernel", mod.kernel.shape)
+            fused = fused_of(name)
+            mod.kernel = shard_leaf(mod.kernel, spec, mesh, fused)
+            if spec[1] == MODEL_AXIS:
+                mod.kernel_scale = shard_leaf(mod.kernel_scale,
+                                              (None, MODEL_AXIS), mesh, fused)
+    if ep is not None:
+        model.set_ep(ep)
+    if tp is not None:
+        model.set_tp(tp)
+    return model, data
+
+
+def _gather_vocab(logits, tp):
+    """The whole vocab's logits from this rank's shard (sampling)."""
+    from tpu_dist_torch.parallel.collectives import all_gather
+
+    return torch.cat(all_gather(logits.contiguous(), tp.group).unbind(0), -1)
+
+
+def _greedy_over_shards(logits, tp):
+    """Argmax token ids (B,) across vocab shards (B, V/M): each shard's
+    max and first index gathered, the first maximum of the whole vocab."""
+    from tpu_dist_torch.parallel.collectives import all_gather
+
+    x = logits.float()
+    mx, arg = x.max(dim=-1)
+    both = all_gather(torch.stack([mx, (arg + tp.index * x.shape[-1])
+                                   .float()]), tp.group)       # (M, 2, B)
+    top = both[:, 0].amax(dim=0)
+    cand = torch.where(both[:, 0] == top, both[:, 1],
+                       torch.full_like(both[:, 1], float("inf")))
+    return cand.amin(dim=0).long()
+
+
 def generate(model, prompt, steps: int, temperature: float = 0.0,
              generator: Optional[torch.Generator] = None,
              use_cache: bool = False, top_k: int = 0, top_p: float = 0.0,
-             quant: str = "none", ledger=None) -> torch.Tensor:
+             quant: str = "none", ledger=None, mesh=None) -> torch.Tensor:
     """Continue ``prompt`` (B, P) by ``steps`` tokens on the model's
     device; returns the (B, P + steps) int32 buffer. Temperature 0 is
     greedy; above 0, draws come from ``generator`` (on the model's
     device). ``quant`` decodes through quantized matmuls (``int8`` or
-    ``int8_wo``).
+    ``int8_wo``). ``mesh`` (a ``parallel.mesh.Mesh``; every rank calls)
+    decodes sharded over it (module docstring).
     ``ledger`` records the call as one ``decode`` event."""
     prompt = torch.as_tensor(prompt, dtype=torch.int32).to(model.device)
     b, p = prompt.shape
     if steps <= 0:
         return prompt
     model = _quantize_for_decode(model, quant)
+    data = None
+    if mesh is not None:
+        model, data = _shard_decode_model(model, mesh, b)
+        if data is not None:
+            prompt = prompt.narrow(0, data.index * (b // data.size),
+                                   b // data.size)
+            b = prompt.shape[0]
+    tp = model.tp if getattr(model, "tp", None) is not None \
+        and model.tp.size > 1 else None
+
+    def pick(logits):
+        if tp is None:
+            return _sample(logits, temperature, generator, top_k, top_p)
+        if temperature <= 0.0:
+            return _greedy_over_shards(logits, tp)
+        return _sample(_gather_vocab(logits, tp), temperature, generator,
+                       top_k, top_p)
+
     total = p + steps
     buf = torch.zeros((b, total), dtype=torch.int32, device=model.device)
     buf[:, :p] = prompt
@@ -199,20 +317,20 @@ def generate(model, prompt, steps: int, temperature: float = 0.0,
         if use_cache:
             caches = _new_caches(model, b, total)
             logits = model(buf[:, :p], pos_offset=0, caches=caches)
-            buf[:, p] = _sample(logits[:, -1], temperature, generator,
-                                top_k, top_p).to(torch.int32)
+            buf[:, p] = pick(logits[:, -1]).to(torch.int32)
             for pos in range(p, total - 1):
                 logits = model(buf[:, pos:pos + 1], pos_offset=pos,
                                caches=caches)
-                buf[:, pos + 1] = _sample(logits[:, 0], temperature,
-                                          generator, top_k, top_p
-                                          ).to(torch.int32)
+                buf[:, pos + 1] = pick(logits[:, 0]).to(torch.int32)
         else:
             for pos in range(p - 1, total - 1):
                 logits = model(buf)
-                buf[:, pos + 1] = _sample(logits[:, pos], temperature,
-                                          generator, top_k, top_p
-                                          ).to(torch.int32)
+                buf[:, pos + 1] = pick(logits[:, pos]).to(torch.int32)
+        if data is not None:          # every data shard's rows, in order
+            from tpu_dist_torch.parallel.collectives import all_gather
+
+            buf = torch.cat(all_gather(buf, data.group).unbind(0), 0)
+            b = buf.shape[0]
     if ledger is None:
         return buf
     dispatch_s = time.perf_counter() - t0

@@ -15,15 +15,21 @@ script 8, with the same ``mode`` strings:
                               chunks (``parallel.ring_attention``)
   data=N,expert=M             ep-moe (``parallel.ep``, ``models.moe``);
                               ep-moe+tp with a model axis as well
+  data=N,stage=S              pp-gpipe | pp-1f1b (``pp_schedule``): each
+                              rank holds its stage's blocks
+                              (``parallel.pp``); pp-gpipe+tp | pp-1f1b+tp
+                              with a model axis as well
 
-``_validate_mode`` is the reference's (``:406-470``) word for word; the
-``stage`` axis (pipeline parallelism) is not ported and raises
-``NotImplementedError`` naming itself (``parallel.mesh``). Every rank of
-one ``data`` coordinate reads the same rows (the sampler runs over the
-data axis), each mode's step is ``engine.lm_steps.lm_train_step`` under
-its ``ModelParallel``, and checkpoints are layout-free: a sharded mode
-gathers whole leaves for rank 0 to write and slices them again on resume,
-so a checkpoint of one mode resumes under another.
+``_validate_mode`` is the reference's (``:406-470``) word for word. Every
+rank of one ``data`` coordinate reads the same rows (the sampler runs over
+the data axis), each mode's step is ``engine.lm_steps.lm_train_step``
+under its ``ModelParallel`` (pp: ``parallel.pp.Pipeline.train_step``),
+and checkpoints are layout-free: a sharded mode gathers whole leaves for
+rank 0 to write and slices them again on resume, so a checkpoint of one
+mode resumes under another. A pp checkpoint is the exception, as in the
+reference: its block leaves are stacked over the stages (S, ...), it
+resumes under the same ``pp_stages`` only (``HARD_GEOMETRY``), and it is
+refused as a warm-start donor.
 
 What follows the reference (line numbers are ``lm_loop.py``'s):
 
@@ -103,8 +109,8 @@ from tpu_dist_torch.ops.precision import make_policy
 from tpu_dist_torch.ops.quant import validate_quant
 from tpu_dist_torch.parallel.collectives import P2P_HOST_STAGED
 from tpu_dist_torch.parallel.mesh import (DATA_AXIS, EXPERT_AXIS,
-                                          MODEL_AXIS, SEQ_AXIS, gather_leaf,
-                                          make_mesh, shard_leaf)
+                                          MODEL_AXIS, SEQ_AXIS, STAGE_AXIS,
+                                          gather_leaf, make_mesh, shard_leaf)
 from tpu_dist_torch.parallel.overlap import (bucketed_grad_sync,
                                              validate_tp_impl)
 from tpu_dist_torch.utils.meters import MeterBank
@@ -182,8 +188,8 @@ def moe_lm_flops_per_token(named_shapes, num_layers: int, seq_len: int,
 
 
 class LMTrainer:
-    """The LM trainer, one device per process, every mode but pp (module
-    docstring has the tour)."""
+    """The LM trainer, one device per process, in every mode of the
+    reference's (module docstring has the tour)."""
 
     def __init__(self, cfg: LMConfig, *, device=None,
                  init_params: Optional[dict] = None):
@@ -218,6 +224,11 @@ class LMTrainer:
                 raise ValueError("grad_accum_steps > 1 requires "
                                  "data_placement='host'/'auto' (the indexed "
                                  "window step has no microbatch loop)")
+        axes = dict(zip(cfg.mesh_axes or (), cfg.mesh_shape or ()))
+        if axes.get(STAGE_AXIS, 1) > 1 and cfg.fsdp:
+            # before the mesh: the reference's check (:416)
+            raise ValueError("a 'stage' mesh axis does not compose with "
+                             "fsdp (blocks already shard over 'stage')")
         self.mesh = make_mesh(cfg.mesh_shape, cfg.mesh_axes, device=device)
         self.cfg = cfg
         self.device = self.mesh.device
@@ -229,13 +240,16 @@ class LMTrainer:
         self.use_sp = shape.get(SEQ_AXIS, 1) > 1
         self.use_tp = shape.get(MODEL_AXIS, 1) > 1
         self.use_ep = shape.get(EXPERT_AXIS, 1) > 1
+        self.use_pp = shape.get(STAGE_AXIS, 1) > 1
         validate_tp_impl(cfg.tp_impl)
         self.use_ring = self.use_tp and cfg.tp_impl == "ring"
         self.use_bucket = cfg.grad_bucket_mb > 0
         self._validate_mode()
         self.use_fsdp = cfg.fsdp and not (self.use_sp or self.use_tp
-                                          or self.use_ep)
-        self.mode = ("sp-ring" if self.use_sp else
+                                          or self.use_ep or self.use_pp)
+        self.mode = (f"pp-{cfg.pp_schedule}"
+                     + ("+tp" if self.use_tp else "") if self.use_pp else
+                     "sp-ring" if self.use_sp else
                      ("ep-moe" + ("+tp" if self.use_tp else ""))
                      if self.use_ep else
                      ("tp-ring" if self.use_ring else "tp") if self.use_tp
@@ -253,8 +267,12 @@ class LMTrainer:
         if self.use_sp and cfg.seq_len % shape[SEQ_AXIS]:
             raise ValueError(f"seq_len {cfg.seq_len} not divisible by the "
                              f"seq axis ({shape[SEQ_AXIS]})")
+        if self.use_pp and (cfg.batch_size // d_size) % cfg.pp_microbatches:
+            raise ValueError(
+                f"per-data-shard batch {cfg.batch_size // d_size} not "
+                f"divisible by {cfg.pp_microbatches} microbatches")
         if self.accum > 1:
-            if self.use_sp:
+            if self.use_sp or self.use_pp:
                 raise ValueError("grad_accum_steps > 1 supports the jit "
                                  "modes (dp/fsdp/tp/ep); pp already "
                                  "microbatches via --pp-microbatches")
@@ -287,6 +305,7 @@ class LMTrainer:
             self._warm_start(cfg.pretrained)
         self._shapes = [(n, tuple(p.shape))
                         for n, p in self.model.named_parameters()]
+        self._model_shapes = self._shapes     # the whole model's, for FLOPs
         if cfg.num_experts and not self.use_sp:
             self.model.set_data(self.mesh.axis(DATA_AXIS))
         specs, leaves = self._lay_out()
@@ -299,17 +318,21 @@ class LMTrainer:
             cfg.lr, cfg.lr_schedule, warmup_steps=cfg.warmup_steps,
             total_steps=total_steps, steps_per_epoch=self.steps_per_epoch,
             step_epochs=cfg.lr_step_epochs, min_frac=cfg.lr_min_frac)
+        # pp clips inside its step by the cross-stage global norm
+        # (parallel.pp._clip_pp_grads), so its optimizer's clip is off
+        # (:174-201)
+        clip = 0.0 if self.use_pp else cfg.grad_clip
         if cfg.optimizer == "fused_adamw":
             self.tx = FusedAdamW(self.lr_schedule, b1=cfg.adam_b1,
                                  b2=cfg.adam_b2, eps=cfg.adam_eps,
                                  weight_decay=cfg.weight_decay,
-                                 clip_norm=cfg.grad_clip)
+                                 clip_norm=clip)
         else:
             self.tx = make_optimizer(cfg.lr, cfg.momentum, cfg.weight_decay,
                                      schedule=self.lr_schedule,
                                      kind=cfg.optimizer, b1=cfg.adam_b1,
                                      b2=cfg.adam_b2, eps=cfg.adam_eps,
-                                     grad_clip=cfg.grad_clip)
+                                     grad_clip=clip)
         if leaves is None:
             self.state = TrainState.create(self.model, self.tx)
         else:
@@ -320,11 +343,16 @@ class LMTrainer:
         self.specs = None if specs is None else [
             specs.get(n, (None,) * len(s)) for n, s in self._shapes]
         self.par = self._parallel_plan(leaves)
-        # ranks whose router aux the metric sums add up
+        # ranks whose router aux the metric sums add up (pp: each stage's
+        # own blocks' aux, so only the data axis repeats it)
         self._aux_ranks = 1
         for a in self.par.metric_axes:
-            self._aux_ranks *= shape.get(a, 1)
-        if self._sharded():
+            if not (self.use_pp and a == STAGE_AXIS):
+                self._aux_ranks *= shape.get(a, 1)
+        self.pipe = None
+        if self.use_pp:
+            self.pipe = self._pipeline()
+        elif self._sharded():
             self.tx.sq_norm = self.par.sq_norm
 
         # ---- windows over device-resident rows (:209-303) ----
@@ -352,7 +380,8 @@ class LMTrainer:
             "vocab_size": self.vocab_size, "num_layers": cfg.num_layers,
             "d_model": cfg.d_model, "num_heads": cfg.num_heads,
             "seq_len": cfg.seq_len, "num_experts": cfg.num_experts,
-            "pp_stages": 0, "steps_per_epoch": self.steps_per_epoch,
+            "pp_stages": shape[STAGE_AXIS] if self.use_pp else 0,
+            "steps_per_epoch": self.steps_per_epoch,
             "batch_size": cfg.batch_size, "dataset_len": len(self.train_ds),
             "mode": self.mode}
         self.start_epoch = 0
@@ -375,7 +404,9 @@ class LMTrainer:
 
     # ------------------------------------------------------------------
     def _validate_mode(self):
-        """The reference's mode checks (``:406-470``), word for word."""
+        """The reference's mode checks (``:406-470``), word for word; its
+        stage+fsdp check runs before the mesh (``__init__``) and its
+        schedule check in ``parallel.pp.Pipeline``."""
         cfg = self.cfg
         multi = [a for a in ("seq", "model", "expert", "stage")
                  if a in self.mesh.axis_names and self.mesh.shape[a] > 1]
@@ -387,7 +418,8 @@ class LMTrainer:
                 "expert+model for MoE x tp)")
         if self.use_ep and not cfg.num_experts:
             raise ValueError("an 'expert' mesh axis requires num_experts > 0")
-        if self.use_tp and cfg.num_experts and not self.use_ep:
+        if self.use_tp and cfg.num_experts and not (self.use_ep
+                                                    or self.use_pp):
             raise ValueError("MoE + pure tensor parallelism not supported: "
                              "use data=N,expert=M[,model=K] or "
                              "data=N,stage=S,model=K")
@@ -396,7 +428,7 @@ class LMTrainer:
                      "layout; ignored with a seq/model/expert mesh axis")
         if self.use_ring:
             tp = self.mesh.shape["model"]
-            if self.use_ep:
+            if self.use_ep or self.use_pp:
                 raise ValueError("tp_impl='ring' drives the pure "
                                  "data x model layout; pp/ep compositions "
                                  "ride the GSPMD impl")
@@ -413,7 +445,8 @@ class LMTrainer:
                                  "grad_accum_steps > 1 yet (the accum step "
                                  "is GSPMD-partitioned)")
         if self.use_bucket:
-            if self.use_tp or self.use_sp or self.use_ep or cfg.fsdp:
+            if (self.use_tp or self.use_sp or self.use_ep or self.use_pp
+                    or cfg.fsdp):
                 raise ValueError(
                     "grad_bucket_mb > 0 decomposes the pure-dp gradient "
                     "allreduce (replicated params); fsdp/tp/sp/pp/ep keep "
@@ -425,7 +458,12 @@ class LMTrainer:
     def _lay_out(self):
         """Lay the whole model out for the mode (``_place``, ``:590-616``):
         (specs by param name or None, (names, shard leaves) under fsdp or
-        None)."""
+        None). Under pp the model keeps its stage's blocks only, and
+        ``_shapes`` becomes the stage's leaves."""
+        if self.use_pp:
+            from tpu_dist_torch.parallel.pp import lay_out_stage_
+            self._shapes, specs = lay_out_stage_(self.model, self.mesh)
+            return specs, None
         if self.use_ep:
             from tpu_dist_torch.parallel.ep import shard_moe_
             return shard_moe_(self.model, self.mesh), None
@@ -448,7 +486,9 @@ class LMTrainer:
         kw = dict(mode=self.mode, mesh=self.mesh, specs=self.specs,
                   aux_weight=cfg.moe_aux_weight, moe=bool(cfg.num_experts),
                   dp=self.dp)
-        if self.use_sp:
+        if self.use_pp:
+            kw.update(metric_axes=(STAGE_AXIS, DATA_AXIS))
+        elif self.use_sp:
             kw.update(seq=self.mesh.axis(SEQ_AXIS),
                       grad_mean_axes=(SEQ_AXIS, DATA_AXIS),
                       metric_axes=(SEQ_AXIS, DATA_AXIS))
@@ -462,6 +502,18 @@ class LMTrainer:
             kw.update(fsdp_names=leaves[0])
         return ModelParallel(**kw)
 
+    def _pipeline(self):
+        """The pp step's ``parallel.pp.Pipeline`` on this rank's stage."""
+        from tpu_dist_torch.parallel.pp import Pipeline
+
+        cfg = self.cfg
+        return Pipeline(self.model, self.mesh, cfg.pp_microbatches,
+                        cfg.pp_schedule, aux_weight=cfg.moe_aux_weight,
+                        loss_chunk=cfg.loss_chunk, grad_clip=cfg.grad_clip,
+                        specs=self.specs or [(None,) * len(s)
+                                             for _, s in self._shapes],
+                        param_names=[n for n, _ in self._shapes])
+
     def _sharded(self) -> bool:
         return self.specs is not None and any(any(s) for s in self.specs)
 
@@ -470,24 +522,57 @@ class LMTrainer:
         return fused_of(self._shapes[i][0]) if not self.use_fsdp else 1
 
     def _gather_leaf(self, i: int, t: torch.Tensor) -> torch.Tensor:
+        if self.use_pp:
+            from tpu_dist_torch.parallel.pp import gather_stage_leaf
+            return gather_stage_leaf(t, self._shapes[i][0],
+                                     self.pipe.specs[i], self.mesh,
+                                     self._fused(i))
         return gather_leaf(t, self.specs[i], self.mesh, self._fused(i))
 
     def _slice_leaf(self, i: int, t: torch.Tensor) -> torch.Tensor:
+        if self.use_pp:
+            from tpu_dist_torch.parallel.pp import slice_stage_leaf
+            return slice_stage_leaf(t, self._shapes[i][0],
+                                    self.pipe.specs[i], self.mesh,
+                                    self._fused(i))
         return shard_leaf(t, self.specs[i], self.mesh, self._fused(i))
+
+    def _layout_gather(self) -> bool:
+        """Whether checkpoints gather the leaves (and resumes slice them)."""
+        return self.use_pp or self._sharded()
 
     def whole_model(self):
         """This rank's model with whole params on one device, for decode
         after a sharded run (every rank must call it: the leaves are
         gathered); the trained model itself in a replicated mode."""
-        if not self._sharded() and not (self.use_ring or self.use_sp):
+        if not self._layout_gather() and not (self.use_ring or self.use_sp):
             return self.model
         model = self._build_model(None, whole=True)
+        if self.use_pp:
+            return self._whole_from_stages(model)
         with torch.no_grad():
             for i, ((name, _), p) in enumerate(zip(self._shapes,
                                                    self.state.params)):
                 full = self._gather_leaf(i, p.detach()) if self.specs \
                     else p.detach()
                 model.get_parameter(name).copy_(full)
+        return model
+
+    @torch.no_grad()
+    def _whole_from_stages(self, model):
+        """``model`` (whole, fresh) filled from every stage's leaves."""
+        s_size = self.mesh.shape[STAGE_AXIS]
+        per = self.cfg.num_layers // s_size
+        for i, ((name, _), p) in enumerate(zip(self._shapes,
+                                               self.state.params)):
+            full = self._gather_leaf(i, p.detach())
+            if not name.startswith("blocks."):
+                model.get_parameter(name).copy_(full)
+                continue
+            _, j, rest = name.split(".", 2)
+            for s in range(s_size):
+                model.get_parameter(f"blocks.{s * per + int(j)}.{rest}"
+                                    ).copy_(full[s])
         return model
 
     def _measure_comm_probe(self) -> float:
@@ -546,7 +631,7 @@ class LMTrainer:
                              f"geometry: {detail(bad)}")
         _, meta = ckpt.load_checkpoint(
             path, self.state,
-            reslice=self._slice_leaf if self._sharded() else None)
+            reslice=self._slice_leaf if self._layout_gather() else None)
         self.start_epoch = meta.get("epoch", 0)
         self.best_ppl = meta.get("best_ppl", float("inf"))
         if meta.get("mid_epoch"):
@@ -634,6 +719,9 @@ class LMTrainer:
 
     def _step(self, inputs, targets) -> Dict[str, torch.Tensor]:
         cfg = self.cfg
+        if self.use_pp:
+            return self.pipe.train_step(self.state, inputs, targets,
+                                        self.tx, cfg.health)
         return lm_train_step(self.model, self.tx, self.state, inputs,
                              targets, cfg.health, cfg.loss_chunk, self.accum,
                              self.dp, self.par)
@@ -643,14 +731,16 @@ class LMTrainer:
             cfg = self.cfg
             if cfg.num_experts:
                 per_token = moe_lm_flops_per_token(
-                    self._shapes, cfg.num_layers, cfg.seq_len, cfg.d_model,
+                    self._model_shapes, cfg.num_layers, cfg.seq_len,
+                    cfg.d_model,
                     cfg.num_experts, cfg.router_top_k,
                     total_tokens=cfg.batch_size * cfg.seq_len,
                     group_size=cfg.moe_group_size,
                     capacity_factor=cfg.moe_capacity_factor)
             else:
                 per_token = lm_flops_per_token(
-                    self._shapes, cfg.num_layers, cfg.seq_len, cfg.d_model)
+                    self._model_shapes, cfg.num_layers, cfg.seq_len,
+                    cfg.d_model)
             self._flops_per_step = per_token * cfg.batch_size * cfg.seq_len
         return self._flops_per_step
 
@@ -704,7 +794,7 @@ class LMTrainer:
                 extra["router_aux"] = m["router_aux"] / (n * self._aux_ranks)
                 meters.update("RMass", extra["router_mass"],
                               int(m["router_mass_n"]))
-            if self.use_ring or self.use_sp:
+            if self.use_ring or self.use_sp or self.use_pp:
                 extra["p2p_host_staged"] = P2P_HOST_STAGED["calls"]
             self.ledger.emit(
                 "step", step=info["step"], loss=loss, throughput=tok_s,
@@ -878,8 +968,10 @@ class LMTrainer:
             batches = (self._batch(self.val_ds, idx[i])
                        + (self._to_device(valid[i]),) for i in range(len(idx)))
         for inputs, targets, v in batches:
-            m = lm_eval_metrics(self.model, inputs, targets, v,
-                                self.cfg.loss_chunk, self.par, self.state)
+            m = (self.pipe.eval_metrics(inputs, targets, v) if self.use_pp
+                 else lm_eval_metrics(self.model, inputs, targets, v,
+                                      self.cfg.loss_chunk, self.par,
+                                      self.state))
             for k in sums:
                 sums[k] = sums[k] + m[k]
         sums = {k: float(v) for k, v in self.par.sync_metrics(sums).items()}
@@ -907,10 +999,11 @@ class LMTrainer:
                if getattr(cfg, k)]
         self.log("note: observers not ported yet, off in this run: "
                  + ", ".join(off + ["preemption snapshot (SIGTERM)"]))
-        if self.use_ring or self.use_sp:
+        if self.use_ring or self.use_sp or self.use_pp:
             from tpu_dist_torch.parallel.collectives import p2p_route
 
-            axis = SEQ_AXIS if self.use_sp else MODEL_AXIS
+            axis = (STAGE_AXIS if self.use_pp else
+                    SEQ_AXIS if self.use_sp else MODEL_AXIS)
             self.log(f"ppermute route over {axis!r}: "
                      f"{p2p_route(self.mesh.group(axis), self.device)}")
 
@@ -925,7 +1018,7 @@ class LMTrainer:
             self.cfg.checkpoint_dir, self.state, epoch, 0.0, "lm", is_best,
             extra_meta=meta, async_write=async_write,
             keep=self.cfg.keep_checkpoints, mesh=self.mesh,
-            gather=self._gather_leaf if self._sharded() else None)
+            gather=self._gather_leaf if self._layout_gather() else None)
 
     def fit(self) -> float:
         """Train ``epochs`` (or ``max_steps``), validating after each

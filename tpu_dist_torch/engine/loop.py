@@ -57,6 +57,18 @@ the whole set resident on each rank's device and gathers the rank's rows.
 Logs, the ledger, the CSV and checkpoint writes are rank 0's; every rank
 resumes from the same checkpoint.
 
+ViT ring tensor parallelism (``tp_impl="ring"`` on a ``data=N,model=M``
+mesh, ``tpu_dist/engine/loop.py:125-170``): the reference's checks (a
+``vit_*`` arch, a ``model`` axis of 2 or more, heads divisible by it),
+then the model's blocks run the ``ring_ar`` flavour over the model axis
+(``models.vit``). Every rank of one ``data`` coordinate reads the same
+rows (the batch, the sampler, the augmentation generator and the gradient
+mean go by the data axis); the params stay whole and identical on the
+model axis. The reference requires ``variant="shard_map"`` there because
+its ring collectives are explicit; the port's trainer runs explicit
+collectives in both variants, so either is taken. A ``model`` axis under
+``tp_impl="gspmd"`` is not ported (``UNPORTED``).
+
 It runs on CUDA unless ``device="cpu"`` is asked for, and takes an
 optional flax-layout ``init_params``/``init_batch_stats`` pair so a run can
 start from the reference trainer's initial weights. Knobs not ported yet
@@ -98,12 +110,13 @@ from tpu_dist_torch.ops.quant import validate_quant
 from tpu_dist_torch.parallel.collectives import all_reduce_
 from tpu_dist_torch.parallel.launch import say
 from tpu_dist_torch.parallel.mesh import make_mesh
+from tpu_dist_torch.parallel.overlap import validate_tp_impl
 from tpu_dist_torch.utils.meters import MeterBank
 
 # knob -> its accepted values. Anything else raises NotImplementedError
 # naming the knob: each waits for a later slice of the port.
 UNPORTED = {
-    "mesh_axes": (("data",),), "tp_impl": ("gspmd",),
+    "mesh_axes": (("data",), ("data", "model")),
     "plan": ("", "none"), "audit": ("none",), "faults": ("",),
     "max_restarts": (0,), "metrics_port": (0,), "profile_dir": ("",),
     "telemetry_csv": ("",), "skew_every": (0,),
@@ -119,13 +132,16 @@ def refuse_unported(cfg: TrainConfig) -> None:
         val = getattr(cfg, knob)
         if knob == "mesh_axes":
             val = tuple(val)
+            if cfg.tp_impl != "ring":   # a model axis rides the ring only
+                accepted = (("data",),)
         if val not in accepted:
             raise NotImplementedError(
                 f"TrainConfig.{knob}={val!r}"
                 + (f" (mesh_shape={cfg.mesh_shape!r})"
                    if knob == "mesh_axes" else "")
                 + " is not ported yet: the port's "
-                f"Trainer runs data-parallel only, one device per process "
+                f"Trainer runs data-parallel, one device per process, and "
+                f"ViT ring tensor parallelism over a 'model' axis "
                 f"(supported: {' | '.join(repr(a) for a in accepted)})")
 
 
@@ -185,12 +201,28 @@ class Trainer:
         if cfg.variant not in ("jit", "shard_map"):
             raise ValueError(f"unknown variant {cfg.variant!r} (jit|shard_map)")
         validate_health(cfg.health)
+        validate_tp_impl(cfg.tp_impl)
+        if cfg.tp_impl == "ring" and not cfg.arch.startswith("vit"):
+            # the reference's checks (:125-170)
+            raise ValueError(
+                f"--tp-impl ring applies to the transformer-family image "
+                f"archs (vit_*); arch {cfg.arch!r} has no column/row-"
+                "parallel projections")
         self.mesh = make_mesh(cfg.mesh_shape, cfg.mesh_axes, device=device)
         world = self.mesh.size
-        if cfg.batch_size % world:
+        # a ring run's model axis shares the rows of its data coordinate
+        self.data_size = self.mesh.shape.get("data", 1)
+        self.data_rank = self.mesh.coord("data")
+        self.tp = self.mesh.axis("model")
+        if cfg.tp_impl == "ring" and self.tp.size < 2:
+            raise ValueError("--tp-impl ring needs a 'model' mesh axis "
+                             "of size >= 2 (e.g. --mesh-shape=-1,2 "
+                             "--mesh-axes=data,model)")
+        if cfg.batch_size % self.data_size:
             raise ValueError(
-                f"global batch {cfg.batch_size} not divisible by device count "
-                f"{world} ({world} processes x 1 local device)")
+                f"global batch {cfg.batch_size} not divisible by the data "
+                f"axis {self.data_size} ({world} processes x 1 local "
+                "device)")
         if cfg.grad_compression not in ("none", "bf16"):
             raise ValueError(
                 f"unknown grad compression {cfg.grad_compression!r}")
@@ -213,10 +245,11 @@ class Trainer:
         if self.accum > 1 and self.k > 1:
             raise ValueError("grad_accum_steps and steps_per_dispatch > 1 "
                              "are mutually exclusive")
-        if self.accum > 1 and cfg.batch_size % (self.accum * world):
+        if self.accum > 1 and cfg.batch_size % (self.accum * self.data_size):
             raise ValueError(
                 f"global batch {cfg.batch_size} not divisible by "
-                f"grad_accum_steps x device count ({self.accum} x {world})")
+                f"grad_accum_steps x device count ({self.accum} x "
+                f"{self.data_size})")
         if self.k < 1:
             raise ValueError("steps_per_dispatch must be >= 1")
         if self.k > 1 and cfg.variant != "jit":
@@ -252,12 +285,15 @@ class Trainer:
                     f"--quant {cfg.quant} applies to the transformer-family "
                     f"image archs (vit_*); arch {cfg.arch!r} does not take it")
             model_kw["quant"] = cfg.quant
+        if cfg.tp_impl == "ring":
+            model_kw["tp_impl"] = "ring"
         self.cfg = cfg
         self.device = self.mesh.device
         self.rank, self.world = self.mesh.rank, world
         self.is_main = self.mesh.is_main
         self.dp = DataParallel(
-            self.mesh.group(), world, cfg.variant, cfg.grad_compression,
+            self.mesh.group(), self.data_size, cfg.variant,
+            cfg.grad_compression,
             cfg.gradient_predivide_factor, cfg.adasum, cfg.grad_bucket_mb)
         if self.device.type == "cuda":
             torch.backends.cudnn.benchmark = True
@@ -269,7 +305,7 @@ class Trainer:
             cfg.dataset, cfg.data, cfg.synth_train_size, cfg.synth_val_size,
             seed=cfg.seed if cfg.seed is not None else 1234)
         self.num_classes = self.train_ds.num_classes
-        self.local_batch = cfg.batch_size // world
+        self.local_batch = cfg.batch_size // self.data_size
 
         # ---- model, schedule, optimizer ----
         self.model = create_model(
@@ -280,11 +316,14 @@ class Trainer:
         if init_params is not None:
             from tpu_dist_torch.interop import load_flax_image_params
             load_flax_image_params(self.model, init_params, init_batch_stats)
+        if cfg.tp_impl == "ring":
+            # the params stay whole; each block slices its shard at use
+            self.model.set_tp(self.tp)
         self.policy.cast_params_for_storage(self.model)
         if cfg.pretrained:
             self._warm_start(cfg.pretrained)
         self.model.requires_grad_(True)
-        if cfg.variant == "jit" and world > 1:   # one step over the group
+        if cfg.variant == "jit" and self.data_size > 1:  # one step, the group
             set_batchnorm_group(self.model, self.mesh.group())
         # ceil: the sampler pads to full batches
         self.steps_per_epoch = max(1, -(-len(self.train_ds) // cfg.batch_size))
@@ -429,7 +468,8 @@ class Trainer:
 
     def _sampler(self, ds, train: bool, epoch: int) -> DistributedSampler:
         sampler = DistributedSampler(
-            len(ds), num_replicas=self.world, rank=self.rank, shuffle=train,
+            len(ds), num_replicas=self.data_size, rank=self.data_rank,
+            shuffle=train,
             seed=(self.cfg.seed or 0) + (17 if not train else 0),
             batch_size=self.local_batch)
         sampler.set_epoch(epoch)
@@ -466,7 +506,8 @@ class Trainer:
         if not self.augment:
             return None
         return torch.Generator().manual_seed(
-            (self.seed * 1_000_003 + gstep) * self.world + self.rank)
+            (self.seed * 1_000_003 + gstep) * self.data_size
+            + self.data_rank)
 
     def _step(self, images, labels, gstep: int) -> Dict[str, torch.Tensor]:
         return image_train_step(self.model, self.tx, self.state, images,
@@ -712,8 +753,9 @@ class Trainer:
                if self.device.type == "cuda" else "cpu")
         self.ledger.emit("run_start", kind="image",
                          config=dataclasses.asdict(cfg),
-                         mesh={"data": self.world}, devices=[dev],
-                         process_count=self.world, mode="dp",
+                         mesh=dict(self.mesh.shape), devices=[dev],
+                         process_count=self.world,
+                         mode="tp-ring" if cfg.tp_impl == "ring" else "dp",
                          device=str(self.device))
         self._flops()   # its forward stays out of the first epoch's time
         off = [f"{k}={getattr(cfg, k)}" for k in UNPORTED_OBSERVERS

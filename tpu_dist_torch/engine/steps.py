@@ -169,7 +169,7 @@ def zeros_image_metrics(device) -> Dict[str, torch.Tensor]:
 def apply_update(tx, state: TrainState, grads: List[torch.Tensor],
                  metrics: Dict[str, torch.Tensor], health: str = "record",
                  old_stats: Optional[List[torch.Tensor]] = None,
-                 sq_norm=None) -> Dict[str, torch.Tensor]:
+                 sq_norm=None, probe_sync=None) -> Dict[str, torch.Tensor]:
     """Apply one optimizer step to ``state`` in place (``tx`` is a fused
     optimizer with ``apply`` -- ``FusedSGD``, ``FusedAdamW`` -- or an
     optax-protocol :class:`~tpu_dist_torch.ops.optim.Optimizer`); returns
@@ -177,8 +177,10 @@ def apply_update(tx, state: TrainState, grads: List[torch.Tensor],
     loss scale where it has one. ``old_stats`` are the BN running stats
     from before this step's forward (the caller copies them under
     ``health='skip'``). ``sq_norm`` (a list of leaves -> their global sum
-    of squares) gives the probes' norms over sharded leaves. No host
-    sync."""
+    of squares) gives the probes' norms over sharded leaves;
+    ``probe_sync`` (probes -> probes) makes them one value on every rank
+    where the grads are not fully synced (the pipeline's stage-local
+    blocks). No host sync."""
     params = state.params
     old = [p.detach().clone() for p in params]
     scaled = state.loss_scale is not None
@@ -199,6 +201,8 @@ def apply_update(tx, state: TrainState, grads: List[torch.Tensor],
     if scaled:   # a routine overflow reports clean zeros
         probes = {k: torch.where(finite, v, torch.zeros_like(v))
                   for k, v in probes.items()}
+    if probe_sync is not None:
+        probes = probe_sync(probes)
     if health == "skip":
         ok = probes_ok(probes)
         stats = state.batch_stats if old_stats is not None else []

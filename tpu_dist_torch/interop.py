@@ -31,6 +31,16 @@ flax path                              port
 
 Dense kernels keep flax's (in, out) layout: no transposes anywhere. fp
 leaves are cast to the model's dtype (what flax does at every call).
+
+Pipeline trees: the reference's pp state is stage-stacked
+(``tpu_dist/parallel/pp.py:65 stack_pipeline_params``: ``{"embed_head":
+{tok_emb, pos_emb, ln_f, lm_head}, "blocks": leaves (S, N/S, ...)}``).
+:func:`pp_stage_tree` gives rank s's stage tree from it (the embedding
+and head, and the stage's blocks as ``block0 ..``), which
+:func:`load_flax_params` loads into that rank's stage model
+(``parallel.pp.lay_out_stage_``); :func:`pp_stack_trees` puts the stage
+trees back into the stacked layout, and :func:`pp_unstack_tree` turns a
+stacked tree into the whole model's.
 """
 
 from __future__ import annotations
@@ -343,3 +353,51 @@ def export_flax_image_params(model):
         return params, stats
 
     return walk(model)
+
+
+# ---- pipeline (stage-stacked) trees --------------------------------------
+
+def _map_tree(fn, *trees):
+    if isinstance(trees[0], dict):
+        return {k: _map_tree(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
+
+
+def pp_stage_tree(tree: dict, stage: int) -> dict:
+    """Rank ``stage``'s flax tree of a stage-stacked one: the embedding
+    and head leaves, and ``block{j}`` = the stage's j-th block."""
+    blocks = tree["blocks"]
+    leaf = next(iter(_flat(blocks)))[1]
+    per = np.asarray(leaf).shape[1]
+    out = {k: v for k, v in tree["embed_head"].items()}
+    for j in range(per):
+        out[f"block{j}"] = _map_tree(
+            lambda a, j=j: np.asarray(a)[stage, j], blocks)
+    return out
+
+
+def pp_stack_trees(stage_trees) -> dict:
+    """The stage-stacked tree of every stage's tree (inverse of
+    :func:`pp_stage_tree` over the stages; the embedding and head from
+    stage 0's)."""
+    first = stage_trees[0]
+    per = sum(1 for k in first if k.startswith("block"))
+    stacked = [_map_tree(lambda *a: np.stack([np.asarray(x) for x in a]),
+                         *(t[f"block{j}"] for j in range(per)))
+               for t in stage_trees]
+    return {"embed_head": {k: v for k, v in first.items()
+                           if not k.startswith("block")},
+            "blocks": _map_tree(lambda *a: np.stack(a), *stacked)}
+
+
+def pp_unstack_tree(tree: dict) -> dict:
+    """The whole model's flax tree of a stage-stacked one (the
+    reference's ``unstack_pipeline_params``)."""
+    leaf = np.asarray(next(iter(_flat(tree["blocks"])))[1])
+    n_stages, per = leaf.shape[:2]
+    out = dict(tree["embed_head"])
+    for s in range(n_stages):
+        for j, (k, v) in enumerate(pp_stage_tree(tree, s).items()):
+            if k.startswith("block"):
+                out[f"block{s * per + int(k[5:])}"] = v
+    return out

@@ -46,7 +46,11 @@ LOCAL_INCLUDE = re.compile(r'^#include "([\w.]+)"$', re.M)
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 128)
 
-LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
+# the entries a source exposes beyond its one-call kernel, each counted by
+# its own wrapper: fused_quant's scales and product phases apart
+EXTRA_LAUNCHES = ("fused_quant_amax", "fused_quant_scaled")
+LAUNCHES: Dict[str, int] = {name: 0 for name in (*SOURCES,
+                                                 *EXTRA_LAUNCHES)}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

@@ -203,7 +203,8 @@ class MoEMLP(nn.Module):
                               self.w_in.to(self.dtype), self.mode)
         h = F.gelu(h, approximate="tanh")
         out = moe_expert_matmul("gecf,efd->gecd", h,
-                                self.w_out.to(self.dtype), self.mode)
+                                self.w_out.to(self.dtype), self.mode,
+                                None if tp is None else tp.group)
         if tp is not None:
             out = reduce_from_group(out, tp.group)
         out = torch.einsum("gsec,gecd->gsd", combine.to(self.dtype), out)

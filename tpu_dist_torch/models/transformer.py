@@ -23,7 +23,8 @@ Tensor parallelism over a ``model`` mesh axis (``parallel.tp`` and
 ``mlp_in`` column-parallel, ``proj`` and ``mlp_out`` row-parallel, the
 ``lm_head`` over a vocab shard) and run Megatron's collectives around
 them, so attention runs over this rank's H/M heads and the logits are its
-vocab shard; under ``tp_impl="ring"`` the params stay whole, the residual
+vocab shard (under ``quant="int8"`` a row-parallel product quantizes by the
+whole contracted dim's scales, :func:`row_matmul`); under ``tp_impl="ring"`` the params stay whole, the residual
 stream is this rank's sequence chunk, and each projection is a ring
 collective matmul (``parallel.overlap.RingDense``). Decode refuses the
 ring, as the reference does.
@@ -116,6 +117,19 @@ def refuse_ring_decode(tp_impl: str, decoding: bool) -> None:
                          "the GSPMD layers")
 
 
+def row_matmul(dense, x, group):
+    """A row-parallel shard's product without the bias: under ``int8`` the
+    scales are the whole contracted dim's, taken over ``group``
+    (``ops.pallas_quant.fused_quant_matmul(group=)``), as the reference's
+    one GSPMD program takes them."""
+    if dense.mode != "int8" or dense.prequantized:
+        return dense.matmul(x)
+    from tpu_dist_torch.ops.pallas_quant import fused_quant_matmul
+
+    return fused_quant_matmul(x.to(dense.dtype),
+                              dense.kernel.to(dense.dtype), group)
+
+
 class AttentionBlock(nn.Module):
     """The attention half of a pre-LN block (``ln1``, ``qkv``, ``proj``)
     and the ``ln2`` of its MLP half, shared by :class:`Block` and the MoE
@@ -152,10 +166,11 @@ class AttentionBlock(nn.Module):
         g = self.tp_group
         if g is None:
             return dense(x)
-        if self.tp_impl == "ring":
+        if self.tp_impl in ("ring", "ring_ar"):
             from tpu_dist_torch.parallel.overlap import RingDense
 
-            return RingDense(dense, "column", self.tp, fused)(x)
+            return RingDense(dense, "column", self.tp, fused,
+                             self.tp_impl)(x)
         from tpu_dist_torch.parallel.collectives import (copy_to_group,
                                                          slice_shard)
         y = dense.matmul(copy_to_group(x, g))
@@ -170,12 +185,13 @@ class AttentionBlock(nn.Module):
         g = self.tp_group
         if g is None:
             return dense(x)
-        if self.tp_impl == "ring":
+        if self.tp_impl in ("ring", "ring_ar"):
             from tpu_dist_torch.parallel.overlap import RingDense
 
-            return RingDense(dense, "row", self.tp)(x)
+            return RingDense(dense, "row", self.tp,
+                             flavor=self.tp_impl)(x)
         from tpu_dist_torch.parallel.collectives import reduce_from_group
-        y = reduce_from_group(dense.matmul(x), g)
+        y = reduce_from_group(row_matmul(dense, x, g), g)
         if dense.bias is not None:
             y = y + dense.bias.to(dense.dtype)
         return y

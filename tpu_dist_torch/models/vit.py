@@ -11,8 +11,15 @@ qkv, proj, mlp_in and mlp_out products of every block go through
 ``ops.pallas_quant.fused_quant_matmul``, which runs ``csrc/fused_quant.cu``
 on CUDA tensors (4 calls a block) with its straight-through backward. The
 patch embedding and the head stay in the compute dtype, as in the
-reference. ``tp_impl="ring"`` (the reference's collective-matmul tp) is
-not ported: it raises.
+reference.
+
+``tp_impl="ring"`` maps onto the full-token ``ring_ar`` flavour of
+``parallel.overlap.RingDense`` (``tpu_dist/models/vit.py:45-71``: the
+[CLS] token makes the token count odd, so the sequence cannot split over
+the ``model`` axis): after :meth:`ViT.set_tp` each block runs its
+column products on this rank's slice and its row products as a chunked
+ring all-reduce, over this rank's heads; the params stay whole and
+replicated. The image ``Trainer`` sets it (``engine.loop``).
 
 Plans: vit_tiny/small/base at 16 px patches (224 px inputs give 196
 patches + cls = 197 tokens); ``vit_cifar`` at 4 px patches (32 px inputs
@@ -41,17 +48,16 @@ class ViT(nn.Module):
                  quant: str = "none", tp_impl: str = "gspmd", device=None,
                  seed: Optional[int] = 0, param_dtype=torch.float32):
         super().__init__()
-        if tp_impl != "gspmd":
-            raise NotImplementedError(
-                f"ViT tp_impl={tp_impl!r} is not ported yet: the ring "
-                "collective-matmul tp of tpu_dist/parallel/overlap.py waits "
-                "for the port's tp axis (supported: 'gspmd')")
+        from tpu_dist_torch.parallel.overlap import validate_tp_impl
+
+        validate_tp_impl(tp_impl)
         device = resolve_device(device)
         h, w, c = image_shape
         p = patch_size
         if h % p or w % p:
             raise ValueError(f"image {h}x{w} not divisible by patch {p}")
         self.dtype, self.patch_size, self.d_model = dtype, p, d_model
+        self.num_heads, self.tp_impl = num_heads, tp_impl
         pd = dict(device=device, param_dtype=param_dtype)
         self.patch_embed = Conv(c, d_model, p, p, 0, use_bias=True,
                                 dtype=dtype, **pd)
@@ -68,7 +74,7 @@ class ViT(nn.Module):
             setattr(self, name, Block(
                 d_model, num_heads, dtype,
                 partial(full_attention, causal=False), quant, device,
-                param_dtype))
+                param_dtype, "ring_ar" if tp_impl == "ring" else tp_impl))
         self.ln_f = LayerNorm(d_model, device=device)
         self.head = make_dense(d_model, num_classes, dtype=dtype, **pd)
         self.requires_grad_(False)
@@ -88,6 +94,19 @@ class ViT(nn.Module):
         for m in self.modules():
             if m is not self and hasattr(m, "reset_parameters"):
                 m.reset_parameters(gen)
+
+    def set_tp(self, axis) -> None:
+        """Run the blocks ring-parallel over ``axis`` (a
+        ``parallel.mesh.Axis``; ``tp_impl="ring"`` only)."""
+        if self.tp_impl != "ring":
+            raise ValueError("ViT tensor parallelism is the ring "
+                             "(tp_impl='ring')")
+        if self.num_heads % axis.size:
+            raise ValueError(f"--tp-impl ring shards attention heads: "
+                             f"num_heads {self.num_heads} must divide by "
+                             f"the 'model' axis ({axis.size})")
+        for name in self.block_names:
+            getattr(self, name).tp = axis
 
     def forward(self, x):
         b = x.shape[0]

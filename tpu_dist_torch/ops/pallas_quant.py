@@ -14,6 +14,15 @@ CPU tensors it runs :func:`fused_quant_matmul_plain`. Its backward is
 the straight-through estimator of the reference's ``_fused_bwd``
 (``:201-205``): the gradients of ``x @ w`` on the unquantized operands.
 
+Under tensor parallelism a row-parallel product's K is sharded over the
+group, and the reference's GSPMD program takes its scales over the whole
+K. :func:`fused_quant_matmul` with a ``group`` runs that product as the
+kernel's two phases apart (``tdt_fused_quant_amax``, then ``tdt_fused_quant_scaled``,
+with the row and column maxima max-reduced over the group between them;
+:func:`fused_quant_amax_plain` and :func:`fused_quant_scaled_plain` for CPU
+tensors), so each rank's partial product differs from the reference's one
+int32 dot only in the order the partials are summed.
+
 The reference's dispatch switches (``set_fused_quant``,
 ``TPU_DIST_FUSED_QUANT``) and tile knobs (``set_quant_blocks``,
 ``TPU_DIST_QUANT_BLOCKS``) choose between the Pallas kernel and XLA or
@@ -28,13 +37,19 @@ import ctypes
 import torch
 
 from tpu_dist_torch import kernels
-from tpu_dist_torch.ops.quant import quantize_int8
+from tpu_dist_torch.ops.quant import quantize_by_amax, quantize_int8
 
 # tdt_fused_quant(x, w, out, ws, M, K, N, dtype, stream) and
 # tdt_fused_quant_workspace(M, K, N, &bytes)
 _FUSED_QUANT_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 \
     + [ctypes.c_void_p]
 _WORKSPACE_ARGS = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_longlong)]
+# tdt_fused_quant_amax(x, w, x_amax, w_amax, M, K, N, dtype, stream) and
+# tdt_fused_quant_scaled(x, w, x_amax, w_amax, out, ws, M, K, N, dtype,
+# stream)
+_AMAX_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_SCALED_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 \
+    + [ctypes.c_void_p]
 # int32 sums stay exact while K * 127^2 < 2^31
 MAX_K = (2 ** 31 - 1) // 127 ** 2
 
@@ -48,6 +63,22 @@ def fused_quant_matmul_plain(x2, w):
     reference's steps in its order."""
     qx, sx = quantize_int8(x2, (1,))                  # (M, K), (M, 1)
     qw, sw = quantize_int8(w, (0,))                   # (K, N), (1, N)
+    acc = qx.double() @ qw.double()
+    return (acc.float() * (sx * sw)).to(x2.dtype)
+
+
+def fused_quant_amax_plain(x2, w):
+    """The scales phase alone: (each row's max |x| over K (M,), each
+    column's max |w| over K (N,)), fp32."""
+    return x2.float().abs().amax(1), w.float().abs().amax(0)
+
+
+def fused_quant_scaled_plain(x2, w, x_amax, w_amax):
+    """:func:`fused_quant_matmul_plain` with the row maxima ``x_amax``
+    (M,) and column maxima ``w_amax`` (N,) given; with
+    :func:`fused_quant_amax_plain`'s it is that function, bit for bit."""
+    qx, sx = quantize_by_amax(x2, x_amax[:, None])
+    qw, sw = quantize_by_amax(w, w_amax[None, :])
     acc = qx.double() @ qw.double()
     return (acc.float() * (sx * sw)).to(x2.dtype)
 
@@ -72,8 +103,9 @@ def _check_fused_quant(x2, w):
         raise ValueError("fused_quant kernel: x and w must be contiguous")
 
 
-def _launch(fn, ws_fn, x2, w, stream):
-    """Call the C entry ``fn`` (``tdt_fused_quant``) on checked tensors:
+def _launch(fn, ws_fn, x2, w, stream, amax=None):
+    """Call the C entry ``fn`` (``tdt_fused_quant``, or with ``amax`` =
+    (x maxima, w maxima) ``tdt_fused_quant_scaled``) on checked tensors:
     allocate the output and the workspace ``ws_fn``
     (``tdt_fused_quant_workspace``) asks for, launch on ``stream``, raise
     on a launch error."""
@@ -85,12 +117,39 @@ def _launch(fn, ws_fn, x2, w, stream):
                            f"({m}, {k}) x ({k}, {n})")
     ws = torch.empty(size.value, dtype=torch.uint8, device=x2.device)
     out = torch.empty((m, n), dtype=x2.dtype, device=x2.device)
-    err = fn(x2.data_ptr(), w.data_ptr(), out.data_ptr(), ws.data_ptr(), m,
-             k, n, kernels.DTYPE_CODE[x2.dtype], stream)
+    scales = () if amax is None else tuple(a.data_ptr() for a in amax)
+    err = fn(x2.data_ptr(), w.data_ptr(), *scales, out.data_ptr(),
+             ws.data_ptr(), m, k, n, kernels.DTYPE_CODE[x2.dtype], stream)
     if err != 0:
         raise RuntimeError(f"fused_quant kernel launch failed "
                            f"(cudaError {err})")
     return out
+
+
+def _launch_amax(fn, x2, w, stream):
+    """Call ``tdt_fused_quant_amax`` on checked tensors: (x maxima (M,),
+    w maxima (N,)), fp32 on x's device."""
+    m, k = x2.shape
+    n = w.shape[1]
+    xa = torch.empty(m, dtype=torch.float32, device=x2.device)
+    wa = torch.empty(n, dtype=torch.float32, device=x2.device)
+    err = fn(x2.data_ptr(), w.data_ptr(), xa.data_ptr(), wa.data_ptr(), m, k,
+             n, kernels.DTYPE_CODE[x2.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"fused_quant amax kernel launch failed "
+                           f"(cudaError {err})")
+    return xa, wa
+
+
+def _check_amax(x2, w, x_amax, w_amax):
+    for name, a, n in (("x_amax", x_amax, x2.shape[0]),
+                       ("w_amax", w_amax, w.shape[1])):
+        if (a.device != x2.device or a.dtype != torch.float32
+                or tuple(a.shape) != (n,) or not a.is_contiguous()):
+            raise ValueError(f"fused_quant scaled kernel: {name} must be a "
+                             f"contiguous float32 ({n},) tensor on "
+                             f"{x2.device}, got {a.dtype} {tuple(a.shape)} "
+                             f"on {a.device}")
 
 
 def fused_quant_cuda(x2, w):
@@ -108,15 +167,74 @@ def fused_quant_cuda(x2, w):
     return out
 
 
+def fused_quant_amax_cuda(x2, w):
+    """The scales phase of ``csrc/fused_quant.cu`` alone on the current
+    stream (``tdt_fused_quant_amax``): (x maxima (M,), w maxima (N,)). One
+    call adds one to ``kernels.LAUNCHES["fused_quant_amax"]``."""
+    _check_fused_quant(x2, w)
+    fn = kernels.function("fused_quant", "tdt_fused_quant_amax", _AMAX_ARGS)
+    with torch.cuda.device(x2.device):
+        out = _launch_amax(fn, x2, w,
+                           torch.cuda.current_stream(x2.device).cuda_stream)
+    kernels.LAUNCHES["fused_quant_amax"] += 1
+    return out
+
+
+def fused_quant_scaled_cuda(x2, w, x_amax, w_amax):
+    """``csrc/fused_quant.cu`` with the given maxima on the current stream
+    (``tdt_fused_quant_scaled``): (M, N). One call adds one to
+    ``kernels.LAUNCHES["fused_quant_scaled"]``."""
+    _check_fused_quant(x2, w)
+    _check_amax(x2, w, x_amax, w_amax)
+    fn = kernels.function("fused_quant", "tdt_fused_quant_scaled",
+                          _SCALED_ARGS)
+    ws_fn = kernels.function("fused_quant", "tdt_fused_quant_workspace",
+                             _WORKSPACE_ARGS)
+    with torch.cuda.device(x2.device):
+        out = _launch(fn, ws_fn, x2, w,
+                      torch.cuda.current_stream(x2.device).cuda_stream,
+                      (x_amax, w_amax))
+    kernels.LAUNCHES["fused_quant_scaled"] += 1
+    return out
+
+
+def fused_quant_amax(x2, w):
+    """(x maxima, w maxima) of an (M, K) x (K, N) product: the kernel for
+    CUDA tensors, its plain version for CPU tensors."""
+    if x2.device.type == "cpu":
+        return fused_quant_amax_plain(x2, w)
+    return fused_quant_amax_cuda(x2.contiguous(), w.contiguous())
+
+
+def fused_quant_scaled(x2, w, x_amax, w_amax):
+    """The int8 product scaled by the given maxima: the kernel for CUDA
+    tensors, its plain version for CPU tensors."""
+    if x2.device.type == "cpu":
+        return fused_quant_scaled_plain(x2, w, x_amax, w_amax)
+    return fused_quant_scaled_cuda(x2.contiguous(), w.contiguous(),
+                                   x_amax.contiguous(), w_amax.contiguous())
+
+
 def _forward_2d(x2, w):
     if x2.device.type == "cpu":
         return fused_quant_matmul_plain(x2, w)
     return fused_quant_cuda(x2.contiguous(), w.contiguous())
 
 
-def _forward(x, w):
-    """Leading batch dims fold to 2-D (``_fused_fwd_impl``, ``:191-194``)."""
-    out2 = _forward_2d(x.reshape(-1, x.shape[-1]), w)
+def _forward(x, w, group=None):
+    """Leading batch dims fold to 2-D (``_fused_fwd_impl``, ``:191-194``).
+    With a ``group``, one maxima all-reduce (max) over it between the two
+    phases."""
+    x2 = x.reshape(-1, x.shape[-1])
+    if group is None:
+        out2 = _forward_2d(x2, w)
+    else:
+        from tpu_dist_torch.parallel.collectives import pmax
+
+        xa, wa = fused_quant_amax(x2, w)
+        both = pmax(torch.cat([xa, wa]), group)
+        out2 = fused_quant_scaled(x2, w, both[:xa.numel()],
+                                  both[xa.numel():])
     return out2.reshape(*x.shape[:-1], w.shape[1])
 
 
@@ -125,9 +243,9 @@ class FusedQuantMatmul(torch.autograd.Function):
     backward: the straight-through estimator, the vjp of ``x @ w``."""
 
     @staticmethod
-    def forward(ctx, x, w):
+    def forward(ctx, x, w, group):
         ctx.save_for_backward(x, w)
-        return _forward(x, w)
+        return _forward(x, w, group)
 
     @staticmethod
     def backward(ctx, g):
@@ -135,13 +253,16 @@ class FusedQuantMatmul(torch.autograd.Function):
         g2 = g.reshape(-1, g.shape[-1])
         gx = (g2 @ w.t()).reshape(x.shape)
         gw = x.reshape(-1, x.shape[-1]).t() @ g2
-        return gx, gw
+        return gx, gw, None
 
 
-def fused_quant_matmul(x, w):
+def fused_quant_matmul(x, w, group=None):
     """``quant_matmul(x, w, "int8")`` as one fused kernel: ``x`` (..., K)
     and ``w`` (K, N) in the compute dtype; returns (..., N) in x's dtype.
-    Differentiable (STE) when autograd records."""
+    Differentiable (STE) when autograd records. ``group``: ``x`` and ``w``
+    hold this rank's part of a K shared by the group (a row-parallel
+    shard); the int8 scales are then the whole K's (module docstring) and
+    the result is this rank's partial product, for the caller to sum."""
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
-        return FusedQuantMatmul.apply(x, w)
-    return _forward(x, w)
+        return FusedQuantMatmul.apply(x, w, group)
+    return _forward(x, w, group)

@@ -64,9 +64,16 @@ def quantize_int8(x: torch.Tensor, reduce_dims) -> tuple:
     the non-reduced dims (``reduce_dims``: amax over them, kept). Returns
     (q int8, scale fp32); ``q * scale`` dequantizes."""
     xf = x.float()
-    amax = xf.abs().amax(dim=tuple(reduce_dims), keepdim=True)
-    scale = torch.clamp(amax, min=_EPS) / _int8_max_on(amax.device)
-    q = torch.clamp(torch.round(xf / scale), -_INT8_MAX, _INT8_MAX)
+    return quantize_by_amax(xf, xf.abs().amax(dim=tuple(reduce_dims),
+                                              keepdim=True))
+
+
+def quantize_by_amax(x: torch.Tensor, amax: torch.Tensor) -> tuple:
+    """:func:`quantize_int8` with the maxima given (``amax`` broadcast
+    against ``x``): where a tensor-parallel group shares a contracted dim,
+    the maxima are the whole dim's, taken over the group."""
+    scale = torch.clamp(amax.float(), min=_EPS) / _int8_max_on(amax.device)
+    q = torch.clamp(torch.round(x.float() / scale), -_INT8_MAX, _INT8_MAX)
     return q.to(torch.int8), scale
 
 
@@ -244,7 +251,7 @@ EXPERT_SPECS = ("gecd,edf->gecf", "gecf,efd->gecd")
 
 
 def moe_expert_matmul(spec: str, acts: torch.Tensor, w: torch.Tensor,
-                      quant: str = "none") -> torch.Tensor:
+                      quant: str = "none", group=None) -> torch.Tensor:
     """One expert contraction (``EXPERT_SPECS``: acts (G, E, C, K) x w
     (E, K, N) -> (G, E, C, N)) under the quant mode: the fp einsum
     (``none``), the weight fake-quantized over its contracted dim
@@ -252,7 +259,10 @@ def moe_expert_matmul(spec: str, acts: torch.Tensor, w: torch.Tensor,
     through ``ops.pallas_quant.fused_quant_matmul`` (``csrc/fused_quant.cu``
     for CUDA tensors, one call per expert; its plain version on the CPU),
     whose per-row and per-column scales over K are exactly
-    :func:`quant_einsum`'s, with the same STE backward."""
+    :func:`quant_einsum`'s, with the same STE backward. ``group``: K is
+    this rank's shard of a dim the group shares (the experts' row-parallel
+    ``w_out`` under tensor parallelism); the int8 scales are then the
+    whole K's (``ops.pallas_quant.fused_quant_matmul(group=)``)."""
     if validate_quant(quant) == "none":
         return torch.einsum(spec, acts, w)
     if spec not in EXPERT_SPECS:
@@ -263,7 +273,7 @@ def moe_expert_matmul(spec: str, acts: torch.Tensor, w: torch.Tensor,
     from tpu_dist_torch.ops.pallas_quant import fused_quant_matmul
 
     g, e, c, k = acts.shape
-    outs = [fused_quant_matmul(acts[:, i].reshape(g * c, k), w[i])
+    outs = [fused_quant_matmul(acts[:, i].reshape(g * c, k), w[i], group)
             .reshape(g, c, w.shape[-1]) for i in range(e)]
     return torch.stack(outs, 1)
 

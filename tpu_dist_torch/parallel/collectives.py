@@ -120,6 +120,17 @@ def psum(x: torch.Tensor, group=None) -> torch.Tensor:
     return y
 
 
+def pmax(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The elementwise max of ``x`` over the group (not differentiable)."""
+    dist = _dist()
+    y = x.clone()
+    if dist is None or group_size(group) == 1:
+        return y
+    run_collective("all_reduce(max)", lambda: dist.all_reduce(
+        y, op=dist.ReduceOp.MAX, group=group), y, group)
+    return y
+
+
 def pmean(x: torch.Tensor, group=None) -> torch.Tensor:
     """The mean of ``x`` over the group."""
     return psum(x, group) / group_size(group)

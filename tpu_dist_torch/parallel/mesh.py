@@ -11,9 +11,10 @@ axis.
 Ranks take their mesh coordinates in the reference's row-major order
 (``np.asarray(devices).reshape(shape)``, ``:63``): the last axis varies
 fastest. A ``-1`` in the shape is inferred from the world size
-(``:55-58``). The axes ``data``, ``model``, ``seq`` and ``expert`` are
-ported; ``stage`` (pipeline parallelism) and ``sp`` (sp-sharded serving)
-raise ``NotImplementedError`` naming themselves (ROADMAP Queue 1).
+(``:55-58``). The axes ``data``, ``model``, ``seq``, ``expert`` and
+``stage`` (pipeline parallelism, ``parallel.pp``) are ported; ``sp``
+(sp-sharded serving) raises ``NotImplementedError`` naming itself
+(ROADMAP Queue 1).
 
 :func:`make_mesh` makes the groups of every axis: for each axis of size
 above 1, one ``dist.new_group`` per slice of ranks that differ only along
@@ -49,10 +50,8 @@ STAGE_AXIS = "stage"    # pipeline parallel
 EXPERT_AXIS = "expert"  # MoE expert parallel
 SP_AXIS = "sp"          # serving sequence parallel
 
-PORTED_AXES = (DATA_AXIS, MODEL_AXIS, SEQ_AXIS, EXPERT_AXIS)
+PORTED_AXES = (DATA_AXIS, MODEL_AXIS, SEQ_AXIS, EXPERT_AXIS, STAGE_AXIS)
 _UNPORTED_AXES = {
-    STAGE_AXIS: "pipeline parallelism (parallel/pp.py) is ROADMAP Queue 1 "
-                "item 2, the next slice",
     SP_AXIS: "sp-sharded serving is ROADMAP Queue 1 item 4",
 }
 

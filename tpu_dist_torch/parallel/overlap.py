@@ -1,7 +1,8 @@
 """Ring collective matmuls and bucketed gradient sync for the port
 (``tpu_dist/parallel/overlap.py``).
 
-**Ring tensor parallelism** (``tp_impl="ring"``, ``:64-255``): the
+**Ring tensor parallelism** (``tp_impl="ring"``, ``:64-255``; the ViT's
+full-token ``ring_ar`` flavour is :class:`RingDense`'s): the
 Megatron column/row-parallel pair rebuilt as per-chunk products whose
 chunks travel around the ``model`` axis by
 :func:`~tpu_dist_torch.parallel.collectives.ppermute`. The residual
@@ -31,14 +32,16 @@ from typing import List, Sequence
 
 import torch
 
-from tpu_dist_torch.parallel.collectives import (_dist, group_size,
-                                                 ppermute, ring_allreduce,
-                                                 run_collective, tree_leaves,
-                                                 tree_map)
+from tpu_dist_torch.parallel.collectives import (_dist, copy_to_group,
+                                                 group_size, ppermute,
+                                                 ring_allreduce,
+                                                 run_collective, slice_shard,
+                                                 tree_leaves, tree_map)
 
 GRAD_BUCKET_MB_DEFAULT = 25.0  # DDP's fusion-buffer default
 IMPLS = ("rs_ag", "ring", "psum")
-TP_IMPLS = ("gspmd", "ring")
+TP_IMPLS = ("gspmd", "ring")          # the public knob
+_RING_FLAVORS = ("ring", "ring_ar")   # RingDense's dataflows (internal)
 
 
 def validate_tp_impl(mode: str) -> str:
@@ -117,6 +120,54 @@ def column_shard(t: torch.Tensor, index: int, n: int, fused: int = 1):
     return parts[0] if fused == 1 else torch.cat(parts, -1)
 
 
+class _RingAllReduce(torch.autograd.Function):
+    """Megatron's ``g`` as a ring: the sum over the axis forward (a
+    reduce-scatter then an all-gather of n chunks, each a ``ppermute`` hop,
+    so every rank ends with the owner's bits of each chunk), identity
+    backward."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        n, idx = axis.size, axis.index
+        flat = x.reshape(-1)
+        pad = (-flat.numel()) % n
+        if pad:
+            flat = torch.cat([flat, flat.new_zeros(pad)])
+        chunks = list(flat.chunk(n))
+        for k in range(n - 1):                 # reduce-scatter
+            got = ppermute(chunks[(idx - k) % n], 1, axis.group)
+            r = (idx - k - 1) % n
+            chunks[r] = chunks[r] + got
+        for k in range(n - 1):                 # all-gather
+            chunks[(idx - k) % n] = ppermute(chunks[(idx + 1 - k) % n], 1,
+                                             axis.group)
+        return torch.cat(chunks)[:x.numel()].reshape(x.shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def ring_allreduce_sum(x: torch.Tensor, axis) -> torch.Tensor:
+    """``x`` summed over ``axis`` by a chunked ring of ``ppermute`` hops
+    (the reference's ``collectives.ring_allreduce`` inside ``RingDense``'s
+    ``ring_ar`` flavour, ``:241``); the gradient passes through."""
+    if axis.size == 1:
+        return x
+    return _RingAllReduce.apply(x, axis)
+
+
+def fused_slice(t: torch.Tensor, n_fused: int, group) -> torch.Tensor:
+    """This rank's output-feature shard of ``t`` (a kernel's last dim, a
+    bias's only one), per fused segment, as :func:`column_shard` cuts it;
+    backward: every rank's shard gradient gathered, so each rank holds the
+    whole gradient of ``t`` (``collectives.slice_shard``)."""
+    seg = t.shape[-1] // n_fused
+    parts = t.reshape(*t.shape[:-1], n_fused, seg)
+    local = slice_shard(parts, parts.dim() - 1, group)
+    return local.reshape(*t.shape[:-1], -1)
+
+
 class RingDense:
     """A dense layer's ring-parallel product (``:161``), on the params of
     ``dense`` (a ``QuantDense`` with whole, replicated params; the flax
@@ -124,11 +175,25 @@ class RingDense:
     takes the whole contraction dim and gives this rank's feature shard
     over the whole sequence; ``row`` takes a feature shard and gives this
     rank's sequence chunk, summed over the axis. ``n_fused`` equal
-    projections share the kernel's output dim (``qkv``: 3)."""
+    projections share the kernel's output dim (``qkv``: 3).
 
-    def __init__(self, dense, kind: str, axis, n_fused: int = 1):
+    ``flavor="ring_ar"`` (``:161-241``, the ViT's ring: its [CLS] token
+    makes the token count odd, so the sequence cannot split) keeps the
+    activations whole: ``column`` is a local product with this rank's
+    column slice (the input entering through Megatron's ``f``), ``row``
+    this rank's row slice's partial product summed over the axis by a
+    chunked ring all-reduce (:func:`ring_allreduce_sum`). The slices'
+    gradients are gathered (:func:`fused_slice`), so every rank's gradient
+    of the whole, replicated params is the same."""
+
+    def __init__(self, dense, kind: str, axis, n_fused: int = 1,
+                 flavor: str = "ring"):
         if kind not in ("column", "row"):
             raise ValueError(f"RingDense kind {kind!r} (column|row)")
+        if flavor not in _RING_FLAVORS:
+            raise ValueError(f"RingDense flavor {flavor!r} "
+                             f"({'|'.join(_RING_FLAVORS)})")
+        self.flavor = flavor
         if dense.prequantized:
             raise ValueError(
                 "RingDense got a pre-quantized (wo_quantize_params) kernel; "
@@ -147,6 +212,8 @@ class RingDense:
 
             return quant_matmul(a, b, d.mode)
 
+        if self.flavor == "ring_ar":
+            return self._ring_ar(x, w, mm)
         if self.kind == "column":
             if d.features % (self.n_fused * n):
                 raise ValueError(f"features {d.features} not divisible by "
@@ -161,6 +228,19 @@ class RingDense:
         ls = x.shape[-1]
         y = ring_matmul_reduce_scatter(x, w.narrow(0, idx * ls, ls),
                                        self.axis, mm)
+        if d.bias is not None:
+            y = y + d.bias.to(d.dtype)
+        return y
+
+
+    def _ring_ar(self, x, w, mm):
+        d, g = self.dense, self.axis.group
+        if self.kind == "column":
+            y = mm(copy_to_group(x, g), fused_slice(w, self.n_fused, g))
+            if d.bias is not None:
+                y = y + fused_slice(d.bias.to(d.dtype), self.n_fused, g)
+            return y
+        y = ring_allreduce_sum(mm(x, slice_shard(w, 0, g)), self.axis)
         if d.bias is not None:
             y = y + d.bias.to(d.dtype)
         return y

@@ -10,8 +10,9 @@ Every ``LMConfig`` field is a ``--flag`` (``--checkpoint-dir``/``--resume``,
 them); ``--mesh`` picks the parallelism as script 8's does (``data=N``,
 ``data=N`` with ``--fsdp``, ``data=N,model=M`` with ``--tp-impl gspmd``
 or ``ring``, ``data=N,seq=M``, ``data=N,expert=M`` with
-``--num-experts``, and ``data=N,expert=M,model=K``; ``stage`` is not
-ported and raises), one process per device of the mesh, launched as the
+``--num-experts``, ``data=N,expert=M,model=K``, and ``data=N,stage=S``
+with ``--pp-microbatches`` and ``--pp-schedule gpipe|1f1b``, or
+``data=N,stage=S,model=K`` for pp x tp), one process per device of the mesh, launched as the
 cookbook scripts launch theirs: ``TPU_DIST_NPROCS_SPAWN=N`` starts N
 copies of the script (as ``multiprocessing_spawn`` does), or set the
 ``TPU_DIST_*`` / Slurm variables per process. ``--backend gloo`` puts CUDA

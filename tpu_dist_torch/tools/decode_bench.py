@@ -34,9 +34,16 @@ N slowest requests' span trees to stderr.
 --attn-read flash`` decodes through the int8-KV paged decode kernel,
 ``--serve-quant int8`` runs every dense layer through the fused int8
 kernel, ``--spec-k K`` decodes speculatively (self-speculation: the base
-drafts for itself). A warm replay (discarded) runs first. ``--tp``,
-``--dp``, ``--num-experts`` and ``--long-context`` are not ported yet and
-raise naming themselves. Usage::
+drafts for itself). A warm replay (discarded) runs first.
+``--long-context`` is not ported yet and raises naming itself.
+
+``--tp N`` / ``--dp N`` (one-shot mode) decode over a ``data=dp,
+model=tp`` mesh through ``engine.generate(mesh=)``, one process per
+device: the bench starts ``dp x tp`` copies of itself through
+``parallel.launch`` (as the cookbook scripts start theirs) unless it is
+one of them already; ``--backend gloo`` puts CUDA tensors on gloo (ranks
+sharing one card). Every rank decodes; rank 0 prints the JSON line, with
+``tp`` and ``dp`` in it. Usage::
 
     python -m tpu_dist_torch.tools.decode_bench --attn flash   # one-shot
     python -m tpu_dist_torch.tools.decode_bench --trace 64 \\
@@ -48,6 +55,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 
@@ -214,9 +222,10 @@ def replay_serving_trace(args, model, ledger=None):
     return serving
 
 
-def one_shot(args, model, prompt, ledger=None) -> dict:
+def one_shot(args, model, prompt, ledger=None, mesh=None) -> dict:
     """The one-shot sections: cached decode against full recompute, and
-    the sequential requests. Returns the JSON fields they fill."""
+    the sequential requests (over ``mesh`` when given). Returns the JSON
+    fields they fill."""
     import torch
 
     from tpu_dist_torch.engine.generate import generate
@@ -228,7 +237,7 @@ def one_shot(args, model, prompt, ledger=None) -> dict:
         out = generate(model, prompt, args.steps,
                        temperature=args.temperature, generator=gen,
                        use_cache=use_cache, top_k=args.top_k,
-                       top_p=args.top_p, ledger=led)
+                       top_p=args.top_p, ledger=led, mesh=mesh)
         if out.is_cuda:
             torch.cuda.synchronize(out.device)
         return out, time.perf_counter() - t0
@@ -277,7 +286,7 @@ def one_shot(args, model, prompt, ledger=None) -> dict:
 
 
 # flags of the reference bench that wait for a later slice of the port
-UNPORTED_FLAGS = {"tp": 0, "dp": 0, "long_context": ""}
+UNPORTED_FLAGS = {"long_context": ""}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -318,6 +327,15 @@ def build_parser() -> argparse.ArgumentParser:
                     help="MoE feed-forward with N experts (0 = dense; the "
                          "one-shot mode only)")
     ap.add_argument("--capacity-factor", type=float, default=1.25)
+    ap.add_argument("--tp", type=int, default=0,
+                    help="decode over a 'model' mesh axis of this many "
+                         "processes (one-shot mode; 0 = no mesh)")
+    ap.add_argument("--dp", type=int, default=0,
+                    help="decode over a 'data' mesh axis of this many "
+                         "processes: the batch shards (one-shot mode)")
+    ap.add_argument("--backend", default=None, choices=["nccl", "gloo"],
+                    help="the --tp/--dp group's backend (default: nccl on "
+                         "cuda, gloo on cpu)")
     for flag, off in UNPORTED_FLAGS.items():
         ap.add_argument("--" + flag.replace("_", "-"), type=type(off),
                         default=off, help="not ported yet (raises)")
@@ -355,13 +373,41 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None):
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
     for flag, off in UNPORTED_FLAGS.items():
         if getattr(args, flag) != off:
             raise NotImplementedError(
                 f"decode_bench --{flag.replace('_', '-')} is not ported yet: "
-                "the port decodes on one device")
+                "sp-sharded serving is a later slice of the port")
+    world = max(args.tp, 1) * max(args.dp, 1)
+    if args.tp or args.dp:
+        if args.trace:
+            raise SystemExit("--tp/--dp decode through engine.generate's "
+                             "mesh path (the one-shot mode); the --trace "
+                             "replay serves on one device")
+        if args.dp and args.batch % args.dp:
+            # generate() would leave the batch whole, and the JSON would
+            # claim a dp run that never happened
+            raise SystemExit(f"--dp {args.dp} needs --batch divisible by "
+                             f"it (got {args.batch})")
+        if world > 1 and "TPU_DIST_PROCESS_ID" not in os.environ:
+            from tpu_dist_torch.parallel.launch import spawn
 
+            spawn("tpu_dist_torch.tools.decode_bench", world, argv,
+                  "127.0.0.1:0")
+            return
+        from tpu_dist_torch.parallel import launch
+
+        launch.initialize(device=args.device, backend=args.backend)
+        try:
+            return _bench(args)
+        finally:
+            launch.shutdown()
+    return _bench(args)
+
+
+def _bench(args):
     import numpy as np
     import torch
 
@@ -370,7 +416,14 @@ def main(argv=None):
         full_attention
     from tpu_dist_torch.ops.flash_attention import flash_attention_fn
 
-    device = resolve_device(args.device)
+    mesh = None
+    if args.tp or args.dp:
+        from tpu_dist_torch.parallel.mesh import make_mesh
+
+        mesh = make_mesh((max(args.dp, 1), max(args.tp, 1)),
+                         ("data", "model"), device=args.device)
+    device = mesh.device if mesh is not None else resolve_device(args.device)
+    main_rank = mesh is None or mesh.is_main
     if args.trace:
         max_len = (args.max_prompt + args.max_out
                    + (args.prefix_len if args.prefix_tenants else 0))
@@ -400,7 +453,7 @@ def main(argv=None):
             "count": torch.cuda.device_count()} if device.type == "cuda"
            else {"platform": "cpu", "kind": "cpu", "count": 1})
     ledger = None
-    if args.ledger:
+    if args.ledger and main_rank:
         from tpu_dist_torch.obs.ledger import Ledger
         ledger = Ledger(args.ledger)
     head = {"device": dev, "layers": args.num_layers,
@@ -418,11 +471,15 @@ def main(argv=None):
         return
     if ledger is not None:
         ledger.emit("run_start", kind="decode_bench", config=vars(args),
-                    mesh=None, devices=[dev["kind"]], process_count=1)
+                    mesh=({"tp": args.tp, "dp": args.dp} if mesh else None),
+                    devices=[dev["kind"]],
+                    process_count=1 if mesh is None else mesh.size)
     rng = np.random.default_rng(0)
     prompt = rng.integers(0, args.vocab_size,
                           (args.batch, args.prompt_len)).astype(np.int32)
-    res = one_shot(args, model, prompt, ledger)
+    res = one_shot(args, model, prompt, ledger, mesh)
+    if not main_rank:
+        return
     if ledger is not None:
         ledger.emit("run_end", steps=args.requests,
                     seconds=round(res["request_seconds"], 3))
