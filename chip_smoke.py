@@ -173,6 +173,34 @@ CUDA or without the repository beside it. Phases:
    bit-equal at (d)'s column and head products and (g)'s ring products
    (P13_FQ_SHAPES).
 
+14. sp-sharded long-context serving: (a) the decode bench's
+   ``--long-context`` replay of ``tools/traces/longcontext_mix.json`` at
+   phase 5's model (``--attn flash --kv-quant int8 --attn-read flash``,
+   4 slots, pages of 64, chunks of 128, ``--long-monolithic``): every
+   virtual-clock number equal to P14_LC_PINS (held against the reference
+   on the CPU), every request served, one ``flash_fwd`` a layer per
+   monolithic prefill and one ``paged_decode`` a layer per tick of the
+   three replays, and the replays' wall seconds; (b) ``ServeEngine`` over
+   an ``sp`` mesh of two ranks sharing the card (gloo) at phase 5's model
+   with int8 pages read by the paged decode kernel (through its contiguous
+   entry, on the view the byte sum assembles): an 8,000-token prompt past
+   the sp threshold (a context beyond one rank's 6,144-token budget,
+   prefilled over ring attention) beside a 200-token one (the monolithic
+   flash prefill), and the same in fp32 at the same widths; against the
+   same engine on one rank over nccl (its sp prefill over a one-rank axis:
+   the same ring attention) and one rank's unsharded flash prefill: in
+   fp32 each prefill's first-token logits within LOSS_TOL (1 + |x|) of the
+   one-rank sp engine (held); in bf16 within P14_BF16_LOGIT_TOL (1 + |x|)
+   with the same argmax and every greedy token equal (held; every GEMM of
+   a 4,096-row shard rounds apart from the 8,192-row prefill's, past
+   BF16_TOL), and a control with a known fault past that limit (held);
+   sp prefills, host-staged hops, sum calls and bytes, collective seconds,
+   ms per tick and the peak per rank; (c) a tiny fp32 sharded engine with
+   sp prefill, fp32 and int8 pages, on two card ranks against two CPU
+   ranks: equal greedy tokens; (d) the paged decode kernel's contiguous
+   entry against its plain version at (b)'s summed view (B2 Lk8192 H8
+   D128), timed.
+
 The line before the last is the card's name and power limit; the one
 before it the ``{"kernels": [...]}`` record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -1808,6 +1836,8 @@ def dp_job(torch, kernels, job, out, rank):
         return p13_image_job(torch, kernels, job, out, rank)
     if kind == "decode13":
         return p13_decode_job(torch, kernels, job, out, rank)
+    if kind == "sp14":
+        return p14_serve_job(torch, kernels, job, out, rank)
     if kind == "probe":
         mesh = make_mesh(device=device)
         res = {"backend": C.backend_of(mesh.group()), "world": mesh.size}
@@ -3451,6 +3481,459 @@ def pipeline_path(torch, kernels, tmp, device="cuda"):
     return record, by_path
 
 
+# ---- phase 14: sp-sharded long-context serving ------------------------------
+
+# (a) the decode bench's long-context replay of the checked-in trace at
+# phase 5's model, and the virtual-clock numbers it must give: schedule
+# arithmetic (no eos, so the same for any weights, width or device),
+# held equal to the reference's replay on the CPU by
+# tests/test_torch_longcontext.py, which reads them from here
+P14_TRACE = os.path.join("tools", "traces", "longcontext_mix.json")
+P14_LC_ARGV = ["--long-context", P14_TRACE, "--serve-slots", "4",
+               "--page-size", "64", "--prefill-chunk", "128",
+               "--long-monolithic"]
+P14_LC_CARD_ARGV = ["--attn", "flash", "--kv-quant", "int8",
+                    "--attn-read", "flash"]
+P14_LC_PINS = {"requests": 15, "completed": 15, "long_requests": 1,
+               "ticks": 183, "chunk_ticks": 128,
+               "prefill_token_work": 17120, "requests_per_tick": 0.082,
+               "occupancy": 0.6462, "ttft_long_p99": 146816.0,
+               "tpot_short_p99": 1132.255, "tpot_baseline_p99": 1006.979,
+               "tpot_interference_pct": 12.44,
+               "monolithic": {"tpot_short_p99": 1597.63,
+                              "tpot_interference_pct": 58.66,
+                              "ticks": 183}}
+# the full-width model the bench builds at its defaults (phase 5's);
+# flags here narrow it for a rehearsal on the CPU
+P14_LC_MODEL_ARGV = []
+# (b) ServeEngine over an sp mesh of two ranks sharing the card (gloo),
+# phase 5's model: one ~8k-token prompt past the sp threshold whose
+# context outgrows a rank's 96 pages of 64 (6,144 tokens), one short
+# prompt below it (the monolithic flash prefill), int8 pages read by the
+# paged decode kernel; against the same requests on one rank over nccl
+P14_MODEL = dict(vocab_size=32000, num_layers=8, d_model=1024, num_heads=8,
+                 max_len=8192)
+P14_SERVE = dict(max_slots=2, page_size=64, num_pages=192, kv_quant="int8",
+                 attn_read="flash")
+P14_THRESHOLD = 4096
+P14_PROMPTS = (8000, 200)
+P14_OUT = 32
+# the bf16 run against one rank's sp engine: each prefill's first-token
+# logits within P14_BF16_LOGIT_TOL (1 + |x|) and the same argmax, and
+# every greedy token equal. Ring attention's fp32 online softmax rounds
+# apart from one rank's, and every GEMM of a 4,096-row shard from the
+# 8,192-row prefill's: on an H100 the long prompt's logits part by up to
+# 0.0251 (1 + |x|), past BF16_TOL. The control (the same sp prefill with
+# the second shard embedded P14_CTL_SHIFT positions off, a fault the
+# limit must catch) is run beside it and must land past the limit
+P14_BF16_LOGIT_TOL = 0.05
+P14_CTL_SHIFT = -1
+# (c) the tiny fp32 sharded engine, card ranks against CPU ranks (phase
+# 4's geometry: head_dim 128, which the kernels take)
+P14_TINY = dict(vocab_size=64, num_layers=2, d_model=256, num_heads=2,
+                max_len=96)
+P14_TINY_SERVE = dict(max_slots=2, page_size=16, num_pages=32,
+                      sp_prefill_threshold=33)
+P14_TINY_CASES = {"fp32": {},
+                  "int8_flash": dict(kv_quant="int8", attn_read="flash")}
+
+
+def p14_requests(model_kw, prompts, out):
+    """The phase-14 requests: numpy-seeded prompts of the given lengths."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 14)
+    return [(rng.integers(0, model_kw["vocab_size"], (n,)).astype(np.int32),
+             out) for n in prompts]
+
+
+def p14_serve_job(torch, kernels, job, out, rank):
+    """One phase-14 rank: ``ServeEngine`` over an ``sp`` mesh of the whole
+    group (its model seeded on the job's device, or for ``tiny`` drawn on
+    the CPU and moved), serving the job's requests with the kernel counts
+    and collective counters reset just before. Returns the tokens, the
+    engine's numbers, launches, host-staged hops, byte sums, collective
+    seconds and the peak memory; the first-token logits of each prefill
+    go to ``<name>.logits.r<rank>.pt``."""
+    from tpu_dist_torch.engine.serve import (DecodeRequest, ServeConfig,
+                                             ServeEngine)
+    from tpu_dist_torch.models.transformer import TransformerLM
+    from tpu_dist_torch.ops.flash_attention import flash_attention_fn
+    from tpu_dist_torch.parallel import collectives as C
+    from tpu_dist_torch.parallel.mesh import make_mesh
+
+    device = job["device"]
+    mesh = make_mesh((job["world"],), ("sp",), device=device)
+    if job.get("tiny"):
+        model = TransformerLM(device="cpu", seed=SEED,
+                              attn_fn=flash_attention_fn(),
+                              **job["model"]).to(mesh.device)
+    else:
+        model = TransformerLM(dtype={"bf16": torch.bfloat16,
+                                     "fp32": torch.float32}[job["dtype"]],
+                              attn_fn=flash_attention_fn(),
+                              device=mesh.device, seed=SEED, **job["model"])
+    if job.get("shift"):
+        # the control: the sp prefill's shards past the first embed their
+        # rows job["shift"] positions off (their K/V pages stay in place)
+        fwd = model.forward
+
+        def forward(tokens, pos_offset=0, **kw):
+            if kw.get("paged_prefill") and isinstance(pos_offset, int) \
+                    and pos_offset > 0:
+                pos_offset += job["shift"]
+            return fwd(tokens, pos_offset=pos_offset, **kw)
+
+        model.forward = forward
+    reqs = p14_requests(job["model"], job["prompts"], job["out"])
+    res = {}
+    for name, cfg in job["cases"].items():
+        if device != "cpu":
+            free_device(torch)
+            torch.cuda.reset_peak_memory_stats()
+        eng = ServeEngine(model, ServeConfig(**cfg), mesh=mesh)
+        first = []
+        sample = eng._sample
+
+        def record(logits, sample=sample, first=first):
+            if logits.shape[0] == 1:          # a prefill's first token
+                first.append(logits.float().cpu())
+            return sample(logits)
+
+        eng._sample = record
+        kernels.reset_launches()
+        C.P2P_HOST_STAGED["calls"] = 0
+        C.SP_SUMS.update(calls=0, bytes=0)
+        C.COMM_SECONDS["s"] = 0.0
+        t0 = time.perf_counter()
+        comps = eng.run([DecodeRequest(i, p, n)
+                         for i, (p, n) in enumerate(reqs)])
+        if device != "cpu":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        torch.save(first, os.path.join(
+            out, f"{job['name']}.{name}.logits.r{rank}.pt"))
+        st = eng.stats()
+        res[name] = {
+            "tokens": {str(c.rid): c.tokens.tolist() for c in comps},
+            "wall_s": wall, "ticks": st["ticks"],
+            "prefills": st["prefills"], "sp_prefills": st["sp_prefills"],
+            "prefill_s": st["prefill_s"], "tick_s": st["tick_s"],
+            "ms_per_tick": st["tick_s"] / max(st["ticks"], 1) * 1e3,
+            "pages_per_device": st["pages_per_device"],
+            "sharded_devices": st["sharded_devices"],
+            "launches": dict(kernels.LAUNCHES),
+            "p2p_host_staged": C.P2P_HOST_STAGED["calls"],
+            "sum_calls": C.SP_SUMS["calls"],
+            "sum_mb": C.SP_SUMS["bytes"] / 1e6,
+            "comm_s": C.COMM_SECONDS["s"],
+            "peak_mem_gb": (torch.cuda.max_memory_allocated() / 1e9
+                            if device != "cpu" else None)}
+    return res
+
+
+def check_paged_gathered(torch, F, gen, b, lk, h, d, lengths):
+    """14d: the paged decode kernel's contiguous entry (the sharded tick's
+    read of the summed view) against its plain version on gathered int8
+    K/V of (b, lk, h, d) with the given lengths, timed beside the plain
+    version and SDPA on the dequantized K/V."""
+    from tpu_dist_torch.ops import flash_attention as fa
+    from tpu_dist_torch.ops import paged_attention as pa
+
+    q = torch.randn((b, 1, h, d), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    k, v = (torch.randn((b, lk, h, d), generator=gen, device="cuda")
+            for _ in range(2))
+    kq, ks, vq, vs = fa.quantize_kv(k, v)
+    lengths = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    out = pa.paged_decode_cuda(q, kq, ks, vq, vs, lengths)
+    ref = pa.paged_decode_plain(q, kq, ks, vq, vs, lengths)
+    torch.cuda.synchronize()
+    # one bf16 rounding apart (INT8KV_ULP): at Lk 8192 a typical |out| is
+    # about 0.015, so a bound of BF16_TOL (1 + |ref|) would pass a kernel
+    # that dropped a page or a split of the long row
+    diff = (out.float() - ref.float()).abs()
+    err = diff.max().item()
+    if not bool((diff <= INT8KV_ULP * ref.float().abs() + INT8KV_ATOL).all()):
+        raise AssertionError(f"14d paged_decode: max|err| {err} "
+                             f"(tol {INT8KV_ULP} |ref| + {INT8KV_ATOL})")
+    kd = (kq.float() * ks[..., None]).to(torch.bfloat16).transpose(1, 2)
+    vd = (vq.float() * vs[..., None]).to(torch.bfloat16).transpose(1, 2)
+    kd, vd = kd.contiguous(), vd.contiguous()
+    qh = q.transpose(1, 2).contiguous()
+    mask = (torch.arange(lk, device="cuda")[None, :]
+            < lengths[:, None])[:, None, None, :]
+    bound_ms, bound_by = paged_bound(b, h, d, lengths)
+    return {"shape": f"B{b} Lk{lk} H{h} D{d} int8 K/V, bf16 q, lengths "
+                     f"{lengths.tolist()} (the sharded tick's summed view)",
+            "max_abs_err": err,
+            "tolerance": f"{INT8KV_ULP} * |plain| + {INT8KV_ATOL}",
+            "ms": time_ms(torch, lambda: pa.paged_decode_cuda(
+                q, kq, ks, vq, vs, lengths)),
+            "plain_ms": time_ms(torch, lambda: pa.paged_decode_plain(
+                q, kq, ks, vq, vs, lengths)),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
+                qh, kd, vd, attn_mask=mask)),
+            "library": "scaled_dot_product_attention on dequantized bf16 "
+                       "K/V with the length mask"}
+
+
+def p14_long_context(torch, kernels, device="cuda"):
+    """14a: the decode bench's long-context replay (``--long-context`` on
+    the checked-in trace, ``P14_LC_ARGV`` + ``P14_LC_CARD_ARGV``) at phase
+    5's model, through ``decode_bench.main`` with the kernel counts reset
+    just before: the pins, every request served, one ``flash_fwd`` a
+    layer for each monolithic prefill and one ``paged_decode`` a layer for
+    each tick of the three replays."""
+    import contextlib
+    import io
+
+    from tpu_dist_torch.tools import decode_bench
+
+    argv = ["--device", device, *P14_LC_ARGV, *P14_LC_CARD_ARGV,
+            *P14_LC_MODEL_ARGV]
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):    # its JSON line
+        rec = decode_bench.main(argv)
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    srv = rec["serving"]
+    for k, want in P14_LC_PINS.items():
+        if srv[k] != want:
+            raise AssertionError(f"14a {k}: {srv[k]} != pin {want}")
+    with open(P14_TRACE) as f:
+        plens = [r["prompt_len"] for r in json.load(f)["requests"]]
+    chunk = int(P14_LC_ARGV[P14_LC_ARGV.index("--prefill-chunk") + 1])
+    runs = srv["runs"]
+    # prompts within one chunk prefill monolithic in the chunked runs
+    mono = {"chunked": sum(n <= chunk for n in plens),
+            "baseline": sum(n <= chunk for n in plens if n < 1024),
+            "monolithic": len(plens)}
+    layers = rec["layers"]
+    want = {"flash_fwd": layers * sum(mono.values()),
+            "paged_decode": layers * sum(r["ticks"] for r in runs.values())}
+    if device == "cuda" and any(launches[k] != n for k, n in want.items()):
+        raise AssertionError(f"14a launches {launches}, expected {want}")
+    if any(r["completed"] != (14 if n == "baseline" else 15)
+           for n, r in runs.items()):
+        raise AssertionError(f"14a runs {runs}")
+    return {"argv": " ".join(argv), "wall_s": wall,
+            "replay_wall_s": {n: r["wall_s"] for n, r in runs.items()},
+            "ticks": {n: r["ticks"] for n, r in runs.items()},
+            "serving": {k: v for k, v in srv.items() if k != "runs"},
+            "params_at": f"V{rec['vocab']} {layers}L d{rec['d_model']} "
+                         f"{rec['heads']} heads {rec['precision']}",
+            "launches": launches, "expected_launches": want}
+
+
+def first_token_close(torch, got, want, tag, tol):
+    """Each prefill's first-token logits within ``tol`` (1 + |want|);
+    returns the largest difference."""
+    if len(got) != len(want):
+        raise AssertionError(f"{tag}: {len(got)} vs {len(want)} prefills")
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        diff = (g - w).abs()
+        if not bool((diff <= tol * (1 + w.abs())).all()):
+            raise AssertionError(f"{tag} prefill {i}: first-token logits "
+                                 f"max|diff| {diff.max().item()} (tol "
+                                 f"{tol} (1 + |x|))")
+        worst = max(worst, diff.max().item())
+    return worst
+
+
+def tokens_agreeing(got, want, prompt_lens):
+    """Generated tokens equal up to the first difference, per request
+    (``prompt_lens`` by request id: the prompt is not counted)."""
+    out = {}
+    for rid, toks in want.items():
+        p = prompt_lens[int(rid)]
+        n = 0
+        for a, b in zip(got[rid][p:], toks[p:]):
+            if a != b:
+                break
+            n += 1
+        out[rid] = f"{n}/{len(toks) - p}"
+    return out
+
+
+def longcontext_path(torch, kernels, tmp, device="cuda"):
+    """Phase 14 (module docstring). Returns (record, launches by run).
+    ``device="cpu"`` rehearses its control flow on the CPU (with the
+    constants narrowed; the kernel checks are the card's)."""
+    import torch.nn.functional as F
+
+    card_run = device == "cuda"
+    t0 = time.perf_counter()
+    rec, by_run = {}, {}
+    if card_run:
+        free_device(torch)
+    a = p14_long_context(torch, kernels, device)
+    by_run["p14a_long_context"] = a["launches"]
+    rec["a_long_context_replay"] = a
+    log(f"phase 14a long-context replay: {a['wall_s']:.1f}s wall "
+        f"(replays {json.dumps(a['replay_wall_s'])})")
+    if card_run:
+        free_device(torch)
+
+    fulls = [{"name": f"p14_{dt}", "kind": "sp14", "dtype": dt,
+              "model": P14_MODEL, "prompts": list(P14_PROMPTS),
+              "out": P14_OUT} for dt in ("bf16", "fp32")]
+    tiny = {"name": "p14_tiny", "kind": "sp14", "tiny": True,
+            "model": P14_TINY, "prompts": [40, 5], "out": 12,
+            "cases": {n: {**P14_TINY_SERVE, **kw}
+                      for n, kw in P14_TINY_CASES.items()}}
+    sp_cfg = dict(P14_SERVE, sp_prefill_threshold=P14_THRESHOLD)
+    # one rank: the same engine (its sp prefill over a one-rank axis: the
+    # same ring attention math), and the unsharded flash prefill
+    one = DpGroup("p14b_1rank", 1, device, "nccl" if card_run else "gloo",
+                  [dict(f, world=1, cases={"sp": sp_cfg, "flash": P14_SERVE})
+                   for f in fulls], tmp)
+    r1 = one.wait(600)[0]
+    # the control: the long prompt's sp prefill alone, with a fault
+    ctl = {"name": "p14_bf16_ctl", "kind": "sp14", "dtype": "bf16",
+           "model": P14_MODEL, "prompts": list(P14_PROMPTS[:1]), "out": 1,
+           "shift": P14_CTL_SHIFT}
+    two = DpGroup("p14b_2rank", 2, device, "gloo",
+                  [dict(f, world=2, cases={"sp": sp_cfg})
+                   for f in fulls + [ctl]] + [dict(tiny, world=2)], tmp)
+    r2 = two.wait(900)
+    cpu = DpGroup("p14c_cpu", 2, "cpu", "gloo", [dict(tiny, world=2)], tmp)
+    rc = cpu.wait(600)
+
+    # (b) the sharded engine at full width against the one-rank runs
+    def logits(group, name, case, rank=0):
+        return torch.load(os.path.join(
+            tmp, group, f"{name}.{case}.logits.r{rank}.pt"))
+
+    def gaps(got, want):
+        """Per prefill: max |got - want| / (1 + |want|), the share of
+        logits past BF16_TOL in it, and whether the argmax agrees."""
+        out = []
+        for g, w in zip(got, want):
+            rel = (g - w).abs() / (1 + w.abs())
+            out.append({"max_rel": rel.max().item(),
+                        "share_past_bf16_tol": (rel > BF16_TOL).float()
+                        .mean().item(),
+                        "argmax_equal": bool(torch.equal(g.argmax(-1),
+                                                         w.argmax(-1)))})
+        return out
+
+    layers = P14_MODEL["num_layers"]
+    budget = P14_SERVE["num_pages"] // 2 * P14_SERVE["page_size"]
+    context = P14_PROMPTS[0] + P14_OUT
+    drop = lambda r: {k: v for k, v in r.items() if k != "tokens"}  # noqa
+    b = {"context_tokens": context, "rank_token_budget": budget,
+         "threshold": P14_THRESHOLD, "prompts": list(P14_PROMPTS)}
+    for f in fulls:
+        name, dt = f["name"], f["dtype"]
+        one_sp, one_flash = r1[name]["sp"], r1[name]["flash"]
+        ranks = [r[name]["sp"] for r in r2]
+        for rank, r in enumerate(ranks):
+            if r["tokens"] != ranks[0]["tokens"]:
+                raise AssertionError(f"14b {dt}: the two ranks served "
+                                     "different tokens")
+            if r["sp_prefills"] != 1 or r["prefills"] != 2 or \
+                    r["sharded_devices"] != 2 or not context > budget:
+                raise AssertionError(f"14b {dt}: {drop(r)}")
+            # the short prompt's monolithic prefill, every tick's read
+            if card_run and (r["launches"]["flash_fwd"] != layers or
+                             r["launches"]["paged_decode"]
+                             != layers * r["ticks"]):
+                raise AssertionError(f"14b {dt} launches {r['launches']}")
+            by_run[f"p14b_{dt}_sp2_rank{rank}"] = r["launches"]
+        if card_run and (one_sp["launches"]["flash_fwd"] != layers or
+                         one_flash["launches"]["flash_fwd"] != 2 * layers):
+            raise AssertionError(f"14b {dt} one rank: {one_sp['launches']}"
+                                 f", {one_flash['launches']}")
+        by_run[f"p14b_{dt}_one_rank_sp"] = one_sp["launches"]
+        by_run[f"p14b_{dt}_one_rank_flash"] = one_flash["launches"]
+        got = logits("p14b_2rank", name, "sp")
+        want = logits("p14b_1rank", name, "sp")
+        rec_dt = {"vs_one_rank_sp": gaps(got, want),
+                  "vs_one_rank_flash": gaps(
+                      got, logits("p14b_1rank", name, "flash")),
+                  "tokens_agreeing": {
+                      "one_rank_sp": tokens_agreeing(
+                          ranks[0]["tokens"], one_sp["tokens"], P14_PROMPTS),
+                      "one_rank_flash": tokens_agreeing(
+                          ranks[0]["tokens"], one_flash["tokens"],
+                          P14_PROMPTS)},
+                  "per_rank": [drop(r) for r in ranks],
+                  "one_rank_nccl": {"sp": drop(one_sp),
+                                    "flash": drop(one_flash)}}
+        if dt == "fp32":
+            # the sharded machinery at full width, where rounding is
+            # small: held against the same engine on one rank
+            rec_dt["first_token_max_diff"] = max(
+                first_token_close(
+                    torch, logits("p14b_2rank", name, "sp", rank), want,
+                    f"14b fp32 rank {rank}", LOSS_TOL)
+                for rank in range(len(ranks)))
+            rec_dt["tolerance"] = (f"{LOSS_TOL} (1 + |x|) against one "
+                                   "rank's sp engine")
+        else:
+            # bf16 (P14_BF16_LOGIT_TOL): the limit, the argmax and every
+            # greedy token against one rank's sp engine, and the control
+            # past the limit
+            rec_dt["first_token_max_diff"] = max(
+                first_token_close(
+                    torch, logits("p14b_2rank", name, "sp", rank), want,
+                    f"14b bf16 rank {rank}", P14_BF16_LOGIT_TOL)
+                for rank in range(len(ranks)))
+            if not all(g["argmax_equal"] for g in rec_dt["vs_one_rank_sp"]):
+                raise AssertionError(f"14b bf16: a first-token argmax "
+                                     f"differs: {rec_dt['vs_one_rank_sp']}")
+            if ranks[0]["tokens"] != one_sp["tokens"]:
+                raise AssertionError(f"14b bf16: greedy tokens part from "
+                                     f"one rank's: "
+                                     f"{rec_dt['tokens_agreeing']}")
+            ctl_gap = gaps(logits("p14b_2rank", ctl["name"], "sp"),
+                           want[:1])[0]
+            if ctl_gap["max_rel"] <= P14_BF16_LOGIT_TOL:
+                raise AssertionError(f"14b bf16: the control {ctl_gap} is "
+                                     f"within the limit "
+                                     f"{P14_BF16_LOGIT_TOL}: it does not "
+                                     "separate")
+            rec_dt["control"] = dict(
+                ctl_gap, fault=f"second shard embedded {P14_CTL_SHIFT} "
+                               "position(s) off")
+            rec_dt["tolerance"] = (f"{P14_BF16_LOGIT_TOL} (1 + |x|), equal "
+                                   "argmax and greedy tokens, against one "
+                                   "rank's sp engine")
+        b[dt] = rec_dt
+    rec["b_sp2_full_width_gloo"] = b
+
+    # (c) tiny fp32: card ranks against CPU ranks, equal greedy tokens
+    small = {}
+    for case in P14_TINY_CASES:
+        card = [r["p14_tiny"][case] for r in r2]
+        host = [r["p14_tiny"][case] for r in rc]
+        for r in card + host:
+            if r["tokens"] != host[0]["tokens"] or r["sp_prefills"] != 1:
+                raise AssertionError(f"14c {case}: {r} vs {host[0]}")
+        small[case] = {"requests": len(host[0]["tokens"]),
+                       "token_equal": True,
+                       "card_launches": card[0]["launches"]}
+    rec["c_small_card_vs_cpu"] = small
+    # (d) the paged decode kernel at (b)'s gathered view
+    if card_run:
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+        pages = P14_MODEL["max_len"] // P14_SERVE["page_size"]
+        lk = pages * P14_SERVE["page_size"]
+        rec["d_paged_decode_gathered"] = check_paged_gathered(
+            torch, F, gen, P14_SERVE["max_slots"], lk,
+            P14_MODEL["num_heads"],
+            P14_MODEL["d_model"] // P14_MODEL["num_heads"],
+            [P14_PROMPTS[0] + P14_OUT // 2, P14_PROMPTS[1] + P14_OUT // 2])
+    rec["wall_s"] = time.perf_counter() - t0
+    rec["note"] = ("one card: the two ranks share it over gloo, so every "
+                   "sum goes through the host; no scaling is measured")
+    return rec, by_run
+
+
 def importable(name):
     import importlib.util
 
@@ -3639,6 +4122,15 @@ def main():
         log(f"phase 13{part[0] if part[1] == '_' else ''} {part}: "
             f"{json.dumps(pp[part])} on {card}")
     log(f"phase 13 took {pp['wall_s']:.1f}s ({pp['note']})")
+
+    # 14. sp-sharded long-context serving
+    with tempfile.TemporaryDirectory() as tmp:
+        lc, lc_launches = longcontext_path(torch, kernels, tmp)
+    for part in ("a_long_context_replay", "b_sp2_full_width_gloo",
+                 "c_small_card_vs_cpu", "d_paged_decode_gathered"):
+        log(f"phase 14{part[0]} {part[2:]}: {json.dumps(lc[part])} on "
+            f"{card}")
+    log(f"phase 14 took {lc['wall_s']:.1f}s ({lc['note']})")
     dp_launches = {**dp_launches, **mp_launches, **pp_launches,
                    "script6_imagenet": s6_launches,
                    "vit_base_int8": vit8_launches,
@@ -3717,6 +4209,7 @@ def main():
                 "serving": serve_launches["paged_decode"],
                 "int8_serving": quant_launches["paged_decode"],
                 "spec_serving": spec_launches["paged_decode"]}
+            entry["more_shapes"].append(lc["d_paged_decode_gathered"])
         if kname == "fused_quant":
             entry["library"] = rec["library"]
             entry["yardstick_ms"] = rec["yardstick_ms"]
@@ -3739,6 +4232,9 @@ def main():
                      "sgd", "fused_quant"):
             entry.setdefault("launches_by_path", {}).update(
                 {p: n[kname] for p, n in pp_launches.items()})
+        if kname in ("flash_fwd", "paged_decode"):
+            entry["launches_by_path"].update(
+                {p: n[kname] for p, n in lc_launches.items()})
         entries.append(entry)
     # fused_quant's two phases apart: gspmd tp's int8 row products (13d)
     scaled = pp["d_int8_tp_scaled_pair"]["scaled_pair"]

@@ -82,12 +82,14 @@ def test_greedy_cached_decode_equals_full_recompute():
 
 
 @pytest.mark.parametrize("flags,exc,match", [
-    # --tp/--dp are ported (tests/test_torch_generate_mesh.py); what stays
-    # is the reference's refusal of a --dp that does not divide the batch,
-    # and --tp/--dp ride the one-shot mode only
+    # --tp/--dp and --long-context are ported
+    # (tests/test_torch_{generate_mesh,longcontext}.py); what stays is the
+    # reference's refusal of a --dp that does not divide the batch, and
+    # --tp/--dp ride the one-shot mode only
     (["--tp", "2", "--trace", "4"], SystemExit, "one-shot mode"),
     (["--dp", "3"], SystemExit, "--dp 3 needs --batch divisible"),
-    (["--long-context", "t.json"], NotImplementedError, "--long-context")])
+    (["--tp", "2", "--long-context", "t.json"], SystemExit,
+     "one-shot mode")])
 def test_unported_flags_raise_and_name_themselves(flags, exc, match):
     with pytest.raises(exc, match=match):
         decode_bench.main(["--device", "cpu", *flags] + TINY)

@@ -171,14 +171,15 @@ def test_data_mesh_over_one_process():
         make_mesh((2,), device="cpu")
     with pytest.raises(ValueError, match="rank"):
         make_mesh((1, 1), ("data",), device="cpu")
-    # the model-parallel axes are ported, pipeline stages included;
-    # serving's sp axis still raises, naming itself
+    # every axis is ported, pipeline stages and serving's sp included;
+    # an axis the reference does not have raises, naming it
     assert make_mesh((1, 1), ("data", "model"), device="cpu").shape == \
         {"data": 1, "model": 1}
     assert make_mesh((1, 1), ("data", "stage"), device="cpu").shape == \
         {"data": 1, "stage": 1}
-    with pytest.raises(NotImplementedError, match="sp"):
-        make_mesh((1,), ("sp",), device="cpu")
+    assert make_mesh((1,), ("sp",), device="cpu").shape == {"sp": 1}
+    with pytest.raises(ValueError, match="unknown mesh axis 'spp'"):
+        make_mesh((1,), ("spp",), device="cpu")
 
 
 @pytest.mark.parametrize("kw,match", [

@@ -248,10 +248,12 @@ def test_block_table_decode_matches_pallas_kernel(dtype):
 
 
 def test_sp_mesh_is_refused():
+    """An ``sp_mesh`` without the ``sp`` axis is refused, naming the axis
+    (the sharded pool itself: tests/test_torch_sp_serve.py)."""
     layer = tpa.PagedLayer(torch.zeros(N + 1, PS, H, D),
                            torch.zeros(N + 1, PS, H, D))
     x = torch.zeros(1, 1, H, D)
-    with pytest.raises(NotImplementedError, match="sp_mesh"):
+    with pytest.raises(ValueError, match="'sp' axis"):
         tpa.paged_attend(x, x, x, {"layer": layer, "sp_mesh": object(),
                                    "block_tables": None, "positions": None,
                                    "lengths": None},

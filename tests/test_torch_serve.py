@@ -349,12 +349,15 @@ def test_decode_bench_int8_spec_and_waterfalls_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(sp_prefill_threshold=8), "sp_prefill_threshold"),
+    (dict(sp_prefill_threshold=8), "sp_prefill_threshold > 0 needs"),
 ])
 def test_unported_knobs_raise_and_name_themselves(kw, match):
-    with pytest.raises(NotImplementedError, match=match):
+    # sp-sharded serving is ported (tests/test_torch_sp_serve.py): what
+    # stays is the reference's refusal of an sp threshold without a mesh
+    # and of a mesh without the 'sp' axis
+    with pytest.raises(ValueError, match=match):
         ServeEngine(_lm(), ServeConfig(**kw), device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(ValueError, match="mesh needs the 'sp' axis"):
         ServeEngine(_lm(), ServeConfig(), mesh=object(), device="cpu")
 
 

@@ -1,6 +1,7 @@
 """One rank of a ``torch.distributed`` group for the port's multi-process
 tests (``tests/test_torch_{collectives,dp,dp_lm,cuda,fsdp,tp,moe,
-ring_attention,int8_tp,pp,pp_modes,generate_mesh,vit}.py``): gloo on the
+ring_attention,int8_tp,pp,pp_modes,generate_mesh,vit,sp_serve}.py``):
+gloo on the
 CPU unless the spec names another ``device`` and ``backend``.
 
     python tests/torch_dp_worker.py SPEC.json
@@ -371,7 +372,121 @@ def _vit_ring_job(job, out, rank, torch, device):
     return {"logits": logits.detach().cpu().numpy().tolist()}
 
 
+def _sp_ops_job(job, out, rank, torch, device):
+    """``sp_paged_write`` then ``sp_gather_pages`` over the whole group as
+    the ``sp`` axis, on this rank's block of a numpy-seeded global arena
+    (``job["dtype"]``: int8 or float32): the gathered view and the written
+    block."""
+    from tpu_dist_torch.ops.paged_attention import (sp_gather_pages,
+                                                    sp_paged_write)
+    from tpu_dist_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh((job["world"],), ("sp",), device=device)
+    arena, bt, pos, vals, valid = sp_ops_inputs(job)
+    rows = arena.shape[0] // job["world"]
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa
+    block = t(arena[rank * rows:(rank + 1) * rows])
+    sp_paged_write(block, t(bt), t(pos), t(vals), t(valid), mesh)
+    g = sp_gather_pages(block, t(bt), mesh)
+    return {"gathered": g.cpu().numpy().tolist(),
+            "block": block.cpu().numpy().tolist()}
+
+
+def sp_ops_inputs(job):
+    """The sp gather/write case of ``job`` (world, dtype, seed): a global
+    arena of ``world`` blocks of 3 pages + a trash row, two sequences'
+    flat block tables over pages of every rank, their write positions,
+    values and mask (the second row's last write masked)."""
+    rng = np.random.default_rng(job["seed"])
+    world, ps, h, d = job["world"], 4, 2, 8
+    rows = 4                                  # 3 pages + the local trash
+    shape = (world * rows, ps, h, d)
+    if job["dtype"] == "int8":
+        draw = lambda s: rng.integers(-127, 128, s).astype(np.int8)  # noqa
+    else:
+        draw = lambda s: rng.standard_normal(s).astype(np.float32)  # noqa
+    arena = draw(shape)
+    pages = [p for p in range(world * rows) if p % rows != rows - 1]
+    perm = rng.permutation(pages)
+    bt = perm[:6].reshape(2, 3).astype(np.int32)
+    pos = np.stack([np.arange(5), np.arange(3, 8)]).astype(np.int64)
+    vals = draw((2, 5, h, d))
+    valid = np.ones((2, 5), bool)
+    valid[1, -1] = False
+    return arena, bt, pos, vals, valid
+
+
+def _sp_serve_job(job, out, rank, torch, device):
+    """The sp-sharded ``ServeEngine`` over the whole group as the ``sp``
+    axis, with an LM loaded from the job's flax tree: for each of the
+    job's cases (a ServeConfig, requests ``[prompt, steps]``, ``waves``)
+    the tokens of every wave, the engine's stats, the forks it made and,
+    with ``kv_rows``, the gathered K/V of the first request's prompt rows
+    after the first step (its prefill); the rank's arena blocks go to
+    ``<name>.<case>.rank<r>.npz``."""
+    from tpu_dist_torch.engine.serve import (DecodeRequest, ServeConfig,
+                                             ServeEngine)
+    from tpu_dist_torch.interop import load_flax_params
+    from tpu_dist_torch.models.transformer import TransformerLM
+    from tpu_dist_torch.ops.paged_attention import sp_gather_many
+    from tpu_dist_torch.parallel.mesh import make_mesh
+
+    with np.load(job["init"], allow_pickle=True) as z:
+        tree = z["tree"].item()
+    model = load_flax_params(
+        TransformerLM(device=device, seed=None, **job["model"]), tree)
+    mesh = make_mesh((job["world"],), ("sp",), device=device)
+    res = {}
+    for case in job["cases"]:
+        eng = ServeEngine(model, ServeConfig(**case["cfg"]), mesh=mesh)
+        forks = []
+        fork = eng.pool.fork_page
+
+        def record(src, dst, rid=None, fork=fork, forks=forks):
+            forks.append([src, dst])
+            return fork(src, dst, rid=rid)
+
+        eng.pool.fork_page = record
+        reqs = [(np.asarray(p, np.int32), n) for p, n in case["requests"]]
+        waves, kv = [], None
+        for w in range(case.get("waves", 1)):
+            batch = [DecodeRequest(i, p, n) for i, (p, n) in enumerate(reqs)]
+            comps = []
+            if case.get("kv_rows") and w == 0:
+                for r in batch:
+                    eng.submit(r)
+                comps += eng.step()
+                slot = eng.slots[0]
+                bt = torch.as_tensor(eng.pool.flat_block_table(
+                    slot.block_table[None])).to(device)
+                # distlint: disable=DL002 -- a test rank reports its prompt rows once
+                kv = [[g[0, :slot.prompt_len].float().cpu().numpy().tolist()
+                       for g in sp_gather_many([layer.k, layer.v], bt, mesh)]
+                      for layer in eng.pool.layers()]
+                batch = []
+            comps += eng.run(batch)
+            # distlint: disable=DL002 -- host numpy tokens, no device sync
+            waves.append({str(c.rid): c.tokens.tolist() for c in comps})
+        np.savez(os.path.join(out, f"{job['name']}.{case['name']}.rank{rank}"
+                              ".npz"),
+                 **{f"{i}.{j}": a.float().cpu().numpy() if a.dtype !=
+                    torch.int8 else a.cpu().numpy()
+                    for i, layer in enumerate(eng.pool.layers())
+                    for j, a in zip(("k", "v", "ks", "vs"), layer.arenas())})
+        st = eng.stats()
+        res[case["name"]] = {
+            "waves": waves, "forks": forks, "kv": kv,
+            "stats": {k: st[k] for k in (
+                "sp_prefills", "prefills", "chunk_ticks", "pages_free",
+                "pages_total", "sharded_devices", "pages_per_device",
+                "cow_copies", "prefix_hits")},
+            "page_device": {str(p): eng.pool.page_device(p)
+                            for f in forks for p in f}}
+    return res
+
+
 JOBS = {"image": _trainer_job, "lm": _trainer_job,
+        "sp_ops": _sp_ops_job, "sp_serve": _sp_serve_job,
         "vit_ring": _vit_ring_job,
         "generate_mesh": _generate_mesh_job,
         "collectives": _collectives_job, "lm_grads": _lm_grads_job,

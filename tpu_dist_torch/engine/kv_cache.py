@@ -16,21 +16,35 @@ admission, right before the first divergent write.
 int8 mode stores pages as int8 with one fp32 scale per (slot, head);
 ``read="flash"`` routes the decode tick through the paged decode kernel.
 The allocator is host-side Python; the arenas are updated in place by the
-page programs. The reference's sp-sharded pool (``mesh=``) is not ported.
+page programs.
+
+``mesh=`` (a ``parallel.mesh.Mesh`` with the ``sp`` axis, one rank per
+device) shards the pool: each rank allocates only its own block of
+``pages_per_device + 1`` rows of every arena (its pages and a local trash
+row), so the pool's capacity grows with the axis and one context can
+outgrow a device's pages. The host allocator is replicated: every rank
+runs it on the same requests and grants the same pages, one min-heap per
+device, lowest global index first. Device programs see FLAT rows
+(:meth:`PagedKVPool.flat_block_table`), and
+``ops.paged_attention.sp_paged_write``/``sp_gather_many`` route them.
+A copy-on-write fork between pages of two ranks goes through one
+``collectives.sum_bytes`` (the source's owner sends the page, the others
+zeros).
 """
 
 from __future__ import annotations
 
 import hashlib
 import heapq
-from collections import OrderedDict
-from typing import Dict, List, Optional, Tuple
+from collections import Counter, OrderedDict
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from tpu_dist_torch.device import resolve_device
-from tpu_dist_torch.ops.paged_attention import PagedLayer, pages_for
+from tpu_dist_torch.ops.paged_attention import (PagedLayer, pages_for,
+                                                sp_axis)
 
 
 def _prefix_key(tokens) -> str:
@@ -65,17 +79,14 @@ class PagedKVPool:
     signal to queue). Page states: FREE (on the min-heap, granted
     lowest-index first), LIVE (refcount >= 1), CACHED (refcount 0 but
     indexed; reclaimed FIFO when the heap runs dry). ``pages_free`` counts
-    FREE + CACHED.
+    FREE + CACHED. With ``mesh=`` the pool is sp-sharded (module
+    docstring); ``device`` defaults to the mesh's.
     """
 
     def __init__(self, num_layers: int, num_pages: int, page_size: int,
                  num_heads: int, head_dim: int, dtype=torch.float32,
                  kv_quant: str = "none", read: str = "exact", mesh=None,
                  device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "sp-sharded paged pools (mesh=) are not ported: the port "
-                "serves an unsharded pool")
         if kv_quant not in ("none", "int8"):
             raise ValueError(f"kv_quant must be 'none' or 'int8', "
                              f"got {kv_quant!r}")
@@ -86,14 +97,30 @@ class PagedKVPool:
             raise ValueError("read='flash' is the int8-KV kernel path; "
                              "pass kv_quant='int8' (the fp exact path "
                              "needs no kernel)")
-        self.device = resolve_device(device)
+        # sp sharding: n per-device blocks of pages/n + 1 rows, this rank
+        # allocating its own block; an absent or one-rank mesh is the
+        # unsharded num_pages + 1 layout with an identity translation
+        self.sp_mesh = mesh
+        n, self.sp_rank = 1, 0
+        if mesh is not None:
+            ax = sp_axis(mesh)
+            n, self.sp_rank = ax.size, ax.index
+            if num_pages % n:
+                raise ValueError(
+                    f"num_pages {num_pages} must divide by the 'sp' axis "
+                    f"size {n} (whole pages per device)")
+        self.sharded_devices = n
+        self.device = (mesh.device if mesh is not None and device is None
+                       else resolve_device(device))
         self.num_layers = num_layers
         self.num_pages = num_pages
         self.page_size = page_size
         self.kv_quant = kv_quant
         self.read = read
-        shape = (num_pages + 1, page_size, num_heads, head_dim)
-        sshape = (num_pages + 1, page_size, num_heads)
+        self.pages_per_device = num_pages // n
+        self._rows_local = self.pages_per_device + 1   # + local trash row
+        shape = (self._rows_local, page_size, num_heads, head_dim)
+        sshape = (self._rows_local, page_size, num_heads)
 
         def zeros(shp, dt):
             return torch.zeros(shp, dtype=dt, device=self.device)
@@ -109,8 +136,12 @@ class PagedKVPool:
                 self._layers.append(PagedLayer(
                     zeros(shape, dtype), zeros(shape, dtype),
                     quant="none", read=read))
-        # min-heap of free pages (a sorted list is already a heap)
-        self._free: List[int] = list(range(num_pages))
+        # one min-heap of free pages per device (a sorted list is already
+        # a heap); grants take the lowest global index across them, so an
+        # unsharded pool has one heap and the reference's grant order
+        self._free_by_dev: List[List[int]] = [
+            list(range(d * self.pages_per_device,
+                       (d + 1) * self.pages_per_device)) for d in range(n)]
         self._ref: List[int] = [0] * num_pages
         # rc==0 pages still carrying indexed prefix content, FIFO by
         # release order (deterministic reclaim under pressure)
@@ -140,7 +171,7 @@ class PagedKVPool:
     @property
     def pages_free(self) -> int:
         """Allocatable pages: truly free + cached (reclaimable) ones."""
-        return len(self._free) + len(self._cached)
+        return sum(map(len, self._free_by_dev)) + len(self._cached)
 
     @property
     def pages_used(self) -> int:
@@ -154,17 +185,28 @@ class PagedKVPool:
     def pages_needed(self, total_tokens: int) -> int:
         return pages_for(total_tokens, self.page_size)
 
+    def page_device(self, page: int) -> int:
+        """The device block (sp rank) a page lives in (0 unsharded)."""
+        return page // self.pages_per_device
+
+    def _pop_free(self) -> Optional[int]:
+        """Pop the lowest global free index across the per-device heaps."""
+        best = None
+        for h in self._free_by_dev:
+            if h and (best is None or h[0] < best[0]):
+                best = h
+        return heapq.heappop(best) if best is not None else None
+
     def alloc(self, n: int) -> Optional[List[int]]:
         """Grant ``n`` fresh pages at refcount 1 (all-or-nothing). Free
         pages go first, lowest index first; cached prefix pages are
-        reclaimed FIFO (and unregistered) only when the heap runs dry."""
+        reclaimed FIFO (and unregistered) only when the heaps run dry."""
         if n > self.pages_free:
             return None
         grant: List[int] = []
         while len(grant) < n:
-            if self._free:
-                page = heapq.heappop(self._free)
-            else:
+            page = self._pop_free()
+            if page is None:
                 page, _ = self._cached.popitem(last=False)
                 self._unregister(page)
             grant.append(page)
@@ -173,6 +215,44 @@ class PagedKVPool:
         self.alloc_total += n
         self.high_water_used = max(self.high_water_used, self.pages_used)
         return grant
+
+    def alloc_for_slots(self, devs: Sequence[int]) -> Optional[List[int]]:
+        """Grant one page on each listed device, in order (all-or-nothing;
+        None when any device is short): the sp prefill's striped prompt
+        pages, block-table slot ``t`` on the device whose prompt shard
+        writes its rows. Per device lowest index first; a device's cached
+        pages are reclaimed FIFO, as in :meth:`alloc`."""
+        for d, c in Counter(devs).items():
+            avail = len(self._free_by_dev[d]) + sum(
+                1 for p in self._cached if self.page_device(p) == d)
+            if avail < c:
+                return None
+        grant: List[int] = []
+        for d in devs:
+            if self._free_by_dev[d]:
+                p = heapq.heappop(self._free_by_dev[d])
+            else:
+                p = next(q for q in self._cached
+                         if self.page_device(q) == d)
+                del self._cached[p]
+                self._unregister(p)
+            self._ref[p] = 1
+            grant.append(p)
+        self.alloc_total += len(grant)
+        self.high_water_used = max(self.high_water_used, self.pages_used)
+        return grant
+
+    def flat_block_table(self, bt) -> np.ndarray:
+        """Page ids -> FLAT arena rows, the device programs' view: page
+        ``p`` sits at ``p + p // pages_per_device`` (one trash row per
+        preceding device), and the unassigned sentinel (``num_pages``)
+        maps to the last row, the last device's trash. Identity for an
+        unsharded pool."""
+        bt = np.asarray(bt)
+        return np.where(
+            bt >= self.num_pages,
+            self.sharded_devices * self._rows_local - 1,
+            bt + bt // self.pages_per_device).astype(np.int32)
 
     def free(self, pages: List[int]) -> None:
         """Drop one reference per listed page; double-frees raise."""
@@ -184,7 +264,8 @@ class PagedKVPool:
                 if p in self._reg:
                     self._cached[p] = None
                 else:
-                    heapq.heappush(self._free, p)
+                    heapq.heappush(self._free_by_dev[self.page_device(p)],
+                                   p)
 
     def contiguous_pages_needed(self, slots: int, max_total: int) -> int:
         """What a contiguous per-slot allocator would preallocate for the
@@ -293,12 +374,29 @@ class PagedKVPool:
                   rid: Optional[int] = None) -> None:
         """Copy-on-write fork: duplicate ``src``'s rows onto the already
         granted ``dst`` in every layer's arenas and drop the forking
-        sequence's reference to ``src``. A ``cow_fork`` span with ``rid``
-        and a bound tracer."""
+        sequence's reference to ``src``. Over a sharded pool the owner of
+        both copies locally; pages on two ranks go through one
+        ``sum_bytes`` of every arena's page (module docstring). A
+        ``cow_fork`` span with ``rid`` and a bound tracer."""
         from tpu_dist_torch.ops.paged_attention import cow_fork_pages
+        from tpu_dist_torch.parallel.collectives import sum_bytes
 
         t0 = self._now() if self._now is not None else 0.0
-        cow_fork_pages(self._layers, [src], [dst])
+        rows = self._rows_local
+        s_row, d_row = (int(r) for r in self.flat_block_table([src, dst]))
+        s_dev, d_dev = s_row // rows, d_row // rows
+        me = self.sp_rank
+        if s_dev == d_dev:
+            if me == s_dev:
+                cow_fork_pages(self._layers, [s_row % rows], [d_row % rows])
+        else:
+            arenas = [a for layer in self._layers for a in layer.arenas()]
+            pages = [a[s_row % rows] if me == s_dev
+                     else torch.zeros_like(a[0]) for a in arenas]
+            pages = sum_bytes(pages, sp_axis(self.sp_mesh).group)
+            if me == d_dev:
+                for a, page in zip(arenas, pages):
+                    a[d_row % rows] = page
         self.free([src])
         self.cow_copies += 1
         if self._tracer is not None and rid is not None:
@@ -320,8 +418,8 @@ class PagedKVPool:
                 "pages_total": self.num_pages,
                 "pages_cached": len(self._cached),
                 "page_size": self.page_size,
-                "sharded_devices": 1,
-                "pages_per_device": self.num_pages,
+                "sharded_devices": self.sharded_devices,
+                "pages_per_device": self.pages_per_device,
                 "high_water_used": self.high_water_used,
                 "shared_pages": self.shared_pages,
                 "prefix_hits": self.prefix_hits,

@@ -17,6 +17,16 @@ and refilled the same tick. The pieces, as in the reference:
   through the paged decode kernel;
 * chunked prefill (``prefill_chunk``): long prompts run one fixed-size
   chunk per scheduler iteration, interleaved with the decode tick;
+* sp-sharded serving (``ServeEngine(mesh=)``, a ``parallel.mesh.Mesh``
+  with the ``sp`` axis, one process per device): the pool's arenas shard
+  over the axis (``engine.kv_cache``), so a context can outgrow one
+  device's pages; every rank runs the same scheduler on the same
+  requests, and ticks, monolithic and chunked prefills and prefix forks
+  read and write the sharded pages. Prompts at or past
+  ``sp_prefill_threshold`` prefill sequence-parallel: each rank runs its
+  contiguous shard of the padded prompt at its own global positions with
+  ring attention over ``sp`` and writes its K/V into the pages it holds
+  (the admission stripes the prompt's pages by shard);
 * speculative decoding (``spec_k > 0``): a draft model (the base itself by
   default, or ``draft_model``) proposes ``spec_k`` greedy tokens per slot
   over its own page arenas (a second pool with the same page geometry and
@@ -36,14 +46,18 @@ and refilled the same tick. The pieces, as in the reference:
   request-trace ``span`` s of ``obs.reqtrace``, with the reference's
   names and fields.
 
-Not ported, and refused with ``NotImplementedError`` naming the knob:
-sp-sharded serving (``mesh=``, ``sp_prefill_threshold > 0``) and MoE
-models (refused by the reference too). The reference's compile-audit
-hooks (``plan/compile.py``) audit JAX programs and have no counterpart.
+Refused with ``NotImplementedError``, as in the reference: MoE models
+and speculative decoding over a sharded pool. The reference's
+compile-audit hooks (``plan/compile.py``) audit JAX programs and have no
+counterpart.
 
 The scheduler is host-side and clock-agnostic (``now_fn``; tests and
 trace replay pass a virtual clock). Page programs run under
-``torch.inference_mode()`` on the engine's device.
+``torch.inference_mode()`` on the engine's device. Under a mesh the one
+host decision that reads the clock, SLO shedding, takes rank 0's queue
+waits (and rank 0's SIGTERM flag), summed over ``sp`` once a step, so
+every rank decides alike; a rank that decided otherwise would hang the
+next collective. Only the main rank writes the ledger and spans.
 """
 
 from __future__ import annotations
@@ -63,7 +77,9 @@ from tpu_dist_torch.engine.generate import (_quantize_for_decode, _sample,
                                             prepare_draft)
 from tpu_dist_torch.engine.kv_cache import PagedKVPool, PrefixMatch
 from tpu_dist_torch.obs.reqtrace import RequestTracer
-from tpu_dist_torch.ops.paged_attention import cow_fork_pages
+from tpu_dist_torch.ops.paged_attention import cow_fork_pages, sp_axis
+from tpu_dist_torch.parallel.collectives import sum_bytes
+from tpu_dist_torch.parallel.mesh import SP_AXIS
 
 
 @dataclass
@@ -126,7 +142,10 @@ class ServeConfig:
     spec_k: int = 0              # draft tokens per tick (0 = plain decode)
     prefix_cache: bool = False   # CoW prefix sharing across requests
     prefill_chunk: int = 0       # chunked prefill size (0 = monolithic)
-    sp_prefill_threshold: int = 0   # sp prefill: not ported (raises)
+    # sequence-parallel prefill (needs ServeEngine(mesh=...)): prompts at
+    # or past this length prefill under ring attention over 'sp', each
+    # rank writing its shard's K/V into its own pages. 0 = never
+    sp_prefill_threshold: int = 0
     trace_window_ticks: int = 8  # decode ticks per request-trace span
 
 
@@ -173,10 +192,11 @@ def _default_buckets(max_len: int) -> Tuple[int, ...]:
 class ServeEngine:
     """The continuous-batching scheduler (module docstring has the tour).
 
-    ``model`` is a port ``TransformerLM`` on ``device`` (default CUDA;
-    without CUDA the default raises, ``device="cpu"`` runs the plain
-    path). Drive it with :meth:`run` (submit everything, drain) or with
-    ``submit()`` as requests arrive and ``step()`` once per iteration."""
+    ``model`` is a port ``TransformerLM`` on ``device`` (default CUDA, or
+    the mesh's device; without CUDA the default raises, ``device="cpu"``
+    runs the plain path). Drive it with :meth:`run` (submit everything,
+    drain) or with ``submit()`` as requests arrive and ``step()`` once per
+    iteration; under a mesh every rank drives it alike."""
 
     def __init__(self, model, config: Optional[ServeConfig] = None, *,
                  draft_model=None, ledger=None,
@@ -185,15 +205,30 @@ class ServeEngine:
                  generator: Optional[torch.Generator] = None, mesh=None,
                  device=None):
         cfg = config if config is not None else ServeConfig()
-        self.device = resolve_device(device)
+        self.device = (mesh.device if mesh is not None and device is None
+                       else resolve_device(device))
         if getattr(model, "num_experts", 0):
             raise NotImplementedError(
                 "paged serving covers the dense TransformerLM family; the "
                 "MoE capacity-factor dispatch needs its own scheduling story")
-        if mesh is not None or cfg.sp_prefill_threshold > 0:
-            raise NotImplementedError(
-                "sp-sharded serving (ServeEngine(mesh=...) / "
-                "ServeConfig.sp_prefill_threshold) is not ported yet")
+        # sp-sharded serving: the pool's arenas shard over the axis, so
+        # KV capacity grows with it and a context larger than one
+        # device's page budget serves
+        self.sp_mesh = mesh
+        self.sp_n = 1
+        self.sp_axis = None
+        if mesh is not None:
+            if SP_AXIS not in getattr(mesh, "shape", {}):
+                raise ValueError(
+                    f"ServeEngine mesh needs the {SP_AXIS!r} axis (got "
+                    f"axes {tuple(getattr(mesh, 'shape', ()))})")
+            self.sp_axis = sp_axis(mesh)
+            self.sp_n = self.sp_axis.size
+            if cfg.spec_k > 0:
+                raise NotImplementedError(
+                    "speculative decoding over an sp-sharded pool is the "
+                    "named residue: the draft scan's per-step sharded "
+                    "writes need their own collective story")
         if model.device != self.device:
             raise ValueError(f"model lives on {model.device}, engine device "
                              f"is {self.device}: build the model there")
@@ -204,7 +239,8 @@ class ServeEngine:
         self.pool = PagedKVPool(
             model.num_layers, cfg.num_pages, cfg.page_size,
             model.num_heads, head_dim, dtype=model.dtype,
-            kv_quant=cfg.kv_quant, read=cfg.attn_read, device=self.device)
+            kv_quant=cfg.kv_quant, read=cfg.attn_read, mesh=mesh,
+            device=self.device)
         self.max_pages_per_seq = self.pool.pages_needed(self.max_len)
         # speculative decoding: the draft's own arenas, same page geometry
         # and indices, so it rides the base's block tables and allocator
@@ -239,11 +275,28 @@ class ServeEngine:
         self.buckets = tuple(sorted({self.max_len, *(
             b for b in (cfg.prefill_buckets or _default_buckets(self.max_len))
             if b <= self.max_len)}))
+        # sp prefill needs buckets whose shards hold whole pages: slot t
+        # of the striped prompt lives on device (t * page_size) // shard
+        self.sp_buckets: Tuple[int, ...] = ()
+        if cfg.sp_prefill_threshold > 0:
+            if mesh is None:
+                raise ValueError("sp_prefill_threshold > 0 needs "
+                                 "ServeEngine(mesh=...) with the "
+                                 f"{SP_AXIS!r} axis")
+            step = self.sp_n * cfg.page_size
+            if self.max_len % step:
+                raise ValueError(
+                    f"sp prefill needs max_len ({self.max_len}) divisible "
+                    f"by sp devices x page_size ({self.sp_n} x "
+                    f"{cfg.page_size}) so every prompt has an sp bucket")
+            self.sp_buckets = tuple(b for b in self.buckets if b % step == 0)
         self.slots: List[Optional[_Slot]] = [None] * cfg.max_slots
         self.queue: Deque[Tuple[DecodeRequest, float]] = deque()
         self._now = now_fn
         self._gen = generator if generator is not None else \
             torch.Generator(device=self.device).manual_seed(0)
+        if mesh is not None and not mesh.is_main:
+            ledger = tracer = None    # the main rank writes the record
         self.ledger = ledger
         self.tracer = tracer
         if self.tracer is None and ledger is not None:
@@ -253,6 +306,7 @@ class ServeEngine:
         self.completed = 0
         self.rejected = 0
         self.prefills = 0
+        self.sp_prefills = 0
         self.chunk_ticks = 0
         self.prefill_token_work = 0
         # speculative accounting: tokens emitted per active-slot tick
@@ -269,6 +323,8 @@ class ServeEngine:
         self._occupancy_sum = 0.0
         self._wait_ema: Optional[float] = None
         self._wait_samples = 0
+        # under a mesh: this step's queue waits, observed once summed
+        self._pending_waits: List[float] = []
         self._in_breach = False
         self.shedding = False
         self._last_kv_tick = 0
@@ -276,6 +332,7 @@ class ServeEngine:
         self.draining = False
         self._drained = False
         self._preempt_event = threading.Event()
+        self._preempt_synced = False
         self._prev_sigterm = None
 
     # -- admission --------------------------------------------------------
@@ -348,6 +405,30 @@ class ServeEngine:
             self._in_breach = False   # re-arm; resume admitting
             self.shedding = False
 
+    def _sync_host(self) -> None:
+        """Under a mesh, once a step: rank 0's queue waits of this step's
+        admissions and its SIGTERM flag, summed over ``sp`` (the other
+        ranks send zeros), so SLO shedding and the drain decide alike on
+        every rank. Without a mesh the waits were observed as they came."""
+        if self.sp_n == 1:
+            return
+        vals = torch.tensor([float(self._preempt_event.is_set()),
+                             *self._pending_waits], dtype=torch.float64,
+                            device=self.device)
+        if self.sp_axis.index != 0:
+            vals.zero_()
+        vals = sum_bytes([vals], self.sp_axis.group)[0].tolist()
+        self._preempt_synced = bool(vals[0])
+        self._pending_waits = []
+        for wait in vals[1:]:
+            self._observe_wait(wait)
+
+    def _preempted(self) -> bool:
+        """Whether a SIGTERM asked for a drain (rank 0's, under a mesh)."""
+        if self.sp_n == 1:
+            return self._preempt_event.is_set()
+        return self._preempt_synced
+
     def _decay_wait_if_idle(self) -> None:
         """While shedding with an empty queue the wait evidence is stale:
         one alpha-decay toward zero per iteration re-arms the hysteresis
@@ -367,6 +448,7 @@ class ServeEngine:
         completions = self._evict()
         with torch.inference_mode():
             self._admit()
+            self._sync_host()
             self._chunk_tick()
             self._tick()
         self._decay_wait_if_idle()
@@ -384,7 +466,7 @@ class ServeEngine:
             self.submit(req)
         out: List[Completion] = []
         while self.queue or any(s is not None for s in self.slots):
-            if self._preempt_event.is_set() and not self.draining:
+            if self._preempted() and not self.draining:
                 out.extend(self.drain(reason="sigterm"))
                 return out
             out.extend(self.step())
@@ -451,6 +533,10 @@ class ServeEngine:
     def _tensor(self, x, dtype=torch.int32):
         return torch.as_tensor(np.asarray(x), dtype=dtype).to(self.device)
 
+    def _flat_bt(self, bts):
+        """Block tables of page ids as the pool's flat rows, on device."""
+        return self._tensor(self.pool.flat_block_table(bts))
+
     def _prefill_program(self, bt, length, shared_len, padded):
         """One admit's padded prompt: pages written for the live rows at
         or past ``shared_len``, first token sampled from the last live
@@ -459,19 +545,51 @@ class ServeEngine:
         valid = (torch.arange(bucket, device=self.device)[None, :]
                  >= shared_len)
         paged = {"layers": self.pool.layers(),
-                 "block_tables": self._tensor(bt[None]),
+                 "block_tables": self._flat_bt(bt[None]),
                  "positions": self._tensor([0]),
-                 "lengths": self._tensor([length]), "valid": valid}
+                 "lengths": self._tensor([length]), "valid": valid,
+                 "sp_mesh": self.sp_mesh}
         logits, _ = self.model(self._tensor(padded), paged=paged,
                                paged_prefill=True)
         return self._sample(logits[:, length - 1])[0]
+
+    def _sp_prefill_program(self, bt, length, shared_len, padded):
+        """The sequence-parallel prefill: this rank runs its contiguous
+        shard of the padded prompt at its global positions with ring
+        attention over ``sp``, writing its rows' K/V into its own pages
+        (foreign rows of the local block table go to the local trash).
+        The last live row's logits live on one shard: summed over ``sp``
+        (the others send zeros), then sampled on every rank alike."""
+        from tpu_dist_torch.ops.paged_attention import _sp_local_bt
+        from tpu_dist_torch.parallel.ring_attention import ring_attention_fn
+
+        ax = self.sp_axis
+        lsh = padded.shape[1] // self.sp_n     # bucket % (n * ps) == 0
+        start = ax.index * lsh
+        _, local_bt = _sp_local_bt(self._flat_bt(bt[None]),
+                                   self.pool.layers()[0].k.shape[0],
+                                   ax.index)
+        rows = start + torch.arange(lsh, device=self.device)[None, :]
+        paged = {"layers": self.pool.layers(), "block_tables": local_bt,
+                 "positions": self._tensor([start]),
+                 "lengths": self._tensor([length]),
+                 "valid": rows >= shared_len,
+                 "attn_fn": ring_attention_fn(ax)}
+        logits, _ = self.model(self._tensor(padded[:, start:start + lsh]),
+                               pos_offset=start, paged=paged,
+                               paged_prefill=True)
+        last = logits[:, min(max(length - 1 - start, 0), lsh - 1)]
+        if not start <= length - 1 < start + lsh:
+            last = torch.zeros_like(last)
+        return self._sample(sum_bytes([last], ax.group)[0])[0]
 
     def _tick_program(self, bts, tokens, positions):
         """One token per slot at its own position."""
         pos = self._tensor(positions)
         paged = {"layers": self.pool.layers(),
-                 "block_tables": self._tensor(bts),
-                 "positions": pos, "lengths": pos + 1}
+                 "block_tables": self._flat_bt(bts),
+                 "positions": pos, "lengths": pos + 1,
+                 "sp_mesh": self.sp_mesh}
         logits, _ = self.model(self._tensor(tokens)[:, None],
                                pos_offset=pos, paged=paged)
         return self._sample(logits[:, 0])
@@ -485,8 +603,9 @@ class ServeEngine:
         rows = pos[:, None] + torch.arange(chunk, device=self.device)[None]
         valid = (rows < length) & (rows >= shared_len)
         paged = {"layers": self.pool.layers(),
-                 "block_tables": self._tensor(bt[None]),
-                 "positions": pos, "lengths": pos + chunk, "valid": valid}
+                 "block_tables": self._flat_bt(bt[None]),
+                 "positions": pos, "lengths": pos + chunk, "valid": valid,
+                 "sp_mesh": self.sp_mesh}
         logits, _ = self.model(self._tensor(tokens), pos_offset=pos,
                                paged=paged)
         return logits[:, min(max(length - 1 - start, 0), chunk - 1)]
@@ -617,21 +736,44 @@ class ServeEngine:
             prompt = np.asarray(req.prompt, np.int32).reshape(-1)
             p = prompt.size
             total_slots = self.pool.pages_needed(p + req.max_new_tokens)
-            use_chunk = (self.cfg.prefill_chunk > 0
+            use_sp = (self.cfg.sp_prefill_threshold > 0
+                      and p >= self.cfg.sp_prefill_threshold)
+            use_chunk = (not use_sp and self.cfg.prefill_chunk > 0
                          and p > self.cfg.prefill_chunk)
             match = (self.pool.share_prefix(prompt, rid=req.rid)
                      if self.cfg.prefix_cache else None)
             # fresh pages: everything past the full-page hits (a frontier
             # hit reserves one fresh page as its copy-on-write target)
             n_fresh = total_slots - (match.full if match is not None else 0)
-            fresh = self.pool.alloc(n_fresh)
+            sp_bucket = None
+            if use_sp:
+                # striped prompt pages: slot t's rows are written by the
+                # rank whose shard covers them, so its page lives there;
+                # shared slots stay where their writer put them (reads are
+                # location-free), decode pages and the CoW reserve anywhere
+                sp_bucket = next(b for b in self.sp_buckets if b >= p)
+                shard = sp_bucket // self.sp_n
+                shared_slots = len(match.pages) if match is not None else 0
+                fresh = self.pool.alloc_for_slots(
+                    [(t * self.cfg.page_size) // shard
+                     for t in range(shared_slots, self.pool.pages_needed(p))])
+                if fresh is not None:
+                    rest = self.pool.alloc(n_fresh - len(fresh))
+                    if rest is None:
+                        self.pool.free(fresh)
+                    fresh = None if rest is None else fresh + rest
+            else:
+                fresh = self.pool.alloc(n_fresh)
             if fresh is None:
                 if match is not None:
                     self.pool.unshare(match)
                 break  # pool pressure: leave it queued, decode on
             self.queue.popleft()
             now = self._now()
-            self._observe_wait(now - enq_ts)
+            if self.sp_n == 1:
+                self._observe_wait(now - enq_ts)
+            else:
+                self._pending_waits.append(now - enq_ts)   # _sync_host
             if self.tracer is not None:
                 tr = self.tracer
                 tid, sid, par = tr.ids(req.rid, "queue")
@@ -644,7 +786,8 @@ class ServeEngine:
                 self._begin_chunked(i, req, prompt, fresh, enq_ts, now,
                                     match)
             else:
-                self._prefill(i, req, prompt, fresh, enq_ts, now, match)
+                self._prefill(i, req, prompt, fresh, enq_ts, now, match,
+                              sp_bucket)
 
     def _block_table(self, fresh, match):
         """(block table, bt pages, shared pages, shared_len, cow) of an
@@ -664,21 +807,34 @@ class ServeEngine:
         return bt, bt_pages, shared, shared_len, cow
 
     def _prefill(self, slot_idx, req, prompt, fresh, enq_ts, start_ts,
-                 match: Optional[PrefixMatch] = None):
+                 match: Optional[PrefixMatch] = None,
+                 sp_bucket: Optional[int] = None):
+        """A monolithic prefill, or with ``sp_bucket`` the same admission
+        run sequence-parallel over that bucket
+        (:meth:`_sp_prefill_program`)."""
         p = prompt.size
-        bucket = next(b for b in self.buckets if b >= p)
+        bucket = sp_bucket or next(b for b in self.buckets if b >= p)
         bt, bt_pages, shared, shared_len, cow = self._block_table(fresh,
                                                                   match)
         padded = np.zeros((1, bucket), np.int32)
         padded[0, :p] = prompt
         t0 = time.perf_counter()
-        tok = self._prefill_program(bt, p, shared_len, padded)
+        program = (self._prefill_program if sp_bucket is None
+                   else self._sp_prefill_program)
+        tok = program(bt, p, shared_len, padded)
         if self.draft_pool is not None:
             # shared rows were written by the prefix owner's draft prefill
             self._draft_prefill_program(bt, p, shared_len, padded)
         tok = int(tok.item())
         self.prefill_s += time.perf_counter() - t0
-        self.prefill_token_work += bucket
+        sp = {}
+        if sp_bucket is None:
+            self.prefill_token_work += bucket
+        else:
+            self.sp_prefills += 1
+            # each rank runs bucket / n rows: the wait the scheduler paid
+            self.prefill_token_work += bucket // self.sp_n
+            sp = {"mode": "sp", "sp_devices": self.sp_n}
         if self.cfg.prefix_cache:
             self.pool.register_prefix(prompt, bt_pages,
                                       skip_slots=len(shared))
@@ -704,7 +860,7 @@ class ServeEngine:
             tr.ledger.emit("span", trace_id=tid, span_id=sid,
                            parent_id=par, name="prefill", rid=req.rid,
                            start=round(start_ts, 6), end=round(now, 6),
-                           bucket=bucket, prompt_len=p,
+                           **sp, bucket=bucket, prompt_len=p,
                            pages_fresh=len(fresh),
                            pages_shared=len(shared),
                            shared_len=shared_len, cow=cow is not None,
@@ -971,6 +1127,7 @@ class ServeEngine:
         phr = self.prefix_hit_rate
         return {"ticks": self.ticks, "completed": self.completed,
                 "rejected": self.rejected, "prefills": self.prefills,
+                "sp_prefills": self.sp_prefills,
                 "chunk_ticks": self.chunk_ticks,
                 "chunks_pending": self.chunks_pending,
                 "prefill_token_work": self.prefill_token_work,

@@ -317,7 +317,9 @@ class TransformerLM(nn.Module):
         (B,) tensor of per-row positions (the paged tick). ``caches``: one
         contiguous cache dict per block (``engine.generate``). ``paged``:
         the pool context ``{"layers", "block_tables", "positions",
-        "lengths"[, "valid"]}``; then returns ``(logits, layers)``.
+        "lengths"[, "valid", "sp_mesh", "attn_fn"]}``
+        (``ops.paged_attention.paged_attend``); then returns ``(logits,
+        layers)``.
         ``return_aux`` returns ``(out, aux)`` with the MoE blocks' router
         sums (:meth:`collect_aux`; zeros for a dense model). Under
         ``tp_impl="ring"`` the output holds this rank's sequence chunk,
@@ -339,7 +341,7 @@ class TransformerLM(nn.Module):
             x = x + self._embed(self.pos_emb, int(pos_offset) + ar)[None]
         ctx = None if paged is None else {
             k: paged.get(k) for k in ("block_tables", "positions", "lengths",
-                                      "valid", "sp_mesh")}
+                                      "valid", "sp_mesh", "attn_fn")}
         if self.tp_group is not None and self.tp_impl == "ring":
             from tpu_dist_torch.parallel.overlap import seq_shard
 

@@ -14,8 +14,19 @@ The decode tick with int8 pages and ``read="flash"`` goes through
 which reads the arenas through the block table, for CPU tensors
 :func:`paged_decode_blocks_plain`. The reference's gathered entry,
 :func:`int8kv_paged_flash_attention_fn`, launches the same kernel.
-The sequence-parallel (sp-sharded) arenas of the reference are not
-ported: an ``sp_mesh`` in the pack raises.
+
+sp-sharded arenas (``engine.kv_cache.PagedKVPool(mesh=)``): each rank of
+the ``sp`` axis holds a block of ``rows_local = pages_per_device + 1``
+rows, its own pages and a local trash row, and block tables hold FLAT
+rows: row ``r`` belongs to rank ``r // rows_local``.
+:func:`sp_paged_write` writes the rows a rank owns and sends the rest to
+its local trash, with no communication; :func:`sp_gather_many` gathers
+the owned pages, zeroes the foreign ones and sums the views over ``sp``
+in one call of ``collectives.sum_bytes``, so every rank holds the whole
+view, bit for bit. The int8 flash tick over a sharded pool runs the same
+kernel on that view through its contiguous entry
+(:func:`int8kv_paged_flash_attention_fn`). Over one rank both are the
+unsharded write and gather.
 """
 
 from __future__ import annotations
@@ -31,6 +42,7 @@ import torch
 from tpu_dist_torch import kernels
 from tpu_dist_torch.ops.flash_attention import NEG_INF, masked_softmax_pv
 from tpu_dist_torch.ops.quant import quantize_int8
+from tpu_dist_torch.parallel.mesh import SP_AXIS
 
 
 def pages_for(length: int, page_size: int) -> int:
@@ -102,6 +114,65 @@ def gather_pages(arena, block_table):
     g = arena[block_table.long()]                # (B, P, page_size, ...)
     b, p, s = g.shape[:3]
     return g.reshape((b, p * s) + tuple(g.shape[3:]))
+
+
+# ---------------------------------------------------------------------------
+# sp-sharded arenas (engine.kv_cache sharded pool)
+# ---------------------------------------------------------------------------
+
+def sp_axis(mesh):
+    """The ``sp`` axis of ``mesh`` (a ``parallel.mesh.Mesh``); a mesh
+    without it raises naming the axis."""
+    shape = getattr(mesh, "shape", None)
+    if not isinstance(shape, dict) or SP_AXIS not in shape:
+        raise ValueError(f"an sp-sharded pool needs a mesh with the "
+                         f"{SP_AXIS!r} axis (got {mesh!r})")
+    return mesh.axis(SP_AXIS)
+
+
+def _sp_local_bt(block_table, rows_local: int, me: int):
+    """Flat rows -> (owner rank, this rank's local rows); foreign rows go
+    to the LOCAL trash row (rows_local - 1), their owner serves them."""
+    bt = block_table.long()
+    owner = bt // rows_local
+    local = torch.where(owner == me, bt % rows_local, rows_local - 1)
+    return owner, local
+
+
+def sp_gather_many(arenas, block_table, mesh):
+    """:func:`gather_pages` of each of ``arenas`` (one rank's blocks, all
+    of one page geometry) over an sp-sharded pool: each rank gathers the
+    pages it owns, foreign ones masked to exact zeros, and one
+    ``sum_bytes`` over ``sp`` gives every rank the whole views. Bit-exact:
+    every page has one owner."""
+    from tpu_dist_torch.parallel.collectives import sum_bytes
+
+    ax = sp_axis(mesh)
+    rows_local, page_size = arenas[0].shape[:2]
+    owner, local = _sp_local_bt(block_table, rows_local, ax.index)
+    foreign = (owner != ax.index).repeat_interleave(page_size, dim=1)
+    views = []
+    for arena in arenas:
+        g = gather_pages(arena, local)               # (B, P*ps, ...)
+        views.append(g.masked_fill(
+            foreign.view(foreign.shape + (1,) * (g.dim() - 2)), 0))
+    return sum_bytes(views, ax.group)
+
+
+def sp_gather_pages(arena, block_table, mesh):
+    """:func:`gather_pages` over an sp-sharded arena (one sum)."""
+    return sp_gather_many([arena], block_table, mesh)[0]
+
+
+def sp_paged_write(arena, block_table, positions, values, valid, mesh):
+    """:func:`paged_write` over an sp-sharded arena: every rank holds the
+    (replicated) values and writes exactly the rows whose page it owns;
+    foreign and masked rows land on its local trash row. No
+    communication: ownership is a function of the flat row."""
+    rows_local = arena.shape[0]
+    _, local = _sp_local_bt(block_table, rows_local, sp_axis(mesh).index)
+    return paged_write(arena, local, positions, values, valid,
+                       rows_local - 1)
 
 
 def cow_fork_pages(layers, src_pages, dst_pages):
@@ -331,20 +402,25 @@ def _quantize_rows(x):
 def paged_attend(q, k, v, paged: dict, *, prefill: bool, attn_fn, dtype):
     """One layer's paged-cache attention step (the reference's contract):
     ``paged`` carries ``{"layer": PagedLayer, "block_tables": (B, P),
-    "positions": (B,), "lengths": (B,)}`` and an optional ``"valid"``
-    (B, Lq) write mask. Prefill attends within the prompt through the
-    model's ``attn_fn`` and writes the live rows; a tick writes Lq rows at
-    ``positions[b]..`` and attends each query at its own position (Lq = 1
-    with int8 pages and ``read="flash"`` goes through the paged decode
-    kernel). Returns ``(out, layer)``; the arenas were updated in place."""
-    if paged.get("sp_mesh") is not None:
-        raise NotImplementedError(
-            "sp-sharded paged arenas (sp_mesh) are not ported: the port "
-            "serves an unsharded pool")
+    "positions": (B,), "lengths": (B,)}``, an optional ``"valid"`` (B, Lq)
+    write mask, an optional ``"sp_mesh"`` (a ``parallel.mesh.Mesh`` with
+    the ``sp`` axis: the arenas are this rank's blocks of a sharded pool,
+    the block tables hold flat rows, and writes and reads go through
+    :func:`sp_paged_write` and :func:`sp_gather_many`) and an optional
+    ``"attn_fn"`` that replaces the model's for the prefill (the sp
+    prefill's ring attention). Prefill attends within the prompt through
+    the model's ``attn_fn`` and writes the live rows; a tick writes Lq
+    rows at ``positions[b]..`` and attends each query at its own position
+    (Lq = 1 with int8 pages and ``read="flash"`` goes through the paged
+    decode kernel). Returns ``(out, layer)``; the arenas were updated in
+    place."""
     layer = paged["layer"]
     bt = paged["block_tables"]
     positions = paged["positions"]
     lengths = paged["lengths"]
+    sp_mesh = paged.get("sp_mesh")               # None = unsharded arenas
+    if sp_mesh is not None:
+        sp_axis(sp_mesh)
     trash = layer.num_pages
 
     b, lq = q.shape[0], q.shape[1]
@@ -357,11 +433,19 @@ def paged_attend(q, k, v, paged: dict, *, prefill: bool, attn_fn, dtype):
     if paged.get("valid") is not None:
         valid = valid & paged["valid"]
 
-    def write(arena, vals):
-        return paged_write(arena, bt, write_pos, vals, valid, trash)
+    if sp_mesh is None:
+        def write(arena, vals):
+            return paged_write(arena, bt, write_pos, vals, valid, trash)
 
-    def read(arena):
-        return gather_pages(arena, bt)
+        def read(*arenas):
+            return [gather_pages(a, bt) for a in arenas]
+    else:
+        def write(arena, vals):
+            return sp_paged_write(arena, bt, write_pos, vals, valid,
+                                  sp_mesh)
+
+        def read(*arenas):
+            return sp_gather_many(arenas, bt, sp_mesh)
 
     if layer.quant == "int8":
         kq, ks = _quantize_rows(k)
@@ -376,16 +460,28 @@ def paged_attend(q, k, v, paged: dict, *, prefill: bool, attn_fn, dtype):
 
     if prefill:
         # causal self-attention over the prompt itself: the model's attn_fn
-        return attn_fn(q, k, v), layer
+        return (paged.get("attn_fn") or attn_fn)(q, k, v), layer
 
     if layer.quant == "int8" and layer.read == "flash" and lq == 1:
-        # the pages are read through the block table: no gathered copy
-        out = paged_decode_blocks(q.contiguous(), layer, bt, positions + 1)
+        if sp_mesh is None:
+            # the pages are read through the block table: no gathered copy
+            out = paged_decode_blocks(q.contiguous(), layer, bt,
+                                      positions + 1)
+        else:
+            # the sum gives every rank the gathered view: the same kernel
+            # through its contiguous entry, as the reference composes its
+            # kernel over sp_gather_pages
+            gk, gks, gv, gvs = read(layer.k, layer.k_scale, layer.v,
+                                    layer.v_scale)
+            out = int8kv_paged_flash_attention_fn()(
+                q.contiguous(), gk, gks, gv, gvs, positions + 1)
         return out.to(q.dtype), layer
 
-    gk = read(layer.k)
-    gv = read(layer.v)
     if layer.quant == "int8":
-        gk = (gk.float() * read(layer.k_scale)[..., None]).to(dtype)
-        gv = (gv.float() * read(layer.v_scale)[..., None]).to(dtype)
+        gk, gks, gv, gvs = read(layer.k, layer.k_scale, layer.v,
+                                layer.v_scale)
+        gk = (gk.float() * gks[..., None]).to(dtype)
+        gv = (gv.float() * gvs[..., None]).to(dtype)
+    else:
+        gk, gv = read(layer.k, layer.v)
     return masked_attention(q, gk, gv, positions), layer

@@ -1,7 +1,8 @@
 """tpu_dist_torch.parallel: the process group as a mesh, launch and
 rendezvous, collectives and bucketed gradient sync, and the model-parallel
-axes (fsdp, tp, ring tp, ring attention, ep)
-(``tpu_dist/parallel/__init__.py``; pipeline parallelism is not ported).
+axes (fsdp, tp, ring tp, ring attention, ep, pp; serving's ``sp`` axis is
+the sharded page pool of ``engine.serve``)
+(``tpu_dist/parallel/__init__.py``).
 
 Attribute access is lazy (PEP 562), as in the reference: ``from
 tpu_dist_torch.parallel import launch`` and ``from tpu_dist_torch.parallel
@@ -25,14 +26,14 @@ _LAZY = {
     "initialize": "launch",
     # parallel.mesh
     "DATA_AXIS": "mesh", "FSDP_AXIS": "mesh", "MODEL_AXIS": "mesh",
-    "SEQ_AXIS": "mesh", "EXPERT_AXIS": "mesh", "make_mesh": "mesh",
-    "world_info": "mesh",
+    "SEQ_AXIS": "mesh", "EXPERT_AXIS": "mesh", "SP_AXIS": "mesh",
+    "make_mesh": "mesh", "axis_mesh": "mesh", "world_info": "mesh",
     # parallel.collectives
     "adasum_reduce": "collectives", "allreduce_bench": "collectives",
     "barrier": "collectives", "compress_grads": "collectives",
     "pmean": "collectives", "psum": "collectives",
     "reduce_mean": "collectives", "ring_allreduce": "collectives",
-    "ppermute": "collectives",
+    "ppermute": "collectives", "sum_bytes": "collectives",
     # parallel.overlap
     "bucketed_grad_sync": "overlap", "grad_buckets": "overlap",
     "RingDense": "overlap",

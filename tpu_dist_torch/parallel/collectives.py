@@ -34,6 +34,11 @@ exchanges those, and copies the result back, and each such call adds one
 to :data:`P2P_HOST_STAGED`. That is a transport over the host, not a CPU
 compute path, and it is never taken under nccl (:func:`p2p_route` names
 the route a group gets).
+
+The sp-sharded page pool of the serving engine sums over its ``sp`` group
+with :func:`sum_bytes`: every tensor of one call in one all-reduce of its
+raw bytes, exact for any dtype when one rank owns each byte (gloo and
+nccl both take ``uint8``, on CUDA tensors too).
 """
 
 from __future__ import annotations
@@ -397,6 +402,43 @@ def all_reduce(x: torch.Tensor, group=None) -> torch.Tensor:
     run_collective("all_reduce", lambda: dist.all_reduce(y, group=group), y,
                    group)
     return y
+
+
+# calls and bytes of sum_bytes: the sp-sharded page pool's sums
+SP_SUMS = {"calls": 0, "bytes": 0}
+
+
+@_timed
+def sum_bytes(xs: Sequence[torch.Tensor], group=None) -> List[torch.Tensor]:
+    """Each tensor of ``xs`` summed over the group on its raw bytes, all
+    of them in one all-reduce of one ``uint8`` buffer (any mix of dtypes
+    and shapes): new tensors in ``xs``'s dtypes and shapes, or ``xs``
+    itself over one process. Exact wherever at most one rank holds a
+    nonzero byte at a position, as in the sharded page pool (each page
+    has one owner and the others send zeros) and in a value one rank
+    sends to all: a byte plus zeros is that byte, so every dtype comes
+    back bit for bit (-0.0 included, which a float sum would turn into
+    0.0). Counted in :data:`SP_SUMS` (calls and the buffer's bytes)."""
+    xs = list(xs)
+    dist = _dist()
+    if dist is None or group_size(group) == 1:
+        return xs
+    # each tensor's bytes start on a 16-byte boundary of the buffer, so
+    # its slice views back as its dtype
+    spans, off = [], 0
+    for x in xs:
+        n = x.numel() * x.element_size()
+        spans.append((off, n))
+        off += -(-n // 16) * 16
+    flat = torch.zeros(off, dtype=torch.uint8, device=xs[0].device)
+    for x, (o, n) in zip(xs, spans):
+        flat[o:o + n] = x.contiguous().reshape(-1).view(torch.uint8)
+    run_collective("all_reduce(bytes)", lambda: dist.all_reduce(
+        flat, group=group), flat, group)
+    SP_SUMS["calls"] += 1
+    SP_SUMS["bytes"] += off
+    return [flat[o:o + n].view(x.dtype).reshape(x.shape)
+            for x, (o, n) in zip(xs, spans)]
 
 
 def _gather_dim(x, dim, group):

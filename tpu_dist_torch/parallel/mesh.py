@@ -11,10 +11,9 @@ axis.
 Ranks take their mesh coordinates in the reference's row-major order
 (``np.asarray(devices).reshape(shape)``, ``:63``): the last axis varies
 fastest. A ``-1`` in the shape is inferred from the world size
-(``:55-58``). The axes ``data``, ``model``, ``seq``, ``expert`` and
-``stage`` (pipeline parallelism, ``parallel.pp``) are ported; ``sp``
-(sp-sharded serving) raises ``NotImplementedError`` naming itself
-(ROADMAP Queue 1).
+(``:55-58``). The axes are ``data``, ``model``, ``seq``, ``expert``,
+``stage`` (pipeline parallelism, ``parallel.pp``) and ``sp`` (the
+serving engine's sharded page pool, ``engine.serve``).
 
 :func:`make_mesh` makes the groups of every axis: for each axis of size
 above 1, one ``dist.new_group`` per slice of ranks that differ only along
@@ -50,10 +49,8 @@ STAGE_AXIS = "stage"    # pipeline parallel
 EXPERT_AXIS = "expert"  # MoE expert parallel
 SP_AXIS = "sp"          # serving sequence parallel
 
-PORTED_AXES = (DATA_AXIS, MODEL_AXIS, SEQ_AXIS, EXPERT_AXIS, STAGE_AXIS)
-_UNPORTED_AXES = {
-    SP_AXIS: "sp-sharded serving is ROADMAP Queue 1 item 4",
-}
+PORTED_AXES = (DATA_AXIS, MODEL_AXIS, SEQ_AXIS, EXPERT_AXIS, STAGE_AXIS,
+               SP_AXIS)
 
 
 def _dist():
@@ -139,6 +136,15 @@ class Mesh:
         return self.axis(name).index
 
 
+def axis_mesh(mesh: Mesh, name: str, as_name: str) -> Mesh:
+    """The one-axis mesh of ``mesh``'s axis ``name`` as this rank sees it
+    (its size, index and group; no new group), named ``as_name``: script
+    8 serves on the ranks of its ``seq`` axis as an ``sp`` mesh."""
+    ax = mesh.axis(name)
+    return Mesh({as_name: ax.size}, mesh.rank, mesh.size, mesh.device,
+                {as_name: Axis(as_name, ax.size, ax.index, ax.group)})
+
+
 def _coords(rank: int, sizes: Sequence[int]) -> Tuple[int, ...]:
     """Row-major coordinates of ``rank`` in a grid of ``sizes``."""
     out = []
@@ -162,9 +168,6 @@ def make_mesh(shape: Optional[Sequence[int]] = None,
     must call it, with the same arguments (module docstring)."""
     axes = tuple(axes)
     for a in axes:
-        if a in _UNPORTED_AXES:
-            raise NotImplementedError(
-                f"mesh axis {a!r} is not ported yet: {_UNPORTED_AXES[a]}")
         if a not in PORTED_AXES:
             raise ValueError(f"unknown mesh axis {a!r} "
                              f"({'|'.join(PORTED_AXES)})")

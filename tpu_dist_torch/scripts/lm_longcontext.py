@@ -20,8 +20,11 @@ tensors on gloo (two ranks sharing one card). ``--steps`` (alias
 of ``--max-steps``), ``--generate N``
 (greedy-decode N tokens afterwards with ``engine.generate`` and report how
 many follow the synthetic affine rule) and ``--serve N`` (stand up the
-port's ``ServeEngine`` on the trained model, chunked prefill, and serve one
-long prompt plus N short requests) are the script's own. ``--device``
+port's ``ServeEngine`` on the trained model and serve one long prompt plus
+N short requests: with ``seq=M`` in ``--mesh`` every rank of the ``seq``
+group joins a page pool sharded over those M ranks as the ``sp`` axis and
+the long prompt prefills sequence-parallel; without it, chunked prefill
+on one rank) are the script's own. ``--device``
 picks the device (default ``cuda``; ``cpu`` runs the plain versions).
 Without ``--data``, the corpus is the deterministic synthetic affine
 stream.
@@ -61,18 +64,45 @@ def follows(toks, start: int, vocab: int):
     return hits, len(toks) - start
 
 
-def serve(trainer, model, n_short: int) -> str:
+SERVE_PAGE = 8
+
+
+def serve_mesh(trainer):
+    """The ``sp`` mesh ``--serve`` shards its pool over: the trained
+    mesh's ``seq`` axis (every rank of the group joins), or None (one
+    rank, chunked) without one or when ``seq_len`` is too short for it."""
+    from tpu_dist_torch.parallel.mesh import SEQ_AXIS, SP_AXIS, axis_mesh
+
+    if not trainer.use_sp:
+        return None
+    n = trainer.mesh.shape[SEQ_AXIS]
+    if trainer.cfg.seq_len < 2 * n * SERVE_PAGE:
+        trainer.log(f"--serve: seq_len {trainer.cfg.seq_len} too short for "
+                    f"a {n}-device sp pool; serving chunked on one device")
+        return None
+    return axis_mesh(trainer.mesh, SEQ_AXIS, SP_AXIS)
+
+
+def serve(trainer, model, n_short: int, mesh=None) -> str:
+    """One long prompt and ``n_short`` short ones through ``ServeEngine``
+    (script 8's ``--serve``): sequence-parallel over ``mesh`` (every rank
+    of it calls this) at or past half the serving length, else chunked."""
     from tpu_dist_torch.engine.serve import (DecodeRequest, ServeConfig,
                                              ServeEngine)
 
-    page_size = 8
-    serve_len = (trainer.cfg.seq_len // page_size) * page_size
-    scfg = ServeConfig(max_slots=4, page_size=page_size,
-                       num_pages=4 * (serve_len // page_size),
-                       max_len=serve_len, prefill_chunk=2 * page_size)
-    eng = ServeEngine(model, scfg, device=trainer.device)
+    sp_n = mesh.shape["sp"] if mesh is not None else 1
+    step = sp_n * SERVE_PAGE
+    serve_len = (trainer.cfg.seq_len // step) * step
+    thresh = serve_len // 2
+    scfg = ServeConfig(max_slots=4, page_size=SERVE_PAGE,
+                       num_pages=4 * (serve_len // SERVE_PAGE),
+                       max_len=serve_len, prefill_chunk=2 * SERVE_PAGE,
+                       sp_prefill_threshold=thresh if mesh is not None
+                       else 0)
+    eng = ServeEngine(model, scfg, mesh=mesh,
+                      device=None if mesh is not None else trainer.device)
     v = trainer.vocab_size
-    long_len = serve_len // 2
+    long_len = thresh
     reqs = [DecodeRequest(0, affine(3, long_len, v), 8)]
     reqs += [DecodeRequest(i + 1, affine(3 + i, 6, v), 8)
              for i in range(n_short)]
@@ -83,8 +113,9 @@ def serve(trainer, model, n_short: int) -> str:
         hits, total = hits + h, total + t
     st = eng.stats()
     return (f"served {len(comps)}/{len(reqs)} requests (1 long "
-            f"{long_len}-token prompt + {n_short} short) on "
-            f"{trainer.device}: {st['chunk_ticks']} chunk ticks, occupancy "
+            f"{long_len}-token prompt + {n_short} short) on {sp_n} "
+            f"device(s): {st['sp_prefills']} sp prefills, "
+            f"{st['chunk_ticks']} chunk ticks, occupancy "
             f"{st['occupancy'] * 100:.0f}%, {hits}/{total} generated tokens "
             "follow the affine rule")
 
@@ -104,8 +135,9 @@ def main(argv=None):
                     help="after training, greedy-decode N tokens and report "
                          "how often they follow the affine rule")
     ap.add_argument("--serve", type=int, default=0,
-                    help="after training, serve one long prompt (chunked "
-                         "prefill) plus N short requests with ServeEngine")
+                    help="after training, serve one long prompt plus N "
+                         "short requests with ServeEngine (sp-sharded over "
+                         "the seq axis of --mesh, else chunked prefill)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (the plain versions)")
     ap.add_argument("--backend", default=None, choices=["nccl", "gloo"],
@@ -155,9 +187,10 @@ def run(args, cfg, info):
     if not (args.generate or args.serve):
         return
     model = trainer.whole_model()     # every rank: a gather when sharded
-    if not trainer.is_main:
+    mesh = serve_mesh(trainer) if args.serve else None
+    if not trainer.is_main and mesh is None:
         return
-    if args.generate:
+    if args.generate and trainer.is_main:
         from tpu_dist_torch.engine.generate import generate
 
         n = min(args.generate, cfg.seq_len - 2)
@@ -170,7 +203,9 @@ def run(args, cfg, info):
         print(f"generated {n} tokens, {hits}/{n} follow the affine rule: "
               f"{row.tolist()}", flush=True)
     if args.serve:
-        print(serve(trainer, model, args.serve), flush=True)
+        line = serve(trainer, model, args.serve, mesh)
+        if trainer.is_main:
+            print(line, flush=True)
 
 
 if __name__ == "__main__":

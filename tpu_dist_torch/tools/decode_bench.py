@@ -35,7 +35,21 @@ N slowest requests' span trees to stderr.
 ``--serve-quant int8`` runs every dense layer through the fused int8
 kernel, ``--spec-k K`` decodes speculatively (self-speculation: the base
 drafts for itself). A warm replay (discarded) runs first.
-``--long-context`` is not ported yet and raises naming itself.
+
+Long-context mode (``--long-context PATH``, e.g.
+``tools/traces/longcontext_mix.json``, or ``--prompt-len-dist
+LEN:WEIGHT,...`` to draw one): mixed short and book-length traffic
+replays through chunked prefill (``--prefill-chunk``) under a virtual
+cost-model clock (each scheduler step costs ``tick_floor`` plus its
+prefill tokens), then the same trace without its long prompts as the
+interference baseline; ``--long-monolithic`` adds the unchunked contrast
+and ``--sp-capacity N`` serves one context longer than a device's page
+budget on N ranks of an ``sp`` mesh (spawned as ``--tp`` spawns its
+ranks; geometry-tiny, as in the reference). The JSON's ``serving`` block
+has the reference's keys (``ttft_long_p99``, ``tpot_interference_pct``
+and the rest, in virtual token-equivalents) under the port's metric name
+``torch_lm_longcontext_serving``, plus ``runs``: each replay's ticks,
+prefills and wall seconds.
 
 ``--tp N`` / ``--dp N`` (one-shot mode) decode over a ``data=dp,
 model=tp`` mesh through ``engine.generate(mesh=)``, one process per
@@ -92,6 +106,216 @@ def _drive_trace(eng, arrivals, prompts, outs):
         if wall_tick > 1_000_000:
             raise RuntimeError("trace replay did not drain")
     return comps, time.perf_counter() - t0
+
+
+class _VirtualClock:
+    """The long-context replay's engine clock: one unit is one
+    token-equivalent of scheduler-step cost. Each step costs the tick
+    floor plus the prefill tokens it pushed (the engine's
+    ``prefill_token_work`` delta), so the numbers are schedule arithmetic,
+    the same on any machine."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self):
+        return self.t
+
+
+def _drive_longcontext(eng, clock, reqs, floor):
+    """Replay a long-context trace under the virtual clock: arrivals in
+    scheduler-iteration units, the clock advanced by ``floor`` plus the
+    iteration's prefill-token work after every step."""
+    from tpu_dist_torch.engine.serve import DecodeRequest
+
+    n = len(reqs)
+    i = 0
+    it = 0
+    comps = []
+    while i < n or eng.queue or any(s is not None for s in eng.slots):
+        while i < n and reqs[i]["arrival"] <= it:
+            eng.submit(DecodeRequest(i, reqs[i]["prompt"],
+                                     int(reqs[i]["out_len"])))
+            i += 1
+        work0 = eng.prefill_token_work
+        comps.extend(eng.step())
+        clock.t += floor + (eng.prefill_token_work - work0)
+        it += 1
+        if it > 1_000_000:
+            raise RuntimeError("long-context replay did not drain")
+    return comps
+
+
+def long_context_trace(args, trace=None):
+    """The long-context trace: ``trace`` as given, else the file of
+    ``--long-context``, else drawn from ``--prompt-len-dist`` (weighted
+    prompt lengths, seeded Poisson arrivals, ``--min-out``/``--max-out``),
+    as the reference draws it."""
+    import numpy as np
+
+    if trace is None and args.long_context:
+        with open(args.long_context) as f:
+            trace = json.load(f)
+    if trace is not None:
+        return trace
+    pairs = [p.split(":") for p in args.prompt_len_dist.split(",")]
+    lens = np.array([int(n) for n, _ in pairs])
+    weights = np.array([float(w) for _, w in pairs], dtype=float)
+    weights = weights / weights.sum()
+    count = args.trace or 32
+    rng = np.random.default_rng(args.trace_seed)
+    gaps = rng.exponential(1.0 / max(args.arrival_rate, 1e-9), count)
+    arrivals = np.floor(np.cumsum(gaps)).astype(int)
+    plens = rng.choice(lens, size=count, p=weights)
+    outs = rng.integers(args.min_out, args.max_out + 1, count)
+    return {"seed": args.trace_seed, "tick_floor": args.tick_floor,
+            "long_threshold": args.long_threshold,
+            "requests": [{"arrival": int(a), "prompt_len": int(p),
+                          "out_len": int(o)}
+                         for a, p, o in zip(arrivals, plens, outs)]}
+
+
+def replay_long_context(args, model, trace=None):
+    """The ``serving`` block of the long-context mode (module docstring),
+    on one device: the trace through chunked prefill, the same trace
+    without its long prompts (the baseline of ``tpot_interference_pct``)
+    and, with ``--long-monolithic``, through monolithic prefill. The
+    ``--sp-capacity`` proof is :func:`sp_capacity_proof`."""
+    import numpy as np
+
+    from tpu_dist_torch.engine.serve import ServeConfig, ServeEngine
+
+    trace = long_context_trace(args, trace)
+    floor = trace["tick_floor"]
+    thr = trace["long_threshold"]
+    rng = np.random.default_rng(trace["seed"])
+    reqs = [dict(r) for r in trace["requests"]]
+    for r in reqs:
+        # token content drawn in trace order from the trace seed
+        r["prompt"] = rng.integers(0, args.vocab_size,
+                                   (r["prompt_len"],)).astype(np.int32)
+    max_total = max(r["prompt_len"] + r["out_len"] for r in reqs)
+    pages_per_seq = -(-max_total // args.page_size)
+    num_pages = args.num_pages or args.serve_slots * pages_per_seq
+    runs = {}
+
+    def run(name, subset, chunk):
+        clock = _VirtualClock()
+        eng = ServeEngine(model, ServeConfig(
+            max_slots=args.serve_slots, page_size=args.page_size,
+            num_pages=num_pages, max_len=max_total,
+            quant=args.serve_quant, kv_quant=args.kv_quant,
+            attn_read=args.attn_read, prefill_chunk=chunk), now_fn=clock,
+            device=model.device)
+        t0 = time.perf_counter()
+        comps = _drive_longcontext(eng, clock, subset, floor)
+        if model.device.type == "cuda":
+            import torch
+
+            torch.cuda.synchronize(model.device)
+        runs[name] = {"ticks": eng.ticks, "prefills": eng.prefills,
+                      "chunk_ticks": eng.chunk_ticks,
+                      "completed": len(comps),
+                      "wall_s": time.perf_counter() - t0}
+        return comps, eng
+
+    def p99(xs):
+        v = _pctl(sorted(xs), 99)
+        return None if v is None else round(v, 3)
+
+    def short_tpots(comps, subset):
+        return [(c.finish_ts - c.first_token_ts) / (c.n_generated - 1)
+                for c in comps if c.n_generated > 1
+                and subset[c.rid]["prompt_len"] < thr]
+
+    chunk = args.prefill_chunk
+    comps, eng = run("chunked", reqs, chunk)
+    ttft_long = [c.ttft_s for c in comps
+                 if reqs[c.rid]["prompt_len"] >= thr]
+    tpot_mixed = p99(short_tpots(comps, reqs))
+    shorts_only = [r for r in reqs if r["prompt_len"] < thr]
+    base_comps, _ = run("baseline", shorts_only, chunk)
+    tpot_base = p99(short_tpots(base_comps, shorts_only))
+    interference = (None if not tpot_base or tpot_mixed is None
+                    else round((tpot_mixed - tpot_base) / tpot_base * 100,
+                               2))
+    serving = {
+        "mode": "long_context",
+        "requests": len(reqs),
+        "long_requests": len(reqs) - len(shorts_only),
+        "completed": len(comps),
+        "ticks": eng.ticks, "chunk_ticks": eng.chunk_ticks,
+        "requests_per_tick": round(len(comps) / max(eng.ticks, 1), 4),
+        "prefill_token_work": eng.prefill_token_work,
+        "prefill_chunk": chunk, "tick_floor": floor,
+        "long_threshold": thr,
+        "trace_seed": trace["seed"],
+        "slots": args.serve_slots, "page_size": args.page_size,
+        "num_pages": num_pages, "kv_quant": args.kv_quant,
+        "attn_read": args.attn_read,
+        "occupancy": round(eng.occupancy, 4),
+        # virtual token-equivalents throughout (_VirtualClock)
+        "ttft_long_p99": p99(ttft_long),
+        "tpot_short_p99": tpot_mixed,
+        "tpot_baseline_p99": tpot_base,
+        "tpot_interference_pct": interference,
+    }
+    print(f"serve[long-context]: {len(comps)}/{len(reqs)} completed "
+          f"({serving['long_requests']} long >= {thr} tok) in {eng.ticks} "
+          f"ticks + {eng.chunk_ticks} chunk ticks; TTFT-long p99 "
+          f"{serving['ttft_long_p99']}, short-TPOT interference "
+          f"{interference}% (chunk {chunk}, floor {floor})",
+          file=sys.stderr)
+    if args.long_monolithic:
+        # the unchunked contrast: the full-prompt stall lands in every
+        # concurrent short request's TPOT
+        mono_comps, mono_eng = run("monolithic", reqs, 0)
+        mono_p99 = p99(short_tpots(mono_comps, reqs))
+        serving["monolithic"] = {
+            "tpot_short_p99": mono_p99,
+            "tpot_interference_pct": (
+                None if not tpot_base or mono_p99 is None
+                else round((mono_p99 - tpot_base) / tpot_base * 100, 2)),
+            "ticks": mono_eng.ticks,
+        }
+        print(f"serve[long-context]: monolithic contrast interference "
+              f"{serving['monolithic']['tpot_interference_pct']}%",
+              file=sys.stderr)
+    serving["runs"] = runs
+    return serving
+
+
+def sp_capacity_proof(args, model, mesh, seed: int) -> dict:
+    """``--sp-capacity N``: on an ``sp`` mesh of N ranks (every rank calls
+    it), a per-device budget of 2 pages of 4 tokens and one prompt of 5N
+    + 1 tokens with N + 2 to generate, sp-prefilled and served whole: a
+    context longer than one device holds (the reference's tiny geometry).
+    Returns the ``sp_capacity`` block."""
+    import numpy as np
+
+    from tpu_dist_torch.engine.serve import (DecodeRequest, ServeConfig,
+                                             ServeEngine)
+
+    n = mesh.shape["sp"]
+    ps = 4
+    eng = ServeEngine(model, ServeConfig(
+        max_slots=1, page_size=ps, num_pages=2 * n, max_len=8 * n,
+        quant=args.serve_quant, sp_prefill_threshold=ps + 1), mesh=mesh)
+    plen, out_len = 5 * n + 1, n + 2
+    prompt = np.random.default_rng(seed).integers(
+        0, args.vocab_size, (plen,)).astype(np.int32)
+    comps = eng.run([DecodeRequest(0, prompt, out_len)])
+    budget = eng.pool.pages_per_device * ps
+    block = {"devices": n, "page_size": ps,
+             "pages_per_device": eng.pool.pages_per_device,
+             "device_token_budget": budget,
+             "context_tokens": plen + out_len,
+             "exceeds_single_device": plen + out_len > budget,
+             "completed": len(comps), "sp_prefills": eng.sp_prefills}
+    print(f"serve[long-context]: sp capacity -- {plen + out_len}-token "
+          f"context on {n} devices of {budget}-token budget each "
+          f"({len(comps)} completed)", file=sys.stderr)
+    return block
 
 
 def replay_serving_trace(args, model, ledger=None):
@@ -285,10 +509,6 @@ def one_shot(args, model, prompt, ledger=None, mesh=None) -> dict:
             "request_seconds": sum(lat)}
 
 
-# flags of the reference bench that wait for a later slice of the port
-UNPORTED_FLAGS = {"long_context": ""}
-
-
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--device", default="cuda",
@@ -336,9 +556,6 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--backend", default=None, choices=["nccl", "gloo"],
                     help="the --tp/--dp group's backend (default: nccl on "
                          "cuda, gloo on cpu)")
-    for flag, off in UNPORTED_FLAGS.items():
-        ap.add_argument("--" + flag.replace("_", "-"), type=type(off),
-                        default=off, help="not ported yet (raises)")
     ap.add_argument("--trace", type=int, default=0,
                     help="requests in the replayed trace (0 = the one-shot "
                          "bench)")
@@ -363,6 +580,33 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--kv-quant", default="none", choices=["none", "int8"])
     ap.add_argument("--serve-quant", default="none",
                     choices=["none", "int8", "int8_wo"])
+    ap.add_argument("--long-context", default="",
+                    help="long-context trace JSON (e.g. tools/traces/"
+                         "longcontext_mix.json): mixed short and long "
+                         "traffic through chunked prefill under the "
+                         "virtual cost-model clock (replaces the one-shot "
+                         "sections)")
+    ap.add_argument("--prompt-len-dist", default="",
+                    help="draw the long-context trace instead: "
+                         "'LEN:WEIGHT,...' prompt lengths (--trace N "
+                         "requests, --trace-seed, --arrival-rate, "
+                         "--min-out/--max-out)")
+    ap.add_argument("--prefill-chunk", type=int, default=128,
+                    help="long-context chunk size (0 = monolithic)")
+    ap.add_argument("--long-threshold", type=int, default=1024,
+                    help="prompts at least this long are 'long' "
+                         "(--prompt-len-dist; trace files carry theirs)")
+    ap.add_argument("--tick-floor", type=int, default=1024,
+                    help="virtual cost of a scheduler step before its "
+                         "prefill work, in token-equivalents "
+                         "(--prompt-len-dist; trace files carry theirs)")
+    ap.add_argument("--long-monolithic", action="store_true",
+                    help="also replay the long-context trace with "
+                         "prefill_chunk=0 (the unchunked contrast)")
+    ap.add_argument("--sp-capacity", type=int, default=0,
+                    help="with the long-context replay: serve a context "
+                         "longer than one device's page budget on N ranks "
+                         "of an sp mesh (geometry-tiny)")
     ap.add_argument("--ledger", default="",
                     help="JSONL ledger: run_start, one 'decode' event per "
                          "one-shot request, run_end; or the continuous "
@@ -375,28 +619,27 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
-    for flag, off in UNPORTED_FLAGS.items():
-        if getattr(args, flag) != off:
-            raise NotImplementedError(
-                f"decode_bench --{flag.replace('_', '-')} is not ported yet: "
-                "sp-sharded serving is a later slice of the port")
+    long_mode = bool(args.long_context or args.prompt_len_dist)
     world = max(args.tp, 1) * max(args.dp, 1)
+    if long_mode and args.sp_capacity > 1:
+        world = args.sp_capacity
     if args.tp or args.dp:
-        if args.trace:
+        if args.trace or long_mode:
             raise SystemExit("--tp/--dp decode through engine.generate's "
                              "mesh path (the one-shot mode); the --trace "
-                             "replay serves on one device")
+                             "and long-context replays serve on one device")
         if args.dp and args.batch % args.dp:
             # generate() would leave the batch whole, and the JSON would
             # claim a dp run that never happened
             raise SystemExit(f"--dp {args.dp} needs --batch divisible by "
                              f"it (got {args.batch})")
-        if world > 1 and "TPU_DIST_PROCESS_ID" not in os.environ:
+    if world > 1:
+        if "TPU_DIST_PROCESS_ID" not in os.environ:
             from tpu_dist_torch.parallel.launch import spawn
 
             spawn("tpu_dist_torch.tools.decode_bench", world, argv,
                   "127.0.0.1:0")
-            return
+            return None
         from tpu_dist_torch.parallel import launch
 
         launch.initialize(device=args.device, backend=args.backend)
@@ -408,6 +651,8 @@ def main(argv=None):
 
 
 def _bench(args):
+    """The bench in this process (a rank of the group under a mesh);
+    prints the JSON line on the main rank and returns its record."""
     import numpy as np
     import torch
 
@@ -416,15 +661,27 @@ def _bench(args):
         full_attention
     from tpu_dist_torch.ops.flash_attention import flash_attention_fn
 
-    mesh = None
+    long_mode = bool(args.long_context or args.prompt_len_dist)
+    mesh = sp_mesh = None
     if args.tp or args.dp:
         from tpu_dist_torch.parallel.mesh import make_mesh
 
         mesh = make_mesh((max(args.dp, 1), max(args.tp, 1)),
                          ("data", "model"), device=args.device)
-    device = mesh.device if mesh is not None else resolve_device(args.device)
-    main_rank = mesh is None or mesh.is_main
-    if args.trace:
+    elif long_mode and args.sp_capacity > 0:
+        from tpu_dist_torch.parallel.mesh import make_mesh
+
+        sp_mesh = make_mesh((args.sp_capacity,), ("sp",),
+                            device=args.device)
+    device = (mesh or sp_mesh).device if (mesh or sp_mesh) is not None \
+        else resolve_device(args.device)
+    main_rank = all(m is None or m.is_main for m in (mesh, sp_mesh))
+    if long_mode:
+        trace = long_context_trace(args)
+        max_len = max(max(r["prompt_len"] + r["out_len"]
+                          for r in trace["requests"]),
+                      8 * args.sp_capacity)
+    elif args.trace:
         max_len = (args.max_prompt + args.max_out
                    + (args.prefix_len if args.prefix_tenants else 0))
     else:
@@ -432,7 +689,7 @@ def _bench(args):
     dtype = torch.bfloat16 if args.precision == "bf16" else torch.float32
     if args.num_experts:
         from tpu_dist_torch.models.moe import MoETransformerLM
-        if args.trace:
+        if args.trace or long_mode:
             raise SystemExit("--trace serves the dense TransformerLM "
                              "(engine.serve has no MoE scheduling story "
                              "yet, ROADMAP item 4)")
@@ -461,14 +718,35 @@ def _bench(args):
             "heads": args.num_heads, "precision": args.precision,
             "temperature": args.temperature, "top_k": args.top_k,
             "top_p": args.top_p}
+    if long_mode:
+        # the replays run on the main rank; every rank of --sp-capacity's
+        # mesh joins the capacity proof
+        if ledger is not None:
+            ledger.emit("run_start", kind="decode_bench", config=vars(args),
+                        mesh=None, devices=[dev["kind"]],
+                        process_count=args.sp_capacity or 1)
+        serving = (replay_long_context(args, model, trace) if main_rank
+                   else None)
+        cap = (sp_capacity_proof(args, model, sp_mesh, trace["seed"])
+               if sp_mesh is not None else None)
+        if not main_rank:
+            return None
+        serving["sp_capacity"] = cap
+        if ledger is not None:
+            ledger.emit("run_end", steps=0, seconds=0.0)
+            ledger.close()
+        record = {"metric": "torch_lm_longcontext_serving", **head,
+                  "attn": args.attn, "serving": serving}
+        print(json.dumps(record))
+        return record
     if args.trace:
         serving = replay_serving_trace(args, model, ledger=ledger)
         if ledger is not None:
             ledger.close()
-        print(json.dumps({"metric": "torch_lm_serving", **head,
-                          "serving": serving,
-                          "ledger": args.ledger or None}))
-        return
+        record = {"metric": "torch_lm_serving", **head, "serving": serving,
+                  "ledger": args.ledger or None}
+        print(json.dumps(record))
+        return record
     if ledger is not None:
         ledger.emit("run_start", kind="decode_bench", config=vars(args),
                     mesh=({"tp": args.tp, "dp": args.dp} if mesh else None),
@@ -479,12 +757,12 @@ def _bench(args):
                           (args.batch, args.prompt_len)).astype(np.int32)
     res = one_shot(args, model, prompt, ledger, mesh)
     if not main_rank:
-        return
+        return None
     if ledger is not None:
         ledger.emit("run_end", steps=args.requests,
                     seconds=round(res["request_seconds"], 3))
         ledger.close()
-    print(json.dumps({
+    record = {
         "metric": "torch_lm_decode_tokens_per_sec",
         "kv_cache": res["kv_cache"], "full_recompute": res["full_recompute"],
         "batch": args.batch, "prompt_len": args.prompt_len,
@@ -492,7 +770,9 @@ def _bench(args):
         "dp": args.dp, "num_experts": args.num_experts,
         "requests": args.requests or None, "latency_ms": res["latency_ms"],
         "request_tokens_per_sec": res["request_tokens_per_sec"],
-        "serving": None, "ledger": args.ledger or None}))
+        "serving": None, "ledger": args.ledger or None}
+    print(json.dumps(record))
+    return record
 
 
 if __name__ == "__main__":
