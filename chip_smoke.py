@@ -201,6 +201,41 @@ CUDA or without the repository beside it. Phases:
    entry against its plain version at (b)'s summed view (B2 Lk8192 H8
    D128), timed.
 
+15. restart and faults: (a) ``python -m tpu_dist_torch.supervise
+   --ledger L --ckpt-dir CK --max-restarts 4 --backoff-s 0.5
+   --stall-grace-s 5 -- python3 chip_smoke.py --p15-child OUT <flags>``,
+   the child wrapping ``scripts.lm_longcontext.main`` (and writing its
+   kernel counts at exit) at phase 6's model on a corpus of 4 steps an
+   epoch, 12 steps, one drain a step, twice: uninterrupted, and with
+   ``--faults hang@step=6,attempt=0;preempt_deadline@step=9,attempt=1;
+   hard_exit@step=10,attempt=2``: four attempts classed stall,
+   preemption_snapshotted, crash and clean (by the supervisor and by
+   ``classify_attempt`` over each attempt ledger), resumed at steps 4, 9
+   and 9, the supervisor's exit 0, the stitched losses of steps 0-11
+   within LOSS_TOL (1 + |loss|) of the uninterrupted run's (whether
+   bit-equal is reported), per step of each clean attempt 8
+   ``flash_fwd``, 8 ``flash_bwd_dq``, 8 ``flash_bwd_dkv`` and 1
+   ``adamw`` launch (validation's forwards apart), each attempt's
+   seconds, the stall's detection (after the last beat) and kill (after
+   the stall event) latencies, the snapshot's write seconds and both
+   runs' walls; (b) ``run_supervised`` over the LMTrainer at (a)'s width
+   in this process for 8 steps, ``health="halt"`` and
+   ``nan_batch@step=6,attempt=0``: the halt restarts from the step-4
+   checkpoint and steps 4-7 are within LOSS_TOL of (a)'s uninterrupted
+   run; (c) ``scripts.image_train`` at
+   BENCH_GEOMETRY cut to 4 steps an epoch, 2-step windows and 2 epochs
+   (P15_IMAGE) with ``--max-restarts 1 --health halt --faults
+   nan_batch@step=6,attempt=0``: health_halt then clean, one ``sgd``
+   launch a step, a finite final loss; (d) phase 4's tiny fp32 LM: a
+   preemption snapshot at step 5, then two gloo ranks sharing the card
+   with ``TPU_DIST_PEER_RESUME=1``, rank 0 resuming the snapshot and rank
+   1 with none (a fresh init at step 0): rank 1 adopts rank 0's params
+   and step, and step 5's loss is equal on both ranks and within LOSS_TOL
+   of one rank resumed from the snapshot; (e) the same LM with
+   ``ckpt_enospc@nth=2``: the second epoch's write fails inside the
+   container write, the run raises, and the newest valid checkpoint is
+   the first epoch's, which reloads on the card.
+
 The line before the last is the card's name and power limit; the one
 before it the ``{"kernels": [...]}`` record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -1838,6 +1873,8 @@ def dp_job(torch, kernels, job, out, rank):
         return p13_decode_job(torch, kernels, job, out, rank)
     if kind == "sp14":
         return p14_serve_job(torch, kernels, job, out, rank)
+    if kind == "restart15":
+        return p15_restart_job(torch, kernels, job, out, rank)
     if kind == "probe":
         mesh = make_mesh(device=device)
         res = {"backend": C.backend_of(mesh.group()), "world": mesh.size}
@@ -3934,6 +3971,538 @@ def longcontext_path(torch, kernels, tmp, device="cuda"):
     return rec, by_run
 
 
+# ---- phase 15: restart and faults -----------------------------------------
+
+P15_CHILD = "--p15-child"
+# phase 6's LM at full width on a synthetic corpus of 32 train rows of
+# 2049 tokens (4 steps an epoch at batch 8; one validation row, padded to
+# one batch), 3 epochs to 12 steps, one drain a step (print_freq 1: the
+# watchdog gets a beat a step, two of them before step 6)
+P15_MODEL = dict(synth_tokens=70_000)
+P15_RUN = dict(epochs=3, max_steps=12, print_freq=1)
+# 15b: the same run cut to 2 epochs (8 steps; the constant LR makes its
+# steps 0-7 those of 15a's)
+P15B_RUN = dict(epochs=2, max_steps=8, print_freq=1)
+P15_FAULTS = ("hang@step=6,attempt=0;preempt_deadline@step=9,attempt=1;"
+              "hard_exit@step=10,attempt=2")
+P15_CLASSES = ["stall", "preemption_snapshotted", "crash", "clean"]
+P15_RESUMES = [4, 9, 9]
+P15_SUPERVISE = ["--max-restarts", "4", "--backoff-s", "0.5",
+                 "--stall-grace-s", "5"]
+# 15c: BENCH_GEOMETRY cut to 4 steps an epoch and 2-step windows over 2
+# epochs, so the fault lands mid-epoch; 15d: phase 4's tiny fp32 LM
+P15_IMAGE = dict(synth_train_size=4096, synth_val_size=1024,
+                 steps_per_dispatch=2, epochs=2)
+P15_IMAGE_FAULT = "nan_batch@step=6,attempt=0"
+P15_TINY_LM = dict(batch_size=4, seq_len=96, d_model=128, num_layers=2,
+                   num_heads=1, vocab_size=64, synth_tokens=4000, seed=SEED,
+                   attn="flash", optimizer="fused_adamw", lr=3e-3,
+                   grad_clip=0.5, weight_decay=0.1, print_freq=1,
+                   precision="fp32")
+P15_SNAPSHOT_STEP = 5
+P15_TINY_STEPS = 8
+
+
+def lm_argv(cfg):
+    """The ``--flag value`` pairs of an ``LMConfig`` that differ from the
+    defaults (scalars only), for the script's parser."""
+    from tpu_dist_torch.configs import LMConfig
+
+    base = LMConfig()
+    out = []
+    for f in dataclasses.fields(cfg):
+        v = getattr(cfg, f.name)
+        if v != getattr(base, f.name) and isinstance(v, (int, float, str)) \
+                and not isinstance(v, bool):
+            out += [f"--{f.name.replace('_', '-')}", str(v)]
+    return out
+
+
+def p15_child(out_dir, argv):
+    """One attempt of 15a's supervised command (``chip_smoke.py
+    --p15-child OUT <script flags>``): ``scripts.lm_longcontext.main`` on
+    ``argv`` (with the lineage flags the supervisor appends), writing the
+    kernel counts, the trained steps and the validation batches of the
+    run to ``OUT/launches.a<TPU_DIST_ATTEMPT>.json`` when it exits (a
+    clean end or the preemption snapshot's exit 75; a killed attempt
+    writes none). Returns the script's exit code."""
+    import atexit
+
+    import torch
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, here)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from tpu_dist_torch import kernels
+    from tpu_dist_torch.engine import lm_loop
+    from tpu_dist_torch.scripts import lm_longcontext
+
+    made = []
+    fit = lm_loop.LMTrainer.fit
+
+    def tracked(self):
+        made.append(self)
+        return fit(self)
+
+    lm_loop.LMTrainer.fit = tracked
+    attempt = os.environ.get("TPU_DIST_ATTEMPT", "x")
+
+    def dump():
+        rec = {"launches": dict(kernels.LAUNCHES)}
+        if made:
+            tr = made[-1]
+            rec["step"] = tr.state.step
+            rec["eval_batches"] = len(tr._epoch_indices(tr.val_ds, False,
+                                                        0)[0])
+            rec["layers"] = tr.cfg.num_layers
+        with open(os.path.join(out_dir, f"launches.a{attempt}.json"),
+                  "w") as f:
+            json.dump(rec, f)
+
+    atexit.register(dump)
+    kernels.reset_launches()
+    lm_longcontext.main(argv)
+    return 0
+
+
+class StampedStderr:
+    """Read a process's stderr on a thread, each line with its arrival
+    time, and echo it to this process's stderr."""
+
+    def __init__(self, pipe):
+        import threading
+
+        self.lines = []
+        self._t = threading.Thread(target=self._run, args=(pipe,),
+                                   daemon=True)
+        self._t.start()
+
+    def _run(self, pipe):
+        for line in pipe:
+            self.lines.append((time.time(), line))
+            sys.stderr.write(line)
+
+    def join(self):
+        self._t.join(timeout=10)
+        return self.lines
+
+
+def p15_supervise(tmp, name, script_argv, device):
+    """One ``python -m tpu_dist_torch.supervise`` run of the LM script
+    through :func:`p15_child`: (record, attempt ledgers' records, child
+    count files, stamped stderr lines)."""
+    from tpu_dist_torch.obs.goodput import discover_attempt_paths
+    from tpu_dist_torch.obs.ledger import read_ledger
+
+    d = os.path.join(tmp, name)
+    os.makedirs(d, exist_ok=True)
+    ledger = os.path.join(d, "run.jsonl")
+    here = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "tpu_dist_torch.supervise", "--ledger",
+           ledger, "--ckpt-dir", os.path.join(d, "ck"), *P15_SUPERVISE,
+           "--", sys.executable, os.path.join(here, "chip_smoke.py"),
+           P15_CHILD, d, *script_argv, "--device", device]
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("TPU_DIST_", "SLURM_"))}
+    env["PYTHONPATH"] = here + (os.pathsep + env["PYTHONPATH"]
+                                if env.get("PYTHONPATH") else "")
+    t0 = time.time()
+    proc = subprocess.Popen(cmd, env=env, cwd=here, stderr=subprocess.PIPE,
+                            stdout=subprocess.DEVNULL, text=True,
+                            errors="replace")
+    err = StampedStderr(proc.stderr)
+    try:
+        rc = proc.wait(timeout=900)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise AssertionError(f"15a {name}: the supervisor ran past 900s")
+    wall = time.time() - t0
+    lines = err.join()
+    if rc != 0:
+        tail = "".join(line for _, line in lines[-60:])
+        raise AssertionError(f"15a {name}: supervise exited {rc}:\n{tail}")
+    attempts = []
+    pat = re.compile(r"attempt (\d+) ended: rc=(\S+) class=(\S+) \((\d+) "
+                     r"step record\(s\) in ([\d.]+)s\)")
+    for _, line in lines:
+        m = pat.search(line)
+        if m:
+            attempts.append({"attempt": int(m.group(1)), "rc": m.group(2),
+                             "class": m.group(3),
+                             "step_records": int(m.group(4)),
+                             "seconds": float(m.group(5))})
+    recs = [read_ledger(p, validate=False, strict=False)
+            for p in discover_attempt_paths(ledger)]
+    counts = {}
+    for a in attempts:
+        p = os.path.join(d, f"launches.a{a['attempt']}.json")
+        if os.path.exists(p):
+            with open(p) as f:
+                counts[a["attempt"]] = json.load(f)
+    return ({"wall_s": wall, "attempts": attempts, "ledger": ledger},
+            recs, counts, lines)
+
+
+def p15_losses(recs):
+    return {r["step"]: r["loss"] for r in recs if r["event"] == "step"}
+
+
+def p15_clean_counts(tag, rec, steps, device):
+    """Per step of a clean attempt: 8 (layers) flash_fwd, flash_bwd_dq and
+    flash_bwd_dkv and 1 adamw launch, validation's forwards apart (no
+    kernel runs on the CPU: there the counts are reported, not held)."""
+    n, layers = rec["launches"], rec["layers"]
+    evals = rec["evals"] * rec["eval_batches"]
+    per = {"flash_fwd": (n["flash_fwd"] - layers * evals) / steps,
+           "flash_bwd_dq": n["flash_bwd_dq"] / steps,
+           "flash_bwd_dkv": n["flash_bwd_dkv"] / steps,
+           "adamw": n["adamw"] / steps}
+    want = {"flash_fwd": layers, "flash_bwd_dq": layers,
+            "flash_bwd_dkv": layers, "adamw": 1}
+    if per != want and device == "cuda":
+        raise AssertionError(f"{tag}: launches a step {per}, expected "
+                             f"{want} ({n})")
+    return per
+
+
+def p15_supervised_lm(torch, kernels, tmp, device):
+    """15a (module docstring): the uninterrupted run and the faulted one,
+    each through ``python -m tpu_dist_torch.supervise``."""
+    from tpu_dist_torch.parallel.supervisor import classify_attempt
+
+    cfg = full_lm_config(**P15_MODEL, **P15_RUN)
+    argv = lm_argv(cfg)
+    one, one_recs, one_counts, _ = p15_supervise(tmp, "uninterrupted", argv,
+                                                 device)
+    if [a["class"] for a in one["attempts"]] != ["clean"]:
+        raise AssertionError(f"15a uninterrupted: {one['attempts']}")
+    want = p15_losses(one_recs[0])
+    if sorted(want) != list(range(P15_RUN["max_steps"])) or \
+            not all(map(math.isfinite, want.values())):
+        raise AssertionError(f"15a uninterrupted losses {want}")
+    run, recs, counts, lines = p15_supervise(
+        tmp, "faulted", argv + ["--faults", P15_FAULTS], device)
+    classes = [a["class"] for a in run["attempts"]]
+    if classes != P15_CLASSES:
+        raise AssertionError(f"15a classes {classes}: {run['attempts']}")
+    verdicts = [classify_attempt(r) for r in recs]
+    # a SIGKILLed attempt's ledger alone reads as its last words: the
+    # stall event with no run_end is 'stall', the hard exit 'crash'
+    if verdicts != P15_CLASSES:
+        raise AssertionError(f"15a ledger verdicts {verdicts}")
+    per = [p15_losses(r) for r in recs]
+    resumes = [min(p) for p in per[1:]]
+    if resumes != P15_RESUMES:
+        raise AssertionError(f"15a resumed at {resumes}, expected "
+                             f"{P15_RESUMES}")
+    stitched = {}
+    for p in per:
+        stitched.update(p)
+    if sorted(stitched) != sorted(want):
+        raise AssertionError(f"15a stitched steps {sorted(stitched)}")
+    diffs = {k: abs(stitched[k] - want[k]) for k in want}
+    for k, dv in diffs.items():
+        if dv > LOSS_TOL * (1 + abs(want[k])):
+            raise AssertionError(f"15a step {k}: {stitched[k]} vs "
+                                 f"{want[k]} (tol {LOSS_TOL} (1 + |loss|))")
+    # the stall: the watchdog's event after the last beat, the kill after
+    stall = next(r for r in recs[0] if r["event"] == "stall")
+    last_beat = max(r["ts"] for r in recs[0] if r["event"] == "step")
+    kill_ts = next(ts for ts, line in lines
+                   if "SIGKILLing" in line and "stall" in line)
+    snap = next(r for r in recs[1] if r["event"] == "ckpt"
+                and r.get("preempt"))
+    # kernels a step on the clean attempts, read from the children
+    launches = {}
+    for tag, rec_c, recs_c in (("uninterrupted", one_counts.get(0),
+                                one_recs[0]),
+                               ("attempt 3", counts.get(3), recs[3])):
+        if rec_c is None:
+            raise AssertionError(f"15a {tag}: no counts from the child")
+        rec_c["evals"] = sum(r["event"] == "eval" for r in recs_c)
+        steps = sum(r["event"] == "step" for r in recs_c)
+        rec_c["per_step"] = p15_clean_counts(f"15a {tag}", rec_c, steps,
+                                             device)
+        launches[tag] = rec_c
+    return {"config": {"argv": argv, "faults": P15_FAULTS,
+                       "supervise": P15_SUPERVISE},
+            "classes": classes, "ledger_verdicts": verdicts,
+            "resumed_at": resumes, "supervisor_rc": 0,
+            "attempt_s": [a["seconds"] for a in run["attempts"]],
+            "attempts": run["attempts"],
+            "stall_detect_s": stall["ts"] - last_beat,
+            "stall_threshold_s": stall["threshold_s"],
+            "stall_kill_after_event_s": kill_ts - stall["ts"],
+            "snapshot_write_s": snap["seconds"],
+            "snapshot_step": next(r for r in recs[1]
+                                  if r["event"] == "run_end")[
+                                      "snapshot_step"],
+            "restarts_wall_s": run["wall_s"],
+            "uninterrupted_wall_s": one["wall_s"],
+            "uninterrupted_attempt_s": one["attempts"][0]["seconds"],
+            "stitched_losses": [stitched[k] for k in sorted(stitched)],
+            "max_abs_loss_diff": max(diffs.values()),
+            "bit_equal": all(dv == 0 for dv in diffs.values()),
+            "tolerance": f"{LOSS_TOL} (1 + |loss|)",
+            "clean_attempt_launches": launches}, {
+        "p15a_uninterrupted": launches["uninterrupted"]["launches"],
+        "p15a_attempt3_clean": launches["attempt 3"]["launches"]}, want
+
+
+def p15_in_process(torch, kernels, tmp, device, want):
+    """15b: ``run_supervised`` over the LMTrainer at 15a's width, a
+    ``nan_batch`` at step 6 of attempt 0 under ``health="halt"``."""
+    from tpu_dist_torch.engine.lm_loop import LMTrainer
+    from tpu_dist_torch.obs import faults
+    from tpu_dist_torch.obs.ledger import read_ledger
+    from tpu_dist_torch.parallel.supervisor import (classify_attempt,
+                                                    run_supervised)
+
+    faults._reset_for_tests()
+    d = os.path.join(tmp, "p15b")
+    os.makedirs(d)
+    cfg = full_lm_config(**P15_MODEL, **P15B_RUN, health="halt",
+                         max_restarts=2, restart_backoff_s=0.5,
+                         faults="nan_batch@step=6,attempt=0",
+                         ledger_path=os.path.join(d, "run.jsonl"),
+                         checkpoint_dir=os.path.join(d, "ck"))
+    built = []
+
+    def make(run_cfg):
+        built.clear()
+        free_device(torch)
+        built.append(LMTrainer(run_cfg, device=device))
+        return built[0]
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    run_supervised(make, cfg)
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    tr = built[0]
+    faults._reset_for_tests()
+    recs = [read_ledger(os.path.join(d, p), validate=False)
+            for p in ("run.jsonl", "run.a1.jsonl")]
+    classes = [classify_attempt(r) for r in recs]
+    if classes != ["health_halt", "clean"] or \
+            tr.state.step != P15B_RUN["max_steps"]:
+        raise AssertionError(f"15b classes {classes}, step {tr.state.step}")
+    first, after = p15_losses(recs[0]), p15_losses(recs[1])
+    # the ledger writes the NaN loss of step 6 as null
+    if min(after) != 4 or first.get(6, 0.0) is not None:
+        raise AssertionError(f"15b resumed at {min(after)}, step 6 loss "
+                             f"{first.get(6)}")
+    diffs = {k: abs(v - want[k]) for k, v in after.items()}
+    for k, dv in diffs.items():
+        if dv > LOSS_TOL * (1 + abs(want[k])):
+            raise AssertionError(f"15b step {k}: {after[k]} vs {want[k]}")
+    trained = 7 + len(after)
+    if device == "cuda" and (launches["adamw"] != trained or
+                             launches["flash_bwd_dq"] != 8 * trained):
+        raise AssertionError(f"15b launches {launches} for {trained} steps")
+    health = next(r for r in recs[0] if r["event"] == "health")
+    return {"classes": classes, "halt_at_step": health["step"],
+            "resumed_at": min(after), "steps_after_restart": len(after),
+            "max_abs_loss_diff_vs_15a": max(diffs.values()),
+            "bit_equal_vs_15a": all(dv == 0 for dv in diffs.values()),
+            "tolerance": f"{LOSS_TOL} (1 + |loss|)", "wall_s": wall,
+            "launches": launches}, launches
+
+
+def p15_image(torch, kernels, tmp, device):
+    """15c: ``scripts.image_train`` at BENCH_GEOMETRY cut to P15_IMAGE,
+    ``--max-restarts 1 --health halt`` and a ``nan_batch``."""
+    from tpu_dist_torch.obs import faults
+    from tpu_dist_torch.obs.ledger import read_ledger
+    from tpu_dist_torch.parallel.supervisor import classify_attempt
+    from tpu_dist_torch.scripts import image_train
+
+    faults._reset_for_tests()
+    d = os.path.join(tmp, "p15c")
+    os.makedirs(d)
+    geom = {**image_train.BENCH_GEOMETRY, **P15_IMAGE}
+    argv = [a for k, v in geom.items()
+            for a in (f"--{k.replace('_', '-')}", str(v))]
+    argv += ["--data", os.path.join(d, "no-data"), "--checkpoint-dir",
+             os.path.join(d, "ck"), "--ledger-path",
+             os.path.join(d, "run.jsonl"), "--log-csv", "",
+             "--print-freq", "16", "--max-restarts", "1", "--health",
+             "halt", "--restart-backoff-s", "0.5", "--faults",
+             P15_IMAGE_FAULT, "--device", device]
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    tr = image_train.main(argv)
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    faults._reset_for_tests()
+    recs = [read_ledger(os.path.join(d, p), validate=False)
+            for p in ("run.jsonl", "run.a1.jsonl")]
+    classes = [classify_attempt(r) for r in recs]
+    windows = [[r for r in rs if r["event"] == "step"] for rs in recs]
+    dispatched = sum(r["steps_in_dispatch"] for w in windows for r in w)
+    final = windows[1][-1]["loss"]
+    if classes != ["health_halt", "clean"] or not math.isfinite(final):
+        raise AssertionError(f"15c classes {classes}, final loss {final}")
+    if launches["sgd"] != (dispatched if device == "cuda" else 0) or \
+            tr.state.step != geom["epochs"] * tr.steps_per_epoch:
+        raise AssertionError(f"15c sgd {launches['sgd']} for {dispatched} "
+                             f"steps, step {tr.state.step}")
+    return {"config": geom, "fault": P15_IMAGE_FAULT, "classes": classes,
+            "resumed_at": windows[1][0]["step"] -
+            windows[1][0]["steps_in_dispatch"] + 1,
+            "window_losses": [[r["loss"] for r in w] for w in windows],
+            "final_loss": final, "steps_dispatched": dispatched,
+            "sgd_launches_per_step": launches["sgd"] / dispatched,
+            "wall_s": wall}, launches
+
+
+def p15_restart_job(torch, kernels, job, out, rank):
+    """A 15d rank: the tiny LM with this rank's resume (``job["resume"]``:
+    rank -> path), ``TPU_DIST_PEER_RESUME`` set for the construction, to
+    ``max_steps``; this rank's ledger losses, the step and a digest of its
+    params after the restore."""
+    from tpu_dist_torch.configs import LMConfig
+    from tpu_dist_torch.engine.lm_loop import LMTrainer
+    from tpu_dist_torch.obs.ledger import per_process_path
+
+    path = os.path.join(out, f"{job['name']}.jsonl")
+    cfg = LMConfig(**job["cfg"], ledger_path=path,
+                   resume=job["resume"].get(str(rank), ""))
+    os.environ["TPU_DIST_PEER_RESUME"] = "1"
+    try:
+        tr = LMTrainer(cfg, device=job["device"])
+    finally:
+        del os.environ["TPU_DIST_PEER_RESUME"]
+    res = {"step0": tr.state.step,
+           "digest0": [float(p.detach().double().sum().item())
+                       for p in tr.state.params],
+           "peer_restored": tr._peer_restored}
+    kernels.reset_launches()
+    tr.fit()
+    res["launches"] = dict(kernels.LAUNCHES)
+    res["losses"] = {r["step"]: r["loss"] for r in
+                     ledger_steps(per_process_path(path, rank))}
+    return res
+
+
+def p15_peer_and_enospc(torch, kernels, tmp, device):
+    """15d and 15e (module docstring)."""
+    from tpu_dist_torch.configs import LMConfig
+    from tpu_dist_torch.engine import checkpoint as ckpt
+    from tpu_dist_torch.engine.lm_loop import LMTrainer
+    from tpu_dist_torch.obs import faults
+    from tpu_dist_torch.parallel.supervisor import latest_checkpoint
+
+    d = os.path.join(tmp, "p15d")
+    os.makedirs(d)
+    faults._reset_for_tests()
+    ck = os.path.join(d, "ck")
+    base = dict(P15_TINY_LM, max_steps=P15_TINY_STEPS)
+    tr = LMTrainer(LMConfig(**base, checkpoint_dir=ck,
+                            ledger_path=os.path.join(d, "snap.jsonl"),
+                            faults=f"preempt_deadline@step="
+                                   f"{P15_SNAPSHOT_STEP}"), device=device)
+    try:
+        tr.fit()
+        raise AssertionError("15d: the snapshot run did not exit")
+    except SystemExit as e:
+        if e.code != 75:
+            raise
+    faults._reset_for_tests()
+    snap = latest_checkpoint(ck)
+    del tr
+    one_path = os.path.join(d, "one.jsonl")
+    LMTrainer(LMConfig(**base, resume=snap, ledger_path=one_path),
+              device=device).fit()
+    one = {r["step"]: r["loss"] for r in ledger_steps(one_path)}
+    job = {"name": "p15d", "kind": "restart15", "cfg": base,
+           "resume": {"0": snap}}
+    two = DpGroup("p15d_2rank", 2, device, "gloo", [job], tmp).wait(300)
+    r0, r1 = (r["p15d"] for r in two)
+    if not (r0["peer_restored"] and r1["peer_restored"]) or \
+            not r0["step0"] == r1["step0"] == P15_SNAPSHOT_STEP or \
+            r0["digest0"] != r1["digest0"]:
+        raise AssertionError(f"15d restore: steps {r0['step0']} "
+                             f"{r1['step0']}, digests equal "
+                             f"{r0['digest0'] == r1['digest0']}")
+    nxt = str(P15_SNAPSHOT_STEP)
+    if r0["losses"][nxt] != r1["losses"][nxt]:
+        raise AssertionError(f"15d: step {nxt} loss {r0['losses'][nxt]} "
+                             f"vs {r1['losses'][nxt]}")
+    gap = abs(r0["losses"][nxt] - one[P15_SNAPSHOT_STEP])
+    if gap > LOSS_TOL * (1 + abs(one[P15_SNAPSHOT_STEP])):
+        raise AssertionError(f"15d: 2 ranks {r0['losses'][nxt]} vs one "
+                             f"rank {one[P15_SNAPSHOT_STEP]}")
+    peer = {"restored_step": r0["step0"], "params_equal": True,
+            "next_step_loss": [r0["losses"][nxt], r1["losses"][nxt]],
+            "one_rank_loss": one[P15_SNAPSHOT_STEP],
+            "abs_diff": gap, "tolerance": f"{LOSS_TOL} (1 + |loss|)",
+            "launches": [r0["launches"], r1["launches"]]}
+
+    # 15e: the trainer's own epoch-end write fails in the container write
+    ck_e = os.path.join(d, "ck-enospc")
+    cfg = LMConfig(**{**P15_TINY_LM, "epochs": 2}, checkpoint_dir=ck_e,
+                   faults="ckpt_enospc@nth=2")
+    tr = LMTrainer(cfg, device=device)
+    try:
+        tr.fit()
+        raise AssertionError("15e: the failed write did not surface")
+    except RuntimeError as e:
+        cause = e.__cause__
+        if not (isinstance(cause, OSError) and "injected" in str(cause)):
+            raise
+    faults._reset_for_tests()
+    newest = latest_checkpoint(ck_e)
+    meta = ckpt.read_checkpoint_meta(newest)
+    fresh = LMTrainer(LMConfig(**P15_TINY_LM), device=device)
+    ckpt.load_checkpoint(newest, fresh.state)
+    if meta["step"] != tr.steps_per_epoch or fresh.state.step != meta["step"]:
+        raise AssertionError(f"15e: newest valid checkpoint at step "
+                             f"{meta['step']}, expected "
+                             f"{tr.steps_per_epoch}")
+    enospc = {"error": str(cause), "newest_valid_step": meta["step"],
+              "run_reached_step": tr.state.step, "pointer_unchanged": True,
+              "reloaded_on": device}
+    return peer, enospc, {"p15d_rank0": r0["launches"],
+                          "p15d_rank1": r1["launches"]}
+
+
+def restart_path(torch, kernels, tmp, device="cuda"):
+    """Phase 15 (module docstring). Returns (record, launches by run).
+    ``device="cpu"`` rehearses its control flow on the CPU (with
+    P15_MODEL and P15_IMAGE narrowed and ``full_lm_config`` patched to a
+    tiny width)."""
+    t0 = time.perf_counter()
+    if device == "cuda":
+        free_device(torch)
+    rec, by_run = {}, {}
+    a, a_launches, want = p15_supervised_lm(torch, kernels, tmp, device)
+    rec["a_supervised_full_width"] = a
+    by_run.update(a_launches)
+    log(f"phase 15a supervised LM: classes {a['classes']}, resumed at "
+        f"{a['resumed_at']}, {time.perf_counter() - t0:.1f}s")
+    b, by_run["p15b_in_process"] = p15_in_process(torch, kernels, tmp,
+                                                  device, want)
+    rec["b_in_process_restart"] = b
+    if device == "cuda":
+        free_device(torch)
+    c, by_run["p15c_image"] = p15_image(torch, kernels, tmp, device)
+    rec["c_image_restart"] = c
+    if device == "cuda":
+        free_device(torch)
+    peer, enospc, d_launches = p15_peer_and_enospc(torch, kernels, tmp,
+                                                   device)
+    by_run.update(d_launches)
+    rec["d_peer_restore"] = peer
+    rec["e_ckpt_enospc"] = enospc
+    rec["wall_s"] = time.perf_counter() - t0
+    rec["note"] = ("one card: 15d's two ranks share it over gloo; nccl at "
+                   "world > 1 and a real multi-host shrink are not run")
+    return rec, by_run
+
+
 def importable(name):
     import importlib.util
 
@@ -4131,7 +4700,17 @@ def main():
         log(f"phase 14{part[0]} {part[2:]}: {json.dumps(lc[part])} on "
             f"{card}")
     log(f"phase 14 took {lc['wall_s']:.1f}s ({lc['note']})")
+
+    # 15. restart and faults
+    with tempfile.TemporaryDirectory() as tmp:
+        rs, rs_launches = restart_path(torch, kernels, tmp)
+    for part in ("a_supervised_full_width", "b_in_process_restart",
+                 "c_image_restart", "d_peer_restore", "e_ckpt_enospc"):
+        log(f"phase 15{part[0]} {part[2:]}: {json.dumps(rs[part])} on "
+            f"{card}")
+    log(f"phase 15 took {rs['wall_s']:.1f}s ({rs['note']})")
     dp_launches = {**dp_launches, **mp_launches, **pp_launches,
+                   **rs_launches,
                    "script6_imagenet": s6_launches,
                    "vit_base_int8": vit8_launches,
                    "zoo_sweep": {**{k: 0 for k in kernels.SOURCES},
@@ -4235,6 +4814,8 @@ def main():
         if kname in ("flash_fwd", "paged_decode"):
             entry["launches_by_path"].update(
                 {p: n[kname] for p, n in lc_launches.items()})
+        entry["launches_by_path"].update(
+            {p: n[kname] for p, n in rs_launches.items()})
         entries.append(entry)
     # fused_quant's two phases apart: gspmd tp's int8 row products (13d)
     scaled = pp["d_int8_tp_scaled_pair"]["scaled_pair"]
@@ -4256,8 +4837,8 @@ def main():
         entry["yardstick_ms"] = {k: r["yardstick_ms"]
                                  for k, r in scaled.items()}
         entry["library"] = first["library"]
-        entry["launches_by_path"] = {p: n[kname]
-                                     for p, n in pp_launches.items()}
+        entry["launches_by_path"] = {p: n[kname] for p, n in
+                                     {**pp_launches, **rs_launches}.items()}
         entries.append(entry)
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": entries}))
@@ -4271,4 +4852,6 @@ def main():
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == DP_WORKER:
         sys.exit(dp_worker(sys.argv[2]))
+    if len(sys.argv) >= 3 and sys.argv[1] == P15_CHILD:
+        sys.exit(p15_child(sys.argv[2], sys.argv[3:]))
     sys.exit(main())

@@ -954,3 +954,87 @@ def test_model_parallel_modes_on_the_card_equal_their_cpu_twins(cuda,
         assert len(got) == len(want) == 3
         for a, r in zip(got, want):
             assert abs(a - r) <= 1e-4 * (1 + abs(r)), (m, got, want)
+
+
+# ---- restart and faults on the card ---------------------------------------
+
+RESTART_TINY = dict(batch_size=4, seq_len=64, d_model=128, num_layers=2,
+                    num_heads=2, vocab_size=64, synth_tokens=3000, seed=1,
+                    attn="flash", optimizer="fused_adamw", lr=3e-3,
+                    grad_clip=0.5, precision="fp32", print_freq=1)
+
+
+def test_poison_and_enospc_on_cuda_state(cuda, tmp_path):
+    """``nan_batch``'s effect poisons the first fp32 master in place on the
+    card, and ``ckpt_enospc`` leaves the previous checkpoint of a CUDA
+    state the newest valid one, which reloads onto the card."""
+    from tpu_dist_torch.engine import checkpoint as ckpt
+    from tpu_dist_torch.engine.state import TrainState
+    from tpu_dist_torch.obs import faults
+    from tpu_dist_torch.ops.optim import make_optimizer
+    from tpu_dist_torch.parallel.supervisor import latest_checkpoint
+
+    model = torch.nn.Linear(8, 4).to(cuda)
+    st = TrainState.create(model, make_optimizer(0.1, 0.9, 0.0))
+    st.step = 3
+    d = str(tmp_path)
+    ckpt.save_checkpoint(d, st, 1, 0.0, "lm", False)
+    want = [p.detach().clone() for p in st.params]
+    faults._reset_for_tests()
+    try:
+        faults.install("ckpt_enospc@nth=1")
+        st.step = 9
+        faults.poison_params(st.params)
+        assert st.params[0].is_cuda and torch.isnan(st.params[0]).all()
+        assert torch.equal(st.params[1], want[1])
+        with pytest.raises(OSError, match="injected"):
+            ckpt.save_checkpoint(d, st, 2, 0.0, "lm", False)
+    finally:
+        faults._reset_for_tests()
+    ckpt.load_checkpoint(latest_checkpoint(d), st)
+    assert st.step == 3
+    assert all(torch.equal(p, w) for p, w in zip(st.params, want))
+
+
+def test_peer_restore_and_preemption_on_two_gloo_ranks(cuda, tmp_path):
+    """Two ranks sharing the card over gloo (CUDA tensors): rank 0 resumes
+    a step-5 preemption snapshot, rank 1 has none; under
+    ``TPU_DIST_PEER_RESUME=1`` rank 1 adopts rank 0's params and step
+    (``sum_bytes`` over CUDA bytes), and both take the same losses. A
+    ``preempt_deadline`` on rank 1 alone ends both ranks at one step with
+    exit 75."""
+    from torch_dp_worker import run_group
+
+    from tpu_dist_torch.configs import LMConfig
+    from tpu_dist_torch.engine.lm_loop import LMTrainer
+    from tpu_dist_torch.obs import faults
+    from tpu_dist_torch.parallel.supervisor import latest_checkpoint
+
+    ck = str(tmp_path / "ck")
+    faults._reset_for_tests()
+    try:
+        tr = LMTrainer(LMConfig(**RESTART_TINY, max_steps=8,
+                                checkpoint_dir=ck,
+                                faults="preempt_deadline@step=5"),
+                       device="cuda")
+        with pytest.raises(SystemExit):
+            tr.fit()
+    finally:
+        faults._reset_for_tests()
+    cfg = dict(RESTART_TINY, max_steps=8)
+    del cfg["seed"]
+    res = run_group(2, {"device": "cuda", "backend": "gloo", "jobs": [
+        {"kind": "restart", "name": "peer", "peer": True, "seeds": [1, 1],
+         "resume": {"0": latest_checkpoint(ck)}, "cfg": cfg},
+        {"kind": "restart", "name": "agree", "seeds": [1, 1],
+         "faults": {"1": "preempt_deadline@step=2"},
+         "cfg": dict(cfg, print_freq=2, checkpoint_dir="ck-agree")}]},
+        str(tmp_path / "card"))
+    p0, p1 = res[0]["peer"], res[1]["peer"]
+    assert p0["step0"] == p1["step0"] == 5
+    assert p0["digest0"] == p1["digest0"]
+    assert p0["losses"] == p1["losses"] and len(p0["losses"]) == 3
+    a0, a1 = res[0]["agree"], res[1]["agree"]
+    assert a0["code"] == a1["code"] == 75
+    assert a0["run_end"]["snapshot_step"] == \
+        a1["run_end"]["snapshot_step"] == 3

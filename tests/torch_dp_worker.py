@@ -1,6 +1,6 @@
 """One rank of a ``torch.distributed`` group for the port's multi-process
 tests (``tests/test_torch_{collectives,dp,dp_lm,cuda,fsdp,tp,moe,
-ring_attention,int8_tp,pp,pp_modes,generate_mesh,vit,sp_serve}.py``):
+ring_attention,int8_tp,pp,pp_modes,generate_mesh,vit,sp_serve,elastic}.py``):
 gloo on the
 CPU unless the spec names another ``device`` and ``backend``.
 
@@ -485,7 +485,55 @@ def _sp_serve_job(job, out, rank, torch, device):
     return res
 
 
-JOBS = {"image": _trainer_job, "lm": _trainer_job,
+def _restart_job(job, out, rank, torch, device):
+    """The restart layer of an ``LMTrainer`` over the group: this rank's
+    seed (``job["seeds"]``), an optional resume (``job["resume"]``, a
+    rank -> path map), ``TPU_DIST_PEER_RESUME`` (``job["peer"]``), this
+    rank's fault spec (``job["faults"]``, rank -> spec), and a fit whose
+    exit code is recorded (75: the preemption snapshot). Reports the step
+    after construction, this rank's ledger step losses, its ``run_end``
+    and ``scale`` events and a digest of its params."""
+    from tpu_dist_torch.configs import LMConfig
+    from tpu_dist_torch.engine.lm_loop import LMTrainer
+    from tpu_dist_torch.obs import faults
+    from tpu_dist_torch.obs.ledger import per_process_path
+
+    name = job["name"]
+    kw = dict(job["cfg"])
+    kw["ledger_path"] = os.path.join(out, f"{name}.jsonl")
+    kw["seed"] = job.get("seeds", [kw.get("seed", 0)] * (rank + 1))[rank]
+    kw["faults"] = job.get("faults", {}).get(str(rank), "")
+    if kw.get("checkpoint_dir"):
+        kw["checkpoint_dir"] = os.path.join(out, kw["checkpoint_dir"])
+    kw["resume"] = job.get("resume", {}).get(str(rank), "")
+    faults._reset_for_tests()
+    if job.get("peer"):
+        os.environ["TPU_DIST_PEER_RESUME"] = "1"
+    try:
+        tr = LMTrainer(LMConfig(**kw), device=device)
+    finally:
+        os.environ.pop("TPU_DIST_PEER_RESUME", None)
+    res = {"step0": tr.state.step,
+           "digest0": [float(p.detach().double().sum()) for p in
+                       tr.state.params]}
+    try:
+        tr.fit()
+        res["code"] = 0
+    except SystemExit as e:
+        res["code"] = e.code
+    res["step"] = tr.state.step
+    with open(per_process_path(kw["ledger_path"], rank)) as f:
+        recs = [json.loads(line) for line in f]
+    res["losses"] = {r["step"]: r["loss"] for r in recs
+                     if r["event"] == "step"}
+    res["run_end"] = [r for r in recs if r["event"] == "run_end"][-1]
+    res["scale"] = [r for r in recs if r["event"] == "scale"]
+    res["digest"] = [float(p.detach().double().sum())
+                     for p in tr.state.params]
+    return res
+
+
+JOBS = {"image": _trainer_job, "lm": _trainer_job, "restart": _restart_job,
         "sp_ops": _sp_ops_job, "sp_serve": _sp_serve_job,
         "vit_ring": _vit_ring_job,
         "generate_mesh": _generate_mesh_job,

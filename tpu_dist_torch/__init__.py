@@ -4,8 +4,15 @@ Module names mirror ``tpu_dist`` (``tpu_dist/engine/serve.py`` <->
 ``tpu_dist_torch/engine/serve.py``). The package imports ``torch`` and
 never ``jax``, and nothing of ``tpu_dist``: what it needs of the
 reference's jax-free modules it keeps as its own copies (``obs/``,
-``configs.py``, ``data/``, ``utils/meters.py``). Ported so far: LM serving
-(``engine/serve.py``) and LM training (``engine/lm_loop.py``).
+``configs.py``, ``data/``, ``utils/meters.py``, ``parallel/consensus.py``,
+``parallel/supervisor.py``). Ported so far: LM serving (``engine/serve.py``,
+int8, speculative, sp-sharded), LM training (``engine/lm_loop.py``, every
+mesh mode) and image training (``engine/loop.py``) over
+``torch.distributed``, the cookbook scripts, and the restart layer: fault
+injection (``obs/faults.py``), the watchdog and goodput lineage
+(``obs/{watchdog,goodput}.py``, ``obs.RunObs``), the elastic supervisor
+(``parallel/supervisor.py``, ``python -m tpu_dist_torch.supervise``) and
+consensus membership (``parallel/consensus.py``).
 
 Every TPU (Pallas) kernel on a ported path has a hand-written CUDA C++
 kernel under ``csrc/`` (built by :mod:`tpu_dist_torch.kernels`) and a plain

@@ -36,13 +36,22 @@ mapped to the port's by ``interop.flax_named_leaves``. The port writes
 from the same file; a sharded state (fsdp, tp, ep) is gathered leaf by
 leaf on every rank first (``gather``), so the file holds whole leaves,
 and a resume slices them again (``reslice``): the file does not depend on
-the layout (``gather_to_host``, ``:44-70``). ``peer_restore_state``
-(``TPU_DIST_PEER_RESUME``) is not ported.
+the layout (``gather_to_host``, ``:44-70``).
+
+The restart layer's two pieces (``:166``, ``:312-338``): the
+``ckpt_enospc`` fault site raises ``OSError(ENOSPC)`` inside the container
+write before any byte lands, so the pointer stays on the previous
+committed container; :func:`peer_restore_state` adopts rank 0's live state
+on every rank of a dp-pure group (``TPU_DIST_PEER_RESUME``) through
+``collectives.sum_bytes``, one all-reduce over raw bytes in which rank 0
+owns every byte (exact for every dtype, and the one collective gloo takes
+on CUDA tensors as well as on CPU ones).
 """
 
 from __future__ import annotations
 
 import atexit
+import errno
 import glob
 import io
 import json
@@ -56,6 +65,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from tpu_dist_torch.obs import faults as _faults
 from tpu_dist_torch.parallel.collectives import barrier
 
 _MAGIC = b"TDTORCH1\n"
@@ -179,6 +189,12 @@ def _retain(path: str, meta: Dict, keep: int, is_best: bool) -> None:
 
 def _write(ckpt_dir: str, path: str, state: dict, meta: Dict, arch: str,
            is_best: bool, keep: int) -> None:
+    fault = _faults.fire("ckpt_enospc")
+    if fault is not None:
+        # before any byte lands: the checkpoint on disk stays the previous
+        # valid one, which is exactly what the fallback path must find
+        raise OSError(errno.ENOSPC,
+                      f"No space left on device (injected: {fault.spec})")
     buf = io.BytesIO()
     torch.save(state, buf)
     blob = buf.getvalue()
@@ -286,10 +302,52 @@ def _save(ckpt_dir, path, host, epoch, best_acc1, arch, is_best,
         _write(ckpt_dir, path, host, meta, arch, is_best, keep)
 
 
-def peer_restore_state(state, broadcast=None):
-    raise NotImplementedError(
-        "peer_restore_state (TPU_DIST_PEER_RESUME=1) is not ported yet: it "
-        "belongs to the restart and fault layer (ROADMAP Queue 1 item 4)")
+def _state_tensors(state) -> List[torch.Tensor]:
+    """Every tensor of ``state`` a peer restore carries, in one fixed
+    order: params, BN stats, each optimizer-state field, the loss scale."""
+    out = list(state.params) + list(state.batch_stats)
+    for v in state.opt_state:
+        out.extend([v] if torch.is_tensor(v) else v)
+    if state.loss_scale is not None:
+        out.extend(state.loss_scale)
+    return out
+
+
+@torch.no_grad()
+def peer_restore_state(state, group=None, broadcast=None):
+    """Checkpoint-less dp-pure recovery (``:312-338``): adopt rank 0's
+    live state on every rank of ``group``, in place. Returns ``(state,
+    True)`` after the exchange, or ``(state, False)`` untouched on one
+    process.
+
+    On a mesh re-expansion a returning host has no (or a stale) local
+    checkpoint, but every survivor holds the live replicated state, and
+    the consensus renumbering (survivors first) makes rank 0 a survivor.
+    Every rank must call this. Replicated (dp-pure) states only: sharded
+    layouts take the disk path. The exchange is one
+    ``collectives.sum_bytes`` over every tensor and the step counter, in
+    which rank 0 sends its bytes and the others zeros (a byte plus zeros
+    is that byte), on the tensors' own device. ``broadcast(tensors)``
+    replaces it in tests."""
+    from tpu_dist_torch.parallel.collectives import (group_rank, group_size,
+                                                     sum_bytes)
+
+    if broadcast is None and group_size(group) <= 1:
+        return state, False
+    live = _state_tensors(state)
+    dev = live[0].device if live else torch.device("cpu")
+    step = torch.tensor([int(state.step)], dtype=torch.int64, device=dev)
+    sent = [step] + [t.detach() for t in live]
+    if broadcast is not None:
+        got = broadcast(sent)
+    else:
+        if group_rank(group) != 0:
+            sent = [torch.zeros_like(t) for t in sent]
+        got = sum_bytes(sent, group)
+    for dst, src in zip(live, got[1:]):
+        dst.copy_(src)
+    state.step = int(got[0].item())
+    return state, True
 
 
 def read_checkpoint_meta(path: str) -> Dict:

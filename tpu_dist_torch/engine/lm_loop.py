@@ -59,7 +59,22 @@ What follows the reference (line numbers are ``lm_loop.py``'s):
   (``:1228-1238``; async, keep-K) and a mid-epoch checkpoint on
   ``KeyboardInterrupt`` (``:1164-1182``); ledger ``run_start`` / ``step``
   / ``eval`` / ``epoch`` / ``ckpt`` / ``run_end`` events through the
-  port's ``obs/ledger.py``.
+  port's ``obs.RunObs`` (attempt lineage with ``job_id`` and ``attempt``,
+  the watchdog beaten at each drain and paused around validation and
+  checkpoints, the goodput sink, the supervisor's heartbeat file);
+* the restart layer (``:352-366, 780-788, 901-910, 983-1033``): once an
+  iteration, in the per-batch and the windowed loop, the step fault sites
+  (``obs.faults``: ``nan_batch`` poisons the first fp32 master in place,
+  ``preempt_deadline`` requests a snapshot); a SIGTERM (the crash guard's
+  flag) or that request makes the loop drain its in-flight steps at the
+  next step boundary, wait for the async writer, write a mid-epoch
+  checkpoint stamped ``preempt``, emit ``ckpt`` and ``scale
+  action=preempt_snapshot``, end the run ``status=preempted`` and exit
+  ``PREEMPT_SNAPSHOT_RC`` (75). Over several ranks the decision is one
+  max-reduce of the flag at the drain boundaries, so every rank snapshots
+  the same step. ``TPU_DIST_PEER_RESUME=1`` in a dp-pure mode adopts rank
+  0's live state (``checkpoint.peer_restore_state``) with a ``scale
+  action=peer_restore`` event.
 
 Over several data ranks each trains on ``batch_size // data`` rows
 (the sampler's batch-blocked layout: the rows the reference gives that
@@ -74,13 +89,13 @@ over it, and logs, the ledger, the CSV and checkpoint writes are rank
 for, and takes an optional flax-layout initial param tree
 (``init_params``) so a run can start from the reference trainer's
 initial weights. Knobs not ported yet raise ``NotImplementedError``
-naming the knob (:data:`UNPORTED`); the preemption snapshot on SIGTERM is
-one of the observers left out.
+naming the knob and the ROADMAP item it waits for (:data:`UNPORTED`).
+``max_restarts`` takes effect in the entry point (``scripts.lm_longcontext``
+through ``parallel.supervisor.run_supervised``), as in the reference.
 """
 
 from __future__ import annotations
 
-import dataclasses
 import math
 import os
 import time
@@ -100,9 +115,8 @@ from tpu_dist_torch.engine.lm_steps import (LM_METRIC_KEYS, ROUTER_KEYS,
                                             shift_rows, zeros_lm_metrics)
 from tpu_dist_torch.engine.state import TrainState
 from tpu_dist_torch.engine.steps import DataParallel
-from tpu_dist_torch.obs.health import (PROBE_KEYS, HealthSentry,
-                                       validate_health)
-from tpu_dist_torch.obs.ledger import EpochCsvSink, Ledger
+from tpu_dist_torch.obs import RunObs, env_int
+from tpu_dist_torch.obs.health import PROBE_KEYS, validate_health
 from tpu_dist_torch.ops.optim import lm_lr_schedule, make_optimizer
 from tpu_dist_torch.ops.pallas_adamw import FusedAdamW
 from tpu_dist_torch.ops.precision import make_policy
@@ -113,18 +127,18 @@ from tpu_dist_torch.parallel.mesh import (DATA_AXIS, EXPERT_AXIS,
                                           gather_leaf, make_mesh, shard_leaf)
 from tpu_dist_torch.parallel.overlap import (bucketed_grad_sync,
                                              validate_tp_impl)
+from tpu_dist_torch.parallel.supervisor import PREEMPT_SNAPSHOT_RC
 from tpu_dist_torch.utils.meters import MeterBank
 
 # knob -> its off value. Anything else raises NotImplementedError naming
-# the knob: each waits for a later slice of the port.
+# the knob and the ROADMAP Queue 1 item it waits for (WAITS_FOR).
 UNPORTED = {
-    "plan": ("", "none"), "audit": ("none",), "faults": ("",),
-    "max_restarts": (0,), "metrics_port": (0,), "profile_dir": ("",),
-    "telemetry_csv": ("",), "skew_every": (0,),
+    "plan": ("", "none"), "audit": ("none",), "metrics_port": (0,),
+    "profile_dir": ("",), "telemetry_csv": ("",), "skew_every": (0,),
     "slo_steps_per_min": (0.0,), "slo_throughput": (0.0,),
+    "flightrec_dir": ("",),
 }
-# observers the reference turns on by default; named once in the start log
-UNPORTED_OBSERVERS = ("watchdog_factor", "goodput_every_s")
+WAITS_FOR = {"plan": 6, "audit": 6}     # the others: item 5 (observers)
 ATTNS = ("full", "blockwise", "flash")
 # run-meta keys a resume must match before any state loads, and those a
 # mid-epoch resume must match as well
@@ -138,8 +152,9 @@ def refuse_unported(cfg: LMConfig) -> None:
         val = getattr(cfg, knob)
         if val not in off:
             raise NotImplementedError(
-                f"LMConfig.{knob}={val!r} is not ported yet "
-                f"(supported: {' | '.join(repr(o) for o in off)})")
+                f"LMConfig.{knob}={val!r} is not ported yet (ROADMAP Queue "
+                f"1 item {WAITS_FOR.get(knob, 5)}; supported: "
+                f"{' | '.join(repr(o) for o in off)})")
 
 
 def _numel(shape) -> int:
@@ -389,16 +404,29 @@ class LMTrainer:
         self.best_ppl = float("inf")
         if cfg.resume:
             self._resume(cfg.resume)
+        # checkpoint-less dp-pure recovery (:352-366): on a supervisor's
+        # mesh re-expansion (TPU_DIST_PEER_RESUME) adopt rank 0's live
+        # replicated state; sharded modes take the disk path above
+        self._dp_pure = not (self.use_sp or self.use_tp or self.use_ep
+                             or self.use_pp or cfg.fsdp)
+        self._peer_restored = False
+        if os.environ.get("TPU_DIST_PEER_RESUME") == "1" and self._dp_pure:
+            _, self._peer_restored = ckpt.peer_restore_state(self.state)
+            if self._peer_restored:
+                step_done = self.state.step
+                self.start_epoch = step_done // self.steps_per_epoch
+                self._skip_batches = step_done % self.steps_per_epoch
+                self.log(f"=> peer-restored state from rank 0 at step "
+                         f"{step_done} (no disk round-trip); resuming "
+                         f"epoch {self.start_epoch}")
         self._epoch_in_progress = self.start_epoch
         self.last_tok_s = 0.0
         self._warmed = False
         self._flops_per_step = None
-        self.ledger = Ledger((cfg.ledger_path or None) if self.is_main
-                             else None)
-        if cfg.log_csv and self.is_main:
-            self.ledger.add_sink(EpochCsvSink(cfg.log_csv))
-        self.health = HealthSentry(cfg.health, cfg.health_spike_z,
-                                   ledger=self.ledger)
+        # the run's ledger (attempt lineage), health sentry, watchdog,
+        # goodput sink, faults, heartbeat and preemption (obs.RunObs)
+        self.obs = RunObs("lm", cfg, process_index=self.rank, unit="tok/s")
+        self.ledger, self.health = self.obs.ledger, self.obs.health
         self._comm_probe_s = (self._measure_comm_probe()
                               if cfg.grad_bucket_mb > 0 else None)
 
@@ -810,6 +838,7 @@ class LMTrainer:
                                 nonfinite=m["nonfinite_count"],
                                 grad_norm=gn, update_norm=un, n_steps=n)
         pending.clear()
+        self.obs.heartbeat()   # device progress proven at this fetch
 
     # ------------------------------------------------------------------
     def _meters(self, epoch: int) -> MeterBank:
@@ -845,6 +874,7 @@ class LMTrainer:
         meters = self._meters(epoch)
         skip, self._skip_batches = self._skip_batches, 0
         self.model.train()
+        self.obs.resume()      # the watchdog watches from epoch entry
         pending = []
         warm = (0.0, 0)
         i = skip - 1
@@ -855,6 +885,7 @@ class LMTrainer:
             data_s = time.time() - end
             meters.update("Data", data_s)
             gstep = epoch * self.steps_per_epoch + i
+            self._step_faults(gstep, pending, meters)
             was_cold = not self._warmed
             t0 = time.time()
             metrics = self._step(inputs, targets)
@@ -876,6 +907,7 @@ class LMTrainer:
                 break
         if pending:  # a max_steps break can land between print boundaries
             self._drain(pending, meters)
+        self.obs.pause()       # validation and checkpoints follow
         return self._epoch_result(meters, i + 1 - skip, warm)
 
     def _device_windows(self, epoch: int, skip: int):
@@ -914,6 +946,7 @@ class LMTrainer:
         meters = self._meters(epoch)
         skip, self._skip_batches = self._skip_batches, 0
         self.model.train()
+        self.obs.resume()      # the watchdog watches from epoch entry
         pending = []
         done, last_print = skip, skip - 1
         warm = (0.0, 0)
@@ -922,6 +955,8 @@ class LMTrainer:
         for n, idx_window in self._device_windows(epoch, skip):
             data_s = time.time() - end
             meters.update("Data", data_s / n, n)
+            self._step_faults(epoch * self.steps_per_epoch + done, pending,
+                              meters)
             was_cold = not self._warmed
             t0 = time.time()
             sums = self.window_step(idx_window)
@@ -946,11 +981,57 @@ class LMTrainer:
                 break
         if pending:  # a max_steps break can land between print boundaries
             self._drain(pending, meters)
+        self.obs.pause()       # validation and checkpoints follow
         return self._epoch_result(meters, done - skip, warm)
 
     def _step_cap_hit(self, epoch: int, batches_done: int) -> bool:
         cap = self.cfg.max_steps
         return bool(cap) and epoch * self.steps_per_epoch + batches_done >= cap
+
+    # ------------------------------------------------------------------
+    def _step_faults(self, gstep: int, pending=None, meters=None) -> None:
+        """Once a loop iteration, before its dispatch: the step fault
+        sites (``RunObs.fire_step_faults``), then the preemption decision
+        (``RunObs.preempt_agreed``), which snapshots and exits."""
+        self.obs.fire_step_faults(gstep, self.state.params)
+        if self.obs.preempt_agreed(self.world, self.device, pending):
+            self._preempt_snapshot(pending, meters)   # raises SystemExit
+
+    def _preempt_snapshot(self, pending=None, meters=None) -> None:
+        """The coordinated snapshot (``:983-1033``): drain the in-flight
+        steps, wait for the async writer, write a mid-epoch checkpoint
+        stamped ``preempt`` (rank 0 writes, every rank meets at the
+        save's barrier), emit ``ckpt`` and ``scale
+        action=preempt_snapshot``, end the run ``status=preempted`` and
+        exit :data:`PREEMPT_SNAPSHOT_RC`: the supervisor classes the
+        attempt ``preemption_snapshotted`` and the restart resumes this
+        step."""
+        cfg = self.cfg
+        if pending:
+            self._drain(pending, meters)
+        self.obs.pause()       # the snapshot write is not a stall
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        ckpt.wait_for_async_save(cfg.checkpoint_dir or None)
+        step_done = self.state.step
+        if cfg.checkpoint_dir:
+            t_ck = time.time()
+            self._save(self._epoch_in_progress, False, mid_epoch=True,
+                       preempt=True)
+            self.ledger.emit("ckpt", epoch=self._epoch_in_progress,
+                             path=cfg.checkpoint_dir, is_best=False,
+                             seconds=round(time.time() - t_ck, 6),
+                             preempt=True)
+        self.ledger.emit("scale", action="preempt_snapshot",
+                         processes=self.world,
+                         epoch=env_int("TPU_DIST_MESH_EPOCH"),
+                         step=step_done)
+        self.log(f"preempted ({self.obs.preempt_source}, deadline "
+                 f"{self.obs.preempt_deadline_s:g}s): snapshot at step "
+                 f"{step_done} -- exiting for supervised resume")
+        self.obs.run_end(status="preempted", steps=step_done,
+                         snapshot_step=step_done, best_ppl=self.best_ppl)
+        raise SystemExit(PREEMPT_SNAPSHOT_RC)
 
     # ------------------------------------------------------------------
     def validate(self, epoch: int = 0):
@@ -987,18 +1068,21 @@ class LMTrainer:
 
     # ------------------------------------------------------------------
     def _run_start(self) -> None:
-        cfg = self.cfg
         dev = (torch.cuda.get_device_name(self.device)
                if self.device.type == "cuda" else "cpu")
-        self.ledger.emit("run_start", kind="lm",
-                         config=dataclasses.asdict(cfg),
-                         mesh=dict(self.mesh.shape), devices=[dev],
-                         process_count=self.world, mode=self.mode,
-                         device=str(self.device))
-        off = [f"{k}={getattr(cfg, k)}" for k in UNPORTED_OBSERVERS
-               if getattr(cfg, k)]
-        self.log("note: observers not ported yet, off in this run: "
-                 + ", ".join(off + ["preemption snapshot (SIGTERM)"]))
+        # SIGTERM becomes a snapshot request the loop drains at its next
+        # step boundary (the coordinated-preemption contract)
+        self.obs.enable_preempt_snapshot()
+        self.obs.run_start(mesh=dict(self.mesh.shape), devices=[dev],
+                           process_count=self.world, mode=self.mode,
+                           device=str(self.device))
+        if self._peer_restored:
+            self.ledger.emit("scale", action="peer_restore",
+                             processes=self.world,
+                             epoch=env_int("TPU_DIST_MESH_EPOCH"),
+                             step=self.state.step)
+        self.log("note: observers not ported yet, off in this run: the "
+                 "flight recorder (flightrec_dir)")
         if self.use_ring or self.use_sp or self.use_pp:
             from tpu_dist_torch.parallel.collectives import p2p_route
 
@@ -1008,12 +1092,14 @@ class LMTrainer:
                      f"{p2p_route(self.mesh.group(axis), self.device)}")
 
     def _save(self, epoch: int, is_best: bool, mid_epoch: bool = False,
-              async_write: bool = False) -> str:
+              async_write: bool = False, preempt: bool = False) -> str:
         """An ``lm`` checkpoint with the run's geometry and ``best_ppl``
         in its meta (keep-K retention)."""
         meta = {"best_ppl": self.best_ppl, **self._run_meta}
         if mid_epoch:
             meta["mid_epoch"] = True
+        if preempt:
+            meta["preempt"] = True
         return ckpt.save_checkpoint(
             self.cfg.checkpoint_dir, self.state, epoch, 0.0, "lm", is_best,
             extra_meta=meta, async_write=async_write,
@@ -1022,18 +1108,17 @@ class LMTrainer:
 
     def fit(self) -> float:
         """Train ``epochs`` (or ``max_steps``), validating after each
-        epoch; returns the best validation perplexity."""
-        t_run = time.time()
+        epoch; returns the best validation perplexity. ``run_end`` carries
+        ``status`` ok, interrupted, crashed (with the traceback) or, from
+        the preemption snapshot, preempted."""
         self._run_start()
-        status = "crashed"
         try:
             if self.cfg.evaluate:
                 self.best_ppl = self.validate(0)[1]
             else:
                 self._fit_epochs()
-            status = "ok"
         except KeyboardInterrupt:
-            status = "interrupted"
+            self.obs.pause()   # a slow interrupt save is not a stall
             if self.cfg.checkpoint_dir:
                 self._save(self._epoch_in_progress, False, mid_epoch=True)
                 self.log(f"interrupted -- checkpoint saved at epoch "
@@ -1042,17 +1127,20 @@ class LMTrainer:
                 self.log("interrupted -- no checkpoint_dir, nothing saved")
             raise
         finally:
-            ckpt.wait_for_async_save()   # never exit with a write in flight
-            self.ledger.emit("run_end", steps=self.state.step,
-                             seconds=round(time.time() - t_run, 6),
-                             status=status, best_ppl=self.best_ppl)
-            self.ledger.close()
+            try:
+                ckpt.wait_for_async_save()   # never exit mid-write
+            finally:
+                self.obs.run_end(steps=self.state.step,
+                                 best_ppl=self.best_ppl)
         return self.best_ppl
 
     def _fit_epochs(self) -> None:
         cfg = self.cfg
         for epoch in range(self.start_epoch, cfg.epochs):
             self._epoch_in_progress = epoch
+            # a SIGTERM that landed during the previous eval or checkpoint
+            if self.obs.preempt_agreed(self.world, self.device):
+                self._preempt_snapshot()
             t0 = time.time()
             train = self.train_epoch(epoch)
             train_secs = time.time() - t0

@@ -36,7 +36,14 @@ What follows the reference (line numbers are ``loop.py``'s):
   evaluating its shard, the sums all-reduced and fetched once;
 * ``fit`` / ``_fit_epochs`` (``:892-1008``): an ``epoch`` ledger event with
   img/s, an async checkpoint per epoch, ``model_best`` on improvement, and
-  a mid-epoch checkpoint on ``KeyboardInterrupt``.
+  a mid-epoch checkpoint on ``KeyboardInterrupt``; the events go through
+  ``obs.RunObs`` (attempt lineage with ``job_id`` and ``attempt``, the
+  watchdog, the goodput sink, the supervisor's heartbeat file);
+* the restart layer (``:411-425, 519-576, 618-626, 783-792``), as in the
+  LMTrainer: the step fault sites once an iteration (``nan_batch``,
+  ``preempt_deadline``), the coordinated preemption snapshot (exit 75)
+  agreed over the group at the drain boundaries, and
+  ``TPU_DIST_PEER_RESUME`` in a dp-pure run.
 
 The first step (or window) of a run carries cuDNN's autotuning
 (``cudnn.benchmark`` is on for CUDA) and the allocator's warm-up: the loop
@@ -77,7 +84,6 @@ raise ``NotImplementedError`` naming the knob (:data:`UNPORTED`).
 
 from __future__ import annotations
 
-import dataclasses
 import math
 import os
 import time
@@ -100,9 +106,8 @@ from tpu_dist_torch.engine.steps import (IMAGE_METRIC_KEYS, DataParallel,
                                          zeros_image_metrics)
 from tpu_dist_torch.models.registry import create_model, model_kind
 from tpu_dist_torch.models.resnet import set_batchnorm_group
-from tpu_dist_torch.obs.health import (PROBE_KEYS, HealthSentry,
-                                       validate_health)
-from tpu_dist_torch.obs.ledger import EpochCsvSink, Ledger
+from tpu_dist_torch.obs import RunObs, env_int
+from tpu_dist_torch.obs.health import PROBE_KEYS, validate_health
 from tpu_dist_torch.ops.optim import make_optimizer, step_decay_schedule
 from tpu_dist_torch.ops.pallas_sgd import FusedSGD
 from tpu_dist_torch.ops.precision import LossScaleState, make_policy
@@ -111,20 +116,19 @@ from tpu_dist_torch.parallel.collectives import all_reduce_
 from tpu_dist_torch.parallel.launch import say
 from tpu_dist_torch.parallel.mesh import make_mesh
 from tpu_dist_torch.parallel.overlap import validate_tp_impl
+from tpu_dist_torch.parallel.supervisor import PREEMPT_SNAPSHOT_RC
 from tpu_dist_torch.utils.meters import MeterBank
 
 # knob -> its accepted values. Anything else raises NotImplementedError
-# naming the knob: each waits for a later slice of the port.
+# naming the knob and the ROADMAP Queue 1 item it waits for (WAITS_FOR).
 UNPORTED = {
     "mesh_axes": (("data",), ("data", "model")),
-    "plan": ("", "none"), "audit": ("none",), "faults": ("",),
-    "max_restarts": (0,), "metrics_port": (0,), "profile_dir": ("",),
-    "telemetry_csv": ("",), "skew_every": (0,),
+    "plan": ("", "none"), "audit": ("none",), "metrics_port": (0,),
+    "profile_dir": ("",), "telemetry_csv": ("",), "skew_every": (0,),
     "slo_steps_per_min": (0.0,), "slo_throughput": (0.0,),
-    "flightrec_dir": ("",), "job_id": ("",), "attempt": (0,),
+    "flightrec_dir": ("",),
 }
-# observers the reference turns on by default; named once in the start log
-UNPORTED_OBSERVERS = ("watchdog_factor", "goodput_every_s")
+WAITS_FOR = {"plan": 6, "audit": 6}     # the others: item 5 (observers)
 
 
 def refuse_unported(cfg: TrainConfig) -> None:
@@ -135,11 +139,13 @@ def refuse_unported(cfg: TrainConfig) -> None:
             if cfg.tp_impl != "ring":   # a model axis rides the ring only
                 accepted = (("data",),)
         if val not in accepted:
+            where = ("" if knob == "mesh_axes" else
+                     f" (ROADMAP Queue 1 item {WAITS_FOR.get(knob, 5)})")
             raise NotImplementedError(
                 f"TrainConfig.{knob}={val!r}"
                 + (f" (mesh_shape={cfg.mesh_shape!r})"
                    if knob == "mesh_axes" else "")
-                + " is not ported yet: the port's "
+                + f" is not ported yet{where}: the port's "
                 f"Trainer runs data-parallel, one device per process, and "
                 f"ViT ring tensor parallelism over a 'model' axis "
                 f"(supported: {' | '.join(repr(a) for a in accepted)})")
@@ -393,13 +399,27 @@ class Trainer:
                           "image_shape": list(self.train_ds.image_shape)}
         if cfg.resume:
             self._resume(cfg.resume)
+        # checkpoint-less dp-pure recovery (:411-425): on a supervisor's
+        # mesh re-expansion (TPU_DIST_PEER_RESUME) adopt rank 0's live
+        # replicated state
+        self._dp_pure = all(n == 1 for a, n in self.mesh.shape.items()
+                            if a != "data")
+        self._peer_restored = False
+        if os.environ.get("TPU_DIST_PEER_RESUME") == "1" and self._dp_pure:
+            _, self._peer_restored = ckpt.peer_restore_state(self.state)
+            if self._peer_restored:
+                step_done = self.state.step
+                self.start_epoch = step_done // self.steps_per_epoch
+                self._skip_batches = step_done % self.steps_per_epoch
+                self.log(f"=> peer-restored state from rank 0 at step "
+                         f"{step_done} (no disk round-trip); resuming "
+                         f"epoch {self.start_epoch}")
         self._epoch_in_progress = self.start_epoch
-        self.ledger = Ledger((cfg.ledger_path or None) if self.is_main
-                             else None)
-        if cfg.log_csv and self.is_main:
-            self.ledger.add_sink(EpochCsvSink(cfg.log_csv))
-        self.health = HealthSentry(cfg.health, cfg.health_spike_z,
-                                   ledger=self.ledger)
+        # the run's ledger (attempt lineage), health sentry, watchdog,
+        # goodput sink, faults, heartbeat and preemption (obs.RunObs)
+        self.obs = RunObs("image", cfg, process_index=self.rank,
+                          unit="img/s")
+        self.ledger, self.health = self.obs.ledger, self.obs.health
 
     # ------------------------------------------------------------------
     def _resident(self, ds):
@@ -573,6 +593,7 @@ class Trainer:
                                 nonfinite=m["nonfinite_count"],
                                 grad_norm=gn, update_norm=un, n_steps=n)
         pending.clear()
+        self.obs.heartbeat()   # device progress proven at this fetch
 
     def _meters(self, epoch: int) -> MeterBank:
         return MeterBank(self.steps_per_epoch,
@@ -605,6 +626,7 @@ class Trainer:
         nb = self.steps_per_epoch
         skip, self._skip_batches = self._skip_batches, 0
         self.model.train()
+        self.obs.resume()      # the watchdog watches from epoch entry
         pending = []
         warm = (0.0, 0)
         t_epoch = end = time.time()
@@ -617,6 +639,7 @@ class Trainer:
             data_s = time.time() - end
             meters.update("Data", data_s)
             gstep = epoch * self.steps_per_epoch + i
+            self._step_faults(gstep, pending, meters)
             was_cold = not self._warmed
             t0 = time.time()
             metrics = self._step(images, labels, gstep)
@@ -634,6 +657,7 @@ class Trainer:
             if boundary and self.is_main:
                 meters.display(i, printer=say)
             end = time.time()
+        self.obs.pause()       # validation and checkpoints follow
         return self._epoch_result(meters, nb - skip, warm)
 
     def _device_windows(self, epoch: int, skip: int):
@@ -669,6 +693,7 @@ class Trainer:
         meters = self._meters(epoch)
         skip, self._skip_batches = self._skip_batches, 0
         self.model.train()
+        self.obs.resume()      # the watchdog watches from epoch entry
         if self.device_data:
             images_all, labels_all = self._train_data_dev
             windows = self._device_windows(epoch, skip)
@@ -681,6 +706,8 @@ class Trainer:
         for n, payload in windows:
             data_s = time.time() - end
             meters.update("Data", data_s / n, n)
+            self._step_faults(epoch * self.steps_per_epoch + done, pending,
+                              meters)
             was_cold = not self._warmed
             t0 = time.time()
             sums = None
@@ -710,7 +737,53 @@ class Trainer:
             if boundary and self.is_main:
                 meters.display(done - 1, printer=say)
             end = time.time()
+        self.obs.pause()       # validation and checkpoints follow
         return self._epoch_result(meters, nb - skip, warm)
+
+    # ------------------------------------------------------------------
+    def _step_faults(self, gstep: int, pending=None, meters=None) -> None:
+        """Once a loop iteration, before its dispatch: the step fault
+        sites (``RunObs.fire_step_faults``), then the preemption decision
+        (``RunObs.preempt_agreed``), which snapshots and exits."""
+        self.obs.fire_step_faults(gstep, self.state.params)
+        if self.obs.preempt_agreed(self.world, self.device, pending):
+            self._preempt_snapshot(pending, meters)   # raises SystemExit
+
+    def _preempt_snapshot(self, pending=None, meters=None) -> None:
+        """The coordinated snapshot (``:533-576``): drain, wait for the
+        async writer, a mid-epoch checkpoint stamped ``preempt``, the
+        ``ckpt`` and ``scale action=preempt_snapshot`` events, ``run_end
+        status=preempted`` and exit :data:`PREEMPT_SNAPSHOT_RC`."""
+        cfg = self.cfg
+        if pending:
+            self._drain(pending, meters)
+        self.obs.pause()       # the snapshot write is not a stall
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        ckpt.wait_for_async_save(cfg.checkpoint_dir or None)
+        step_done = self.state.step
+        if cfg.checkpoint_dir:
+            t_ck = time.time()
+            ckpt.save_checkpoint(
+                cfg.checkpoint_dir, self.state, self._epoch_in_progress,
+                self.best_acc1, cfg.arch, is_best=False,
+                extra_meta={"mid_epoch": True, "preempt": True,
+                            **self._run_meta},
+                keep=cfg.keep_checkpoints, mesh=self.mesh)
+            self.ledger.emit("ckpt", epoch=self._epoch_in_progress,
+                             path=cfg.checkpoint_dir, is_best=False,
+                             seconds=round(time.time() - t_ck, 6),
+                             preempt=True)
+        self.ledger.emit("scale", action="preempt_snapshot",
+                         processes=self.world,
+                         epoch=env_int("TPU_DIST_MESH_EPOCH"),
+                         step=step_done)
+        self.log(f"preempted ({self.obs.preempt_source}, deadline "
+                 f"{self.obs.preempt_deadline_s:g}s): snapshot at step "
+                 f"{step_done} -- exiting for supervised resume")
+        self.obs.run_end(status="preempted", steps=step_done,
+                         snapshot_step=step_done, best_acc1=self.best_acc1)
+        raise SystemExit(PREEMPT_SNAPSHOT_RC)
 
     def validate(self, epoch: int = 0) -> float:
         """Exact eval (``:849``): metric sums over the val set with the
@@ -751,34 +824,35 @@ class Trainer:
         cfg = self.cfg
         dev = (torch.cuda.get_device_name(self.device)
                if self.device.type == "cuda" else "cpu")
-        self.ledger.emit("run_start", kind="image",
-                         config=dataclasses.asdict(cfg),
-                         mesh=dict(self.mesh.shape), devices=[dev],
-                         process_count=self.world,
-                         mode="tp-ring" if cfg.tp_impl == "ring" else "dp",
-                         device=str(self.device))
+        # SIGTERM becomes a snapshot request the loop drains at its next
+        # step boundary (the coordinated-preemption contract)
+        self.obs.enable_preempt_snapshot()
+        self.obs.run_start(mesh=dict(self.mesh.shape), devices=[dev],
+                           process_count=self.world,
+                           mode="tp-ring" if cfg.tp_impl == "ring" else "dp",
+                           device=str(self.device))
+        if self._peer_restored:
+            self.ledger.emit("scale", action="peer_restore",
+                             processes=self.world,
+                             epoch=env_int("TPU_DIST_MESH_EPOCH"),
+                             step=self.state.step)
         self._flops()   # its forward stays out of the first epoch's time
-        off = [f"{k}={getattr(cfg, k)}" for k in UNPORTED_OBSERVERS
-               if getattr(cfg, k)]
-        self.log("note: observers not ported yet, off in this run: "
-                 + ", ".join(off + ["preemption snapshot (SIGTERM)"]))
+        self.log("note: observers not ported yet, off in this run: the "
+                 "flight recorder (flightrec_dir)")
 
     def fit(self) -> float:
         """Train from ``start_epoch`` to ``epochs``, validating and
         checkpointing after each; returns the best validation acc@1. An
         interrupt leaves a mid-epoch checkpoint to ``--resume`` from."""
         cfg = self.cfg
-        t_run = time.time()
         self._run_start()
-        status = "crashed"
         try:
             if cfg.evaluate:
                 self.best_acc1 = self.validate()
             else:
                 self._fit_epochs()
-            status = "ok"
         except KeyboardInterrupt:
-            status = "interrupted"
+            self.obs.pause()   # a slow interrupt save is not a stall
             if cfg.checkpoint_dir:
                 ckpt.save_checkpoint(
                     cfg.checkpoint_dir, self.state, self._epoch_in_progress,
@@ -789,17 +863,20 @@ class Trainer:
                          f"{self._epoch_in_progress}; resume with --resume")
             raise
         finally:
-            ckpt.wait_for_async_save()   # never exit with a write in flight
-            self.ledger.emit("run_end", steps=self.state.step,
-                             seconds=round(time.time() - t_run, 6),
-                             status=status, best_acc1=self.best_acc1)
-            self.ledger.close()
+            try:
+                ckpt.wait_for_async_save()   # never exit mid-write
+            finally:
+                self.obs.run_end(steps=self.state.step,
+                                 best_acc1=self.best_acc1)
         return self.best_acc1
 
     def _fit_epochs(self) -> None:
         cfg = self.cfg
         for epoch in range(self.start_epoch, cfg.epochs):
             self._epoch_in_progress = epoch
+            # a SIGTERM that landed during the previous eval or checkpoint
+            if self.obs.preempt_agreed(self.world, self.device):
+                self._preempt_snapshot()
             t0 = time.time()
             train = self.train_epoch(epoch)
             train_secs = time.time() - t0

@@ -1,0 +1,334 @@
+"""tpu_dist_torch.obs: the per-run observability handle of the port
+(``tpu_dist/obs/__init__.py``, ``RunObs`` ``:79-510``).
+
+:class:`RunObs` is the ported part of the reference's handle, built by
+both trainers in place of a bare ``Ledger``:
+
+* run lineage (``:97-120``): one logical job is N restart attempts, each
+  writing its own ledger (``run.jsonl``, ``run.a1.jsonl``, ... and
+  ``.pN`` for process N, by ``goodput.attempt_path`` and
+  ``ledger.per_process_path``); ``attempt=-1`` probes this process's own
+  prior files for the next free ordinal; ``job_id`` defaults to the
+  ledger's stem. Both ride in ``run_start``;
+* the hang watchdog (``obs.watchdog``, ``watchdog_factor``), beaten at
+  each drain and paused around validation and checkpoint writes;
+* the goodput monitor (``obs.goodput``, ``goodput_every_s``) as a ledger
+  sink, with one final ``goodput`` event at ``run_end``;
+* fault injection (``obs.faults``): the ``faults`` knob installs its plan,
+  ``run_start`` registers the ledger and the attempt (the supervisor's
+  ``TPU_DIST_ATTEMPT`` where set) as the fault context, and
+  :meth:`RunObs.fire_step_faults` checks the step sites once an iteration;
+* the supervisor's heartbeat file (``TPU_DIST_HEARTBEAT_FILE``, touched at
+  most once a second at each drain, ``:478-500``);
+* coordinated preemption (``:209-233``): a loop that can snapshot enables
+  it, and a SIGTERM then only sets a flag (no lock, no I/O, no CUDA call
+  in the handler) that the loop acts on at its next step boundary;
+* the crash guard (``:345-422``): ``run_end`` at interpreter exit when a
+  loop never reached it, the excepthook's traceback in that record, and a
+  SIGTERM without a snapshot path ending the run with ``status=crashed``.
+
+The reference's metrics server, skew monitor, tracer and profiler, flight
+recorder and cost attribution are not built here: the trainers refuse
+their knobs by name (``metrics_port``, ``skew_every``, ``profile_dir``,
+``telemetry_csv``, ``flightrec_dir``, ``slo_*``).
+"""
+
+from __future__ import annotations
+
+import atexit
+import dataclasses
+import os
+import signal
+import sys
+import threading
+import time
+import traceback
+from typing import Optional
+
+from tpu_dist_torch.obs import faults
+from tpu_dist_torch.obs.goodput import (GoodputMonitor, attempt_path,
+                                        next_attempt_index)
+from tpu_dist_torch.obs.ledger import EpochCsvSink, Ledger, per_process_path
+from tpu_dist_torch.obs.watchdog import Watchdog
+
+__all__ = ["RunObs", "env_int"]
+
+
+def env_int(name: str, default: int = 0) -> int:
+    """An integer environment variable, ``default`` when unset or bad."""
+    try:
+        return int(os.environ.get(name, "") or default)
+    except ValueError:
+        return default
+
+
+class RunObs:
+    """Per-run observability handle: attempt-aware ledger, health sentry,
+    watchdog, goodput sink, faults, heartbeat, preemption and crash guard.
+    ``process_index`` is this process's rank (its ``.pN`` suffix);
+    ``unit`` names the throughput unit of the run's step records."""
+
+    def __init__(self, kind: str, cfg, process_index: int = 0,
+                 unit: str = "items/s"):
+        from tpu_dist_torch.obs.health import HealthSentry
+
+        self.kind = kind
+        self.cfg = cfg
+        self.unit = unit
+        pidx = int(process_index)
+        self.is_main = pidx == 0
+        base_path = getattr(cfg, "ledger_path", "") or ""
+        attempt = int(getattr(cfg, "attempt", 0) or 0)
+        if attempt < 0:
+            # probes THIS process's own prior files, so process 0 creating
+            # the bare ledger first never makes a later-starting peer of
+            # the same attempt self-assign the next index
+            attempt = next_attempt_index(base_path, pidx) if base_path else 0
+        self.attempt = attempt
+        self.job_id = (getattr(cfg, "job_id", "") or
+                       (os.path.splitext(os.path.basename(base_path))[0]
+                        if base_path else None))
+        self.ledger_path = per_process_path(attempt_path(base_path, attempt),
+                                            pidx)
+        self.ledger = Ledger(self.ledger_path or None, process_index=pidx)
+        if getattr(cfg, "log_csv", "") and self.is_main:
+            # the per-epoch CSV is a view of the epoch event
+            self.ledger.add_sink(EpochCsvSink(cfg.log_csv))
+        self.steps = 0
+        self.ledger.add_sink(self._count_steps)
+        wd_factor = getattr(cfg, "watchdog_factor", 0.0) or 0.0
+        self.watchdog = (Watchdog(wd_factor, ledger=self.ledger)
+                         if wd_factor > 0 else None)
+        self.health = HealthSentry(getattr(cfg, "health", "record"),
+                                   getattr(cfg, "health_spike_z", 8.0) or 0.0,
+                                   ledger=self.ledger)
+        self.goodput = GoodputMonitor(
+            self.ledger, every_s=getattr(cfg, "goodput_every_s", 60.0),
+            unit=unit)
+        self.ledger.add_sink(self.goodput.sink)
+        # the config knob wins over TPU_DIST_FAULTS
+        if getattr(cfg, "faults", ""):
+            faults.install(cfg.faults)
+        self._hb_path = (os.environ.get("TPU_DIST_HEARTBEAT_FILE", "")
+                         if self.is_main else "")
+        self._hb_last = 0.0
+        self._t0 = time.time()
+        self._ended = False
+        self._crash_tb: Optional[str] = None
+        self._prev_excepthook = None
+        self._prev_sigterm = None
+        self._preempt_enabled = False
+        # the SIGTERM handler's only write: a plain attribute (no lock)
+        self._preempt_source: Optional[str] = None
+        self._preempt_deadline: Optional[float] = None
+
+    def _count_steps(self, rec: dict) -> None:
+        if rec.get("event") == "step":
+            self.steps += int(rec.get("steps_in_dispatch") or 1)
+
+    # -- coordinated preemption ----------------------------------------
+    def enable_preempt_snapshot(self) -> None:
+        """Loops with a snapshot path call this before :meth:`run_start`:
+        SIGTERM becomes a snapshot REQUEST the loop drains at its next
+        step boundary rather than an immediate crash-guard shutdown."""
+        self._preempt_enabled = True
+
+    def request_preemption(self, deadline_s: Optional[float] = None,
+                           source: str = "sigterm") -> None:
+        """Arm the snapshot request (idempotent). ``deadline_s`` defaults
+        to the supervisor-forwarded ``TPU_DIST_PREEMPT_DEADLINE_S``."""
+        if self._preempt_source is not None:
+            return
+        self._preempt_deadline = deadline_s
+        self._preempt_source = source
+
+    def preempt_pending(self) -> bool:
+        return self._preempt_source is not None
+
+    @property
+    def preempt_source(self) -> Optional[str]:
+        return self._preempt_source
+
+    @property
+    def preempt_deadline_s(self) -> float:
+        if self._preempt_deadline is not None:
+            return float(self._preempt_deadline)
+        try:
+            return float(os.environ.get("TPU_DIST_PREEMPT_DEADLINE_S", "30"))
+        except ValueError:
+            return 30.0
+
+    # -- lifecycle ------------------------------------------------------
+    def run_start(self, **fields) -> None:
+        """Emit ``run_start`` (the trainer's fields plus the lineage:
+        ``job_id``, ``attempt``, ``resumed_from``, ``degraded`` and
+        ``mesh_epoch``), set the fault context and arm the crash guard."""
+        self._t0 = time.time()
+        self._ended = False
+        faults.set_ledger(self.ledger)
+        # under a supervisor its launch counter is authoritative: the
+        # ledger ordinal does not advance across ledgerless deaths
+        faults.set_context(attempt=env_int("TPU_DIST_ATTEMPT", self.attempt))
+        cfg = self.cfg
+        self.ledger.emit(
+            "run_start", kind=self.kind,
+            config=(dataclasses.asdict(cfg) if dataclasses.is_dataclass(cfg)
+                    else dict(cfg)),
+            job_id=self.job_id, attempt=self.attempt,
+            resumed_from=getattr(cfg, "resume", "") or None,
+            degraded=os.environ.get("TPU_DIST_DEGRADED") == "1",
+            mesh_epoch=env_int("TPU_DIST_MESH_EPOCH"), **fields)
+        self._arm_crash_guard()
+
+    def run_end(self, status: Optional[str] = None, **extra) -> None:
+        """Final goodput and ``run_end``, then close the ledger.
+        Idempotent. ``status`` is derived from the active exception when
+        not given (``crashed`` with a traceback, ``interrupted`` on
+        ``KeyboardInterrupt``, else ``ok``); ``steps`` defaults to the
+        step records this attempt emitted."""
+        if self._ended:
+            return
+        self._ended = True
+        self._disarm_crash_guard()
+        if self.watchdog is not None:
+            self.watchdog.stop()
+        if status is None:
+            exc = sys.exc_info()[1]
+            if exc is None and self._crash_tb is not None:
+                status = "crashed"
+                extra.setdefault("error", self._crash_tb)
+            elif isinstance(exc, KeyboardInterrupt):
+                status = "interrupted"
+            elif exc is not None:
+                status = "crashed"
+                extra.setdefault("error", "".join(
+                    traceback.format_exception(type(exc), exc,
+                                               exc.__traceback__))[-2000:])
+            else:
+                status = "ok"
+        try:
+            self.goodput.emit_goodput(final=True)
+        except Exception:
+            pass
+        steps = extra.pop("steps", self.steps)
+        self.ledger.emit("run_end", steps=steps,
+                         seconds=round(time.time() - self._t0, 6),
+                         status=status, health_trips=self.health.trips,
+                         **extra)
+        self.ledger.close()
+
+    # -- crash-safe shutdown -------------------------------------------
+    def _arm_crash_guard(self) -> None:
+        atexit.register(self._atexit_end)
+        self._prev_excepthook = sys.excepthook
+        sys.excepthook = self._excepthook
+        try:
+            if threading.current_thread() is threading.main_thread():
+                self._prev_sigterm = signal.signal(signal.SIGTERM,
+                                                   self._on_sigterm)
+        except (ValueError, OSError):
+            self._prev_sigterm = None
+
+    def _disarm_crash_guard(self) -> None:
+        try:
+            atexit.unregister(self._atexit_end)
+        except Exception:
+            pass
+        if self._prev_excepthook is not None:
+            sys.excepthook = self._prev_excepthook
+            self._prev_excepthook = None
+        if self._prev_sigterm is not None:
+            try:
+                signal.signal(signal.SIGTERM, self._prev_sigterm)
+            except (ValueError, OSError):
+                pass
+            self._prev_sigterm = None
+
+    def _excepthook(self, exc_type, exc, tb) -> None:
+        self._crash_tb = "".join(
+            traceback.format_exception(exc_type, exc, tb))[-2000:]
+        prev = self._prev_excepthook or sys.__excepthook__
+        prev(exc_type, exc, tb)
+
+    def _atexit_end(self) -> None:
+        if not self._ended:
+            self.run_end(status="crashed" if self._crash_tb else "ok",
+                         **({"error": self._crash_tb}
+                            if self._crash_tb else {}))
+
+    def _on_sigterm(self, signum, frame) -> None:
+        if self._preempt_enabled and not self._ended:
+            # coordinated path: one attribute write; the loop finishes
+            # the in-flight step, snapshots, and owns run_end and the exit
+            if self._preempt_source is None:
+                self._preempt_source = "SIGTERM"
+            return
+        prev = self._prev_sigterm
+        self.run_end(status="crashed", error="SIGTERM")
+        if callable(prev):
+            prev(signum, frame)
+        else:
+            raise SystemExit(143)
+
+    # -- per-step -------------------------------------------------------
+    def fire_step_faults(self, step: int, params=()) -> dict:
+        """The step-scoped fault sites for this step ordinal, once a loop
+        iteration before its dispatch: hard_exit / hang / preempt_sigterm
+        act inside fire_step, ``nan_batch`` poisons the first floating
+        tensor of ``params`` (the fp32 masters) in place and
+        ``preempt_deadline`` requests a snapshot. Returns the fired
+        ``{site: Fault}``; near-free without a plan."""
+        effects = faults.fire_step(step, ledger=self.ledger)
+        if "nan_batch" in effects:
+            faults.poison_params(params)
+        if "preempt_deadline" in effects:
+            self.request_preemption(
+                deadline_s=effects["preempt_deadline"].args.get("secs"),
+                source="fault")
+        return effects
+
+    def preempt_agreed(self, world: int, device, pending=None) -> bool:
+        """Whether the loop snapshots at this step boundary. One process
+        acts on its own flag at every boundary. Over several, a SIGTERM
+        that one rank sees and another does not would split the ranks
+        (one in the checkpoint's gather, one in the next step's
+        all-reduce): the flag is max-reduced over the world at the
+        boundaries right after a drain (``pending`` empty: the same
+        iterations on every rank, where the host has just synced), so
+        every rank takes the same decision at the same step."""
+        if world == 1:
+            return self.preempt_pending()
+        if pending:
+            return False
+        import torch
+
+        from tpu_dist_torch.parallel.collectives import pmax
+
+        flag = torch.tensor([float(self.preempt_pending())], device=device)
+        return bool(pmax(flag).item())
+
+    def heartbeat(self) -> None:
+        """Device progress proven (a drain's fetch returned): beat the
+        watchdog and touch the supervisor's heartbeat file (at most once a
+        second; a full disk never takes the run down)."""
+        if self.watchdog is not None:
+            self.watchdog.beat()
+        if self._hb_path:
+            now = time.time()
+            if now - self._hb_last >= 1.0:
+                self._hb_last = now
+                try:
+                    with open(self._hb_path, "w") as f:
+                        f.write(f"{now}\n")
+                except OSError:
+                    pass
+
+    def pause(self) -> None:
+        """Entering a phase where step completions legitimately stop
+        (validation, checkpoint writes): silence the watchdog."""
+        if self.watchdog is not None:
+            self.watchdog.pause()
+
+    def resume(self) -> None:
+        if self.watchdog is not None:
+            self.watchdog.resume()

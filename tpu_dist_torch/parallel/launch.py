@@ -18,8 +18,9 @@ priority order:
 ``TPU_DIST_RENDEZVOUS_*`` knobs and backoff). ``backend=None`` picks
 ``nccl`` for a CUDA device and ``gloo`` for the CPU; a caller that wants
 gloo with CUDA tensors names it. A failed init raises: no code switches
-backend. The reference's ``rendezvous_fail`` fault site belongs to the
-restart and fault layer, which is not ported yet (ROADMAP Queue 1 item 4).
+backend. The ``rendezvous_fail`` fault site (``obs.faults``, the
+reference's ``:142``) fails the first ``times=K`` tries with
+``ConnectionError``, so the retry path runs without a flaky coordinator.
 """
 
 from __future__ import annotations
@@ -117,7 +118,10 @@ def rendezvous_with_retry(init_fn: Callable[[], None], info: LaunchInfo,
     ``TPU_DIST_RENDEZVOUS_BACKOFF_S`` (default 2 s) doubling up to 30 s,
     under a ``TPU_DIST_RENDEZVOUS_TIMEOUT_S`` total deadline (default
     300 s). Returns the attempts used; on exhaustion raises one error
-    naming the coordinator, the method and the attempt count."""
+    naming the coordinator, the method and the attempt count. The
+    ``rendezvous_fail`` fault site fails a try with ``ConnectionError``
+    before ``init_fn`` runs (``times=K``: the first K tries)."""
+    from tpu_dist_torch.obs import faults
     env = os.environ
     retries = int(env.get("TPU_DIST_RENDEZVOUS_RETRIES", "5")
                   if retries is None else retries)
@@ -129,6 +133,8 @@ def rendezvous_with_retry(init_fn: Callable[[], None], info: LaunchInfo,
     last: Optional[BaseException] = None
     for attempt in range(1, max(retries, 1) + 1):
         try:
+            if faults.fire("rendezvous_fail", attempt_no=attempt):
+                raise ConnectionError("injected rendezvous failure")
             init_fn()
             return attempt
         except (KeyboardInterrupt, SystemExit):

@@ -12,7 +12,11 @@ defaults (:data:`DEFAULTS`); ``--device`` picks the device (default
 under ``--data`` the dataset is the reference's deterministic synthetic
 CIFAR-10. Under ``TPU_DIST_*`` or Slurm rendezvous variables the process
 joins its group first (``parallel.launch.initialize``), as the cookbook
-scripts do; the supervised restarts (``max_restarts``) are not ported.
+scripts do. ``--max-restarts N`` (N > 0) runs the trainer under the
+in-process supervisor (``parallel.supervisor.run_supervised``, the
+reference's ``:42-50``): a ``HealthError`` halt or a crash rebuilds the
+``Trainer`` from the newest valid checkpoint with the next attempt's
+ledger; process-killing faults need ``python -m tpu_dist_torch.supervise``.
 """
 
 from __future__ import annotations
@@ -52,15 +56,27 @@ def main(argv=None):
     cfg = TrainConfig(**{f.name: getattr(args, f.name)
                          for f in dataclasses.fields(TrainConfig)})
     info = launch.initialize(device=args.device)
-    trainer = Trainer(cfg, device=args.device)
-    print(f"[proc {info.process_id}/{info.num_processes}] via {info.method} "
-          f"device={trainer.device} "
-          f"data={'device' if trainer.device_data else 'host'} "
-          f"dataset={trainer.train_ds.name} steps/epoch="
-          f"{trainer.steps_per_epoch}", flush=True)
-    best = trainer.fit()
+    built = []
+
+    def build(run_cfg):
+        built[:] = []          # the dead attempt's trainer goes first
+        built.append(Trainer(run_cfg, device=args.device))
+        tr = built[0]
+        print(f"[proc {info.process_id}/{info.num_processes}] via "
+              f"{info.method} device={tr.device} "
+              f"data={'device' if tr.device_data else 'host'} "
+              f"dataset={tr.train_ds.name} steps/epoch="
+              f"{tr.steps_per_epoch}", flush=True)
+        return tr
+
+    if cfg.max_restarts > 0:
+        from tpu_dist_torch.parallel.supervisor import run_supervised
+
+        best = run_supervised(build, cfg)
+    else:
+        best = build(cfg).fit()
     print(f"best_acc1 {best * 100:.3f}", flush=True)
-    return trainer
+    return built[0]
 
 
 if __name__ == "__main__":

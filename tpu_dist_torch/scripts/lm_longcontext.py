@@ -28,6 +28,16 @@ on one rank) are the script's own. ``--device``
 picks the device (default ``cuda``; ``cpu`` runs the plain versions).
 Without ``--data``, the corpus is the deterministic synthetic affine
 stream.
+
+``--max-restarts N`` (N > 0) runs the trainer under the in-process
+supervisor (``parallel.supervisor.run_supervised``): a ``HealthError``
+halt or a crash rebuilds the trainer from the newest valid checkpoint of
+``--checkpoint-dir`` with the next attempt's ledger, the prebuilt trainer
+serving attempt 0 only. Process-killing faults (a hang, ``os._exit``, a
+preemption) need the subprocess supervisor::
+
+    python -m tpu_dist_torch.supervise --ledger run.jsonl --ckpt-dir ck \\
+        -- python -m tpu_dist_torch.scripts.lm_longcontext ...
 """
 
 from __future__ import annotations
@@ -180,7 +190,27 @@ def run(args, cfg, info):
                f"device={trainer.device} corpus={trainer.train_ds.name} "
                f"rows={len(trainer.train_ds)} "
                f"tokens/step={cfg.batch_size * cfg.seq_len}")
-    best_ppl = trainer.fit()
+    if cfg.max_restarts > 0:
+        # in-process restarts (:91-113): the prebuilt trainer serves
+        # attempt 0 only; a restart drops the dead attempt's trainer before
+        # building the next (its params and optimizer state must be free),
+        # and --generate/--serve below use the last attempt's
+        from tpu_dist_torch.parallel.supervisor import run_supervised
+
+        current = {"trainer": trainer, "used": False}
+
+        def build(run_cfg):
+            if current["used"]:
+                current["trainer"] = None
+                current["trainer"] = LMTrainer(run_cfg, device=args.device)
+            current["used"] = True
+            return current["trainer"]
+
+        trainer = None
+        best_ppl = run_supervised(build, cfg)
+        trainer = current["trainer"]
+    else:
+        best_ppl = trainer.fit()
     if not cfg.evaluate:
         trainer.log(f"throughput {trainer.last_tok_s:,.0f} tokens/sec "
                     f"({trainer.mode}) best_ppl {best_ppl:.2f}")
