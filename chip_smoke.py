@@ -106,16 +106,18 @@ CUDA or without the repository beside it. Phases:
 11. the image side on one card: (a) script 6
    (``scripts.distributed_slurm``) at its defaults (ResNet-50, synthetic
    ImageNet 224 x 224 x 3 with 1000 classes, fp32, plain sgd, ``jit``)
-   cut to batch 256 and 4096 + 1024 images (SCRIPT6_CUTS): img/s with
-   window 1 left out, step ms, peak memory, acc@1, no kernel launched;
+   cut to batch 256 and 4096 + 1024 images (SCRIPT6_CUTS), cuDNN's
+   autotuning off (the time limit): img/s with window 1 left out, step
+   ms, peak memory, acc@1, no kernel launched;
    (b) ViT-B/16 with ``quant="int8"`` and ``fused_sgd`` (VIT_INT8): 48
    ``fused_quant`` calls a step (and a validation batch), one ``sgd``
    launch a step, ``fused`` true in every step record; ``fused_quant``
    bit-equal at its training shapes and an M tail (VIT_QUANT_SHAPES),
-   timed against bf16 ``torch.matmul`` and its bound; (c) the 29 archs of
-   the zoo at 1000 classes (the published parameter counts; one bf16
-   ``fused_sgd`` step at batch 8, 224 px, 299 for inception_v3, with a
-   finite loss and one ``sgd`` launch), then one arch per family on the
+   timed against bf16 ``torch.matmul`` and its bound; (c) one arch per
+   family of the zoo's 29 at 1000 classes (ZOO_SWEEP, 12 archs: the
+   published parameter counts; one bf16 ``fused_sgd`` step at batch 8,
+   224 px, 299 for inception_v3, with a finite loss and one ``sgd``
+   launch), then the same archs on the
    card against the CPU in fp32 (ZOO_FAMILIES: the eval loss, and the
    train-mode loss where no dropout draws, within LOSS_TOL (1 + |loss|);
    int8 within twice the CPU's own spread under one-ulp input moves plus
@@ -235,6 +237,37 @@ CUDA or without the repository beside it. Phases:
    ``ckpt_enospc@nth=2``: the second epoch's write fails inside the
    container write, the run raises, and the newest valid checkpoint is
    the first epoch's, which reloads on the card.
+16. the observers: (a) phase 6's LM for 12 steps (a drain a step) three
+   times: with every observer on but the profiler (``metrics_port``,
+   ``telemetry_csv``, ``skew_every=4``, the watchdog, the flight
+   recorder's 3-step window, ``slo_steps_per_min`` above what the run
+   reaches): scrapes from a thread show ``tpu_dist_steps_total`` rising
+   and the MFU gauge one of the step records' ``mfu``, the CSV about a
+   row per 0.5 s with ``bytes_in_use`` filled and at most
+   ``bytes_limit`` (one ``hbm`` event a row), the ``slo`` breach one
+   bundle whose manifest lists stacks, hbm, the allocator snapshot and
+   the events tail with its window ``captured`` into a Chrome trace
+   holding 24 ``flash_fwd``, 24 dq, 24 dkv and 3 ``adamw`` kernels (the
+   window's 3 steps), one ``compile`` and one ``cost_model`` event with
+   ``matmul`` the largest flop bucket, 3 ``skew`` events, and a
+   ``metrics_snapshot`` before ``run_end``; with the observers off; and
+   under ``profile_dir`` (the other observers on, the recorder's window
+   ``skipped``): the whole fit's Chrome trace holds every kernel launch
+   the run made (12 steps and validation's forwards) and 12
+   ``ProfilerStep#`` marks. The hot steps' median ms of the three runs
+   (the window's steps left out) is what the observers cost; (b)
+   ``scripts.image_train`` at BENCH_GEOMETRY cut to 4 steps (P16_IMAGE)
+   with ``--telemetry-csv``, ``--profile-dir`` and ``--skew-every 2``:
+   a ``SIGUSR1`` once the ledger shows step 1 gives a ``diagnosis``
+   with reason ``sigusr1``, and the trace one ``sgd`` kernel a step;
+   (c) phase 4's tiny LM on three gloo ranks sharing the card with
+   ``skew_every=2`` and ``metrics_port`` (with two ranks the
+   reference's spike rule, spread >= 4 x p50, cannot hold: p50 of two is
+   their mean), a 2 s ``hang`` on rank 1 at step 3: every rank emits the
+   same ``skew`` stats with ``n_procs`` 3, the one spike names rank 1 and
+   gives every rank a ``skew`` bundle, every rank's endpoint answers at
+   ``metrics_port + rank``, and ``tpu_dist_torch/tools/trace_merge.py``
+   merges the three ledgers into one trace of three process lanes.
 
 The line before the last is the card's name and power limit; the one
 before it the ``{"kernels": [...]}`` record; the last line is
@@ -1875,6 +1908,8 @@ def dp_job(torch, kernels, job, out, rank):
         return p14_serve_job(torch, kernels, job, out, rank)
     if kind == "restart15":
         return p15_restart_job(torch, kernels, job, out, rank)
+    if kind == "obs16":
+        return p16_rank_job(torch, kernels, job, out, rank)
     if kind == "probe":
         mesh = make_mesh(device=device)
         res = {"backend": C.backend_of(mesh.group()), "world": mesh.size}
@@ -2289,6 +2324,9 @@ ZOO_FAMILIES = (("vgg11", 64, False, {}), ("densenet121", 64, True, {}),
                 ("mobilenet_v3_small", 64, False, {}),
                 ("vit_cifar", 32, True, {}),
                 ("vit_cifar", 32, True, {"quant": "int8"}))
+# the archs 11c's sweep steps at 1000 classes: one a family, the ones the
+# card-against-CPU check picks
+ZOO_SWEEP = sorted({name for name, *_ in ZOO_FAMILIES})
 # 11d: the ImageFolder tree (8 classes x 32 JPEGs at 500 x 375) and the
 # script-6 steps over it
 FOLDER_IMAGES, FOLDER_CLASSES, FOLDER_BATCH = 256, 8, 64
@@ -2297,8 +2335,18 @@ FOLDER_IMAGES, FOLDER_CLASSES, FOLDER_BATCH = 256, 8, 64
 def script6_path(torch, kernels, cuts=SCRIPT6_CUTS, device="cuda"):
     """11a: ``tpu_dist_torch.scripts.distributed_slurm.main`` at the
     reference script's DEFAULTS (resnet50, synthetic ImageNet, fp32,
-    plain sgd, jit) with the cuts of SCRIPT6_CUTS."""
+    plain sgd, jit) with the cuts of SCRIPT6_CUTS, and without cuDNN's
+    autotuning (the trainer turns it on for CUDA; off here to keep the
+    script inside its time limit, so the convolutions run the algorithms
+    cuDNN's heuristics pick)."""
+    from tpu_dist_torch.engine import loop
     from tpu_dist_torch.scripts import distributed_slurm
+
+    init = loop.Trainer.__init__
+
+    def untuned(self, *a, **kw):
+        init(self, *a, **kw)
+        torch.backends.cudnn.benchmark = False
 
     with tempfile.TemporaryDirectory() as tmp:
         ledger = os.path.join(tmp, "run.jsonl")
@@ -2312,7 +2360,11 @@ def script6_path(torch, kernels, cuts=SCRIPT6_CUTS, device="cuda"):
             torch.cuda.reset_peak_memory_stats()
         kernels.reset_launches()
         t0 = time.perf_counter()
-        tr = distributed_slurm.main(argv)
+        loop.Trainer.__init__ = untuned
+        try:
+            tr = distributed_slurm.main(argv)
+        finally:
+            loop.Trainer.__init__ = init
         wall = time.perf_counter() - t0
         launches = dict(kernels.LAUNCHES)
         recs = ledger_steps(ledger)
@@ -2335,7 +2387,7 @@ def script6_path(torch, kernels, cuts=SCRIPT6_CUTS, device="cuda"):
                        "precision": cfg.precision,
                        "optimizer": cfg.optimizer, "variant": cfg.variant},
             "cuts": "batch 3200 -> 256 (one card), 4096 train / 1024 val "
-                    "synthetic images, 1 epoch (90)",
+                    "synthetic images, 1 epoch (90), no cuDNN autotuning",
             "steps": steps, "losses": losses,
             "train_img_per_s_window1_excluded": tr.last_img_s,
             "step_ms": cfg.batch_size / tr.last_img_s * 1e3,
@@ -4503,6 +4555,468 @@ def restart_path(torch, kernels, tmp, device="cuda"):
     return rec, by_run
 
 
+# ---- phase 16: the observers ----------------------------------------------
+
+P16_STEPS = 12
+# 16a's progress floor: above what any run reaches, so the first judged
+# step records breach it (steps/min)
+P16_SLO_STEPS_PER_MIN = 1e7
+P16_WINDOW = 3                 # the flight recorder's trace window, records
+P16_IMAGE = dict(synth_train_size=4096, synth_val_size=1024,
+                 steps_per_dispatch=1, epochs=1)
+# 16c: the tiny LM on three ranks (with two the reference's spike rule,
+# spread >= 4 x p50, cannot hold: p50 of two ranks is their mean), a
+# 2 s hang on rank 1 at step 3
+P16_RANKS = 3
+P16_TINY_LM = dict(batch_size=6, seq_len=96, d_model=128, num_layers=2,
+                   num_heads=1, vocab_size=64, synth_tokens=4000, seed=SEED,
+                   attn="flash", optimizer="fused_adamw", lr=3e-3,
+                   grad_clip=0.5, weight_decay=0.1, print_freq=1,
+                   max_steps=8, skew_every=2, flightrec_trace_steps=2,
+                   watchdog_factor=0.0)
+P16_HANG = "hang@step=3,secs=2"
+# kernel-name fragments of the trace's device events (csrc/*.cu)
+P16_TRACE_KERNELS = {"flash_fwd": "flash_fwd_kernel",
+                     "flash_bwd_dq": "flash_bwd_dq_kernel",
+                     "flash_bwd_dkv": "flash_bwd_dkv_kernel",
+                     "adamw": "adamw_kernel", "sgd": "sgd_kernel"}
+
+
+def free_ports(n):
+    """A base port with ``n`` free ports from it (the metrics endpoints of
+    ``n`` ranks)."""
+    import socket
+
+    for _ in range(50):
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            base = s.getsockname()[1]
+        if base + n > 65535:
+            continue
+        socks = []
+        try:
+            for p in range(base, base + n):
+                s = socket.socket()
+                socks.append(s)
+                s.bind(("0.0.0.0", p))
+            return base
+        except OSError:
+            continue
+        finally:
+            for s in socks:
+                s.close()
+    raise AssertionError(f"no {n} consecutive free ports")
+
+
+def scrape(port, path="/metrics"):
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=5) as r:
+        return r.read().decode()
+
+
+def series(text, name):
+    """The value of an unlabeled series in a Prometheus text scrape."""
+    for line in text.splitlines():
+        if line.startswith(name + " "):
+            return float(line.split()[1])
+    return None
+
+
+class Scraper:
+    """Scrapes ``ports`` every ``every_s`` from a thread until stopped;
+    ``seen`` holds (steps_total, mfu) of each scrape that answered."""
+
+    def __init__(self, ports, every_s=0.05):
+        import threading
+
+        self.ports, self.every_s = ports, every_s
+        self.seen = {p: [] for p in ports}
+        self.errors = []
+        self._stop = threading.Event()
+        self._t = threading.Thread(target=self._run, daemon=True)
+        self._t.start()
+
+    def _run(self):
+        while not self._stop.wait(self.every_s):
+            for p in self.ports:
+                try:
+                    text = scrape(p)
+                except OSError as e:
+                    self.errors.append(repr(e))
+                    continue
+                self.seen[p].append((series(text, "tpu_dist_steps_total"),
+                                     series(text, "tpu_dist_mfu")))
+
+    def stop(self):
+        self._stop.set()
+        self._t.join(timeout=10)
+
+
+def trace_kernels(path):
+    """{kernel: device launches} of a Chrome trace, by P16_TRACE_KERNELS's
+    name fragments, and the trace's ``ProfilerStep#`` ranges."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    counts = {k: 0 for k in P16_TRACE_KERNELS}
+    steps = set()
+    for e in events:
+        name = e.get("name", "")
+        if e.get("cat") == "kernel":
+            for k, frag in P16_TRACE_KERNELS.items():
+                if frag in name:
+                    counts[k] += 1
+        elif name.startswith("ProfilerStep#"):
+            steps.add(name)
+    return counts, len(steps)
+
+
+def p16_step_ms(recs, skip):
+    """Median step ms of the hot step records outside ``skip`` (steps)."""
+    ms = [(r["data_s"] + r["dispatch_s"] + r["device_s"]) * 1e3
+          for r in recs if r["event"] == "step" and not r["warm"]
+          and r["step"] not in skip]
+    return statistics.median(ms), len(ms)
+
+
+def p16_lm_run(torch, kernels, d, name, device, **kw):
+    """One 16a run of phase 6's LM for P16_STEPS steps, a drain a step:
+    (records, launches, wall, trainer facts)."""
+    from tpu_dist_torch.engine.lm_loop import LMTrainer
+    from tpu_dist_torch.obs.ledger import read_ledger
+
+    path = os.path.join(d, f"{name}.jsonl")
+    cfg = full_lm_config(max_steps=P16_STEPS, print_freq=1, ledger_path=path,
+                         **kw)
+    if device == "cuda":
+        free_device(torch)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    tr = LMTrainer(cfg, device=device)
+    tr.fit()
+    wall = time.perf_counter() - t0
+    facts = {"layers": cfg.num_layers,
+             "eval_batches": len(tr._epoch_indices(tr.val_ds, False, 0)[0])}
+    del tr
+    return read_ledger(path), dict(kernels.LAUNCHES), wall, facts
+
+
+def p16_lm(torch, kernels, tmp, device):
+    """16a (module docstring): phase 6's LM with the observers on, off, and
+    under a ``profile_dir`` session."""
+    d = os.path.join(tmp, "p16a")
+    os.makedirs(d)
+    port = free_ports(1)
+    on_kw = dict(metrics_port=port, telemetry_csv=os.path.join(d, "hbm.csv"),
+                 skew_every=4, watchdog_factor=10.0,
+                 flightrec_trace_steps=P16_WINDOW,
+                 slo_steps_per_min=P16_SLO_STEPS_PER_MIN)
+    scraper = Scraper([port])
+    try:
+        on, on_launches, on_wall, facts = p16_lm_run(
+            torch, kernels, d, "on", device, **on_kw)
+    finally:
+        scraper.stop()
+    off, off_launches, _, _ = p16_lm_run(
+        torch, kernels, d, "off", device, watchdog_factor=0.0,
+        flightrec_trace_steps=0)
+    prof_dir = os.path.join(d, "profile")
+    prof, prof_launches, prof_wall, _ = p16_lm_run(
+        torch, kernels, d, "profiled", device, profile_dir=prof_dir,
+        **dict(on_kw, metrics_port=0, telemetry_csv=""))
+    layers, n_eval = facts["layers"], facts["eval_batches"]
+    ev = [r["event"] for r in on]
+    steps = [r for r in on if r["event"] == "step"]
+    if len(steps) != P16_STEPS or ev[-2:] != ["metrics_snapshot", "run_end"]:
+        raise AssertionError(f"16a events {ev}")
+    # the scrapes: steps_total rising, the MFU gauge one of the records'
+    answered = [s for s in scraper.seen[port] if s[0]]
+    rising = [(a, b) for a, b in zip(answered, answered[1:])
+              if b[0] > a[0]]
+    # off the card the records' mfu is None and the gauge stays at 0
+    mfus = {r["mfu"] if r["mfu"] is not None else 0.0 for r in steps}
+    if not rising or answered[-1][1] not in mfus:
+        raise AssertionError(f"16a scrapes {scraper.seen[port]} "
+                             f"(errors {scraper.errors[:3]}), mfu {mfus}")
+    snap = on[-2]["metrics"]
+    if snap["tpu_dist_mfu"][""] != (steps[-1]["mfu"] or 0.0) or \
+            snap["tpu_dist_steps_total"][""] != P16_STEPS:
+        raise AssertionError(f"16a metrics_snapshot {snap['tpu_dist_mfu']} "
+                             f"{snap['tpu_dist_steps_total']}")
+    # the telemetry CSV
+    with open(on_kw["telemetry_csv"]) as f:
+        rows = [line.split(",") for line in f.read().splitlines()[1:]]
+    hbm = [r for r in on if r["event"] == "hbm"]
+    t_span = float(rows[-1][0]) - float(rows[0][0]) if rows else 0.0
+    filled = [int(r[1]) for r in rows if r[1]]
+    limit = int(rows[-1][3]) if rows and rows[-1][3] else None
+    # about a row each 0.5 s: fewer where a row's hbm event waited on the
+    # ledger's lock, which the recorder holds while it writes its window's
+    # trace (under a second), never more
+    per_span = t_span / 0.5 + 1
+    if device == "cuda" and (
+            not rows or len(filled) != len(rows) or limit is None
+            or max(filled) > limit or len(hbm) != len(rows)
+            or not 0.6 * per_span <= len(rows) <= per_span + 1):
+        raise AssertionError(f"16a telemetry: {len(rows)} rows over "
+                             f"{t_span:.2f}s, {len(hbm)} hbm events, "
+                             f"filled {len(filled)}, limit {limit}")
+    # the slo breach's bundle and its trace window
+    diag = [r for r in on if r["event"] == "diagnosis"]
+    if len(diag) != 1 or diag[0]["reason"] != "slo":
+        raise AssertionError(f"16a diagnosis {diag}")
+    bundle = diag[0]["bundle"]
+    with open(os.path.join(bundle, "manifest.json")) as f:
+        manifest = json.load(f)
+    want_files = {"stacks.txt", "hbm.json", "events_tail.jsonl"}
+    if device == "cuda":
+        want_files.add("memory_snapshot.pickle")
+    window_trace = os.path.join(bundle, "trace", "trace.json")
+    if set(manifest["files"]) != want_files or \
+            manifest["trace"]["status"] != "captured" or \
+            not os.path.isfile(window_trace):
+        raise AssertionError(f"16a bundle manifest {manifest}")
+    # the window holds the steps dispatched after the record that started
+    # it, up to the record that stopped it
+    first = diag[0]["step"] + 2
+    window_steps = list(range(first, first + P16_WINDOW))
+    win_counts, win_marks = trace_kernels(window_trace)
+    want_win = {"flash_fwd": layers * P16_WINDOW,
+                "flash_bwd_dq": layers * P16_WINDOW,
+                "flash_bwd_dkv": layers * P16_WINDOW,
+                "adamw": P16_WINDOW, "sgd": 0}
+    # the whole-fit profile: every dispatch and validation's forwards
+    prof_counts, prof_marks = trace_kernels(os.path.join(prof_dir,
+                                                         "trace.json"))
+    want_prof = {"flash_fwd": layers * (P16_STEPS + n_eval),
+                 "flash_bwd_dq": layers * P16_STEPS,
+                 "flash_bwd_dkv": layers * P16_STEPS,
+                 "adamw": P16_STEPS, "sgd": 0}
+    if device == "cuda" and (win_counts != want_win
+                             or prof_counts != want_prof
+                             or prof_marks != P16_STEPS):
+        raise AssertionError(f"16a trace kernels: window {win_counts} "
+                             f"(want {want_win}), profile {prof_counts} "
+                             f"(want {want_prof}), {prof_marks} step marks")
+    prof_diag = [r for r in prof if r["event"] == "diagnosis"]
+    if [r["trace"] for r in prof_diag] != ["skipped"]:
+        raise AssertionError(f"16a profiled run's diagnosis {prof_diag}: "
+                             "the window must stand down")
+    # compile and cost_model
+    comp = [r for r in on if r["event"] == "compile"]
+    cost = [r for r in on if r["event"] == "cost_model"]
+    if len(comp) != 1 or len(cost) != 1:
+        raise AssertionError(f"16a compile {comp} cost_model {cost}")
+    buckets = cost[0]["buckets"]
+    top = max(buckets, key=lambda c: buckets[c]["flops"])
+    if top != "matmul" or comp[0]["flops"] != cost[0]["total_flops"] or \
+            (device == "cuda" and not comp[0]["hbm_bytes"]):
+        raise AssertionError(f"16a cost buckets {buckets}, compile "
+                             f"{comp[0]}")
+    skews = [r for r in on if r["event"] == "skew"]
+    if [r["n_procs"] for r in skews] != [1] * (P16_STEPS // 4):
+        raise AssertionError(f"16a skew {skews}")
+    # what the observers cost: hot steps outside the window, on vs off
+    on_ms, n_on = p16_step_ms(on, set(window_steps))
+    off_ms, n_off = p16_step_ms(off, set())
+    prof_ms, n_prof = p16_step_ms(prof, set())
+    return {
+        "steps": P16_STEPS, "knobs": {k: v for k, v in on_kw.items()
+                                      if k != "telemetry_csv"},
+        "scrapes": len(scraper.seen[port]),
+        "scraped_steps_total": [s[0] for s in answered],
+        "scraped_mfu_last": answered[-1][1],
+        "telemetry_rows": len(rows), "telemetry_span_s": t_span,
+        "hbm_bytes_in_use_max": max(filled) if filled else None,
+        "hbm_bytes_limit": limit,
+        "slo_bundle": {"step": diag[0]["step"], "files": manifest["files"],
+                       "trace": manifest["trace"],
+                       "window_steps": window_steps,
+                       "window_trace_kernels": win_counts},
+        "profile_trace_kernels": prof_counts,
+        "profile_step_marks": prof_marks,
+        "profiled_run_window": prof_diag[0]["trace"],
+        "compile": {k: comp[0][k] for k in ("program", "seconds",
+                                            "hbm_bytes", "flops")},
+        "cost_model_flops": {c: b["flops"] for c, b in buckets.items()},
+        "cost_model_bytes": {c: b["bytes"] for c, b in buckets.items()},
+        "skew_events": len(skews),
+        "step_ms_observers_on": on_ms, "step_ms_observers_off": off_ms,
+        "step_ms_profiled": prof_ms,
+        "hot_steps_compared": [n_on, n_off, n_prof],
+        "observer_cost_ms_per_step": on_ms - off_ms,
+        "wall_s": {"on": on_wall, "profiled": prof_wall},
+    }, {"p16a_observers_on": on_launches, "p16a_observers_off": off_launches,
+        "p16a_profiled": prof_launches}
+
+
+def p16_image(torch, kernels, tmp, device):
+    """16b (module docstring): ``scripts.image_train`` at BENCH_GEOMETRY cut
+    to P16_IMAGE, with telemetry, a profile and skew every 2 steps, and a
+    SIGUSR1 once the ledger shows step 1."""
+    import signal
+    import threading
+
+    from tpu_dist_torch.obs.ledger import read_ledger
+    from tpu_dist_torch.scripts import image_train
+
+    d = os.path.join(tmp, "p16b")
+    os.makedirs(d)
+    path = os.path.join(d, "run.jsonl")
+    geom = {**image_train.BENCH_GEOMETRY, **P16_IMAGE}
+    argv = [a for k, v in geom.items()
+            for a in (f"--{k.replace('_', '-')}", str(v))]
+    prof_dir = os.path.join(d, "profile")
+    argv += ["--data", os.path.join(d, "no-data"), "--checkpoint-dir", "",
+             "--ledger-path", path, "--log-csv", "", "--print-freq", "1",
+             "--telemetry-csv", os.path.join(d, "hbm.csv"),
+             "--profile-dir", prof_dir, "--skew-every", "2",
+             "--device", device]
+    sent = []
+    done = threading.Event()
+
+    def send_at_step_1():
+        while not done.wait(0.05):
+            try:
+                recs = read_ledger(path, validate=False, strict=False)
+            except OSError:
+                continue
+            if any(r["event"] == "step" and r["step"] >= 1 for r in recs):
+                os.kill(os.getpid(), signal.SIGUSR1)
+                sent.append(time.time())
+                return
+
+    # a signal that lands after the run restored its handler is ignored
+    prev = signal.signal(signal.SIGUSR1, lambda *a: None)
+    sender = threading.Thread(target=send_at_step_1, daemon=True)
+    sender.start()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        tr = image_train.main(argv)
+    finally:
+        done.set()
+        sender.join(timeout=10)
+        signal.signal(signal.SIGUSR1, prev)
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    recs = read_ledger(path)
+    steps = [r for r in recs if r["event"] == "step"]
+    diag = [r for r in recs if r["event"] == "diagnosis"]
+    skews = [r for r in recs if r["event"] == "skew"]
+    n = sum(r["steps_in_dispatch"] for r in steps)
+    counts, marks = trace_kernels(os.path.join(prof_dir, "trace.json"))
+    with open(os.path.join(d, "hbm.csv")) as f:
+        rows = f.read().splitlines()[1:]
+    if not sent or [r["reason"] for r in diag] != ["sigusr1"]:
+        raise AssertionError(f"16b SIGUSR1 sent {sent}, diagnosis {diag}")
+    if n != tr.steps_per_epoch or len(skews) != n // 2 or not rows:
+        raise AssertionError(f"16b {n} steps, skew {skews}, {len(rows)} "
+                             "telemetry rows")
+    if device == "cuda" and (counts["sgd"] != n or launches["sgd"] != n
+                             or marks != n):
+        raise AssertionError(f"16b trace {counts}, {marks} step marks, "
+                             f"launches {launches} for {n} steps")
+    return {"config": geom, "steps": n, "sigusr1_diagnosis": {
+                k: diag[0][k] for k in ("reason", "step", "trace")},
+            "skew_events": len(skews), "telemetry_rows": len(rows),
+            "trace_kernels": counts, "trace_step_marks": marks,
+            "step_ms": p16_step_ms(recs, set())[0], "wall_s": wall}, launches
+
+
+def p16_rank_job(torch, kernels, job, out, rank):
+    """A 16c rank: the tiny LM with skew, the flight recorder and the
+    metrics endpoint at ``metrics_port + rank`` (rank 1 with the hang),
+    scraping every rank's endpoint while it trains."""
+    from tpu_dist_torch.configs import LMConfig
+    from tpu_dist_torch.engine.lm_loop import LMTrainer
+    from tpu_dist_torch.obs.ledger import per_process_path, read_ledger
+
+    cfg = dict(job["cfg"], ledger_path=os.path.join(out, "obs16.jsonl"))
+    if rank == 1:
+        cfg["faults"] = P16_HANG
+    base = cfg["metrics_port"]
+    scraper = Scraper([base + r for r in range(job["world"])], every_s=0.2)
+    kernels.reset_launches()
+    try:
+        LMTrainer(LMConfig(**cfg), device=job["device"]).fit()
+    finally:
+        scraper.stop()
+    recs = read_ledger(per_process_path(cfg["ledger_path"], rank))
+    return {"launches": dict(kernels.LAUNCHES),
+            "skew": [r for r in recs if r["event"] == "skew"],
+            "diagnosis": [r for r in recs if r["event"] == "diagnosis"],
+            "scraped": {str(p): [s[0] for s in v]
+                        for p, v in scraper.seen.items()}}
+
+
+def p16_ranks(torch, kernels, tmp, device):
+    """16c (module docstring): P16_RANKS gloo ranks sharing the device, then
+    the port's trace_merge over their ledgers."""
+    from tpu_dist_torch.tools import trace_merge
+
+    base = free_ports(P16_RANKS)
+    job = {"name": "p16c", "kind": "obs16", "world": P16_RANKS,
+           "cfg": dict(P16_TINY_LM, metrics_port=base)}
+    group = DpGroup("p16c", P16_RANKS, device, "gloo", [job], tmp)
+    res = [r["p16c"] for r in group.wait(300)]
+    skews = [r["skew"] for r in res]
+    stats = [[{k: v for k, v in s.items() if k not in ("ts", "pid")}
+              for s in sk] for sk in skews]
+    if any(s != stats[0] for s in stats) or \
+            {s["n_procs"] for s in stats[0]} != {P16_RANKS}:
+        raise AssertionError(f"16c skew differs by rank: {stats}")
+    spike = [s for s in stats[0] if s["spread_s"] >= 0.5]
+    if len(spike) != 1 or spike[0]["straggler"] != 1:
+        raise AssertionError(f"16c straggler: {stats[0]}")
+    diags = [[(d["reason"], d["step"]) for d in r["diagnosis"]] for r in res]
+    if any(dg != [("skew", spike[0]["step"])] for dg in diags):
+        raise AssertionError(f"16c skew bundles by rank: {diags}")
+    answered = {p: max(v or [0]) for p, v in res[0]["scraped"].items()}
+    if sorted(answered) != [str(base + r) for r in range(P16_RANKS)] or \
+            not all(v and v > 0 for v in answered.values()):
+        raise AssertionError(f"16c endpoints: {res[0]['scraped']}")
+    out = os.path.join(group.out, "merged.json")
+    if trace_merge.main([os.path.join(group.out, "obs16.jsonl"), "-o", out]):
+        raise AssertionError("16c trace_merge failed")
+    with open(out) as f:
+        merged = json.load(f)
+    lanes = {e["pid"] for e in merged["traceEvents"]
+             if e.get("name") == "process_name"}
+    if merged["otherData"]["processes"] != P16_RANKS or \
+            lanes != set(range(P16_RANKS)):
+        raise AssertionError(f"16c merged lanes {lanes}: "
+                             f"{merged['otherData']}")
+    return {"ranks": P16_RANKS, "hang": P16_HANG, "skew": stats[0],
+            "spike": spike[0], "bundles_by_rank": diags,
+            "endpoints_steps_total": answered,
+            "merged": {"processes": merged["otherData"]["processes"],
+                       "events": len(merged["traceEvents"])}}, {
+        f"p16c_rank{r}": x["launches"] for r, x in enumerate(res)}
+
+
+def observers_path(torch, kernels, tmp, device="cuda"):
+    """Phase 16 (module docstring). Returns (record, launches by run).
+    ``device="cpu"`` rehearses its control flow on the CPU (with
+    ``full_lm_config`` patched to a tiny width and P16_IMAGE narrowed)."""
+    t0 = time.perf_counter()
+    rec, by_run = {}, {}
+    rec["a_lm_observers"], a_launches = p16_lm(torch, kernels, tmp, device)
+    by_run.update(a_launches)
+    log(f"phase 16a took {time.perf_counter() - t0:.1f}s")
+    if device == "cuda":
+        free_device(torch)
+    rec["b_image_observers"], by_run["p16b_image"] = p16_image(
+        torch, kernels, tmp, device)
+    rec["c_ranks"], c_launches = p16_ranks(torch, kernels, tmp, device)
+    by_run.update(c_launches)
+    rec["wall_s"] = time.perf_counter() - t0
+    rec["note"] = (f"one card: 16c's {P16_RANKS} ranks share it over gloo; "
+                   "16a's observer cost compares runs of one call")
+    return rec, by_run
+
+
 def importable(name):
     import importlib.util
 
@@ -4661,9 +5175,10 @@ def main():
     log(f"phase 11b fused_quant at training shapes: "
         f"{json.dumps(vit_quant)} on {card}")
     free_device(torch)
-    sweep, sweep_sgd = zoo_sweep(torch, kernels)
-    log(f"phase 11c zoo sweep ({len(sweep)} archs, 1000 classes, bf16 "
-        f"fused_sgd step at batch 8): {json.dumps(sweep)} on {card}")
+    sweep, sweep_sgd = zoo_sweep(torch, kernels, ZOO_SWEEP)
+    log(f"phase 11c zoo sweep ({len(sweep)} archs, one a family, 1000 "
+        f"classes, bf16 fused_sgd step at batch 8): {json.dumps(sweep)} on "
+        f"{card}")
     agree = zoo_agreement(torch)
     torch.backends.cudnn.benchmark = True
     log(f"phase 11c zoo card-vs-CPU (fp32): {json.dumps(agree)}")
@@ -4709,8 +5224,23 @@ def main():
         log(f"phase 15{part[0]} {part[2:]}: {json.dumps(rs[part])} on "
             f"{card}")
     log(f"phase 15 took {rs['wall_s']:.1f}s ({rs['note']})")
+
+    # 16. the observers
+    with tempfile.TemporaryDirectory() as tmp:
+        obs, obs_launches = observers_path(torch, kernels, tmp)
+    for part in ("a_lm_observers", "b_image_observers", "c_ranks"):
+        log(f"phase 16{part[0]} {part[2:]}: {json.dumps(obs[part])} on "
+            f"{card}")
+    a = obs["a_lm_observers"]
+    log(f"phase 16 observer cost: {a['step_ms_observers_on']:.3f} ms a step "
+        f"with every observer on (metrics, telemetry, skew, watchdog, "
+        f"flight recorder; its window's steps left out) against "
+        f"{a['step_ms_observers_off']:.3f} ms off, "
+        f"{a['step_ms_profiled']:.3f} ms under a profile_dir session, on "
+        f"{card}")
+    log(f"phase 16 took {obs['wall_s']:.1f}s ({obs['note']})")
     dp_launches = {**dp_launches, **mp_launches, **pp_launches,
-                   **rs_launches,
+                   **rs_launches, **obs_launches,
                    "script6_imagenet": s6_launches,
                    "vit_base_int8": vit8_launches,
                    "zoo_sweep": {**{k: 0 for k in kernels.SOURCES},
@@ -4815,7 +5345,8 @@ def main():
             entry["launches_by_path"].update(
                 {p: n[kname] for p, n in lc_launches.items()})
         entry["launches_by_path"].update(
-            {p: n[kname] for p, n in rs_launches.items()})
+            {p: n[kname] for p, n in {**rs_launches,
+                                      **obs_launches}.items()})
         entries.append(entry)
     # fused_quant's two phases apart: gspmd tp's int8 row products (13d)
     scaled = pp["d_int8_tp_scaled_pair"]["scaled_pair"]
@@ -4838,7 +5369,8 @@ def main():
                                  for k, r in scaled.items()}
         entry["library"] = first["library"]
         entry["launches_by_path"] = {p: n[kname] for p, n in
-                                     {**pp_launches, **rs_launches}.items()}
+                                     {**pp_launches, **rs_launches,
+                                      **obs_launches}.items()}
         entries.append(entry)
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": entries}))

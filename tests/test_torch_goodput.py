@@ -3,7 +3,7 @@
 ``job_accounting`` with its ``restart_gap``, the ``GoodputMonitor``
 sink), ``obs/watchdog.py`` (one ``stall`` event a stall, the reference's
 fields) and ``RunObs`` as both trainers build it (``attempt``, ``job_id``,
-the heartbeat file, the refusal of ``flightrec_dir`` by name)."""
+the heartbeat file, the refusals that name ROADMAP item 6)."""
 
 import io
 import json
@@ -259,8 +259,11 @@ def test_lm_trainer_attempt_and_job_id_name_the_ledger(tmp_path):
     assert start["event"] == "run_start"
     assert (start["job_id"], start["attempt"], start["mode"]) == \
         ("job7", 2, "dp")
-    assert [r["event"] for r in recs[-2:]] == ["goodput", "run_end"]
-    assert recs[-2]["final"] is True and recs[-1]["status"] == "ok"
+    # the final goodput, then the metrics registry's snapshot (the
+    # reference's order, tpu_dist/obs/__init__.py:322-332)
+    assert [r["event"] for r in recs[-3:]] == ["goodput", "metrics_snapshot",
+                                               "run_end"]
+    assert recs[-3]["final"] is True and recs[-1]["status"] == "ok"
     assert recs[-1]["steps"] == 3
     with open(hb) as f:
         assert float(f.read()) > 0
@@ -276,17 +279,8 @@ def test_lm_trainer_attempt_and_job_id_name_the_ledger(tmp_path):
     assert tr.obs.ledger_path == str(tmp_path / "run.a3.jsonl")
 
 
-@pytest.mark.parametrize("knob,value", [("flightrec_dir", "fr"),
-                                        ("skew_every", 4),
-                                        ("slo_throughput", 10.0)])
-def test_lm_trainer_refuses_the_observers_still_to_port(knob, value):
-    with pytest.raises(NotImplementedError, match=rf"{knob}.*item 5"):
-        LMTrainer(LMConfig(**TINY, **{knob: value}), device="cpu")
-
-
-@pytest.mark.parametrize("knob,value,item", [
-    ("flightrec_dir", "fr", 5), ("metrics_port", 9000, 5), ("plan", "auto",
-                                                             6)])
+@pytest.mark.parametrize("knob,value,item", [("plan", "auto", 6),
+                                              ("audit", "record", 6)])
 def test_image_trainer_refuses_by_name_and_item(knob, value, item):
     with pytest.raises(NotImplementedError, match=rf"{knob}.*item {item}"):
         Trainer(TrainConfig(**TINY_IMAGE, **{knob: value}), device="cpu")

@@ -1,6 +1,7 @@
 """One rank of a ``torch.distributed`` group for the port's multi-process
 tests (``tests/test_torch_{collectives,dp,dp_lm,cuda,fsdp,tp,moe,
-ring_attention,int8_tp,pp,pp_modes,generate_mesh,vit,sp_serve,elastic}.py``):
+ring_attention,int8_tp,pp,pp_modes,generate_mesh,vit,sp_serve,elastic,
+obs_trace}.py``):
 gloo on the
 CPU unless the spec names another ``device`` and ``backend``.
 
@@ -533,7 +534,31 @@ def _restart_job(job, out, rank, torch, device):
     return res
 
 
-JOBS = {"image": _trainer_job, "lm": _trainer_job, "restart": _restart_job,
+def _skew_job(job, out, rank, torch, device):
+    """The port's ``SkewMonitor`` over the group: for each case of the job
+    (``every``, the record strides and this rank's (step_s, data_s) a
+    record), the stats of every exchange, and the ``skew`` events its
+    ledger emitted."""
+    from tpu_dist_torch.obs.ledger import Ledger
+    from tpu_dist_torch.obs.skew import SkewMonitor
+
+    res = {}
+    for name, case in job["cases"].items():
+        led = Ledger(None, process_index=rank)
+        events = []
+        led.add_sink(events.append)
+        mon = SkewMonitor(case["every"], ledger=led, device=device)
+        stats = []
+        for i, n in enumerate(case["strides"]):
+            step_s, data_s = case["times"][rank][i]
+            got = mon.record(i, step_s, data_s, n_steps=n)
+            if got is not None:
+                stats.append(got)
+        res[name] = {"stats": stats, "events": events}
+    return res
+
+
+JOBS = {"image": _trainer_job, "skew": _skew_job, "lm": _trainer_job, "restart": _restart_job,
         "sp_ops": _sp_ops_job, "sp_serve": _sp_serve_job,
         "vit_ring": _vit_ring_job,
         "generate_mesh": _generate_mesh_job,

@@ -120,7 +120,7 @@ class TrainConfig:
     log_csv: str = ""                  # per-epoch [start, seconds] CSV if set
                                        # (rendered as a ledger sink since
                                        # round 6 — same values, one source)
-    profile_dir: str = ""              # jax.profiler trace dir if set
+    profile_dir: str = ""              # torch.profiler trace dir if set
     telemetry_csv: str = ""            # 500ms device-HBM/host-RSS sampler CSV
                                        # (utils.telemetry — the reference's
                                        # nvidia-smi statistics.sh analog;
@@ -150,7 +150,7 @@ class TrainConfig:
                                        # (obs.flightrec); "" derives
                                        # <ledger_path>.flightrec (or a temp
                                        # dir) at first trigger
-    flightrec_trace_steps: int = 3     # jax.profiler window: step records
+    flightrec_trace_steps: int = 3     # torch.profiler window: step records
                                        # captured after a trigger (0 = no
                                        # trace in the bundle)
     job_id: str = ""                   # run lineage (obs.goodput): stable
@@ -336,7 +336,7 @@ class LMConfig:
                                    # (fresh opt state; see TrainConfig)
     checkpoint_dir: str = ""
     log_csv: str = ""              # per-epoch CSV (ledger sink since round 6)
-    profile_dir: str = ""          # jax.profiler trace dir if set (C22)
+    profile_dir: str = ""          # torch.profiler trace dir if set (C22)
     telemetry_csv: str = ""        # 500ms device-HBM sampler (utils.telemetry;
                                    # .pN-suffixed per process on multi-host)
     ledger_path: str = ""          # JSONL run ledger (obs.ledger; non-main

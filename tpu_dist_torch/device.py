@@ -29,6 +29,9 @@ def resolve_device(device: Union[str, torch.device, None] = None
 # dense peak FLOP/s of a card by compute dtype (NVIDIA H100 SXM data sheet),
 # for the trainers' MFU columns
 PEAK_FLOPS = {"H100": {torch.bfloat16: 989e12, torch.float32: 67e12}}
+# peak HBM bytes/s of a card (the same data sheet), for the cost model's
+# roofline (obs.attr)
+PEAK_BYTES = {"H100": 3.35e12}
 
 
 def peak_flops(device: torch.device, dtype: torch.dtype):
@@ -39,3 +42,12 @@ def peak_flops(device: torch.device, dtype: torch.dtype):
     name = torch.cuda.get_device_name(device)
     return next((p.get(dtype) for k, p in PEAK_FLOPS.items() if k in name),
                 None)
+
+
+def peak_bytes(device: torch.device):
+    """The card's peak memory rate in bytes/s, or None off CUDA and for a
+    card the table does not hold."""
+    if device.type != "cuda":
+        return None
+    name = torch.cuda.get_device_name(device)
+    return next((p for k, p in PEAK_BYTES.items() if k in name), None)

@@ -75,6 +75,15 @@ What follows the reference (line numbers are ``lm_loop.py``'s):
   the same step. ``TPU_DIST_PEER_RESUME=1`` in a dp-pure mode adopts rank
   0's live state (``checkpoint.peer_restore_state``) with a ``scale
   action=peer_restore`` event.
+* the observers (``:678-681, 774-833, 1144-1160``): each dispatch and
+  each drain's fetch timed by ``RunObs.tracer`` (``dispatch``,
+  ``device``; ``torch.profiler`` ranges and ``ProfilerStep#`` marks while
+  a ``profile_dir`` session runs around the fit), the skew monitor fed
+  each step record of a drain on every rank, the telemetry sampler
+  around the fit, and the run's first dispatch of ``train_step`` or
+  ``window_step`` followed by its ``compile`` and ``cost_model`` events
+  (``obs.attr``). The step fault sites fire before the step's data wait
+  is read, so an injected ``hang`` counts in that rank's ``data_s``.
 
 Over several data ranks each trains on ``batch_size // data`` rows
 (the sampler's batch-blocked layout: the rows the reference gives that
@@ -88,8 +97,9 @@ over it, and logs, the ledger, the CSV and checkpoint writes are rank
 (``ops.fused_xent``). It runs on CUDA unless ``device="cpu"`` is asked
 for, and takes an optional flax-layout initial param tree
 (``init_params``) so a run can start from the reference trainer's
-initial weights. Knobs not ported yet raise ``NotImplementedError``
-naming the knob and the ROADMAP item it waits for (:data:`UNPORTED`).
+initial weights. The knobs not ported yet (``plan``, ``audit``: the
+reference's step plans and program audits) raise ``NotImplementedError``
+naming the knob and ROADMAP Queue 1 item 6 (:data:`UNPORTED`).
 ``max_restarts`` takes effect in the entry point (``scripts.lm_longcontext``
 through ``parallel.supervisor.run_supervised``), as in the reference.
 """
@@ -129,16 +139,13 @@ from tpu_dist_torch.parallel.overlap import (bucketed_grad_sync,
                                              validate_tp_impl)
 from tpu_dist_torch.parallel.supervisor import PREEMPT_SNAPSHOT_RC
 from tpu_dist_torch.utils.meters import MeterBank
+from tpu_dist_torch.utils.mfu import lm_flops_per_token, moe_lm_flops_per_token
 
 # knob -> its off value. Anything else raises NotImplementedError naming
-# the knob and the ROADMAP Queue 1 item it waits for (WAITS_FOR).
-UNPORTED = {
-    "plan": ("", "none"), "audit": ("none",), "metrics_port": (0,),
-    "profile_dir": ("",), "telemetry_csv": ("",), "skew_every": (0,),
-    "slo_steps_per_min": (0.0,), "slo_throughput": (0.0,),
-    "flightrec_dir": ("",),
-}
-WAITS_FOR = {"plan": 6, "audit": 6}     # the others: item 5 (observers)
+# the knob and the ROADMAP Queue 1 item it waits for (item 6, the plan
+# lowering: the JAX package's step plans and program audits).
+UNPORTED = {"plan": ("", "none"), "audit": ("none",)}
+WAITS_FOR = 6
 ATTNS = ("full", "blockwise", "flash")
 # run-meta keys a resume must match before any state loads, and those a
 # mid-epoch resume must match as well
@@ -153,53 +160,8 @@ def refuse_unported(cfg: LMConfig) -> None:
         if val not in off:
             raise NotImplementedError(
                 f"LMConfig.{knob}={val!r} is not ported yet (ROADMAP Queue "
-                f"1 item {WAITS_FOR.get(knob, 5)}; supported: "
+                f"1 item {WAITS_FOR}; supported: "
                 f"{' | '.join(repr(o) for o in off)})")
-
-
-def _numel(shape) -> int:
-    n = 1
-    for d in shape:
-        n *= d
-    return n
-
-
-def lm_flops_per_token(named_shapes, num_layers: int, seq_len: int,
-                       d_model: int) -> float:
-    """Model FLOPs per trained token (the reference's ``utils/mfu.py``
-    accounting): 6 * non-embedding params + 6 * layers * L * d, over the
-    whole (unsharded) leaves' (name, shape) pairs."""
-    n = sum(_numel(s) for name, s in named_shapes
-            if not name.startswith(("tok_emb", "pos_emb")))
-    return 6.0 * n + 6.0 * num_layers * seq_len * d_model
-
-
-def moe_lm_flops_per_token(named_shapes, num_layers: int, seq_len: int,
-                           d_model: int, num_experts: int, router_top_k: int,
-                           total_tokens: int, group_size: int = 512,
-                           capacity_factor: float = 1.25) -> float:
-    """Model FLOPs per trained token of the MoE LM (``utils/mfu.py:54``):
-    6 x the dense part (attention, norms, gate, head) + 6 x layers x L x d,
-    6 x top_k x the expert params / E (the experts a token activates), and
-    the dispatch and combine einsums, 2 x 6 x E x C x d a layer, C from the
-    same ``moe_group_geometry`` the layer routes with."""
-    from tpu_dist_torch.models.moe import moe_group_geometry
-
-    n_params = n_embed = n_expert = 0
-    for name, shape in named_shapes:
-        size = _numel(shape)
-        n_params += size
-        if "tok_emb" in name or "pos_emb" in name:
-            n_embed += size
-        elif "w_in" in name or "w_out" in name:
-            n_expert += size
-    dense = 6.0 * (n_params - n_embed - n_expert) \
-        + 6.0 * num_layers * seq_len * d_model
-    experts = 6.0 * router_top_k * n_expert / num_experts
-    _, cap = moe_group_geometry(total_tokens, seq_len, num_experts,
-                                router_top_k, group_size, capacity_factor)
-    routing = 2 * 6.0 * num_experts * cap * d_model * num_layers
-    return dense + experts + routing
 
 
 class LMTrainer:
@@ -425,7 +387,8 @@ class LMTrainer:
         self._flops_per_step = None
         # the run's ledger (attempt lineage), health sentry, watchdog,
         # goodput sink, faults, heartbeat and preemption (obs.RunObs)
-        self.obs = RunObs("lm", cfg, process_index=self.rank, unit="tok/s")
+        self.obs = RunObs("lm", cfg, process_index=self.rank, unit="tok/s",
+                          device=self.device)
         self.ledger, self.health = self.obs.ledger, self.obs.health
         self._comm_probe_s = (self._measure_comm_probe()
                               if cfg.grad_bucket_mb > 0 else None)
@@ -794,10 +757,11 @@ class LMTrainer:
         sentry's look at each."""
         keys = LM_METRIC_KEYS + PROBE_KEYS \
             + (ROUTER_KEYS if self.cfg.num_experts else ())
-        t0 = time.time()
-        rows = torch.stack([torch.stack([m[k] for k in keys])
-                            for m, _ in pending]).tolist()
-        device_s = time.time() - t0
+        tr = self.obs.tracer
+        with tr.span("device"):
+            rows = torch.stack([torch.stack([m[k] for k in keys])
+                                for m, _ in pending]).tolist()
+        device_s = tr.pop().get("device", 0.0)
         total_steps = sum(info["n_steps"] for _, info in pending) or 1
         mem = self._memory()
         for row, (_, info) in zip(rows, pending):
@@ -834,6 +798,7 @@ class LMTrainer:
                 fused=self._fused_quant, grad_norm=gn,
                 nonfinite_count=m["nonfinite_count"], update_norm=un,
                 **extra, **mem)
+            self.obs.record_skew(info["step"], wall, info["data_s"], n)
             self.health.observe(info["step"], loss,
                                 nonfinite=m["nonfinite_count"],
                                 grad_norm=gn, update_norm=un, n_steps=n)
@@ -882,16 +847,16 @@ class LMTrainer:
         t_epoch = end = time.time()
         for i in range(skip, nb):
             inputs, targets = self._batch(self.train_ds, idx[i])
+            gstep = epoch * self.steps_per_epoch + i
+            self.obs.fire_step_faults(gstep, self.state.params)
             data_s = time.time() - end
             meters.update("Data", data_s)
-            gstep = epoch * self.steps_per_epoch + i
-            self._step_faults(gstep, pending, meters)
+            self._preempt_check(pending, meters)
             was_cold = not self._warmed
-            t0 = time.time()
-            metrics = self._step(inputs, targets)
-            dispatch_s = time.time() - t0
-            if was_cold:
-                warm = self._warm_up(metrics, t_epoch, 1)
+            metrics, dispatch_s, warmed = self._dispatch(
+                gstep, "train_step", lambda: self._step(inputs, targets),
+                t_epoch, 1)
+            warm = warmed or warm
             pending.append((metrics, {
                 "step": gstep, "n_steps": 1, "n_items": tokens_per_batch,
                 "data_s": data_s, "dispatch_s": dispatch_s,
@@ -953,16 +918,16 @@ class LMTrainer:
         tokens_per_batch = cfg.batch_size * cfg.seq_len
         t_epoch = end = time.time()
         for n, idx_window in self._device_windows(epoch, skip):
+            gstep = epoch * self.steps_per_epoch + done
+            self.obs.fire_step_faults(gstep, self.state.params)
             data_s = time.time() - end
             meters.update("Data", data_s / n, n)
-            self._step_faults(epoch * self.steps_per_epoch + done, pending,
-                              meters)
+            self._preempt_check(pending, meters)
             was_cold = not self._warmed
-            t0 = time.time()
-            sums = self.window_step(idx_window)
-            dispatch_s = time.time() - t0
-            if was_cold:
-                warm = self._warm_up(sums, t_epoch, n)
+            sums, dispatch_s, warmed = self._dispatch(
+                gstep, "window_step", lambda: self.window_step(idx_window),
+                t_epoch, n)
+            warm = warmed or warm
             done += n
             pending.append((sums, {
                 "step": epoch * self.steps_per_epoch + done - 1,
@@ -988,12 +953,31 @@ class LMTrainer:
         cap = self.cfg.max_steps
         return bool(cap) and epoch * self.steps_per_epoch + batches_done >= cap
 
+    def _dispatch(self, gstep: int, program: str, fn, t_epoch: float,
+                  n: int):
+        """One dispatch of ``program`` (``fn()``, ``n`` steps) through
+        ``RunObs.dispatch``; the run's first also gets the warm-up sync and
+        the ``compile`` and ``cost_model`` events. Returns (metric
+        sums, dispatch seconds, (warm seconds, warm batches) of the first
+        dispatch or None)."""
+        first = not self._warmed
+        metrics, dispatch_s, probe = self.obs.dispatch(gstep, fn, first)
+        if not first:
+            return metrics, dispatch_s, None
+        warm = self._warm_up(metrics, t_epoch, n)
+        self.obs.emit_compile(program, warm[0], probe,
+                              n * self._step_flops() / self.world,
+                              self.policy.compute_dtype)
+        return metrics, dispatch_s, warm
+
     # ------------------------------------------------------------------
-    def _step_faults(self, gstep: int, pending=None, meters=None) -> None:
-        """Once a loop iteration, before its dispatch: the step fault
-        sites (``RunObs.fire_step_faults``), then the preemption decision
-        (``RunObs.preempt_agreed``), which snapshots and exits."""
-        self.obs.fire_step_faults(gstep, self.state.params)
+    def _preempt_check(self, pending=None, meters=None) -> None:
+        """Once a loop iteration, before its dispatch and after the step
+        fault sites (``RunObs.fire_step_faults``, which fire before the
+        step's data wait is read, so an injected ``hang`` counts in this
+        rank's ``data_s``, as a stalled loader would): the preemption
+        decision (``RunObs.preempt_agreed``), which snapshots and
+        exits."""
         if self.obs.preempt_agreed(self.world, self.device, pending):
             self._preempt_snapshot(pending, meters)   # raises SystemExit
 
@@ -1081,8 +1065,6 @@ class LMTrainer:
                              processes=self.world,
                              epoch=env_int("TPU_DIST_MESH_EPOCH"),
                              step=self.state.step)
-        self.log("note: observers not ported yet, off in this run: the "
-                 "flight recorder (flightrec_dir)")
         if self.use_ring or self.use_sp or self.use_pp:
             from tpu_dist_torch.parallel.collectives import p2p_route
 
@@ -1113,10 +1095,11 @@ class LMTrainer:
         the preemption snapshot, preempted."""
         self._run_start()
         try:
-            if self.cfg.evaluate:
-                self.best_ppl = self.validate(0)[1]
-            else:
-                self._fit_epochs()
+            with self.obs.observing():
+                if self.cfg.evaluate:
+                    self.best_ppl = self.validate(0)[1]
+                else:
+                    self._fit_epochs()
         except KeyboardInterrupt:
             self.obs.pause()   # a slow interrupt save is not a stall
             if self.cfg.checkpoint_dir:

@@ -44,6 +44,11 @@ What follows the reference (line numbers are ``loop.py``'s):
   ``preempt_deadline``), the coordinated preemption snapshot (exit 75)
   agreed over the group at the drain boundaries, and
   ``TPU_DIST_PEER_RESUME`` in a dp-pure run.
+* the observers (``:481-484, 610-666``), as in the LMTrainer: the
+  tracer's ``dispatch`` and ``device`` spans, the skew monitor fed each
+  step record on every rank, the telemetry sampler and the
+  ``profile_dir`` session around the fit, and the ``compile`` and
+  ``cost_model`` events of the first dispatch.
 
 The first step (or window) of a run carries cuDNN's autotuning
 (``cudnn.benchmark`` is on for CUDA) and the allocator's warm-up: the loop
@@ -74,12 +79,13 @@ mean go by the data axis); the params stay whole and identical on the
 model axis. The reference requires ``variant="shard_map"`` there because
 its ring collectives are explicit; the port's trainer runs explicit
 collectives in both variants, so either is taken. A ``model`` axis under
-``tp_impl="gspmd"`` is not ported (``UNPORTED``).
+``tp_impl="gspmd"`` is not ported (``UNPORTED``; ROADMAP Queue 1 item 6).
 
 It runs on CUDA unless ``device="cpu"`` is asked for, and takes an
 optional flax-layout ``init_params``/``init_batch_stats`` pair so a run can
 start from the reference trainer's initial weights. Knobs not ported yet
-raise ``NotImplementedError`` naming the knob (:data:`UNPORTED`).
+raise ``NotImplementedError`` naming the knob and ROADMAP Queue 1 item 6
+(:data:`UNPORTED`).
 """
 
 from __future__ import annotations
@@ -118,17 +124,17 @@ from tpu_dist_torch.parallel.mesh import make_mesh
 from tpu_dist_torch.parallel.overlap import validate_tp_impl
 from tpu_dist_torch.parallel.supervisor import PREEMPT_SNAPSHOT_RC
 from tpu_dist_torch.utils.meters import MeterBank
+from tpu_dist_torch.utils.mfu import image_forward_flops
 
 # knob -> its accepted values. Anything else raises NotImplementedError
-# naming the knob and the ROADMAP Queue 1 item it waits for (WAITS_FOR).
+# naming the knob and the ROADMAP Queue 1 item it waits for (item 6, the
+# plan lowering: a 'model' axis under tp_impl="gspmd" rides the reference's
+# jit step plan, and the step plans and program audits are JAX's).
 UNPORTED = {
     "mesh_axes": (("data",), ("data", "model")),
-    "plan": ("", "none"), "audit": ("none",), "metrics_port": (0,),
-    "profile_dir": ("",), "telemetry_csv": ("",), "skew_every": (0,),
-    "slo_steps_per_min": (0.0,), "slo_throughput": (0.0,),
-    "flightrec_dir": ("",),
+    "plan": ("", "none"), "audit": ("none",),
 }
-WAITS_FOR = {"plan": 6, "audit": 6}     # the others: item 5 (observers)
+WAITS_FOR = 6
 
 
 def refuse_unported(cfg: TrainConfig) -> None:
@@ -139,49 +145,15 @@ def refuse_unported(cfg: TrainConfig) -> None:
             if cfg.tp_impl != "ring":   # a model axis rides the ring only
                 accepted = (("data",),)
         if val not in accepted:
-            where = ("" if knob == "mesh_axes" else
-                     f" (ROADMAP Queue 1 item {WAITS_FOR.get(knob, 5)})")
             raise NotImplementedError(
                 f"TrainConfig.{knob}={val!r}"
-                + (f" (mesh_shape={cfg.mesh_shape!r})"
-                   if knob == "mesh_axes" else "")
-                + f" is not ported yet{where}: the port's "
+                + (f" (mesh_shape={cfg.mesh_shape!r}, tp_impl="
+                   f"{cfg.tp_impl!r})" if knob == "mesh_axes" else "")
+                + f" is not ported yet (ROADMAP Queue 1 item {WAITS_FOR})"
+                f": the port's "
                 f"Trainer runs data-parallel, one device per process, and "
                 f"ViT ring tensor parallelism over a 'model' axis "
                 f"(supported: {' | '.join(repr(a) for a in accepted)})")
-
-
-def image_forward_flops(model, image_shape) -> float:
-    """Forward FLOPs per image of the convs and dense layers (2 x MACs),
-    from one eval-mode forward of a single zero image."""
-    from tpu_dist_torch.models.resnet import Conv
-    from tpu_dist_torch.ops.quant import QuantDense
-
-    total = [0.0]
-
-    def conv_hook(mod, _inp, out):
-        total[0] += 2.0 * out[0].numel() * mod.weight[0].numel()
-
-    def dense_hook(mod, _inp, out):
-        total[0] += 2.0 * out.numel() * mod.in_features   # every token
-
-    hooks = [m.register_forward_hook(conv_hook if isinstance(m, Conv)
-                                     else dense_hook)
-             for m in model.modules() if isinstance(m, (Conv, QuantDense))]
-    was_training, tuned = model.training, torch.backends.cudnn.benchmark
-    model.eval()
-    # no cuDNN autotuning for this one-off batch-1 forward
-    torch.backends.cudnn.benchmark = False
-    try:
-        with torch.inference_mode():
-            dev = next(model.parameters()).device
-            model(torch.zeros((1, *image_shape), device=dev))
-    finally:
-        torch.backends.cudnn.benchmark = tuned
-        model.train(was_training)
-        for h in hooks:
-            h.remove()
-    return total[0]
 
 
 class Trainer:
@@ -418,7 +390,7 @@ class Trainer:
         # the run's ledger (attempt lineage), health sentry, watchdog,
         # goodput sink, faults, heartbeat and preemption (obs.RunObs)
         self.obs = RunObs("image", cfg, process_index=self.rank,
-                          unit="img/s")
+                          unit="img/s", device=self.device)
         self.ledger, self.health = self.obs.ledger, self.obs.health
 
     # ------------------------------------------------------------------
@@ -561,10 +533,11 @@ class Trainer:
         at each. Under ``skip`` a non-finite record stays out of the
         meters (its update was already undone on the device)."""
         keys = IMAGE_METRIC_KEYS + PROBE_KEYS
-        t0 = time.time()
-        rows = torch.stack([torch.stack([m[k] for k in keys])
-                            for m, _ in pending]).tolist()
-        device_s = time.time() - t0
+        tr = self.obs.tracer
+        with tr.span("device"):
+            rows = torch.stack([torch.stack([m[k] for k in keys])
+                                for m, _ in pending]).tolist()
+        device_s = tr.pop().get("device", 0.0)
         total_steps = sum(info["n_steps"] for _, info in pending) or 1
         mem = self._memory()
         for row, (_, info) in zip(rows, pending):
@@ -589,6 +562,7 @@ class Trainer:
                 warm=info["warm"], fused=self._fused_quant, acc1=acc1,
                 grad_norm=gn,
                 nonfinite_count=m["nonfinite_count"], update_norm=un, **mem)
+            self.obs.record_skew(info["step"], wall, info["data_s"], n)
             self.health.observe(info["step"], loss,
                                 nonfinite=m["nonfinite_count"],
                                 grad_norm=gn, update_norm=un, n_steps=n)
@@ -636,16 +610,16 @@ class Trainer:
             if i < skip:       # step-exact resume of a mid-epoch checkpoint
                 end = time.time()
                 continue
+            gstep = epoch * self.steps_per_epoch + i
+            self.obs.fire_step_faults(gstep, self.state.params)
             data_s = time.time() - end
             meters.update("Data", data_s)
-            gstep = epoch * self.steps_per_epoch + i
-            self._step_faults(gstep, pending, meters)
+            self._preempt_check(pending, meters)
             was_cold = not self._warmed
-            t0 = time.time()
-            metrics = self._step(images, labels, gstep)
-            dispatch_s = time.time() - t0
-            if was_cold:
-                warm = self._warm_up(metrics, t_epoch, 1)
+            metrics, dispatch_s, warmed = self._dispatch(
+                gstep, "train_step",
+                lambda: self._step(images, labels, gstep), t_epoch, 1)
+            warm = warmed or warm
             pending.append((metrics, {
                 "step": gstep, "n_steps": 1, "n_items": cfg.batch_size,
                 "data_s": data_s, "dispatch_s": dispatch_s,
@@ -704,25 +678,29 @@ class Trainer:
         warm = (0.0, 0)
         t_epoch = end = time.time()
         for n, payload in windows:
+            gstep = epoch * self.steps_per_epoch + done
+            self.obs.fire_step_faults(gstep, self.state.params)
             data_s = time.time() - end
             meters.update("Data", data_s / n, n)
-            self._step_faults(epoch * self.steps_per_epoch + done, pending,
-                              meters)
+            self._preempt_check(pending, meters)
             was_cold = not self._warmed
-            t0 = time.time()
-            sums = None
-            for j in range(n):
-                if self.device_data:
-                    images = images_all.index_select(0, payload[j])
-                    labels = labels_all.index_select(0, payload[j])
-                else:
-                    images, labels = payload[0][j], payload[1][j]
-                m = self._step(images, labels,
-                               epoch * self.steps_per_epoch + done + j)
-                sums = m if sums is None else {k: sums[k] + m[k] for k in m}
-            dispatch_s = time.time() - t0
-            if was_cold:
-                warm = self._warm_up(sums, t_epoch, n)
+
+            def window(n=n, payload=payload, gstep=gstep):
+                sums = None
+                for j in range(n):
+                    if self.device_data:
+                        images = images_all.index_select(0, payload[j])
+                        labels = labels_all.index_select(0, payload[j])
+                    else:
+                        images, labels = payload[0][j], payload[1][j]
+                    m = self._step(images, labels, gstep + j)
+                    sums = m if sums is None else {k: sums[k] + m[k]
+                                                   for k in m}
+                return sums
+
+            sums, dispatch_s, warmed = self._dispatch(
+                gstep, "window_step", window, t_epoch, n)
+            warm = warmed or warm
             done += n
             pending.append((sums, {
                 "step": epoch * self.steps_per_epoch + done - 1,
@@ -740,12 +718,31 @@ class Trainer:
         self.obs.pause()       # validation and checkpoints follow
         return self._epoch_result(meters, nb - skip, warm)
 
+    def _dispatch(self, gstep: int, program: str, fn, t_epoch: float,
+                  n: int):
+        """One dispatch of ``program`` (``fn()``, ``n`` steps) through
+        ``RunObs.dispatch``; the run's first also gets the warm-up sync and
+        the ``compile`` and ``cost_model`` events (the LMTrainer's twin).
+        Returns (metric sums, dispatch seconds, (warm seconds, warm
+        batches) of the first dispatch or None)."""
+        first = not self._warmed
+        metrics, dispatch_s, probe = self.obs.dispatch(gstep, fn, first)
+        if not first:
+            return metrics, dispatch_s, None
+        warm = self._warm_up(metrics, t_epoch, n)
+        self.obs.emit_compile(
+            program, warm[0], probe,
+            n * self._flops() * self.cfg.batch_size / self.data_size,
+            self.policy.compute_dtype)
+        return metrics, dispatch_s, warm
+
     # ------------------------------------------------------------------
-    def _step_faults(self, gstep: int, pending=None, meters=None) -> None:
-        """Once a loop iteration, before its dispatch: the step fault
-        sites (``RunObs.fire_step_faults``), then the preemption decision
-        (``RunObs.preempt_agreed``), which snapshots and exits."""
-        self.obs.fire_step_faults(gstep, self.state.params)
+    def _preempt_check(self, pending=None, meters=None) -> None:
+        """Once a loop iteration, before its dispatch and after the step
+        fault sites (fired before the step's data wait is read, so an
+        injected ``hang`` counts in this rank's ``data_s``): the
+        preemption decision (``RunObs.preempt_agreed``), which snapshots
+        and exits."""
         if self.obs.preempt_agreed(self.world, self.device, pending):
             self._preempt_snapshot(pending, meters)   # raises SystemExit
 
@@ -837,8 +834,6 @@ class Trainer:
                              epoch=env_int("TPU_DIST_MESH_EPOCH"),
                              step=self.state.step)
         self._flops()   # its forward stays out of the first epoch's time
-        self.log("note: observers not ported yet, off in this run: the "
-                 "flight recorder (flightrec_dir)")
 
     def fit(self) -> float:
         """Train from ``start_epoch`` to ``epochs``, validating and
@@ -847,10 +842,11 @@ class Trainer:
         cfg = self.cfg
         self._run_start()
         try:
-            if cfg.evaluate:
-                self.best_acc1 = self.validate()
-            else:
-                self._fit_epochs()
+            with self.obs.observing():
+                if cfg.evaluate:
+                    self.best_acc1 = self.validate()
+                else:
+                    self._fit_epochs()
         except KeyboardInterrupt:
             self.obs.pause()   # a slow interrupt save is not a stall
             if cfg.checkpoint_dir:

@@ -130,6 +130,23 @@ def row_matmul(dense, x, group):
                               dense.kernel.to(dense.dtype), group)
 
 
+class Attention(nn.Module):
+    """The attention contraction of a block (``attend_maybe_cached``) as a
+    module of its own, with no parameters: module-scoped tools see its
+    operators (the cost attribution of ``obs.attr`` buckets them as
+    attention, forward and backward)."""
+
+    def __init__(self, attn_fn: Callable):
+        super().__init__()
+        self.fn = attn_fn
+
+    def forward(self, q, k, v, dtype, cache=None, paged=None,
+                paged_prefill: bool = False):
+        return attend_maybe_cached(q, k, v, attn_fn=self.fn, dtype=dtype,
+                                   cache=cache, paged=paged,
+                                   paged_prefill=paged_prefill)
+
+
 class AttentionBlock(nn.Module):
     """The attention half of a pre-LN block (``ln1``, ``qkv``, ``proj``)
     and the ``ln2`` of its MLP half, shared by :class:`Block` and the MoE
@@ -142,7 +159,10 @@ class AttentionBlock(nn.Module):
         super().__init__()
         self.num_heads = num_heads
         self.dtype = dtype
-        self.attn_fn = attn_fn
+        # outside the module tree (no parameters, no state), so trees that
+        # mirror the flax module's (interop's walkers) see the same children;
+        # the global module hooks still see its calls
+        object.__setattr__(self, "attn", Attention(attn_fn))
         self.tp_impl = tp_impl
         self.tp = None
         self._dense = dict(dtype=dtype, quant=quant, device=device,
@@ -206,9 +226,8 @@ class AttentionBlock(nn.Module):
         l = qkv.shape[1]          # the whole sequence under the ring
         q, k, v = (t.reshape(b, l, -1, head_dim).contiguous()
                    for t in qkv.split(qkv.shape[-1] // 3, dim=-1))
-        out = attend_maybe_cached(q, k, v, attn_fn=self.attn_fn,
-                                  dtype=self.dtype, cache=cache, paged=paged,
-                                  paged_prefill=paged_prefill)
+        out = self.attn(q, k, v, self.dtype, cache=cache, paged=paged,
+                        paged_prefill=paged_prefill)
         layer = None
         if paged is not None:
             out, layer = out

@@ -25,12 +25,27 @@ both trainers in place of a bare ``Ledger``:
   in the handler) that the loop acts on at its next step boundary;
 * the crash guard (``:345-422``): ``run_end`` at interpreter exit when a
   loop never reached it, the excepthook's traceback in that record, and a
-  SIGTERM without a snapshot path ending the run with ``status=crashed``.
-
-The reference's metrics server, skew monitor, tracer and profiler, flight
-recorder and cost attribution are not built here: the trainers refuse
-their knobs by name (``metrics_port``, ``skew_every``, ``profile_dir``,
-``telemetry_csv``, ``flightrec_dir``, ``slo_*``).
+  SIGTERM without a snapshot path ending the run with ``status=crashed``;
+* the observers (``:124-175``): the step tracer (``obs.trace``; its spans
+  enter ``torch.profiler`` ranges while a ``profile_dir`` session runs,
+  which is rank 0's), the cross-rank skew monitor (``obs.skew``,
+  ``skew_every``) over the world on the trainer's device, the metrics
+  registry as a ledger sink and its Prometheus endpoint at ``metrics_port
+  + process_index`` (``obs.metrics``; a ``metrics_snapshot`` event before
+  ``run_end``, then the endpoint closes), the always-on flight recorder
+  (``obs.flightrec``, ``flightrec_dir``, ``flightrec_trace_steps``) as a
+  ledger sink, armed by ``SIGUSR1`` (``:358-363, 385-389``) and closed at
+  ``run_end``: the handler writes one byte to a pipe (no lock, no CUDA
+  call, beside the SIGTERM handler's one attribute write) and a daemon
+  thread reading it captures the bundle, so a hung loop gets one too;
+  the goodput monitor's progress-SLO floors (``slo_steps_per_min``,
+  ``slo_throughput``); and :meth:`RunObs.observing`, the fit's telemetry
+  sampler (``utils.telemetry``, ``telemetry_csv``) and ``profile_dir``
+  session;
+* the first dispatch of each program (:meth:`RunObs.first_dispatch`,
+  :meth:`RunObs.emit_compile`): the ``compile`` event with the
+  allocator's peak over that step, and the ``cost_model`` event of
+  ``obs.attr`` when the ledger has a path and no profiler runs.
 """
 
 from __future__ import annotations
@@ -43,12 +58,19 @@ import sys
 import threading
 import time
 import traceback
+from contextlib import contextmanager, nullcontext
 from typing import Optional
 
 from tpu_dist_torch.obs import faults
+from tpu_dist_torch.obs.flightrec import FlightRecorder
 from tpu_dist_torch.obs.goodput import (GoodputMonitor, attempt_path,
                                         next_attempt_index)
 from tpu_dist_torch.obs.ledger import EpochCsvSink, Ledger, per_process_path
+from tpu_dist_torch.obs.metrics import (MetricsRegistry, metrics_ledger_sink,
+                                        serve_metrics)
+from tpu_dist_torch.obs.skew import SkewMonitor
+from tpu_dist_torch.obs.trace import (StepTracer, profile_session,
+                                      step_annotation)
 from tpu_dist_torch.obs.watchdog import Watchdog
 
 __all__ = ["RunObs", "env_int"]
@@ -64,18 +86,22 @@ def env_int(name: str, default: int = 0) -> int:
 
 class RunObs:
     """Per-run observability handle: attempt-aware ledger, health sentry,
-    watchdog, goodput sink, faults, heartbeat, preemption and crash guard.
-    ``process_index`` is this process's rank (its ``.pN`` suffix);
-    ``unit`` names the throughput unit of the run's step records."""
+    watchdog, goodput sink, the observers, faults, heartbeat, preemption
+    and crash guard. ``process_index`` is this process's rank (its ``.pN``
+    suffix); ``unit`` names the throughput unit of the run's step records;
+    ``device`` is the trainer's device (the allocator the observers read,
+    the skew exchange's tensors, over the whole world)."""
 
     def __init__(self, kind: str, cfg, process_index: int = 0,
-                 unit: str = "items/s"):
+                 unit: str = "items/s", device="cpu"):
         from tpu_dist_torch.obs.health import HealthSentry
 
         self.kind = kind
         self.cfg = cfg
         self.unit = unit
+        self.device = device
         pidx = int(process_index)
+        self.process_index = pidx
         self.is_main = pidx == 0
         base_path = getattr(cfg, "ledger_path", "") or ""
         attempt = int(getattr(cfg, "attempt", 0) or 0)
@@ -96,15 +122,39 @@ class RunObs:
             self.ledger.add_sink(EpochCsvSink(cfg.log_csv))
         self.steps = 0
         self.ledger.add_sink(self._count_steps)
+        self.profile_dir = getattr(cfg, "profile_dir", "") or ""
+        self.profiling = bool(self.profile_dir) and self.is_main
+        self.tracer = StepTracer(annotate=self.profiling)
+        skew_every = getattr(cfg, "skew_every", 0) or 0
+        self.skew = (SkewMonitor(skew_every, ledger=self.ledger,
+                                 device=device) if skew_every > 0 else None)
         wd_factor = getattr(cfg, "watchdog_factor", 0.0) or 0.0
-        self.watchdog = (Watchdog(wd_factor, ledger=self.ledger)
-                         if wd_factor > 0 else None)
+        self.watchdog = (Watchdog(wd_factor, ledger=self.ledger,
+                                  device=device) if wd_factor > 0 else None)
         self.health = HealthSentry(getattr(cfg, "health", "record"),
                                    getattr(cfg, "health_spike_z", 8.0) or 0.0,
                                    ledger=self.ledger)
+        # every event reaches the scrape through this one sink
+        self.metrics = MetricsRegistry()
+        self.ledger.add_sink(metrics_ledger_sink(self.metrics))
+        self.metrics_server = None
+        metrics_port = getattr(cfg, "metrics_port", 0) or 0
+        if metrics_port > 0:
+            self.metrics_server = serve_metrics(self.metrics,
+                                                metrics_port + pidx)
+        # the always-on flight recorder: stalls, health trips, skew spikes
+        # and slo breaches reach it through the ledger; its profiler window
+        # stands down while a profile_dir session owns the profiler
+        self.flightrec = FlightRecorder(
+            dir=getattr(cfg, "flightrec_dir", "") or "", ledger=self.ledger,
+            trace_steps=getattr(cfg, "flightrec_trace_steps", 3),
+            profiler_busy=lambda: self.profiling, process_index=pidx,
+            device=device)
+        self.ledger.add_sink(self.flightrec.sink)
         self.goodput = GoodputMonitor(
             self.ledger, every_s=getattr(cfg, "goodput_every_s", 60.0),
-            unit=unit)
+            slo_steps_per_min=getattr(cfg, "slo_steps_per_min", 0.0),
+            slo_throughput=getattr(cfg, "slo_throughput", 0.0), unit=unit)
         self.ledger.add_sink(self.goodput.sink)
         # the config knob wins over TPU_DIST_FAULTS
         if getattr(cfg, "faults", ""):
@@ -117,6 +167,8 @@ class RunObs:
         self._crash_tb: Optional[str] = None
         self._prev_excepthook = None
         self._prev_sigterm = None
+        self._prev_sigusr1 = None
+        self._usr1_pipe = self._usr1_thread = None
         self._preempt_enabled = False
         # the SIGTERM handler's only write: a plain attribute (no lock)
         self._preempt_source: Optional[str] = None
@@ -192,6 +244,8 @@ class RunObs:
         self._disarm_crash_guard()
         if self.watchdog is not None:
             self.watchdog.stop()
+        # a profiler window left open ends before the final events land
+        self.flightrec.close()
         if status is None:
             exc = sys.exc_info()[1]
             if exc is None and self._crash_tb is not None:
@@ -211,10 +265,15 @@ class RunObs:
         except Exception:
             pass
         steps = extra.pop("steps", self.steps)
+        # the registry's final values outlive the endpoint in the ledger
+        self.ledger.emit("metrics_snapshot", metrics=self.metrics.snapshot())
         self.ledger.emit("run_end", steps=steps,
                          seconds=round(time.time() - self._t0, 6),
                          status=status, health_trips=self.health.trips,
                          **extra)
+        if self.metrics_server is not None:
+            self.metrics_server.close()
+            self.metrics_server = None
         self.ledger.close()
 
     # -- crash-safe shutdown -------------------------------------------
@@ -228,6 +287,18 @@ class RunObs:
                                                    self._on_sigterm)
         except (ValueError, OSError):
             self._prev_sigterm = None
+        # kill -USR1 <pid>: a flight-recorder bundle, the run goes on
+        if threading.current_thread() is threading.main_thread() and \
+                hasattr(signal, "SIGUSR1"):
+            r, w = os.pipe()
+            os.set_blocking(w, False)
+            self._usr1_pipe = (r, w)
+            self._usr1_thread = threading.Thread(
+                target=self._usr1_captures, args=(r,),
+                name="tpu-dist-sigusr1", daemon=True)
+            self._usr1_thread.start()
+            self._prev_sigusr1 = signal.signal(signal.SIGUSR1,
+                                               self._on_sigusr1)
 
     def _disarm_crash_guard(self) -> None:
         try:
@@ -243,6 +314,31 @@ class RunObs:
             except (ValueError, OSError):
                 pass
             self._prev_sigterm = None
+        if self._usr1_pipe is not None:
+            try:
+                signal.signal(signal.SIGUSR1, self._prev_sigusr1)
+            except (ValueError, OSError, TypeError):
+                pass
+            self._prev_sigusr1 = None
+            r, w = self._usr1_pipe
+            os.close(w)                   # the capture thread sees EOF
+            self._usr1_thread.join(timeout=10)
+            os.close(r)
+            self._usr1_pipe = self._usr1_thread = None
+
+    def _on_sigusr1(self, signum, frame) -> None:
+        try:
+            os.write(self._usr1_pipe[1], b"u")
+        except (OSError, TypeError):      # a full pipe, or disarmed
+            pass
+        prev = self._prev_sigusr1
+        if callable(prev):
+            prev(signum, frame)
+
+    def _usr1_captures(self, r: int) -> None:
+        """The SIGUSR1 pipe's reader: one bundle a byte, until EOF."""
+        while os.read(r, 1):
+            self.flightrec.trigger("sigusr1")
 
     def _excepthook(self, exc_type, exc, tb) -> None:
         self._crash_tb = "".join(
@@ -270,7 +366,74 @@ class RunObs:
         else:
             raise SystemExit(143)
 
+    # -- the fit's observers --------------------------------------------
+    @contextmanager
+    def observing(self):
+        """Around a fit's training: the telemetry sampler (every rank, its
+        CSV ``.pN``-suffixed) and the ``profile_dir`` session (rank 0's),
+        both stopped on every exit path."""
+        from tpu_dist_torch.utils.telemetry import start_hbm_sampler
+
+        csv_path = getattr(self.cfg, "telemetry_csv", "") or ""
+        stop = (start_hbm_sampler(
+            per_process_path(csv_path, self.process_index),
+            ledger=self.ledger, device=self.device) if csv_path else None)
+        try:
+            with profile_session(self.profile_dir, self.profiling,
+                                 self.process_index, self.device):
+                yield
+        finally:
+            if stop is not None:
+                stop()
+
+    def first_dispatch(self):
+        """Around a program's first dispatch: the allocator's peak reset,
+        and the cost attribution's dispatch mode when the ledger has a
+        path and no profiler session or recorder window runs."""
+        from tpu_dist_torch.obs.attr import FirstDispatch
+
+        cost = (bool(self.ledger.path) and not self.profiling
+                and not self.flightrec.window_open())
+        return FirstDispatch(self.device, cost)
+
+    def dispatch(self, gstep: int, fn, first: bool):
+        """``fn()``, one dispatch of step ``gstep``, under the tracer's
+        ``dispatch`` span (a ``ProfilerStep#gstep`` range while profiling)
+        and, for a program's ``first`` dispatch, :meth:`first_dispatch`.
+        Returns (``fn()``'s result, its seconds, the first dispatch's
+        probe or None)."""
+        probe = self.first_dispatch() if first else None
+        with step_annotation(gstep, self.profiling), \
+                self.tracer.span("dispatch"), probe or nullcontext():
+            out = fn()
+        return out, self.tracer.pop().get("dispatch", 0.0), probe
+
+    def emit_compile(self, program: str, seconds: float, probe,
+                     analytic_flops: float, dtype) -> None:
+        """The ``compile`` event of ``program``'s first dispatch (``probe``,
+        from :meth:`dispatch`, read after the warm-up sync): its seconds,
+        the allocator's peak over it, and its flops (the dispatch mode's
+        total where the mode ran, else ``analytic_flops``); then the
+        ``cost_model`` event where the mode ran."""
+        from tpu_dist_torch.obs.attr import bucket_totals, emit_cost_model
+        from tpu_dist_torch.utils.telemetry import peak_hbm_bytes
+
+        buckets = probe.buckets()
+        self.ledger.emit(
+            "compile", program=program, seconds=seconds or None,
+            hbm_bytes=peak_hbm_bytes(self.device),
+            flops=(bucket_totals(buckets)["flops"] if buckets
+                   else analytic_flops))
+        emit_cost_model(self.ledger, program, buckets, self.device, dtype)
+
     # -- per-step -------------------------------------------------------
+    def record_skew(self, step: int, wall_s: float, data_s: float,
+                    n_steps: int = 1) -> None:
+        """Feed one step record to the skew monitor. A collective: every
+        rank calls it for the same records."""
+        if self.skew is not None:
+            self.skew.record(step, wall_s, data_s, n_steps=n_steps)
+
     def fire_step_faults(self, step: int, params=()) -> dict:
         """The step-scoped fault sites for this step ordinal, once a loop
         iteration before its dispatch: hard_exit / hang / preempt_sigterm

@@ -6,10 +6,10 @@ categories, the same per-attempt ledger naming (``run.jsonl``,
 ``run.a1.jsonl``, ... beside ``.pN`` for process N) and the same
 supervisor sibling (``run.sup.jsonl``), so ``tools/ledger_report.py``
 stitches the port's attempts as it stitches the reference's. The
-:class:`GoodputMonitor` is a ledger sink here too; its progress-SLO floors
-(``slo_steps_per_min``, ``slo_throughput``) belong to the observers still
-to port, and the trainers refuse them by name, so a port run builds the
-monitor with the floors at 0.
+:class:`GoodputMonitor` is a ledger sink here too, with the trainers'
+progress-SLO floors (``slo_steps_per_min``, ``slo_throughput``), and
+:func:`attempt_ordinal` labels each attempt ledger for the trace merge
+(``tools/trace_merge.py``).
 
 The reference cookbook meters per-step throughput inside one healthy
 process; nothing upstream answers the allocation owner's question — "how
@@ -128,6 +128,15 @@ def next_attempt_index(path: str, process_index: int = 0) -> int:
         if m:
             highest = max(highest, int(m.group(1)))
     return highest + 1
+
+
+def attempt_ordinal(path: str) -> int:
+    """The attempt number a ledger path encodes (``run.a2.jsonl`` -> 2;
+    bare -> 0) — label lanes/reports by THIS, not by list position, so a
+    lost intermediate attempt ledger never renumbers the rest."""
+    root, _ = os.path.splitext(path)
+    m = re.search(r"\.a(\d+)$", root)
+    return int(m.group(1)) if m else 0
 
 
 def discover_attempt_paths(path: str) -> List[str]:

@@ -5,9 +5,9 @@ The port's own copy of the reference's detector: the same trailing-median
 threshold, 5 s floor, one ``stall`` ledger event a stall (``idle_s``,
 ``threshold_s``, ``stacks``, ``hbm``, ``last_event``), ``pause``/``resume``
 around validation and checkpoint writes, and ``beat`` at each drain. The
-dump's memory counters are the CUDA allocator's
-(``torch.cuda.memory_stats`` and ``max_memory_allocated`` of the current
-device; none off CUDA) where the reference reads its telemetry module.
+dump's memory counters are the CUDA allocator's, of the trainer's device,
+read through the port's telemetry module (``utils.telemetry``) as the
+reference reads its own; none off CUDA.
 
 A hung collective (one host dropped out), a deadlocked loader thread, or a
 device queue stuck behind a tunneled controller all present the same way: a
@@ -43,21 +43,7 @@ from collections import deque
 from typing import Optional
 
 from tpu_dist_torch.obs.ledger import Ledger
-
-
-def device_memory_stats() -> dict:
-    """The CUDA allocator's counters of the current device (bytes in use,
-    peak, reserved, allocation retries), or {} without CUDA or before any
-    CUDA tensor exists. Never makes a CUDA context of its own."""
-    import torch
-
-    if not torch.cuda.is_available() or not torch.cuda.is_initialized():
-        return {}
-    stats = torch.cuda.memory_stats()
-    return {"bytes_in_use": stats.get("allocated_bytes.all.current", 0),
-            "peak_bytes_in_use": torch.cuda.max_memory_allocated(),
-            "bytes_reserved": stats.get("reserved_bytes.all.current", 0),
-            "num_alloc_retries": stats.get("num_alloc_retries", 0)}
+from tpu_dist_torch.utils.telemetry import device_memory_stats
 
 
 def thread_stacks() -> str:
@@ -79,7 +65,7 @@ class Watchdog:
                  ledger: Optional[Ledger] = None,
                  min_timeout_s: float = 5.0,
                  poll_s: float = 0.5,
-                 stream=None):
+                 stream=None, device=None):
         if factor <= 0:
             raise ValueError("watchdog factor must be > 0 (use no watchdog "
                              "instead of factor<=0)")
@@ -88,6 +74,7 @@ class Watchdog:
         self.min_timeout_s = min_timeout_s
         self.poll_s = poll_s
         self._stream = stream  # None -> sys.stderr at dump time (testable)
+        self.device = device   # whose allocator counters the dump reads
         self._durations = deque(maxlen=64)
         self._last_done: Optional[float] = None
         self._fired_this_stall = False
@@ -177,7 +164,7 @@ class Watchdog:
     def _dump(self, idle_s: float, threshold_s: float) -> None:
         stacks = thread_stacks()
         try:
-            hbm = device_memory_stats()
+            hbm = device_memory_stats(self.device)
         except Exception:
             hbm = {}
         last = self.ledger.last if self.ledger is not None else None
