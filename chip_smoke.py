@@ -268,6 +268,34 @@ CUDA or without the repository beside it. Phases:
    gives every rank a ``skew`` bundle, every rank's endpoint answers at
    ``metrics_port + rank``, and ``tpu_dist_torch/tools/trace_merge.py``
    merges the three ledgers into one trace of three process lanes.
+17. the plan lowering: (a) ``python -m tpu_dist_torch.tools.tune`` twice
+   for the card's device kind at phase 6's workload (P17_WORKLOAD):
+   byte-identical plan files, the port's peaks for the card (989 TFLOP/s
+   bf16, 3,350 GB/s, not nominal), the winning plan's knobs and hash; (b)
+   phase 6's LM at full width driven by that plan file (``plan=``; the
+   plan owns precision, quant, the sync and window knobs, and the kernel
+   switches) for 8 steps: the plan's knobs in ``t.cfg`` and the switches,
+   ``run_start`` with its hash and exactly one ``plan`` event after it,
+   finite falling losses, per step one ``adamw`` and 8 flash backward
+   pairs, and 33 ``fused_quant`` calls a forward where the plan picked
+   int8; then the same 8 steps at other tiles (the defaults, or
+   P17_OTHER_TILES where the plan's are the defaults): losses bit-equal
+   step for step; (c) ``fused_quant`` at phase 6's int8 products
+   (M = 16,384) and a decode tick's lm_head, for every instantiated tile
+   at bk 0 and 512: bit-equal to the plain version and to the default
+   tile, each timed (CUDA-event medians of 20 behind a device sleep), and
+   an IR-legal tile outside the set (8, 128, 0) refused naming
+   ``quant_block``; ``sgd`` over ResNet-50's 161 leaves and ``adamw`` over
+   the LM's 85 at ``opt_block_rows`` 8, 512 and 1024: within FP32_TOL
+   (1 + |plain|) of the plain version, bit-equal across the values, each
+   timed; (d) the image ``Trainer`` with ``plan="auto"`` on ResNet-50 at
+   BENCH_GEOMETRY cut to 4 steps (P17_IMAGE): source ``auto``, the hash
+   in ``run_start``, one ``sgd`` launch a step; (e) the image ``Trainer``
+   on a (1, 2) ``data`` x ``model`` mesh under ``tp_impl="gspmd"``: two
+   gloo ranks sharing the card, phase 4's tiny image model for 4 steps
+   (P17_TINY_IMAGE), losses within LOSS_TOL (1 + |loss|) of one rank's dp
+   run at the same batch and weights, and the two ranks' params
+   bit-equal after the last step.
 
 The line before the last is the card's name and power limit; the one
 before it the ``{"kernels": [...]}`` record; the last line is
@@ -673,7 +701,8 @@ def check_flash_bwd_shape(torch, gen, b, lq, lk, h, d, q_offset=0,
 
 def kernel_label(fn):
     """``name<args>`` of a mangled kernel template instance, e.g.
-    ``fq_decode_kernel<bf16, 1>``; the symbol itself where no
+    ``fq_decode_kernel<bf16, 1>`` or ``fq_gemm_kernel<bf16, 128, 128,
+    false>``; the symbol itself where no
     ``<length><name>_kernel`` template is found."""
     label = None
     for m in re.finditer(r"(?=(\d+))", fn):     # every digit run's suffixes
@@ -686,10 +715,12 @@ def kernel_label(fn):
         return fn
     args = []
     while rest and rest[0] != "E":
-        t = re.match(r"f|13__nv_bfloat16|Li(\d+)E", rest)
+        t = re.match(r"f|13__nv_bfloat16|Li(\d+)E|Lb([01])E", rest)
         if not t:
             return fn
-        args.append(t.group(1) or ("float" if t.group() == "f" else "bf16"))
+        args.append(t.group(1) or ({"0": "false", "1": "true"}[t.group(2)]
+                                   if t.group(2) else
+                                   "float" if t.group() == "f" else "bf16"))
         rest = rest[t.end():]
     return f"{label}<{', '.join(args)}>"
 
@@ -1910,6 +1941,8 @@ def dp_job(torch, kernels, job, out, rank):
         return p15_restart_job(torch, kernels, job, out, rank)
     if kind == "obs16":
         return p16_rank_job(torch, kernels, job, out, rank)
+    if kind == "plan17":
+        return p17_rank_job(torch, kernels, job, out, rank)
     if kind == "probe":
         mesh = make_mesh(device=device)
         res = {"backend": C.backend_of(mesh.group()), "world": mesh.size}
@@ -5017,6 +5050,469 @@ def observers_path(torch, kernels, tmp, device="cuda"):
     return rec, by_run
 
 
+# ---- phase 17: the plan lowering -------------------------------------------
+
+# phase 6's LM as the tuner's workload: its parameters, tokens a step, one
+# device
+P17_WORKLOAD = {"n_params": LM_PARAMS, "tokens_per_step": 8 * 2048,
+                "devices": 1}
+P17_STEPS = 8
+# the tiles 17b's second run forces when the plan's are the defaults
+P17_OTHER_TILES = ((256, 128, 512), 1024)
+# 17c: fused_quant at phase 6's int8 shapes (M = B x L = 16,384) and a
+# decode tick's lm_head, for every instantiated tile at bk 0 and 512
+P17_QUANT_SHAPES = {"qkv": (16384, 1024, 3072), "proj": (16384, 1024, 1024),
+                    "mlp_in": (16384, 1024, 4096),
+                    "mlp_out": (16384, 4096, 1024),
+                    "head": (16384, 1024, 32000),
+                    "decode lm_head": (8, 1024, 32000)}
+P17_BKS = (0, 512)
+P17_ROWS = (8, 512, 1024)
+# 17d: BENCH_GEOMETRY cut to 4 steps
+P17_IMAGE = dict(synth_train_size=4096, synth_val_size=1024, epochs=1)
+# 17e: phase 4's tiny image model on a (1, 2) data x model mesh, 4 steps
+P17_TINY_IMAGE = dict(DP_TINY_IMAGE, synth_train_size=64)
+
+
+def p17_tune(torch, tmp, device_kind, card=True):
+    """17a: ``python -m tpu_dist_torch.tools.tune`` twice for the card's
+    kind at phase 6's workload: byte-identical output, the port's peaks
+    (``card``: the H100's); returns (record, plan file path)."""
+    from tpu_dist_torch.plan.ir import Plan, plan_hash, plan_knob_summary
+    from tpu_dist_torch.plan.tune import device_peaks
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    path = os.path.join(tmp, "plans.json")
+    outs, t0 = [], time.perf_counter()
+    for i in range(2):
+        r = subprocess.run(
+            [sys.executable, "-m", "tpu_dist_torch.tools.tune",
+             "--device-kind", device_kind, "--workload",
+             json.dumps(P17_WORKLOAD), "--json"]
+            + (["--out", path] if i == 0 else []),
+            cwd=here, capture_output=True, text=True, timeout=120)
+        if r.returncode != 0:
+            raise AssertionError(f"17a tune: rc {r.returncode}\n{r.stderr}")
+        outs.append(r.stdout)
+    if outs[0] != outs[1] or not outs[0].strip():
+        raise AssertionError("17a: the tuner's two outputs differ")
+    peaks = device_peaks(device_kind)
+    entry = json.loads(outs[0])["plans"][device_kind]
+    plan = Plan.from_dict(entry)
+    if card and ((peaks["tflops"], peaks["gbps"], peaks["nominal"],
+                  entry["score"]["peaks_nominal"]) !=
+                 (989.0, 3350.0, False, False)):
+        raise AssertionError(f"17a peaks {peaks}, entry {entry}")
+    if plan_hash(plan) != entry["hash"]:
+        raise AssertionError(f"17a plan entry {entry}")
+    return {"device_kind": device_kind, "workload": P17_WORKLOAD,
+            "peaks": peaks, "candidates": entry["score"]["candidates"],
+            "plan_hash": entry["hash"], "knobs": plan_knob_summary(plan),
+            "step_s_estimate": entry["score"]["step_s"],
+            "byte_identical": True, "bytes": len(outs[0]),
+            "two_runs_s": time.perf_counter() - t0}, path
+
+
+def p17_lm_run(torch, kernels, tmp, name, plan_path, device):
+    """One 17b run: phase 6's LM driven by ``plan_path`` for P17_STEPS
+    steps; (trainer, step losses, ledger records, launches)."""
+    from tpu_dist_torch.engine.lm_loop import LMTrainer
+    from tpu_dist_torch.obs.ledger import read_ledger
+
+    if device == "cuda":
+        free_device(torch)
+    path = os.path.join(tmp, f"{name}.jsonl")
+    cfg = full_lm_config(plan=plan_path, max_steps=P17_STEPS, print_freq=1,
+                         ledger_path=path)
+    tr = LMTrainer(cfg, device=device)
+    kernels.reset_launches()
+    tr.fit()
+    launches = dict(kernels.LAUNCHES)
+    recs = read_ledger(path)
+    return tr, [r["loss"] for r in recs if r["event"] == "step"], recs, \
+        launches
+
+
+def p17_lm(torch, kernels, tmp, plan_path, device):
+    """17b (module docstring): the tuned plan's run and the same steps at
+    other tiles, bit-equal."""
+    from tpu_dist_torch.plan.compile import current_switches, device_kind
+    from tpu_dist_torch.plan.ir import (DEFAULT_OPT_BLOCK_ROWS,
+                                        DEFAULT_QUANT_BLOCK, load_plan_file,
+                                        plan_for_device, plan_hash)
+
+    kind = device_kind(device)
+    plan = plan_for_device(load_plan_file(plan_path), kind)
+    t0 = time.perf_counter()
+    tr, losses, recs, launches = p17_lm_run(torch, kernels, tmp, "p17b",
+                                            plan_path, device)
+    wall_a = time.perf_counter() - t0
+    for k in ("quant", "precision", "grad_bucket_mb", "steps_per_dispatch",
+              "grad_accum_steps", "health", "loss_chunk"):
+        if getattr(tr.cfg, k) != getattr(plan, k):
+            raise AssertionError(f"17b cfg.{k} {getattr(tr.cfg, k)!r} != "
+                                 f"the plan's {getattr(plan, k)!r}")
+    sw = current_switches()
+    if (sw["quant_block"], sw["opt_block_rows"]) != \
+            (plan.quant_block, plan.opt_block_rows):
+        raise AssertionError(f"17b switches {sw} for plan {plan}")
+    events = [r["event"] for r in recs]
+    if events[:2] != ["run_start", "plan"] or events.count("plan") != 1 or \
+            recs[0]["plan_hash"] != plan_hash(plan):
+        raise AssertionError(f"17b ledger head {events[:3]}, run_start "
+                             f"hash {recs[0].get('plan_hash')}")
+    if len(losses) != P17_STEPS or not all(map(math.isfinite, losses)) or \
+            not statistics.mean(losses[-3:]) < statistics.mean(losses[:3]):
+        raise AssertionError(f"17b losses {losses}")
+    n_eval = len(tr._epoch_indices(tr.val_ds, False, 0)[0])
+    layers, dense = 8, 8 * 4 + 1     # qkv, proj, mlp_in, mlp_out; head
+    int8 = plan.quant == "int8" and plan.fused_quant != "off"
+    want = {"adamw": P17_STEPS,
+            "fused_quant": dense * (P17_STEPS + n_eval) if int8 else 0,
+            "flash_bwd_dq": layers * P17_STEPS,
+            "flash_fwd": layers * (P17_STEPS + n_eval)}
+    if device == "cuda" and any(launches[k] != n for k, n in want.items()):
+        raise AssertionError(f"17b launches {launches}, want {want}")
+    step_ms = statistics.median(
+        (r["data_s"] + r["dispatch_s"] + r["device_s"]) * 1e3
+        for r in recs if r["event"] == "step" and not r["warm"])
+    # the same steps at other tiles: the defaults, or (the plan's being
+    # the defaults) the ones of P17_OTHER_TILES
+    if (plan.quant_block, plan.opt_block_rows) == \
+            (DEFAULT_QUANT_BLOCK, DEFAULT_OPT_BLOCK_ROWS):
+        qb, rows = P17_OTHER_TILES
+    else:
+        qb, rows = DEFAULT_QUANT_BLOCK, DEFAULT_OPT_BLOCK_ROWS
+    other = dataclasses.replace(plan, quant_block=qb, opt_block_rows=rows)
+    other_path = os.path.join(tmp, "plan_other_tiles.json")
+    with open(other_path, "w") as f:
+        f.write(other.to_json())
+    del tr
+    t0 = time.perf_counter()
+    tr2, losses2, recs2, launches2 = p17_lm_run(torch, kernels, tmp,
+                                                "p17b_tiles", other_path,
+                                                device)
+    wall_b = time.perf_counter() - t0
+    if current_switches()["quant_block"] != tuple(qb) or \
+            recs2[0]["plan_hash"] != plan_hash(other):
+        raise AssertionError(f"17b second run: {current_switches()}")
+    if losses2 != losses:
+        raise AssertionError(f"17b losses at tiles {qb}/{rows}: {losses2} "
+                             f"!= the plan's {losses}")
+    if device == "cuda" and launches2 != launches:
+        raise AssertionError(f"17b launches {launches2} != {launches}")
+    step_ms2 = statistics.median(
+        (r["data_s"] + r["dispatch_s"] + r["device_s"]) * 1e3
+        for r in recs2 if r["event"] == "step" and not r["warm"])
+    del tr2
+    return {"plan_hash": plan_hash(plan), "precision": plan.precision,
+            "quant": plan.quant, "quant_block": list(plan.quant_block),
+            "opt_block_rows": plan.opt_block_rows, "steps": P17_STEPS,
+            "losses": losses, "step_ms_median": step_ms,
+            "launches": {k: launches[k] for k in want},
+            "launches_per_step_train": {
+                "adamw": launches["adamw"] / P17_STEPS,
+                "flash_bwd_dq": launches["flash_bwd_dq"] / P17_STEPS},
+            "eval_batches": n_eval,
+            "other_tiles": {"quant_block": list(qb), "opt_block_rows": rows,
+                            "plan_hash": plan_hash(other),
+                            "losses_bit_equal": True,
+                            "step_ms_median": step_ms2},
+            "walls_s": [wall_a, wall_b]}, {"p17b_plan_lm": launches,
+                                           "p17b_other_tiles": launches2}
+
+
+def p17_quant_sweep(torch):
+    """17c, fused_quant: every instantiated tile at bk 0 and 512 on
+    P17_QUANT_SHAPES, bit-equal to the plain version and to the default
+    tile, timed; an IR-legal tile outside the set refused by name."""
+    from tpu_dist_torch.ops import pallas_quant as pq
+
+    own = torch.Generator(device="cuda").manual_seed(SEED + 17)
+    recs = {}
+    try:
+        for label, (m, k, n) in P17_QUANT_SHAPES.items():
+            x = torch.randn((m, k), generator=own, device="cuda").to(
+                torch.bfloat16)
+            w = (torch.randn((k, n), generator=own, device="cuda")
+                 / math.sqrt(k)).to(torch.bfloat16)
+            ref = pq.fused_quant_matmul_plain(x, w)
+            plain_ms = time_ms(torch, lambda: pq.fused_quant_matmul_plain(
+                x, w), iters=3, warmup=1)
+            pq.set_quant_blocks()
+            default = pq.fused_quant_cuda(x, w)
+            if not torch.equal(default, ref):
+                raise AssertionError(f"17c {label}: the default tile is not "
+                                     "bit-equal to the plain version")
+            del ref
+            ops = 2.0 * m * n * k
+            nbytes = 2 * (m * k + k * n + m * n)
+            t_ops, t_bytes = ops / PEAK_INT8_OPS, nbytes / PEAK_BYTES
+            row = {"shape": f"M{m} K{k} N{n} bf16", "plain_ms": plain_ms,
+                   "bound_ms": max(t_ops, t_bytes) * 1e3,
+                   "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                   "ms": {}}
+            for bm, bn in pq.INSTANTIATED_TILES:
+                for bk in P17_BKS:
+                    pq.set_quant_blocks(bm, bn, bk)
+                    out = pq.fused_quant_cuda(x, w)
+                    if not torch.equal(out, default):
+                        raise AssertionError(
+                            f"17c {label} tile {(bm, bn, bk)}: not bit-equal "
+                            "to the default tile")
+                    del out
+                    row["ms"][f"{bm}x{bn}/bk{bk}"] = time_ms(
+                        torch, lambda: pq.fused_quant_cuda(x, w))
+            recs[label] = row
+            del x, w, default
+            free_device(torch)
+        pq.set_quant_blocks(8, 128, 0)      # IR-legal, not instantiated
+        x = torch.randn((32, 128), device="cuda", dtype=torch.bfloat16)
+        try:
+            pq.fused_quant_cuda(x, x.t().contiguous())
+        except NotImplementedError as e:
+            if "quant_block" not in str(e):
+                raise
+            refusal = str(e)
+        else:
+            raise AssertionError("17c: tile (8, 128, 0) was not refused")
+    finally:
+        pq.set_quant_blocks()
+    return {"shapes": recs, "bit_equal": "every tile and bk, to the plain "
+            "version and to the default 128x128/bk0", "refused": refusal}
+
+
+def p17_rows_sweep(torch):
+    """17c, sgd and adamw: ResNet-50's 161 leaves and the LM's 85 at
+    opt_block_rows in P17_ROWS, within FP32_TOL of the plain version and
+    bit-equal across the values, timed."""
+    from tpu_dist_torch.models.registry import create_model
+    from tpu_dist_torch.models.transformer import TransformerLM
+    from tpu_dist_torch.ops import pallas_adamw as pa
+    from tpu_dist_torch.ops import pallas_sgd as ps
+
+    own = torch.Generator(device="cuda").manual_seed(SEED + 18)
+    rand = lambda s: torch.randn(s, generator=own, device="cuda")
+    out = {}
+    for name, model in (
+            ("sgd", create_model("resnet50", num_classes=10, stem="s2d",
+                                 device="cuda", seed=SEED)),
+            ("adamw", TransformerLM(vocab_size=32000, num_layers=8,
+                                    d_model=1024, num_heads=8, max_len=2048,
+                                    device="cuda", seed=SEED))):
+        shapes = [tuple(p.shape) for p in model.parameters()]
+        del model
+        n = sum(math.prod(s) for s in shapes)
+        p0 = [rand(s) for s in shapes]
+        g = [rand(s) for s in shapes]
+        m0 = [rand(s) * 1e-3 for s in shapes]
+        v0 = [torch.rand(s, generator=own, device="cuda") * 1e-6
+              for s in shapes]
+        if name == "sgd":
+            row = ps.scalar_row(0.1, 0.9, 1e-4,
+                                torch.tensor(0.3, device="cuda"))
+            bufs = (m0,)
+            kernel = lambda p, m: ps.fused_sgd_multi_cuda(p, g, *m, row)
+            plain = lambda i, p, m: ps.fused_sgd_plain(p[i], g[i], m[0][i],
+                                                       row)
+            per_el = 20.0
+        else:
+            row = pa.scalar_row(1e-3, 0.9, 0.95, 1e-8, 0.1, 3,
+                                torch.tensor(0.5, device="cuda"))
+            bufs = (m0, v0)
+            kernel = lambda p, m: pa.fused_adamw_multi_cuda(p, g, *m, row)
+            plain = lambda i, p, m: pa.fused_adamw_plain(
+                p[i], g[i], m[0][i], m[1][i], row)
+            per_el = 28.0
+        ref = [[t.clone() for t in ts] for ts in (p0, *bufs)]
+        for i in range(len(shapes)):
+            plain(i, ref[0], ref[1:])
+        results, rec = {}, {"leaves": len(shapes), "elements": n, "ms": {},
+                            "bound_ms": per_el * n / PEAK_BYTES * 1e3,
+                            "bound_by": "bytes"}
+        try:
+            for rows in P17_ROWS:
+                ps.set_block_rows(rows)
+                got = [[t.clone() for t in ts] for ts in (p0, *bufs)]
+                kernel(got[0], got[1:])
+                torch.cuda.synchronize()
+                for a_list, r_list in zip(got, ref):
+                    for a, r in zip(a_list, r_list):
+                        if not bool(((a - r).abs() <= FP32_TOL * (
+                                1 + r.abs())).all()):
+                            raise AssertionError(
+                                f"17c {name} rows {rows}: beyond "
+                                f"{FP32_TOL} (1 + |plain|)")
+                results[rows] = got
+                work = [[t.clone() for t in ts] for ts in (p0, *bufs)]
+                rec["ms"][str(rows)] = time_ms(
+                    torch, lambda: kernel(work[0], work[1:]))
+                del work
+        finally:
+            ps.set_block_rows()
+        for rows in P17_ROWS:
+            if not all(torch.equal(a, b) for x, y in zip(results[rows],
+                                                         results[512])
+                       for a, b in zip(x, y)):
+                raise AssertionError(f"17c {name}: rows {rows} not "
+                                     "bit-equal to 512")
+        rec["chunk_elements"] = {str(r): ps.ROW * r for r in P17_ROWS}
+        rec["bit_equal_across_rows"] = True
+        out[name] = rec
+        del p0, g, m0, v0, ref, results
+        free_device(torch)
+    return out
+
+
+def p17_image_auto(torch, kernels, tmp, device):
+    """17d: the image Trainer with plan="auto" on ResNet-50 at
+    BENCH_GEOMETRY cut to P17_IMAGE, without cuDNN's autotuning."""
+    from tpu_dist_torch.configs import TrainConfig
+    from tpu_dist_torch.engine.loop import Trainer
+    from tpu_dist_torch.obs.ledger import read_ledger
+    from tpu_dist_torch.scripts import image_train
+
+    path = os.path.join(tmp, "p17d.jsonl")
+    cfg = TrainConfig(**{**image_train.BENCH_GEOMETRY, **P17_IMAGE},
+                      plan="auto", ledger_path=path, log_csv="",
+                      checkpoint_dir="", print_freq=1,
+                      data=os.path.join(tmp, "no-data"))
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, device=device)
+    # no cuDNN autotuning for 4 steps (the time limit), as 11a
+    torch.backends.cudnn.benchmark = False
+    kernels.reset_launches()
+    try:
+        tr.fit()
+    finally:
+        torch.backends.cudnn.benchmark = device == "cuda"
+    launches = dict(kernels.LAUNCHES)
+    recs = read_ledger(path)
+    info = tr._plan_info
+    steps = [r for r in recs if r["event"] == "step"]
+    n = sum(r["steps_in_dispatch"] for r in steps)
+    if info["source"] != "auto" or recs[0]["plan_hash"] != info["hash"] or \
+            [r["event"] for r in recs].count("plan") != 1:
+        raise AssertionError(f"17d plan {info}, run_start "
+                             f"{recs[0].get('plan_hash')}")
+    if n != tr.steps_per_epoch or (device == "cuda"
+                                   and launches["sgd"] != n):
+        raise AssertionError(f"17d {n} steps, launches {launches}")
+    rec = {"plan_hash": info["hash"], "source": info["source"],
+           "knobs": info["knobs"], "variant": tr.cfg.variant, "steps": n,
+           "losses": [r["loss"] for r in steps],
+           "sgd_launches": launches["sgd"], "wall_s":
+           time.perf_counter() - t0}
+    del tr
+    return rec, launches
+
+
+def p17_rank_job(torch, kernels, job, out, rank):
+    """A 17e rank: phase 4's tiny image Trainer on the job's mesh; the
+    step losses (rank 0) and a digest of the final params."""
+    import hashlib
+
+    from tpu_dist_torch.configs import TrainConfig
+    from tpu_dist_torch.engine.loop import Trainer
+
+    cfg = dict(job["cfg"], ledger_path=os.path.join(out, f"{job['name']}"
+                                                    ".jsonl"),
+               data=os.path.join(out, "no-data"), checkpoint_dir="")
+    with open(job["init"], "rb") as f:
+        init = torch.load(f, weights_only=False)
+    kernels.reset_launches()
+    tr = Trainer(TrainConfig(**cfg), device=job["device"],
+                 init_params=init[0], init_batch_stats=init[1])
+    tr.fit()
+    digest = hashlib.sha256()
+    for p in tr.state.params:
+        digest.update(p.detach().float().cpu().numpy().tobytes())
+    res = {"digest": digest.hexdigest(), "step": tr.state.step,
+           "layout": tr.compiled.plan.layout,
+           "local_batch": tr.local_batch, "launches": dict(kernels.LAUNCHES)}
+    if rank == 0:
+        res["losses"] = [r["loss"] for r in ledger_steps(cfg["ledger_path"])]
+    return res
+
+
+def p17_gspmd(torch, kernels, tmp, device):
+    """17e: two gloo ranks sharing the device on a (1, 2) data x model
+    mesh under tp_impl="gspmd", against one rank's dp run (in this
+    process, while the ranks start) at the same batch and weights."""
+    from tpu_dist_torch.interop import export_flax_image_params
+    from tpu_dist_torch.models.resnet import ResNet18
+
+    init_path = os.path.join(tmp, "p17e_init.pt")
+    torch.save(export_flax_image_params(ResNet18(device="cpu", seed=SEED)),
+               init_path)
+    job = {"name": "p17e", "kind": "plan17", "init": init_path,
+           "cfg": dict(P17_TINY_IMAGE, mesh_shape=[1, 2],
+                       mesh_axes=["data", "model"], tp_impl="gspmd")}
+    t0 = time.perf_counter()
+    group = DpGroup("p17e", 2, device, "gloo", [job], tmp)
+    # the one-rank dp run in this process while the ranks start
+    out = os.path.join(tmp, "p17e_dp")
+    os.makedirs(out)
+    single = p17_rank_job(torch, kernels, {
+        "name": "p17e_dp", "init": init_path, "device": device,
+        "cfg": dict(P17_TINY_IMAGE)}, out, 0)
+    pair = [r["p17e"] for r in group.wait(300)]
+    got, want = pair[0]["losses"], single["losses"]
+    if len(got) != 4 or len(want) != 4:
+        raise AssertionError(f"17e steps: {got} vs {want}")
+    for i, (a, b) in enumerate(zip(got, want)):
+        if abs(a - b) > LOSS_TOL * (1 + abs(b)):
+            raise AssertionError(f"17e step {i}: {a} vs the one-rank "
+                                 f"{b} (tol {LOSS_TOL} (1 + |loss|))")
+    if pair[0]["digest"] != pair[1]["digest"] or \
+            {r["layout"] for r in pair} != {"tp"} or \
+            {r["local_batch"] for r in pair} != {P17_TINY_IMAGE[
+                "batch_size"]}:
+        raise AssertionError(f"17e ranks: {pair}")
+    return {"mesh": {"data": 1, "model": 2}, "tp_impl": "gspmd",
+            "losses": got, "one_rank_losses": want,
+            "max_abs_diff": max(abs(a - b) for a, b in zip(got, want)),
+            "params_bit_equal_across_ranks": True,
+            "wall_s": time.perf_counter() - t0}, {
+        "p17e_rank0": pair[0]["launches"], "p17e_rank1": pair[1]["launches"],
+        "p17e_one_rank": single["launches"]}
+
+
+def plan_path(torch, kernels, tmp, device="cuda"):
+    """Phase 17 (module docstring). Returns (record, launches by run).
+    ``device="cpu"`` rehearses its control flow on the CPU (with
+    ``full_lm_config`` patched to a tiny width, P17_IMAGE narrowed and 17c
+    left out: it times the kernels)."""
+    from tpu_dist_torch.plan.compile import activate_plan
+    from tpu_dist_torch.plan.ir import Plan
+
+    t0 = time.perf_counter()
+    rec, by_run = {}, {}
+    kind = (torch.cuda.get_device_name(0) if device == "cuda" else "cpu")
+    try:
+        rec["a_tuner"], plan_file = p17_tune(torch, tmp, kind,
+                                             card=device == "cuda")
+        rec["b_plan_lm"], b_launches = p17_lm(torch, kernels, tmp,
+                                              plan_file, device)
+        by_run.update(b_launches)
+        if device == "cuda":
+            free_device(torch)
+            rec["c_tiles"] = {"fused_quant": p17_quant_sweep(torch),
+                              **p17_rows_sweep(torch)}
+        rec["d_image_auto"], by_run["p17d_image_auto"] = p17_image_auto(
+            torch, kernels, tmp, device)
+        activate_plan(Plan())     # 17e's one-rank twin at the defaults
+        rec["e_gspmd_model_axis"], e_launches = p17_gspmd(
+            torch, kernels, tmp, device)
+        by_run.update(e_launches)
+    finally:
+        activate_plan(Plan())     # the plans' switches are process-wide
+    rec["wall_s"] = time.perf_counter() - t0
+    rec["note"] = ("one card: 17e's two ranks share it over gloo; 17b's "
+                   "two runs and 17c's tiles compare within one call")
+    return rec, by_run
+
+
 def importable(name):
     import importlib.util
 
@@ -5239,8 +5735,17 @@ def main():
         f"{a['step_ms_profiled']:.3f} ms under a profile_dir session, on "
         f"{card}")
     log(f"phase 16 took {obs['wall_s']:.1f}s ({obs['note']})")
+
+    # 17. the plan lowering
+    with tempfile.TemporaryDirectory() as tmp:
+        plan, plan_launches = plan_path(torch, kernels, tmp)
+    for part in ("a_tuner", "b_plan_lm", "c_tiles", "d_image_auto",
+                 "e_gspmd_model_axis"):
+        log(f"phase 17{part[0]} {part[2:]}: {json.dumps(plan[part])} on "
+            f"{card}")
+    log(f"phase 17 took {plan['wall_s']:.1f}s ({plan['note']})")
     dp_launches = {**dp_launches, **mp_launches, **pp_launches,
-                   **rs_launches, **obs_launches,
+                   **rs_launches, **obs_launches, **plan_launches,
                    "script6_imagenet": s6_launches,
                    "vit_base_int8": vit8_launches,
                    "zoo_sweep": {**{k: 0 for k in kernels.SOURCES},
@@ -5345,8 +5850,8 @@ def main():
             entry["launches_by_path"].update(
                 {p: n[kname] for p, n in lc_launches.items()})
         entry["launches_by_path"].update(
-            {p: n[kname] for p, n in {**rs_launches,
-                                      **obs_launches}.items()})
+            {p: n[kname] for p, n in {**rs_launches, **obs_launches,
+                                      **plan_launches}.items()})
         entries.append(entry)
     # fused_quant's two phases apart: gspmd tp's int8 row products (13d)
     scaled = pp["d_int8_tp_scaled_pair"]["scaled_pair"]
@@ -5370,7 +5875,8 @@ def main():
         entry["library"] = first["library"]
         entry["launches_by_path"] = {p: n[kname] for p, n in
                                      {**pp_launches, **rs_launches,
-                                      **obs_launches}.items()}
+                                      **obs_launches,
+                                      **plan_launches}.items()}
         entries.append(entry)
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": entries}))

@@ -554,6 +554,60 @@ def test_int8kv_flash_kernel_matches_plain(cuda, dtype, case):
     assert torch.equal((ref == 0).all(-1), (out == 0).all(-1))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=str)
+def test_fused_quant_tiles_are_bit_equal_and_refused_by_name(cuda, dtype):
+    """Every instantiated GEMM tile, at bk 0 and with K split over blocks
+    (bk 128, 256), gives the default tile's bits and the plain version's
+    at a ragged shape; an IR-legal tile the kernel lacks is refused
+    naming ``quant_block``."""
+    gen = torch.Generator(device=cuda).manual_seed(17)
+    x = (torch.randn((200, 700), generator=gen, device=cuda) * 2).to(dtype)
+    w = torch.randn((700, 300), generator=gen, device=cuda).to(dtype)
+    ref = pq.fused_quant_matmul_plain(x, w)
+    try:
+        for bm, bn in pq.INSTANTIATED_TILES:
+            for bk in (0, 128, 256):
+                pq.set_quant_blocks(bm, bn, bk)
+                assert torch.equal(pq.fused_quant_cuda(x, w), ref), \
+                    (bm, bn, bk)
+        pq.set_quant_blocks(8, 128, 0)
+        with pytest.raises(NotImplementedError, match="quant_block"):
+            pq.fused_quant_cuda(x, w)
+    finally:
+        pq.set_quant_blocks()
+
+
+def test_optimizer_chunks_follow_block_rows_on_the_card(cuda):
+    """sgd.cu and adamw.cu at opt_block_rows 8, 512 and 1024: bit-equal
+    across the values over leaves of several chunks and ragged tails."""
+    from tpu_dist_torch.ops import pallas_sgd as sgd
+
+    gen = torch.Generator(device=cuda).manual_seed(18)
+    sizes = (1, 63, 65, 4097, 9000, 70_000)
+    leaves = [[torch.randn(n, generator=gen, device=cuda) for n in sizes]
+              for _ in range(3)]
+    leaves.append([torch.rand(n, generator=gen, device=cuda) * 0.1
+                   for n in sizes])            # v >= 0: no NaN from sqrt
+    srow = sgd.scalar_row(0.1, 0.9, 1e-4, torch.tensor(0.3, device=cuda))
+    arow = adamw.scalar_row(1e-3, 0.9, 0.95, 1e-8, 0.1, 3,
+                            torch.tensor(0.5, device=cuda))
+    outs = {}
+    try:
+        for rows in (512, 8, 1024):
+            sgd.set_block_rows(rows)
+            p, g, m, v = ([t.clone() for t in ts] for ts in leaves)
+            sgd.fused_sgd_multi_cuda(p, g, m, srow)
+            ap, am, av = ([t.clone() for t in ts] for ts in
+                          (leaves[0], leaves[2], leaves[3]))
+            adamw.fused_adamw_multi_cuda(ap, g, am, av, arow)
+            outs[rows] = p + m + ap + am + av
+    finally:
+        sgd.set_block_rows()
+    for rows in (8, 1024):
+        assert all(torch.equal(a, b) for a, b in zip(outs[rows], outs[512]))
+
+
 def test_fused_quant_refuses_k_past_the_int32_limit(cuda):
     """K = 133,145 > (2^31 - 1) // 127^2: int32 sums could overflow where
     the plain version (float64) would not, so the wrapper raises before

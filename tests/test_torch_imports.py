@@ -84,7 +84,10 @@ def test_importing_every_module_pulls_in_no_jax():
             "tpu_dist_torch.engine.flax_msgpack",
             "tpu_dist_torch.models.moe", "tpu_dist_torch.parallel.fsdp",
             "tpu_dist_torch.parallel.tp", "tpu_dist_torch.parallel.ep",
-            "tpu_dist_torch.parallel.ring_attention"} <= set(out["mods"])
+            "tpu_dist_torch.parallel.ring_attention",
+            "tpu_dist_torch.plan", "tpu_dist_torch.plan.ir",
+            "tpu_dist_torch.plan.tune", "tpu_dist_torch.plan.compile",
+            "tpu_dist_torch.tools.tune"} <= set(out["mods"])
 
 
 @pytest.mark.parametrize("path", _port_files(),

@@ -66,6 +66,9 @@ def emu():
             "quant_scaled": cuda_emu.function("fused_quant",
                                               "tdt_fused_quant_scaled",
                                               pq._SCALED_ARGS),
+            "quant_tiles": cuda_emu.function("fused_quant",
+                                             "tdt_fused_quant_tiles",
+                                             pq._TILES_ARGS),
             "int8kv": cuda_emu.function("flash_fwd_int8kv",
                                         "tdt_flash_fwd_int8kv",
                                         fa._INT8KV_ARGS)}
@@ -584,6 +587,72 @@ def test_fused_quant_scaled_pair_matches_plain(emu, dtype, m, k, n):
     ref = pq.fused_quant_scaled_plain(x, w, gxa, gwa)
     assert out.dtype == dtype and torch.equal(out, ref)
     assert bool((out[1] == 0).all())
+
+
+def test_fused_quant_instantiated_tiles_match_the_wrapper(emu):
+    """The C side's tile list (TDT_FQ_TILES) is the wrapper's
+    INSTANTIATED_TILES, and a tile the plan IR allows but the kernel lacks
+    is refused by name before any launch."""
+    assert pq.kernel_tiles(emu["quant_tiles"]) == pq.INSTANTIATED_TILES
+    x = torch.randn((24, 128))
+    w = torch.randn((128, 136))
+    with pytest.raises(NotImplementedError, match="quant_block"):
+        pq._launch(emu["quant"], emu["quant_ws"], x, w, None,
+                   tile=(8, 128, 0))
+
+
+@pytest.mark.parametrize("tile", [(256, 128, 0), (128, 256, 0),
+                                  (64, 256, 0), (128, 128, 128),
+                                  (64, 256, 256)], ids=str)
+def test_fused_quant_tiles_and_k_splits_are_bit_equal(emu, tile):
+    """Every instantiated GEMM tile, and K split over blocks whose int32
+    sums are added before the one dequant (bk 128: three splits of one
+    stage; bk 256: splits of two and one), gives the default tile's bits
+    and the plain version's, on a ragged shape; the scaled phase of the
+    tensor-parallel pair takes the same tile."""
+    gen = torch.Generator().manual_seed(sum(tile))
+    m, k, n = 70, 300, 136
+    x = (torch.randn((m, k), generator=gen) * 2).to(torch.bfloat16)
+    w = torch.randn((k, n), generator=gen).to(torch.bfloat16)
+    plant_ties(x, w)
+    ref = pq.fused_quant_matmul_plain(x, w)
+    out = pq._launch(emu["quant"], emu["quant_ws"], x, w, None, tile=tile)
+    assert torch.equal(out, ref)
+    xa, wa = pq.fused_quant_amax_plain(x, w)
+    out = pq._launch(emu["quant_scaled"], emu["quant_ws"], x, w, None,
+                     (xa, wa), tile=tile)
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("rows", [8, 1024], ids=str)
+def test_optimizer_chunks_follow_block_rows_bit_for_bit(emu, rows):
+    """``opt_block_rows`` sets the chunk a CTA of sgd.cu and adamw.cu
+    updates (8 x rows elements); the update is elementwise, so 8 rows (64
+    elements) and 1024 (8192) give the default 512's bits, over leaves of
+    several chunks and ragged tails."""
+    gen = torch.Generator().manual_seed(rows)
+    sizes = (1, 63, 65, 4097, 9000)
+    ps = [torch.randn(s, generator=gen) for s in sizes]
+    gs = [torch.randn(s, generator=gen) for s in sizes]
+    ms = [torch.randn(s, generator=gen) * 0.1 for s in sizes]
+    vs = [torch.rand(s, generator=gen) * 0.1 for s in sizes]
+    srow = sgd.scalar_row(0.1, 0.9, 1e-4, torch.tensor(0.3))
+    arow = adamw.scalar_row(1e-3, 0.9, 0.95, 1e-8, 0.1, 3, torch.tensor(0.5))
+    outs = {}
+    try:
+        for r in (512, rows):
+            sgd.set_block_rows(r)
+            st = [[t.clone() for t in ts] for ts in (ps, ms)]
+            at = [[t.clone() for t in ts] for ts in (ps, ms, vs)]
+            sgd.launch_groups(emu["sgd"], "sgd", (st[0], gs, st[1]), srow,
+                              None)
+            sgd.launch_groups(emu["adamw"], "adamw", (at[0], gs, at[1],
+                                                      at[2]), arow, None)
+            outs[r] = st + at
+    finally:
+        sgd.set_block_rows()
+    for a, b in zip(outs[512], outs[rows]):
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
 @pytest.mark.parametrize("dtype,case", [

@@ -182,9 +182,13 @@ def test_latest_checkpoint_newest_pointer_of_two_archs(tmp_path):
 
 
 def test_supervisor_refuses_retune_by_name(tmp_path):
-    with pytest.raises(NotImplementedError, match="retune"):
+    """A retune config without its device kind is refused by name: the
+    supervisor plans for the children's card without opening it."""
+    with pytest.raises(ValueError, match="device_kind"):
         sup.Supervisor(["true"], ledger=str(tmp_path / "run.jsonl"),
-                       retune={"device_kind": "H100"})
+                       retune={"plan_dir": str(tmp_path / "plans")})
+    sup.Supervisor(["true"], ledger=str(tmp_path / "run.jsonl"),
+                   retune={"device_kind": "NVIDIA H100 80GB HBM3"})
 
 
 # ---------------------------------------------------------------------------

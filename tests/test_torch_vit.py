@@ -168,10 +168,15 @@ def test_quant_is_refused_for_conv_archs_and_ring_tp_for_vit():
         Trainer(TrainConfig(arch="vit_cifar", tp_impl="ring",
                             mesh_shape=(1, 1), mesh_axes=("data", "model"),
                             **cfg), device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh_axes"):
-        Trainer(TrainConfig(arch="vit_cifar", mesh_shape=(1, 1),
-                            mesh_axes=("data", "model"), **cfg),
-                device="cpu")
+    # a model axis under tp_impl="gspmd" is the reference's jit step:
+    # the params replicated, the batch over 'data' (any arch)
+    tr = Trainer(TrainConfig(arch="vit_cifar", mesh_shape=(1, 1),
+                             mesh_axes=("data", "model"), **cfg),
+                 device="cpu")
+    assert tr.compiled.plan.layout == "dp" and tr.mesh.shape["model"] == 1
+    with pytest.raises(ValueError, match="mesh_axes"):
+        Trainer(TrainConfig(arch="vit_cifar", mesh_shape=(1,),
+                            mesh_axes=("seq",), **cfg), device="cpu")
     with pytest.raises(ValueError, match="tp_impl='ring'"):
         vit.ViT(device="cpu", **SMALL).set_tp(None)
 

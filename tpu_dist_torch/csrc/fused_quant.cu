@@ -43,8 +43,18 @@
 //      adds the splits' sums in split order and dequantizes.
 //   2b. M > 16 (prefill, training): fq_quant_w_kernel quantizes w once into
 //      qw (N, KP), transposed so k is contiguous; fq_gemm_kernel is a plain
-//      int8 GEMM over qx and qw (128 x 128 tiles, a ring of two cp.async
-//      stages of 128 k, two blocks an SM) with the dequant in its epilogue.
+//      int8 GEMM over qx and qw (a ring of two cp.async stages of 128 k)
+//      with the dequant in its epilogue. Its tile is the plan's quant_block
+//      (bm, bn, bk): a (bm, bn) output tile, 8 warps of 64 x (bm bn / 512),
+//      instantiated for the tiles in TDT_FQ_TILES (128 x 128, the default,
+//      two blocks an SM; 256 x 128 and 128 x 256, 98,304 bytes of shared
+//      memory, one; 64 x 256). bk = 0 keeps the whole of K in one block
+//      (the instance without SPLIT: at 128 x 128, the kernel before the
+//      knob); bk > 0 splits K over ceil(K / bk) blocks (grid z, the SPLIT
+//      instance) that write their int32 sums to the workspace, and
+//      fq_split_sum_kernel adds them in split order and dequantizes once:
+//      integer sums are exact, so every tile is bit-equal to the default.
+//      Another tile returns -2.
 // The same two phases are also exposed apart, for a product whose K is
 // sharded over a tensor-parallel group and whose scales must be the whole
 // K's: tdt_fused_quant_amax runs stage 1's maxima only (each row's amax of
@@ -72,10 +82,27 @@ constexpr int SMALL_M = 16;        // at or below: the split-K decode kernel
 constexpr int SCALE_NT = 256;      // scales kernel: 8 warps
 constexpr int QW_NT = 256;         // w-quantize kernel
 constexpr int DEC_NT = 2 * WN;     // decode kernel: a warp per 16 columns
-constexpr int GM = 128, GN = 128;  // GEMM output tile
-constexpr int GEMM_NT = 256;       // 8 warps: 2 (m) x 4 (n) of 64 x 32
+constexpr int GEMM_NT = 256;       // GEMM: 8 warps, each 64 rows
 constexpr int STAGES = 2;          // cp.async ring of the GEMM
-constexpr int GEMM_SMEM = STAGES * (GM + GN) * KT;   // 65,536 bytes
+constexpr int SUM_NT = 256;        // split-sum kernel
+
+// the GEMM's (bm, bn) output tiles, as the plan's quant_block names them
+#define TDT_FQ_TILES(X) X(128, 128) X(256, 128) X(128, 256) X(64, 256)
+
+// a (BM, BN) tile's warp grid: BM / 64 (m) x the rest (n), each warp 64 x
+// WTN; its shared memory; and the blocks an SM its registers allow
+template <int BM, int BN>
+struct GemmTile {
+  static constexpr int WARPS_M = BM / 64;
+  static constexpr int WARPS_N = GEMM_NT / 32 / WARPS_M;
+  static constexpr int WTN = BN / WARPS_N;          // a warp's columns
+  static constexpr int JN = WTN / 8;                // its 8-column n-tiles
+  static constexpr int SMEM = STAGES * (BM + BN) * KT;
+  static constexpr int MIN_BLOCKS = JN <= 4 ? 2 : 1;
+  static_assert(BM % 64 == 0 && WARPS_M * WARPS_N * 32 == GEMM_NT &&
+                    WTN * WARPS_N == BN && JN % 2 == 0,
+                "GEMM tile and warps do not match");
+};
 
 struct alignas(16) Chunk { uint32_t v[4]; };   // 16 bytes
 template <typename T> struct alignas(2 * sizeof(T)) Two { T v[2]; };
@@ -479,60 +506,69 @@ __device__ __forceinline__ void fill_tile(int8_t* tile, const int8_t* src,
   }
 }
 
-// Stage 2b, second half: out = dequant(qx . qw^T). Grid (row tiles of GM,
-// column tiles of GN): neighbouring blocks share one qw tile.
-template <typename T>
-__global__ void __launch_bounds__(GEMM_NT, 2) fq_gemm_kernel(
-    const int8_t* __restrict__ qx, const int8_t* __restrict__ qw,
-    const float* __restrict__ sx, const uint32_t* __restrict__ sw_amax,
-    T* __restrict__ out, int M, int N, int KP) {
+// Stage 2b, second half: out = dequant(qx . qw^T). Grid (row tiles of BM,
+// column tiles of BN, K splits of sps stages): neighbouring blocks share
+// one qw tile. Without SPLIT: the whole of K, dequantized into out (part
+// and sps unused). With SPLIT: split blockIdx.z's stages, its int32 sums
+// written to part[blockIdx.z] for fq_split_sum_kernel.
+template <typename T, int BM, int BN, bool SPLIT>
+__global__ void __launch_bounds__(GEMM_NT, (GemmTile<BM, BN>::MIN_BLOCKS))
+    fq_gemm_kernel(const int8_t* __restrict__ qx,
+                   const int8_t* __restrict__ qw, const float* __restrict__ sx,
+                   const uint32_t* __restrict__ sw_amax, T* __restrict__ out,
+                   int* __restrict__ part, int M, int N, int KP, int sps) {
+  typedef GemmTile<BM, BN> G;
+  constexpr int JN = G::JN;
   extern __shared__ float smem[];
-  int8_t* sa = reinterpret_cast<int8_t*>(smem);   // [STAGES][GM][KT]
-  int8_t* sb = sa + STAGES * GM * KT;              // [STAGES][GN][KT]
+  int8_t* sa = reinterpret_cast<int8_t*>(smem);   // [STAGES][BM][KT]
+  int8_t* sb = sa + STAGES * BM * KT;              // [STAGES][BN][KT]
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;
-  const int wm = warp % 2, wn = warp / 2;
-  const int m0 = blockIdx.x * GM, n0 = blockIdx.y * GN;
-  const int stages = KP / KT;
-  int acc[4][4][4];
+  const int wm = warp % G::WARPS_M, wn = warp / G::WARPS_M;
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int s0 = SPLIT ? blockIdx.z * sps : 0;
+  const int s1 = SPLIT ? min(KP / KT, s0 + sps) : KP / KT;
+  int acc[4][JN][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+    for (int j = 0; j < JN; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
   // ldmatrix rows: A matrices rows 0-7 / 8-15 at k 0-15, then k 16-31; B
   // matrices n 0-7 at k 0-15 / 16-31, then n 8-15
   const int ar = 64 * wm + (lane & 7) + 8 * ((lane >> 3) & 1), ac = lane >> 4;
-  const int br = 32 * wn + (lane & 7) + 8 * (lane >> 4), bc = (lane >> 3) & 1;
+  const int br = G::WTN * wn + (lane & 7) + 8 * (lane >> 4);
+  const int bc = (lane >> 3) & 1;
   // ring of STAGES buffers, one commit group a stage (empty past the end),
   // so waiting for all but the newest group lands stage s
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < stages) {
-      fill_tile<GM, GEMM_NT>(sa + s * GM * KT, qx, KP, m0, M, s);
-      fill_tile<GN, GEMM_NT>(sb + s * GN * KT, qw, KP, n0, N, s);
+  for (int i = 0; i < STAGES - 1; ++i) {
+    if (s0 + i < s1) {
+      fill_tile<BM, GEMM_NT>(sa + i * BM * KT, qx, KP, m0, M, s0 + i);
+      fill_tile<BN, GEMM_NT>(sb + i * BN * KT, qw, KP, n0, N, s0 + i);
     }
     cp_async_commit();
   }
-  for (int s = 0; s < stages; ++s) {
+  for (int s = s0; s < s1; ++s) {
     cp_async_wait<STAGES - 2>();
     __syncthreads();          // stage s landed; stage s - 1's reads done
     const int f = s + STAGES - 1;              // into stage s - 1's buffer
-    if (f < stages) {
-      fill_tile<GM, GEMM_NT>(sa + (f % STAGES) * GM * KT, qx, KP, m0, M, f);
-      fill_tile<GN, GEMM_NT>(sb + (f % STAGES) * GN * KT, qw, KP, n0, N, f);
+    if (f < s1) {
+      const int fb = (f - s0) % STAGES;
+      fill_tile<BM, GEMM_NT>(sa + fb * BM * KT, qx, KP, m0, M, f);
+      fill_tile<BN, GEMM_NT>(sb + fb * BN * KT, qw, KP, n0, N, f);
     }
     cp_async_commit();
-    const int8_t* at = sa + (s % STAGES) * GM * KT;
-    const int8_t* bt = sb + (s % STAGES) * GN * KT;
+    const int8_t* at = sa + ((s - s0) % STAGES) * BM * KT;
+    const int8_t* bt = sb + ((s - s0) % STAGES) * BN * KT;
 #pragma unroll
     for (int ks = 0; ks < 4; ++ks) {
-      uint32_t a[4][4], b[4][2];
+      uint32_t a[4][4], b[JN][2];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
         ldsm_x4(a[i], at + swz_off(ar + 16 * i, 2 * ks + ac));
 #pragma unroll
-      for (int jj = 0; jj < 2; ++jj) {
+      for (int jj = 0; jj < JN / 2; ++jj) {
         uint32_t r[4];
         ldsm_x4(r, bt + swz_off(br + 16 * jj, 2 * ks + bc));
         b[2 * jj][0] = r[0];
@@ -543,19 +579,43 @@ __global__ void __launch_bounds__(GEMM_NT, 2) fq_gemm_kernel(
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
+        for (int j = 0; j < JN; ++j)
           mma_s8_16832(acc[i][j], a[i], b[j][0], b[j][1]);
     }
   }
   // C (16 x 8 a tile): (row g (+8), columns 2t, 2t+1), stored as a pair
   // where every row starts on the pair's boundary (N even)
   const bool pairs = N % 2 == 0;
-  float swc[4][2];
+  if constexpr (SPLIT) {
+    int* prow0 = part + (long)blockIdx.z * M * N;
 #pragma unroll
-  for (int j = 0; j < 4; ++j)
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = m0 + 64 * wm + 16 * i + g + 8 * h;
+        if (m >= M) continue;
+        int* prow = prow0 + (long)m * N;
+#pragma unroll
+        for (int j = 0; j < JN; ++j) {
+          const int n = n0 + G::WTN * wn + 8 * j + 2 * t;   // even
+          if (pairs && n + 1 < N) {
+            *reinterpret_cast<int2*>(prow + n) =
+                make_int2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+          } else {
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              if (n + e < N) prow[n + e] = acc[i][j][2 * h + e];
+          }
+        }
+      }
+    return;
+  }
+  float swc[JN][2];
+#pragma unroll
+  for (int j = 0; j < JN; ++j)
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
-      const int n = n0 + 32 * wn + 8 * j + 2 * t + e;
+      const int n = n0 + G::WTN * wn + 8 * j + 2 * t + e;
       swc[j][e] = n < N ? w_scale(sw_amax[n]) : 0.f;
     }
 #pragma unroll
@@ -567,8 +627,8 @@ __global__ void __launch_bounds__(GEMM_NT, 2) fq_gemm_kernel(
       const float sxm = sx[m];
       T* orow = out + (long)m * N;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int n = n0 + 32 * wn + 8 * j + 2 * t;   // even
+      for (int j = 0; j < JN; ++j) {
+        const int n = n0 + G::WTN * wn + 8 * j + 2 * t;   // even
         Two<T> o;
 #pragma unroll
         for (int e = 0; e < 2; ++e)
@@ -584,15 +644,40 @@ __global__ void __launch_bounds__(GEMM_NT, 2) fq_gemm_kernel(
     }
 }
 
+// The K splits' int32 sums (part: splits x (M, N)) added in split order,
+// then the GEMM epilogue's dequant: grid-stride over the M x N outputs
+template <typename T>
+__global__ void __launch_bounds__(SUM_NT) fq_split_sum_kernel(
+    const int* __restrict__ part, const float* __restrict__ sx,
+    const uint32_t* __restrict__ sw_amax, T* __restrict__ out, int M, int N,
+    int splits) {
+  const long long total = (long long)M * N;
+  for (long long i = (long long)blockIdx.x * SUM_NT + threadIdx.x; i < total;
+       i += (long long)gridDim.x * SUM_NT) {
+    const int m = (int)(i / N), n = (int)(i % N);
+    int sum = 0;
+    for (int sp = 0; sp < splits; ++sp) sum += part[sp * total + i];
+    out[i] = from_f<T>(__int2float_rn(sum) * (sx[m] * w_scale(sw_amax[n])));
+  }
+}
+
 // ---- host ------------------------------------------------------------------
 
 struct Plan {
   int KP, stages;
   bool small;                 // M <= SMALL_M: stage 2a, else 2b
-  int splits, sps;            // K splits of sps stages (2a)
+  int splits, sps;            // K splits of sps stages (2a; 2b: bk)
   int xb, ctiles, rb, wb;     // stage 1: x blocks, w strips, rows, w blocks
   long long off_sw, off_count, off_sx, off_qx, off_qw, off_part, bytes;
 };
+
+// whether (bm, bn) is one of TDT_FQ_TILES
+bool tile_instantiated(int bm, int bn) {
+#define TDT_FQ_IS(BM, BN) if (bm == BM && bn == BN) return true;
+  TDT_FQ_TILES(TDT_FQ_IS)
+#undef TDT_FQ_IS
+  return false;
+}
 
 long long align256(long long b) { return (b + 255) / 256 * 256; }
 
@@ -605,7 +690,8 @@ int sm_count() {
   return sms;
 }
 
-Plan make_plan(int M, int K, int N, int elem) {
+// bk: the GEMM's K split (0: none; else a multiple of KT)
+Plan make_plan(int M, int K, int N, int elem, int bk) {
   const int sms = sm_count();
   Plan p;
   p.KP = (K + KT - 1) / KT * KT;
@@ -617,6 +703,9 @@ Plan make_plan(int M, int K, int N, int elem) {
     const int tiles = (N + WN - 1) / WN;
     const int want = (2 * sms + tiles - 1) / tiles;
     p.sps = p.stages / want > 1 ? p.stages / want : 1;
+    p.splits = (p.stages + p.sps - 1) / p.sps;
+  } else if (bk > 0 && bk / KT < p.stages) {   // ceil(K / bk) splits
+    p.sps = bk / KT;
     p.splits = (p.stages + p.sps - 1) / p.sps;
   }
   p.xb = M;
@@ -637,7 +726,7 @@ Plan make_plan(int M, int K, int N, int elem) {
   p.off_qw = off;
   if (!p.small) off = align256(off + (long long)N * p.KP);
   p.off_part = off;
-  if (p.small && p.splits > 1) off = align256(off + 4LL * p.splits * M * N);
+  if (p.splits > 1) off = align256(off + 4LL * p.splits * M * N);
   p.bytes = off;
   return p;
 }
@@ -647,7 +736,7 @@ Plan make_plan(int M, int K, int N, int elem) {
 template <typename T>
 int launch_amax(const T* x, const T* w, float* x_amax, uint32_t* w_amax,
                 int M, int K, int N, cudaStream_t stream) {
-  const Plan p = make_plan(M, K, N, (int)sizeof(T));
+  const Plan p = make_plan(M, K, N, (int)sizeof(T), 0);
   int err = (int)cudaMemsetAsync(w_amax, 0, 4 * (size_t)N, stream);
   if (err != 0) return err;
   fq_scales_kernel<T><<<p.xb + p.wb, SCALE_NT, 0, stream>>>(
@@ -656,13 +745,50 @@ int launch_amax(const T* x, const T* w, float* x_amax, uint32_t* w_amax,
   return (int)cudaGetLastError();
 }
 
+// Stage 2b's product at the (BM, BN) tile: the GEMM, then the split sum
+// where K is split
+template <typename T, int BM, int BN>
+int launch_gemm(const int8_t* qx, const int8_t* qw, const float* sx,
+                const uint32_t* sw_amax, T* out, int* part, const Plan& p,
+                int M, int N, cudaStream_t stream) {
+  typedef GemmTile<BM, BN> G;
+  const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN, p.splits);
+  int err;
+  if (p.splits == 1) {
+    err = (int)cudaFuncSetAttribute(
+        fq_gemm_kernel<T, BM, BN, false>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
+    if (err != 0) return err;
+    fq_gemm_kernel<T, BM, BN, false><<<grid, GEMM_NT, G::SMEM, stream>>>(
+        qx, qw, sx, sw_amax, out, nullptr, M, N, p.KP, p.sps);
+    return (int)cudaGetLastError();
+  }
+  err = (int)cudaFuncSetAttribute(fq_gemm_kernel<T, BM, BN, true>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  G::SMEM);
+  if (err != 0) return err;
+  fq_gemm_kernel<T, BM, BN, true><<<grid, GEMM_NT, G::SMEM, stream>>>(
+      qx, qw, sx, sw_amax, out, part, M, N, p.KP, p.sps);
+  if ((err = (int)cudaGetLastError()) != 0) return err;
+  const long long total = (long long)M * N;
+  const long long want = (total + SUM_NT - 1) / SUM_NT;
+  const int blocks = (int)(want < 8 * sm_count() ? want : 8 * sm_count());
+  fq_split_sum_kernel<T><<<blocks, SUM_NT, 0, stream>>>(part, sx, sw_amax, out,
+                                                       M, N, p.splits);
+  return (int)cudaGetLastError();
+}
+
 // The product; x_amax_in / w_amax_in: the row and column maxima to scale
-// by (tdt_fused_quant_scaled), or null to take them from x and w here
+// by (tdt_fused_quant_scaled), or null to take them from x and w here.
+// (bm, bn, bk): the GEMM's tile and K split (M > 16); -2 for a tile this
+// build lacks.
 template <typename T>
 int launch(const T* x, const T* w, T* out, char* ws, int M, int K, int N,
-           cudaStream_t stream, const float* x_amax_in = nullptr,
+           int bm, int bn, int bk, cudaStream_t stream,
+           const float* x_amax_in = nullptr,
            const uint32_t* w_amax_in = nullptr) {
-  const Plan p = make_plan(M, K, N, (int)sizeof(T));
+  if (!tile_instantiated(bm, bn) || bk < 0 || bk % KT) return -2;
+  const Plan p = make_plan(M, K, N, (int)sizeof(T), bk);
   uint32_t* sw_amax = w_amax_in ? const_cast<uint32_t*>(w_amax_in)
                                 : reinterpret_cast<uint32_t*>(ws + p.off_sw);
   float* sx = reinterpret_cast<float*>(ws + p.off_sx);
@@ -701,45 +827,63 @@ int launch(const T* x, const T* w, T* out, char* ws, int M, int K, int N,
   const dim3 qgrid((N + WN - 1) / WN, p.stages);
   fq_quant_w_kernel<T><<<qgrid, QW_NT, 0, stream>>>(w, K, N, p.KP, sw_amax, qw);
   if ((err = (int)cudaGetLastError()) != 0) return err;
-  err = (int)cudaFuncSetAttribute(fq_gemm_kernel<T>,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  GEMM_SMEM);
-  if (err != 0) return err;
-  const dim3 grid((M + GM - 1) / GM, (N + GN - 1) / GN);
-  fq_gemm_kernel<T><<<grid, GEMM_NT, GEMM_SMEM, stream>>>(qx, qw, sx, sw_amax,
-                                                       out, M, N, p.KP);
-  return (int)cudaGetLastError();
+  int* part = reinterpret_cast<int*>(ws + p.off_part);
+#define TDT_FQ_GEMM(BM, BN)                                              \
+  if (bm == BM && bn == BN)                                              \
+    return launch_gemm<T, BM, BN>(qx, qw, sx, sw_amax, out, part, p, M, N, \
+                                  stream);
+  TDT_FQ_TILES(TDT_FQ_GEMM)
+#undef TDT_FQ_GEMM
+  return -2;
 }
 
 }  // namespace
 
-// Bytes of device workspace tdt_fused_quant needs for (M, K) x (K, N), in
-// *bytes. Returns 0, or -1 for an empty shape.
-extern "C" int tdt_fused_quant_workspace(int M, int K, int N,
+// The GEMM tiles this build instantiates: up to cap (bm, bn) pairs into
+// tiles (2 cap ints); returns their number.
+extern "C" int tdt_fused_quant_tiles(int* tiles, int cap) {
+  int n = 0;
+#define TDT_FQ_LIST(BM, BN)              \
+  if (n < cap) {                         \
+    tiles[2 * n] = BM;                   \
+    tiles[2 * n + 1] = BN;               \
+  }                                      \
+  ++n;
+  TDT_FQ_TILES(TDT_FQ_LIST)
+#undef TDT_FQ_LIST
+  return n;
+}
+
+// Bytes of device workspace tdt_fused_quant needs for (M, K) x (K, N) under
+// the K split bk, in *bytes. Returns 0, or -1 for an empty shape or a bk
+// that is not 0 or a positive multiple of 128.
+extern "C" int tdt_fused_quant_workspace(int M, int K, int N, int bk,
                                          long long* bytes) {
-  if (M < 1 || K < 1 || N < 1) return -1;
-  *bytes = make_plan(M, K, N, 4).bytes;
+  if (M < 1 || K < 1 || N < 1 || bk < 0 || bk % KT) return -1;
+  *bytes = make_plan(M, K, N, 4, bk).bytes;
   return 0;
 }
 
 // out (M, N) = dequant(q(x) . q(w)) for row-major x (M, K), w (K, N) and
 // out, all of one dtype: 0 = float32, 1 = bfloat16. ws: device workspace of
-// tdt_fused_quant_workspace bytes, 256-byte aligned. Returns the first
+// tdt_fused_quant_workspace bytes, 256-byte aligned. (bm, bn, bk): the
+// GEMM's output tile and K split, used where M > 16. Returns the first
 // failed call's cudaError_t (0 = every launch went out); -1 for a dtype
-// this build lacks or an empty shape.
+// this build lacks or an empty shape, -2 for a tile it lacks.
 extern "C" int tdt_fused_quant(const void* x, const void* w, void* out,
                                void* ws, int M, int K, int N, int dtype,
-                               void* stream) {
+                               int bm, int bn, int bk, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   char* wsp = static_cast<char*>(ws);
   if (M < 1 || K < 1 || N < 1) return -1;
   if (dtype == 0)
     return launch(static_cast<const float*>(x), static_cast<const float*>(w),
-                  static_cast<float*>(out), wsp, M, K, N, s);
+                  static_cast<float*>(out), wsp, M, K, N, bm, bn, bk, s);
   if (dtype == 1)
     return launch(static_cast<const __nv_bfloat16*>(x),
                   static_cast<const __nv_bfloat16*>(w),
-                  static_cast<__nv_bfloat16*>(out), wsp, M, K, N, s);
+                  static_cast<__nv_bfloat16*>(out), wsp, M, K, N, bm, bn, bk,
+                  s);
   return -1;
 }
 
@@ -765,11 +909,13 @@ extern "C" int tdt_fused_quant_amax(const void* x, const void* w,
 
 // tdt_fused_quant with the scales taken from the given maxima: x_amax (M
 // floats) and w_amax (N non-negative floats), e.g. tdt_fused_quant_amax's
-// maxed over a group that shares the product's K. ws: as tdt_fused_quant.
+// maxed over a group that shares the product's K. ws, tile and returns: as
+// tdt_fused_quant.
 extern "C" int tdt_fused_quant_scaled(const void* x, const void* w,
                                       const void* x_amax, const void* w_amax,
                                       void* out, void* ws, int M, int K,
-                                      int N, int dtype, void* stream) {
+                                      int N, int dtype, int bm, int bn,
+                                      int bk, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   char* wsp = static_cast<char*>(ws);
   const float* xa = static_cast<const float*>(x_amax);
@@ -777,10 +923,12 @@ extern "C" int tdt_fused_quant_scaled(const void* x, const void* w,
   if (M < 1 || K < 1 || N < 1) return -1;
   if (dtype == 0)
     return launch(static_cast<const float*>(x), static_cast<const float*>(w),
-                  static_cast<float*>(out), wsp, M, K, N, s, xa, wa);
+                  static_cast<float*>(out), wsp, M, K, N, bm, bn, bk, s, xa,
+                  wa);
   if (dtype == 1)
     return launch(static_cast<const __nv_bfloat16*>(x),
                   static_cast<const __nv_bfloat16*>(w),
-                  static_cast<__nv_bfloat16*>(out), wsp, M, K, N, s, xa, wa);
+                  static_cast<__nv_bfloat16*>(out), wsp, M, K, N, bm, bn, bk,
+                  s, xa, wa);
   return -1;
 }

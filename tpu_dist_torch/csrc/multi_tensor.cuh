@@ -6,9 +6,12 @@
 // count `n`); for_each_table() adds each leaf's first chunk index and hands
 // the table to the kernel BY VALUE as its parameter, so nothing is copied
 // host to device and a CUDA-graph capture records the launch as it is.
-// Each block takes one chunk of CHUNK elements of one leaf, found by
-// leaf_of_chunk(), a binary search over the chunk starts (leaves with n = 0
-// own no chunk, so no per-block table caps the grid). A table longer than
+// Each block takes one chunk of `chunk` elements of one leaf (a launch
+// argument: the plan's opt_block_rows times 8, 4096 at the default 512
+// rows; any multiple of 64 keeps every chunk's start on a 256-byte
+// boundary of a 16-byte-aligned leaf), found by leaf_of_chunk(), a binary
+// search over the chunk starts (leaves with n = 0 own no chunk, so no
+// per-block table caps the grid). A table longer than
 // one launch's capacity CAP is split into launches of at most CAP leaves:
 // CUDA >= 12.1 allows 32,764 bytes of kernel parameters (TDT_LARGE_PARAMS),
 // older toolkits 4 KB, and each kernel states both capacities.
@@ -41,13 +44,14 @@ __device__ __forceinline__ int leaf_of_chunk(const LeafTable<Row, CAP>& tab,
   return lo;
 }
 
-// Split `rows` into tables of at most CAP leaves with their chunk starts
-// and call launch(table, chunks) for each that owns a chunk. Returns the
-// first non-zero result of launch (a cudaError_t), -1 for a negative count
-// or more than 2^31 - 1 chunks in one table, else 0.
-template <int CAP, int CHUNK, typename Row, typename Launch>
-int for_each_table(const Row* rows, int n_leaves, Launch launch) {
-  if (n_leaves < 0) return -1;
+// Split `rows` into tables of at most CAP leaves with their starts in
+// chunks of `chunk` elements and call launch(table, chunks) for each that
+// owns a chunk. Returns the first non-zero result of launch (a
+// cudaError_t), -1 for a negative count, a chunk that is not a positive
+// multiple of 64, or more than 2^31 - 1 chunks in one table, else 0.
+template <int CAP, typename Row, typename Launch>
+int for_each_table(const Row* rows, int n_leaves, int chunk, Launch launch) {
+  if (n_leaves < 0 || chunk < 64 || chunk % 64) return -1;
   for (int i = 0; i < n_leaves; ++i)
     if (rows[i].n < 0) return -1;
   for (int first = 0; first < n_leaves; first += CAP) {
@@ -57,7 +61,7 @@ int for_each_table(const Row* rows, int n_leaves, Launch launch) {
     for (int i = first; i < n_leaves && i < first + CAP; ++i) {
       tab.start[tab.n_leaves] = (int)chunks;
       tab.leaf[tab.n_leaves++] = rows[i];
-      chunks += (rows[i].n + CHUNK - 1) / CHUNK;
+      chunks += (rows[i].n + chunk - 1) / chunk;
     }
     if (chunks > 0x7fffffffLL) return -1;
     tab.start[tab.n_leaves] = (int)chunks;

@@ -23,8 +23,10 @@
 //
 // Design: one launch over every leaf of one p dtype (multi-tensor apply,
 // csrc/multi_tensor.cuh: the host's table of {p, g, m, n} rows goes to the
-// kernel by value, each block takes one chunk of CHUNK elements of one
-// leaf, leaves with n = 0 own no chunk). A leaf whose pointers are all
+// kernel by value, each block takes one chunk of `chunk` elements of one
+// leaf, leaves with n = 0 own no chunk). The chunk is the plan's
+// opt_block_rows times 8: 4096 at the default 512 rows; its 256 threads
+// loop over it (64 elements at the least legal 8 rows). A leaf whose pointers are all
 // 16-byte aligned (8 for a bf16 p) moves four elements per access, each
 // thread issuing all of its 16-byte loads before the first update; the
 // ragged tail (n mod 4) and unaligned leaves go element by element.
@@ -43,7 +45,6 @@ namespace {
 
 constexpr int NT = 256;                // threads per block
 constexpr int VPT = 4;                 // 4-element vectors per thread
-constexpr int CHUNK = NT * VPT * 4;    // elements per block: 4096
 // leaves per launch: 18,440 bytes of table, or inside the older 4 KB
 constexpr int CAP = TDT_LARGE_PARAMS ? 512 : 96;
 
@@ -69,7 +70,8 @@ __device__ __forceinline__ void step1(T& p, float g, float& m, float lr,
 
 template <typename T>
 __global__ void __launch_bounds__(NT) sgd_kernel(const Table tab,
-                                                 const float* __restrict__ scal) {
+                                                 const float* __restrict__ scal,
+                                                 int chunk) {
   typedef typename Vec<T>::type PV;
   const int c = blockIdx.x;
   const int li = leaf_of_chunk(tab, c);
@@ -77,9 +79,9 @@ __global__ void __launch_bounds__(NT) sgd_kernel(const Table tab,
   T* __restrict__ p = static_cast<T*>(leaf.p);
   const float* __restrict__ g = leaf.g;
   float* __restrict__ m = leaf.m;
-  const long long base = (long long)(c - tab.start[li]) * CHUNK;
+  const long long base = (long long)(c - tab.start[li]) * chunk;
   const long long rest = leaf.n - base;
-  const int len = (int)(rest < CHUNK ? rest : CHUNK);   // elements here
+  const int len = (int)(rest < chunk ? rest : chunk);   // elements here
   const float lr = scal[0], mu = scal[1], wd = scal[2], cs = scal[3];
   const bool vec = (((uintptr_t)g | (uintptr_t)m) % 16 == 0) &&
                    ((uintptr_t)p % sizeof(PV) == 0);
@@ -123,11 +125,11 @@ __global__ void __launch_bounds__(NT) sgd_kernel(const Table tab,
 }
 
 template <typename T>
-int launch(const Leaf* rows, int n_leaves, const float* scal,
+int launch(const Leaf* rows, int n_leaves, const float* scal, int chunk,
            cudaStream_t stream) {
-  return for_each_table<CAP, CHUNK>(
-      rows, n_leaves, [&](const Table& tab, unsigned chunks) {
-        sgd_kernel<T><<<chunks, NT, 0, stream>>>(tab, scal);
+  return for_each_table<CAP>(
+      rows, n_leaves, chunk, [&](const Table& tab, unsigned chunks) {
+        sgd_kernel<T><<<chunks, NT, 0, stream>>>(tab, scal, chunk);
         return (int)cudaGetLastError();
       });
 }
@@ -137,16 +139,19 @@ int launch(const Leaf* rows, int n_leaves, const float* scal,
 // One update of every leaf in the host table `table` (n_leaves rows of
 // {p, g, m, n}: pointers to p, fp32 g and fp32 m, and the element count;
 // rows with n = 0 are skipped) with the 4-float fp32 scalar row
-// [lr, mu, wd, cs] in device memory. p_dtype: 0 = float32, 1 = bfloat16,
-// for every row. Returns the first failed launch's cudaError_t (0 = every
-// launch went out, or nothing to do); -1 for an unknown dtype, a negative
-// count, or more than 2^31 - 1 chunks in one launch.
+// [lr, mu, wd, cs] in device memory, `chunk` elements a block. p_dtype: 0
+// = float32, 1 = bfloat16, for every row. Returns the first failed
+// launch's cudaError_t (0 = every launch went out, or nothing to do); -1
+// for an unknown dtype, a negative count, a chunk that is not a positive
+// multiple of 64, or more than 2^31 - 1 chunks in one launch.
 extern "C" int tdt_sgd_multi(const void* table, int n_leaves,
-                             const void* scalars, int p_dtype, void* stream) {
+                             const void* scalars, int p_dtype, int chunk,
+                             void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Leaf* rows = static_cast<const Leaf*>(table);
   const float* scal = static_cast<const float*>(scalars);
-  if (p_dtype == 0) return launch<float>(rows, n_leaves, scal, s);
-  if (p_dtype == 1) return launch<__nv_bfloat16>(rows, n_leaves, scal, s);
+  if (p_dtype == 0) return launch<float>(rows, n_leaves, scal, chunk, s);
+  if (p_dtype == 1)
+    return launch<__nv_bfloat16>(rows, n_leaves, scal, chunk, s);
   return -1;
 }

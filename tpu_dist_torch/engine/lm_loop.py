@@ -97,11 +97,18 @@ over it, and logs, the ledger, the CSV and checkpoint writes are rank
 (``ops.fused_xent``). It runs on CUDA unless ``device="cpu"`` is asked
 for, and takes an optional flax-layout initial param tree
 (``init_params``) so a run can start from the reference trainer's
-initial weights. The knobs not ported yet (``plan``, ``audit``: the
-reference's step plans and program audits) raise ``NotImplementedError``
-naming the knob and ROADMAP Queue 1 item 6 (:data:`UNPORTED`).
-``max_restarts`` takes effect in the entry point (``scripts.lm_longcontext``
-through ``parallel.supervisor.run_supervised``), as in the reference.
+initial weights. ``max_restarts`` takes effect in the entry point
+(``scripts.lm_longcontext`` through ``parallel.supervisor.run_supervised``),
+as in the reference.
+
+The step plan (``:56-61``): ``plan`` (a ``tools/tune.py`` plan file, or
+``"auto"``) is resolved first thing (``plan.compile.resolve_config_plan``),
+before anything reads a plan-owned knob, so the model is built with the
+plan's ``quant`` and the plan's kernel switches are set; the result rides
+``run_start`` and one ``plan`` event (``obs.RunObs``). Every step, window
+and eval comes from ``plan.compile.compile_plan`` over this mode's
+bindings (:meth:`LMTrainer._step_plan`). The ``audit`` knob audits JAX
+programs and is refused by name (:data:`UNPORTED`).
 """
 
 from __future__ import annotations
@@ -120,8 +127,7 @@ from tpu_dist_torch.data.tokens import load_token_dataset
 from tpu_dist_torch.device import peak_flops
 from tpu_dist_torch.engine import checkpoint as ckpt
 from tpu_dist_torch.engine.lm_steps import (LM_METRIC_KEYS, ROUTER_KEYS,
-                                            ModelParallel, lm_eval_metrics,
-                                            lm_train_step, make_lm_batches,
+                                            ModelParallel, make_lm_batches,
                                             shift_rows, zeros_lm_metrics)
 from tpu_dist_torch.engine.state import TrainState
 from tpu_dist_torch.engine.steps import DataParallel
@@ -130,7 +136,7 @@ from tpu_dist_torch.obs.health import PROBE_KEYS, validate_health
 from tpu_dist_torch.ops.optim import lm_lr_schedule, make_optimizer
 from tpu_dist_torch.ops.pallas_adamw import FusedAdamW
 from tpu_dist_torch.ops.precision import make_policy
-from tpu_dist_torch.ops.quant import validate_quant
+from tpu_dist_torch.ops.quant import fused_quant_active, validate_quant
 from tpu_dist_torch.parallel.collectives import P2P_HOST_STAGED
 from tpu_dist_torch.parallel.mesh import (DATA_AXIS, EXPERT_AXIS,
                                           MODEL_AXIS, SEQ_AXIS, STAGE_AXIS,
@@ -138,14 +144,17 @@ from tpu_dist_torch.parallel.mesh import (DATA_AXIS, EXPERT_AXIS,
 from tpu_dist_torch.parallel.overlap import (bucketed_grad_sync,
                                              validate_tp_impl)
 from tpu_dist_torch.parallel.supervisor import PREEMPT_SNAPSHOT_RC
+from tpu_dist_torch.plan.compile import (AUDIT_REFUSAL, Bindings,
+                                         compile_plan, current_switches,
+                                         resolve_config_plan)
+from tpu_dist_torch.plan.ir import Plan
 from tpu_dist_torch.utils.meters import MeterBank
 from tpu_dist_torch.utils.mfu import lm_flops_per_token, moe_lm_flops_per_token
 
 # knob -> its off value. Anything else raises NotImplementedError naming
-# the knob and the ROADMAP Queue 1 item it waits for (item 6, the plan
-# lowering: the JAX package's step plans and program audits).
-UNPORTED = {"plan": ("", "none"), "audit": ("none",)}
-WAITS_FOR = 6
+# the knob: the program audit checks JAX programs, which the port has none
+# of (plan.compile.AUDIT_REFUSAL)
+UNPORTED = {"audit": ("none",)}
 ATTNS = ("full", "blockwise", "flash")
 # run-meta keys a resume must match before any state loads, and those a
 # mid-epoch resume must match as well
@@ -159,8 +168,8 @@ def refuse_unported(cfg: LMConfig) -> None:
         val = getattr(cfg, knob)
         if val not in off:
             raise NotImplementedError(
-                f"LMConfig.{knob}={val!r} is not ported yet (ROADMAP Queue "
-                f"1 item {WAITS_FOR}; supported: "
+                f"LMConfig.{knob}={val!r}: the program audit "
+                f"{AUDIT_REFUSAL} (supported: "
                 f"{' | '.join(repr(o) for o in off)})")
 
 
@@ -170,6 +179,9 @@ class LMTrainer:
 
     def __init__(self, cfg: LMConfig, *, device=None,
                  init_params: Optional[dict] = None):
+        # the step plan rewrites the plan-owned knobs and sets the kernel
+        # switches before anything below reads them
+        cfg, self._plan_info = resolve_config_plan(cfg, device)
         refuse_unported(cfg)
         if cfg.resume and not os.path.exists(cfg.resume):
             raise FileNotFoundError(
@@ -263,7 +275,8 @@ class LMTrainer:
         # whether the int8 matmuls ride the fused kernel (csrc/fused_quant.cu;
         # on the CPU its plain version runs): the step records' ``fused``
         # flag, as in the reference
-        self._fused_quant = cfg.quant == "int8" and self.device.type == "cuda"
+        self._fused_quant = (cfg.quant == "int8" and fused_quant_active()
+                             and self.device.type == "cuda")
 
         # ---- corpus ----
         seed = cfg.seed if cfg.seed is not None else 0
@@ -385,10 +398,14 @@ class LMTrainer:
         self.last_tok_s = 0.0
         self._warmed = False
         self._flops_per_step = None
+        # every step, window and eval from the plan lowering
+        self.compiled = compile_plan(self._step_plan(), Bindings(
+            mesh=self.mesh, model=self.model, tx=self.tx, par=self.par,
+            pipe=self.pipe, dp=self.dp))
         # the run's ledger (attempt lineage), health sentry, watchdog,
         # goodput sink, faults, heartbeat and preemption (obs.RunObs)
         self.obs = RunObs("lm", cfg, process_index=self.rank, unit="tok/s",
-                          device=self.device)
+                          device=self.device, plan_info=self._plan_info)
         self.ledger, self.health = self.obs.ledger, self.obs.health
         self._comm_probe_s = (self._measure_comm_probe()
                               if cfg.grad_bucket_mb > 0 else None)
@@ -504,6 +521,24 @@ class LMTrainer:
                         specs=self.specs or [(None,) * len(s)
                                              for _, s in self._shapes],
                         param_names=[n for n, _ in self._shapes])
+
+    def _step_plan(self) -> Plan:
+        """The plan this run's steps lower from: the mode's layout and
+        sync, the config's step knobs and the kernel switches as they
+        stand (a resolved plan set both)."""
+        cfg = self.cfg
+        explicit = self.use_sp or self.use_ring or self.use_bucket
+        return Plan(engine="lm",
+                    layout=("sp" if self.use_sp else
+                            "tp" if self.use_tp else "dp"),
+                    sync="explicit" if explicit else "gspmd",
+                    quant=cfg.quant,
+                    tp_impl="ring" if self.use_ring else "gspmd",
+                    grad_bucket_mb=float(cfg.grad_bucket_mb),
+                    window="indexed" if self.device_data else "none",
+                    steps_per_dispatch=self.k, grad_accum_steps=self.accum,
+                    loss_chunk=cfg.loss_chunk, health=cfg.health,
+                    aux_weight=cfg.moe_aux_weight, **current_switches())
 
     def _sharded(self) -> bool:
         return self.specs is not None and any(any(s) for s in self.specs)
@@ -709,13 +744,7 @@ class LMTrainer:
         return self._to_device(inputs).long(), self._to_device(targets).long()
 
     def _step(self, inputs, targets) -> Dict[str, torch.Tensor]:
-        cfg = self.cfg
-        if self.use_pp:
-            return self.pipe.train_step(self.state, inputs, targets,
-                                        self.tx, cfg.health)
-        return lm_train_step(self.model, self.tx, self.state, inputs,
-                             targets, cfg.health, cfg.loss_chunk, self.accum,
-                             self.dp, self.par)
+        return self.compiled.step(self.state, inputs, targets)
 
     def _step_flops(self) -> float:
         if self._flops_per_step is None:
@@ -893,14 +922,9 @@ class LMTrainer:
         """K optimizer steps back to back, no host sync: step j gathers its
         (B, L+1) rows from the resident matrix by ``idx_window[j]`` and
         shifts them on the device. Returns the metric sums over the K
-        steps."""
-        sums = None
-        for j in range(len(idx_window)):
-            inputs, targets = shift_rows(
-                self._train_rows_dev.index_select(0, idx_window[j]))
-            m = self._step(inputs, targets)
-            sums = m if sums is None else {k: sums[k] + m[k] for k in m}
-        return sums
+        steps (the plan's indexed window)."""
+        return self.compiled.train_step(self.state, self._train_rows_dev,
+                                        idx_window)
 
     def _train_epoch_windowed(self, epoch: int) -> Dict[str, float]:
         """K-steps-per-dispatch epoch over device-resident rows (``:872``):
@@ -1033,10 +1057,7 @@ class LMTrainer:
             batches = (self._batch(self.val_ds, idx[i])
                        + (self._to_device(valid[i]),) for i in range(len(idx)))
         for inputs, targets, v in batches:
-            m = (self.pipe.eval_metrics(inputs, targets, v) if self.use_pp
-                 else lm_eval_metrics(self.model, inputs, targets, v,
-                                      self.cfg.loss_chunk, self.par,
-                                      self.state))
+            m = self.compiled.eval_step(self.state, inputs, targets, v)
             for k in sums:
                 sums[k] = sums[k] + m[k]
         sums = {k: float(v) for k, v in self.par.sync_metrics(sums).items()}

@@ -69,23 +69,34 @@ the whole set resident on each rank's device and gathers the rank's rows.
 Logs, the ledger, the CSV and checkpoint writes are rank 0's; every rank
 resumes from the same checkpoint.
 
-ViT ring tensor parallelism (``tp_impl="ring"`` on a ``data=N,model=M``
-mesh, ``tpu_dist/engine/loop.py:125-170``): the reference's checks (a
-``vit_*`` arch, a ``model`` axis of 2 or more, heads divisible by it),
-then the model's blocks run the ``ring_ar`` flavour over the model axis
-(``models.vit``). Every rank of one ``data`` coordinate reads the same
-rows (the batch, the sampler, the augmentation generator and the gradient
-mean go by the data axis); the params stay whole and identical on the
-model axis. The reference requires ``variant="shard_map"`` there because
-its ring collectives are explicit; the port's trainer runs explicit
-collectives in both variants, so either is taken. A ``model`` axis under
-``tp_impl="gspmd"`` is not ported (``UNPORTED``; ROADMAP Queue 1 item 6).
+A ``data=N,model=M`` mesh (``tpu_dist/engine/loop.py:125-170,
+246-264``). Every rank of one ``data`` coordinate reads the same rows (the
+batch, the sampler and the augmentation generator go by the data
+coordinate), the params stay whole and identical on every rank, and the
+gradients are averaged over the data axis. Under
+``tp_impl="ring"`` (the reference's checks: a ``vit_*`` arch, a ``model``
+axis of 2 or more, heads divisible by it) the model's blocks run the
+``ring_ar`` flavour over the model axis (``models.vit``); the reference
+requires ``variant="shard_map"`` there because its ring collectives are
+explicit, and the port's trainer runs explicit collectives in both
+variants, so either is taken. Under ``tp_impl="gspmd"`` it is the
+reference's jit step (``engine/steps.py:220-227``): the batch sharded over
+``data``, the params replicated, for every arch; the gradient mean runs
+over every rank (the model axis's ranks hold equal gradients, so it is
+the data axis's mean), so the replicas stay bit-equal whatever order each
+rank's kernels summed in.
+
+The step plan (``:55-59``): ``plan`` (a ``tools/tune.py`` plan file, or
+``"auto"``) is resolved first thing (``plan.compile.resolve_config_plan``),
+so the variant, the sync knobs and the kernel switches are the plan's
+before the model is built; the result rides ``run_start`` and one ``plan``
+event. Every step, window and eval comes from ``plan.compile
+.compile_plan`` (:meth:`Trainer._step_plan`). The ``audit`` knob audits
+JAX programs and is refused by name (:data:`UNPORTED`).
 
 It runs on CUDA unless ``device="cpu"`` is asked for, and takes an
 optional flax-layout ``init_params``/``init_batch_stats`` pair so a run can
-start from the reference trainer's initial weights. Knobs not ported yet
-raise ``NotImplementedError`` naming the knob and ROADMAP Queue 1 item 6
-(:data:`UNPORTED`).
+start from the reference trainer's initial weights.
 """
 
 from __future__ import annotations
@@ -107,8 +118,6 @@ from tpu_dist_torch.device import peak_flops
 from tpu_dist_torch.engine import checkpoint as ckpt
 from tpu_dist_torch.engine.state import TrainState
 from tpu_dist_torch.engine.steps import (IMAGE_METRIC_KEYS, DataParallel,
-                                         image_eval_metrics,
-                                         image_train_step,
                                          zeros_image_metrics)
 from tpu_dist_torch.models.registry import create_model, model_kind
 from tpu_dist_torch.models.resnet import set_batchnorm_group
@@ -117,43 +126,35 @@ from tpu_dist_torch.obs.health import PROBE_KEYS, validate_health
 from tpu_dist_torch.ops.optim import make_optimizer, step_decay_schedule
 from tpu_dist_torch.ops.pallas_sgd import FusedSGD
 from tpu_dist_torch.ops.precision import LossScaleState, make_policy
-from tpu_dist_torch.ops.quant import validate_quant
+from tpu_dist_torch.ops.quant import fused_quant_active, validate_quant
 from tpu_dist_torch.parallel.collectives import all_reduce_
 from tpu_dist_torch.parallel.launch import say
 from tpu_dist_torch.parallel.mesh import make_mesh
 from tpu_dist_torch.parallel.overlap import validate_tp_impl
 from tpu_dist_torch.parallel.supervisor import PREEMPT_SNAPSHOT_RC
+from tpu_dist_torch.plan.compile import (AUDIT_REFUSAL, Bindings,
+                                         compile_plan, current_switches,
+                                         resolve_config_plan)
+from tpu_dist_torch.plan.ir import Plan
 from tpu_dist_torch.utils.meters import MeterBank
 from tpu_dist_torch.utils.mfu import image_forward_flops
 
 # knob -> its accepted values. Anything else raises NotImplementedError
-# naming the knob and the ROADMAP Queue 1 item it waits for (item 6, the
-# plan lowering: a 'model' axis under tp_impl="gspmd" rides the reference's
-# jit step plan, and the step plans and program audits are JAX's).
-UNPORTED = {
-    "mesh_axes": (("data",), ("data", "model")),
-    "plan": ("", "none"), "audit": ("none",),
-}
-WAITS_FOR = 6
+# naming the knob: the program audit checks JAX programs, which the port
+# has none of (plan.compile.AUDIT_REFUSAL)
+UNPORTED = {"audit": ("none",)}
+# the mesh axes the Trainer takes
+MESH_AXES = (("data",), ("data", "model"))
 
 
 def refuse_unported(cfg: TrainConfig) -> None:
     for knob, accepted in UNPORTED.items():
         val = getattr(cfg, knob)
-        if knob == "mesh_axes":
-            val = tuple(val)
-            if cfg.tp_impl != "ring":   # a model axis rides the ring only
-                accepted = (("data",),)
         if val not in accepted:
             raise NotImplementedError(
-                f"TrainConfig.{knob}={val!r}"
-                + (f" (mesh_shape={cfg.mesh_shape!r}, tp_impl="
-                   f"{cfg.tp_impl!r})" if knob == "mesh_axes" else "")
-                + f" is not ported yet (ROADMAP Queue 1 item {WAITS_FOR})"
-                f": the port's "
-                f"Trainer runs data-parallel, one device per process, and "
-                f"ViT ring tensor parallelism over a 'model' axis "
-                f"(supported: {' | '.join(repr(a) for a in accepted)})")
+                f"TrainConfig.{knob}={val!r}: the program audit "
+                f"{AUDIT_REFUSAL} (supported: "
+                f"{' | '.join(repr(a) for a in accepted)})")
 
 
 class Trainer:
@@ -163,6 +164,9 @@ class Trainer:
     def __init__(self, cfg: TrainConfig, *, device=None,
                  init_params: Optional[dict] = None,
                  init_batch_stats: Optional[dict] = None):
+        # the step plan rewrites the plan-owned knobs (the variant too) and
+        # sets the kernel switches before anything below reads them
+        cfg, self._plan_info = resolve_config_plan(cfg, device)
         refuse_unported(cfg)
         if cfg.resume and not os.path.exists(cfg.resume):
             raise FileNotFoundError(f"--resume checkpoint not found: {cfg.resume}")
@@ -180,6 +184,10 @@ class Trainer:
             raise ValueError(f"unknown variant {cfg.variant!r} (jit|shard_map)")
         validate_health(cfg.health)
         validate_tp_impl(cfg.tp_impl)
+        if tuple(cfg.mesh_axes) not in MESH_AXES:
+            raise ValueError(
+                f"TrainConfig.mesh_axes={tuple(cfg.mesh_axes)!r}: the image "
+                f"Trainer takes {' | '.join(repr(a) for a in MESH_AXES)}")
         if cfg.tp_impl == "ring" and not cfg.arch.startswith("vit"):
             # the reference's checks (:125-170)
             raise ValueError(
@@ -269,9 +277,17 @@ class Trainer:
         self.device = self.mesh.device
         self.rank, self.world = self.mesh.rank, world
         self.is_main = self.mesh.is_main
+        # a model axis under gspmd replicates the params: the gradient mean
+        # runs over every rank (the model axis's ranks hold equal
+        # gradients, so it is the data axis's mean), which keeps the
+        # replicas bit-equal whatever each rank's kernels summed in
+        grad_group = self.mesh.group()
+        if self.tp.size > 1 and cfg.tp_impl == "gspmd":
+            import torch.distributed as dist
+
+            grad_group = dist.group.WORLD
         self.dp = DataParallel(
-            self.mesh.group(), self.data_size, cfg.variant,
-            cfg.grad_compression,
+            grad_group, self.data_size, cfg.variant, cfg.grad_compression,
             cfg.gradient_predivide_factor, cfg.adasum, cfg.grad_bucket_mb)
         if self.device.type == "cuda":
             torch.backends.cudnn.benchmark = True
@@ -356,7 +372,8 @@ class Trainer:
         # whether the int8 matmuls (vit_* under quant="int8") ride
         # csrc/fused_quant.cu (on the CPU its plain version runs): the step
         # records' ``fused`` flag (:444-448,511; the LMTrainer's twin)
-        self._fused_quant = cfg.quant == "int8" and self.device.type == "cuda"
+        self._fused_quant = (cfg.quant == "int8" and fused_quant_active()
+                             and self.device.type == "cuda")
         self.best_acc1 = 0.0
         self.last_img_s = 0.0
         self.start_epoch = cfg.start_epoch
@@ -387,10 +404,16 @@ class Trainer:
                          f"{step_done} (no disk round-trip); resuming "
                          f"epoch {self.start_epoch}")
         self._epoch_in_progress = self.start_epoch
+        # every step, window and eval from the plan lowering
+        self.compiled = compile_plan(self._step_plan(), Bindings(
+            mesh=self.mesh, model=self.model, tx=self.tx, dp=self.dp,
+            transform=self.transform, eval_transform=self.eval_transform,
+            gen=self._gen))
         # the run's ledger (attempt lineage), health sentry, watchdog,
         # goodput sink, faults, heartbeat and preemption (obs.RunObs)
         self.obs = RunObs("image", cfg, process_index=self.rank,
-                          unit="img/s", device=self.device)
+                          unit="img/s", device=self.device,
+                          plan_info=self._plan_info)
         self.ledger, self.health = self.obs.ledger, self.obs.health
 
     # ------------------------------------------------------------------
@@ -501,10 +524,27 @@ class Trainer:
             (self.seed * 1_000_003 + gstep) * self.data_size
             + self.data_rank)
 
+    def _step_plan(self) -> Plan:
+        """The plan this run's steps lower from: the mesh's layout, the
+        variant's sync (the ring's collectives are explicit in either), the
+        config's step knobs and the kernel switches as they stand."""
+        cfg = self.cfg
+        explicit = cfg.variant == "shard_map" or cfg.tp_impl == "ring"
+        return Plan(engine="image",
+                    layout="tp" if self.tp.size > 1 else "dp",
+                    sync="explicit" if explicit else "gspmd",
+                    quant=cfg.quant or "none", tp_impl=cfg.tp_impl,
+                    grad_bucket_mb=float(cfg.grad_bucket_mb),
+                    grad_compression=cfg.grad_compression,
+                    predivide_factor=float(cfg.gradient_predivide_factor),
+                    adasum=bool(cfg.adasum),
+                    window=("indexed" if self.device_data else
+                            "stacked" if self.k > 1 else "none"),
+                    steps_per_dispatch=self.k, grad_accum_steps=self.accum,
+                    health=cfg.health, **current_switches())
+
     def _step(self, images, labels, gstep: int) -> Dict[str, torch.Tensor]:
-        return image_train_step(self.model, self.tx, self.state, images,
-                                labels, self.transform, self.cfg.health,
-                                self._gen(gstep), self.accum, self.dp)
+        return self.compiled.step(self.state, images, labels, gstep)
 
     def _flops(self) -> float:
         if self._flops_per_image is None:
@@ -685,18 +725,12 @@ class Trainer:
             self._preempt_check(pending, meters)
             was_cold = not self._warmed
 
-            def window(n=n, payload=payload, gstep=gstep):
-                sums = None
-                for j in range(n):
-                    if self.device_data:
-                        images = images_all.index_select(0, payload[j])
-                        labels = labels_all.index_select(0, payload[j])
-                    else:
-                        images, labels = payload[0][j], payload[1][j]
-                    m = self._step(images, labels, gstep + j)
-                    sums = m if sums is None else {k: sums[k] + m[k]
-                                                   for k in m}
-                return sums
+            def window(payload=payload, gstep=gstep):
+                if self.device_data:     # the plan's indexed window
+                    return self.compiled.train_step(
+                        self.state, images_all, labels_all, payload, gstep)
+                return self.compiled.train_step(    # stacked
+                    self.state, payload[0], payload[1], gstep)
 
             sums, dispatch_s, warmed = self._dispatch(
                 gstep, "window_step", window, t_epoch, n)
@@ -801,8 +835,7 @@ class Trainer:
             batches = prefetch_to_device(
                 iter(self._loader(self.val_ds, False, epoch)), self.device)
         for images, labels, v in batches:
-            m = image_eval_metrics(self.model, self.eval_transform, images,
-                                   labels, v)
+            m = self.compiled.eval_step(images, labels, v)
             sums = {k: sums[k] + m[k] for k in sums}
         flat = torch.stack([sums[k] for k in IMAGE_METRIC_KEYS])
         all_reduce_(flat, self.mesh.group())

@@ -93,11 +93,15 @@ class RunObs:
     the skew exchange's tensors, over the whole world)."""
 
     def __init__(self, kind: str, cfg, process_index: int = 0,
-                 unit: str = "items/s", device="cpu"):
+                 unit: str = "items/s", device="cpu", plan_info=None):
         from tpu_dist_torch.obs.health import HealthSentry
 
         self.kind = kind
         self.cfg = cfg
+        # the resolved step plan ({'source', 'hash', 'knobs', 'device_kind'}
+        # from plan.compile.resolve_config_plan, or None): stamped into
+        # run_start and emitted as its own 'plan' event (:94-97, 273-280)
+        self.plan_info = plan_info
         self.unit = unit
         self.device = device
         pidx = int(process_index)
@@ -214,7 +218,9 @@ class RunObs:
     def run_start(self, **fields) -> None:
         """Emit ``run_start`` (the trainer's fields plus the lineage:
         ``job_id``, ``attempt``, ``resumed_from``, ``degraded`` and
-        ``mesh_epoch``), set the fault context and arm the crash guard."""
+        ``mesh_epoch``, and the step plan's ``plan_hash``, ``plan_source``
+        and ``plan_knobs``) and, under a plan, one ``plan`` event right
+        after it; set the fault context and arm the crash guard."""
         self._t0 = time.time()
         self._ended = False
         faults.set_ledger(self.ledger)
@@ -229,7 +235,16 @@ class RunObs:
             job_id=self.job_id, attempt=self.attempt,
             resumed_from=getattr(cfg, "resume", "") or None,
             degraded=os.environ.get("TPU_DIST_DEGRADED") == "1",
-            mesh_epoch=env_int("TPU_DIST_MESH_EPOCH"), **fields)
+            mesh_epoch=env_int("TPU_DIST_MESH_EPOCH"),
+            plan_hash=(self.plan_info or {}).get("hash"),
+            plan_source=(self.plan_info or {}).get("source"),
+            plan_knobs=(self.plan_info or {}).get("knobs"), **fields)
+        if self.plan_info:
+            self.ledger.emit(
+                "plan", source=self.plan_info.get("source"),
+                plan_hash=self.plan_info.get("hash"),
+                knobs=self.plan_info.get("knobs"),
+                device_kind=self.plan_info.get("device_kind"))
         self._arm_crash_guard()
 
     def run_end(self, status: Optional[str] = None, **extra) -> None:

@@ -20,6 +20,9 @@ port updates them in place: no second copy of the optimizer state exists.
 The scalar row is built on the device each step (:func:`scalar_row`), so a
 step syncs nothing with the host. ``clip_scale`` comes from
 ``ops.pallas_sgd``, as the reference's ``pallas_adamw.py:41`` imports it.
+The row-tile knob is ``ops.pallas_sgd``'s one setting (``:46-54``):
+:func:`set_block_rows` here is its alias, and each launch's chunk is
+``8 x block_rows()`` elements (4096 at the default).
 """
 
 from __future__ import annotations
@@ -30,7 +33,18 @@ import numpy as np
 import torch
 
 from tpu_dist_torch import kernels
+from tpu_dist_torch.ops import pallas_sgd as _psgd
 from tpu_dist_torch.ops.pallas_sgd import clip_scale, run_multi
+
+
+def set_block_rows(rows=None) -> None:
+    """Alias of ``ops.pallas_sgd.set_block_rows`` (one shared setting)."""
+    _psgd.set_block_rows(rows)
+
+
+def block_rows() -> int:
+    """Alias of ``ops.pallas_sgd.block_rows``."""
+    return _psgd.block_rows()
 
 
 def scalar_row(lr: float, b1: float, b2: float, eps: float, wd: float,

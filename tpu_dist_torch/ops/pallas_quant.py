@@ -23,35 +23,99 @@ with the row and column maxima max-reduced over the group between them;
 tensors), so each rank's partial product differs from the reference's one
 int32 dot only in the order the partials are summed.
 
-The reference's dispatch switches (``set_fused_quant``,
-``TPU_DIST_FUSED_QUANT``) and tile knobs (``set_quant_blocks``,
-``TPU_DIST_QUANT_BLOCKS``) choose between the Pallas kernel and XLA or
-size Pallas tiles; they have no counterpart here: a CUDA
-``quant="int8"`` always runs the kernel.
+The tile knob (``:53-100``): :func:`set_quant_blocks` (seeded by
+``TPU_DIST_QUANT_BLOCKS="bm,bn,bk"``; the plan's ``quant_block``) sets the
+GEMM path's tile (M > 16): a (bm, bn) output tile a CTA, and with bk > 0
+K split over ceil(K / bk) CTAs whose int32 partial sums are added exactly
+before the one dequant, so every tile is bit-equal to the default
+(128, 128, 0), the kernel's tile before the knob. The kernel instantiates
+the (bm, bn) tiles of :data:`INSTANTIATED_TILES`; a tile the plan IR
+allows but the kernel lacks raises ``NotImplementedError`` naming
+``quant_block`` at each CUDA call, decode-sized ones included. The split-K
+decode kernel (M <= 16) keeps its own tiling whatever the knob. The
+dispatch switch (``set_fused_quant``, ``TPU_DIST_FUSED_QUANT``) lives in
+``ops.quant``: set off, ``quant_matmul(..., "int8")`` does not come here.
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
+from typing import Optional, Tuple
 
 import torch
 
 from tpu_dist_torch import kernels
 from tpu_dist_torch.ops.quant import quantize_by_amax, quantize_int8
 
-# tdt_fused_quant(x, w, out, ws, M, K, N, dtype, stream) and
-# tdt_fused_quant_workspace(M, K, N, &bytes)
-_FUSED_QUANT_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 \
+# tdt_fused_quant(x, w, out, ws, M, K, N, dtype, bm, bn, bk, stream) and
+# tdt_fused_quant_workspace(M, K, N, bk, &bytes)
+_FUSED_QUANT_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 \
     + [ctypes.c_void_p]
-_WORKSPACE_ARGS = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_longlong)]
+_WORKSPACE_ARGS = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_longlong)]
 # tdt_fused_quant_amax(x, w, x_amax, w_amax, M, K, N, dtype, stream) and
-# tdt_fused_quant_scaled(x, w, x_amax, w_amax, out, ws, M, K, N, dtype,
-# stream)
+# tdt_fused_quant_scaled(x, w, x_amax, w_amax, out, ws, M, K, N, dtype, bm,
+# bn, bk, stream)
 _AMAX_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-_SCALED_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 \
+_SCALED_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 \
     + [ctypes.c_void_p]
+# tdt_fused_quant_tiles(tiles, cap)
+_TILES_ARGS = [ctypes.POINTER(ctypes.c_int), ctypes.c_int]
 # int32 sums stay exact while K * 127^2 < 2^31
 MAX_K = (2 ** 31 - 1) // 127 ** 2
+
+BLOCK_M = 128        # the default output tile (the plan's DEFAULT_QUANT_BLOCK)
+BLOCK_N = 128
+# the (bm, bn) GEMM tiles csrc/fused_quant.cu instantiates (its
+# TDT_FQ_TILES); the tuner's space lies inside them
+INSTANTIATED_TILES = ((128, 128), (256, 128), (128, 256), (64, 256))
+
+_BLOCKS: Tuple[int, int, int] = (BLOCK_M, BLOCK_N, 0)
+
+
+def set_quant_blocks(bm: Optional[int] = None, bn: Optional[int] = None,
+                     bk: Optional[int] = None) -> None:
+    """Set the GEMM path's tile ((None, None, None) restores 128 x 128
+    over the whole of K). Legality is the plan IR's one rule
+    (``plan.ir.validate_quant_block``); whether the kernel instantiates
+    the tile is checked at launch."""
+    from tpu_dist_torch.plan.ir import validate_quant_block
+
+    global _BLOCKS
+    bm = BLOCK_M if bm is None else int(bm)
+    bn = BLOCK_N if bn is None else int(bn)
+    bk = 0 if bk is None else int(bk)
+    validate_quant_block(bm, bn, bk)
+    _BLOCKS = (bm, bn, bk)
+
+
+def quant_blocks() -> Tuple[int, int, int]:
+    """The (bm, bn, bk) tile the next launch uses."""
+    return _BLOCKS
+
+
+def _seed_blocks_from_env() -> None:
+    # through the validated setter, so a malformed value fails at import
+    spec = os.environ.get("TPU_DIST_QUANT_BLOCKS", "")
+    if not spec:
+        return
+    parts = spec.split(",")
+    if len(parts) != 3:
+        raise ValueError(f"TPU_DIST_QUANT_BLOCKS={spec!r}: expected "
+                         "'bm,bn,bk' (bk 0 = whole contracting dim)")
+    set_quant_blocks(*(int(v) for v in parts))
+
+
+_seed_blocks_from_env()
+
+
+def _check_tile(tile: Tuple[int, int, int]) -> None:
+    """Refuse a tile the kernel does not instantiate, naming the knob."""
+    if tuple(tile[:2]) not in INSTANTIATED_TILES:
+        raise NotImplementedError(
+            f"quant_block={tuple(tile)!r}: csrc/fused_quant.cu instantiates "
+            f"the (bm, bn) tiles {list(INSTANTIATED_TILES)} (bk 0 or a "
+            "multiple of 128 with any of them)")
 
 
 def fused_quant_matmul_plain(x2, w):
@@ -103,27 +167,43 @@ def _check_fused_quant(x2, w):
         raise ValueError("fused_quant kernel: x and w must be contiguous")
 
 
-def _launch(fn, ws_fn, x2, w, stream, amax=None):
+def _launch(fn, ws_fn, x2, w, stream, amax=None, tile=None):
     """Call the C entry ``fn`` (``tdt_fused_quant``, or with ``amax`` =
-    (x maxima, w maxima) ``tdt_fused_quant_scaled``) on checked tensors:
-    allocate the output and the workspace ``ws_fn``
+    (x maxima, w maxima) ``tdt_fused_quant_scaled``) on checked tensors at
+    ``tile`` (default: :func:`quant_blocks`): refuse a tile the kernel
+    lacks, allocate the output and the workspace ``ws_fn``
     (``tdt_fused_quant_workspace``) asks for, launch on ``stream``, raise
     on a launch error."""
+    bm, bn, bk = quant_blocks() if tile is None else tile
+    _check_tile((bm, bn, bk))
     m, k = x2.shape
     n = w.shape[1]
     size = ctypes.c_longlong()
-    if ws_fn(m, k, n, ctypes.byref(size)) != 0:
+    if ws_fn(m, k, n, bk, ctypes.byref(size)) != 0:
         raise RuntimeError(f"fused_quant kernel: no workspace size for "
-                           f"({m}, {k}) x ({k}, {n})")
+                           f"({m}, {k}) x ({k}, {n}) at bk={bk}")
     ws = torch.empty(size.value, dtype=torch.uint8, device=x2.device)
     out = torch.empty((m, n), dtype=x2.dtype, device=x2.device)
     scales = () if amax is None else tuple(a.data_ptr() for a in amax)
     err = fn(x2.data_ptr(), w.data_ptr(), *scales, out.data_ptr(),
-             ws.data_ptr(), m, k, n, kernels.DTYPE_CODE[x2.dtype], stream)
+             ws.data_ptr(), m, k, n, kernels.DTYPE_CODE[x2.dtype], bm, bn,
+             bk, stream)
+    if err == -2:
+        raise NotImplementedError(
+            f"quant_block={(bm, bn, bk)!r}: csrc/fused_quant.cu lacks this "
+            "tile")
     if err != 0:
         raise RuntimeError(f"fused_quant kernel launch failed "
                            f"(cudaError {err})")
     return out
+
+
+def kernel_tiles(fn) -> Tuple[Tuple[int, int], ...]:
+    """The (bm, bn) tiles a build of ``csrc/fused_quant.cu`` instantiates,
+    read through its ``tdt_fused_quant_tiles`` entry ``fn``."""
+    buf = (ctypes.c_int * 64)()
+    n = fn(buf, 32)
+    return tuple((buf[2 * i], buf[2 * i + 1]) for i in range(min(n, 32)))
 
 
 def _launch_amax(fn, x2, w, stream):

@@ -20,21 +20,56 @@ p and m to a functional call, the port updates them in place. The scalar
 row is built on the device each step (:func:`scalar_row`), so a step syncs
 nothing with the host. :func:`clip_scale` lives here, beside its reference
 (``:76``); ``ops.pallas_adamw`` imports it, as the reference's does.
+
+The row-tile knob (``:40-70``), shared with ``ops.pallas_adamw``:
+:func:`set_block_rows` (seeded by ``TPU_DIST_OPT_BLOCK_ROWS``; the plan's
+``opt_block_rows``) sets the chunk one CTA of ``csrc/sgd.cu`` and
+``csrc/adamw.cu`` updates to ``8 x rows`` elements: the default 512 rows
+give the kernels' 4096-element chunk, 1024 give 8192, and every legal
+value (a multiple of 8 rows) keeps the 16-byte vectors aligned. The update
+is elementwise, so every value gives the same bits.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, List, NamedTuple, Sequence
+import os
+from typing import Callable, List, NamedTuple, Optional, Sequence
 
 import torch
 
 from tpu_dist_torch import kernels
 
 # the multi-leaf C entries of csrc/sgd.cu and csrc/adamw.cu:
-# tdt_<name>_multi(table, n_leaves, scalars, p_dtype, stream)
+# tdt_<name>_multi(table, n_leaves, scalars, p_dtype, chunk, stream)
 MULTI_ARGS = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-              ctypes.c_void_p]
+              ctypes.c_int, ctypes.c_void_p]
+
+BLOCK_ROWS = 512     # the default rows (the plan's DEFAULT_OPT_BLOCK_ROWS)
+ROW = 8              # elements a row: a CTA's chunk is ROW x rows
+_BLOCK_ROWS = BLOCK_ROWS
+
+
+def set_block_rows(rows: Optional[int] = None) -> None:
+    """Set the optimizer kernels' rows a CTA (None restores 512), shared
+    by ``ops.pallas_adamw``; legality is the plan IR's one rule
+    (``plan.ir.validate_opt_block_rows``)."""
+    from tpu_dist_torch.plan.ir import validate_opt_block_rows
+
+    global _BLOCK_ROWS
+    rows = BLOCK_ROWS if rows is None else int(rows)
+    validate_opt_block_rows(rows)
+    _BLOCK_ROWS = rows
+
+
+def block_rows() -> int:
+    """The rows a CTA the next launch uses."""
+    return _BLOCK_ROWS
+
+
+if os.environ.get("TPU_DIST_OPT_BLOCK_ROWS"):
+    # through the validated setter: a bad value fails at import
+    set_block_rows(int(os.environ["TPU_DIST_OPT_BLOCK_ROWS"]))
 
 
 def clip_scale(grads: Sequence[torch.Tensor], clip_norm: float,
@@ -107,8 +142,10 @@ def launch_groups(fn, name, lists, scalars, stream) -> int:
     each. The leaves are grouped by p dtype, and each group with any
     element goes in one call as a host table of {pointers..., n} rows
     (int64; the C side splits it into launches of at most its capacity,
-    512 leaves on CUDA >= 12.1, and skips empty leaves). Raise on a launch
-    error; returns the number of calls made."""
+    512 leaves on CUDA >= 12.1, and skips empty leaves), at a chunk of
+    ``ROW x block_rows()`` elements a CTA. Raise on a launch error;
+    returns the number of calls made."""
+    chunk = ROW * block_rows()
     groups = {}
     for leaf in zip(*lists):
         groups.setdefault(leaf[0].dtype, []).append(leaf)
@@ -119,7 +156,7 @@ def launch_groups(fn, name, lists, scalars, stream) -> int:
         table = torch.tensor([[t.data_ptr() for t in leaf] + [leaf[0].numel()]
                               for leaf in leaves], dtype=torch.int64)
         err = fn(table.data_ptr(), len(leaves), scalars.data_ptr(),
-                 kernels.DTYPE_CODE[leaves[0][0].dtype], stream)
+                 kernels.DTYPE_CODE[leaves[0][0].dtype], chunk, stream)
         if err != 0:
             raise RuntimeError(f"{name} kernel launch failed (cudaError "
                                f"{err})")

@@ -14,7 +14,10 @@ Modes of the ``quant`` knob:
 * ``int8``    -- dynamic activation+weight int8 through
   ``ops.pallas_quant.fused_quant_matmul``: the Hopper kernel
   ``csrc/fused_quant.cu`` for CUDA tensors, its plain version for CPU
-  tensors, with a straight-through backward.
+  tensors, with a straight-through backward. The dispatch switch
+  (:func:`set_fused_quant`, seeded by ``TPU_DIST_FUSED_QUANT``; the plan's
+  ``fused_quant``) routes it instead through :func:`quant_einsum`, the
+  reference's unfused path, when set off (``:50-72, 167-175``).
 
 Dense kernels keep flax's ``(in, out)`` layout (``y = x @ kernel``), so a
 flax param tree loads without transposes and per-channel scales keep the
@@ -24,6 +27,8 @@ reference's ``(1, out)`` shape.
 from __future__ import annotations
 
 import math
+import os
+from typing import Optional
 
 import torch
 from torch import nn
@@ -32,6 +37,29 @@ QUANT_MODES = ("none", "int8", "int8_wo")
 
 _INT8_MAX = 127.0
 _EPS = 1e-8  # floor for all-zero channels: keeps scale finite, q = 0
+
+# ---- the fused-kernel dispatch switch (``:50-72``) --------------------------
+# None = auto, True = on: ``quant_matmul(..., "int8")`` runs
+# ``ops.pallas_quant.fused_quant_matmul`` (the kernel for CUDA tensors);
+# False = off: the unfused quant_einsum. TPU_DIST_FUSED_QUANT=1/0 seeds it.
+_FUSED_QUANT: Optional[bool] = (
+    None if os.environ.get("TPU_DIST_FUSED_QUANT", "") == ""
+    else os.environ["TPU_DIST_FUSED_QUANT"] not in ("0", "false", ""))
+
+
+def set_fused_quant(enabled: Optional[bool]) -> None:
+    """Force the fused int8 kernel on (True) or off (False); None restores
+    auto, which is on. Set before the step runs (``plan.compile
+    .activate_plan`` does)."""
+    global _FUSED_QUANT
+    _FUSED_QUANT = enabled
+
+
+def fused_quant_active() -> bool:
+    """Whether ``quant_matmul(mode="int8")`` routes through
+    ``fused_quant_matmul`` now: auto and on do, off does not (the trainers
+    stamp it into step records as the ``fused`` flag)."""
+    return _FUSED_QUANT is not False
 
 
 def validate_quant(mode: str) -> str:
@@ -90,10 +118,19 @@ def wo_fake_quant(w: torch.Tensor, reduce_dims=(0,)) -> torch.Tensor:
     return w + (wq - w).detach()
 
 
+def _dense_spec(ndim: int) -> str:
+    """'abd,dZ->abZ'-style spec of an (..., D) x (D, F) dense matmul."""
+    batch = "abcegh"[:ndim - 1]
+    return f"{batch}d,dZ->{batch}Z"
+
+
 def quant_matmul(x: torch.Tensor, w: torch.Tensor, mode: str) -> torch.Tensor:
     """The mode dispatch of a (..., D) x (D, F) matmul; both operands are
     already in the compute dtype."""
     if mode == "int8":
+        if not fused_quant_active():
+            # both operands quantized, exact integer sums, STE backward
+            return quant_einsum(_dense_spec(x.dim()), x, w)
         # local import: ops.pallas_quant imports quantize_int8 from here
         from tpu_dist_torch.ops.pallas_quant import fused_quant_matmul
         return fused_quant_matmul(x, w)

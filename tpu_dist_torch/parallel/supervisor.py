@@ -10,9 +10,10 @@ comes before the relaunch). It keeps the reference's failure classes,
 ``scale`` events, so ``tools/ledger_report.py`` reads a port job as it
 reads a reference one. What differs: :func:`latest_checkpoint` reads the
 port's containers (the ``*-checkpoint.index.json`` pointer, then the
-newest ``*-checkpoint.pt``), and ``Supervisor(retune=...)``, which re-runs
-the reference's plan tuner, raises ``NotImplementedError`` until the plan
-lowering is ported.
+newest ``*-checkpoint.pt``), and ``Supervisor(retune=...)`` runs the
+port's plan tuner (``plan.tune``, which touches no device) and requires
+``device_kind`` in its config (the reference defaults it to a TPU's name;
+the supervisor never opens the card to read one).
 
 Rounds 2-7 built the *detect* half of self-healing — watchdog stalls,
 ``health record|skip|halt``, auto-triggered flight recorder, restart-aware
@@ -409,13 +410,15 @@ class Supervisor:
         self.on_attempt = on_attempt
         self._stop = threading.Event()
         # autoscaling (the reference's obs.autoscale): a retune config
-        # re-runs the plan tuner at every world-size transition, and the
-        # plan lowering is not ported yet (ROADMAP Queue 1 item 6)
-        if retune:
-            raise NotImplementedError(
-                "Supervisor(retune=...) is not ported yet: it re-runs the "
-                "plan tuner (plan.tune), which waits for the plan lowering "
-                "(ROADMAP Queue 1 item 6)")
+        # re-runs the plan tuner at every world-size transition
+        # (_maybe_retune); the device kind is the config's, since this
+        # process never opens the card
+        if retune and not retune.get("device_kind"):
+            raise ValueError(
+                "Supervisor(retune=...) needs retune['device_kind'] (the "
+                "card's name, as nvidia-smi gives it): the supervisor plans "
+                "for the children's device without opening it")
+        self.retune = dict(retune) if retune else None
         self.autoscale_decision: Optional[str] = None
 
     def request_stop(self) -> None:
@@ -489,17 +492,61 @@ class Supervisor:
             self._emit_scale("shrink", view.world_size, view.epoch,
                              hosts=list(view.hosts), world_from=world_from,
                              decision=dec)
+            self._maybe_retune(view, "shrink", dec)
         elif view.world_size > world_from:
             dec, self.autoscale_decision = self.autoscale_decision, None
             self._emit_scale("expand", view.world_size, view.epoch,
                              hosts=list(view.hosts), world_from=world_from,
                              decision=dec)
+            self._maybe_retune(view, "expand", dec)
             # the grown world: a returning host has no local checkpoint,
             # so dp-pure engines pull state from a survivor over the wire
             # (engine.checkpoint.peer_restore_state)
             self._peer_resume_next = True
         self._view = view
         return view
+
+    def _maybe_retune(self, view: MeshView, action: str,
+                      decision: Optional[str]) -> None:
+        """The decision's follow-up (``:489-530``): re-run the
+        deterministic plan tuner (``plan.tune``) at the new world size,
+        write its plan file as ``plan_epoch<N>.json`` under ``plan_dir``
+        and stamp the best plan's hash into an ``applied`` event beside
+        the scale event. A re-run of the tuner at the same world size
+        reproduces the hash."""
+        if not self.retune:
+            return
+        kind = self.retune["device_kind"]
+        devices = view.world_size * int(
+            self.retune.get("devices_per_host", 1))
+        plan_hash = None
+        try:
+            from tpu_dist_torch.plan.tune import tune
+            text, results = tune(
+                measurement_files=self.retune.get("measurement_files"),
+                device_kinds=[kind],
+                workload={**(self.retune.get("workload") or {}),
+                          "devices": devices})
+            best = (results.get(kind) or {}).get("best")
+            plan_hash = best["hash"] if best else None
+            plan_dir = self.retune.get("plan_dir")
+            if plan_dir:
+                os.makedirs(plan_dir, exist_ok=True)
+                with open(os.path.join(
+                        plan_dir, f"plan_epoch{view.epoch}.json"), "w") as f:
+                    f.write(text)
+        except Exception as e:
+            self._log(f"warning: retune at world {view.world_size} "
+                      f"failed ({e})")
+        self._ensure_scale_ledger()
+        if self._scale_ledger:
+            try:
+                self._scale_ledger.emit(
+                    "applied", decision=decision, action=action,
+                    processes=view.world_size, epoch=view.epoch,
+                    plan_hash=plan_hash, devices=devices)
+            except Exception as e:
+                self._log(f"warning: applied event dropped ({e})")
 
     # -- one attempt ----------------------------------------------------
     def _child_argv(self, resume: Optional[str]) -> List[str]:

@@ -1,0 +1,426 @@
+"""Plan lowering for the port (``tpu_dist/plan/compile.py``): a
+:class:`~tpu_dist_torch.plan.ir.Plan` to the trainers' step callables.
+
+The reference lowers a plan in four passes (validate, template, window,
+partition) to jitted XLA programs. The port's steps are eager, one process
+a device, so the partition pass is the bindings the trainer already built
+for its mode: an ``engine.lm_steps.ModelParallel`` (dp, fsdp, tp, tp-ring,
+sp-ring, ep) or a ``parallel.pp.Pipeline`` for the LM, an
+``engine.steps.DataParallel`` (the ``jit`` or ``shard_map`` sync) for
+images. :func:`compile_plan` validates the plan against the mesh, picks the
+engine's one step template (``engine.lm_steps.lm_train_step`` /
+``lm_eval_metrics``, ``engine.steps.image_train_step`` /
+``image_eval_metrics``; gradient accumulation is their ``accum``, i.e.
+``engine.steps.accumulate``) and wraps it in the plan's dispatch window:
+``indexed`` runs K steps back to back over device-resident rows gathered by
+an index window, ``stacked`` over K host-fed batches, with the metric sums
+added up on the device. It adds no second copy of step logic; both
+trainers take their steps from here.
+
+``donate`` stays in the IR for the hash: the port's steps update the train
+state in place, which is what buffer donation buys XLA, so a plan with
+``donate=False`` is refused by name when compiled.
+
+:func:`activate_plan` sets the plan's process-wide switches (the fused
+int8 dispatch, ``fused_quant.cu``'s tile, the optimizer kernels' rows) and
+:func:`resolve_config_plan` implements the configs' ``plan`` knob:
+``""``/``"none"``, a plan file from ``tools/tune.py`` (per device kind), or
+``"auto"``, the tuner's search over the candidates this config can run.
+
+The reference's program audit (``set_audit``, ``audit_program``, the
+``audit`` knob) audits JAX programs (``analysis/proglint.py``); the port
+runs none, so those stay refusals by name.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import sys
+from dataclasses import dataclass
+from typing import Any, Callable, Optional
+
+from tpu_dist_torch.plan.ir import (Plan, PlanError, apply_plan_to_config,
+                                    plan_hash, plan_knob_summary)
+
+AUDIT_REFUSAL = ("audits JAX programs (the reference's analysis/proglint.py "
+                 "over its jitted steps) and has no counterpart in the "
+                 "port, whose steps are eager")
+
+
+@dataclass
+class Bindings:
+    """What a plan lowers against: the run's own objects. ``model`` must
+    already embody the plan's quant and layout (the trainers build it from
+    the config the plan was applied to)."""
+
+    mesh: Any = None               # parallel.mesh.Mesh (None: one process)
+    model: Any = None
+    tx: Any = None                 # optimizer (fused apply() or optax-like)
+    par: Any = None                # lm: engine.lm_steps.ModelParallel
+    pipe: Any = None               # lm pp: parallel.pp.Pipeline
+    dp: Any = None                 # engine.steps.DataParallel
+    transform: Optional[Callable] = None        # image train transform
+    eval_transform: Optional[Callable] = None   # image eval transform
+    gen: Optional[Callable] = None  # image: global step -> torch.Generator
+
+
+class CompiledPlan:
+    """The lowered callables of one (plan, bindings), built on first use:
+    ``step`` is the one-step template the window runs, ``train_step`` the
+    plan's dispatch (``step`` itself without a window), ``eval_step`` the
+    forward-only metric sums.
+
+    LM: ``step(state, inputs, targets)``; ``train_step(state, rows_all,
+    idx_window)`` under ``window="indexed"``; ``eval_step(state, inputs,
+    targets, valid)``. Image: ``step(state, images, labels, gstep)``;
+    ``train_step(state, images_k, labels_k, gstep)`` under ``stacked``,
+    ``(state, images_all, labels_all, idx_window, gstep)`` under
+    ``indexed``; ``eval_step(images, labels, valid)``. Each returns the
+    metric sums (train: summed over the window)."""
+
+    def __init__(self, plan: Plan, binds: Bindings):
+        _pass_validate(plan, binds)
+        self.plan = plan
+        self.binds = binds
+        self._step = self._train = self._eval = None
+
+    @property
+    def step(self) -> Callable:
+        if self._step is None:
+            self._step = (_image_step if self.plan.engine == "image"
+                          else _lm_step)(self.plan, self.binds)
+        return self._step
+
+    @property
+    def train_step(self) -> Callable:
+        if self._train is None:
+            self._train = _window(self.plan, self.step)
+        return self._train
+
+    @property
+    def eval_step(self) -> Callable:
+        if self._eval is None:
+            self._eval = (_image_eval if self.plan.engine == "image"
+                          else _lm_eval)(self.plan, self.binds)
+        return self._eval
+
+
+def compile_plan(plan: Plan, binds: Bindings) -> CompiledPlan:
+    """Validate ``plan`` against ``binds`` and return its lazy callables."""
+    return CompiledPlan(plan, binds)
+
+
+# ---- pass 1: validate -----------------------------------------------------
+
+def _pass_validate(plan: Plan, binds: Bindings) -> None:
+    plan.validate()
+    # a mesh axis the port's mesh lacks has size 1 (parallel.mesh)
+    shape = {plan.data_axis: 1, **(dict(binds.mesh.shape)
+                                   if binds.mesh is not None else {})}
+    plan.validate_against_mesh(shape)
+    if not plan.donate:
+        raise NotImplementedError(
+            "Plan.donate=False is not ported: the port's steps update the "
+            "train state in place (what buffer donation buys XLA), and there "
+            "is no copying step to run instead")
+    if plan.engine == "image" and binds.model is not None \
+            and binds.transform is None and binds.tx is not None:
+        raise PlanError("the image templates need a transform binding")
+
+
+# ---- pass 2: the one step template per engine -----------------------------
+
+def _lm_step(plan: Plan, b: Bindings) -> Callable:
+    """One LM optimizer step: ``lm_train_step`` under the mode's
+    ``ModelParallel`` (``grad_accum_steps`` microbatches), or the
+    pipeline's step."""
+    from tpu_dist_torch.engine.lm_steps import lm_train_step
+
+    health, chunk, accum = (plan.health, plan.loss_chunk,
+                            plan.grad_accum_steps)
+    if b.pipe is not None:
+        def pipe_step(state, inputs, targets):
+            return b.pipe.train_step(state, inputs, targets, b.tx, health)
+        return pipe_step
+    par = _lm_par(plan, b)
+
+    def step(state, inputs, targets):
+        return lm_train_step(b.model, b.tx, state, inputs, targets, health,
+                             chunk, accum, par.dp, par)
+    return step
+
+
+def _lm_par(plan: Plan, b: Bindings):
+    """The binding's ``ModelParallel``, or the data-parallel one over its
+    ``dp`` with the plan's ``aux_weight``."""
+    from tpu_dist_torch.engine.lm_steps import ModelParallel
+    from tpu_dist_torch.engine.steps import ONE_PROCESS
+
+    if b.par is not None:
+        return b.par
+    return ModelParallel(dp=b.dp or ONE_PROCESS, aux_weight=plan.aux_weight)
+
+
+def _image_step(plan: Plan, b: Bindings) -> Callable:
+    """One image optimizer step: ``image_train_step`` with the step's
+    augmentation generator, ``grad_accum_steps`` microbatches and the
+    ``DataParallel`` sync."""
+    from tpu_dist_torch.engine.steps import ONE_PROCESS, image_train_step
+
+    health, accum = plan.health, plan.grad_accum_steps
+    dp = b.dp or ONE_PROCESS
+
+    def step(state, images, labels, gstep):
+        gen = b.gen(gstep) if b.gen is not None else None
+        return image_train_step(b.model, b.tx, state, images, labels,
+                                b.transform, health, gen, accum, dp)
+    return step
+
+
+# ---- pass 3: the dispatch window ------------------------------------------
+
+def _add(sums, m):
+    return m if sums is None else {k: sums[k] + m[k] for k in m}
+
+
+def _window(plan: Plan, step: Callable) -> Callable:
+    """``step`` itself (``window="none"``), or K steps back to back with no
+    host sync, their metric sums added on the device: ``indexed`` gathers
+    each step's rows from the resident data by its row of the index
+    window (the LM shifts (B, L+1) token rows into inputs and targets),
+    ``stacked`` takes each from K host-fed batches."""
+    if plan.window == "none":
+        return step
+    if plan.engine == "lm":
+        from tpu_dist_torch.engine.lm_steps import shift_rows
+
+        def lm_window(state, rows_all, idx_window):
+            sums = None
+            for j in range(len(idx_window)):
+                inputs, targets = shift_rows(
+                    rows_all.index_select(0, idx_window[j]))
+                sums = _add(sums, step(state, inputs, targets))
+            return sums
+        return lm_window
+    if plan.window == "stacked":
+        def stacked(state, images_k, labels_k, gstep):
+            sums = None
+            for j in range(len(images_k)):
+                sums = _add(sums, step(state, images_k[j], labels_k[j],
+                                       gstep + j))
+            return sums
+        return stacked
+
+    def indexed(state, images_all, labels_all, idx_window, gstep):
+        sums = None
+        for j in range(len(idx_window)):
+            sums = _add(sums, step(
+                state, images_all.index_select(0, idx_window[j]),
+                labels_all.index_select(0, idx_window[j]), gstep + j))
+        return sums
+    return indexed
+
+
+# ---- eval -----------------------------------------------------------------
+
+def _lm_eval(plan: Plan, b: Bindings) -> Callable:
+    from tpu_dist_torch.engine.lm_steps import lm_eval_metrics
+
+    chunk = plan.loss_chunk
+    if b.pipe is not None:
+        def pipe_eval(state, inputs, targets, valid):
+            return b.pipe.eval_metrics(inputs, targets, valid)
+        return pipe_eval
+
+    par = _lm_par(plan, b)
+
+    def eval_step(state, inputs, targets, valid):
+        return lm_eval_metrics(b.model, inputs, targets, valid, chunk, par,
+                               state)
+    return eval_step
+
+
+def _image_eval(plan: Plan, b: Bindings) -> Callable:
+    from tpu_dist_torch.engine.steps import image_eval_metrics
+
+    transform = b.eval_transform or b.transform
+
+    def eval_step(images, labels, valid):
+        return image_eval_metrics(b.model, transform, images, labels, valid)
+    return eval_step
+
+
+# ---- the audit knob: refused by name --------------------------------------
+
+def set_audit(mode: str, ledger=None) -> None:
+    """The reference's program-audit switch: refused unless off."""
+    if (mode or "none") != "none":
+        raise NotImplementedError(f"audit={mode!r}: the program audit "
+                                  f"{AUDIT_REFUSAL}")
+
+
+def audit_program(program: str, fn, *args, **kwargs):
+    """The reference's compile-time audit of one program: refused."""
+    raise NotImplementedError(f"audit_program({program!r}): the program "
+                              f"audit {AUDIT_REFUSAL}")
+
+
+# ---- plan activation and the config knob ----------------------------------
+
+def activate_plan(plan: Plan) -> None:
+    """Set the plan's process-wide switches: the fused int8 dispatch
+    (``ops.quant.set_fused_quant``), ``fused_quant.cu``'s GEMM tile
+    (``ops.pallas_quant.set_quant_blocks``) and the optimizer kernels' rows
+    a CTA (``ops.pallas_sgd.set_block_rows``, shared with
+    ``ops.pallas_adamw``). Call before the steps run."""
+    from tpu_dist_torch.ops import pallas_quant, pallas_sgd
+    from tpu_dist_torch.ops.quant import set_fused_quant
+
+    set_fused_quant({"auto": None, "on": True, "off": False}[
+        plan.fused_quant])
+    pallas_quant.set_quant_blocks(*plan.quant_block)
+    pallas_sgd.set_block_rows(plan.opt_block_rows)
+
+
+def current_switches() -> dict:
+    """The plan-owned switches as they stand: ``fused_quant``,
+    ``quant_block`` and ``opt_block_rows``, in the IR's terms."""
+    from tpu_dist_torch.ops import pallas_quant, pallas_sgd, quant
+
+    fq = {None: "auto", True: "on", False: "off"}[quant._FUSED_QUANT]
+    return {"fused_quant": fq, "quant_block": pallas_quant.quant_blocks(),
+            "opt_block_rows": pallas_sgd.block_rows()}
+
+
+def _devices() -> int:
+    """The ``torch.distributed`` world size, or 1 without a group."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return 1
+
+
+def _auto_workload(cfg, engine: str) -> dict:
+    """A tuner workload from a config (``:774-788``): crude param counts
+    are fine, the search ranks knobs."""
+    if engine == "lm":
+        n = (cfg.vocab_size * cfg.d_model
+             + cfg.num_layers * 12 * cfg.d_model * cfg.d_model)
+        toks = cfg.batch_size * cfg.seq_len
+    else:
+        n = 25_000_000                       # resnet50-scale placeholder
+        toks = cfg.batch_size
+    return {"engine": engine, "n_params": float(n),
+            "tokens_per_step": float(toks), "devices": _devices()}
+
+
+def _auto_filter(cfg, engine: str):
+    """Prune ``auto`` candidates to what this config can run
+    (``:790-821``): a plan file is applied as it is and may fail loudly;
+    ``auto`` must never break a working config."""
+    mesh_shape = getattr(cfg, "mesh_shape", None) or ()
+    mesh_axes = tuple(getattr(cfg, "mesh_axes", ("data",)))
+    multi = {a for a, s in zip(mesh_axes, mesh_shape) if a != "data"
+             and (s is None or s > 1)}
+    pure_dp = not multi and not getattr(cfg, "fsdp", False)
+    accum = getattr(cfg, "grad_accum_steps", 1) > 1
+    host_data = getattr(cfg, "data_placement", "auto") == "host"
+    quant_ok = (engine == "lm"
+                or getattr(cfg, "arch", "").startswith("vit"))
+
+    def keep(plan: Plan) -> bool:
+        if plan.quant != "none" and not quant_ok:
+            return False
+        if plan.grad_bucket_mb > 0 and not (pure_dp and not accum):
+            return False
+        if plan.sync == "explicit" and not pure_dp:
+            return False
+        if plan.window != "none" and (host_data or accum):
+            return False
+        if plan.window != "none" and engine == "image" \
+                and getattr(cfg, "dataset", "") == "imagenet":
+            # an ImageFolder set is not resident: the indexed window
+            # would refuse at Trainer init
+            return False
+        return True
+
+    return keep
+
+
+def device_kind(device=None) -> str:
+    """The device-kind string plans are selected by: the card's name
+    (``torch.cuda.get_device_name``) for a CUDA trainer, ``"cpu"``
+    otherwise."""
+    from tpu_dist_torch.device import resolve_device
+
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        import torch
+
+        return torch.cuda.get_device_name(dev)
+    return "cpu"
+
+
+def resolve_config_plan(cfg, device=None):
+    """The configs' ``plan`` knob (``:823-889``): ``""``/``"none"`` is a
+    no-op; a path loads a plan file and picks the entry for this device
+    kind; ``"auto"`` runs the tuner's analytic search for this device kind
+    over the candidates the config can run, carrying the knobs the search
+    does not explore from the config. Returns ``(new_cfg, plan_info or
+    None)``, ``plan_info`` the {'source', 'hash', 'knobs', 'plan',
+    'device_kind'} record the trainers stamp into ``run_start`` and the
+    ``plan`` event; applies the plan's switches (:func:`activate_plan`)."""
+    spec = getattr(cfg, "plan", "") or ""
+    if spec in ("", "none"):
+        return cfg, None
+    from tpu_dist_torch.plan import ir
+
+    engine = "image" if any(f.name == "variant"
+                            for f in dataclasses.fields(type(cfg))) \
+        else "lm"
+    kind = device_kind(device)
+    if spec == "auto":
+        from tpu_dist_torch.plan import tune as tune_mod
+
+        keep = _auto_filter(cfg, engine)
+        # knobs the auto space does not search stay the config's
+        carried = {k: getattr(cfg, k) for k in
+                   ("precision", "grad_accum_steps", "health", "tp_impl")
+                   if hasattr(cfg, k)}
+        if engine == "lm":
+            carried["loss_chunk"] = getattr(cfg, "loss_chunk", 0)
+        space = []
+        for p in tune_mod.default_space(engine, _devices()):
+            try:
+                p = dataclasses.replace(p, **carried).validate()
+            except PlanError:
+                continue   # the carried knobs make this candidate illegal
+            if keep(p):
+                space.append(p)
+        if not space:
+            # abstaining is loud: the tuner found nothing legal for this
+            # config, which is not the same as never running
+            print("plan=auto: no legal candidate plans for this config "
+                  "(its knobs fall outside the searched space); running "
+                  "with the hand-set knobs", file=sys.stderr)
+            return cfg, None
+        result = tune_mod.search(workload=_auto_workload(cfg, engine),
+                                 device_kind=kind, space=space)
+        if result["best"] is None:
+            return cfg, None
+        plan = result["best"]["plan"]
+        source = "auto"
+    else:
+        plans = ir.load_plan_file(spec)
+        plan = ir.plan_for_device(plans, kind)
+        source = spec
+    if plan.engine != engine:
+        raise PlanError(f"plan engine {plan.engine!r} does not drive the "
+                        f"{engine} engine (plan source: {source})")
+    new_cfg = apply_plan_to_config(cfg, plan)
+    activate_plan(plan)
+    info = {"source": source, "hash": plan_hash(plan),
+            "knobs": plan_knob_summary(plan), "plan": plan,
+            "device_kind": kind}
+    return new_cfg, info

@@ -29,7 +29,8 @@ these and from intrinsics supplied here (``__shfl_xor_sync``,
 ``__uint_as_float``), so they run as written.
 
 The emulated device reports one SM, so launch plans sized to the card
-(``fused_quant.cu``'s K splits) reach every plan at small shapes.
+(``fused_quant.cu``'s K splits) reach every plan at small shapes; blocks
+run one after another over the grid's x, y and z.
 
 What it proves: the kernel's indexing, masking, online softmax,
 reductions and fragment repacks, against the plain versions, at small
@@ -253,6 +254,8 @@ inline int __dp4a(int a, int b, int c) {  // four signed int8 products
   return c;
 }
 struct char4 { int8_t x, y, z, w; };
+struct alignas(8) int2 { int x, y; };
+inline int2 make_int2(int x, int y) { return {x, y}; }
 struct char2 { int8_t x, y; };
 inline void emu_launch(dim3 grid, dim3 block, size_t smem,
                        std::function<void()> fn) {
@@ -260,9 +263,10 @@ inline void emu_launch(dim3 grid, dim3 block, size_t smem,
   const int nt = block.x;
   blockDim = block;
   gridDim = grid;
+  for (unsigned bz = 0; bz < grid.z; ++bz)
   for (unsigned by = 0; by < grid.y; ++by)
     for (unsigned bx = 0; bx < grid.x; ++bx) {
-      blockIdx = dim3(bx, by, 1);
+      blockIdx = dim3(bx, by, bz);
       std::barrier<> bb(nt);
       g_block_bar = &bb;
       std::vector<std::barrier<>*> wb;
