@@ -6,7 +6,10 @@
 Run from the repository root on a machine with an NVIDIA Hopper GPU (the
 kernels are built for sm_90a with the CUDA toolkit's nvcc). Every phase
 raises on failure; the script prints no result and exits non-zero without
-CUDA or without the repository beside it. Phases:
+CUDA or without the repository beside it. Where a phase starts
+independent rank groups, supervised runs, benches or fleets (phases 10,
+12-15 and 18), they run side by side, so the step times, rates and walls
+they print share the card and the host. Phases:
 
 1. device: name and power limit (nvidia-smi), TF32 off for matmul/cuDNN;
 2. build every CUDA kernel of the port from ``tpu_dist_torch/csrc``, all
@@ -86,7 +89,8 @@ CUDA or without the repository beside it. Phases:
    started from phase 7's ``model_best`` validates within one image of
    phase 7's acc@1, and a 100-class model grafts every leaf but the
    classifier's two; (e) the decode bench's one-shot mode at the
-   reference's defaults with the flash kernel in the full recompute.
+   reference's defaults (96 of its 384 steps: P9E_STEPS) with the flash
+   kernel in the full recompute.
 10. multi-process data parallelism, each rank a subprocess of this script
    (``--dp-worker SPEC``) joining through ``parallel.launch.initialize``:
    (a) one rank over nccl: phase 7's run under ``variant="jit"`` (window
@@ -141,7 +145,8 @@ CUDA or without the repository beside it. Phases:
    on one rank over nccl and ``data=1,expert=2`` on two gloo ranks (step 0
    within BF16_TOL), the router aux and the dropped share, ``quant="int8"``
    with every expert matmul through ``fused_quant``, and the decode
-   bench's one-shot ``--num-experts 4``; (c) tiny fp32 trainers in each
+   bench's one-shot ``--num-experts 4`` (P9E_STEPS); (c) tiny fp32
+   trainers in each
    mode, ep-moe included, on two card ranks against two CPU gloo ranks,
    and ``ep-moe+tp`` on 2 x 2 (four card ranks against four CPU ranks),
    losses within LOSS_TOL (1 + |loss|); (d) the reference's tiny msgpack
@@ -154,7 +159,7 @@ CUDA or without the repository beside it. Phases:
 13. pipeline parallelism, sharded decode and ViT ring, ranks as in phase
    10 (gloo on the card; step 0 of each mode within BF16_TOL of a one-rank
    twin over nccl): (a) phase 6's LM on ``data=1,stage=2`` with 4
-   microbatches of 2 under ``gpipe`` and ``1f1b``, 3 steps: per rank and
+   microbatches of 2 under ``gpipe`` and ``1f1b``, 2 steps: per rank and
    train step 16 flash forwards (32 under 1F1B: the recompute), 16 dq, 16
    dkv and one ``adamw``, every tick's hop host-staged, and the peak per
    rank at M=4 and M=8 (batch 2M): 1F1B within 1.25x, GPipe rising; (b)
@@ -167,7 +172,8 @@ CUDA or without the repository beside it. Phases:
    kernel; (e) tiny fp32 runs of every new mode, card ranks against CPU
    ranks, within LOSS_TOL (int8: INT8_LOSS_TOL) (1 + |loss|); (f) the
    decode bench's one-shot mode with ``--tp 2`` and ``--dp 2`` at phase
-   5's model (64 tokens, one trial), and tiny fp32 greedy tokens over
+   5's model (64 tokens, one trial; the two side by side), and tiny fp32
+   greedy tokens over
    tp=2 and dp=2 equal card vs CPU and to one device; (g) ViT-B/16 under
    ``tp_impl="ring"`` at batch 128 with and without int8; and the flash
    triple at a stage's microbatch and at 4 heads, ``adamw`` over a stage's
@@ -237,7 +243,7 @@ CUDA or without the repository beside it. Phases:
    ``ckpt_enospc@nth=2``: the second epoch's write fails inside the
    container write, the run raises, and the newest valid checkpoint is
    the first epoch's, which reloads on the card.
-16. the observers: (a) phase 6's LM for 12 steps (a drain a step) three
+16. the observers: (a) phase 6's LM for 8 steps (a drain a step) three
    times: with every observer on but the profiler (``metrics_port``,
    ``telemetry_csv``, ``skew_every=4``, the watchdog, the flight
    recorder's 3-step window, ``slo_steps_per_min`` above what the run
@@ -249,11 +255,11 @@ CUDA or without the repository beside it. Phases:
    the events tail with its window ``captured`` into a Chrome trace
    holding 24 ``flash_fwd``, 24 dq, 24 dkv and 3 ``adamw`` kernels (the
    window's 3 steps), one ``compile`` and one ``cost_model`` event with
-   ``matmul`` the largest flop bucket, 3 ``skew`` events, and a
+   ``matmul`` the largest flop bucket, 2 ``skew`` events, and a
    ``metrics_snapshot`` before ``run_end``; with the observers off; and
    under ``profile_dir`` (the other observers on, the recorder's window
    ``skipped``): the whole fit's Chrome trace holds every kernel launch
-   the run made (12 steps and validation's forwards) and 12
+   the run made (8 steps and validation's forwards) and 8
    ``ProfilerStep#`` marks. The hot steps' median ms of the three runs
    (the window's steps left out) is what the observers cost; (b)
    ``scripts.image_train`` at BENCH_GEOMETRY cut to 4 steps (P16_IMAGE)
@@ -296,6 +302,30 @@ CUDA or without the repository beside it. Phases:
    (P17_TINY_IMAGE), losses within LOSS_TOL (1 + |loss|) of one rank's dp
    run at the same batch and weights, and the two ranks' params
    bit-equal after the last step.
+18. the fleet, two ``python -m tpu_dist_torch.sim.runner`` processes side
+   by side, every worker (one supervised ``ServeEngine`` process a
+   virtual host) on the card: (a) ``scripts/fleet_ci.json`` (seed 7, 3
+   hosts, 200 ticks of 0.02 s, host 1 preempted at tick 56 and back at
+   120 through the consensus path, a 1.5x slow host 2, the burst at tick
+   80, both tenants, 2 slots, a queue of 64, a 0.15 s queue-wait floor)
+   with phase 5's widths in fp32 (P18_CI_MODEL) and int8 pages of 16 read
+   by the paged decode kernel (P18_CI_SERVE): the restart classes equal
+   the schedule's prediction (histogram P18_CI_HISTOGRAM), host 0 shrinks
+   to 2 processes and expands to 3, host 1 drains, the goodput sum-check
+   within 0.02 of 1, both tenants served, every SLO breach resolves to an
+   exemplar trace (``tpu_dist_torch.tools.request_report --json``), and
+   every worker attempt's ``run_end`` counts ``paged_decode`` at least
+   once per layer per decode tick; printed: the breaches, the fleet
+   goodput ratio, TTFT p50/p99 by tenant, ticks a second by host, the
+   restart gaps; (b) ``scripts/fleet_autoscale.json`` as checked in (the
+   tiny model): the first decision ``up`` (2 -> 3), after the first step
+   record of any host at the burst's window and within P18_UP_WINDOW
+   ticks after the burst on the fleet clock (the slowest live host's
+   tick), a ``down`` (3 -> 2) after it, every decision paired
+   with one ``scale`` event, each ``applied`` plan hash the port tuner's
+   best for the card's name at processes x worker_devices devices, with
+   its ``plans/plan_epoch<N>.json``, no shed request lost and a request
+   of the removed standby's completed on a survivor.
 
 The line before the last is the card's name and power limit; the one
 before it the ``{"kernels": [...]}`` record; the last line is
@@ -1846,16 +1876,20 @@ def image_knobs(torch, kernels, image, best):
     return accum, launches
 
 
+# 9e's and 12b's decode depth: the bench's 384 steps cut to a quarter
+P9E_STEPS = 96
+
+
 def decode_bench_one_shot(torch, kernels):
     """9e: the decode bench's one-shot mode at the reference's defaults
-    (batch 8, prompt 128, 384 steps) on the LM's width with the flash
-    kernel in the full recompute."""
+    (batch 8, prompt 128) cut from 384 steps to P9E_STEPS, on the LM's
+    width with the flash kernel in the full recompute."""
     import contextlib
     import io
 
     from tpu_dist_torch.tools import decode_bench
 
-    argv = ["--batch", "8", "--prompt-len", "128", "--steps", "384",
+    argv = ["--batch", "8", "--prompt-len", "128", "--steps", str(P9E_STEPS),
             "--num-layers", "8", "--d-model", "1024", "--vocab-size",
             "32000", "--num-heads", "8", "--precision", "bf16", "--attn",
             "flash", "--trials", "1", "--requests", "3"]
@@ -1868,9 +1902,9 @@ def decode_bench_one_shot(torch, kernels):
     wall = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
     line = json.loads(buf.getvalue().strip().splitlines()[-1])
-    # the full recompute runs 384 forwards per call (a warm call and one
-    # trial); the cached decode attends exactly over its cache
-    want = 2 * 384 * 8
+    # the full recompute runs P9E_STEPS forwards per call (a warm call and
+    # one trial); the cached decode attends exactly over its cache
+    want = 2 * P9E_STEPS * 8
     if launches["flash_fwd"] != want:
         raise AssertionError(f"9e: flash_fwd launched "
                              f"{launches['flash_fwd']} times, expected "
@@ -2043,6 +2077,19 @@ def dp_job(torch, kernels, job, out, rank):
     return res
 
 
+def wait_groups(groups, timeouts):
+    """Wait for :class:`DpGroup` s started together, in order, each with
+    its own time limit; a failure kills the ones not yet waited for."""
+    out = []
+    try:
+        for g, t in zip(groups, timeouts):
+            out.append(g.wait(t))
+    finally:
+        for g in groups[len(out):]:
+            g.kill()
+    return out
+
+
 def dp_worker(spec_path):
     """A phase-10 rank: join the group through ``launch.initialize``, run
     the spec's jobs in order, write ``rank<r>.json``."""
@@ -2194,8 +2241,8 @@ def dp_path(torch, kernels, training, image, tmp):
                                   synth_train_size=8 * 1024,
                                   synth_val_size=2048, print_freq=4)},
         tiny("tiny_jit_world1", "image")], tmp)
-    res_a = a.wait(300)[0]
-    # (b) 2 ranks on the card over gloo, and (c) their CPU twins
+    # (b) 2 ranks on the card over gloo, and (c) their CPU twins, beside
+    # (a) (their img/s and tokens/s share the card)
     b = DpGroup("b", 2, "cuda", "gloo", [
         {"name": "probe", "kind": "probe"},
         {"name": "image", "kind": "image",
@@ -2210,10 +2257,8 @@ def dp_path(torch, kernels, training, image, tmp):
              mesh_shape=[2], mesh_axes=["data"])},
         *tiny_2rank], tmp)
     c = DpGroup("c", 2, "cpu", "gloo", [dict(j) for j in tiny_2rank], tmp)
-    try:
-        res_b = b.wait(300)
-    finally:
-        res_c = c.wait(120)
+    res_a, res_b, res_c = wait_groups([a, b, c], (300, 300, 120))
+    res_a = res_a[0]
     wall = time.perf_counter() - t0
 
     # (a) checks
@@ -2890,14 +2935,15 @@ def warm_start_fixture(torch):
 
 def moe_decode_bench(torch, kernels):
     """12b: the decode bench's one-shot mode with ``--num-experts 4`` at
-    its geometry (8L/d1024/V32k, batch 8, prompt 128, 384 steps;
-    BASELINE.md:644-651), one trial."""
+    its geometry (8L/d1024/V32k, batch 8, prompt 128; BASELINE.md:644-651)
+    cut from 384 steps to P9E_STEPS, one trial."""
     import contextlib
     import io
 
     from tpu_dist_torch.tools import decode_bench
 
-    argv = ["--num-experts", "4", "--trials", "1", "--requests", "2"]
+    argv = ["--num-experts", "4", "--trials", "1", "--requests", "2",
+            "--steps", str(P9E_STEPS)]
     kernels.reset_launches()
     buf = io.StringIO()
     t0 = time.perf_counter()
@@ -2947,23 +2993,26 @@ def model_parallel_path(torch, kernels, tmp):
     cpu2 = DpGroup("p12_cpu2", 2, "cpu", "gloo", tiny2, tmp)
     cpu4 = DpGroup("p12_cpu4", 4, "cpu", "gloo", tiny4, tmp)
     try:
-        # one rank over nccl: the dp twin of 12a, dp-moe with and without
-        # int8, and the tiny one-rank twins
-        one = DpGroup("p12_one", 1, "cuda", "nccl", [
+        # one rank over nccl (the dp twin of 12a, dp-moe with and without
+        # int8), two ranks and four, side by side: their step times share
+        # the card
+        groups = [DpGroup("p12_one", 1, "cuda", "nccl", [
             {"name": "dp", "kind": "lm12", "cfg": full},
             {"name": "dp-moe", "kind": "lm12",
              "cfg": dict(P12_MOE, max_steps=P12_STEPS, print_freq=1)},
             {"name": "dp-moe-int8", "kind": "lm12",
              "cfg": dict(P12_MOE, quant="int8", max_steps=2,
-                         print_freq=1)}], tmp).wait(300)[0]
-        two = DpGroup("p12_two", 2, "cuda", "gloo", [
-            *({"name": m, "kind": "lm12", "cfg": {**full, **kw}}
-              for m, kw in P12_MODES.items()),
-            {"name": "ep-moe", "kind": "lm12",
-             "cfg": dict(P12_MOE, max_steps=P12_STEPS, print_freq=1,
-                         **P12_EP)},
-            *tiny2], tmp).wait(600)
-        four = DpGroup("p12_four", 4, "cuda", "gloo", tiny4, tmp).wait(240)
+                         print_freq=1)}], tmp),
+            DpGroup("p12_two", 2, "cuda", "gloo", [
+                *({"name": m, "kind": "lm12", "cfg": {**full, **kw}}
+                  for m, kw in P12_MODES.items()),
+                {"name": "ep-moe", "kind": "lm12",
+                 "cfg": dict(P12_MOE, max_steps=P12_STEPS, print_freq=1,
+                             **P12_EP)},
+                *tiny2], tmp),
+            DpGroup("p12_four", 4, "cuda", "gloo", tiny4, tmp)]
+        one, two, four = wait_groups(groups, (300, 600, 240))
+        one = one[0]
     finally:
         res_cpu2, res_cpu4 = cpu2.wait(300), cpu4.wait(120)
     decode, decode_launches = moe_decode_bench(torch, kernels)
@@ -3083,7 +3132,7 @@ def model_parallel_path(torch, kernels, tmp):
 
 # ---- phase 13: pipeline parallelism, sharded decode, ViT ring ---------------
 
-P13_STEPS = 3
+P13_STEPS = 2
 # (a) phase 6's LM at full width on data=1,stage=2: M microbatches of 2
 # sequences (batch 2M), so the stash 1F1B bounds and the graphs GPipe keeps
 # both scale with M
@@ -3194,20 +3243,29 @@ def p13_prompt():
 
 
 def p13_decode_bench(flags, device="cuda"):
-    """13f: the decode bench's one-shot mode at phase 5's model over two
-    ranks sharing the card (the bench starts them itself): its JSON."""
-    t0 = time.perf_counter()
+    """13f: start the decode bench's one-shot mode at phase 5's model over
+    two ranks sharing the card (the bench starts them itself);
+    :func:`p13_decode_result` reads its JSON."""
     here = os.path.dirname(os.path.abspath(__file__))
-    run = subprocess.run(
+    return flags, device, time.perf_counter(), subprocess.Popen(
         [sys.executable, "-m", "tpu_dist_torch.tools.decode_bench", *flags,
          *P13_DECODE_ARGV, "--device", device], cwd=here,
-        capture_output=True, text=True,
-        timeout=300, env=dict(os.environ, PYTHONPATH=here))
-    lines = [ln for ln in run.stdout.splitlines() if ln.startswith("{")]
-    if run.returncode != 0 or len(lines) != 1:
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, PYTHONPATH=here))
+
+
+def p13_decode_result(bench):
+    flags, device, t0, proc = bench
+    try:
+        out, err = proc.communicate(timeout=300)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, err = proc.communicate()
+    lines = [ln for ln in out.splitlines() if ln.startswith("{")]
+    if proc.returncode != 0 or len(lines) != 1:
         raise AssertionError(f"13f decode bench {flags}: rc "
-                             f"{run.returncode}, {len(lines)} JSON lines; "
-                             f"{run.stderr[-2000:]}")
+                             f"{proc.returncode}, {len(lines)} JSON lines; "
+                             f"{err[-2000:]}")
     line = json.loads(lines[0])
     want = {"tp": 0, "dp": 0, **{f[2:]: int(v) for f, v in
                                  zip(flags[::2], flags[1::2])}}
@@ -3400,14 +3458,15 @@ def pipeline_path(torch, kernels, tmp, device="cuda"):
     cpu2 = DpGroup("p13_cpu2", 2, "cpu", "gloo", tiny, tmp)
     cpu4 = DpGroup("p13_cpu4", 4, "cpu", "gloo", tiny4, tmp)
     try:
-        # one rank over nccl: each mode's one-rank twin
+        # one rank over nccl: each mode's one-rank twin, beside the
+        # two-rank runs (their step times share the card)
         one = DpGroup("p13_one", 1, device, "nccl" if card_run else "gloo",
                       [
             lm("dp8", steps=1, batch_size=8),
             lm("dp4", steps=1, batch_size=4),
             lm("dp4_int8", steps=1, batch_size=4, quant="int8"),
             moe("dp-moe", max_steps=1),
-            vit("vit"), vit("vit_int8", quant="int8")], tmp).wait(400)[0]
+            vit("vit"), vit("vit_int8", quant="int8")], tmp)
         two = DpGroup("p13_two", 2, device, "gloo", [
             lm("pp-gpipe", batch_size=8, pp_microbatches=4, **P13_PP),
             lm("pp-1f1b", batch_size=8, pp_microbatches=4,
@@ -3422,15 +3481,19 @@ def pipeline_path(torch, kernels, tmp, device="cuda"):
             lm("tp_int8", batch_size=4, quant="int8", **P13_TP),
             vit("vit_ring", **ring), vit("vit_ring_int8", quant="int8",
                                          **ring),
-            *tiny], tmp).wait(900)
+            *tiny], tmp)
+        one, two = wait_groups([one, two], (400, 900))
+        one = one[0]
         four = DpGroup("p13_four", 4, device, "gloo", [
             lm(f"pp-{s}+tp", batch_size=4, pp_microbatches=4,
                pp_schedule=s, **P13_PPTP) for s in ("gpipe", "1f1b")
         ] + tiny4, tmp).wait(600)
     finally:
         res_cpu2, res_cpu4 = cpu2.wait(600), cpu4.wait(300)
-    decode = {k: p13_decode_bench(f, device) for k, f in (
+    # the two benches side by side (their tokens/s share the card)
+    benches = {k: p13_decode_bench(f, device) for k, f in (
         ("tp2", ["--tp", "2"]), ("dp2", ["--dp", "2"]))}
+    decode = {k: p13_decode_result(b) for k, b in benches.items()}
     shapes = check_pp_shapes(torch) if card_run else {}
     scaled = check_scaled_pair(torch) if card_run else {}
 
@@ -3913,17 +3976,17 @@ def longcontext_path(torch, kernels, tmp, device="cuda"):
     one = DpGroup("p14b_1rank", 1, device, "nccl" if card_run else "gloo",
                   [dict(f, world=1, cases={"sp": sp_cfg, "flash": P14_SERVE})
                    for f in fulls], tmp)
-    r1 = one.wait(600)[0]
     # the control: the long prompt's sp prefill alone, with a fault
     ctl = {"name": "p14_bf16_ctl", "kind": "sp14", "dtype": "bf16",
            "model": P14_MODEL, "prompts": list(P14_PROMPTS[:1]), "out": 1,
            "shift": P14_CTL_SHIFT}
+    # the three groups side by side (the card's two share its time)
     two = DpGroup("p14b_2rank", 2, device, "gloo",
                   [dict(f, world=2, cases={"sp": sp_cfg})
                    for f in fulls + [ctl]] + [dict(tiny, world=2)], tmp)
-    r2 = two.wait(900)
     cpu = DpGroup("p14c_cpu", 2, "cpu", "gloo", [dict(tiny, world=2)], tmp)
-    rc = cpu.wait(600)
+    r1, r2, rc = wait_groups([one, two, cpu], (600, 900, 600))
+    r1 = r1[0]
 
     # (b) the sharded engine at full width against the one-rank runs
     def logits(group, name, case, rank=0):
@@ -4174,12 +4237,9 @@ class StampedStderr:
 
 
 def p15_supervise(tmp, name, script_argv, device):
-    """One ``python -m tpu_dist_torch.supervise`` run of the LM script
-    through :func:`p15_child`: (record, attempt ledgers' records, child
-    count files, stamped stderr lines)."""
-    from tpu_dist_torch.obs.goodput import discover_attempt_paths
-    from tpu_dist_torch.obs.ledger import read_ledger
-
+    """Start one ``python -m tpu_dist_torch.supervise`` run of the LM
+    script through :func:`p15_child`; :func:`p15_supervised` waits for
+    it."""
     d = os.path.join(tmp, name)
     os.makedirs(d, exist_ok=True)
     ledger = os.path.join(d, "run.jsonl")
@@ -4196,7 +4256,16 @@ def p15_supervise(tmp, name, script_argv, device):
     proc = subprocess.Popen(cmd, env=env, cwd=here, stderr=subprocess.PIPE,
                             stdout=subprocess.DEVNULL, text=True,
                             errors="replace")
-    err = StampedStderr(proc.stderr)
+    return name, d, ledger, t0, proc, StampedStderr(proc.stderr)
+
+
+def p15_supervised(run):
+    """Wait for a :func:`p15_supervise` run: (record, attempt ledgers'
+    records, child count files, stamped stderr lines)."""
+    from tpu_dist_torch.obs.goodput import discover_attempt_paths
+    from tpu_dist_torch.obs.ledger import read_ledger
+
+    name, d, ledger, t0, proc, err = run
     try:
         rc = proc.wait(timeout=900)
     except subprocess.TimeoutExpired:
@@ -4259,16 +4328,20 @@ def p15_supervised_lm(torch, kernels, tmp, device):
 
     cfg = full_lm_config(**P15_MODEL, **P15_RUN)
     argv = lm_argv(cfg)
-    one, one_recs, one_counts, _ = p15_supervise(tmp, "uninterrupted", argv,
-                                                 device)
+    # the two runs side by side (each its own process tree on the card)
+    faulted = p15_supervise(tmp, "faulted", argv + ["--faults", P15_FAULTS],
+                            device)
+    try:
+        one, one_recs, one_counts, _ = p15_supervised(p15_supervise(
+            tmp, "uninterrupted", argv, device))
+    finally:
+        run, recs, counts, lines = p15_supervised(faulted)
     if [a["class"] for a in one["attempts"]] != ["clean"]:
         raise AssertionError(f"15a uninterrupted: {one['attempts']}")
     want = p15_losses(one_recs[0])
     if sorted(want) != list(range(P15_RUN["max_steps"])) or \
             not all(map(math.isfinite, want.values())):
         raise AssertionError(f"15a uninterrupted losses {want}")
-    run, recs, counts, lines = p15_supervise(
-        tmp, "faulted", argv + ["--faults", P15_FAULTS], device)
     classes = [a["class"] for a in run["attempts"]]
     if classes != P15_CLASSES:
         raise AssertionError(f"15a classes {classes}: {run['attempts']}")
@@ -4590,7 +4663,7 @@ def restart_path(torch, kernels, tmp, device="cuda"):
 
 # ---- phase 16: the observers ----------------------------------------------
 
-P16_STEPS = 12
+P16_STEPS = 8
 # 16a's progress floor: above what any run reaches, so the first judged
 # step records breach it (steps/min)
 P16_SLO_STEPS_PER_MIN = 1e7
@@ -5513,6 +5586,294 @@ def plan_path(torch, kernels, tmp, device="cuda"):
     return rec, by_run
 
 
+# ---- phase 18: the fleet ---------------------------------------------------
+
+# 18a: scripts/fleet_ci.json with phase 5's widths (fp32: the scenario
+# grammar has no dtype both packages read alike) and the int8 flash pages
+P18_CI_MODEL = dict(vocab_size=32000, num_layers=8, d_model=1024,
+                    num_heads=8, max_len=2048)
+P18_CI_SERVE = dict(page_size=16, num_pages=1024, kv_quant="int8",
+                    attn_read="flash")
+P18_CI_HISTOGRAM = {"preemption_snapshotted": 3, "clean": 3}
+P18_UP_WINDOW = 64       # ticks after the burst's start for the first up
+P18_TIMEOUT_S = 240      # each fleet's wall bound (the runner's own too)
+
+
+def p18_fleet(scenario, out, device, device_kind=None):
+    """Start ``python -m tpu_dist_torch.sim.runner`` on ``scenario`` into
+    ``out`` (its stderr to ``out``.log): the Popen and the log path."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("TPU_DIST_", "SLURM_"))}
+    env["PYTHONPATH"] = here + (os.pathsep + env["PYTHONPATH"]
+                                if env.get("PYTHONPATH") else "")
+    cmd = [sys.executable, "-m", "tpu_dist_torch.sim.runner", "--scenario",
+           scenario, "--out", out, "--device", device,
+           "--timeout-s", str(P18_TIMEOUT_S)]
+    if device_kind:
+        cmd += ["--device-kind", device_kind]
+    log_path = out + ".log"
+    with open(log_path, "w") as errf:
+        proc = subprocess.Popen(cmd, env=env, cwd=here, stderr=errf,
+                                stdout=subprocess.DEVNULL)
+    return proc, log_path
+
+
+def p18_wait(name, proc, log_path):
+    try:
+        rc = proc.wait(timeout=P18_TIMEOUT_S + 120)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        rc = "timeout"
+    if rc != 0:
+        with open(log_path, errors="replace") as f:
+            tail = f.read()[-6000:]
+        raise AssertionError(f"18 {name}: the runner exited {rc}:\n{tail}")
+
+
+def p18_attempt_ends(out):
+    """Every worker attempt's ``run_end`` record, by host: a list of
+    (ledger name, run_end or None)."""
+    from tpu_dist_torch.obs.goodput import discover_attempt_paths
+    from tpu_dist_torch.obs.ledger import read_ledger
+
+    ends = {}
+    for d in sorted(os.listdir(out)):
+        m = re.fullmatch(r"host(\d+)", d)
+        base = os.path.join(out, d, "run.jsonl")
+        if not m or not os.path.exists(base):
+            continue
+        rows = []
+        for path in discover_attempt_paths(base):
+            recs = read_ledger(path, validate=False, strict=False)
+            end = [r for r in recs if r.get("event") == "run_end"]
+            rows.append((os.path.basename(path), end[-1] if end else None))
+        ends[int(m.group(1))] = rows
+    return ends
+
+
+def p18_launches(kernels, ends):
+    """Kernel launches summed over every attempt's run_end extras."""
+    total = {k: 0 for k in kernels.LAUNCHES}
+    for rows in ends.values():
+        for _, end in rows:
+            for k, n in ((end or {}).get("launches") or {}).items():
+                total[k] = total.get(k, 0) + n
+    return total
+
+
+def p18_check_ci(kernels, out, scenario, layers, device):
+    """18a's checks (module docstring) over the finished fleet dir."""
+    import contextlib
+    import io
+
+    from tpu_dist_torch.obs.goodput import (job_accounting, load_job_records,
+                                            split_attempts)
+    from tpu_dist_torch.sim.fleet import FleetLedger
+    from tpu_dist_torch.sim.scenario import (expected_restart_classes,
+                                             load_scenario)
+    from tpu_dist_torch.tools import request_report
+
+    sc = load_scenario(scenario)
+    fleet = FleetLedger.discover(out, warn=lambda m: None)
+    report = json.loads(json.dumps(fleet.report(), default=str))
+    want = {str(h): c for h, c in expected_restart_classes(sc).items()}
+    if report["restart_classes"] != want or \
+            report["restart_histogram"] != P18_CI_HISTOGRAM:
+        raise AssertionError(f"18a restart classes "
+                             f"{report['restart_classes']} (want {want}), "
+                             f"histogram {report['restart_histogram']}")
+    elas = report["elasticity"]
+    scales = [(e["action"], e["processes"]) for e in elas
+              if e["host"] == 0 and e["action"] in ("shrink", "expand")]
+    if scales != [("shrink", 2), ("expand", 3)] or not any(
+            e["action"] == "drain" and e["host"] == 1 for e in elas):
+        raise AssertionError(f"18a elasticity {elas}")
+    acct = report["fleet"]
+    if abs(acct["sum_check"] - 1.0) > 0.02:
+        raise AssertionError(f"18a goodput sum_check {acct}")
+    tenants = report["per_tenant"]
+    if set(tenants) != {"chat", "batch"} or \
+            not all(t["requests"] > 0 for t in tenants.values()):
+        raise AssertionError(f"18a tenants {tenants}")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = request_report.main([out, "--json"])
+    req = json.loads(buf.getvalue())
+    ex = req["slo_exemplars"]
+    if rc != 0 or len(ex) != report["slo_breaches"] or \
+            not all(b["exemplars"] for b in ex) or \
+            not req["tail_attribution"]["sum_check"]["ok"]:
+        raise AssertionError(f"18a request report: {len(ex)} breach "
+                             f"exemplar sets for {report['slo_breaches']} "
+                             f"breaches, sum_check "
+                             f"{req['tail_attribution']['sum_check']}")
+    ends = p18_attempt_ends(out)
+    per_attempt = {}
+    for h, rows in ends.items():
+        for led, end in rows:
+            if end is None or "ticks" not in end:
+                raise AssertionError(f"18a host {h} {led}: no run_end "
+                                     f"with the extras ({end})")
+            n = end["launches"].get("paged_decode", 0)
+            per_attempt[f"host{h}/{led}"] = {"ticks": end["ticks"],
+                                             "paged_decode": n}
+            if device == "cuda" and n < layers * end["ticks"]:
+                raise AssertionError(f"18a host {h} {led}: paged_decode "
+                                     f"{n} < {layers} x {end['ticks']} "
+                                     "ticks")
+    gaps, tick_rates = {}, {}
+    for h in sorted(fleet.hosts):
+        base = os.path.join(out, f"host{h}", "run.jsonl")
+        job = job_accounting(split_attempts(
+            load_job_records(base, warn=lambda m: None)))
+        gaps[h] = [a["restart_gap_s"] for a in job["attempts"][1:]]
+        steps = [r for r in fleet.hosts[h] if r.get("event") == "step"]
+        ticks = sum(r.get("steps_in_dispatch") or 1 for r in steps)
+        busy = sum(r["dispatch_s"] + r["device_s"] for r in steps)
+        run_s = sum(end["seconds"] for _, end in ends[h])
+        tick_rates[h] = {"ticks": ticks,
+                         "paced_per_s": ticks / run_s if run_s else None,
+                         "busy_per_s": ticks / busy if busy else None}
+    return {
+        "restart_classes": report["restart_classes"],
+        "restart_histogram": report["restart_histogram"],
+        "elasticity": [(e["host"], e["action"], e["processes"])
+                       for e in elas],
+        "slo_breaches": report["slo_breaches"],
+        "goodput_ratio": acct["goodput_ratio"],
+        "sum_check": acct["sum_check"],
+        "per_tenant": {k: {"requests": t["requests"],
+                           "ttft_p50_s": t["ttft_s"]["p50"],
+                           "ttft_p99_s": t["ttft_s"]["p99"]}
+                       for k, t in tenants.items()},
+        "served": report["serving"],
+        "ticks_per_s": tick_rates,
+        "restart_gaps_s": gaps,
+        "attempts": per_attempt,
+        "launches": p18_launches(kernels, ends),
+    }
+
+
+def p18_check_autoscale(kernels, out, scenario, kind):
+    """18b's checks (module docstring) over the finished fleet dir."""
+    from tpu_dist_torch.plan.tune import tune
+    from tpu_dist_torch.sim.fleet import FleetLedger
+    from tpu_dist_torch.sim.scenario import RID_STRIDE, load_scenario
+    from tpu_dist_torch.sim.worker import WINDOW_TICKS
+
+    sc = load_scenario(scenario)
+    fleet = FleetLedger.discover(out, warn=lambda m: None)
+    report = json.loads(json.dumps(fleet.report(), default=str))
+    auto = report["autoscale"] or {}
+    rows = auto.get("decisions") or []
+    burst0 = min(ev["tick"] for ev in sc.events if ev["type"] == "burst")
+    ups = [r for r in rows if r["direction"] == "up"]
+    downs = [r for r in rows if r["direction"] == "down"]
+    if not rows or rows[0]["direction"] != "up" or not downs or \
+            (ups[0]["hosts_from"], ups[0]["target_hosts"]) != (2, 3) or \
+            ups[0]["tick"] > burst0 + P18_UP_WINDOW or \
+            (downs[0]["hosts_from"], downs[0]["target_hosts"]) != (3, 2) or \
+            downs[0]["tick"] <= ups[0]["tick"]:
+        raise AssertionError(f"18b decisions {rows}")
+    # The fleet clock is the slowest live host's tick. On one card the
+    # workers start seconds apart (a second is 33 ticks of 30 ms), so a
+    # host ahead serves the burst while the clock still reads before it:
+    # the up decision is held to come after the first step record of any
+    # host at the burst's window (the window just before its first tick)
+    up_ts = fleet.t0() + ups[0]["t_rel"]
+    window0 = burst0 // WINDOW_TICKS * WINDOW_TICKS
+    steps = [(r["ts"], h, r["step"]) for h, recs in fleet.hosts.items()
+             for r in recs if r.get("event") == "step"]
+    reached = [ts for ts, _, step in steps if step >= window0]
+    if not reached or min(reached) > up_ts + 1e-3:
+        raise AssertionError(f"18b: the up decision at {up_ts} precedes "
+                             f"every host's tick {window0} (first at "
+                             f"{min(reached) if reached else None})")
+    host_ticks_at_up = {h: max([step for ts, hh, step in steps
+                                if hh == h and ts <= up_ts], default=None)
+                        for h in sorted(fleet.hosts)}
+    if auto["paired"] != len(rows) or auto["unattributed_scales"] or \
+            auto["applied_with_plan_hash"] != len(rows) or \
+            any(r["scale_events"] != 1 for r in rows):
+        raise AssertionError(f"18b pairing {auto}")
+    hashes = {}
+    for r in rows:
+        app = r["applied"]
+        devices = app["processes"] * sc.worker_devices
+        _, results = tune(device_kinds=[kind],
+                          workload={"devices": devices})
+        best = results[kind]["best"]["hash"]
+        plan = os.path.join(out, "plans", f"plan_epoch{app['epoch']}.json")
+        if app["plan_hash"] != best or not os.path.isfile(plan):
+            raise AssertionError(f"18b {r['decision']}: plan hash "
+                                 f"{app['plan_hash']} (the tuner's best at "
+                                 f"{devices} devices: {best}), {plan}")
+        hashes[r["decision"]] = {"devices": devices,
+                                 "plan_hash": app["plan_hash"]}
+    standby = sc.standby_hosts()[0]
+    crossed = [t for t in report["traces"].values()
+               if t["readmits"] and t["completed"]
+               and t["rid"] // RID_STRIDE == standby
+               and standby not in t["hosts"]]
+    if auto["shed_lost"] != 0 or not crossed:
+        raise AssertionError(f"18b shed_lost {auto['shed_lost']}, "
+                             f"{len(crossed)} crossed readmitted traces")
+    return {
+        "decisions": [{k: r[k] for k in ("decision", "direction", "tick",
+                                         "hosts_from", "target_hosts",
+                                         "signal", "lag_s")}
+                      for r in rows],
+        "up_lag_ticks": ups[0]["tick"] - burst0,
+        "host_ticks_at_up": host_ticks_at_up,
+        "plan_hashes": hashes, "device_kind": kind,
+        "shed_lost": auto["shed_lost"], "crossed_traces": len(crossed),
+        "slo_breaches": report["slo_breaches"],
+        "goodput_ratio": report["fleet"]["goodput_ratio"],
+        "launches": p18_launches(kernels, p18_attempt_ends(out)),
+    }
+
+
+def fleet_path(torch, kernels, tmp, device="cuda"):
+    """Phase 18 (module docstring): 18a and 18b side by side, each a
+    ``tpu_dist_torch.sim.runner`` process whose workers share the card.
+    Returns (record, launches by run). ``device="cpu"`` rehearses its
+    control flow on the CPU (with P18_CI_MODEL and P18_CI_SERVE patched
+    to a tiny width)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    with open(os.path.join(here, "scripts", "fleet_ci.json")) as f:
+        doc = json.load(f)
+    doc["model"] = dict(P18_CI_MODEL)
+    doc["serve"] = {**doc["serve"], **P18_CI_SERVE}
+    ci_scenario = os.path.join(tmp, "fleet_ci_full_width.json")
+    with open(ci_scenario, "w") as f:
+        json.dump(doc, f, indent=1)
+    auto_scenario = os.path.join(here, "scripts", "fleet_autoscale.json")
+    kind = (torch.cuda.get_device_name(0) if device == "cuda" else "cpu")
+    ci_out = os.path.join(tmp, "p18a")
+    auto_out = os.path.join(tmp, "p18b")
+    runs = {"a": p18_fleet(ci_scenario, ci_out, device),
+            "b": p18_fleet(auto_scenario, auto_out, device,
+                           device_kind=None if device == "cuda" else kind)}
+    for name, (proc, log_path) in runs.items():
+        p18_wait(name, proc, log_path)
+    fleets_s = time.perf_counter() - t0
+    rec = {"a_fleet_ci": p18_check_ci(kernels, ci_out, ci_scenario,
+                                      P18_CI_MODEL["num_layers"], device),
+           "b_fleet_autoscale": p18_check_autoscale(kernels, auto_out,
+                                                    auto_scenario, kind)}
+    by_run = {"p18a_fleet_ci": rec["a_fleet_ci"].pop("launches"),
+              "p18b_fleet_autoscale":
+                  rec["b_fleet_autoscale"].pop("launches")}
+    rec["fleets_wall_s"] = fleets_s
+    rec["wall_s"] = time.perf_counter() - t0
+    rec["note"] = ("one card: both fleets' workers share it, 18a and 18b "
+                   "run side by side")
+    return rec, by_run
+
+
 def importable(name):
     import importlib.util
 
@@ -5744,8 +6105,28 @@ def main():
         log(f"phase 17{part[0]} {part[2:]}: {json.dumps(plan[part])} on "
             f"{card}")
     log(f"phase 17 took {plan['wall_s']:.1f}s ({plan['note']})")
+
+    # 18. the fleet
+    with tempfile.TemporaryDirectory() as tmp:
+        fl, fleet_launches = fleet_path(torch, kernels, tmp)
+    a = fl["a_fleet_ci"]
+    for part in ("a_fleet_ci", "b_fleet_autoscale"):
+        log(f"phase 18{part[0]} {part[2:]}: {json.dumps(fl[part])} on "
+            f"{card}")
+    log(f"phase 18a: {a['slo_breaches']} SLO breaches, fleet goodput ratio "
+        f"{a['goodput_ratio']}, TTFT p50/p99 by tenant "
+        + ", ".join(f"{k} {t['ttft_p50_s']:.4f}/{t['ttft_p99_s']:.4f} s"
+                    for k, t in a["per_tenant"].items())
+        + ", ticks a second by host (paced) "
+        + ", ".join(f"{h}: {r['paced_per_s']}"
+                    for h, r in a["ticks_per_s"].items())
+        + f", restart gaps {json.dumps(a['restart_gaps_s'])} s, "
+        f"paged_decode {fleet_launches['p18a_fleet_ci']['paged_decode']}, "
+        f"on {card}")
+    log(f"phase 18 took {fl['wall_s']:.1f}s ({fl['note']})")
     dp_launches = {**dp_launches, **mp_launches, **pp_launches,
                    **rs_launches, **obs_launches, **plan_launches,
+                   **fleet_launches,
                    "script6_imagenet": s6_launches,
                    "vit_base_int8": vit8_launches,
                    "zoo_sweep": {**{k: 0 for k in kernels.SOURCES},
@@ -5851,7 +6232,8 @@ def main():
                 {p: n[kname] for p, n in lc_launches.items()})
         entry["launches_by_path"].update(
             {p: n[kname] for p, n in {**rs_launches, **obs_launches,
-                                      **plan_launches}.items()})
+                                      **plan_launches,
+                                      **fleet_launches}.items()})
         entries.append(entry)
     # fused_quant's two phases apart: gspmd tp's int8 row products (13d)
     scaled = pp["d_int8_tp_scaled_pair"]["scaled_pair"]
@@ -5875,8 +6257,8 @@ def main():
         entry["library"] = first["library"]
         entry["launches_by_path"] = {p: n[kname] for p, n in
                                      {**pp_launches, **rs_launches,
-                                      **obs_launches,
-                                      **plan_launches}.items()}
+                                      **obs_launches, **plan_launches,
+                                      **fleet_launches}.items()}
         entries.append(entry)
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": entries}))

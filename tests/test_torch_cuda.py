@@ -1092,3 +1092,37 @@ def test_peer_restore_and_preemption_on_two_gloo_ranks(cuda, tmp_path):
     assert a0["code"] == a1["code"] == 75
     assert a0["run_end"]["snapshot_step"] == \
         a1["run_end"]["snapshot_step"] == 3
+
+
+def test_fleet_workers_launch_paged_decode_on_the_card(cuda, tmp_path):
+    """A short two-host FleetSim with its workers on the card (int8 pages,
+    the flash read): each attempt's ``run_end`` counts ``paged_decode``
+    once per layer per decode tick."""
+    import json
+
+    from tpu_dist_torch.obs.ledger import read_ledger
+    from tpu_dist_torch.sim.runner import FleetSim
+
+    layers = 2
+    doc = {"name": "card-fleet", "seed": 3, "hosts": 2, "ticks": 40,
+           "tick_s": 0.01,
+           "model": {"vocab_size": 64, "num_layers": layers,
+                     "d_model": 128, "num_heads": 2, "max_len": 64},
+           "serve": {"max_slots": 2, "page_size": 16, "num_pages": 32,
+                     "kv_quant": "int8", "attn_read": "flash"},
+           "traffic": {"base_rate": 0.3,
+                       "tenants": [{"name": "chat", "prompt": [2, 8],
+                                    "out": [2, 6]}]}}
+    path = tmp_path / "card.json"
+    path.write_text(json.dumps(doc))
+    report = FleetSim(str(path), str(tmp_path / "fleet"),
+                      device="cuda").run()
+    assert report["restart_histogram"] == {"clean": 2}
+    assert report["serving"]["completed"] > 0
+    for h in range(2):
+        ends = [r for r in read_ledger(
+            str(tmp_path / "fleet" / f"host{h}" / "run.jsonl"))
+            if r["event"] == "run_end"]
+        assert ends[-1]["ticks"] > 0
+        assert ends[-1]["launches"]["paged_decode"] == \
+            layers * ends[-1]["ticks"]

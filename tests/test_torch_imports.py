@@ -87,7 +87,11 @@ def test_importing_every_module_pulls_in_no_jax():
             "tpu_dist_torch.parallel.ring_attention",
             "tpu_dist_torch.plan", "tpu_dist_torch.plan.ir",
             "tpu_dist_torch.plan.tune", "tpu_dist_torch.plan.compile",
-            "tpu_dist_torch.tools.tune"} <= set(out["mods"])
+            "tpu_dist_torch.tools.tune", "tpu_dist_torch.obs.autoscale",
+            "tpu_dist_torch.obs.goodput", "tpu_dist_torch.sim",
+            "tpu_dist_torch.sim.scenario", "tpu_dist_torch.sim.fleet",
+            "tpu_dist_torch.sim.runner", "tpu_dist_torch.sim.worker",
+            "tpu_dist_torch.tools.fleet_report"} <= set(out["mods"])
 
 
 @pytest.mark.parametrize("path", _port_files(),

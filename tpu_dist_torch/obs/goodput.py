@@ -33,7 +33,9 @@ watchdog/health/skew, diagnosis in flightrec/attr, export in metrics):
   timeline with crash→restart gaps charged as ``restart_gap`` badput.
   ``RunObs`` stamps ``job_id``/``attempt`` into ``run_start`` and applies
   the attempt suffix to the ledger path (``attempt=-1`` auto-picks the
-  next free index).
+  next free index). :func:`load_job_records` reads a job back (attempts
+  in order, the supervisor sibling appended) and :func:`fleet_accounting`
+  sums per-host job partitions into the fleet's.
 * :class:`GoodputMonitor` — host-side ledger sink that (a) emits periodic
   and final ``goodput`` events (feeding the ``tpu_dist_goodput_ratio`` /
   ``tpu_dist_badput_seconds`` gauges through the metrics sink), and (b)
@@ -164,6 +166,86 @@ def sup_sibling_path(path: str) -> str:
     root, ext = os.path.splitext(path)
     root = re.sub(r"\.a\d+$", "", root)  # any attempt path -> the stem
     return f"{root}.sup{ext}"
+
+
+def load_job_records(path: str, discover: bool = True,
+                     warn=None) -> List[dict]:
+    """Read one logical JOB back from disk: the attempt family of ``path``
+    (``run.jsonl``, ``run.a1.jsonl``, ... in attempt order) with the
+    supervisor's ``<stem>.sup.jsonl`` scale-event sibling APPENDED — never
+    ts-interleaved, because a between-attempt ``scale`` record sorted into
+    the middle would split a pseudo-attempt into the run_start-boundary
+    goodput/restart math (the consumers order scale events by ts
+    themselves). ``discover=False`` reads only the given file.
+
+    The one job-loading rule: :class:`tpu_dist_torch.sim.fleet.FleetLedger`
+    calls it once per host, so cross-host discovery is per-host job
+    discovery plus a directory walk. Lenient by design (``strict=False``
+    reads, unreadable files skipped through ``warn``): crashed hosts are
+    exactly the ones a fleet report inspects."""
+    import sys
+
+    from tpu_dist_torch.obs.ledger import read_ledger
+
+    warn = warn or (lambda msg: print(msg, file=sys.stderr))
+    paths = (discover_attempt_paths(path) or [path]) if discover else [path]
+    records: List[dict] = []
+    for p in paths:
+        try:
+            records.extend(read_ledger(p, strict=False))
+        except OSError as e:
+            warn(f"warning: skipping {p}: {e}")
+    if discover:
+        sup = sup_sibling_path(paths[0])
+        if os.path.exists(sup):
+            try:
+                records.extend(read_ledger(sup, strict=False))
+            except OSError as e:
+                warn(f"warning: skipping {sup}: {e}")
+    return records
+
+
+def fleet_accounting(host_jobs: Dict) -> Optional[dict]:
+    """Aggregate per-host job partitions (each a :func:`job_accounting`
+    dict, keyed by host id) into ONE fleet partition.
+
+    The fleet invariant is inherited, not re-proven: each host's
+    categories + goodput sum to its own stitched wall (restart gaps
+    included, over-attribution surfaced as overrun), so the fleet sums
+    preserve it — ``goodput_s + sum(categories) == aggregate_wall_s`` to
+    rounding, with ``sum_check`` carrying the measured ratio so a report
+    can assert ~100% instead of trusting this comment. ``aggregate wall``
+    is the sum of host walls (N hosts x T seconds = NT host-seconds of
+    capacity — the denominator a capacity owner pays for), NOT the max
+    span."""
+    jobs = {h: j for h, j in host_jobs.items() if j}
+    if not jobs:
+        return None
+    cats = {c: 0.0 for c in CATEGORIES}
+    wall = goodput = overrun = 0.0
+    opt_steps = 0
+    per_host = {}
+    for h in sorted(jobs):
+        j = jobs[h]
+        wall += j["wall_s"]
+        goodput += j["goodput_s"]
+        overrun += j.get("overrun_s") or 0.0
+        opt_steps += j.get("opt_steps") or 0
+        for k, v in (j.get("categories") or {}).items():
+            cats[k] = cats.get(k, 0.0) + v
+        per_host[h] = {"wall_s": j["wall_s"], "goodput_s": j["goodput_s"],
+                       "ratio": j.get("ratio"),
+                       "attempts": len(j.get("attempts") or ()) or 1}
+    explained = goodput + sum(cats.values())
+    return {"hosts": len(jobs),
+            "aggregate_wall_s": round(wall, 6),
+            "goodput_s": round(goodput, 6),
+            "goodput_ratio": round(goodput / wall, 6) if wall else None,
+            "categories": {k: round(v, 6) for k, v in cats.items()},
+            "overrun_s": round(overrun, 6) if overrun > 1e-9 else 0.0,
+            "opt_steps": opt_steps,
+            "sum_check": round(explained / wall, 6) if wall else None,
+            "per_host": per_host}
 
 
 def split_attempts(records: List[dict]) -> List[List[dict]]:

@@ -13,13 +13,18 @@ so a port ledger and a reference ledger report alike.
 * :func:`slowest_traces` and :func:`waterfall_lines`: the slowest request
   trees rendered as per-phase bars (the decode bench's ``--waterfalls``).
 
-SLO-breach exemplars ride the summary as in the reference; the
-reference's ledger and fleet-directory loading and its text report are
-not copied (the decode bench passes its captured records directly).
+SLO-breach exemplars ride the summary as in the reference. The CLI reads
+a ledger (its attempt family and supervisor sibling) or a fleet directory
+(``tpu_dist_torch.sim.runner``'s layout)::
+
+    python -m tpu_dist_torch.tools.request_report /tmp/fleet --json
 """
 
 from __future__ import annotations
 
+import argparse
+import json
+import os
 from typing import Dict, List, Optional
 
 from tpu_dist_torch.obs import reqtrace
@@ -289,3 +294,87 @@ def requests_summary(records) -> dict:
         "slo_exemplars": slo_exemplars(records, traces),
         "slowest": [t["trace_id"] for t in slowest_traces(traces, 5)],
     }
+
+
+def render(summary: dict, records, out=print, waterfalls: int = 3) -> None:
+    out("== requests (per-request traces: obs.reqtrace) ==")
+    out(f"  traces {summary['traces']}  completed "
+        f"{summary['completed_requests']}  cross-host "
+        f"{summary['cross_host_traces']}  sheds {summary['sheds']}  "
+        f"readmits {summary['readmits']}")
+    ta = summary.get("tail_attribution")
+    if ta:
+        sc = ta["sum_check"]
+        out(f"  sum-check: {'OK' if sc['ok'] else 'FAILED'} over "
+            f"{sc['requests']} requests (max residue "
+            f"{sc['max_residue_s']:.6g}s, tol {sc['tolerance_s']:g})")
+        out(f"  coverage: {ta['coverage']} of latency attributed")
+        out("  where the seconds went:")
+        for cat, row in ta["shares"].items():
+            share = "-" if row["share"] is None else f"{row['share']:.1%}"
+            out(f"    {cat:<8} {row['seconds']:>10.6g}s  {share:>7}  "
+                f"{row['label']}")
+        for metric, parts in (("ttft", ("queue_s", "prefill_s")),
+                              ("tpot", ("decode_s", "tokens"))):
+            out(f"  {metric} percentiles (nearest-rank exemplar request):")
+            for q in ("p50", "p90", "p99"):
+                p = ta[metric][q]
+                if p is None:
+                    out(f"    {q}: no data")
+                    continue
+                split = "  ".join(f"{k}={p[k]}" for k in parts)
+                out(f"    {q}: {p[metric + '_s']:.6g}s  rid={p['rid']}  "
+                    f"{split}")
+    if summary["slo_exemplars"]:
+        out("  slo breaches -> exemplar traces:")
+        for b in summary["slo_exemplars"]:
+            host = "-" if b["host"] is None else b["host"]
+            ex = ", ".join(
+                f"rid={e['rid']} {e['kind']} {e['score_s']:.6g}s "
+                f"({e['trace_id'][:8]})" for e in b["exemplars"]) or "NONE"
+            out(f"    [{b['kind']} host={host} value={b['value']}] {ex}")
+    if waterfalls > 0:
+        slow = slowest_traces(reqtrace.traces(records), waterfalls)
+        if slow:
+            out(f"  {len(slow)} slowest request waterfalls:")
+            for tr in slow:
+                for line in waterfall_lines(tr):
+                    out("    " + line)
+
+
+def load_records(path: str, discover: bool = True) -> List[dict]:
+    """A ledger file loads as one job (attempt family + sup sibling); a
+    directory loads as a fleet (host*/ subtrees, host stamped on every
+    record — the cross-host exemplar index needs it)."""
+    if os.path.isdir(path):
+        from tpu_dist_torch.sim.fleet import FleetLedger
+
+        return FleetLedger.discover(path).merged()
+    from tpu_dist_torch.obs.goodput import load_job_records
+
+    return load_job_records(path, discover=discover)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(
+        description="per-request waterfalls, tail-latency attribution "
+                    "and SLO-breach exemplars from span ledger events")
+    ap.add_argument("path", help="serving ledger (.jsonl) or fleet dir")
+    ap.add_argument("--json", action="store_true", dest="as_json",
+                    help="print the machine-readable summary")
+    ap.add_argument("--waterfalls", type=int, default=3,
+                    help="N slowest request waterfalls in human output")
+    ap.add_argument("--no-discover", action="store_true",
+                    help="read exactly this file, no attempt-family glob")
+    args = ap.parse_args(argv)
+    records = load_records(args.path, discover=not args.no_discover)
+    summary = requests_summary(records)
+    if args.as_json:
+        print(json.dumps(summary, default=str))
+    else:
+        render(summary, records, out=print, waterfalls=args.waterfalls)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
