@@ -326,6 +326,30 @@ they print share the card and the host. Phases:
    best for the card's name at processes x worker_devices devices, with
    its ``plans/plan_epoch<N>.json``, no shed request lost and a request
    of the removed standby's completed on a survivor.
+19. the program audit (``analysis.proglint``) and the convergence tools:
+   (a) phase 6's LM for 4 steps with ``audit="record"``, then with
+   ``audit="none"``: one ``audit`` event for ``train_step`` with no
+   finding (PL003 clean: the masters and moments keep their storage), the
+   losses of both runs within LOSS_TOL (1 + |loss|), phase 6's launches a
+   step, the audited first step's seconds and the hot step ms of both;
+   (b) phase 7's ResNet-50 for 2 steps (one window of 2) with
+   ``audit="record"``: one clean event, one ``sgd`` launch a step; (c)
+   phase 5's serving with the audit armed: every request served, no PL005,
+   prefill signatures within the bucket ladder, ``paged_decode`` once a
+   layer a decode tick; (d) under ``audit="halt"``, on the card and on the
+   CPU alike: an fp32 matmul in a bf16 program raises PL004, an optimizer
+   that rebinds a parameter PL003, a program allowed one input signature
+   and dispatched with two PL005, and phase 4's small int8 LM in bf16 runs
+   clean (its fused int8 products are kernel launches on the card and the
+   kernel's plain version on the CPU, out of the program's compute both
+   ways); (e) two gloo ranks sharing the card (started first, side by side
+   with b-f): phase 10's tiny LM twin with the audit clean on both ranks,
+   then same-shape all-reduces issued SUM then MAX on rank 0 and MAX then
+   SUM on rank 1, over a group with a timeout, PL002 on both ranks; (f)
+   ``tools.convergence`` (ResNet-50, batch 1024, synthetic 10,240/2,048,
+   bf16, ``fused_sgd``) and ``tools.lm_convergence`` (2 layers, d_model
+   128 in 2 heads of 64, V 512, batch 32, L 256, bf16, flash): steps and
+   seconds to 90% top-1 and to ppl 4.
 
 The line before the last is the card's name and power limit; the one
 before it the ``{"kernels": [...]}`` record; the last line is
@@ -1977,6 +2001,8 @@ def dp_job(torch, kernels, job, out, rank):
         return p16_rank_job(torch, kernels, job, out, rank)
     if kind == "plan17":
         return p17_rank_job(torch, kernels, job, out, rank)
+    if kind == "audit19":
+        return p19_rank_job(torch, kernels, job, out, rank)
     if kind == "probe":
         mesh = make_mesh(device=device)
         res = {"backend": C.backend_of(mesh.group()), "world": mesh.size}
@@ -5874,6 +5900,442 @@ def fleet_path(torch, kernels, tmp, device="cuda"):
     return rec, by_run
 
 
+# ---- phase 19: the program audit and the convergence tools ------------------
+
+P19_STEPS = 4            # 19a: phase 6's LM, audit on then off
+# 19b: phase 7's ResNet-50 cut to 2 steps (one window of 2) and a 1024
+# validation set
+P19_IMAGE = dict(synth_train_size=2048, synth_val_size=1024,
+                 steps_per_dispatch=2)
+# 19d: the int8 step (phase 4's small int8 LM in bf16) on both devices
+P19_INT8_LM = dict(batch_size=4, seq_len=96, d_model=128, num_layers=2,
+                   num_heads=1, vocab_size=64, synth_tokens=4000, seed=SEED,
+                   quant="int8", precision="bf16", optimizer="sgd", lr=1e-2,
+                   max_steps=2, print_freq=1)
+# 19c: phase 5's serving LM and request count
+P19_SERVE_MODEL = dict(vocab_size=32000, num_layers=8, d_model=1024,
+                       num_heads=8, max_len=2048)
+P19_SERVE_REQUESTS = 16
+P19_GROUP_TIMEOUT_S = 60  # 19e: the swap's gloo group
+# 19f: BASELINE.md's geometries (the tools' defaults), through the
+# kernels; the LM's 4 heads of 32 become 2 of 64 (the flash kernels take
+# head dims 64 and 128)
+P19_IMAGE_CONVERGENCE = ["--optimizer", "fused_sgd"]
+P19_LM_CONVERGENCE = ["--precision", "bf16", "--attn", "flash",
+                      "--num-heads", "2"]
+
+
+def p19_audits(recs):
+    return [r for r in recs if r["event"] == "audit"]
+
+
+def p19_lm(torch, kernels, tmp, device):
+    """19a: phase 6's LM for P19_STEPS steps with audit="record", then the
+    same run with audit="none"; one audit event, clean, launches as phase
+    6's, the audited first step's seconds and the hot step ms of both."""
+    from tpu_dist_torch.engine.lm_loop import LMTrainer
+    from tpu_dist_torch.obs.ledger import read_ledger
+
+    runs, launches = {}, {}
+    for mode in ("record", "none"):
+        path = os.path.join(tmp, f"p19a_{mode}.jsonl")
+        cfg = full_lm_config(max_steps=P19_STEPS, print_freq=1,
+                             ledger_path=path, audit=mode)
+        if device == "cuda":
+            free_device(torch)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        tr = LMTrainer(cfg, device=device)
+        tr.fit()
+        wall = time.perf_counter() - t0
+        launches[mode] = dict(kernels.LAUNCHES)
+        facts = {"layers": cfg.num_layers, "eval_batches": len(
+            tr._epoch_indices(tr.val_ds, False, 0)[0])}
+        del tr
+        recs = read_ledger(path)
+        ms, n = p16_step_ms(recs, set())
+        (compile_ev,) = [r for r in recs if r["event"] == "compile"]
+        runs[mode] = {"audits": p19_audits(recs), "hot_step_ms": ms,
+                      "hot_steps": n, "first_step_s": compile_ev["seconds"],
+                      "wall_s": wall, "losses": [r["loss"] for r in recs
+                                                 if r["event"] == "step"]}
+        layers, n_eval = facts["layers"], facts["eval_batches"]
+        want = {"flash_bwd_dq": layers * P19_STEPS,
+                "flash_bwd_dkv": layers * P19_STEPS, "adamw": P19_STEPS,
+                "flash_fwd": layers * (P19_STEPS + n_eval)}
+        got = {k: launches[mode][k] for k in want}
+        if device == "cuda" and got != want:
+            raise AssertionError(f"19a {mode}: launches {got}, want {want}")
+    (ev,) = runs["record"]["audits"]
+    if (ev["program"], ev["mode"], ev["findings"], ev["waived"]) != \
+            ("train_step", "record", 0, 0) or runs["none"]["audits"]:
+        raise AssertionError(f"19a audit events {runs['record']['audits']}, "
+                             f"{runs['none']['audits']}")
+    # the audit only watches: the same losses, to the card's own run-to-run
+    # spread
+    diff = dp_close("19a audit on vs off", runs["record"]["losses"],
+                    runs["none"]["losses"], LOSS_TOL)
+    rec = {"config": "phase 6's LM", "steps": P19_STEPS,
+           "audit_event": {k: ev[k] for k in ("program", "mode", "findings",
+                                              "waived", "detail")},
+           "first_step_s_audit_on": runs["record"]["first_step_s"],
+           "first_step_s_audit_off": runs["none"]["first_step_s"],
+           "hot_step_ms_audit_on": runs["record"]["hot_step_ms"],
+           "hot_step_ms_audit_off": runs["none"]["hot_step_ms"],
+           "hot_steps": runs["record"]["hot_steps"],
+           "losses_max_abs_diff_on_vs_off": diff,
+           "launches_per_step": {k: launches["record"][k] / P19_STEPS
+                                 for k in ("flash_bwd_dq", "flash_bwd_dkv",
+                                           "adamw")},
+           "wall_s": runs["record"]["wall_s"] + runs["none"]["wall_s"]}
+    return rec, {"p19a_lm_audit_record": launches["record"],
+                 "p19a_lm_audit_none": launches["none"]}
+
+
+def p19_image(torch, kernels, tmp, device):
+    """19b: phase 7's ResNet-50 for 2 steps with audit="record", without
+    cuDNN's autotuning (as 17d): one clean audit event, one sgd launch a
+    step."""
+    from tpu_dist_torch.configs import TrainConfig
+    from tpu_dist_torch.engine.loop import Trainer
+    from tpu_dist_torch.obs.ledger import read_ledger
+    from tpu_dist_torch.scripts import image_train
+
+    path = os.path.join(tmp, "p19b.jsonl")
+    cfg = TrainConfig(**{**image_train.BENCH_GEOMETRY, **P19_IMAGE},
+                      audit="record", ledger_path=path, log_csv="",
+                      checkpoint_dir="", print_freq=1,
+                      data=os.path.join(tmp, "no-data"))
+    if device == "cuda":
+        free_device(torch)
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, device=device)
+    torch.backends.cudnn.benchmark = False
+    kernels.reset_launches()
+    try:
+        tr.fit()
+    finally:
+        torch.backends.cudnn.benchmark = device == "cuda"
+    launches = dict(kernels.LAUNCHES)
+    recs = read_ledger(path)
+    n = sum(r["steps_in_dispatch"] for r in recs if r["event"] == "step")
+    audits = p19_audits(recs)
+    if [(a["program"], a["findings"]) for a in audits] != \
+            [("window_step", 0)] or n != 2:
+        raise AssertionError(f"19b: {n} steps, audits {audits}")
+    if device == "cuda" and launches["sgd"] != n:
+        raise AssertionError(f"19b: sgd launched {launches['sgd']} times "
+                             f"for {n} steps")
+    (compile_ev,) = [r for r in recs if r["event"] == "compile"]
+    rec = {"config": "phase 7's ResNet-50, 2 steps", "steps": n,
+           "audit_event": {k: audits[0][k] for k in ("program", "mode",
+                                                     "findings", "detail")},
+           "first_window_s": compile_ev["seconds"],
+           "sgd_launches": launches["sgd"],
+           "wall_s": time.perf_counter() - t0}
+    del tr
+    return rec, launches
+
+
+def p19_serve(torch, kernels, device):
+    """19c: phase 5's serving with the audit armed: every request served,
+    no PL005, prefill signatures within the bucket ladder, one
+    paged_decode call a layer a decode tick."""
+    import numpy as np
+
+    from tpu_dist_torch.engine.serve import (DecodeRequest, ServeConfig,
+                                             ServeEngine)
+    from tpu_dist_torch.models.transformer import TransformerLM
+    from tpu_dist_torch.obs.ledger import Ledger
+    from tpu_dist_torch.ops.flash_attention import flash_attention_fn
+    from tpu_dist_torch.plan import compile as pc
+
+    m = P19_SERVE_MODEL
+    layers = m["num_layers"]
+    model = TransformerLM(**m, dtype=torch.bfloat16,
+                          attn_fn=flash_attention_fn(), device=device,
+                          seed=SEED)
+    cfg = ServeConfig(max_slots=8, page_size=16, num_pages=1024,
+                      kv_quant="int8", attn_read="flash")
+    rng = np.random.default_rng(SEED)
+    n_req = P19_SERVE_REQUESTS
+    prompts = [rng.integers(0, m["vocab_size"], (int(rng.integers(
+        16, m["max_len"] // 2 + 1)),)).astype(np.int32)
+        for _ in range(n_req)]
+    outs = rng.integers(32, 129, n_req)
+    led = Ledger(None)
+    events = []
+    led.add_sink(events.append)
+    t0 = time.perf_counter()
+    pc.set_audit("record", led)
+    try:
+        eng = ServeEngine(model, cfg, device=device)
+        kernels.reset_launches()
+        comps = eng.run([DecodeRequest(i, prompts[i], int(outs[i]))
+                         for i in range(n_req)])
+        launches = dict(kernels.LAUNCHES)
+        sentry = pc._AUDIT["sentry"]
+        sigs = {p: sentry.signatures(p) for p in (
+            "serve_prefill", "serve_chunk_prefill", "serve_tick")}
+    finally:
+        pc.set_audit("none")
+    audits = p19_audits(events)
+    if len(comps) != n_req or audits:
+        raise AssertionError(f"19c: served {len(comps)}/{n_req}, audit "
+                             f"events {audits}")
+    if not 1 <= sigs["serve_prefill"] <= len(eng.buckets) or \
+            sigs["serve_tick"] != 1:
+        raise AssertionError(f"19c signatures {sigs}, {len(eng.buckets)} "
+                             "buckets")
+    if device == "cuda" and launches["paged_decode"] != layers * eng.ticks:
+        raise AssertionError(f"19c: paged_decode {launches['paged_decode']}"
+                             f" for {eng.ticks} ticks x {layers}")
+    rec = {"served": len(comps), "requests": n_req, "ticks": eng.ticks,
+           "prefills": eng.prefills, "signatures": sigs,
+           "buckets": len(eng.buckets), "pl005_events": 0,
+           "paged_decode_per_tick": launches["paged_decode"] / eng.ticks,
+           "wall_s": time.perf_counter() - t0}
+    del eng, model
+    return rec, launches
+
+
+def p19_halted(fn):
+    """``fn()`` under audit="halt": the AuditError's check IDs (None when
+    it did not raise)."""
+    from tpu_dist_torch.analysis.proglint import AuditError
+    from tpu_dist_torch.plan import compile as pc
+
+    pc.set_audit("halt")
+    try:
+        fn()
+    except AuditError as e:
+        return sorted(set(re.findall(r"PL00\d", str(e))))
+    finally:
+        pc.set_audit("none")
+    return None
+
+
+def p19_int8_step(torch, kernels, tmp, device):
+    """The int8 step of 19d: phase 4's small int8 LM in bf16 for 2 steps
+    under audit="halt"; its audit event's check IDs and its launches."""
+    from tpu_dist_torch.configs import LMConfig
+    from tpu_dist_torch.engine.lm_loop import LMTrainer
+    from tpu_dist_torch.interop import export_flax_params
+    from tpu_dist_torch.models.transformer import TransformerLM
+    from tpu_dist_torch.obs.ledger import read_ledger
+
+    init = export_flax_params(TransformerLM(
+        vocab_size=64, num_layers=2, d_model=128, num_heads=1, max_len=96,
+        device="cpu", seed=SEED))
+    path = os.path.join(tmp, f"p19d_int8_{device}.jsonl")
+    kernels.reset_launches()
+    LMTrainer(LMConfig(**P19_INT8_LM, audit="halt", ledger_path=path),
+              device=device, init_params=init).fit()
+    (ev,) = p19_audits(read_ledger(path))
+    return (sorted({d["check"] for d in ev["detail"] or ()}),
+            dict(kernels.LAUNCHES))
+
+
+def p19_hazards(torch, kernels, tmp, device):
+    """19d: the injected hazards under audit="halt", each raising
+    AuditError naming its check, on ``device`` and on the CPU (the same
+    program, the same findings), and the int8 step clean on both.
+    Returns (record, the int8 step's launches on ``device``)."""
+    from tpu_dist_torch.engine.state import TrainState
+    from tpu_dist_torch.plan import compile as pc
+
+    def fp32_mm(dev):
+        x = torch.ones(64, 64, device=dev)
+        return lambda: pc.audit_program("p19d_fp32_mm", lambda a: a @ a, x,
+                                        precision="bf16", device=dev)
+
+    def rebind(dev):
+        params = [torch.ones(8, device=dev) for _ in range(3)]
+        state = TrainState(step=0, params=params,
+                           opt_state=([torch.zeros(8, device=dev)
+                                       for _ in params],),
+                           param_names=["w0", "w1", "w2"])
+
+        def step(s):     # the optimizer that rebinds one parameter
+            s.params[1] = s.params[1] - 0.1
+            s.opt_state[0][0].add_(1.0)
+        return lambda: pc.audit_program("p19d_rebind", step, state,
+                                        state=state, device=dev)
+
+    def shapes(dev):
+        def two_shapes():
+            pc.register_audit_program("p19d_vary", allowed=1)
+            for n in (8, 16):
+                pc.note_audit_dispatch("p19d_vary",
+                                       torch.ones(n, device=dev))
+            pc.check_audit_sentry()
+        return two_shapes
+
+    t0 = time.perf_counter()
+    rec = {}
+    for name, make, want in (("fp32_mm_in_bf16", fp32_mm, ["PL004"]),
+                             ("rebinding_optimizer", rebind, ["PL003"]),
+                             ("two_shapes_allowed_1", shapes, ["PL005"])):
+        got = {d: p19_halted(make(d)) for d in dict.fromkeys((device,
+                                                              "cpu"))}
+        if any(v != want for v in got.values()):
+            raise AssertionError(f"19d {name}: raised {got}, want {want}")
+        rec[name] = {"raised": want, "same_on_cpu": True}
+    int8 = {d: p19_int8_step(torch, kernels, tmp, d)
+            for d in dict.fromkeys(("cpu", device))}
+    if any(ids for ids, _ in int8.values()):
+        raise AssertionError(f"19d int8 step: findings {int8}")
+    if device == "cuda" and not int8["cuda"][1]["fused_quant"]:
+        raise AssertionError("19d int8 step: no fused_quant launch")
+    rec["int8_step"] = {"findings": [], "same_on_cpu": True,
+                        "fused_quant_launches":
+                            int8[device][1]["fused_quant"]}
+    rec["wall_s"] = time.perf_counter() - t0
+    return rec, int8[device][1]
+
+
+def p19_rank_job(torch, kernels, job, out, rank):
+    """A 19e rank: phase 10's tiny LM twin on the two ranks with
+    audit="record" (its audit event), then the same-shape all-reduces as
+    SUM then MAX on rank 0 and MAX then SUM on rank 1 over a gloo group
+    with a timeout, audited (its findings)."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from tpu_dist_torch.configs import LMConfig
+    from tpu_dist_torch.engine.lm_loop import LMTrainer
+    from tpu_dist_torch.obs.ledger import Ledger, per_process_path, read_ledger
+    from tpu_dist_torch.parallel.mesh import register_axis_group
+    from tpu_dist_torch.plan import compile as pc
+
+    dev = job["device"]
+    path = os.path.join(out, "p19e.jsonl")
+    kernels.reset_launches()
+    LMTrainer(LMConfig(**job["cfg"], audit="record", ledger_path=path,
+                       mesh_shape=(2,)), device=dev).fit()
+    launches = dict(kernels.LAUNCHES)
+    lm = p19_audits(read_ledger(per_process_path(path, rank)))
+    group = dist.new_group([0, 1],
+                           timeout=timedelta(seconds=P19_GROUP_TIMEOUT_S))
+    register_axis_group(group, "data")
+    SUM, MAX = dist.ReduceOp.SUM, dist.ReduceOp.MAX
+    first, then = (SUM, MAX) if rank == 0 else (MAX, SUM)
+
+    def swap(v):
+        dist.all_reduce(v, op=first, group=group)
+        dist.all_reduce(v, op=then, group=group)
+
+    led = Ledger(None, process_index=rank)
+    events = []
+    led.add_sink(events.append)
+    pc.set_audit("record", led)
+    try:
+        fs = pc.audit_program("p19e_swap", swap,
+                              torch.ones(1024, device=dev), device=dev)
+    finally:
+        pc.set_audit("none")
+    return {"lm_audits": lm, "launches": launches,
+            "swap": [f.to_json() for f in fs],
+            "swap_events": p19_audits(events)}
+
+
+def p19_ranks_start(torch, tmp, device):
+    """19e's two gloo ranks sharing ``device``, started (a DpGroup)."""
+    job = {"name": "p19e", "kind": "audit19",
+           "cfg": dict(DP_TINY_LM, max_steps=3, grad_bucket_mb=0.0)}
+    return DpGroup("p19e", 2, device, "gloo", [job], tmp)
+
+
+def p19_ranks_check(group):
+    """19e's results: the dp step clean on both ranks, PL002 on both."""
+    pair = [r["p19e"] for r in group.wait(300)]
+    for rank, res in enumerate(pair):
+        lm = [(a["program"], a["findings"]) for a in res["lm_audits"]]
+        checks = [f["check"] for f in res["swap"]]
+        if lm != [("train_step", 0)] or checks != ["PL002"] or \
+                "at position 0" not in res["swap"][0]["message"]:
+            raise AssertionError(f"19e rank {rank}: lm {lm}, swap "
+                                 f"{res['swap']}")
+    return {"dp_step_clean_both_ranks": True,
+            "pl002_both_ranks": [res["swap"][0]["message"] for res in pair],
+            "group_timeout_s": P19_GROUP_TIMEOUT_S}, {
+        "p19e_rank0": pair[0]["launches"], "p19e_rank1": pair[1]["launches"]}
+
+
+def p19_tool(module, argv):
+    """One convergence tool's ``main(argv)`` in this process, its JSON
+    line captured (the trainer's lines go to the log)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = module.main(argv)
+    lines = buf.getvalue().splitlines()
+    if rc != 0 or not lines or not lines[-1].startswith("{"):
+        raise AssertionError(f"19f {module.__name__}: rc {rc}, "
+                             f"{lines[-5:]}")
+    return json.loads(lines[-1])
+
+
+def p19_convergence(torch, kernels, device, image_argv=(), lm_argv=()):
+    """19f: both convergence tools at BASELINE.md's geometries (their
+    defaults) through the kernels; steps and seconds to threshold."""
+    from tpu_dist_torch.tools import convergence, lm_convergence
+
+    rec, launches = {}, {}
+    for name, module, argv in (
+            ("image", convergence, [*P19_IMAGE_CONVERGENCE, *image_argv]),
+            ("lm", lm_convergence, [*P19_LM_CONVERGENCE, *lm_argv])):
+        if device == "cuda":
+            free_device(torch)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        out = p19_tool(module, ["--device", device, *argv])
+        launches[name] = dict(kernels.LAUNCHES)
+        if out["steps_to_threshold"] is None:
+            raise AssertionError(f"19f {name}: {out}")
+        rec[name] = {**out, "wall_s": time.perf_counter() - t0}
+    if device == "cuda" and (
+            launches["image"]["sgd"] != rec["image"]["steps_to_threshold"]
+            or not launches["lm"]["flash_bwd_dq"]):
+        raise AssertionError(f"19f launches {launches}")
+    rec["reference_steps"] = {"image": 30, "lm": 116}
+    return rec, {"p19f_image_convergence": launches["image"],
+                 "p19f_lm_convergence": launches["lm"]}
+
+
+def audit_path(torch, kernels, tmp, device="cuda"):
+    """Phase 19 (module docstring). Returns (record, launches by run).
+    ``device="cpu"`` rehearses its control flow on the CPU (with the
+    widths patched small by the caller)."""
+    t0 = time.perf_counter()
+    rec, by_run = {}, {}
+    rec["a_lm_audit"], launches = p19_lm(torch, kernels, tmp, device)
+    by_run.update(launches)
+    group = p19_ranks_start(torch, tmp, device)
+    try:
+        rec["b_image_audit"], by_run["p19b_image_audit"] = p19_image(
+            torch, kernels, tmp, device)
+        rec["c_serve_audit"], by_run["p19c_serve_audit"] = p19_serve(
+            torch, kernels, device)
+        rec["d_hazards_halt"], by_run["p19d_int8_step"] = p19_hazards(
+            torch, kernels, tmp, device)
+        rec["f_convergence"], launches = p19_convergence(torch, kernels,
+                                                         device)
+        by_run.update(launches)
+    except BaseException:
+        group.kill()
+        raise
+    rec["e_two_ranks"], launches = p19_ranks_check(group)
+    by_run.update(launches)
+    rec["wall_s"] = time.perf_counter() - t0
+    rec["note"] = ("one card: 19e's two gloo ranks share it with 19b-19f; "
+                   "19a's two runs compare within one call")
+    return rec, by_run
+
+
 def importable(name):
     import importlib.util
 
@@ -6124,9 +6586,29 @@ def main():
         f"paged_decode {fleet_launches['p18a_fleet_ci']['paged_decode']}, "
         f"on {card}")
     log(f"phase 18 took {fl['wall_s']:.1f}s ({fl['note']})")
+
+    # 19. the program audit and the convergence tools
+    with tempfile.TemporaryDirectory() as tmp:
+        au, audit_launches = audit_path(torch, kernels, tmp)
+    for part in ("a_lm_audit", "b_image_audit", "c_serve_audit",
+                 "d_hazards_halt", "e_two_ranks", "f_convergence"):
+        log(f"phase 19{part[0]} {part[2:]}: {json.dumps(au[part])} on "
+            f"{card}")
+    a, f = au["a_lm_audit"], au["f_convergence"]
+    log(f"phase 19a audit cost: the audited first step took "
+        f"{a['first_step_s_audit_on']:.3f} s against "
+        f"{a['first_step_s_audit_off']:.3f} s without the audit; hot step "
+        f"{a['hot_step_ms_audit_on']:.3f} ms with it armed against "
+        f"{a['hot_step_ms_audit_off']:.3f} ms off, on {card}")
+    log(f"phase 19f convergence: ResNet-50 {f['image']['steps_to_threshold']}"
+        f" steps to 90% top-1 in {f['image']['seconds_to_threshold']} s, the "
+        f"LM {f['lm']['steps_to_threshold']} steps to ppl 4 in "
+        f"{f['lm']['seconds_to_threshold']} s (the reference's step counts: "
+        f"30 and 116), on {card}")
+    log(f"phase 19 took {au['wall_s']:.1f}s ({au['note']})")
     dp_launches = {**dp_launches, **mp_launches, **pp_launches,
                    **rs_launches, **obs_launches, **plan_launches,
-                   **fleet_launches,
+                   **fleet_launches, **audit_launches,
                    "script6_imagenet": s6_launches,
                    "vit_base_int8": vit8_launches,
                    "zoo_sweep": {**{k: 0 for k in kernels.SOURCES},
@@ -6232,8 +6714,8 @@ def main():
                 {p: n[kname] for p, n in lc_launches.items()})
         entry["launches_by_path"].update(
             {p: n[kname] for p, n in {**rs_launches, **obs_launches,
-                                      **plan_launches,
-                                      **fleet_launches}.items()})
+                                      **plan_launches, **fleet_launches,
+                                      **audit_launches}.items()})
         entries.append(entry)
     # fused_quant's two phases apart: gspmd tp's int8 row products (13d)
     scaled = pp["d_int8_tp_scaled_pair"]["scaled_pair"]
@@ -6258,7 +6740,8 @@ def main():
         entry["launches_by_path"] = {p: n[kname] for p, n in
                                      {**pp_launches, **rs_launches,
                                       **obs_launches, **plan_launches,
-                                      **fleet_launches}.items()}
+                                      **fleet_launches,
+                                      **audit_launches}.items()}
         entries.append(entry)
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": entries}))

@@ -279,11 +279,23 @@ def test_lm_trainer_attempt_and_job_id_name_the_ledger(tmp_path):
     assert tr.obs.ledger_path == str(tmp_path / "run.a3.jsonl")
 
 
-@pytest.mark.parametrize("knob,value,item", [
-    ("audit", "record", "audits JAX programs")])
-def test_image_trainer_refuses_by_name_and_item(knob, value, item):
-    with pytest.raises(NotImplementedError, match=rf"{knob}.*{item}"):
-        Trainer(TrainConfig(**TINY_IMAGE, **{knob: value}), device="cpu")
+@pytest.mark.parametrize("mode", ["record", "x"])
+def test_image_trainer_audit_knob_takes_effect(tmp_path, mode):
+    """The image ``Trainer``'s ``audit`` knob: ``record`` emits one clean
+    ``audit`` event for ``train_step`` into the attempt's ledger; an
+    unknown mode raises ValueError naming the modes."""
+    base = str(tmp_path / "run.jsonl")
+    cfg = TrainConfig(**TINY_IMAGE, attempt=1, audit=mode, ledger_path=base,
+                      checkpoint_dir="")
+    if mode == "x":
+        with pytest.raises(ValueError, match="'none', 'record', 'halt'"):
+            Trainer(cfg, device="cpu")
+        return
+    Trainer(cfg, device="cpu").fit()
+    recs = read_ledger(str(tmp_path / "run.a1.jsonl"))
+    audits = [r for r in recs if r["event"] == "audit"]
+    assert [(a["program"], a["mode"], a["findings"]) for a in audits] == \
+        [("train_step", "record", 0)]
 
 
 def test_image_trainer_attempt_job_id_and_faults_take_effect(tmp_path):

@@ -31,7 +31,6 @@ from tpu_dist.configs import TrainConfig as JaxTrainConfig  # noqa: E402
 from tpu_dist.engine.loop import Trainer as JaxTrainer  # noqa: E402
 from tpu_dist_torch.configs import TrainConfig  # noqa: E402
 from tpu_dist_torch.engine import checkpoint as ckpt  # noqa: E402
-from tpu_dist_torch.engine import loop  # noqa: E402
 from tpu_dist_torch.engine.loop import Trainer  # noqa: E402
 
 torch.set_num_threads(1)
@@ -145,27 +144,24 @@ def test_corrupt_newest_checkpoint_falls_back(tmp_path):
         ckpt.load_checkpoint(path, fresh.state, fallback=False)
 
 
-SET = {"mesh_axes": ("data", "model"),
-       "tp_impl": "ring", "quant": "int8", "plan": "auto",
-       "audit": "record", "loss_scale": 128.0, "pretrained": "ck.pt"}
-
-
-def _off_value(knob, accepted):
-    if knob in SET:
-        return SET[knob]
-    if isinstance(accepted[0], bool):
-        return not accepted[0]
-    return "x" if isinstance(accepted[0], str) else accepted[0] + 2
-
-
-@pytest.mark.parametrize("knob", sorted(loop.UNPORTED))
-def test_unported_knobs_raise_and_name_themselves(knob):
-    cfg = TrainConfig(**{**TINY, knob: _off_value(knob, loop.UNPORTED[knob])})
-    # every refusal names the knob and why: the program audit checks JAX
-    # programs, which the port has none of
-    with pytest.raises(NotImplementedError,
-                       match=rf"{knob}.*audits JAX programs"):
-        Trainer(cfg, device="cpu")
+@pytest.mark.parametrize("mode", ["record", "x"])
+def test_audit_knob_records_one_event_or_names_the_modes(tmp_path, mode):
+    """The ``audit`` knob: ``record`` emits one ``audit`` event for the
+    run's one program (``train_step``, clean); an unknown mode raises
+    ValueError naming the modes."""
+    path = str(tmp_path / "run.jsonl")
+    cfg = TrainConfig(**TINY, audit=mode, ledger_path=path,
+                      checkpoint_dir=str(tmp_path))
+    if mode == "x":
+        with pytest.raises(ValueError,
+                           match=r"audit='x'.*'none', 'record', 'halt'"):
+            Trainer(cfg, device="cpu")
+        return
+    Trainer(cfg, device="cpu").fit()
+    with open(path) as f:
+        audits = [r for r in map(json.loads, f) if r["event"] == "audit"]
+    assert [(a["program"], a["mode"], a["findings"]) for a in audits] == \
+        [("train_step", "record", 0)]
 
 
 def test_mesh_wider_than_the_process_count_raises():

@@ -91,7 +91,10 @@ def test_importing_every_module_pulls_in_no_jax():
             "tpu_dist_torch.obs.goodput", "tpu_dist_torch.sim",
             "tpu_dist_torch.sim.scenario", "tpu_dist_torch.sim.fleet",
             "tpu_dist_torch.sim.runner", "tpu_dist_torch.sim.worker",
-            "tpu_dist_torch.tools.fleet_report"} <= set(out["mods"])
+            "tpu_dist_torch.tools.fleet_report",
+            "tpu_dist_torch.analysis", "tpu_dist_torch.analysis.proglint",
+            "tpu_dist_torch.tools.convergence",
+            "tpu_dist_torch.tools.lm_convergence"} <= set(out["mods"])
 
 
 @pytest.mark.parametrize("path", _port_files(),

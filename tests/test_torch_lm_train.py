@@ -6,9 +6,10 @@
   started from the JAX trainer's initial params, for ``(attn, optimizer)``
   in ``{(full, sgd), (flash, fused_adamw)}``: per-step losses within 1e-5
   relative and final params leaf by leaf (tolerances at the test);
-* eval is exact under sampler padding, ``max_steps`` caps the run,
-  every knob not ported yet raises ``NotImplementedError`` naming it,
-  and a data axis wider than the process count raises ``ValueError``;
+* eval is exact under sampler padding, ``max_steps`` caps the run, the
+  ``audit`` knob records one event (an unknown mode raises
+  ``ValueError``), and a data axis wider than the process count raises
+  ``ValueError``;
 * training-mode details: fp32 masters under bf16, remat, ``health=skip``,
   and the entry script end to end."""
 
@@ -29,7 +30,6 @@ from tpu_dist.engine.lm_loop import LMTrainer as JaxLMTrainer  # noqa: E402
 from tpu_dist_torch.configs import LMConfig  # noqa: E402
 from tpu_dist_torch.data import tokens as ttok  # noqa: E402
 from tpu_dist_torch.data.sampler import DistributedSampler  # noqa: E402
-from tpu_dist_torch.engine import lm_loop  # noqa: E402
 from tpu_dist_torch.engine.lm_loop import LMTrainer  # noqa: E402
 from tpu_dist_torch.interop import export_flax_params  # noqa: E402
 
@@ -189,27 +189,23 @@ def test_max_steps_caps_run(tmp_path):
     assert {"eval", "epoch"} <= set(events)
 
 
-SET = {"mesh_axes": ("data", "seq"),
-       "data_placement": "device", "attn": "blockwise",
-       "plan": "auto", "audit": "record"}
-
-
-def _off_value(knob, off):
-    if knob in SET:
-        return SET[knob]
-    if isinstance(off[0], bool):
-        return not off[0]
-    return "x" if isinstance(off[0], str) else off[0] + 2
-
-
-@pytest.mark.parametrize("knob", sorted(lm_loop.UNPORTED))
-def test_unported_knobs_raise_and_name_themselves(knob):
-    cfg = LMConfig(**{**TINY, knob: _off_value(knob, lm_loop.UNPORTED[knob])})
-    # every refusal names the knob and why: the program audit checks JAX
-    # programs, which the port has none of
-    with pytest.raises(NotImplementedError,
-                       match=rf"{knob}.*audits JAX programs"):
-        LMTrainer(cfg, device="cpu")
+@pytest.mark.parametrize("mode", ["record", "x"])
+def test_audit_knob_records_one_event_or_names_the_modes(tmp_path, mode):
+    """The ``audit`` knob: ``record`` emits one ``audit`` event for the
+    run's one program (``train_step``, clean); an unknown mode raises
+    ValueError naming the modes."""
+    path = str(tmp_path / "run.jsonl")
+    cfg = LMConfig(**TINY, audit=mode, ledger_path=path, max_steps=3)
+    if mode == "x":
+        with pytest.raises(ValueError,
+                           match=r"audit='x'.*'none', 'record', 'halt'"):
+            LMTrainer(cfg, device="cpu")
+        return
+    LMTrainer(cfg, device="cpu").fit()
+    with open(path) as f:
+        audits = [r for r in map(json.loads, f) if r["event"] == "audit"]
+    assert [(a["program"], a["mode"], a["findings"]) for a in audits] == \
+        [("train_step", "record", 0)]
 
 
 def test_mesh_wider_than_the_process_count_raises():

@@ -1,7 +1,7 @@
 """One rank of a ``torch.distributed`` group for the port's multi-process
 tests (``tests/test_torch_{collectives,dp,dp_lm,cuda,fsdp,tp,moe,
 ring_attention,int8_tp,pp,pp_modes,generate_mesh,vit,sp_serve,elastic,
-obs_trace}.py``):
+obs_trace,proglint}.py``):
 gloo on the
 CPU unless the spec names another ``device`` and ``backend``.
 
@@ -558,7 +558,73 @@ def _skew_job(job, out, rank, torch, device):
     return res
 
 
-JOBS = {"image": _trainer_job, "skew": _skew_job, "lm": _trainer_job, "restart": _restart_job,
+def _proglint_job(job, out, rank, torch, device):
+    """The program audit over the group: each case's audited program run
+    once under ``audit=record`` (``_halt`` cases: ``halt``), this rank's
+    findings (or the AuditError), and the audited dp step of a tiny
+    ``LMTrainer`` on the two ranks (its ``audit`` events)."""
+    import torch.distributed as dist
+
+    from tpu_dist_torch.analysis.proglint import AuditError
+    from tpu_dist_torch.configs import LMConfig
+    from tpu_dist_torch.engine.lm_loop import LMTrainer
+    from tpu_dist_torch.obs.ledger import Ledger, per_process_path, read_ledger
+    from tpu_dist_torch.parallel.mesh import make_mesh, register_axis_group
+    from tpu_dist_torch.plan import compile as pc
+
+    make_mesh(device=device)            # the world group serves "data"
+    led = Ledger(None, process_index=rank)
+    events = []
+    led.add_sink(events.append)
+    x = torch.ones(8, device=device)
+
+    def audited(name, fn, mode="record"):
+        pc.set_audit(mode, led)
+        try:
+            fs = pc.audit_program(name, fn, x, device=device)
+            return {"checks": [f.check for f in fs],
+                    "messages": [f.message for f in fs]}
+        except AuditError as e:
+            return {"halt": str(e)}
+        finally:
+            pc.set_audit("none")
+
+    res = {}
+    for axis in ("batch", "data", "sp", "spd", None):
+        group = dist.new_group([0, 1])      # every rank makes every group
+        if axis is not None:
+            register_axis_group(group, axis)
+        res[f"pl001_{axis}"] = audited(
+            f"pl001_{axis}", lambda v, g=group: dist.all_reduce(v, group=g))
+    SUM, MAX = dist.ReduceOp.SUM, dist.ReduceOp.MAX
+    first, then = (SUM, MAX) if rank == 0 else (MAX, SUM)
+
+    def swap(v):        # same shapes, the reduce order swapped by rank
+        dist.all_reduce(v, op=first)
+        dist.all_reduce(v, op=then)
+
+    def symmetric(v):
+        dist.all_reduce(v, op=SUM)
+        dist.all_reduce(v, op=MAX)
+
+    def loop(v):        # the same trip count on every rank
+        for _ in range(3):
+            dist.all_reduce(v)
+
+    for name, fn in (("swap", swap), ("symmetric", symmetric),
+                     ("loop", loop)):
+        res[f"pl002_{name}"] = audited(f"pl002_{name}", fn)
+    res["pl002_swap_halt"] = audited("pl002_swap", swap, "halt")
+    res["events"] = [e for e in events if e["event"] == "audit"]
+    path = os.path.join(out, "lm.jsonl")
+    LMTrainer(LMConfig(**job["lm"], ledger_path=path, audit="record",
+                       mesh_shape=(2,)), device=device).fit()
+    res["lm_audits"] = [r for r in read_ledger(per_process_path(path, rank))
+                        if r["event"] == "audit"]
+    return res
+
+
+JOBS = {"image": _trainer_job, "proglint": _proglint_job, "skew": _skew_job, "lm": _trainer_job, "restart": _restart_job,
         "sp_ops": _sp_ops_job, "sp_serve": _sp_serve_job,
         "vit_ring": _vit_ring_job,
         "generate_mesh": _generate_mesh_job,

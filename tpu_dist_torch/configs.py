@@ -202,11 +202,11 @@ class TrainConfig:
     #    variant, Pallas block sizes) are overridden before the engine
     #    builds steps; run_start + a 'plan' ledger event record the hash
     plan: str = ""
-    # -- program audit (tpu_dist.analysis.proglint via plan.compile):
-    #    none = off; record = run the compile-time jaxpr/HLO pass on
-    #    every step program + the drain-boundary recompile sentry,
-    #    emitting 'audit' ledger events; halt = record, then raise
-    #    AuditError on any unwaivered finding
+    # -- program audit (analysis.proglint via plan.compile):
+    #    none = off; record = audit the step program's first dispatch +
+    #    the drain-boundary recompile sentry, emitting 'audit' ledger
+    #    events; halt = record, then raise AuditError on any unwaivered
+    #    finding
     audit: str = "none"
 
     # -- synthetic-data knobs (TPU-only: zero-egress envs can't download datasets)
@@ -387,7 +387,7 @@ class LMConfig:
                                    # hash lands in run_start + a 'plan'
                                    # ledger event
     audit: str = "none"            # program audit (analysis.proglint):
-                                   # none | record (compile-time pass +
+                                   # none | record (first-dispatch pass +
                                    # drain-boundary recompile sentry,
                                    # 'audit' ledger events) | halt
                                    # (record + raise on unwaivered)

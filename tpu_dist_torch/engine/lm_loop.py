@@ -107,8 +107,14 @@ before anything reads a plan-owned knob, so the model is built with the
 plan's ``quant`` and the plan's kernel switches are set; the result rides
 ``run_start`` and one ``plan`` event (``obs.RunObs``). Every step, window
 and eval comes from ``plan.compile.compile_plan`` over this mode's
-bindings (:meth:`LMTrainer._step_plan`). The ``audit`` knob audits JAX
-programs and is refused by name (:data:`UNPORTED`).
+bindings (:meth:`LMTrainer._step_plan`).
+
+The program audit (``analysis.proglint``, the ``audit`` knob): armed from
+``cfg.audit`` once the ledger is up (``plan.compile.set_audit``), it
+records the run's first dispatch of ``train_step``/``window_step`` under
+the first-dispatch probe (warm: out of every rate) and emits one ``audit``
+event for it, with the config's ``precision``; every dispatch's input
+signature is noted for the recompile sentry, which is read at each drain.
 """
 
 from __future__ import annotations
@@ -144,17 +150,19 @@ from tpu_dist_torch.parallel.mesh import (DATA_AXIS, EXPERT_AXIS,
 from tpu_dist_torch.parallel.overlap import (bucketed_grad_sync,
                                              validate_tp_impl)
 from tpu_dist_torch.parallel.supervisor import PREEMPT_SNAPSHOT_RC
-from tpu_dist_torch.plan.compile import (AUDIT_REFUSAL, Bindings,
-                                         compile_plan, current_switches,
-                                         resolve_config_plan)
+from tpu_dist_torch.plan.compile import (Bindings, audit_recorder,
+                                         check_audit_sentry, compile_plan,
+                                         current_switches, finish_audit,
+                                         note_audit_dispatch,
+                                         resolve_config_plan, set_audit,
+                                         validate_audit)
 from tpu_dist_torch.plan.ir import Plan
 from tpu_dist_torch.utils.meters import MeterBank
 from tpu_dist_torch.utils.mfu import lm_flops_per_token, moe_lm_flops_per_token
 
-# knob -> its off value. Anything else raises NotImplementedError naming
-# the knob: the program audit checks JAX programs, which the port has none
-# of (plan.compile.AUDIT_REFUSAL)
-UNPORTED = {"audit": ("none",)}
+# knob -> its off value, for a knob the port does not honour (anything
+# else raises NotImplementedError naming the knob): none is left
+UNPORTED: Dict[str, tuple] = {}
 ATTNS = ("full", "blockwise", "flash")
 # run-meta keys a resume must match before any state loads, and those a
 # mid-epoch resume must match as well
@@ -168,8 +176,7 @@ def refuse_unported(cfg: LMConfig) -> None:
         val = getattr(cfg, knob)
         if val not in off:
             raise NotImplementedError(
-                f"LMConfig.{knob}={val!r}: the program audit "
-                f"{AUDIT_REFUSAL} (supported: "
+                f"LMConfig.{knob}={val!r} is not ported (supported: "
                 f"{' | '.join(repr(o) for o in off)})")
 
 
@@ -183,6 +190,7 @@ class LMTrainer:
         # switches before anything below reads them
         cfg, self._plan_info = resolve_config_plan(cfg, device)
         refuse_unported(cfg)
+        validate_audit(cfg.audit, cfg.profile_dir)
         if cfg.resume and not os.path.exists(cfg.resume):
             raise FileNotFoundError(
                 f"--resume checkpoint not found: {cfg.resume}")
@@ -407,6 +415,9 @@ class LMTrainer:
         self.obs = RunObs("lm", cfg, process_index=self.rank, unit="tok/s",
                           device=self.device, plan_info=self._plan_info)
         self.ledger, self.health = self.obs.ledger, self.obs.health
+        # the program audit (analysis.proglint), armed for this run's
+        # programs before their first dispatch
+        set_audit(cfg.audit, self.ledger)
         self._comm_probe_s = (self._measure_comm_probe()
                               if cfg.grad_bucket_mb > 0 else None)
 
@@ -833,6 +844,7 @@ class LMTrainer:
                                 grad_norm=gn, update_norm=un, n_steps=n)
         pending.clear()
         self.obs.heartbeat()   # device progress proven at this fetch
+        check_audit_sentry()   # PL005: host-side counts, no sync
 
     # ------------------------------------------------------------------
     def _meters(self, epoch: int) -> MeterBank:
@@ -884,7 +896,7 @@ class LMTrainer:
             was_cold = not self._warmed
             metrics, dispatch_s, warmed = self._dispatch(
                 gstep, "train_step", lambda: self._step(inputs, targets),
-                t_epoch, 1)
+                t_epoch, 1, (inputs, targets))
             warm = warmed or warm
             pending.append((metrics, {
                 "step": gstep, "n_steps": 1, "n_items": tokens_per_batch,
@@ -950,7 +962,7 @@ class LMTrainer:
             was_cold = not self._warmed
             sums, dispatch_s, warmed = self._dispatch(
                 gstep, "window_step", lambda: self.window_step(idx_window),
-                t_epoch, n)
+                t_epoch, n, (idx_window,))
             warm = warmed or warm
             done += n
             pending.append((sums, {
@@ -978,20 +990,26 @@ class LMTrainer:
         return bool(cap) and epoch * self.steps_per_epoch + batches_done >= cap
 
     def _dispatch(self, gstep: int, program: str, fn, t_epoch: float,
-                  n: int):
-        """One dispatch of ``program`` (``fn()``, ``n`` steps) through
-        ``RunObs.dispatch``; the run's first also gets the warm-up sync and
-        the ``compile`` and ``cost_model`` events. Returns (metric
-        sums, dispatch seconds, (warm seconds, warm batches) of the first
-        dispatch or None)."""
+                  n: int, args=()):
+        """One dispatch of ``program`` (``fn()``, ``n`` steps, over the
+        tensors ``args``) through ``RunObs.dispatch``; the run's first also
+        gets the warm-up sync, the ``compile`` and ``cost_model`` events
+        and, with the audit armed, its recording and ``audit`` event.
+        Returns (metric sums, dispatch seconds, (warm seconds, warm
+        batches) of the first dispatch or None)."""
         first = not self._warmed
-        metrics, dispatch_s, probe = self.obs.dispatch(gstep, fn, first)
+        rec = audit_recorder(program, self.state) if first else None
+        note_audit_dispatch(program, *args)
+        metrics, dispatch_s, probe = self.obs.dispatch(gstep, fn, first,
+                                                       audit=rec)
         if not first:
             return metrics, dispatch_s, None
         warm = self._warm_up(metrics, t_epoch, n)
         self.obs.emit_compile(program, warm[0], probe,
                               n * self._step_flops() / self.world,
                               self.policy.compute_dtype)
+        finish_audit(program, rec, precision=self.cfg.precision,
+                     donate=self.compiled.plan.donate, device=self.device)
         return metrics, dispatch_s, warm
 
     # ------------------------------------------------------------------

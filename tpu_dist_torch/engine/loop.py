@@ -91,8 +91,10 @@ The step plan (``:55-59``): ``plan`` (a ``tools/tune.py`` plan file, or
 so the variant, the sync knobs and the kernel switches are the plan's
 before the model is built; the result rides ``run_start`` and one ``plan``
 event. Every step, window and eval comes from ``plan.compile
-.compile_plan`` (:meth:`Trainer._step_plan`). The ``audit`` knob audits
-JAX programs and is refused by name (:data:`UNPORTED`).
+.compile_plan`` (:meth:`Trainer._step_plan`). The program audit (the
+``audit`` knob, ``analysis.proglint``) records the run's first dispatch of
+``train_step``/``window_step`` and reads the recompile sentry at each
+drain, as in the LMTrainer.
 
 It runs on CUDA unless ``device="cpu"`` is asked for, and takes an
 optional flax-layout ``init_params``/``init_batch_stats`` pair so a run can
@@ -132,17 +134,19 @@ from tpu_dist_torch.parallel.launch import say
 from tpu_dist_torch.parallel.mesh import make_mesh
 from tpu_dist_torch.parallel.overlap import validate_tp_impl
 from tpu_dist_torch.parallel.supervisor import PREEMPT_SNAPSHOT_RC
-from tpu_dist_torch.plan.compile import (AUDIT_REFUSAL, Bindings,
-                                         compile_plan, current_switches,
-                                         resolve_config_plan)
+from tpu_dist_torch.plan.compile import (Bindings, audit_recorder,
+                                         check_audit_sentry, compile_plan,
+                                         current_switches, finish_audit,
+                                         note_audit_dispatch,
+                                         resolve_config_plan, set_audit,
+                                         validate_audit)
 from tpu_dist_torch.plan.ir import Plan
 from tpu_dist_torch.utils.meters import MeterBank
 from tpu_dist_torch.utils.mfu import image_forward_flops
 
-# knob -> its accepted values. Anything else raises NotImplementedError
-# naming the knob: the program audit checks JAX programs, which the port
-# has none of (plan.compile.AUDIT_REFUSAL)
-UNPORTED = {"audit": ("none",)}
+# knob -> its accepted values, for a knob the port does not honour
+# (anything else raises NotImplementedError naming the knob): none is left
+UNPORTED: Dict[str, tuple] = {}
 # the mesh axes the Trainer takes
 MESH_AXES = (("data",), ("data", "model"))
 
@@ -152,8 +156,7 @@ def refuse_unported(cfg: TrainConfig) -> None:
         val = getattr(cfg, knob)
         if val not in accepted:
             raise NotImplementedError(
-                f"TrainConfig.{knob}={val!r}: the program audit "
-                f"{AUDIT_REFUSAL} (supported: "
+                f"TrainConfig.{knob}={val!r} is not ported (supported: "
                 f"{' | '.join(repr(a) for a in accepted)})")
 
 
@@ -168,6 +171,7 @@ class Trainer:
         # sets the kernel switches before anything below reads them
         cfg, self._plan_info = resolve_config_plan(cfg, device)
         refuse_unported(cfg)
+        validate_audit(cfg.audit, cfg.profile_dir)
         if cfg.resume and not os.path.exists(cfg.resume):
             raise FileNotFoundError(f"--resume checkpoint not found: {cfg.resume}")
         if cfg.pretrained and not os.path.exists(cfg.pretrained):
@@ -415,6 +419,7 @@ class Trainer:
                           unit="img/s", device=self.device,
                           plan_info=self._plan_info)
         self.ledger, self.health = self.obs.ledger, self.obs.health
+        set_audit(cfg.audit, self.ledger)     # analysis.proglint
 
     # ------------------------------------------------------------------
     def _resident(self, ds):
@@ -608,6 +613,7 @@ class Trainer:
                                 grad_norm=gn, update_norm=un, n_steps=n)
         pending.clear()
         self.obs.heartbeat()   # device progress proven at this fetch
+        check_audit_sentry()   # PL005: host-side counts, no sync
 
     def _meters(self, epoch: int) -> MeterBank:
         return MeterBank(self.steps_per_epoch,
@@ -658,7 +664,8 @@ class Trainer:
             was_cold = not self._warmed
             metrics, dispatch_s, warmed = self._dispatch(
                 gstep, "train_step",
-                lambda: self._step(images, labels, gstep), t_epoch, 1)
+                lambda: self._step(images, labels, gstep), t_epoch, 1,
+                (images, labels))
             warm = warmed or warm
             pending.append((metrics, {
                 "step": gstep, "n_steps": 1, "n_items": cfg.batch_size,
@@ -733,7 +740,7 @@ class Trainer:
                     self.state, payload[0], payload[1], gstep)
 
             sums, dispatch_s, warmed = self._dispatch(
-                gstep, "window_step", window, t_epoch, n)
+                gstep, "window_step", window, t_epoch, n, (payload,))
             warm = warmed or warm
             done += n
             pending.append((sums, {
@@ -753,14 +760,18 @@ class Trainer:
         return self._epoch_result(meters, nb - skip, warm)
 
     def _dispatch(self, gstep: int, program: str, fn, t_epoch: float,
-                  n: int):
-        """One dispatch of ``program`` (``fn()``, ``n`` steps) through
-        ``RunObs.dispatch``; the run's first also gets the warm-up sync and
-        the ``compile`` and ``cost_model`` events (the LMTrainer's twin).
-        Returns (metric sums, dispatch seconds, (warm seconds, warm
+                  n: int, args=()):
+        """One dispatch of ``program`` (``fn()``, ``n`` steps, over the
+        tensors ``args``) through ``RunObs.dispatch``; the run's first also
+        gets the warm-up sync, the ``compile`` and ``cost_model`` events
+        and the audit's recording and ``audit`` event (the LMTrainer's
+        twin). Returns (metric sums, dispatch seconds, (warm seconds, warm
         batches) of the first dispatch or None)."""
         first = not self._warmed
-        metrics, dispatch_s, probe = self.obs.dispatch(gstep, fn, first)
+        rec = audit_recorder(program, self.state) if first else None
+        note_audit_dispatch(program, *args)
+        metrics, dispatch_s, probe = self.obs.dispatch(gstep, fn, first,
+                                                       audit=rec)
         if not first:
             return metrics, dispatch_s, None
         warm = self._warm_up(metrics, t_epoch, n)
@@ -768,6 +779,8 @@ class Trainer:
             program, warm[0], probe,
             n * self._flops() * self.cfg.batch_size / self.data_size,
             self.policy.compute_dtype)
+        finish_audit(program, rec, precision=self.cfg.precision,
+                     donate=self.compiled.plan.donate, device=self.device)
         return metrics, dispatch_s, warm
 
     # ------------------------------------------------------------------

@@ -47,9 +47,13 @@ and refilled the same tick. The pieces, as in the reference:
   names and fields.
 
 Refused with ``NotImplementedError``, as in the reference: MoE models
-and speculative decoding over a sharded pool. The reference's
-compile-audit hooks (``plan/compile.py``) audit JAX programs and have no
-counterpart.
+and speculative decoding over a sharded pool.
+
+Under the program audit (``plan.compile.set_audit``) the page programs
+are registered with its recompile sentry (``serve_prefill`` allowed one
+input signature per bucket, ``serve_sp_prefill`` one per sp bucket, the
+chunk, sample and tick programs one), each dispatch's signature is noted,
+and the sentry is read at every ``kv_cache`` snapshot (PL005).
 
 The scheduler is host-side and clock-agnostic (``now_fn``; tests and
 trace replay pass a virtual clock). Page programs run under
@@ -80,6 +84,9 @@ from tpu_dist_torch.obs.reqtrace import RequestTracer
 from tpu_dist_torch.ops.paged_attention import cow_fork_pages, sp_axis
 from tpu_dist_torch.parallel.collectives import sum_bytes
 from tpu_dist_torch.parallel.mesh import SP_AXIS
+from tpu_dist_torch.plan.compile import (check_audit_sentry,
+                                         note_audit_dispatch,
+                                         register_audit_program)
 
 
 @dataclass
@@ -334,6 +341,14 @@ class ServeEngine:
         self._preempt_event = threading.Event()
         self._preempt_synced = False
         self._prev_sigterm = None
+        # the page programs under the audit's recompile sentry (no-ops
+        # when it is off): prefill specializes per bucket
+        register_audit_program("serve_prefill", allowed=len(self.buckets))
+        register_audit_program("serve_sp_prefill",
+                               allowed=max(len(self.sp_buckets), 1))
+        for name in ("serve_chunk_prefill", "serve_chunk_sample",
+                     "serve_tick", "serve_spec_tick"):
+            register_audit_program(name)
 
     # -- admission --------------------------------------------------------
     def submit(self, req: DecodeRequest) -> bool:
@@ -541,6 +556,7 @@ class ServeEngine:
         """One admit's padded prompt: pages written for the live rows at
         or past ``shared_len``, first token sampled from the last live
         row's logits."""
+        note_audit_dispatch("serve_prefill", bt, padded)
         bucket = padded.shape[1]
         valid = (torch.arange(bucket, device=self.device)[None, :]
                  >= shared_len)
@@ -563,6 +579,7 @@ class ServeEngine:
         from tpu_dist_torch.ops.paged_attention import _sp_local_bt
         from tpu_dist_torch.parallel.ring_attention import ring_attention_fn
 
+        note_audit_dispatch("serve_sp_prefill", bt, padded)
         ax = self.sp_axis
         lsh = padded.shape[1] // self.sp_n     # bucket % (n * ps) == 0
         start = ax.index * lsh
@@ -585,6 +602,7 @@ class ServeEngine:
 
     def _tick_program(self, bts, tokens, positions):
         """One token per slot at its own position."""
+        note_audit_dispatch("serve_tick", bts, tokens, positions)
         pos = self._tensor(positions)
         paged = {"layers": self.pool.layers(),
                  "block_tables": self._flat_bt(bts),
@@ -598,6 +616,7 @@ class ServeEngine:
         """Rows [start, start + chunk) of a prompt, written and attended
         through the tick's per-row-position path; returns the last live
         row's logits (meaningful on the final chunk)."""
+        note_audit_dispatch("serve_chunk_prefill", bt, tokens)
         chunk = tokens.shape[1]
         pos = self._tensor([start])
         rows = pos[:, None] + torch.arange(chunk, device=self.device)[None]
@@ -642,6 +661,7 @@ class ServeEngine:
         The ``caps`` write mask sends rows past a request's allocation to
         the trash page (a draft window can overrun a nearly done request).
         """
+        note_audit_dispatch("serve_spec_tick", bts, tokens, positions, caps)
         k = self.cfg.spec_k
         bt = self._tensor(bts)
         tok = self._tensor(tokens)
@@ -914,6 +934,7 @@ class ServeEngine:
             return
         # final chunk: the prompt is resident -- sample the first token
         s.chunk_next = -1
+        note_audit_dispatch("serve_chunk_sample", last)
         tok = self._sample(last)[0]
         if self.draft_pool is not None:
             # the draft's prompt pass stays monolithic, as in the reference
@@ -1072,6 +1093,9 @@ class ServeEngine:
         s.win_ticks = s.win_tokens = s.win_drafted = 0
 
     def _emit_kv_cache(self) -> None:
+        # serving's drain boundary: the recompile sentry's host-side read
+        # rides the pressure snapshot (PL005)
+        check_audit_sentry()
         if self.ledger is None:
             return
         st = self.pool.stats()

@@ -11,11 +11,17 @@ sources in parallel (one ``nvcc`` each, all started together).
 
 Launch counts live in :data:`LAUNCHES`: each kernel's wrapper adds one
 right after a launch returns success, and nowhere else.
+
+Each kernel's plain PyTorch version is marked :func:`plain_version`: while
+one runs, :func:`in_plain_version` is true, so the program audit
+(``analysis.proglint``) can leave its operators out of the program's
+compute, as a ctypes launch on the card is out of its sight.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import re
@@ -59,6 +65,26 @@ _lock = threading.Lock()
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+_plain = threading.local()
+
+
+def plain_version(fn):
+    """Mark ``fn`` as a kernel's plain version (module docstring)."""
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        _plain.depth = getattr(_plain, "depth", 0) + 1
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            _plain.depth -= 1
+    return run
+
+
+def in_plain_version() -> bool:
+    """Whether a kernel's plain version is running on this thread."""
+    return getattr(_plain, "depth", 0) > 0
 
 
 def build_dir() -> str:

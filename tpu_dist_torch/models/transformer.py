@@ -53,10 +53,13 @@ from tpu_dist_torch.ops.quant import make_dense
 
 def full_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
                    kv_offset: int = 0):
-    """Reference attention over (B, L, H, D) tensors, fp32 softmax."""
+    """Reference attention over (B, L, H, D) tensors, fp32 softmax. The
+    score product runs in q's dtype, as the reference's einsum takes its
+    compute-dtype operands (a bf16 program computes no fp32 matmul here:
+    the audit's PL004); the scores are fp32 from there on."""
     d = q.shape[-1]
-    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(),
-                          k.float()) / math.sqrt(d)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q,
+                          k.to(q.dtype)).float() / math.sqrt(d)
     if causal:
         qpos = q_offset + torch.arange(q.shape[1], device=q.device)[:, None]
         kpos = kv_offset + torch.arange(k.shape[1], device=q.device)[None, :]

@@ -411,15 +411,17 @@ class RunObs:
                 and not self.flightrec.window_open())
         return FirstDispatch(self.device, cost)
 
-    def dispatch(self, gstep: int, fn, first: bool):
+    def dispatch(self, gstep: int, fn, first: bool, audit=None):
         """``fn()``, one dispatch of step ``gstep``, under the tracer's
         ``dispatch`` span (a ``ProfilerStep#gstep`` range while profiling)
-        and, for a program's ``first`` dispatch, :meth:`first_dispatch`.
-        Returns (``fn()``'s result, its seconds, the first dispatch's
-        probe or None)."""
+        and, for a program's ``first`` dispatch, :meth:`first_dispatch`,
+        inside which the program audit's recorder ``audit`` runs where
+        given (``plan.compile.audit_recorder``). Returns (``fn()``'s
+        result, its seconds, the first dispatch's probe or None)."""
         probe = self.first_dispatch() if first else None
         with step_annotation(gstep, self.profiling), \
-                self.tracer.span("dispatch"), probe or nullcontext():
+                self.tracer.span("dispatch"), probe or nullcontext(), \
+                audit or nullcontext():
             out = fn()
         return out, self.tracer.pop().get("dispatch", 0.0), probe
 

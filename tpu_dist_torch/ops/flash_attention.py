@@ -117,6 +117,7 @@ def blockwise_attention_fn(block_size: int = 512):
     return attn
 
 
+@kernels.plain_version
 def flash_forward_plain(q, k, v, causal: bool = True, q_offset: int = 0,
                         kv_offset: int = 0):
     """The kernel's function in plain PyTorch: fp32 masked softmax with
@@ -230,6 +231,7 @@ def flash_forward(q, k, v, *, causal: bool = True, q_offset: int = 0,
 
 # ---- backward -------------------------------------------------------------
 
+@kernels.plain_version
 def flash_backward_plain(q, k, v, out, lse, g, causal: bool = True,
                          q_offset: int = 0, kv_offset: int = 0):
     """The backward kernels' function in plain PyTorch: (dq, dk, dv) in
@@ -415,6 +417,7 @@ def flash_attention_fn(block_q: int = 1024, block_k: int | None = None):
 
 # ---- forward over pre-quantized int8 K/V ----------------------------------
 
+@kernels.plain_version
 def int8kv_flash_plain(q, kv, causal: bool = True, q_offset: int = 0,
                        kv_offset: int = 0):
     """The int8-K/V kernel's function in plain PyTorch: K/V dequantized to

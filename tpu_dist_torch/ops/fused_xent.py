@@ -36,6 +36,8 @@ import functools
 
 import torch
 
+from tpu_dist_torch import kernels
+
 
 @functools.lru_cache(maxsize=None)
 def _takes_out_dtype(device: str, dtype: torch.dtype) -> bool:
@@ -57,6 +59,14 @@ def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return torch.mm(a, b)
     if _takes_out_dtype(str(a.device), a.dtype):
         return torch.mm(a, b, out_dtype=torch.float32)
+    return _mm_upcast(a, b)
+
+
+@kernels.plain_version
+def _mm_upcast(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.mm(..., out_dtype=float32)``'s plain version where this
+    PyTorch lacks it: both operands upcast (exact), one fp32 product. The
+    program audit reads it as the product it stands for."""
     return torch.mm(a.float(), b.float())
 
 

@@ -212,6 +212,7 @@ def masked_attention(q, k, v, q_positions):
 # int8-KV paged decode (per-row length mask): kernel 2
 # ---------------------------------------------------------------------------
 
+@kernels.plain_version
 def paged_decode_plain(q, kq, ks, vq, vs, lengths):
     """The kernel's function in plain PyTorch: dequantize the gathered
     int8 K/V to fp32, mask keys at ``kpos >= lengths[b]``, fp32 softmax
@@ -227,6 +228,7 @@ def paged_decode_plain(q, kq, ks, vq, vs, lengths):
     return o.transpose(1, 2).to(q.dtype).contiguous()
 
 
+@kernels.plain_version
 def paged_decode_blocks_plain(q, layer, block_tables, lengths):
     """The block-table kernel's function in plain PyTorch: each row's
     pages gathered (:func:`gather_pages`), then :func:`paged_decode_plain`.

@@ -64,6 +64,7 @@ def scalar_row(lr: float, b1: float, b2: float, eps: float, wd: float,
     return row
 
 
+@kernels.plain_version
 def fused_adamw_plain(p, g, m, v, scalars) -> None:
     """The kernel's function in plain PyTorch, in place on (p, m, v): fp32
     math in the kernel's operation order, p stored back in its dtype."""

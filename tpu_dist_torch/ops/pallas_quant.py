@@ -118,6 +118,7 @@ def _check_tile(tile: Tuple[int, int, int]) -> None:
             "multiple of 128 with any of them)")
 
 
+@kernels.plain_version
 def fused_quant_matmul_plain(x2, w):
     """The kernel's function in plain PyTorch on (M, K) x (K, N): the int8
     values of both operands (``quantize_int8``: row amax for x, column amax
@@ -131,12 +132,14 @@ def fused_quant_matmul_plain(x2, w):
     return (acc.float() * (sx * sw)).to(x2.dtype)
 
 
+@kernels.plain_version
 def fused_quant_amax_plain(x2, w):
     """The scales phase alone: (each row's max |x| over K (M,), each
     column's max |w| over K (N,)), fp32."""
     return x2.float().abs().amax(1), w.float().abs().amax(0)
 
 
+@kernels.plain_version
 def fused_quant_scaled_plain(x2, w, x_amax, w_amax):
     """:func:`fused_quant_matmul_plain` with the row maxima ``x_amax``
     (M,) and column maxima ``w_amax`` (N,) given; with

@@ -105,6 +105,7 @@ def scalar_row(lr: float, momentum: float, weight_decay: float,
     return row
 
 
+@kernels.plain_version
 def fused_sgd_plain(p, g, m, scalars) -> None:
     """The kernel's function in plain PyTorch, in place on (p, m): fp32
     math in the kernel's operation order, p stored back in its dtype."""

@@ -21,7 +21,11 @@ it. Every rank makes every group, in the same order (a rank that skipped
 one would hang the others in ``new_group``); an axis that spans the whole
 world uses the world group. :meth:`Mesh.group` and :meth:`Mesh.axis` give
 this rank's group of an axis; an axis of size 1 has none, and collectives
-over it are no-ops.
+over it are no-ops. The mesh records which group serves which axis names
+(:func:`axis_names_of`): the program audit (``analysis.proglint``) names
+each collective's axis by it, as a JAX collective carries its axis name.
+The world group, where no one axis spans it, serves every axis of the
+mesh at once (a mean over all of them, as ``psum`` over a tuple of axes).
 
 :func:`shard_leaf` and :func:`gather_leaf` cut a full tensor to this
 rank's shard under a spec (a tuple with one axis name or None per dim,
@@ -34,6 +38,7 @@ one contiguous slice, so each rank holds whole heads of q, k and v.
 from __future__ import annotations
 
 import os
+import weakref
 from dataclasses import dataclass, field
 from typing import Any, Dict, Optional, Sequence, Tuple
 
@@ -51,6 +56,27 @@ SP_AXIS = "sp"          # serving sequence parallel
 
 PORTED_AXES = (DATA_AXIS, MODEL_AXIS, SEQ_AXIS, EXPERT_AXIS, STAGE_AXIS,
                SP_AXIS)
+
+
+# group -> the axis names it serves (see axis_names_of); weak, so a
+# destroyed group is not kept alive until the interpreter's exit (gloo
+# can abort tearing a group down that late)
+_AXIS_GROUPS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def register_axis_group(group, *names: str) -> None:
+    """Record that process group ``group`` serves the mesh axes ``names``
+    (added to any it already serves). The mesh registers its own groups;
+    code that makes a group of its own registers it too."""
+    if group is None:
+        return
+    _AXIS_GROUPS[group] = tuple(dict.fromkeys(
+        (axis_names_of(group) or ()) + names))
+
+
+def axis_names_of(group) -> Optional[Tuple[str, ...]]:
+    """The axis names ``group`` was registered with, or None."""
+    return None if group is None else _AXIS_GROUPS.get(group)
 
 
 def _dist():
@@ -141,6 +167,7 @@ def axis_mesh(mesh: Mesh, name: str, as_name: str) -> Mesh:
     (its size, index and group; no new group), named ``as_name``: script
     8 serves on the ranks of its ``seq`` axis as an ``sp`` mesh."""
     ax = mesh.axis(name)
+    register_axis_group(ax.group, as_name)
     return Mesh({as_name: ax.size}, mesh.rank, mesh.size, mesh.device,
                 {as_name: Axis(as_name, ax.size, ax.index, ax.group)})
 
@@ -210,6 +237,10 @@ def make_mesh(shape: Optional[Sequence[int]] = None,
                     if rank in ranks:
                         group = g
         views[name] = Axis(name, shape[i], mine[i], group)
+        register_axis_group(group, name)
+    if dist is not None and world > 1 and world not in shape:
+        register_axis_group(dist.group.WORLD,
+                            *(a for a, s in zip(axes, shape) if s > 1))
     return Mesh(dict(zip(axes, shape)), rank, world, rank_device(device),
                 views)
 

@@ -18,8 +18,9 @@ added up on the device. It adds no second copy of step logic; both
 trainers take their steps from here.
 
 ``donate`` stays in the IR for the hash: the port's steps update the train
-state in place, which is what buffer donation buys XLA, so a plan with
-``donate=False`` is refused by name when compiled.
+state in place, which is what buffer donation buys XLA (the audit's PL003
+holds them to it), so a plan with ``donate=False`` is refused by name when
+compiled.
 
 :func:`activate_plan` sets the plan's process-wide switches (the fused
 int8 dispatch, ``fused_quant.cu``'s tile, the optimizer kernels' rows) and
@@ -27,9 +28,14 @@ int8 dispatch, ``fused_quant.cu``'s tile, the optimizer kernels' rows) and
 ``""``/``"none"``, a plan file from ``tools/tune.py`` (per device kind), or
 ``"auto"``, the tuner's search over the candidates this config can run.
 
-The reference's program audit (``set_audit``, ``audit_program``, the
-``audit`` knob) audits JAX programs (``analysis/proglint.py``); the port
-runs none, so those stay refusals by name.
+The program audit (``analysis.proglint``) is a process-wide switch in the
+:func:`activate_plan` mold: the trainers arm it from ``cfg.audit``
+(:func:`set_audit`), record their program's first dispatch
+(:func:`audit_recorder`, then :func:`finish_audit`: one ``audit`` event a
+program) and read the recompile sentry at their drain boundaries
+(:func:`check_audit_sentry`); the serving engine registers its page
+programs and notes each dispatch's input signature
+(:func:`register_audit_program`, :func:`note_audit_dispatch`).
 """
 
 from __future__ import annotations
@@ -41,11 +47,6 @@ from typing import Any, Callable, Optional
 
 from tpu_dist_torch.plan.ir import (Plan, PlanError, apply_plan_to_config,
                                     plan_hash, plan_knob_summary)
-
-AUDIT_REFUSAL = ("audits JAX programs (the reference's analysis/proglint.py "
-                 "over its jitted steps) and has no counterpart in the "
-                 "port, whose steps are eager")
-
 
 @dataclass
 class Bindings:
@@ -250,19 +251,162 @@ def _image_eval(plan: Plan, b: Bindings) -> Callable:
     return eval_step
 
 
-# ---- the audit knob: refused by name --------------------------------------
+# ---- program audit (analysis.proglint) -----------------------------------
+
+AUDIT_MODES = ("none", "record", "halt")
+
+_AUDIT = {"mode": "none", "ledger": None, "sentry": None}
+
+
+def validate_audit(mode: str, profile_dir: str = "") -> str:
+    """``mode`` if it is one of :data:`AUDIT_MODES` (``""`` is ``none``),
+    else ValueError; an audit with a ``profile_dir`` session is refused
+    too (the audited dispatch would run inside the profiler's trace)."""
+    mode = mode or "none"
+    if mode not in AUDIT_MODES:
+        raise ValueError(f"audit={mode!r}: pick one of {AUDIT_MODES}")
+    if mode != "none" and profile_dir:
+        raise ValueError(f"audit={mode!r} with profile_dir: the program "
+                         "audit does not record under a profiler session")
+    return mode
+
 
 def set_audit(mode: str, ledger=None) -> None:
-    """The reference's program-audit switch: refused unless off."""
-    if (mode or "none") != "none":
-        raise NotImplementedError(f"audit={mode!r}: the program audit "
-                                  f"{AUDIT_REFUSAL}")
+    """Arm (or disarm) the program audit for this process. ``record``
+    emits ``audit`` ledger events; ``halt`` also raises
+    :class:`~tpu_dist_torch.analysis.proglint.AuditError` on any
+    unwaivered finding. A fresh sentry per call: each run watches its own
+    programs."""
+    mode = validate_audit(mode)
+    _AUDIT["mode"], _AUDIT["ledger"] = mode, ledger
+    if mode == "none":
+        _AUDIT["sentry"] = None
+    else:
+        from tpu_dist_torch.analysis.proglint import RecompileSentry
+
+        _AUDIT["sentry"] = RecompileSentry()
 
 
-def audit_program(program: str, fn, *args, **kwargs):
-    """The reference's compile-time audit of one program: refused."""
-    raise NotImplementedError(f"audit_program({program!r}): the program "
-                              f"audit {AUDIT_REFUSAL}")
+def audit_mode() -> str:
+    return _AUDIT["mode"]
+
+
+def register_audit_program(program: str, allowed: int = 1) -> None:
+    """Put a program under the recompile sentry (PL005). ``allowed`` is
+    its legal count of distinct input signatures: 1 for fixed-shape step
+    programs, the bucket count for serve prefill. No-op when the audit is
+    off."""
+    if _AUDIT["sentry"] is not None:
+        _AUDIT["sentry"].register(program, allowed)
+
+
+def note_audit_dispatch(program: str, *args) -> None:
+    """Note one dispatch's input signature for the sentry (host only, no
+    device sync). No-op when the audit is off."""
+    if _AUDIT["sentry"] is not None:
+        _AUDIT["sentry"].note(program, args)
+
+
+def _emit_audit(program: str, findings) -> None:
+    led = _AUDIT["ledger"]
+    if led is not None:
+        led.emit("audit", program=program, mode=_AUDIT["mode"],
+                 findings=len([f for f in findings if not f.waived]),
+                 waived=len([f for f in findings if f.waived]),
+                 detail=[f.to_json() for f in findings] or None)
+
+
+def _verdict(findings) -> None:
+    from tpu_dist_torch.analysis import proglint
+
+    bad = proglint.unwaivered(findings)
+    if bad and _AUDIT["mode"] == "halt":
+        raise proglint.AuditError(
+            "audit=halt: " + "; ".join(f.render() for f in bad))
+
+
+def audit_recorder(program: str, state=None, allowed: int = 1):
+    """The recorder of ``program``'s audited dispatch (a
+    ``proglint.ProgramRecorder`` to run the dispatch under, snapshotting
+    ``state``'s storage), with the program registered for the sentry; None
+    when the audit is off. The recorder costs Python time per operator:
+    it never runs under CUDA graph capture or a profiler session."""
+    if _AUDIT["mode"] == "none":
+        return None
+    import torch
+
+    if (torch.cuda.is_available()
+            and torch.cuda.is_current_stream_capturing()) \
+            or torch.autograd._profiler_enabled():
+        raise RuntimeError(f"audit of {program!r}: the program audit does "
+                           "not record under CUDA graph capture or a "
+                           "profiler session")
+    from tpu_dist_torch.analysis.proglint import ProgramRecorder
+
+    register_audit_program(program, allowed)
+    return ProgramRecorder(state)
+
+
+def finish_audit(program: str, rec, *, precision: Optional[str] = None,
+                 donate: bool = True, device=None):
+    """The audit of one recorded dispatch: every rank's collective digest
+    all-gathered once over the world group (a collective: every rank
+    calls it), the checks, the waivers, exactly one ``audit`` event.
+    Returns the (waiver-applied) findings; raises AuditError under
+    ``halt`` when any survive."""
+    if rec is None:
+        return []
+    import torch.distributed as dist
+
+    from tpu_dist_torch.analysis import proglint
+
+    digests = proglint.exchange_digests(rec, device)
+    rank = dist.get_rank() if digests is not None else 0
+    findings = proglint.audit_recording(program, rec, precision=precision,
+                                        donate=donate, digests=digests,
+                                        rank=rank)
+    waivers, meta = proglint.load_waivers()
+    findings = proglint.apply_waivers(findings, waivers) + meta
+    _emit_audit(program, findings)
+    _verdict(findings)
+    return findings
+
+
+def audit_program(program: str, fn, *args, precision: Optional[str] = None,
+                  allowed: int = 1, state=None, donate: bool = True,
+                  device=None):
+    """Run ``fn(*args)`` once under the audit and audit that dispatch
+    (:func:`audit_recorder` + :func:`finish_audit`); its signature is
+    noted for the sentry. Returns the findings ([] when the audit is off:
+    ``fn`` does not run then)."""
+    rec = audit_recorder(program, state, allowed)
+    if rec is None:
+        return []
+    note_audit_dispatch(program, *args)
+    with rec:
+        fn(*args)
+    return finish_audit(program, rec, precision=precision, donate=donate,
+                        device=device)
+
+
+def check_audit_sentry() -> None:
+    """The drain-boundary PL005 check: one host-side count per
+    registered program. Findings latch per program, so ``record`` emits
+    exactly one ``audit`` event per offender; ``halt`` raises on
+    unwaivered ones."""
+    sentry = _AUDIT["sentry"]
+    if sentry is None:
+        return
+    findings = sentry.check()
+    if not findings:
+        return
+    from tpu_dist_torch.analysis import proglint
+
+    waivers, _ = proglint.load_waivers()
+    findings = proglint.apply_waivers(findings, waivers)
+    for f in findings:
+        _emit_audit(f.program, [f])
+    _verdict(findings)
 
 
 # ---- plan activation and the config knob ----------------------------------
