@@ -1795,7 +1795,8 @@ def chunked_head_timing(torch):
     the mean losses (the unchunked rounds its logits to bf16: within
     BF16_TOL)."""
     from tpu_dist_torch.engine.lm_steps import lm_loss_and_metrics
-    from tpu_dist_torch.ops.fused_xent import chunked_softmax_xent, mm_route
+    from tpu_dist_torch.ops.f32_product import mm_route
+    from tpu_dist_torch.ops.fused_xent import chunked_softmax_xent
 
     free_device(torch)
     gen = torch.Generator(device="cuda").manual_seed(SEED)

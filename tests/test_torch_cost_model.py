@@ -78,3 +78,15 @@ def test_mode_buckets_views_as_free_and_reads_bytes():
                                  "bytes": 4.0 * (16 * 8 + 8 * 4 + 16 * 4),
                                  "count": 1}
     assert buckets["elementwise"]["count"] == 1     # the relu
+
+
+def test_out_dtype_products_count_their_flops():
+    """``mm``/``bmm(..., out_dtype=float32)`` (the fp32-output product of
+    bf16 operands on the card) count 2 M N K like the plain product; meta
+    tensors stand in for the card's, which this CPU build cannot run."""
+    a = torch.empty(2, 3, 4, dtype=torch.bfloat16, device="meta")
+    b = torch.empty(2, 4, 5, dtype=torch.bfloat16, device="meta")
+    with CostModelMode() as mode:
+        torch.bmm(a, b, out_dtype=torch.float32)
+        torch.mm(a[0], b[0], out_dtype=torch.float32)
+    assert mode.buckets()["matmul"]["flops"] == 2.0 * (2 + 1) * 3 * 4 * 5

@@ -736,7 +736,8 @@ def test_chunked_xent_on_the_card_equals_the_cpu_path(cuda, dtype):
     CPU's upcast differ by summation order before the backward rounds
     softmax - onehot to bf16, so the gradients agree within 2^-8 of their
     largest entry."""
-    from tpu_dist_torch.ops.fused_xent import chunked_softmax_xent, mm_route
+    from tpu_dist_torch.ops.f32_product import mm_route
+    from tpu_dist_torch.ops.fused_xent import chunked_softmax_xent
 
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator().manual_seed(0)

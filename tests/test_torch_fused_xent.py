@@ -26,6 +26,7 @@ import jax.numpy as jnp  # noqa: E402
 from tpu_dist.ops import fused_xent as ref  # noqa: E402
 from tpu_dist_torch.engine.lm_steps import lm_loss_and_metrics  # noqa: E402
 from tpu_dist_torch.ops import fused_xent as port  # noqa: E402
+from tpu_dist_torch.ops.f32_product import mm_route  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -125,8 +126,8 @@ def test_no_grad_call_and_cpu_route():
             torch.from_numpy(m), 5)
     assert float(loss) == pytest.approx(_ref(x, w, t, m, 5, "fp32")[0],
                                         rel=1e-5)
-    assert port.mm_route("cpu", torch.float32) == "fp32"
-    assert port.mm_route("cpu", torch.bfloat16) in ("upcast", "out_dtype")
+    assert mm_route("cpu", torch.float32) == "fp32"
+    assert mm_route("cpu", torch.bfloat16) in ("upcast", "out_dtype")
 
 
 def test_lm_trainer_loss_chunk_matches_reference_trainer(tmp_path):

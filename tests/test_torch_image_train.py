@@ -32,6 +32,7 @@ from tpu_dist.engine.loop import Trainer as JaxTrainer  # noqa: E402
 from tpu_dist_torch.configs import TrainConfig  # noqa: E402
 from tpu_dist_torch.engine import checkpoint as ckpt  # noqa: E402
 from tpu_dist_torch.engine.loop import Trainer  # noqa: E402
+from tpu_dist_torch.plan.compile import audit_mode  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -147,8 +148,8 @@ def test_corrupt_newest_checkpoint_falls_back(tmp_path):
 @pytest.mark.parametrize("mode", ["record", "x"])
 def test_audit_knob_records_one_event_or_names_the_modes(tmp_path, mode):
     """The ``audit`` knob: ``record`` emits one ``audit`` event for the
-    run's one program (``train_step``, clean); an unknown mode raises
-    ValueError naming the modes."""
+    run's one program (``train_step``, clean) and ``fit`` disarms it; an
+    unknown mode raises ValueError naming the modes."""
     path = str(tmp_path / "run.jsonl")
     cfg = TrainConfig(**TINY, audit=mode, ledger_path=path,
                       checkpoint_dir=str(tmp_path))
@@ -162,6 +163,7 @@ def test_audit_knob_records_one_event_or_names_the_modes(tmp_path, mode):
         audits = [r for r in map(json.loads, f) if r["event"] == "audit"]
     assert [(a["program"], a["mode"], a["findings"]) for a in audits] == \
         [("train_step", "record", 0)]
+    assert audit_mode() == "none"          # fit disarms the run's audit
 
 
 def test_mesh_wider_than_the_process_count_raises():

@@ -94,7 +94,9 @@ def test_importing_every_module_pulls_in_no_jax():
             "tpu_dist_torch.tools.fleet_report",
             "tpu_dist_torch.analysis", "tpu_dist_torch.analysis.proglint",
             "tpu_dist_torch.tools.convergence",
-            "tpu_dist_torch.tools.lm_convergence"} <= set(out["mods"])
+            "tpu_dist_torch.tools.lm_convergence",
+            "tpu_dist_torch.ops.f32_product",
+            "tpu_dist_torch.tools.optim_step_time"} <= set(out["mods"])
 
 
 @pytest.mark.parametrize("path", _port_files(),

@@ -5,7 +5,8 @@ each through the engines' own update funnel (the reference's
 skipped step must leave the params and the optimizer's schedule count
 where they were, so the third step reads the same learning rate (and,
 for AdamW, the same bias corrections) in both. Params agree within
-1e-6 * (1 + |ref|), the counts exactly."""
+1e-6 * (1 + |ref|), the counts exactly. ``update`` writes the state it
+is given in place."""
 
 import numpy as np
 import pytest
@@ -76,3 +77,19 @@ def test_schedules_take_a_device_count_without_a_host_value():
             assert torch.is_tensor(t) and t.dim() == 0
             assert t.dtype == torch.float32
             assert float(t) == pytest.approx(sched(step), rel=1e-7)
+
+
+@pytest.mark.parametrize("kind", ["sgd", "adamw"])
+def test_update_writes_the_state_in_place(kind):
+    """``update`` hands back the state it was given, its count and every
+    moment in their own storage: no second state is allocated."""
+    port = topt.make_optimizer(0.1, kind=kind, weight_decay=1e-4)
+    params = [torch.ones(SHAPES[k]) for k in SHAPES]
+    state = port.init(params)
+    ptrs = [t.data_ptr() for t in (state.count, *state.mu, *state.nu)]
+    for n in range(1, 3):
+        _, new = port.update([torch.full_like(p, 0.5) for p in params],
+                             state, params)
+        assert new is state and int(state.count) == n
+    assert [t.data_ptr() for t in (new.count, *new.mu, *new.nu)] == ptrs
+    assert all(float(m.abs().sum()) > 0 for m in new.mu)

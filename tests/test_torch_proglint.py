@@ -233,6 +233,80 @@ def test_pl004_fp32_matmul_in_low_precision_program(dtype, precision, trips):
         assert f"inside a {precision} program" in fs[0].message
 
 
+def test_pl004_fp32_output_product_records_its_bf16_operands():
+    """``full_attention``'s scores are bf16 q and k with an fp32 result,
+    the reference's ``preferred_element_type=float32`` einsum: its forward
+    and backward record bf16 in every product (clean under bf16, where
+    this PyTorch computes them by upcasting), and its numbers are the
+    reference's."""
+    import jax.numpy as jnp
+    from tpu_dist.models.transformer import full_attention as jax_attention
+    from tpu_dist_torch.models.transformer import full_attention
+    from tpu_dist_torch.ops.f32_product import matmul_f32
+
+    rng = np.random.RandomState(0)
+    arrs = [rng.randn(2, 8, 2, 16).astype(np.float32) for _ in range(3)]
+    q, k, v = (torch.from_numpy(a).bfloat16().requires_grad_() for a in arrs)
+    with ProgramRecorder() as rec:
+        out = full_attention(q, k, v)
+        out.float().square().sum().backward()
+    assert rec.compute and all("bfloat16" in dts for _, dts in rec.compute)
+    assert audit_recording("p", rec, precision="bf16") == []
+    # the card's route, bmm(..., out_dtype=float32), on meta tensors: the
+    # same recording as the upcast's
+    qm, km, vm = (torch.empty(t.shape, dtype=torch.bfloat16, device="meta",
+                              requires_grad=True) for t in (q, k, v))
+    with ProgramRecorder() as meta:
+        full_attention(qm, km, vm).float().square().sum().backward()
+    assert sorted(set(meta.compute)) == sorted(set(rec.compute))
+    a, b = q.detach().transpose(1, 2), k.detach().transpose(1, 2).mT
+    scores = matmul_f32(a, b)              # fp32 scores, never rounded
+    assert scores.dtype == torch.float32
+    torch.testing.assert_close(scores, a.float() @ b.float(), rtol=0, atol=0)
+    # the output is the fp32-score attention's (both take the exact upcast
+    # on this CPU): scores rounded to bf16 would move it by a bf16 ulp
+    mask = torch.ones(8, 8, dtype=torch.bool).tril()
+    w = torch.softmax((scores / 4.0).masked_fill(~mask, float("-inf")), -1)
+    torch.testing.assert_close(out.detach(), (w.to(v.dtype) @ v.detach(
+        ).transpose(1, 2)).transpose(1, 2), rtol=0, atol=0)
+
+    def loss(q, k, v):
+        return jnp.sum(jax_attention(q, k, v).astype(jnp.float32) ** 2)
+
+    jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in arrs)
+    want = [jax_attention(jq, jk, jv),
+            *jax.grad(loss, argnums=(0, 1, 2))(jq, jk, jv)]
+    for got, ref_ in zip([out, q.grad, k.grad, v.grad], want):
+        ref_ = np.asarray(ref_.astype(jnp.float32))
+        assert got.dtype == torch.bfloat16
+        np.testing.assert_array_less(
+            np.abs(got.detach().float().numpy() - ref_),
+            0.02 * (1 + np.abs(ref_)))
+
+
+def test_fit_disarms_the_audit_for_later_engines(tmp_path):
+    """A trainer's audit is its run's: ``fit`` disarms it, so a
+    ``ServeEngine`` built later in the process registers nothing and
+    emits nothing into the finished run's ledger."""
+    from tpu_dist_torch.configs import LMConfig
+    from tpu_dist_torch.engine.lm_loop import LMTrainer
+    from tpu_dist_torch.engine.serve import (DecodeRequest, ServeConfig,
+                                             ServeEngine)
+    from tpu_dist_torch.obs.ledger import read_ledger
+
+    path = str(tmp_path / "lm.jsonl")
+    tr = LMTrainer(LMConfig(**TINY_LM, audit="halt", ledger_path=path),
+                   device="cpu")
+    tr.fit()
+    assert pc.audit_mode() == "none" and pc._AUDIT["sentry"] is None
+    before = read_ledger(path)
+    eng = ServeEngine(tr.model, ServeConfig(max_slots=2, page_size=8,
+                                            num_pages=16), device="cpu")
+    assert len(eng.run([DecodeRequest(i, np.arange(1, 2 + 5 * i), 3)
+                        for i in range(3)])) == 3
+    assert pc._AUDIT["sentry"] is None and read_ledger(path) == before
+
+
 def test_pl004_float64_result_and_the_plain_version_skip():
     from tpu_dist_torch.ops.pallas_quant import fused_quant_matmul_plain
 

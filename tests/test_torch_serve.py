@@ -133,6 +133,22 @@ def test_paged_greedy_equals_contiguous_generate(kw):
         np.testing.assert_array_equal(refs[c.rid], c.tokens)
 
 
+def test_bf16_paged_greedy_equals_contiguous_generate():
+    """In bf16 the paged tick's exact read and the contiguous cache's
+    attention take the one score product (bf16 q and k, fp32 result): the
+    paged greedy tokens are contiguous ``generate``'s."""
+    lm = _lm(seed=4, dtype=torch.bfloat16)
+    refs = [generate(lm, p[None], s, use_cache=True)[0].numpy()
+            for p, s in zip(PROMPTS, STEPS)]
+    eng = ServeEngine(lm, ServeConfig(max_slots=2, page_size=8,
+                                      num_pages=16), device="cpu")
+    comps = eng.run([DecodeRequest(i, p, s)
+                     for i, (p, s) in enumerate(zip(PROMPTS, STEPS))])
+    assert len(comps) == 3
+    for c in comps:
+        np.testing.assert_array_equal(refs[c.rid], c.tokens)
+
+
 def test_pool_alloc_free_and_high_water():
     pool = PagedKVPool(num_layers=1, num_pages=8, page_size=4,
                        num_heads=2, head_dim=8, device="cpu")

@@ -38,7 +38,10 @@ The recorder leaves out the operators of a kernel's plain version
 the card the kernels are ctypes launches it never sees; on the CPU their
 plain versions run instead (the fused int8 product multiplies in float64,
 the flash pair in fp32), so without the skip a bf16 or int8 program would
-flag on the CPU and not on the card.
+flag on the CPU and not on the card. A product with an fp32 result that
+this PyTorch computes by upcasting (``ops.f32_product``) is recorded with
+the operand dtypes it stands for (``product_operands``), as the
+reference's ``preferred_element_type=float32`` dot is.
 
 Waiver grammar (default file ``proglint_waivers.txt`` beside this
 module), as the reference's::
@@ -66,6 +69,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 
 from tpu_dist_torch import kernels
+from tpu_dist_torch.ops.f32_product import product_operands
 
 CHECKS = {
     "PL000": ("waiver hygiene",
@@ -318,10 +322,11 @@ class ProgramRecorder(TorchDispatchMode):
             return out
         if name in _COMPUTE_OPS:
             leaves, _ = tree_flatten((args, kwargs))
-            dts = tuple(str(t.dtype).replace("torch.", "") for t in leaves
-                        if isinstance(t, torch.Tensor)
-                        and t.dtype.is_floating_point)
-            self.compute.append((name, dts))
+            operands = product_operands() or [
+                t.dtype for t in leaves if isinstance(t, torch.Tensor)
+                and t.dtype.is_floating_point]
+            self.compute.append((name, tuple(
+                str(dt).replace("torch.", "") for dt in operands)))
         outs, _ = tree_flatten(out)
         if any(isinstance(t, torch.Tensor) and t.dtype == torch.float64
                for t in outs):

@@ -115,6 +115,8 @@ records the run's first dispatch of ``train_step``/``window_step`` under
 the first-dispatch probe (warm: out of every rate) and emits one ``audit``
 event for it, with the config's ``precision``; every dispatch's input
 signature is noted for the recompile sentry, which is read at each drain.
+``fit`` disarms it on every exit: a later engine in the process does not
+emit into this run's ledger.
 """
 
 from __future__ import annotations
@@ -1152,6 +1154,7 @@ class LMTrainer:
             try:
                 ckpt.wait_for_async_save()   # never exit mid-write
             finally:
+                set_audit("none")   # the audit was this run's: disarm it
                 self.obs.run_end(steps=self.state.step,
                                  best_ppl=self.best_ppl)
         return self.best_ppl

@@ -94,7 +94,7 @@ event. Every step, window and eval comes from ``plan.compile
 .compile_plan`` (:meth:`Trainer._step_plan`). The program audit (the
 ``audit`` knob, ``analysis.proglint``) records the run's first dispatch of
 ``train_step``/``window_step`` and reads the recompile sentry at each
-drain, as in the LMTrainer.
+drain, as in the LMTrainer; ``fit`` disarms it on every exit.
 
 It runs on CUDA unless ``device="cpu"`` is asked for, and takes an
 optional flax-layout ``init_params``/``init_batch_stats`` pair so a run can
@@ -908,6 +908,7 @@ class Trainer:
             try:
                 ckpt.wait_for_async_save()   # never exit mid-write
             finally:
+                set_audit("none")   # the audit was this run's: disarm it
                 self.obs.run_end(steps=self.state.step,
                                  best_acc1=self.best_acc1)
         return self.best_acc1

@@ -191,12 +191,7 @@ def apply_update(tx, state: TrainState, grads: List[torch.Tensor],
     if hasattr(tx, "apply"):      # fused kernel: params and moments in place
         state.opt_state = tx.apply(params, grads, state.opt_state, state.step)
     else:                          # optax protocol: updates, then p + u
-        updates, new_opt = tx.update(grads, state.opt_state, params)
-        # the new moments land in the old ones' storage: the state is
-        # updated in place (the audit's PL003)
-        for t, n in zip(state.opt_tensors(), TrainState(
-                0, [], new_opt).opt_tensors()):
-            t.copy_(n)
+        updates, state.opt_state = tx.update(grads, state.opt_state, params)
         for p, u in zip(params, updates):
             p.copy_((p.float() + u).to(p.dtype))
     if scaled:   # an overflow step keeps the old params and optimizer state

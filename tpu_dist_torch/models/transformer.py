@@ -48,18 +48,18 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from tpu_dist_torch.device import resolve_device
+from tpu_dist_torch.ops.f32_product import matmul_f32
 from tpu_dist_torch.ops.quant import make_dense
 
 
 def full_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
                    kv_offset: int = 0):
     """Reference attention over (B, L, H, D) tensors, fp32 softmax. The
-    score product runs in q's dtype, as the reference's einsum takes its
-    compute-dtype operands (a bf16 program computes no fp32 matmul here:
-    the audit's PL004); the scores are fp32 from there on."""
+    scores are the compute-dtype q and k's product with an fp32 result,
+    as the reference's einsum with ``preferred_element_type=float32``."""
     d = q.shape[-1]
-    scores = torch.einsum("bqhd,bkhd->bhqk", q,
-                          k.to(q.dtype)).float() / math.sqrt(d)
+    scores = matmul_f32(q.transpose(1, 2),
+                        k.transpose(1, 2).mT) / math.sqrt(d)
     if causal:
         qpos = q_offset + torch.arange(q.shape[1], device=q.device)[:, None]
         kpos = kv_offset + torch.arange(k.shape[1], device=q.device)[None, :]

@@ -176,7 +176,10 @@ class CostModelMode(TorchDispatchMode):
         if func.is_view or name in _FREE:
             return out
         formula = self._flops.get(func.overloadpacket)
-        flops = (float(formula(*args, **kwargs, out_val=out))
+        # mm/bmm(..., out_dtype) pass the dtype third, where the library's
+        # formula takes its output shape: count the product of the two
+        fargs = args[:2] if func._overloadname == "dtype" else args
+        flops = (float(formula(*fargs, **kwargs, out_val=out))
                  if formula is not None else _numel(out))
         if self._in_attention():
             cat = "attention"

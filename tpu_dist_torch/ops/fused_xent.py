@@ -15,11 +15,10 @@ holding more than one (chunk, V) tile of logits:
   the features' rows and the (D, V) head-weight gradient in fp32.
 
 The head product multiplies compute-dtype operands with an fp32 result,
-as ``jnp.dot(..., preferred_element_type=float32)`` does. A product of two
-bf16 values is exact in fp32, so :func:`mm_f32` upcasts both operands and
-runs an fp32 matmul (TF32 must be off, PyTorch's default) where
-``torch.mm(..., out_dtype=torch.float32)`` is not available for them:
-the same function, only the summation order may differ.
+as ``jnp.dot(..., preferred_element_type=float32)`` does
+(:func:`~tpu_dist_torch.ops.f32_product.mm_f32`: ``torch.mm(...,
+out_dtype=torch.float32)`` where this PyTorch takes it, else an exact
+upcast; ``f32_product.mm_route`` says which).
 
 Against the unchunked loss (``engine.lm_steps.lm_loss_and_metrics``) the
 result differs by that path's rounding of the logits to the compute dtype
@@ -32,51 +31,9 @@ It is plain PyTorch: the reference's function is ``lax.scan`` and
 
 from __future__ import annotations
 
-import functools
-
 import torch
 
-from tpu_dist_torch import kernels
-
-
-@functools.lru_cache(maxsize=None)
-def _takes_out_dtype(device: str, dtype: torch.dtype) -> bool:
-    """Whether this PyTorch runs ``torch.mm(..., out_dtype=float32)`` on
-    ``dtype`` operands on ``device`` (asked once per pair)."""
-    a = torch.zeros((1, 1), dtype=dtype, device=device)
-    try:
-        torch.mm(a, a, out_dtype=torch.float32)
-    except (TypeError, RuntimeError):
-        return False
-    return True
-
-
-def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``a @ b`` of two 2-d tensors of one compute dtype with an fp32
-    result: ``torch.mm(..., out_dtype=float32)`` where this PyTorch takes
-    it for the dtype and device, else both operands upcast to fp32."""
-    if a.dtype == torch.float32:
-        return torch.mm(a, b)
-    if _takes_out_dtype(str(a.device), a.dtype):
-        return torch.mm(a, b, out_dtype=torch.float32)
-    return _mm_upcast(a, b)
-
-
-@kernels.plain_version
-def _mm_upcast(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``torch.mm(..., out_dtype=float32)``'s plain version where this
-    PyTorch lacks it: both operands upcast (exact), one fp32 product. The
-    program audit reads it as the product it stands for."""
-    return torch.mm(a.float(), b.float())
-
-
-def mm_route(device, dtype) -> str:
-    """Which product :func:`mm_f32` runs for ``dtype`` on ``device``:
-    ``"out_dtype"``, ``"upcast"`` or ``"fp32"``."""
-    if dtype == torch.float32:
-        return "fp32"
-    return ("out_dtype" if _takes_out_dtype(str(torch.device(device)), dtype)
-            else "upcast")
+from tpu_dist_torch.ops.f32_product import mm_f32
 
 
 def _chunk_stats(x_c, w_c, t_c):

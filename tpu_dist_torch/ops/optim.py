@@ -3,10 +3,11 @@
 :82``).
 
 The reference builds optax chains; the port keeps their semantics as
-plain-PyTorch functional transforms over lists of tensors, with optax's
+plain-PyTorch transforms over lists of tensors, with optax's
 ``init(params) -> state`` / ``update(grads, state, params) -> (updates,
 state)`` protocol, so :func:`tpu_dist_torch.engine.steps.apply_update`
-treats both the same way:
+treats both the same way. ``update`` writes the moments and the count in
+place and hands the same state back:
 
 * ``sgd``: clip by global norm, then weight decay added to the gradient
   (``optax.add_decayed_weights``), then torch-SGD momentum as
@@ -142,33 +143,36 @@ class Optimizer:
 
     @torch.no_grad()
     def update(self, grads, state: OptState, params):
-        """(updates, new_state): updates to add to ``params``."""
+        """(updates, state): updates to add to ``params``. The moments and
+        the count are updated in place and ``state`` comes back: no new
+        state is allocated, and the train state keeps its storage (as
+        buffer donation gives the reference; the program audit's PL003)."""
         u = [g.float() for g in grads]
         if self.grad_clip > 0:
             u = clip_by_global_norm(u, self.grad_clip, self.sq_norm)
         lr = self.schedule(state.count)
+        state.count.add_(1)
         if self.kind == "adamw":
-            t = state.count + 1
-            mu = [(1 - self.b1) * g + self.b1 * m for g, m in zip(u, state.mu)]
-            nu = [(1 - self.b2) * (g * g) + self.b2 * n
-                  for g, n in zip(u, state.nu)]
-            tf = t.to(torch.float32)
+            torch._foreach_mul_(state.mu, self.b1)
+            torch._foreach_add_(state.mu, u, alpha=1 - self.b1)
+            torch._foreach_mul_(state.nu, self.b2)
+            torch._foreach_addcmul_(state.nu, u, u, value=1 - self.b2)
+            tf = state.count.to(torch.float32)
             c1 = 1 - torch.pow(torch.full_like(tf, self.b1), tf)
             c2 = 1 - torch.pow(torch.full_like(tf, self.b2), tf)
             u = [(m / c1) / (torch.sqrt(n / c2) + self.eps)
-                 for m, n in zip(mu, nu)]
+                 for m, n in zip(state.mu, state.nu)]
             if self.weight_decay:
                 u = [x + self.weight_decay * p.float()
                      for x, p in zip(u, params)]
-            new = OptState(t, mu, nu)
         else:
             if self.weight_decay:
                 u = [x + self.weight_decay * p.float()
                      for x, p in zip(u, params)]
-            mu = [x + self.momentum * m for x, m in zip(u, state.mu)]
-            u = mu
-            new = OptState(state.count + 1, mu, [])
-        return [-lr * x for x in u], new
+            torch._foreach_mul_(state.mu, self.momentum)
+            torch._foreach_add_(state.mu, u)
+            u = state.mu
+        return [-lr * x for x in u], state
 
 
 def make_optimizer(lr: float, momentum: float = 0.9,

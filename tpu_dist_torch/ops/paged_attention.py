@@ -40,6 +40,7 @@ from typing import Optional
 import torch
 
 from tpu_dist_torch import kernels
+from tpu_dist_torch.ops.f32_product import matmul_f32
 from tpu_dist_torch.ops.flash_attention import NEG_INF, masked_softmax_pv
 from tpu_dist_torch.ops.quant import quantize_int8
 from tpu_dist_torch.parallel.mesh import SP_AXIS
@@ -195,10 +196,11 @@ def cow_fork_pages(layers, src_pages, dst_pages):
 def masked_attention(q, k, v, q_positions):
     """``full_attention`` with a per-row causal horizon: row ``b`` of ``q``
     (B, Lq, H, D) sits at position ``q_positions[b]`` (+ the local offset)
-    and attends to keys ``kpos <= qpos``; fp32 scores and softmax."""
+    and attends to keys ``kpos <= qpos``; fp32 scores (the product ``full_attention``
+    takes) and softmax."""
     d = q.shape[-1]
-    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(),
-                          k.float()) / math.sqrt(d)
+    scores = matmul_f32(q.transpose(1, 2),
+                        k.transpose(1, 2).mT) / math.sqrt(d)
     qpos = (q_positions.long()[:, None]
             + torch.arange(q.shape[1], device=q.device)[None, :])  # (B, Lq)
     kpos = torch.arange(k.shape[1], device=q.device)                # (Lk,)
