@@ -110,7 +110,7 @@ they print share the card and the host. Phases:
 11. the image side on one card: (a) script 6
    (``scripts.distributed_slurm``) at its defaults (ResNet-50, synthetic
    ImageNet 224 x 224 x 3 with 1000 classes, fp32, plain sgd, ``jit``)
-   cut to batch 256 and 4096 + 1024 images (SCRIPT6_CUTS), cuDNN's
+   cut to batch 256 and 2048 + 512 images (SCRIPT6_CUTS), cuDNN's
    autotuning off (the time limit): img/s with window 1 left out, step
    ms, peak memory, acc@1, no kernel launched;
    (b) ViT-B/16 with ``quant="int8"`` and ``fused_sgd`` (VIT_INT8): 48
@@ -118,7 +118,9 @@ they print share the card and the host. Phases:
    launch a step, ``fused`` true in every step record; ``fused_quant``
    bit-equal at its training shapes and an M tail (VIT_QUANT_SHAPES),
    timed against bf16 ``torch.matmul`` and its bound; (c) one arch per
-   family of the zoo's 29 at 1000 classes (ZOO_SWEEP, 12 archs: the
+   family of the zoo's 29 at 1000 classes in a process of its own beside
+   (a), (b) and (d) (its seconds are cuDNN's first build of each conv
+   shape, on the host) (ZOO_SWEEP, 12 archs: the
    published parameter counts; one bf16 ``fused_sgd`` step at batch 8,
    224 px, 299 for inception_v3, with a finite loss and one ``sgd``
    launch), then the same archs on the
@@ -128,11 +130,11 @@ they print share the card and the host. Phases:
    INT8_LOSS_TOL (1 + |loss|): ``zoo_agreement``); (d) where the port's native library found
    libjpeg, ``tools/data_rate.py`` over an 8-class tree of 500 x 375
    JPEGs (with 11a's img/s as the rate to keep up with) and script 6 for
-   4 steps of 64 over it, every JPEG through the native decoder; where it
+   2 steps of 64 over it, every JPEG through the native decoder; where it
    did not, the PIL route, or with no PIL the refusal naming both.
 12. the LM's model-parallel axes, ranks as in phase 10: (a) phase 6's LM
    at batch 4 on two ranks sharing the card over gloo with CUDA tensors,
-   for 3 steps in each of ``data=2`` + fsdp, ``data=1,model=2`` (gspmd and
+   for 2 steps in each of ``data=2`` + fsdp, ``data=1,model=2`` (gspmd and
    ``tp_impl="ring"``) and ``data=1,seq=2``: the reference's mode strings,
    step 0 within BF16_TOL of a one-rank dp run at the same batch over nccl,
    falling finite losses, per rank one flash backward pair per layer a
@@ -155,7 +157,8 @@ they print share the card and the host. Phases:
    each kernel of the path against its plain version at the shapes the
    modes give it (flash at tp's 4 heads a rank and at the MoE LM's width,
    ``adamw`` over a rank's fsdp and tp leaves, ``fused_quant`` bit-equal
-   at the expert products). One card: no scaling is measured.
+   at the expert products). (b)'s decode bench and (d) run in this
+   process beside the rank groups. One card: no scaling is measured.
 13. pipeline parallelism, sharded decode and ViT ring, ranks as in phase
    10 (gloo on the card; step 0 of each mode within BF16_TOL of a one-rank
    twin over nccl): (a) phase 6's LM on ``data=1,stage=2`` with 4
@@ -165,14 +168,17 @@ they print share the card and the host. Phases:
    rank at M=4 and M=8 (batch 2M): 1F1B within 1.25x, GPipe rising; (b)
    ``data=1,stage=2,model=2`` on four ranks at batch 4, both schedules;
    (c) phase 12b's MoE LM under both schedules; (d) gspmd tp with
-   ``quant="int8"`` at batch 4: the row products through fused_quant's
+   ``quant="int8"`` at batch 4 (b-d one step each: P13_SHORT): the row
+   products through fused_quant's
    scaled pair (``fused_quant_amax`` then ``fused_quant_scaled``, the
    maxima max-reduced between), the pair bit-equal to its plain version at
    the tp ranks' proj and mlp_out shapes and timed beside the one-call
    kernel; (e) tiny fp32 runs of every new mode, card ranks against CPU
    ranks, within LOSS_TOL (int8: INT8_LOSS_TOL) (1 + |loss|); (f) the
    decode bench's one-shot mode with ``--tp 2`` and ``--dp 2`` at phase
-   5's model (64 tokens, one trial; the two side by side), and tiny fp32
+   5's model (64 tokens, one trial; the two side by side, beside the rank
+   groups; (b)'s four ranks start once the one-rank twins have ended),
+   and tiny fp32
    greedy tokens over
    tp=2 and dp=2 equal card vs CPU and to one device; (g) ViT-B/16 under
    ``tp_impl="ring"`` at batch 128 with and without int8; and the flash
@@ -181,9 +187,9 @@ they print share the card and the host. Phases:
    bit-equal at (d)'s column and head products and (g)'s ring products
    (P13_FQ_SHAPES).
 
-14. sp-sharded long-context serving: (a) the decode bench's
-   ``--long-context`` replay of ``tools/traces/longcontext_mix.json`` at
-   phase 5's model (``--attn flash --kv-quant int8 --attn-read flash``,
+14. sp-sharded long-context serving: (a) in this process beside (b)'s
+   and (c)'s rank groups, the decode bench's ``--long-context`` replay
+   of ``tools/traces/longcontext_mix.json`` at phase 5's model (``--attn flash --kv-quant int8 --attn-read flash``,
    4 slots, pages of 64, chunks of 128, ``--long-monolithic``): every
    virtual-clock number equal to P14_LC_PINS (held against the reference
    on the CPU), every request served, one ``flash_fwd`` a layer per
@@ -242,7 +248,8 @@ they print share the card and the host. Phases:
    of one rank resumed from the snapshot; (e) the same LM with
    ``ckpt_enospc@nth=2``: the second epoch's write fails inside the
    container write, the run raises, and the newest valid checkpoint is
-   the first epoch's, which reloads on the card.
+   the first epoch's, which reloads on the card. (b)-(e) run in this
+   process once (a)'s uninterrupted run has ended, beside its faulted one.
 16. the observers: (a) phase 6's LM for 8 steps (a drain a step) three
    times: with every observer on but the profiler (``metrics_port``,
    ``telemetry_csv``, ``skew_every=4``, the watchdog, the flight
@@ -298,9 +305,10 @@ they print share the card and the host. Phases:
    BENCH_GEOMETRY cut to 4 steps (P17_IMAGE): source ``auto``, the hash
    in ``run_start``, one ``sgd`` launch a step; (e) the image ``Trainer``
    on a (1, 2) ``data`` x ``model`` mesh under ``tp_impl="gspmd"``: two
-   gloo ranks sharing the card, phase 4's tiny image model for 4 steps
-   (P17_TINY_IMAGE), losses within LOSS_TOL (1 + |loss|) of one rank's dp
-   run at the same batch and weights, and the two ranks' params
+   gloo ranks sharing the card (started first, beside a-d), phase 4's
+   tiny image model for 4 steps (P17_TINY_IMAGE), losses within
+   LOSS_TOL (1 + |loss|) of one rank's dp run at the same batch and
+   weights, and the two ranks' params
    bit-equal after the last step.
 18. the fleet, two ``python -m tpu_dist_torch.sim.runner`` processes side
    by side, every worker (one supervised ``ServeEngine`` process a
@@ -349,7 +357,19 @@ they print share the card and the host. Phases:
    ``tools.convergence`` (ResNet-50, batch 1024, synthetic 10,240/2,048,
    bf16, ``fused_sgd``) and ``tools.lm_convergence`` (2 layers, d_model
    128 in 2 heads of 64, V 512, batch 32, L 256, bf16, flash): steps and
-   seconds to 90% top-1 and to ppl 4.
+   seconds to 90% top-1 and to ppl 4;
+20. dropout drawn from (seed, step, microbatch, rank): LeNet (synthetic
+   MNIST) and SqueezeNet 1.1 (synthetic CIFAR-10, 32 px) through the image
+   ``Trainer`` (P20_RUN: 8 steps of 256, bf16 over fp32 masters,
+   ``fused_sgd``, a step a dispatch), cuDNN deterministic and untuned:
+   two runs of one seed give bit-equal per-step losses, a run stopped at
+   step P20_CUT and resumed from its checkpoint gives the uninterrupted
+   run's losses from there bit-equal, and every run launches ``sgd`` once
+   a step.
+
+Each phase's seconds print as it ends ("phase N took"), the parts of
+phases 9 and 11 and each rank group's jobs too, and all of them together
+on a line before the total.
 
 The line before the last is the card's name and power limit; the one
 before it the ``{"kernels": [...]}`` record; the last line is
@@ -1990,6 +2010,9 @@ def dp_job(torch, kernels, job, out, rank):
     kind, device = job["kind"], job["device"]
     if kind == "lm12":
         return mp_lm_job(torch, kernels, job, out, rank)
+    if kind == "zoo11":
+        sweep, sgd = zoo_sweep(torch, kernels, job["archs"], device=device)
+        return {"sweep": sweep, "sgd": sgd}
     if kind == "image13":
         return p13_image_job(torch, kernels, job, out, rank)
     if kind == "decode13":
@@ -2133,11 +2156,16 @@ def dp_worker(spec_path):
     with open(spec_path) as f:
         spec = json.load(f)
     info = launch.initialize(device=spec["device"], backend=spec["backend"])
-    results = {}
+    results, job_s = {}, {}
     for job in spec["jobs"]:
+        t0 = time.perf_counter()
         results[job["name"]] = dp_job(torch, kernels,
                                       dict(job, device=spec["device"]),
                                       spec["out"], info.process_id)
+        job_s[job["name"]] = round(time.perf_counter() - t0, 1)
+    with open(os.path.join(spec["out"], f"seconds{info.process_id}.json"),
+              "w") as f:
+        json.dump(job_s, f)
     with open(os.path.join(spec["out"], f"rank{info.process_id}.json"),
               "w") as f:
         json.dump(results, f)
@@ -2207,6 +2235,8 @@ class DpGroup:
         for r in range(self.world):
             with open(os.path.join(self.out, f"rank{r}.json")) as f:
                 res.append(json.load(f))
+        with open(os.path.join(self.out, "seconds0.json")) as f:
+            log(f"  {self.name}: rank 0's seconds a job {f.read()}")
         return res
 
 
@@ -2386,13 +2416,13 @@ def dp_path(torch, kernels, training, image, tmp):
 
 # script 6 (scripts/6.distributed_slurm.py) at its DEFAULTS, cut to one
 # card: batch 3200 is job-wide and one card holds about 256 at fp32; one
-# epoch of 16 steps; 1024 validation images
-SCRIPT6_CUTS = dict(batch_size=256, synth_train_size=4096,
-                    synth_val_size=1024, epochs=1)
+# epoch of 8 steps; 512 validation images
+SCRIPT6_CUTS = dict(batch_size=256, synth_train_size=2048,
+                    synth_val_size=512, epochs=1)
 # ViT-B/16 in int8 at full width on the synthetic ImageNet
 VIT_INT8 = dict(arch="vit_base", dataset="imagenet", precision="bf16",
                 quant="int8", optimizer="fused_sgd", batch_size=128,
-                synth_train_size=2048, synth_val_size=256, epochs=1,
+                synth_train_size=1024, synth_val_size=256, epochs=1,
                 seed=SEED, print_freq=16, workers=2)
 # fused_quant at ViT-B/16 training shapes, (M, K, N): M = 128 images x 197
 # tokens; an M that is no multiple of a tile (3 images) for the tail
@@ -2432,9 +2462,9 @@ ZOO_FAMILIES = (("vgg11", 64, False, {}), ("densenet121", 64, True, {}),
 # the archs 11c's sweep steps at 1000 classes: one a family, the ones the
 # card-against-CPU check picks
 ZOO_SWEEP = sorted({name for name, *_ in ZOO_FAMILIES})
-# 11d: the ImageFolder tree (8 classes x 32 JPEGs at 500 x 375) and the
+# 11d: the ImageFolder tree (8 classes x 16 JPEGs at 500 x 375) and the
 # script-6 steps over it
-FOLDER_IMAGES, FOLDER_CLASSES, FOLDER_BATCH = 256, 8, 64
+FOLDER_IMAGES, FOLDER_CLASSES, FOLDER_BATCH = 128, 8, 64
 
 
 def script6_path(torch, kernels, cuts=SCRIPT6_CUTS, device="cuda"):
@@ -2491,7 +2521,7 @@ def script6_path(torch, kernels, cuts=SCRIPT6_CUTS, device="cuda"):
     return {"config": {**cuts, "arch": cfg.arch, "dataset": cfg.dataset,
                        "precision": cfg.precision,
                        "optimizer": cfg.optimizer, "variant": cfg.variant},
-            "cuts": "batch 3200 -> 256 (one card), 4096 train / 1024 val "
+            "cuts": "batch 3200 -> 256 (one card), 2048 train / 512 val "
                     "synthetic images, 1 epoch (90), no cuDNN autotuning",
             "steps": steps, "losses": losses,
             "train_img_per_s_window1_excluded": tr.last_img_s,
@@ -2714,7 +2744,7 @@ def zoo_agreement(torch, families=ZOO_FAMILIES, n=4):
 
 def imagefolder_path(torch, kernels, device_rate, device="cuda"):
     """11d: where the native library found libjpeg, the data-rate tool
-    over an 8-class tree of 500 x 375 JPEGs and 4 steps of script 6 over
+    over an 8-class tree of 500 x 375 JPEGs and 2 steps of script 6 over
     the same tree, every JPEG through the native decoder; where it did
     not, ``dataset="imagenet"`` over a JPEG tree takes the PIL route (PIL
     present) or raises naming both libraries."""
@@ -2775,7 +2805,7 @@ def imagefolder_path(torch, kernels, device_rate, device="cuda"):
 
 # ---- phase 12: the LM's model-parallel axes ---------------------------------
 
-P12_STEPS = 3
+P12_STEPS = 2
 # (a) phase 6's LM at batch 4 in each mode, two ranks sharing the card
 P12_MODES = {
     "fsdp": dict(mesh_shape=[2], mesh_axes=["data"], fsdp=True),
@@ -3038,12 +3068,18 @@ def model_parallel_path(torch, kernels, tmp):
                              **P12_EP)},
                 *tiny2], tmp),
             DpGroup("p12_four", 4, "cuda", "gloo", tiny4, tmp)]
+        # the decode bench and the warm start in this process meanwhile
+        try:
+            decode, decode_launches = moe_decode_bench(torch, kernels)
+            warm = warm_start_fixture(torch)
+        except BaseException:
+            for g in groups:
+                g.kill()
+            raise
         one, two, four = wait_groups(groups, (300, 600, 240))
         one = one[0]
     finally:
         res_cpu2, res_cpu4 = cpu2.wait(300), cpu4.wait(120)
-    decode, decode_launches = moe_decode_bench(torch, kernels)
-    warm = warm_start_fixture(torch)
     shapes = check_parallel_shapes(torch)
 
     # (a) each mode against the one-rank dp run
@@ -3160,6 +3196,8 @@ def model_parallel_path(torch, kernels, tmp):
 # ---- phase 13: pipeline parallelism, sharded decode, ViT ring ---------------
 
 P13_STEPS = 2
+# (b)-(d): one step each (their gates hold step 0 and the launches)
+P13_SHORT = 1
 # (a) phase 6's LM at full width on data=1,stage=2: M microbatches of 2
 # sequences (batch 2M), so the stash 1F1B bounds and the graphs GPipe keeps
 # both scale with M
@@ -3454,7 +3492,7 @@ def pipeline_path(torch, kernels, tmp, device="cuda"):
 
     def moe(name, **kw):
         return {"name": name, "kind": "lm12",
-                "cfg": {**P12_MOE, "max_steps": P13_STEPS, "print_freq": 1,
+                "cfg": {**P12_MOE, "max_steps": P13_SHORT, "print_freq": 1,
                         **kw}}
 
     def vit(name, **kw):
@@ -3484,9 +3522,13 @@ def pipeline_path(torch, kernels, tmp, device="cuda"):
               "cfg": dict(tiny_lm_kw, pp_microbatches=2, **P13_PPTP)}]
     cpu2 = DpGroup("p13_cpu2", 2, "cpu", "gloo", tiny, tmp)
     cpu4 = DpGroup("p13_cpu4", 4, "cpu", "gloo", tiny4, tmp)
+    # the two benches side by side with the groups (their tokens/s share
+    # the card)
+    benches = {k: p13_decode_bench(f, device) for k, f in (
+        ("tp2", ["--tp", "2"]), ("dp2", ["--dp", "2"]))}
     try:
         # one rank over nccl: each mode's one-rank twin, beside the
-        # two-rank runs (their step times share the card)
+        # two- and four-rank runs (their step times share the card)
         one = DpGroup("p13_one", 1, device, "nccl" if card_run else "gloo",
                       [
             lm("dp8", steps=1, batch_size=8),
@@ -3505,22 +3547,33 @@ def pipeline_path(torch, kernels, tmp, device="cuda"):
             moe("moe_pp-gpipe", pp_microbatches=4, **P13_PP),
             moe("moe_pp-1f1b", pp_microbatches=4, pp_schedule="1f1b",
                 **P13_PP),
-            lm("tp_int8", batch_size=4, quant="int8", **P13_TP),
+            lm("tp_int8", steps=P13_SHORT, batch_size=4, quant="int8",
+               **P13_TP),
             vit("vit_ring", **ring), vit("vit_ring_int8", quant="int8",
                                          **ring),
             *tiny], tmp)
-        one, two = wait_groups([one, two], (400, 900))
-        one = one[0]
-        four = DpGroup("p13_four", 4, device, "gloo", [
-            lm(f"pp-{s}+tp", batch_size=4, pp_microbatches=4,
-               pp_schedule=s, **P13_PPTP) for s in ("gpipe", "1f1b")
-        ] + tiny4, tmp).wait(600)
+        try:
+            decode = {k: p13_decode_result(b) for k, b in benches.items()}
+            one = one.wait(400)[0]
+            # the four ranks once the one-rank twin has freed its memory
+            # (two's GPipe at M=8 holds about 40 GB)
+            four = DpGroup("p13_four", 4, device, "gloo", [
+                lm(f"pp-{s}+tp", steps=P13_SHORT, batch_size=4,
+                   pp_microbatches=4,
+                   pp_schedule=s, **P13_PPTP) for s in ("gpipe", "1f1b")
+            ] + tiny4, tmp)
+        except BaseException:
+            for g in (one, two):
+                if isinstance(g, DpGroup):
+                    g.kill()
+            raise
+        two, four = wait_groups([two, four], (900, 600))
     finally:
+        for _, _, _, proc in benches.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
         res_cpu2, res_cpu4 = cpu2.wait(600), cpu4.wait(300)
-    # the two benches side by side (their tokens/s share the card)
-    benches = {k: p13_decode_bench(f, device) for k, f in (
-        ("tp2", ["--tp", "2"]), ("dp2", ["--dp", "2"]))}
-    decode = {k: p13_decode_result(b) for k, b in benches.items()}
     shapes = check_pp_shapes(torch) if card_run else {}
     scaled = check_scaled_pair(torch) if card_run else {}
 
@@ -3588,33 +3641,35 @@ def pipeline_path(torch, kernels, tmp, device="cuda"):
         got = [r[f"pp-{sched}+tp"] for r in four[:4]]
         if {g["mode"] for g in got} != {f"pp-{sched}+tp"}:
             raise AssertionError(f"13b modes {[g['mode'] for g in got]}")
-        gate(f"b pp-{sched}+tp", got[0]["losses"], one["dp4"]["losses"][0])
+        gate(f"b pp-{sched}+tp", got[0]["losses"], one["dp4"]["losses"][0],
+             n=P13_SHORT)
         b[f"pp-{sched}+tp"] = {
             "losses": got[0]["losses"], "step_ms_gloo": got[0]["step_ms"],
             "launches_per_rank": pp_launches(f"b pp-{sched}+tp", got, 4,
-                                             sched, P13_STEPS),
+                                             sched, P13_SHORT),
             "peak_mem_gb_per_rank": [g["peak_mem_gb"] for g in got]}
     # (c) the MoE LM under pp against dp-moe's step 0
     c = {"dp_moe_1rank_nccl": one["dp-moe"]["losses"]}
     for sched in ("gpipe", "1f1b"):
         got = [r[f"moe_pp-{sched}"] for r in two]
         gate(f"c moe pp-{sched}", got[0]["losses"],
-             one["dp-moe"]["losses"][0])
+             one["dp-moe"]["losses"][0], n=P13_SHORT)
         c[f"moe_pp-{sched}"] = {
             "losses": got[0]["losses"], "router_aux": got[0]["router_aux"],
             "router_mass": got[0]["router_mass"],
             "step_ms_gloo": got[0]["step_ms"],
             "launches_per_rank": pp_launches(f"c moe pp-{sched}", got, 4,
-                                             sched, P13_STEPS)}
+                                             sched, P13_SHORT)}
     # (d) gspmd tp under int8: the scaled pair at the row products
     got = [r["tp_int8"] for r in two]
-    gate("d tp int8", got[0]["losses"], one["dp4_int8"]["losses"][0])
+    gate("d tp int8", got[0]["losses"], one["dp4_int8"]["losses"][0],
+         n=P13_SHORT)
     layers = 8
     per_fwd = {"fused_quant": 2 * layers + 1,      # qkv, mlp_in, the head
                "fused_quant_amax": 2 * layers,     # proj, mlp_out
                "fused_quant_scaled": 2 * layers}
     for r, g in enumerate(got):
-        want = {k: n * (P13_STEPS + g["eval_batches"])
+        want = {k: n * (P13_SHORT + g["eval_batches"])
                 for k, n in per_fwd.items()}
         bad = {k: (g["launches"][k], n) for k, n in want.items()
                if g["launches"][k] != n and card_run}
@@ -3982,13 +4037,6 @@ def longcontext_path(torch, kernels, tmp, device="cuda"):
     rec, by_run = {}, {}
     if card_run:
         free_device(torch)
-    a = p14_long_context(torch, kernels, device)
-    by_run["p14a_long_context"] = a["launches"]
-    rec["a_long_context_replay"] = a
-    log(f"phase 14a long-context replay: {a['wall_s']:.1f}s wall "
-        f"(replays {json.dumps(a['replay_wall_s'])})")
-    if card_run:
-        free_device(torch)
 
     fulls = [{"name": f"p14_{dt}", "kind": "sp14", "dtype": dt,
               "model": P14_MODEL, "prompts": list(P14_PROMPTS),
@@ -4012,6 +4060,17 @@ def longcontext_path(torch, kernels, tmp, device="cuda"):
                   [dict(f, world=2, cases={"sp": sp_cfg})
                    for f in fulls + [ctl]] + [dict(tiny, world=2)], tmp)
     cpu = DpGroup("p14c_cpu", 2, "cpu", "gloo", [dict(tiny, world=2)], tmp)
+    # (a) in this process meanwhile
+    try:
+        a = p14_long_context(torch, kernels, device)
+    except BaseException:
+        for g in (one, two, cpu):
+            g.kill()
+        raise
+    by_run["p14a_long_context"] = a["launches"]
+    rec["a_long_context_replay"] = a
+    log(f"phase 14a long-context replay: {a['wall_s']:.1f}s wall "
+        f"(replays {json.dumps(a['replay_wall_s'])}), beside (b)'s groups")
     r1, r2, rc = wait_groups([one, two, cpu], (600, 900, 600))
     r1 = r1[0]
 
@@ -4348,9 +4407,13 @@ def p15_clean_counts(tag, rec, steps, device):
     return per
 
 
-def p15_supervised_lm(torch, kernels, tmp, device):
+def p15_supervised_lm(torch, kernels, tmp, device, meanwhile):
     """15a (module docstring): the uninterrupted run and the faulted one,
-    each through ``python -m tpu_dist_torch.supervise``."""
+    each through ``python -m tpu_dist_torch.supervise``, side by side;
+    ``meanwhile(want)`` (15b-e, given the uninterrupted run's losses) runs
+    in this process once the uninterrupted run has ended, beside the
+    faulted one's last attempts. Returns (record, launches by run, what
+    ``meanwhile`` returned)."""
     from tpu_dist_torch.parallel.supervisor import classify_attempt
 
     cfg = full_lm_config(**P15_MODEL, **P15_RUN)
@@ -4361,14 +4424,18 @@ def p15_supervised_lm(torch, kernels, tmp, device):
     try:
         one, one_recs, one_counts, _ = p15_supervised(p15_supervise(
             tmp, "uninterrupted", argv, device))
-    finally:
-        run, recs, counts, lines = p15_supervised(faulted)
-    if [a["class"] for a in one["attempts"]] != ["clean"]:
-        raise AssertionError(f"15a uninterrupted: {one['attempts']}")
-    want = p15_losses(one_recs[0])
-    if sorted(want) != list(range(P15_RUN["max_steps"])) or \
-            not all(map(math.isfinite, want.values())):
-        raise AssertionError(f"15a uninterrupted losses {want}")
+        if [a["class"] for a in one["attempts"]] != ["clean"]:
+            raise AssertionError(f"15a uninterrupted: {one['attempts']}")
+        want = p15_losses(one_recs[0])
+        if sorted(want) != list(range(P15_RUN["max_steps"])) or \
+                not all(map(math.isfinite, want.values())):
+            raise AssertionError(f"15a uninterrupted losses {want}")
+        side = meanwhile(want)
+    except BaseException:
+        faulted[4].terminate()      # the supervisor takes its child down
+        faulted[4].wait(timeout=120)
+        raise
+    run, recs, counts, lines = p15_supervised(faulted)
     classes = [a["class"] for a in run["attempts"]]
     if classes != P15_CLASSES:
         raise AssertionError(f"15a classes {classes}: {run['attempts']}")
@@ -4433,7 +4500,7 @@ def p15_supervised_lm(torch, kernels, tmp, device):
             "tolerance": f"{LOSS_TOL} (1 + |loss|)",
             "clean_attempt_launches": launches}, {
         "p15a_uninterrupted": launches["uninterrupted"]["launches"],
-        "p15a_attempt3_clean": launches["attempt 3"]["launches"]}, want
+        "p15a_attempt3_clean": launches["attempt 3"]["launches"]}, side
 
 
 def p15_in_process(torch, kernels, tmp, device, want):
@@ -4663,28 +4730,36 @@ def restart_path(torch, kernels, tmp, device="cuda"):
     if device == "cuda":
         free_device(torch)
     rec, by_run = {}, {}
-    a, a_launches, want = p15_supervised_lm(torch, kernels, tmp, device)
+
+    def meanwhile(want):          # 15b-e, beside 15a's faulted run
+        t1 = time.perf_counter()
+        b, by_run["p15b_in_process"] = p15_in_process(torch, kernels, tmp,
+                                                      device, want)
+        rec["b_in_process_restart"] = b
+        if device == "cuda":
+            free_device(torch)
+        c, by_run["p15c_image"] = p15_image(torch, kernels, tmp, device)
+        rec["c_image_restart"] = c
+        if device == "cuda":
+            free_device(torch)
+        peer, enospc, d_launches = p15_peer_and_enospc(torch, kernels, tmp,
+                                                       device)
+        by_run.update(d_launches)
+        rec["d_peer_restore"] = peer
+        rec["e_ckpt_enospc"] = enospc
+        return time.perf_counter() - t1
+
+    a, a_launches, side_s = p15_supervised_lm(torch, kernels, tmp, device,
+                                              meanwhile)
     rec["a_supervised_full_width"] = a
     by_run.update(a_launches)
     log(f"phase 15a supervised LM: classes {a['classes']}, resumed at "
-        f"{a['resumed_at']}, {time.perf_counter() - t0:.1f}s")
-    b, by_run["p15b_in_process"] = p15_in_process(torch, kernels, tmp,
-                                                  device, want)
-    rec["b_in_process_restart"] = b
-    if device == "cuda":
-        free_device(torch)
-    c, by_run["p15c_image"] = p15_image(torch, kernels, tmp, device)
-    rec["c_image_restart"] = c
-    if device == "cuda":
-        free_device(torch)
-    peer, enospc, d_launches = p15_peer_and_enospc(torch, kernels, tmp,
-                                                   device)
-    by_run.update(d_launches)
-    rec["d_peer_restore"] = peer
-    rec["e_ckpt_enospc"] = enospc
+        f"{a['resumed_at']}, {time.perf_counter() - t0:.1f}s (15b-e "
+        f"{side_s:.1f}s of it, beside the faulted run)")
     rec["wall_s"] = time.perf_counter() - t0
-    rec["note"] = ("one card: 15d's two ranks share it over gloo; nccl at "
-                   "world > 1 and a real multi-host shrink are not run")
+    rec["note"] = ("one card: 15b-e run beside 15a's faulted run, 15d's "
+                   "two ranks share it over gloo; nccl at world > 1 and a "
+                   "real multi-host shrink are not run")
     return rec, by_run
 
 
@@ -5535,10 +5610,9 @@ def p17_rank_job(torch, kernels, job, out, rank):
     return res
 
 
-def p17_gspmd(torch, kernels, tmp, device):
-    """17e: two gloo ranks sharing the device on a (1, 2) data x model
-    mesh under tp_impl="gspmd", against one rank's dp run (in this
-    process, while the ranks start) at the same batch and weights."""
+def p17_gspmd_start(torch, tmp, device):
+    """Start 17e's two ranks (they run beside 17a-d); returns what
+    :func:`p17_gspmd` needs."""
     from tpu_dist_torch.interop import export_flax_image_params
     from tpu_dist_torch.models.resnet import ResNet18
 
@@ -5548,9 +5622,16 @@ def p17_gspmd(torch, kernels, tmp, device):
     job = {"name": "p17e", "kind": "plan17", "init": init_path,
            "cfg": dict(P17_TINY_IMAGE, mesh_shape=[1, 2],
                        mesh_axes=["data", "model"], tp_impl="gspmd")}
-    t0 = time.perf_counter()
-    group = DpGroup("p17e", 2, device, "gloo", [job], tmp)
-    # the one-rank dp run in this process while the ranks start
+    return (DpGroup("p17e", 2, device, "gloo", [job], tmp), init_path,
+            time.perf_counter())
+
+
+def p17_gspmd(torch, kernels, tmp, device, started):
+    """17e: two gloo ranks sharing the device on a (1, 2) data x model
+    mesh under tp_impl="gspmd" (started by :func:`p17_gspmd_start`),
+    against one rank's dp run (in this process) at the same batch and
+    weights."""
+    group, init_path, t0 = started
     out = os.path.join(tmp, "p17e_dp")
     os.makedirs(out)
     single = p17_rank_job(torch, kernels, {
@@ -5589,6 +5670,8 @@ def plan_path(torch, kernels, tmp, device="cuda"):
     t0 = time.perf_counter()
     rec, by_run = {}, {}
     kind = (torch.cuda.get_device_name(0) if device == "cuda" else "cpu")
+    # 17e's ranks start first and run beside the tuner (17a)
+    started = p17_gspmd_start(torch, tmp, device)
     try:
         rec["a_tuner"], plan_file = p17_tune(torch, tmp, kind,
                                              card=device == "cuda")
@@ -5603,13 +5686,17 @@ def plan_path(torch, kernels, tmp, device="cuda"):
             torch, kernels, tmp, device)
         activate_plan(Plan())     # 17e's one-rank twin at the defaults
         rec["e_gspmd_model_axis"], e_launches = p17_gspmd(
-            torch, kernels, tmp, device)
+            torch, kernels, tmp, device, started)
         by_run.update(e_launches)
+    except BaseException:
+        started[0].kill()
+        raise
     finally:
         activate_plan(Plan())     # the plans' switches are process-wide
     rec["wall_s"] = time.perf_counter() - t0
-    rec["note"] = ("one card: 17e's two ranks share it over gloo; 17b's "
-                   "two runs and 17c's tiles compare within one call")
+    rec["note"] = ("one card: 17e's two ranks share it over gloo, started "
+                   "beside 17a; 17b's two runs and 17c's tiles compare "
+                   "within one call")
     return rec, by_run
 
 
@@ -6337,6 +6424,116 @@ def audit_path(torch, kernels, tmp, device="cuda"):
     return rec, by_run
 
 
+# ---- phase 20: dropout drawn from (seed, step, microbatch, rank) ------------
+
+# the archs of tests/test_torch_dropout.py at a card's batch: 8 steps of
+# 256 (2 epochs of 4), bf16 over fp32 masters, fused_sgd, a step a
+# dispatch from the host so that the cut lands on step P20_CUT
+P20_ARCHS = {"lenet": dict(arch="lenet", dataset="mnist"),
+             "squeezenet1_1": dict(arch="squeezenet1_1", dataset="cifar10")}
+P20_RUN = dict(batch_size=256, epochs=2, synth_train_size=1024,
+               synth_val_size=256, precision="bf16", optimizer="fused_sgd",
+               lr=0.05, seed=SEED, print_freq=1, workers=1,
+               steps_per_dispatch=1, data_placement="host", log_csv="")
+P20_STEPS = 8
+P20_CUT = 5
+
+
+def p20_fit(torch, kernels, cfg, device, cut=None):
+    """Fit ``cfg`` (stopped by an interrupt at global step ``cut``, which
+    leaves its mid-epoch checkpoint); returns (the per-step losses of its
+    ledger, its launches, its last step). cuDNN runs deterministic and
+    untuned here, so that two runs can be bit-equal."""
+    from tpu_dist_torch.engine.loop import Trainer
+
+    tr = Trainer(cfg, device=device)
+    torch.backends.cudnn.benchmark = False
+    if cut is not None:
+        step = tr._step
+
+        def interrupted(images, labels, gstep):
+            if gstep == cut:
+                raise KeyboardInterrupt
+            return step(images, labels, gstep)
+
+        tr._step = interrupted
+    kernels.reset_launches()
+    try:
+        tr.fit()
+    except KeyboardInterrupt:
+        if cut is None:
+            raise
+    launches = dict(kernels.LAUNCHES)
+    return ([r["loss"] for r in ledger_steps(cfg.ledger_path)], launches,
+            tr.state.step)
+
+
+def dropout_path(torch, kernels, tmp, device="cuda"):
+    """Phase 20 (module docstring). Returns (record, launches by run)."""
+    from tpu_dist_torch.configs import TrainConfig
+
+    t0 = time.perf_counter()
+    det, bench = torch.backends.cudnn.deterministic, \
+        torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic = True
+    rec, by_run = {}, {}
+    try:
+        for arch, kw in P20_ARCHS.items():
+            d = os.path.join(tmp, arch)
+            os.makedirs(d)
+
+            def cfg(name, **extra):
+                return TrainConfig(**{
+                    **P20_RUN, **kw, "data": os.path.join(d, "no-data"),
+                    "checkpoint_dir": os.path.join(d, f"{name}-ck"),
+                    "ledger_path": os.path.join(d, f"{name}.jsonl"),
+                    **extra})
+
+            runs = {}
+            for name in ("a", "b"):
+                runs[name] = p20_fit(torch, kernels, cfg(name), device)
+            runs["cut"] = p20_fit(torch, kernels, cfg("cut"), device,
+                                  cut=P20_CUT)
+            resume = os.path.join(d, "cut-ck", f"{arch}-checkpoint.pt")
+            runs["resumed"] = p20_fit(torch, kernels,
+                                      cfg("resumed", resume=resume), device)
+            (la, sa, na), (lb, sb, nb) = runs["a"], runs["b"]
+            lr_, sr, nr = runs["resumed"]
+            steps = {k: v[2] for k, v in runs.items()}
+            if steps != {"a": P20_STEPS, "b": P20_STEPS, "cut": P20_CUT,
+                         "resumed": P20_STEPS}:
+                raise AssertionError(f"20 {arch}: steps {steps}")
+            if len(la) != P20_STEPS or not all(map(math.isfinite, la)):
+                raise AssertionError(f"20 {arch}: losses {la}")
+            if la != lb:
+                raise AssertionError(f"20 {arch}: one seed, two runs: {la} "
+                                     f"!= {lb} (bit-equal expected)")
+            if lr_ != la[P20_CUT:]:
+                raise AssertionError(f"20 {arch}: resumed at {P20_CUT}: "
+                                     f"{lr_} != {la[P20_CUT:]}")
+            # one sgd launch a step, in every run
+            per_step = {k: v[1]["sgd"] / (v[2] - (P20_CUT if k == "resumed"
+                                                  else 0))
+                        for k, v in runs.items()}
+            if device == "cuda" and set(per_step.values()) != {1.0}:
+                raise AssertionError(f"20 {arch}: sgd launches a step "
+                                     f"{per_step}")
+            rec[arch] = {"losses": la, "resumed_losses": lr_,
+                         "bit_equal_two_runs": True,
+                         "bit_equal_resumed_from": P20_CUT,
+                         "sgd_launches_per_step": per_step,
+                         "steps": steps}
+            by_run[f"p20_{arch}"] = sa
+            by_run[f"p20_{arch}_resumed"] = sr
+    finally:
+        torch.backends.cudnn.deterministic = det
+        torch.backends.cudnn.benchmark = bench
+    rec["config"] = {k: v for k, v in P20_RUN.items()
+                     if k not in ("print_freq", "workers", "log_csv")}
+    rec["wall_s"] = time.perf_counter() - t0
+    return rec, by_run
+
+
 def importable(name):
     import importlib.util
 
@@ -6360,6 +6557,22 @@ def main():
     from tpu_dist_torch import kernels
 
     t_start = time.perf_counter()
+    # every phase's seconds, printed as it ends and together before the
+    # total
+    phase_s, since = {}, [t_start, t_start]
+
+    def took(n, note=""):
+        now = time.perf_counter()
+        phase_s[n] = now - since[0]
+        since[:] = [now, now]
+        log(f"phase {n} took {phase_s[n]:.1f}s" + (f" ({note})" if note
+                                                    else ""))
+
+    def took_part(label):       # a part of a phase, since the last part
+        now = time.perf_counter()
+        log(f"phase {label} took {now - since[1]:.1f}s")
+        since[1] = now
+
     # 1. device
     card = card_line()
     name = torch.cuda.get_device_name(0)
@@ -6368,11 +6581,13 @@ def main():
     log(f"phase 1 device: {card} (torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.device_count()} device(s))")
 
+    took(1)
+
     # 2. build
     t0 = time.perf_counter()
-    took = kernels.build()
-    took = {k: round(v, 2) for k, v in took.items()}
-    log(f"phase 2 build: {json.dumps(took)} in "
+    built = kernels.build()
+    built = {k: round(v, 2) for k, v in built.items()}
+    log(f"phase 2 build: {json.dumps(built)} in "
         f"{time.perf_counter() - t0:.1f}s wall")
     for k in kernels.SOURCES:
         logp = os.path.join(kernels.build_dir(), f"{k}.log")
@@ -6381,6 +6596,8 @@ def main():
                 for line in f:
                     if "registers" in line or "spill" in line:
                         log(f"  ptxas {k}: {line.strip()}")
+
+    took(2)
 
     # 3. kernels against their plain versions
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -6404,6 +6621,8 @@ def main():
         {k: ptxas_report(kernels, k) for k in ("adamw", "sgd",
                                                "fused_quant")}))
 
+    took(3)
+
     # 4. small input: card == CPU reference
     n = small_input_agreement(torch)
     log(f"phase 4 small-input agreement: {n}/{n} requests token-equal "
@@ -6424,40 +6643,48 @@ def main():
     log(f"phase 4 small-input image training: 5 steps, per-step losses "
         f"agree within {LOSS_TOL} (1 + |loss|): {json.dumps(agree)}")
 
+    took(4)
+
     # 5. the serving main path at full width
     serving, serve_launches, model, prompts, outs = main_path(torch, kernels)
     log(f"phase 5 serving: {json.dumps(serving)} on {card}")
 
+    took(5)
+
     # 6. the training main path at full width
     training, train_launches = training_path(torch, kernels)
     log(f"phase 6 training: {json.dumps(training)} on {card}")
+
+    took(6)
 
     # 7. the image main path at full width (its checkpoints kept for 9d)
     ck7 = tempfile.TemporaryDirectory()
     image, image_launches = image_path(torch, kernels, ck7.name)
     log(f"phase 7 image training: {json.dumps(image)} on {card}")
 
+    took(7)
+
     # 8. quantized and speculative serving at full width
-    t0 = time.perf_counter()
     qspec, quant_launches, spec_launches = quant_spec_path(
         torch, kernels, model, prompts, outs)
     del model
     log(f"phase 8 int8 serving: {json.dumps(qspec['int8'])} on {card}")
     log(f"phase 8 speculative serving (spec_k={SPEC_K}): "
         f"{json.dumps(qspec['spec'])} on {card}")
-    log(f"phase 8 took {time.perf_counter() - t0:.1f}s")
+    took(8)
 
     # 9. the one-device training knobs at full width
-    t0 = time.perf_counter()
     windows, window_launches = lm_windows_resume(torch, kernels, training)
     log(f"phase 9a LM windows, chunked loss, resume: {json.dumps(windows)} "
         f"on {card}")
+    took_part("9a")
     accum, accum_launches = lm_knob_run(torch, kernels, training,
                                         grad_accum_steps=2)
     if accum_launches["adamw"] != 4 or \
             accum_launches["flash_bwd_dq"] != 8 * 2 * 4:
         raise AssertionError(f"9b: launches {accum_launches}")
     log(f"phase 9b LM accumulation: {json.dumps(accum)} on {card}")
+    took_part("9b")
     blockwise, block_launches = lm_knob_run(torch, kernels, training,
                                             attn="blockwise")
     flash_names = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
@@ -6468,44 +6695,62 @@ def main():
         f"{card}")
     head = chunked_head_timing(torch)
     log(f"phase 9 chunked head: {json.dumps(head)} on {card}")
+    took_part("9c")
     img_knobs, img_knob_launches = image_knobs(
         torch, kernels, image,
         os.path.join(ck7.name, "resnet50-model_best.pt"))
     ck7.cleanup()
     log(f"phase 9d image accumulation, loss scale, warm start: "
         f"{json.dumps(img_knobs)} on {card}")
+    took_part("9d")
     bench, bench_launches = decode_bench_one_shot(torch, kernels)
     log(f"phase 9e decode bench one-shot: {json.dumps(bench)} on {card}")
-    log(f"phase 9 took {time.perf_counter() - t0:.1f}s")
+    took(9)
 
     # 10. multi-process data parallelism
     with tempfile.TemporaryDirectory() as tmp:
         dp, dp_launches = dp_path(torch, kernels, training, image, tmp)
     log(f"phase 10 data parallelism: {json.dumps(dp)} on {card}")
+    took(10)
 
-    # 11. the image side on one card
-    t0 = time.perf_counter()
+    # 11. the image side on one card; 11c's sweep in a process of its own
+    # beside 11a-d (its seconds are cuDNN's first build of each conv shape,
+    # on the host)
     free_device(torch)
-    s6, s6_launches = script6_path(torch, kernels)
-    log(f"phase 11a script 6: {json.dumps(s6)} on {card}")
-    free_device(torch)
-    vit8, vit8_launches = vit_int8_path(torch, kernels)
-    vit_quant = check_fused_quant_training(torch)
-    log(f"phase 11b ViT-B/16 int8: {json.dumps(vit8)} on {card}")
-    log(f"phase 11b fused_quant at training shapes: "
-        f"{json.dumps(vit_quant)} on {card}")
-    free_device(torch)
-    sweep, sweep_sgd = zoo_sweep(torch, kernels, ZOO_SWEEP)
+    sweep_dir = tempfile.TemporaryDirectory()
+    sweep_group = DpGroup("p11c_sweep", 1, "cuda", "gloo", [
+        {"name": "sweep", "kind": "zoo11", "archs": ZOO_SWEEP}],
+        sweep_dir.name)
+    try:
+        s6, s6_launches = script6_path(torch, kernels)
+        log(f"phase 11a script 6: {json.dumps(s6)} on {card}")
+        took_part("11a")
+        free_device(torch)
+        vit8, vit8_launches = vit_int8_path(torch, kernels)
+        vit_quant = check_fused_quant_training(torch)
+        log(f"phase 11b ViT-B/16 int8: {json.dumps(vit8)} on {card}")
+        log(f"phase 11b fused_quant at training shapes: "
+            f"{json.dumps(vit_quant)} on {card}")
+        took_part("11b")
+        free_device(torch)
+        agree = zoo_agreement(torch)
+        torch.backends.cudnn.benchmark = True
+        log(f"phase 11c zoo card-vs-CPU (fp32): {json.dumps(agree)}")
+        took_part("11c card-vs-CPU")
+        folder, folder_launches = imagefolder_path(
+            torch, kernels, s6["train_img_per_s_window1_excluded"])
+        log(f"phase 11d ImageFolder: {json.dumps(folder)} on {card}")
+        took_part("11d")
+    except BaseException:
+        sweep_group.kill()
+        raise
+    swept = sweep_group.wait(600)[0]["sweep"]
+    sweep_dir.cleanup()
+    sweep, sweep_sgd = swept["sweep"], swept["sgd"]
     log(f"phase 11c zoo sweep ({len(sweep)} archs, one a family, 1000 "
-        f"classes, bf16 fused_sgd step at batch 8): {json.dumps(sweep)} on "
-        f"{card}")
-    agree = zoo_agreement(torch)
-    torch.backends.cudnn.benchmark = True
-    log(f"phase 11c zoo card-vs-CPU (fp32): {json.dumps(agree)}")
-    folder, folder_launches = imagefolder_path(
-        torch, kernels, s6["train_img_per_s_window1_excluded"])
-    log(f"phase 11d ImageFolder: {json.dumps(folder)} on {card}")
-    log(f"phase 11 took {time.perf_counter() - t0:.1f}s")
+        f"classes, bf16 fused_sgd step at batch 8, beside 11a-d): "
+        f"{json.dumps(sweep)} on {card}")
+    took(11)
 
     # 12. the LM's model-parallel axes
     with tempfile.TemporaryDirectory() as tmp:
@@ -6514,7 +6759,7 @@ def main():
                  "d_warm_start", "e_kernels_at_phase12_shapes"):
         log(f"phase 12{part[0]} {part[2:]}: {json.dumps(mp[part])} on "
             f"{card}")
-    log(f"phase 12 took {mp['wall_s']:.1f}s ({mp['note']})")
+    took(12, mp["note"])
 
     # 13. pipeline parallelism, sharded decode, ViT ring
     with tempfile.TemporaryDirectory() as tmp:
@@ -6525,7 +6770,7 @@ def main():
                  "kernels_at_phase13_shapes"):
         log(f"phase 13{part[0] if part[1] == '_' else ''} {part}: "
             f"{json.dumps(pp[part])} on {card}")
-    log(f"phase 13 took {pp['wall_s']:.1f}s ({pp['note']})")
+    took(13, pp["note"])
 
     # 14. sp-sharded long-context serving
     with tempfile.TemporaryDirectory() as tmp:
@@ -6534,7 +6779,7 @@ def main():
                  "c_small_card_vs_cpu", "d_paged_decode_gathered"):
         log(f"phase 14{part[0]} {part[2:]}: {json.dumps(lc[part])} on "
             f"{card}")
-    log(f"phase 14 took {lc['wall_s']:.1f}s ({lc['note']})")
+    took(14, lc["note"])
 
     # 15. restart and faults
     with tempfile.TemporaryDirectory() as tmp:
@@ -6543,7 +6788,7 @@ def main():
                  "c_image_restart", "d_peer_restore", "e_ckpt_enospc"):
         log(f"phase 15{part[0]} {part[2:]}: {json.dumps(rs[part])} on "
             f"{card}")
-    log(f"phase 15 took {rs['wall_s']:.1f}s ({rs['note']})")
+    took(15, rs["note"])
 
     # 16. the observers
     with tempfile.TemporaryDirectory() as tmp:
@@ -6558,7 +6803,7 @@ def main():
         f"{a['step_ms_observers_off']:.3f} ms off, "
         f"{a['step_ms_profiled']:.3f} ms under a profile_dir session, on "
         f"{card}")
-    log(f"phase 16 took {obs['wall_s']:.1f}s ({obs['note']})")
+    took(16, obs["note"])
 
     # 17. the plan lowering
     with tempfile.TemporaryDirectory() as tmp:
@@ -6567,7 +6812,7 @@ def main():
                  "e_gspmd_model_axis"):
         log(f"phase 17{part[0]} {part[2:]}: {json.dumps(plan[part])} on "
             f"{card}")
-    log(f"phase 17 took {plan['wall_s']:.1f}s ({plan['note']})")
+    took(17, plan["note"])
 
     # 18. the fleet
     with tempfile.TemporaryDirectory() as tmp:
@@ -6586,7 +6831,7 @@ def main():
         + f", restart gaps {json.dumps(a['restart_gaps_s'])} s, "
         f"paged_decode {fleet_launches['p18a_fleet_ci']['paged_decode']}, "
         f"on {card}")
-    log(f"phase 18 took {fl['wall_s']:.1f}s ({fl['note']})")
+    took(18, fl["note"])
 
     # 19. the program audit and the convergence tools
     with tempfile.TemporaryDirectory() as tmp:
@@ -6606,10 +6851,22 @@ def main():
         f"LM {f['lm']['steps_to_threshold']} steps to ppl 4 in "
         f"{f['lm']['seconds_to_threshold']} s (the reference's step counts: "
         f"30 and 116), on {card}")
-    log(f"phase 19 took {au['wall_s']:.1f}s ({au['note']})")
+    took(19, au["note"])
+
+    # 20. dropout drawn from (seed, step, microbatch, rank)
+    with tempfile.TemporaryDirectory() as tmp:
+        dr, dropout_launches = dropout_path(torch, kernels, tmp)
+    for arch in P20_ARCHS:
+        r = dr[arch]
+        log(f"phase 20 {arch}: {json.dumps(r)} on {card}")
+        log(f"phase 20 {arch}: two runs of one seed bit-equal at all "
+            f"{P20_STEPS} steps, the run resumed at step {P20_CUT} "
+            f"bit-equal from there, sgd launches a step "
+            f"{json.dumps(r['sgd_launches_per_step'])}")
+    took(20)
     dp_launches = {**dp_launches, **mp_launches, **pp_launches,
                    **rs_launches, **obs_launches, **plan_launches,
-                   **fleet_launches, **audit_launches,
+                   **fleet_launches, **audit_launches, **dropout_launches,
                    "script6_imagenet": s6_launches,
                    "vit_base_int8": vit8_launches,
                    "zoo_sweep": {**{k: 0 for k in kernels.SOURCES},
@@ -6716,7 +6973,8 @@ def main():
         entry["launches_by_path"].update(
             {p: n[kname] for p, n in {**rs_launches, **obs_launches,
                                       **plan_launches, **fleet_launches,
-                                      **audit_launches}.items()})
+                                      **audit_launches,
+                                      **dropout_launches}.items()})
         entries.append(entry)
     # fused_quant's two phases apart: gspmd tp's int8 row products (13d)
     scaled = pp["d_int8_tp_scaled_pair"]["scaled_pair"]
@@ -6741,9 +6999,11 @@ def main():
         entry["launches_by_path"] = {p: n[kname] for p, n in
                                      {**pp_launches, **rs_launches,
                                       **obs_launches, **plan_launches,
-                                      **fleet_launches,
-                                      **audit_launches}.items()}
+                                      **fleet_launches, **audit_launches,
+                                      **dropout_launches}.items()}
         entries.append(entry)
+    log("phase seconds: " + json.dumps(
+        {k: round(v, 1) for k, v in phase_s.items()}))
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": entries}))
     print(card)

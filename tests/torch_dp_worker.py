@@ -1,7 +1,7 @@
 """One rank of a ``torch.distributed`` group for the port's multi-process
 tests (``tests/test_torch_{collectives,dp,dp_lm,cuda,fsdp,tp,moe,
 ring_attention,int8_tp,pp,pp_modes,generate_mesh,vit,sp_serve,elastic,
-obs_trace,proglint}.py``):
+obs_trace,proglint,dropout}.py``):
 gloo on the
 CPU unless the spec names another ``device`` and ``backend``.
 
@@ -143,6 +143,52 @@ def _trainer_job(job, out, rank, torch, device):
             np.savez(os.path.join(out, f"{name}.whole.npz"),
                      **{n: p.detach().float().cpu().numpy()
                         for n, p in whole.named_parameters()})
+    return res
+
+
+def dropout_recorder(masks: list):
+    """A stand-in for ``models.cnn_zoo.dropout`` (LeNet's too) that appends
+    each train-mode draw to ``masks`` as (the generator's seed, the mask's
+    packed bits): the mask replayed from the generator's state before the
+    draw, and checked against what the real function applied."""
+    import torch
+
+    from tpu_dist_torch.models import cnn_zoo
+
+    real = getattr(cnn_zoo.dropout, "real", cnn_zoo.dropout)
+
+    def recording(x, rate, training, gen):
+        if not training or rate == 0.0:
+            return real(x, rate, training, gen)
+        state = gen.get_state()
+        out = real(x, rate, training, gen)
+        replay = torch.Generator(device=gen.device)
+        replay.set_state(state)
+        keep = 1.0 - rate
+        mask = torch.empty(x.shape, device=x.device).bernoulli_(
+            keep, generator=replay).bool()
+        xd = x.detach()
+        assert torch.equal(out.detach(), torch.where(
+            mask, xd / keep, torch.zeros_like(xd))), "replayed mask differs"
+        masks.append((gen.initial_seed(),
+                      np.packbits(mask.cpu().numpy()).tobytes()))
+        return out
+    recording.real = real
+    return recording
+
+
+def _dropout_job(job, out, rank, torch, device):
+    """``_trainer_job`` with every dropout draw recorded: the result's
+    ``masks`` holds one (seed, sha256 of the mask) a draw, in order."""
+    import hashlib
+
+    from tpu_dist_torch.models import cnn_zoo, lenet
+
+    masks = []
+    cnn_zoo.dropout = lenet.dropout = dropout_recorder(masks)
+    res = _trainer_job(dict(job, kind="image"), out, rank, torch, device)
+    res["masks"] = [[seed, hashlib.sha256(bits).hexdigest()]
+                    for seed, bits in masks]
     return res
 
 
@@ -624,7 +670,9 @@ def _proglint_job(job, out, rank, torch, device):
     return res
 
 
-JOBS = {"image": _trainer_job, "proglint": _proglint_job, "skew": _skew_job, "lm": _trainer_job, "restart": _restart_job,
+JOBS = {"image": _trainer_job, "dropout": _dropout_job,
+        "proglint": _proglint_job, "skew": _skew_job, "lm": _trainer_job,
+        "restart": _restart_job,
         "sp_ops": _sp_ops_job, "sp_serve": _sp_serve_job,
         "vit_ring": _vit_ring_job,
         "generate_mesh": _generate_mesh_job,

@@ -21,6 +21,15 @@ for tensors on the CPU; for CUDA tensors it launches its kernel or raises.
 
 Entry points run on ``device="cuda"`` unless the caller passes
 ``device="cpu"`` (the tests do); without CUDA the default raises.
+
+Importing the package imports no ``torch``: ``resolve_device`` loads on
+first use, so a process started as ``python -m tpu_dist_torch.<module>``
+(the fleet worker) can take its signals before torch's seconds of import.
 """
 
-from tpu_dist_torch.device import resolve_device  # noqa: F401
+
+def __getattr__(name):
+    if name == "resolve_device":
+        from tpu_dist_torch.device import resolve_device
+        return resolve_device
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

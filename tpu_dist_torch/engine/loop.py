@@ -60,8 +60,8 @@ Over several processes (``parallel.launch.initialize`` first; the mesh is
 ``parallel.mesh.make_mesh(mesh_shape, mesh_axes)``) each rank trains on
 ``batch_size // world`` rows: the sampler's batch-blocked layout gives
 rank r the rows the reference gives it, the LR is ``scaled_lr(world)``
-under ``lr_scale_by_world``, the augmentation generator folds the rank
-into its seed, and the step syncs by ``variant`` (``engine.steps
+under ``lr_scale_by_world``, the augmentation and dropout generators fold
+the rank into their seeds, and the step syncs by ``variant`` (``engine.steps
 .DataParallel``: ``jit`` with BatchNorm statistics over the group's batch,
 or ``shard_map`` with ``grad_compression``, ``gradient_predivide_factor``,
 ``adasum`` and ``grad_bucket_mb``). The windowed device-data path keeps
@@ -70,10 +70,11 @@ Logs, the ledger, the CSV and checkpoint writes are rank 0's; every rank
 resumes from the same checkpoint.
 
 A ``data=N,model=M`` mesh (``tpu_dist/engine/loop.py:125-170,
-246-264``). Every rank of one ``data`` coordinate reads the same rows (the
-batch, the sampler and the augmentation generator go by the data
-coordinate), the params stay whole and identical on every rank, and the
-gradients are averaged over the data axis. Under
+246-264``). Every rank of one ``data`` coordinate reads the same rows and
+draws the same masks (the batch, the sampler and the augmentation and
+dropout generators go by the data coordinate), the params stay whole and
+identical on every rank, and the gradients are averaged over the data
+axis. Under
 ``tp_impl="ring"`` (the reference's checks: a ``vit_*`` arch, a ``model``
 axis of 2 or more, heads divisible by it) the model's blocks run the
 ``ring_ar`` flavour over the model axis (``models.vit``); the reference
@@ -120,7 +121,7 @@ from tpu_dist_torch.device import peak_flops
 from tpu_dist_torch.engine import checkpoint as ckpt
 from tpu_dist_torch.engine.state import TrainState
 from tpu_dist_torch.engine.steps import (IMAGE_METRIC_KEYS, DataParallel,
-                                         zeros_image_metrics)
+                                         fold_seed, zeros_image_metrics)
 from tpu_dist_torch.models.registry import create_model, model_kind
 from tpu_dist_torch.models.resnet import set_batchnorm_group
 from tpu_dist_torch.obs import RunObs, env_int
@@ -412,7 +413,7 @@ class Trainer:
         self.compiled = compile_plan(self._step_plan(), Bindings(
             mesh=self.mesh, model=self.model, tx=self.tx, dp=self.dp,
             transform=self.transform, eval_transform=self.eval_transform,
-            gen=self._gen))
+            gen=self._gen, dropout_gen=self._dropout_gen))
         # the run's ledger (attempt lineage), health sentry, watchdog,
         # goodput sink, faults, heartbeat and preemption (obs.RunObs)
         self.obs = RunObs("image", cfg, process_index=self.rank,
@@ -528,6 +529,17 @@ class Trainer:
         return torch.Generator().manual_seed(
             (self.seed * 1_000_003 + gstep) * self.data_size
             + self.data_rank)
+
+    def _dropout_gen(self, gstep: int) -> Optional[torch.Generator]:
+        """The dropout generator of global step ``gstep`` on this rank, on
+        the model's device (None for a model that draws nothing): a
+        function of the seed, the step and the data rank, as the reference
+        folds the step into its dropout key (``tpu_dist/engine/steps.py
+        :174``); the step folds the microbatch in under accumulation."""
+        if getattr(self.model, "dropout_gen", None) is None:
+            return None
+        return torch.Generator(device=self.device).manual_seed(
+            fold_seed(self.seed, gstep, self.data_rank))
 
     def _step_plan(self) -> Plan:
         """The plan this run's steps lower from: the mesh's layout, the

@@ -26,6 +26,14 @@ microbatches, averages their gradients in fp32 and makes one optimizer
 call per step; the metric sums add up over the microbatches and the BN
 running stats advance once per microbatch.
 
+Dropout draws as the reference's keys do (``:174``, ``plan/compile.py
+:260-266``): the step's generator (``dropout_gen``, made by the trainer
+from the seed, the global step and the data rank) goes to the model for
+the forward (:func:`dropout_from`), and under accumulation microbatch
+``i`` draws from :func:`fold_generator` of it and ``i``. The same seed and
+step give the same masks, a resumed run draws what the uninterrupted one
+drew, and ranks and microbatches differ.
+
 Metrics stay 0-d tensors on the device (sums, so padded eval batches
 divide exactly); the loop fetches them once per print window. The
 reference packs uint8 rows into int32 words for the TPU's 32-bit gathers
@@ -49,6 +57,7 @@ over the group.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional
@@ -63,6 +72,50 @@ from tpu_dist_torch.parallel.collectives import (adasum_reduce, all_reduce_,
 from tpu_dist_torch.parallel.overlap import bucketed_grad_sync
 
 IMAGE_METRIC_KEYS = ("loss_sum", "correct1", "correct5", "count")
+
+_U64 = (1 << 64) - 1
+
+
+def _splitmix64(x: int) -> int:
+    x = (x + 0x9E3779B97F4A7C15) & _U64
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _U64
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _U64
+    return x ^ (x >> 31)
+
+
+def fold_seed(*xs: int) -> int:
+    """One 63-bit generator seed from integers, each folded in turn
+    (splitmix64), the port's ``jax.random.fold_in``: distinct tuples give
+    unrelated seeds."""
+    h = 0
+    for x in xs:
+        h = _splitmix64(h ^ _splitmix64(int(x) & _U64))
+    return h >> 1
+
+
+def fold_generator(gen: torch.Generator, i: int) -> torch.Generator:
+    """A new generator on ``gen``'s device seeded from ``gen``'s seed and
+    ``i`` (the microbatch's ``fold_in``); ``gen`` itself is not drawn
+    from."""
+    return torch.Generator(device=gen.device).manual_seed(
+        fold_seed(gen.initial_seed(), i))
+
+
+@contextlib.contextmanager
+def dropout_from(model, gen: Optional[torch.Generator]):
+    """Inside the block ``model`` draws its dropout (and stochastic
+    depth) from ``gen``; afterwards from its own generator again. A model
+    that draws nothing (no ``dropout_gen``), or ``gen`` None, is left as
+    it is."""
+    own = getattr(model, "dropout_gen", None)
+    if own is None or gen is None:
+        yield
+        return
+    model.dropout_gen = gen
+    try:
+        yield
+    finally:
+        model.dropout_gen = own
 
 
 @dataclass(frozen=True)
@@ -235,19 +288,25 @@ def accumulate(micro_fn, k: int, *batch):
 def image_train_step(model, tx, state: TrainState, images_u8, labels,
                      transform, health: str = "record",
                      gen: Optional[torch.Generator] = None,
-                     accum: int = 1, dp: DataParallel = ONE_PROCESS
+                     accum: int = 1, dp: DataParallel = ONE_PROCESS,
+                     dropout_gen: Optional[torch.Generator] = None
                      ) -> Dict[str, torch.Tensor]:
     """One optimizer step on device-resident uint8 (B, H, W, C) images and
     int labels (``model`` in train mode): normalize (and augment with
-    ``gen``), forward, the (scaled) mean cross entropy's gradient over
-    ``accum`` microbatches, the sync over ``dp``'s group, the update.
-    Returns the step's metric sums (over the group) with the health
-    probes."""
+    ``gen``), forward (dropout drawn from ``dropout_gen``, microbatch ``i``
+    from its fold with ``i``; None: the model's own generator), the
+    (scaled) mean cross entropy's gradient over ``accum`` microbatches,
+    the sync over ``dp``'s group, the update. Returns the step's metric
+    sums (over the group) with the health probes."""
     old_stats = ([b.clone() for b in state.batch_stats]
                  if health == "skip" else None)
+    drops = iter([fold_generator(dropout_gen, i) for i in range(accum)]
+                 if accum > 1 and dropout_gen is not None
+                 else [dropout_gen] * accum)
 
     def micro(imgs, lbls):
-        logits = model(transform(imgs, gen))
+        with dropout_from(model, next(drops)):
+            logits = model(transform(imgs, gen))
         loss_sum = cross_entropy_sum(logits, lbls)
         metrics = _metric_sums(logits.detach(), lbls, loss_sum.detach())
         loss = scale_loss(loss_sum / lbls.shape[0], state.loss_scale)

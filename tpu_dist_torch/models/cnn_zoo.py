@@ -14,12 +14,13 @@ MBConv, Inception, MobileNetV3). Where two branches of different dtypes
 meet (a concat), the result takes the wider one, as ``jnp.concatenate``
 does.
 
-Randomness: dropout and EfficientNet's stochastic depth draw from the
-model's own ``torch.Generator`` (``dropout_gen``, seeded from ``seed``),
-never from the global one. JAX's draws differ, so parity with the
-reference holds in eval mode, for the train-mode BatchNorm statistics
-ahead of the head's dropout, and for full gradients on the archs without
-dropout.
+Randomness: dropout and EfficientNet's stochastic depth draw from
+``dropout_gen``, never from the global generator: the model's own
+``torch.Generator`` (seeded from ``seed``), or the one the trainer's step
+hands it for the step and microbatch (``engine.steps.dropout_from``).
+JAX's draws differ, so parity with the reference holds in eval mode, for
+the train-mode BatchNorm statistics ahead of the head's dropout, and for
+full gradients on the archs without dropout.
 
 Pools: :func:`_max_pool_ceil` pads only the end of each spatial dim with
 -inf (flax's ``max_pool`` with explicit padding), not ``ceil_mode=True``:
@@ -342,9 +343,8 @@ class _MBConv(nn.Module):
         self.bn_project = norm(out_ch)
         self.residual = stride == 1 and in_ch == out_ch
         self.sd_rate = sd_rate
-        self.gen = net.dropout_gen
 
-    def forward(self, x):
+    def forward(self, x, gen: torch.Generator):
         h = x
         if self.has_expand:
             h = F.silu(self.bn_expand(self.expand(h)))
@@ -355,7 +355,7 @@ class _MBConv(nn.Module):
         if self.training and self.sd_rate > 0:
             keep = 1.0 - self.sd_rate
             mask = torch.empty((h.shape[0], 1, 1, 1), device=h.device
-                               ).bernoulli_(keep, generator=self.gen)
+                               ).bernoulli_(keep, generator=gen)
             h = h * mask.to(h.dtype) / keep
         return x + h
 
@@ -395,7 +395,7 @@ class EfficientNet(ZooNet):
     def forward(self, x):
         x = F.silu(self.bn_stem(self.stem(self.nchw(x))))
         for name in self.blocks:
-            x = getattr(self, name)(x)
+            x = getattr(self, name)(x, self.dropout_gen)
         x = gap(F.silu(self.bn_head(self.head_conv(x))))
         return self.head(self.drop(x, 0.2)).float()
 

@@ -63,6 +63,8 @@ class Bindings:
     transform: Optional[Callable] = None        # image train transform
     eval_transform: Optional[Callable] = None   # image eval transform
     gen: Optional[Callable] = None  # image: global step -> torch.Generator
+    # image: global step -> the step's dropout torch.Generator (or None)
+    dropout_gen: Optional[Callable] = None
 
 
 class CompiledPlan:
@@ -164,7 +166,8 @@ def _lm_par(plan: Plan, b: Bindings):
 
 def _image_step(plan: Plan, b: Bindings) -> Callable:
     """One image optimizer step: ``image_train_step`` with the step's
-    augmentation generator, ``grad_accum_steps`` microbatches and the
+    augmentation and dropout generators (each from that step's global
+    step, inside a window too), ``grad_accum_steps`` microbatches and the
     ``DataParallel`` sync."""
     from tpu_dist_torch.engine.steps import ONE_PROCESS, image_train_step
 
@@ -173,8 +176,9 @@ def _image_step(plan: Plan, b: Bindings) -> Callable:
 
     def step(state, images, labels, gstep):
         gen = b.gen(gstep) if b.gen is not None else None
+        drop = b.dropout_gen(gstep) if b.dropout_gen is not None else None
         return image_train_step(b.model, b.tx, state, images, labels,
-                                b.transform, health, gen, accum, dp)
+                                b.transform, health, gen, accum, dp, drop)
     return step
 
 

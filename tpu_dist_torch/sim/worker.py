@@ -40,6 +40,13 @@ RunObs coordinated-preemption handler, which this loop honors by draining
 the serve engine (finish in-flight, shed the queue, free pages), stamping
 ``run_end status=preempted`` and exiting ``PREEMPT_SNAPSHOT_RC`` so the
 supervisor classifies ``preemption_snapshotted``.
+
+A SIGTERM is a drain request from the first line of :func:`main`, before
+torch's import and the CUDA context (seconds on a card): a plain handler
+notes it, and once ``RunObs`` is up the noted request drains at the
+resumed tick, before any tick runs. The package imports no torch on the
+way to ``main`` (``tpu_dist_torch/__init__.py``), so what is left is the
+interpreter's own start.
 """
 
 from __future__ import annotations
@@ -47,6 +54,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import signal
 import time
 from dataclasses import dataclass, field
 
@@ -148,7 +156,22 @@ def _write_tick(base: str, tick: int) -> None:
 
 
 def main(argv=None) -> int:
-    args = build_parser().parse_args(argv)
+    # before the heavy imports: until RunObs takes SIGTERM over, a SIGTERM
+    # is noted here instead of killing the process
+    early_sigterm: list = []
+    try:
+        prev = signal.signal(signal.SIGTERM,
+                             lambda signum, frame: early_sigterm.append(1))
+    except ValueError:          # not the main thread: nothing to take
+        prev = None
+    try:
+        return _serve(build_parser().parse_args(argv), early_sigterm)
+    finally:
+        if prev is not None:
+            signal.signal(signal.SIGTERM, prev)
+
+
+def _serve(args, early_sigterm: list) -> int:
 
     from tpu_dist_torch.sim.scenario import compile_host_plans, load_scenario
 
@@ -194,6 +217,8 @@ def main(argv=None) -> int:
     obs.run_start(mesh=None, process_count=1, devices=[
         torch.cuda.get_device_name(device) if device.type == "cuda"
         else "cpu"])
+    if early_sigterm:   # taken before RunObs was up: drains before tick 1
+        obs.request_preemption(source="SIGTERM")
     kernels.reset_launches()        # this attempt's kernel launches
 
     base = args.ledger_path or ""

@@ -53,14 +53,9 @@ def parser() -> argparse.ArgumentParser:
 
 def run(args) -> dict:
     """Train to the threshold; returns the JSON line's object."""
-    import torch
-
     from tpu_dist_torch.configs import TrainConfig
     from tpu_dist_torch.engine.loop import Trainer
 
-    # dropout draws from torch's generator: the seed fixes them too, as
-    # the reference's seed fixes its dropout keys
-    torch.manual_seed(args.seed)
     cfg = TrainConfig(
         arch=args.arch, dataset=args.dataset, variant=args.variant,
         precision=args.precision, batch_size=args.batch_size,
