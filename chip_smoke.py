@@ -37,11 +37,18 @@ they print share the card and the host. Phases:
    Lq130 Lk200 H8 D128, kv_offset 40; exact zeros, and dead keys too for
    the backward), and their records carry ptxas's spill stores and
    registers per kernel instance (a line of its own gives them for adamw,
-   sgd and fused_quant). The fused int8 matmul is held bit-equal at every
-   dense shape of a decode tick and a prefill (no one PyTorch call
-   computes it: ``library_ms`` is null, and ``yardstick_ms`` times the
-   bf16 ``torch.matmul`` of the unquantized operands), the int8-K/V flash
-   forward at L=2048 (library: SDPA on the dequantized K/V);
+   sgd, fused_quant and paged_decode). The fused int8 matmul is held
+   bit-equal at every dense shape of a decode tick and a prefill (no one
+   PyTorch call computes it: ``library_ms`` is null, and ``yardstick_ms``
+   times the bf16 ``torch.matmul`` of the unquantized operands), the
+   int8-K/V flash forward at L=2048 (library: SDPA on the dequantized K/V).
+   Rows 1-5 again at head dims 16 and 32 (their own instances) and 48 (the
+   64 instance with the true head dim at run time; P3_HEAD_DIMS), each
+   timed beside SDPA and its bound: the flash forward and the int8-K/V
+   forward at B1 L2048 H8, the backward pair at B8 L2048 H8, each also with
+   dead rows (Lq130 Lk200, kv_offset 40), the paged decode at B8 Lk2048 H8
+   gathered and through a shuffled block table (bit-equal), a row of length
+   0 exact zeros (``check_head_dims``);
 4. small-input checks: a tiny fp32 model served on the card (kernels) and
    on the CPU (plain versions) gives the same greedy tokens, also with
    ``quant="int8"``, and with ``spec_k=3`` on the card against the same
@@ -356,8 +363,9 @@ they print share the card and the host. Phases:
    SUM on rank 1, over a group with a timeout, PL002 on both ranks; (f)
    ``tools.convergence`` (ResNet-50, batch 1024, synthetic 10,240/2,048,
    bf16, ``fused_sgd``) and ``tools.lm_convergence`` (2 layers, d_model
-   128 in 2 heads of 64, V 512, batch 32, L 256, bf16, flash): steps and
-   seconds to 90% top-1 and to ppl 4;
+   128 in 4 heads of 32, V 512, batch 32, L 256, bf16, flash: the
+   reference's geometry): steps and seconds to 90% top-1 and to ppl 4,
+   beside the reference's 30 and 116;
 20. dropout drawn from (seed, step, microbatch, rank): LeNet (synthetic
    MNIST) and SqueezeNet 1.1 (synthetic CIFAR-10, 32 px) through the image
    ``Trainer`` (P20_RUN: 8 steps of 256, bf16 over fp32 masters,
@@ -366,6 +374,18 @@ they print share the card and the host. Phases:
    step P20_CUT and resumed from its checkpoint gives the uninterrupted
    run's losses from there bit-equal, and every run launches ``sgd`` once
    a step.
+21. the reference's own small LM configurations through the kernels at
+   head dims 16 and 32: (a) ``tiny_lm`` at its defaults (V 256, 2 layers,
+   d_model 64 in 4 heads of 16), fp32, a flash prefill and int8 pages read
+   by the paged decode kernel (P21_SERVE), six requests served on the card
+   and on the CPU from the same weights: every greedy token equal, and on
+   the card ``flash_fwd`` once a layer a prefill and ``paged_decode`` once
+   a layer a tick; (b) ``LMTrainer`` at ``LMConfig``'s defaults (V 512, 4
+   layers, d_model 256 in 8 heads of 32, L 512, batch 16, sgd) with
+   ``attn="flash"``: the fp32 twin card against CPU for P21_STEPS steps,
+   losses within LOSS_TOL (1 + |loss|), then bf16 on the card for
+   P21_BF16_STEPS steps, finite and falling; each run launches
+   ``flash_fwd``, ``flash_bwd_dq`` and ``flash_bwd_dkv``.
 
 Each phase's seconds print as it ends ("phase N took"), the parts of
 phases 9 and 11 and each rank group's jobs too, and all of them together
@@ -612,9 +632,9 @@ def paged_bound(b, h, d, lengths, page_size=None):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def check_paged(torch, F, gen):
+def check_paged(torch, F, gen, d=128):
     """The paged decode kernel against its plain version at the serving
-    width: over gathered K/V (B8 Lk2048 H8 D128, the reference's layout),
+    width: over gathered K/V (B8 Lk2048 H8 D``d``, the reference's layout),
     and over the same keys scattered to 1,024 pages of 16 through a
     shuffled (8, 128) block table (bit-equal to the gathered result: the
     same keys in the same splits); on arenas whose scales are NaN wherever
@@ -623,7 +643,7 @@ def check_paged(torch, F, gen):
     from tpu_dist_torch.ops import flash_attention as fa
     from tpu_dist_torch.ops import paged_attention as pa
 
-    b, lk, h, d = 8, 2048, 8, 128
+    b, lk, h = 8, 2048, 8
     q = torch.randn((b, 1, h, d), generator=gen, device="cuda").to(
         torch.bfloat16)
     k, v = (torch.randn((b, lk, h, d), generator=gen, device="cuda")
@@ -828,7 +848,6 @@ def check_flash_bwd(torch, F, gen):
     (B1 L1000 H8 D64, q_offset 24) and one with dead rows and keys (B1 Lq130
     Lk200 H8 D128, kv_offset 40) in the same tolerance."""
     from tpu_dist_torch import kernels
-    from tpu_dist_torch.ops import flash_attention as fa
 
     b, L, h, d = 8, 2048, 8, 128
     main, (q, k, v, g, out, lse) = check_flash_bwd_shape(torch, gen, b, L, L,
@@ -840,6 +859,21 @@ def check_flash_bwd(torch, F, gen):
                                   q_offset=24)[0],
             check_flash_bwd_shape(torch, own, 1, 130, 200, 8, 128,
                                   kv_offset=40)[0]]
+    recs = time_flash_bwd(torch, F, errs, q, k, v, g, out, lse)
+    for name in recs:
+        recs[name].update(more_shapes=more, **ptxas_report(kernels, name))
+    return recs
+
+
+def time_flash_bwd(torch, F, errs, q, k, v, g, out, lse):
+    """{flash_bwd_dq, flash_bwd_dkv: record} at a causal shape (q_offset =
+    kv_offset = 0): each kernel's time, the plain version's and SDPA's
+    backward (both for dq, dk and dv together), the bound, and the errors
+    ``errs`` the check found."""
+    from tpu_dist_torch import kernels
+    from tpu_dist_torch.ops import flash_attention as fa
+
+    b, L, h, d = q.shape
     stream = torch.cuda.current_stream().cuda_stream
     fn_dq = kernels.function("flash_bwd_dq", "tdt_flash_bwd_dq",
                              fa._BWD_DQ_ARGS)
@@ -875,8 +909,7 @@ def check_flash_bwd(torch, F, gen):
             "library_ms": lib_ms,
             "note": "plain_ms and library_ms cover dq, dk and dv together",
             "library": "scaled_dot_product_attention(is_causal=True) "
-                       "backward (autograd.grad)",
-            "more_shapes": more, **ptxas_report(kernels, name)}
+                       "backward (autograd.grad)"}
     return recs
 
 
@@ -1206,10 +1239,23 @@ def check_flash_int8kv(torch, F, gen):
     then a ragged shape (B1 L1000 H8 D64, q_offset 24) and one with dead
     rows (B1 Lq130 Lk200 H8 D128, kv_offset 40) from their own."""
     from tpu_dist_torch import kernels
+
+    rec, (q, kv) = check_int8kv_shape(torch, gen, 1, 2048, 2048, 8, 128)
+    time_int8kv(torch, F, rec, q, kv)
+    own = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    rec["more_shapes"] = [
+        check_int8kv_shape(torch, own, 1, 1000, 1000, 8, 64, q_offset=24)[0],
+        check_int8kv_shape(torch, own, 1, 130, 200, 8, 128, kv_offset=40)[0]]
+    rec.update(ptxas_report(kernels, "flash_fwd_int8kv"))
+    return rec
+
+
+def time_int8kv(torch, F, rec, q, kv):
+    """Adds the int8-K/V kernel's, the plain version's and SDPA's times at
+    rec's causal shape, and the bound, to ``rec``."""
     from tpu_dist_torch.ops import flash_attention as fa
 
-    b, L, h, d = 1, 2048, 8, 128
-    rec, (q, kv) = check_int8kv_shape(torch, gen, b, L, L, h, d)
+    b, L, h, d = q.shape
     rec["shape"] = f"B{b} L{L} H{h} D{d} bf16 q, int8 K/V, causal"
     kq, ks, vq, vs = kv
     kd, vd = ((t.float() * sc[..., None]).to(torch.bfloat16)
@@ -1228,12 +1274,50 @@ def check_flash_int8kv(torch, F, gen):
     nbytes = 2 * b * L * h * d * 2 + 2 * b * L * h * d + 2 * b * L * h * 4
     rec["bound_ms"], rec["bound_by"] = flash_bound(
         b, h, d, live_causal_pairs(L, L), nbytes)
-    own = torch.Generator(device="cuda").manual_seed(SEED + 3)
-    rec["more_shapes"] = [
-        check_int8kv_shape(torch, own, 1, 1000, 1000, 8, 64, q_offset=24)[0],
-        check_int8kv_shape(torch, own, 1, 130, 200, 8, 128, kv_offset=40)[0]]
-    rec.update(ptxas_report(kernels, "flash_fwd_int8kv"))
     return rec
+
+
+# phase 3 at the head dims below 64: the instances at 16 and 32 (tiny_lm,
+# LMConfig), and 48 on the 64 instance with the true head dim at run time
+P3_HEAD_DIMS = (16, 32, 48)
+
+
+def check_head_dims(torch, F):
+    """Rows 1-5 at each head dim of P3_HEAD_DIMS, from a generator of their
+    own, against their plain versions (the tolerances of the D128 checks;
+    dead rows, dead keys and length-0 rows exact zeros), each timed with
+    SDPA's time and the bound at the row's timed shape: the flash forward
+    and the int8-K/V forward at B1 L2048 H8 causal, the backward pair at B8
+    L2048 H8 causal, each also at B1 Lq130 Lk200 H8 with kv_offset 40; the
+    paged decode as ``check_paged`` checks it at D128. Returns {kernel:
+    [record a head dim]}."""
+    own = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    recs = {k: [] for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                            "flash_fwd_int8kv", "paged_decode")}
+    for d in P3_HEAD_DIMS:
+        rec, qkv = check_flash_shape(torch, own, 1, 2048, 2048, 8, d)
+        rec = time_flash(torch, F, rec, *qkv)
+        rec["shape"] = f"B1 L2048 H8 D{d} bf16 causal"
+        rec["dead_rows_shape"] = check_flash_shape(
+            torch, own, 1, 130, 200, 8, d, kv_offset=40)[0]
+        recs["flash_fwd"].append(rec)
+        del qkv
+        main, (q, k, v, g, out, lse) = check_flash_bwd_shape(
+            torch, own, 8, 2048, 2048, 8, d)
+        dead = check_flash_bwd_shape(torch, own, 1, 130, 200, 8, d,
+                                     kv_offset=40)[0]
+        for name, r in time_flash_bwd(torch, F, main["max_abs_err"], q, k,
+                                      v, g, out, lse).items():
+            r["dead_rows_shape"] = dead
+            recs[name].append(r)
+        del q, k, v, g, out, lse
+        rec, (q, kv) = check_int8kv_shape(torch, own, 1, 2048, 2048, 8, d)
+        recs["flash_fwd_int8kv"].append(time_int8kv(torch, F, rec, q, kv))
+        rec["dead_rows_shape"] = check_int8kv_shape(
+            torch, own, 1, 130, 200, 8, d, kv_offset=40)[0]
+        del q, kv
+        recs["paged_decode"].append(check_paged(torch, F, own, d))
+    return recs
 
 
 def run_trainer(cfg, device, init_params=None):
@@ -6006,11 +6090,10 @@ P19_SERVE_MODEL = dict(vocab_size=32000, num_layers=8, d_model=1024,
 P19_SERVE_REQUESTS = 16
 P19_GROUP_TIMEOUT_S = 60  # 19e: the swap's gloo group
 # 19f: BASELINE.md's geometries (the tools' defaults), through the
-# kernels; the LM's 4 heads of 32 become 2 of 64 (the flash kernels take
-# head dims 64 and 128)
+# kernels; the LM at its own 4 heads of 32 (the kernels' head-dim-32
+# instances)
 P19_IMAGE_CONVERGENCE = ["--optimizer", "fused_sgd"]
-P19_LM_CONVERGENCE = ["--precision", "bf16", "--attn", "flash",
-                      "--num-heads", "2"]
+P19_LM_CONVERGENCE = ["--precision", "bf16", "--attn", "flash"]
 
 
 def p19_audits(recs):
@@ -6534,6 +6617,145 @@ def dropout_path(torch, kernels, tmp, device="cuda"):
     return rec, by_run
 
 
+# ---- phase 21: the reference's own small LM configurations -----------------
+
+# 21a: tiny_lm at the reference's defaults (V 256, 2 layers, d_model 64 in
+# 4 heads of 16, max_len 512), fp32, a flash prefill and int8 pages read by
+# the paged decode kernel, card against CPU
+P21_SERVE = dict(max_slots=4, page_size=16, num_pages=96, kv_quant="int8",
+                 attn_read="flash")
+P21_PROMPTS = (5, 33, 64, 130, 17, 200)
+P21_OUTS = (20, 12, 30, 24, 16, 40)
+# 21b: LMTrainer at LMConfig's defaults (V 512, 4 layers, d_model 256 in 8
+# heads of 32, L 512, batch 16, sgd at 3e-2) with attn="flash": the fp32
+# twin for P21_STEPS steps, and bf16 on the card for P21_BF16_STEPS; the
+# synthetic corpus cut to what the steps read
+P21_STEPS = 5
+P21_BF16_STEPS = 20
+P21_TOKENS = 200_000
+
+
+def p21_tiny_lm_serving(torch, kernels, device="cuda"):
+    """21a: ``tiny_lm`` served on ``device`` (the kernels) and on the CPU
+    (their plain versions) from the same weights: every request's greedy
+    tokens equal, and on the card ``flash_fwd`` and ``paged_decode``
+    launched. Returns (record, the card run's launches)."""
+    import inspect
+
+    import numpy as np
+
+    from tpu_dist_torch.engine.serve import (DecodeRequest, ServeConfig,
+                                             ServeEngine)
+    from tpu_dist_torch.models.transformer import tiny_lm
+    from tpu_dist_torch.ops.flash_attention import flash_attention_fn
+
+    defaults = {k: p.default for k, p in
+                inspect.signature(tiny_lm).parameters.items()
+                if k in ("vocab_size", "num_layers", "d_model", "num_heads",
+                         "max_len")}
+    vocab = defaults["vocab_size"]
+    cpu_lm = tiny_lm(device="cpu", seed=SEED, attn_fn=flash_attention_fn())
+    card_lm = tiny_lm(device=device, seed=None, attn_fn=flash_attention_fn())
+    card_lm.load_state_dict(cpu_lm.state_dict())
+    rng = np.random.default_rng(SEED + 21)
+    prompts = [rng.integers(0, vocab, (n,)).astype(np.int32)
+               for n in P21_PROMPTS]
+    reqs = lambda: [DecodeRequest(i, p, n) for i, (p, n) in
+                    enumerate(zip(prompts, P21_OUTS))]
+    got, launches, ticks = {}, None, 0
+    for dev, lm in (("cpu", cpu_lm), (device, card_lm)):
+        kernels.reset_launches()
+        eng = ServeEngine(lm, ServeConfig(**P21_SERVE), device=dev)
+        got[dev] = {c.rid: c.tokens for c in eng.run(reqs())}
+        launches, ticks = dict(kernels.LAUNCHES), eng.ticks
+    for rid, toks in got["cpu"].items():
+        if not np.array_equal(toks, got[device][rid]):
+            raise AssertionError(f"21a request {rid}: card tokens "
+                                 f"{got[device][rid].tolist()} != CPU "
+                                 f"{toks.tolist()}")
+    layers = defaults["num_layers"]
+    if device == "cuda" and (
+            launches["flash_fwd"] < layers * len(P21_PROMPTS)
+            or launches["paged_decode"] < layers * ticks):
+        raise AssertionError(f"21a launches {launches} for {ticks} ticks "
+                             f"x {layers} layers")
+    return {"model": {**defaults, "head_dim": defaults["d_model"]
+                      // defaults["num_heads"], "dtype": "fp32"},
+            "serve": P21_SERVE, "requests": len(got["cpu"]),
+            "token_equal": len(got["cpu"]), "ticks": ticks,
+            "launches": {k: launches[k] for k in ("flash_fwd",
+                                                   "paged_decode")}}, \
+        launches
+
+
+def p21_lmconfig(torch, kernels, device="cuda"):
+    """21b: ``LMTrainer`` at ``LMConfig``'s defaults with ``attn="flash"``:
+    the fp32 twin on ``device`` and the CPU from the same weights, per-step
+    losses within LOSS_TOL (1 + |loss|); then bf16 on ``device`` for
+    P21_BF16_STEPS steps, finite and falling, with each flash kernel
+    launched. Returns (record, launches by run)."""
+    from tpu_dist_torch.configs import LMConfig
+    from tpu_dist_torch.interop import export_flax_params
+    from tpu_dist_torch.models.transformer import TransformerLM
+
+    cfg = LMConfig(attn="flash", max_steps=P21_STEPS, synth_tokens=P21_TOKENS,
+                   print_freq=100, seed=SEED)
+    init = export_flax_params(TransformerLM(
+        vocab_size=cfg.vocab_size, num_layers=cfg.num_layers,
+        d_model=cfg.d_model, num_heads=cfg.num_heads, max_len=cfg.seq_len,
+        device="cpu", seed=SEED))
+    _, cpu_losses = run_trainer(cfg, "cpu", init)
+    kernels.reset_launches()
+    _, card_losses = run_trainer(cfg, device, init)
+    fp32_launches = dict(kernels.LAUNCHES)
+    if len(card_losses) != P21_STEPS or len(cpu_losses) != P21_STEPS:
+        raise AssertionError(f"21b steps: card {len(card_losses)}, cpu "
+                             f"{len(cpu_losses)}")
+    for i, (a, r) in enumerate(zip(card_losses, cpu_losses)):
+        if abs(a - r) > LOSS_TOL * (1 + abs(r)):
+            raise AssertionError(f"21b step {i}: card loss {a} != CPU {r} "
+                                 f"(tol {LOSS_TOL} (1 + |loss|))")
+    bf16 = dataclasses.replace(cfg, precision="bf16",
+                               max_steps=P21_BF16_STEPS)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    _, bf16_losses = run_trainer(bf16, device, init)
+    wall = time.perf_counter() - t0
+    bf16_launches = dict(kernels.LAUNCHES)
+    if len(bf16_losses) != P21_BF16_STEPS or not all(
+            math.isfinite(x) for x in bf16_losses) \
+            or not bf16_losses[-1] < bf16_losses[0]:
+        raise AssertionError(f"21b bf16 losses {bf16_losses}")
+    names = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    if device == "cuda" and not all(run[n] for run in (fp32_launches,
+                                                       bf16_launches)
+                                    for n in names):
+        raise AssertionError(f"21b launches: fp32 {fp32_launches}, bf16 "
+                             f"{bf16_launches}")
+    return {"config": {k: getattr(cfg, k) for k in (
+                "vocab_size", "num_layers", "d_model", "num_heads",
+                "seq_len", "batch_size", "optimizer", "lr", "attn")},
+            "head_dim": cfg.d_model // cfg.num_heads,
+            "fp32": {"card": card_losses, "cpu": cpu_losses,
+                     "max_abs_diff": max(abs(a - r) for a, r in
+                                         zip(card_losses, cpu_losses)),
+                     "tolerance": f"{LOSS_TOL} * (1 + |loss|)",
+                     "launches": {n: fp32_launches[n] for n in names}},
+            "bf16": {"losses": bf16_losses, "wall_s": wall,
+                     "launches": {n: bf16_launches[n] for n in names}}}, \
+        {"p21b_lmconfig_fp32": fp32_launches,
+         "p21b_lmconfig_bf16": bf16_launches}
+
+
+def small_configs_path(torch, kernels, device="cuda"):
+    """Phase 21 (module docstring). Returns (record, launches by run).
+    ``device="cpu"`` rehearses its control flow on the CPU."""
+    serving, serve_launches = p21_tiny_lm_serving(torch, kernels, device)
+    training, train_launches = p21_lmconfig(torch, kernels, device)
+    return {"a_tiny_lm_serving": serving, "b_lmconfig_flash": training}, \
+        {"p21a_tiny_lm_serving": serve_launches, **train_launches}
+
+
 def importable(name):
     import importlib.util
 
@@ -6609,6 +6831,7 @@ def main():
     sgd = check_sgd(torch, gen)
     quant = check_fused_quant(torch, gen)
     int8kv = check_flash_int8kv(torch, F, gen)
+    head_dims = check_head_dims(torch, F)
     log(f"phase 3 kernels: flash_fwd {json.dumps(flash)}")
     log(f"phase 3 kernels: flash_fwd more shapes {json.dumps(flash_more)}")
     log(f"phase 3 kernels: paged_decode {json.dumps(paged)}")
@@ -6617,9 +6840,15 @@ def main():
     log(f"phase 3 kernels: sgd {json.dumps(sgd)}")
     log(f"phase 3 kernels: fused_quant {json.dumps(quant)}")
     log(f"phase 3 kernels: flash_fwd_int8kv {json.dumps(int8kv)}")
+    log(f"phase 3 kernels at head dims {list(P3_HEAD_DIMS)}: "
+        f"{json.dumps(head_dims)}")
+    for kname, recs in head_dims.items():
+        log(f"phase 3 {kname} ms by head dim: " + ", ".join(
+            f"D{d} {r['ms']:.4f} (bound {r['bound_ms']:.4f}, SDPA "
+            f"{r['library_ms']:.4f})" for d, r in zip(P3_HEAD_DIMS, recs)))
     log(f"phase 3 ptxas: " + json.dumps(
-        {k: ptxas_report(kernels, k) for k in ("adamw", "sgd",
-                                               "fused_quant")}))
+        {k: ptxas_report(kernels, k) for k in ("adamw", "sgd", "fused_quant",
+                                               "paged_decode")}))
 
     took(3)
 
@@ -6864,9 +7093,17 @@ def main():
             f"bit-equal from there, sgd launches a step "
             f"{json.dumps(r['sgd_launches_per_step'])}")
     took(20)
+
+    # 21. the reference's own small LM configurations
+    small, small_launches = small_configs_path(torch, kernels)
+    for part in ("a_tiny_lm_serving", "b_lmconfig_flash"):
+        log(f"phase 21{part[0]} {part[2:]}: {json.dumps(small[part])} on "
+            f"{card}")
+    took(21)
     dp_launches = {**dp_launches, **mp_launches, **pp_launches,
                    **rs_launches, **obs_launches, **plan_launches,
                    **fleet_launches, **audit_launches, **dropout_launches,
+                   **small_launches,
                    "script6_imagenet": s6_launches,
                    "vit_base_int8": vit8_launches,
                    "zoo_sweep": {**{k: 0 for k in kernels.SOURCES},
@@ -6973,8 +7210,11 @@ def main():
         entry["launches_by_path"].update(
             {p: n[kname] for p, n in {**rs_launches, **obs_launches,
                                       **plan_launches, **fleet_launches,
-                                      **audit_launches,
-                                      **dropout_launches}.items()})
+                                      **audit_launches, **dropout_launches,
+                                      **small_launches}.items()})
+        if kname in head_dims:
+            entry["head_dims"] = dict(zip(
+                (f"D{d}" for d in P3_HEAD_DIMS), head_dims[kname]))
         entries.append(entry)
     # fused_quant's two phases apart: gspmd tp's int8 row products (13d)
     scaled = pp["d_int8_tp_scaled_pair"]["scaled_pair"]
@@ -7000,7 +7240,8 @@ def main():
                                      {**pp_launches, **rs_launches,
                                       **obs_launches, **plan_launches,
                                       **fleet_launches, **audit_launches,
-                                      **dropout_launches}.items()}
+                                      **dropout_launches,
+                                      **small_launches}.items()}
         entries.append(entry)
     log("phase seconds: " + json.dumps(
         {k: round(v, 1) for k, v in phase_s.items()}))

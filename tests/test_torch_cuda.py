@@ -54,6 +54,12 @@ def _close(out, ref, dtype):
     (1, 1, 1, 1, 128, True, 0, 0),
     (2, 130, 200, 2, 64, True, 0, 40),    # several q tiles, dead rows
     (1, 1000, 1000, 2, 128, False, 24, 0),
+    # head dims 16, 32 and, on the 64 and 128 instances at run time, 48
+    # and 80
+    (2, 130, 200, 2, 16, True, 0, 40),
+    (1, 70, 130, 3, 32, False, 0, 0),
+    (2, 100, 100, 2, 48, True, 0, 0),
+    (1, 130, 130, 2, 80, True, 24, 0),
 ], ids=str)
 def test_flash_kernel_matches_plain(cuda, dtype, case):
     b, lq, lk, h, d, causal, qo, ko = case
@@ -70,7 +76,7 @@ def test_flash_kernel_matches_plain(cuda, dtype, case):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=str)
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 16, 32, 48, 80])
 def test_paged_kernel_matches_plain(cuda, dtype, d):
     b, lk, h = 5, 300, 3
     gen = torch.Generator(device=cuda).manual_seed(d)
@@ -88,7 +94,7 @@ def test_paged_kernel_matches_plain(cuda, dtype, d):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=str)
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 16, 32, 48, 80])
 def test_paged_block_table_kernel_reads_only_live_keys(cuda, dtype, d):
     """The kernel through a shuffled block table (page_size 16, 128 pages
     a row as in serving) on arenas whose scales are NaN wherever no row
@@ -139,14 +145,18 @@ def test_wrappers_count_launches_and_refuse_bad_input(cuda):
     kernels.reset_launches()
     fa.flash_attention_fn()(x, x, x)
     assert kernels.LAUNCHES["flash_fwd"] == 1
-    with pytest.raises(ValueError, match="head_dim"):
-        fa.flash_forward_cuda(*(torch.zeros((1, 8, 1, 32), device=cuda),) * 3)
+    # head dim 32 has an instance; 24 is not a multiple of 16: refused by
+    # name, nothing launched
+    fa.flash_forward_cuda(*(torch.zeros((1, 8, 1, 32), device=cuda),) * 3)
+    assert kernels.LAUNCHES["flash_fwd"] == 2
+    with pytest.raises(ValueError, match="head_dim 24 is not a multiple of"):
+        fa.flash_forward_cuda(*(torch.zeros((1, 8, 1, 24), device=cuda),) * 3)
     with pytest.raises(ValueError, match="contiguous"):
         y = torch.randn((1, 2, 8, 64), device=cuda).transpose(1, 2)
         fa.flash_forward_cuda(y, y, y)
     with pytest.raises(TypeError):
         fa.flash_forward_cuda(*(x.half(),) * 3)
-    assert kernels.LAUNCHES["flash_fwd"] == 1
+    assert kernels.LAUNCHES["flash_fwd"] == 2
 
 
 @pytest.mark.parametrize("kw", [
@@ -195,6 +205,11 @@ def test_serving_on_the_card_equals_the_cpu_path(cuda, kw):
     (1, 1, 1, 1, 128, True, 0, 0),
     (1, 1000, 1000, 2, 64, True, 0, 0),   # many tiles, ragged last one
     (1, 130, 200, 2, 128, True, 0, 40),   # ragged, dead rows and keys
+    # head dims 16, 32, and 48 and 80 at run time
+    (1, 130, 200, 2, 16, True, 0, 40),
+    (2, 100, 100, 2, 32, True, 0, 0),
+    (1, 70, 130, 3, 48, False, 0, 0),
+    (1, 130, 130, 2, 80, True, 24, 0),
 ], ids=str)
 def test_flash_backward_kernels_match_plain(cuda, dtype, case):
     b, lq, lk, h, d, causal, qo, ko = case
@@ -540,6 +555,11 @@ def test_fused_quant_scaled_pair_matches_plain(cuda, dtype, m, k, n):
     (2, 40, 96, 1, 64, True, 56, 0),
     (2, 130, 200, 2, 64, True, 0, 40),    # several q tiles, dead rows
     (1, 1000, 1000, 2, 128, False, 24, 0),
+    # head dims 16, 32, and 48 and 80 at run time
+    (2, 130, 200, 2, 16, True, 0, 40),
+    (1, 70, 130, 3, 32, False, 0, 0),
+    (2, 100, 100, 2, 48, True, 0, 0),
+    (1, 130, 130, 2, 80, True, 24, 0),
 ], ids=str)
 def test_int8kv_flash_kernel_matches_plain(cuda, dtype, case):
     b, lq, lk, h, d, causal, qo, ko = case

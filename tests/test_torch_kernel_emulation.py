@@ -20,6 +20,7 @@ is nearly all that is left).
 The hardware itself is checked by tests/test_torch_cuda.py on the card."""
 
 import ctypes
+import math
 import os
 import shutil
 
@@ -94,6 +95,15 @@ def _close(out, ref, dtype):
     (torch.bfloat16, (1, 40, 96, 1, 128, True, 56, 0)),   # q after kv prefix
     (torch.bfloat16, (1, 130, 130, 1, 128, False, 24, 0)),
     (torch.bfloat16, (1, 192, 192, 1, 64, True, 0, 0)),
+    # head dims 16 and 32 (their own instances), 48 and 80 (the true head
+    # dim at run time on the 64 and 128 instances)
+    (torch.float32, (1, 70, 130, 2, 16, True, 0, 0)),
+    (torch.float32, (1, 64, 64, 1, 32, True, 0, 40)),    # masked rows
+    (torch.float32, (1, 70, 100, 2, 48, False, 0, 0)),
+    (torch.bfloat16, (2, 130, 200, 2, 16, True, 0, 40)),  # dead rows
+    (torch.bfloat16, (1, 100, 100, 2, 32, True, 0, 0)),
+    (torch.bfloat16, (1, 70, 130, 2, 48, False, 24, 0)),
+    (torch.bfloat16, (1, 64, 96, 2, 80, True, 0, 0)),
 ], ids=str)
 def test_flash_kernel_source_matches_plain(emu, dtype, case):
     b, lq, lk, h, d, causal, qo, ko = case
@@ -110,7 +120,8 @@ def test_flash_kernel_source_matches_plain(emu, dtype, case):
         assert dead.any() and bool((out[:, dead] == 0).all())
 
 
-@pytest.mark.parametrize("d,causal", [(64, True), (128, False)], ids=str)
+@pytest.mark.parametrize("d,causal", [(64, True), (128, False), (32, True),
+                                      (16, False)], ids=str)
 def test_flash_mma_kernel_source_matches_pallas_forward(emu, d, causal):
     """The same numpy inputs through the JAX package's Pallas forward
     (interpret mode) and the emulated bf16 tensor-core kernel: out within
@@ -155,9 +166,138 @@ def test_misaligned_bf16_views_are_named_before_and_at_the_launch(emu):
         fa._launch_int8kv(emu["int8kv"], q, kv, True, 0, 0, None)
 
 
+def _head_dim(d_model, num_heads):
+    assert d_model % num_heads == 0
+    return d_model // num_heads
+
+
+def test_head_dim_rule_takes_every_reference_configuration():
+    """The one head-dim rule (``kernels.head_dim_instance``, the rule of
+    ``csrc/head_dim.cuh``) takes the head dim of every configuration the
+    reference ships: ``tiny_lm`` (16), ``LMConfig`` (32), the LM
+    convergence tool (32), ViT-CIFAR (32), ViT-B/16 (64) and the LM bench
+    (128); every other multiple of 16 up to 128 runs on the next instance
+    up; 24 and 136 are refused by name."""
+    import inspect
+
+    from tpu_dist_torch.configs import LMConfig
+    from tpu_dist_torch.models import vit
+    from tpu_dist_torch.models.transformer import tiny_lm
+    from tpu_dist_torch.tools import decode_bench, lm_convergence
+
+    tiny = inspect.signature(tiny_lm).parameters
+    conv = lm_convergence.parser().parse_args([])
+    bench = decode_bench.build_parser().parse_args([])
+    dims = {
+        "tiny_lm": _head_dim(tiny["d_model"].default,
+                             tiny["num_heads"].default),
+        "LMConfig": _head_dim(LMConfig().d_model, LMConfig().num_heads),
+        "lm_convergence": _head_dim(conv.d_model, conv.num_heads),
+        "vit_cifar": _head_dim(vit.ViTCifar.keywords["d_model"],
+                               vit.ViTCifar.keywords["num_heads"]),
+        "vit_b16": _head_dim(vit.ViTBase.keywords["d_model"],
+                             vit.ViTBase.keywords["num_heads"]),
+        "lm bench": _head_dim(bench.d_model, bench.num_heads)}
+    assert dims == {"tiny_lm": 16, "LMConfig": 32, "lm_convergence": 32,
+                    "vit_cifar": 32, "vit_b16": 64, "lm bench": 128}
+    for d in dims.values():
+        assert kernels.head_dim_instance(d) == d
+    assert {d: kernels.head_dim_instance(d) for d in (48, 80, 96, 112)} \
+        == {48: 64, 80: 128, 96: 128, 112: 128}
+    for d in (24, 136, 8, 0, 144):
+        assert kernels.head_dim_instance(d) is None
+    for d in (24, 136):
+        with pytest.raises(ValueError, match=rf"head_dim {d} is not a "
+                                             r"multiple of 16 from 16 to 128"):
+            kernels.check_head_dim("flash kernel", d)
+
+
+@pytest.mark.parametrize("d", [24, 136], ids=str)
+def test_attention_entries_refuse_what_the_rule_refuses(emu, d):
+    """Past the wrappers' check, each of the five C entries returns -1 for
+    a head dim the rule refuses, in both dtypes, and launches nothing."""
+    x = torch.zeros((1, 4, 1, d))
+    i8 = torch.zeros((1, 4, 1, d), dtype=torch.int8)
+    scale = torch.ones((1, 4, 1))
+    lens = torch.ones(1, dtype=torch.int32)
+    table = torch.zeros((1, 1), dtype=torch.int32)
+    ptr = lambda t: t.data_ptr()
+    for dtype in (0, 1):
+        common = (1, 1, 4, 4, d, 1, 0, 0, 1.0, dtype, None)
+        assert emu["flash"](*(ptr(x),) * 5, *common) == -1
+        assert emu["dq"](*(ptr(x),) * 7, *common) == -1
+        assert emu["dkv"](*(ptr(x),) * 8, *common) == -1
+        assert emu["int8kv"](ptr(x), ptr(i8), ptr(scale), ptr(i8),
+                             ptr(scale), ptr(x), *common) == -1
+        assert emu["paged"](ptr(x), ptr(i8), ptr(scale), ptr(i8),
+                            ptr(scale), ptr(table), ptr(lens), ptr(x),
+                            ptr(x), ptr(x), 1, 1, d, 1, 4, 1, 1.0, dtype,
+                            None) == -1
+
+
+GUARD = 256       # elements past an output, SENTINEL before a launch and
+SENTINEL = -4096.0  # after it (exact in bf16; a stray store changes it)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("d", [48, 80], ids=str)
+def test_runtime_head_dim_stores_nothing_past_d(emu, monkeypatch, dtype, d):
+    """At a head dim that runs on the next instance up, every kernel's
+    outputs (and the paged decode's split partials) are allocated NaN with
+    GUARD SENTINEL elements after them: each output element is written (it
+    matches the plain version), and nothing lands past the end."""
+    gen = torch.Generator().manual_seed(d)
+    b, lq, lk, h = 1, 70, 100, 2
+    q, k, v, g = (torch.randn((b, n, h, d), generator=gen).to(dtype)
+                  for n in (lq, lk, lk, lq))
+    kv = fa.quantize_kv(*(torch.randn((b, lk, h, d), generator=gen)
+                          for _ in range(2)))
+    lens = torch.tensor([lk - 3], dtype=torch.int32)
+    ref = fa.flash_forward_plain(q, k, v, True, 0, 0)
+    ref_bwd = fa.flash_backward_plain(q, k, v, *ref, g, True, 0, 0)
+    ref_int8 = fa.int8kv_flash_plain(q, kv, True, 0, 0)
+    qd = q[:, :1].contiguous()
+    ref_paged = pa.paged_decode_plain(qd, *kv, lens)
+    made = []
+
+    def empty(*shape, dtype=torch.float32, device=None):
+        shape = tuple(shape[0]) if len(shape) == 1 and not isinstance(
+            shape[0], int) else shape
+        n = math.prod(shape)
+        buf = torch.full((n + GUARD,), SENTINEL, dtype=dtype)
+        buf[:n] = float("nan")
+        made.append((buf, n))
+        return buf[:n].view(shape)
+
+    with monkeypatch.context() as m:
+        m.setattr(torch, "empty", empty)
+        m.setattr(torch, "empty_like",
+                  lambda t, dtype=None: empty(t.shape, dtype=dtype or t.dtype))
+        out, lse = fa._launch(emu["flash"], q, k, v, True, 0, 0, None)
+        got_bwd = fa._launch_backward(emu["dq"], emu["dkv"], q, k, v, *ref,
+                                      g, True, 0, 0, None)
+        got_int8 = fa._launch_int8kv(emu["int8kv"], q, kv, True, 0, 0, None)
+        got_paged = pa._launch(emu["paged"], qd, *kv, lens, None)
+    assert len(made) == 9   # out, lse, dq, dk, dv, out, out, 2 partials
+    for buf, n in made:
+        assert bool((buf[n:] == SENTINEL).all())
+    _close(out, ref[0], dtype)
+    torch.testing.assert_close(lse, ref[1], rtol=1e-5, atol=1e-5)
+    for a, r in zip(got_bwd, ref_bwd):
+        _close(a, r, dtype)
+    _close(got_int8, ref_int8, dtype)
+    _close(got_paged, ref_paged, dtype)
+
+
 @pytest.mark.parametrize("dtype,d,lengths", [
     (torch.float32, 128, [1, 200]),
     (torch.bfloat16, 64, [0, 37, 96]),
+    (torch.float32, 16, [1, 200]),       # 8 dims a lane
+    (torch.bfloat16, 16, [0, 37, 130]),
+    (torch.float32, 32, [0, 129]),
+    (torch.bfloat16, 32, [5, 96]),
+    (torch.bfloat16, 48, [0, 37, 200]),  # the true head dim on 64
+    (torch.float32, 80, [1, 130]),       # on 128
 ], ids=str)
 def test_paged_kernel_source_matches_plain(emu, dtype, d, lengths):
     b, lk, h = len(lengths), max(lengths) + 4, 2
@@ -202,7 +342,10 @@ def shuffled_arenas(gen, lengths, h, d, page_size, pages_per_row, spare):
 
 
 @pytest.mark.parametrize("dtype,d", [(torch.float32, 128),
-                                     (torch.bfloat16, 64)], ids=str)
+                                     (torch.bfloat16, 64),
+                                     (torch.bfloat16, 16),
+                                     (torch.float32, 32),
+                                     (torch.bfloat16, 48)], ids=str)
 def test_paged_block_table_kernel_source_reads_only_live_keys(emu, dtype, d):
     """The kernel through a shuffled block table (page_size 16, 20 pages a
     row, three 128-key splits) at lengths 0, 1, a page, a page + 1, a
@@ -243,6 +386,14 @@ def test_paged_block_table_kernel_source_reads_only_live_keys(emu, dtype, d):
     (torch.bfloat16, (1, 100, 100, 2, 64, True, 0, 0)),
     (torch.bfloat16, (1, 64, 64, 1, 128, True, 0, 40)),  # dead rows, keys
     (torch.bfloat16, (1, 40, 96, 1, 64, True, 56, 0)),   # q after kv prefix
+    # head dims 16, 32 (instances), 48 and 80 (the true head dim at run time)
+    (torch.float32, (1, 70, 130, 2, 16, False, 0, 0)),
+    (torch.float32, (1, 64, 64, 1, 32, True, 0, 40)),    # dead rows, keys
+    (torch.float32, (1, 100, 100, 2, 48, True, 0, 0)),
+    (torch.bfloat16, (1, 100, 100, 2, 16, True, 0, 0)),
+    (torch.bfloat16, (1, 64, 64, 2, 32, True, 0, 40)),   # dead rows, keys
+    (torch.bfloat16, (1, 70, 130, 2, 48, False, 0, 0)),
+    (torch.bfloat16, (1, 40, 96, 2, 80, True, 56, 0)),
 ], ids=str)
 def test_flash_backward_kernel_sources_match_plain(emu, dtype, case):
     b, lq, lk, h, d, causal, qo, ko = case
@@ -380,15 +531,17 @@ def test_emulated_mma_helpers_match_matmul(emu, mode):
 
 
 def test_kernel_library_name_covers_included_headers(tmp_path, monkeypatch):
-    for f in ("flash_bwd_dq.cu", "warp_mma.cuh"):
+    headers = ("head_dim.cuh", "warp_mma.cuh")
+    for f in ("flash_bwd_dq.cu", *headers):
         shutil.copy(os.path.join(kernels.CSRC, f), tmp_path / f)
     monkeypatch.setattr(kernels, "CSRC", str(tmp_path))
     assert kernels.source_files("flash_bwd_dq") == [
-        str(tmp_path / "flash_bwd_dq.cu"), str(tmp_path / "warp_mma.cuh")]
-    before = kernels._lib_path("flash_bwd_dq")
-    with open(tmp_path / "warp_mma.cuh", "a") as f:
-        f.write("// edited\n")
-    assert kernels._lib_path("flash_bwd_dq") != before
+        str(tmp_path / f) for f in ("flash_bwd_dq.cu", *headers)]
+    for header in headers:
+        before = kernels._lib_path("flash_bwd_dq")
+        with open(tmp_path / header, "a") as f:
+            f.write("// edited\n")
+        assert kernels._lib_path("flash_bwd_dq") != before
 
 
 @pytest.mark.parametrize("dtype,n", [(torch.float32, 1000),
@@ -668,6 +821,14 @@ def test_optimizer_chunks_follow_block_rows_bit_for_bit(emu, rows):
     (torch.bfloat16, (1, 40, 96, 1, 128, True, 56, 0)),   # q after kv prefix
     (torch.bfloat16, (1, 130, 130, 1, 128, False, 24, 0)),
     (torch.bfloat16, (1, 192, 192, 1, 64, True, 0, 0)),
+    # head dims 16, 32 (instances), 48 and 80 (the true head dim at run time)
+    (torch.float32, (1, 70, 130, 2, 16, True, 0, 0)),
+    (torch.float32, (1, 64, 64, 1, 32, True, 0, 40)),    # masked rows
+    (torch.float32, (1, 70, 100, 2, 48, False, 0, 0)),
+    (torch.bfloat16, (2, 130, 200, 2, 16, True, 0, 40)),  # dead rows
+    (torch.bfloat16, (1, 100, 100, 2, 32, True, 0, 0)),
+    (torch.bfloat16, (1, 70, 130, 2, 48, False, 24, 0)),
+    (torch.bfloat16, (1, 64, 96, 2, 80, True, 0, 0)),
 ], ids=str)
 def test_int8kv_flash_kernel_source_matches_plain(emu, dtype, case):
     b, lq, lk, h, d, causal, qo, ko = case

@@ -41,11 +41,18 @@
 // fp32 (flash_bwd_dq_kernel) keeps full-fp32 SIMT products: one block of
 // 256 threads, each owning a 4x4 micro-tile of S and dP and a 4 x D/16
 // slice of dq; Q, dO and one V-then-K tile in padded fp32 shared memory.
+//
+// Head dims (head_dim.cuh): both dtypes at D = 16, 32, 64 and 128, the
+// head dim a compile-time constant; another multiple of 16 up to 128 runs
+// on the next instance up with the true d at run time (rows strided by
+// H * d, copies past d zero-filled, nothing stored past d), so no tensor
+// is copied or padded.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "head_dim.cuh"
 #include "warp_mma.cuh"
 
 namespace {
@@ -69,12 +76,13 @@ constexpr size_t smem_floats() {
          + 2 * (size_t)BQ;         // lse, delta
 }
 
-template <typename T, int D>
+template <typename T, int D, bool PAD>
 __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ g, const float* __restrict__ lse,
-    const float* __restrict__ delta, T* __restrict__ dq, int H, int Lq,
-    int Lk, int causal, int q_offset, int kv_offset, float scale) {
+    const float* __restrict__ delta, T* __restrict__ dq, int H, int d_true,
+    int Lq, int Lk, int causal, int q_offset, int kv_offset, float scale) {
+  const int dh = PAD ? d_true : D;  // the true head dim (head_dim.cuh)
   constexpr int DP = D + 1;
   constexpr int SP = BK + 1;
   constexpr int NJ = D / 16;  // dq columns per thread
@@ -93,15 +101,17 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(
   const int tid = threadIdx.x;
   const int tx = tid % 16;
   const int ty = tid / 16;
-  const long rs = (long)H * D;  // stride between sequence positions
-  const T* qb = q + (long)b * Lq * rs + (long)h * D;
-  const T* gb = g + (long)b * Lq * rs + (long)h * D;
-  const T* kb = k + (long)b * Lk * rs + (long)h * D;
-  const T* vb = v + (long)b * Lk * rs + (long)h * D;
+  const long rs = (long)H * dh;  // stride between sequence positions
+  const T* qb = q + (long)b * Lq * rs + (long)h * dh;
+  const T* gb = g + (long)b * Lq * rs + (long)h * dh;
+  const T* kb = k + (long)b * Lk * rs + (long)h * dh;
+  const T* vb = v + (long)b * Lk * rs + (long)h * dh;
 
+  // columns past dh stay zero in shared memory: they add nothing to S, dP
+  // or dq, which stores none of them
   for (int i = tid; i < BQ * D; i += NT) {
     const int r = i / D, c = i % D;
-    const bool in = q0 + r < Lq;
+    const bool in = q0 + r < Lq && (!PAD || c < dh);
     sQ[r * DP + c] = in ? to_f<T>(qb[(long)(q0 + r) * rs + c]) : 0.f;
     sG[r * DP + c] = in ? to_f<T>(gb[(long)(q0 + r) * rs + c]) : 0.f;
   }
@@ -131,7 +141,9 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(
     __syncthreads();  // the previous tile's readers are done with sKV / sS
     for (int i = tid; i < BK * D; i += NT) {
       const int r = i / D, c = i % D;
-      sKV[r * DP + c] = (k0 + r < Lk) ? to_f<T>(vb[(long)(k0 + r) * rs + c]) : 0.f;
+      sKV[r * DP + c] = (k0 + r < Lk && (!PAD || c < dh))
+                            ? to_f<T>(vb[(long)(k0 + r) * rs + c])
+                            : 0.f;
     }
     __syncthreads();
 
@@ -156,7 +168,9 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(
 
     for (int i = tid; i < BK * D; i += NT) {
       const int r = i / D, c = i % D;
-      sKV[r * DP + c] = (k0 + r < Lk) ? to_f<T>(kb[(long)(k0 + r) * rs + c]) : 0.f;
+      sKV[r * DP + c] = (k0 + r < Lk && (!PAD || c < dh))
+                            ? to_f<T>(kb[(long)(k0 + r) * rs + c])
+                            : 0.f;
     }
     __syncthreads();
 
@@ -211,28 +225,29 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(
   for (int i = 0; i < 4; ++i) {
     const int r = ty + 16 * i;
     if (q0 + r >= Lq) continue;
-    T* row = dq + ((long)b * Lq + q0 + r) * rs + (long)h * D;
+    T* row = dq + ((long)b * Lq + q0 + r) * rs + (long)h * dh;
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) row[tx + 16 * j] = from_f<T>(acc[i][j]);
+    for (int j = 0; j < NJ; ++j)
+      if (!PAD || tx + 16 * j < dh) row[tx + 16 * j] = from_f<T>(acc[i][j]);
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool PAD>
 int launch(const void* q, const void* k, const void* v, const void* g,
            const void* lse, const void* delta, void* dq, int B, int H,
-           int Lq, int Lk, int causal, int q_offset, int kv_offset,
+           int d, int Lq, int Lk, int causal, int q_offset, int kv_offset,
            float scale, cudaStream_t stream) {
   const size_t smem = smem_floats<D>() * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      flash_bwd_dq_kernel<T, D, PAD>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((Lq + BQ - 1) / BQ, B * H);
-  flash_bwd_dq_kernel<T, D><<<grid, NT, smem, stream>>>(
+  flash_bwd_dq_kernel<T, D, PAD><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(g),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dq), H, Lq, Lk, causal, q_offset, kv_offset, scale);
+      static_cast<T*>(dq), H, d, Lq, Lk, causal, q_offset, kv_offset, scale);
   return (int)cudaGetLastError();
 }
 
@@ -247,13 +262,14 @@ constexpr size_t smem_bytes_mma() {
   return (size_t)(2 * BQ + 4 * BK) * (D + 8) * sizeof(__nv_bfloat16);
 }
 
-template <int D>
+template <int D, bool PAD>
 __global__ void __launch_bounds__(NTM, 2) flash_bwd_dq_kernel_mma(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ g,
     const float* __restrict__ lse, const float* __restrict__ delta,
-    __nv_bfloat16* __restrict__ dq, int H, int Lq, int Lk, int causal,
-    int q_offset, int kv_offset, float scale) {
+    __nv_bfloat16* __restrict__ dq, int H, int d_true, int Lq, int Lk,
+    int causal, int q_offset, int kv_offset, float scale) {
+  const int dh = PAD ? d_true : D;  // the true head dim (head_dim.cuh)
   constexpr int RS = D + 8;  // padded row stride (elements)
   constexpr int NB = BK / 8; // key n-tiles of S and dP
   constexpr int ND = D / 8;  // d n-tiles of dq
@@ -270,16 +286,17 @@ __global__ void __launch_bounds__(NTM, 2) flash_bwd_dq_kernel_mma(
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
-  const long rs = (long)H * D;  // stride between sequence positions
-  const __nv_bfloat16* qb = q + (long)b * Lq * rs + (long)h * D;
-  const __nv_bfloat16* gb = g + (long)b * Lq * rs + (long)h * D;
-  const __nv_bfloat16* kb = k + (long)b * Lk * rs + (long)h * D;
-  const __nv_bfloat16* vb = v + (long)b * Lk * rs + (long)h * D;
+  const long rs = (long)H * dh;  // stride between sequence positions
+  const __nv_bfloat16* qb = q + (long)b * Lq * rs + (long)h * dh;
+  const __nv_bfloat16* gb = g + (long)b * Lq * rs + (long)h * dh;
+  const __nv_bfloat16* kb = k + (long)b * Lk * rs + (long)h * dh;
+  const __nv_bfloat16* vb = v + (long)b * Lk * rs + (long)h * dh;
 
-  // 64 rows from r0 of src (length L) into dst; rows past L read as zeros
+  // 64 rows from r0 of src (length L) into dst; rows past L and columns
+  // past dh read as zeros
   auto load_tile = [&](__nv_bfloat16* dst, const __nv_bfloat16* src, int r0,
                        int L) {
-    cp_async_rows<64, D, RS, NTM>(dst, src, rs, r0, L, tid);
+    cp_async_rows<64, D, RS, NTM>(dst, src, rs, r0, L, tid, dh);
   };
 
   // live k/v tiles: with a causal mask, none past the diagonal of this tile
@@ -400,43 +417,45 @@ __global__ void __launch_bounds__(NTM, 2) flash_bwd_dq_kernel_mma(
   for (int r = 0; r < 2; ++r) {
     const int row = q0 + wr + gq + 8 * r;
     if (row >= Lq) continue;
-    __nv_bfloat16* out = dq + ((long)b * Lq + row) * rs + (long)h * D;
+    __nv_bfloat16* out = dq + ((long)b * Lq + row) * rs + (long)h * dh;
 #pragma unroll
     for (int j = 0; j < ND; ++j)
-      *reinterpret_cast<uint32_t*>(out + 8 * j + 2 * tq) =
-          pack_bf16x2(acc[j][2 * r], acc[j][2 * r + 1]);
+      if (!PAD || 8 * j < dh)
+        *reinterpret_cast<uint32_t*>(out + 8 * j + 2 * tq) =
+            pack_bf16x2(acc[j][2 * r], acc[j][2 * r + 1]);
   }
 }
 
-template <int D>
+template <int D, bool PAD>
 int launch_mma(const void* q, const void* k, const void* v, const void* g,
                const void* lse, const void* delta, void* dq, int B, int H,
-               int Lq, int Lk, int causal, int q_offset, int kv_offset,
-               float scale, cudaStream_t stream) {
+               int d, int Lq, int Lk, int causal, int q_offset,
+               int kv_offset, float scale, cudaStream_t stream) {
   // 16-byte copies: every bf16 tensor must start on a 16-byte boundary
   if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)g |
        (uintptr_t)dq) % 16)
     return -2;
   const size_t smem = smem_bytes_mma<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel_mma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      flash_bwd_dq_kernel_mma<D, PAD>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(B * H, (Lq + BQ - 1) / BQ);
-  flash_bwd_dq_kernel_mma<D><<<grid, NTM, smem, stream>>>(
+  flash_bwd_dq_kernel_mma<D, PAD><<<grid, NTM, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(g),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<__nv_bfloat16*>(dq), H, Lq, Lk, causal, q_offset, kv_offset,
-      scale);
+      static_cast<__nv_bfloat16*>(dq), H, d, Lq, Lk, causal, q_offset,
+      kv_offset, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, dO and dq share it). Returns
-// the launch's cudaError_t (0 = launched); -1 for a (dtype, D) this build
-// has no instance for, -2 for a bf16 tensor not 16-byte aligned.
+// the launch's cudaError_t (0 = launched); -1 for a dtype or a head dim D
+// this build has no instance for (head_dim.cuh), -2 for a bf16 tensor not
+// 16-byte aligned.
 extern "C" int tdt_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 const void* g, const void* lse,
                                 const void* delta, void* dq, int B, int H,
@@ -444,13 +463,19 @@ extern "C" int tdt_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 int q_offset, int kv_offset, float scale,
                                 int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && D == 64)
-    return launch<float, 64>(q, k, v, g, lse, delta, dq, B, H, Lq, Lk, causal, q_offset, kv_offset, scale, s);
-  if (dtype == 0 && D == 128)
-    return launch<float, 128>(q, k, v, g, lse, delta, dq, B, H, Lq, Lk, causal, q_offset, kv_offset, scale, s);
-  if (dtype == 1 && D == 64)
-    return launch_mma<64>(q, k, v, g, lse, delta, dq, B, H, Lq, Lk, causal, q_offset, kv_offset, scale, s);
-  if (dtype == 1 && D == 128)
-    return launch_mma<128>(q, k, v, g, lse, delta, dq, B, H, Lq, Lk, causal, q_offset, kv_offset, scale, s);
+  if (dtype == 0)
+    return with_head_dim(D, [&](auto hd) {
+      using HD = decltype(hd);
+      return launch<float, HD::value, HD::pad>(
+          q, k, v, g, lse, delta, dq, B, H, D, Lq, Lk, causal, q_offset,
+          kv_offset, scale, s);
+    });
+  if (dtype == 1)
+    return with_head_dim(D, [&](auto hd) {
+      using HD = decltype(hd);
+      return launch_mma<HD::value, HD::pad>(
+          q, k, v, g, lse, delta, dq, B, H, D, Lq, Lk, causal, q_offset,
+          kv_offset, scale, s);
+    });
   return -1;
 }

@@ -40,11 +40,18 @@
 // the small fp32 card-vs-CPU checks: one block of 256 threads, a 4x4
 // micro-tile of S and a 4 x D/16 slice of the output per thread, K then V
 // through one padded fp32 shared buffer, S and p through shared memory.
+//
+// Head dims (head_dim.cuh): both dtypes at D = 16, 32, 64 and 128, the
+// head dim a compile-time constant; another multiple of 16 up to 128 runs
+// on the next instance up with the true d at run time (rows strided by
+// H * d, copies past d zero-filled, nothing stored past d), so no tensor
+// is copied or padded.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "head_dim.cuh"
 #include "warp_mma.cuh"
 
 namespace {
@@ -68,11 +75,12 @@ constexpr size_t smem_floats() {
          + 3 * (size_t)BQ;         // running max, running sum, rescale
 }
 
-template <typename T, int D>
+template <typename T, int D, bool PAD>
 __global__ void __launch_bounds__(NT) flash_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ out, float* __restrict__ lse, int H, int Lq, int Lk,
-    int causal, int q_offset, int kv_offset, float scale) {
+    T* __restrict__ out, float* __restrict__ lse, int H, int d_true, int Lq,
+    int Lk, int causal, int q_offset, int kv_offset, float scale) {
+  const int dh = PAD ? d_true : D;  // the true head dim (head_dim.cuh)
   constexpr int DP = D + 1;
   constexpr int SP = BK + 1;
   constexpr int NJ = D / 16;  // output columns per thread
@@ -91,14 +99,18 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
   const int tid = threadIdx.x;
   const int tx = tid % 16;
   const int ty = tid / 16;
-  const long rs = (long)H * D;  // stride between sequence positions
-  const T* qb = q + (long)b * Lq * rs + (long)h * D;
-  const T* kb = k + (long)b * Lk * rs + (long)h * D;
-  const T* vb = v + (long)b * Lk * rs + (long)h * D;
+  const long rs = (long)H * dh;  // stride between sequence positions
+  const T* qb = q + (long)b * Lq * rs + (long)h * dh;
+  const T* kb = k + (long)b * Lk * rs + (long)h * dh;
+  const T* vb = v + (long)b * Lk * rs + (long)h * dh;
 
+  // columns past dh stay zero in shared memory: they add nothing to S or
+  // to the output, which stores none of them
   for (int i = tid; i < BQ * D; i += NT) {
     const int r = i / D, c = i % D;
-    sQ[r * DP + c] = (q0 + r < Lq) ? to_f<T>(qb[(long)(q0 + r) * rs + c]) : 0.f;
+    sQ[r * DP + c] = (q0 + r < Lq && (!PAD || c < dh))
+                         ? to_f<T>(qb[(long)(q0 + r) * rs + c])
+                         : 0.f;
   }
   for (int r = tid; r < BQ; r += NT) {
     sM[r] = NEG_INF;
@@ -124,7 +136,9 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
     __syncthreads();  // the previous tile's readers are done with sKV / sS
     for (int i = tid; i < BK * D; i += NT) {
       const int r = i / D, c = i % D;
-      sKV[r * DP + c] = (k0 + r < Lk) ? to_f<T>(kb[(long)(k0 + r) * rs + c]) : 0.f;
+      sKV[r * DP + c] = (k0 + r < Lk && (!PAD || c < dh))
+                            ? to_f<T>(kb[(long)(k0 + r) * rs + c])
+                            : 0.f;
     }
     __syncthreads();
 
@@ -161,7 +175,9 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
     // V into the same buffer, while four threads per row take the row stats
     for (int i = tid; i < BK * D; i += NT) {
       const int r = i / D, c = i % D;
-      sKV[r * DP + c] = (k0 + r < Lk) ? to_f<T>(vb[(long)(k0 + r) * rs + c]) : 0.f;
+      sKV[r * DP + c] = (k0 + r < Lk && (!PAD || c < dh))
+                            ? to_f<T>(vb[(long)(k0 + r) * rs + c])
+                            : 0.f;
     }
     {
       const int r = tid >> 2, part = tid & 3;
@@ -215,9 +231,10 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
     const int r = ty + 16 * i;
     if (q0 + r >= Lq) continue;
     const float inv = 1.f / fmaxf(sL[r], 1e-30f);
-    T* orow = out + ((long)b * Lq + q0 + r) * rs + (long)h * D;
+    T* orow = out + ((long)b * Lq + q0 + r) * rs + (long)h * dh;
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) orow[tx + 16 * j] = from_f<T>(acc[i][j] * inv);
+    for (int j = 0; j < NJ; ++j)
+      if (!PAD || tx + 16 * j < dh) orow[tx + 16 * j] = from_f<T>(acc[i][j] * inv);
   }
   for (int r = tid; r < BQ; r += NT) {
     if (q0 + r < Lq)
@@ -225,20 +242,21 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool PAD>
 int launch(const void* q, const void* k, const void* v, void* out, void* lse,
-           int B, int H, int Lq, int Lk, int causal, int q_offset,
+           int B, int H, int d, int Lq, int Lk, int causal, int q_offset,
            int kv_offset, float scale, cudaStream_t stream) {
   const size_t smem = smem_floats<D>() * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      flash_fwd_kernel<T, D, PAD>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((Lq + BQ - 1) / BQ, B * H);
-  flash_fwd_kernel<T, D><<<grid, NT, smem, stream>>>(
+  flash_fwd_kernel<T, D, PAD><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out),
-      static_cast<float*>(lse), H, Lq, Lk, causal, q_offset, kv_offset, scale);
+      static_cast<float*>(lse), H, d, Lq, Lk, causal, q_offset, kv_offset,
+      scale);
   return (int)cudaGetLastError();
 }
 
@@ -253,12 +271,13 @@ constexpr size_t smem_bytes_mma() {
   return (size_t)(BQ + 4 * BK) * (D + 8) * sizeof(__nv_bfloat16);
 }
 
-template <int D>
+template <int D, bool PAD>
 __global__ void __launch_bounds__(NTM, 2) flash_fwd_kernel_mma(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
-    float* __restrict__ lse, int H, int Lq, int Lk, int causal, int q_offset,
-    int kv_offset, float scale) {
+    float* __restrict__ lse, int H, int d_true, int Lq, int Lk, int causal,
+    int q_offset, int kv_offset, float scale) {
+  const int dh = PAD ? d_true : D;  // the true head dim (head_dim.cuh)
   constexpr int RS = D + 8;   // padded row stride (elements)
   constexpr int NB = BK / 8;  // key n-tiles of S
   constexpr int ND = D / 8;   // d n-tiles of the output
@@ -275,15 +294,16 @@ __global__ void __launch_bounds__(NTM, 2) flash_fwd_kernel_mma(
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
-  const long rs = (long)H * D;  // stride between sequence positions
-  const __nv_bfloat16* qb = q + (long)b * Lq * rs + (long)h * D;
-  const __nv_bfloat16* kb = k + (long)b * Lk * rs + (long)h * D;
-  const __nv_bfloat16* vb = v + (long)b * Lk * rs + (long)h * D;
+  const long rs = (long)H * dh;  // stride between sequence positions
+  const __nv_bfloat16* qb = q + (long)b * Lq * rs + (long)h * dh;
+  const __nv_bfloat16* kb = k + (long)b * Lk * rs + (long)h * dh;
+  const __nv_bfloat16* vb = v + (long)b * Lk * rs + (long)h * dh;
 
-  // 64 rows from r0 of src (length L) into dst; rows past L read as zeros
+  // 64 rows from r0 of src (length L) into dst; rows past L and columns
+  // past dh read as zeros
   auto load_tile = [&](__nv_bfloat16* dst, const __nv_bfloat16* src, int r0,
                        int L) {
-    cp_async_rows<64, D, RS, NTM>(dst, src, rs, r0, L, tid);
+    cp_async_rows<64, D, RS, NTM>(dst, src, rs, r0, L, tid, dh);
   };
 
   // live k/v tiles: with a causal mask, none past the diagonal of this tile
@@ -383,55 +403,63 @@ __global__ void __launch_bounds__(NTM, 2) flash_fwd_kernel_mma(
     const float lr = fmaxf(quad_sum(l[r]), 1e-30f);
     const int row = q0 + wr + gq + 8 * r;
     if (row >= Lq) continue;
-    __nv_bfloat16* orow = out + ((long)b * Lq + row) * rs + (long)h * D;
+    __nv_bfloat16* orow = out + ((long)b * Lq + row) * rs + (long)h * dh;
 #pragma unroll
     for (int j = 0; j < ND; ++j)
-      *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * tq) =
-          pack_bf16x2(acc[j][2 * r] / lr, acc[j][2 * r + 1] / lr);
+      if (!PAD || 8 * j < dh)
+        *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * tq) =
+            pack_bf16x2(acc[j][2 * r] / lr, acc[j][2 * r + 1] / lr);
     if (tq == 0)  // a row with no live key: NEG_INF, as the plain version
       lse[(long)bh * Lq + row] =
           (m[r] <= 0.5f * NEG_INF ? NEG_INF : m[r] * scale) + logf(lr);
   }
 }
 
-template <int D>
+template <int D, bool PAD>
 int launch_mma(const void* q, const void* k, const void* v, void* out,
-               void* lse, int B, int H, int Lq, int Lk, int causal,
+               void* lse, int B, int H, int d, int Lq, int Lk, int causal,
                int q_offset, int kv_offset, float scale, cudaStream_t stream) {
   // 16-byte copies: every bf16 tensor must start on a 16-byte boundary
   if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out) % 16)
     return -2;
   const size_t smem = smem_bytes_mma<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel_mma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      flash_fwd_kernel_mma<D, PAD>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(B * H, (Lq + BQ - 1) / BQ);
-  flash_fwd_kernel_mma<D><<<grid, NTM, smem, stream>>>(
+  flash_fwd_kernel_mma<D, PAD><<<grid, NTM, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
-      static_cast<float*>(lse), H, Lq, Lk, causal, q_offset, kv_offset, scale);
+      static_cast<float*>(lse), H, d, Lq, Lk, causal, q_offset, kv_offset,
+      scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. Returns the launch's cudaError_t
-// (0 = launched); -1 for a (dtype, D) this build has no instance for, -2
-// for a bf16 tensor not 16-byte aligned.
+// (0 = launched); -1 for a dtype or a head dim D this build has no
+// instance for (head_dim.cuh), -2 for a bf16 tensor not 16-byte aligned.
 extern "C" int tdt_flash_fwd(const void* q, const void* k, const void* v,
                              void* out, void* lse, int B, int H, int Lq,
                              int Lk, int D, int causal, int q_offset,
                              int kv_offset, float scale, int dtype,
                              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && D == 64)
-    return launch<float, 64>(q, k, v, out, lse, B, H, Lq, Lk, causal, q_offset, kv_offset, scale, s);
-  if (dtype == 0 && D == 128)
-    return launch<float, 128>(q, k, v, out, lse, B, H, Lq, Lk, causal, q_offset, kv_offset, scale, s);
-  if (dtype == 1 && D == 64)
-    return launch_mma<64>(q, k, v, out, lse, B, H, Lq, Lk, causal, q_offset, kv_offset, scale, s);
-  if (dtype == 1 && D == 128)
-    return launch_mma<128>(q, k, v, out, lse, B, H, Lq, Lk, causal, q_offset, kv_offset, scale, s);
+  if (dtype == 0)
+    return with_head_dim(D, [&](auto hd) {
+      using HD = decltype(hd);
+      return launch<float, HD::value, HD::pad>(
+          q, k, v, out, lse, B, H, D, Lq, Lk, causal, q_offset, kv_offset,
+          scale, s);
+    });
+  if (dtype == 1)
+    return with_head_dim(D, [&](auto hd) {
+      using HD = decltype(hd);
+      return launch_mma<HD::value, HD::pad>(
+          q, k, v, out, lse, B, H, D, Lq, Lk, causal, q_offset, kv_offset,
+          scale, s);
+    });
   return -1;
 }

@@ -44,11 +44,18 @@
 // of 256 threads, K then V dequantized as staged into one padded fp32
 // shared buffer, a 4x4 score micro-tile and a 4 x D/16 output slice per
 // thread, S and p through shared memory.
+//
+// Head dims (head_dim.cuh): both dtypes at D = 16, 32, 64 and 128, the
+// head dim a compile-time constant; another multiple of 16 up to 128 runs
+// on the next instance up with the true d at run time (rows strided by
+// H * d, copies past d zero-filled, nothing stored past d), so no tensor
+// is copied or padded.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "head_dim.cuh"
 #include "warp_mma.cuh"
 
 namespace {
@@ -72,12 +79,13 @@ constexpr size_t smem_floats() {
          + 3 * (size_t)BQ;         // running max, running sum, rescale
 }
 
-template <typename T, int D>
+template <typename T, int D, bool PAD>
 __global__ void __launch_bounds__(NT) flash_fwd_int8kv_kernel(
     const T* __restrict__ q, const int8_t* __restrict__ k,
     const float* __restrict__ ks, const int8_t* __restrict__ v,
-    const float* __restrict__ vs, T* __restrict__ out, int H, int Lq, int Lk,
-    int causal, int q_offset, int kv_offset, float scale) {
+    const float* __restrict__ vs, T* __restrict__ out, int H, int d_true,
+    int Lq, int Lk, int causal, int q_offset, int kv_offset, float scale) {
+  const int dh = PAD ? d_true : D;  // the true head dim (head_dim.cuh)
   constexpr int DP = D + 1;
   constexpr int SP = BK + 1;
   constexpr int NJ = D / 16;  // output columns per thread
@@ -96,16 +104,20 @@ __global__ void __launch_bounds__(NT) flash_fwd_int8kv_kernel(
   const int tid = threadIdx.x;
   const int tx = tid % 16;
   const int ty = tid / 16;
-  const long rs = (long)H * D;  // stride between sequence positions
-  const T* qb = q + (long)b * Lq * rs + (long)h * D;
-  const int8_t* kb = k + (long)b * Lk * rs + (long)h * D;
-  const int8_t* vb = v + (long)b * Lk * rs + (long)h * D;
+  const long rs = (long)H * dh;  // stride between sequence positions
+  const T* qb = q + (long)b * Lq * rs + (long)h * dh;
+  const int8_t* kb = k + (long)b * Lk * rs + (long)h * dh;
+  const int8_t* vb = v + (long)b * Lk * rs + (long)h * dh;
   const float* ksb = ks + (long)b * Lk * H + h;  // scale of row j: ksb[j * H]
   const float* vsb = vs + (long)b * Lk * H + h;
 
+  // columns past dh stay zero in shared memory: they add nothing to S or
+  // to the output, which stores none of them
   for (int i = tid; i < BQ * D; i += NT) {
     const int r = i / D, c = i % D;
-    sQ[r * DP + c] = (q0 + r < Lq) ? to_f<T>(qb[(long)(q0 + r) * rs + c]) : 0.f;
+    sQ[r * DP + c] = (q0 + r < Lq && (!PAD || c < dh))
+                         ? to_f<T>(qb[(long)(q0 + r) * rs + c])
+                         : 0.f;
   }
   for (int r = tid; r < BQ; r += NT) {
     sM[r] = NEG_INF;
@@ -132,7 +144,9 @@ __global__ void __launch_bounds__(NT) flash_fwd_int8kv_kernel(
     for (int i = tid; i < BK * D; i += NT) {
       const int r = i / D, c = i % D;
       const long j = k0 + r;
-      sKV[r * DP + c] = (j < Lk) ? (float)kb[j * rs + c] * ksb[j * H] : 0.f;
+      sKV[r * DP + c] = (j < Lk && (!PAD || c < dh))
+                            ? (float)kb[j * rs + c] * ksb[j * H]
+                            : 0.f;
     }
     __syncthreads();
 
@@ -170,7 +184,9 @@ __global__ void __launch_bounds__(NT) flash_fwd_int8kv_kernel(
     for (int i = tid; i < BK * D; i += NT) {
       const int r = i / D, c = i % D;
       const long j = k0 + r;
-      sKV[r * DP + c] = (j < Lk) ? (float)vb[j * rs + c] * vsb[j * H] : 0.f;
+      sKV[r * DP + c] = (j < Lk && (!PAD || c < dh))
+                            ? (float)vb[j * rs + c] * vsb[j * H]
+                            : 0.f;
     }
     {
       const int r = tid >> 2, part = tid & 3;
@@ -224,28 +240,29 @@ __global__ void __launch_bounds__(NT) flash_fwd_int8kv_kernel(
     const int r = ty + 16 * i;
     if (q0 + r >= Lq) continue;
     const float l = fmaxf(sL[r], 1e-30f);
-    T* orow = out + ((long)b * Lq + q0 + r) * rs + (long)h * D;
+    T* orow = out + ((long)b * Lq + q0 + r) * rs + (long)h * dh;
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) orow[tx + 16 * j] = from_f<T>(acc[i][j] / l);
+    for (int j = 0; j < NJ; ++j)
+      if (!PAD || tx + 16 * j < dh) orow[tx + 16 * j] = from_f<T>(acc[i][j] / l);
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool PAD>
 int launch(const void* q, const void* k, const void* ks, const void* v,
-           const void* vs, void* out, int B, int H, int Lq, int Lk,
+           const void* vs, void* out, int B, int H, int d, int Lq, int Lk,
            int causal, int q_offset, int kv_offset, float scale,
            cudaStream_t stream) {
   const size_t smem = smem_floats<D>() * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_int8kv_kernel<T, D>,
+      flash_fwd_int8kv_kernel<T, D, PAD>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((Lq + BQ - 1) / BQ, B * H);
-  flash_fwd_int8kv_kernel<T, D><<<grid, NT, smem, stream>>>(
+  flash_fwd_int8kv_kernel<T, D, PAD><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const int8_t*>(k),
       static_cast<const float*>(ks), static_cast<const int8_t*>(v),
-      static_cast<const float*>(vs), static_cast<T*>(out), H, Lq, Lk, causal,
-      q_offset, kv_offset, scale);
+      static_cast<const float*>(vs), static_cast<T*>(out), H, d, Lq, Lk,
+      causal, q_offset, kv_offset, scale);
   return (int)cudaGetLastError();
 }
 
@@ -263,12 +280,14 @@ constexpr size_t smem_bytes_mma() {
          (size_t)4 * BK * (D + 16) + (size_t)6 * BK * sizeof(float);
 }
 
-template <int D>
+template <int D, bool PAD>
 __global__ void __launch_bounds__(NTM, 2) flash_fwd_int8kv_kernel_mma(
     const __nv_bfloat16* __restrict__ q, const int8_t* __restrict__ k,
     const float* __restrict__ ks, const int8_t* __restrict__ v,
     const float* __restrict__ vs, __nv_bfloat16* __restrict__ out, int H,
-    int Lq, int Lk, int causal, int q_offset, int kv_offset, float scale) {
+    int d_true, int Lq, int Lk, int causal, int q_offset, int kv_offset,
+    float scale) {
+  const int dh = PAD ? d_true : D;  // the true head dim (head_dim.cuh)
   constexpr int RS = D + 8;    // padded bf16 row stride (elements)
   constexpr int RS8 = D + 16;  // padded int8 row stride (bytes)
   constexpr int NB = BK / 8;   // key n-tiles of S
@@ -292,19 +311,21 @@ __global__ void __launch_bounds__(NTM, 2) flash_fwd_int8kv_kernel_mma(
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
-  const long rs = (long)H * D;  // stride between sequence positions
-  const __nv_bfloat16* qb = q + (long)b * Lq * rs + (long)h * D;
-  const int8_t* kb = k + (long)b * Lk * rs + (long)h * D;
-  const int8_t* vb = v + (long)b * Lk * rs + (long)h * D;
+  const long rs = (long)H * dh;  // stride between sequence positions
+  const __nv_bfloat16* qb = q + (long)b * Lq * rs + (long)h * dh;
+  const int8_t* kb = k + (long)b * Lk * rs + (long)h * dh;
+  const int8_t* vb = v + (long)b * Lk * rs + (long)h * dh;
   const float* ksb = ks + (long)b * Lk * H + h;  // scale of row j: ksb[j * H]
   const float* vsb = vs + (long)b * Lk * H + h;
 
   // k/v tile kt into ring stage st: int8 rows and their scales, rows past
-  // Lk as zeros
+  // Lk and columns past dh as zeros
   auto load_kv = [&](int kt, int st) {
     const int k0 = kt * BK;
-    cp_async_rows<64, D, RS8, NTM>(sK8 + st * BK * RS8, kb, rs, k0, Lk, tid);
-    cp_async_rows<64, D, RS8, NTM>(sV8 + st * BK * RS8, vb, rs, k0, Lk, tid);
+    cp_async_rows<64, D, RS8, NTM>(sK8 + st * BK * RS8, kb, rs, k0, Lk, tid,
+                                   dh);
+    cp_async_rows<64, D, RS8, NTM>(sV8 + st * BK * RS8, vb, rs, k0, Lk, tid,
+                                   dh);
     const int j = tid % BK;  // threads 0-63: ks, 64-127: vs
     const bool in = k0 + j < Lk;
     cp_async_4((tid < BK ? sKs8 : sVs8) + st * BK + j,
@@ -334,7 +355,7 @@ __global__ void __launch_bounds__(NTM, 2) flash_fwd_int8kv_kernel_mma(
     n_kt = lim < 0 ? 0 : min(n_kt, (int)(lim / BK) + 1);
   }
 
-  cp_async_rows<64, D, RS, NTM>(sQ, qb, rs, q0, Lq, tid);
+  cp_async_rows<64, D, RS, NTM>(sQ, qb, rs, q0, Lq, tid, dh);
   cp_async_commit();
   if (n_kt > 0) load_kv(0, 0);
   cp_async_commit();
@@ -427,17 +448,18 @@ __global__ void __launch_bounds__(NTM, 2) flash_fwd_int8kv_kernel_mma(
     const float lr = fmaxf(quad_sum(l[r]), 1e-30f);
     const int row = q0 + wr + gq + 8 * r;
     if (row >= Lq) continue;
-    __nv_bfloat16* orow = out + ((long)b * Lq + row) * rs + (long)h * D;
+    __nv_bfloat16* orow = out + ((long)b * Lq + row) * rs + (long)h * dh;
 #pragma unroll
     for (int j = 0; j < ND; ++j)
-      *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * tq) =
-          pack_bf16x2(acc[j][2 * r] / lr, acc[j][2 * r + 1] / lr);
+      if (!PAD || 8 * j < dh)
+        *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * tq) =
+            pack_bf16x2(acc[j][2 * r] / lr, acc[j][2 * r + 1] / lr);
   }
 }
 
-template <int D>
+template <int D, bool PAD>
 int launch_mma(const void* q, const void* k, const void* ks, const void* v,
-               const void* vs, void* out, int B, int H, int Lq, int Lk,
+               const void* vs, void* out, int B, int H, int d, int Lq, int Lk,
                int causal, int q_offset, int kv_offset, float scale,
                cudaStream_t stream) {
   // 16-byte copies of q and the int8 values, 4-byte copies of the scales
@@ -446,23 +468,23 @@ int launch_mma(const void* q, const void* k, const void* ks, const void* v,
     return -2;
   const size_t smem = smem_bytes_mma<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_int8kv_kernel_mma<D>,
+      flash_fwd_int8kv_kernel_mma<D, PAD>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(B * H, (Lq + BQ - 1) / BQ);
-  flash_fwd_int8kv_kernel_mma<D><<<grid, NTM, smem, stream>>>(
+  flash_fwd_int8kv_kernel_mma<D, PAD><<<grid, NTM, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const int8_t*>(k),
       static_cast<const float*>(ks), static_cast<const int8_t*>(v),
-      static_cast<const float*>(vs), static_cast<__nv_bfloat16*>(out), H, Lq,
-      Lk, causal, q_offset, kv_offset, scale);
+      static_cast<const float*>(vs), static_cast<__nv_bfloat16*>(out), H, d,
+      Lq, Lk, causal, q_offset, kv_offset, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // dtype (q and out): 0 = float32, 1 = bfloat16. Returns the launch's
-// cudaError_t (0 = launched); -1 for a (dtype, D) this build has no
-// instance for, -2 (bf16 q) for q, out or the int8 values not 16-byte
+// cudaError_t (0 = launched); -1 for a dtype or a head dim D this build has
+// no instance for (head_dim.cuh), -2 (bf16 q) for q, out or the int8 values not 16-byte
 // aligned or a scale tensor not 4-byte aligned.
 extern "C" int tdt_flash_fwd_int8kv(const void* q, const void* k,
                                     const void* ks, const void* v,
@@ -471,13 +493,19 @@ extern "C" int tdt_flash_fwd_int8kv(const void* q, const void* k,
                                     int q_offset, int kv_offset, float scale,
                                     int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && D == 64)
-    return launch<float, 64>(q, k, ks, v, vs, out, B, H, Lq, Lk, causal, q_offset, kv_offset, scale, s);
-  if (dtype == 0 && D == 128)
-    return launch<float, 128>(q, k, ks, v, vs, out, B, H, Lq, Lk, causal, q_offset, kv_offset, scale, s);
-  if (dtype == 1 && D == 64)
-    return launch_mma<64>(q, k, ks, v, vs, out, B, H, Lq, Lk, causal, q_offset, kv_offset, scale, s);
-  if (dtype == 1 && D == 128)
-    return launch_mma<128>(q, k, ks, v, vs, out, B, H, Lq, Lk, causal, q_offset, kv_offset, scale, s);
+  if (dtype == 0)
+    return with_head_dim(D, [&](auto hd) {
+      using HD = decltype(hd);
+      return launch<float, HD::value, HD::pad>(
+          q, k, ks, v, vs, out, B, H, D, Lq, Lk, causal, q_offset, kv_offset,
+          scale, s);
+    });
+  if (dtype == 1)
+    return with_head_dim(D, [&](auto hd) {
+      using HD = decltype(hd);
+      return launch_mma<HD::value, HD::pad>(
+          q, k, ks, v, vs, out, B, H, D, Lq, Lk, causal, q_offset, kv_offset,
+          scale, s);
+    });
   return -1;
 }

@@ -32,23 +32,31 @@
 // 1. paged_split_kernel, grid (splits, B * H): each block owns SPLIT
 //    consecutive key positions of one (b, h), fixed from P * page_size so
 //    the host reads no length; a split past its row's length writes an
-//    empty partial (m = NEG_INF, l = 0) and exits. A warp reads 32 / (D/16)
-//    keys per 16-byte load instruction (D/16 lanes per K row, coalesced),
+//    empty partial (m = NEG_INF, l = 0) and exits. A lane takes PW = 16
+//    dims of a K or V row (8 at D = 16, so that a block's 256 threads
+//    still spread over at most SPLIT keys), so a warp reads 32 / (D/PW)
+//    keys per load instruction (D/PW lanes per K row, coalesced),
 //    and every thread issues all of its K and V rows and scales before
 //    their first use, so a block costs about two memory latencies (block
 //    table, then K/V) rather than one latency chain per key. Scores are
 //    reduced across a row's lanes by shuffles, the split's max and sum are
 //    taken over shared memory, and the p-weighted V sums of the key groups
-//    are added in shared memory in a fixed order. Out: (m, l) and acc[D]
+//    are added in shared memory in a fixed order. Out: (m, l) and acc[d]
 //    per (b, h, split).
 // 2. paged_merge_kernel, one block of D threads per (b, h): M = max m_s,
 //    L = sum l_s e^(m_s - M), out = sum acc_s e^(m_s - M) / max(L, 1e-30),
 //    over the row's live splits in order. No atomics anywhere, so the
 //    result is deterministic.
+// Head dims (head_dim.cuh): instances at D = 16, 32, 64 and 128; another
+// multiple of 16 up to 128 runs on the next instance up with the true d at
+// run time: the arena rows keep the model's width (stride H * d), the lanes
+// past d load nothing and add zeros, and no dim past d is stored.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "head_dim.cuh"
 
 namespace {
 
@@ -57,7 +65,9 @@ constexpr int NW = NT / 32;  // warps per split block
 constexpr int SPLIT = 128;   // key positions per split block
 constexpr float NEG_INF = -1e30f;
 
-struct alignas(16) I8x16 { uint32_t w[4]; };   // 16 int8 values
+// 4 * N int8 values, loaded by one instruction (N = 4: 16 bytes)
+template <int N>
+struct alignas(4 * N) I8Words { uint32_t w[N]; };
 
 template <typename T> __device__ __forceinline__ float to_f(T x);
 template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
@@ -89,18 +99,25 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <typename T, int D>
+template <typename T, int D, bool PAD>
 __global__ void __launch_bounds__(NT) paged_split_kernel(
     const T* __restrict__ q, const int8_t* __restrict__ k,
     const float* __restrict__ ks, const int8_t* __restrict__ v,
     const float* __restrict__ vs, const int* __restrict__ bt,
     const int* __restrict__ lengths, float* __restrict__ part_ml,
-    float* __restrict__ part_acc, int H, int P, int page_size,
+    float* __restrict__ part_acc, int H, int d_true, int P, int page_size,
     float scale) {
-  constexpr int PIECES = D / 16;            // lanes per key row
+  const int dh = PAD ? d_true : D;          // the true head dim (head_dim.cuh)
+  // dims a lane takes: 16 (one 16-byte load) from D = 32 on; 8 at D = 16,
+  // so that a block still spreads its 256 threads over at most SPLIT keys
+  constexpr int PW = D >= 32 ? 16 : 8;
+  constexpr int NWD = PW / 4;               // 32-bit words a lane loads
+  constexpr int PIECES = D / PW;            // lanes per key row
   constexpr int RPW = 32 / PIECES;          // keys per warp load
   constexpr int GROUPS = NW * RPW;          // keys per block load
   constexpr int KPT = SPLIT / GROUPS;       // keys per thread
+  static_assert(KPT >= 1 && KPT * GROUPS == SPLIT,
+                "a split block must give every thread a whole number of keys");
   __shared__ float s_score[SPLIT];
   __shared__ float s_red[GROUPS][D];
 
@@ -112,6 +129,8 @@ __global__ void __launch_bounds__(NT) paged_split_kernel(
   const int w = threadIdx.x >> 5;
   const int r = lane / PIECES;
   const int c = lane % PIECES;
+  // a lane past the true head dim (PAD) loads and adds nothing
+  const bool lane_live = !PAD || c * PW < dh;
   const long long part = (long long)bh * gridDim.x + split;
   int len = lengths[b];
   const int cap = P * page_size;
@@ -125,15 +144,15 @@ __global__ void __launch_bounds__(NT) paged_split_kernel(
     return;
   }
 
-  // issue every load of this thread before the first use: q's 16 dims,
+  // issue every load of this thread before the first use: q's PW dims,
   // then the block-table entries, then K, V and their scales
-  float qv[16];
+  float qv[PW];
   {
-    const T* qr = q + (long long)bh * D + c * 16;
+    const T* qr = q + (long long)bh * dh + c * PW;
 #pragma unroll
-    for (int e = 0; e < 16; ++e) qv[e] = to_f<T>(qr[e]);
+    for (int e = 0; e < PW; ++e) qv[e] = lane_live ? to_f<T>(qr[e]) : 0.f;
   }
-  const long long rs = (long long)H * D;    // arena row stride (bytes)
+  const long long rs = (long long)H * dh;   // arena row stride (bytes)
   long long row[KPT];
   bool live[KPT];
 #pragma unroll
@@ -144,27 +163,29 @@ __global__ void __launch_bounds__(NT) paged_split_kernel(
                                page_size + j % page_size
                      : 0;
   }
-  I8x16 kr[KPT], vr[KPT];
+  I8Words<NWD> kr[KPT], vr[KPT];
   float ksc[KPT], vsc[KPT];
 #pragma unroll
   for (int i = 0; i < KPT; ++i) {
     if (live[i]) {
-      const long long off = row[i] * rs + (long long)h * D + c * 16;
-      kr[i] = *reinterpret_cast<const I8x16*>(k + off);
-      vr[i] = *reinterpret_cast<const I8x16*>(v + off);
+      const long long off = row[i] * rs + (long long)h * dh + c * PW;
+      if (lane_live) {
+        kr[i] = *reinterpret_cast<const I8Words<NWD>*>(k + off);
+        vr[i] = *reinterpret_cast<const I8Words<NWD>*>(v + off);
+      }
       ksc[i] = ks[row[i] * H + h];
       vsc[i] = vs[row[i] * H + h];
     }
   }
 
-  // scores: a row's PIECES lanes each dot 16 dims, then shuffle-reduce
+  // scores: a row's PIECES lanes each dot PW dims, then shuffle-reduce
   float s[KPT];
 #pragma unroll
   for (int i = 0; i < KPT; ++i) {
     float d = 0.f;
-    if (live[i]) {
+    if (live[i] && lane_live) {
 #pragma unroll
-      for (int t = 0; t < 4; ++t)
+      for (int t = 0; t < NWD; ++t)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
           d = fmaf(qv[4 * t + e], i8(kr[i].w[t], e), d);
@@ -189,28 +210,28 @@ __global__ void __launch_bounds__(NT) paged_split_kernel(
   l = warp_sum(l);
 
   // p-weighted V over this thread's keys, then over the key groups
-  float acc[16];
+  float acc[PW];
 #pragma unroll
-  for (int e = 0; e < 16; ++e) acc[e] = 0.f;
+  for (int e = 0; e < PW; ++e) acc[e] = 0.f;
 #pragma unroll
   for (int i = 0; i < KPT; ++i) {
-    if (live[i]) {
+    if (live[i] && lane_live) {
       const float pv = expf(s[i] - m) * vsc[i];
 #pragma unroll
-      for (int t = 0; t < 4; ++t)
+      for (int t = 0; t < NWD; ++t)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
           acc[4 * t + e] = fmaf(pv, i8(vr[i].w[t], e), acc[4 * t + e]);
     }
   }
 #pragma unroll
-  for (int e = 0; e < 16; ++e) s_red[w * RPW + r][c * 16 + e] = acc[e];
+  for (int e = 0; e < PW; ++e) s_red[w * RPW + r][c * PW + e] = acc[e];
   __syncthreads();
-  for (int d = threadIdx.x; d < D; d += NT) {
+  for (int d = threadIdx.x; d < dh; d += NT) {
     float a = 0.f;
 #pragma unroll 8
     for (int g = 0; g < GROUPS; ++g) a += s_red[g][d];
-    part_acc[part * D + d] = a;
+    part_acc[part * dh + d] = a;
   }
   if (threadIdx.x == 0) {
     part_ml[2 * part] = m;
@@ -218,46 +239,49 @@ __global__ void __launch_bounds__(NT) paged_split_kernel(
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool PAD>
 __global__ void __launch_bounds__(D) paged_merge_kernel(
     const float* __restrict__ part_ml, const float* __restrict__ part_acc,
-    const int* __restrict__ lengths, T* __restrict__ out, int H,
+    const int* __restrict__ lengths, T* __restrict__ out, int H, int d_true,
     int n_splits, int cap) {
+  const int dh = PAD ? d_true : D;  // the true head dim (head_dim.cuh)
   const int bh = blockIdx.x;
   const int d = threadIdx.x;
+  if (PAD && d >= dh) return;
   int len = lengths[bh / H];
   len = len < 0 ? 0 : (len > cap ? cap : len);
   const int n = (len + SPLIT - 1) / SPLIT;   // live splits, in order
   const float* ml = part_ml + 2LL * bh * n_splits;
-  const float* acc = part_acc + (long long)bh * n_splits * D;
+  const float* acc = part_acc + (long long)bh * n_splits * dh;
   float M = NEG_INF;
   for (int s = 0; s < n; ++s) M = fmaxf(M, ml[2 * s]);
   float L = 0.f, A = 0.f;
   for (int s = 0; s < n; ++s) {
     const float f = expf(ml[2 * s] - M);
     L = fmaf(ml[2 * s + 1], f, L);
-    A = fmaf(acc[(long long)s * D + d], f, A);
+    A = fmaf(acc[(long long)s * dh + d], f, A);
   }
-  out[(long long)bh * D + d] = from_f<T>(A / fmaxf(L, 1e-30f));
+  out[(long long)bh * dh + d] = from_f<T>(A / fmaxf(L, 1e-30f));
 }
 
-template <typename T, int D>
+template <typename T, int D, bool PAD>
 int launch(const void* q, const void* k, const void* ks, const void* v,
            const void* vs, const void* bt, const void* lengths,
-           void* part_ml, void* part_acc, void* out, int B, int H, int P,
-           int page_size, int n_splits, float scale, cudaStream_t stream) {
+           void* part_ml, void* part_acc, void* out, int B, int H, int d,
+           int P, int page_size, int n_splits, float scale,
+           cudaStream_t stream) {
   const dim3 grid(n_splits, B * H);
-  paged_split_kernel<T, D><<<grid, NT, 0, stream>>>(
+  paged_split_kernel<T, D, PAD><<<grid, NT, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const int8_t*>(k),
       static_cast<const float*>(ks), static_cast<const int8_t*>(v),
       static_cast<const float*>(vs), static_cast<const int*>(bt),
       static_cast<const int*>(lengths), static_cast<float*>(part_ml),
-      static_cast<float*>(part_acc), H, P, page_size, scale);
+      static_cast<float*>(part_acc), H, d, P, page_size, scale);
   const int err = (int)cudaGetLastError();
   if (err != 0) return err;
-  paged_merge_kernel<T, D><<<B * H, D, 0, stream>>>(
+  paged_merge_kernel<T, D, PAD><<<B * H, D, 0, stream>>>(
       static_cast<const float*>(part_ml), static_cast<const float*>(part_acc),
-      static_cast<const int*>(lengths), static_cast<T*>(out), H, n_splits,
+      static_cast<const int*>(lengths), static_cast<T*>(out), H, d, n_splits,
       P * page_size);
   return (int)cudaGetLastError();
 }
@@ -270,8 +294,8 @@ int launch(const void* q, const void* k, const void* ks, const void* v,
 // scratch part_ml (B, H, n_splits, 2) and part_acc (B, H, n_splits, D),
 // n_splits = ceil(P * page_size / 128). Two launches (split, merge) on
 // `stream`. Returns the first failed launch's cudaError_t (0 = both
-// launched); -1 for a (dtype, D) this build has no instance for, -2 for a
-// wrong n_splits or more than 65,535 (b, h) rows.
+// launched); -1 for a dtype or a head dim D this build has no instance for
+// (head_dim.cuh), -2 for a wrong n_splits or more than 65,535 (b, h) rows.
 extern "C" int tdt_paged_decode(const void* q, const void* k, const void* ks,
                                 const void* v, const void* vs,
                                 const void* block_tables,
@@ -284,13 +308,19 @@ extern "C" int tdt_paged_decode(const void* q, const void* k, const void* ks,
   if (n_splits != (keys + SPLIT - 1) / SPLIT || n_splits < 1 ||
       (long long)B * H > 65535 || keys > 0x7fffffffLL)
     return -2;
-#define TDT_PAGED(T, DD)                                                    \
-  return launch<T, DD>(q, k, ks, v, vs, block_tables, lengths, part_ml,     \
-                       part_acc, out, B, H, P, page_size, n_splits, scale, s)
-  if (dtype == 0 && D == 64) TDT_PAGED(float, 64);
-  if (dtype == 0 && D == 128) TDT_PAGED(float, 128);
-  if (dtype == 1 && D == 64) TDT_PAGED(__nv_bfloat16, 64);
-  if (dtype == 1 && D == 128) TDT_PAGED(__nv_bfloat16, 128);
-#undef TDT_PAGED
+  if (dtype == 0)
+    return with_head_dim(D, [&](auto hd) {
+      using HD = decltype(hd);
+      return launch<float, HD::value, HD::pad>(
+          q, k, ks, v, vs, block_tables, lengths, part_ml, part_acc, out, B,
+          H, D, P, page_size, n_splits, scale, s);
+    });
+  if (dtype == 1)
+    return with_head_dim(D, [&](auto hd) {
+      using HD = decltype(hd);
+      return launch<__nv_bfloat16, HD::value, HD::pad>(
+          q, k, ks, v, vs, block_tables, lengths, part_ml, part_acc, out, B,
+          H, D, P, page_size, n_splits, scale, s);
+    });
   return -1;
 }

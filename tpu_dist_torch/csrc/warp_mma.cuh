@@ -122,16 +122,18 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // Rows r0 .. r0+ROWS-1 of an (L, D) matrix of T (bf16 or int8) with row
 // stride `stride` into shared dst (row stride RS elements), as 16-byte
-// cp.async copies spread over NT threads; rows past L read as zeros.
+// cp.async copies spread over NT threads; rows past L, and the columns
+// from `cols` on (a multiple of 16 bytes' elements; D: none), read as
+// zeros.
 template <int ROWS, int D, int RS, int NT, typename T>
 __device__ __forceinline__ void cp_async_rows(T* dst, const T* src,
                                               long stride, int r0, int L,
-                                              int tid) {
+                                              int tid, int cols = D) {
   constexpr int E = 16 / sizeof(T);  // elements per 16-byte chunk
   constexpr int CH = D / E;          // chunks per row
   for (int i = tid; i < ROWS * CH; i += NT) {
     const int r = i / CH, c = (i % CH) * E;
-    const bool in = r0 + r < L;
+    const bool in = r0 + r < L && (cols >= D || c < cols);
     cp_async_16(dst + r * RS + c, src + (in ? r0 + r : 0) * stride + c,
                 in ? 16 : 0);
   }

@@ -47,10 +47,34 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # library's name
 LOCAL_INCLUDE = re.compile(r'^#include "([\w.]+)"$', re.M)
 
-# what the C entries take: the dtype code of their float inputs/outputs and
-# the head dims the sources instantiate (anything else returns -1)
+# what the C entries take: the dtype code of their float inputs/outputs
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64, 128)
+
+# The head dims of the five attention kernels, the rule of
+# csrc/head_dim.cuh: a multiple of 16 from 16 to 128, run on the smallest
+# of these instances at or above it (the true head dim passed at run time
+# where it is smaller). The C entries return -1 for anything else.
+HEAD_DIM_INSTANCES = (16, 32, 64, 128)
+HEAD_DIM_RULE = "a multiple of 16 from 16 to 128"
+
+
+def head_dim_instance(d: int) -> Optional[int]:
+    """The compiled head dim that runs head dim ``d``, or None where no
+    instance does (``csrc/head_dim.cuh``'s ``tdt_head_dim_instance``)."""
+    if d < 16 or d > 128 or d % 16:
+        return None
+    return min(i for i in HEAD_DIM_INSTANCES if i >= d)
+
+
+def check_head_dim(kernel: str, d: int) -> int:
+    """``head_dim_instance(d)``; raises ``ValueError`` naming ``d`` and the
+    rule where no instance runs it."""
+    inst = head_dim_instance(d)
+    if inst is None:
+        raise ValueError(f"{kernel}: head_dim {d} is not {HEAD_DIM_RULE} "
+                         "(the rule of csrc/head_dim.cuh; no kernel "
+                         "instance runs it)")
+    return inst
 
 # the entries a source exposes beyond its one-call kernel, each counted by
 # its own wrapper: fused_quant's scales and product phases apart

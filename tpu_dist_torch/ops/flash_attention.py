@@ -178,9 +178,7 @@ def _check_flash(q, k, v):
         raise ValueError(f"flash kernel: q (B, Lq, H, D) and k/v (B, Lk, "
                          f"H, D) expected, got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
-    if q.shape[-1] not in kernels.HEAD_DIMS:
-        raise ValueError(f"flash kernel: head_dim {q.shape[-1]} not in "
-                         f"{kernels.HEAD_DIMS}")
+    kernels.check_head_dim("flash kernel", q.shape[-1])
     if min(q.shape[0], q.shape[1], k.shape[1], q.shape[2]) < 1:
         raise ValueError("flash kernel: empty q or k/v")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
@@ -453,9 +451,7 @@ def _check_int8kv(q, kq, ks, vq, vs):
         raise ValueError(f"flash int8-KV kernel: shapes q {tuple(q.shape)}, "
                          f"k {tuple(kq.shape)}, scale {tuple(ks.shape)} do "
                          "not agree")
-    if d not in kernels.HEAD_DIMS:
-        raise ValueError(f"flash int8-KV kernel: head_dim {d} not in "
-                         f"{kernels.HEAD_DIMS}")
+    kernels.check_head_dim("flash int8-KV kernel", d)
     if min(b, lq, lk, h) < 1:
         raise ValueError("flash int8-KV kernel: empty q or K/V")
     if not all(t.is_contiguous() for t in (q, kq, ks, vq, vs)):

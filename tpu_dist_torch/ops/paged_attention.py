@@ -272,9 +272,7 @@ def _check_blocks(q, k, ks, v, vs, block_tables, lengths):
                          f"k {tuple(k.shape)}, scale {tuple(ks.shape)}, "
                          f"block tables {tuple(block_tables.shape)}, "
                          f"lengths {tuple(lengths.shape)} do not agree")
-    if d not in kernels.HEAD_DIMS:
-        raise ValueError(f"paged decode kernel: head_dim {d} not in "
-                         f"{kernels.HEAD_DIMS}")
+    kernels.check_head_dim("paged decode kernel", d)
     if min(b, h, n1, page_size, block_tables.shape[1]) < 1:
         raise ValueError("paged decode kernel: empty input")
     if not all(t.is_contiguous() for t in ts):
