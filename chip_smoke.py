@@ -42,13 +42,19 @@ they print share the card and the host. Phases:
    PyTorch call computes it: ``library_ms`` is null, and ``yardstick_ms``
    times the bf16 ``torch.matmul`` of the unquantized operands), the
    int8-K/V flash forward at L=2048 (library: SDPA on the dequantized K/V).
-   Rows 1-5 again at head dims 16 and 32 (their own instances) and 48 (the
-   64 instance with the true head dim at run time; P3_HEAD_DIMS), each
-   timed beside SDPA and its bound: the flash forward and the int8-K/V
-   forward at B1 L2048 H8, the backward pair at B8 L2048 H8, each also with
-   dead rows (Lq130 Lk200, kv_offset 40), the paged decode at B8 Lk2048 H8
-   gathered and through a shuffled block table (bit-equal), a row of length
-   0 exact zeros (``check_head_dims``);
+   Rows 1-5 again at head dims 16 and 32 (their own instances), 48 (the
+   64 instance with the true head dim at run time) at 8 heads and 256 at
+   4 (P3_HEAD_DIMS), each timed beside SDPA and its bound: the flash
+   forward and the int8-K/V forward at B1 L2048, the backward pair at B8
+   L2048, each also with dead rows (Lq130 Lk200, kv_offset 40), the paged
+   decode at B8 Lk2048 gathered and through a shuffled block table
+   (bit-equal), a row of length 0 exact zeros (``check_head_dims``). Then
+   the general instances at head dims 8, 24, 33, 100, 136, 200 and 256
+   (P3_SWEEP_DIMS) in fp32 and bf16, all five kernels at a small shape
+   with dead rows, dead keys and a length-0 paged row (exact zeros),
+   every output between sentinel elements (untouched), once on the
+   allocator's tensors and once on views a few elements into their
+   buffers (bit-equal; ``check_head_dim_sweep``);
 4. small-input checks: a tiny fp32 model served on the card (kernels) and
    on the CPU (plain versions) gives the same greedy tokens, also with
    ``quant="int8"``, and with ``spec_k=3`` on the card against the same
@@ -386,6 +392,17 @@ they print share the card and the host. Phases:
    losses within LOSS_TOL (1 + |loss|), then bf16 on the card for
    P21_BF16_STEPS steps, finite and falling; each run launches
    ``flash_fwd``, ``flash_bwd_dq`` and ``flash_bwd_dkv``.
+22. four heads of 256, every attention kernel on its 256 instance: (a)
+   phase 6's LM with 4 heads instead of 8 (the same parameters; the
+   reference's ``LMConfig(d_model=1024, num_heads=4)``) for P22_STEPS
+   steps, finite losses whose last five's mean is below the first five's,
+   8 ``flash_bwd_dq``, 8 ``flash_bwd_dkv`` and one ``adamw`` launch a
+   step, with the step time and peak memory; (b) ``ServeEngine`` on that
+   geometry (bf16, flash prefill, int8 paged decode) serving phase 5's 16
+   requests, every one complete through ``flash_fwd`` and
+   ``paged_decode``; (c) tiny fp32 LMs at head dims 24 and 256
+   (P22_TWINS) served on the card and on the CPU with equal greedy
+   tokens, and trained 5 steps on both within LOSS_TOL (1 + |loss|).
 
 Each phase's seconds print as it ends ("phase N took"), the parts of
 phases 9 and 11 and each rank group's jobs too, and all of them together
@@ -632,7 +649,7 @@ def paged_bound(b, h, d, lengths, page_size=None):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def check_paged(torch, F, gen, d=128):
+def check_paged(torch, F, gen, d=128, h=8):
     """The paged decode kernel against its plain version at the serving
     width: over gathered K/V (B8 Lk2048 H8 D``d``, the reference's layout),
     and over the same keys scattered to 1,024 pages of 16 through a
@@ -643,7 +660,7 @@ def check_paged(torch, F, gen, d=128):
     from tpu_dist_torch.ops import flash_attention as fa
     from tpu_dist_torch.ops import paged_attention as pa
 
-    b, lk, h = 8, 2048, 8
+    b, lk = 8, 2048
     q = torch.randn((b, 1, h, d), generator=gen, device="cuda").to(
         torch.bfloat16)
     k, v = (torch.randn((b, lk, h, d), generator=gen, device="cuda")
@@ -1277,47 +1294,244 @@ def time_int8kv(torch, F, rec, q, kv):
     return rec
 
 
-# phase 3 at the head dims below 64: the instances at 16 and 32 (tiny_lm,
-# LMConfig), and 48 on the 64 instance with the true head dim at run time
-P3_HEAD_DIMS = (16, 32, 48)
+# phase 3's timed head dims, (d, heads): the instances at 16 and 32
+# (tiny_lm, LMConfig) and 48 on the 64 instance with the true head dim at
+# run time, at 8 heads; the 256 instance at phase 22's 4 heads
+P3_HEAD_DIMS = ((16, 8), (32, 8), (48, 8), (256, 4))
+# kernel vs plain version, fp32 attention outputs: the SIMT instances'
+# fp32 sums against PyTorch's, summation order alone
+ATTN_FP32_TOL = 1e-5
+# phase 3's sweep of the general instances: rows narrower than their
+# instance (8 on 16, 24 on 32, 33 on 64, 100 on 128, 136 and 200 on 256),
+# odd (33) and not a multiple of 8 (100), and the 256 instance itself,
+# each in fp32 and bf16, once on the allocator's tensors and once on views
+# P3_MISALIGN[d] elements into their buffers (outputs too): byte loads,
+# 4- and 8-byte cp.async
+P3_SWEEP_DIMS = (8, 24, 33, 100, 136, 200, 256)
+P3_SWEEP_SHAPE = (2, 130, 200, 4, 40)   # B, Lq, Lk, H, kv_offset
+P3_MISALIGN = {8: 1, 24: 2, 33: 1, 100: 4, 136: 1, 200: 2, 256: 4}
+GUARD = 256        # elements past (and P3_MISALIGN before) every output,
+SENTINEL = -4096.0  # SENTINEL before a launch and after it
 
 
-def check_head_dims(torch, F):
-    """Rows 1-5 at each head dim of P3_HEAD_DIMS, from a generator of their
-    own, against their plain versions (the tolerances of the D128 checks;
-    dead rows, dead keys and length-0 rows exact zeros), each timed with
-    SDPA's time and the bound at the row's timed shape: the flash forward
-    and the int8-K/V forward at B1 L2048 H8 causal, the backward pair at B8
-    L2048 H8 causal, each also at B1 Lq130 Lk200 H8 with kv_offset 40; the
-    paged decode as ``check_paged`` checks it at D128. Returns {kernel:
+def check_head_dims(torch, F, dims=P3_HEAD_DIMS):
+    """Rows 1-5 at each (head dim, heads) of ``dims``, from a generator
+    of their own, against their plain versions (the tolerances of the D128
+    checks; dead rows, dead keys and length-0 rows exact zeros), each timed
+    with SDPA's time and the bound at the row's timed shape: the flash
+    forward and the int8-K/V forward at B1 L2048 causal, the backward pair
+    at B8 L2048 causal, each also at B1 Lq130 Lk200 with kv_offset 40; the
+    paged decode as ``check_paged`` checks it at D128, gathered and through
+    a shuffled block table (bit-equal) at B8 Lk2048. Returns {kernel:
     [record a head dim]}."""
     own = torch.Generator(device="cuda").manual_seed(SEED + 21)
     recs = {k: [] for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
                             "flash_fwd_int8kv", "paged_decode")}
-    for d in P3_HEAD_DIMS:
-        rec, qkv = check_flash_shape(torch, own, 1, 2048, 2048, 8, d)
+    for d, h in dims:
+        rec, qkv = check_flash_shape(torch, own, 1, 2048, 2048, h, d)
         rec = time_flash(torch, F, rec, *qkv)
-        rec["shape"] = f"B1 L2048 H8 D{d} bf16 causal"
+        rec["shape"] = f"B1 L2048 H{h} D{d} bf16 causal"
         rec["dead_rows_shape"] = check_flash_shape(
-            torch, own, 1, 130, 200, 8, d, kv_offset=40)[0]
+            torch, own, 1, 130, 200, h, d, kv_offset=40)[0]
         recs["flash_fwd"].append(rec)
         del qkv
         main, (q, k, v, g, out, lse) = check_flash_bwd_shape(
-            torch, own, 8, 2048, 2048, 8, d)
-        dead = check_flash_bwd_shape(torch, own, 1, 130, 200, 8, d,
+            torch, own, 8, 2048, 2048, h, d)
+        dead = check_flash_bwd_shape(torch, own, 1, 130, 200, h, d,
                                      kv_offset=40)[0]
         for name, r in time_flash_bwd(torch, F, main["max_abs_err"], q, k,
                                       v, g, out, lse).items():
             r["dead_rows_shape"] = dead
             recs[name].append(r)
         del q, k, v, g, out, lse
-        rec, (q, kv) = check_int8kv_shape(torch, own, 1, 2048, 2048, 8, d)
+        rec, (q, kv) = check_int8kv_shape(torch, own, 1, 2048, 2048, h, d)
         recs["flash_fwd_int8kv"].append(time_int8kv(torch, F, rec, q, kv))
         rec["dead_rows_shape"] = check_int8kv_shape(
-            torch, own, 1, 130, 200, 8, d, kv_offset=40)[0]
+            torch, own, 1, 130, 200, h, d, kv_offset=40)[0]
         del q, kv
-        recs["paged_decode"].append(check_paged(torch, F, own, d))
+        recs["paged_decode"].append(check_paged(torch, F, own, d, h))
     return recs
+
+
+def offset_view(torch, t, off):
+    """``t``'s values in a contiguous view ``off`` elements into a fresh
+    buffer on its device (0: ``t`` itself)."""
+    if not off:
+        return t
+    buf = torch.empty(t.numel() + off, dtype=t.dtype, device=t.device)
+    view = buf[off:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+class SentinelOutputs:
+    """While entered, ``torch.empty`` and ``torch.empty_like`` (the
+    wrappers' output allocations) return NaN views ``off`` elements into a
+    buffer whose other elements (``off`` before, GUARD after) hold
+    SENTINEL; ``untouched()`` says whether every sentinel survived."""
+
+    def __init__(self, torch, off):
+        self.torch, self.off, self.made = torch, off, []
+
+    def _empty(self, *shape, dtype=None, device=None, **_):
+        torch = self.torch
+        if len(shape) == 1 and not isinstance(shape[0], int):
+            shape = tuple(shape[0])
+        n = math.prod(shape)
+        buf = torch.full((self.off + n + GUARD,), SENTINEL,
+                         dtype=dtype or torch.float32, device=device)
+        buf[self.off:self.off + n] = float("nan")
+        self.made.append((buf, n))
+        return buf[self.off:self.off + n].view(shape)
+
+    def __enter__(self):
+        torch = self.torch
+        self.saved = (torch.empty, torch.empty_like)
+        torch.empty = self._empty
+        torch.empty_like = lambda t, dtype=None, **_: self._empty(
+            t.shape, dtype=dtype or t.dtype, device=t.device)
+        return self
+
+    def __exit__(self, *exc):
+        self.torch.empty, self.torch.empty_like = self.saved
+
+    def untouched(self):
+        o = self.off
+        return all(bool((buf[:o] == SENTINEL).all())
+                   and bool((buf[o + n:] == SENTINEL).all())
+                   for buf, n in self.made)
+
+
+def attention_entries(kernels):
+    """The five attention kernels' C entries (built on first use)."""
+    from tpu_dist_torch.ops import flash_attention as fa
+    from tpu_dist_torch.ops import paged_attention as pa
+
+    return {"flash": kernels.function("flash_fwd", "tdt_flash_fwd",
+                                      fa._FLASH_ARGS),
+            "dq": kernels.function("flash_bwd_dq", "tdt_flash_bwd_dq",
+                                   fa._BWD_DQ_ARGS),
+            "dkv": kernels.function("flash_bwd_dkv", "tdt_flash_bwd_dkv",
+                                    fa._BWD_DKV_ARGS),
+            "int8kv": kernels.function("flash_fwd_int8kv",
+                                       "tdt_flash_fwd_int8kv",
+                                       fa._INT8KV_ARGS),
+            "paged": kernels.function("paged_decode", "tdt_paged_decode",
+                                      pa._PAGED_ARGS)}
+
+
+def five_at_head_dim(torch, kernels, d, dtype, off, device="cuda",
+                     entries=None, shape=P3_SWEEP_SHAPE):
+    """The five attention kernels at head dim ``d`` in ``dtype`` through
+    their C entries, on the allocator's tensors and (``off`` > 0) again on
+    views ``off`` elements into their buffers (inputs and outputs), every
+    output between SENTINEL elements. ``shape`` is (B, Lq, Lk, H,
+    kv_offset): flash forward, backward and int8-K/V forward causal with
+    that kv_offset (at P3_SWEEP_SHAPE rows 0-39 see no key, keys 90-199 no
+    row); the paged decode over gathered int8 K/V at B3 Lk H with lengths
+    Lk, min(77, Lk - 3), 0. Each run against the plain versions (bf16:
+    BF16_TOL, the int8-K/V forward INT8KV_ULP and INT8KV_ATOL, fp32:
+    ATTN_FP32_TOL; lse ATTN_FP32_TOL), dead rows, dead keys and the
+    length-0 row exact zeros, every sentinel untouched, and the two runs
+    bit-equal. Returns (the record, {output name: the aligned run's
+    tensor}). ``device="cpu"`` with ``entries`` (the C entries built by
+    ``tools/cuda_emu.py``) rehearses it on the CPU."""
+    from tpu_dist_torch.ops import flash_attention as fa
+    from tpu_dist_torch.ops import paged_attention as pa
+
+    fn = entries or attention_entries(kernels)
+    gen = torch.Generator(device=device).manual_seed(SEED + 22 + d)
+    rnd = lambda *s: torch.randn(s, generator=gen, device=device)  # noqa
+    b, lq, lk, h, kvo = shape
+    q, k, v, g = (rnd(b, n, h, d).to(dtype) for n in (lq, lk, lk, lq))
+    kv = fa.quantize_kv(rnd(b, lk, h, d), rnd(b, lk, h, d))
+    pkv = fa.quantize_kv(rnd(3, lk, h, d), rnd(3, lk, h, d))
+    qd = rnd(3, 1, h, d).to(dtype)
+    lens = torch.tensor([lk, min(77, lk - 3), 0], dtype=torch.int32,
+                        device=device)
+    mask = (True, 0, kvo)
+    ref = fa.flash_forward_plain(q, k, v, *mask)
+    refs = {"flash_fwd": ref[0], "lse": ref[1],
+            **dict(zip(("dq", "dk", "dv"),
+                       fa.flash_backward_plain(q, k, v, *ref, g, *mask))),
+            "flash_fwd_int8kv": fa.int8kv_flash_plain(q, kv, *mask),
+            "paged_decode": pa.paged_decode_plain(qd, *pkv, lens)}
+    stream = (torch.cuda.current_stream().cuda_stream if device == "cuda"
+              else None)
+
+    def run(o):
+        mv = lambda t: offset_view(torch, t, o)  # noqa: E731
+        qo, ko, vo, go, qdo = (mv(t) for t in (q, k, v, g, qd))
+        kvm, pkvm = (tuple(mv(t) for t in pack) for pack in (kv, pkv))
+        refm = tuple(mv(t) for t in ref)
+        with SentinelOutputs(torch, o) as sent:
+            out, lse = fa._launch(fn["flash"], qo, ko, vo, *mask, stream)
+            grads = fa._launch_backward(fn["dq"], fn["dkv"], qo, ko, vo,
+                                        *refm, go, *mask, stream)
+            out8 = fa._launch_int8kv(fn["int8kv"], qo, kvm, *mask, stream)
+            outp = pa._launch(fn["paged"], qdo, *pkvm, lens, stream)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        if len(sent.made) != 9 or not sent.untouched():
+            raise AssertionError(f"D{d} {dtype} offset {o}: an output's "
+                                 "sentinel changed (a store past its end)")
+        return dict(zip(("flash_fwd", "lse", "dq", "dk", "dv",
+                         "flash_fwd_int8kv", "paged_decode"),
+                        (out, lse, *grads, out8, outp)))
+
+    got = run(0)
+    moved = run(off) if off else got
+    errs = {}
+    for name, r in refs.items():
+        a = got[name]
+        if not torch.equal(a, moved[name]):
+            raise AssertionError(f"{name} at D{d} {dtype}: the view at "
+                                 f"offset {off} is not bit-equal")
+        diff = (a.float() - r.float()).abs()
+        if name == "lse" or dtype == torch.float32:
+            ok = bool((diff <= ATTN_FP32_TOL * (1 + r.float().abs())).all())
+        elif name == "flash_fwd_int8kv":
+            ok = bool((diff <= INT8KV_ULP * r.float().abs()
+                       + INT8KV_ATOL).all())
+        else:
+            ok = bool((diff <= BF16_TOL * (1 + r.float().abs())).all())
+        errs[name] = diff.max().item()
+        if not ok:
+            raise AssertionError(f"{name} at D{d} {dtype}: max|err| "
+                                 f"{errs[name]}")
+    zeros = (all(bool((got[n][:, :kvo] == 0).all())
+                 for n in ("flash_fwd", "dq", "flash_fwd_int8kv"))
+             and all(bool((got[n][:, lq - kvo:] == 0).all())
+                     for n in ("dk", "dv"))
+             and bool((got["paged_decode"][2] == 0).all()))
+    if not zeros:
+        raise AssertionError(f"D{d} {dtype}: a dead row, a dead key or the "
+                             "length-0 row is not exact zeros")
+    return {"max_abs_err": errs,
+            "tolerance": ("fp32: " + f"{ATTN_FP32_TOL} * (1 + |plain|)"
+                          if dtype == torch.float32 else
+                          f"bf16: {BF16_TOL} * (1 + |plain|), int8-K/V "
+                          f"{INT8KV_ULP} |plain| + {INT8KV_ATOL}")
+            + f", lse {ATTN_FP32_TOL} * (1 + |plain|)",
+            "misaligned_offset_elements": off, "bit_equal_misaligned": True,
+            "sentinels_untouched": True, "dead_exact_zero": True}, got
+
+
+def kernel_outputs(kname):
+    """The outputs of a five_at_head_dim record that kernel ``kname``
+    writes."""
+    return {"flash_fwd": ("flash_fwd", "lse"), "flash_bwd_dq": ("dq",),
+            "flash_bwd_dkv": ("dk", "dv")}.get(kname, (kname,))
+
+
+def check_head_dim_sweep(torch, kernels):
+    """five_at_head_dim at every head dim of P3_SWEEP_DIMS in fp32 and
+    bf16: {"D<d>": {"fp32": record, "bf16": record}}."""
+    return {f"D{d}": {name: five_at_head_dim(torch, kernels, d, dtype,
+                                             P3_MISALIGN[d])[0]
+                      for name, dtype in (("fp32", torch.float32),
+                                          ("bf16", torch.bfloat16))}
+            for d in P3_SWEEP_DIMS}
 
 
 def run_trainer(cfg, device, init_params=None):
@@ -1364,23 +1578,24 @@ def small_int8_trainer_agreement(torch):
                                 zip(gpu_losses, cpu_losses))}
 
 
-def small_trainer_agreement(torch):
+def small_trainer_agreement(torch, d_model=128, num_heads=1):
     """Tiny fp32 trainer, flash + fused_adamw with the clip slot: 5 steps
     on the card (kernels) and on the CPU (plain) from the same weights."""
     from tpu_dist_torch.configs import LMConfig
     from tpu_dist_torch.interop import export_flax_params
     from tpu_dist_torch.models.transformer import TransformerLM
 
-    cfg = LMConfig(batch_size=4, seq_len=96, d_model=128, num_layers=2,
-                   num_heads=1, vocab_size=64, synth_tokens=4000, seed=SEED,
+    cfg = LMConfig(batch_size=4, seq_len=96, d_model=d_model, num_layers=2,
+                   num_heads=num_heads, vocab_size=64, synth_tokens=4000,
+                   seed=SEED,
                    attn="flash", optimizer="fused_adamw", lr=3e-3,
                    grad_clip=0.5, weight_decay=0.1, max_steps=5,
                    print_freq=100)
     # one set of initial weights for both (the CPU and CUDA generators of
     # one seed give different numbers)
     init = export_flax_params(TransformerLM(
-        vocab_size=64, num_layers=2, d_model=128, num_heads=1, max_len=96,
-        device="cpu", seed=SEED))
+        vocab_size=64, num_layers=2, d_model=d_model, num_heads=num_heads,
+        max_len=96, device="cpu", seed=SEED))
     _, cpu_losses = run_trainer(cfg, "cpu", init)
     _, gpu_losses = run_trainer(cfg, "cuda", init)
     if len(gpu_losses) != 5 or len(cpu_losses) != 5:
@@ -1409,10 +1624,11 @@ def full_lm_config(**kw):
     return LMConfig(**{**base, **kw})
 
 
-def training_path(torch, kernels):
-    """The training main path at full width (module docstring, phase 6)."""
+def training_path(torch, kernels, steps=TRAIN_STEPS, **kw):
+    """The training main path at full width (module docstring, phase 6),
+    ``steps`` steps with ``kw`` set on the config (phase 22a: 4 heads)."""
     layers = 8
-    cfg = full_lm_config(max_steps=TRAIN_STEPS, print_freq=5)
+    cfg = full_lm_config(max_steps=steps, print_freq=5, **kw)
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     t0 = time.perf_counter()
@@ -1422,7 +1638,7 @@ def training_path(torch, kernels):
     launches = dict(kernels.LAUNCHES)
     leaves = len(tr.state.params)
     n_eval = len(tr._epoch_indices(tr.val_ds, False, 0)[0])
-    if len(losses) != TRAIN_STEPS or tr.state.step != TRAIN_STEPS:
+    if len(losses) != steps or tr.state.step != steps:
         raise AssertionError(f"trained {tr.state.step} steps, "
                              f"{len(losses)} losses")
     if not all(math.isfinite(x) for x in losses):
@@ -1431,10 +1647,10 @@ def training_path(torch, kernels):
     if not last < first:
         raise AssertionError(f"losses not falling: first 5 mean {first}, "
                              f"last 5 mean {last}: {losses}")
-    want = {"flash_bwd_dq": layers * TRAIN_STEPS,
-            "flash_bwd_dkv": layers * TRAIN_STEPS,
-            "adamw": TRAIN_STEPS,              # one call over all leaves
-            "flash_fwd": layers * (TRAIN_STEPS + n_eval)}
+    want = {"flash_bwd_dq": layers * steps,
+            "flash_bwd_dkv": layers * steps,
+            "adamw": steps,              # one call over all leaves
+            "flash_fwd": layers * (steps + n_eval)}
     for name, n in want.items():
         if launches[name] != n:
             raise AssertionError(f"{name} launched {launches[name]} times, "
@@ -1444,14 +1660,15 @@ def training_path(torch, kernels):
     # allocator's warm-up ride on it)
     tokens = cfg.batch_size * cfg.seq_len
     training = {
-        "params": params, "leaves": leaves, "steps": TRAIN_STEPS,
+        "params": params, "leaves": leaves, "steps": steps,
+        "heads": cfg.num_heads, "head_dim": cfg.d_model // cfg.num_heads,
         "losses": losses, "first5_mean": first, "last5_mean": last,
         "tokens_per_s": tr.last_tok_s,
         "step_ms": tokens / tr.last_tok_s * 1e3,
         "wall_s_incl_build_and_eval": wall,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "launches": launches,
-        "launches_per_step": {k: launches[k] / TRAIN_STEPS for k in (
+        "launches_per_step": {k: launches[k] / steps for k in (
             "flash_bwd_dq", "flash_bwd_dkv", "adamw")},
         "eval_batches": n_eval}
     return training, launches
@@ -1579,7 +1796,8 @@ def image_path(torch, kernels, ck_dir):
     return image, launches
 
 
-def small_input_agreement(torch, card_kw=None, cpu_kw=None):
+def small_input_agreement(torch, card_kw=None, cpu_kw=None, d_model=256,
+                          num_heads=2):
     """Tiny fp32 model: kernels on the card == plain versions on the CPU,
     with ``card_kw`` / ``cpu_kw`` added to each side's ServeConfig."""
     import numpy as np
@@ -1589,8 +1807,9 @@ def small_input_agreement(torch, card_kw=None, cpu_kw=None):
     from tpu_dist_torch.models.transformer import tiny_lm
     from tpu_dist_torch.ops.flash_attention import flash_attention_fn
 
-    geom = dict(vocab_size=64, num_layers=2, d_model=256, num_heads=2,
-                max_len=96, attn_fn=flash_attention_fn())
+    geom = dict(vocab_size=64, num_layers=2, d_model=d_model,
+                num_heads=num_heads, max_len=96,
+                attn_fn=flash_attention_fn())
     cpu_lm = tiny_lm(device="cpu", seed=SEED, **geom)
     gpu_lm = tiny_lm(device="cuda", seed=None, **geom)
     gpu_lm.load_state_dict(cpu_lm.state_dict())
@@ -1667,10 +1886,10 @@ def serve_run(torch, kernels, model, cfg, prompts, outs):
     return record, launches, eng
 
 
-def main_path(torch, kernels):
-    """The serving main path at full width (module docstring, phase 5).
-    Returns (record, launches, model, prompts, outs): phase 8 serves the
-    same model and requests."""
+def main_path(torch, kernels, heads=8):
+    """The serving main path at full width (module docstring, phase 5),
+    with ``heads`` heads (phase 22b: 4). Returns (record, launches, model,
+    prompts, outs): phase 8 serves the same model and requests."""
     import numpy as np
 
     from tpu_dist_torch.engine.serve import ServeConfig
@@ -1679,9 +1898,9 @@ def main_path(torch, kernels):
 
     layers = 8
     model = TransformerLM(vocab_size=32000, num_layers=layers, d_model=1024,
-                          num_heads=8, max_len=2048, dtype=torch.bfloat16,
-                          attn_fn=flash_attention_fn(), device="cuda",
-                          seed=SEED)
+                          num_heads=heads, max_len=2048,
+                          dtype=torch.bfloat16, attn_fn=flash_attention_fn(),
+                          device="cuda", seed=SEED)
     cfg = ServeConfig(max_slots=8, page_size=16, num_pages=1024,
                       kv_quant="int8", attn_read="flash")
     rng = np.random.default_rng(SEED)
@@ -1703,6 +1922,7 @@ def main_path(torch, kernels):
     if not bool(torch.isfinite(logits).all()):
         raise AssertionError("non-finite logits at full width")
     serving["params"] = sum(p.numel() for p in model.parameters())
+    serving["head_dim"] = 1024 // heads
     return serving, launches, model, prompts, outs
 
 
@@ -6756,6 +6976,66 @@ def small_configs_path(torch, kernels, device="cuda"):
         {"p21a_tiny_lm_serving": serve_launches, **train_launches}
 
 
+# ---- phase 22: four heads of 256 ------------------------------------------
+
+# the LM of phases 5 and 6 with 4 heads instead of 8, so each head is 256
+# wide (the reference's LMConfig(vocab_size=32000, num_layers=8,
+# d_model=1024, num_heads=4, seq_len=2048), bench.py with BENCH_HEADS=4):
+# the same parameters, every attention kernel on its 256 instance
+P22_HEADS = 4
+P22_STEPS = 10
+# 22c: the fp32 twins, (d_model, heads) at head dims 24 and 256
+P22_TWINS = {"head_dim_24": (48, 2), "head_dim_256": (512, 2)}
+
+
+def p22_twins(torch, kernels):
+    """22c: tiny fp32 LMs at head dims 24 and 256 (P22_TWINS), each served
+    on the card and on the CPU (equal greedy tokens, phase 4's requests)
+    and trained 5 steps on both (losses within LOSS_TOL (1 + |loss|)),
+    the card's runs through the kernels. Returns (record, launches by
+    run)."""
+    recs, by_run = {}, {}
+    for name, (d_model, heads) in P22_TWINS.items():
+        kernels.reset_launches()
+        n = small_input_agreement(torch, d_model=d_model, num_heads=heads)
+        serve = dict(kernels.LAUNCHES)
+        kernels.reset_launches()
+        train = small_trainer_agreement(torch, d_model, heads)
+        fit = dict(kernels.LAUNCHES)
+        if not (serve["flash_fwd"] and serve["paged_decode"]
+                and fit["flash_bwd_dq"] and fit["flash_bwd_dkv"]):
+            raise AssertionError(f"22c {name}: launches serve {serve}, "
+                                 f"train {fit}")
+        recs[name] = {"d_model": d_model, "heads": heads,
+                      "head_dim": d_model // heads,
+                      "requests_token_equal": n, "training": train,
+                      "launches": {
+                          "serve": {k: serve[k] for k in ("flash_fwd",
+                                                          "paged_decode")},
+                          "train": {k: fit[k] for k in (
+                              "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                              "adamw")}}}
+        by_run[f"p22c_{name}_serve"] = serve
+        by_run[f"p22c_{name}_train"] = fit
+    return recs, by_run
+
+
+def wide_heads_path(torch, kernels):
+    """Phase 22 (module docstring): 22a phase 6's run and 22b phase 5's
+    with P22_HEADS heads, 22c the twins. Returns (record, launches by
+    run)."""
+    training, train_launches = training_path(torch, kernels, P22_STEPS,
+                                             num_heads=P22_HEADS)
+    free_device(torch)
+    serving, serve_launches = main_path(torch, kernels, P22_HEADS)[:2]
+    free_device(torch)
+    twins, twin_launches = p22_twins(torch, kernels)
+    return {"a_training": training, "b_serving": serving,
+            "c_fp32_twins": twins}, \
+        {"p22a_training": train_launches, "p22b_serving": serve_launches,
+         **twin_launches}
+
+
 def importable(name):
     import importlib.util
 
@@ -6832,6 +7112,7 @@ def main():
     quant = check_fused_quant(torch, gen)
     int8kv = check_flash_int8kv(torch, F, gen)
     head_dims = check_head_dims(torch, F)
+    hd_sweep = check_head_dim_sweep(torch, kernels)
     log(f"phase 3 kernels: flash_fwd {json.dumps(flash)}")
     log(f"phase 3 kernels: flash_fwd more shapes {json.dumps(flash_more)}")
     log(f"phase 3 kernels: paged_decode {json.dumps(paged)}")
@@ -6844,8 +7125,11 @@ def main():
         f"{json.dumps(head_dims)}")
     for kname, recs in head_dims.items():
         log(f"phase 3 {kname} ms by head dim: " + ", ".join(
-            f"D{d} {r['ms']:.4f} (bound {r['bound_ms']:.4f}, SDPA "
-            f"{r['library_ms']:.4f})" for d, r in zip(P3_HEAD_DIMS, recs)))
+            f"D{d} H{h} {r['ms']:.4f} (bound {r['bound_ms']:.4f}, SDPA "
+            f"{r['library_ms']:.4f})" for (d, h), r in zip(P3_HEAD_DIMS,
+                                                          recs)))
+    log(f"phase 3 general instances at head dims {list(P3_SWEEP_DIMS)}, "
+        f"fp32 and bf16, aligned and misaligned: {json.dumps(hd_sweep)}")
     log(f"phase 3 ptxas: " + json.dumps(
         {k: ptxas_report(kernels, k) for k in ("adamw", "sgd", "fused_quant",
                                                "paged_decode")}))
@@ -7100,10 +7384,25 @@ def main():
         log(f"phase 21{part[0]} {part[2:]}: {json.dumps(small[part])} on "
             f"{card}")
     took(21)
+
+    # 22. four heads of 256
+    wide, wide_launches = wide_heads_path(torch, kernels)
+    for part in ("a_training", "b_serving", "c_fp32_twins"):
+        log(f"phase 22{part[0]} {part[2:]}: {json.dumps(wide[part])} on "
+            f"{card}")
+    a, b = wide["a_training"], wide["b_serving"]
+    log(f"phase 22: {P22_HEADS} heads of {a['head_dim']}, training "
+        f"{a['step_ms']:.2f} ms a step, "
+        f"peak {a['peak_mem_gb']:.2f} GB, launches a step "
+        f"{json.dumps(a['launches_per_step'])}; serving "
+        f"{b['completed']}/{b['requests']} requests, flash_fwd "
+        f"{b['launches']['flash_fwd']}, paged_decode "
+        f"{b['launches']['paged_decode']}, on {card}")
+    took(22)
     dp_launches = {**dp_launches, **mp_launches, **pp_launches,
                    **rs_launches, **obs_launches, **plan_launches,
                    **fleet_launches, **audit_launches, **dropout_launches,
-                   **small_launches,
+                   **small_launches, **wide_launches,
                    "script6_imagenet": s6_launches,
                    "vit_base_int8": vit8_launches,
                    "zoo_sweep": {**{k: 0 for k in kernels.SOURCES},
@@ -7211,10 +7510,22 @@ def main():
             {p: n[kname] for p, n in {**rs_launches, **obs_launches,
                                       **plan_launches, **fleet_launches,
                                       **audit_launches, **dropout_launches,
-                                      **small_launches}.items()})
+                                      **small_launches,
+                                      **wide_launches}.items()})
         if kname in head_dims:
             entry["head_dims"] = dict(zip(
-                (f"D{d}" for d in P3_HEAD_DIMS), head_dims[kname]))
+                (f"D{d}" for d, _ in P3_HEAD_DIMS), head_dims[kname]))
+            entry["head_dim_sweep"] = {
+                dim: {dt: {"max_abs_err": {
+                    n: e for n, e in r["max_abs_err"].items()
+                    if n in kernel_outputs(kname)},
+                    **{k: r[k] for k in ("tolerance",
+                                         "misaligned_offset_elements",
+                                         "bit_equal_misaligned",
+                                         "sentinels_untouched",
+                                         "dead_exact_zero")}}
+                      for dt, r in recs.items()}
+                for dim, recs in hd_sweep.items()}
         entries.append(entry)
     # fused_quant's two phases apart: gspmd tp's int8 row products (13d)
     scaled = pp["d_int8_tp_scaled_pair"]["scaled_pair"]
@@ -7241,7 +7552,8 @@ def main():
                                       **obs_launches, **plan_launches,
                                       **fleet_launches, **audit_launches,
                                       **dropout_launches,
-                                      **small_launches}.items()}
+                                      **small_launches,
+                                      **wide_launches}.items()}
         entries.append(entry)
     log("phase seconds: " + json.dumps(
         {k: round(v, 1) for k, v in phase_s.items()}))

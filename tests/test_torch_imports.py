@@ -1,7 +1,7 @@
 """The port stands alone: no module of ``tpu_dist_torch`` (nor
-``chip_smoke.py``) imports JAX or the JAX package, and its entry points
-run on CUDA unless the caller asks for the CPU -- without CUDA the default
-device raises instead of falling back."""
+``chip_smoke.py`` or ``kernel_turns.py``) imports JAX or the JAX package,
+and its entry points run on CUDA unless the caller asks for the CPU --
+without CUDA the default device raises instead of falling back."""
 
 import ast
 import json
@@ -20,7 +20,8 @@ PKG = os.path.join(REPO, "tpu_dist_torch")
 
 
 def _port_files():
-    out = [os.path.join(REPO, "chip_smoke.py")]
+    out = [os.path.join(REPO, f) for f in ("chip_smoke.py",
+                                           "kernel_turns.py")]
     for root, _, files in os.walk(PKG):
         out += [os.path.join(root, f) for f in sorted(files)
                 if f.endswith(".py")]

@@ -20,13 +20,13 @@ is nearly all that is left).
 The hardware itself is checked by tests/test_torch_cuda.py on the card."""
 
 import ctypes
-import math
 import os
 import shutil
 
 import pytest
 import torch
 
+import chip_smoke
 from tpu_dist_torch import kernels
 from tpu_dist_torch.ops import flash_attention as fa
 from tpu_dist_torch.ops import paged_attention as pa
@@ -149,21 +149,30 @@ def test_flash_mma_kernel_source_matches_pallas_forward(emu, d, causal):
 
 
 def test_misaligned_bf16_views_are_named_before_and_at_the_launch(emu):
-    """A contiguous bf16 view at an odd element offset: ``_check_aligned``
-    names it and the 16-byte rule; past the checks, the C entry's last
-    guard returns -2 and the wrapper names alignment."""
-    view = torch.empty(64 + 1, dtype=torch.bfloat16)[1:]
-    with pytest.raises(ValueError, match=r"q .*16-byte boundary"):
-        fa._check_aligned("flash kernel", q=view)
-    fa._check_aligned("flash kernel", q=view.clone())   # a copy is aligned
-    fa._check_aligned("flash backward", 4,
-                      lse=torch.empty(3, dtype=torch.float32)[1:])
-    q = view.view(1, 1, 1, 64)
-    with pytest.raises(RuntimeError, match="16-byte aligned"):
-        fa._launch(emu["flash"], q, q.clone(), q.clone(), True, 0, 0, None)
-    kv = fa.quantize_kv(*(torch.zeros((1, 1, 1, 64)),) * 2)
-    with pytest.raises(RuntimeError, match="16-byte aligned"):
-        fa._launch_int8kv(emu["int8kv"], q, kv, True, 0, 0, None)
+    """A contiguous bf16 view at an odd element offset (2-byte aligned), at
+    2 elements (4 bytes) and at 4 (8 bytes): the C entries run it on the
+    general instance (the wrappers no longer check alignment), whose rows
+    go by byte loads
+    or 4- and 8-byte cp.async; its output is bit-equal to that of an
+    aligned copy on the exact instance (the same products; only the
+    copies differ). Nothing is refused for alignment any more."""
+    gen = torch.Generator().manual_seed(64)
+    shape = (1, 40, 2, 64)
+    x = [torch.randn(shape, generator=gen).to(torch.bfloat16)
+         for _ in range(3)]
+    kv = fa.quantize_kv(*(torch.randn(shape, generator=gen)
+                          for _ in range(2)))
+    want = fa._launch(emu["flash"], *x, True, 0, 0, None)
+    want8 = fa._launch_int8kv(emu["int8kv"], x[0], kv, True, 0, 0, None)
+    for off in (1, 2, 4):
+        views = [chip_smoke.offset_view(torch, t, off) for t in x]
+        assert views[0].data_ptr() % 16 == 2 * off
+        got = fa._launch(emu["flash"], *views, True, 0, 0, None)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        kv_views = tuple(chip_smoke.offset_view(torch, t, off) for t in kv)
+        got8 = fa._launch_int8kv(emu["int8kv"], views[0], kv_views, True,
+                                 0, 0, None)
+        assert torch.equal(got8, want8)
 
 
 def _head_dim(d_model, num_heads):
@@ -173,11 +182,12 @@ def _head_dim(d_model, num_heads):
 
 def test_head_dim_rule_takes_every_reference_configuration():
     """The one head-dim rule (``kernels.head_dim_instance``, the rule of
-    ``csrc/head_dim.cuh``) takes the head dim of every configuration the
-    reference ships: ``tiny_lm`` (16), ``LMConfig`` (32), the LM
-    convergence tool (32), ViT-CIFAR (32), ViT-B/16 (64) and the LM bench
-    (128); every other multiple of 16 up to 128 runs on the next instance
-    up; 24 and 136 are refused by name."""
+    ``csrc/head_dim.cuh``) takes every head dim from 1 to 256: the head
+    dim of every configuration the reference ships runs on its own
+    instance (``tiny_lm`` 16, ``LMConfig`` 32, the LM convergence tool 32,
+    ViT-CIFAR 32, ViT-B/16 64, the LM bench 128, and the bench at
+    ``BENCH_HEADS=4`` 256), every other d on the next instance up; 0 and
+    anything above 256 are refused by name."""
     import inspect
 
     from tpu_dist_torch.configs import LMConfig
@@ -197,27 +207,35 @@ def test_head_dim_rule_takes_every_reference_configuration():
                                vit.ViTCifar.keywords["num_heads"]),
         "vit_b16": _head_dim(vit.ViTBase.keywords["d_model"],
                              vit.ViTBase.keywords["num_heads"]),
-        "lm bench": _head_dim(bench.d_model, bench.num_heads)}
+        "lm bench": _head_dim(bench.d_model, bench.num_heads),
+        "lm bench, 4 heads": _head_dim(bench.d_model, 4)}
     assert dims == {"tiny_lm": 16, "LMConfig": 32, "lm_convergence": 32,
-                    "vit_cifar": 32, "vit_b16": 64, "lm bench": 128}
+                    "vit_cifar": 32, "vit_b16": 64, "lm bench": 128,
+                    "lm bench, 4 heads": 256}
     for d in dims.values():
         assert kernels.head_dim_instance(d) == d
-    assert {d: kernels.head_dim_instance(d) for d in (48, 80, 96, 112)} \
-        == {48: 64, 80: 128, 96: 128, 112: 128}
-    for d in (24, 136, 8, 0, 144):
+    assert {d: kernels.head_dim_instance(d)
+            for d in (1, 8, 17, 24, 33, 48, 80, 96, 100, 112, 129, 136, 200,
+                      255)} == {1: 16, 8: 16, 17: 32, 24: 32, 33: 64, 48: 64,
+                                80: 128, 96: 128, 100: 128, 112: 128,
+                                129: 256, 136: 256, 200: 256, 255: 256}
+    assert all(kernels.head_dim_instance(d) is not None
+               for d in range(1, 257))
+    for d in (0, -1, 257, 264, 512):
         assert kernels.head_dim_instance(d) is None
-    for d in (24, 136):
-        with pytest.raises(ValueError, match=rf"head_dim {d} is not a "
-                                             r"multiple of 16 from 16 to 128"):
+    for d in (0, 264):
+        with pytest.raises(ValueError, match=rf"head_dim {d} is refused: "
+                                             r"the kernels take every head "
+                                             r"dim from 1 to 256"):
             kernels.check_head_dim("flash kernel", d)
 
 
-@pytest.mark.parametrize("d", [24, 136], ids=str)
+@pytest.mark.parametrize("d", [0, 264], ids=str)
 def test_attention_entries_refuse_what_the_rule_refuses(emu, d):
     """Past the wrappers' check, each of the five C entries returns -1 for
     a head dim the rule refuses, in both dtypes, and launches nothing."""
-    x = torch.zeros((1, 4, 1, d))
-    i8 = torch.zeros((1, 4, 1, d), dtype=torch.int8)
+    x = torch.zeros((1, 4, 1, max(d, 1)))
+    i8 = torch.zeros((1, 4, 1, max(d, 1)), dtype=torch.int8)
     scale = torch.ones((1, 4, 1))
     lens = torch.ones(1, dtype=torch.int32)
     table = torch.zeros((1, 1), dtype=torch.int32)
@@ -235,58 +253,49 @@ def test_attention_entries_refuse_what_the_rule_refuses(emu, d):
                             None) == -1
 
 
-GUARD = 256       # elements past an output, SENTINEL before a launch and
-SENTINEL = -4096.0  # after it (exact in bf16; a stray store changes it)
+def _five(emu, dtype, d, off=0, kv_offset=0):
+    """``chip_smoke.five_at_head_dim`` (phase 3's sweep) through the
+    emulated C entries: all five at head dim ``d`` against their plain
+    versions, every output (and the paged decode's split partials)
+    allocated NaN between SENTINEL elements, rows that see no key and the
+    length-0 paged row exact zeros; with ``off`` > 0 again on views ``off``
+    elements into their buffers, bit-equal to the aligned run. Above 128
+    (the 256 instances) one head of 40 rows over 64 keys keeps the
+    emulated tensor-core kernels within seconds."""
+    shape = ((1, 70, 100, 2, kv_offset) if d <= 128
+             else (1, 40, 64, 1, kv_offset))
+    return chip_smoke.five_at_head_dim(torch, None, d, dtype, off, "cpu",
+                                       emu, shape)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
 @pytest.mark.parametrize("d", [48, 80], ids=str)
-def test_runtime_head_dim_stores_nothing_past_d(emu, monkeypatch, dtype, d):
+def test_runtime_head_dim_stores_nothing_past_d(emu, dtype, d):
     """At a head dim that runs on the next instance up, every kernel's
     outputs (and the paged decode's split partials) are allocated NaN with
     GUARD SENTINEL elements after them: each output element is written (it
     matches the plain version), and nothing lands past the end."""
-    gen = torch.Generator().manual_seed(d)
-    b, lq, lk, h = 1, 70, 100, 2
-    q, k, v, g = (torch.randn((b, n, h, d), generator=gen).to(dtype)
-                  for n in (lq, lk, lk, lq))
-    kv = fa.quantize_kv(*(torch.randn((b, lk, h, d), generator=gen)
-                          for _ in range(2)))
-    lens = torch.tensor([lk - 3], dtype=torch.int32)
-    ref = fa.flash_forward_plain(q, k, v, True, 0, 0)
-    ref_bwd = fa.flash_backward_plain(q, k, v, *ref, g, True, 0, 0)
-    ref_int8 = fa.int8kv_flash_plain(q, kv, True, 0, 0)
-    qd = q[:, :1].contiguous()
-    ref_paged = pa.paged_decode_plain(qd, *kv, lens)
-    made = []
+    _five(emu, dtype, d)
 
-    def empty(*shape, dtype=torch.float32, device=None):
-        shape = tuple(shape[0]) if len(shape) == 1 and not isinstance(
-            shape[0], int) else shape
-        n = math.prod(shape)
-        buf = torch.full((n + GUARD,), SENTINEL, dtype=dtype)
-        buf[:n] = float("nan")
-        made.append((buf, n))
-        return buf[:n].view(shape)
 
-    with monkeypatch.context() as m:
-        m.setattr(torch, "empty", empty)
-        m.setattr(torch, "empty_like",
-                  lambda t, dtype=None: empty(t.shape, dtype=dtype or t.dtype))
-        out, lse = fa._launch(emu["flash"], q, k, v, True, 0, 0, None)
-        got_bwd = fa._launch_backward(emu["dq"], emu["dkv"], q, k, v, *ref,
-                                      g, True, 0, 0, None)
-        got_int8 = fa._launch_int8kv(emu["int8kv"], q, kv, True, 0, 0, None)
-        got_paged = pa._launch(emu["paged"], qd, *kv, lens, None)
-    assert len(made) == 9   # out, lse, dq, dk, dv, out, out, 2 partials
-    for buf, n in made:
-        assert bool((buf[n:] == SENTINEL).all())
-    _close(out, ref[0], dtype)
-    torch.testing.assert_close(lse, ref[1], rtol=1e-5, atol=1e-5)
-    for a, r in zip(got_bwd, ref_bwd):
-        _close(a, r, dtype)
-    _close(got_int8, ref_int8, dtype)
-    _close(got_paged, ref_paged, dtype)
+# (head dim, element offset of the misaligned views): a row narrower than
+# its instance (8 on 16, 24 on 32, 33 on 64, 100 on 128, 136 on 256), an
+# odd d (33: 66-byte bf16 rows, 33-byte int8 rows), 100 (8-byte-aligned
+# bf16 rows, 4-byte int8 rows), and the 256 instances
+HEAD_DIM_CASES = [(8, 1), (24, 2), (33, 1), (100, 4), (136, 1), (256, 2)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("d,off", HEAD_DIM_CASES, ids=str)
+def test_every_head_dim_runs_aligned_and_misaligned(emu, dtype, d, off):
+    """The five C entries at head dims up to 256, with sentinel tails,
+    dead rows and a length-0 paged row, once on the allocator's tensors
+    and once on views ``off`` elements into their buffers (inputs and
+    outputs): both runs match the plain versions, and they are bit-equal
+    to each other (only the copies differ)."""
+    rec, _ = _five(emu, dtype, d, off, 24)
+    assert rec["bit_equal_misaligned"] and rec["misaligned_offset_elements"] \
+        == off
 
 
 @pytest.mark.parametrize("dtype,d,lengths", [
@@ -345,7 +354,9 @@ def shuffled_arenas(gen, lengths, h, d, page_size, pages_per_row, spare):
                                      (torch.bfloat16, 64),
                                      (torch.bfloat16, 16),
                                      (torch.float32, 32),
-                                     (torch.bfloat16, 48)], ids=str)
+                                     (torch.bfloat16, 48),
+                                     (torch.float32, 33),
+                                     (torch.bfloat16, 256)], ids=str)
 def test_paged_block_table_kernel_source_reads_only_live_keys(emu, dtype, d):
     """The kernel through a shuffled block table (page_size 16, 20 pages a
     row, three 128-key splits) at lengths 0, 1, a page, a page + 1, a

@@ -15,7 +15,10 @@
   dropout-free MLP (the reference's own image parity model: LeNet's
   dropout draws from each package's own PRNG) run 3 steps within
   ``1e-5 (1 + |loss|)`` of the reference's ``compile_plan`` from the same
-  weights; ``donate=False`` and the audit are refused by name;
+  weights; a ``donate=False`` step leaves the caller's state tensors as
+  they were and gives the ``donate=True`` step's result bit for bit, in
+  both engines' templates and windows and through both trainers; an
+  unknown audit mode is refused by name;
 * ``LMTrainer`` and ``Trainer`` accept a tuner-emitted plan file and
   ``auto`` (``tests/test_plan.py:622-698``), stamp ``run_start`` and one
   ``plan`` event, and the reference's ``tools/ledger_report.summarize``
@@ -377,9 +380,82 @@ def test_image_compile_plan_matches_the_reference(image_setup, mode):
     assert float(ev["count"]) == B
 
 
-def test_compile_plan_refuses_donate_false_and_the_audit():
-    with pytest.raises(NotImplementedError, match="donate=False"):
-        pc.compile_plan(Plan(engine="lm", donate=False), pc.Bindings())
+def _donation_steps(cp, model, state, calls):
+    """Dispatch ``cp.train_step`` once per argument tuple of ``calls``
+    through ``cp.advance``, from ``state``: the caller's view before and
+    after (its tensor objects and their values, its step counter), the
+    final state's tensors and step, the metric sums, and whether the
+    model computes with the final state's parameters."""
+    objs = pc._state_tensors(state)
+    saved = [t.detach().clone() for t in objs]
+    step0, cur, sums = state.step, state, []
+    for args in calls:
+        cur, m = cp.advance(cp.train_step, cur, *args)
+        sums.append(m)
+    return dict(
+        saved=saved, step0=step0, objs=objs,
+        caller_after=pc._state_tensors(state), caller_step=state.step,
+        final=[t.detach().clone() for t in pc._state_tensors(cur)],
+        final_step=cur.step, same=cur is state, sums=sums,
+        bound=all(p is q for p, q in zip(model.parameters(), cur.params)))
+
+
+def _lm_donation_run(params, rows, donate, window="none"):
+    """3 LM steps (or one 3-step window) under ``donate``
+    (:func:`_donation_steps`)."""
+    from tpu_dist_torch.interop import load_flax_params
+    from tpu_dist_torch.models.transformer import TransformerLM
+    from tpu_dist_torch.ops.optim import make_optimizer
+
+    port = load_flax_params(TransformerLM(
+        vocab_size=V, num_layers=1, d_model=D, num_heads=4, max_len=L,
+        device="cpu", seed=None), params).requires_grad_(True)
+    tx = make_optimizer(0.01, 0.9, 0.0)
+    state = TrainState.create(port, tx)
+    kw = dict(window="indexed", steps_per_dispatch=3) if window != "none" \
+        else {}
+    cp = pc.compile_plan(Plan(engine="lm", donate=donate, **kw),
+                         pc.Bindings(model=port, tx=tx))
+    t = torch.from_numpy(rows.astype(np.int64))
+    if window != "none":
+        calls = [(t, torch.arange(3 * B).reshape(3, B))]
+    else:
+        calls = [(t[i * B:(i + 1) * B, :-1], t[i * B:(i + 1) * B, 1:])
+                 for i in range(3)]
+    return _donation_steps(cp, port, state, calls)
+
+
+def _bit_equal(xs, ys):
+    return len(xs) == len(ys) and all(torch.equal(x, y)
+                                      for x, y in zip(xs, ys))
+
+
+def _assert_undonated(donated, undonated):
+    """The donated run wrote the caller's state in place; the undonated
+    one left the caller's state object, its tensors (the same objects)
+    and its step counter as they were, and stepped a new state that ends
+    bit-equal to the donated one, with bit-equal metric sums and the
+    model rebound onto it."""
+    d, u = donated, undonated
+    assert d["same"] and d["caller_step"] == d["final_step"] == 3
+    assert not _bit_equal(d["caller_after"], d["saved"])    # in place
+    assert not u["same"] and u["final_step"] == 3
+    assert u["caller_step"] == u["step0"] == 0               # untouched
+    assert all(a is b for a, b in zip(u["caller_after"], u["objs"]))
+    assert len(u["caller_after"]) == len(u["objs"])
+    assert _bit_equal(u["caller_after"], u["saved"])
+    assert _bit_equal(u["saved"], d["saved"])                # same start
+    assert _bit_equal(u["final"], d["final"])
+    assert d["bound"] and u["bound"]
+    for a, b in zip(d["sums"], u["sums"], strict=True):
+        assert a.keys() == b.keys() and all(torch.equal(a[k], b[k])
+                                            for k in a)
+
+
+def test_compile_plan_refuses_donate_false_and_the_audit(lm_setup):
+    _, params, rows = lm_setup
+    _assert_undonated(_lm_donation_run(params, rows, True),
+                      _lm_donation_run(params, rows, False))
     with pytest.raises(PlanError, match="model"):
         pc.compile_plan(Plan(engine="lm", layout="tp"), pc.Bindings())
     # the audit is ported (analysis.proglint): an unknown mode is refused
@@ -390,6 +466,94 @@ def test_compile_plan_refuses_donate_false_and_the_audit():
     assert pc.audit_mode() == "record"
     pc.set_audit("none")
     assert pc.audit_program("train_step", None) == []
+
+
+def _image_donation_run(params, imgs, lbls, donate, window="none"):
+    """As :func:`_lm_donation_run` for the image template (the reference
+    test's MLP), 3 steps or one ``stacked`` 3-step window."""
+    from tpu_dist_torch.engine.steps import DataParallel
+    from tpu_dist_torch.ops.optim import make_optimizer
+
+    port = _TorchMLP(params)
+    tx = make_optimizer(0.1, 0.9, 0.0)
+    state = TrainState.create(port, tx)
+    kw = dict(window=window, steps_per_dispatch=3) if window != "none" \
+        else {}
+    cp = pc.compile_plan(Plan(engine="image", donate=donate, **kw),
+                         pc.Bindings(model=port, tx=tx,
+                                     dp=DataParallel(variant="jit"),
+                                     transform=lambda x, g=None:
+                                     x.float() / 255))
+    ti, tl = torch.from_numpy(imgs), torch.from_numpy(lbls.astype(np.int64))
+    if window == "stacked":
+        calls = [(ti.reshape(3, B, H, W, C), tl.reshape(3, B), 0)]
+    else:
+        calls = [(ti[i * B:(i + 1) * B], tl[i * B:(i + 1) * B], i)
+                 for i in range(3)]
+    return _donation_steps(cp, port, state, calls)
+
+
+@pytest.mark.parametrize("engine,window", [("lm", "indexed"),
+                                           ("image", "none"),
+                                           ("image", "stacked")], ids=str)
+def test_compile_plan_donate_false_steps_on_copies(lm_setup, image_setup,
+                                                   engine, window):
+    """``donate=False`` through the other templates and windows: the
+    caller's state tensors stay bit-equal to saved copies, and the result
+    is bit-equal to ``donate=True``'s."""
+    if engine == "lm":
+        _, params, rows = lm_setup
+        run = lambda donate: _lm_donation_run(params, rows, donate, window)
+    else:
+        _, params, imgs, lbls = image_setup
+        run = lambda donate: _image_donation_run(params, imgs, lbls, donate,
+                                                 window)
+    _assert_undonated(run(True), run(False))
+
+
+@pytest.mark.parametrize("engine", ["lm", "image"])
+def test_trainers_fit_under_donate_false(tmp_path, clean_plan_globals,
+                                         engine):
+    """``LMTrainer`` and ``Trainer`` on a plan file with ``donate=False``
+    fit without raising and leave their first state as it was, and their
+    per-step losses and final parameters are bit-equal to the same plan's
+    with ``donate=True``."""
+    from tpu_dist_torch.configs import LMConfig, TrainConfig
+    from tpu_dist_torch.engine.lm_loop import LMTrainer
+    from tpu_dist_torch.engine.loop import Trainer
+
+    out = {}
+    for donate in (True, False):
+        path = tmp_path / f"plan-{donate}.json"
+        path.write_text(Plan(engine=engine, donate=donate).to_json())
+        ledger = tmp_path / f"run-{donate}.jsonl"
+        if engine == "lm":
+            t = LMTrainer(LMConfig(
+                seq_len=32, vocab_size=64, num_layers=1, d_model=32,
+                num_heads=4, batch_size=8, synth_tokens=3000, epochs=1,
+                max_steps=3, ledger_path=str(ledger), watchdog_factor=0,
+                seed=0, plan=str(path)), device="cpu")
+        else:
+            t = Trainer(TrainConfig(
+                dataset="synthetic", arch="lenet", batch_size=32,
+                synth_train_size=96, synth_val_size=32, epochs=1, seed=0,
+                watchdog_factor=0, data=str(tmp_path / "no-data"),
+                plan=str(path), ledger_path=str(ledger)), device="cpu")
+        assert t.compiled.plan.donate is donate
+        first = t.state
+        saved = [p.detach().clone() for p in first.params]
+        t.fit()
+        losses = [r["loss"] for r in read_ledger(str(ledger))
+                  if r["event"] == "step"]
+        assert losses
+        # the trainer's first state: stepped in place, or left as it was
+        assert (t.state is first) is donate
+        assert first.step == (t.state.step if donate else 0)
+        assert _bit_equal(first.params, saved) is not donate
+        out[donate] = (losses, [p.detach().clone()
+                                for p in t.state.params])
+    assert out[False][0] == out[True][0]
+    assert _bit_equal(out[False][1], out[True][1])
 
 
 # ---- the trainers' plan knob ----------------------------------------------

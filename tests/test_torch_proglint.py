@@ -207,7 +207,7 @@ def test_pl003_rebinding_update_trips_in_place_is_clean(kind, trips):
     assert _checks(fs) == (["PL003"] if trips else [])
     if trips:
         assert "rebinds 1 of" in fs[0].message and "b" in fs[0].message
-    # donate=False (refused by the plan lowering) checks nothing
+    # donate=False (the step writes copies of the state) checks nothing
     assert pc.audit_program("train_step", step, state, state=state,
                             donate=False) == []
 

@@ -44,11 +44,29 @@
 // rounded p and ds tiles to shared memory and accumulating a 4 x D/16 slice
 // of dk and dv from them.
 //
-// Head dims (head_dim.cuh): both dtypes at D = 16, 32, 64 and 128, the
-// head dim a compile-time constant; another multiple of 16 up to 128 runs
-// on the next instance up with the true d at run time (rows strided by
-// H * d, copies past d zero-filled, nothing stored past d), so no tensor
-// is copied or padded.
+// Head dims (head_dim.cuh): every d from 1 to 256, both dtypes. The exact
+// instances at D = 16, 32, 64, 128 and 256 (the head dim a compile-time
+// constant) run d == D on 16-byte-aligned tensors; every other d runs on
+// the general instance of the next D up (8 on 16, 24 on 32, 33 and 48 on
+// 64, 100 on 128, 136 and 200 on 256) with the true d at run time: rows
+// strided by H * d, columns past d zero in shared memory, nothing stored
+// past d, so no tensor is copied or padded. Where its rows are whole
+// 16-byte chunks on 16-byte boundaries (d a multiple of 8, the tensors
+// aligned) it copies as the exact instance does; any other row (an odd d,
+// a d not a multiple of 8, a misaligned view) runs on a third instance
+// (ANY, chosen on the host) that copies by cp_async_rows_any: 16-byte
+// cp.async for whole aligned chunks, 8- or 4-byte cp.async where the
+// source allows, byte loads for the rest, and element stores.
+//
+// At D = 256 the dk and dv accumulators would be 2 x D/2 = 256 fp32
+// registers a lane: the output columns are split into 128-column chunks
+// over the grid's z axis, each block recomputing S^T and dP^T over all of
+// d (1.5x the products) and accumulating its chunk of dk and dv, as the
+// 128 instance does; Q, dO, K and V take 199 KB of shared memory, one
+// block of 4 warps an SM. ptxas (sm_90a, on the H100 build): 242 registers
+// for the exact and the general bf16 instances, 240 with ANY, no spill. The
+// fp32 instance at 256 takes q tiles of 32 rows (K, V, Q and dO in fp32
+// fit 209 KB) and 246 registers, no spill.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -70,12 +88,19 @@ template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
 
+// q rows per tile of the fp32 instance: 32 above D = 128, so that K, V, Q
+// and dO in fp32 fit the 227 KB of shared memory
+template <int D>
+__host__ __device__ constexpr int fp32_bq() {
+  return D <= 128 ? BQ : 32;
+}
+
 template <int D>
 constexpr size_t smem_floats() {
-  return 2 * (size_t)BK * (D + 1)    // K tile, V tile
-         + 2 * (size_t)BQ * (D + 1)  // Q tile, dO tile
-         + 2 * (size_t)BQ * (BK + 1) // p (dO's type), ds (Q's type)
-         + 2 * (size_t)BQ;           // lse, delta
+  return 2 * (size_t)BK * (D + 1)             // K tile, V tile
+         + 2 * (size_t)fp32_bq<D>() * (D + 1)  // Q tile, dO tile
+         + 2 * (size_t)fp32_bq<D>() * (BK + 1) // p (dO's type), ds (Q's type)
+         + 2 * (size_t)fp32_bq<D>();           // lse, delta
 }
 
 template <typename T, int D, bool PAD>
@@ -89,15 +114,17 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(
   constexpr int DP = D + 1;
   constexpr int SP = BK + 1;
   constexpr int NJ = D / 16;  // dk/dv columns per thread
+  constexpr int BQF = fp32_bq<D>();  // q rows per tile
+  constexpr int QI = BQF / 16;       // q rows per thread of S and dP
   extern __shared__ float smem[];
   float* sK = smem;
   float* sV = sK + BK * DP;
   float* sQ = sV + BK * DP;
-  float* sG = sQ + BQ * DP;
-  float* sP = sG + BQ * DP;
-  float* sDS = sP + BQ * SP;
-  float* sLse = sDS + BQ * SP;
-  float* sDelta = sLse + BQ;
+  float* sG = sQ + BQF * DP;
+  float* sP = sG + BQF * DP;
+  float* sDS = sP + BQF * SP;
+  float* sLse = sDS + BQF * SP;
+  float* sDelta = sLse + BQF;
 
   const int bh = blockIdx.y;
   const int b = bh / H;
@@ -129,39 +156,39 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(
 
   // live q tiles: with a causal mask, none that ends before this tile's
   // first key position (kv_offset + k0)
-  const int n_qt = (Lq + BQ - 1) / BQ;
+  const int n_qt = (Lq + BQF - 1) / BQF;
   int first_qt = 0;
   if (causal) {
     const long d0 = (long)kv_offset + k0 - q_offset;  // first row that sees key k0
-    first_qt = d0 <= 0 ? 0 : (int)min((long)n_qt, d0 / BQ);
+    first_qt = d0 <= 0 ? 0 : (int)min((long)n_qt, d0 / BQF);
   }
 
   for (int qt = first_qt; qt < n_qt; ++qt) {
-    const int q0 = qt * BQ;
+    const int q0 = qt * BQF;
     __syncthreads();  // the previous tile's readers are done with sQ..sDelta
-    for (int i = tid; i < BQ * D; i += NT) {
+    for (int i = tid; i < BQF * D; i += NT) {
       const int r = i / D, c = i % D;
       const bool in = q0 + r < Lq && (!PAD || c < dh);
       sQ[r * DP + c] = in ? to_f<T>(qb[(long)(q0 + r) * rs + c]) : 0.f;
       sG[r * DP + c] = in ? to_f<T>(gb[(long)(q0 + r) * rs + c]) : 0.f;
     }
-    for (int r = tid; r < BQ; r += NT) {
+    for (int r = tid; r < BQF; r += NT) {
       const bool in = q0 + r < Lq;
       sLse[r] = in ? lse[(long)bh * Lq + q0 + r] : 0.f;
       sDelta[r] = in ? delta[(long)bh * Lq + q0 + r] : 0.f;
     }
     __syncthreads();
 
-    float s[4][4], dp[4][4];
+    float s[QI][4], dp[QI][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < QI; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
 #pragma unroll 4
     for (int d = 0; d < D; ++d) {
-      float qa[4], ga[4], ka[4], va[4];
+      float qa[QI], ga[QI], ka[4], va[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < QI; ++i) {
         qa[i] = sQ[(ty + 16 * i) * DP + d];
         ga[i] = sG[(ty + 16 * i) * DP + d];
       }
@@ -171,7 +198,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(
         va[j] = sV[(tx + 16 * j) * DP + d];
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < QI; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           s[i][j] = fmaf(qa[i], ka[j], s[i][j]);
@@ -179,7 +206,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(
         }
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < QI; ++i) {
       const int r = ty + 16 * i;  // q row of the tile
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
@@ -196,7 +223,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(
     __syncthreads();
 
 #pragma unroll 4
-    for (int r = 0; r < BQ; ++r) {
+    for (int r = 0; r < BQF; ++r) {
       float pa[4], da[4], ga[NJ], qa[NJ];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
@@ -265,8 +292,17 @@ constexpr size_t smem_bytes_mma() {
          4 * (size_t)BQ * sizeof(float);
 }
 
-template <int D, bool PAD>
-__global__ void __launch_bounds__(NTM, 2) flash_bwd_dkv_kernel_mma(
+// output columns a block accumulates: all of D up to 128; above, dk and dv
+// (2 x D/2 fp32 registers a lane) are split into 128-column chunks over
+// the grid's z axis, each block recomputing p and ds over all of D
+template <int D>
+__host__ __device__ constexpr int dkv_chunk() {
+  return D <= 128 ? D : 128;
+}
+
+template <int D, bool PAD, bool ANY>
+__global__ void __launch_bounds__(NTM, D <= 128 ? 2 : 1)
+    flash_bwd_dkv_kernel_mma(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ g,
     const float* __restrict__ lse, const float* __restrict__ delta,
@@ -279,7 +315,8 @@ __global__ void __launch_bounds__(NTM, 2) flash_bwd_dkv_kernel_mma(
   // accumulators (D/2 + D/2 fp32 registers) stay within the register budget
   constexpr int QS = D >= 128 ? 32 : 64;
   constexpr int NB = QS / 8;       // q n-tiles of S^T and dP^T
-  constexpr int ND = D / 8;        // d n-tiles of dk, dv
+  constexpr int DC = dkv_chunk<D>();  // this block's columns of dk, dv
+  constexpr int ND = DC / 8;       // d n-tiles of dk, dv
   extern __shared__ float smem[];
   __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* sV = sK + BK * RS;
@@ -292,6 +329,7 @@ __global__ void __launch_bounds__(NTM, 2) flash_bwd_dkv_kernel_mma(
   const int b = bh / H;
   const int h = bh % H;
   const int k0 = blockIdx.y * BK;
+  const int c0 = D > DC ? (int)blockIdx.z * DC : 0;  // first column of dk, dv
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
@@ -305,7 +343,10 @@ __global__ void __launch_bounds__(NTM, 2) flash_bwd_dkv_kernel_mma(
   // past dh read as zeros
   auto load_tile = [&](__nv_bfloat16* dst, const __nv_bfloat16* src, int r0,
                        int L) {
-    cp_async_rows<64, D, RS, NTM>(dst, src, rs, r0, L, tid, dh);
+    if constexpr (ANY)
+      cp_async_rows_any<64, D, RS, NTM>(dst, src, rs, r0, L, tid, dh);
+    else
+      cp_async_rows<64, D, RS, NTM>(dst, src, rs, r0, L, tid, dh);
   };
   // q tile qt into ring stage st: Q, dO, and lse, delta (zeros past Lq)
   auto load_q_tile = [&](int st, int qt) {
@@ -424,8 +465,8 @@ __global__ void __launch_bounds__(NTM, 2) flash_bwd_dkv_kernel_mma(
 #pragma unroll
         for (int j = 0; j < ND / 2; ++j) {  // d n-tiles 2j, 2j+1
           uint32_t bg[4], bq[4];
-          const int b_off =
-              (qs + kk * 16 + lane % 16) * RS + 16 * j + (lane / 16) * 8;
+          const int b_off = (qs + kk * 16 + lane % 16) * RS + c0 + 16 * j +
+                            (lane / 16) * 8;
           ldsm_x4_trans(bg, cG + b_off);
           ldsm_x4_trans(bq, cQ + b_off);
           mma_bf16_16816(acc_v[2 * j], ap, bg[0], bg[1]);
@@ -446,31 +487,27 @@ __global__ void __launch_bounds__(NTM, 2) flash_bwd_dkv_kernel_mma(
     const long off = ((long)b * Lk + key) * rs + (long)h * dh;
 #pragma unroll
     for (int j = 0; j < ND; ++j) {
-      if (PAD && 8 * j >= dh) continue;
-      *reinterpret_cast<uint32_t*>(dk + off + 8 * j + 2 * tq) =
-          pack_bf16x2(acc_k[j][2 * r], acc_k[j][2 * r + 1]);
-      *reinterpret_cast<uint32_t*>(dv + off + 8 * j + 2 * tq) =
-          pack_bf16x2(acc_v[j][2 * r], acc_v[j][2 * r + 1]);
+      const int col = c0 + 8 * j + 2 * tq;
+      store_bf16x2<PAD, ANY>(dk + off, col, dh, acc_k[j][2 * r],
+                             acc_k[j][2 * r + 1]);
+      store_bf16x2<PAD, ANY>(dv + off, col, dh, acc_v[j][2 * r],
+                             acc_v[j][2 * r + 1]);
     }
   }
 }
 
-template <int D, bool PAD>
+template <int D, bool PAD, bool ANY>
 int launch_mma(const void* q, const void* k, const void* v, const void* g,
                const void* lse, const void* delta, void* dk, void* dv, int B,
                int H, int d, int Lq, int Lk, int causal, int q_offset,
                int kv_offset, float scale, cudaStream_t stream) {
-  // 16-byte copies: every bf16 tensor must start on a 16-byte boundary
-  if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)g |
-       (uintptr_t)dk | (uintptr_t)dv) % 16)
-    return -2;
   const size_t smem = smem_bytes_mma<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel_mma<D, PAD>,
+      flash_bwd_dkv_kernel_mma<D, PAD, ANY>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(B * H, (Lk + BK - 1) / BK);
-  flash_bwd_dkv_kernel_mma<D, PAD><<<grid, NTM, smem, stream>>>(
+  dim3 grid(B * H, (Lk + BK - 1) / BK, D / dkv_chunk<D>());
+  flash_bwd_dkv_kernel_mma<D, PAD, ANY><<<grid, NTM, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(g),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -483,8 +520,8 @@ int launch_mma(const void* q, const void* k, const void* v, const void* g,
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, dO, dk and dv share it).
 // Returns the launch's cudaError_t (0 = launched); -1 for a dtype or a head
-// dim D this build has no instance for (head_dim.cuh), -2 for a bf16 tensor
-// not 16-byte aligned.
+// dim D this build has no instance for (head_dim.cuh). A bf16 tensor of any
+// alignment runs (a misaligned one on the general instance).
 extern "C" int tdt_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                  const void* g, const void* lse,
                                  const void* delta, void* dk, void* dv, int B,
@@ -493,16 +530,17 @@ extern "C" int tdt_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                  int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return with_head_dim(D, [&](auto hd) {
+    return with_head_dim(D, true, true, [&](auto hd) {
       using HD = decltype(hd);
       return launch<float, HD::value, HD::pad>(
           q, k, v, g, lse, delta, dk, dv, B, H, D, Lq, Lk, causal, q_offset,
           kv_offset, scale, s);
     });
   if (dtype == 1)
-    return with_head_dim(D, [&](auto hd) {
+    return with_head_dim(D, tdt_aligned16(q, k, v, g, dk, dv), D % 8 == 0,
+                         [&](auto hd) {
       using HD = decltype(hd);
-      return launch_mma<HD::value, HD::pad>(
+      return launch_mma<HD::value, HD::pad, HD::any>(
           q, k, v, g, lse, delta, dk, dv, B, H, D, Lq, Lk, causal, q_offset,
           kv_offset, scale, s);
     });

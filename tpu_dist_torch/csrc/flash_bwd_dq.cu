@@ -42,11 +42,27 @@
 // 256 threads, each owning a 4x4 micro-tile of S and dP and a 4 x D/16
 // slice of dq; Q, dO and one V-then-K tile in padded fp32 shared memory.
 //
-// Head dims (head_dim.cuh): both dtypes at D = 16, 32, 64 and 128, the
-// head dim a compile-time constant; another multiple of 16 up to 128 runs
-// on the next instance up with the true d at run time (rows strided by
-// H * d, copies past d zero-filled, nothing stored past d), so no tensor
-// is copied or padded.
+// Head dims (head_dim.cuh): every d from 1 to 256, both dtypes. The exact
+// instances at D = 16, 32, 64, 128 and 256 (the head dim a compile-time
+// constant) run d == D on 16-byte-aligned tensors; every other d runs on
+// the general instance of the next D up (8 on 16, 24 on 32, 33 and 48 on
+// 64, 100 on 128, 136 and 200 on 256) with the true d at run time: rows
+// strided by H * d, columns past d zero in shared memory, nothing stored
+// past d, so no tensor is copied or padded. Where its rows are whole
+// 16-byte chunks on 16-byte boundaries (d a multiple of 8, the tensors
+// aligned) it copies as the exact instance does; any other row (an odd d,
+// a d not a multiple of 8, a misaligned view) runs on a third instance
+// (ANY, chosen on the host) that copies by cp_async_rows_any: 16-byte
+// cp.async for whole aligned chunks, 8- or 4-byte cp.async where the
+// source allows, byte loads for the rest, and element stores.
+//
+// At D = 256 the dq accumulator alone is D/2 = 128 fp32 registers a lane,
+// so a k/v tile is taken 32 keys at a step (the S, dP fragments 32
+// registers instead of 64); Q, dO and the K, V rings take 198 KB of shared
+// memory, one block of 4 warps an SM. ptxas (sm_90a, on the H100 build):
+// 255 registers and 36 bytes of spill stores for the exact bf16
+// instance, 255 and 254 and none for the general one and ANY; the fp32
+// instance at 256 takes 210 KB and 128 registers.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -262,8 +278,9 @@ constexpr size_t smem_bytes_mma() {
   return (size_t)(2 * BQ + 4 * BK) * (D + 8) * sizeof(__nv_bfloat16);
 }
 
-template <int D, bool PAD>
-__global__ void __launch_bounds__(NTM, 2) flash_bwd_dq_kernel_mma(
+template <int D, bool PAD, bool ANY>
+__global__ void __launch_bounds__(NTM, D <= 128 ? 2 : 1)
+    flash_bwd_dq_kernel_mma(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ g,
     const float* __restrict__ lse, const float* __restrict__ delta,
@@ -271,7 +288,11 @@ __global__ void __launch_bounds__(NTM, 2) flash_bwd_dq_kernel_mma(
     int causal, int q_offset, int kv_offset, float scale) {
   const int dh = PAD ? d_true : D;  // the true head dim (head_dim.cuh)
   constexpr int RS = D + 8;  // padded row stride (elements)
-  constexpr int NB = BK / 8; // key n-tiles of S and dP
+  // keys per inner step: above D = 128 a k/v tile is taken 32 keys at a
+  // step, so that the S, dP fragments fit beside the D/2 fp32 registers of
+  // the dq accumulator
+  constexpr int KS = D <= 128 ? BK : 32;
+  constexpr int NB = KS / 8; // key n-tiles of S and dP
   constexpr int ND = D / 8;  // d n-tiles of dq
   extern __shared__ float smem[];
   __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem);
@@ -296,7 +317,10 @@ __global__ void __launch_bounds__(NTM, 2) flash_bwd_dq_kernel_mma(
   // past dh read as zeros
   auto load_tile = [&](__nv_bfloat16* dst, const __nv_bfloat16* src, int r0,
                        int L) {
-    cp_async_rows<64, D, RS, NTM>(dst, src, rs, r0, L, tid, dh);
+    if constexpr (ANY)
+      cp_async_rows_any<64, D, RS, NTM>(dst, src, rs, r0, L, tid, dh);
+    else
+      cp_async_rows<64, D, RS, NTM>(dst, src, rs, r0, L, tid, dh);
   };
 
   // live k/v tiles: with a causal mask, none past the diagonal of this tile
@@ -346,67 +370,73 @@ __global__ void __launch_bounds__(NTM, 2) flash_bwd_dq_kernel_mma(
     const __nv_bfloat16* cK = sK + st * BK * RS;
     const __nv_bfloat16* cV = sV + st * BK * RS;
 
-    // S = Q K^T and dP = dO V^T for this warp's 16 rows, 16 d at a step
-    float s[NB][4], dp[NB][4];
-#pragma unroll
-    for (int j = 0; j < NB; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t aq[4], ag[4];
-      const int a_off = (wr + lane % 16) * RS + kk * 16 + (lane / 16) * 8;
-      ldsm_x4(aq, sQ + a_off);
-      ldsm_x4(ag, sG + a_off);
-#pragma unroll
-      for (int j = 0; j < NB / 2; ++j) {  // key n-tiles 2j, 2j+1
-        uint32_t bk[4], bv[4];
-        const int b_off = (16 * j + lane % 8 + (lane / 16) * 8) * RS +
-                          kk * 16 + ((lane / 8) % 2) * 8;
-        ldsm_x4(bk, cK + b_off);
-        ldsm_x4(bv, cV + b_off);
-        mma_bf16_16816(s[2 * j], aq, bk[0], bk[1]);
-        mma_bf16_16816(s[2 * j + 1], aq, bk[2], bk[3]);
-        mma_bf16_16816(dp[2 * j], ag, bv[0], bv[1]);
-        mma_bf16_16816(dp[2 * j + 1], ag, bv[2], bv[3]);
-      }
-    }
-
-    // p and ds in the accumulator layout; ds overwrites dP
     const int k0 = kt * BK;
     const bool edge = k0 + BK > Lk ||
                       (causal && kv_offset + k0 + BK - 1 > q_offset + q0 + wr);
 #pragma unroll
-    for (int j = 0; j < NB; ++j)
+    for (int ks = 0; ks < BK; ks += KS) {
+      // S = Q K^T and dP = dO V^T for this warp's 16 rows and keys ks ..
+      // ks + KS - 1 of the tile, 16 d at a step
+      float s[NB][4], dp[NB][4];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e / 2;
-        bool live = true;
-        if (edge) {
-          const int key = k0 + 8 * j + 2 * tq + (e & 1);
-          live = key < Lk;
-          if (causal)
-            live = live && (kv_offset + key <= q_offset + q0 + wr + gq + 8 * r);
+      for (int j = 0; j < NB; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t aq[4], ag[4];
+        const int a_off = (wr + lane % 16) * RS + kk * 16 + (lane / 16) * 8;
+        ldsm_x4(aq, sQ + a_off);
+        ldsm_x4(ag, sG + a_off);
+#pragma unroll
+        for (int j = 0; j < NB / 2; ++j) {  // key n-tiles 2j, 2j+1
+          uint32_t bk[4], bv[4];
+          const int b_off = (ks + 16 * j + lane % 8 + (lane / 16) * 8) * RS +
+                            kk * 16 + ((lane / 8) % 2) * 8;
+          ldsm_x4(bk, cK + b_off);
+          ldsm_x4(bv, cV + b_off);
+          mma_bf16_16816(s[2 * j], aq, bk[0], bk[1]);
+          mma_bf16_16816(s[2 * j + 1], aq, bk[2], bk[3]);
+          mma_bf16_16816(dp[2 * j], ag, bv[0], bv[1]);
+          mma_bf16_16816(dp[2 * j + 1], ag, bv[2], bv[3]);
         }
-        const float p = live ? exp2_approx(s[j][e] * scale2 - lse2[r]) : 0.f;
-        dp[j][e] = p * (dp[j][e] - del[r]) * scale;
       }
 
-    // dq += bf16(ds) . K, 16 keys at a step; ds repacked as the A operand
+      // p and ds in the accumulator layout; ds overwrites dP
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t a[4];
-      a[0] = pack_bf16x2(dp[2 * kk][0], dp[2 * kk][1]);
-      a[1] = pack_bf16x2(dp[2 * kk][2], dp[2 * kk][3]);
-      a[2] = pack_bf16x2(dp[2 * kk + 1][0], dp[2 * kk + 1][1]);
-      a[3] = pack_bf16x2(dp[2 * kk + 1][2], dp[2 * kk + 1][3]);
+      for (int j = 0; j < NB; ++j)
 #pragma unroll
-      for (int j = 0; j < ND / 2; ++j) {  // d n-tiles 2j, 2j+1
-        uint32_t bk[4];
-        ldsm_x4_trans(bk, cK + (kk * 16 + lane % 16) * RS + 16 * j +
-                              (lane / 16) * 8);
-        mma_bf16_16816(acc[2 * j], a, bk[0], bk[1]);
-        mma_bf16_16816(acc[2 * j + 1], a, bk[2], bk[3]);
+        for (int e = 0; e < 4; ++e) {
+          const int r = e / 2;
+          bool live = true;
+          if (edge) {
+            const int key = k0 + ks + 8 * j + 2 * tq + (e & 1);
+            live = key < Lk;
+            if (causal)
+              live = live &&
+                     (kv_offset + key <= q_offset + q0 + wr + gq + 8 * r);
+          }
+          const float p =
+              live ? exp2_approx(s[j][e] * scale2 - lse2[r]) : 0.f;
+          dp[j][e] = p * (dp[j][e] - del[r]) * scale;
+        }
+
+      // dq += bf16(ds) . K, 16 keys at a step; ds repacked as the A operand
+#pragma unroll
+      for (int kk = 0; kk < KS / 16; ++kk) {
+        uint32_t a[4];
+        a[0] = pack_bf16x2(dp[2 * kk][0], dp[2 * kk][1]);
+        a[1] = pack_bf16x2(dp[2 * kk][2], dp[2 * kk][3]);
+        a[2] = pack_bf16x2(dp[2 * kk + 1][0], dp[2 * kk + 1][1]);
+        a[3] = pack_bf16x2(dp[2 * kk + 1][2], dp[2 * kk + 1][3]);
+#pragma unroll
+        for (int j = 0; j < ND / 2; ++j) {  // d n-tiles 2j, 2j+1
+          uint32_t bk[4];
+          ldsm_x4_trans(bk, cK + (ks + kk * 16 + lane % 16) * RS + 16 * j +
+                                (lane / 16) * 8);
+          mma_bf16_16816(acc[2 * j], a, bk[0], bk[1]);
+          mma_bf16_16816(acc[2 * j + 1], a, bk[2], bk[3]);
+        }
       }
     }
     __syncthreads();  // all warps are done with this stage before its refill
@@ -420,28 +450,23 @@ __global__ void __launch_bounds__(NTM, 2) flash_bwd_dq_kernel_mma(
     __nv_bfloat16* out = dq + ((long)b * Lq + row) * rs + (long)h * dh;
 #pragma unroll
     for (int j = 0; j < ND; ++j)
-      if (!PAD || 8 * j < dh)
-        *reinterpret_cast<uint32_t*>(out + 8 * j + 2 * tq) =
-            pack_bf16x2(acc[j][2 * r], acc[j][2 * r + 1]);
+      store_bf16x2<PAD, ANY>(out, 8 * j + 2 * tq, dh, acc[j][2 * r],
+                             acc[j][2 * r + 1]);
   }
 }
 
-template <int D, bool PAD>
+template <int D, bool PAD, bool ANY>
 int launch_mma(const void* q, const void* k, const void* v, const void* g,
                const void* lse, const void* delta, void* dq, int B, int H,
                int d, int Lq, int Lk, int causal, int q_offset,
                int kv_offset, float scale, cudaStream_t stream) {
-  // 16-byte copies: every bf16 tensor must start on a 16-byte boundary
-  if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)g |
-       (uintptr_t)dq) % 16)
-    return -2;
   const size_t smem = smem_bytes_mma<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel_mma<D, PAD>,
+      flash_bwd_dq_kernel_mma<D, PAD, ANY>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(B * H, (Lq + BQ - 1) / BQ);
-  flash_bwd_dq_kernel_mma<D, PAD><<<grid, NTM, smem, stream>>>(
+  flash_bwd_dq_kernel_mma<D, PAD, ANY><<<grid, NTM, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(g),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -454,8 +479,8 @@ int launch_mma(const void* q, const void* k, const void* v, const void* g,
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, dO and dq share it). Returns
 // the launch's cudaError_t (0 = launched); -1 for a dtype or a head dim D
-// this build has no instance for (head_dim.cuh), -2 for a bf16 tensor not
-// 16-byte aligned.
+// this build has no instance for (head_dim.cuh). A bf16 tensor of any
+// alignment runs (a misaligned one on the general instance).
 extern "C" int tdt_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 const void* g, const void* lse,
                                 const void* delta, void* dq, int B, int H,
@@ -464,16 +489,17 @@ extern "C" int tdt_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return with_head_dim(D, [&](auto hd) {
+    return with_head_dim(D, true, true, [&](auto hd) {
       using HD = decltype(hd);
       return launch<float, HD::value, HD::pad>(
           q, k, v, g, lse, delta, dq, B, H, D, Lq, Lk, causal, q_offset,
           kv_offset, scale, s);
     });
   if (dtype == 1)
-    return with_head_dim(D, [&](auto hd) {
+    return with_head_dim(D, tdt_aligned16(q, k, v, g, dq), D % 8 == 0,
+                         [&](auto hd) {
       using HD = decltype(hd);
-      return launch_mma<HD::value, HD::pad>(
+      return launch_mma<HD::value, HD::pad, HD::any>(
           q, k, v, g, lse, delta, dq, B, H, D, Lq, Lk, causal, q_offset,
           kv_offset, scale, s);
     });

@@ -41,11 +41,28 @@
 // micro-tile of S and a 4 x D/16 slice of the output per thread, K then V
 // through one padded fp32 shared buffer, S and p through shared memory.
 //
-// Head dims (head_dim.cuh): both dtypes at D = 16, 32, 64 and 128, the
-// head dim a compile-time constant; another multiple of 16 up to 128 runs
-// on the next instance up with the true d at run time (rows strided by
-// H * d, copies past d zero-filled, nothing stored past d), so no tensor
-// is copied or padded.
+// Head dims (head_dim.cuh): every d from 1 to 256, both dtypes. The exact
+// instances at D = 16, 32, 64, 128 and 256 (the head dim a compile-time
+// constant) run d == D on 16-byte-aligned tensors; every other d runs on
+// the general instance of the next D up (8 on 16, 24 on 32, 33 and 48 on
+// 64, 100 on 128, 136 and 200 on 256) with the true d at run time: rows
+// strided by H * d, columns past d zero in shared memory, nothing stored
+// past d, so no tensor is copied or padded. Where its rows are whole
+// 16-byte chunks on 16-byte boundaries (d a multiple of 8, the tensors
+// aligned) it copies as the exact instance does; any other row (an odd d,
+// a d not a multiple of 8, a misaligned view) runs on a third instance
+// (ANY, chosen on the host) that copies by cp_async_rows_any: 16-byte
+// cp.async for whole aligned chunks, 8- or 4-byte cp.async where the
+// source allows, byte loads for the rest, and element stores.
+//
+// At D = 256 Q's A fragments (D/4 = 64 registers a lane) no longer fit
+// beside the D/2 = 128 fp32 registers of the output accumulator and S's
+// 32, so they are read from shared memory by ldmatrix at each k-step (FA-2's
+// choice at 256); K and V keep their 2-stage rings: 165 KB of shared
+// memory (rows padded to 264), one block of 4 warps an SM. ptxas (sm_90a,
+// on the H100 build): 253 registers for the exact and the general bf16
+// instances, 249 with ANY, no spill; the fp32 instance at 256 takes 145
+// KB and 128 registers.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -271,8 +288,8 @@ constexpr size_t smem_bytes_mma() {
   return (size_t)(BQ + 4 * BK) * (D + 8) * sizeof(__nv_bfloat16);
 }
 
-template <int D, bool PAD>
-__global__ void __launch_bounds__(NTM, 2) flash_fwd_kernel_mma(
+template <int D, bool PAD, bool ANY>
+__global__ void __launch_bounds__(NTM, D <= 128 ? 2 : 1) flash_fwd_kernel_mma(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
     float* __restrict__ lse, int H, int d_true, int Lq, int Lk, int causal,
@@ -282,6 +299,10 @@ __global__ void __launch_bounds__(NTM, 2) flash_fwd_kernel_mma(
   constexpr int NB = BK / 8;  // key n-tiles of S
   constexpr int ND = D / 8;   // d n-tiles of the output
   constexpr int KD = D / 16;  // k-steps of S = Q K^T
+  // Q's A fragments held in registers (D/4 a lane) up to D = 128; above,
+  // beside the D/2 of the output accumulator, they are read from shared
+  // memory by ldmatrix at each k-step
+  constexpr bool QREG = D <= 128;
   extern __shared__ float smem[];
   __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* sK = sQ + BQ * RS;      // [2][BK * RS]
@@ -303,7 +324,10 @@ __global__ void __launch_bounds__(NTM, 2) flash_fwd_kernel_mma(
   // past dh read as zeros
   auto load_tile = [&](__nv_bfloat16* dst, const __nv_bfloat16* src, int r0,
                        int L) {
-    cp_async_rows<64, D, RS, NTM>(dst, src, rs, r0, L, tid, dh);
+    if constexpr (ANY)
+      cp_async_rows_any<64, D, RS, NTM>(dst, src, rs, r0, L, tid, dh);
+    else
+      cp_async_rows<64, D, RS, NTM>(dst, src, rs, r0, L, tid, dh);
   };
 
   // live k/v tiles: with a causal mask, none past the diagonal of this tile
@@ -327,10 +351,12 @@ __global__ void __launch_bounds__(NTM, 2) flash_fwd_kernel_mma(
   // this lane's rows of the C fragments: q0 + warp*16 + lane/4 (+ 8)
   const int gq = lane >> 2, tq = lane & 3;
   const int wr = warp * 16;
-  uint32_t qa[KD][4];  // Q's A fragments, held for the whole loop
+  uint32_t qa[QREG ? KD : 1][4];  // Q's A fragments (QREG: the whole loop)
+  if constexpr (QREG) {
 #pragma unroll
-  for (int kk = 0; kk < KD; ++kk)
-    ldsm_x4(qa[kk], sQ + (wr + lane % 16) * RS + kk * 16 + (lane / 16) * 8);
+    for (int kk = 0; kk < KD; ++kk)
+      ldsm_x4(qa[kk], sQ + (wr + lane % 16) * RS + kk * 16 + (lane / 16) * 8);
+  }
 
   const float scale2 = scale * LOG2E;  // exp(x scale) = 2^(x scale log2 e)
   float m[2] = {NEG_INF, NEG_INF};     // running max of the unscaled scores
@@ -360,15 +386,19 @@ __global__ void __launch_bounds__(NTM, 2) flash_fwd_kernel_mma(
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < KD; ++kk)
+    for (int kk = 0; kk < KD; ++kk) {
+      uint32_t* a = qa[QREG ? kk : 0];
+      if constexpr (!QREG)
+        ldsm_x4(a, sQ + (wr + lane % 16) * RS + kk * 16 + (lane / 16) * 8);
 #pragma unroll
       for (int j = 0; j < NB / 2; ++j) {  // key n-tiles 2j, 2j+1
         uint32_t bk[4];
         ldsm_x4(bk, cK + (16 * j + lane % 8 + (lane / 16) * 8) * RS +
                         kk * 16 + ((lane / 8) % 2) * 8);
-        mma_bf16_16816(s[2 * j], qa[kk], bk[0], bk[1]);
-        mma_bf16_16816(s[2 * j + 1], qa[kk], bk[2], bk[3]);
+        mma_bf16_16816(s[2 * j], a, bk[0], bk[1]);
+        mma_bf16_16816(s[2 * j + 1], a, bk[2], bk[3]);
       }
+    }
 
     // masks only where the tile straddles the diagonal or Lk; then p in s
     const int k0 = kt * BK;
@@ -406,29 +436,25 @@ __global__ void __launch_bounds__(NTM, 2) flash_fwd_kernel_mma(
     __nv_bfloat16* orow = out + ((long)b * Lq + row) * rs + (long)h * dh;
 #pragma unroll
     for (int j = 0; j < ND; ++j)
-      if (!PAD || 8 * j < dh)
-        *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * tq) =
-            pack_bf16x2(acc[j][2 * r] / lr, acc[j][2 * r + 1] / lr);
+      store_bf16x2<PAD, ANY>(orow, 8 * j + 2 * tq, dh, acc[j][2 * r] / lr,
+                             acc[j][2 * r + 1] / lr);
     if (tq == 0)  // a row with no live key: NEG_INF, as the plain version
       lse[(long)bh * Lq + row] =
           (m[r] <= 0.5f * NEG_INF ? NEG_INF : m[r] * scale) + logf(lr);
   }
 }
 
-template <int D, bool PAD>
+template <int D, bool PAD, bool ANY>
 int launch_mma(const void* q, const void* k, const void* v, void* out,
                void* lse, int B, int H, int d, int Lq, int Lk, int causal,
                int q_offset, int kv_offset, float scale, cudaStream_t stream) {
-  // 16-byte copies: every bf16 tensor must start on a 16-byte boundary
-  if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out) % 16)
-    return -2;
   const size_t smem = smem_bytes_mma<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel_mma<D, PAD>,
+      flash_fwd_kernel_mma<D, PAD, ANY>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(B * H, (Lq + BQ - 1) / BQ);
-  flash_fwd_kernel_mma<D, PAD><<<grid, NTM, smem, stream>>>(
+  flash_fwd_kernel_mma<D, PAD, ANY><<<grid, NTM, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
       static_cast<float*>(lse), H, d, Lq, Lk, causal, q_offset, kv_offset,
@@ -440,7 +466,8 @@ int launch_mma(const void* q, const void* k, const void* v, void* out,
 
 // dtype: 0 = float32, 1 = bfloat16. Returns the launch's cudaError_t
 // (0 = launched); -1 for a dtype or a head dim D this build has no
-// instance for (head_dim.cuh), -2 for a bf16 tensor not 16-byte aligned.
+// instance for (head_dim.cuh). A bf16 tensor of any alignment runs (a
+// misaligned one on the general instance).
 extern "C" int tdt_flash_fwd(const void* q, const void* k, const void* v,
                              void* out, void* lse, int B, int H, int Lq,
                              int Lk, int D, int causal, int q_offset,
@@ -448,16 +475,17 @@ extern "C" int tdt_flash_fwd(const void* q, const void* k, const void* v,
                              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return with_head_dim(D, [&](auto hd) {
+    return with_head_dim(D, true, true, [&](auto hd) {
       using HD = decltype(hd);
       return launch<float, HD::value, HD::pad>(
           q, k, v, out, lse, B, H, D, Lq, Lk, causal, q_offset, kv_offset,
           scale, s);
     });
   if (dtype == 1)
-    return with_head_dim(D, [&](auto hd) {
+    return with_head_dim(D, tdt_aligned16(q, k, v, out), D % 8 == 0,
+                         [&](auto hd) {
       using HD = decltype(hd);
-      return launch_mma<HD::value, HD::pad>(
+      return launch_mma<HD::value, HD::pad, HD::any>(
           q, k, v, out, lse, B, H, D, Lq, Lk, causal, q_offset, kv_offset,
           scale, s);
     });

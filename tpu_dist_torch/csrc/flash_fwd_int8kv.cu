@@ -45,11 +45,28 @@
 // shared buffer, a 4x4 score micro-tile and a 4 x D/16 output slice per
 // thread, S and p through shared memory.
 //
-// Head dims (head_dim.cuh): both dtypes at D = 16, 32, 64 and 128, the
-// head dim a compile-time constant; another multiple of 16 up to 128 runs
-// on the next instance up with the true d at run time (rows strided by
-// H * d, copies past d zero-filled, nothing stored past d), so no tensor
-// is copied or padded.
+// Head dims (head_dim.cuh): every d from 1 to 256, both dtypes. The exact
+// instances at D = 16, 32, 64, 128 and 256 (the head dim a compile-time
+// constant) run d == D on 16-byte-aligned tensors; every other d runs on
+// the general instance of the next D up (8 on 16, 24 on 32, 33 and 48 on
+// 64, 100 on 128, 136 and 200 on 256) with the true d at run time: rows
+// strided by H * d, columns past d zero in shared memory, nothing stored
+// past d, so no tensor is copied or padded. Where its rows are whole
+// 16-byte chunks on 16-byte boundaries (d a multiple of 16 for the int8
+// rows, the tensors aligned) it copies as the exact instance does; any
+// other row (an odd d, a d not a multiple of 16, a misaligned view) runs
+// on a third instance (ANY, chosen on the host) that copies by
+// cp_async_rows_any: 16-byte cp.async for whole aligned chunks, 8- or
+// 4-byte cp.async where the source allows, byte loads for the rest, and
+// element stores.
+//
+// At D = 256 q's A fragments are read from shared memory at each k-step,
+// as in flash_fwd.cu; the bf16 Q and widened K, V tiles and the int8 ring
+// take 169 KB of shared memory, one block of 4 warps an SM. ptxas (sm_90a,
+// on the H100 build): 255 registers and 84 bytes of spill stores for the
+// exact and the general bf16 instances, 72 with ANY (the hi/lo split of
+// p' adds 8 registers a k-step to the forward's); the fp32 instance takes
+// 145 KB and 126 registers.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -280,8 +297,9 @@ constexpr size_t smem_bytes_mma() {
          (size_t)4 * BK * (D + 16) + (size_t)6 * BK * sizeof(float);
 }
 
-template <int D, bool PAD>
-__global__ void __launch_bounds__(NTM, 2) flash_fwd_int8kv_kernel_mma(
+template <int D, bool PAD, bool ANY>
+__global__ void __launch_bounds__(NTM, D <= 128 ? 2 : 1)
+    flash_fwd_int8kv_kernel_mma(
     const __nv_bfloat16* __restrict__ q, const int8_t* __restrict__ k,
     const float* __restrict__ ks, const int8_t* __restrict__ v,
     const float* __restrict__ vs, __nv_bfloat16* __restrict__ out, int H,
@@ -293,6 +311,9 @@ __global__ void __launch_bounds__(NTM, 2) flash_fwd_int8kv_kernel_mma(
   constexpr int NB = BK / 8;   // key n-tiles of S
   constexpr int ND = D / 8;    // d n-tiles of the output
   constexpr int KD = D / 16;   // k-steps of S = q kq^T
+  // q's A fragments held in registers up to D = 128, read from shared
+  // memory at each k-step above (flash_fwd.cu)
+  constexpr bool QREG = D <= 128;
   extern __shared__ float smem[];
   __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* sKb = sQ + BQ * RS;   // this tile's K, widened
@@ -322,10 +343,17 @@ __global__ void __launch_bounds__(NTM, 2) flash_fwd_int8kv_kernel_mma(
   // Lk and columns past dh as zeros
   auto load_kv = [&](int kt, int st) {
     const int k0 = kt * BK;
-    cp_async_rows<64, D, RS8, NTM>(sK8 + st * BK * RS8, kb, rs, k0, Lk, tid,
-                                   dh);
-    cp_async_rows<64, D, RS8, NTM>(sV8 + st * BK * RS8, vb, rs, k0, Lk, tid,
-                                   dh);
+    if constexpr (ANY) {
+      cp_async_rows_any<64, D, RS8, NTM>(sK8 + st * BK * RS8, kb, rs, k0, Lk,
+                                         tid, dh);
+      cp_async_rows_any<64, D, RS8, NTM>(sV8 + st * BK * RS8, vb, rs, k0, Lk,
+                                         tid, dh);
+    } else {
+      cp_async_rows<64, D, RS8, NTM>(sK8 + st * BK * RS8, kb, rs, k0, Lk,
+                                     tid, dh);
+      cp_async_rows<64, D, RS8, NTM>(sV8 + st * BK * RS8, vb, rs, k0, Lk,
+                                     tid, dh);
+    }
     const int j = tid % BK;  // threads 0-63: ks, 64-127: vs
     const bool in = k0 + j < Lk;
     cp_async_4((tid < BK ? sKs8 : sVs8) + st * BK + j,
@@ -355,7 +383,10 @@ __global__ void __launch_bounds__(NTM, 2) flash_fwd_int8kv_kernel_mma(
     n_kt = lim < 0 ? 0 : min(n_kt, (int)(lim / BK) + 1);
   }
 
-  cp_async_rows<64, D, RS, NTM>(sQ, qb, rs, q0, Lq, tid, dh);
+  if constexpr (ANY)
+    cp_async_rows_any<64, D, RS, NTM>(sQ, qb, rs, q0, Lq, tid, dh);
+  else
+    cp_async_rows<64, D, RS, NTM>(sQ, qb, rs, q0, Lq, tid, dh);
   cp_async_commit();
   if (n_kt > 0) load_kv(0, 0);
   cp_async_commit();
@@ -365,10 +396,12 @@ __global__ void __launch_bounds__(NTM, 2) flash_fwd_int8kv_kernel_mma(
   // this lane's rows of the C fragments: q0 + warp*16 + lane/4 (+ 8)
   const int gq = lane >> 2, tq = lane & 3;
   const int wr = warp * 16;
-  uint32_t qa[KD][4];  // q's A fragments, held for the whole loop
+  uint32_t qa[QREG ? KD : 1][4];  // q's A fragments (QREG: the whole loop)
+  if constexpr (QREG) {
 #pragma unroll
-  for (int kk = 0; kk < KD; ++kk)
-    ldsm_x4(qa[kk], sQ + (wr + lane % 16) * RS + kk * 16 + (lane / 16) * 8);
+    for (int kk = 0; kk < KD; ++kk)
+      ldsm_x4(qa[kk], sQ + (wr + lane % 16) * RS + kk * 16 + (lane / 16) * 8);
+  }
 
   const float scale2 = scale * LOG2E;  // exp(x scale) = 2^(x scale log2 e)
   float m[2] = {NEG_INF, NEG_INF};     // running max of the unscaled scores
@@ -395,15 +428,19 @@ __global__ void __launch_bounds__(NTM, 2) flash_fwd_int8kv_kernel_mma(
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < KD; ++kk)
+    for (int kk = 0; kk < KD; ++kk) {
+      uint32_t* a = qa[QREG ? kk : 0];
+      if constexpr (!QREG)
+        ldsm_x4(a, sQ + (wr + lane % 16) * RS + kk * 16 + (lane / 16) * 8);
 #pragma unroll
       for (int j = 0; j < NB / 2; ++j) {  // key n-tiles 2j, 2j+1
         uint32_t bk[4];
         ldsm_x4(bk, sKb + (16 * j + lane % 8 + (lane / 16) * 8) * RS +
                         kk * 16 + ((lane / 8) % 2) * 8);
-        mma_bf16_16816(s[2 * j], qa[kk], bk[0], bk[1]);
-        mma_bf16_16816(s[2 * j + 1], qa[kk], bk[2], bk[3]);
+        mma_bf16_16816(s[2 * j], a, bk[0], bk[1]);
+        mma_bf16_16816(s[2 * j + 1], a, bk[2], bk[3]);
       }
+    }
 
     // column j times its key's scale; masks only where the tile straddles
     // the diagonal or Lk; then p in s, and p' = p vs (fp32) for p . V
@@ -451,28 +488,23 @@ __global__ void __launch_bounds__(NTM, 2) flash_fwd_int8kv_kernel_mma(
     __nv_bfloat16* orow = out + ((long)b * Lq + row) * rs + (long)h * dh;
 #pragma unroll
     for (int j = 0; j < ND; ++j)
-      if (!PAD || 8 * j < dh)
-        *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * tq) =
-            pack_bf16x2(acc[j][2 * r] / lr, acc[j][2 * r + 1] / lr);
+      store_bf16x2<PAD, ANY>(orow, 8 * j + 2 * tq, dh, acc[j][2 * r] / lr,
+                             acc[j][2 * r + 1] / lr);
   }
 }
 
-template <int D, bool PAD>
+template <int D, bool PAD, bool ANY>
 int launch_mma(const void* q, const void* k, const void* ks, const void* v,
                const void* vs, void* out, int B, int H, int d, int Lq, int Lk,
                int causal, int q_offset, int kv_offset, float scale,
                cudaStream_t stream) {
-  // 16-byte copies of q and the int8 values, 4-byte copies of the scales
-  if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out) % 16 ||
-      ((uintptr_t)ks | (uintptr_t)vs) % 4)
-    return -2;
   const size_t smem = smem_bytes_mma<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_int8kv_kernel_mma<D, PAD>,
+      flash_fwd_int8kv_kernel_mma<D, PAD, ANY>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(B * H, (Lq + BQ - 1) / BQ);
-  flash_fwd_int8kv_kernel_mma<D, PAD><<<grid, NTM, smem, stream>>>(
+  flash_fwd_int8kv_kernel_mma<D, PAD, ANY><<<grid, NTM, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const int8_t*>(k),
       static_cast<const float*>(ks), static_cast<const int8_t*>(v),
       static_cast<const float*>(vs), static_cast<__nv_bfloat16*>(out), H, d,
@@ -484,8 +516,9 @@ int launch_mma(const void* q, const void* k, const void* ks, const void* v,
 
 // dtype (q and out): 0 = float32, 1 = bfloat16. Returns the launch's
 // cudaError_t (0 = launched); -1 for a dtype or a head dim D this build has
-// no instance for (head_dim.cuh), -2 (bf16 q) for q, out or the int8 values not 16-byte
-// aligned or a scale tensor not 4-byte aligned.
+// no instance for (head_dim.cuh). q, out and the int8 values may have any
+// alignment (a misaligned one runs on the general instance); the fp32
+// scales, copied by 4 bytes, are 4-byte aligned as every fp32 tensor is.
 extern "C" int tdt_flash_fwd_int8kv(const void* q, const void* k,
                                     const void* ks, const void* v,
                                     const void* vs, void* out, int B, int H,
@@ -494,16 +527,17 @@ extern "C" int tdt_flash_fwd_int8kv(const void* q, const void* k,
                                     int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return with_head_dim(D, [&](auto hd) {
+    return with_head_dim(D, true, true, [&](auto hd) {
       using HD = decltype(hd);
       return launch<float, HD::value, HD::pad>(
           q, k, ks, v, vs, out, B, H, D, Lq, Lk, causal, q_offset, kv_offset,
           scale, s);
     });
   if (dtype == 1)
-    return with_head_dim(D, [&](auto hd) {
+    return with_head_dim(D, tdt_aligned16(q, k, v, out), D % 16 == 0,
+                         [&](auto hd) {
       using HD = decltype(hd);
-      return launch_mma<HD::value, HD::pad>(
+      return launch_mma<HD::value, HD::pad, HD::any>(
           q, k, ks, v, vs, out, B, H, D, Lq, Lk, causal, q_offset, kv_offset,
           scale, s);
     });

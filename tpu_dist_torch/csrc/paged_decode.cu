@@ -47,10 +47,20 @@
 //    L = sum l_s e^(m_s - M), out = sum acc_s e^(m_s - M) / max(L, 1e-30),
 //    over the row's live splits in order. No atomics anywhere, so the
 //    result is deterministic.
-// Head dims (head_dim.cuh): instances at D = 16, 32, 64 and 128; another
-// multiple of 16 up to 128 runs on the next instance up with the true d at
-// run time: the arena rows keep the model's width (stride H * d), the lanes
-// past d load nothing and add zeros, and no dim past d is stored.
+// Head dims (head_dim.cuh): every d from 1 to 256. Exact instances at D =
+// 16, 32, 64, 128 and 256 run d == D on 16-byte-aligned arenas; every
+// other d, and a misaligned arena, runs on the general instance of the
+// next D up with the true d at run time: the arena rows keep the model's
+// width (stride H * d), a lane past d loads nothing and adds zeros, and no
+// dim past d is stored. Where d is not a multiple of 16 or an arena is
+// misaligned, that instance is compiled with ANY (head_dim.cuh): the tail
+// lane's piece reads zeros past d, and a piece that is whole and aligned
+// goes by one load and any other by byte loads (load_piece). A lane's
+// piece stays PW = 16 dims (8 at D = 16), so at D = 256 a key row takes 16
+// lanes, a warp load 2 keys, a thread 8 of a split's 128: whole keys a
+// thread, as the static_assert holds; ptxas (sm_90a, on the H100 build):
+// 122 registers for the exact split kernel at 256, 16.5 KB of shared
+// memory, no spill.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -68,6 +78,26 @@ constexpr float NEG_INF = -1e30f;
 // 4 * N int8 values, loaded by one instruction (N = 4: 16 bytes)
 template <int N>
 struct alignas(4 * N) I8Words { uint32_t w[N]; };
+
+// a lane's piece of a K or V row: one 4 * N-byte load; on an instance for
+// rows of any width and alignment (ANY, head_dim.cuh) the same load where
+// all `live` bytes are there and the address is aligned, else byte loads
+// with zeros past live
+template <int N, bool ANY>
+__device__ __forceinline__ I8Words<N> load_piece(const int8_t* p, int live) {
+  if (!ANY || (live == 4 * N && reinterpret_cast<uintptr_t>(p) % (4 * N) == 0))
+    return *reinterpret_cast<const I8Words<N>*>(p);
+  I8Words<N> x;
+#pragma unroll
+  for (int t = 0; t < N; ++t) {
+    uint32_t w = 0;
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (4 * t + e < live) w |= (uint32_t)(uint8_t)p[4 * t + e] << (8 * e);
+    x.w[t] = w;
+  }
+  return x;
+}
 
 template <typename T> __device__ __forceinline__ float to_f(T x);
 template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
@@ -99,7 +129,7 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <typename T, int D, bool PAD>
+template <typename T, int D, bool PAD, bool ANY>
 __global__ void __launch_bounds__(NT) paged_split_kernel(
     const T* __restrict__ q, const int8_t* __restrict__ k,
     const float* __restrict__ ks, const int8_t* __restrict__ v,
@@ -129,8 +159,13 @@ __global__ void __launch_bounds__(NT) paged_split_kernel(
   const int w = threadIdx.x >> 5;
   const int r = lane / PIECES;
   const int c = lane % PIECES;
-  // a lane past the true head dim (PAD) loads and adds nothing
-  const bool lane_live = !PAD || c * PW < dh;
+  // the dims of this lane's piece below the true head dim (PAD): a lane
+  // past it loads and adds nothing; with ANY the tail lane's piece reads
+  // zeros past dh (without, d is a multiple of 16: pieces are whole)
+  const int live_dims = !PAD ? PW
+                        : ANY ? min(PW, max(dh - c * PW, 0))
+                              : (c * PW < dh ? PW : 0);
+  const bool lane_live = live_dims > 0;
   const long long part = (long long)bh * gridDim.x + split;
   int len = lengths[b];
   const int cap = P * page_size;
@@ -150,7 +185,7 @@ __global__ void __launch_bounds__(NT) paged_split_kernel(
   {
     const T* qr = q + (long long)bh * dh + c * PW;
 #pragma unroll
-    for (int e = 0; e < PW; ++e) qv[e] = lane_live ? to_f<T>(qr[e]) : 0.f;
+    for (int e = 0; e < PW; ++e) qv[e] = e < live_dims ? to_f<T>(qr[e]) : 0.f;
   }
   const long long rs = (long long)H * dh;   // arena row stride (bytes)
   long long row[KPT];
@@ -170,8 +205,8 @@ __global__ void __launch_bounds__(NT) paged_split_kernel(
     if (live[i]) {
       const long long off = row[i] * rs + (long long)h * dh + c * PW;
       if (lane_live) {
-        kr[i] = *reinterpret_cast<const I8Words<NWD>*>(k + off);
-        vr[i] = *reinterpret_cast<const I8Words<NWD>*>(v + off);
+        kr[i] = load_piece<NWD, ANY>(k + off, live_dims);
+        vr[i] = load_piece<NWD, ANY>(v + off, live_dims);
       }
       ksc[i] = ks[row[i] * H + h];
       vsc[i] = vs[row[i] * H + h];
@@ -264,14 +299,14 @@ __global__ void __launch_bounds__(D) paged_merge_kernel(
   out[(long long)bh * dh + d] = from_f<T>(A / fmaxf(L, 1e-30f));
 }
 
-template <typename T, int D, bool PAD>
+template <typename T, int D, bool PAD, bool ANY>
 int launch(const void* q, const void* k, const void* ks, const void* v,
            const void* vs, const void* bt, const void* lengths,
            void* part_ml, void* part_acc, void* out, int B, int H, int d,
            int P, int page_size, int n_splits, float scale,
            cudaStream_t stream) {
   const dim3 grid(n_splits, B * H);
-  paged_split_kernel<T, D, PAD><<<grid, NT, 0, stream>>>(
+  paged_split_kernel<T, D, PAD, ANY><<<grid, NT, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const int8_t*>(k),
       static_cast<const float*>(ks), static_cast<const int8_t*>(v),
       static_cast<const float*>(vs), static_cast<const int*>(bt),
@@ -290,7 +325,8 @@ int launch(const void* q, const void* k, const void* ks, const void* v,
 
 // q and out (B, 1, H, D) of dtype 0 = float32, 1 = bfloat16; k, v int8
 // arenas (N+1, page_size, H, D) and k_scale, v_scale fp32 (N+1, page_size,
-// H), 16-byte aligned; block_tables (B, P) and lengths (B,) int32; fp32
+// H), of any alignment (a misaligned arena runs on the general
+// instance); block_tables (B, P) and lengths (B,) int32; fp32
 // scratch part_ml (B, H, n_splits, 2) and part_acc (B, H, n_splits, D),
 // n_splits = ceil(P * page_size / 128). Two launches (split, merge) on
 // `stream`. Returns the first failed launch's cudaError_t (0 = both
@@ -308,17 +344,18 @@ extern "C" int tdt_paged_decode(const void* q, const void* k, const void* ks,
   if (n_splits != (keys + SPLIT - 1) / SPLIT || n_splits < 1 ||
       (long long)B * H > 65535 || keys > 0x7fffffffLL)
     return -2;
+  const bool aligned = tdt_aligned16(k, v);
   if (dtype == 0)
-    return with_head_dim(D, [&](auto hd) {
+    return with_head_dim(D, aligned, D % 16 == 0, [&](auto hd) {
       using HD = decltype(hd);
-      return launch<float, HD::value, HD::pad>(
+      return launch<float, HD::value, HD::pad, HD::any>(
           q, k, ks, v, vs, block_tables, lengths, part_ml, part_acc, out, B,
           H, D, P, page_size, n_splits, scale, s);
     });
   if (dtype == 1)
-    return with_head_dim(D, [&](auto hd) {
+    return with_head_dim(D, aligned, D % 16 == 0, [&](auto hd) {
       using HD = decltype(hd);
-      return launch<__nv_bfloat16, HD::value, HD::pad>(
+      return launch<__nv_bfloat16, HD::value, HD::pad, HD::any>(
           q, k, ks, v, vs, block_tables, lengths, part_ml, part_acc, out, B,
           H, D, P, page_size, n_splits, scale, s);
     });

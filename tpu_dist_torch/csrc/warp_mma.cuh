@@ -1,9 +1,10 @@
 // Warp-level tensor-core helpers for the bf16 and int8 kernels (sm_80
 // instructions, built for sm_90a): mma.sync m16n8k16 bf16 -> fp32 and
 // m16n8k32 s8 -> s32, ldmatrix x4 (plain and .trans), cp.async with zero
-// fill, and the register-level pieces around them (quad reductions over a
-// C-fragment row, a two-term bf16 split, int8 widening). Include after
-// <cuda_bf16.h> and <stdint.h>.
+// fill (16, 8 and 4 bytes; row copies for aligned rows and for rows of any
+// width and alignment), and the register-level pieces around them (quad
+// reductions over a C-fragment row, a two-term bf16 split, int8
+// widening). Include after <cuda_bf16.h> and <stdint.h>.
 //
 // Fragment layouts (PTX ISA, mma.m16n8k16 with .bf16 operands), with
 // g = lane >> 2 and t = lane & 3; each 32-bit register holds two bf16, the
@@ -88,11 +89,19 @@ __device__ __forceinline__ void mma_s8_16832(int c[4], const uint32_t a[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// 16 (or 4) bytes global -> shared without passing through registers;
+// 16 (8, 4) bytes global -> shared without passing through registers;
 // `bytes` below the size zero-fills the rest (0: zeros, src is not read)
 __device__ __forceinline__ void cp_async_16(void* dst, const void* src,
                                             int bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_8(void* dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
                    smem_addr(dst)),
                "l"(src), "r"(bytes)
                : "memory");
@@ -136,6 +145,72 @@ __device__ __forceinline__ void cp_async_rows(T* dst, const T* src,
     const bool in = r0 + r < L && (cols >= D || c < cols);
     cp_async_16(dst + r * RS + c, src + (in ? r0 + r : 0) * stride + c,
                 in ? 16 : 0);
+  }
+}
+
+// n (0 .. 16) bytes from src into the 16-byte shared chunk dst, the rest
+// zeros, for a source of any alignment: the widest cp.async (8 or 4 bytes)
+// that src's alignment allows for each whole piece, a zero-filling one for
+// a piece past n (src not read), and byte loads for a piece that n cuts
+// or that src's alignment rules out.
+__device__ __forceinline__ void cp_async_chunk_any(void* dst, const void* src,
+                                                   int n) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(src);
+  const int w = a % 8 == 0 ? 8 : a % 4 == 0 ? 4 : 1;
+  unsigned char* d = static_cast<unsigned char*>(dst);
+  const unsigned char* s = static_cast<const unsigned char*>(src);
+  for (int o = 0; o < 16; o += w) {
+    const int live = n - o < 0 ? 0 : (n - o > w ? w : n - o);
+    if (w > 1 && (live == w || live == 0)) {
+      if (w == 8) cp_async_8(d + o, live ? s + o : s, live);
+      else cp_async_4(d + o, live ? s + o : s, live);
+    } else {
+      for (int e = 0; e < w; ++e) d[o + e] = e < live ? s[o + e] : 0;
+    }
+  }
+}
+
+// cp_async_rows for rows of any width and alignment (head_dim.cuh's ANY
+// instances): `cols` (1 .. D) elements of each row are live. A chunk whose
+// 16 bytes are all live and whose source is 16-byte aligned takes one
+// 16-byte cp.async; a chunk past cols or past L a zero-filling one; any
+// other (the row's last partial chunk, or a misaligned source) goes by
+// cp_async_chunk_any. Everything past cols reads as zeros.
+template <int ROWS, int D, int RS, int NT, typename T>
+__device__ __forceinline__ void cp_async_rows_any(T* dst, const T* src,
+                                                  long stride, int r0, int L,
+                                                  int tid, int cols) {
+  constexpr int E = 16 / sizeof(T);  // elements per 16-byte chunk
+  constexpr int CH = D / E;          // chunks per row
+  for (int i = tid; i < ROWS * CH; i += NT) {
+    const int r = i / CH, c = (i % CH) * E;
+    const int n = r0 + r < L ? min(E, cols - c) : 0;  // live elements
+    T* d = dst + r * RS + c;
+    if (n <= 0) {
+      cp_async_16(d, src, 0);
+      continue;
+    }
+    const T* s = src + (long)(r0 + r) * stride + c;
+    if (n == E && reinterpret_cast<uintptr_t>(s) % 16 == 0)
+      cp_async_16(d, s, 16);
+    else
+      cp_async_chunk_any(d, s, n * (int)sizeof(T));
+  }
+}
+
+// row[c], row[c + 1] = bf16(lo), bf16(hi) (nearest even), c even: one
+// 32-bit store on an exact instance, and on a general one (PAD,
+// head_dim.cuh) whose rows are whole 16-byte chunks on 16-byte boundaries
+// (d even: the pair is all below d or all past it); with ANY each element
+// alone. None at or past d.
+template <bool PAD, bool ANY>
+__device__ __forceinline__ void store_bf16x2(__nv_bfloat16* row, int c,
+                                             int d, float lo, float hi) {
+  if constexpr (ANY) {
+    if (c < d) row[c] = __float2bfloat16(lo);
+    if (c + 1 < d) row[c + 1] = __float2bfloat16(hi);
+  } else if (!PAD || c < d) {
+    *reinterpret_cast<uint32_t*>(row + c) = pack_bf16x2(lo, hi);
   }
 }
 

@@ -535,6 +535,10 @@ class LMTrainer:
                                              for _, s in self._shapes],
                         param_names=[n for n, _ in self._shapes])
 
+    def _donate(self) -> bool:
+        """The resolved plan's ``donate`` (True without a plan)."""
+        return self._plan_info["plan"].donate if self._plan_info else True
+
     def _step_plan(self) -> Plan:
         """The plan this run's steps lower from: the mode's layout and
         sync, the config's step knobs and the kernel switches as they
@@ -551,7 +555,8 @@ class LMTrainer:
                     window="indexed" if self.device_data else "none",
                     steps_per_dispatch=self.k, grad_accum_steps=self.accum,
                     loss_chunk=cfg.loss_chunk, health=cfg.health,
-                    aux_weight=cfg.moe_aux_weight, **current_switches())
+                    aux_weight=cfg.moe_aux_weight, donate=self._donate(),
+                    **current_switches())
 
     def _sharded(self) -> bool:
         return self.specs is not None and any(any(s) for s in self.specs)
@@ -757,7 +762,9 @@ class LMTrainer:
         return self._to_device(inputs).long(), self._to_device(targets).long()
 
     def _step(self, inputs, targets) -> Dict[str, torch.Tensor]:
-        return self.compiled.step(self.state, inputs, targets)
+        self.state, m = self.compiled.advance(self.compiled.step, self.state,
+                                              inputs, targets)
+        return m
 
     def _step_flops(self) -> float:
         if self._flops_per_step is None:
@@ -937,8 +944,10 @@ class LMTrainer:
         (B, L+1) rows from the resident matrix by ``idx_window[j]`` and
         shifts them on the device. Returns the metric sums over the K
         steps (the plan's indexed window)."""
-        return self.compiled.train_step(self.state, self._train_rows_dev,
-                                        idx_window)
+        self.state, m = self.compiled.advance(
+            self.compiled.train_step, self.state, self._train_rows_dev,
+            idx_window)
+        return m
 
     def _train_epoch_windowed(self, epoch: int) -> Dict[str, float]:
         """K-steps-per-dispatch epoch over device-resident rows (``:872``):

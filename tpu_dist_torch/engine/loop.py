@@ -541,6 +541,10 @@ class Trainer:
         return torch.Generator(device=self.device).manual_seed(
             fold_seed(self.seed, gstep, self.data_rank))
 
+    def _donate(self) -> bool:
+        """The resolved plan's ``donate`` (True without a plan)."""
+        return self._plan_info["plan"].donate if self._plan_info else True
+
     def _step_plan(self) -> Plan:
         """The plan this run's steps lower from: the mesh's layout, the
         variant's sync (the ring's collectives are explicit in either), the
@@ -558,10 +562,13 @@ class Trainer:
                     window=("indexed" if self.device_data else
                             "stacked" if self.k > 1 else "none"),
                     steps_per_dispatch=self.k, grad_accum_steps=self.accum,
-                    health=cfg.health, **current_switches())
+                    health=cfg.health, donate=self._donate(),
+                    **current_switches())
 
     def _step(self, images, labels, gstep: int) -> Dict[str, torch.Tensor]:
-        return self.compiled.step(self.state, images, labels, gstep)
+        self.state, m = self.compiled.advance(self.compiled.step, self.state,
+                                              images, labels, gstep)
+        return m
 
     def _flops(self) -> float:
         if self._flops_per_image is None:
@@ -745,11 +752,11 @@ class Trainer:
             was_cold = not self._warmed
 
             def window(payload=payload, gstep=gstep):
-                if self.device_data:     # the plan's indexed window
-                    return self.compiled.train_step(
-                        self.state, images_all, labels_all, payload, gstep)
-                return self.compiled.train_step(    # stacked
-                    self.state, payload[0], payload[1], gstep)
+                args = ((images_all, labels_all, payload) if self.device_data
+                        else (payload[0], payload[1]))    # indexed | stacked
+                self.state, m = self.compiled.advance(
+                    self.compiled.train_step, self.state, *args, gstep)
+                return m
 
             sums, dispatch_s, warmed = self._dispatch(
                 gstep, "window_step", window, t_epoch, n, (payload,))

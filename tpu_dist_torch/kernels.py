@@ -51,17 +51,25 @@ LOCAL_INCLUDE = re.compile(r'^#include "([\w.]+)"$', re.M)
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 # The head dims of the five attention kernels, the rule of
-# csrc/head_dim.cuh: a multiple of 16 from 16 to 128, run on the smallest
-# of these instances at or above it (the true head dim passed at run time
-# where it is smaller). The C entries return -1 for anything else.
-HEAD_DIM_INSTANCES = (16, 32, 64, 128)
-HEAD_DIM_RULE = "a multiple of 16 from 16 to 128"
+# csrc/head_dim.cuh: every d from 1 to 256, as the reference's kernels take
+# each head's whole d as one block. Each source compiles instances at these
+# head dims: the exact one runs d equal to it on tensors that start on a
+# 16-byte boundary; the general one runs every other d up to it (8 on 16,
+# 24 on 32, 33 and 48 on 64, 100 on 128, 136 and 200 on 256) with the true
+# d at run time, zeros past d in shared memory and nothing stored past d,
+# so no tensor is copied or padded. Rows that are not whole 16-byte chunks
+# on 16-byte boundaries (an odd d, a misaligned view) run on a third
+# tensor-core instance that copies them by narrower cp.async or byte
+# loads. Above 256 a head's output accumulators outgrow a warp's registers
+# in every design here; the C entries return -1 for d < 1 or d > 256.
+HEAD_DIM_INSTANCES = (16, 32, 64, 128, 256)
+HEAD_DIM_RULE = "every head dim from 1 to 256"
 
 
 def head_dim_instance(d: int) -> Optional[int]:
     """The compiled head dim that runs head dim ``d``, or None where no
     instance does (``csrc/head_dim.cuh``'s ``tdt_head_dim_instance``)."""
-    if d < 16 or d > 128 or d % 16:
+    if d < 1 or d > HEAD_DIM_INSTANCES[-1]:
         return None
     return min(i for i in HEAD_DIM_INSTANCES if i >= d)
 
@@ -71,9 +79,9 @@ def check_head_dim(kernel: str, d: int) -> int:
     rule where no instance runs it."""
     inst = head_dim_instance(d)
     if inst is None:
-        raise ValueError(f"{kernel}: head_dim {d} is not {HEAD_DIM_RULE} "
-                         "(the rule of csrc/head_dim.cuh; no kernel "
-                         "instance runs it)")
+        raise ValueError(f"{kernel}: head_dim {d} is refused: the kernels "
+                         f"take {HEAD_DIM_RULE} (the rule of "
+                         "csrc/head_dim.cuh; no kernel instance runs it)")
     return inst
 
 # the entries a source exposes beyond its one-call kernel, each counted by

@@ -29,10 +29,12 @@ behind it, so there is no kernel to port; it launches none.
 A call that autograd would not differentiate (serving runs under
 ``torch.inference_mode()``) skips the Function and saves nothing.
 
-The bf16 instances copy their tiles with 16-byte ``cp.async``, so every
-bf16 (and int8) tensor they read or write must start on a 16-byte
-boundary: the checks raise ``ValueError`` for one that does not (a view
-at an odd element offset), and the C entries return -2 as a last guard.
+Every head dim from 1 to 256 runs (``kernels.HEAD_DIM_RULE``, the rule
+of ``csrc/head_dim.cuh``), on tensors of any alignment: a view at an odd
+element offset, or a head dim whose rows are not a whole number of
+16-byte chunks, runs on the general instance, which copies such rows by
+narrower ``cp.async`` or byte loads. Nothing is copied or padded on the
+host.
 """
 
 from __future__ import annotations
@@ -137,29 +139,8 @@ def flash_forward_plain(q, k, v, causal: bool = True, q_offset: int = 0,
     return out, lse
 
 
-ALIGN_BYTES = 16  # the bf16 instances' cp.async copies
-
-
-def _check_aligned(kernel: str, nbytes: int = ALIGN_BYTES, **tensors):
-    """Raise ``ValueError`` naming the first of the named ``tensors`` whose
-    data does not start on an ``nbytes`` boundary: the kernel copies it with
-    ``nbytes``-byte ``cp.async``."""
-    for name, t in tensors.items():
-        if t.data_ptr() % nbytes:
-            raise ValueError(f"{kernel}: {name} ({t.dtype}, "
-                             f"{tuple(t.shape)}) does not start on a "
-                             f"{nbytes}-byte boundary (its address % "
-                             f"{nbytes} = {t.data_ptr() % nbytes}); the "
-                             f"kernel copies it with {nbytes}-byte cp.async "
-                             "and takes a view at such an offset only as a "
-                             "copy (.clone())")
-
-
 def _launch_error(kernel: str, err: int) -> RuntimeError:
     """The wrappers' error for a nonzero C entry code."""
-    if err == -2:
-        return RuntimeError(f"{kernel} kernel refused a tensor that is not "
-                            f"{ALIGN_BYTES}-byte aligned (code -2)")
     if err == -1:
         return RuntimeError(f"{kernel} kernel has no instance for this "
                             "dtype and head_dim (code -1)")
@@ -183,8 +164,6 @@ def _check_flash(q, k, v):
         raise ValueError("flash kernel: empty q or k/v")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash kernel: q, k, v must be contiguous")
-    if q.dtype == torch.bfloat16:
-        _check_aligned("flash kernel", q=q, k=k, v=v)
 
 
 _FLASH_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
@@ -285,10 +264,6 @@ def _check_backward(q, k, v, out, lse, g):
         if t.device != q.device or not t.is_contiguous():
             raise ValueError("flash backward: out, lse, dO must be "
                              "contiguous on q's device")
-    if q.dtype == torch.bfloat16:
-        _check_aligned("flash backward", out=out, dO=g)
-        # lse and delta go by 4-byte copies
-        _check_aligned("flash backward", 4, lse=lse)
 
 
 def _bwd_common(q, k, causal, q_offset, kv_offset, stream):
@@ -456,10 +431,6 @@ def _check_int8kv(q, kq, ks, vq, vs):
         raise ValueError("flash int8-KV kernel: empty q or K/V")
     if not all(t.is_contiguous() for t in (q, kq, ks, vq, vs)):
         raise ValueError("flash int8-KV kernel: inputs must be contiguous")
-    if q.dtype == torch.bfloat16:
-        _check_aligned("flash int8-KV kernel", q=q, k=kq, v=vq)
-        # the scales go by 4-byte copies
-        _check_aligned("flash int8-KV kernel", 4, k_scale=ks, v_scale=vs)
 
 
 _INT8KV_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8

@@ -277,10 +277,6 @@ def _check_blocks(q, k, ks, v, vs, block_tables, lengths):
         raise ValueError("paged decode kernel: empty input")
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("paged decode kernel: inputs must be contiguous")
-    for name, t in (("k", k), ("v", v)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"paged decode kernel: {name} must start on a "
-                             f"16-byte boundary (pass a .clone())")
 
 
 # tdt_paged_decode(q, k, ks, v, vs, block_tables, lengths, part_ml,

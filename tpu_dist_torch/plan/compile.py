@@ -17,10 +17,18 @@ an index window, ``stacked`` over K host-fed batches, with the metric sums
 added up on the device. It adds no second copy of step logic; both
 trainers take their steps from here.
 
-``donate`` stays in the IR for the hash: the port's steps update the train
-state in place, which is what buffer donation buys XLA (the audit's PL003
-holds them to it), so a plan with ``donate=False`` is refused by name when
-compiled.
+``donate``: the port's steps update the train state in place, which is
+what buffer donation buys XLA (the audit's PL003 holds them to it under
+``donate=True``). Under ``donate=False`` a dispatch runs on a new train
+state that copies every tensor of the caller's (parameters, optimizer
+moments, batch stats, the loss scale) and its step counter
+(:func:`_undonated`): the bound model is rebound onto the copies, the
+step writes only them, and the dispatch returns (the new state, the
+metric sums), as the reference's jitted step returns its new state. The
+caller's state object, its tensors and its ``step`` keep what they had,
+as XLA keeps an undonated input buffer; the new state is bit-equal to the
+donated step's. :meth:`CompiledPlan.advance` runs either flag's dispatch
+and gives the state after it.
 
 :func:`activate_plan` sets the plan's process-wide switches (the fused
 int8 dispatch, ``fused_quant.cu``'s tile, the optimizer kernels' rows) and
@@ -79,25 +87,32 @@ class CompiledPlan:
     ``train_step(state, images_k, labels_k, gstep)`` under ``stacked``,
     ``(state, images_all, labels_all, idx_window, gstep)`` under
     ``indexed``; ``eval_step(images, labels, valid)``. Each returns the
-    metric sums (train: summed over the window)."""
+    metric sums (train: summed over the window); under ``donate=False``
+    ``step`` and ``train_step`` return (the new state, the sums)."""
 
     def __init__(self, plan: Plan, binds: Bindings):
         _pass_validate(plan, binds)
         self.plan = plan
         self.binds = binds
-        self._step = self._train = self._eval = None
+        self._tmpl = self._step = self._train = self._eval = None
+
+    def _template(self) -> Callable:
+        if self._tmpl is None:
+            self._tmpl = (_image_step if self.plan.engine == "image"
+                          else _lm_step)(self.plan, self.binds)
+        return self._tmpl
 
     @property
     def step(self) -> Callable:
         if self._step is None:
-            self._step = (_image_step if self.plan.engine == "image"
-                          else _lm_step)(self.plan, self.binds)
+            self._step = _donation(self.plan, self.binds, self._template())
         return self._step
 
     @property
     def train_step(self) -> Callable:
         if self._train is None:
-            self._train = _window(self.plan, self.step)
+            self._train = _donation(self.plan, self.binds,
+                                    _window(self.plan, self._template()))
         return self._train
 
     @property
@@ -106,6 +121,15 @@ class CompiledPlan:
             self._eval = (_image_eval if self.plan.engine == "image"
                           else _lm_eval)(self.plan, self.binds)
         return self._eval
+
+    def advance(self, fn: Callable, state, *args):
+        """``fn`` (``step`` or ``train_step``) dispatched from ``state``:
+        (the state after it, the metric sums). Under ``donate`` that is
+        ``state`` itself, updated in place; else a new state, and
+        ``state`` is left as it was."""
+        if self.plan.donate:
+            return state, fn(state, *args)
+        return fn(state, *args)
 
 
 def compile_plan(plan: Plan, binds: Bindings) -> CompiledPlan:
@@ -121,11 +145,6 @@ def _pass_validate(plan: Plan, binds: Bindings) -> None:
     shape = {plan.data_axis: 1, **(dict(binds.mesh.shape)
                                    if binds.mesh is not None else {})}
     plan.validate_against_mesh(shape)
-    if not plan.donate:
-        raise NotImplementedError(
-            "Plan.donate=False is not ported: the port's steps update the "
-            "train state in place (what buffer donation buys XLA), and there "
-            "is no copying step to run instead")
     if plan.engine == "image" and binds.model is not None \
             and binds.transform is None and binds.tx is not None:
         raise PlanError("the image templates need a transform binding")
@@ -180,6 +199,76 @@ def _image_step(plan: Plan, b: Bindings) -> Callable:
         return image_train_step(b.model, b.tx, state, images, labels,
                                 b.transform, health, gen, accum, dp, drop)
     return step
+
+
+def _state_tensors(state) -> list:
+    """Every tensor of a train state: parameters, optimizer moments (and
+    counts), batch stats, the loss scale."""
+    scale = list(state.loss_scale) if state.loss_scale is not None else []
+    return [*state.params, *state.opt_tensors(), *state.batch_stats, *scale]
+
+
+def _copied(v):
+    """``v`` with every tensor in it copied to new storage (a Parameter
+    to a new Parameter), through lists and (named) tuples."""
+    import torch
+
+    if isinstance(v, torch.nn.Parameter):
+        return torch.nn.Parameter(v.detach().clone(), v.requires_grad)
+    if torch.is_tensor(v):
+        return v.detach().clone().requires_grad_(v.requires_grad)
+    if isinstance(v, list):
+        return [_copied(x) for x in v]
+    if isinstance(v, tuple):
+        items = [_copied(x) for x in v]
+        return type(v)(*items) if hasattr(v, "_fields") else tuple(items)
+    return v
+
+
+def _rebind(modules, old: list, new: list) -> None:
+    """Register ``new[i]`` wherever one of ``modules`` holds ``old[i]`` as
+    a parameter or buffer (every holder of a tied leaf). A leaf no module
+    holds (the fsdp shards, which the step gathers itself) is skipped."""
+    swap = {id(o): n for o, n in zip(old, new)}
+    for model in modules:
+        for mod in model.modules():
+            for table in (mod._parameters, mod._buffers):
+                for k, v in table.items():
+                    if v is not None and id(v) in swap:
+                        table[k] = swap[id(v)]
+
+
+def _undonated(b: Bindings, step: Callable) -> Callable:
+    """``step`` on a copy of the train state (``donate=False``): a new
+    ``TrainState`` with a copy of every tensor and its own step counter,
+    the bound model (and the pipeline's stage model) rebound onto the
+    copies, which the step then updates. Returns (the new state, the
+    step's metric sums); the caller's state is not touched."""
+    import torch
+
+    modules = [m for m in (b.model, getattr(b.pipe, "model", None))
+               if m is not None]
+    modules = [m for i, m in enumerate(modules) if m not in modules[:i]]
+
+    def run(state, *args):
+        with torch.no_grad():
+            new = dataclasses.replace(
+                state, params=_copied(state.params),
+                opt_state=_copied(state.opt_state),
+                batch_stats=_copied(state.batch_stats),
+                param_names=list(state.param_names),
+                stat_names=list(state.stat_names),
+                loss_scale=_copied(state.loss_scale))
+            _rebind(modules, _state_tensors(state), _state_tensors(new))
+        return new, step(new, *args)
+    return run
+
+
+def _donation(plan: Plan, b: Bindings, step: Callable) -> Callable:
+    """The plan's dispatch under its ``donate`` flag: ``step`` itself (in
+    place, the donated buffers reused), or :func:`_undonated` once a
+    dispatch (a window copies once, as XLA's program does)."""
+    return step if plan.donate else _undonated(b, step)
 
 
 # ---- pass 3: the dispatch window ------------------------------------------

@@ -119,7 +119,7 @@ class Plan:
     health: str = "record"              # obs.health policy fused into the step
     # -- objective / memory
     aux_weight: float = 0.01            # MoE aux-loss weight (lm)
-    donate: bool = True                 # the port updates state in place
+    donate: bool = True                 # in place; False: on copies
     # -- kernel tiles (fused_quant.cu; sgd.cu and adamw.cu)
     quant_block: Tuple[int, int, int] = DEFAULT_QUANT_BLOCK  # (bm, bn, bk)
     opt_block_rows: int = DEFAULT_OPT_BLOCK_ROWS

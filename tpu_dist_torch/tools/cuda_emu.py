@@ -24,7 +24,8 @@ has landed when it returns). ``atomicMax`` (unsigned) and ``atomicAdd``
 (int) are ``std::atomic_ref`` operations, ``__threadfence`` a fence,
 ``__ldcg`` a load, ``__byte_perm`` a byte select and ``cudaMemsetAsync`` a
 memset. The header's other helpers (``quad_max``, ``quad_sum``,
-``split_bf16x2``, ``widen_int8x4``, ``cp_async_rows``) are built from
+``split_bf16x2``, ``widen_int8x4``, ``cp_async_rows``,
+``cp_async_rows_any``, ``store_bf16x2``) are built from
 these and from intrinsics supplied here (``__shfl_xor_sync``,
 ``__uint_as_float``), so they run as written.
 
@@ -208,6 +209,10 @@ inline void mma_s8_16832(int c[4], const uint32_t a[4], uint32_t b0,
 }
 inline void cp_async_16(void* dst, const void* src, int bytes) {
   std::memset(dst, 0, 16);
+  if (bytes > 0) std::memcpy(dst, src, bytes);
+}
+inline void cp_async_8(void* dst, const void* src, int bytes) {
+  std::memset(dst, 0, 8);
   if (bytes > 0) std::memcpy(dst, src, bytes);
 }
 inline void cp_async_4(void* dst, const void* src, int bytes) {
