@@ -43,14 +43,16 @@ they print share the card and the host. Phases:
    times the bf16 ``torch.matmul`` of the unquantized operands), the
    int8-K/V flash forward at L=2048 (library: SDPA on the dequantized K/V).
    Rows 1-5 again at head dims 16 and 32 (their own instances), 48 (the
-   64 instance with the true head dim at run time) at 8 heads and 256 at
-   4 (P3_HEAD_DIMS), each timed beside SDPA and its bound: the flash
+   64 instance with the true head dim at run time) at 8 heads, 256 at 4
+   and 512 (the wide path) at 2 (P3_HEAD_DIMS), each timed beside SDPA
+   and its bound: the flash
    forward and the int8-K/V forward at B1 L2048, the backward pair at B8
    L2048, each also with dead rows (Lq130 Lk200, kv_offset 40), the paged
    decode at B8 Lk2048 gathered and through a shuffled block table
    (bit-equal), a row of length 0 exact zeros (``check_head_dims``). Then
-   the general instances at head dims 8, 24, 33, 100, 136, 200 and 256
-   (P3_SWEEP_DIMS) in fp32 and bf16, all five kernels at a small shape
+   the general instances at head dims 8, 24, 33, 100, 136, 200 and 256,
+   and the wide path at 257, 320, 512 and 1024 (P3_SWEEP_DIMS) in fp32
+   and bf16, all five kernels at a small shape
    with dead rows, dead keys and a length-0 paged row (exact zeros),
    every output between sentinel elements (untouched), once on the
    allocator's tensors and once on views a few elements into their
@@ -86,10 +88,11 @@ they print share the card and the host. Phases:
 
 9. the one-device training knobs at full width: (a) phase 6's LM with
    the chunked head (``loss_chunk=1024``), 4-step windows over
-   device-resident rows and a checkpoint directory: run A trains 12
-   steps, run B is interrupted after 2 windows and leaves a mid-epoch
-   checkpoint, run C resumes from it, skips 8 batches and must match A's
-   steps 9-12 (loss within LOSS_TOL; whether bit-equal is reported), with
+   device-resident rows: run A trains 12 steps, run B (the one with a
+   checkpoint directory) is interrupted after 2 windows and leaves a
+   mid-epoch checkpoint, run C resumes from it, skips 8 batches and must
+   match A's steps 9-12 (loss within LOSS_TOL; whether bit-equal is
+   reported), with
    one ``adamw`` launch per step, one flash backward pair per layer per
    step and a peak memory below phase 6's; (b) ``grad_accum_steps=2``
    for 4 steps: one ``adamw`` launch per step, 2 flash backward pairs per
@@ -136,7 +139,7 @@ they print share the card and the host. Phases:
    shape, on the host) (ZOO_SWEEP, 12 archs: the
    published parameter counts; one bf16 ``fused_sgd`` step at batch 8,
    224 px, 299 for inception_v3, with a finite loss and one ``sgd``
-   launch), then the same archs on the
+   launch), then, in that process after the sweep, the same archs on the
    card against the CPU in fp32 (ZOO_FAMILIES: the eval loss, and the
    train-mode loss where no dropout draws, within LOSS_TOL (1 + |loss|);
    int8 within twice the CPU's own spread under one-ulp input moves plus
@@ -310,8 +313,8 @@ they print share the card and the host. Phases:
    (M = 16,384) and a decode tick's lm_head, for every instantiated tile
    at bk 0 and 512: bit-equal to the plain version and to the default
    tile, each timed (CUDA-event medians of 20 behind a device sleep), and
-   an IR-legal tile outside the set (8, 128, 0) refused naming
-   ``quant_block``; ``sgd`` over ResNet-50's 161 leaves and ``adamw`` over
+   a tile the plan IR refuses (bm 12) refused by the IR with its message
+   (every tile it accepts runs: phase 23d); ``sgd`` over ResNet-50's 161 leaves and ``adamw`` over
    the LM's 85 at ``opt_block_rows`` 8, 512 and 1024: within FP32_TOL
    (1 + |plain|) of the plain version, bit-equal across the values, each
    timed; (d) the image ``Trainer`` with ``plan="auto"`` on ResNet-50 at
@@ -403,6 +406,19 @@ they print share the card and the host. Phases:
    ``paged_decode``; (c) tiny fp32 LMs at head dims 24 and 256
    (P22_TWINS) served on the card and on the CPU with equal greedy
    tokens, and trained 5 steps on both within LOSS_TOL (1 + |loss|).
+23. two heads of 512, every attention kernel on the wide path (head dims
+   above 256: 128-column output chunks over the grid's z axis, the scores
+   summed over d in slices streamed through shared memory), and
+   ``fused_quant`` at tiles outside its compiled ones: (a) phase 6's LM
+   with 2 heads (the reference's ``LMConfig(d_model=1024, num_heads=2)``,
+   ``bench.py`` with ``BENCH_HEADS=2``) for P23_STEPS steps, as 22a, with
+   its step time and peak memory beside phase 6's; (b) ``ServeEngine`` on
+   that geometry serving phase 5's 16 requests, as 22b; (c) tiny fp32 LMs
+   at head dims 320 and 1024 (P23_TWINS), as 22c; (d) ``fused_quant`` at
+   the IR-legal tiles P23_TILES (the general instance: the tile a run-time
+   parameter, walked in 64 x 128 sub-tiles) at phase 17c's prefill shapes
+   and a ragged one (P23_QUANT_SHAPES): bit-equal to the default tile and
+   to the plain version, each timed beside the default 128 x 128.
 
 Each phase's seconds print as it ends ("phase N took"), the parts of
 phases 9 and 11 and each rank group's jobs too, and all of them together
@@ -1296,8 +1312,9 @@ def time_int8kv(torch, F, rec, q, kv):
 
 # phase 3's timed head dims, (d, heads): the instances at 16 and 32
 # (tiny_lm, LMConfig) and 48 on the 64 instance with the true head dim at
-# run time, at 8 heads; the 256 instance at phase 22's 4 heads
-P3_HEAD_DIMS = ((16, 8), (32, 8), (48, 8), (256, 4))
+# run time, at 8 heads; the 256 instance at phase 22's 4 heads; the wide
+# path at phase 23's 2 heads of 512
+P3_HEAD_DIMS = ((16, 8), (32, 8), (48, 8), (256, 4), (512, 2))
 # kernel vs plain version, fp32 attention outputs: the SIMT instances'
 # fp32 sums against PyTorch's, summation order alone
 ATTN_FP32_TOL = 1e-5
@@ -1306,10 +1323,12 @@ ATTN_FP32_TOL = 1e-5
 # odd (33) and not a multiple of 8 (100), and the 256 instance itself,
 # each in fp32 and bf16, once on the allocator's tensors and once on views
 # P3_MISALIGN[d] elements into their buffers (outputs too): byte loads,
-# 4- and 8-byte cp.async
-P3_SWEEP_DIMS = (8, 24, 33, 100, 136, 200, 256)
+# 4- and 8-byte cp.async; and the wide path above 256: an odd d (257), a
+# d not a multiple of 128 (320), 512 and 1024
+P3_SWEEP_DIMS = (8, 24, 33, 100, 136, 200, 256, 257, 320, 512, 1024)
 P3_SWEEP_SHAPE = (2, 130, 200, 4, 40)   # B, Lq, Lk, H, kv_offset
-P3_MISALIGN = {8: 1, 24: 2, 33: 1, 100: 4, 136: 1, 200: 2, 256: 4}
+P3_MISALIGN = {8: 1, 24: 2, 33: 1, 100: 4, 136: 1, 200: 2, 256: 4, 257: 1,
+               320: 4, 512: 2, 1024: 1}
 GUARD = 256        # elements past (and P3_MISALIGN before) every output,
 SENTINEL = -4096.0  # SENTINEL before a launch and after it
 
@@ -1995,7 +2014,9 @@ def lm_windows_resume(torch, kernels, base):
     """9a: 4-step windows over device-resident rows, the chunked head and a
     step-exact mid-epoch resume. Run A trains 12 steps; run B is cut by a
     KeyboardInterrupt after 2 windows and leaves a mid-epoch checkpoint;
-    run C resumes from it to step 12. ``base`` is phase 6's record."""
+    run C resumes from it to step 12. Only B has a checkpoint dir: A's and
+    C's end-of-epoch checkpoints (2 GB each) would be read by nothing.
+    ``base`` is phase 6's record."""
     from tpu_dist_torch.engine import checkpoint as ckpt
     from tpu_dist_torch.engine.lm_loop import LMTrainer
 
@@ -2006,7 +2027,7 @@ def lm_windows_resume(torch, kernels, base):
             return full_lm_config(
                 loss_chunk=1024, steps_per_dispatch=k,
                 data_placement="device", max_steps=steps, print_freq=k,
-                checkpoint_dir=os.path.join(tmp, name),
+                checkpoint_dir=os.path.join(tmp, name) if name == "b" else "",
                 ledger_path=os.path.join(tmp, name + ".jsonl"), **kw)
 
         torch.cuda.reset_peak_memory_stats()
@@ -2317,6 +2338,9 @@ def dp_job(torch, kernels, job, out, rank):
     if kind == "zoo11":
         sweep, sgd = zoo_sweep(torch, kernels, job["archs"], device=device)
         return {"sweep": sweep, "sgd": sgd}
+    if kind == "zoo11_agree":     # its CPU side wants more than 2 threads
+        torch.set_num_threads(4)
+        return zoo_agreement(torch)
     if kind == "image13":
         return p13_image_job(torch, kernels, job, out, rank)
     if kind == "decode13":
@@ -4088,7 +4112,7 @@ P14_SERVE = dict(max_slots=2, page_size=64, num_pages=192, kv_quant="int8",
                  attn_read="flash")
 P14_THRESHOLD = 4096
 P14_PROMPTS = (8000, 200)
-P14_OUT = 32
+P14_OUT = 16       # tokens decoded a request (32 before PR 23's cut)
 # the bf16 run against one rank's sp engine: each prefill's first-token
 # logits within P14_BF16_LOGIT_TOL (1 + |x|) and the same argmax, and
 # every greedy token equal. Ring attention's fp32 online softmax rounds
@@ -5704,7 +5728,7 @@ def p17_lm(torch, kernels, tmp, plan_path, device):
 def p17_quant_sweep(torch):
     """17c, fused_quant: every instantiated tile at bk 0 and 512 on
     P17_QUANT_SHAPES, bit-equal to the plain version and to the default
-    tile, timed; an IR-legal tile outside the set refused by name."""
+    tile, timed; a tile the plan IR refuses refused by the IR."""
     from tpu_dist_torch.ops import pallas_quant as pq
 
     own = torch.Generator(device="cuda").manual_seed(SEED + 17)
@@ -5745,16 +5769,16 @@ def p17_quant_sweep(torch):
             recs[label] = row
             del x, w, default
             free_device(torch)
-        pq.set_quant_blocks(8, 128, 0)      # IR-legal, not instantiated
-        x = torch.randn((32, 128), device="cuda", dtype=torch.bfloat16)
+        from tpu_dist_torch.plan.ir import PlanError
+
         try:
-            pq.fused_quant_cuda(x, x.t().contiguous())
-        except NotImplementedError as e:
-            if "quant_block" not in str(e):
+            pq.set_quant_blocks(12, 128, 0)  # bm not a multiple of 8
+        except PlanError as e:
+            if "quant_block bm=12" not in str(e):
                 raise
             refusal = str(e)
         else:
-            raise AssertionError("17c: tile (8, 128, 0) was not refused")
+            raise AssertionError("17c: tile (12, 128, 0) was not refused")
     finally:
         pq.set_quant_blocks()
     return {"shapes": recs, "bit_equal": "every tile and bk, to the plain "
@@ -6988,14 +7012,14 @@ P22_STEPS = 10
 P22_TWINS = {"head_dim_24": (48, 2), "head_dim_256": (512, 2)}
 
 
-def p22_twins(torch, kernels):
-    """22c: tiny fp32 LMs at head dims 24 and 256 (P22_TWINS), each served
-    on the card and on the CPU (equal greedy tokens, phase 4's requests)
-    and trained 5 steps on both (losses within LOSS_TOL (1 + |loss|)),
-    the card's runs through the kernels. Returns (record, launches by
-    run)."""
+def p22_twins(torch, kernels, twins=P22_TWINS, tag="22c"):
+    """22c: tiny fp32 LMs at head dims 24 and 256 (P22_TWINS; ``twins``),
+    each served on the card and on the CPU (equal greedy tokens, phase 4's
+    requests) and trained 5 steps on both (losses within LOSS_TOL (1 +
+    |loss|)), the card's runs through the kernels. Returns (record,
+    launches by run)."""
     recs, by_run = {}, {}
-    for name, (d_model, heads) in P22_TWINS.items():
+    for name, (d_model, heads) in twins.items():
         kernels.reset_launches()
         n = small_input_agreement(torch, d_model=d_model, num_heads=heads)
         serve = dict(kernels.LAUNCHES)
@@ -7004,7 +7028,7 @@ def p22_twins(torch, kernels):
         fit = dict(kernels.LAUNCHES)
         if not (serve["flash_fwd"] and serve["paged_decode"]
                 and fit["flash_bwd_dq"] and fit["flash_bwd_dkv"]):
-            raise AssertionError(f"22c {name}: launches serve {serve}, "
+            raise AssertionError(f"{tag} {name}: launches serve {serve}, "
                                  f"train {fit}")
         recs[name] = {"d_model": d_model, "heads": heads,
                       "head_dim": d_model // heads,
@@ -7015,8 +7039,8 @@ def p22_twins(torch, kernels):
                           "train": {k: fit[k] for k in (
                               "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
                               "adamw")}}}
-        by_run[f"p22c_{name}_serve"] = serve
-        by_run[f"p22c_{name}_train"] = fit
+        by_run[f"p{tag}_{name}_serve"] = serve
+        by_run[f"p{tag}_{name}_train"] = fit
     return recs, by_run
 
 
@@ -7033,6 +7057,88 @@ def wide_heads_path(torch, kernels):
     return {"a_training": training, "b_serving": serving,
             "c_fp32_twins": twins}, \
         {"p22a_training": train_launches, "p22b_serving": serve_launches,
+         **twin_launches}
+
+
+# the LM of phases 5 and 6 with 2 heads instead of 8, so each head is 512
+# wide (the reference's LMConfig(vocab_size=32000, num_layers=8,
+# d_model=1024, num_heads=2, seq_len=2048), bench.py with BENCH_HEADS=2):
+# the same parameters, every attention kernel on the wide path
+P23_HEADS = 2
+P23_STEPS = 10
+# 23c: the fp32 twins, (d_model, heads) at head dims 320 and 1024
+P23_TWINS = {"head_dim_320": (640, 2), "head_dim_1024": (1024, 1)}
+# 23d: IR-legal fused_quant tiles outside TDT_FQ_TILES (bm 8 and 24 cut an
+# m16 fragment; bk 128 and 256 split K), at phase 17c's prefill shapes and
+# a ragged one
+P23_TILES = ((8, 128, 0), (24, 384, 0), (64, 128, 0), (192, 256, 128),
+             (512, 128, 0), (128, 640, 256))
+P23_QUANT_SHAPES = {**{k: v for k, v in P17_QUANT_SHAPES.items()
+                       if v[0] > 16},
+                    "ragged": (1000, 1000, 1000)}
+
+
+def p23_quant_tiles(torch, tiles=P23_TILES, shapes=P23_QUANT_SHAPES):
+    """23d: ``fused_quant`` at each tile of ``tiles`` on each shape of
+    ``shapes`` (bf16), bit-equal to the default tile and to the plain
+    version, timed beside the default 128 x 128 and the bf16
+    ``torch.matmul`` of the unquantized operands (the yardstick; no one
+    PyTorch call computes the kernel's function)."""
+    from tpu_dist_torch.ops import pallas_quant as pq
+
+    own = torch.Generator(device="cuda").manual_seed(SEED + 23)
+    recs = {}
+    try:
+        for label, (m, k, n) in shapes.items():
+            x = torch.randn((m, k), generator=own, device="cuda").to(
+                torch.bfloat16)
+            w = (torch.randn((k, n), generator=own, device="cuda")
+                 / math.sqrt(k)).to(torch.bfloat16)
+            ref = pq.fused_quant_matmul_plain(x, w)
+            pq.set_quant_blocks()
+            default = pq.fused_quant_cuda(x, w)
+            if not torch.equal(default, ref):
+                raise AssertionError(f"23d {label}: the default tile is not "
+                                     "bit-equal to the plain version")
+            del ref
+            row = {"shape": f"M{m} K{k} N{n} bf16",
+                   "ms_default_128x128": time_ms(
+                       torch, lambda: pq.fused_quant_cuda(x, w)),
+                   "yardstick_ms": time_ms(torch, lambda: x @ w),
+                   "ms": {}}
+            for tile in tiles:
+                pq.set_quant_blocks(*tile)
+                out = pq.fused_quant_cuda(x, w)
+                if not torch.equal(out, default):
+                    raise AssertionError(f"23d {label} tile {tile}: not "
+                                         "bit-equal to the default tile")
+                del out
+                row["ms"]["x".join(map(str, tile[:2])) + f"/bk{tile[2]}"] = \
+                    time_ms(torch, lambda: pq.fused_quant_cuda(x, w))
+            pq.set_quant_blocks()
+            recs[label] = row
+            del x, w, default
+            free_device(torch)
+    finally:
+        pq.set_quant_blocks()
+    return {"shapes": recs, "bit_equal": "every tile, to the default "
+            "128x128/bk0 and to the plain version"}
+
+
+def wide_path(torch, kernels):
+    """Phase 23 (module docstring): 23a phase 6's run and 23b phase 5's
+    with P23_HEADS heads, 23c the twins, 23d the fused_quant tiles.
+    Returns (record, launches by run)."""
+    training, train_launches = training_path(torch, kernels, P23_STEPS,
+                                             num_heads=P23_HEADS)
+    free_device(torch)
+    serving, serve_launches = main_path(torch, kernels, P23_HEADS)[:2]
+    free_device(torch)
+    twins, twin_launches = p22_twins(torch, kernels, P23_TWINS, "23c")
+    tiles = p23_quant_tiles(torch)
+    return {"a_training": training, "b_serving": serving,
+            "c_fp32_twins": twins, "d_fused_quant_tiles": tiles}, \
+        {"p23a_training": train_launches, "p23b_serving": serve_launches,
          **twin_launches}
 
 
@@ -7226,14 +7332,14 @@ def main():
     log(f"phase 10 data parallelism: {json.dumps(dp)} on {card}")
     took(10)
 
-    # 11. the image side on one card; 11c's sweep in a process of its own
-    # beside 11a-d (its seconds are cuDNN's first build of each conv shape,
-    # on the host)
+    # 11. the image side on one card; 11c's sweep, then its card-vs-CPU
+    # check, in a process of its own beside 11a, 11b and 11d (the sweep's
+    # seconds are cuDNN's first build of each conv shape, on the host)
     free_device(torch)
     sweep_dir = tempfile.TemporaryDirectory()
     sweep_group = DpGroup("p11c_sweep", 1, "cuda", "gloo", [
-        {"name": "sweep", "kind": "zoo11", "archs": ZOO_SWEEP}],
-        sweep_dir.name)
+        {"name": "sweep", "kind": "zoo11", "archs": ZOO_SWEEP},
+        {"name": "agree", "kind": "zoo11_agree"}], sweep_dir.name)
     try:
         s6, s6_launches = script6_path(torch, kernels)
         log(f"phase 11a script 6: {json.dumps(s6)} on {card}")
@@ -7246,10 +7352,7 @@ def main():
             f"{json.dumps(vit_quant)} on {card}")
         took_part("11b")
         free_device(torch)
-        agree = zoo_agreement(torch)
         torch.backends.cudnn.benchmark = True
-        log(f"phase 11c zoo card-vs-CPU (fp32): {json.dumps(agree)}")
-        took_part("11c card-vs-CPU")
         folder, folder_launches = imagefolder_path(
             torch, kernels, s6["train_img_per_s_window1_excluded"])
         log(f"phase 11d ImageFolder: {json.dumps(folder)} on {card}")
@@ -7257,9 +7360,11 @@ def main():
     except BaseException:
         sweep_group.kill()
         raise
-    swept = sweep_group.wait(600)[0]["sweep"]
+    side = sweep_group.wait(600)[0]
     sweep_dir.cleanup()
-    sweep, sweep_sgd = swept["sweep"], swept["sgd"]
+    sweep, sweep_sgd = side["sweep"]["sweep"], side["sweep"]["sgd"]
+    log(f"phase 11c zoo card-vs-CPU (fp32, beside 11a-d): "
+        f"{json.dumps(side['agree'])}")
     log(f"phase 11c zoo sweep ({len(sweep)} archs, one a family, 1000 "
         f"classes, bf16 fused_sgd step at batch 8, beside 11a-d): "
         f"{json.dumps(sweep)} on {card}")
@@ -7399,10 +7504,32 @@ def main():
         f"{b['launches']['flash_fwd']}, paged_decode "
         f"{b['launches']['paged_decode']}, on {card}")
     took(22)
+
+    # 23. two heads of 512 (the wide path), fused_quant at other tiles
+    wide2, wide2_launches = wide_path(torch, kernels)
+    for part in ("a_training", "b_serving", "c_fp32_twins",
+                 "d_fused_quant_tiles"):
+        log(f"phase 23{part[0]} {part[2:]}: {json.dumps(wide2[part])} on "
+            f"{card}")
+    a, b = wide2["a_training"], wide2["b_serving"]
+    log(f"phase 23: {P23_HEADS} heads of {a['head_dim']}, training "
+        f"{a['step_ms']:.2f} ms a step (phase 6, 8 heads of 128: "
+        f"{training['step_ms']:.2f}), peak {a['peak_mem_gb']:.2f} GB "
+        f"(phase 6: {training['peak_mem_gb']:.2f}), launches a step "
+        f"{json.dumps(a['launches_per_step'])}; serving "
+        f"{b['completed']}/{b['requests']} requests, flash_fwd "
+        f"{b['launches']['flash_fwd']}, paged_decode "
+        f"{b['launches']['paged_decode']}, on {card}")
+    for label, r in wide2["d_fused_quant_tiles"]["shapes"].items():
+        log(f"phase 23d fused_quant {r['shape']}: 128x128/bk0 "
+            f"{r['ms_default_128x128']:.4f} ms (bf16 matmul "
+            f"{r['yardstick_ms']:.4f}); " + ", ".join(
+                f"{t} {ms:.4f}" for t, ms in r["ms"].items()) + f" on {card}")
+    took(23)
     dp_launches = {**dp_launches, **mp_launches, **pp_launches,
                    **rs_launches, **obs_launches, **plan_launches,
                    **fleet_launches, **audit_launches, **dropout_launches,
-                   **small_launches, **wide_launches,
+                   **small_launches, **wide_launches, **wide2_launches,
                    "script6_imagenet": s6_launches,
                    "vit_base_int8": vit8_launches,
                    "zoo_sweep": {**{k: 0 for k in kernels.SOURCES},
@@ -7510,8 +7637,8 @@ def main():
             {p: n[kname] for p, n in {**rs_launches, **obs_launches,
                                       **plan_launches, **fleet_launches,
                                       **audit_launches, **dropout_launches,
-                                      **small_launches,
-                                      **wide_launches}.items()})
+                                      **small_launches, **wide_launches,
+                                      **wide2_launches}.items()})
         if kname in head_dims:
             entry["head_dims"] = dict(zip(
                 (f"D{d}" for d, _ in P3_HEAD_DIMS), head_dims[kname]))
@@ -7552,8 +7679,8 @@ def main():
                                       **obs_launches, **plan_launches,
                                       **fleet_launches, **audit_launches,
                                       **dropout_launches,
-                                      **small_launches,
-                                      **wide_launches}.items()}
+                                      **small_launches, **wide_launches,
+                                      **wide2_launches}.items()}
         entries.append(entry)
     log("phase seconds: " + json.dumps(
         {k: round(v, 1) for k, v in phase_s.items()}))

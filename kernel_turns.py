@@ -12,7 +12,9 @@ tree's into ``<build dir>/turns``), and their C entries, which share one
 signature, are driven through this tree's wrappers. For each (head dim,
 heads) of ``TURN_DIMS`` at the phase-3 shapes of ``chip_smoke.py`` (flash
 forward B1 and B8 L2048, backward pair B8 L2048, int8-K/V forward B1
-L2048, paged decode B8 Lk2048), the two outputs must be bit-equal, and
+L2048, paged decode B8 Lk2048), and for ``fused_quant`` at each of its
+compiled tiles (``pallas_quant.INSTANTIATED_TILES``, bk 0) on
+``QUANT_TURN_SHAPES``, the two outputs must be bit-equal, and
 each side is timed twice in the order other, this, this, other (CUDA-event
 medians, ``chip_smoke.time_ms``). Then this tree's kernels alone:
 ``chip_smoke.check_head_dims`` at ``TIMED_DIMS`` (times beside SDPA, the
@@ -33,23 +35,29 @@ import time
 
 import chip_smoke as cs
 
-# head dims timed in turns: 48 (the general instance of 64, whole rows),
-# 64 and 128 (exact), at 8 heads
-TURN_DIMS = ((48, 8), (64, 8), (128, 8))
+# head dims timed in turns: 48 (the general instance of 64, whole rows)
+# and 128 (exact) at 8 heads, 256 (exact) at 4
+TURN_DIMS = ((48, 8), (128, 8), (256, 4))
+# fused_quant's shapes timed in turns: phase 6's int8 qkv and mlp_out
+# products (M = B x L = 16,384)
+QUANT_TURN_SHAPES = {"qkv": (16384, 1024, 3072),
+                     "mlp_out": (16384, 4096, 1024)}
 # this tree's rows beside SDPA: 48, 100 (rows of any width, on 128), 200
-# (whole rows on 256) and 256, at the heads of phase 3
-TIMED_DIMS = ((48, 8), (100, 8), (200, 4), (256, 4))
+# (whole rows on 256), 256, and 512 (the wide path), at the heads of
+# phase 3
+TIMED_DIMS = ((48, 8), (100, 8), (200, 4), (256, 4), (512, 2))
 ATTENTION = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
              "flash_fwd_int8kv", "paged_decode")
+BUILT = (*ATTENTION, "fused_quant")
 
 
 def build_other(kernels, csrc: str) -> dict:
-    """Compile the other tree's attention sources, all ``nvcc`` processes
-    started together; {name: library path}."""
+    """Compile the other tree's attention and fused_quant sources, all
+    ``nvcc`` processes started together; {name: library path}."""
     out_dir = os.path.join(kernels.build_dir(), "turns")
     os.makedirs(out_dir, exist_ok=True)
     procs = {}
-    for name in ATTENTION:
+    for name in BUILT:
         lib = os.path.join(out_dir, f"{name}.so")
         procs[name] = (lib, subprocess.Popen(
             [kernels.nvcc(), *kernels.NVCC_FLAGS, "-o", lib,
@@ -66,9 +74,11 @@ def build_other(kernels, csrc: str) -> dict:
 
 
 def entries(kernels, libs=None) -> dict:
-    """The five C entries: this tree's (``libs`` None) or the other's."""
+    """The five attention C entries and fused_quant's product and
+    workspace entries: this tree's (``libs`` None) or the other's."""
     from tpu_dist_torch.ops import flash_attention as fa
     from tpu_dist_torch.ops import paged_attention as pa
+    from tpu_dist_torch.ops import pallas_quant as pq
 
     def fn(name, symbol, argtypes):
         if libs is None:
@@ -84,7 +94,11 @@ def entries(kernels, libs=None) -> dict:
                       fa._BWD_DKV_ARGS),
             "int8kv": fn("flash_fwd_int8kv", "tdt_flash_fwd_int8kv",
                          fa._INT8KV_ARGS),
-            "paged": fn("paged_decode", "tdt_paged_decode", pa._PAGED_ARGS)}
+            "paged": fn("paged_decode", "tdt_paged_decode", pa._PAGED_ARGS),
+            "quant": fn("fused_quant", "tdt_fused_quant",
+                        pq._FUSED_QUANT_ARGS),
+            "quant_ws": fn("fused_quant", "tdt_fused_quant_workspace",
+                           pq._WORKSPACE_ARGS)}
 
 
 def turns(torch, trees: dict) -> dict:
@@ -137,6 +151,36 @@ def turns(torch, trees: dict) -> dict:
             cs.log(f"D{d} H{h} {name}: bit-equal {rec['bit_equal']}, "
                    f"other {rec['other']}, this {rec['this']}")
         del q8, k8, v8, g8, out8, lse8, delta
+    res.update(quant_turns(torch, trees))
+    return res
+
+
+def quant_turns(torch, trees: dict) -> dict:
+    """fused_quant at each compiled tile on QUANT_TURN_SHAPES, as turns()
+    times the attention kernels."""
+    from tpu_dist_torch.ops import pallas_quant as pq
+
+    st = torch.cuda.current_stream().cuda_stream
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 6)
+    res = {}
+    for label, (m, k, n) in QUANT_TURN_SHAPES.items():
+        x = torch.randn((m, k), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        w = (torch.randn((k, n), generator=gen, device="cuda")
+             / k ** 0.5).to(torch.bfloat16)
+        for bm, bn in pq.INSTANTIATED_TILES:
+            run = {tree: (lambda e=e, t=(bm, bn, 0): pq._launch(
+                e["quant"], e["quant_ws"], x, w, st, tile=t))
+                for tree, e in trees.items()}
+            rec = {"bit_equal": torch.equal(run["other"](), run["this"]()),
+                   "other": [], "this": []}
+            for tree in ("other", "this", "this", "other"):
+                rec[tree].append(cs.time_ms(torch, run[tree]))
+            name = f"fused_quant {label} M{m} K{k} N{n} {bm}x{bn}/bk0"
+            res[name] = rec
+            cs.log(f"{name}: bit-equal {rec['bit_equal']}, other "
+                   f"{rec['other']}, this {rec['this']}")
+        del x, w
     return res
 
 
@@ -163,7 +207,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     other = build_other(kernels, os.path.join(args.other, "tpu_dist_torch",
                                               "csrc"))
-    kernels.build(ATTENTION)
+    kernels.build(BUILT)
     cs.log(f"both trees built in {time.perf_counter() - t0:.1f}s")
     rec = {"card": card,
            "ptxas": {n: cs.ptxas_report(kernels, n) for n in ATTENTION}}

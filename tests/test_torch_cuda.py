@@ -145,18 +145,20 @@ def test_wrappers_count_launches_and_refuse_bad_input(cuda):
     kernels.reset_launches()
     fa.flash_attention_fn()(x, x, x)
     assert kernels.LAUNCHES["flash_fwd"] == 1
-    # head dim 24 runs on the 32 instance; 264 is past the rule: refused by
-    # name, nothing launched
+    # head dim 24 runs on the 32 instance, 264 on the wide path; 0 is past
+    # the rule: refused by name, nothing launched
     fa.flash_forward_cuda(*(torch.zeros((1, 8, 1, 24), device=cuda),) * 3)
     assert kernels.LAUNCHES["flash_fwd"] == 2
-    with pytest.raises(ValueError, match="head_dim 264 is refused"):
-        fa.flash_forward_cuda(*(torch.zeros((1, 8, 1, 264), device=cuda),) * 3)
+    fa.flash_forward_cuda(*(torch.zeros((1, 8, 1, 264), device=cuda),) * 3)
+    assert kernels.LAUNCHES["flash_fwd"] == 3
+    with pytest.raises(ValueError, match="head_dim 0 is refused"):
+        fa.flash_forward_cuda(*(torch.zeros((1, 8, 1, 0), device=cuda),) * 3)
     with pytest.raises(ValueError, match="contiguous"):
         y = torch.randn((1, 2, 8, 64), device=cuda).transpose(1, 2)
         fa.flash_forward_cuda(y, y, y)
     with pytest.raises(TypeError):
         fa.flash_forward_cuda(*(x.half(),) * 3)
-    assert kernels.LAUNCHES["flash_fwd"] == 2
+    assert kernels.LAUNCHES["flash_fwd"] == 3
 
 
 @pytest.mark.parametrize("kw", [
@@ -579,11 +581,14 @@ def test_int8kv_flash_kernel_matches_plain(cuda, dtype, case):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=str)
-def test_fused_quant_tiles_are_bit_equal_and_refused_by_name(cuda, dtype):
-    """Every instantiated GEMM tile, at bk 0 and with K split over blocks
-    (bk 128, 256), gives the default tile's bits and the plain version's
-    at a ragged shape; an IR-legal tile the kernel lacks is refused
-    naming ``quant_block``."""
+def test_fused_quant_every_ir_tile_is_bit_equal(cuda, dtype):
+    """Every compiled GEMM tile, at bk 0 and with K split over blocks
+    (bk 128, 256), and IR-legal tiles outside them (the general instance:
+    bm 8 and 24 inside an m16 fragment, tiles larger than the shape) give
+    the default tile's bits and the plain version's at a ragged shape; a
+    tile the plan IR refuses is refused by the IR."""
+    from tpu_dist_torch.plan.ir import PlanError
+
     gen = torch.Generator(device=cuda).manual_seed(17)
     x = (torch.randn((200, 700), generator=gen, device=cuda) * 2).to(dtype)
     w = torch.randn((700, 300), generator=gen, device=cuda).to(dtype)
@@ -594,9 +599,12 @@ def test_fused_quant_tiles_are_bit_equal_and_refused_by_name(cuda, dtype):
                 pq.set_quant_blocks(bm, bn, bk)
                 assert torch.equal(pq.fused_quant_cuda(x, w), ref), \
                     (bm, bn, bk)
-        pq.set_quant_blocks(8, 128, 0)
-        with pytest.raises(NotImplementedError, match="quant_block"):
-            pq.fused_quant_cuda(x, w)
+        for tile in ((8, 128, 0), (24, 384, 128), (64, 128, 0),
+                     (192, 256, 128), (512, 128, 0), (128, 640, 256)):
+            pq.set_quant_blocks(*tile)
+            assert torch.equal(pq.fused_quant_cuda(x, w), ref), tile
+        with pytest.raises(PlanError, match="quant_block bm=12"):
+            pq.set_quant_blocks(12, 128, 0)
     finally:
         pq.set_quant_blocks()
 

@@ -182,12 +182,13 @@ def _head_dim(d_model, num_heads):
 
 def test_head_dim_rule_takes_every_reference_configuration():
     """The one head-dim rule (``kernels.head_dim_instance``, the rule of
-    ``csrc/head_dim.cuh``) takes every head dim from 1 to 256: the head
-    dim of every configuration the reference ships runs on its own
-    instance (``tiny_lm`` 16, ``LMConfig`` 32, the LM convergence tool 32,
+    ``csrc/head_dim.cuh``) takes every head dim from 1 up: the head dim of
+    every configuration the reference ships runs on its own instance
+    (``tiny_lm`` 16, ``LMConfig`` 32, the LM convergence tool 32,
     ViT-CIFAR 32, ViT-B/16 64, the LM bench 128, and the bench at
-    ``BENCH_HEADS=4`` 256), every other d on the next instance up; 0 and
-    anything above 256 are refused by name."""
+    ``BENCH_HEADS=4`` 256), every other d up to 256 on the next instance
+    up, and every d above 256 (the bench at ``BENCH_HEADS=2`` 512 and at
+    1 head 1024) on the wide path; 0 and -1 are refused by name."""
     import inspect
 
     from tpu_dist_torch.configs import LMConfig
@@ -208,12 +209,16 @@ def test_head_dim_rule_takes_every_reference_configuration():
         "vit_b16": _head_dim(vit.ViTBase.keywords["d_model"],
                              vit.ViTBase.keywords["num_heads"]),
         "lm bench": _head_dim(bench.d_model, bench.num_heads),
-        "lm bench, 4 heads": _head_dim(bench.d_model, 4)}
+        "lm bench, 4 heads": _head_dim(bench.d_model, 4),
+        "lm bench, 2 heads": _head_dim(bench.d_model, 2),
+        "lm bench, 1 head": _head_dim(bench.d_model, 1)}
     assert dims == {"tiny_lm": 16, "LMConfig": 32, "lm_convergence": 32,
                     "vit_cifar": 32, "vit_b16": 64, "lm bench": 128,
-                    "lm bench, 4 heads": 256}
+                    "lm bench, 4 heads": 256, "lm bench, 2 heads": 512,
+                    "lm bench, 1 head": 1024}
     for d in dims.values():
-        assert kernels.head_dim_instance(d) == d
+        assert kernels.head_dim_instance(d) == (
+            d if d <= 256 else kernels.HEAD_DIM_WIDE)
     assert {d: kernels.head_dim_instance(d)
             for d in (1, 8, 17, 24, 33, 48, 80, 96, 100, 112, 129, 136, 200,
                       255)} == {1: 16, 8: 16, 17: 32, 24: 32, 33: 64, 48: 64,
@@ -221,16 +226,18 @@ def test_head_dim_rule_takes_every_reference_configuration():
                                 129: 256, 136: 256, 200: 256, 255: 256}
     assert all(kernels.head_dim_instance(d) is not None
                for d in range(1, 257))
-    for d in (0, -1, 257, 264, 512):
+    for d in (257, 264, 320, 512, 1024, 4096):
+        assert kernels.head_dim_instance(d) == kernels.HEAD_DIM_WIDE
+        assert kernels.check_head_dim("flash kernel", d) == "wide"
+    for d in (0, -1):
         assert kernels.head_dim_instance(d) is None
-    for d in (0, 264):
         with pytest.raises(ValueError, match=rf"head_dim {d} is refused: "
                                              r"the kernels take every head "
-                                             r"dim from 1 to 256"):
+                                             r"dim from 1 up"):
             kernels.check_head_dim("flash kernel", d)
 
 
-@pytest.mark.parametrize("d", [0, 264], ids=str)
+@pytest.mark.parametrize("d", [0, -1], ids=str)
 def test_attention_entries_refuse_what_the_rule_refuses(emu, d):
     """Past the wrappers' check, each of the five C entries returns -1 for
     a head dim the rule refuses, in both dtypes, and launches nothing."""
@@ -296,6 +303,30 @@ def test_every_head_dim_runs_aligned_and_misaligned(emu, dtype, d, off):
     rec, _ = _five(emu, dtype, d, off, 24)
     assert rec["bit_equal_misaligned"] and rec["misaligned_offset_elements"] \
         == off
+
+
+# (head dim, element offset of the misaligned views) on the wide path: an
+# odd d (257: byte loads, a lane's partial piece in the paged decode), 264
+# (whole bf16 chunks, int8 rows not whole 16-byte chunks), 320 (a last
+# 128-column chunk half live), 512 (four chunks) and 1024 (eight)
+WIDE_HEAD_DIM_CASES = [(257, 1), (264, 2), (320, 4), (512, 2), (1024, 1)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("d,off", WIDE_HEAD_DIM_CASES, ids=str)
+def test_wide_head_dims_run_aligned_and_misaligned(emu, dtype, d, off):
+    """The five C entries above 256 (the wide path: output chunks over the
+    grid's z axis, the scores summed over d in streamed slices), with
+    sentinel tails, dead rows (8 rows see no key), dead keys and a
+    length-0 paged row, on the allocator's tensors and on views ``off``
+    elements into their buffers: both match the plain versions and are
+    bit-equal to each other. One q tile and one k/v tile (Lq 24, Lk 40)
+    keep the emulated tensor-core kernels, whose work grows as d^2 here,
+    within a minute at 1024."""
+    rec, _ = chip_smoke.five_at_head_dim(torch, None, d, dtype, off, "cpu",
+                                         emu, (1, 24, 40, 1, 8))
+    assert rec["bit_equal_misaligned"] and rec["sentinels_untouched"] \
+        and rec["dead_exact_zero"]
 
 
 @pytest.mark.parametrize("dtype,d,lengths", [
@@ -754,26 +785,39 @@ def test_fused_quant_scaled_pair_matches_plain(emu, dtype, m, k, n):
 
 
 def test_fused_quant_instantiated_tiles_match_the_wrapper(emu):
-    """The C side's tile list (TDT_FQ_TILES) is the wrapper's
-    INSTANTIATED_TILES, and a tile the plan IR allows but the kernel lacks
-    is refused by name before any launch."""
+    """The C side's list of compiled tiles (TDT_FQ_TILES) is the wrapper's
+    INSTANTIATED_TILES; a tile the plan IR allows outside them, (8, 128,
+    0), runs on the general instance, bit-equal to the plain version; a
+    tile the IR refuses is refused by the IR before any launch."""
+    from tpu_dist_torch.plan.ir import PlanError
+
     assert pq.kernel_tiles(emu["quant_tiles"]) == pq.INSTANTIATED_TILES
-    x = torch.randn((24, 128))
-    w = torch.randn((128, 136))
-    with pytest.raises(NotImplementedError, match="quant_block"):
+    gen = torch.Generator().manual_seed(8)
+    x = torch.randn((24, 128), generator=gen)
+    w = torch.randn((128, 136), generator=gen)
+    out = pq._launch(emu["quant"], emu["quant_ws"], x, w, None,
+                     tile=(8, 128, 0))
+    assert torch.equal(out, pq.fused_quant_matmul_plain(x, w))
+    with pytest.raises(PlanError, match="quant_block bm=12"):
         pq._launch(emu["quant"], emu["quant_ws"], x, w, None,
-                   tile=(8, 128, 0))
+                   tile=(12, 128, 0))
 
 
 @pytest.mark.parametrize("tile", [(256, 128, 0), (128, 256, 0),
                                   (64, 256, 0), (128, 128, 128),
-                                  (64, 256, 256)], ids=str)
+                                  (64, 256, 256),
+                                  # the general instance (phase 23d's)
+                                  (8, 128, 0), (24, 384, 0), (64, 128, 0),
+                                  (192, 256, 128), (512, 128, 0),
+                                  (128, 640, 256)], ids=str)
 def test_fused_quant_tiles_and_k_splits_are_bit_equal(emu, tile):
-    """Every instantiated GEMM tile, and K split over blocks whose int32
-    sums are added before the one dequant (bk 128: three splits of one
-    stage; bk 256: splits of two and one), gives the default tile's bits
-    and the plain version's, on a ragged shape; the scaled phase of the
-    tensor-parallel pair takes the same tile."""
+    """Every compiled GEMM tile, IR-legal tiles outside them (the general
+    instance: bm 8 and 24 cut an m16 fragment, 512 and 640 outgrow the
+    shape), and K split over blocks whose int32 sums are added before the
+    one dequant (bk 128: three splits of one stage; bk 256: splits of two
+    and one), give the default tile's bits and the plain version's, on a
+    ragged shape; the scaled phase of the tensor-parallel pair takes the
+    same tile."""
     gen = torch.Generator().manual_seed(sum(tile))
     m, k, n = 70, 300, 136
     x = (torch.randn((m, k), generator=gen) * 2).to(torch.bfloat16)

@@ -44,11 +44,12 @@
 // rounded p and ds tiles to shared memory and accumulating a 4 x D/16 slice
 // of dk and dv from them.
 //
-// Head dims (head_dim.cuh): every d from 1 to 256, both dtypes. The exact
-// instances at D = 16, 32, 64, 128 and 256 (the head dim a compile-time
-// constant) run d == D on 16-byte-aligned tensors; every other d runs on
-// the general instance of the next D up (8 on 16, 24 on 32, 33 and 48 on
-// 64, 100 on 128, 136 and 200 on 256) with the true d at run time: rows
+// Head dims (head_dim.cuh): every d from 1 up, both dtypes. Up to 256
+// the exact instances at D = 16, 32, 64, 128 and 256 (the head dim a
+// compile-time constant) run d == D on 16-byte-aligned tensors; every other
+// d up to 256 runs on the general instance of the next D up (8 on 16, 24
+// on 32, 33 and 48 on 64, 100 on 128, 136 and 200 on 256) with the true d
+// at run time: rows
 // strided by H * d, columns past d zero in shared memory, nothing stored
 // past d, so no tensor is copied or padded. Where its rows are whole
 // 16-byte chunks on 16-byte boundaries (d a multiple of 8, the tensors
@@ -67,6 +68,14 @@
 // for the exact and the general bf16 instances, 240 with ANY, no spill. The
 // fp32 instance at 256 takes q tiles of 32 rows (K, V, Q and dO in fp32
 // fit 209 KB) and 246 registers, no spill.
+//
+// Above 256 every d runs on the wide path (the end of this file): the 256
+// design's 128-column chunks for any d, with S^T and dP^T summed over d in
+// 64-column slices of K, V, Q and dO streamed through a 2-stage cp.async
+// ring (q tiles of 32 rows), the same bits in every chunk; ceil(d / 128) x
+// the S^T and dP^T products. 90,624 bytes of shared memory at any d;
+// ptxas (sm_90a, on the H100 build): 253 registers, 255 with ANY, no
+// spill; the fp32 twin 166,400 bytes and 128 registers.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -516,12 +525,408 @@ int launch_mma(const void* q, const void* k, const void* v, const void* g,
   return (int)cudaGetLastError();
 }
 
+// ---- the wide path (head_dim.cuh: d above 256) -----------------------------
+//
+// As at 256, but for every d: a block owns dk and dv columns c0 .. c0 +
+// WDC - 1 (c0 = WDC * blockIdx.z) of its 64 keys. Per q tile, S^T = K Q^T
+// and dP^T = V dO^T are summed over d in WDS-column slices of K, V, Q and
+// dO streamed through shared memory, in the same order in every chunk;
+// then dv[:, chunk] += p^T . dO[:, chunk] and dk[:, chunk] += ds^T .
+// Q[:, chunk]. Neither registers nor shared memory grow with d; the S and
+// dP work is ceil(d / WDC) x the narrow kernels'.
+
+constexpr int WDS = 64;   // d columns a slice of S^T and dP^T
+constexpr int WDC = 128;  // dk, dv columns a block
+
+constexpr size_t smem_floats_wide() {
+  return 2 * (size_t)BK * (WDS + 1)    // K slice, V slice
+         + 2 * (size_t)BQ * (WDS + 1)  // Q slice, dO slice
+         + 2 * (size_t)BQ * (WDC + 1)  // Q chunk, dO chunk
+         + 2 * (size_t)BQ * (BK + 1)   // p (dO's type), ds (Q's type)
+         + 2 * (size_t)BQ;             // lse, delta
+}
+
+template <typename T>
+__global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel_wide(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const T* __restrict__ g, const float* __restrict__ lse,
+    const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
+    int H, int dh, int Lq, int Lk, int causal, int q_offset, int kv_offset,
+    float scale) {
+  constexpr int DP = WDS + 1;
+  constexpr int CP = WDC + 1;
+  constexpr int SP = BK + 1;
+  constexpr int NJ = WDC / 16;  // dk/dv columns per thread
+  extern __shared__ float smem[];
+  float* sK = smem;
+  float* sV = sK + BK * DP;
+  float* sQ = sV + BK * DP;
+  float* sG = sQ + BQ * DP;
+  float* sQc = sG + BQ * DP;
+  float* sGc = sQc + BQ * CP;
+  float* sP = sGc + BQ * CP;
+  float* sDS = sP + BQ * SP;
+  float* sLse = sDS + BQ * SP;
+  float* sDelta = sLse + BQ;
+
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int k0 = blockIdx.x * BK;
+  const int c0 = blockIdx.z * WDC;  // this block's dk, dv columns
+  const int tid = threadIdx.x;
+  const int tx = tid % 16;
+  const int ty = tid / 16;
+  const long rs = (long)H * dh;  // stride between sequence positions
+  const T* qb = q + (long)b * Lq * rs + (long)h * dh;
+  const T* gb = g + (long)b * Lq * rs + (long)h * dh;
+  const T* kb = k + (long)b * Lk * rs + (long)h * dh;
+  const T* vb = v + (long)b * Lk * rs + (long)h * dh;
+
+  float acc_k[4][NJ], acc_v[4][NJ];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) acc_k[i][j] = acc_v[i][j] = 0.f;
+
+  const int n_qt = (Lq + BQ - 1) / BQ;
+  int first_qt = 0;
+  if (causal) {
+    const long d0 = (long)kv_offset + k0 - q_offset;  // first row that sees key k0
+    first_qt = d0 <= 0 ? 0 : (int)min((long)n_qt, d0 / BQ);
+  }
+
+  for (int qt = first_qt; qt < n_qt; ++qt) {
+    const int q0 = qt * BQ;
+    __syncthreads();  // the previous tile's readers are done with shared
+    for (int i = tid; i < BQ * WDC; i += NT) {
+      const int r = i / WDC, c = i % WDC;
+      const bool in = q0 + r < Lq && c0 + c < dh;
+      const long o = (long)(q0 + r) * rs + c0 + c;
+      sQc[r * CP + c] = in ? to_f<T>(qb[o]) : 0.f;
+      sGc[r * CP + c] = in ? to_f<T>(gb[o]) : 0.f;
+    }
+    for (int r = tid; r < BQ; r += NT) {
+      const bool in = q0 + r < Lq;
+      sLse[r] = in ? lse[(long)bh * Lq + q0 + r] : 0.f;
+      sDelta[r] = in ? delta[(long)bh * Lq + q0 + r] : 0.f;
+    }
+
+    float s[4][4], dp[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+    for (int d0 = 0; d0 < dh; d0 += WDS) {
+      __syncthreads();  // the previous readers are done with the slices
+      for (int i = tid; i < BK * WDS; i += NT) {
+        const int r = i / WDS, c = i % WDS;
+        const bool ink = k0 + r < Lk && d0 + c < dh;
+        const bool inq = q0 + r < Lq && d0 + c < dh;
+        const long ok = (long)(k0 + r) * rs + d0 + c;
+        const long oq = (long)(q0 + r) * rs + d0 + c;
+        sK[r * DP + c] = ink ? to_f<T>(kb[ok]) : 0.f;
+        sV[r * DP + c] = ink ? to_f<T>(vb[ok]) : 0.f;
+        sQ[r * DP + c] = inq ? to_f<T>(qb[oq]) : 0.f;
+        sG[r * DP + c] = inq ? to_f<T>(gb[oq]) : 0.f;
+      }
+      __syncthreads();
+#pragma unroll 4
+      for (int d = 0; d < WDS; ++d) {
+        float qa[4], ga[4], ka[4], va[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          qa[i] = sQ[(ty + 16 * i) * DP + d];
+          ga[i] = sG[(ty + 16 * i) * DP + d];
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          ka[j] = sK[(tx + 16 * j) * DP + d];
+          va[j] = sV[(tx + 16 * j) * DP + d];
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            s[i][j] = fmaf(qa[i], ka[j], s[i][j]);
+            dp[i][j] = fmaf(ga[i], va[j], dp[i][j]);
+          }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = ty + 16 * i;  // q row of the tile
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = tx + 16 * j;  // key row of the block
+        bool live = q0 + r < Lq && k0 + c < Lk;
+        if (causal) live = live && (kv_offset + k0 + c <= q_offset + q0 + r);
+        const float sv = live ? s[i][j] * scale : NEG_INF;
+        const float p = (sv <= 0.5f * NEG_INF) ? 0.f : expf(sv - sLse[r]);
+        const float ds = p * (dp[i][j] - sDelta[r]) * scale;
+        sP[r * SP + c] = to_f<T>(from_f<T>(p));    // p^T.dO takes p in dO's type
+        sDS[r * SP + c] = to_f<T>(from_f<T>(ds));  // ds^T.Q takes ds in Q's type
+      }
+    }
+    __syncthreads();
+
+#pragma unroll 4
+    for (int r = 0; r < BQ; ++r) {
+      float pa[4], da[4], ga[NJ], qa[NJ];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        pa[i] = sP[r * SP + ty + 16 * i];
+        da[i] = sDS[r * SP + ty + 16 * i];
+      }
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        ga[j] = sGc[r * CP + tx + 16 * j];
+        qa[j] = sQc[r * CP + tx + 16 * j];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          acc_v[i][j] = fmaf(pa[i], ga[j], acc_v[i][j]);
+          acc_k[i][j] = fmaf(da[i], qa[j], acc_k[i][j]);
+        }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = ty + 16 * i;
+    if (k0 + r >= Lk) continue;
+    const long off = ((long)b * Lk + k0 + r) * rs + (long)h * dh + c0;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      if (c0 + tx + 16 * j >= dh) continue;
+      dk[off + tx + 16 * j] = from_f<T>(acc_k[i][j]);
+      dv[off + tx + 16 * j] = from_f<T>(acc_v[i][j]);
+    }
+  }
+}
+
+template <typename T>
+int launch_wide(const void* q, const void* k, const void* v, const void* g,
+                const void* lse, const void* delta, void* dk, void* dv,
+                int B, int H, int d, int Lq, int Lk, int causal, int q_offset,
+                int kv_offset, float scale, cudaStream_t stream) {
+  const size_t smem = smem_floats_wide() * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkv_kernel_wide<T>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((Lk + BK - 1) / BK, B * H, (d + WDC - 1) / WDC);
+  flash_bwd_dkv_kernel_wide<T><<<grid, NT, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(g),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<T*>(dk), static_cast<T*>(dv), H, d, Lq, Lk, causal,
+      q_offset, kv_offset, scale);
+  return (int)cudaGetLastError();
+}
+
+// bf16 on the tensor cores: 4 warps of 16 keys, q tiles of WBQ = 32 rows
+// (the dk and dv accumulators take 2 x WDC/2 fp32 registers a lane, so S^T
+// and dP^T are 32 q rows wide, as at 128 and 256). A q tile is taken as
+// units, one a WDS-column slice of K, V, Q and dO, streamed through a
+// 2-stage cp.async ring (the next unit's copies, the next tile's first
+// slice included, in flight while this one's products run); Q's and dO's
+// chunks and lse, delta of each tile go with its first unit into 2-stage
+// rings of their own. 90,624 bytes of shared memory at any d.
+
+constexpr int WBQ = 32;       // q rows a tile
+constexpr int WRS = WDS + 8;  // padded slice row stride (elements)
+constexpr int WRC = WDC + 8;  // padded chunk row stride (elements)
+
+constexpr size_t smem_bytes_wide_mma() {
+  return ((size_t)2 * (2 * BK + 2 * WBQ) * WRS +
+          (size_t)4 * WBQ * WRC) * sizeof(__nv_bfloat16) +
+         (size_t)4 * WBQ * sizeof(float);
+}
+
+template <bool ANY>
+__global__ void __launch_bounds__(NTM, 2) flash_bwd_dkv_kernel_wide_mma(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ g,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int H,
+    int dh, int Lq, int Lk, int causal, int q_offset, int kv_offset,
+    float scale) {
+  constexpr int NB = WBQ / 8;  // q n-tiles of S^T and dP^T
+  constexpr int ND = WDC / 8;  // d n-tiles of the dk, dv chunks
+  extern __shared__ float smem[];
+  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem);  // [2][BK*WRS]
+  __nv_bfloat16* sV = sK + 2 * BK * WRS;                        // [2][BK*WRS]
+  __nv_bfloat16* sQ = sV + 2 * BK * WRS;                        // [2][WBQ*WRS]
+  __nv_bfloat16* sG = sQ + 2 * WBQ * WRS;                       // [2][WBQ*WRS]
+  __nv_bfloat16* sQc = sG + 2 * WBQ * WRS;                      // [2][WBQ*WRC]
+  __nv_bfloat16* sGc = sQc + 2 * WBQ * WRC;                     // [2][WBQ*WRC]
+  float* sL = reinterpret_cast<float*>(sGc + 2 * WBQ * WRC);    // [2][WBQ]
+  float* sD = sL + 2 * WBQ;                                     // [2][WBQ]
+
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int k0 = blockIdx.y * BK;
+  const int c0 = blockIdx.z * WDC;  // this block's dk, dv columns
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const long rs = (long)H * dh;  // stride between sequence positions
+  const __nv_bfloat16* qb = q + (long)b * Lq * rs + (long)h * dh;
+  const __nv_bfloat16* gb = g + (long)b * Lq * rs + (long)h * dh;
+  const __nv_bfloat16* kb = k + (long)b * Lk * rs + (long)h * dh;
+  const __nv_bfloat16* vb = v + (long)b * Lk * rs + (long)h * dh;
+
+  const int n_qt = (Lq + WBQ - 1) / WBQ;
+  int first_qt = 0;
+  if (causal) {
+    const long d0 = (long)kv_offset + k0 - q_offset;  // first row that sees key k0
+    first_qt = d0 <= 0 ? 0 : (int)min((long)n_qt, d0 / WBQ);
+  }
+  const int ns = (dh + WDS - 1) / WDS;  // slices a q tile
+  const int units = (n_qt - first_qt) * ns;
+  // unit u: slice u % ns of q tile first_qt + u / ns into stage u & 1, and
+  // with a tile's first slice its Q and dO chunks and lse, delta
+  auto issue = [&](int u) {
+    const int t = u / ns, d0 = (u % ns) * WDS, st = u & 1;
+    const int q0 = (first_qt + t) * WBQ;
+    cp_async_cols<64, WDS, WRS, NTM, ANY>(sK + st * BK * WRS, kb, rs, k0, Lk,
+                                          d0, dh, tid);
+    cp_async_cols<64, WDS, WRS, NTM, ANY>(sV + st * BK * WRS, vb, rs, k0, Lk,
+                                          d0, dh, tid);
+    cp_async_cols<WBQ, WDS, WRS, NTM, ANY>(sQ + st * WBQ * WRS, qb, rs, q0,
+                                           Lq, d0, dh, tid);
+    cp_async_cols<WBQ, WDS, WRS, NTM, ANY>(sG + st * WBQ * WRS, gb, rs, q0,
+                                           Lq, d0, dh, tid);
+    if (d0 == 0) {
+      const int tc = t & 1;
+      cp_async_cols<WBQ, WDC, WRC, NTM, ANY>(sQc + tc * WBQ * WRC, qb, rs, q0,
+                                             Lq, c0, dh, tid);
+      cp_async_cols<WBQ, WDC, WRC, NTM, ANY>(sGc + tc * WBQ * WRC, gb, rs, q0,
+                                             Lq, c0, dh, tid);
+      for (int i = tid; i < WBQ; i += NTM) {
+        const bool in = q0 + i < Lq;
+        const long off = (long)bh * Lq + (in ? q0 + i : 0);
+        cp_async_4(sL + tc * WBQ + i, lse + off, in ? 4 : 0);
+        cp_async_4(sD + tc * WBQ + i, delta + off, in ? 4 : 0);
+      }
+    }
+  };
+  if (units > 0) issue(0);
+  cp_async_commit();
+
+  const int gq = lane >> 2, tq = lane & 3;
+  const int wr = warp * 16;
+  const float scale2 = scale * LOG2E;  // exp(x) = 2^(x log2 e)
+
+  float acc_k[ND][4], acc_v[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_k[j][e] = acc_v[j][e] = 0.f;
+
+  for (int qt = first_qt; qt < n_qt; ++qt) {
+    const int t = qt - first_qt, tc = t & 1;
+    const int q0 = qt * WBQ;
+    // every row of this tile is before this warp's first key: p = 0
+    const bool dead = causal && kv_offset + k0 + wr > q_offset + q0 + WBQ - 1;
+    float s[NB][4], dp[NB][4];
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+    for (int u = t * ns; u < (t + 1) * ns; ++u) {
+      if (u + 1 < units) issue(u + 1);
+      cp_async_commit();
+      cp_async_wait<1>();  // unit u (and this tile's chunks) has landed
+      __syncthreads();
+      const int st = u & 1;
+      if (!dead) {
+        warp_mma_abt<NB, WDS / 16, WRS>(s, sK + st * BK * WRS + wr * WRS,
+                                        sQ + st * WBQ * WRS);
+        warp_mma_abt<NB, WDS / 16, WRS>(dp, sV + st * BK * WRS + wr * WRS,
+                                        sG + st * WBQ * WRS);
+      }
+      __syncthreads();  // every warp is done with stage st before its refill
+    }
+
+    if (!dead) {
+      // p^T into s, ds^T into dp, in the accumulator layout
+      const float* cL = sL + tc * WBQ;
+      const float* cD = sD + tc * WBQ;
+      const bool edge =
+          q0 + WBQ > Lq || k0 + BK > Lk ||
+          (causal && kv_offset + k0 + wr + 15 > q_offset + q0);
+#pragma unroll
+      for (int j = 0; j < NB; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 8 * j + 2 * tq + (e & 1);  // q row of the tile
+          bool live = true;
+          if (edge) {
+            const int key = k0 + wr + gq + 8 * (e / 2);
+            live = q0 + i < Lq && key < Lk;
+            if (causal) live = live && (kv_offset + key <= q_offset + q0 + i);
+          }
+          const float p =
+              live ? exp2_approx(s[j][e] * scale2 - cL[i] * LOG2E) : 0.f;
+          dp[j][e] = p * (dp[j][e] - cD[i]) * scale;
+          s[j][e] = p;
+        }
+      warp_mma_pv<WBQ / 16, ND, WRC>(acc_v, s, sGc + tc * WBQ * WRC);
+      warp_mma_pv<WBQ / 16, ND, WRC>(acc_k, dp, sQc + tc * WBQ * WRC);
+    }
+    __syncthreads();  // every warp is done with this tile's chunks
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = k0 + wr + gq + 8 * r;
+    if (key >= Lk) continue;
+    const long off = ((long)b * Lk + key) * rs + (long)h * dh;
+#pragma unroll
+    for (int j = 0; j < ND; ++j) {
+      const int col = c0 + 8 * j + 2 * tq;
+      store_bf16x2<true, ANY>(dk + off, col, dh, acc_k[j][2 * r],
+                              acc_k[j][2 * r + 1]);
+      store_bf16x2<true, ANY>(dv + off, col, dh, acc_v[j][2 * r],
+                              acc_v[j][2 * r + 1]);
+    }
+  }
+}
+
+template <bool ANY>
+int launch_wide_mma(const void* q, const void* k, const void* v,
+                    const void* g, const void* lse, const void* delta,
+                    void* dk, void* dv, int B, int H, int d, int Lq, int Lk,
+                    int causal, int q_offset, int kv_offset, float scale,
+                    cudaStream_t stream) {
+  const size_t smem = smem_bytes_wide_mma();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkv_kernel_wide_mma<ANY>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(B * H, (Lk + BK - 1) / BK, (d + WDC - 1) / WDC);
+  flash_bwd_dkv_kernel_wide_mma<ANY><<<grid, NTM, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(g),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), H, d,
+      Lq, Lk, causal, q_offset, kv_offset, scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, dO, dk and dv share it).
-// Returns the launch's cudaError_t (0 = launched); -1 for a dtype or a head
-// dim D this build has no instance for (head_dim.cuh). A bf16 tensor of any
-// alignment runs (a misaligned one on the general instance).
+// Returns the launch's cudaError_t (0 = launched); -1 for a dtype this build
+// has no instance for or a head dim D below 1 (head_dim.cuh). A bf16
+// tensor of any alignment runs (a misaligned one on the general instance
+// or the wide path's ANY one).
 extern "C" int tdt_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                  const void* g, const void* lse,
                                  const void* delta, void* dk, void* dv, int B,
@@ -535,12 +940,19 @@ extern "C" int tdt_flash_bwd_dkv(const void* q, const void* k, const void* v,
       return launch<float, HD::value, HD::pad>(
           q, k, v, g, lse, delta, dk, dv, B, H, D, Lq, Lk, causal, q_offset,
           kv_offset, scale, s);
+    }, [&](auto) {
+      return launch_wide<float>(q, k, v, g, lse, delta, dk, dv, B, H, D, Lq,
+                                Lk, causal, q_offset, kv_offset, scale, s);
     });
   if (dtype == 1)
     return with_head_dim(D, tdt_aligned16(q, k, v, g, dk, dv), D % 8 == 0,
                          [&](auto hd) {
       using HD = decltype(hd);
       return launch_mma<HD::value, HD::pad, HD::any>(
+          q, k, v, g, lse, delta, dk, dv, B, H, D, Lq, Lk, causal, q_offset,
+          kv_offset, scale, s);
+    }, [&](auto wd) {
+      return launch_wide_mma<decltype(wd)::any>(
           q, k, v, g, lse, delta, dk, dv, B, H, D, Lq, Lk, causal, q_offset,
           kv_offset, scale, s);
     });

@@ -48,13 +48,19 @@
 //      (bm, bn, bk): a (bm, bn) output tile, 8 warps of 64 x (bm bn / 512),
 //      instantiated for the tiles in TDT_FQ_TILES (128 x 128, the default,
 //      two blocks an SM; 256 x 128 and 128 x 256, 98,304 bytes of shared
-//      memory, one; 64 x 256). bk = 0 keeps the whole of K in one block
-//      (the instance without SPLIT: at 128 x 128, the kernel before the
-//      knob); bk > 0 splits K over ceil(K / bk) blocks (grid z, the SPLIT
-//      instance) that write their int32 sums to the workspace, and
-//      fq_split_sum_kernel adds them in split order and dequantizes once:
-//      integer sums are exact, so every tile is bit-equal to the default.
-//      Another tile returns -2.
+//      memory, one; 64 x 256). Every other tile the plan IR accepts (bm a
+//      multiple of 8, bn of 128) runs on fq_gemm_any_kernel, the tile a
+//      run-time parameter: a block owns its (bm, bn) output tile and walks
+//      it in 64 x 128 sub-tiles of the compiled 64 x 128 warp grid, each
+//      over the whole of its K range, rows and columns past the tile
+//      masked (inside an m16 fragment where bm is not a multiple of 16).
+//      bk = 0 keeps the whole of K in one block (the instance without
+//      SPLIT: at 128 x 128, the kernel before the knob); bk > 0 splits K
+//      over ceil(K / bk) blocks (grid z, the SPLIT instance) that write
+//      their int32 sums to the workspace, and fq_split_sum_kernel adds
+//      them in split order and dequantizes once: integer sums are exact,
+//      so every tile is bit-equal to the default. A tile the IR refuses
+//      returns -2.
 // The same two phases are also exposed apart, for a product whose K is
 // sharded over a tensor-parallel group and whose scales must be the whole
 // K's: tdt_fused_quant_amax runs stage 1's maxima only (each row's amax of
@@ -506,26 +512,24 @@ __device__ __forceinline__ void fill_tile(int8_t* tile, const int8_t* src,
   }
 }
 
-// Stage 2b, second half: out = dequant(qx . qw^T). Grid (row tiles of BM,
-// column tiles of BN, K splits of sps stages): neighbouring blocks share
-// one qw tile. Without SPLIT: the whole of K, dequantized into out (part
-// and sps unused). With SPLIT: split blockIdx.z's stages, its int32 sums
-// written to part[blockIdx.z] for fq_split_sum_kernel.
+// Stage 2b, second half: out = dequant(qx . qw^T) over the (BM, BN) tile
+// at (m0, n0), of a block's 8 warps: rows at or past mlim and columns at or
+// past nlim are outside it (zeros in, nothing out). Without SPLIT: the
+// whole of K, dequantized into out (part and sps unused). With SPLIT:
+// split blockIdx.z's stages, its int32 sums written to part[blockIdx.z] for
+// fq_split_sum_kernel. M and N are out's (and part's) row count and stride.
 template <typename T, int BM, int BN, bool SPLIT>
-__global__ void __launch_bounds__(GEMM_NT, (GemmTile<BM, BN>::MIN_BLOCKS))
-    fq_gemm_kernel(const int8_t* __restrict__ qx,
-                   const int8_t* __restrict__ qw, const float* __restrict__ sx,
-                   const uint32_t* __restrict__ sw_amax, T* __restrict__ out,
-                   int* __restrict__ part, int M, int N, int KP, int sps) {
+__device__ __forceinline__ void gemm_tile(
+    const int8_t* __restrict__ qx, const int8_t* __restrict__ qw,
+    const float* __restrict__ sx, const uint32_t* __restrict__ sw_amax,
+    T* __restrict__ out, int* __restrict__ part, int M, int N, int KP,
+    int sps, int m0, int n0, int mlim, int nlim, int8_t* sa) {
   typedef GemmTile<BM, BN> G;
   constexpr int JN = G::JN;
-  extern __shared__ float smem[];
-  int8_t* sa = reinterpret_cast<int8_t*>(smem);   // [STAGES][BM][KT]
   int8_t* sb = sa + STAGES * BM * KT;              // [STAGES][BN][KT]
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;
   const int wm = warp % G::WARPS_M, wn = warp / G::WARPS_M;
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
   const int s0 = SPLIT ? blockIdx.z * sps : 0;
   const int s1 = SPLIT ? min(KP / KT, s0 + sps) : KP / KT;
   int acc[4][JN][4];
@@ -544,8 +548,8 @@ __global__ void __launch_bounds__(GEMM_NT, (GemmTile<BM, BN>::MIN_BLOCKS))
   // so waiting for all but the newest group lands stage s
   for (int i = 0; i < STAGES - 1; ++i) {
     if (s0 + i < s1) {
-      fill_tile<BM, GEMM_NT>(sa + i * BM * KT, qx, KP, m0, M, s0 + i);
-      fill_tile<BN, GEMM_NT>(sb + i * BN * KT, qw, KP, n0, N, s0 + i);
+      fill_tile<BM, GEMM_NT>(sa + i * BM * KT, qx, KP, m0, mlim, s0 + i);
+      fill_tile<BN, GEMM_NT>(sb + i * BN * KT, qw, KP, n0, nlim, s0 + i);
     }
     cp_async_commit();
   }
@@ -555,8 +559,8 @@ __global__ void __launch_bounds__(GEMM_NT, (GemmTile<BM, BN>::MIN_BLOCKS))
     const int f = s + STAGES - 1;              // into stage s - 1's buffer
     if (f < s1) {
       const int fb = (f - s0) % STAGES;
-      fill_tile<BM, GEMM_NT>(sa + fb * BM * KT, qx, KP, m0, M, f);
-      fill_tile<BN, GEMM_NT>(sb + fb * BN * KT, qw, KP, n0, N, f);
+      fill_tile<BM, GEMM_NT>(sa + fb * BM * KT, qx, KP, m0, mlim, f);
+      fill_tile<BN, GEMM_NT>(sb + fb * BN * KT, qw, KP, n0, nlim, f);
     }
     cp_async_commit();
     const int8_t* at = sa + ((s - s0) % STAGES) * BM * KT;
@@ -593,18 +597,18 @@ __global__ void __launch_bounds__(GEMM_NT, (GemmTile<BM, BN>::MIN_BLOCKS))
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int m = m0 + 64 * wm + 16 * i + g + 8 * h;
-        if (m >= M) continue;
+        if (m >= mlim) continue;
         int* prow = prow0 + (long)m * N;
 #pragma unroll
         for (int j = 0; j < JN; ++j) {
           const int n = n0 + G::WTN * wn + 8 * j + 2 * t;   // even
-          if (pairs && n + 1 < N) {
+          if (pairs && n + 1 < nlim) {
             *reinterpret_cast<int2*>(prow + n) =
                 make_int2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
           } else {
 #pragma unroll
             for (int e = 0; e < 2; ++e)
-              if (n + e < N) prow[n + e] = acc[i][j][2 * h + e];
+              if (n + e < nlim) prow[n + e] = acc[i][j][2 * h + e];
           }
         }
       }
@@ -616,14 +620,14 @@ __global__ void __launch_bounds__(GEMM_NT, (GemmTile<BM, BN>::MIN_BLOCKS))
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       const int n = n0 + G::WTN * wn + 8 * j + 2 * t + e;
-      swc[j][e] = n < N ? w_scale(sw_amax[n]) : 0.f;
+      swc[j][e] = n < nlim ? w_scale(sw_amax[n]) : 0.f;
     }
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int m = m0 + 64 * wm + 16 * i + g + 8 * h;
-      if (m >= M) continue;
+      if (m >= mlim) continue;
       const float sxm = sx[m];
       T* orow = out + (long)m * N;
 #pragma unroll
@@ -634,13 +638,58 @@ __global__ void __launch_bounds__(GEMM_NT, (GemmTile<BM, BN>::MIN_BLOCKS))
         for (int e = 0; e < 2; ++e)
           o.v[e] = from_f<T>(__int2float_rn(acc[i][j][2 * h + e]) *
                              (sxm * swc[j][e]));
-        if (pairs && n + 1 < N)
+        if (pairs && n + 1 < nlim)
           *reinterpret_cast<Two<T>*>(orow + n) = o;
         else
 #pragma unroll
           for (int e = 0; e < 2; ++e)
-            if (n + e < N) orow[n + e] = o.v[e];
+            if (n + e < nlim) orow[n + e] = o.v[e];
       }
+    }
+}
+
+
+// Stage 2b's GEMM at an instantiated tile: grid (row tiles of BM, column
+// tiles of BN, K splits of sps stages), neighbouring blocks sharing one qw
+// tile
+template <typename T, int BM, int BN, bool SPLIT>
+__global__ void __launch_bounds__(GEMM_NT, (GemmTile<BM, BN>::MIN_BLOCKS))
+    fq_gemm_kernel(const int8_t* __restrict__ qx,
+                   const int8_t* __restrict__ qw, const float* __restrict__ sx,
+                   const uint32_t* __restrict__ sw_amax, T* __restrict__ out,
+                   int* __restrict__ part, int M, int N, int KP, int sps) {
+  extern __shared__ float smem[];
+  gemm_tile<T, BM, BN, SPLIT>(qx, qw, sx, sw_amax, out, part, M, N, KP, sps,
+                              blockIdx.x * BM, blockIdx.y * BN, M, N,
+                              reinterpret_cast<int8_t*>(smem));
+}
+
+// Stage 2b's GEMM at any other tile the plan IR accepts (bm a multiple of
+// 8, bn of 128; the tile a run-time parameter): a block owns its (bm, bn)
+// output tile (grid as above) and walks it in GB_M x GB_N sub-tiles of a
+// compiled warp grid, each over the whole of its K range; rows and columns
+// past the block's tile (or past M, N) are masked, inside an m16 fragment
+// too where bm is not a multiple of 16. The int32 sums are exact, so every
+// tile is bit-equal to the default.
+constexpr int GB_M = 64, GB_N = 128;
+
+template <typename T, bool SPLIT>
+__global__ void __launch_bounds__(GEMM_NT, (GemmTile<GB_M, GB_N>::MIN_BLOCKS))
+    fq_gemm_any_kernel(const int8_t* __restrict__ qx,
+                       const int8_t* __restrict__ qw,
+                       const float* __restrict__ sx,
+                       const uint32_t* __restrict__ sw_amax,
+                       T* __restrict__ out, int* __restrict__ part, int M,
+                       int N, int KP, int sps, int bm, int bn) {
+  extern __shared__ float smem[];
+  const int m0 = blockIdx.x * bm, n0 = blockIdx.y * bn;
+  const int mlim = min(m0 + bm, M), nlim = min(n0 + bn, N);
+  for (int sm = m0; sm < mlim; sm += GB_M)
+    for (int sn = n0; sn < nlim; sn += GB_N) {
+      __syncthreads();  // the previous sub-tile's reads of the ring are done
+      gemm_tile<T, GB_M, GB_N, SPLIT>(qx, qw, sx, sw_amax, out, part, M, N,
+                                      KP, sps, sm, sn, mlim, nlim,
+                                      reinterpret_cast<int8_t*>(smem));
     }
 }
 
@@ -670,14 +719,6 @@ struct Plan {
   int xb, ctiles, rb, wb;     // stage 1: x blocks, w strips, rows, w blocks
   long long off_sw, off_count, off_sx, off_qx, off_qw, off_part, bytes;
 };
-
-// whether (bm, bn) is one of TDT_FQ_TILES
-bool tile_instantiated(int bm, int bn) {
-#define TDT_FQ_IS(BM, BN) if (bm == BM && bn == BN) return true;
-  TDT_FQ_TILES(TDT_FQ_IS)
-#undef TDT_FQ_IS
-  return false;
-}
 
 long long align256(long long b) { return (b + 255) / 256 * 256; }
 
@@ -778,16 +819,56 @@ int launch_gemm(const int8_t* qx, const int8_t* qw, const float* sx,
   return (int)cudaGetLastError();
 }
 
+// Stage 2b's product at a tile outside TDT_FQ_TILES: fq_gemm_any_kernel,
+// then the split sum where K is split
+template <typename T>
+int launch_gemm_any(const int8_t* qx, const int8_t* qw, const float* sx,
+                    const uint32_t* sw_amax, T* out, int* part, const Plan& p,
+                    int M, int N, int bm, int bn, cudaStream_t stream) {
+  typedef GemmTile<GB_M, GB_N> G;
+  const dim3 grid((M + bm - 1) / bm, (N + bn - 1) / bn, p.splits);
+  int err;
+  if (p.splits == 1) {
+    err = (int)cudaFuncSetAttribute(
+        fq_gemm_any_kernel<T, false>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
+    if (err != 0) return err;
+    fq_gemm_any_kernel<T, false><<<grid, GEMM_NT, G::SMEM, stream>>>(
+        qx, qw, sx, sw_amax, out, nullptr, M, N, p.KP, p.sps, bm, bn);
+    return (int)cudaGetLastError();
+  }
+  err = (int)cudaFuncSetAttribute(fq_gemm_any_kernel<T, true>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  G::SMEM);
+  if (err != 0) return err;
+  fq_gemm_any_kernel<T, true><<<grid, GEMM_NT, G::SMEM, stream>>>(
+      qx, qw, sx, sw_amax, out, part, M, N, p.KP, p.sps, bm, bn);
+  if ((err = (int)cudaGetLastError()) != 0) return err;
+  const long long total = (long long)M * N;
+  const long long want = (total + SUM_NT - 1) / SUM_NT;
+  const int blocks = (int)(want < 8 * sm_count() ? want : 8 * sm_count());
+  fq_split_sum_kernel<T><<<blocks, SUM_NT, 0, stream>>>(part, sx, sw_amax, out,
+                                                       M, N, p.splits);
+  return (int)cudaGetLastError();
+}
+
+// the plan IR's rule (plan/ir.py validate_quant_block): bm a positive
+// multiple of 8, bn of 128, bk 0 or a positive multiple of 128
+bool tile_legal(int bm, int bn, int bk) {
+  return bm >= 8 && bm % 8 == 0 && bn >= 128 && bn % 128 == 0 && bk >= 0 &&
+         bk % KT == 0;
+}
+
 // The product; x_amax_in / w_amax_in: the row and column maxima to scale
 // by (tdt_fused_quant_scaled), or null to take them from x and w here.
-// (bm, bn, bk): the GEMM's tile and K split (M > 16); -2 for a tile this
-// build lacks.
+// (bm, bn, bk): the GEMM's tile and K split (M > 16); -2 for a tile the
+// plan IR refuses.
 template <typename T>
 int launch(const T* x, const T* w, T* out, char* ws, int M, int K, int N,
            int bm, int bn, int bk, cudaStream_t stream,
            const float* x_amax_in = nullptr,
            const uint32_t* w_amax_in = nullptr) {
-  if (!tile_instantiated(bm, bn) || bk < 0 || bk % KT) return -2;
+  if (!tile_legal(bm, bn, bk)) return -2;
   const Plan p = make_plan(M, K, N, (int)sizeof(T), bk);
   uint32_t* sw_amax = w_amax_in ? const_cast<uint32_t*>(w_amax_in)
                                 : reinterpret_cast<uint32_t*>(ws + p.off_sw);
@@ -834,12 +915,14 @@ int launch(const T* x, const T* w, T* out, char* ws, int M, int K, int N,
                                   stream);
   TDT_FQ_TILES(TDT_FQ_GEMM)
 #undef TDT_FQ_GEMM
-  return -2;
+  return launch_gemm_any<T>(qx, qw, sx, sw_amax, out, part, p, M, N, bm, bn,
+                            stream);
 }
 
 }  // namespace
 
-// The GEMM tiles this build instantiates: up to cap (bm, bn) pairs into
+// The GEMM tiles this build instantiates with a compiled warp grid (every
+// other legal tile runs on the general one): up to cap (bm, bn) pairs into
 // tiles (2 cap ints); returns their number.
 extern "C" int tdt_fused_quant_tiles(int* tiles, int cap) {
   int n = 0;
@@ -869,7 +952,7 @@ extern "C" int tdt_fused_quant_workspace(int M, int K, int N, int bk,
 // tdt_fused_quant_workspace bytes, 256-byte aligned. (bm, bn, bk): the
 // GEMM's output tile and K split, used where M > 16. Returns the first
 // failed call's cudaError_t (0 = every launch went out); -1 for a dtype
-// this build lacks or an empty shape, -2 for a tile it lacks.
+// this build lacks or an empty shape, -2 for a tile the plan IR refuses.
 extern "C" int tdt_fused_quant(const void* x, const void* w, void* out,
                                void* ws, int M, int K, int N, int dtype,
                                int bm, int bn, int bk, void* stream) {

@@ -43,12 +43,13 @@
 //    taken over shared memory, and the p-weighted V sums of the key groups
 //    are added in shared memory in a fixed order. Out: (m, l) and acc[d]
 //    per (b, h, split).
-// 2. paged_merge_kernel, one block of D threads per (b, h): M = max m_s,
+// 2. paged_merge_kernel, one block of D threads per (b, h) (and per
+//    256-dim chunk on the wide path): M = max m_s,
 //    L = sum l_s e^(m_s - M), out = sum acc_s e^(m_s - M) / max(L, 1e-30),
 //    over the row's live splits in order. No atomics anywhere, so the
 //    result is deterministic.
-// Head dims (head_dim.cuh): every d from 1 to 256. Exact instances at D =
-// 16, 32, 64, 128 and 256 run d == D on 16-byte-aligned arenas; every
+// Head dims (head_dim.cuh): every d from 1 up. Up to 256 exact instances
+// at D = 16, 32, 64, 128 and 256 run d == D on 16-byte-aligned arenas; every
 // other d, and a misaligned arena, runs on the general instance of the
 // next D up with the true d at run time: the arena rows keep the model's
 // width (stride H * d), a lane past d loads nothing and adds zeros, and no
@@ -61,6 +62,13 @@
 // thread, as the static_assert holds; ptxas (sm_90a, on the H100 build):
 // 122 registers for the exact split kernel at 256, 16.5 KB of shared
 // memory, no spill.
+// Above 256 every d runs on the wide path (paged_split_kernel_wide): 256's
+// lane layout, the scores summed over d in 256-dim slices (each lane's
+// pieces in order, then the shuffle reduction, so every chunk has the same
+// scores), and a block a 256-dim chunk of V (grid z), the merge one block
+// a chunk; K is read ceil(d / 256) times. 16.9 KB of shared memory at any
+// d; ptxas (sm_90a, on the H100 build): 128 registers and 4 bytes of spill
+// stores, 150 and none with ANY.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -274,6 +282,8 @@ __global__ void __launch_bounds__(NT) paged_split_kernel(
   }
 }
 
+// grid (B * H, ceil(d / D)): block y merges dims D y .. D y + D - 1 (one
+// block in y on an instance; the wide path's chunks above 256)
 template <typename T, int D, bool PAD>
 __global__ void __launch_bounds__(D) paged_merge_kernel(
     const float* __restrict__ part_ml, const float* __restrict__ part_acc,
@@ -281,7 +291,7 @@ __global__ void __launch_bounds__(D) paged_merge_kernel(
     int n_splits, int cap) {
   const int dh = PAD ? d_true : D;  // the true head dim (head_dim.cuh)
   const int bh = blockIdx.x;
-  const int d = threadIdx.x;
+  const int d = blockIdx.y * D + threadIdx.x;
   if (PAD && d >= dh) return;
   int len = lengths[bh / H];
   len = len < 0 ? 0 : (len > cap ? cap : len);
@@ -321,6 +331,188 @@ int launch(const void* q, const void* k, const void* ks, const void* v,
   return (int)cudaGetLastError();
 }
 
+// ---- the wide path (head_dim.cuh: d above 256) -----------------------------
+//
+// paged_split_kernel at 256's lane layout (PW = 16 dims a lane, 16 lanes a
+// key row, two keys a warp load, 8 keys a thread) for any d: block z owns
+// dims c0 .. c0 + WD - 1 (c0 = WD * blockIdx.z) of the split's p-weighted V
+// sum. A key's score is summed over d in WD-dim slices, each lane adding
+// its piece of every slice in order before the shuffle reduction, so every
+// chunk computes the same scores, max and sum (chunk 0 writes them). K is
+// read ceil(d / WD) times, V once; the merge runs one block a chunk.
+
+constexpr int WD = 256;  // dims a slice of the scores and a chunk of V
+
+template <typename T, bool ANY>
+__global__ void __launch_bounds__(NT) paged_split_kernel_wide(
+    const T* __restrict__ q, const int8_t* __restrict__ k,
+    const float* __restrict__ ks, const int8_t* __restrict__ v,
+    const float* __restrict__ vs, const int* __restrict__ bt,
+    const int* __restrict__ lengths, float* __restrict__ part_ml,
+    float* __restrict__ part_acc, int H, int dh, int P, int page_size,
+    float scale) {
+  constexpr int PW = 16;                    // dims a lane takes
+  constexpr int NWD = PW / 4;               // 32-bit words a lane loads
+  constexpr int PIECES = WD / PW;           // lanes per key row
+  constexpr int RPW = 32 / PIECES;          // keys per warp load
+  constexpr int GROUPS = NW * RPW;          // keys per block load
+  constexpr int KPT = SPLIT / GROUPS;       // keys per thread
+  static_assert(KPT >= 1 && KPT * GROUPS == SPLIT,
+                "a split block must give every thread a whole number of keys");
+  __shared__ float s_score[SPLIT];
+  __shared__ float s_red[GROUPS][WD];
+
+  const int split = blockIdx.x;
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int c0 = blockIdx.z * WD;  // this block's dims of the V sum
+  const int lane = threadIdx.x & 31;
+  const int w = threadIdx.x >> 5;
+  const int r = lane / PIECES;
+  const int c = lane % PIECES;
+  // the live dims of this lane's piece at dim offset o: with ANY the tail
+  // lane's piece reads zeros past dh (without, d is a multiple of 16)
+  auto live_dims = [&](int o) {
+    return ANY ? min(PW, max(dh - o - c * PW, 0))
+               : (o + c * PW < dh ? PW : 0);
+  };
+  const long long part = (long long)bh * gridDim.x + split;
+  int len = lengths[b];
+  const int cap = P * page_size;
+  len = len < 0 ? 0 : (len > cap ? cap : len);
+  const int j0 = split * SPLIT;
+  if (j0 >= len) {           // nothing live here: an empty partial
+    if (threadIdx.x == 0 && blockIdx.z == 0) {
+      part_ml[2 * part] = NEG_INF;
+      part_ml[2 * part + 1] = 0.f;
+    }
+    return;
+  }
+
+  const long long rs = (long long)H * dh;   // arena row stride (bytes)
+  long long row[KPT];
+  bool live[KPT];
+  float ksc[KPT], vsc[KPT];
+#pragma unroll
+  for (int i = 0; i < KPT; ++i) {
+    const int j = j0 + (i * NW + w) * RPW + r;
+    live[i] = j < len;
+    row[i] = live[i] ? (long long)bt[(long long)b * P + j / page_size] *
+                               page_size + j % page_size
+                     : 0;
+    if (live[i]) {
+      ksc[i] = ks[row[i] * H + h];
+      vsc[i] = vs[row[i] * H + h];
+    }
+  }
+
+  // scores: each lane dots its piece of every slice, then shuffle-reduce
+  float dsum[KPT];
+#pragma unroll
+  for (int i = 0; i < KPT; ++i) dsum[i] = 0.f;
+  for (int o = 0; o < dh; o += WD) {
+    const int n = live_dims(o);
+    float qv[PW];
+    const T* qr = q + (long long)bh * dh + o + c * PW;
+#pragma unroll
+    for (int e = 0; e < PW; ++e) qv[e] = e < n ? to_f<T>(qr[e]) : 0.f;
+    I8Words<NWD> kr[KPT];
+#pragma unroll
+    for (int i = 0; i < KPT; ++i)
+      if (live[i] && n > 0)
+        kr[i] = load_piece<NWD, ANY>(
+            k + row[i] * rs + (long long)h * dh + o + c * PW, n);
+#pragma unroll
+    for (int i = 0; i < KPT; ++i)
+      if (live[i] && n > 0) {
+#pragma unroll
+        for (int t = 0; t < NWD; ++t)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            dsum[i] = fmaf(qv[4 * t + e], i8(kr[i].w[t], e), dsum[i]);
+      }
+  }
+  float s[KPT];
+#pragma unroll
+  for (int i = 0; i < KPT; ++i) {
+    float d = dsum[i];
+#pragma unroll
+    for (int off = PIECES / 2; off > 0; off >>= 1)
+      d += __shfl_xor_sync(0xffffffffu, d, off);
+    s[i] = live[i] ? d * ksc[i] * scale : NEG_INF;
+    if (c == 0) s_score[(i * NW + w) * RPW + r] = s[i];
+  }
+  __syncthreads();
+
+  // the split's max and sum, every warp on its own from shared memory
+  float m = NEG_INF;
+  for (int t = lane; t < SPLIT; t += 32) m = fmaxf(m, s_score[t]);
+  m = warp_max(m);                           // finite: key j0 is live
+  float l = 0.f;
+  for (int t = lane; t < SPLIT; t += 32) {
+    const float sc = s_score[t];
+    l += (sc <= 0.5f * NEG_INF) ? 0.f : expf(sc - m);
+  }
+  l = warp_sum(l);
+
+  // p-weighted V over this thread's keys in this block's chunk, then over
+  // the key groups
+  const int nv = live_dims(c0);
+  float acc[PW];
+#pragma unroll
+  for (int e = 0; e < PW; ++e) acc[e] = 0.f;
+#pragma unroll
+  for (int i = 0; i < KPT; ++i) {
+    if (live[i] && nv > 0) {
+      const I8Words<NWD> vr = load_piece<NWD, ANY>(
+          v + row[i] * rs + (long long)h * dh + c0 + c * PW, nv);
+      const float pv = expf(s[i] - m) * vsc[i];
+#pragma unroll
+      for (int t = 0; t < NWD; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[4 * t + e] = fmaf(pv, i8(vr.w[t], e), acc[4 * t + e]);
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < PW; ++e) s_red[w * RPW + r][c * PW + e] = acc[e];
+  __syncthreads();
+  for (int d = threadIdx.x; d < min(WD, dh - c0); d += NT) {
+    float a = 0.f;
+#pragma unroll 8
+    for (int g = 0; g < GROUPS; ++g) a += s_red[g][d];
+    part_acc[part * dh + c0 + d] = a;
+  }
+  if (threadIdx.x == 0 && blockIdx.z == 0) {
+    part_ml[2 * part] = m;
+    part_ml[2 * part + 1] = l;
+  }
+}
+
+template <typename T, bool ANY>
+int launch_wide(const void* q, const void* k, const void* ks, const void* v,
+                const void* vs, const void* bt, const void* lengths,
+                void* part_ml, void* part_acc, void* out, int B, int H, int d,
+                int P, int page_size, int n_splits, float scale,
+                cudaStream_t stream) {
+  const int chunks = (d + WD - 1) / WD;
+  const dim3 grid(n_splits, B * H, chunks), merge_grid(B * H, chunks);
+  paged_split_kernel_wide<T, ANY><<<grid, NT, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const int8_t*>(k),
+      static_cast<const float*>(ks), static_cast<const int8_t*>(v),
+      static_cast<const float*>(vs), static_cast<const int*>(bt),
+      static_cast<const int*>(lengths), static_cast<float*>(part_ml),
+      static_cast<float*>(part_acc), H, d, P, page_size, scale);
+  const int err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  paged_merge_kernel<T, WD, true><<<merge_grid, WD, 0, stream>>>(
+      static_cast<const float*>(part_ml), static_cast<const float*>(part_acc),
+      static_cast<const int*>(lengths), static_cast<T*>(out), H, d, n_splits,
+      P * page_size);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // q and out (B, 1, H, D) of dtype 0 = float32, 1 = bfloat16; k, v int8
@@ -330,8 +522,9 @@ int launch(const void* q, const void* k, const void* ks, const void* v,
 // scratch part_ml (B, H, n_splits, 2) and part_acc (B, H, n_splits, D),
 // n_splits = ceil(P * page_size / 128). Two launches (split, merge) on
 // `stream`. Returns the first failed launch's cudaError_t (0 = both
-// launched); -1 for a dtype or a head dim D this build has no instance for
-// (head_dim.cuh), -2 for a wrong n_splits or more than 65,535 (b, h) rows.
+// launched); -1 for a dtype this build has no instance for or a head dim D
+// below 1 (head_dim.cuh), -2 for a wrong n_splits or more than 65,535 (b,
+// h) rows.
 extern "C" int tdt_paged_decode(const void* q, const void* k, const void* ks,
                                 const void* v, const void* vs,
                                 const void* block_tables,
@@ -351,11 +544,19 @@ extern "C" int tdt_paged_decode(const void* q, const void* k, const void* ks,
       return launch<float, HD::value, HD::pad, HD::any>(
           q, k, ks, v, vs, block_tables, lengths, part_ml, part_acc, out, B,
           H, D, P, page_size, n_splits, scale, s);
+   }, [&](auto wd) {
+      return launch_wide<float, decltype(wd)::any>(
+          q, k, ks, v, vs, block_tables, lengths, part_ml, part_acc, out, B,
+          H, D, P, page_size, n_splits, scale, s);
     });
   if (dtype == 1)
     return with_head_dim(D, aligned, D % 16 == 0, [&](auto hd) {
       using HD = decltype(hd);
       return launch<__nv_bfloat16, HD::value, HD::pad, HD::any>(
+          q, k, ks, v, vs, block_tables, lengths, part_ml, part_acc, out, B,
+          H, D, P, page_size, n_splits, scale, s);
+   }, [&](auto wd) {
+      return launch_wide<__nv_bfloat16, decltype(wd)::any>(
           q, k, ks, v, vs, block_tables, lengths, part_ml, part_acc, out, B,
           H, D, P, page_size, n_splits, scale, s);
     });

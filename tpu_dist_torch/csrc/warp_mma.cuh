@@ -307,4 +307,71 @@ __device__ __forceinline__ void online_softmax_tile(
     }
 }
 
+// ---- the wide path (head_dim.cuh: d above 256) ----------------------------
+
+// cp_async_rows (ANY: cp_async_rows_any) of the W columns from c0 of an
+// (L, d) matrix's rows r0 .. r0+ROWS-1: columns at or past d, and rows at
+// or past L, read as zeros. c0 < d, a multiple of 16 bytes' elements.
+template <int ROWS, int W, int RS, int NT, bool ANY, typename T>
+__device__ __forceinline__ void cp_async_cols(T* dst, const T* src,
+                                              long stride, int r0, int L,
+                                              int c0, int d, int tid) {
+  if constexpr (ANY)
+    cp_async_rows_any<ROWS, W, RS, NT>(dst, src + c0, stride, r0, L, tid,
+                                       d - c0);
+  else
+    cp_async_rows<ROWS, W, RS, NT>(dst, src + c0, stride, r0, L, tid,
+                                   d - c0);
+}
+
+// c (16 x 8 NB) += a (16 x 16 KS) . b (8 NB x 16 KS)^T for one warp: a's
+// 16 rows and b's 8 NB rows k-contiguous in shared memory (row stride RS),
+// both read by ldmatrix
+template <int NB, int KS, int RS>
+__device__ __forceinline__ void warp_mma_abt(float (&c)[NB][4],
+                                             const __nv_bfloat16* a,
+                                             const __nv_bfloat16* b) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    uint32_t af[4];
+    ldsm_x4(af, a + (lane % 16) * RS + kk * 16 + (lane / 16) * 8);
+#pragma unroll
+    for (int j = 0; j < NB / 2; ++j) {  // n-tiles 2j, 2j+1
+      uint32_t bf[4];
+      ldsm_x4(bf, b + (16 * j + lane % 8 + (lane / 16) * 8) * RS + kk * 16 +
+                      ((lane / 8) % 2) * 8);
+      mma_bf16_16816(c[2 * j], af, bf[0], bf[1]);
+      mma_bf16_16816(c[2 * j + 1], af, bf[2], bf[3]);
+    }
+  }
+}
+
+// acc (16 x 8 ND) += bf16(p) (16 x 16 KS) . v (16 KS x 8 ND) for one warp:
+// p in C fragments (n-tiles 2kk, 2kk+1 rounded to bf16 and repacked in
+// registers as k-step kk's A operand), v's rows k-major in shared memory
+// (row stride RS) read by ldmatrix.trans
+template <int KS, int ND, int RS>
+__device__ __forceinline__ void warp_mma_pv(float (&acc)[ND][4],
+                                            const float (&p)[2 * KS][4],
+                                            const __nv_bfloat16* v) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    uint32_t a[4];
+    a[0] = pack_bf16x2(p[2 * kk][0], p[2 * kk][1]);
+    a[1] = pack_bf16x2(p[2 * kk][2], p[2 * kk][3]);
+    a[2] = pack_bf16x2(p[2 * kk + 1][0], p[2 * kk + 1][1]);
+    a[3] = pack_bf16x2(p[2 * kk + 1][2], p[2 * kk + 1][3]);
+#pragma unroll
+    for (int j = 0; j < ND / 2; ++j) {  // n-tiles 2j, 2j+1
+      uint32_t bv[4];
+      ldsm_x4_trans(bv, v + (kk * 16 + lane % 16) * RS + 16 * j +
+                            (lane / 16) * 8);
+      mma_bf16_16816(acc[2 * j], a, bv[0], bv[1]);
+      mma_bf16_16816(acc[2 * j + 1], a, bv[2], bv[3]);
+    }
+  }
+}
+
 #endif  // TDT_WARP_MMA_CUH

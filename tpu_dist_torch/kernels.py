@@ -29,7 +29,7 @@ import shutil
 import subprocess
 import threading
 import time
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, Optional, Union
 
 import torch
 
@@ -51,32 +51,39 @@ LOCAL_INCLUDE = re.compile(r'^#include "([\w.]+)"$', re.M)
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 # The head dims of the five attention kernels, the rule of
-# csrc/head_dim.cuh: every d from 1 to 256, as the reference's kernels take
-# each head's whole d as one block. Each source compiles instances at these
-# head dims: the exact one runs d equal to it on tensors that start on a
-# 16-byte boundary; the general one runs every other d up to it (8 on 16,
-# 24 on 32, 33 and 48 on 64, 100 on 128, 136 and 200 on 256) with the true
-# d at run time, zeros past d in shared memory and nothing stored past d,
-# so no tensor is copied or padded. Rows that are not whole 16-byte chunks
-# on 16-byte boundaries (an odd d, a misaligned view) run on a third
-# tensor-core instance that copies them by narrower cp.async or byte
-# loads. Above 256 a head's output accumulators outgrow a warp's registers
-# in every design here; the C entries return -1 for d < 1 or d > 256.
+# csrc/head_dim.cuh: every d from 1 up, as the reference's kernels take
+# each head's whole d as one block. Up to 256 each source compiles
+# instances at these head dims: the exact one runs d equal to it on
+# tensors that start on a 16-byte boundary; the general one runs every
+# other d up to it (8 on 16, 24 on 32, 33 and 48 on 64, 100 on 128, 136
+# and 200 on 256) with the true d at run time, zeros past d in shared
+# memory and nothing stored past d, so no tensor is copied or padded. Rows
+# that are not whole 16-byte chunks on 16-byte boundaries (an odd d, a
+# misaligned view) run on a third tensor-core instance that copies them by
+# narrower cp.async or byte loads. Above 256 every d runs on the wide path
+# (HEAD_DIM_WIDE): a block owns one chunk of the output's columns, the
+# scores summed over d in slices streamed through shared memory, so
+# neither registers nor shared memory grow with d; there is no ceiling.
+# The C entries return -1 for d < 1.
 HEAD_DIM_INSTANCES = (16, 32, 64, 128, 256)
-HEAD_DIM_RULE = "every head dim from 1 to 256"
+HEAD_DIM_WIDE = "wide"
+HEAD_DIM_RULE = "every head dim from 1 up"
 
 
-def head_dim_instance(d: int) -> Optional[int]:
-    """The compiled head dim that runs head dim ``d``, or None where no
-    instance does (``csrc/head_dim.cuh``'s ``tdt_head_dim_instance``)."""
-    if d < 1 or d > HEAD_DIM_INSTANCES[-1]:
+def head_dim_instance(d: int) -> Union[int, str, None]:
+    """The compiled head dim that runs head dim ``d`` (16 .. 256),
+    :data:`HEAD_DIM_WIDE` above 256, or None where nothing does (d < 1):
+    ``csrc/head_dim.cuh``'s ``tdt_head_dim_instance``."""
+    if d < 1:
         return None
+    if d > HEAD_DIM_INSTANCES[-1]:
+        return HEAD_DIM_WIDE
     return min(i for i in HEAD_DIM_INSTANCES if i >= d)
 
 
-def check_head_dim(kernel: str, d: int) -> int:
+def check_head_dim(kernel: str, d: int) -> Union[int, str]:
     """``head_dim_instance(d)``; raises ``ValueError`` naming ``d`` and the
-    rule where no instance runs it."""
+    rule where nothing runs it."""
     inst = head_dim_instance(d)
     if inst is None:
         raise ValueError(f"{kernel}: head_dim {d} is refused: the kernels "

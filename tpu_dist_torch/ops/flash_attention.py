@@ -29,12 +29,14 @@ behind it, so there is no kernel to port; it launches none.
 A call that autograd would not differentiate (serving runs under
 ``torch.inference_mode()``) skips the Function and saves nothing.
 
-Every head dim from 1 to 256 runs (``kernels.HEAD_DIM_RULE``, the rule
-of ``csrc/head_dim.cuh``), on tensors of any alignment: a view at an odd
+Every head dim from 1 up runs (``kernels.HEAD_DIM_RULE``, the rule of
+``csrc/head_dim.cuh``; above 256 on the kernels' wide path, which splits
+the output's columns into chunks over the grid and sums the scores over
+d in streamed slices), on tensors of any alignment: a view at an odd
 element offset, or a head dim whose rows are not a whole number of
-16-byte chunks, runs on the general instance, which copies such rows by
-narrower ``cp.async`` or byte loads. Nothing is copied or padded on the
-host.
+16-byte chunks, runs on the general instance (or the wide path's), which
+copies such rows by narrower ``cp.async`` or byte loads. Nothing is copied
+or padded on the host.
 """
 
 from __future__ import annotations

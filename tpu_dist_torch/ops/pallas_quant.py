@@ -28,11 +28,11 @@ The tile knob (``:53-100``): :func:`set_quant_blocks` (seeded by
 GEMM path's tile (M > 16): a (bm, bn) output tile a CTA, and with bk > 0
 K split over ceil(K / bk) CTAs whose int32 partial sums are added exactly
 before the one dequant, so every tile is bit-equal to the default
-(128, 128, 0), the kernel's tile before the knob. The kernel instantiates
-the (bm, bn) tiles of :data:`INSTANTIATED_TILES`; a tile the plan IR
-allows but the kernel lacks raises ``NotImplementedError`` naming
-``quant_block`` at each CUDA call, decode-sized ones included. The split-K
-decode kernel (M <= 16) keeps its own tiling whatever the knob. The
+(128, 128, 0), the kernel's tile before the knob. Every tile the plan IR
+accepts runs: the (bm, bn) tiles of :data:`INSTANTIATED_TILES` on warp
+grids compiled for them, every other one on the kernel's general instance
+(the tile a run-time parameter, walked in 64 x 128 sub-tiles). The
+split-K decode kernel (M <= 16) keeps its own tiling whatever the knob. The
 dispatch switch (``set_fused_quant``, ``TPU_DIST_FUSED_QUANT``) lives in
 ``ops.quant``: set off, ``quant_matmul(..., "int8")`` does not come here.
 """
@@ -66,8 +66,9 @@ MAX_K = (2 ** 31 - 1) // 127 ** 2
 
 BLOCK_M = 128        # the default output tile (the plan's DEFAULT_QUANT_BLOCK)
 BLOCK_N = 128
-# the (bm, bn) GEMM tiles csrc/fused_quant.cu instantiates (its
-# TDT_FQ_TILES); the tuner's space lies inside them
+# the (bm, bn) GEMM tiles csrc/fused_quant.cu compiles a warp grid for (its
+# TDT_FQ_TILES; any other legal tile runs on its general instance); the
+# tuner's space lies inside them
 INSTANTIATED_TILES = ((128, 128), (256, 128), (128, 256), (64, 256))
 
 _BLOCKS: Tuple[int, int, int] = (BLOCK_M, BLOCK_N, 0)
@@ -77,8 +78,8 @@ def set_quant_blocks(bm: Optional[int] = None, bn: Optional[int] = None,
                      bk: Optional[int] = None) -> None:
     """Set the GEMM path's tile ((None, None, None) restores 128 x 128
     over the whole of K). Legality is the plan IR's one rule
-    (``plan.ir.validate_quant_block``); whether the kernel instantiates
-    the tile is checked at launch."""
+    (``plan.ir.validate_quant_block``); the kernel runs every legal
+    tile."""
     from tpu_dist_torch.plan.ir import validate_quant_block
 
     global _BLOCKS
@@ -107,15 +108,6 @@ def _seed_blocks_from_env() -> None:
 
 
 _seed_blocks_from_env()
-
-
-def _check_tile(tile: Tuple[int, int, int]) -> None:
-    """Refuse a tile the kernel does not instantiate, naming the knob."""
-    if tuple(tile[:2]) not in INSTANTIATED_TILES:
-        raise NotImplementedError(
-            f"quant_block={tuple(tile)!r}: csrc/fused_quant.cu instantiates "
-            f"the (bm, bn) tiles {list(INSTANTIATED_TILES)} (bk 0 or a "
-            "multiple of 128 with any of them)")
 
 
 @kernels.plain_version
@@ -173,12 +165,15 @@ def _check_fused_quant(x2, w):
 def _launch(fn, ws_fn, x2, w, stream, amax=None, tile=None):
     """Call the C entry ``fn`` (``tdt_fused_quant``, or with ``amax`` =
     (x maxima, w maxima) ``tdt_fused_quant_scaled``) on checked tensors at
-    ``tile`` (default: :func:`quant_blocks`): refuse a tile the kernel
-    lacks, allocate the output and the workspace ``ws_fn``
+    ``tile`` (default: :func:`quant_blocks`; a tile the plan IR refuses
+    raises its ``PlanError``): allocate the output and the workspace
+    ``ws_fn``
     (``tdt_fused_quant_workspace``) asks for, launch on ``stream``, raise
     on a launch error."""
+    from tpu_dist_torch.plan.ir import validate_quant_block
+
     bm, bn, bk = quant_blocks() if tile is None else tile
-    _check_tile((bm, bn, bk))
+    validate_quant_block(bm, bn, bk)
     m, k = x2.shape
     n = w.shape[1]
     size = ctypes.c_longlong()
@@ -191,10 +186,6 @@ def _launch(fn, ws_fn, x2, w, stream, amax=None, tile=None):
     err = fn(x2.data_ptr(), w.data_ptr(), *scales, out.data_ptr(),
              ws.data_ptr(), m, k, n, kernels.DTYPE_CODE[x2.dtype], bm, bn,
              bk, stream)
-    if err == -2:
-        raise NotImplementedError(
-            f"quant_block={(bm, bn, bk)!r}: csrc/fused_quant.cu lacks this "
-            "tile")
     if err != 0:
         raise RuntimeError(f"fused_quant kernel launch failed "
                            f"(cudaError {err})")
@@ -202,7 +193,8 @@ def _launch(fn, ws_fn, x2, w, stream, amax=None, tile=None):
 
 
 def kernel_tiles(fn) -> Tuple[Tuple[int, int], ...]:
-    """The (bm, bn) tiles a build of ``csrc/fused_quant.cu`` instantiates,
+    """The (bm, bn) tiles a build of ``csrc/fused_quant.cu`` compiles a
+    warp grid for (every other legal tile runs on its general instance),
     read through its ``tdt_fused_quant_tiles`` entry ``fn``."""
     buf = (ctypes.c_int * 64)()
     n = fn(buf, 32)

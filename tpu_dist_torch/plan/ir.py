@@ -64,9 +64,11 @@ class PlanError(ValueError):
 def validate_quant_block(bm: int, bn: int, bk: int) -> None:
     """The (bm, bn, bk) tile legality for the fused int8 kernel, shared
     by :meth:`Plan.validate` and ``ops.pallas_quant.set_quant_blocks``
-    (its env seed included), so the IR and the kernel cannot disagree on
-    what a legal tile is; the reference's rule and messages. Raises
-    :class:`PlanError`."""
+    (its env seed included); the reference's rule and messages. The CUDA
+    kernel (``csrc/fused_quant.cu``) runs every tile this accepts: its
+    compiled tiles on their own warp grids, every other one on its general
+    instance, so the IR and the kernel agree on what a legal tile is.
+    Raises :class:`PlanError`."""
     if bm < 8 or bm % 8:
         raise PlanError(f"quant_block bm={bm}: Mosaic needs a positive "
                         "multiple of the fp32 sublane (8)")
