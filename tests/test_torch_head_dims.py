@@ -14,8 +14,9 @@ tokens through int8 pages. The fused int8 matmul's plain version gives
 the reference kernel's bits at tiles outside the four the CUDA kernel
 compiles a warp grid for.
 The card runs the kernels themselves at these head dims
-(``chip_smoke.py`` phase 3 and 22); ``test_torch_kernel_emulation.py``
-holds their sources against these plain versions on the CPU."""
+(``chip_smoke.py`` phase 3 and 22); ``test_torch_emu_head_dims.py`` and
+``test_torch_emu_wide.py`` hold their sources against these plain
+versions on the CPU."""
 
 import numpy as np
 import pytest
